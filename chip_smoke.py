@@ -9,24 +9,32 @@ path end to end and checks what comes out.
 Phases, one JSON line each on stdout (any failure raises and the process
 exits non-zero):
   env        card name and power limit (nvidia-smi), torch and CUDA
-  build      nvcc for csrc/*.cu and g++ for the C++ host leg, in parallel
+  build      nvcc for csrc/*.cu and g++ for the C++ host leg, in parallel,
+             with the NW kernel's registers, shared memory, stack frame
+             and spills from -Xptxas -v (any stack frame or spill fails)
   kernels    the CUDA NW kernel equals its plain version exactly at every
-             DP tier (32, 48, 96, 192), with its time, the plain
+             DP tier (32, 48, 96, 192), on pairs whose lengths straddle
+             the kernel's column chunks and on a batch that is not a
+             multiple of its pairs per block, with its time, the plain
              version's time and the bound
   small_e2e  a 20 kb planted dataset: the port on cuda and on cpu write
              byte-identical SAM and VCF
   main_path  100,000 read pairs on a 4.6 Mb genome through
-             `python -m mapcaller_tpu_torch.cli` (in process), with the
-             NW kernel's launches counted; then the same run with the
-             scalar C++ DP must give byte-identical SAM and VCF
-Then the kernel table line ({"kernels": [...]}, timed at the main path's
-own DP shapes), the card's name and power limit, and as the last line
-{"ok": true, "device": {...}}.
+             `python -m mapcaller_tpu_torch.cli` (in process): one warm-up
+             run, which also captures the tensors of its largest NW
+             launch, then runs with the device DP and with the scalar C++
+             DP in turns (device, scalar, scalar, device), each counting
+             the NW kernel's launches and writing the warm-up's SAM and
+             VCF bytes
+Then the kernel table line ({"kernels": [...]}, timed on the main path's
+own captured pairs and on random pairs of the same shape), the card's
+name and power limit, and as the last line {"ok": true, "device": {...}}.
 
 Needs one CUDA card, nvcc and g++. Refuses to run without a card.
 """
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -53,35 +61,48 @@ def card_line():
     return out.strip().splitlines()[0].strip()
 
 
-def cuda_ms(fn, reps, warmup=3):
+def cuda_ms(fn, reps, warmup=3, queued=False):
     """Median time of fn() over `reps` runs, each bracketed by CUDA
-    events, after `warmup` runs."""
+    events, after `warmup` runs. With `queued`, every run is enqueued
+    behind a device-side sleep first, so the events time the device's
+    work alone; without it they also count the host's time to issue the
+    run whenever that is longer than the device's."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    if queued:
+        torch.cuda._sleep(reps * 400_000)     # ~0.2 ms of SM cycles a run
+    for a, b in events:
         a.record()
         fn()
         b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+        if not queued:
+            b.synchronize()
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in events)
 
 
 def nw_inputs(B, M, seed):
     """B random pairs for an M x M tier on the card: lengths uniform in
-    [0, M] with the edges (0 and M) forced on the first pairs, s2 a
-    mutated copy of s1 on most pairs."""
+    [0, M] with the edges (0 and M) forced on the first pairs and second
+    sides of k*chunk - 1, k*chunk and k*chunk + 1 columns (the edges of
+    the kernel's per-lane column chunks) on the next ones, s2 a mutated
+    copy of s1 on most pairs."""
     import numpy as np
     import torch
+    from mapcaller_tpu_torch.ops.nw_device import nw_geometry
     rng = np.random.default_rng(seed)
     m = rng.integers(0, M + 1, size=B).astype(np.int32)
     n = rng.integers(0, M + 1, size=B).astype(np.int32)
     m[:4], n[:4] = [0, M, 0, M], [0, M, M, 0]
+    lanes, chunk, _, _ = nw_geometry(M, M)
+    edges = [e for k in range(1, lanes + 1)
+             for e in (k * chunk - 1, k * chunk, k * chunk + 1) if e <= M]
+    edges = edges[:max(B - 4, 0)]
+    n[4:4 + len(edges)] = edges
     c1 = rng.integers(0, 4, size=(B, M)).astype(np.uint8)
     c2 = c1.copy()
     mut = rng.random((B, M)) < 0.1
@@ -107,26 +128,70 @@ def nw_bound_ms(c1, c2, m, n):
          else "bytes")
 
 
-def check_nw(nw, B, M, seed, reps):
-    """Kernel vs plain version on the card at (B, M, M): exact equality,
-    then times. Returns the measurement dict."""
+def equal_nw(nw, args):
+    """Kernel vs plain version on the same tensors: exact equality of
+    words and scores. Returns the max abs difference (0)."""
     import torch
-    args = nw_inputs(B, M, seed)
-    launches = nw.STATS.launches
     kw, ks = nw.nw_ops(*args)
     pw, ps = nw.nw_ops_plain(*args)
     torch.cuda.synchronize()
     err = max(int((kw.long() - pw.long()).abs().max()),
               int((ks.long() - ps.long()).abs().max()))
     if err != 0 or not torch.equal(kw, pw) or not torch.equal(ks, ps):
-        raise AssertionError(f"NW kernel != plain version at B={B} M={M} "
+        raise AssertionError(f"NW kernel != plain version at "
+                             f"{tuple(args[0].shape)}x{args[1].shape[1]} "
                              f"(max_abs_err {err})")
-    ms = cuda_ms(lambda: nw.nw_ops(*args), reps)
+    return err
+
+
+def measure_nw(nw, args, reps):
+    """Equality with the plain version, then times on `args`: `ms` the
+    kernel's device time (queued launches), `call_ms` one nw_ops call
+    timed launch by launch, the host's issue time included."""
+    B, M = args[0].shape
+    N = args[1].shape[1]
+    err = equal_nw(nw, args)
+    ms = cuda_ms(lambda: nw.nw_ops(*args), reps, queued=True)
+    call_ms = cuda_ms(lambda: nw.nw_ops(*args), reps)
     plain_ms = cuda_ms(lambda: nw.nw_ops_plain(*args), 3, warmup=1)
     bound, by = nw_bound_ms(*args)
-    return dict(B=B, M=M, N=M, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound, bound_by=by,
-                launches=nw.STATS.launches - launches)
+    return dict(B=B, M=M, N=N, geometry=list(nw.nw_geometry(M, N)),
+                max_abs_err=err, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=by, share_of_bound=bound / ms)
+
+
+def check_nw(nw, B, M, seed, reps):
+    """Kernel vs plain version on random pairs at (B, M, M), then at a
+    ragged batch of B // 4 + 1 pairs, then times at B."""
+    equal_nw(nw, nw_inputs(B // 4 + 1, M, seed + 1))
+    return measure_nw(nw, nw_inputs(B, M, seed), reps)
+
+
+def ptxas_report(out, kernel="nw_ops_kernel"):
+    """Registers, shared memory, stack frame and spill bytes of each
+    instantiation of `kernel` (keyed by its chunk) from the output of
+    nvcc -Xptxas -v."""
+    fields = (("registers", r"Used (\d+) registers"),
+              ("smem_bytes", r"(\d+) bytes smem"),
+              ("stack_frame_bytes", r"(\d+) bytes stack frame"),
+              ("spill_store_bytes", r"(\d+) bytes spill stores"),
+              ("spill_load_bytes", r"(\d+) bytes spill loads"))
+    rep, cur = {}, None
+    for ln in out.splitlines():
+        fn = re.search(r"(?:entry function|properties for) '?(\w+)", ln)
+        if fn:
+            cur = None
+            if kernel in fn.group(1):
+                ch = re.search(r"ILi(\d+)E", fn.group(1))
+                cur = f"chunk{ch.group(1)}" if ch else fn.group(1)
+                rep.setdefault(cur, {})
+            continue
+        if cur is not None:
+            for key, pat in fields:
+                hit = re.search(pat, ln)
+                if hit:
+                    rep[cur][key] = int(hit.group(1))
+    return rep
 
 
 def same_bytes(a, b):
@@ -177,6 +242,10 @@ def last_metrics(log):
 
 
 def run_main_path(work, card):
+    """One warm-up run through the CLI (device DP), with a tap around
+    nw_device.nw_ops that keeps the tensors of its largest NW launch,
+    then device-DP and scalar-DP runs in turns. Returns the first
+    device turn's launch count and the captured launch's tensors."""
     import torch
     from mapcaller_tpu_torch import cli, runner
     from mapcaller_tpu_torch.ops import nw_device
@@ -193,47 +262,89 @@ def run_main_path(work, card):
                                                   "job.log"))
     argv = ["mapcaller", "-i", idx, "-f", r1, "-f2", r2, "-sam", sam,
             "-vcf", vcf, "-log", log]
-    # run 1: default flags, through the CLI a user calls
-    torch.cuda.reset_peak_memory_stats()
-    nw_device.STATS.reset()
-    if cli.main(argv) != 0:
-        raise RuntimeError("main path run failed")
-    launches = nw_device.STATS.launches
-    pairs = nw_device.STATS.pairs
-    shapes = dict(nw_device.STATS.shapes)
-    peak = torch.cuda.max_memory_allocated()
-    m1 = last_metrics(log)
-    os.replace(sam, sam + ".devdp")
-    os.replace(vcf, vcf + ".devdp")
-    # run 2: the same command with the scalar C++ DP
-    cfg = cli.parse_args(argv)
-    cfg.device_extension = False
-    nw_device.STATS.reset()
-    if runner.run_pipeline(cfg, " ".join(argv)) != 0:
-        raise RuntimeError("scalar-DP run failed")
-    m2 = last_metrics(log)
-    sam_ok = same_bytes(sam, sam + ".devdp")
-    vcf_ok = same_bytes(vcf, vcf + ".devdp")
+
+    def run(device_dp):
+        """One run; default flags through the CLI a user calls, or the
+        same command with the scalar C++ DP."""
+        torch.cuda.reset_peak_memory_stats()
+        nw_device.STATS.reset()
+        if device_dp:
+            rc = cli.main(argv)
+        else:
+            cfg = cli.parse_args(argv)
+            cfg.device_extension = False
+            rc = runner.run_pipeline(cfg, " ".join(argv))
+        if rc != 0:
+            raise RuntimeError(f"main path run failed (device_dp={device_dp})")
+        st = nw_device.STATS
+        return dict(metrics=last_metrics(log), launches=st.launches,
+                    pairs=st.pairs, shapes=dict(st.shapes),
+                    peak=torch.cuda.max_memory_allocated())
+
+    captured = {}
+    nw_ops = nw_device.nw_ops
+
+    def tap(c1, c2, m, n):
+        cells = c1.shape[0] * c1.shape[1] * c2.shape[1]
+        if cells > captured.get("cells", -1):
+            captured.update(cells=cells, args=tuple(
+                x.clone() for x in (c1, c2, m, n)))
+        return nw_ops(c1, c2, m, n)
+
+    nw_device.nw_ops = tap
+    try:
+        warm = run(True)
+    finally:
+        nw_device.nw_ops = nw_ops
+    os.replace(sam, sam + ".warm")
+    os.replace(vcf, vcf + ".warm")
+    turns = []
+    for device_dp in (True, False, False, True):
+        r = run(device_dp)
+        r.update(device_dp=device_dp, sam_identical=same_bytes(
+            sam, sam + ".warm"), vcf_identical=same_bytes(vcf, vcf + ".warm"))
+        turns.append(r)
+    dev = [t for t in turns if t["device_dp"]]
+    sca = [t for t in turns if not t["device_dp"]]
+
+    def med(runs, key):
+        return statistics.median(t["metrics"][key] for t in runs)
+
+    m1 = dev[0]["metrics"]
     emit("main_path", card=card, setup_s=setup_s,
-         reads=m1["total_reads"], reads_per_s=m1["reads_per_sec"],
-         mapping_s=m1["mapping_seconds"], calling_s=m1["calling_seconds"],
-         total_s=m1["total_seconds"],
+         reads=m1["total_reads"],
          mapped_pct=100.0 * m1["mapped"] / max(m1["total_reads"], 1),
          variants=m1["variant_counts"],
-         n_oracle_reads=m1["n_oracle_reads"],
-         n_tier_reruns=m1["n_tier_reruns"],
-         nw_launches=launches, nw_pairs=pairs,
-         nw_shapes={f"{b}x{m}x{n}": c for (b, m, n), c in shapes.items()},
-         peak_mem_bytes=peak,
-         scalar_dp_reads_per_s=m2["reads_per_sec"],
-         scalar_dp_mapping_s=m2["mapping_seconds"],
-         scalar_dp_nw_launches=nw_device.STATS.launches,
-         sam_identical=sam_ok, vcf_identical=vcf_ok)
-    if not (launches > 0 and pairs > 0 and sam_ok and vcf_ok
-            and nw_device.STATS.launches == 0):
-        raise AssertionError("main_path: NW kernel not launched, or device "
-                             "DP and scalar DP outputs differ")
-    return launches, shapes
+         n_oracle_reads=max(t["metrics"]["n_oracle_reads"] for t in turns),
+         n_tier_reruns=max(t["metrics"]["n_tier_reruns"] for t in turns),
+         warmup_reads_per_s=warm["metrics"]["reads_per_sec"],
+         warmup_nw_launches=warm["launches"],
+         turns=[dict(dp="device" if t["device_dp"] else "scalar",
+                     reads_per_s=t["metrics"]["reads_per_sec"],
+                     mapping_s=t["metrics"]["mapping_seconds"],
+                     calling_s=t["metrics"]["calling_seconds"],
+                     total_s=t["metrics"]["total_seconds"],
+                     nw_launches=t["launches"], nw_pairs=t["pairs"],
+                     peak_mem_bytes=t["peak"],
+                     sam_identical=t["sam_identical"],
+                     vcf_identical=t["vcf_identical"]) for t in turns],
+         device_dp_median_reads_per_s=med(dev, "reads_per_sec"),
+         device_dp_median_mapping_s=med(dev, "mapping_seconds"),
+         scalar_dp_median_reads_per_s=med(sca, "reads_per_sec"),
+         scalar_dp_median_mapping_s=med(sca, "mapping_seconds"),
+         nw_shapes={f"{b}x{m}x{n}": c
+                    for (b, m, n), c in dev[0]["shapes"].items()})
+    ok = (all(t["launches"] > 0 and t["pairs"] > 0 for t in dev)
+          and all(t["launches"] == 0 for t in sca)
+          and all(t["sam_identical"] and t["vcf_identical"] for t in turns)
+          and all(t["metrics"]["n_oracle_reads"] == 0
+                  and t["metrics"]["n_tier_reruns"] == 0 for t in turns))
+    if not ok:
+        raise AssertionError("main_path: NW kernel not launched with device "
+                             "DP or launched with scalar DP, outputs differ "
+                             "from the warm-up's, or reads left the device "
+                             "path")
+    return dev[0]["launches"], captured["args"]
 
 
 def main():
@@ -253,24 +364,37 @@ def main():
          count=torch.cuda.device_count(), python=sys.version.split()[0])
 
     t0 = time.time()
-    toolchain.build_all()
+    outputs = toolchain.build_all()
+    ptxas = ptxas_report(outputs.get("libnw.so", ""))
     emit("build", seconds=time.time() - t0,
          nvcc=" ".join(toolchain.NVCC_FLAGS),
-         libs=sorted(os.listdir(toolchain.BUILD_DIR)))
+         libs=sorted(os.listdir(toolchain.BUILD_DIR)), nw_ops_kernel=ptxas)
+    if len(ptxas) != nw_device.KERNEL_MAX_CHUNK or any(
+            v.get("registers") is None or v.get("stack_frame_bytes", 1)
+            or v.get("spill_store_bytes", 1) or v.get("spill_load_bytes", 1)
+            for v in ptxas.values()):
+        sys.stderr.write(outputs.get("libnw.so", ""))
+        raise AssertionError("nw_ops_kernel: a stack frame or spills in "
+                             "ptxas's report, or no report for a chunk")
 
     for tier in TIERS:
         r = check_nw(nw_device, 4096 if tier < 192 else 2048, tier,
-                     seed=tier, reps=20)
+                     seed=tier, reps=50)
         emit("kernels", kernel="nw", card=card, **r)
 
     os.makedirs(toolchain.BUILD_DIR, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=toolchain.BUILD_DIR) as work:
         run_small_e2e(work)
-        launches, shapes = run_main_path(work, card)
+        launches, own = run_main_path(work, card)
 
-    # the kernel table, timed at the main path's most used DP shape
-    (B, M, _N), _ = max(shapes.items(), key=lambda kv: (kv[1], kv[0][0]))
-    r = check_nw(nw_device, B, M, seed=1, reps=20)
+    # the kernel table: the main path's largest launch on its own pairs,
+    # and random pairs at the same shape
+    B, M = own[0].shape
+    N = own[1].shape[1]
+    r = measure_nw(nw_device, own, reps=50)
+    rnd = measure_nw(nw_device, nw_inputs(B, M, seed=1), reps=50)
+    emit("kernels", kernel="nw", card=card, pairs="main path's own", **r)
+    emit("kernels", kernel="nw", card=card, pairs="random", **rnd)
     line = {"kernels": [{
         "name": "nw_ops", "route": "cuda",
         "source": "mapcaller_tpu_torch/csrc/nw.cu",
@@ -278,7 +402,11 @@ def main():
         "launches": launches, "max_abs_err": r["max_abs_err"],
         "ms": r["ms"], "plain_ms": r["plain_ms"],
         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-        "library_ms": None, "tolerance": 0, "shape": f"{B}x{M}x{M}"}]}
+        "library_ms": None, "tolerance": 0,
+        "shape": f"{B}x{M}x{N}, the main path's own pairs of its largest "
+                 f"launch; 'random' holds random pairs at that shape",
+        "random": {k: rnd[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                       "bound_ms", "bound_by")}}]}
     print(json.dumps(line), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -9,8 +9,9 @@ bit-identical traceback decisions: 2-bit ops (0=diag, 1=left/'-' in s1,
 first, plus the x2-scaled score at (m, n).
 
 `nw_ops` is the one entry point on tensors. On a CUDA tensor it launches
-the hand-written kernel (one thread per pair, direction bits packed in a
-scratch buffer, traceback in the same kernel) or raises; on a CPU tensor
+the hand-written kernel (a group of lanes per pair sweeping the rows in
+the cummax form, direction bits in shared memory, traceback in the same
+kernel; launch geometry from `nw_geometry`) or raises; on a CPU tensor
 it runs `nw_ops_plain`, the same function in PyTorch tensor ops — the
 vectorised row sweep with one cummax per DP row (the collapse of the
 coupled horizontal-gap recurrence, see `_row_sweep`) followed by a
@@ -29,7 +30,13 @@ MAXPEN = -131072
 OPENG = -2
 EXTG = -1
 NEWG = -3
-KERNEL_MAX_N = 256          # csrc/nw.cu MAX_N: longest second side
+# limits of csrc/nw.cu (MAX_N, MAX_CHUNK, MAX_SMEM and the 256-thread
+# launch bound), which refuses a geometry outside them
+KERNEL_MAX_N = 256          # longest second side: lanes * chunk >= N
+KERNEL_MAX_CHUNK = 8        # columns per lane, 2 direction bits each in a uint16
+KERNEL_MAX_SMEM = 232448    # dynamic shared memory a block can use
+KERNEL_MAX_THREADS = 256
+BLOCK_SMEM_TARGET = 100 * 1024   # two blocks per SM at the largest tiers
 
 
 class KernelStats:
@@ -57,8 +64,8 @@ def _load_kernel():
         from ..toolchain import ensure_cuda
         lib = C.CDLL(ensure_cuda("nw"))
         lib.mc_nw_ops.restype = C.c_int
-        lib.mc_nw_ops.argtypes = ([C.c_void_p] * 4 + [C.c_int] * 3
-                                  + [C.c_void_p] * 4)
+        lib.mc_nw_ops.argtypes = ([C.c_void_p] * 4 + [C.c_int] * 7
+                                  + [C.c_void_p] * 3)
         _lib = lib
     return _lib
 
@@ -141,6 +148,31 @@ def nw_ops_plain(c1: torch.Tensor, c2: torch.Tensor, m: torch.Tensor,
     return _pack_ops(ops), score
 
 
+def nw_geometry(M: int, N: int) -> Tuple[int, int, int, int]:
+    """Launch geometry of csrc/nw.cu for an M x N tier: (lanes per pair,
+    chunk = columns 1..N per lane, pairs per block, dynamic shared memory
+    bytes). The fewest lanes (8, 16 or 32) that hold N in chunks of at
+    most KERNEL_MAX_CHUNK columns: a row's cross-lane scan costs more
+    than its cells, so wide chunks and 2 or 4 pairs to a warp at the
+    small tiers are faster. Then up to 256 threads a block, fewer where
+    the block's direction bits (M rows x threads x 2 B) would pass
+    BLOCK_SMEM_TARGET."""
+    if N > KERNEL_MAX_N or M < 0 or N < 0:
+        raise ValueError(f"nw_ops: N={N} outside the kernel's "
+                         f"0..{KERNEL_MAX_N}")
+    lanes = 8
+    while lanes < 32 and -(-N // lanes) > KERNEL_MAX_CHUNK:
+        lanes *= 2
+    chunk = max(1, -(-N // lanes))
+    threads = KERNEL_MAX_THREADS
+    while threads > 32 and M * threads * 2 > BLOCK_SMEM_TARGET:
+        threads -= 32
+    smem = M * threads * 2
+    if smem > KERNEL_MAX_SMEM:
+        raise ValueError(f"nw_ops: M={M} needs {smem} B of shared memory")
+    return lanes, chunk, threads // lanes, smem
+
+
 def _check(c1, c2, m, n) -> None:
     if c1.dim() != 2 or c2.dim() != 2 or m.dim() != 1 or n.dim() != 1:
         raise ValueError("nw_ops: c1/c2 must be 2-D, m/n 1-D")
@@ -174,15 +206,11 @@ def nw_ops(c1: torch.Tensor, c2: torch.Tensor, m: torch.Tensor,
         raise ValueError(f"nw_ops: unsupported device {c1.device}")
     B, M = c1.shape
     N = c2.shape[1]
-    if N > KERNEL_MAX_N:
-        raise ValueError(f"nw_ops: N={N} exceeds the kernel's {KERNEL_MAX_N}")
+    lanes, chunk, pairs, smem = nw_geometry(M, N)
     c1 = c1.contiguous()
     c2 = c2.contiguous()
     m = m.contiguous()
     n = n.contiguous()
-    wpr = (N + 1 + 15) // 16
-    scratch = torch.empty((M + 1) * wpr * max(B, 1), dtype=torch.int32,
-                          device=c1.device)
     words = torch.empty((B, (M + N) // 16), dtype=torch.int32,
                         device=c1.device)
     score = torch.empty(B, dtype=torch.int32, device=c1.device)
@@ -192,7 +220,7 @@ def nw_ops(c1: torch.Tensor, c2: torch.Tensor, m: torch.Tensor,
     stream = torch.cuda.current_stream(c1.device).cuda_stream
     with torch.profiler.record_function("nw_kernel"):
         err = lib.mc_nw_ops(c1.data_ptr(), c2.data_ptr(), m.data_ptr(),
-                            n.data_ptr(), B, M, N, scratch.data_ptr(),
+                            n.data_ptr(), B, M, N, lanes, chunk, pairs, smem,
                             words.data_ptr(), score.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"nw_ops: CUDA kernel launch failed (error {err})")

@@ -21,7 +21,7 @@ import glob
 import os
 import shutil
 import subprocess
-from typing import List
+from typing import Dict, List
 
 PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 REPO_DIR = os.path.dirname(PKG_DIR)
@@ -29,8 +29,10 @@ BUILD_DIR = os.path.join(PKG_DIR, "build")
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 NATIVE_SRC = os.path.join(REPO_DIR, "native", "mc_native.cpp")
 
+# -Xptxas -v: each kernel's registers, shared memory, stack frame and
+# spills, which build_all hands back
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 GXX_FLAGS = ["-O3", "-fPIC", "-shared", "-std=c++17"]
 
 
@@ -110,10 +112,11 @@ def cuda_sources() -> List[str]:
                   for p in glob.glob(os.path.join(CSRC_DIR, "*.cu")))
 
 
-def build_all() -> None:
+def build_all() -> Dict[str, str]:
     """Compile the host leg and every CUDA source at once, one compiler
     process per source, all started together (chip_smoke's build
-    phase). Raises if any build fails."""
+    phase). Returns each library's compiler output by file name (for a
+    CUDA source, the -Xptxas -v report); raises if any build fails."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     jobs = [(native_lib_path(), native_command)]
     jobs += [(cuda_lib_path(n), lambda out, n=n: cuda_command(n, out))
@@ -125,11 +128,14 @@ def build_all() -> None:
             cmd(tmp), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
     failed = []
+    outputs = {}
     for lib, tmp, p in procs:
         out, _ = p.communicate()
         if p.returncode != 0:
             failed.append(f"{os.path.basename(lib)}:\n{out[-4000:]}")
         else:
             os.replace(tmp, lib)
+            outputs[os.path.basename(lib)] = out
     if failed:
         raise RuntimeError("build failed: " + "\n".join(failed))
+    return outputs

@@ -2,7 +2,12 @@
 reference package's Pallas kernel (interpret mode on the CPU): packed op
 words and scores must be equal exactly, at the tiers the stream path
 uses. On CPU tensors `nw_ops` runs its plain PyTorch version, the same
-function the CUDA kernel csrc/nw.cu computes on the card."""
+function the CUDA kernel csrc/nw.cu computes on the card; the kernel's
+launch geometry (`nw_geometry`) is checked here against the limits the
+CUDA source states."""
+import os
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -30,7 +35,9 @@ def _mutated_pair(rng, m):
 
 def _pairs(tier, n, seed):
     """Random mutated pairs within the tier, plus the edge cases: empty
-    sides (m=0 or n=0) and sides exactly at the tier's edge."""
+    sides (m=0 or n=0), sides exactly at the tier's edge, and second
+    sides of k*chunk - 1, k*chunk and k*chunk + 1 bases, which end on
+    either side of the kernel's per-lane column chunks."""
     rng = np.random.default_rng(seed)
     pairs = []
     for _ in range(n):
@@ -40,12 +47,20 @@ def _pairs(tier, n, seed):
     pairs += [("", ""), ("", "ACGT"), ("ACG", ""), ("A", "A"), ("A", "C"),
               (edge, edge), (edge, edge[::-1]), (edge, edge[:tier // 2]),
               (edge[1:], edge), ("AC", "ACGTACGT"), ("G", "TTTT")]
+    lanes, chunk, _, _ = nw_device.nw_geometry(tier, tier)
+    for k in (1, 2, lanes - 1, lanes):
+        for e in (k * chunk - 1, k * chunk, k * chunk + 1):
+            if e <= tier:
+                a, b = _mutated_pair(rng, tier)
+                pairs.append((a[:tier], (b + edge)[:e]))
     return pairs
 
 
-@pytest.mark.parametrize("tier", [32, 48])
+@pytest.mark.parametrize("tier", [32, 48, 96, 192])
 def test_ops_words_and_scores_equal_pallas(tier):
     pairs = _pairs(tier, 30, seed=tier)
+    _, _, per_block, _ = nw_device.nw_geometry(tier, tier)
+    assert len(pairs) % per_block != 0       # a ragged last block
     want_w, want_s = jax_nw.nw_align_batch(pairs, M=tier, N=tier, tile=8,
                                            interpret=True, return_ops=True)
     got_w, got_s = nw_device.nw_align_batch(pairs, M=tier, N=tier,
@@ -85,3 +100,41 @@ def test_nw_ops_checks_inputs(bad):
         c2 = c2[:, :N - 1]
     with pytest.raises((TypeError, ValueError)):
         nw_device.nw_ops(c1, c2, m, n)
+
+
+def _cuda_limits():
+    """The limits csrc/nw.cu states: its constexpr ints and the thread
+    count of its __launch_bounds__."""
+    with open(os.path.join(os.path.dirname(nw_device.__file__), "..",
+                           "csrc", "nw.cu")) as f:
+        src = f.read()
+    lim = {k: int(v) for k, v in
+           re.findall(r"constexpr int (MAX_\w+) = (\d+);", src)}
+    lim["THREADS"] = int(re.search(r"__launch_bounds__\((\d+)\)",
+                                   src).group(1))
+    return lim
+
+
+def test_wrapper_limits_equal_cuda_source():
+    assert _cuda_limits() == {"MAX_N": nw_device.KERNEL_MAX_N,
+                              "MAX_CHUNK": nw_device.KERNEL_MAX_CHUNK,
+                              "MAX_SMEM": nw_device.KERNEL_MAX_SMEM,
+                              "THREADS": nw_device.KERNEL_MAX_THREADS}
+
+
+@pytest.mark.parametrize("tier", [32, 48, 96, 192, 256])
+def test_nw_geometry_within_kernel_limits(tier):
+    lanes, chunk, per_block, smem = nw_device.nw_geometry(tier, tier)
+    lim = _cuda_limits()
+    threads = lanes * per_block
+    assert lanes in (8, 16, 32)
+    assert lanes * chunk >= tier                 # columns 1..N covered
+    assert 1 <= chunk <= lim["MAX_CHUNK"] == 8   # 2 bits each in a uint16
+    assert threads % 32 == 0 and 32 <= threads <= lim["THREADS"]
+    assert smem == tier * threads * 2 <= lim["MAX_SMEM"] == 232448
+    assert smem <= nw_device.BLOCK_SMEM_TARGET
+
+
+def test_nw_geometry_refuses_what_the_kernel_cannot_take():
+    with pytest.raises(ValueError):
+        nw_device.nw_geometry(32, nw_device.KERNEL_MAX_N + 8)
