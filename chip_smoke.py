@@ -18,20 +18,32 @@ exits non-zero):
              multiple of its pairs per block, with its time, the plain
              version's time and the bound
   small_e2e  a 20 kb planted dataset: the port on cuda and on cpu write
-             byte-identical SAM and VCF
+             byte-identical SAM and VCF, both with device evidence
   main_path  100,000 read pairs on a 4.6 Mb genome through
              `python -m mapcaller_tpu_torch.cli` (in process): one warm-up
              run, which also captures the tensors of its largest NW
-             launch, then runs with the device DP and with the scalar C++
-             DP in turns (device, scalar, scalar, device), each counting
-             the NW kernel's launches and writing the warm-up's SAM and
-             VCF bytes
+             launch and the evidence planes and inputs of its calling,
+             then runs with the device DP and with the scalar C++ DP in
+             turns (device, scalar, scalar, device), then one run with
+             host evidence (device_evidence=False) and one with the
+             evidence apply folded into the chain dispatch
+             (fold_evidence=True); each counts the NW kernel's launches
+             and the evidence steps and writes the warm-up's SAM and VCF
+             bytes. Every run but the host-evidence one accumulates
+             evidence on the card and calls from it, with no capacity
+             overflow
+  evidence   device ms (queued launches) of the evidence apply of one
+             batch, the finalize fold, the caller scan and the column
+             fetch on the warm-up's own planes and inputs, each equal to
+             the same call on the CPU, with the bound (bytes over the
+             card's memory rate)
 Then the kernel table line ({"kernels": [...]}, timed on the main path's
 own captured pairs and on random pairs of the same shape), the card's
 name and power limit, and as the last line {"ok": true, "device": {...}}.
 
 Needs one CUDA card, nvcc and g++. Refuses to run without a card.
 """
+import gc
 import json
 import os
 import re
@@ -63,19 +75,27 @@ def card_line():
 
 def cuda_ms(fn, reps, warmup=3, queued=False):
     """Median time of fn() over `reps` runs, each bracketed by CUDA
-    events, after `warmup` runs. With `queued`, every run is enqueued
-    behind a device-side sleep first, so the events time the device's
-    work alone; without it they also count the host's time to issue the
-    run whenever that is longer than the device's."""
+    events, after `warmup` runs. With `queued`, each run is enqueued
+    behind a device-side sleep of its own, at least twice the host's time
+    to issue one run (fn must not wait for the device), so the events
+    time the device's work alone, however many launches a run makes;
+    without it they also count the host's time to issue the run whenever
+    that is longer than the device's."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    issue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    # SM cycles at up to 1.98 GHz: >= 0.2 ms, and >= 2x the issue time
+    sleep = int(max(400_000, 2 * issue_s * 1.98e9))
     events = [(torch.cuda.Event(enable_timing=True),
                torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
-    if queued:
-        torch.cuda._sleep(reps * 400_000)     # ~0.2 ms of SM cycles a run
     for a, b in events:
+        if queued:
+            torch.cuda._sleep(sleep)
         a.record()
         fn()
         b.record()
@@ -199,12 +219,22 @@ def same_bytes(a, b):
         return f.read() == g.read()
 
 
+def evidence_path_ok(st, applies=True, folded=False):
+    """The run accumulated evidence on the device planes (stand-alone
+    applies and/or applies folded into the chain dispatch), ran the
+    caller scan once and never fell back to a plane download."""
+    return ((st["applies"] > 0) == applies and (st["folded"] > 0) == folded
+            and st["scans"] == 1 and st["downloads"] == 0
+            and st["overflow_fallbacks"] == 0)
+
+
 def run_small_e2e(work):
     """Port on cuda vs port on cpu, default flags, planted 20 kb set."""
     from mapcaller_tpu_torch import runner
     from mapcaller_tpu_torch.config import Config
     from mapcaller_tpu_torch.index.fmindex import build_index
     from mapcaller_tpu_torch.ops import nw_device
+    from mapcaller_tpu_torch.pipeline import device_profile
     from mapcaller_tpu_torch.simulator import write_planted_dataset
     d = os.path.join(work, "small")
     os.makedirs(d)
@@ -213,6 +243,7 @@ def run_small_e2e(work):
     outs = {}
     for dev in ("cuda", "cpu"):
         launches = nw_device.STATS.launches
+        device_profile.STATS.reset()
         cfg = Config(device=dev, index_prefix=os.path.join(d, "idx"),
                      read_files1=[f1], read_files2=[f2],
                      stream_batch_size=1024,
@@ -222,18 +253,22 @@ def run_small_e2e(work):
         if runner.run_pipeline(cfg, "mapcaller small_e2e") != 0:
             raise RuntimeError(f"small_e2e run on {dev} failed")
         outs[dev] = (cfg.sam_file, cfg.vcf_file,
-                     nw_device.STATS.launches - launches)
+                     nw_device.STATS.launches - launches,
+                     vars(device_profile.STATS).copy())
     sam_ok = same_bytes(outs["cuda"][0], outs["cpu"][0])
     vcf_ok = same_bytes(outs["cuda"][1], outs["cpu"][1])
     with open(outs["cuda"][1]) as f:
         n_var = sum(1 for ln in f if not ln.startswith("#"))
     emit("small_e2e", sam_identical=sam_ok, vcf_identical=vcf_ok,
          variants=n_var, nw_launches_cuda=outs["cuda"][2],
-         nw_launches_cpu=outs["cpu"][2])
+         nw_launches_cpu=outs["cpu"][2], evidence_cuda=outs["cuda"][3],
+         evidence_cpu=outs["cpu"][3])
     if not (sam_ok and vcf_ok and n_var > 0 and outs["cuda"][2] > 0
-            and outs["cpu"][2] == 0):
+            and outs["cpu"][2] == 0 and evidence_path_ok(outs["cuda"][3])
+            and evidence_path_ok(outs["cpu"][3])):
         raise AssertionError("small_e2e: cuda and cpu outputs differ, no "
-                             "variants, or the NW kernel did not run")
+                             "variants, the NW kernel did not run, or "
+                             "evidence left the device planes")
 
 
 def last_metrics(log):
@@ -243,12 +278,16 @@ def last_metrics(log):
 
 def run_main_path(work, card):
     """One warm-up run through the CLI (device DP), with a tap around
-    nw_device.nw_ops that keeps the tensors of its largest NW launch,
-    then device-DP and scalar-DP runs in turns. Returns the first
-    device turn's launch count and the captured launch's tensors."""
+    nw_device.nw_ops that keeps the tensors of its largest NW launch and
+    a tap on the evidence that copies its planes and the inputs of its
+    first batch apply and its first column fetch to the host, then
+    device-DP and scalar-DP runs in turns, then a host-evidence run and a
+    folded-evidence run. Returns the first device turn's launch count,
+    the captured NW launch's tensors and the captured evidence."""
     import torch
     from mapcaller_tpu_torch import cli, runner
     from mapcaller_tpu_torch.ops import nw_device
+    from mapcaller_tpu_torch.pipeline import device_profile
     from mapcaller_tpu_torch.simulator import write_ecoli_set
     d = os.path.join(work, "main")
     os.makedirs(d)
@@ -263,26 +302,34 @@ def run_main_path(work, card):
     argv = ["mapcaller", "-i", idx, "-f", r1, "-f2", r2, "-sam", sam,
             "-vcf", vcf, "-log", log]
 
-    def run(device_dp):
+    def run(device_dp=True, **flags):
         """One run; default flags through the CLI a user calls, or the
-        same command with the scalar C++ DP."""
+        same command with the scalar C++ DP or other evidence flags."""
+        gc.collect()      # an earlier run's cycles must not hold memory
         torch.cuda.reset_peak_memory_stats()
         nw_device.STATS.reset()
-        if device_dp:
+        device_profile.STATS.reset()
+        if device_dp and not flags:
             rc = cli.main(argv)
         else:
             cfg = cli.parse_args(argv)
-            cfg.device_extension = False
+            if not device_dp:
+                cfg.device_extension = False
+            for k, v in flags.items():
+                setattr(cfg, k, v)
             rc = runner.run_pipeline(cfg, " ".join(argv))
         if rc != 0:
-            raise RuntimeError(f"main path run failed (device_dp={device_dp})")
+            raise RuntimeError(f"main path run failed (device_dp={device_dp}"
+                               f", {flags})")
         st = nw_device.STATS
         return dict(metrics=last_metrics(log), launches=st.launches,
                     pairs=st.pairs, shapes=dict(st.shapes),
+                    evidence=vars(device_profile.STATS).copy(),
                     peak=torch.cuda.max_memory_allocated())
 
     captured = {}
     nw_ops = nw_device.nw_ops
+    make_ev = device_profile.make_device_evidence
 
     def tap(c1, c2, m, n):
         cells = c1.shape[0] * c1.shape[1] * c2.shape[1]
@@ -291,60 +338,217 @@ def run_main_path(work, card):
                 x.clone() for x in (c1, c2, m, n)))
         return nw_ops(c1, c2, m, n)
 
+    def tap_evidence(be, cfg, host_profile):
+        """Keep host copies only: device tensors held past the warm-up
+        would count in the later turns' peak memory."""
+        ev = make_ev(be, cfg, host_profile)
+        apply_batch, fetch_columns = ev.apply_batch, ev.fetch_columns
+
+        def apply_tap(token, fast_bits, pair_end):
+            captured.setdefault("apply", dict(
+                pd=token.pd.cpu(), mmp=token.mmp.cpu(),
+                rl=token.rl_dev.cpu(), fast_bits=fast_bits.copy(),
+                pair_end=pair_end))
+            return apply_batch(token, fast_bits, pair_end)
+
+        def fetch_tap(positions, prefix_pts, bd_blocks=None):
+            if "fetch" not in captured:
+                # the planes are final once calling fetches columns
+                pl = ev.planes
+                captured.update(
+                    fetch=(positions.copy(), prefix_pts.copy()),
+                    planes={k: getattr(pl, k).cpu() for k in (
+                        "acgt", "exact_diff", "f_diff", "multi_diff")},
+                    ref_codes=ev._ref_codes.cpu(), L=ev.L, two_l=ev.two_l,
+                    somatic=bool(cfg.somatic),
+                    freq=0.01 if cfg.somatic else cfg.frequency_thr,
+                    ad=int(cfg.min_allele_depth))
+            return fetch_columns(positions, prefix_pts, bd_blocks)
+
+        ev.apply_batch, ev.fetch_columns = apply_tap, fetch_tap
+        return ev
+
     nw_device.nw_ops = tap
+    device_profile.make_device_evidence = tap_evidence
     try:
-        warm = run(True)
+        warm = run()
     finally:
         nw_device.nw_ops = nw_ops
+        device_profile.make_device_evidence = make_ev
     os.replace(sam, sam + ".warm")
     os.replace(vcf, vcf + ".warm")
+
+    def check(r):
+        r.update(sam_identical=same_bytes(sam, sam + ".warm"),
+                 vcf_identical=same_bytes(vcf, vcf + ".warm"))
+        return r
+
     turns = []
     for device_dp in (True, False, False, True):
-        r = run(device_dp)
-        r.update(device_dp=device_dp, sam_identical=same_bytes(
-            sam, sam + ".warm"), vcf_identical=same_bytes(vcf, vcf + ".warm"))
+        r = check(run(device_dp))
+        r.update(device_dp=device_dp)
         turns.append(r)
+    host_ev = check(run(device_evidence=False))
+    fold_ev = check(run(fold_evidence=True))
     dev = [t for t in turns if t["device_dp"]]
     sca = [t for t in turns if not t["device_dp"]]
 
     def med(runs, key):
         return statistics.median(t["metrics"][key] for t in runs)
 
+    def summary(t, **kw):
+        ev = t["evidence"]
+        return dict(kw, reads_per_s=t["metrics"]["reads_per_sec"],
+                    mapping_s=t["metrics"]["mapping_seconds"],
+                    calling_s=t["metrics"]["calling_seconds"],
+                    total_s=t["metrics"]["total_seconds"],
+                    nw_launches=t["launches"], nw_pairs=t["pairs"],
+                    evidence_batch_s=ev["batch_seconds"],
+                    evidence={k: v for k, v in ev.items()
+                              if k != "batch_seconds"},
+                    peak_mem_bytes=t["peak"],
+                    sam_identical=t.get("sam_identical"),
+                    vcf_identical=t.get("vcf_identical"))
+
     m1 = dev[0]["metrics"]
+    everything = turns + [host_ev, fold_ev]
     emit("main_path", card=card, setup_s=setup_s,
          reads=m1["total_reads"],
          mapped_pct=100.0 * m1["mapped"] / max(m1["total_reads"], 1),
          variants=m1["variant_counts"],
-         n_oracle_reads=max(t["metrics"]["n_oracle_reads"] for t in turns),
-         n_tier_reruns=max(t["metrics"]["n_tier_reruns"] for t in turns),
-         warmup_reads_per_s=warm["metrics"]["reads_per_sec"],
+         n_oracle_reads=max(t["metrics"]["n_oracle_reads"]
+                            for t in everything),
+         n_tier_reruns=max(t["metrics"]["n_tier_reruns"] for t in everything),
+         warmup=summary(warm, dp="device", evidence_path="device"),
          warmup_nw_launches=warm["launches"],
-         turns=[dict(dp="device" if t["device_dp"] else "scalar",
-                     reads_per_s=t["metrics"]["reads_per_sec"],
-                     mapping_s=t["metrics"]["mapping_seconds"],
-                     calling_s=t["metrics"]["calling_seconds"],
-                     total_s=t["metrics"]["total_seconds"],
-                     nw_launches=t["launches"], nw_pairs=t["pairs"],
-                     peak_mem_bytes=t["peak"],
-                     sam_identical=t["sam_identical"],
-                     vcf_identical=t["vcf_identical"]) for t in turns],
+         turns=[summary(t, dp="device" if t["device_dp"] else "scalar",
+                        evidence_path="device") for t in turns],
+         host_evidence=summary(host_ev, dp="device", evidence_path="host"),
+         fold_evidence=summary(fold_ev, dp="device",
+                               evidence_path="device, folded"),
          device_dp_median_reads_per_s=med(dev, "reads_per_sec"),
          device_dp_median_mapping_s=med(dev, "mapping_seconds"),
          scalar_dp_median_reads_per_s=med(sca, "reads_per_sec"),
          scalar_dp_median_mapping_s=med(sca, "mapping_seconds"),
          nw_shapes={f"{b}x{m}x{n}": c
                     for (b, m, n), c in dev[0]["shapes"].items()})
-    ok = (all(t["launches"] > 0 and t["pairs"] > 0 for t in dev)
+    hst = host_ev["evidence"]
+    ok = (all(t["launches"] > 0 and t["pairs"] > 0
+              for t in dev + [host_ev, fold_ev])
           and all(t["launches"] == 0 for t in sca)
-          and all(t["sam_identical"] and t["vcf_identical"] for t in turns)
+          and all(t["sam_identical"] and t["vcf_identical"]
+                  for t in everything)
           and all(t["metrics"]["n_oracle_reads"] == 0
-                  and t["metrics"]["n_tier_reruns"] == 0 for t in turns))
+                  and t["metrics"]["n_tier_reruns"] == 0 for t in everything)
+          and all(evidence_path_ok(t["evidence"]) for t in [warm] + turns)
+          and evidence_path_ok(fold_ev["evidence"], applies=False,
+                               folded=True)
+          and hst["applies"] == hst["folded"] == hst["scans"] == 0)
     if not ok:
         raise AssertionError("main_path: NW kernel not launched with device "
                              "DP or launched with scalar DP, outputs differ "
-                             "from the warm-up's, or reads left the device "
-                             "path")
-    return dev[0]["launches"], captured["args"]
+                             "from the warm-up's, reads left the device "
+                             "path, or evidence did not take the path its "
+                             "flags ask for")
+    return dev[0]["launches"], captured["args"], captured
+
+
+def run_evidence(cap, card, reps=50):
+    """Device ms of the evidence steps on the warm-up's own planes and
+    inputs (queued launches), each held equal to the same call on the
+    CPU, beside its bound: the bytes it must move over the card's memory
+    rate (every input read once, every output written once; for the
+    apply, the plane entries its admitted reads update, read and
+    written)."""
+    import numpy as np
+    import torch
+    from mapcaller_tpu_torch.calling import scan_device
+    from mapcaller_tpu_torch.pipeline import device_profile as dp
+    L, two_l = cap["L"], cap["two_l"]
+    a = cap["apply"]
+    B = int(a["rl"].shape[0])
+    fb = np.zeros((B + 31) // 32, dtype=np.int32)
+    fb[:a["fast_bits"].size] = a["fast_bits"].view(np.int32)
+    apply_in = dict(pd=a["pd"], mmp=a["mmp"], rl=a["rl"],
+                    fb=torch.from_numpy(fb))
+    cuda = torch.device("cuda")
+
+    def planes(device):
+        return dp.DevicePlanes(L=L, **{k: v.to(device).clone()
+                                       for k, v in cap["planes"].items()})
+
+    def apply_on(device):
+        x = {k: v.to(device) for k, v in apply_in.items()}
+        kern = dp.build_apply_kernel(L, two_l, B, a["pair_end"])
+        pl = planes(device)
+        return pl, lambda: kern(pl, x["pd"], x["mmp"], x["rl"], x["fb"])
+
+    def pipeline(device):
+        """finalize -> scan -> fetch on `device`, as DeviceEvidence runs
+        them; returns the callables and their outputs."""
+        pl = planes(device)
+        rc = cap["ref_codes"].to(device)
+        fin_k = dp.build_finalize_kernel(L)
+        scan_k = scan_device.build_scan_kernel(L, cap["somatic"])
+        fetch_k = scan_device.build_fetch_kernel(L)
+        pos, pref = (torch.from_numpy(x.astype(np.int64)).to(device)
+                     for x in cap["fetch"])
+        fin = fin_k(pl, rc)
+        acgt, F, multi, cov, cov_prefix = fin
+
+        def scan():
+            return scan_k(acgt, multi, cov, rc, cap["ad"],
+                          np.float32(cap["freq"]))
+
+        def fetch():
+            return fetch_k(acgt, multi, F, cov, cov_prefix, pos, pref)
+
+        return (lambda: fin_k(pl, rc), scan, fetch), (fin, scan(), fetch())
+
+    # equality with the CPU, one call each
+    gpl, gapply = apply_on(cuda)
+    cpl, capply = apply_on("cpu")
+    gapply()
+    capply()
+    (gfin, gscan, gfetch), gout = pipeline(cuda)
+    _, cout = pipeline("cpu")
+    diffs = [(k, int((getattr(gpl, k).cpu().long()
+                      - getattr(cpl, k).long()).abs().max()))
+             for k in ("acgt", "exact_diff", "f_diff", "multi_diff")]
+    for name, g, c in zip(("finalize", "scan", "fetch"), gout, cout):
+        for i, (x, y) in enumerate(zip(g, c)):
+            diffs.append((f"{name}[{i}]", int((x.cpu().long()
+                                               - y.long()).abs().max())
+                          if x.numel() else 0))
+    bad = [k for k, e in diffs if e != 0]
+    if bad:
+        raise AssertionError(f"evidence: cuda != cpu in {bad}")
+    # times: apply on its own copy of the planes (it adds into them)
+    ms = dict(apply=cuda_ms(gapply, reps, queued=True),
+              finalize=cuda_ms(gfin, reps, queued=True),
+              scan=cuda_ms(gscan, reps, queued=True),
+              fetch=cuda_ms(gfetch, reps, queued=True))
+    # bytes each step must move on these inputs
+    bit = (fb[np.arange(B) >> 5].astype(np.int64) >> (np.arange(B) & 31)) & 1
+    adm = bit.astype(bool)
+    n_mm = int((a["mmp"].numpy()[adm] >= 0).sum())
+    n_upd = 4 * int(adm.sum()) + 3 * n_mm
+    small = gout[1][4].cpu().numpy()
+    P, Q = (x.size for x in cap["fetch"])
+    nbytes = dict(
+        apply=B * (4 + 4 * a["mmp"].shape[1] + 4) + fb.nbytes + 8 * n_upd,
+        finalize=(40 + 4) * L + (16 + 16 + 4 + 4) * L + 8 * (L + 1),
+        scan=(16 + 4 + 4 + 4) * L + 4 * ((L + 99) // 100)
+        + 4 * int(small[0]) + 8 * int(small[1]) + 32,
+        fetch=8 * (P + Q) + 2 * (40 * P + 8 * Q))
+    steps = {k: dict(ms=ms[k], bound_ms=1e3 * nbytes[k] / H100_BYTES_S,
+                     bound_by="bytes", bytes=nbytes[k],
+                     share_of_bound=1e3 * nbytes[k] / H100_BYTES_S / ms[k])
+             for k in ms}
+    emit("evidence", card=card, L=L, batch=B, admitted=int(adm.sum()),
+         mismatches=n_mm, fetch_positions=P, prefix_points=Q,
+         n_cand=int(small[0]), n_runs=int(small[1]),
+         equal_to_cpu=True, steps=steps)
 
 
 def main():
@@ -385,7 +589,8 @@ def main():
     os.makedirs(toolchain.BUILD_DIR, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=toolchain.BUILD_DIR) as work:
         run_small_e2e(work)
-        launches, own = run_main_path(work, card)
+        launches, own, cap = run_main_path(work, card)
+    run_evidence(cap, card)
 
     # the kernel table: the main path's largest launch on its own pairs,
     # and random pairs at the same shape

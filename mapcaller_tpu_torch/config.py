@@ -68,11 +68,12 @@ class Config:
                                                 # ported yet
                                                 # (pipeline/stream.py)
     device_chain: bool = True                   # device chaining/classification
-    device_evidence: bool = True                # device evidence planes; this
-                                                # port keeps evidence in the
-                                                # host C++ diff arrays
+    device_evidence: bool = True                # evidence planes and the
+                                                # caller scan on the card;
+                                                # auto-off when they do not
+                                                # fit its free memory
                                                 # (DeviceBackend
-                                                # .device_evidence_ok)
+                                                # ._device_evidence_fits)
     index_shards: int = 0                       # >1: genome-shard the occ3
                                                 # table over an N-device mesh
                                                 # (human-scale index path)

@@ -282,7 +282,7 @@ class NativeEngine:
         if not use_nw:
             raise NotImplementedError(
                 "device ksw2 DP is not ported yet (ROADMAP.md, next slice "
-                "3: C1); run -alg ksw2 with the scalar aligner "
+                "2: C1); run -alg ksw2 with the scalar aligner "
                 "(device_extension=False or 'auto')")
         n_dp = self.lib.mc_prepare_batch_cls(
             self.ctx, slot, int(pair_end), int(fastq),

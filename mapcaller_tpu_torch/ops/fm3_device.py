@@ -142,7 +142,7 @@ class DeviceFM3:
             raise NotImplementedError(
                 "occ3 build requires sa_full; the 1-step seed scan for "
                 "indexes without it is not ported yet (ROADMAP.md, next "
-                "slice 4: C3)")
+                "slice 3: C3)")
         if not 0 <= pfx_k <= 15:      # must stay below MinSeedLength
             raise ValueError(f"pfx_k={pfx_k} outside [0, 15]")
         fm = (dev_fm if dev_fm is not None

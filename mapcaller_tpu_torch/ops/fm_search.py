@@ -1,6 +1,7 @@
 """Batched greedy-MEM seeding + device chaining (PyTorch port of
 mapcaller_tpu/ops/fm_search.py: `_seed_scan3` and
-`build_seed_chain_kernel` with with_planes=False).
+`build_seed_chain_kernel`, whose with_planes branch is the `planes`
+argument of SeedChainKernel.__call__).
 
 Device equivalent of BWT_Search + IdentifySimplePairs
 (ref: src/bwt_search.cpp:121-164, src/ReadMapping.cpp:125-158): every
@@ -19,7 +20,8 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from .chain_device import CLASS_SLOW, ChainCtx, classify_reads
+from .chain_device import CLASS_FAST, CLASS_SLOW, ChainCtx, classify_reads
+from .evidence import first_mate_lanes, scatter_fast_evidence
 from .fm3_device import DeviceFM3, gather3, step1_update, step3_update
 from .fm_device import M32, sa_resolve, to_i32
 
@@ -208,7 +210,14 @@ class SeedChainKernel:
        ovfbits[B/32], total_slow_kept, buffer_overflow]
 
     Fast/nocand reads transfer 8 bytes instead of their hits, and the
-    host skips chaining + alignment for them entirely."""
+    host skips chaining + alignment for them entirely.
+
+    With `planes` (pipeline/device_profile.DevicePlanes) the call also
+    applies every device-classified FAST read's evidence to them, in
+    place and speculatively: the host later retracts the few it rejects
+    (duplicate gate, oracle splices) with device_profile's correct
+    kernel. pair_end picks the orientation plane by batch-index parity
+    (mates interleave even/odd)."""
 
     def __init__(self, fm3: DeviceFM3, ctx: ChainCtx, max_len: int,
                  batch: int, slow_hits_x4: int = 5):
@@ -223,7 +232,8 @@ class SeedChainKernel:
         self.H = batch * max(9, slow_hits_x4) // 4   # raw hit capacity
         self.H2 = batch * slow_hits_x4 // 4          # compacted slow hits
 
-    def __call__(self, packed: torch.Tensor, rlens: torch.Tensor):
+    def __call__(self, packed: torch.Tensor, rlens: torch.Tensor,
+                 planes=None, pair_end: bool = False):
         fm3, B, max_len = self.fm3, self.batch, self.max_len
         max_seeds = self.max_seeds
         dev = packed.device
@@ -272,9 +282,17 @@ class SeedChainKernel:
             packed_out = self._pack(cls, pd0, mm, rplast, cscore, hit_read,
                                     hit_rpos, hit_len, hit_loc, keep,
                                     overflow, buffer_overflow)
-        # pd/mmp stay device-resident for a later evidence stage; only
+        pd0, mmp = pd0.to(torch.int32), mmp.to(torch.int32)
+        if planes is not None:
+            with record_function("evidence_apply"):
+                scatter_fast_evidence(
+                    planes.exact_diff, planes.f_diff.view(-1),
+                    planes.acgt.view(-1), cls == CLASS_FAST, pd0, mmp, rlens,
+                    first_mate_lanes(bidx, pair_end), self.ctx.seq_len // 2,
+                    self.ctx.seq_len, sign=1)
+        # pd/mmp stay device-resident for the evidence stage; only
         # packed_out is downloaded
-        return packed_out, pd0.to(torch.int32), mmp.to(torch.int32)
+        return packed_out, pd0, mmp
 
     def _hits(self, n_seeds, s_rpos, s_len, s_x0, s_freq):
         """Expand each seed by its frequency into a flat hit buffer

@@ -10,6 +10,7 @@ reference package: that splice is part of its capacity contract.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional
 
@@ -22,22 +23,42 @@ from ..ops.chain_device import CLASS_SLOW, ChainCtx
 from ..ops.fm3_device import DeviceFM3
 from ..ops.fm_device import DeviceFMIndex
 from ..ops.fm_search import build_seed_chain_kernel
+from .device_profile import STATS as EVIDENCE_STATS
 from .seeding import identify_simple_pairs
+
+
+@dataclasses.dataclass
+class ChainToken:
+    """One submitted batch. collect_chain swaps in a tier rerun's kernel,
+    outputs, pd and mmp, so the evidence step reads the same
+    classification the host admitted from."""
+    kernel: object
+    dev: torch.Tensor          # packed output vector (fm_search layout)
+    fb_neg: np.ndarray         # host-fallback reads (negative rlen)
+    packed_dev: torch.Tensor
+    rl_dev: torch.Tensor       # int32[B] read lengths, fallback reads 0
+    bucket: int
+    rlens: np.ndarray
+    pd: torch.Tensor           # int32[B] diagonals of FAST reads
+    mmp: torch.Tensor          # int32[B, MM_SLOTS] packed mismatches
+    # (dev, pd, mmp) of a dispatch that applied every device-FAST read's
+    # evidence speculatively (fold_evidence), else None
+    spec: Optional[tuple] = None
+    # the classes of the first collected dispatch, host copy
+    cls0: Optional[np.ndarray] = None
 
 
 class DeviceBackend:
     BUCKETS = (128, 192, 256)
     n_devices = 1
     index_shards = 0
-    # Evidence decision of this port: the evidence planes and the caller
-    # scan are not on the card yet (ROADMAP.md, next slice 1), so
-    # evidence always accumulates in the C++ host diff arrays — the
-    # reference package's own host-evidence configuration, which gives
-    # byte-identical SAM and VCF.
-    device_evidence_ok = False
 
     # stream buffers and temporaries of the seed/chain kernel
     _WORKSPACE = 1_500_000_000
+    # device evidence: 40 B/genome base of planes plus 48 B/base of
+    # finalize outputs (cov_prefix in int64); the reference charges the
+    # same 88 B/base
+    _EVIDENCE_B_PER_BASE = 88
     # memory the prefix-skip depth choice leaves free on the card
     _PFX_RESERVE = 500_000_000
 
@@ -60,7 +81,7 @@ class DeviceBackend:
             raise NotImplementedError(
                 "device_chain=False (hit download + host chaining, "
                 "submit_packed) is not ported yet (ROADMAP.md, next "
-                "slice 4: C3)")
+                "slice 3: C3)")
         # capacity-overflow observability (repeat-rich genomes)
         self.n_tier_reruns = 0
         self.n_full_fallbacks = 0
@@ -73,7 +94,10 @@ class DeviceBackend:
             raise NotImplementedError(
                 "the occ3 table does not fit (or the index has no full "
                 "SA); the 1-step seed scan is not ported yet (ROADMAP.md, "
-                "next slice 4: C3)")
+                "next slice 3: C3)")
+        # evidence planes on the card when they fit beside the seeding
+        # tables; else the C++ host diff arrays (runner logs the choice)
+        self.device_evidence_ok = self._device_evidence_fits(idx)
 
     def _mem_bytes(self) -> Optional[int]:
         """Free device memory from the CUDA runtime; None on the CPU,
@@ -93,6 +117,20 @@ class DeviceBackend:
         occ3 = (idx.seq_len // 16 + 2) * 288
         return occ3 + self._WORKSPACE <= free
 
+    def _device_evidence_fits(self, idx) -> bool:
+        """Evidence working set on top of mapping: the planes plus their
+        finalize outputs (88 B/genome base) must fit beside the occ3 rows
+        and the workspace in the free memory left after the 1-step rows
+        and the full SA were placed. Beyond it the planes stay in host
+        RAM (the C++ diff arrays) while seeding and chaining stay on the
+        card."""
+        free = self._mem_bytes()
+        if free is None:
+            return True
+        occ3 = (idx.seq_len // 16 + 2) * 288
+        planes = self._EVIDENCE_B_PER_BASE * idx.genome_size
+        return occ3 + planes + self._WORKSPACE <= free
+
     def _prefix_skip_k(self) -> int:
         k = int(getattr(self.cfg, "prefix_skip_k", -1))
         free = self._mem_bytes()
@@ -107,10 +145,13 @@ class DeviceBackend:
         # contains the K-mer; an absent entry falls back to the 1-base
         # init), among the depths whose packed table (18 B/entry, 16
         # entries per 288-B row) fits the free memory left once the occ3
-        # rows and the kernel workspace are placed, less a reserve
+        # rows, the kernel workspace and the evidence working set are
+        # placed, less a reserve
         n = self.idx.seq_len
         slack = (free - (n // 16 + 2) * 288 - self._WORKSPACE
-                 - self._PFX_RESERVE)
+                 - self._PFX_RESERVE
+                 - (self._EVIDENCE_B_PER_BASE * self.idx.genome_size
+                    if self.device_evidence_ok else 0))
         best = (0.0, 0)
         for kk in range(8, 15):
             if 18 * (4 ** kk) > slack:
@@ -139,7 +180,7 @@ class DeviceBackend:
         """Policy for cfg.device_extension == "auto": the least DP batch
         that goes to the device. On the card, -alg nw sends every DP
         batch to the CUDA NW kernel (0); -alg ksw2 has no device kernel
-        in this port yet (ROADMAP.md, next slice 3: C1), so its pairs stay on
+        in this port yet (ROADMAP.md, next slice 2: C1), so its pairs stay on
         the scalar C++ aligner (inf). On the CPU the plain PyTorch DP
         would only repeat the scalar aligner's work (inf)."""
         if self.device.type == "cuda" and self.cfg.use_nw:
@@ -168,39 +209,48 @@ class DeviceBackend:
 
     def submit_chain(self, packed: np.ndarray, rlens: np.ndarray,
                      bucket: int, tier: int = 2, evidence=None,
-                     pair_end: bool = False):
+                     pair_end: bool = False) -> ChainToken:
         """Run the seed/chain kernel on one parsed batch (packed uint8
         [B, bucket/4] 2-bit codes, rlens int32[B]; negative rlen =
-        host-fallback read). Returns the token collect_chain takes."""
-        if evidence is not None:
-            raise NotImplementedError(
-                "folded device evidence is not ported yet (ROADMAP.md, "
-                "next slice 1: C2)")
+        host-fallback read). Returns the token collect_chain takes.
+
+        evidence (a DeviceEvidence) folds the speculative fast-read
+        evidence apply into this dispatch; the caller must later run
+        evidence.reconcile_batch(token, fast_bits, pair_end)."""
         packed_dev = torch.from_numpy(np.ascontiguousarray(packed)).to(
             self.device)
         rl_dev = torch.from_numpy(np.maximum(rlens, 0).astype(np.int32)).to(
             self.device)
         kernel = self._chain_kernel_for(bucket, tier, batch=packed.shape[0])
-        # pd/mmp (the kernel's other outputs) feed only device evidence,
-        # which this port does not run yet
-        dev, _pd, _mmp = kernel(packed_dev, rl_dev)
-        return (kernel, dev, rlens < 0, packed_dev, rl_dev, bucket, rlens)
+        if evidence is not None:
+            dev, pd, mmp = kernel(packed_dev, rl_dev, planes=evidence.planes,
+                                  pair_end=pair_end)
+            EVIDENCE_STATS.folded += 1
+            return ChainToken(kernel, dev, rlens < 0, packed_dev, rl_dev,
+                              bucket, rlens, pd, mmp, spec=(dev, pd, mmp))
+        dev, pd, mmp = kernel(packed_dev, rl_dev)
+        return ChainToken(kernel, dev, rlens < 0, packed_dev, rl_dev, bucket,
+                          rlens, pd, mmp)
 
-    def collect_chain(self, token, n: int, read_codes_fn):
+    def collect_chain(self, token: ChainToken, n: int, read_codes_fn):
         """-> (cls, pd, mm, rplast, cscore, counts, rpos, gpos, slen).
         Overflow / too-long reads are re-seeded with the host oracle and
         forced to the SLOW class; hit-buffer overflow reruns at the
         larger tier 18."""
-        kernel, dev, fb_neg, packed_dev, rl_dev, bucket, rlens = token
         (cls, pd, mm, rplast, cscore, counts, rpos, gpos, slen,
-         overflow, buf_ovf) = kernel.collect(dev)
+         overflow, buf_ovf) = token.kernel.collect(token.dev)
+        token.cls0 = cls
         if buf_ovf:
             self.n_tier_reruns += 1
-            kernel2 = self._chain_kernel_for(bucket, tier=18,
-                                             batch=len(rlens))
-            dev2, _pd, _mmp = kernel2(packed_dev, rl_dev)
+            kernel2 = self._chain_kernel_for(token.bucket, tier=18,
+                                             batch=len(token.rlens))
+            dev2, pd2, mmp2 = kernel2(token.packed_dev, token.rl_dev)
             (cls, pd, mm, rplast, cscore, counts, rpos, gpos, slen,
              overflow, buf_ovf) = kernel2.collect(dev2)
+            # the evidence step must use the SAME classification outputs
+            # the host admits from
+            token.kernel, token.dev = kernel2, dev2
+            token.pd, token.mmp = pd2, mmp2
             if buf_ovf:   # pathological: host oracle for everything
                 self.n_full_fallbacks += 1
                 cls = np.full(n, CLASS_SLOW, dtype=np.int32)
@@ -210,7 +260,7 @@ class DeviceBackend:
                     counts, np.zeros(0, np.int32), np.zeros(0, np.int64),
                     np.zeros(0, np.int32), np.ones(n, dtype=bool),
                     read_codes_fn)
-        fallback = overflow[:n] | fb_neg[:n]
+        fallback = overflow[:n] | token.fb_neg[:n]
         cls = cls[:n].copy()
         counts = counts[:n]
         self.n_oracle_reads += int(fallback.sum())
@@ -267,7 +317,7 @@ class DeviceBackend:
         DeviceBackend.submit over build_seed_kernel)."""
         raise NotImplementedError(
             "the non-native path's 1-step seed kernel is not ported yet "
-            "(ROADMAP.md, next slice 4: C3); run with the native host leg")
+            "(ROADMAP.md, next slice 3: C3); run with the native host leg")
 
     def _oracle_arrays(self, c: np.ndarray) -> tuple:
         pairs = identify_simple_pairs(self.idx, c)[:-1]  # drop sentinel
@@ -283,20 +333,16 @@ def _refuse_unported(cfg: Config) -> None:
         raise NotImplementedError(
             "compact_factor > 1: the lane-compacted scan "
             "(_seed_scan3_compact) is not ported yet (ROADMAP.md, next "
-            "slice 2); seed sets are identical with "
+            "slice 1); seed sets are identical with "
             "compact_factor=1")
     if int(getattr(cfg, "devices", 1)) > 1:
         raise NotImplementedError(
             "-devices N > 1 is not ported yet (ROADMAP.md, next slice "
-            "5)")
+            "4)")
     if int(getattr(cfg, "index_shards", 0) or 0) > 1:
         raise NotImplementedError(
             "-shards N > 1 is not ported yet (ROADMAP.md, next slice "
-            "6)")
+            "5)")
     if getattr(cfg, "big_x64", False):
         raise NotImplementedError(
-            "big_x64 is not ported yet (ROADMAP.md, next slice 7)")
-    if getattr(cfg, "fold_evidence", False):
-        raise NotImplementedError(
-            "fold_evidence is not ported yet (ROADMAP.md, next slice "
-            "1: C2, with the evidence planes)")
+            "big_x64 is not ported yet (ROADMAP.md, next slice 6)")

@@ -1,0 +1,449 @@
+"""Device-resident evidence planes, updated on the card (PyTorch port of
+mapcaller_tpu/pipeline/device_profile.py; ref contract:
+src/AlignmentProfile.cpp:41-242).
+
+Layout (int32, genome_size = L):
+
+  acgt        [4, L+1]   mismatch point adds (uncapped; capped at the
+                         finalize fold, exact for +1 streams)
+  exact_diff  [L+2]      +1/-1 endpoints of exact-match coverage; holes
+                         punched at mismatch positions of fast reads
+  f_diff      [4, L+2]   F1/R2/F2/R1 orientation range endpoints
+  multi_diff  [L+2]      multi-hit span endpoints
+
+The per-batch apply consumes the batch's device-resident chain outputs
+(diagonal pd, packed mismatch positions, read lengths) for FAST-class
+reads plus a host bitmask of which of them were admitted (uniquely
+mapped AND passed the PCR-duplicate gate, whose strictly sequential
+per-start counter stays in the C++ host leg, so every device update is a
+commutative add). SLOW-read evidence accumulates in the host diff arrays
+as before; its sparse nonzero deltas merge into the device planes once,
+at finalize.
+
+Extra slots (the +1/+2) are scatter dump targets for masked-out lanes.
+
+Eager PyTorch has nothing to compile, so the `build_*_kernel` functions
+only bind the static arguments of the reference's jitted `build_*`
+functions and return a function that updates the planes in place.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from ..ops.chain_device import CLASS_FAST
+from ..ops.evidence import first_mate_lanes, scatter_fast_evidence
+
+MAX_ALLELE_COUNT = 4095
+
+
+class EvidenceStats:
+    """Which evidence path a run took: `applies` stand-alone per-batch
+    applies, `folded` speculative applies inside the chain dispatch,
+    `corrections` sparse reject retractions, `undos` dense retractions of
+    a speculation (tier rerun or too many rejects), `scans` caller scans,
+    `fetches` column fetches, `downloads` full plane downloads to the
+    host profile,
+    `overflow_fallbacks` calling runs whose CAND_CAP/RUN_CAP tables
+    overflowed (and so downloaded the planes), `batch_seconds` host wall
+    seconds in the per-batch evidence step (`reconcile_batch`). Counted
+    on every device."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self) -> None:
+        self.applies = self.folded = self.corrections = self.undos = 0
+        self.scans = self.fetches = self.downloads = 0
+        self.overflow_fallbacks = 0
+        self.batch_seconds = 0.0
+
+
+STATS = EvidenceStats()
+
+
+@dataclasses.dataclass
+class DevicePlanes:
+    acgt: torch.Tensor
+    exact_diff: torch.Tensor
+    f_diff: torch.Tensor
+    multi_diff: torch.Tensor
+    L: int
+
+    @classmethod
+    def zeros(cls, L: int, device="cuda") -> "DevicePlanes":
+        def z(*shape):
+            return torch.zeros(shape, dtype=torch.int32,
+                               device=torch.device(device))
+        return cls(acgt=z(4, L + 1), exact_diff=z(L + 2), f_diff=z(4, L + 2),
+                   multi_diff=z(L + 2), L=L)
+
+
+def _scatter(planes: DevicePlanes, adm, pd, mmp, rlens, b_first, two_l,
+             sign) -> DevicePlanes:
+    scatter_fast_evidence(planes.exact_diff, planes.f_diff.view(-1),
+                          planes.acgt.view(-1), adm, pd, mmp, rlens, b_first,
+                          planes.L, two_l, sign)
+    return planes
+
+
+def build_apply_kernel(L: int, two_l: int, B: int, pair_end: bool,
+                       source: str = "bits", sign: int = 1):
+    """fn(planes, pd[B], mmp[B,S], rlens[B], sel) -> planes, in place.
+    Applies (sign=+1) or retracts (sign=-1) FAST reads' evidence:
+    coverage + orientation range endpoints, mismatch holes, read-base
+    point adds. source='bits': sel is the host admit bitmask int32[B/32];
+    source='meta': sel is the chain kernel's packed output vector and the
+    admitted set is every device-classified FAST read (the speculative
+    fold, corrected later by build_correct_kernel)."""
+
+    def kernel(planes: DevicePlanes, pd, mmp, rlens, sel):
+        bidx = torch.arange(B, dtype=torch.int64, device=pd.device)
+        if source == "meta":
+            adm = (sel[:B] & 3) == CLASS_FAST
+        else:
+            # int32 words: the arithmetic shift keeps bit 31 after the & 1
+            adm = ((sel[bidx >> 5] >> (bidx & 31)) & 1) == 1
+        return _scatter(planes, adm, pd, mmp, rlens,
+                        first_mate_lanes(bidx, pair_end), two_l, sign)
+
+    return kernel
+
+
+def build_correct_kernel(L: int, two_l: int, B: int, pair_end: bool):
+    """fn(planes, pd[B], mmp[B,S], rlens[B], rej_idx[R]) -> planes, in
+    place. Sparse retraction for the folded apply: rej_idx holds the read
+    indices (< B) whose speculative evidence must be subtracted (host
+    dup-gate rejects, splice-forced slow reads). Gathers the R rejected
+    lanes of the chain outputs: O(R), not O(B). The reference pads
+    rej_idx to a static R with B; here R is the count itself."""
+
+    def kernel(planes: DevicePlanes, pd, mmp, rlens, rej_idx):
+        ix = rej_idx.to(torch.int64)
+        on = torch.ones_like(ix, dtype=torch.bool)
+        return _scatter(planes, on, pd[ix], mmp[ix], rlens[ix],
+                        first_mate_lanes(ix, pair_end), two_l, -1)
+
+    return kernel
+
+
+def build_host_merge_kernel(L: int):
+    """fn(planes, idx_a, val_a, idx_e, val_e, idx_f, val_f, idx_m, val_m)
+    -> planes, in place: add the host profile's sparse nonzero deltas
+    (slow-read evidence) into the planes. idx arrays address the
+    flattened planes."""
+
+    def kernel(planes: DevicePlanes, idx_a, val_a, idx_e, val_e, idx_f,
+               val_f, idx_m, val_m):
+        planes.acgt.view(-1).index_add_(0, idx_a, val_a)
+        planes.exact_diff.index_add_(0, idx_e, val_e)
+        planes.f_diff.view(-1).index_add_(0, idx_f, val_f)
+        planes.multi_diff.index_add_(0, idx_m, val_m)
+        return planes
+
+    return kernel
+
+
+def build_finalize_kernel(L: int):
+    """fn(planes, ref_codes) -> (acgt_final int32[4,L] capped with exact
+    coverage credited to the reference base, F int32[4,L], multi int32[L]
+    capped, cov int32[L], cov_prefix int64[L+1]); mirrors
+    Profile.finalize_diffs. cov_prefix is int64: the reference's int32
+    prefix wraps once the summed coverage passes 2^31 and equals this one
+    wherever it does not."""
+    i32 = torch.int32
+
+    def kernel(planes: DevicePlanes, ref_codes):
+        exact = torch.cumsum(planes.exact_diff[:L], 0, dtype=i32)
+        rc = ref_codes[:L]
+        base = torch.arange(4, dtype=rc.dtype, device=rc.device)[:, None]
+        acgt = planes.acgt[:, :L] + torch.where(base == rc[None, :],
+                                                exact[None, :], 0)
+        acgt = torch.clamp(acgt, max=MAX_ALLELE_COUNT)
+        # one 1-D scan per plane: a scan along the rows of a [4, L]
+        # tensor runs one CUDA block per row
+        F = torch.stack([torch.cumsum(planes.f_diff[k, :L], 0, dtype=i32)
+                         for k in range(4)])
+        multi = torch.clamp(torch.cumsum(planes.multi_diff[:L], 0, dtype=i32),
+                            max=MAX_ALLELE_COUNT)
+        cov = acgt.sum(0, dtype=i32)
+        cov_prefix = torch.cat([torch.zeros(1, dtype=torch.int64,
+                                            device=cov.device),
+                                torch.cumsum(cov, 0, dtype=torch.int64)])
+        return acgt, F, multi, cov, cov_prefix
+
+    return kernel
+
+
+def make_device_evidence(backend, cfg, host_profile):
+    """DeviceEvidence factory: the single-card planes. The reference's
+    genome-sharded and multi-device planes are not ported yet."""
+    if getattr(backend, "big_x64", False) and backend.index_shards > 1:
+        raise NotImplementedError(
+            "genome-sharded evidence planes (BigDeviceEvidence) are not "
+            "ported yet (ROADMAP.md, next slice 6)")
+    if getattr(backend, "is_multi_device", False):
+        raise NotImplementedError(
+            "multi-device evidence planes (MultiDeviceEvidence) are not "
+            "ported yet (ROADMAP.md, next slice 4)")
+    return DeviceEvidence(backend, cfg, host_profile)
+
+
+class DeviceEvidence:
+    """Owns the device planes for one run: per-batch apply of fast-read
+    evidence, the finalize fold (which first merges the host-side
+    slow-read deltas), the caller scan and sparse column fetches. The
+    gVCF NOR blocks reduce on the card too; -monomorphic and -obs/-obr
+    download the planes (pipeline/engine.py)."""
+
+    CORRECT_CAP = 1024
+
+    def __init__(self, backend, cfg, host_profile):
+        self.be = backend
+        self.cfg = cfg
+        self.host_profile = host_profile
+        self.L = backend.idx.genome_size
+        self.two_l = backend.idx.seq_len
+        self.device = backend.device
+        self.planes = DevicePlanes.zeros(self.L, self.device)
+        self._final = None
+        self._ref_codes = None
+        self._scan = None
+        self._scan_pending = None
+
+    def apply_batch(self, token, fast_bits: np.ndarray,
+                    pair_end: bool) -> None:
+        """token: the submit_chain token of the batch just processed by
+        the host; fast_bits: admitted fast reads (unique-mapped AND
+        passed the host-side duplicate gate), uint32 words."""
+        B = int(token.rl_dev.shape[0])
+        fb = np.zeros((B + 31) // 32, dtype=np.int32)
+        fb[:fast_bits.size] = fast_bits.view(np.int32)
+        kern = build_apply_kernel(self.L, self.two_l, B, bool(pair_end))
+        with record_function("evidence_apply"):
+            kern(self.planes, token.pd, token.mmp, token.rl_dev,
+                 torch.from_numpy(fb).to(self.device))
+        STATS.applies += 1
+
+    def _undo_speculation(self, token, pair_end: bool) -> None:
+        dev0, pd0, mmp0 = token.spec
+        B = int(token.rl_dev.shape[0])
+        undo = build_apply_kernel(self.L, self.two_l, B, bool(pair_end),
+                                  source="meta", sign=-1)
+        with record_function("evidence_correct"):
+            undo(self.planes, pd0, mmp0, token.rl_dev, dev0)
+        STATS.undos += 1
+
+    def reconcile_batch(self, token, fast_bits: np.ndarray,
+                        pair_end: bool) -> None:
+        """Post-host step for a batch. Classic tokens (no fold) run the
+        stand-alone apply. Folded tokens (submit_chain(evidence=...))
+        already hold the speculative apply of every device-FAST read;
+        here the host's rejects (dup-gate losers, oracle-spliced reads)
+        are retracted sparsely, and the common no-reject batch costs no
+        device work at all. A tier rerun (collect_chain swapped the
+        token's outputs) densely undoes the stale speculation and falls
+        back to the classic apply with the rerun's outputs."""
+        if token.spec is None:
+            return self.apply_batch(token, fast_bits, pair_end)
+        dev0 = token.spec[0]
+        B = int(token.rl_dev.shape[0])
+        if token.dev is not dev0:   # tier rerun invalidated the speculation
+            self._undo_speculation(token, pair_end)
+            return self.apply_batch(token, fast_bits, pair_end)
+        # the classes of the speculative dispatch, as collect_chain
+        # downloaded them
+        fast_ix = np.nonzero(token.cls0[:B] == CLASS_FAST)[0]
+        fb = np.zeros((B + 31) // 32, dtype=np.uint32)
+        fb[:fast_bits.size] = fast_bits.view(np.uint32)
+        admitted = ((fb[fast_ix >> 5] >> (fast_ix & 31)) & 1) == 1
+        rej = fast_ix[~admitted]
+        if rej.size == 0:
+            return
+        if rej.size > self.CORRECT_CAP:   # pathological: redo densely
+            self._undo_speculation(token, pair_end)
+            return self.apply_batch(token, fast_bits, pair_end)
+        kern = build_correct_kernel(self.L, self.two_l, B, bool(pair_end))
+        with record_function("evidence_correct"):
+            kern(self.planes, token.pd, token.mmp, token.rl_dev,
+                 torch.from_numpy(rej).to(self.device))
+        STATS.corrections += 1
+
+    # ------------------------------------------------------------------
+    def _ref_codes_dev(self) -> torch.Tensor:
+        """Forward-genome codes int32[L] from the device text words
+        (int64 holding uint32, 16 crumbs per word in bwa order)."""
+        words = self.be.chain_ctx.text_words[:(self.L + 15) // 16]
+        sh = (15 - torch.arange(16, dtype=torch.int64,
+                                device=words.device)) * 2
+        crumbs = (words[:, None] >> sh[None, :]) & 3
+        return crumbs.reshape(-1)[:self.L].to(torch.int32)
+
+    def _merge_host_deltas(self) -> None:
+        """Add the host profile's slow-read evidence (sparse nonzero diff
+        entries + point adds) into the device planes, once, then zero the
+        host copies so a later download does not add them twice."""
+        p = self.host_profile
+        L = self.L
+        if hasattr(p, "any_host_evidence") and not p.any_host_evidence():
+            # every read applied on the card: skip eight O(L) scans
+            return
+
+        def nz(arr, offset=0):
+            a = np.asarray(arr).reshape(-1)
+            i = np.nonzero(a)[0]
+            return i + offset, a[i].astype(np.int32)
+
+        ia, va = nz(p.acgt)
+        ia = (ia // L) * (L + 1) + (ia % L)   # host [4, L]; device stride L+1
+        ie, ve = nz(p.exact_diff)
+        fparts = [nz(getattr(p, name), k * (L + 2)) for k, name in enumerate(
+            ("F1_diff", "R2_diff", "F2_diff", "R1_diff"))]
+        if_ = np.concatenate([x[0] for x in fparts])
+        vf = np.concatenate([x[1] for x in fparts])
+        im, vm = nz(p.multi_diff)
+
+        def up(a, dtype):
+            return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(
+                self.device)
+
+        build_host_merge_kernel(L)(
+            self.planes, up(ia, np.int64), up(va, np.int32),
+            up(ie, np.int64), up(ve, np.int32), up(if_, np.int64),
+            up(vf, np.int32), up(im, np.int64), up(vm, np.int32))
+        p.acgt[:] = 0
+        p.exact_diff[:] = 0
+        for name in ("F1_diff", "R2_diff", "F2_diff", "R1_diff",
+                     "multi_diff"):
+            getattr(p, name)[:] = 0
+
+    def finalize(self):
+        """Merge host deltas + fold diffs on the card ->
+        (acgt, F, multi, cov, cov_prefix), all device-resident."""
+        if self._final is None:
+            with record_function("evidence_finalize"):
+                self._merge_host_deltas()
+                self._ref_codes = self._ref_codes_dev()
+                self._final = build_finalize_kernel(self.L)(self.planes,
+                                                            self._ref_codes)
+        return self._final
+
+    def start_scan(self) -> None:
+        """Queue the finalize and the caller scan on the card without
+        waiting for them; engine.finalize calls it as soon as the
+        evidence is complete, so the host's post-mapping work overlaps
+        the device's. scan() reads the results."""
+        if self._scan is not None or self._scan_pending is not None:
+            return
+        from ..calling.scan_device import build_scan_kernel
+        acgt, F, multi, cov, cov_prefix = self.finalize()
+        freq_base = 0.01 if self.cfg.somatic else self.cfg.frequency_thr
+        kern = build_scan_kernel(self.L, bool(self.cfg.somatic))
+        with record_function("caller_scan"):
+            self._scan_pending = kern(acgt, multi, cov, self._ref_codes,
+                                      int(self.cfg.min_allele_depth),
+                                      np.float32(freq_base))
+        STATS.scans += 1
+
+    def scan(self):
+        """Caller scan (cached); returns (block_depth LazyBlockDepth —
+        device-resident, sparse host access, cand_idx, run_start, run_val
+        — each at least as long as its count unless it overflowed its
+        capacity, scalars int64[4] = (n_cand, n_runs, n_aligned,
+        total_cov)). Two copies to the host: the scalars, then the tables'
+        used prefixes."""
+        if self._scan is not None:
+            return self._scan
+        from ..calling.scan_device import (BLOCK_SIZE, CAND_CAP, RUN_CAP,
+                                           LazyBlockDepth)
+        self.start_scan()
+        bd, cand_idx, run_start, run_val, small = self._scan_pending
+        self._scan_pending = None
+        scal4 = small.cpu().numpy().astype(np.int64)
+        k1 = min(int(scal4[0]), CAND_CAP)
+        k2 = min(int(scal4[1]), RUN_CAP)
+        packed = torch.cat([cand_idx[:k1], run_start[:k2],
+                            run_val[:k2]]).cpu().numpy()
+        nb = (self.L + BLOCK_SIZE - 1) // BLOCK_SIZE
+        self._scan = (LazyBlockDepth(bd, nb), packed[:k1],
+                      packed[k1:k1 + k2], packed[k1 + k2:], scal4)
+        return self._scan
+
+    def fetch_columns(self, positions: np.ndarray, prefix_pts: np.ndarray,
+                      bd_blocks: np.ndarray = None):
+        """Gather evidence columns + cov-prefix values (one packed copy to
+        the host). When bd_blocks is given and scan() has run, the
+        block-depth values at those blocks ride the same copy and seed
+        the LazyBlockDepth cache."""
+        from ..calling.scan_device import build_fetch_kernel
+        acgt, F, multi, cov, cov_prefix = self.finalize()
+
+        def up(a):
+            return torch.from_numpy(np.asarray(a, dtype=np.int64)).to(
+                self.device)
+
+        with record_function("fetch_columns"):
+            cols, pref = build_fetch_kernel(self.L)(
+                acgt, multi, F, cov, cov_prefix, up(positions),
+                up(prefix_pts))
+        STATS.fetches += 1
+        parts = [cols.reshape(-1).to(torch.int64), pref]
+        nbd = 0
+        if bd_blocks is not None and self._scan is not None:
+            lbd = self._scan[0]
+            bd_blocks = np.unique(bd_blocks)
+            bd_blocks = bd_blocks[(bd_blocks >= 0) & (bd_blocks < lbd.nb)]
+            nbd = bd_blocks.size
+            if nbd:
+                parts.append(lbd._arr[up(bd_blocks)].to(torch.int64))
+        packed = torch.cat(parts).cpu().numpy()
+        nc = cols.shape[0] * cols.shape[1]
+        cols_h = packed[:nc].reshape(tuple(cols.shape))
+        pref_h = packed[nc:nc + pref.shape[0]]
+        if nbd:
+            self._scan[0].insert(bd_blocks, packed[nc + pref.shape[0]:])
+        return cols_h, pref_h
+
+    def nor_blocks(self, emitted: np.ndarray, brk: np.ndarray):
+        """gVCF NOR-block reduction on the card: returns (first_pos,
+        min_cov, cov_at_first) per block key 0..brk.size. emitted =
+        positions whose own record excludes them from 'normal'; brk =
+        every record-appending position."""
+        from ..calling.scan_device import build_nor_kernel
+        acgt, F, multi, cov, cov_prefix = self.finalize()
+        nseg = brk.size + 2       # keys 0..brk.size, then the dump segment
+        # an empty break list searches [L]: every position gets key 0
+        bk = np.sort(np.asarray(brk, dtype=np.int64)) if brk.size else \
+            np.array([self.L], dtype=np.int64)
+        first, mincov, covf = build_nor_kernel(self.L, nseg)(
+            cov, torch.from_numpy(np.asarray(emitted, dtype=np.int64)).to(
+                self.device), torch.from_numpy(bk).to(self.device))
+        packed = torch.cat([first, mincov, covf]).cpu().numpy()
+        return packed[:nseg], packed[nseg:2 * nseg], packed[2 * nseg:]
+
+    def download_raw_into(self, profile) -> None:
+        """Add the device planes' raw (unfolded, uncapped) contributions
+        into the host profile's diff arrays, for the -monomorphic /
+        -obs / -pfm / capacity-overflow paths, so saturation happens once
+        on the final fold."""
+        L = self.L
+        if profile.F1_diff is None:
+            profile.alloc_diffs()
+        pl = self.planes
+        profile.exact_diff += pl.exact_diff[:L + 1].cpu().numpy()
+        fd = pl.f_diff.cpu().numpy()
+        profile.F1_diff += fd[0, :L + 1]
+        profile.R2_diff += fd[1, :L + 1]
+        profile.F2_diff += fd[2, :L + 1]
+        profile.R1_diff += fd[3, :L + 1]
+        profile.multi_diff += pl.multi_diff[:L + 1].cpu().numpy()
+        profile.acgt += pl.acgt[:, :L].cpu().numpy()
+        STATS.downloads += 1
+
+    def download_into(self, profile) -> None:
+        """Fallback path: fold everything into the host Profile arrays
+        (profile.finalize_diffs completes the fold on the host)."""
+        self.download_raw_into(profile)

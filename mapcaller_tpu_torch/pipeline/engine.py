@@ -62,7 +62,7 @@ class MappingEngine:
         # is observable through the brace bug at ReadMapping.cpp:502)
         self._discord_gpos = 0
         self.backend = backend  # optional device batch runner
-        self.device_evidence = None  # device evidence planes (not ported)
+        self.device_evidence = None  # device evidence planes (stream path)
         self.native = None      # optional C++ chunk processor
         if use_native is None:
             use_native = cfg.use_native

@@ -6,8 +6,12 @@ parses FASTQ/FASTA batches into parser slots, hands the device a padded
 arrays the device returns; the host then runs chain -> pair -> align ->
 SAM -> evidence for the batch (ref: ReadMapping.cpp:416-646).
 
-In this port the evidence always goes to the C++ host diff arrays (the
-backend reports device_evidence_ok = False), and batches are submitted
+With device evidence (the default when the planes fit the card, see
+DeviceBackend.device_evidence_ok), each batch's FAST reads add their
+evidence to the device planes after the host leg has run its duplicate
+gate (pipeline/device_profile.py), or speculatively inside the chain
+dispatch under fold_evidence; SLOW reads' evidence stays in the C++ host
+diff arrays and merges into the planes at finalize. Batches are submitted
 one at a time (the backend has no transfer-grouped submit).
 """
 from __future__ import annotations
@@ -46,10 +50,24 @@ def run_stream_mapping(engine, cfg: Config, t_start: float,
             now = time.perf_counter()
             sys.stderr.write(f"[stage-prof] pre {label}: {now - _pt:.2f}s\n")
             _pt = now
+    use_device_evidence = (cfg.vcf_output and cfg.device_evidence
+                           and be.device_evidence_ok)
     if cfg.vcf_output:
-        # all evidence accumulates in the host diff arrays
+        # slow-read evidence always accumulates in the host diff arrays
         engine.enable_diff_profile()
     _mark("enable_diff_profile")
+    if use_device_evidence:
+        from .device_profile import STATS, make_device_evidence
+        engine.device_evidence = make_device_evidence(be, cfg,
+                                                      engine.profile)
+        _mark("make_device_evidence")
+        native.set_ops_mode(True)
+        # the C++ slow path writes host planes invisibly to Python:
+        # register its dirtiness probe so the device merge can skip its
+        # O(L) nonzero scans when every read stayed on the card
+        engine.profile.dirty_probes.append(native.host_planes_dirty)
+    fold_ev = (engine.device_evidence
+               if use_device_evidence and cfg.fold_evidence else None)
     stats_io = np.zeros(6, dtype=np.int64)
     stats_io[5] = engine.stats.avg_dist
 
@@ -61,7 +79,7 @@ def run_stream_mapping(engine, cfg: Config, t_start: float,
         buf2 = _load_bytes(f2) if f2 is not None else None
         if cfg.compact_factor == 0:
             # auto resolves to 1 in this port: the lane-compacted scan
-            # is not ported yet (ROADMAP.md, next slice 2) and its auto
+            # is not ported yet (ROADMAP.md, next slice 1) and its auto
             # rule is to be re-decided on the card; seed sets are
             # identical either way
             cfg.compact_factor = 1
@@ -82,9 +100,9 @@ def run_stream_mapping(engine, cfg: Config, t_start: float,
         pending = deque()
         eof = False
         # MC_STAGE_PROF=1: per-stage wall-time accumulation (parse /
-        # submit / collect [includes device wait] / host C++)
+        # submit / collect [includes device wait] / host C++ / evidence)
         prof = ({"parse": 0.0, "submit": 0.0, "collect": 0.0,
-                 "host_cpp": 0.0, "batches": 0}
+                 "host_cpp": 0.0, "evidence": 0.0, "batches": 0}
                 if os.environ.get("MC_STAGE_PROF") else None)
         pc = time.perf_counter
         while not eof or pending:
@@ -101,7 +119,7 @@ def run_stream_mapping(engine, cfg: Config, t_start: float,
                     t1 = pc()
                     prof["parse"] += t1 - t0
                 token = be.submit_chain(packed, rlens, bucket,
-                                        pair_end=pair_end)
+                                        evidence=fold_ev, pair_end=pair_end)
                 if prof is not None:
                     prof["submit"] += pc() - t1
                 pending.append((slot, n, token))
@@ -137,8 +155,18 @@ def run_stream_mapping(engine, cfg: Config, t_start: float,
                 sam_text, st = native.process_batch_cls(
                     pslot, pair_end, fastq, cls, pd, mm, rplast, cscore,
                     counts, rp, gp, ln, stats_io)
+            t2 = pc()
             if prof is not None:
-                prof["host_cpp"] += pc() - t1
+                prof["host_cpp"] += t2 - t1
+            if engine.device_evidence is not None:
+                fbits = native.fetch_fast_bits()
+                engine.device_evidence.reconcile_batch(ptoken, fbits,
+                                                       pair_end)
+                dt = pc() - t2
+                STATS.batch_seconds += dt
+                if prof is not None:
+                    prof["evidence"] += dt
+            if prof is not None:
                 prof["batches"] += 1
             native.slot_release(pslot)
             engine.inv_sites.extend(st["inv"])

@@ -59,6 +59,9 @@ def run_pipeline(cfg: Config, cmd_line: str) -> int:
             t0 = time.time()
             metrics["variant_counts"] = run_calling(engine, cfg, cmd_line)
             metrics["calling_seconds"] = round(time.time() - t0, 3)
+        # checkpoint AFTER calling: save_pfm downloads the device planes
+        # into the host profile, which would otherwise send this run's
+        # own calling to the host caller
         if cfg.pfm_out and not cfg.pfm_resume:
             from .pipeline.checkpoint import save_pfm
             t0 = time.time()
@@ -108,7 +111,7 @@ def make_engine(idx: FMIndex, cfg: Config):
         if ndev > 1:
             raise NotImplementedError(
                 f"-devices {ndev}: multi-device mapping is not ported yet "
-                f"(ROADMAP.md, next slice 5)")
+                f"(ROADMAP.md, next slice 4)")
         from .pipeline.device_backend import DeviceBackend
         backend = DeviceBackend(idx, cfg)
     return MappingEngine(idx, cfg, backend=backend)
@@ -144,6 +147,10 @@ def _run_mapping_body(engine: MappingEngine, cfg: Config, t_start: float,
     if engine.native is not None and engine.backend is not None:
         # fast path: native parsing/processing + device seeding, overlapped
         from .pipeline.stream import run_stream_mapping
+        if (cfg.vcf_output and cfg.device_evidence
+                and not engine.backend.device_evidence_ok):
+            _log(cfg, "The device evidence planes do not fit the free "
+                      "device memory; evidence accumulates in host memory.")
 
         def sam_sink(text: str) -> None:
             if sam_fh:
@@ -240,12 +247,23 @@ def run_calling(engine: MappingEngine, cfg: Config, cmd_line: str) -> dict:
     genome = engine.genome
     profile = engine.profile
     _log(cfg, f"Identify all variants (min_alt_allele_depth={cfg.min_allele_depth})...")
-    # evidence is in the host arrays (device_evidence_ok is False in
-    # this port): the host caller
-    block_depth = cal_block_read_depth(profile, genome.genome_size)
-    variants = identify_variants(cfg, genome, profile,
-                                 engine.idx.ref.ref_sequence_codes(),
-                                 block_depth)
+    if engine.device_evidence is not None:
+        from .calling.device_call import device_identify
+        res = device_identify(engine, cfg, genome)
+        if res is None:   # capacity overflow: host caller on host planes
+            from .pipeline.device_profile import STATS
+            STATS.overflow_fallbacks += 1
+            engine.device_evidence.download_into(profile)
+            engine.device_evidence = None
+            if profile.F1_diff is not None:
+                profile.finalize_diffs(engine.idx.ref.ref_sequence_codes())
+        else:
+            block_depth, profile, variants = res
+    if engine.device_evidence is None:
+        block_depth = cal_block_read_depth(profile, genome.genome_size)
+        variants = identify_variants(cfg, genome, profile,
+                                     engine.idx.ref.ref_sequence_codes(),
+                                     block_depth)
     if cfg.gvcf:
         variants = remove_consecutive_genomic_variant(variants)
 

@@ -1,11 +1,17 @@
 """End to end on the CPU: the port (mapcaller_tpu_torch, plain PyTorch
 versions of its kernels) must write SAM and VCF byte-identical to the
-reference package on a small planted dataset, import neither JAX nor the
-reference package, and refuse the options it does not port yet."""
+reference package on a small planted dataset — with device evidence (the
+default), folded evidence, host evidence, -gvcf, -somatic, -monomorphic,
+a -pfm round trip and a forced candidate-table overflow, and on a
+repeat-rich set whose hit-buffer overflow reruns a batch — import neither
+JAX nor the reference package, and refuse the options it does not port
+yet."""
+import json
 import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -13,8 +19,11 @@ from mapcaller_tpu import runner as jax_runner
 from mapcaller_tpu.config import Config as JaxConfig
 from mapcaller_tpu.index.fmindex import build_index
 from mapcaller_tpu_torch import runner
+from mapcaller_tpu_torch.calling import device_call, scan_device
 from mapcaller_tpu_torch.config import Config
+from mapcaller_tpu_torch.dna import decode
 from mapcaller_tpu_torch.ops import nw_device
+from mapcaller_tpu_torch.pipeline import device_profile
 from mapcaller_tpu_torch.simulator import write_planted_dataset
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -38,6 +47,11 @@ def _read(cfg):
         return f.read(), g.read()
 
 
+def _metrics(cfg):
+    with open(cfg.log_file) as f:
+        return json.loads([ln for ln in f if ln.startswith("{")][-1])
+
+
 @pytest.fixture(scope="module")
 def data(tmp_path_factory):
     """The planted dataset, its index (built by the reference package
@@ -52,6 +66,119 @@ def data(tmp_path_factory):
                     **inputs, **PINNED, **_files(d, "jax"))
     assert jax_runner.run_pipeline(cfg, "mapcaller") == 0
     return d, inputs, _read(cfg)
+
+
+@pytest.fixture(scope="module")
+def jax_modes(data):
+    """The reference package's SAM and VCF, with its default (device)
+    evidence, for the calling modes whose VCF differs from the default."""
+    d, inputs, _ = data
+    out = {}
+    for mode in ("gvcf", "somatic", "monomorphic"):
+        cfg = JaxConfig(device_extension=True, **{mode: True}, **inputs,
+                        **PINNED, **_files(d, f"jax_{mode}"))
+        assert jax_runner.run_pipeline(cfg, "mapcaller") == 0
+        out[mode] = _read(cfg)
+    return out
+
+
+# mode -> (port flags, reference run, the evidence counts the port's run
+# must show: applies, folded, scans, downloads, overflow fallbacks)
+MODES = {
+    "device": ({}, None, (12, 0, 1, 0, 0)),
+    "fold": (dict(fold_evidence=True), None, (0, 12, 1, 0, 0)),
+    "host": (dict(device_evidence=False), None, (0, 0, 0, 0, 0)),
+    "gvcf": (dict(gvcf=True), "gvcf", (12, 0, 1, 0, 0)),
+    "somatic": (dict(somatic=True), "somatic", (12, 0, 1, 0, 0)),
+    "monomorphic": (dict(monomorphic=True), "monomorphic", (12, 0, 0, 1, 0)),
+    "overflow": ({}, None, (12, 0, 1, 1, 1)),
+    "pfm": ({}, None, (12, 0, 1, 1, 0)),
+}
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_evidence_modes_equal_reference(data, jax_modes, monkeypatch, mode):
+    """Each evidence / calling mode of the port against the reference.
+    "overflow" shrinks the port's CAND_CAP so calling takes the plane
+    download and the host caller; "pfm" saves the profile after calling,
+    then a second run calls from it without mapping."""
+    d, inputs, default = data
+    flags, ref, counts = MODES[mode]
+    want_sam, want_vcf = jax_modes[ref] if ref else default
+    if mode == "overflow":
+        monkeypatch.setattr(scan_device, "CAND_CAP", 2)
+        monkeypatch.setattr(device_call, "CAND_CAP", 2)
+    if mode == "pfm":
+        flags = dict(pfm_out=os.path.join(d, "torch.pfm"))
+    device_profile.STATS.reset()
+    cfg = Config(device="cpu", **flags, **inputs, **PINNED,
+                 **_files(d, f"torch_{mode}"))
+    assert runner.run_pipeline(cfg, "mapcaller") == 0
+    st = device_profile.STATS
+    assert (st.applies, st.folded, st.scans, st.downloads,
+            st.overflow_fallbacks) == counts
+    assert _read(cfg) == (want_sam, want_vcf)
+    if mode == "pfm":
+        device_profile.STATS.reset()
+        cfg = Config(device="cpu", pfm_resume=flags["pfm_out"], **inputs,
+                     **PINNED, **_files(d, "torch_resume"))
+        assert runner.run_pipeline(cfg, "mapcaller") == 0
+        assert device_profile.STATS.applies == 0
+        with open(cfg.vcf_file) as f:
+            assert f.read() == want_vcf
+
+
+@pytest.fixture(scope="module")
+def rerun_data(tmp_path_factory):
+    """The reference package's repeat-rich fixture (its fold tests): a
+    500-bp unit three times in a 9.5 kb genome and 1024 single-end reads,
+    half of them inside the repeat, so a 1024-read batch overflows the
+    slow-hit buffer and reruns at the larger tier; and the reference's
+    SAM and VCF with its default (device) evidence."""
+    d = str(tmp_path_factory.mktemp("torch_rerun"))
+    rng = np.random.default_rng(33)
+    unit = rng.integers(0, 4, 500).astype(np.uint8)
+    genome = np.concatenate([rng.integers(0, 4, 4000).astype(np.uint8),
+                             unit, unit, unit,
+                             rng.integers(0, 4, 4000).astype(np.uint8)])
+    fa = os.path.join(d, "rep.fa")
+    with open(fa, "w") as f:
+        f.write(f">chr1\n{decode(genome)}\n")
+    fq = os.path.join(d, "m.fq")
+    with open(fq, "w") as f:
+        for k in range(1024):
+            if k % 2 == 0:
+                p = int(rng.integers(4000, 4000 + 3 * 500 - 100))
+            else:
+                p = int(rng.integers(0, len(genome) - 100))
+            c = genome[p:p + 100].copy()
+            if k % 11 == 5:
+                c[50] = (c[50] + 1) % 4
+            f.write(f"@m{k}\n{decode(c)}\n+\n{'I' * 100}\n")
+    prefix = os.path.join(d, "idx")
+    build_index(fa, prefix)
+    inputs = dict(index_prefix=prefix, read_files1=[fq], batch_size=1024,
+                  stream_batch_size=1024, max_read_len=256, prefix_skip_k=6,
+                  compact_factor=1)
+    cfg = JaxConfig(**inputs, **_files(d, "jax"))
+    assert jax_runner.run_pipeline(cfg, "mapcaller") == 0
+    return d, inputs, _read(cfg)
+
+
+@pytest.mark.parametrize("fold", [False, True])
+def test_tier_rerun_equal_reference(rerun_data, fold):
+    """A tier rerun swaps the token's outputs before the evidence step:
+    the plain apply must read the rerun's pd/mmp, and the folded path
+    must undo its stale speculation first."""
+    d, inputs, want = rerun_data
+    device_profile.STATS.reset()
+    cfg = Config(device="cpu", fold_evidence=fold, **inputs,
+                 **_files(d, f"torch_{fold}"))
+    assert runner.run_pipeline(cfg, "mapcaller") == 0
+    assert _metrics(cfg)["n_tier_reruns"] > 0, "fixture must rerun a batch"
+    st = device_profile.STATS
+    assert (st.undos > 0) == fold and (st.folded > 0) == fold
+    assert _read(cfg) == want
 
 
 @pytest.mark.parametrize("device_extension", [True, "auto"])
@@ -106,7 +233,7 @@ def test_import_isolation(data):
 
 @pytest.mark.parametrize("option", [
     dict(compact_factor=2), dict(devices=2), dict(index_shards=2),
-    dict(big_x64=True), dict(fold_evidence=True), dict(device_chain=False)])
+    dict(big_x64=True), dict(device_chain=False)])
 def test_unported_options_raise(data, option):
     d, inputs, _ = data
     kw = dict(PINNED, **option)
