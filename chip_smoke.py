@@ -10,15 +10,18 @@ Phases, one JSON line each on stdout (any failure raises and the process
 exits non-zero):
   env        card name and power limit (nvidia-smi), torch and CUDA
   build      nvcc for csrc/*.cu and g++ for the C++ host leg, in parallel,
-             with the NW kernel's registers, shared memory, stack frame
-             and spills from -Xptxas -v (any stack frame or spill fails)
-  kernels    the CUDA NW kernel equals its plain version exactly at every
-             DP tier (32, 48, 96, 192), on pairs whose lengths straddle
-             the kernel's column chunks and on a batch that is not a
-             multiple of its pairs per block, with its time, the plain
-             version's time and the bound
+             with the NW and ksw2 kernels' registers, shared memory,
+             stack frame and spills from -Xptxas -v (any stack frame or
+             spill fails)
+  kernels    the CUDA NW and ksw2 kernels each equal their plain version
+             exactly at every DP tier (32, 48, 96, 192), on pairs whose
+             lengths reach the tier's edges (for NW also the kernel's
+             column chunks; for ksw2 with ~5% N bases) and on a batch that
+             is not a multiple of the pairs per block, with their time,
+             the plain version's time and the bound
   small_e2e  a 20 kb planted dataset: the port on cuda and on cpu write
-             byte-identical SAM and VCF, both with device evidence
+             byte-identical SAM and VCF, both with device evidence, and
+             again on the non-native path (use_native=False)
   main_path  100,000 read pairs on a 4.6 Mb genome through
              `python -m mapcaller_tpu_torch.cli` (in process): one warm-up
              run, which also captures the tensors of its largest NW
@@ -27,23 +30,42 @@ exits non-zero):
              turns (device, scalar, scalar, device), then one run with
              host evidence (device_evidence=False) and one with the
              evidence apply folded into the chain dispatch
-             (fold_evidence=True); each counts the NW kernel's launches
-             and the evidence steps and writes the warm-up's SAM and VCF
-             bytes. Every run but the host-evidence one accumulates
-             evidence on the card and calls from it, with no capacity
-             overflow
+             (fold_evidence=True); then the other single-card paths, each
+             writing the warm-up's SAM and VCF bytes: lane compaction
+             (compact_factor=4: 8,192 lanes of a 32,768-read batch),
+             host chaining (device_chain=False) and the 1-step index (the
+             backend told the occ3 table does not fit); then -alg ksw2:
+             a warm-up, which captures the tensors of its largest ksw2
+             launch, and device-DP and scalar-DP turns, each writing the
+             ksw2 warm-up's bytes. Each run counts both kernels' launches
+             and the evidence steps; every run but the host-evidence and
+             host-chaining ones accumulates evidence on the card and
+             calls from it, with no capacity overflow; no run sends a
+             read to the host oracle or reruns a batch
+             Each run also reports the stream's stage seconds
+             (MC_STAGE_PROF: parse, seed+chain submit, collect, host leg,
+             evidence)
   evidence   device ms (queued launches) of the evidence apply of one
              batch, the finalize fold, the caller scan and the column
              fetch on the warm-up's own planes and inputs, each equal to
              the same call on the CPU, with the bound (bytes over the
              card's memory rate)
-Then the kernel table line ({"kernels": [...]}, timed on the main path's
-own captured pairs and on random pairs of the same shape), the card's
-name and power limit, and as the last line {"ok": true, "device": {...}}.
+  dp_rates   on each algorithm's largest DP batch of the main path (its
+             own pairs): one device DP call end to end on 1 pair and on
+             all of them (fixed and per-pair cost), and the scalar C++
+             aligner per pair (a ctypes loop over the pairs less the same
+             loop over 1x1 pairs), and the least batch for which the
+             device call would beat the scalar aligner
+Then the kernel table line ({"kernels": [...]}, each kernel timed on its
+main path's own captured pairs and on random pairs of the same shape),
+the card's name and power limit, and as the last line
+{"ok": true, "device": {...}}.
 
 Needs one CUDA card, nvcc and g++. Refuses to run without a card.
 """
+import contextlib
 import gc
+import io
 import json
 import os
 import re
@@ -60,6 +82,7 @@ H100_BYTES_S = 3.35e12            # HBM3 rate, H100 SXM data sheet
 # 67 TFLOP/s counts an FMA as 2), 132 SMs at the 1.98 GHz boost clock
 H100_INT32_OPS_S = 132 * 64 * 1.98e9
 NW_OPS_PER_CELL = 10              # see csrc/nw.cu
+KSW2_OPS_PER_CELL = 40            # per in-window cell, see csrc/ksw2.cu
 
 
 def emit(phase, **kw):
@@ -187,6 +210,98 @@ def check_nw(nw, B, M, seed, reps):
     return measure_nw(nw, nw_inputs(B, M, seed), reps)
 
 
+def ksw2_inputs(B, M, seed):
+    """B random pairs for an M x M tier on the card, in ksw2_ops's layout
+    (reversed queries right-aligned in qbuf, targets left-aligned in M+16
+    columns, pad 0): lengths uniform in [1, M] with the edges (1 and M)
+    forced on the first pairs, the target a mutated copy of the query on
+    most pairs, ~5% of the bases N (code 4)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    ql = rng.integers(1, M + 1, size=B).astype(np.int32)
+    tl = rng.integers(1, M + 1, size=B).astype(np.int32)
+    ql[:4], tl[:4] = [1, M, 1, M], [1, M, M, 1]
+    q = rng.integers(0, 4, size=(B, M)).astype(np.uint8)
+    t = q.copy()
+    mut = rng.random((B, M)) < 0.1
+    t[mut] = rng.integers(0, 4, size=int(mut.sum()))
+    t[::5] = rng.integers(0, 4, size=t[::5].shape)
+    q[rng.random((B, M)) < 0.05] = 4
+    t[rng.random((B, M)) < 0.05] = 4
+    cols = np.arange(M)[None, :]
+    qbuf = np.where(cols >= M - ql[:, None], q[:, ::-1], 0).astype(np.uint8)
+    tgt = np.zeros((B, M + 16), dtype=np.uint8)
+    tgt[:, :M] = np.where(cols < tl[:, None], t, 0)
+    dev = torch.device("cuda")
+    return tuple(torch.from_numpy(x).to(dev) for x in (qbuf, tgt, ql, tl))
+
+
+def ksw2_cells(qlen, tlen):
+    """In-window cells of the diagonals each pair needs: the sum over
+    r < qlen + tlen - 1 of en - st + 1, with (st, en) the 16-aligned
+    window of ops/ksw2_device._bounds."""
+    import numpy as np
+    ql = qlen.cpu().numpy().astype(np.int64)[:, None]
+    tl = tlen.cpu().numpy().astype(np.int64)[:, None]
+    w = np.maximum(ql, tl)
+    r = np.arange(int((ql + tl).max()) - 1)[None, :]
+    st0 = np.maximum(np.maximum(0, r - ql + 1), (r - w + 1) >> 1)
+    en0 = np.minimum(np.minimum(tl - 1, r), (r + w) >> 1)
+    width = (en0 + 16) // 16 * 16 - 1 - st0 // 16 * 16 + 1
+    return int(np.where(r < ql + tl - 1, width, 0).sum())
+
+
+def ksw2_bound_ms(qbuf, tgt, qlen, tlen):
+    """Least time for the function on these inputs: the larger of the
+    int32 operations its in-window cells need and the bytes it must
+    move."""
+    B, M = qbuf.shape
+    N = tgt.shape[1] - 16
+    ops = KSW2_OPS_PER_CELL * ksw2_cells(qlen, tlen)
+    nbytes = B * (M + N + 16) + 8 * B + 4 * B * ((M + N + 15) // 16)
+    t_ops, t_bytes = ops / H100_INT32_OPS_S, nbytes / H100_BYTES_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def equal_ksw2(k, args):
+    """Kernel vs plain version on the same tensors: exact equality of the
+    words. Returns the max abs difference (0)."""
+    import torch
+    kw = k.ksw2_ops(*args)
+    pw = k.ksw2_ops_plain(*args)
+    torch.cuda.synchronize()
+    err = int((kw.long() - pw.long()).abs().max())
+    if err != 0 or not torch.equal(kw, pw):
+        raise AssertionError(f"ksw2 kernel != plain version at "
+                             f"{tuple(args[0].shape)}x{args[1].shape[1]} "
+                             f"(max_abs_err {err})")
+    return err
+
+
+def measure_ksw2(k, args, reps):
+    """As measure_nw, for the ksw2 kernel."""
+    B, M = args[0].shape
+    N = args[1].shape[1] - 16
+    err = equal_ksw2(k, args)
+    ms = cuda_ms(lambda: k.ksw2_ops(*args), reps, queued=True)
+    call_ms = cuda_ms(lambda: k.ksw2_ops(*args), reps)
+    plain_ms = cuda_ms(lambda: k.ksw2_ops_plain(*args), 3, warmup=1)
+    bound, by = ksw2_bound_ms(*args)
+    return dict(B=B, M=M, N=N, cells=ksw2_cells(args[2], args[3]),
+                max_abs_err=err, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=by, share_of_bound=bound / ms)
+
+
+def check_ksw2(k, B, M, seed, reps):
+    """Kernel vs plain version on a ragged batch of B // 4 + 1 random
+    pairs (not a multiple of the kernel's 4 pairs per block), then times
+    at B."""
+    equal_ksw2(k, ksw2_inputs(B // 4 + 1, M, seed + 1))
+    return measure_ksw2(k, ksw2_inputs(B, M, seed), reps)
+
+
 def ptxas_report(out, kernel="nw_ops_kernel"):
     """Registers, shared memory, stack frame and spill bytes of each
     instantiation of `kernel` (keyed by its chunk) from the output of
@@ -229,7 +344,9 @@ def evidence_path_ok(st, applies=True, folded=False):
 
 
 def run_small_e2e(work):
-    """Port on cuda vs port on cpu, default flags, planted 20 kb set."""
+    """Port on cuda vs port on cpu, planted 20 kb set: default flags, then
+    the non-native path (use_native=False: per-read Python host leg, the
+    1-step seed kernel on byte codes)."""
     from mapcaller_tpu_torch import runner
     from mapcaller_tpu_torch.config import Config
     from mapcaller_tpu_torch.index.fmindex import build_index
@@ -241,34 +358,97 @@ def run_small_e2e(work):
     fa, f1, f2 = write_planted_dataset(d)
     build_index(fa, os.path.join(d, "idx"))
     outs = {}
-    for dev in ("cuda", "cpu"):
-        launches = nw_device.STATS.launches
-        device_profile.STATS.reset()
-        cfg = Config(device=dev, index_prefix=os.path.join(d, "idx"),
-                     read_files1=[f1], read_files2=[f2],
-                     stream_batch_size=1024,
-                     sam_file=os.path.join(d, f"{dev}.sam"),
-                     vcf_file=os.path.join(d, f"{dev}.vcf"),
-                     log_file=os.path.join(d, f"{dev}.log"))
-        if runner.run_pipeline(cfg, "mapcaller small_e2e") != 0:
-            raise RuntimeError(f"small_e2e run on {dev} failed")
-        outs[dev] = (cfg.sam_file, cfg.vcf_file,
-                     nw_device.STATS.launches - launches,
-                     vars(device_profile.STATS).copy())
-    sam_ok = same_bytes(outs["cuda"][0], outs["cpu"][0])
-    vcf_ok = same_bytes(outs["cuda"][1], outs["cpu"][1])
-    with open(outs["cuda"][1]) as f:
+    for native in (True, False):
+        for dev in ("cuda", "cpu"):
+            tag = f"{dev}_{'native' if native else 'python'}"
+            launches = nw_device.STATS.launches
+            device_profile.STATS.reset()
+            cfg = Config(device=dev, index_prefix=os.path.join(d, "idx"),
+                         read_files1=[f1], read_files2=[f2],
+                         stream_batch_size=1024, use_native=native,
+                         sam_file=os.path.join(d, f"{tag}.sam"),
+                         vcf_file=os.path.join(d, f"{tag}.vcf"),
+                         log_file=os.path.join(d, f"{tag}.log"))
+            t0 = time.time()
+            if runner.run_pipeline(cfg, "mapcaller small_e2e") != 0:
+                raise RuntimeError(f"small_e2e run {tag} failed")
+            outs[native, dev] = (cfg.sam_file, cfg.vcf_file,
+                                 nw_device.STATS.launches - launches,
+                                 vars(device_profile.STATS).copy(),
+                                 time.time() - t0)
+    sam_ok = same_bytes(outs[True, "cuda"][0], outs[True, "cpu"][0])
+    vcf_ok = same_bytes(outs[True, "cuda"][1], outs[True, "cpu"][1])
+    py_ok = (same_bytes(outs[False, "cuda"][0], outs[False, "cpu"][0])
+             and same_bytes(outs[False, "cuda"][1], outs[False, "cpu"][1]))
+    with open(outs[True, "cuda"][1]) as f:
         n_var = sum(1 for ln in f if not ln.startswith("#"))
     emit("small_e2e", sam_identical=sam_ok, vcf_identical=vcf_ok,
-         variants=n_var, nw_launches_cuda=outs["cuda"][2],
-         nw_launches_cpu=outs["cpu"][2], evidence_cuda=outs["cuda"][3],
-         evidence_cpu=outs["cpu"][3])
-    if not (sam_ok and vcf_ok and n_var > 0 and outs["cuda"][2] > 0
-            and outs["cpu"][2] == 0 and evidence_path_ok(outs["cuda"][3])
-            and evidence_path_ok(outs["cpu"][3])):
+         variants=n_var, nw_launches_cuda=outs[True, "cuda"][2],
+         nw_launches_cpu=outs[True, "cpu"][2],
+         evidence_cuda=outs[True, "cuda"][3],
+         evidence_cpu=outs[True, "cpu"][3],
+         non_native_identical=py_ok,
+         non_native_seconds={dev: outs[False, dev][4]
+                             for dev in ("cuda", "cpu")})
+    if not (sam_ok and vcf_ok and py_ok and n_var > 0
+            and outs[True, "cuda"][2] > 0 and outs[True, "cpu"][2] == 0
+            and evidence_path_ok(outs[True, "cuda"][3])
+            and evidence_path_ok(outs[True, "cpu"][3])):
         raise AssertionError("small_e2e: cuda and cpu outputs differ, no "
                              "variants, the NW kernel did not run, or "
                              "evidence left the device planes")
+
+
+def host_ms(fn, reps):
+    """Median host wall time of fn() over `reps` runs, after one warm-up
+    run; fn must end with the device's result on the host."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def run_dp_rates(pair_sets, card, reps=20):
+    """Device DP call against the scalar C++ aligner on the main path's own
+    largest DP batch of each algorithm: the call end to end (encode,
+    upload, kernel, download) on 1 pair and on all n gives its fixed cost
+    and its cost per further pair; the scalar aligner's cost per pair is a
+    ctypes loop over the n pairs less the same loop over n 1x1 pairs (the
+    loop's own overhead). A batch pays on the card from fixed / (scalar -
+    device per pair) pairs."""
+    from mapcaller_tpu_torch import native
+    from mapcaller_tpu_torch.ops import ksw2_device, nw_device
+    out = {}
+    for alg, align, scalar in (
+            ("nw", nw_device.nw_align_batch, native.nw_align_native),
+            ("ksw2", ksw2_device.ksw2_align_batch, native.ksw2_align_native)):
+        pairs, M = pair_sets[alg]
+        n = len(pairs)
+
+        def device_call(k):
+            return lambda: align(pairs[:k], M=M, N=M, return_ops=True,
+                                 device="cuda")
+
+        one_ms = host_ms(device_call(1), reps)
+        all_ms = host_ms(device_call(n), reps)
+        loop_ms = host_ms(lambda: [scalar(a, b) for a, b in pairs], 5)
+        base_ms = host_ms(lambda: [scalar("A", "A") for _ in pairs], 5)
+        device_us = 1e3 * (all_ms - one_ms) / (n - 1)
+        scalar_us = 1e3 * (loop_ms - base_ms) / n
+        fixed_ms = one_ms - device_us / 1e3
+        margin = scalar_us - device_us
+        out[alg] = dict(
+            pairs=n, tier=M, mean_cells=statistics.mean(
+                (len(a) + 1) * (len(b) + 1) for a, b in pairs),
+            device_call_ms_1=one_ms, device_call_ms_all=all_ms,
+            device_fixed_ms=fixed_ms, device_per_pair_us=device_us,
+            scalar_loop_ms=loop_ms, scalar_loop_1x1_ms=base_ms,
+            scalar_per_pair_us=scalar_us,
+            min_pairs=1e3 * fixed_ms / margin if margin > 0 else None)
+    emit("dp_rates", card=card, **out)
 
 
 def last_metrics(log):
@@ -281,13 +461,17 @@ def run_main_path(work, card):
     nw_device.nw_ops that keeps the tensors of its largest NW launch and
     a tap on the evidence that copies its planes and the inputs of its
     first batch apply and its first column fetch to the host, then
-    device-DP and scalar-DP runs in turns, then a host-evidence run and a
-    folded-evidence run. Returns the first device turn's launch count,
-    the captured NW launch's tensors and the captured evidence."""
+    device-DP and scalar-DP runs in turns, then a host-evidence run, a
+    folded-evidence run, a compacted, a host-chaining and a 1-step run,
+    then the -alg ksw2 warm-up (tapping ksw2_device.ksw2_ops the same way)
+    and its device-DP and scalar-DP turns. Returns the first device
+    turns' launch counts (nw, ksw2), the captured launches' tensors (nw,
+    ksw2) and the captured evidence."""
     import torch
     from mapcaller_tpu_torch import cli, runner
-    from mapcaller_tpu_torch.ops import nw_device
+    from mapcaller_tpu_torch.ops import ksw2_device, nw_device
     from mapcaller_tpu_torch.pipeline import device_profile
+    from mapcaller_tpu_torch.pipeline.device_backend import DeviceBackend
     from mapcaller_tpu_torch.simulator import write_ecoli_set
     d = os.path.join(work, "main")
     os.makedirs(d)
@@ -302,41 +486,78 @@ def run_main_path(work, card):
     argv = ["mapcaller", "-i", idx, "-f", r1, "-f2", r2, "-sam", sam,
             "-vcf", vcf, "-log", log]
 
-    def run(device_dp=True, **flags):
+    def run(device_dp=True, one_step=False, **flags):
         """One run; default flags through the CLI a user calls, or the
-        same command with the scalar C++ DP or other evidence flags."""
+        same command with the scalar C++ DP or other flags; one_step: the
+        backend is told the occ3 table does not fit."""
         gc.collect()      # an earlier run's cycles must not hold memory
         torch.cuda.reset_peak_memory_stats()
         nw_device.STATS.reset()
+        ksw2_device.STATS.reset()
         device_profile.STATS.reset()
-        if device_dp and not flags:
-            rc = cli.main(argv)
-        else:
-            cfg = cli.parse_args(argv)
-            if not device_dp:
-                cfg.device_extension = False
-            for k, v in flags.items():
-                setattr(cfg, k, v)
-            rc = runner.run_pipeline(cfg, " ".join(argv))
+        cfg = None
+        occ3_fits = DeviceBackend._occ3_fits
+        if one_step:
+            DeviceBackend._occ3_fits = lambda self, idx: False
+        err = io.StringIO()       # the stream's stage-prof line
+        try:
+            with contextlib.redirect_stderr(err):
+                if device_dp and not flags:
+                    rc = cli.main(argv)
+                else:
+                    cfg = cli.parse_args(argv)
+                    if not device_dp:
+                        cfg.device_extension = False
+                    for k, v in flags.items():
+                        setattr(cfg, k, v)
+                    rc = runner.run_pipeline(cfg, " ".join(argv))
+        finally:
+            DeviceBackend._occ3_fits = occ3_fits
+            sys.stderr.write(err.getvalue())
+        stages = [json.loads(ln.split("] ", 1)[1])
+                  for ln in err.getvalue().splitlines()
+                  if ln.startswith("[stage-prof] {")]
         if rc != 0:
             raise RuntimeError(f"main path run failed (device_dp={device_dp}"
-                               f", {flags})")
-        st = nw_device.STATS
+                               f", one_step={one_step}, {flags})")
+        st, ks = nw_device.STATS, ksw2_device.STATS
         return dict(metrics=last_metrics(log), launches=st.launches,
                     pairs=st.pairs, shapes=dict(st.shapes),
+                    ksw2_launches=ks.launches, ksw2_pairs=ks.pairs,
+                    ksw2_shapes=dict(ks.shapes),
+                    compact_factor=cfg.compact_factor if cfg else None,
+                    stages=stages[-1] if stages else None,
                     evidence=vars(device_profile.STATS).copy(),
                     peak=torch.cuda.max_memory_allocated())
 
     captured = {}
     nw_ops = nw_device.nw_ops
+    ksw2_ops = ksw2_device.ksw2_ops
     make_ev = device_profile.make_device_evidence
 
+    def keep_largest(key, args):
+        cells = args[0].shape[0] * args[0].shape[1] * args[1].shape[1]
+        if cells > captured.get(key, (-1,))[0]:
+            captured[key] = (cells, tuple(x.clone() for x in args))
+
     def tap(c1, c2, m, n):
-        cells = c1.shape[0] * c1.shape[1] * c2.shape[1]
-        if cells > captured.get("cells", -1):
-            captured.update(cells=cells, args=tuple(
-                x.clone() for x in (c1, c2, m, n)))
+        keep_largest("nw", (c1, c2, m, n))
         return nw_ops(c1, c2, m, n)
+
+    def tap_ksw2(qbuf, tgt, qlen, tlen):
+        keep_largest("ksw2", (qbuf, tgt, qlen, tlen))
+        return ksw2_ops(qbuf, tgt, qlen, tlen)
+
+    def tap_pairs(alg, align):
+        """Keep the pairs (strings) and tier of the largest DP batch."""
+        def tapped(pairs, M=192, N=192, **kw):
+            if len(pairs) > len(captured.get("pairs_" + alg, ((),))[0]):
+                captured["pairs_" + alg] = (list(pairs), M)
+            return align(pairs, M=M, N=N, **kw)
+        return tapped
+
+    nw_align = nw_device.nw_align_batch
+    ksw2_align = ksw2_device.ksw2_align_batch
 
     def tap_evidence(be, cfg, host_profile):
         """Keep host copies only: device tensors held past the warm-up
@@ -368,12 +589,15 @@ def run_main_path(work, card):
         ev.apply_batch, ev.fetch_columns = apply_tap, fetch_tap
         return ev
 
+    os.environ["MC_STAGE_PROF"] = "1"
     nw_device.nw_ops = tap
+    nw_device.nw_align_batch = tap_pairs("nw", nw_align)
     device_profile.make_device_evidence = tap_evidence
     try:
         warm = run()
     finally:
         nw_device.nw_ops = nw_ops
+        nw_device.nw_align_batch = nw_align
         device_profile.make_device_evidence = make_ev
     os.replace(sam, sam + ".warm")
     os.replace(vcf, vcf + ".warm")
@@ -390,8 +614,32 @@ def run_main_path(work, card):
         turns.append(r)
     host_ev = check(run(device_evidence=False))
     fold_ev = check(run(fold_evidence=True))
+    # the other single-card paths: 8,192 compacted lanes of the default
+    # 32,768-read batch, host chaining, the 1-step index
+    compact = check(run(compact_factor=4))
+    unchained = check(run(device_chain=False))
+    one_step = check(run(one_step=True))
     dev = [t for t in turns if t["device_dp"]]
     sca = [t for t in turns if not t["device_dp"]]
+
+    # -alg ksw2: warm-up (tapped), then device and scalar DP in turns,
+    # each against the ksw2 warm-up's bytes
+    ksw2_device.ksw2_ops = tap_ksw2
+    ksw2_device.ksw2_align_batch = tap_pairs("ksw2", ksw2_align)
+    try:
+        kwarm = run(use_nw=False)
+    finally:
+        ksw2_device.ksw2_ops = ksw2_ops
+        ksw2_device.ksw2_align_batch = ksw2_align
+    os.replace(sam, sam + ".warm")
+    os.replace(vcf, vcf + ".warm")
+    kturns = []
+    for device_dp in (True, False, False, True):
+        r = check(run(device_dp, use_nw=False))
+        r.update(device_dp=device_dp)
+        kturns.append(r)
+    kdev = [t for t in kturns if t["device_dp"]]
+    ksca = [t for t in kturns if not t["device_dp"]]
 
     def med(runs, key):
         return statistics.median(t["metrics"][key] for t in runs)
@@ -403,6 +651,8 @@ def run_main_path(work, card):
                     calling_s=t["metrics"]["calling_seconds"],
                     total_s=t["metrics"]["total_seconds"],
                     nw_launches=t["launches"], nw_pairs=t["pairs"],
+                    ksw2_launches=t["ksw2_launches"],
+                    ksw2_pairs=t["ksw2_pairs"], stages=t["stages"],
                     evidence_batch_s=ev["batch_seconds"],
                     evidence={k: v for k, v in ev.items()
                               if k != "batch_seconds"},
@@ -411,7 +661,9 @@ def run_main_path(work, card):
                     vcf_identical=t.get("vcf_identical"))
 
     m1 = dev[0]["metrics"]
-    everything = turns + [host_ev, fold_ev]
+    paths = [compact, unchained, one_step]
+    everything = ([warm] + turns + [host_ev, fold_ev] + paths + [kwarm]
+                  + kturns)
     emit("main_path", card=card, setup_s=setup_s,
          reads=m1["total_reads"],
          mapped_pct=100.0 * m1["mapped"] / max(m1["total_reads"], 1),
@@ -426,31 +678,61 @@ def run_main_path(work, card):
          host_evidence=summary(host_ev, dp="device", evidence_path="host"),
          fold_evidence=summary(fold_ev, dp="device",
                                evidence_path="device, folded"),
+         compacted=summary(compact, dp="device", evidence_path="device",
+                           compact_factor=4),
+         host_chaining=summary(unchained, dp="device",
+                               evidence_path="host", device_chain=False),
+         one_step=summary(one_step, dp="device", evidence_path="device",
+                          index="1-step"),
+         auto_compact_factor=sca[0]["compact_factor"],
          device_dp_median_reads_per_s=med(dev, "reads_per_sec"),
          device_dp_median_mapping_s=med(dev, "mapping_seconds"),
          scalar_dp_median_reads_per_s=med(sca, "reads_per_sec"),
          scalar_dp_median_mapping_s=med(sca, "mapping_seconds"),
          nw_shapes={f"{b}x{m}x{n}": c
-                    for (b, m, n), c in dev[0]["shapes"].items()})
+                    for (b, m, n), c in dev[0]["shapes"].items()},
+         ksw2_warmup=summary(kwarm, dp="device", evidence_path="device",
+                             alg="ksw2"),
+         ksw2_turns=[summary(t, dp="device" if t["device_dp"] else "scalar",
+                             evidence_path="device", alg="ksw2")
+                     for t in kturns],
+         ksw2_variants=kwarm["metrics"]["variant_counts"],
+         ksw2_device_dp_median_mapping_s=med(kdev, "mapping_seconds"),
+         ksw2_scalar_dp_median_mapping_s=med(ksca, "mapping_seconds"),
+         ksw2_shapes={f"{b}x{m}x{n}": c
+                      for (b, m, n), c in kdev[0]["ksw2_shapes"].items()})
     hst = host_ev["evidence"]
-    ok = (all(t["launches"] > 0 and t["pairs"] > 0
-              for t in dev + [host_ev, fold_ev])
-          and all(t["launches"] == 0 for t in sca)
+    ucs = unchained["evidence"]
+    # device DP runs of each kernel; host chaining has no DP batch step
+    nw_dp = dev + [host_ev, fold_ev, compact, one_step]
+    ksw2_dp = [kwarm] + kdev
+    ok = (all(t["launches"] > 0 and t["pairs"] > 0 for t in nw_dp)
+          and all(t["ksw2_launches"] > 0 and t["ksw2_pairs"] > 0
+                  for t in ksw2_dp)
+          and all(t["launches"] == 0 for t in everything
+                  if all(t is not x for x in [warm] + nw_dp))
+          and all(t["ksw2_launches"] == 0 for t in everything
+                  if all(t is not x for x in ksw2_dp))
           and all(t["sam_identical"] and t["vcf_identical"]
-                  for t in everything)
+                  for t in everything if t is not warm and t is not kwarm)
           and all(t["metrics"]["n_oracle_reads"] == 0
                   and t["metrics"]["n_tier_reruns"] == 0 for t in everything)
-          and all(evidence_path_ok(t["evidence"]) for t in [warm] + turns)
+          and all(evidence_path_ok(t["evidence"])
+                  for t in [warm] + turns + [compact, one_step, kwarm]
+                  + kturns)
           and evidence_path_ok(fold_ev["evidence"], applies=False,
                                folded=True)
-          and hst["applies"] == hst["folded"] == hst["scans"] == 0)
+          and hst["applies"] == hst["folded"] == hst["scans"] == 0
+          and ucs["applies"] == ucs["folded"] == ucs["scans"] == 0
+          and sca[0]["compact_factor"] == 1)
     if not ok:
-        raise AssertionError("main_path: NW kernel not launched with device "
+        raise AssertionError("main_path: a kernel not launched with device "
                              "DP or launched with scalar DP, outputs differ "
-                             "from the warm-up's, reads left the device "
-                             "path, or evidence did not take the path its "
-                             "flags ask for")
-    return dev[0]["launches"], captured["args"], captured
+                             "from their warm-up's, reads left the device "
+                             "path, evidence did not take the path its "
+                             "flags ask for, or auto compaction was not 1")
+    return ((dev[0]["launches"], kdev[0]["ksw2_launches"]),
+            (captured["nw"][1], captured["ksw2"][1]), captured)
 
 
 def run_evidence(cap, card, reps=50):
@@ -559,7 +841,7 @@ def main():
         return 2
     sys.path.insert(0, HERE)
     from mapcaller_tpu_torch import toolchain
-    from mapcaller_tpu_torch.ops import nw_device
+    from mapcaller_tpu_torch.ops import ksw2_device, nw_device
 
     card = card_line()
     print(card, flush=True)
@@ -569,49 +851,67 @@ def main():
 
     t0 = time.time()
     outputs = toolchain.build_all()
-    ptxas = ptxas_report(outputs.get("libnw.so", ""))
+    reports = {kernel: ptxas_report(outputs.get(lib, ""), kernel)
+               for lib, kernel in (("libnw.so", "nw_ops_kernel"),
+                                   ("libksw2.so", "ksw2_ops_kernel"))}
     emit("build", seconds=time.time() - t0,
          nvcc=" ".join(toolchain.NVCC_FLAGS),
-         libs=sorted(os.listdir(toolchain.BUILD_DIR)), nw_ops_kernel=ptxas)
-    if len(ptxas) != nw_device.KERNEL_MAX_CHUNK or any(
-            v.get("registers") is None or v.get("stack_frame_bytes", 1)
-            or v.get("spill_store_bytes", 1) or v.get("spill_load_bytes", 1)
-            for v in ptxas.values()):
-        sys.stderr.write(outputs.get("libnw.so", ""))
-        raise AssertionError("nw_ops_kernel: a stack frame or spills in "
-                             "ptxas's report, or no report for a chunk")
+         libs=sorted(os.listdir(toolchain.BUILD_DIR)), **reports)
+    for (lib, kernel), n in ((("libnw.so", "nw_ops_kernel"),
+                              nw_device.KERNEL_MAX_CHUNK),
+                             (("libksw2.so", "ksw2_ops_kernel"),
+                              ksw2_device.KERNEL_MAX_CHUNK)):
+        rep = reports[kernel]
+        if len(rep) != n or any(
+                v.get("registers") is None or v.get("stack_frame_bytes", 1)
+                or v.get("spill_store_bytes", 1)
+                or v.get("spill_load_bytes", 1) for v in rep.values()):
+            sys.stderr.write(outputs.get(lib, ""))
+            raise AssertionError(f"{kernel}: a stack frame or spills in "
+                                 f"ptxas's report, or no report for a chunk")
 
     for tier in TIERS:
-        r = check_nw(nw_device, 4096 if tier < 192 else 2048, tier,
-                     seed=tier, reps=50)
+        B = 4096 if tier < 192 else 2048
+        r = check_nw(nw_device, B, tier, seed=tier, reps=50)
         emit("kernels", kernel="nw", card=card, **r)
+        r = check_ksw2(ksw2_device, B, tier, seed=tier, reps=50)
+        emit("kernels", kernel="ksw2", card=card, **r)
 
     os.makedirs(toolchain.BUILD_DIR, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=toolchain.BUILD_DIR) as work:
         run_small_e2e(work)
         launches, own, cap = run_main_path(work, card)
     run_evidence(cap, card)
+    run_dp_rates({alg: cap["pairs_" + alg] for alg in ("nw", "ksw2")}, card)
 
-    # the kernel table: the main path's largest launch on its own pairs,
-    # and random pairs at the same shape
-    B, M = own[0].shape
-    N = own[1].shape[1]
-    r = measure_nw(nw_device, own, reps=50)
-    rnd = measure_nw(nw_device, nw_inputs(B, M, seed=1), reps=50)
-    emit("kernels", kernel="nw", card=card, pairs="main path's own", **r)
-    emit("kernels", kernel="nw", card=card, pairs="random", **rnd)
-    line = {"kernels": [{
-        "name": "nw_ops", "route": "cuda",
-        "source": "mapcaller_tpu_torch/csrc/nw.cu",
-        "replaces": "mapcaller_tpu/ops/nw_device.py:136",
-        "launches": launches, "max_abs_err": r["max_abs_err"],
-        "ms": r["ms"], "plain_ms": r["plain_ms"],
-        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-        "library_ms": None, "tolerance": 0,
-        "shape": f"{B}x{M}x{N}, the main path's own pairs of its largest "
-                 f"launch; 'random' holds random pairs at that shape",
-        "random": {k: rnd[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                       "bound_ms", "bound_by")}}]}
+    # the kernel table: each kernel on its main path's largest launch's
+    # own pairs, and on random pairs at the same shape
+    kernels = []
+    for (name, mod, measure, inputs, src, replaces), n, args in zip(
+            (("nw_ops", nw_device, measure_nw, nw_inputs,
+              "mapcaller_tpu_torch/csrc/nw.cu",
+              "mapcaller_tpu/ops/nw_device.py:136"),
+             ("ksw2_ops", ksw2_device, measure_ksw2, ksw2_inputs,
+              "mapcaller_tpu_torch/csrc/ksw2.cu",
+              "mapcaller_tpu/ops/ksw2_device.py:49")),
+            launches, own):
+        B, M = args[0].shape
+        r = measure(mod, args, reps=50)
+        rnd = measure(mod, inputs(B, M, seed=1), reps=50)
+        emit("kernels", kernel=name, card=card, pairs="main path's own", **r)
+        emit("kernels", kernel=name, card=card, pairs="random", **rnd)
+        kernels.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": n,
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None, "tolerance": 0,
+            "shape": f"{B}x{M}x{r['N']}, the main path's own pairs of its "
+                     f"largest launch; 'random' holds random pairs at that "
+                     f"shape",
+            "random": {k: rnd[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                           "bound_ms", "bound_by")}})
+    line = {"kernels": kernels}
     print(json.dumps(line), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -63,10 +63,8 @@ class Config:
     stream_batch_size: int = 32768              # stream fast path (packed kernels)
     compact_factor: int = 0                     # seed-scan lane compaction:
                                                 # lanes = batch/compact_factor.
-                                                # 0 = auto, which resolves to
-                                                # 1 in this port; >1 is not
-                                                # ported yet
-                                                # (pipeline/stream.py)
+                                                # 0 = auto (pipeline/stream.py:
+                                                # x4 from 6 x 131,072 reads)
     device_chain: bool = True                   # device chaining/classification
     device_evidence: bool = True                # evidence planes and the
                                                 # caller scan on the card;
@@ -95,8 +93,8 @@ class Config:
                                                 # batch at a time)
     # Device DP for the gapped-extension pairs. False = scalar host
     # aligners; True = always device; "auto" = the backend's policy
-    # (DeviceBackend.dp_device_min_pairs: the CUDA NW kernel for -alg nw
-    # on the card, the scalar aligner otherwise)
+    # (DeviceBackend.dp_device_min_pairs: the CUDA NW or ksw2 kernel on
+    # the card, the scalar aligner on the CPU)
     device_extension: object = "auto"
     prefix_skip_k: int = -1                     # fused seed-start skip depth
                                                 # (-1 = auto by free device

@@ -2,8 +2,8 @@
 
 The native runtime owns the post-seeding per-read pipeline (chaining ->
 pairing -> rescue -> gapped alignment -> SAM -> PFM update); the device
-code (PyTorch, plus the CUDA NW kernel) provides the seeds and the DP
-batches; Python orchestrates chunks and owns the variant caller.
+code (PyTorch, plus the CUDA NW and ksw2 kernels) provides the seeds and
+the DP batches; Python orchestrates chunks and owns the variant caller.
 
 The library is compiled at first use into the port's git-ignored build
 directory (toolchain.py); `native/` is only read.
@@ -276,14 +276,10 @@ class NativeEngine:
                                 stats_io, use_nw: bool, dp_max: int = 160,
                                 dp_min_pairs: float = 0):
         """Two-phase classified batch with the gapped-extension DP batch
-        running on `self.device` (the CUDA NW kernel of ops/nw_device.py,
-        bit-identical to the scalar aligner; oversize pairs fall back to
-        scalar). Only -alg nw has a device DP in this port so far."""
-        if not use_nw:
-            raise NotImplementedError(
-                "device ksw2 DP is not ported yet (ROADMAP.md, next slice "
-                "2: C1); run -alg ksw2 with the scalar aligner "
-                "(device_extension=False or 'auto')")
+        running on `self.device` (the CUDA NW kernel of ops/nw_device.py
+        for -alg nw, the CUDA ksw2 kernel of ops/ksw2_device.py for -alg
+        ksw2, each bit-identical to its scalar aligner; oversize pairs
+        fall back to scalar)."""
         n_dp = self.lib.mc_prepare_batch_cls(
             self.ctx, slot, int(pair_end), int(fastq),
             _ptr(np.ascontiguousarray(cls, dtype=np.int32)),
@@ -307,11 +303,13 @@ class NativeEngine:
             qbuf = C.create_string_buffer(int(qlens.sum()) + 1)
             tbuf = C.create_string_buffer(int(tlens.sum()) + 1)
             self.lib.mc_dp_fetch(self.ctx, qbuf, tbuf)
+            # .raw copies the whole buffer: take it once, not per pair
+            qraw, traw = qbuf.raw, tbuf.raw
             pairs = []
             qo = to = 0
             for i in range(n_dp):
-                pairs.append((qbuf.raw[qo:qo + qlens[i]].decode(),
-                              tbuf.raw[to:to + tlens[i]].decode()))
+                pairs.append((qraw[qo:qo + qlens[i]].decode(),
+                              traw[to:to + tlens[i]].decode()))
                 qo += qlens[i]
                 to += tlens[i]
             # per-call size tier: the kernel is sized to the batch's
@@ -319,11 +317,17 @@ class NativeEngine:
             # dp_max + 32), so short pairs do not pay for padded cells
             maxlen = int(max(qlens.max(), tlens.max()))
             MN = next((t for t in (32, 48, 96) if t >= maxlen), dp_max + 32)
-            from .ops.nw_device import nw_align_batch
-            words, _scores = nw_align_batch(pairs, M=MN, N=MN,
-                                            return_ops=True,
-                                            device=self.device)
-            mode = 0
+            if use_nw:
+                from .ops.nw_device import nw_align_batch
+                words, _scores = nw_align_batch(pairs, M=MN, N=MN,
+                                                return_ops=True,
+                                                device=self.device)
+                mode = 0
+            else:
+                from .ops.ksw2_device import ksw2_align_batch
+                words = ksw2_align_batch(pairs, M=MN, N=MN, return_ops=True,
+                                         device=self.device)
+                mode = 1
             words = np.ascontiguousarray(words, dtype=np.uint32)
             self.lib.mc_dp_put_ops(self.ctx, _ptr(words),
                                    C.c_int32(words.shape[1]),

@@ -140,9 +140,8 @@ class DeviceFM3:
         caller already holds it on the device (ChainCtx)."""
         if idx.sa_full is None:
             raise NotImplementedError(
-                "occ3 build requires sa_full; the 1-step seed scan for "
-                "indexes without it is not ported yet (ROADMAP.md, next "
-                "slice 3: C3)")
+                "occ3 build requires sa_full; an index without it seeds "
+                "with the 1-step scan (DeviceBackend picks it)")
         if not 0 <= pfx_k <= 15:      # must stay below MinSeedLength
             raise ValueError(f"pfx_k={pfx_k} outside [0, 15]")
         fm = (dev_fm if dev_fm is not None

@@ -74,7 +74,7 @@ class DeviceFMIndex:
             raise NotImplementedError(
                 "single-device index is int32 (text < 2^31); the x64 "
                 "big-genome path is not ported yet (ROADMAP.md, next "
-                "slice 6)")
+                "slice 3)")
         n = idx.seq_len
         nw = (n + 15) // 16
         rows = np.zeros((nw + 1, 8), dtype=np.int64)

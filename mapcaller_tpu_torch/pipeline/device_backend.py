@@ -3,8 +3,13 @@ mapping engine (PyTorch port of mapcaller_tpu/pipeline/device_backend.py,
 with the surface pipeline/stream.py uses).
 
 Runs the seed/chain kernel (ops/fm_search.py) per parsed batch and hands
-the classified reads and the slow reads' hits back to the host pipeline.
-Reads the fixed-capacity kernel flags as overflowed (seed table, SA walk,
+the classified reads and the slow reads' hits back to the host pipeline;
+with device_chain=False the packed seed kernel hands back every kept hit
+for host chaining instead (submit_packed / collect_packed), and the
+non-native path seeds lists of reads (submit / collect). The occ3 scans
+run when the occ3 table fits the card beside the working set and the
+index has its full SA, else the 1-step scan over the occ4 rows.
+Reads the fixed-capacity kernels flag as overflowed (seed table, SA walk,
 hit buffer) are re-seeded with the host oracle and spliced in, as in the
 reference package: that splice is part of its capacity contract.
 """
@@ -12,7 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -22,7 +27,8 @@ from ..index.fmindex import FMIndex
 from ..ops.chain_device import CLASS_SLOW, ChainCtx
 from ..ops.fm3_device import DeviceFM3
 from ..ops.fm_device import DeviceFMIndex
-from ..ops.fm_search import build_seed_chain_kernel
+from ..ops.fm_search import (build_seed_chain_kernel, build_seed_kernel,
+                              build_seed_kernel_packed)
 from .device_profile import STATS as EVIDENCE_STATS
 from .seeding import identify_simple_pairs
 
@@ -76,25 +82,19 @@ class DeviceBackend:
         self._kernels = {}
         self._fm3 = None
         self._chain_ctx = None
-        self.chain_enabled = getattr(cfg, "device_chain", True)
-        if not self.chain_enabled:
-            raise NotImplementedError(
-                "device_chain=False (hit download + host chaining, "
-                "submit_packed) is not ported yet (ROADMAP.md, next "
-                "slice 3: C3)")
+        # device chaining/classification in the stream path; off: hit
+        # downloads + host chaining (submit_packed)
+        self.chain_enabled = cfg.device_chain
         # capacity-overflow observability (repeat-rich genomes)
         self.n_tier_reruns = 0
         self.n_full_fallbacks = 0
         self.n_oracle_reads = 0
         self.fm = DeviceFMIndex.from_host(idx, device=self.device)
+        # the occ3 scans need the full SA and the 3-step table beside
+        # the working set; else the 1-step scan over the occ4 rows
         self._fm3_ok = (idx.sa_full is not None
                         and idx.seq_len < (1 << 31) - 2
                         and self._occ3_fits(idx))
-        if not self._fm3_ok:
-            raise NotImplementedError(
-                "the occ3 table does not fit (or the index has no full "
-                "SA); the 1-step seed scan is not ported yet (ROADMAP.md, "
-                "next slice 3: C3)")
         # evidence planes on the card when they fit beside the seeding
         # tables; else the C++ host diff arrays (runner logs the choice)
         self.device_evidence_ok = self._device_evidence_fits(idx)
@@ -127,7 +127,7 @@ class DeviceBackend:
         free = self._mem_bytes()
         if free is None:
             return True
-        occ3 = (idx.seq_len // 16 + 2) * 288
+        occ3 = (idx.seq_len // 16 + 2) * 288 if self._fm3_ok else 0
         planes = self._EVIDENCE_B_PER_BASE * idx.genome_size
         return occ3 + planes + self._WORKSPACE <= free
 
@@ -164,10 +164,24 @@ class DeviceBackend:
     @property
     def fm3(self) -> DeviceFM3:
         if self._fm3 is None:
+            tw = self.chain_ctx.text_words if self.chain_enabled else None
             self._fm3 = DeviceFM3.from_host(
                 self.idx, self.fm, pfx_k=self._prefix_skip_k(),
-                text_words=self.chain_ctx.text_words)
+                text_words=tw)
         return self._fm3
+
+    @property
+    def seed_fm(self):
+        """The tables the packed-read scans run on: the occ3 table when
+        it fits, else the 1-step rows."""
+        return self.fm3 if self._fm3_ok else self.fm
+
+    def _compact_lanes(self, B: int) -> int:
+        """Scan lanes of a B-read batch under cfg.compact_factor: B / cf
+        with the occ3 table and cf dividing B, else 0 (one lane per
+        read)."""
+        cf = max(1, int(self.cfg.compact_factor))
+        return B // cf if cf > 1 and self._fm3_ok and B % cf == 0 else 0
 
     @property
     def chain_ctx(self) -> ChainCtx:
@@ -178,14 +192,10 @@ class DeviceBackend:
 
     def dp_device_min_pairs(self) -> float:
         """Policy for cfg.device_extension == "auto": the least DP batch
-        that goes to the device. On the card, -alg nw sends every DP
-        batch to the CUDA NW kernel (0); -alg ksw2 has no device kernel
-        in this port yet (ROADMAP.md, next slice 2: C1), so its pairs stay on
-        the scalar C++ aligner (inf). On the CPU the plain PyTorch DP
-        would only repeat the scalar aligner's work (inf)."""
-        if self.device.type == "cuda" and self.cfg.use_nw:
-            return 0.0
-        return float("inf")
+        that goes to the device. On the card every DP batch goes to its
+        CUDA kernel, NW or ksw2 by -alg (0); on the CPU the plain
+        PyTorch DP would only repeat the scalar aligner's work (inf)."""
+        return 0.0 if self.device.type == "cuda" else float("inf")
 
     def release_index_tables(self) -> None:
         """Drop the device-resident seeding tables (occ3 rows incl.
@@ -201,10 +211,12 @@ class DeviceBackend:
     def _chain_kernel_for(self, bucket: int, tier: int = 2,
                           batch: Optional[int] = None):
         B = batch or self.batch
-        key = ("chain", bucket, tier, B)
+        lanes = self._compact_lanes(B)
+        key = ("chain", bucket, tier, B, lanes)
         if key not in self._kernels:
             self._kernels[key] = build_seed_chain_kernel(
-                self.fm3, self.chain_ctx, bucket, B, slow_hits_x4=tier)
+                self.seed_fm, self.chain_ctx, bucket, B, slow_hits_x4=tier,
+                compact_lanes=lanes)
         return self._kernels[key]
 
     def submit_chain(self, packed: np.ndarray, rlens: np.ndarray,
@@ -265,15 +277,8 @@ class DeviceBackend:
         counts = counts[:n]
         self.n_oracle_reads += int(fallback.sum())
         if fallback.any():
-            # drop device hits of fallback reads, then splice oracle seeds
-            bounds = np.zeros(n + 1, dtype=np.int64)
-            np.cumsum(counts, out=bounds[1:])
-            keep = np.ones(len(rpos), dtype=bool)
-            for i in np.nonzero(fallback)[0].tolist():
-                keep[bounds[i]:bounds[i + 1]] = False
-            rpos, gpos, slen = rpos[keep], gpos[keep], slen[keep]
-            counts = counts.copy()
-            counts[fallback] = 0
+            counts, rpos, gpos, slen = _drop_reads(counts, rpos, gpos, slen,
+                                                   fallback)
             return self._splice_chain(n, cls, pd[:n], mm[:n], rplast[:n],
                                       cscore[:n], counts, rpos, gpos, slen,
                                       fallback, read_codes_fn)
@@ -312,12 +317,128 @@ class DeviceBackend:
                 np.concatenate(gp_parts).astype(np.int64),
                 np.concatenate(ln_parts).astype(np.int32))
 
-    def submit(self, codes_list):
-        """The non-native path's per-read seeding (reference:
-        DeviceBackend.submit over build_seed_kernel)."""
-        raise NotImplementedError(
-            "the non-native path's 1-step seed kernel is not ported yet "
-            "(ROADMAP.md, next slice 3: C3); run with the native host leg")
+    # -- packed 2-bit API without device chaining (device_chain=False) ---
+    def _packed_kernel_for(self, bucket: int, tier: int = 9,
+                           batch: Optional[int] = None):
+        B = batch or self.batch
+        lanes = self._compact_lanes(B)
+        key = ("packed", bucket, tier, B, lanes)
+        if key not in self._kernels:
+            self._kernels[key] = build_seed_kernel_packed(
+                self.seed_fm, bucket, B, hits_per_read_x4=tier,
+                compact_lanes=lanes)
+        return self._kernels[key]
+
+    def submit_packed(self, packed: np.ndarray, rlens: np.ndarray,
+                      bucket: int, tier: int = 9):
+        """packed uint8[B, bucket/4] 2-bit codes; negative rlen =
+        host-fallback read. Returns the token collect_packed takes."""
+        kernel = self._packed_kernel_for(bucket, tier, batch=packed.shape[0])
+        packed_dev = torch.from_numpy(np.ascontiguousarray(packed)).to(
+            self.device)
+        rl_dev = torch.from_numpy(np.maximum(rlens, 0).astype(np.int32)).to(
+            self.device)
+        return (kernel, kernel(packed_dev, rl_dev), rlens < 0, packed_dev,
+                rl_dev, bucket, rlens)
+
+    def collect_packed(self, token, n: int, read_codes_fn):
+        """-> (counts, rpos, gpos, slen) grouped by read; overflow reads
+        recomputed with the host oracle. Batch-level hit-buffer overflow
+        reruns at the larger tier 18."""
+        kernel, dev, fb_neg, packed_dev, rl_dev, bucket, rlens = token
+        counts, rpos, gpos, slen, overflow, buf_ovf = kernel.collect(dev)
+        if buf_ovf:
+            self.n_tier_reruns += 1
+            kernel2 = self._packed_kernel_for(bucket, tier=18,
+                                              batch=len(rlens))
+            counts, rpos, gpos, slen, overflow, buf_ovf = kernel2.collect(
+                kernel2(packed_dev, rl_dev))
+            if buf_ovf:   # pathological: host oracle for everything
+                self.n_full_fallbacks += 1
+                return self._splice_fallback(
+                    n, np.zeros(n, dtype=np.int32), np.zeros(0, np.int32),
+                    np.zeros(0, np.int64), np.zeros(0, np.int32),
+                    np.ones(n, dtype=bool), read_codes_fn)
+        fallback = overflow[:n] | fb_neg[:n]
+        counts = counts[:n]
+        self.n_oracle_reads += int(fallback.sum())
+        if fallback.any():
+            counts, rpos, gpos, slen = _drop_reads(counts, rpos, gpos, slen,
+                                                   fallback)
+            return self._splice_fallback(n, counts, rpos, gpos, slen,
+                                         fallback, read_codes_fn)
+        return counts, rpos.astype(np.int32), gpos, slen.astype(np.int32)
+
+    # -- per-read API of the non-native path (1-step kernel, byte codes) --
+    def _kernel_for(self, bucket: int):
+        key = ("seed", bucket)
+        if key not in self._kernels:
+            self._kernels[key] = build_seed_kernel(self.fm, bucket,
+                                                   self.batch)
+        return self._kernels[key]
+
+    def seed_batch(self, codes_list: List[np.ndarray]) -> List[tuple]:
+        """codes_list: per-read uint8 code arrays. Returns per-read flat
+        seed arrays (rpos int32[], gpos int64[], length int32[]) with the
+        PosDiff > 0 filter applied — the exact seed set of
+        identify_simple_pairs, unsorted and without the sentinel."""
+        return self.collect(self.submit(codes_list))
+
+    def submit(self, codes_list: List[np.ndarray]):
+        """Run device seeding for all sub-batches of `batch` reads;
+        returns the token collect() takes."""
+        return [self._submit_one(codes_list[lo:lo + self.batch])
+                for lo in range(0, len(codes_list), self.batch)]
+
+    def collect(self, pending) -> List[tuple]:
+        out: List[tuple] = []
+        for item in pending:
+            out.extend(self._collect_one(item))
+        return out
+
+    def _submit_one(self, chunk: List[np.ndarray]):
+        B = self.batch
+        longest = max((c.shape[0] for c in chunk), default=0)
+        bucket = next((b for b in self.BUCKETS
+                       if b >= min(longest, self.max_len)), self.BUCKETS[-1])
+        codes = np.full((B, bucket), 4, dtype=np.uint8)
+        rlens = np.zeros(B, dtype=np.int32)
+        fallback = [False] * len(chunk)
+        for i, c in enumerate(chunk):
+            if c.shape[0] > bucket:
+                fallback[i] = True
+                continue
+            codes[i, :c.shape[0]] = c
+            rlens[i] = c.shape[0]
+        kernel = self._kernel_for(bucket)
+        dev = kernel(torch.from_numpy(codes).to(self.device),
+                     torch.from_numpy(rlens).to(self.device))
+        return (kernel, dev, chunk, fallback)
+
+    def _collect_one(self, item) -> List[tuple]:
+        kernel, dev, chunk, fallback = item
+        B = self.batch
+        (hit_read, hit_rpos, hit_len, hit_loc, hit_valid,
+         _total, overflow, buf_ovf) = kernel.collect(dev)
+        if buf_ovf:
+            # batch-level hit-buffer overflow: host fallback for everything
+            return [self._oracle_arrays(c) for c in chunk]
+        pd = hit_loc.astype(np.int64) - hit_rpos
+        keep = hit_valid & (pd > 0)
+        order_read = hit_read[keep]
+        rp = hit_rpos[keep].astype(np.int32)
+        gp = hit_loc[keep].astype(np.int64)
+        ln = hit_len[keep].astype(np.int32)
+        # hits are already grouped by read (flattened seed order)
+        bounds = np.searchsorted(order_read, np.arange(B + 1))
+        result = []
+        for i, c in enumerate(chunk):
+            if fallback[i] or overflow[i]:
+                result.append(self._oracle_arrays(c))
+            else:
+                s, e = bounds[i], bounds[i + 1]
+                result.append((rp[s:e], gp[s:e], ln[s:e]))
+        return result
 
     def _oracle_arrays(self, c: np.ndarray) -> tuple:
         pairs = identify_simple_pairs(self.idx, c)[:-1]  # drop sentinel
@@ -326,23 +447,31 @@ class DeviceBackend:
                 np.array([p.rLen for p in pairs], dtype=np.int32))
 
 
+def _drop_reads(counts, rpos, gpos, slen, drop):
+    """Remove the hits of the reads flagged in `drop` from per-read
+    grouped hit arrays (their counts become 0), before the host oracle's
+    seeds are spliced in for them."""
+    bounds = np.zeros(len(counts) + 1, dtype=np.int64)
+    np.cumsum(counts, out=bounds[1:])
+    keep = np.ones(len(rpos), dtype=bool)
+    for i in np.nonzero(drop)[0].tolist():
+        keep[bounds[i]:bounds[i + 1]] = False
+    counts = counts.copy()
+    counts[drop] = 0
+    return counts, rpos[keep], gpos[keep], slen[keep]
+
+
 def _refuse_unported(cfg: Config) -> None:
     """Options whose device paths are not in this port yet raise here,
     naming their ROADMAP.md items, instead of running something else."""
-    if int(getattr(cfg, "compact_factor", 1)) > 1:
-        raise NotImplementedError(
-            "compact_factor > 1: the lane-compacted scan "
-            "(_seed_scan3_compact) is not ported yet (ROADMAP.md, next "
-            "slice 1); seed sets are identical with "
-            "compact_factor=1")
     if int(getattr(cfg, "devices", 1)) > 1:
         raise NotImplementedError(
             "-devices N > 1 is not ported yet (ROADMAP.md, next slice "
-            "4)")
+            "1)")
     if int(getattr(cfg, "index_shards", 0) or 0) > 1:
         raise NotImplementedError(
             "-shards N > 1 is not ported yet (ROADMAP.md, next slice "
-            "5)")
+            "2)")
     if getattr(cfg, "big_x64", False):
         raise NotImplementedError(
-            "big_x64 is not ported yet (ROADMAP.md, next slice 6)")
+            "big_x64 is not ported yet (ROADMAP.md, next slice 3)")

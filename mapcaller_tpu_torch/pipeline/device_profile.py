@@ -184,11 +184,11 @@ def make_device_evidence(backend, cfg, host_profile):
     if getattr(backend, "big_x64", False) and backend.index_shards > 1:
         raise NotImplementedError(
             "genome-sharded evidence planes (BigDeviceEvidence) are not "
-            "ported yet (ROADMAP.md, next slice 6)")
+            "ported yet (ROADMAP.md, next slice 3)")
     if getattr(backend, "is_multi_device", False):
         raise NotImplementedError(
             "multi-device evidence planes (MultiDeviceEvidence) are not "
-            "ported yet (ROADMAP.md, next slice 4)")
+            "ported yet (ROADMAP.md, next slice 1)")
     return DeviceEvidence(backend, cfg, host_profile)
 
 

@@ -11,8 +11,10 @@ DeviceBackend.device_evidence_ok), each batch's FAST reads add their
 evidence to the device planes after the host leg has run its duplicate
 gate (pipeline/device_profile.py), or speculatively inside the chain
 dispatch under fold_evidence; SLOW reads' evidence stays in the C++ host
-diff arrays and merges into the planes at finalize. Batches are submitted
-one at a time (the backend has no transfer-grouped submit).
+diff arrays and merges into the planes at finalize. With device_chain
+off, the card returns every kept hit and the host chains all reads;
+evidence then stays in the host diff arrays. Batches are submitted one at
+a time (the backend has no transfer-grouped submit).
 """
 from __future__ import annotations
 
@@ -35,6 +37,45 @@ def _load_bytes(path: str) -> bytes:
         return f.read()
 
 
+# cfg.compact_factor == 0 (auto): x4 lane compaction with 131,072-read
+# stream batches when the input can fill enough of them that the drain
+# tail amortizes (the reference package's rule, kept as it is: compacted
+# lanes refill from a queue of unread reads, so the scan costs about the
+# MEAN read's iterations instead of the most any read needs; seed sets
+# stay identical)
+_COMPACT_AUTO_FACTOR = 4
+_COMPACT_AUTO_LANES = 32768
+
+
+def _estimate_records(buf: bytes) -> int:
+    """Record-count estimate from an exact parse of a 256 KB prefix,
+    scaled by total size (exact counting would touch the whole buffer)."""
+    if not buf:
+        return 0
+    n = 1 << 18
+    sample = buf[:n]
+    if buf[:1] == b"@":
+        nrec = sample.count(b"\n") // 4
+    else:
+        nrec = sample.count(b">")
+    if len(buf) <= n:
+        return nrec
+    return int(nrec * (len(buf) / n))
+
+
+def _resolve_auto_compaction(cfg: Config, be, buf1: bytes, buf2) -> None:
+    cfg.compact_factor = 1
+    if not (be.chain_enabled and be._fm3_ok and be.index_shards <= 1
+            and be.n_devices == 1):
+        return
+    est = _estimate_records(buf1) + (_estimate_records(buf2)
+                                     if buf2 is not None else 0)
+    batch = _COMPACT_AUTO_FACTOR * _COMPACT_AUTO_LANES
+    if est >= 6 * batch:
+        cfg.compact_factor = _COMPACT_AUTO_FACTOR
+        cfg.stream_batch_size = batch
+
+
 def run_stream_mapping(engine, cfg: Config, t_start: float,
                        sam_sink: Optional[Callable[[str], None]] = None) -> None:
     """Requires engine.native and engine.backend. Updates engine.stats,
@@ -50,8 +91,8 @@ def run_stream_mapping(engine, cfg: Config, t_start: float,
             now = time.perf_counter()
             sys.stderr.write(f"[stage-prof] pre {label}: {now - _pt:.2f}s\n")
             _pt = now
-    use_device_evidence = (cfg.vcf_output and cfg.device_evidence
-                           and be.device_evidence_ok)
+    use_device_evidence = (cfg.vcf_output and be.chain_enabled
+                           and cfg.device_evidence and be.device_evidence_ok)
     if cfg.vcf_output:
         # slow-read evidence always accumulates in the host diff arrays
         engine.enable_diff_profile()
@@ -78,11 +119,7 @@ def run_stream_mapping(engine, cfg: Config, t_start: float,
         buf1 = _load_bytes(f1)
         buf2 = _load_bytes(f2) if f2 is not None else None
         if cfg.compact_factor == 0:
-            # auto resolves to 1 in this port: the lane-compacted scan
-            # is not ported yet (ROADMAP.md, next slice 1) and its auto
-            # rule is to be re-decided on the card; seed sets are
-            # identical either way
-            cfg.compact_factor = 1
+            _resolve_auto_compaction(cfg, be, buf1, buf2)
         fastq = buf1[:1] == b"@"
         native.set_input(buf1, buf2, cfg.pair_interleaved)
         _mark("load+set_input")
@@ -118,8 +155,10 @@ def run_stream_mapping(engine, cfg: Config, t_start: float,
                 if prof is not None:
                     t1 = pc()
                     prof["parse"] += t1 - t0
-                token = be.submit_chain(packed, rlens, bucket,
-                                        evidence=fold_ev, pair_end=pair_end)
+                token = (be.submit_chain(packed, rlens, bucket,
+                                         evidence=fold_ev, pair_end=pair_end)
+                         if be.chain_enabled
+                         else be.submit_packed(packed, rlens, bucket))
                 if prof is not None:
                     prof["submit"] += pc() - t1
                 pending.append((slot, n, token))
@@ -129,43 +168,54 @@ def run_stream_mapping(engine, cfg: Config, t_start: float,
             pslot, pn, ptoken = pending.popleft()
             if prof is not None and prof["batches"] == 0:
                 _mark("first-submit(s)")
-            t0 = pc() if prof is not None else 0.0
-            (cls, pd, mm, rplast, cscore, counts, rp, gp,
-             ln) = be.collect_chain(
-                ptoken, pn, lambda i, s=pslot: native.read_codes(s, i))
-            if prof is not None:
-                t1 = pc()
-                prof["collect"] += t1 - t0
-                if prof["batches"] == 0:
-                    _mark("first-collect")
-            dx = getattr(cfg, "device_extension", False)
-            if dx == "auto":
-                # per-call winner policy; inf threshold = scalar
-                fn = getattr(be, "dp_device_min_pairs", None)
-                dp_min = fn() if fn is not None else float("inf")
-                dx = dp_min != float("inf")
-            else:
-                dp_min = 0
-            if dx:
-                sam_text, st = native.process_batch_cls_devdp(
-                    pslot, pair_end, fastq, cls, pd, mm, rplast, cscore,
-                    counts, rp, gp, ln, stats_io, cfg.use_nw,
-                    dp_min_pairs=dp_min)
-            else:
-                sam_text, st = native.process_batch_cls(
-                    pslot, pair_end, fastq, cls, pd, mm, rplast, cscore,
-                    counts, rp, gp, ln, stats_io)
-            t2 = pc()
-            if prof is not None:
-                prof["host_cpp"] += t2 - t1
-            if engine.device_evidence is not None:
-                fbits = native.fetch_fast_bits()
-                engine.device_evidence.reconcile_batch(ptoken, fbits,
-                                                       pair_end)
-                dt = pc() - t2
-                STATS.batch_seconds += dt
+            if be.chain_enabled:
+                t0 = pc() if prof is not None else 0.0
+                (cls, pd, mm, rplast, cscore, counts, rp, gp,
+                 ln) = be.collect_chain(
+                    ptoken, pn, lambda i, s=pslot: native.read_codes(s, i))
                 if prof is not None:
-                    prof["evidence"] += dt
+                    t1 = pc()
+                    prof["collect"] += t1 - t0
+                    if prof["batches"] == 0:
+                        _mark("first-collect")
+                dx = getattr(cfg, "device_extension", False)
+                if dx == "auto":
+                    # per-call winner policy; inf threshold = scalar
+                    fn = getattr(be, "dp_device_min_pairs", None)
+                    dp_min = fn() if fn is not None else float("inf")
+                    dx = dp_min != float("inf")
+                else:
+                    dp_min = 0
+                if dx:
+                    sam_text, st = native.process_batch_cls_devdp(
+                        pslot, pair_end, fastq, cls, pd, mm, rplast, cscore,
+                        counts, rp, gp, ln, stats_io, cfg.use_nw,
+                        dp_min_pairs=dp_min)
+                else:
+                    sam_text, st = native.process_batch_cls(
+                        pslot, pair_end, fastq, cls, pd, mm, rplast, cscore,
+                        counts, rp, gp, ln, stats_io)
+                t2 = pc()
+                if prof is not None:
+                    prof["host_cpp"] += t2 - t1
+                if engine.device_evidence is not None:
+                    fbits = native.fetch_fast_bits()
+                    engine.device_evidence.reconcile_batch(ptoken, fbits,
+                                                           pair_end)
+                    dt = pc() - t2
+                    STATS.batch_seconds += dt
+                    if prof is not None:
+                        prof["evidence"] += dt
+            else:
+                t0 = pc()
+                counts, rp, gp, ln = be.collect_packed(
+                    ptoken, pn, lambda i, s=pslot: native.read_codes(s, i))
+                t1 = pc()
+                sam_text, st = native.process_batch(
+                    pslot, pair_end, fastq, counts, rp, gp, ln, stats_io)
+                if prof is not None:
+                    prof["collect"] += t1 - t0
+                    prof["host_cpp"] += pc() - t1
             if prof is not None:
                 prof["batches"] += 1
             native.slot_release(pslot)
@@ -192,3 +242,4 @@ def run_stream_mapping(engine, cfg: Config, t_start: float,
     s.read_length_sum = int(stats_io[4])
     s.avg_dist = int(stats_io[5])
     sys.stderr.write("\n")
+

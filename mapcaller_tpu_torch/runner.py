@@ -111,7 +111,7 @@ def make_engine(idx: FMIndex, cfg: Config):
         if ndev > 1:
             raise NotImplementedError(
                 f"-devices {ndev}: multi-device mapping is not ported yet "
-                f"(ROADMAP.md, next slice 4)")
+                f"(ROADMAP.md, next slice 1)")
         from .pipeline.device_backend import DeviceBackend
         backend = DeviceBackend(idx, cfg)
     return MappingEngine(idx, cfg, backend=backend)

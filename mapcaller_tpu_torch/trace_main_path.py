@@ -11,7 +11,8 @@ JSON line: the card, the timed run's metrics, the device time summed over
 the profiled run's kernels and its busy share of the mapping stage, the
 device span (first kernel start to last kernel end on the card) and calls
 of each named range (seed_scan, hits_sa_resolve, classify, pack in
-ops/fm_search.py; nw_kernel in ops/nw_device.py; evidence_apply,
+ops/fm_search.py; nw_kernel in ops/nw_device.py; ksw2_kernel in
+ops/ksw2_device.py; evidence_apply,
 evidence_correct, evidence_finalize, caller_scan, fetch_columns in
 pipeline/device_profile.py, evidence_apply also in ops/fm_search.py when
 the apply is folded into the chain dispatch), and the ten kernels with
@@ -28,8 +29,8 @@ import tempfile
 import time
 
 RANGES = ("seed_scan", "hits_sa_resolve", "classify", "pack", "nw_kernel",
-          "evidence_apply", "evidence_correct", "evidence_finalize",
-          "caller_scan", "fetch_columns")
+          "ksw2_kernel", "evidence_apply", "evidence_correct",
+          "evidence_finalize", "caller_scan", "fetch_columns")
 
 
 def _device_us(evt, self_only: bool = False) -> float:

@@ -3,9 +3,11 @@ versions of its kernels) must write SAM and VCF byte-identical to the
 reference package on a small planted dataset — with device evidence (the
 default), folded evidence, host evidence, -gvcf, -somatic, -monomorphic,
 a -pfm round trip and a forced candidate-table overflow, and on a
-repeat-rich set whose hit-buffer overflow reruns a batch — import neither
-JAX nor the reference package, and refuse the options it does not port
-yet."""
+repeat-rich set whose hit-buffer overflow reruns a batch — and on each
+other single-card path (lane compaction, host chaining, the non-native
+path, the 1-step index) the reference's bytes under the same flags;
+import neither JAX nor the reference package; and refuse the options it
+does not port yet."""
 import json
 import os
 import subprocess
@@ -18,12 +20,14 @@ import torch
 from mapcaller_tpu import runner as jax_runner
 from mapcaller_tpu.config import Config as JaxConfig
 from mapcaller_tpu.index.fmindex import build_index
+from mapcaller_tpu.pipeline.device_backend import DeviceBackend as JaxBackend
 from mapcaller_tpu_torch import runner
 from mapcaller_tpu_torch.calling import device_call, scan_device
 from mapcaller_tpu_torch.config import Config
 from mapcaller_tpu_torch.dna import decode
-from mapcaller_tpu_torch.ops import nw_device
+from mapcaller_tpu_torch.ops import fm_search, nw_device
 from mapcaller_tpu_torch.pipeline import device_profile
+from mapcaller_tpu_torch.pipeline.device_backend import DeviceBackend
 from mapcaller_tpu_torch.simulator import write_planted_dataset
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -231,22 +235,52 @@ def test_import_isolation(data):
         assert f.read() == want_sam
 
 
+# path -> (flags for both packages, the port's function the path must
+# call); "one_step" makes both backends find no room for the occ3 table
+PATHS = {
+    "compact": (dict(compact_factor=2), (fm_search, "_seed_scan3_compact")),
+    "unchained": (dict(device_chain=False), (DeviceBackend, "submit_packed")),
+    "non_native": (dict(use_native=False), (DeviceBackend, "submit")),
+    "one_step": ({}, (fm_search, "_seed_scan")),
+}
+
+
+@pytest.mark.parametrize("path", list(PATHS))
+def test_paths_equal_reference(data, monkeypatch, path):
+    """Each single-card path of the port against the reference package
+    under the same flags (whose bytes equal its default's)."""
+    d, inputs, default = data
+    flags, (owner, name) = PATHS[path]
+    if path == "one_step":
+        monkeypatch.setattr(JaxBackend, "_occ3_fits",
+                            lambda self, idx, cfg: False)
+        monkeypatch.setattr(DeviceBackend, "_occ3_fits",
+                            lambda self, idx: False)
+    kw = dict(PINNED, **flags)
+    jcfg = JaxConfig(device_extension=True, **inputs, **kw,
+                     **_files(d, f"jax_{path}"))
+    assert jax_runner.run_pipeline(jcfg, "mapcaller") == 0
+    want = _read(jcfg)
+    assert want == default
+    calls = []
+    orig = getattr(owner, name)
+
+    def spy(*a, **k):
+        calls.append(1)
+        return orig(*a, **k)
+
+    monkeypatch.setattr(owner, name, spy)
+    cfg = Config(device="cpu", **inputs, **kw, **_files(d, f"torch_{path}"))
+    assert runner.run_pipeline(cfg, "mapcaller") == 0
+    assert calls, f"{path}: {name} never ran"
+    assert _read(cfg) == want
+
+
 @pytest.mark.parametrize("option", [
-    dict(compact_factor=2), dict(devices=2), dict(index_shards=2),
-    dict(big_x64=True), dict(device_chain=False)])
+    dict(devices=2), dict(index_shards=2), dict(big_x64=True)])
 def test_unported_options_raise(data, option):
     d, inputs, _ = data
     kw = dict(PINNED, **option)
     cfg = Config(device="cpu", **inputs, **kw, **_files(d, "unported"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        runner.run_pipeline(cfg, "mapcaller")
-
-
-def test_device_ksw2_raises(data):
-    """-alg ksw2 has no device DP yet: forcing it raises instead of
-    running the scalar aligner under the device flag."""
-    d, inputs, _ = data
-    cfg = Config(device="cpu", use_nw=False, device_extension=True,
-                 **inputs, **PINNED, **_files(d, "ksw2"))
-    with pytest.raises(NotImplementedError, match="C1"):
         runner.run_pipeline(cfg, "mapcaller")

@@ -298,7 +298,8 @@ def test_device_evidence_fits(monkeypatch):
         free = hbm - 2 * i.seq_len - min(4 * (i.seq_len + 1), 2 << 30)
         be._mem_bytes = lambda free=free: free
         assert be._occ3_fits(i) == occ3_ok, mb
-        jbe._fm3_ok = occ3_ok
+        # both charge the occ3 rows only when the occ3 scan runs
+        jbe._fm3_ok = be._fm3_ok = occ3_ok
         assert jbe._device_evidence_fits(i, None) == ev_ok, mb
         assert be._device_evidence_fits(i) == ev_ok, mb
     be._mem_bytes = lambda: None
