@@ -10,9 +10,9 @@ Phases, one JSON line each on stdout (any failure raises and the process
 exits non-zero):
   env        card name and power limit (nvidia-smi), torch and CUDA
   build      nvcc for csrc/*.cu and g++ for the C++ host leg, in parallel,
-             with the NW and ksw2 kernels' registers, shared memory,
-             stack frame and spills from -Xptxas -v (any stack frame or
-             spill fails)
+             with the NW, ksw2 and seed-scan kernels' registers, shared
+             memory, stack frame and spills from -Xptxas -v (any stack
+             frame or spill fails)
   kernels    the CUDA NW and ksw2 kernels each equal their plain version
              exactly at every DP tier (32, 48, 96, 192), on pairs whose
              lengths reach the tier's edges (for NW also the kernel's
@@ -22,14 +22,16 @@ exits non-zero):
   small_e2e  a 20 kb planted dataset: the port on cuda and on cpu write
              byte-identical SAM and VCF, both with device evidence, and
              again on the non-native path (use_native=False)
-  main_path  100,000 read pairs on a 4.6 Mb genome through
-             `python -m mapcaller_tpu_torch.cli` (in process): one warm-up
+  main_path  100,000 read pairs on a 4.6 Mb genome through the user's
+             command (`mapcaller_tpu_torch.cli`, in process): one warm-up
              run, which also captures the tensors of its largest NW
-             launch and the evidence planes and inputs of its calling,
-             then runs with the device DP and with the scalar C++ DP in
-             turns (device, scalar, scalar, device), then one run with
-             host evidence (device_evidence=False) and one with the
-             evidence apply folded into the chain dispatch
+             launch, the evidence planes and inputs of its calling and
+             every seed-scan batch, and runs its third submit_chain with
+             any host sync an error; then runs with the DP forced to the
+             device kernels and to the scalar C++ DP in turns (device,
+             scalar, scalar, device), the command as it is (auto DP), one
+             run with host evidence (device_evidence=False) and one with
+             the evidence apply folded into the chain dispatch
              (fold_evidence=True); then the other single-card paths, each
              writing the warm-up's SAM and VCF bytes: lane compaction
              (compact_factor=4: 8,192 lanes of a 32,768-read batch),
@@ -37,14 +39,26 @@ exits non-zero):
              backend told the occ3 table does not fit); then -alg ksw2:
              a warm-up, which captures the tensors of its largest ksw2
              launch, and device-DP and scalar-DP turns, each writing the
-             ksw2 warm-up's bytes. Each run counts both kernels' launches
-             and the evidence steps; every run but the host-evidence and
-             host-chaining ones accumulates evidence on the card and
-             calls from it, with no capacity overflow; no run sends a
-             read to the host oracle or reruns a batch
-             Each run also reports the stream's stage seconds
-             (MC_STAGE_PROF: parse, seed+chain submit, collect, host leg,
-             evidence)
+             ksw2 warm-up's bytes. Each run counts every kernel's launches
+             (one seed-scan launch a batch: the occ3 kernel, or the
+             1-step kernel on the 1-step run) and the evidence steps;
+             every run but the host-evidence and host-chaining ones
+             accumulates evidence on the card and calls from it, with no
+             capacity overflow; no run sends a read to the host oracle or
+             reruns a batch. Each run also reports the stream's stage
+             seconds (MC_STAGE_PROF: parse, seed+chain submit, collect,
+             host leg, evidence) and the host leg's own stage counters
+             (native.prof_fetch)
+  seed_scan  the occ3 scan kernel equal to its plain version on every
+             batch of the warm-up (batch 0 timed: device ms, call ms,
+             plain ms, bound from its own step counts), on reads at each
+             bucket (128, 192, 256) with the prefix skip off and on and
+             in lanes mode (B / 4 lanes), and the 1-step kernel on the
+             same reads with and without N; auto compaction's geometry
+             (131,072 of the main path's reads on 32,768 lanes against a
+             thread per read); then, after their runs, the compacted
+             run's batches (8,192 lanes) and the 1-step run's batches
+             (batch 0 timed), each equal to the plain version
   evidence   device ms (queued launches) of the evidence apply of one
              batch, the finalize fold, the caller scan and the column
              fetch on the warm-up's own planes and inputs, each equal to
@@ -56,8 +70,9 @@ exits non-zero):
              aligner per pair (a ctypes loop over the pairs less the same
              loop over 1x1 pairs), and the least batch for which the
              device call would beat the scalar aligner
-Then the kernel table line ({"kernels": [...]}, each kernel timed on its
-main path's own captured pairs and on random pairs of the same shape),
+Then the kernel table line ({"kernels": [...]}, the DP kernels timed on
+their main path's own captured pairs and on random pairs of the same
+shape, the scan kernels on their main path's own batch 0),
 the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}.
 
@@ -83,6 +98,10 @@ H100_BYTES_S = 3.35e12            # HBM3 rate, H100 SXM data sheet
 H100_INT32_OPS_S = 132 * 64 * 1.98e9
 NW_OPS_PER_CELL = 10              # see csrc/nw.cu
 KSW2_OPS_PER_CELL = 40            # per in-window cell, see csrc/ksw2.cu
+SCAN3_ROW_BYTES = 288             # an occ3 row; a scan step gathers two
+SCAN1_ROW_BYTES = 32              # an occ4 row
+SCAN3_OPS_PER_STEP = 930          # see csrc/seed_scan.cu
+SCAN1_OPS_PER_STEP = 80
 
 
 def emit(phase, **kw):
@@ -302,6 +321,162 @@ def check_ksw2(k, B, M, seed, reps):
     return measure_ksw2(k, ksw2_inputs(B, M, seed), reps)
 
 
+def scan_fns(ssd, kind, fm, codes, rlens, max_len, S, lanes=0,
+             has_n=False):
+    """(kernel, plain) callables of one seed-scan call on the card; each
+    takes with_iters (the plain compacted scan refuses it)."""
+    if kind == "seed_scan3":
+        return (lambda w=False: ssd.seed_scan3(fm, codes, rlens, max_len, S,
+                                                lanes=lanes, with_iters=w),
+                lambda w=False: ssd.seed_scan3_plain(
+                    fm, codes, rlens, max_len, S, lanes=lanes, with_iters=w))
+    return (lambda w=False: ssd.seed_scan1(fm, codes, rlens, max_len, S,
+                                            has_n, with_iters=w),
+            lambda w=False: ssd.seed_scan1_plain(fm, codes, rlens, max_len, S,
+                                                 has_n, with_iters=w))
+
+
+def equal_scan(what, kernel, plain, with_iters=False):
+    """Kernel vs plain version on the same tensors: every element of the
+    six outputs equal, the unused seed slots included, and with_iters each
+    read's steps and row gathers. Returns the max abs difference (0)."""
+    import torch
+    got, want = kernel(with_iters), plain(with_iters)
+    torch.cuda.synchronize()
+    err = max(int((g.long() - w.long()).abs().max()) if g.numel() else 0
+              for g, w in zip(got, want))
+    if err != 0 or len(got) != len(want) or not all(
+            torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"{what}: scan kernel != plain version "
+                             f"(max_abs_err {err})")
+    return err
+
+
+def scan_bound_ms(kind, B, width, S, rows):
+    """Least time for a scan on these inputs: the larger of the bytes it
+    must move (the index rows the reads' own trajectories gather, the
+    reads and lengths read once, the outputs written once) and its int32
+    operations, per two-row step as counted in csrc/seed_scan.cu."""
+    row, per = ((SCAN3_ROW_BYTES, SCAN3_OPS_PER_STEP) if kind == "seed_scan3"
+                else (SCAN1_ROW_BYTES, SCAN1_OPS_PER_STEP))
+    nbytes = row * rows + B * (width + 4) + B * (8 + 32 * S + 1 + 8)
+    t_b, t_o = nbytes / H100_BYTES_S, per * rows / 2 / H100_INT32_OPS_S
+    return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
+
+
+def measure_scan(what, kind, fns, codes, S, reps, plain_reps=3):
+    """Equality with the plain version (step and row-gather counts too),
+    then device ms (queued launches), call ms (one wrapper call, host
+    issue included), plain ms and the bound from the call's own row
+    gathers."""
+    kernel, plain = fns
+    err = equal_scan(what, kernel, plain, with_iters=True)
+    steps, rows = (int(x.sum()) for x in kernel(True)[-2:])
+    ms = cuda_ms(kernel, reps, queued=True)
+    call_ms = cuda_ms(kernel, reps)
+    plain_ms = cuda_ms(plain, plain_reps, warmup=1)
+    B, width = codes.shape
+    bound, by = scan_bound_ms(kind, B, width, S, rows)
+    return dict(B=B, width=width, max_seeds=S, steps=steps, rows=rows,
+                mean_steps=steps / B, max_abs_err=err, ms=ms,
+                call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, share_of_bound=bound / ms)
+
+
+def scan_inputs(packed, bucket, seed, has_n=False):
+    """Reads of `bucket` bases on the card, one per read of a main-path
+    batch (packed uint8[B, w]): the first bytes of that read and of the
+    next one (real sequence: seeds with hits), then random bases; lengths
+    uniform in [0, bucket] with 0, 15, 16, 17, bucket - 1 and bucket
+    forced. has_n: byte codes with ~3% N and 4 past each read's end, else
+    2-bit packed. -> (codes, rlens int32)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    p0 = packed.cpu().numpy()
+    B, W = p0.shape[0], bucket // 4
+    out = rng.integers(0, 256, size=(B, W), dtype=np.uint8)
+    k = min(p0.shape[1], W // 2)
+    out[:, :k] = p0[:, :k]
+    out[:, k:2 * k] = np.roll(p0, -1, axis=0)[:, :k]
+    rl = rng.integers(0, bucket + 1, size=B).astype(np.int32)
+    rl[:6] = [0, 15, 16, 17, bucket - 1, bucket]
+    codes = out
+    if has_n:
+        j = np.arange(bucket)
+        codes = ((out[:, j >> 2] >> (2 * (j & 3))) & 3).astype(np.uint8)
+        codes[rng.random(codes.shape) < 0.03] = 4
+        codes[j[None, :] >= rl[:, None]] = 4
+    dev = torch.device("cuda")
+    return (torch.from_numpy(np.ascontiguousarray(codes)).to(dev),
+            torch.from_numpy(rl).to(dev))
+
+
+def run_seed_scan(ssd, batches, card, reps=20):
+    """The occ3 scan kernel on the warm-up's own batches (every one equal
+    to the plain scan, batch 0 timed), then on reads at each bucket with
+    the prefix skip off and at the run's depth, in lanes mode (B / 4
+    lanes), and the 1-step kernel on the same reads with and without N;
+    then the auto compaction's geometry: 131,072 of the main path's reads
+    (its first four batches) on 32,768 lanes against one thread per read.
+    Returns batch 0's measurement."""
+    import dataclasses
+    import torch
+    fm3, packed0, rlens0, max_len, S, _ = batches[0]
+    for i, (f, p, r, ml, s_, lanes) in enumerate(batches):
+        equal_scan(f"seed_scan3 main-path batch {i}",
+                   *scan_fns(ssd, "seed_scan3", f, p, r, ml, s_, lanes))
+    own = measure_scan("seed_scan3 main-path batch 0", "seed_scan3",
+                       scan_fns(ssd, "seed_scan3", fm3, packed0, rlens0,
+                                max_len, S), packed0, S, reps)
+    B = packed0.shape[0]
+    fm3_0 = dataclasses.replace(fm3, pfx_k=0, pfx_base=0)
+    cases = []
+    for bucket in (128, 192, 256):
+        Sb = bucket // 17 + 2
+        codes, rl = scan_inputs(packed0, bucket, seed=bucket)
+        for tag, f, lanes in (("pfx_k 0", fm3_0, 0),
+                              (f"pfx_k {fm3.pfx_k}", fm3, 0),
+                              (f"pfx_k {fm3.pfx_k}, lanes B/4", fm3,
+                               B // 4)):
+            cases.append(dict(kernel="seed_scan3", bucket=bucket, case=tag,
+                              max_abs_err=equal_scan(
+                                  f"seed_scan3 {bucket} {tag}",
+                                  *scan_fns(ssd, "seed_scan3", f, codes, rl,
+                                            bucket, Sb, lanes))))
+        for has_n in (False, True):
+            c, r = scan_inputs(packed0, bucket, bucket + 1, has_n)
+            tag = "byte codes with N" if has_n else "2-bit"
+            cases.append(dict(kernel="seed_scan1", bucket=bucket, case=tag,
+                              max_abs_err=equal_scan(
+                                  f"seed_scan1 {bucket} {tag}",
+                                  *scan_fns(ssd, "seed_scan1", fm3.fm, c, r,
+                                            bucket, Sb, has_n=has_n))))
+    big_p = torch.cat([b[1] for b in batches[:4]])
+    big_r = torch.cat([b[2] for b in batches[:4]])
+    lock, _ = scan_fns(ssd, "seed_scan3", fm3, big_p, big_r, max_len, S)
+    comp, _ = scan_fns(ssd, "seed_scan3", fm3, big_p, big_r, max_len, S,
+                       lanes=32768)
+    equal_scan("seed_scan3 131,072 reads, 32,768 lanes vs one per read",
+               comp, lock)
+    geometry = dict(reads=int(big_p.shape[0]), lanes=32768,
+                    ms_one_thread_per_read=cuda_ms(lock, reps, queued=True),
+                    ms_lanes=cuda_ms(comp, reps, queued=True),
+                    steps=int(lock(True)[-2].sum()))
+    emit("seed_scan", card=card, main_path_batches=len(batches),
+         main_path_batch0=own, random=cases, auto_compaction=geometry)
+    return own
+
+
+def check_scan_batches(ssd, kind, batches):
+    """Each captured main-path call: kernel equal to the plain version."""
+    for i, (f, p, r, ml, s_, extra) in enumerate(batches):
+        kw = dict(lanes=extra) if kind == "seed_scan3" else dict(has_n=extra)
+        equal_scan(f"{kind} main-path batch {i} ({kw})",
+                   *scan_fns(ssd, kind, f, p, r, ml, s_, **kw))
+    return len(batches)
+
+
 def ptxas_report(out, kernel="nw_ops_kernel"):
     """Registers, shared memory, stack frame and spill bytes of each
     instantiation of `kernel` (keyed by its chunk) from the output of
@@ -344,9 +519,10 @@ def evidence_path_ok(st, applies=True, folded=False):
 
 
 def run_small_e2e(work):
-    """Port on cuda vs port on cpu, planted 20 kb set: default flags, then
-    the non-native path (use_native=False: per-read Python host leg, the
-    1-step seed kernel on byte codes)."""
+    """Port on cuda vs port on cpu, planted 20 kb set, DP batches sent to
+    the DP kernel (device_extension=True; the plain version on the cpu):
+    default flags, then the non-native path (use_native=False: per-read
+    Python host leg, the 1-step seed kernel on byte codes)."""
     from mapcaller_tpu_torch import runner
     from mapcaller_tpu_torch.config import Config
     from mapcaller_tpu_torch.index.fmindex import build_index
@@ -366,6 +542,7 @@ def run_small_e2e(work):
             cfg = Config(device=dev, index_prefix=os.path.join(d, "idx"),
                          read_files1=[f1], read_files2=[f2],
                          stream_batch_size=1024, use_native=native,
+                         device_extension=True,
                          sam_file=os.path.join(d, f"{tag}.sam"),
                          vcf_file=os.path.join(d, f"{tag}.vcf"),
                          log_file=os.path.join(d, f"{tag}.log"))
@@ -468,8 +645,9 @@ def run_main_path(work, card):
     turns' launch counts (nw, ksw2), the captured launches' tensors (nw,
     ksw2) and the captured evidence."""
     import torch
-    from mapcaller_tpu_torch import cli, runner
-    from mapcaller_tpu_torch.ops import ksw2_device, nw_device
+    from mapcaller_tpu_torch import cli, native, runner
+    from mapcaller_tpu_torch.ops import fm_search, ksw2_device, nw_device
+    from mapcaller_tpu_torch.ops import seed_scan_device as ssd
     from mapcaller_tpu_torch.pipeline import device_profile
     from mapcaller_tpu_torch.pipeline.device_backend import DeviceBackend
     from mapcaller_tpu_torch.simulator import write_ecoli_set
@@ -486,15 +664,19 @@ def run_main_path(work, card):
     argv = ["mapcaller", "-i", idx, "-f", r1, "-f2", r2, "-sam", sam,
             "-vcf", vcf, "-log", log]
 
-    def run(device_dp=True, one_step=False, **flags):
-        """One run; default flags through the CLI a user calls, or the
-        same command with the scalar C++ DP or other flags; one_step: the
-        backend is told the occ3 table does not fit."""
+    def run(device_dp=True, one_step=False, auto_dp=False, **flags):
+        """One run of the user's command: with auto_dp through the CLI
+        as it is (device_extension "auto"), else the same command with the
+        DP forced to the device kernels (device_dp) or to the scalar C++
+        aligners, and other flags; one_step: the backend is told the occ3
+        table does not fit."""
         gc.collect()      # an earlier run's cycles must not hold memory
         torch.cuda.reset_peak_memory_stats()
         nw_device.STATS.reset()
         ksw2_device.STATS.reset()
+        ssd.STATS.reset()
         device_profile.STATS.reset()
+        native.prof_fetch()           # zero the host leg's stage counters
         cfg = None
         occ3_fits = DeviceBackend._occ3_fits
         if one_step:
@@ -502,12 +684,11 @@ def run_main_path(work, card):
         err = io.StringIO()       # the stream's stage-prof line
         try:
             with contextlib.redirect_stderr(err):
-                if device_dp and not flags:
+                if auto_dp and not flags:
                     rc = cli.main(argv)
                 else:
                     cfg = cli.parse_args(argv)
-                    if not device_dp:
-                        cfg.device_extension = False
+                    cfg.device_extension = bool(device_dp)
                     for k, v in flags.items():
                         setattr(cfg, k, v)
                     rc = runner.run_pipeline(cfg, " ".join(argv))
@@ -525,6 +706,9 @@ def run_main_path(work, card):
                     pairs=st.pairs, shapes=dict(st.shapes),
                     ksw2_launches=ks.launches, ksw2_pairs=ks.pairs,
                     ksw2_shapes=dict(ks.shapes),
+                    scan3_launches=ssd.STATS.launches["seed_scan3"],
+                    scan1_launches=ssd.STATS.launches["seed_scan1"],
+                    host_prof=native.prof_fetch(),
                     compact_factor=cfg.compact_factor if cfg else None,
                     stages=stages[-1] if stages else None,
                     evidence=vars(device_profile.STATS).copy(),
@@ -558,6 +742,47 @@ def run_main_path(work, card):
 
     nw_align = nw_device.nw_align_batch
     ksw2_align = ksw2_device.ksw2_align_batch
+
+    # taps on the scans the kernels call: in a run with a capture mode set,
+    # every call's tables and a copy of its batch
+    scan_mode = {"mode": None}
+    scan3, scan1 = fm_search.seed_scan3, fm_search.seed_scan1
+
+    def tap_scan3(fm3, packed, rlens, max_len, max_seeds, lanes=0, **kw):
+        if scan_mode["mode"]:
+            captured.setdefault(scan_mode["mode"], []).append(
+                (fm3, packed.clone(), rlens.clone(), max_len, max_seeds,
+                 lanes))
+        return scan3(fm3, packed, rlens, max_len, max_seeds, lanes=lanes,
+                     **kw)
+
+    def tap_scan1(fm, codes, rlens, max_len, max_seeds, has_n, **kw):
+        if scan_mode["mode"]:
+            captured.setdefault(scan_mode["mode"], []).append(
+                (fm, codes.clone(), rlens.clone(), max_len, max_seeds,
+                 has_n))
+        return scan1(fm, codes, rlens, max_len, max_seeds, has_n, **kw)
+
+    submit_chain = DeviceBackend.submit_chain
+
+    def submit_tap(self, *a, **kw):
+        """The third batch's submit (tables built) runs with any host
+        sync an error: submit_chain must not wait for the card. The error,
+        if any, is kept for main_path's verdict and the submit made again
+        without the check (it has no side effect without a folded
+        apply)."""
+        n = captured["submits"] = captured.get("submits", 0) + 1
+        if n != 3:
+            return submit_chain(self, *a, **kw)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            captured["submit_sync_error"] = None
+            return submit_chain(self, *a, **kw)
+        except RuntimeError as e:
+            captured["submit_sync_error"] = str(e)[-600:]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        return submit_chain(self, *a, **kw)
 
     def tap_evidence(be, cfg, host_profile):
         """Keep host copies only: device tensors held past the warm-up
@@ -593,12 +818,22 @@ def run_main_path(work, card):
     nw_device.nw_ops = tap
     nw_device.nw_align_batch = tap_pairs("nw", nw_align)
     device_profile.make_device_evidence = tap_evidence
+    DeviceBackend.submit_chain = submit_tap
+    fm_search.seed_scan3, fm_search.seed_scan1 = tap_scan3, tap_scan1
+    scan_mode["mode"] = "scan3"
     try:
         warm = run()
     finally:
         nw_device.nw_ops = nw_ops
         nw_device.nw_align_batch = nw_align
         device_profile.make_device_evidence = make_ev
+        DeviceBackend.submit_chain = submit_chain
+        scan_mode["mode"] = None
+    if "submit_sync_error" not in captured:
+        raise AssertionError("main_path: the sync check of submit_chain "
+                             "did not run")
+    scan_table = dict(seed_scan3=run_seed_scan(ssd, captured.pop("scan3"),
+                                               card))
     os.replace(sam, sam + ".warm")
     os.replace(vcf, vcf + ".warm")
 
@@ -612,13 +847,34 @@ def run_main_path(work, card):
         r = check(run(device_dp))
         r.update(device_dp=device_dp)
         turns.append(r)
+    # the user's command as it is: the DP goes where the auto policy sends
+    # it on the card
+    auto = check(run(auto_dp=True))
     host_ev = check(run(device_evidence=False))
     fold_ev = check(run(fold_evidence=True))
     # the other single-card paths: 8,192 compacted lanes of the default
-    # 32,768-read batch, host chaining, the 1-step index
+    # 32,768-read batch, host chaining, the 1-step index; the scan kernel
+    # of each held equal to its plain version on the run's own batches
+    scan_mode["mode"] = "compact"
     compact = check(run(compact_factor=4))
+    scan_mode["mode"] = None
+    n_compact = check_scan_batches(ssd, "seed_scan3", captured.pop("compact"))
     unchained = check(run(device_chain=False))
+    scan_mode["mode"] = "scan1"
     one_step = check(run(one_step=True))
+    scan_mode["mode"] = None
+    fm_search.seed_scan3, fm_search.seed_scan1 = scan3, scan1
+    b1 = captured.pop("scan1")
+    n_one_step = check_scan_batches(ssd, "seed_scan1", b1)
+    f, p, r, ml, s_, has_n = b1[0]
+    scan_table["seed_scan1"] = measure_scan(
+        "seed_scan1 main-path batch 0", "seed_scan1",
+        scan_fns(ssd, "seed_scan1", f, p, r, ml, s_, has_n=has_n), p, s_,
+        reps=20)
+    del b1, f, p, r
+    emit("seed_scan", card=card, compacted_batches_equal=n_compact,
+         one_step_batches_equal=n_one_step,
+         one_step_batch0=scan_table["seed_scan1"])
     dev = [t for t in turns if t["device_dp"]]
     sca = [t for t in turns if not t["device_dp"]]
 
@@ -654,6 +910,9 @@ def run_main_path(work, card):
                     ksw2_launches=t["ksw2_launches"],
                     ksw2_pairs=t["ksw2_pairs"], stages=t["stages"],
                     evidence_batch_s=ev["batch_seconds"],
+                    seed_scan3_launches=t["scan3_launches"],
+                    seed_scan1_launches=t["scan1_launches"],
+                    host_leg_ns=t["host_prof"],
                     evidence={k: v for k, v in ev.items()
                               if k != "batch_seconds"},
                     peak_mem_bytes=t["peak"],
@@ -662,8 +921,8 @@ def run_main_path(work, card):
 
     m1 = dev[0]["metrics"]
     paths = [compact, unchained, one_step]
-    everything = ([warm] + turns + [host_ev, fold_ev] + paths + [kwarm]
-                  + kturns)
+    everything = ([warm] + turns + [auto, host_ev, fold_ev] + paths
+                  + [kwarm] + kturns)
     emit("main_path", card=card, setup_s=setup_s,
          reads=m1["total_reads"],
          mapped_pct=100.0 * m1["mapped"] / max(m1["total_reads"], 1),
@@ -675,6 +934,8 @@ def run_main_path(work, card):
          warmup_nw_launches=warm["launches"],
          turns=[summary(t, dp="device" if t["device_dp"] else "scalar",
                         evidence_path="device") for t in turns],
+         auto_dp=summary(auto, dp="auto", evidence_path="device"),
+         submit_chain_sync_error=captured["submit_sync_error"],
          host_evidence=summary(host_ev, dp="device", evidence_path="host"),
          fold_evidence=summary(fold_ev, dp="device",
                                evidence_path="device, folded"),
@@ -710,7 +971,7 @@ def run_main_path(work, card):
           and all(t["ksw2_launches"] > 0 and t["ksw2_pairs"] > 0
                   for t in ksw2_dp)
           and all(t["launches"] == 0 for t in everything
-                  if all(t is not x for x in [warm] + nw_dp))
+                  if all(t is not x for x in [warm, auto] + nw_dp))
           and all(t["ksw2_launches"] == 0 for t in everything
                   if all(t is not x for x in ksw2_dp))
           and all(t["sam_identical"] and t["vcf_identical"]
@@ -718,19 +979,32 @@ def run_main_path(work, card):
           and all(t["metrics"]["n_oracle_reads"] == 0
                   and t["metrics"]["n_tier_reruns"] == 0 for t in everything)
           and all(evidence_path_ok(t["evidence"])
-                  for t in [warm] + turns + [compact, one_step, kwarm]
+                  for t in [warm] + turns + [auto, compact, one_step, kwarm]
                   + kturns)
+          # one scan launch a batch: the occ3 kernel on every path but the
+          # 1-step one, which runs only the 1-step kernel
+          and all(t["scan3_launches"] == t["stages"]["batches"]
+                  and t["scan1_launches"] == 0
+                  for t in everything if t is not one_step)
+          and one_step["scan1_launches"] == one_step["stages"]["batches"]
+          and one_step["scan3_launches"] == 0
           and evidence_path_ok(fold_ev["evidence"], applies=False,
                                folded=True)
           and hst["applies"] == hst["folded"] == hst["scans"] == 0
           and ucs["applies"] == ucs["folded"] == ucs["scans"] == 0
-          and sca[0]["compact_factor"] == 1)
+          and sca[0]["compact_factor"] == 1
+          and captured["submit_sync_error"] is None)
     if not ok:
         raise AssertionError("main_path: a kernel not launched with device "
-                             "DP or launched with scalar DP, outputs differ "
+                             "DP or launched with scalar DP, a scan kernel "
+                             "not launched once a batch, outputs differ "
                              "from their warm-up's, reads left the device "
                              "path, evidence did not take the path its "
-                             "flags ask for, or auto compaction was not 1")
+                             "flags ask for, auto compaction was not 1, or "
+                             "submit_chain waited for the card")
+    captured["scan_table"] = {
+        "seed_scan3": (scan_table["seed_scan3"], dev[0]["scan3_launches"]),
+        "seed_scan1": (scan_table["seed_scan1"], one_step["scan1_launches"])}
     return ((dev[0]["launches"], kdev[0]["ksw2_launches"]),
             (captured["nw"][1], captured["ksw2"][1]), captured)
 
@@ -851,16 +1125,16 @@ def main():
 
     t0 = time.time()
     outputs = toolchain.build_all()
+    gated = ((("libnw.so", "nw_ops_kernel"), nw_device.KERNEL_MAX_CHUNK),
+             (("libksw2.so", "ksw2_ops_kernel"), ksw2_device.KERNEL_MAX_CHUNK),
+             (("libseed_scan.so", "seed_scan3_kernel"), 1),
+             (("libseed_scan.so", "seed_scan1_kernel"), 1))
     reports = {kernel: ptxas_report(outputs.get(lib, ""), kernel)
-               for lib, kernel in (("libnw.so", "nw_ops_kernel"),
-                                   ("libksw2.so", "ksw2_ops_kernel"))}
+               for (lib, kernel), _ in gated}
     emit("build", seconds=time.time() - t0,
          nvcc=" ".join(toolchain.NVCC_FLAGS),
          libs=sorted(os.listdir(toolchain.BUILD_DIR)), **reports)
-    for (lib, kernel), n in ((("libnw.so", "nw_ops_kernel"),
-                              nw_device.KERNEL_MAX_CHUNK),
-                             (("libksw2.so", "ksw2_ops_kernel"),
-                              ksw2_device.KERNEL_MAX_CHUNK)):
+    for (lib, kernel), n in gated:
         rep = reports[kernel]
         if len(rep) != n or any(
                 v.get("registers") is None or v.get("stack_frame_bytes", 1)
@@ -911,6 +1185,21 @@ def main():
                      f"shape",
             "random": {k: rnd[k] for k in ("max_abs_err", "ms", "plain_ms",
                                            "bound_ms", "bound_by")}})
+    # the scan kernels on their main path's own batch 0 (seed_scan phase)
+    for name, src_line in (("seed_scan3", "mapcaller_tpu/ops/fm_search.py:55"),
+                           ("seed_scan1",
+                            "mapcaller_tpu/ops/fm_search.py:856")):
+        r, n = cap["scan_table"][name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "mapcaller_tpu_torch/csrc/seed_scan.cu",
+            "replaces": src_line, "launches": n,
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None, "tolerance": 0,
+            "call_ms": r["call_ms"], "steps": r["steps"],
+            "shape": f"{r['B']} reads x {4 * r['width']} bases (bucket), "
+                     f"the main path's own batch 0"})
     line = {"kernels": kernels}
     print(json.dumps(line), flush=True)
     print(card, flush=True)

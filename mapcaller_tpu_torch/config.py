@@ -64,7 +64,8 @@ class Config:
     compact_factor: int = 0                     # seed-scan lane compaction:
                                                 # lanes = batch/compact_factor.
                                                 # 0 = auto (pipeline/stream.py:
-                                                # x4 from 6 x 131,072 reads)
+                                                # x4 from 6 x 131,072 reads,
+                                                # 1 on the card)
     device_chain: bool = True                   # device chaining/classification
     device_evidence: bool = True                # evidence planes and the
                                                 # caller scan on the card;
@@ -92,9 +93,9 @@ class Config:
                                                 # backend, which submits one
                                                 # batch at a time)
     # Device DP for the gapped-extension pairs. False = scalar host
-    # aligners; True = always device; "auto" = the backend's policy
-    # (DeviceBackend.dp_device_min_pairs: the CUDA NW or ksw2 kernel on
-    # the card, the scalar aligner on the CPU)
+    # aligners; True = always device (the CUDA NW or ksw2 kernel on the
+    # card); "auto" = the backend's policy (DeviceBackend.
+    # dp_device_min_pairs: the scalar aligners, on the card as on the CPU)
     device_extension: object = "auto"
     prefix_skip_k: int = -1                     # fused seed-start skip depth
                                                 # (-1 = auto by free device

@@ -1,0 +1,489 @@
+// Greedy-MEM seed scans, one thread per read, for Hopper (sm_90a). Built
+// with nvcc into a plain C library and bound with ctypes
+// (mapcaller_tpu_torch/ops/seed_scan_device.py::seed_scan3 / seed_scan1,
+// whose plain PyTorch versions are ops/fm_search.py::_seed_scan3,
+// _seed_scan3_compact and _seed_scan).
+//
+// Replaces three XLA device programs of mapcaller_tpu/ops/fm_search.py
+// (no Pallas kernel): _seed_scan3 (:55-211, a lax.while_loop at :206 over
+// 8-step unrolled blocks), _seed_scan3_compact (:214-450, while_loop at
+// :447) and the 1-step _seed_scan (:856-964, while_loop at :961). Same
+// function (ref: src/bwt_search.cpp:121-164, BWT_Search):
+//
+//   seed_scan3_kernel  the occ3 state machine. An idle read starts an
+//     extension at pos: without the fused prefix skip the 1-base interval
+//     of its code; with it (pfx_base > 0) the prefix entry of the K bases
+//     at pos, packed 16 to a row at rows[pfx_base + key/16], entry key%16
+//     = (x0, x1, x2, 0), and the 1-base init when the entry is empty
+//     (x2 == 0). An extension with 3 bases left and no replay takes a
+//     3-step over the two occ3 rows at x1 and x1+x2; a failed 3-step sets
+//     replay and changes nothing else; otherwise a derived 1-step. A read
+//     at its end, or whose 1-step fails, finalizes: a seed of >= 16 bases
+//     and <= 50 hits goes to slot min(n, S-1) (overflow once the table is
+//     full), and the read moves to ext_pos + 1. good, s_x0 and s_freq use
+//     x0 and x2 before the step. With lanes < B, `lanes` threads take
+//     reads from an atomic counter (the compacted scan's contract: the
+//     same per-read outputs).
+//   seed_scan1_kernel  the same machine over the 1-step occ4 rows, one
+//     base a step; with has_n byte codes whose N (> 3) ends an extension
+//     and is skipped as a start, else 2-bit packed codes.
+//
+// Each read runs at most `cap` steps, the trip count of the plain lockstep
+// loop (a whole number of its unrolled blocks); a finished read stays
+// unchanged there, so its result is its state after min(trajectory, cap)
+// steps, which is what the thread computes. Slots at or past n_seeds are
+// written 0, as the plain version leaves them, so the seed tables are
+// equal element for element. iters[r] is the read's step count (the
+// reference's with_iters output), rows[r] the index rows it gathered (two
+// a step that extends or tries to, none a step that starts or ends at the
+// read's end): the bytes the scan must move.
+//
+// Row layout (ops/fm3_device.py): an occ3 row is 72 int32, 288 bytes: 64
+// trinucleotide counts at the row's first BWT index, then 16 symbol bytes
+// (T[p-3]*16 + T[p-2]*4 + T[p-1], 255 for p < 3) in words 64-67, then 4
+// pad words. Index i selects row i >> 4 and in-row offset m = i & 15.
+// An occ4 row (ops/fm_device.py) is [cntA, cntC, cntG, cntT, word, 0, 0,
+// 0], the BWT word's crumbs big end first. Read words: the packed
+// uint8[B, max_len/4] batch read as uint32 is already little-endian
+// words with base j at bits 2*(j%16) of word j/16 (max_len % 16 == 0).
+//
+// Bound on an H100 SXM (HBM3, 3.35 TB/s): bytes. A step that extends, or
+// tries to, gathers two rows (288 B each for occ3, 32 B for occ4), so
+// bytes = sum(rows) * row over the memory rate; chip_smoke.py counts them
+// from each run's rows. The operations bound lies below it: about 930
+// int32 operations per occ3 step (a row's 64 counts at ~4 for the two
+// conditional sums, its 16 symbols at ~13 for the byte extract, rev3 and
+// the tallies; two rows) and about 80 per occ4 step (two masked popcounts
+// of 4 bases and the update), against the int32 issue rate. Every step is
+// a dependent chain (state -> row index -> two row loads -> sums ->
+// state), so a thread waits one memory latency a step. The design keeps
+// the whole state in registers, loads each row as 17 16-byte vectors with
+// both rows' loads independent, computes only the branch the read takes,
+// and writes each seed straight to its slot; no host sync and no launch
+// per step. On an NVIDIA H100 80GB HBM3 at 700 W a 32,768-read batch of
+// the E. coli-scale main path ran at about two thirds of the byte bound
+// (PERF.md).
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int MIN_SEED_LEN = 16;
+constexpr int OCC_THR = 50;
+constexpr int THREADS = 128;
+constexpr int ROW3 = 72;                // int32 per occ3 row
+constexpr int ROW1 = 8;                 // int32 per occ4 row
+
+struct Occ3Consts {
+  int primary, row_p1, row_p2, t0, t1, tail1, tail2a, tail2b;
+  int pfx_base, pfx_k;
+};
+
+struct Out {
+  long long* n_seeds;                   // [B]
+  long long* tab;                       // [4, B, S]: rpos, len, x0, freq
+  uint8_t* overflow;                    // [B] (torch.bool)
+  int* iters;                           // [B]
+  int* rows;                            // [B]
+  int B, S;
+};
+
+__device__ __forceinline__ int l2(const long long* __restrict__ L2, int c) {
+  return (int)__ldg(L2 + c);
+}
+
+__device__ __forceinline__ int pick4(int a0, int a1, int a2, int a3, int c) {
+  return c == 0 ? a0 : (c == 1 ? a1 : (c == 2 ? a2 : a3));
+}
+
+// The 16 symbol bytes of a row, in 4 words.
+__device__ __forceinline__ uint32_t sym_at(const int4& s, int q) {
+  const uint32_t w = (uint32_t)(q < 4 ? s.x : q < 8 ? s.y : q < 12 ? s.z : s.w);
+  return (w >> ((q & 3) * 8)) & 0xFFu;
+}
+
+// 3-step sums of one occ3 row for trinucleotide d and order key w:
+// occ_d = Occ3(d, i), rev = sum_d' cnt[d'] [rev3(d') < w] + #{q < m:
+// sym_q valid, rev3(sym_q) < w}, rev3(d) = 63 - ((d&3)*16 + (d&12) +
+// (d>>4)) (ops/fm3_device.py occ3_d, rev3_lt_w_sum).
+__device__ __forceinline__ void sums3(const int* __restrict__ rows,
+                                      unsigned i, int d, int w, int& occ_d,
+                                      int& rev) {
+  const int4* R = reinterpret_cast<const int4*>(rows + (size_t)(i >> 4) * ROW3);
+  const int m = (int)(i & 15u);
+  int base = 0, rs = 0;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int4 v = __ldg(R + j);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int dd = 4 * j + q;
+      const int r3 = 63 - ((dd & 3) * 16 + (dd & 12) + (dd >> 4));
+      const int c = q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
+      base += dd == d ? c : 0;
+      rs += r3 < w ? c : 0;
+    }
+  }
+  const int4 s = __ldg(R + 16);
+#pragma unroll
+  for (int q = 0; q < 16; ++q) {
+    const int sym = (int)sym_at(s, q);
+    const bool in = q < m;
+    base += (in && sym == d) ? 1 : 0;
+    const int r3 = 63 - ((sym & 3) * 16 + (sym & 12) + (sym >> 4));
+    rs += (in && sym < 64 && r3 < w) ? 1 : 0;
+  }
+  occ_d = base;
+  rev = rs;
+}
+
+// Derived 1-step counts of all 4 bases at occ3 index i (== bwt_occ4(i-1)):
+// group sums of the 64 counts by last base, the in-row symbols before m,
+// and the corrections for rows p=1, p=2 (ops/fm3_device.py occ1_4).
+__device__ __forceinline__ void occ1_4(const int* __restrict__ rows,
+                                       const Occ3Consts& k, unsigned i,
+                                       int& c0, int& c1, int& c2, int& c3) {
+  const int4* R = reinterpret_cast<const int4*>(rows + (size_t)(i >> 4) * ROW3);
+  const int m = (int)(i & 15u);
+  int g0 = 0, g1 = 0, g2 = 0, g3 = 0;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int4 v = __ldg(R + j);
+    g0 += v.x;
+    g1 += v.y;
+    g2 += v.z;
+    g3 += v.w;
+  }
+  const int4 s = __ldg(R + 16);
+#pragma unroll
+  for (int q = 0; q < 16; ++q) {
+    const int sym = (int)sym_at(s, q);
+    const bool in = q < m && sym < 64;
+    const int c = sym & 3;
+    g0 += (in && c == 0) ? 1 : 0;
+    g1 += (in && c == 1) ? 1 : 0;
+    g2 += (in && c == 2) ? 1 : 0;
+    g3 += (in && c == 3) ? 1 : 0;
+  }
+  const int a1 = (int)i > k.row_p1 ? 1 : 0;
+  const int a2 = (int)i > k.row_p2 ? 1 : 0;
+  c0 = g0 + (k.t0 == 0 ? a1 : 0) + (k.t1 == 0 ? a2 : 0);
+  c1 = g1 + (k.t0 == 1 ? a1 : 0) + (k.t1 == 1 ? a2 : 0);
+  c2 = g2 + (k.t0 == 2 ? a1 : 0) + (k.t1 == 2 ? a2 : 0);
+  c3 = g3 + (k.t0 == 3 ? a1 : 0) + (k.t1 == 3 ? a2 : 0);
+}
+
+// bwt_occ4 over the 1-step rows: counts of each base in BWT rows [0, k];
+// k < 0 gives zeros (ops/fm_device.py occ4).
+__device__ __forceinline__ void occ4(const int* __restrict__ occ, int primary,
+                                     int k, int& c0, int& c1, int& c2,
+                                     int& c3) {
+  if (k < 0) {
+    c0 = c1 = c2 = c3 = 0;
+    return;
+  }
+  const int kadj = k - (k >= primary ? 1 : 0);
+  const int4* R = reinterpret_cast<const int4*>(occ + (size_t)(kadj >> 4) * ROW1);
+  const int4 cnt = __ldg(R);
+  const uint32_t word = (uint32_t)__ldg(R + 1).x;
+  const uint32_t crumb = (uint32_t)(~kadj) & 15u;
+  const uint32_t keep = ~((1u << (2 * crumb)) - 1u) & 0x55555555u;
+  uint32_t nx = ~word;                          // c = 0
+  c0 = cnt.x + __popc(nx & (nx >> 1) & keep);
+  nx = ~(word ^ 0x55555555u);
+  c1 = cnt.y + __popc(nx & (nx >> 1) & keep);
+  nx = ~(word ^ 0xAAAAAAAAu);
+  c2 = cnt.z + __popc(nx & (nx >> 1) & keep);
+  nx = word;                                    // c = 3: ~(word ^ ~0)
+  c3 = cnt.w + __popc(nx & (nx >> 1) & keep);
+}
+
+// The K bases at p as a prefix-table key, first base most significant;
+// bases past the last word read as 0 (fm_search._word_key).
+__device__ __forceinline__ int word_key(const uint32_t* __restrict__ words,
+                                        int nwords, int p, int K) {
+  const int wi = p >> 4;
+  const uint32_t w0 = __ldg(words + wi);
+  const uint32_t w1 = wi + 1 < nwords ? __ldg(words + wi + 1) : 0u;
+  const int sh = (p & 15) * 2;
+  const uint32_t comb = (w0 >> sh) | (sh > 0 ? (w1 << (32 - sh)) : 0u);
+  int key = 0;
+  for (int j = 0; j < K; ++j)
+    key |= (int)((comb >> (2 * j)) & 3u) << (2 * (K - 1 - j));
+  return key;
+}
+
+__device__ __forceinline__ int word_code(const uint32_t* __restrict__ words,
+                                         int p) {
+  return (int)((__ldg(words + (p >> 4)) >> ((p & 15) * 2)) & 3u);
+}
+
+// Seed bookkeeping of a finalize (fm_search._record_seed): x0 and x2 are
+// the state before the step.
+__device__ __forceinline__ void finalize(const Out& o, int r, int start,
+                                         int ext_pos, int x0, int x2,
+                                         int& ns, bool& ovf) {
+  const int slen = ext_pos - start;
+  if (slen >= MIN_SEED_LEN && x2 <= OCC_THR) {
+    const int slot = min(ns, o.S - 1);
+    const size_t plane = (size_t)o.B * o.S;
+    long long* t = o.tab + (size_t)r * o.S + slot;
+    t[0] = start;
+    t[plane] = slen;
+    t[2 * plane] = x0;
+    t[3 * plane] = x2;
+    if (ns >= o.S) ovf = true;
+    ns = min(ns + 1, o.S);
+  }
+}
+
+// Per-read outputs; slots at or past n_seeds are 0.
+__device__ __forceinline__ void store(const Out& o, int r, int ns, bool ovf,
+                                      int it, int g) {
+  o.n_seeds[r] = ns;
+  o.overflow[r] = ovf ? 1 : 0;
+  o.iters[r] = it;
+  o.rows[r] = g;
+  const size_t plane = (size_t)o.B * o.S;
+  long long* t = o.tab + (size_t)r * o.S;
+  for (int s = ns; s < o.S; ++s) {
+    t[s] = 0;
+    t[s + plane] = 0;
+    t[s + 2 * plane] = 0;
+    t[s + 3 * plane] = 0;
+  }
+}
+
+__device__ __forceinline__ void scan3_read(const int* __restrict__ rows,
+                           const int* __restrict__ c3_first,
+                           const long long* __restrict__ L2,
+                           const uint8_t* __restrict__ packed,
+                           const int* __restrict__ rlens, int max_len,
+                           int cap, const Occ3Consts& k, const Out& o, int r) {
+  const int nwords = max_len >> 4;
+  const uint32_t* words =
+      reinterpret_cast<const uint32_t*>(packed + (size_t)r * (max_len >> 2));
+  const int rlen = rlens[r];
+  const int last = max_len - 1;
+  int pos = 0, start = 0, ext_pos = 0, x0 = 0, x1 = 0, x2 = 0, ns = 0;
+  bool in_ext = false, replay = false, ovf = false;
+  int it = 0, g = 0;
+  for (; it < cap; ++it) {
+    if (!in_ext) {
+      if (pos >= rlen - MIN_SEED_LEN) break;         // done
+      const int p = min(pos, last);
+      bool jump = false;
+      if (k.pfx_base > 0) {
+        const int key = word_key(words, nwords, p, k.pfx_k);
+        const int4 e = __ldg(reinterpret_cast<const int4*>(
+                                 rows + (size_t)(k.pfx_base + (key >> 4)) * ROW3) +
+                             (key & 15));
+        if (e.z > 0) {
+          x0 = e.x;
+          x1 = e.y;
+          x2 = e.z;
+          ext_pos = pos + k.pfx_k;
+          jump = true;
+        }
+      }
+      if (!jump) {
+        const int c = word_code(words, p);
+        x0 = l2(L2, c) + 1;
+        x1 = l2(L2, 3 - c) + 1;
+        x2 = l2(L2, c + 1) - l2(L2, c);
+        ext_pos = pos + 1;
+      }
+      start = pos;
+      in_ext = true;
+      replay = false;
+      continue;
+    }
+    if (ext_pos >= rlen) {                             // at the read's end
+      finalize(o, r, start, ext_pos, x0, x2, ns, ovf);
+      pos = ext_pos + 1;
+      in_ext = replay = false;
+      continue;
+    }
+    const int e0 = word_code(words, min(ext_pos, last));
+    const unsigned ik = (unsigned)x1, il = (unsigned)(x1 + x2);
+    if (!replay && ext_pos + 3 <= rlen) {              // 3-step
+      const int e1 = word_code(words, min(ext_pos + 1, last));
+      const int e2 = word_code(words, min(ext_pos + 2, last));
+      const int d = (3 - e2) * 16 + (3 - e1) * 4 + (3 - e0);
+      const int w = e0 * 16 + e1 * 4 + e2;
+      int tk, rk, tl, rl;
+      sums3(rows, ik, d, w, tk, rk);
+      sums3(rows, il, d, w, tl, rl);
+      g += 2;
+      const int n2 = tl - tk;
+      if (n2 <= 0) {                                   // exact end within 3
+        replay = true;
+        continue;
+      }
+      const int lo = x1, hi = x1 + x2;
+      const int cmp1 = k.tail1 <= e0 ? 1 : 0;
+      const int cmp2 = (k.tail2a < e0 || (k.tail2a == e0 && k.tail2b <= e1)) ? 1 : 0;
+      const int adj = (lo <= k.primary && k.primary < hi ? 1 : 0) +
+                      (lo <= k.row_p1 && k.row_p1 < hi ? cmp1 : 0) +
+                      (lo <= k.row_p2 && k.row_p2 < hi ? cmp2 : 0);
+      x0 = x0 + adj + (rl - rk);
+      x1 = __ldg(c3_first + d) + tk;
+      x2 = n2;
+      ext_pos += 3;
+      continue;
+    }
+    // derived 1-step (tail bases, or the replay after a failed 3-step)
+    int k0, k1, k2, k3, l0, l1, l2v, l3;
+    occ1_4(rows, k, ik, k0, k1, k2, k3);
+    occ1_4(rows, k, il, l0, l1, l2v, l3);
+    g += 2;
+    const int ci = 3 - e0;
+    const int o1 = l1 - k1, o2 = l2v - k2, o3 = l3 - k3;
+    const int n2 = pick4(l0 - k0, o1, o2, o3, ci);
+    if (n2 <= 0) {
+      finalize(o, r, start, ext_pos, x0, x2, ns, ovf);
+      pos = ext_pos + 1;
+      in_ext = replay = false;
+      continue;
+    }
+    const int adj = (x1 <= k.primary && x1 + x2 - 1 >= k.primary) ? 1 : 0;
+    x0 = x0 + adj + (ci < 3 ? o3 : 0) + (ci < 2 ? o2 : 0) + (ci < 1 ? o1 : 0);
+    x1 = l2(L2, ci) + 1 + pick4(k0, k1, k2, k3, ci);
+    x2 = n2;
+    ext_pos += 1;
+  }
+  store(o, r, ns, ovf, it, g);
+}
+
+__global__ void __launch_bounds__(THREADS)
+seed_scan3_kernel(const int* __restrict__ rows,
+                  const int* __restrict__ c3_first,
+                  const long long* __restrict__ L2,
+                  const uint8_t* __restrict__ packed,
+                  const int* __restrict__ rlens, int lanes, int max_len,
+                  int cap, Occ3Consts k, Out o, int* __restrict__ next) {
+  const int t = blockIdx.x * THREADS + threadIdx.x;
+  if (t >= lanes) return;
+  const bool queue = lanes < o.B;
+  // lanes mode: each lane takes the next unread read until none is left
+  for (int r = queue ? atomicAdd(next, 1) : t; r < o.B;
+       r = queue ? atomicAdd(next, 1) : o.B)
+    scan3_read(rows, c3_first, L2, packed, rlens, max_len, cap, k, o, r);
+}
+
+__global__ void __launch_bounds__(THREADS)
+seed_scan1_kernel(const int* __restrict__ occ,
+                  const long long* __restrict__ L2,
+                  const uint8_t* __restrict__ codes,
+                  const int* __restrict__ rlens, int has_n, int max_len,
+                  int cap, int primary, Out o) {
+  const int r = blockIdx.x * THREADS + threadIdx.x;
+  if (r >= o.B) return;
+  // has_n: byte codes uint8[B, max_len]; else 2-bit packed [B, max_len/4]
+  const uint8_t* row = codes + (size_t)r * (has_n ? max_len : max_len >> 2);
+  const int rlen = rlens[r];
+  const int last = max_len - 1;
+  int pos = 0, start = 0, ext_pos = 0, x0 = 0, x1 = 0, x2 = 0, ns = 0;
+  bool in_ext = false, ovf = false;
+  int it = 0, g = 0;
+  for (; it < cap; ++it) {
+    if (!in_ext) {
+      if (pos >= rlen - MIN_SEED_LEN) break;         // done
+      const int p = min(pos, last);
+      const int c = has_n ? (int)__ldg(row + p)
+                          : (int)((__ldg(row + (p >> 2)) >> ((p & 3) * 2)) & 3);
+      if (c > 3) {                                     // N: skip as a start
+        pos += 1;
+        continue;
+      }
+      x0 = l2(L2, c) + 1;
+      x1 = l2(L2, 3 - c) + 1;
+      x2 = l2(L2, c + 1) - l2(L2, c);
+      start = pos;
+      ext_pos = pos + 1;
+      in_ext = true;
+      continue;
+    }
+    const int p = min(ext_pos, last);
+    const int ce = has_n ? (int)__ldg(row + p)
+                         : (int)((__ldg(row + (p >> 2)) >> ((p & 3) * 2)) & 3);
+    if (ext_pos < rlen && ce <= 3) {
+      int k0, k1, k2, k3, l0, l1, l2v, l3;
+      occ4(occ, primary, x1 - 1, k0, k1, k2, k3);
+      occ4(occ, primary, x1 - 1 + x2, l0, l1, l2v, l3);
+      g += 2;
+      const int ci = 3 - ce;
+      const int o1 = l1 - k1, o2 = l2v - k2, o3 = l3 - k3;
+      const int n2 = pick4(l0 - k0, o1, o2, o3, ci);
+      if (n2 != 0) {
+        const int adj = (x1 <= primary && x1 + x2 - 1 >= primary) ? 1 : 0;
+        x0 = x0 + adj + (ci < 3 ? o3 : 0) + (ci < 2 ? o2 : 0) + (ci < 1 ? o1 : 0);
+        x1 = l2(L2, ci) + 1 + pick4(k0, k1, k2, k3, ci);
+        x2 = n2;
+        ext_pos += 1;
+        continue;
+      }
+    }
+    finalize(o, r, start, ext_pos, x0, x2, ns, ovf);
+    pos = ext_pos + 1;
+    in_ext = false;
+  }
+  store(o, r, ns, ovf, it, g);
+}
+
+bool shape_ok(int B, int max_len, int S, int cap) {
+  return B > 0 && max_len >= 16 && max_len % 16 == 0 && S >= 1 && cap >= 0;
+}
+
+}  // namespace
+
+// occ3 scan. rows int32[nrows, 72] (16-byte aligned), c3_first int32[64],
+// L2 int64[5], packed uint8[B, max_len/4] (4-byte aligned rows), rlens
+// int32[B]; lanes in [1, B) streams the reads through `lanes` threads
+// from the zeroed int32 counter `next`, else one thread per read.
+// Outputs: n_seeds int64[B], tab int64[4, B, S] (rpos, len, x0, freq),
+// overflow uint8[B], iters and rows int32[B]. pfx_base 0 turns the fused
+// prefix skip off. Launches on `stream`; returns cudaGetLastError().
+extern "C" int mc_seed_scan3(const void* rows, const void* c3_first,
+                             const void* L2, const void* packed,
+                             const void* rlens, int B, int lanes, int max_len,
+                             int S, int cap, int primary, int row_p1,
+                             int row_p2, int t0, int t1, int tail1,
+                             int tail2a, int tail2b, int pfx_base, int pfx_k,
+                             void* next, void* n_seeds, void* tab,
+                             void* overflow, void* iters, void* rows_out,
+                             void* stream) {
+  if (!shape_ok(B, max_len, S, cap) || pfx_k < 0 || pfx_k > 15 ||
+      (pfx_base > 0 && pfx_k < 2))
+    return (int)cudaErrorInvalidValue;
+  const Occ3Consts k{primary, row_p1, row_p2, t0, t1, tail1, tail2a, tail2b,
+                     pfx_base, pfx_k};
+  const Out o{(long long*)n_seeds, (long long*)tab, (uint8_t*)overflow,
+              (int*)iters, (int*)rows_out, B, S};
+  const int threads = lanes > 0 && lanes < B ? lanes : B;
+  const int blocks = (threads + THREADS - 1) / THREADS;
+  seed_scan3_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+      (const int*)rows, (const int*)c3_first, (const long long*)L2,
+      (const uint8_t*)packed, (const int*)rlens, threads, max_len, cap, k, o,
+      (int*)next);
+  return (int)cudaGetLastError();
+}
+
+// 1-step scan. occ int32[nw+1, 8] (16-byte aligned), L2 int64[5]; codes
+// uint8[B, max_len] byte codes with N = 4 when has_n, else uint8[B,
+// max_len/4] 2-bit packed; rlens int32[B]. Outputs as mc_seed_scan3.
+extern "C" int mc_seed_scan1(const void* occ, const void* L2,
+                             const void* codes, const void* rlens, int B,
+                             int has_n, int max_len, int S, int cap,
+                             int primary, void* n_seeds, void* tab,
+                             void* overflow, void* iters, void* rows_out,
+                             void* stream) {
+  if (!shape_ok(B, max_len, S, cap)) return (int)cudaErrorInvalidValue;
+  const Out o{(long long*)n_seeds, (long long*)tab, (uint8_t*)overflow,
+              (int*)iters, (int*)rows_out, B, S};
+  seed_scan1_kernel<<<(B + THREADS - 1) / THREADS, THREADS, 0,
+                      (cudaStream_t)stream>>>(
+      (const int*)occ, (const long long*)L2, (const uint8_t*)codes,
+      (const int*)rlens, has_n, max_len, cap, primary, o);
+  return (int)cudaGetLastError();
+}

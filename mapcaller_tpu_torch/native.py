@@ -81,6 +81,7 @@ def load_lib():
         lib.mc_reset_run.argtypes = [C.c_void_p]
         lib.mc_nw.argtypes = [C.c_char_p, C.c_char_p, C.c_char_p, C.c_char_p]
         lib.mc_ksw2.argtypes = [C.c_char_p, C.c_char_p, C.c_char_p, C.c_char_p]
+        lib.mc_prof_fetch.argtypes = [C.c_void_p]
         _lib = lib
     return _lib
 
@@ -101,6 +102,21 @@ def ksw2_align_native(s1: str, s2: str) -> Tuple[str, str]:
     o2 = C.create_string_buffer(n)
     lib.mc_ksw2(s1.encode(), s2.encode(), o1, o2)
     return o1.value.decode(), o2.value.decode()
+
+
+PROF_STAGES = ("build_read", "pair", "align", "profile", "sam", "span",
+               "spare", "reads")
+
+
+def prof_fetch() -> dict:
+    """The host leg's stage counters since the last fetch, then zeroes
+    them (mc_prof_fetch): nanoseconds of building reads (the two-phase
+    leg's DP pair collection included), pairing, alignment, evidence,
+    SAM and the whole span loop, and the reads built. Counters are
+    process-wide, shared by every engine."""
+    out = np.zeros(8, dtype=np.int64)
+    load_lib().mc_prof_fetch(out.ctypes.data_as(C.c_void_p))
+    return dict(zip(PROF_STAGES, out.tolist()))
 
 
 def _ptr(a: np.ndarray):
@@ -273,8 +289,7 @@ class NativeEngine:
     def process_batch_cls_devdp(self, slot: int, pair_end: bool,
                                 fastq: bool, cls, pd, mm, rplast, cscore,
                                 seed_counts, seed_rpos, seed_gpos, seed_len,
-                                stats_io, use_nw: bool, dp_max: int = 160,
-                                dp_min_pairs: float = 0):
+                                stats_io, use_nw: bool, dp_max: int = 160):
         """Two-phase classified batch with the gapped-extension DP batch
         running on `self.device` (the CUDA NW kernel of ops/nw_device.py
         for -alg nw, the CUDA ksw2 kernel of ops/ksw2_device.py for -alg
@@ -291,11 +306,6 @@ class NativeEngine:
             _ptr(np.ascontiguousarray(seed_rpos, dtype=np.int32)),
             _ptr(np.ascontiguousarray(seed_gpos, dtype=np.int64)),
             _ptr(np.ascontiguousarray(seed_len, dtype=np.int32)))
-        if n_dp > 0 and n_dp < dp_min_pairs:
-            # auto-policy: too few pairs for the device call to pay —
-            # leave dp_cache empty, mc_finish_batch_cls computes these
-            # pairs with the scalar aligner
-            n_dp = 0
         if n_dp > 0:
             qlens = np.zeros(n_dp, dtype=np.int32)
             tlens = np.zeros(n_dp, dtype=np.int32)

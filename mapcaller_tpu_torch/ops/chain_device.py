@@ -116,14 +116,13 @@ def classify_reads(ctx: ChainCtx, read_words: torch.Tensor,
     nkept = torch.zeros(B, dtype=i64, device=dev).index_add_(0, hit_read,
                                                              keep_i)
     ok_slot = keep & (within >= 0) & (within < K_HITS)
+    # other hits write the dump row B: no host sync for a count
     flat = (torch.where(ok_slot, hit_read, B) * K_HITS
             + torch.where(ok_slot, within, 0))
-    sel = ok_slot.nonzero()[:, 0]
-    fsel = flat[sel]
 
     def slots(fill, val):
         out = torch.full(((B + 1) * K_HITS,), fill, dtype=i64, device=dev)
-        out[fsel] = val[sel]
+        out.index_copy_(0, flat, val)
         return out.reshape(B + 1, K_HITS)[:B]
 
     s_pd = slots(INT32_MAX, hit_loc - hit_rpos)

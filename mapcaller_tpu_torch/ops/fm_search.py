@@ -27,8 +27,11 @@ __call__ runs on the tables' device and whose collect decodes on the host:
                     (device_chain=False)
   SeedKernel        byte codes in, every hit out (the non-native path)
 
-The loops are Python loops of fixed-size blocks with one host sync per
-block for the early exit.
+These scans are the plain PyTorch versions: Python loops of fixed-size
+blocks with one host sync per block for the early exit. The kernels
+call them through ops/seed_scan_device.py, which runs them for CPU
+tensors and launches the CUDA scan kernels (csrc/seed_scan.cu) for CUDA
+ones, so on the card the chain kernel's call never waits for the device.
 """
 from __future__ import annotations
 
@@ -42,6 +45,7 @@ from .chain_device import CLASS_FAST, CLASS_SLOW, ChainCtx, classify_reads
 from .evidence import first_mate_lanes, scatter_fast_evidence
 from .fm3_device import DeviceFM3, gather3, step1_update, step3_update
 from .fm_device import M32, DeviceFMIndex, occ4, sa_resolve, to_i32
+from .seed_scan_device import seed_scan1, seed_scan3
 
 OCC_THR = 50
 MIN_SEED_LEN = 16
@@ -193,7 +197,7 @@ def _step3(fm3: DeviceFM3, s: dict, rlens, codes_fn, key_fn, max_len: int,
 
 
 def _seed_scan3(fm3: DeviceFM3, codes_fn, rlens, B: int, max_len: int,
-                max_seeds: int, key_fn=None):
+                max_seeds: int, key_fn=None, with_iters: bool = False):
     """Greedy-MEM state machine on the 3-step occ table: extensions
     advance 3 bases per iteration (2 gathers) while >= 3 bases remain; on
     a 3-step failure the lane replays from the saved state with derived
@@ -208,23 +212,40 @@ def _seed_scan3(fm3: DeviceFM3, codes_fn, rlens, B: int, max_len: int,
     seed set does not depend on pfx_k.
 
     Returns (n_seeds, s_rpos, s_len, s_x0, s_freq, overflow):
-    int64[B], int64[B, max_seeds] x4, bool[B]."""
+    int64[B], int64[B, max_seeds] x4, bool[B]; with_iters also each
+    lane's step count int64[B] (the reference's with_iters) and the occ3
+    rows it gathered, two a step that extends or tries to (int64[B])."""
     dev = rlens.device
     rlens = rlens.to(torch.int64)
     slot_ids = torch.arange(max_seeds, dtype=torch.int64, device=dev)[None, :]
     if not fm3.pfx_base:
         key_fn = None
     st = _scan_state(B, max_seeds, dev)
-    # worst case ~1.5 iterations/base (len-1 MEMs: init + 3-fail +
-    # 1-replay-fail per 2-base advance) + 2/seed finalize
-    n_iters = (3 * max_len) // 2 + 2 * max_seeds + 8
-    for _ in range(-(-n_iters // UNROLL)):
+    iters = torch.zeros((2, B), dtype=torch.int64, device=dev)
+    for _ in range(scan3_cap(max_len, max_seeds) // UNROLL):
         # one host sync per block: stop once every lane is done
         if not bool((st["in_ext"] | (st["pos"] < rlens - MIN_SEED_LEN)).any()):
             break
         for _ in range(UNROLL):
+            if with_iters:
+                iters[0] += st["in_ext"] | (st["pos"] < rlens - MIN_SEED_LEN)
+                iters[1] += 2 * (st["in_ext"] & (st["ext_pos"] < rlens))
             st = _step3(fm3, st, rlens, codes_fn, key_fn, max_len, slot_ids)
-    return tuple(st[k] for k in _SEED_KEYS)
+    return tuple(st[k] for k in _SEED_KEYS) + (tuple(iters) if with_iters
+                                               else ())
+
+
+def scan3_cap(max_len: int, max_seeds: int) -> int:
+    """Steps the occ3 scan runs at most: whole UNROLL blocks covering the
+    worst case of ~1.5 iterations a base (len-1 MEMs: init + 3-fail +
+    1-replay-fail per 2-base advance) + 2 a seed to finalize."""
+    n_iters = (3 * max_len) // 2 + 2 * max_seeds + 8
+    return -(-n_iters // UNROLL) * UNROLL
+
+
+def scan1_cap(max_len: int, max_seeds: int) -> int:
+    """Steps the 1-step scan runs at most, in whole UNROLL16 blocks."""
+    return -(-(max_len + 2 * max_seeds + 2) // UNROLL16) * UNROLL16
 
 
 def _seed_scan3_compact(fm3: DeviceFM3, words_all, rlens_all, B_total: int,
@@ -311,14 +332,15 @@ def _seed_scan3_compact(fm3: DeviceFM3, words_all, rlens_all, B_total: int,
 
 
 def _seed_scan(fm: DeviceFMIndex, codes_fn, rlens, B: int, max_len: int,
-               max_seeds: int, has_n: bool):
+               max_seeds: int, has_n: bool, with_iters: bool = False):
     """Greedy-MEM state machine on the 1-step occ4 rows: one base per
     extension iteration (two occ4 lookups). codes_fn maps positions
     int64[B] to codes; with has_n a code above 3 (N) ends an extension
     and is skipped as a start, without it the input is 2-bit. Returns
     _seed_scan3's outputs; a lane never needs more than max_len +
     2 * max_seeds + 2 iterations, and a finished lane stays unchanged, so
-    the early exit gives the reference's fixed trip count's result."""
+    the early exit gives the reference's fixed trip count's result.
+    with_iters: as _seed_scan3 (the rows are occ4 rows)."""
     dev = rlens.device
     i64 = torch.int64
     L2 = fm.L2
@@ -378,13 +400,21 @@ def _seed_scan(fm: DeviceFMIndex, codes_fn, rlens, B: int, max_len: int,
             **_record_seed(s, finalize, slen, slot_ids))
 
     st = _scan_state(B, max_seeds, dev)
-    n_iters = max_len + 2 * max_seeds + 2
-    for _ in range(-(-n_iters // UNROLL16)):
+    iters = torch.zeros((2, B), dtype=i64, device=dev)
+    for _ in range(scan1_cap(max_len, max_seeds) // UNROLL16):
         if not bool((st["in_ext"] | (st["pos"] < stop_pos)).any()):
             break
         for _ in range(UNROLL16):
+            if with_iters:
+                iters[0] += st["in_ext"] | (st["pos"] < stop_pos)
+                ext = st["in_ext"] & (st["ext_pos"] < rlens)
+                if has_n:
+                    ext &= codes_fn(torch.clamp(st["ext_pos"],
+                                                max=max_len - 1)) <= 3
+                iters[1] += 2 * ext
             st = step(st)
-    return tuple(st[k] for k in _SEED_KEYS)
+    return tuple(st[k] for k in _SEED_KEYS) + (tuple(iters) if with_iters
+                                               else ())
 
 
 def _read_words_le(packed: torch.Tensor) -> torch.Tensor:
@@ -466,25 +496,14 @@ class _SeedKernelBase:
                               and 0 < compact_lanes < batch else 0)
 
     def _scan_packed(self, packed: torch.Tensor, rlens: torch.Tensor):
-        """Seed tables of a batch of 2-bit reads (uint8[B, max_len/4])."""
-        words = _read_words_le(packed)
-        B, max_len, S = self.batch, self.max_len, self.max_seeds
-        if self.compact_lanes:
-            return _seed_scan3_compact(self.fm, words, rlens, B,
-                                       self.compact_lanes, max_len, S)
-
-        def codes_fn(pos):
-            return _word_codes(words, pos)
-
-        if not self.use_occ3:
-            return _seed_scan(self.fm, codes_fn, rlens, B, max_len, S,
-                              has_n=False)
-
-        def key_fn(pos):
-            return _word_key(words, pos, self.fm.pfx_k)
-
-        return _seed_scan3(self.fm, codes_fn, rlens, B, max_len, S,
-                           key_fn=key_fn if self.fm.pfx_k else None)
+        """Seed tables of a batch of 2-bit reads (uint8[B, max_len/4],
+        rlens int32[B]): one scan kernel launch on the card, the plain
+        scan on the CPU (ops/seed_scan_device.py)."""
+        if self.use_occ3:
+            return seed_scan3(self.fm, packed, rlens, self.max_len,
+                              self.max_seeds, lanes=self.compact_lanes)
+        return seed_scan1(self.fm, packed, rlens, self.max_len,
+                          self.max_seeds, has_n=False)
 
     def _hits(self, n_seeds, s_rpos, s_len, s_x0, s_freq):
         """Expand each seed by its frequency into a flat hit buffer
@@ -599,11 +618,12 @@ class SeedChainKernel(_SeedKernelBase):
         meta1 = cls | (mm << 2) | (rplast << 8) | (cscore << 17)
         keep_slow = keep & (cls[torch.clamp(hit_read, 0, B - 1)] == CLASS_SLOW)
         dest = torch.cumsum(keep_slow.to(i64), 0) - 1
-        sel = (keep_slow & (dest < H2)).nonzero()[:, 0]
-        hit_w_c = torch.zeros(H2, dtype=i64, device=dev)
-        hit_w_c[dest[sel]] = ((hit_rpos << 9) | hit_len)[sel]
-        hit_loc_c = torch.zeros(H2, dtype=i64, device=dev)
-        hit_loc_c[dest[sel]] = hit_loc[sel]
+        # dropped hits write the dump slot H2: no host sync for a count
+        slot = torch.where(keep_slow & (dest < H2), dest, H2)
+        hit_w_c = torch.zeros(H2 + 1, dtype=i64, device=dev).index_copy_(
+            0, slot, (hit_rpos << 9) | hit_len)[:H2]
+        hit_loc_c = torch.zeros(H2 + 1, dtype=i64, device=dev).index_copy_(
+            0, slot, hit_loc)[:H2]
         counts = torch.zeros(B, dtype=i64, device=dev).index_add_(
             0, hit_read, keep_slow.to(i64))
         total_kept = keep_slow.sum()
@@ -727,16 +747,10 @@ class SeedKernel(_SeedKernelBase):
         super().__init__(fm, max_len, batch, batch * hits_per_read)
 
     def __call__(self, codes: torch.Tensor, rlens: torch.Tensor):
-        B = self.batch
         i64 = torch.int64
-        bidx = torch.arange(B, dtype=i64, device=codes.device)
-
-        def codes_fn(pos):
-            return codes[bidx, pos].to(i64)
-
         with record_function("seed_scan"):
-            (n_seeds, s_rpos, s_len, s_x0, s_freq, overflow) = _seed_scan(
-                self.fm, codes_fn, rlens, B, self.max_len, self.max_seeds,
+            (n_seeds, s_rpos, s_len, s_x0, s_freq, overflow) = seed_scan1(
+                self.fm, codes, rlens, self.max_len, self.max_seeds,
                 has_n=True)
         with record_function("hits_sa_resolve"):
             (hit_read, hit_rpos, hit_len, hit_loc, hit_valid,

@@ -1,0 +1,222 @@
+"""The greedy-MEM seed scans on the card: the CUDA kernels
+`csrc/seed_scan.cu` and their plain PyTorch versions.
+
+Device form of the seeding hot loop (ref: src/bwt_search.cpp:121-164,
+BWT_Search). Two entry points on tensors:
+
+  seed_scan3  the occ3 scan (ops/fm3_device.DeviceFM3) with the fused
+              prefix skip, one thread per read, or with 0 < lanes < B
+              `lanes` threads that take reads from a queue (the compacted
+              scan's contract);
+  seed_scan1  the 1-step scan over the occ4 rows (ops/fm_device.
+              DeviceFMIndex), on 2-bit packed codes or, with has_n, on
+              byte codes whose N ends an extension.
+
+Each returns the plain scans' tuple (n_seeds, s_rpos, s_len, s_x0,
+s_freq, overflow), int64 and bool as they are, and with_iters also each
+read's step count and the index rows it gathered. On a CUDA tensor a
+call is one launch on the current stream, with no host sync, or it
+raises; on a CPU tensor it runs the plain version (seed_scan3_plain / seed_scan1_plain: `fm_search._seed_scan3`,
+`_seed_scan3_compact` or `_seed_scan`). There is no fallback between the
+two.
+"""
+from __future__ import annotations
+
+import collections
+import ctypes as C
+
+import torch
+
+
+class KernelStats:
+    """Launch accounting for the scan kernels: `launches[name]` counts
+    launches (one per call on a CUDA tensor). The plain versions count
+    nothing."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self) -> None:
+        self.launches = collections.Counter()
+
+
+STATS = KernelStats()
+_lib = None
+
+
+def _load_kernel():
+    global _lib
+    if _lib is None:
+        from ..toolchain import ensure_cuda
+        lib = C.CDLL(ensure_cuda("seed_scan"))
+        lib.mc_seed_scan3.restype = C.c_int
+        lib.mc_seed_scan3.argtypes = ([C.c_void_p] * 5 + [C.c_int] * 15
+                                      + [C.c_void_p] * 7)
+        lib.mc_seed_scan1.restype = C.c_int
+        lib.mc_seed_scan1.argtypes = ([C.c_void_p] * 4 + [C.c_int] * 6
+                                      + [C.c_void_p] * 6)
+        _lib = lib
+    return _lib
+
+
+def _need(cond: bool, msg: str, exc=ValueError) -> None:
+    if not cond:
+        raise exc(msg)
+
+
+def _check(name, table, row_width, codes, width, rlens, max_len, max_seeds):
+    """Device, dtype, shape, contiguity and alignment of a scan's inputs."""
+    _need(max_len >= 16 and max_len % 16 == 0,
+          f"{name}: max_len {max_len} must be a multiple of 16")
+    _need(max_seeds >= 1, f"{name}: max_seeds must be >= 1")
+    _need(table.dtype == torch.int32 and codes.dtype == torch.uint8
+          and rlens.dtype == torch.int32,
+          f"{name}: rows int32, codes uint8 and rlens int32 expected",
+          TypeError)
+    _need(table.dim() == 2 and table.shape[1] == row_width,
+          f"{name}: table rows must be int32[n, {row_width}]")
+    _need(codes.dim() == 2 and codes.shape[1] == width and rlens.dim() == 1
+          and rlens.shape[0] == codes.shape[0],
+          f"{name}: codes must be uint8[B, {width}] and rlens int32[B]")
+    devs = {table.device, codes.device, rlens.device}
+    _need(len(devs) == 1, f"{name}: tensors on several devices {devs}")
+    _need(all(t.is_contiguous() for t in (table, codes, rlens)),
+          f"{name}: inputs must be contiguous")
+    # the kernel loads rows as 16-byte vectors and reads as 32-bit words
+    _need(table.data_ptr() % 16 == 0 and codes.data_ptr() % 4 == 0,
+          f"{name}: rows must be 16-byte and codes 4-byte aligned")
+
+
+def _outputs(B: int, S: int, dev):
+    """Kernel outputs; every element is written by the kernel."""
+    n_seeds = torch.empty(B, dtype=torch.int64, device=dev)
+    tab = torch.empty((4, B, S), dtype=torch.int64, device=dev)
+    overflow = torch.empty(B, dtype=torch.bool, device=dev)
+    counts = torch.empty((2, B), dtype=torch.int32, device=dev)
+    return n_seeds, tab, overflow, counts
+
+
+def _result(n_seeds, tab, overflow, counts, with_iters):
+    """counts: each read's steps and row gathers."""
+    out = (n_seeds, tab[0], tab[1], tab[2], tab[3], overflow)
+    return out + tuple(counts.to(torch.int64)) if with_iters else out
+
+
+def seed_scan3_plain(fm3, packed, rlens, max_len: int, max_seeds: int,
+                     lanes: int = 0, with_iters: bool = False):
+    """Plain PyTorch version of seed_scan3 on any device: the lockstep
+    scan, or with 0 < lanes < B the compacted one (which counts no steps,
+    so with_iters refuses it)."""
+    from . import fm_search as fs
+    B = packed.shape[0]
+    words = fs._read_words_le(packed)
+    if 0 < lanes < B:
+        _need(not with_iters, "seed_scan3: the compacted plain scan counts "
+                              "no steps")
+        return fs._seed_scan3_compact(fm3, words, rlens, B, lanes, max_len,
+                                      max_seeds)
+    return fs._seed_scan3(
+        fm3, lambda p: fs._word_codes(words, p), rlens, B, max_len,
+        max_seeds, key_fn=(lambda p: fs._word_key(words, p, fm3.pfx_k))
+        if fm3.pfx_k else None, with_iters=with_iters)
+
+
+def seed_scan1_plain(fm, codes, rlens, max_len: int, max_seeds: int,
+                     has_n: bool, with_iters: bool = False):
+    """Plain PyTorch version of seed_scan1 on any device."""
+    from . import fm_search as fs
+    if has_n:
+        bidx = torch.arange(codes.shape[0], dtype=torch.int64,
+                            device=codes.device)
+
+        def codes_fn(pos):
+            return codes[bidx, pos].to(torch.int64)
+    else:
+        words = fs._read_words_le(codes)
+
+        def codes_fn(pos):
+            return fs._word_codes(words, pos)
+    return fs._seed_scan(fm, codes_fn, rlens, codes.shape[0], max_len,
+                         max_seeds, has_n, with_iters=with_iters)
+
+
+def seed_scan3(fm3, packed: torch.Tensor, rlens: torch.Tensor, max_len: int,
+               max_seeds: int, lanes: int = 0, with_iters: bool = False):
+    """The occ3 scan of a batch of 2-bit reads: packed uint8[B, max_len/4]
+    (base q of a byte at bits 2q), rlens int32[B]. lanes in (0, B):
+    `lanes` threads stream through the reads. Returns the plain scans'
+    tuple, plus each read's steps and row gathers with_iters. A CPU
+    tensor runs seed_scan3_plain."""
+    from .fm_search import scan3_cap
+    B = packed.shape[0]
+    _check("seed_scan3", fm3.occ3_rows, 72, packed, max_len // 4, rlens,
+           max_len, max_seeds)
+    compact = 0 < lanes < B
+    if packed.device.type == "cpu":
+        return seed_scan3_plain(fm3, packed, rlens, max_len, max_seeds,
+                                lanes, with_iters)
+    _need(packed.device.type == "cuda",
+          f"seed_scan3: unsupported device {packed.device}")
+    fm = fm3.fm
+    _need(fm3.c3_first.dtype == torch.int32 and fm.L2.dtype == torch.int64
+          and fm3.c3_first.device == packed.device
+          and fm.L2.device == packed.device,
+          "seed_scan3: c3_first int32 and L2 int64 on the batch's device")
+    dev = packed.device
+    n_seeds, tab, overflow, counts = _outputs(B, max_seeds, dev)
+    if B == 0:
+        return _result(n_seeds, tab, overflow, counts, with_iters)
+    nxt = torch.zeros(1, dtype=torch.int32, device=dev)
+    lib = _load_kernel()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.mc_seed_scan3(
+        fm3.occ3_rows.data_ptr(), fm3.c3_first.data_ptr(), fm.L2.data_ptr(),
+        packed.data_ptr(), rlens.data_ptr(), B, lanes if compact else 0,
+        max_len, max_seeds, scan3_cap(max_len, max_seeds),
+        int(fm.primary), int(fm3.row_p1), int(fm3.row_p2), int(fm3.t0),
+        int(fm3.t1), int(fm3.tail1), int(fm3.tail2a), int(fm3.tail2b),
+        int(fm3.pfx_base), int(fm3.pfx_k), nxt.data_ptr(),
+        n_seeds.data_ptr(), tab.data_ptr(), overflow.data_ptr(),
+        counts[0].data_ptr(), counts[1].data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"seed_scan3: CUDA kernel launch failed (error "
+                           f"{err})")
+    STATS.launches["seed_scan3"] += 1
+    return _result(n_seeds, tab, overflow, counts, with_iters)
+
+
+def seed_scan1(fm, codes: torch.Tensor, rlens: torch.Tensor, max_len: int,
+               max_seeds: int, has_n: bool, with_iters: bool = False):
+    """The 1-step scan: with has_n byte codes uint8[B, max_len] (N = 4
+    ends an extension and is skipped as a start), else 2-bit packed
+    uint8[B, max_len/4]; rlens int32[B]. Returns the plain scans' tuple,
+    plus each read's steps and row gathers with_iters. A CPU tensor runs
+    seed_scan1_plain."""
+    from .fm_search import scan1_cap
+    B = codes.shape[0]
+    _check("seed_scan1", fm.occ_rows, 8, codes,
+           max_len if has_n else max_len // 4, rlens, max_len, max_seeds)
+    if codes.device.type == "cpu":
+        return seed_scan1_plain(fm, codes, rlens, max_len, max_seeds, has_n,
+                                with_iters)
+    _need(codes.device.type == "cuda",
+          f"seed_scan1: unsupported device {codes.device}")
+    _need(fm.L2.dtype == torch.int64 and fm.L2.device == codes.device,
+          "seed_scan1: L2 int64 on the batch's device")
+    dev = codes.device
+    n_seeds, tab, overflow, counts = _outputs(B, max_seeds, dev)
+    if B == 0:
+        return _result(n_seeds, tab, overflow, counts, with_iters)
+    lib = _load_kernel()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.mc_seed_scan1(
+        fm.occ_rows.data_ptr(), fm.L2.data_ptr(), codes.data_ptr(),
+        rlens.data_ptr(), B, int(has_n), max_len, max_seeds,
+        scan1_cap(max_len, max_seeds), int(fm.primary),
+        n_seeds.data_ptr(), tab.data_ptr(), overflow.data_ptr(),
+        counts[0].data_ptr(), counts[1].data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"seed_scan1: CUDA kernel launch failed (error "
+                           f"{err})")
+    STATS.launches["seed_scan1"] += 1
+    return _result(n_seeds, tab, overflow, counts, with_iters)

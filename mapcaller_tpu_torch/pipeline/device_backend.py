@@ -52,6 +52,10 @@ class ChainToken:
     spec: Optional[tuple] = None
     # the classes of the first collected dispatch, host copy
     cls0: Optional[np.ndarray] = None
+    # `dev` on its way to the host (pinned) and the event that marks its
+    # arrival; on the CPU `dev` itself and None
+    host: Optional[torch.Tensor] = None
+    ready: Optional[object] = None
 
 
 class DeviceBackend:
@@ -98,6 +102,10 @@ class DeviceBackend:
         # evidence planes on the card when they fit beside the seeding
         # tables; else the C++ host diff arrays (runner logs the choice)
         self.device_evidence_ok = self._device_evidence_fits(idx)
+        # the prefix-skip depth from the same free memory, before the
+        # stream places the evidence planes: _prefix_skip_k charges them
+        # itself, so a reading taken after them would count them twice
+        self.pfx_k = self._prefix_skip_k()
 
     def _mem_bytes(self) -> Optional[int]:
         """Free device memory from the CUDA runtime; None on the CPU,
@@ -165,9 +173,8 @@ class DeviceBackend:
     def fm3(self) -> DeviceFM3:
         if self._fm3 is None:
             tw = self.chain_ctx.text_words if self.chain_enabled else None
-            self._fm3 = DeviceFM3.from_host(
-                self.idx, self.fm, pfx_k=self._prefix_skip_k(),
-                text_words=tw)
+            self._fm3 = DeviceFM3.from_host(self.idx, self.fm,
+                                            pfx_k=self.pfx_k, text_words=tw)
         return self._fm3
 
     @property
@@ -192,10 +199,15 @@ class DeviceBackend:
 
     def dp_device_min_pairs(self) -> float:
         """Policy for cfg.device_extension == "auto": the least DP batch
-        that goes to the device. On the card every DP batch goes to its
-        CUDA kernel, NW or ksw2 by -alg (0); on the CPU the plain
-        PyTorch DP would only repeat the scalar aligner's work (inf)."""
-        return 0.0 if self.device.type == "cuda" else float("inf")
+        that goes to the device; inf keeps the scalar C++ aligners. On
+        the CPU the plain PyTorch DP would only repeat their work. On the
+        card a device DP batch needs the two-phase host leg, which costs
+        more a batch than the kernel saves on the main path's batches
+        (chip_smoke.py on an H100; PERF.md), and the pair count is known
+        only once that leg has begun; so auto keeps the scalar aligners
+        there too, and device_extension=True sends every DP batch to its
+        CUDA kernel."""
+        return float("inf")
 
     def release_index_tables(self) -> None:
         """Drop the device-resident seeding tables (occ3 rows incl.
@@ -219,6 +231,29 @@ class DeviceBackend:
                 compact_lanes=lanes)
         return self._kernels[key]
 
+    def _upload(self, a: np.ndarray) -> torch.Tensor:
+        """A host array on the device. On the card through a pinned
+        staging copy, so the copy queues on the stream behind the batches
+        in flight instead of waiting for them."""
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device)
+
+    def _download(self, dev: torch.Tensor):
+        """Start the copy of a dispatch's packed output vector to the host.
+        On the card into pinned memory, queued behind the dispatch, with
+        an event: collecting this batch then waits for its own work only,
+        not for the batches submitted after it. -> (host tensor, event or
+        None)."""
+        if self.device.type != "cuda":
+            return dev, None
+        host = torch.empty(dev.shape, dtype=dev.dtype, pin_memory=True)
+        host.copy_(dev, non_blocking=True)
+        ready = torch.cuda.Event()
+        ready.record()
+        return host, ready
+
     def submit_chain(self, packed: np.ndarray, rlens: np.ndarray,
                      bucket: int, tier: int = 2, evidence=None,
                      pair_end: bool = False) -> ChainToken:
@@ -228,29 +263,35 @@ class DeviceBackend:
 
         evidence (a DeviceEvidence) folds the speculative fast-read
         evidence apply into this dispatch; the caller must later run
-        evidence.reconcile_batch(token, fast_bits, pair_end)."""
-        packed_dev = torch.from_numpy(np.ascontiguousarray(packed)).to(
-            self.device)
-        rl_dev = torch.from_numpy(np.maximum(rlens, 0).astype(np.int32)).to(
-            self.device)
+        evidence.reconcile_batch(token, fast_bits, pair_end).
+
+        Returns without waiting for the card: the scan is one kernel
+        launch, nothing in the dispatch reads a device value back, and
+        the output's copy to the host is queued behind it, so the stream's
+        host leg of the batch before overlaps this batch's device work."""
+        packed_dev = self._upload(packed)
+        rl_dev = self._upload(np.maximum(rlens, 0).astype(np.int32))
         kernel = self._chain_kernel_for(bucket, tier, batch=packed.shape[0])
+        planes = evidence.planes if evidence is not None else None
+        dev, pd, mmp = kernel(packed_dev, rl_dev, planes=planes,
+                              pair_end=pair_end)
+        host, ready = self._download(dev)
+        spec = None
         if evidence is not None:
-            dev, pd, mmp = kernel(packed_dev, rl_dev, planes=evidence.planes,
-                                  pair_end=pair_end)
             EVIDENCE_STATS.folded += 1
-            return ChainToken(kernel, dev, rlens < 0, packed_dev, rl_dev,
-                              bucket, rlens, pd, mmp, spec=(dev, pd, mmp))
-        dev, pd, mmp = kernel(packed_dev, rl_dev)
+            spec = (dev, pd, mmp)
         return ChainToken(kernel, dev, rlens < 0, packed_dev, rl_dev, bucket,
-                          rlens, pd, mmp)
+                          rlens, pd, mmp, spec=spec, host=host, ready=ready)
 
     def collect_chain(self, token: ChainToken, n: int, read_codes_fn):
         """-> (cls, pd, mm, rplast, cscore, counts, rpos, gpos, slen).
         Overflow / too-long reads are re-seeded with the host oracle and
         forced to the SLOW class; hit-buffer overflow reruns at the
         larger tier 18."""
+        if token.ready is not None:
+            token.ready.synchronize()
         (cls, pd, mm, rplast, cscore, counts, rpos, gpos, slen,
-         overflow, buf_ovf) = token.kernel.collect(token.dev)
+         overflow, buf_ovf) = token.kernel.collect(token.host)
         token.cls0 = cls
         if buf_ovf:
             self.n_tier_reruns += 1
@@ -334,10 +375,8 @@ class DeviceBackend:
         """packed uint8[B, bucket/4] 2-bit codes; negative rlen =
         host-fallback read. Returns the token collect_packed takes."""
         kernel = self._packed_kernel_for(bucket, tier, batch=packed.shape[0])
-        packed_dev = torch.from_numpy(np.ascontiguousarray(packed)).to(
-            self.device)
-        rl_dev = torch.from_numpy(np.maximum(rlens, 0).astype(np.int32)).to(
-            self.device)
+        packed_dev = self._upload(packed)
+        rl_dev = self._upload(np.maximum(rlens, 0).astype(np.int32))
         return (kernel, kernel(packed_dev, rl_dev), rlens < 0, packed_dev,
                 rl_dev, bucket, rlens)
 

@@ -39,10 +39,13 @@ def _load_bytes(path: str) -> bytes:
 
 # cfg.compact_factor == 0 (auto): x4 lane compaction with 131,072-read
 # stream batches when the input can fill enough of them that the drain
-# tail amortizes (the reference package's rule, kept as it is: compacted
-# lanes refill from a queue of unread reads, so the scan costs about the
-# MEAN read's iterations instead of the most any read needs; seed sets
-# stay identical)
+# tail amortizes (the reference package's rule: compacted lanes refill
+# from a queue of unread reads, so a lockstep scan costs about the MEAN
+# read's iterations instead of the most any read needs; seed sets stay
+# identical). Not on the card: its scan kernel runs a thread per read,
+# which does not wait for the slowest read of a batch, and at the rule's
+# own geometry 32,768 lanes were slower than a thread per read on an
+# H100 (chip_smoke.py's seed_scan phase; PERF.md)
 _COMPACT_AUTO_FACTOR = 4
 _COMPACT_AUTO_LANES = 32768
 
@@ -66,7 +69,7 @@ def _estimate_records(buf: bytes) -> int:
 def _resolve_auto_compaction(cfg: Config, be, buf1: bytes, buf2) -> None:
     cfg.compact_factor = 1
     if not (be.chain_enabled and be._fm3_ok and be.index_shards <= 1
-            and be.n_devices == 1):
+            and be.n_devices == 1 and be.device.type != "cuda"):
         return
     est = _estimate_records(buf1) + (_estimate_records(buf2)
                                      if buf2 is not None else 0)
@@ -178,19 +181,14 @@ def run_stream_mapping(engine, cfg: Config, t_start: float,
                     prof["collect"] += t1 - t0
                     if prof["batches"] == 0:
                         _mark("first-collect")
-                dx = getattr(cfg, "device_extension", False)
+                dx = cfg.device_extension
                 if dx == "auto":
-                    # per-call winner policy; inf threshold = scalar
-                    fn = getattr(be, "dp_device_min_pairs", None)
-                    dp_min = fn() if fn is not None else float("inf")
-                    dx = dp_min != float("inf")
-                else:
-                    dp_min = 0
+                    # the backend's policy; inf keeps the scalar aligners
+                    dx = be.dp_device_min_pairs() != float("inf")
                 if dx:
                     sam_text, st = native.process_batch_cls_devdp(
                         pslot, pair_end, fastq, cls, pd, mm, rplast, cscore,
-                        counts, rp, gp, ln, stats_io, cfg.use_nw,
-                        dp_min_pairs=dp_min)
+                        counts, rp, gp, ln, stats_io, cfg.use_nw)
                 else:
                     sam_text, st = native.process_batch_cls(
                         pslot, pair_end, fastq, cls, pd, mm, rplast, cscore,

@@ -16,11 +16,14 @@ ops/ksw2_device.py; evidence_apply,
 evidence_correct, evidence_finalize, caller_scan, fetch_columns in
 pipeline/device_profile.py, evidence_apply also in ops/fm_search.py when
 the apply is folded into the chain dispatch), and the ten kernels with
-the most device time.
+the most device time, and each run's stage seconds (MC_STAGE_PROF:
+parse, seed+chain submit, collect, host leg, evidence).
 Needs a CUDA card.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import subprocess
@@ -74,11 +77,19 @@ def main(argv=None) -> int:
                 "-sam", os.path.join(d, "out.sam"),
                 "-vcf", os.path.join(d, "out.vcf"), "-log", log]
 
+        os.environ["MC_STAGE_PROF"] = "1"
+
         def run():
-            if run_pipeline(parse_args(args), " ".join(args)) != 0:
+            err = io.StringIO()
+            with contextlib.redirect_stderr(err):
+                rc = run_pipeline(parse_args(args), " ".join(args))
+            if rc != 0:
                 raise RuntimeError("main path run failed")
             torch.cuda.synchronize()
-            return _metrics(log)
+            stages = [json.loads(ln.split("] ", 1)[1])
+                      for ln in err.getvalue().splitlines()
+                      if ln.startswith("[stage-prof] {")]
+            return dict(_metrics(log), stages=stages[-1] if stages else None)
 
         run()                                       # warm-up
         timed = run()
@@ -101,8 +112,8 @@ def main(argv=None) -> int:
         "card": card, "n_reads": timed["total_reads"],
         "timed_run": {k: timed[k] for k in (
             "reads_per_sec", "mapping_seconds", "calling_seconds",
-            "total_seconds")},
-        "traced_run": {"wall_s": wall_s,
+            "total_seconds", "stages")},
+        "traced_run": {"wall_s": wall_s, "stages": traced["stages"],
                        "mapping_seconds": traced["mapping_seconds"],
                        "device_busy_ms": busy_us / 1e3,
                        "device_busy_share_of_mapping":

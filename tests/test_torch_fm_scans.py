@@ -246,7 +246,22 @@ def test_auto_compaction_rule(records, chained, want):
     half = records // 2
     cfg = Config(device="cpu", compact_factor=0)
     be = types.SimpleNamespace(chain_enabled=chained, _fm3_ok=True,
-                               index_shards=0, n_devices=1)
+                               index_shards=0, n_devices=1,
+                               device=torch.device("cpu"))
     stream._resolve_auto_compaction(cfg, be, rec * half,
                                     rec * (records - half))
     assert (cfg.compact_factor, cfg.stream_batch_size) == want
+
+
+def test_auto_compaction_off_on_the_card():
+    """On a CUDA backend auto keeps one lane per read: the scan kernel
+    runs a thread per read, and the rule's own geometry measured slower
+    in lanes."""
+    rec = b"@ab\nACGT\n+\nIIII\n"
+    cfg = Config(device="cuda", compact_factor=0)
+    be = types.SimpleNamespace(chain_enabled=True, _fm3_ok=True,
+                               index_shards=0, n_devices=1,
+                               device=torch.device("cuda"))
+    stream._resolve_auto_compaction(cfg, be, rec * (4 * 131072),
+                                    rec * (4 * 131072))
+    assert (cfg.compact_factor, cfg.stream_batch_size) == (1, 32768)
