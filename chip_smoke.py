@@ -10,9 +10,9 @@ Phases, one JSON line each on stdout (any failure raises and the process
 exits non-zero):
   env        card name and power limit (nvidia-smi), torch and CUDA
   build      nvcc for csrc/*.cu and g++ for the C++ host leg, in parallel,
-             with the NW, ksw2 and seed-scan kernels' registers, shared
-             memory, stack frame and spills from -Xptxas -v (any stack
-             frame or spill fails)
+             with the NW, ksw2, seed-scan and chain kernels' registers,
+             shared memory, stack frame and spills from -Xptxas -v (any
+             stack frame or spill fails)
   kernels    the CUDA NW and ksw2 kernels each equal their plain version
              exactly at every DP tier (32, 48, 96, 192), on pairs whose
              lengths reach the tier's edges (for NW also the kernel's
@@ -41,7 +41,10 @@ exits non-zero):
              launch, and device-DP and scalar-DP turns, each writing the
              ksw2 warm-up's bytes. Each run counts every kernel's launches
              (one seed-scan launch a batch: the occ3 kernel, or the
-             1-step kernel on the 1-step run) and the evidence steps;
+             1-step kernel on the 1-step run; the chain kernels once a
+             batch, the chain scan on the seed freqs and on the slow
+             counts counted apart; host chaining only the seed-freq scan
+             and the hits kernel) and the evidence steps;
              every run but the host-evidence and host-chaining ones
              accumulates evidence on the card and calls from it, with no
              capacity overflow; no run sends a read to the host oracle or
@@ -59,6 +62,15 @@ exits non-zero):
              thread per read); then, after their runs, the compacted
              run's batches (8,192 lanes) and the 1-step run's batches
              (batch 0 timed), each equal to the plain version
+  chain      each chain kernel (csrc/chain.cu: scan, hits, classify,
+             pack) equal to its plain version in every element on every
+             batch of the warm-up at tier 2 (the folded apply on the even
+             ones), on batch 0 at tier 18 and on an edge batch at tier 1;
+             batch 0 timed (device ms, call ms, plain ms, bound, and
+             torch.cumsum beside the slow-count scan; the seed-freq scan
+             apart); then the 1-step run's batches
+             replayed without the full SA (the inverse-Psi walk), equal
+             too, batch 0's walk timed
   evidence   device ms (queued launches) of the evidence apply of one
              batch, the finalize fold, the caller scan and the column
              fetch on the warm-up's own planes and inputs, each equal to
@@ -72,7 +84,7 @@ exits non-zero):
              device call would beat the scalar aligner
 Then the kernel table line ({"kernels": [...]}, the DP kernels timed on
 their main path's own captured pairs and on random pairs of the same
-shape, the scan kernels on their main path's own batch 0),
+shape, the scan and chain kernels on their main path's own batch 0),
 the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}.
 
@@ -102,6 +114,12 @@ SCAN3_ROW_BYTES = 288             # an occ3 row; a scan step gathers two
 SCAN1_ROW_BYTES = 32              # an occ4 row
 SCAN3_OPS_PER_STEP = 930          # see csrc/seed_scan.cu
 SCAN1_OPS_PER_STEP = 80
+# int32 operations of the chain kernels (csrc/chain.cu), for their bounds:
+# a scan read; a hit slot (binary search, seed walk, stores); an inverse-
+# Psi step; a classified read's 16 bases and its kept hits; a packed read
+# and a hit it copies
+CHAIN_OPS = dict(scan_read=6, hit=40, walk_step=25, read_word=60,
+                 kept_hit=40, pack_read=20, pack_hit=6)
 
 
 def emit(phase, **kw):
@@ -477,6 +495,220 @@ def check_scan_batches(ssd, kind, batches):
     return len(batches)
 
 
+def chain_run(ck, kern, packed, rlens, fm=None, tier=None, planes=None,
+              pair_end=False):
+    """The once-a-batch chain kernels of SeedChainKernel `kern` after its
+    scan, on the scan kernel's seeds; fm replaces the kernel's 1-step
+    table (a copy without the full SA walks), tier its hit buffers.
+    Returns every stage's output: (seeds, off, hits, out, mmp, slow_kept,
+    off2)."""
+    import torch
+    B = kern.batch
+    H, H2 = ((kern.H, kern.H2) if tier is None else
+             (B * max(9, tier) // 4, B * tier // 4))
+    fm = kern.fm1 if fm is None else fm
+    seeds = kern._scan_packed(packed, rlens)
+    off = ck.chain_scan(seeds[4], seeds[0])
+    hits = ck.chain_hits(fm, off, *seeds[:5], H)
+    out = torch.empty(2 * B + 2 * H2 + B // 2 + B // 32 + 2,
+                      dtype=torch.int32, device=packed.device)
+    mmp, slow = ck.chain_classify(kern.ctx, packed, rlens, off, hits,
+                                  kern.max_len, out, planes, pair_end)
+    off2 = ck.chain_scan(slow)
+    ck.chain_pack(off, off2, hits, slow, seeds[5], out, H2)
+    return seeds, off, hits, out, mmp, slow, off2
+
+
+def equal_chain(what, ck, kern, packed, rlens, L, **kw):
+    """Every chain kernel against its plain version on the same inputs
+    (each stage's plain version takes the kernels' upstream outputs), on
+    planes of their own when L is given: every element of every output
+    equal. Returns the max abs difference (0) and the kernels' outputs."""
+    import torch
+    from mapcaller_tpu_torch.pipeline.device_profile import DevicePlanes
+    B = kern.batch
+    pk = DevicePlanes.zeros(L, packed.device) if L else None
+    pp = DevicePlanes.zeros(L, packed.device) if L else None
+    got = chain_run(ck, kern, packed, rlens, planes=pk, **kw)
+    seeds, off, hits, out, mmp, slow, off2 = got
+    fm = kw.get("fm") or kern.fm1
+    H2 = (out.shape[0] - 2 * B - B // 2 - B // 32 - 2) // 2
+    want = dict(off=ck.chain_scan_plain(seeds[4], seeds[0]))
+    want["hits"] = ck.chain_hits_plain(fm, off, *seeds[:5],
+                                       hits.read.shape[0])
+    outp = torch.empty_like(out)
+    want["mmp"], want["slow"] = ck.chain_classify_plain(
+        kern.ctx, packed, rlens, off, hits, kern.max_len, outp, pp,
+        kw.get("pair_end", False))
+    want["meta_pd"] = outp[:2 * B].clone()
+    want["off2"] = ck.chain_scan_plain(slow)
+    outp[:2 * B] = out[:2 * B]            # the pack reads the kernel's classes
+    want["out"] = ck.chain_pack_plain(off, off2, hits, slow, seeds[5], outp,
+                                      H2)
+    pairs = [("off", off, want["off"]), ("off2", off2, want["off2"]),
+             ("mmp", mmp, want["mmp"]), ("slow_kept", slow, want["slow"]),
+             ("meta_pd", out[:2 * B], want["meta_pd"]),
+             ("pack", out[2 * B:], want["out"][2 * B:])]
+    pairs += [(f"hits.{k}", getattr(hits, k), getattr(want["hits"], k))
+              for k in hits._fields]
+    if L:
+        pairs += [(f"planes.{k}", getattr(pk, k), getattr(pp, k))
+                  for k in ("acgt", "exact_diff", "f_diff")]
+    if packed.is_cuda:
+        torch.cuda.synchronize()
+    errs = {k: int((a.long() - b.long()).abs().max()) if a.numel() else 0
+            for k, a, b in pairs}
+    bad = [k for k, a, b in pairs if errs[k] or not torch.equal(a, b)]
+    if bad:
+        raise AssertionError(f"{what}: chain kernel != plain version in "
+                             f"{bad} ({errs})")
+    return max(errs.values()), got
+
+
+def chain_bounds(kern, packed, got):
+    """Least time of each chain kernel on this batch: the larger of the
+    bytes it must move (each input read once, each output written once;
+    of the int64 seed tables only the valid seeds' entries, one SA entry
+    per valid hit) and its int32 operations (CHAIN_OPS), over the card's
+    rates. -> {kernel: (bound_ms, bound_by, bytes)}."""
+    seeds, off, hits, out, mmp, slow, off2 = got
+    B, S = seeds[4].shape
+    H, H2 = hits.read.shape[0], kern.H2
+    nseeds = int(seeds[0].clamp(0, S).sum())
+    nvalid = int(hits.valid.sum())
+    nkept = int(hits.keep.sum())
+    slow_h = int(slow.sum())
+    words = kern.max_len // 16
+    o = CHAIN_OPS
+    work = dict(
+        chain_scan=(4 * B + 4 * (B + 1), o["scan_read"] * B),
+        chain_scan_seeds=(8 * B + 8 * nseeds + 4 * (B + 1),
+                          o["scan_read"] * B + nseeds),
+        chain_hits=(4 * (B + 1) + 8 * B + 32 * nseeds + 4 * nvalid
+                    + 18 * H + B, o["hit"] * H),
+        chain_classify=(4 * (B + 1) + B * (4 + 4 * words + 1)
+                        + 13 * nvalid + 8 * (words + 1) * B + 28 * B,
+                        o["read_word"] * words * B + o["kept_hit"] * nkept),
+        chain_pack=(B * (4 + 4 + 4 + 4 + 1 + 1) + 13 * slow_h
+                    + 8 * H2 + 4 * (B // 2 + B // 32 + 2),
+                    o["pack_read"] * B + o["pack_hit"] * slow_h))
+    res = {}
+    for k, (nbytes, ops) in work.items():
+        t_b, t_o = nbytes / H100_BYTES_S, ops / H100_INT32_OPS_S
+        res[k] = (1e3 * max(t_b, t_o), "bytes" if t_b >= t_o
+                  else "operations", nbytes)
+    return res
+
+
+def measure_chain(ck, kern, packed, rlens, reps=50):
+    """Device ms (queued launches), call ms and plain ms of each chain
+    kernel on one main-path batch, its bound, and torch.cumsum on the
+    second scan's counts (the one PyTorch call of the same function)."""
+    import torch
+    got = chain_run(ck, kern, packed, rlens)
+    seeds, off, hits, out, mmp, slow, off2 = got
+    B = kern.batch
+    fm, H, H2 = kern.fm1, kern.H, kern.H2
+    outk = out.clone()
+    calls = dict(
+        chain_scan=(lambda: ck.chain_scan(slow),
+                    lambda: ck.chain_scan_plain(slow)),
+        chain_scan_seeds=(lambda: ck.chain_scan(seeds[4], seeds[0]),
+                          lambda: ck.chain_scan_plain(seeds[4], seeds[0])),
+        chain_hits=(lambda: ck.chain_hits(fm, off, *seeds[:5], H),
+                    lambda: ck.chain_hits_plain(fm, off, *seeds[:5], H)),
+        chain_classify=(lambda: ck.chain_classify(
+            kern.ctx, packed, rlens, off, hits, kern.max_len, outk),
+            lambda: ck.chain_classify_plain(
+                kern.ctx, packed, rlens, off, hits, kern.max_len, outk)),
+        chain_pack=(lambda: ck.chain_pack(off, off2, hits, slow, seeds[5],
+                                          outk, H2),
+                    lambda: ck.chain_pack_plain(off, off2, hits, slow,
+                                                seeds[5], outk, H2)))
+    bounds = chain_bounds(kern, packed, got)
+    res = {}
+    for name, (kfn, pfn) in calls.items():
+        res[name] = dict(ms=cuda_ms(kfn, reps, queued=True),
+                         call_ms=cuda_ms(kfn, reps),
+                         plain_ms=cuda_ms(pfn, 3, warmup=1), library_ms=None)
+        if name in bounds:
+            bound, by, nbytes = bounds[name]
+            res[name].update(bound_ms=bound, bound_by=by, bytes=nbytes,
+                             share_of_bound=bound / res[name]["ms"])
+    res["chain_scan"]["library_ms"] = cuda_ms(
+        lambda: torch.cumsum(slow, 0), reps, queued=True)
+    res["batch"] = dict(B=B, H=H, H2=H2, total_raw=int(off[-1]),
+                        valid_hits=int(hits.valid.sum()),
+                        kept_hits=int(hits.keep.sum()),
+                        slow_kept=int(off2[-1]),
+                        cls=[int(((out[:B] & 3) == c).sum())
+                             for c in range(3)])
+    return res
+
+
+def chain_launches(batches, chained=True):
+    """Each chain kernel's launches in a run of `batches` batches: once a
+    batch each, the scan on the seed freqs (chain_scan_seeds) and on the
+    slow counts (chain_scan) counted apart; with host chaining only the
+    seed-freq scan and the hits kernel."""
+    if chained:
+        return dict(chain_scan_seeds=batches, chain_scan=batches,
+                    chain_hits=batches, chain_classify=batches,
+                    chain_pack=batches)
+    return dict(chain_scan_seeds=batches, chain_hits=batches)
+
+
+def run_chain(ck, batches, card, reps=50):
+    """The chain kernels on the warm-up's own batches, each stage equal to
+    its plain version: every batch at tier 2 (the folded apply on the even
+    ones), batch 0 at tier 18 (collect_chain's rerun), and an edge batch
+    (lengths 0, 15, 16, 17, bucket - 1 and bucket forced, random tails)
+    at tier 1 with the apply, single-end; then batch 0 timed."""
+    kern, packed0, rlens0, pair_end = batches[0]
+    L = kern.ctx.seq_len // 2
+    errs = [equal_chain(f"chain main-path batch {i}", ck, k, p, r,
+                        L if i % 2 == 0 else None, pair_end=pe)[0]
+            for i, (k, p, r, pe) in enumerate(batches)]
+    errs.append(equal_chain("chain batch 0 at tier 18", ck, kern, packed0,
+                            rlens0, None, tier=18, pair_end=pair_end)[0])
+    codes, rl = scan_inputs(packed0, kern.max_len, seed=7)
+    errs.append(equal_chain("chain edge batch at tier 1", ck, kern, codes,
+                            rl, L, tier=1)[0])
+    own = measure_chain(ck, kern, packed0, rlens0, reps)
+    own["max_abs_err"] = max(errs)
+    emit("chain", card=card, main_path_batches=len(batches),
+         calls_equal=len(errs), max_abs_err=max(errs), main_path_batch0=own)
+    return own
+
+
+def run_chain_walk(ck, batches, card, reps=20):
+    """The 1-step run's batches replayed with the full SA withheld, so the
+    hits kernel walks inverse-Psi: each chain stage equal to its plain
+    version; batch 0's hits kernel timed."""
+    import dataclasses
+    import torch
+    kern = batches[0][0]
+    fm = dataclasses.replace(kern.fm1, sa_full=torch.zeros(
+        0, dtype=torch.int32, device=kern.fm1.device))
+    errs, unresolved = [], 0
+    for i, (k, p, r, pe) in enumerate(batches):
+        err, got = equal_chain(f"chain 1-step batch {i}, no full SA", ck, k,
+                               p, r, None, fm=fm, pair_end=pe)
+        errs.append(err)
+        unresolved += int(got[2].unresolved.sum())
+    _, p, r, _ = batches[0]
+    seeds = kern._scan_packed(p, r)
+    off = ck.chain_scan(seeds[4], seeds[0])
+    walk = dict(ms=cuda_ms(lambda: ck.chain_hits(fm, off, *seeds[:5],
+                                                 kern.H), reps, queued=True),
+                plain_ms=cuda_ms(lambda: ck.chain_hits_plain(
+                    fm, off, *seeds[:5], kern.H), 2, warmup=1),
+                valid_hits=int(min(int(off[-1]), kern.H)))
+    emit("chain", card=card, one_step_batches_equal_without_full_sa=len(errs),
+         max_abs_err=max(errs), unresolved_reads=unresolved,
+         walk_batch0=walk)
+
+
 def ptxas_report(out, kernel="nw_ops_kernel"):
     """Registers, shared memory, stack frame and spill bytes of each
     instantiation of `kernel` (keyed by its chunk) from the output of
@@ -646,6 +878,7 @@ def run_main_path(work, card):
     ksw2) and the captured evidence."""
     import torch
     from mapcaller_tpu_torch import cli, native, runner
+    from mapcaller_tpu_torch.ops import chain_kernels as ck
     from mapcaller_tpu_torch.ops import fm_search, ksw2_device, nw_device
     from mapcaller_tpu_torch.ops import seed_scan_device as ssd
     from mapcaller_tpu_torch.pipeline import device_profile
@@ -675,6 +908,7 @@ def run_main_path(work, card):
         nw_device.STATS.reset()
         ksw2_device.STATS.reset()
         ssd.STATS.reset()
+        ck.STATS.reset()
         device_profile.STATS.reset()
         native.prof_fetch()           # zero the host leg's stage counters
         cfg = None
@@ -708,6 +942,7 @@ def run_main_path(work, card):
                     ksw2_shapes=dict(ks.shapes),
                     scan3_launches=ssd.STATS.launches["seed_scan3"],
                     scan1_launches=ssd.STATS.launches["seed_scan1"],
+                    chain_launches=dict(ck.STATS.launches),
                     host_prof=native.prof_fetch(),
                     compact_factor=cfg.compact_factor if cfg else None,
                     stages=stages[-1] if stages else None,
@@ -762,6 +997,17 @@ def run_main_path(work, card):
                 (fm, codes.clone(), rlens.clone(), max_len, max_seeds,
                  has_n))
         return scan1(fm, codes, rlens, max_len, max_seeds, has_n, **kw)
+
+    # a tap on the chain dispatch: in a run with a chain capture mode set,
+    # every call's kernel object and a copy of its batch
+    chain_call = fm_search.SeedChainKernel.__call__
+
+    def tap_chain(self, packed, rlens, planes=None, pair_end=False):
+        if scan_mode.get("chain"):
+            captured.setdefault(scan_mode["chain"], []).append(
+                (self, packed.clone(), rlens.clone(), pair_end))
+        return chain_call(self, packed, rlens, planes=planes,
+                          pair_end=pair_end)
 
     submit_chain = DeviceBackend.submit_chain
 
@@ -820,7 +1066,8 @@ def run_main_path(work, card):
     device_profile.make_device_evidence = tap_evidence
     DeviceBackend.submit_chain = submit_tap
     fm_search.seed_scan3, fm_search.seed_scan1 = tap_scan3, tap_scan1
-    scan_mode["mode"] = "scan3"
+    fm_search.SeedChainKernel.__call__ = tap_chain
+    scan_mode.update(mode="scan3", chain="chain_warm")
     try:
         warm = run()
     finally:
@@ -828,12 +1075,13 @@ def run_main_path(work, card):
         nw_device.nw_align_batch = nw_align
         device_profile.make_device_evidence = make_ev
         DeviceBackend.submit_chain = submit_chain
-        scan_mode["mode"] = None
+        scan_mode.update(mode=None, chain=None)
     if "submit_sync_error" not in captured:
         raise AssertionError("main_path: the sync check of submit_chain "
                              "did not run")
     scan_table = dict(seed_scan3=run_seed_scan(ssd, captured.pop("scan3"),
                                                card))
+    chain_table = run_chain(ck, captured.pop("chain_warm"), card)
     os.replace(sam, sam + ".warm")
     os.replace(vcf, vcf + ".warm")
 
@@ -860,10 +1108,12 @@ def run_main_path(work, card):
     scan_mode["mode"] = None
     n_compact = check_scan_batches(ssd, "seed_scan3", captured.pop("compact"))
     unchained = check(run(device_chain=False))
-    scan_mode["mode"] = "scan1"
+    scan_mode.update(mode="scan1", chain="chain_1step")
     one_step = check(run(one_step=True))
-    scan_mode["mode"] = None
+    scan_mode.update(mode=None, chain=None)
     fm_search.seed_scan3, fm_search.seed_scan1 = scan3, scan1
+    fm_search.SeedChainKernel.__call__ = chain_call
+    run_chain_walk(ck, captured.pop("chain_1step"), card)
     b1 = captured.pop("scan1")
     n_one_step = check_scan_batches(ssd, "seed_scan1", b1)
     f, p, r, ml, s_, has_n = b1[0]
@@ -912,6 +1162,7 @@ def run_main_path(work, card):
                     evidence_batch_s=ev["batch_seconds"],
                     seed_scan3_launches=t["scan3_launches"],
                     seed_scan1_launches=t["scan1_launches"],
+                    chain_launches=t["chain_launches"],
                     host_leg_ns=t["host_prof"],
                     evidence={k: v for k, v in ev.items()
                               if k != "batch_seconds"},
@@ -987,6 +1238,10 @@ def run_main_path(work, card):
                   and t["scan1_launches"] == 0
                   for t in everything if t is not one_step)
           and one_step["scan1_launches"] == one_step["stages"]["batches"]
+          # the chain kernels once a batch (the scan twice) on every path
+          # but host chaining, which runs only the scan and hits kernels
+          and all(t["chain_launches"] == chain_launches(
+              t["stages"]["batches"], t is not unchained) for t in everything)
           and one_step["scan3_launches"] == 0
           and evidence_path_ok(fold_ev["evidence"], applies=False,
                                folded=True)
@@ -996,15 +1251,17 @@ def run_main_path(work, card):
           and captured["submit_sync_error"] is None)
     if not ok:
         raise AssertionError("main_path: a kernel not launched with device "
-                             "DP or launched with scalar DP, a scan kernel "
-                             "not launched once a batch, outputs differ "
-                             "from their warm-up's, reads left the device "
+                             "DP or launched with scalar DP, a scan or chain "
+                             "kernel not launched once a batch, outputs "
+                             "differ from their warm-up's, reads left the "
+                             "device "
                              "path, evidence did not take the path its "
                              "flags ask for, auto compaction was not 1, or "
                              "submit_chain waited for the card")
     captured["scan_table"] = {
         "seed_scan3": (scan_table["seed_scan3"], dev[0]["scan3_launches"]),
         "seed_scan1": (scan_table["seed_scan1"], one_step["scan1_launches"])}
+    captured["chain_table"] = (chain_table, dev[0]["chain_launches"])
     return ((dev[0]["launches"], kdev[0]["ksw2_launches"]),
             (captured["nw"][1], captured["ksw2"][1]), captured)
 
@@ -1128,7 +1385,11 @@ def main():
     gated = ((("libnw.so", "nw_ops_kernel"), nw_device.KERNEL_MAX_CHUNK),
              (("libksw2.so", "ksw2_ops_kernel"), ksw2_device.KERNEL_MAX_CHUNK),
              (("libseed_scan.so", "seed_scan3_kernel"), 1),
-             (("libseed_scan.so", "seed_scan1_kernel"), 1))
+             (("libseed_scan.so", "seed_scan1_kernel"), 1),
+             (("libchain.so", "chain_scan_kernel"), 1),
+             (("libchain.so", "chain_hits_kernel"), 1),
+             (("libchain.so", "chain_classify_kernel"), 1),
+             (("libchain.so", "chain_pack_kernel"), 1))
     reports = {kernel: ptxas_report(outputs.get(lib, ""), kernel)
                for (lib, kernel), _ in gated}
     emit("build", seconds=time.time() - t0,
@@ -1200,6 +1461,27 @@ def main():
             "call_ms": r["call_ms"], "steps": r["steps"],
             "shape": f"{r['B']} reads x {4 * r['width']} bases (bucket), "
                      f"the main path's own batch 0"})
+    # the chain kernels on the main path's own batch 0 (chain phase)
+    chain, n = cap["chain_table"]
+    b0 = chain["batch"]
+    for name, src_line in (
+            ("chain_scan_seeds", "mapcaller_tpu/ops/fm_search.py:713"),
+            ("chain_scan", "mapcaller_tpu/ops/fm_search.py:752"),
+            ("chain_hits", "mapcaller_tpu/ops/fm_search.py:704"),
+            ("chain_classify", "mapcaller_tpu/ops/chain_device.py:103"),
+            ("chain_pack", "mapcaller_tpu/ops/fm_search.py:751")):
+        r = chain[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "mapcaller_tpu_torch/csrc/chain.cu",
+            "replaces": src_line, "launches": n.get(name, 0),
+            "max_abs_err": chain["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "tolerance": 0,
+            "call_ms": r["call_ms"],
+            "shape": f"{b0['B']} reads, H {b0['H']}, H2 {b0['H2']}, the main "
+                     f"path's own batch 0"})
     line = {"kernels": kernels}
     print(json.dumps(line), flush=True)
     print(card, flush=True)

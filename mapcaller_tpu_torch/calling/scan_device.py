@@ -20,6 +20,8 @@ from typing import Dict
 import numpy as np
 import torch
 
+from ..ops.device_util import upload
+
 BLOCK_SIZE = 100
 CAND_CAP = 1 << 17
 RUN_CAP = 1 << 20
@@ -52,7 +54,7 @@ class LazyBlockDepth:
         missing = [int(b) for b in blocks.tolist() if b not in self._cache]
         if not missing:
             return
-        idx = torch.tensor(missing, dtype=torch.int64, device=self._arr.device)
+        idx = upload(np.asarray(missing, dtype=np.int64), self._arr.device)
         vals = self._arr[idx].cpu().tolist()
         self._cache.update(zip(missing, (int(v) for v in vals)))
 

@@ -1,0 +1,428 @@
+"""The once-a-batch stages of the seed + chain dispatch on the card: the
+CUDA kernels `csrc/chain.cu` and their plain PyTorch versions.
+
+After the seed scan, a batch's seed tables become the chain kernel's
+packed output vector (ops/fm_search.SeedChainKernel) in five launches on
+the current stream, with no host sync:
+
+  chain_scan      the exclusive prefix sum of a per-read count, and the
+                  total: each read's raw hits (the sum of its valid seeds'
+                  freq), later each read's SLOW kept hits;
+  chain_hits      the seeds expanded by freq into H flat hit slots (as
+                  jnp.repeat with total_repeat_length: truncated at H,
+                  padded with the last seed slot) and resolved through the
+                  SA, or by the inverse-Psi walk without a full SA;
+  chain_classify  each read's class, pd, mm, rplast, cscore and leftmost
+                  mismatches from its own hit range (the meta1 and pd
+                  entries of the packed vector), with the folded
+                  speculative evidence apply when planes are given;
+  chain_pack      the SLOW reads' kept hits compacted at their offsets, the
+                  count and overflow words and the totals: the rest of the
+                  packed vector.
+
+Each wrapper checks its inputs, then runs the plain version for CPU
+tensors and launches its kernel for CUDA tensors, counting the launch in
+STATS, or raises. There is no fallback between the two. The plain
+versions are the port's PyTorch code of these stages (ops/fm_device.
+sa_resolve, ops/chain_device.classify_reads, ops/evidence.
+scatter_fast_evidence); chip_smoke.py holds each kernel equal to its
+plain version on the card, in every element.
+"""
+from __future__ import annotations
+
+import collections
+import ctypes as C
+
+import torch
+
+from .chain_device import (CLASS_FAST, CLASS_SLOW, MM_SLOTS, ChainCtx,
+                           classify_reads)
+from .device_util import KernelStats, need
+from .evidence import first_mate_lanes, scatter_fast_evidence
+from .fm_device import DeviceFMIndex, sa_resolve, to_i32
+
+MAX_WALK = 192      # inverse-Psi steps before a hit is left to the host
+
+# hit arrays of a batch: read, rpos, len, loc int32[H]; valid, keep bool[H]
+# (keep: valid and PosDiff = loc - rpos > 0); unresolved bool[B]
+Hits = collections.namedtuple("Hits", "read rpos len loc valid keep "
+                                      "unresolved")
+
+STATS = KernelStats()
+_lib = None
+
+
+def _load_kernel():
+    global _lib
+    if _lib is None:
+        from ..toolchain import ensure_cuda
+        lib = C.CDLL(ensure_cuda("chain"))
+        P, I = C.c_void_p, C.c_int
+        for name, args in (
+                ("mc_chain_scan", [P, P, P, I, I, P, P]),
+                ("mc_chain_hits", [P] * 6 + [I, I] + [P] * 4
+                 + [I, I, I] + [P] * 8),
+                ("mc_chain_classify", [P, I] + [P] * 7 + [I, I, P, I, P, I, I]
+                 + [P] * 3 + [I, I] + [P] * 5),
+                ("mc_chain_pack", [P] * 9 + [I, I, I, P, P])):
+            fn = getattr(lib, name)
+            fn.restype = C.c_int
+            fn.argtypes = args
+        _lib = lib
+    return _lib
+
+
+def _launch(name: str, dev: torch.device, *args, count: str = "") -> None:
+    """One launch on dev's current stream, counted in STATS under `count`
+    (default: name); raises if CUDA refused it."""
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = getattr(_load_kernel(), "mc_" + name)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA kernel launch failed (error {err})")
+    STATS.launches[count or name] += 1
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _on_card(name: str, tensors) -> bool:
+    """True for CUDA tensors, False for CPU ones; refuses a mix of
+    devices, non-contiguous inputs and any other device."""
+    devs = {t.device for t in tensors}
+    need(len(devs) == 1, f"{name}: tensors on several devices {devs}")
+    need(all(t.is_contiguous() for t in tensors),
+          f"{name}: inputs must be contiguous")
+    dev = devs.pop()
+    need(dev.type in ("cpu", "cuda"), f"{name}: unsupported device {dev}")
+    return dev.type == "cuda"
+
+
+def _dtype(name: str, t, dtype, what: str) -> None:
+    need(t.dtype == dtype, f"{name}: {what} must be {dtype}", TypeError)
+
+
+def _check_hits(name: str, hits: Hits, B: int) -> int:
+    H = hits.read.shape[0]
+    for what in ("read", "rpos", "len", "loc"):
+        _dtype(name, getattr(hits, what), torch.int32, f"hits.{what}")
+    for what in ("valid", "keep", "unresolved"):
+        _dtype(name, getattr(hits, what), torch.bool, f"hits.{what}")
+    need(H >= 1 and all(getattr(hits, w).shape == (H,) for w in
+                         ("read", "rpos", "len", "loc", "valid", "keep")),
+          f"{name}: hit arrays must be [H], H >= 1")
+    need(hits.unresolved.shape == (B,), f"{name}: hits.unresolved must "
+                                         f"be [B]")
+    return H
+
+
+def _check_off(name: str, off, B: int) -> None:
+    _dtype(name, off, torch.int32, "off")
+    need(off.shape == (B + 1,), f"{name}: off must be int32[B+1]")
+
+
+# ---- chain_scan ------------------------------------------------------------
+
+def chain_scan_plain(counts: torch.Tensor, n_valid=None) -> torch.Tensor:
+    """Plain version of chain_scan on any device."""
+    if counts.dim() == 2:
+        S = counts.shape[1]
+        if n_valid is not None:
+            valid = (torch.arange(S, dtype=torch.int64, device=counts.device)
+                     [None, :] < n_valid[:, None])
+            counts = torch.where(valid, counts, 0)
+        counts = counts.sum(dim=1)
+    csum = torch.cumsum(counts.to(torch.int64), 0)
+    return torch.cat([torch.zeros(1, dtype=torch.int64, device=csum.device),
+                      csum]).to(torch.int32)
+
+
+def chain_scan(counts: torch.Tensor, n_valid=None) -> torch.Tensor:
+    """Exclusive prefix sum of per-read counts -> int32[B+1], the total
+    last. counts: int64[B, S] with n_valid int64[B] (each read sums its
+    first min(n_valid, S) entries; all S without n_valid), or int32[B].
+    A launch on [B, S] counts as chain_scan_seeds, on [B] as chain_scan."""
+    name = "chain_scan"
+    B = counts.shape[0]
+    need(B >= 1, f"{name}: empty batch")
+    if counts.dim() == 2:
+        _dtype(name, counts, torch.int64, "2-D counts")
+        need(counts.shape[1] >= 1, f"{name}: counts must be [B, S], S >= 1")
+        if n_valid is not None:
+            _dtype(name, n_valid, torch.int64, "n_valid")
+            need(n_valid.shape == (B,), f"{name}: n_valid must be [B]")
+    else:
+        need(counts.dim() == 1 and n_valid is None,
+              f"{name}: counts must be int64[B, S] or int32[B]")
+        _dtype(name, counts, torch.int32, "1-D counts")
+    ts = [counts] + ([n_valid] if n_valid is not None else [])
+    if not _on_card(name, ts):
+        return chain_scan_plain(counts, n_valid)
+    out = torch.empty(B + 1, dtype=torch.int32, device=counts.device)
+    wide = counts.dim() == 2
+    _launch(name, out.device, _ptr(counts) if wide else None, _ptr(n_valid),
+            None if wide else _ptr(counts), B,
+            counts.shape[1] if wide else 1, _ptr(out),
+            count="chain_scan_seeds" if wide else name)
+    return out
+
+
+# ---- chain_hits ------------------------------------------------------------
+
+def _repeat_to(x: torch.Tensor, csum_incl: torch.Tensor,
+               hpos: torch.Tensor) -> torch.Tensor:
+    """jnp.repeat(x, reps, total_repeat_length=H), given the inclusive
+    cumsum of reps and hpos = arange(H): truncated to H, or padded with
+    x[-1] when sum(reps) < H."""
+    src = torch.searchsorted(csum_incl, hpos, right=True)
+    return x[torch.clamp(src, max=x.shape[0] - 1)]
+
+
+def chain_hits_plain(fm: DeviceFMIndex, off, n_seeds, s_rpos, s_len, s_x0,
+                     s_freq, H: int, max_walk: int = MAX_WALK) -> Hits:
+    """Plain version of chain_hits on any device; it expands by its own
+    cumsum of the seeds and does not read off."""
+    B, S = s_freq.shape
+    dev = s_freq.device
+    i64 = torch.int64
+    seed_valid = (torch.arange(S, dtype=i64, device=dev)[None, :]
+                  < n_seeds[:, None])
+    freqs = torch.where(seed_valid, s_freq, 0).reshape(-1)
+    csum_incl = torch.cumsum(freqs, 0)
+    total_raw = csum_incl[-1]
+    hpos = torch.arange(H, dtype=i64, device=dev)
+
+    def rep(x):
+        return _repeat_to(x, csum_incl, hpos)
+
+    seg_start = rep(csum_incl - freqs)
+    hit_row = rep(s_x0.reshape(-1)) + (hpos - seg_start)
+    hit_rpos = rep(s_rpos.reshape(-1))
+    hit_len = rep(s_len.reshape(-1))
+    hit_read = rep(torch.arange(B, dtype=i64, device=dev)
+                   .repeat_interleave(S))
+    hit_valid = hpos < torch.clamp(total_raw, max=H)
+    hit_loc, resolved = sa_resolve(fm, torch.where(hit_valid, hit_row, 32),
+                                   hit_valid, max_walk)
+    unresolved = torch.zeros(B, dtype=i64, device=dev).scatter_reduce(
+        0, hit_read, (hit_valid & ~resolved).to(i64), "amax") > 0
+    keep = hit_valid & ((hit_loc - hit_rpos) > 0)
+    i32 = torch.int32
+    return Hits(hit_read.to(i32), hit_rpos.to(i32), hit_len.to(i32),
+                hit_loc.to(i32), hit_valid, keep, unresolved)
+
+
+def chain_hits(fm: DeviceFMIndex, off: torch.Tensor, n_seeds, s_rpos, s_len,
+               s_x0, s_freq, H: int, max_walk: int = MAX_WALK) -> Hits:
+    """The seeds (n_seeds int64[B], s_rpos/s_len/s_x0/s_freq int64[B, S])
+    expanded by freq into H hit slots and resolved through fm's SA; off
+    is chain_scan(s_freq, n_seeds). Hits past the total are invalid
+    copies of the last seed slot; a read with a hit still unresolved
+    after max_walk inverse-Psi steps is flagged."""
+    name = "chain_hits"
+    B, S = s_freq.shape
+    need(B >= 1 and S >= 1 and H >= 1 and max_walk >= 0,
+          f"{name}: needs B, S, H >= 1 and max_walk >= 0")
+    _check_off(name, off, B)
+    _dtype(name, n_seeds, torch.int64, "n_seeds")
+    need(n_seeds.shape == (B,), f"{name}: n_seeds must be [B]")
+    for what, t in (("s_rpos", s_rpos), ("s_len", s_len), ("s_x0", s_x0),
+                    ("s_freq", s_freq)):
+        _dtype(name, t, torch.int64, what)
+        need(t.shape == (B, S), f"{name}: {what} must be [B, S]")
+    tables = [fm.occ_rows, fm.L2, fm.sa_samp, fm.sa_full]
+    if not _on_card(name, [off, n_seeds, s_rpos, s_len, s_x0, s_freq]
+                    + tables):
+        return chain_hits_plain(fm, off, n_seeds, s_rpos, s_len, s_x0,
+                                s_freq, H, max_walk)
+    need(fm.occ_rows.dtype == torch.int32 and fm.occ_rows.shape[1:] == (8,)
+          and fm.occ_rows.data_ptr() % 16 == 0
+          and fm.L2.dtype == torch.int64 and fm.sa_samp.dtype == torch.int64
+          and fm.sa_full.dtype == torch.int32,
+          f"{name}: occ rows int32[n, 8] 16-byte aligned, L2 and sa_samp "
+          f"int64, sa_full int32")
+    dev = s_freq.device
+    hit = [torch.empty(H, dtype=torch.int32, device=dev) for _ in range(4)]
+    flags = [torch.empty(H, dtype=torch.bool, device=dev) for _ in range(2)]
+    unresolved = torch.empty(B, dtype=torch.bool, device=dev)
+    _launch(name, dev, _ptr(off), _ptr(n_seeds), _ptr(s_rpos), _ptr(s_len),
+            _ptr(s_x0), _ptr(s_freq), B, S, _ptr(fm.occ_rows), _ptr(fm.L2),
+            _ptr(fm.sa_samp), _ptr(fm.sa_full) if fm.has_full_sa else None,
+            int(fm.primary), max_walk, H, *map(_ptr, hit + flags),
+            _ptr(unresolved))
+    return Hits(*hit, *flags, unresolved)
+
+
+# ---- chain_classify --------------------------------------------------------
+
+def read_words_bwa(packed: torch.Tensor, max_len: int) -> torch.Tensor:
+    """uint8[B, max_len/4] 2-bit codes (base q of a byte at bits 2q) ->
+    int64[B, max_len/16] words in bwa crumb order (base j at bits
+    (15 - j%16)*2 of word j//16), for the diagonal compare."""
+    B, W4 = packed.shape
+    pb = packed.to(torch.int64)
+    q = torch.arange(0, 8, 2, dtype=torch.int64, device=packed.device)
+    crumb = ((pb[:, :, None] >> q) & 3).reshape(B, W4 * 4)[:, :max_len]
+    j = torch.arange(max_len, dtype=torch.int64, device=packed.device)
+    return (crumb << ((15 - (j & 15)) * 2)).reshape(B, -1, 16).sum(dim=2)
+
+
+def chain_classify_plain(ctx: ChainCtx, packed, rlens, off, hits: Hits,
+                         max_len: int, out: torch.Tensor, planes=None,
+                         pair_end: bool = False):
+    """Plain version of chain_classify on any device; it takes each
+    hit's read from hits.read and does not read off."""
+    B = packed.shape[0]
+    i64 = torch.int64
+    cls, pd0, mm, rplast, cscore, mmp = classify_reads(
+        ctx, read_words_bwa(packed, max_len), rlens.to(i64),
+        hits.read.to(i64), hits.rpos.to(i64), hits.len.to(i64),
+        hits.loc.to(i64), hits.keep, max_len)
+    # per-read seed-table overflow forces the host-oracle path
+    cls = torch.where(hits.unresolved, CLASS_SLOW, cls)
+    out[:B] = to_i32(cls | (mm << 2) | (rplast << 8) | (cscore << 17))
+    out[B:2 * B] = pd0.to(torch.int32)
+    kept = torch.zeros(B, dtype=i64, device=packed.device).index_add_(
+        0, hits.read.to(i64), hits.keep.to(i64))
+    slow_kept = torch.where(cls == CLASS_SLOW, kept, 0).to(torch.int32)
+    mmp = mmp.to(torch.int32)
+    if planes is not None:
+        scatter_fast_evidence(
+            planes.exact_diff, planes.f_diff.view(-1), planes.acgt.view(-1),
+            cls == CLASS_FAST, out[B:2 * B], mmp, rlens,
+            first_mate_lanes(torch.arange(B, dtype=i64, device=packed.device),
+                             pair_end), ctx.seq_len // 2, ctx.seq_len, sign=1)
+    return mmp, slow_kept
+
+
+def chain_classify(ctx: ChainCtx, packed: torch.Tensor, rlens: torch.Tensor,
+                   off: torch.Tensor, hits: Hits, max_len: int,
+                   out: torch.Tensor, planes=None, pair_end: bool = False):
+    """Classify a batch of 2-bit reads (packed uint8[B, max_len/4], rlens
+    int32[B]) from their hits (chain_hits; off = the scan it expanded).
+    Writes meta1 (cls | mm<<2 | rplast<<8 | cscore<<17) and pd into
+    out[:B] and out[B:2B] (int32, the packed output vector) and returns
+    (mmp int32[B, MM_SLOTS], slow_kept int32[B]: each SLOW read's kept
+    hits, 0 for the others). With planes (pipeline/device_profile.
+    DevicePlanes) every FAST read's evidence is added to them in place;
+    pair_end picks the orientation plane by batch-index parity."""
+    name = "chain_classify"
+    B = packed.shape[0]
+    need(B >= 1 and max_len >= 16 and max_len % 16 == 0 and max_len <= 511,
+          f"{name}: needs B >= 1 and max_len a multiple of 16 below 512")
+    _dtype(name, packed, torch.uint8, "packed")
+    _dtype(name, rlens, torch.int32, "rlens")
+    need(packed.shape == (B, max_len // 4) and rlens.shape == (B,),
+          f"{name}: packed must be uint8[B, max_len/4] and rlens int32[B]")
+    _check_off(name, off, B)
+    H = _check_hits(name, hits, B)
+    _dtype(name, out, torch.int32, "out")
+    need(out.dim() == 1 and out.shape[0] >= 2 * B,
+          f"{name}: out must be int32[>= 2B]")
+    ts = [packed, rlens, off, out, ctx.text_words, ctx.bkeys, *hits]
+    pl = []
+    if planes is not None:
+        pl = [planes.exact_diff, planes.f_diff, planes.acgt]
+        for what, t in zip(("exact_diff", "f_diff", "acgt"), pl):
+            _dtype(name, t, torch.int32, f"planes.{what}")
+        L = ctx.seq_len // 2
+        need(pl[0].shape == (L + 2,) and pl[1].shape == (4, L + 2)
+              and pl[2].shape == (4, L + 1),
+              f"{name}: planes of genome size {L} expected")
+    if not _on_card(name, ts + pl):
+        return chain_classify_plain(ctx, packed, rlens, off, hits, max_len,
+                                    out, planes, pair_end)
+    need(packed.data_ptr() % 4 == 0, f"{name}: packed must be 4-byte "
+                                      f"aligned")
+    _dtype(name, ctx.bkeys, torch.int64, "ctx.bkeys")
+    _dtype(name, ctx.text_words, torch.int64, "ctx.text_words")
+    mmp = torch.empty((B, MM_SLOTS), dtype=torch.int32, device=packed.device)
+    slow_kept = torch.empty(B, dtype=torch.int32, device=packed.device)
+    _launch(name, out.device, _ptr(off), H, _ptr(hits.rpos), _ptr(hits.len),
+            _ptr(hits.loc), _ptr(hits.keep), _ptr(hits.unresolved),
+            _ptr(packed), _ptr(rlens), B, max_len, _ptr(ctx.text_words),
+            ctx.text_words.shape[0], _ptr(ctx.bkeys), ctx.bkeys.shape[0],
+            ctx.seq_len, *(map(_ptr, pl) if pl else (None,) * 3),
+            ctx.seq_len // 2, int(bool(pair_end)), _ptr(out),
+            _ptr(out) + 4 * B, _ptr(mmp), _ptr(slow_kept))
+    return mmp, slow_kept
+
+
+# ---- chain_pack ------------------------------------------------------------
+
+def ovf_words(flags: torch.Tensor) -> torch.Tensor:
+    """bool[B] -> int64[ceil(B/32)] words, read b at bit b % 32 of word
+    b // 32."""
+    f = torch.nn.functional.pad(flags.to(torch.int64),
+                                (0, -flags.shape[0] % 32))
+    return (f.reshape(-1, 32) << torch.arange(32, dtype=torch.int64,
+                                              device=flags.device)).sum(dim=1)
+
+
+def counts2(counts: torch.Tensor) -> torch.Tensor:
+    """Per-read counts (B even), two 16-bit halves per word."""
+    return (counts[0::2] & 0xFFFF) | (counts[1::2] << 16)
+
+
+def chain_pack_plain(off, off2, hits: Hits, slow_kept, overflow,
+                     out: torch.Tensor, H2: int) -> torch.Tensor:
+    """Plain version of chain_pack on any device; it compacts by its own
+    cumsum and does not read off2 or slow_kept."""
+    B = overflow.shape[0]
+    H = hits.read.shape[0]
+    dev = out.device
+    i64 = torch.int64
+    cls = out[:B] & 3
+    read = hits.read.to(i64)
+    keep_slow = hits.keep & (cls[torch.clamp(read, 0, B - 1)] == CLASS_SLOW)
+    dest = torch.cumsum(keep_slow.to(i64), 0) - 1
+    # dropped hits write the dump slot H2: no host sync for a count
+    slot = torch.where(keep_slow & (dest < H2), dest, H2)
+    hit_w_c = torch.zeros(H2 + 1, dtype=i64, device=dev).index_copy_(
+        0, slot, (hits.rpos.to(i64) << 9) | hits.len.to(i64))[:H2]
+    hit_loc_c = torch.zeros(H2 + 1, dtype=i64, device=dev).index_copy_(
+        0, slot, hits.loc.to(i64))[:H2]
+    counts = torch.zeros(B, dtype=i64, device=dev).index_add_(
+        0, read, keep_slow.to(i64))
+    total_kept = keep_slow.sum()
+    buffer_overflow = (off[B] > H) | (total_kept > H2)
+    out[2 * B:] = to_i32(torch.cat([
+        hit_w_c, hit_loc_c, counts2(counts),
+        ovf_words(overflow | hits.unresolved),
+        torch.stack([total_kept, buffer_overflow.to(i64)])]))
+    return out
+
+
+def chain_pack(off: torch.Tensor, off2: torch.Tensor, hits: Hits,
+               slow_kept: torch.Tensor, overflow: torch.Tensor,
+               out: torch.Tensor, H2: int) -> torch.Tensor:
+    """Fill out[2B:] of the packed output vector (ops/fm_search.
+    SeedChainKernel) whose meta1 entries chain_classify wrote: hit_w[H2]
+    (rpos<<9 | len) and hit_loc[H2] of the SLOW reads' kept hits in hit
+    order (slots >= H2 dropped, unused ones 0), counts2[B/2] of
+    slow_kept, the overflow words of overflow | hits.unresolved, the
+    total kept and buffer_overflow = total raw > H or total kept > H2.
+    off: chain_scan of the seeds, off2: chain_scan(slow_kept). B % 32 ==
+    0. Returns out."""
+    name = "chain_pack"
+    B = overflow.shape[0]
+    need(B >= 32 and B % 32 == 0 and H2 >= 1,
+          f"{name}: B must be a positive multiple of 32 and H2 >= 1")
+    _check_off(name, off, B)
+    _check_off(name, off2, B)
+    H = _check_hits(name, hits, B)
+    _dtype(name, slow_kept, torch.int32, "slow_kept")
+    _dtype(name, overflow, torch.bool, "overflow")
+    _dtype(name, out, torch.int32, "out")
+    need(slow_kept.shape == (B,) and overflow.shape == (B,),
+          f"{name}: slow_kept and overflow must be [B]")
+    need(out.shape == (2 * B + 2 * H2 + B // 2 + B // 32 + 2,),
+          f"{name}: out must be int32[2B + 2H2 + B/2 + B/32 + 2]")
+    if not _on_card(name, [off, off2, slow_kept, overflow, out, *hits]):
+        return chain_pack_plain(off, off2, hits, slow_kept, overflow, out,
+                                H2)
+    _launch(name, out.device, _ptr(off), _ptr(off2), _ptr(hits.rpos),
+            _ptr(hits.len), _ptr(hits.loc), _ptr(hits.keep), _ptr(slow_kept),
+            _ptr(overflow), _ptr(hits.unresolved), B, H, H2, _ptr(out))
+    return out
+

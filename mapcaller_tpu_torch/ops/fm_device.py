@@ -178,7 +178,8 @@ def sa_resolve(fm: DeviceFMIndex, k: torch.Tensor, active: torch.Tensor,
     Full SA on the card: one gather, exact. Otherwise a lockstep
     inverse-Psi walk of max_walk steps until every active row index is a
     multiple of 32 (the sampled rows); lanes still unresolved are flagged
-    for the host fallback. Returns (loc int64[B], resolved bool[B])."""
+    for the host fallback. Returns (loc int64[B], resolved bool[B]).
+    The plain version of the resolve in ops/chain_kernels.chain_hits."""
     if fm.has_full_sa:
         return fm.sa_full[k].to(torch.int64), active.clone()
     k_ = k.clone()

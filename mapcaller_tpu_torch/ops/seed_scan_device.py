@@ -22,22 +22,11 @@ two.
 """
 from __future__ import annotations
 
-import collections
 import ctypes as C
 
 import torch
 
-
-class KernelStats:
-    """Launch accounting for the scan kernels: `launches[name]` counts
-    launches (one per call on a CUDA tensor). The plain versions count
-    nothing."""
-
-    def __init__(self):
-        self.reset()
-
-    def reset(self) -> None:
-        self.launches = collections.Counter()
+from .device_util import KernelStats, need
 
 
 STATS = KernelStats()
@@ -59,31 +48,26 @@ def _load_kernel():
     return _lib
 
 
-def _need(cond: bool, msg: str, exc=ValueError) -> None:
-    if not cond:
-        raise exc(msg)
-
-
 def _check(name, table, row_width, codes, width, rlens, max_len, max_seeds):
     """Device, dtype, shape, contiguity and alignment of a scan's inputs."""
-    _need(max_len >= 16 and max_len % 16 == 0,
+    need(max_len >= 16 and max_len % 16 == 0,
           f"{name}: max_len {max_len} must be a multiple of 16")
-    _need(max_seeds >= 1, f"{name}: max_seeds must be >= 1")
-    _need(table.dtype == torch.int32 and codes.dtype == torch.uint8
+    need(max_seeds >= 1, f"{name}: max_seeds must be >= 1")
+    need(table.dtype == torch.int32 and codes.dtype == torch.uint8
           and rlens.dtype == torch.int32,
           f"{name}: rows int32, codes uint8 and rlens int32 expected",
           TypeError)
-    _need(table.dim() == 2 and table.shape[1] == row_width,
+    need(table.dim() == 2 and table.shape[1] == row_width,
           f"{name}: table rows must be int32[n, {row_width}]")
-    _need(codes.dim() == 2 and codes.shape[1] == width and rlens.dim() == 1
+    need(codes.dim() == 2 and codes.shape[1] == width and rlens.dim() == 1
           and rlens.shape[0] == codes.shape[0],
           f"{name}: codes must be uint8[B, {width}] and rlens int32[B]")
     devs = {table.device, codes.device, rlens.device}
-    _need(len(devs) == 1, f"{name}: tensors on several devices {devs}")
-    _need(all(t.is_contiguous() for t in (table, codes, rlens)),
+    need(len(devs) == 1, f"{name}: tensors on several devices {devs}")
+    need(all(t.is_contiguous() for t in (table, codes, rlens)),
           f"{name}: inputs must be contiguous")
     # the kernel loads rows as 16-byte vectors and reads as 32-bit words
-    _need(table.data_ptr() % 16 == 0 and codes.data_ptr() % 4 == 0,
+    need(table.data_ptr() % 16 == 0 and codes.data_ptr() % 4 == 0,
           f"{name}: rows must be 16-byte and codes 4-byte aligned")
 
 
@@ -111,7 +95,7 @@ def seed_scan3_plain(fm3, packed, rlens, max_len: int, max_seeds: int,
     B = packed.shape[0]
     words = fs._read_words_le(packed)
     if 0 < lanes < B:
-        _need(not with_iters, "seed_scan3: the compacted plain scan counts "
+        need(not with_iters, "seed_scan3: the compacted plain scan counts "
                               "no steps")
         return fs._seed_scan3_compact(fm3, words, rlens, B, lanes, max_len,
                                       max_seeds)
@@ -155,10 +139,10 @@ def seed_scan3(fm3, packed: torch.Tensor, rlens: torch.Tensor, max_len: int,
     if packed.device.type == "cpu":
         return seed_scan3_plain(fm3, packed, rlens, max_len, max_seeds,
                                 lanes, with_iters)
-    _need(packed.device.type == "cuda",
+    need(packed.device.type == "cuda",
           f"seed_scan3: unsupported device {packed.device}")
     fm = fm3.fm
-    _need(fm3.c3_first.dtype == torch.int32 and fm.L2.dtype == torch.int64
+    need(fm3.c3_first.dtype == torch.int32 and fm.L2.dtype == torch.int64
           and fm3.c3_first.device == packed.device
           and fm.L2.device == packed.device,
           "seed_scan3: c3_first int32 and L2 int64 on the batch's device")
@@ -199,9 +183,9 @@ def seed_scan1(fm, codes: torch.Tensor, rlens: torch.Tensor, max_len: int,
     if codes.device.type == "cpu":
         return seed_scan1_plain(fm, codes, rlens, max_len, max_seeds, has_n,
                                 with_iters)
-    _need(codes.device.type == "cuda",
+    need(codes.device.type == "cuda",
           f"seed_scan1: unsupported device {codes.device}")
-    _need(fm.L2.dtype == torch.int64 and fm.L2.device == codes.device,
+    need(fm.L2.dtype == torch.int64 and fm.L2.device == codes.device,
           "seed_scan1: L2 int64 on the batch's device")
     dev = codes.device
     n_seeds, tab, overflow, counts = _outputs(B, max_seeds, dev)

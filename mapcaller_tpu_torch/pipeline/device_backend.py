@@ -25,6 +25,7 @@ import torch
 from ..config import Config
 from ..index.fmindex import FMIndex
 from ..ops.chain_device import CLASS_SLOW, ChainCtx
+from ..ops.device_util import upload
 from ..ops.fm3_device import DeviceFM3
 from ..ops.fm_device import DeviceFMIndex
 from ..ops.fm_search import (build_seed_chain_kernel, build_seed_kernel,
@@ -231,15 +232,6 @@ class DeviceBackend:
                 compact_lanes=lanes)
         return self._kernels[key]
 
-    def _upload(self, a: np.ndarray) -> torch.Tensor:
-        """A host array on the device. On the card through a pinned
-        staging copy, so the copy queues on the stream behind the batches
-        in flight instead of waiting for them."""
-        t = torch.from_numpy(np.ascontiguousarray(a))
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t.to(self.device)
-
     def _download(self, dev: torch.Tensor):
         """Start the copy of a dispatch's packed output vector to the host.
         On the card into pinned memory, queued behind the dispatch, with
@@ -269,8 +261,9 @@ class DeviceBackend:
         launch, nothing in the dispatch reads a device value back, and
         the output's copy to the host is queued behind it, so the stream's
         host leg of the batch before overlaps this batch's device work."""
-        packed_dev = self._upload(packed)
-        rl_dev = self._upload(np.maximum(rlens, 0).astype(np.int32))
+        packed_dev = upload(packed, self.device)
+        rl_dev = upload(np.maximum(rlens, 0).astype(np.int32),
+                        self.device)
         kernel = self._chain_kernel_for(bucket, tier, batch=packed.shape[0])
         planes = evidence.planes if evidence is not None else None
         dev, pd, mmp = kernel(packed_dev, rl_dev, planes=planes,
@@ -375,8 +368,9 @@ class DeviceBackend:
         """packed uint8[B, bucket/4] 2-bit codes; negative rlen =
         host-fallback read. Returns the token collect_packed takes."""
         kernel = self._packed_kernel_for(bucket, tier, batch=packed.shape[0])
-        packed_dev = self._upload(packed)
-        rl_dev = self._upload(np.maximum(rlens, 0).astype(np.int32))
+        packed_dev = upload(packed, self.device)
+        rl_dev = upload(np.maximum(rlens, 0).astype(np.int32),
+                        self.device)
         return (kernel, kernel(packed_dev, rl_dev), rlens < 0, packed_dev,
                 rl_dev, bucket, rlens)
 

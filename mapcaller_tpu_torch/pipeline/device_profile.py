@@ -35,6 +35,7 @@ import torch
 from torch.profiler import record_function
 
 from ..ops.chain_device import CLASS_FAST
+from ..ops.device_util import upload
 from ..ops.evidence import first_mate_lanes, scatter_fast_evidence
 
 MAX_ALLELE_COUNT = 4095
@@ -225,7 +226,7 @@ class DeviceEvidence:
         kern = build_apply_kernel(self.L, self.two_l, B, bool(pair_end))
         with record_function("evidence_apply"):
             kern(self.planes, token.pd, token.mmp, token.rl_dev,
-                 torch.from_numpy(fb).to(self.device))
+                 upload(fb, self.device))
         STATS.applies += 1
 
     def _undo_speculation(self, token, pair_end: bool) -> None:
@@ -269,7 +270,7 @@ class DeviceEvidence:
         kern = build_correct_kernel(self.L, self.two_l, B, bool(pair_end))
         with record_function("evidence_correct"):
             kern(self.planes, token.pd, token.mmp, token.rl_dev,
-                 torch.from_numpy(rej).to(self.device))
+                 upload(rej, self.device))
         STATS.corrections += 1
 
     # ------------------------------------------------------------------
@@ -307,8 +308,7 @@ class DeviceEvidence:
         im, vm = nz(p.multi_diff)
 
         def up(a, dtype):
-            return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(
-                self.device)
+            return upload(np.asarray(a, dtype=dtype), self.device)
 
         build_host_merge_kernel(L)(
             self.planes, up(ia, np.int64), up(va, np.int32),
@@ -382,8 +382,7 @@ class DeviceEvidence:
         acgt, F, multi, cov, cov_prefix = self.finalize()
 
         def up(a):
-            return torch.from_numpy(np.asarray(a, dtype=np.int64)).to(
-                self.device)
+            return upload(np.asarray(a, dtype=np.int64), self.device)
 
         with record_function("fetch_columns"):
             cols, pref = build_fetch_kernel(self.L)(
@@ -419,8 +418,8 @@ class DeviceEvidence:
         bk = np.sort(np.asarray(brk, dtype=np.int64)) if brk.size else \
             np.array([self.L], dtype=np.int64)
         first, mincov, covf = build_nor_kernel(self.L, nseg)(
-            cov, torch.from_numpy(np.asarray(emitted, dtype=np.int64)).to(
-                self.device), torch.from_numpy(bk).to(self.device))
+            cov, upload(np.asarray(emitted, dtype=np.int64), self.device),
+            upload(bk, self.device))
         packed = torch.cat([first, mincov, covf]).cpu().numpy()
         return packed[:nseg], packed[nseg:2 * nseg], packed[2 * nseg:]
 

@@ -14,10 +14,11 @@ of each named range (seed_scan, hits_sa_resolve, classify, pack in
 ops/fm_search.py; nw_kernel in ops/nw_device.py; ksw2_kernel in
 ops/ksw2_device.py; evidence_apply,
 evidence_correct, evidence_finalize, caller_scan, fetch_columns in
-pipeline/device_profile.py, evidence_apply also in ops/fm_search.py when
-the apply is folded into the chain dispatch), and the ten kernels with
-the most device time, and each run's stage seconds (MC_STAGE_PROF:
-parse, seed+chain submit, collect, host leg, evidence).
+pipeline/device_profile.py; the folded apply runs inside classify), the
+ten kernels with the most device time, the calls of each kind of copy
+and memset (a host-to-device copy from pageable memory waits for the
+stream), and each run's stage seconds (MC_STAGE_PROF: parse, seed+chain
+submit, collect, host leg, evidence).
 Needs a CUDA card.
 """
 from __future__ import annotations
@@ -123,6 +124,10 @@ def main(argv=None) -> int:
         "top_kernels": [{"name": e.key[:80], "device_ms":
                          _device_us(e, True) / 1e3, "calls": e.count}
                         for e in top],
+        "copies": {e.key: {"calls": e.count,
+                           "device_ms": _device_us(e, True) / 1e3}
+                   for e in kernels if e.key.startswith(("Memcpy",
+                                                         "Memset"))},
     }), flush=True)
     return 0
 

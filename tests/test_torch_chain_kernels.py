@@ -1,0 +1,941 @@
+"""The chain kernels of the port (mapcaller_tpu_torch/csrc/chain.cu, wrapped
+by ops/chain_kernels.py) on the CPU, where no kernel runs:
+
+  * a scalar mirror of each kernel's thread, written as the .cu thread
+    runs (the scan's tiles and warp scans, a hit slot's binary search,
+    seed walk and inverse-Psi walk, a read's insertion window, 32-position
+    bitmasks and gap runs, the pack's ballot), is held equal to the plain
+    versions and to the reference package's hit expansion, sa_resolve,
+    classify_reads and build_seed_chain_kernel (with and without
+    with_planes, pair_end both ways, with and without a full SA);
+  * the cases: more than 8 kept hits, (pd, rpos) ties of different
+    lengths, a span across a chromosome boundary, reads at the end of the
+    text, the most gaps a window allows (and >= 10 gaps in the gap walk),
+    more than 4 mismatches, total raw hits > H and kept slow hits > H2,
+    unresolved reads, rlen 0;
+  * the wrappers refuse what the kernels do not take and run the plain
+    versions for CPU tensors without counting a launch.
+
+All values are integers: the tolerance is exact equality."""
+import functools
+import os
+import re
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from mapcaller_tpu.index.fmindex import build_index
+from mapcaller_tpu.index.packer import PackedReference
+from mapcaller_tpu.ops import chain_device as jcd
+from mapcaller_tpu.ops import fm_device as jfd
+from mapcaller_tpu.ops import fm_search as jfs
+from mapcaller_tpu.ops.fm3_device import DeviceFM3 as JaxFM3
+from mapcaller_tpu.ops.fm_device import DeviceFMIndex as JaxFM
+from mapcaller_tpu.pipeline import device_profile as jdp
+from mapcaller_tpu_torch.ops import chain_device as tcd
+from mapcaller_tpu_torch.ops import chain_kernels as ck
+from mapcaller_tpu_torch.ops import fm_search as tfs
+from mapcaller_tpu_torch.ops.fm3_device import DeviceFM3
+from mapcaller_tpu_torch.ops.fm_device import DeviceFMIndex
+from mapcaller_tpu_torch.ops.seed_scan_device import seed_scan3
+from mapcaller_tpu_torch.pipeline import device_profile as tdp
+
+torch.set_num_threads(1)   # small tensor ops: see test_torch_e2e.py
+
+B, BUCKET = 256, 128
+M32 = 0xFFFFFFFF
+CU = os.path.join(os.path.dirname(ck.__file__), "..", "csrc", "chain.cu")
+L1, L2 = 14000, 12000       # two chromosomes
+
+
+def _cu_const(name):
+    with open(CU) as f:
+        return int(re.search(rf"\b{name} = (\w+);", f.read()).group(1), 0)
+
+
+SCAN_THREADS, SCAN_ITEMS = _cu_const("SCAN_THREADS"), _cu_const("SCAN_ITEMS")
+
+
+# ---- data ------------------------------------------------------------------
+
+def _pack(mat):
+    packed = np.zeros((mat.shape[0], mat.shape[1] // 4), dtype=np.uint8)
+    for j in range(4):
+        packed |= (mat[:, j::4] & 3) << (2 * j)
+    return packed
+
+
+@pytest.fixture(scope="module")
+def genome():
+    """Two chromosomes (14 + 12 kb) with a 300-bp block repeated 12 times
+    (seeds with many hits), and one batch of 256 reads at bucket 128:
+    exact, SNP, reverse strand, 2-bp deletion, random, repeat, short,
+    across the chromosome boundary, at either end of the text, with 5-9
+    spread substitutions, and rlen 0."""
+    rng = np.random.default_rng(23)
+    n = L1 + L2
+    codes = rng.integers(0, 4, size=n).astype(np.uint8)
+    rep = codes[500:800].copy()
+    for k in range(12):
+        codes[2000 + 1500 * k:2300 + 1500 * k] = rep
+    idx = build_index(None, packed=PackedReference(
+        ["chr1", "chr2"], [L1, L2], [0, L1], codes, []))
+    text = idx.ref.fwd_rc_codes()
+    mat = np.zeros((B, BUCKET), dtype=np.uint8)
+    rlens = np.zeros(B, dtype=np.int32)
+    for b in range(B):
+        ln = int(rng.integers(60, BUCKET + 1))
+        p = int(rng.integers(0, n - BUCKET - 2))
+        r = codes[p:p + ln + 2].copy()
+        kind = b % 11
+        if kind == 1:
+            r[ln // 2] = (r[ln // 2] + 1) % 4
+        elif kind == 2:
+            r = (3 - r)[::-1]
+        elif kind == 3:
+            r = np.concatenate([r[:ln // 2], r[ln // 2 + 2:]])
+        elif kind == 4:
+            r = rng.integers(0, 4, size=ln + 2).astype(np.uint8)
+        elif kind == 5:
+            r = codes[2000 + 1500 * (b % 12) + int(rng.integers(0, 100)):][
+                :ln + 2].copy()
+        elif kind == 6:
+            ln = int(rng.integers(4, 17))
+        elif kind == 7:                       # across chr1 / chr2
+            s = L1 - int(rng.integers(10, ln - 10))
+            r = codes[s:s + ln].copy()
+        elif kind == 8:                       # at either end of the text
+            r = text[2 * n - ln:].copy() if b % 2 else codes[n - ln:].copy()
+        elif kind == 9:                       # many spread mismatches
+            for j in rng.choice(ln, size=int(rng.integers(5, 10)),
+                                replace=False):
+                r[j] = (r[j] + 1 + rng.integers(0, 3)) % 4
+        elif kind == 10:
+            ln = 0 if b % 2 else ln
+        r = r[:ln]
+        mat[b, :ln] = r
+        rlens[b] = ln
+    jfm = JaxFM.from_host(idx)
+    tfm = DeviceFMIndex.from_host(idx, device="cpu")
+    return dict(idx=idx, mat=mat, rlens=rlens, packed=_pack(mat), jfm=jfm,
+                tfm=tfm, jfm0=JaxFM.from_host(idx, sa_budget_bytes=0),
+                tfm0=DeviceFMIndex.from_host(idx, device="cpu",
+                                             sa_budget_bytes=0),
+                jctx=jcd.ChainCtx.from_host(idx),
+                tctx=tcd.ChainCtx.from_host(idx, "cpu"))
+
+
+def _seeds(genome):
+    """The batch's seed tables from the port's plain occ3 scan."""
+    fm3 = DeviceFM3.from_host(genome["idx"], genome["tfm"], pfx_k=0)
+    S = BUCKET // 17 + 2
+    return seed_scan3(fm3, torch.from_numpy(genome["packed"]),
+                      torch.from_numpy(genome["rlens"]), BUCKET, S)
+
+
+# ---- the mirrors: each kernel's thread, as csrc/chain.cu runs it ------------
+
+def _popc(x):
+    return bin(x & M32).count("1")
+
+
+def _ffs(x):
+    """__ffs: 1 + the index of the lowest set bit, 0 for 0."""
+    x &= M32
+    return (x & -x).bit_length()
+
+
+def _brev(x):
+    return int(f"{x & M32:032b}"[::-1], 2)
+
+
+def _i32(x):
+    x &= M32
+    return x - (1 << 32) if x >= 1 << 31 else x
+
+
+def mirror_scan(B, S=1, freq=None, n=None, cnt=None, threads=SCAN_THREADS,
+                items=SCAN_ITEMS):
+    """chain_scan_kernel: tiles of threads x items reads, each thread's sum
+    scanned in its warp (shfl_up steps) and over the warp sums."""
+    def read_count(b):
+        if freq is None:
+            return int(cnt[b])
+        nv = S if n is None else int(n[b])
+        return sum(int(freq[b, j]) for j in range(min(max(nv, 0), S)))
+
+    out = np.zeros(B + 1, dtype=np.int64)
+    carry = 0
+    for base in range(0, B, threads * items):
+        v = [[read_count(base + t * items + k)
+              if base + t * items + k < B else 0 for k in range(items)]
+             for t in range(threads)]
+        mine = [sum(x) for x in v]
+        inc = list(mine)
+        for w in range(threads // 32):
+            lanes = inc[32 * w:32 * w + 32]
+            d = 1
+            while d < 32:
+                lanes = [x + (lanes[i - d] if i >= d else 0)
+                         for i, x in enumerate(lanes)]
+                d <<= 1
+            inc[32 * w:32 * w + 32] = lanes
+        warp_sum = np.cumsum([inc[32 * w + 31] for w in range(threads // 32)])
+        for t in range(threads):
+            w = t >> 5
+            run = carry + (int(warp_sum[w - 1]) if w else 0) + inc[t] - mine[t]
+            for k in range(items):
+                if base + t * items + k < B:
+                    out[base + t * items + k] = run
+                run += v[t][k]
+            if t == threads - 1:
+                last = run
+        carry = last
+    out[B] = carry
+    return out
+
+
+def _inv_psi(occ, L2, primary, k):
+    kadj = k - (1 if k >= primary else 0)
+    row = occ[kadj >> 4]
+    word = int(row[4]) & M32
+    crumb = (~kadj) & 15
+    c = (word >> (crumb << 1)) & 3
+    keep = ~((1 << (2 * crumb)) - 1) & 0x55555555
+    nx = ~(word ^ (c * 0x55555555)) & M32
+    occ_kc = int(row[c]) + _popc(nx & (nx >> 1) & keep)
+    return 0 if k == primary else int(L2[c]) + occ_kc
+
+
+def mirror_hits(tfm, off, n_seeds, rpos, slen, x0, freq, H, max_walk=192):
+    """chain_hits_kernel, one thread per slot h."""
+    Bn, S = freq.shape
+    occ, L2 = tfm.occ_rows.numpy(), tfm.L2.numpy()
+    samp, sa = tfm.sa_samp.numpy(), tfm.sa_full.numpy()
+    out = {k: np.zeros(H, dtype=np.int64) for k in ("read", "rpos", "len",
+                                                    "loc", "valid", "keep")}
+    unres = np.zeros(Bn, dtype=bool)
+    total = int(off[Bn])
+    for h in range(H):
+        valid = h < min(total, H)
+        b, s, row = Bn - 1, S - 1, 32
+        if valid:
+            lo, hi = 0, Bn
+            while lo < hi:
+                mid = (lo + hi + 1) >> 1
+                if off[mid] <= h:
+                    lo = mid
+                else:
+                    hi = mid - 1
+            b = lo
+            pos = h - int(off[b])
+            m = min(max(int(n_seeds[b]), 0), S)
+            s = 0
+            while s < m:
+                f = int(freq[b, s])
+                if pos < f:
+                    break
+                pos -= f
+                s += 1
+            row = int(x0[b, s]) + pos
+        rp, ln = int(rpos[b, s]), int(slen[b, s])
+        resolved = valid
+        if sa.shape[0]:
+            loc = int(sa[row])
+        else:
+            k, steps = row, 0
+            if valid:
+                while steps < max_walk and k & 31:
+                    k = _inv_psi(occ, L2, tfm.primary, k)
+                    steps += 1
+            resolved = valid and (k & 31) == 0
+            loc = steps + int(samp[k >> 5])
+        for key, v in (("read", b), ("rpos", rp), ("len", ln), ("loc", loc),
+                       ("valid", valid), ("keep", valid and loc - rp > 0)):
+            out[key][h] = v
+        if valid and not resolved:
+            unres[b] = True
+    return out, unres
+
+
+def _span_bits(lo, hi):
+    lo, hi = max(lo, 0), min(hi, 32)
+    if lo >= hi:
+        return 0
+    return ((M32 if hi >= 32 else (1 << hi) - 1) & ~((1 << lo) - 1)) & M32
+
+
+def _to_bwa(le):
+    r = _brev(le)
+    return ((r >> 1) & 0x55555555) | ((r & 0x55555555) << 1)
+
+
+def _mismatch16(a, b):
+    x = (a ^ b) & M32
+    y = (x | (x >> 1)) & 0x55555555
+    y = (y | (y >> 1)) & 0x33333333
+    y = (y | (y >> 2)) & 0x0F0F0F0F
+    y = (y | (y >> 4)) & 0x00FF00FF
+    y = (y | (y >> 8)) & 0x0000FFFF
+    return _brev(y) >> 16
+
+
+def _lower_bound(keys, v):
+    lo, hi = 0, len(keys)
+    while lo < hi:
+        mid = (lo + hi) >> 1
+        if keys[mid] < v:
+            lo = mid + 1
+        else:
+            hi = mid
+    return lo
+
+
+def _dp_gap(lg, mg):
+    return lg > 0 and mg > 1 and mg >= lg // 5
+
+
+def gap_walk(unc_chunks, mm_chunks):
+    """The kernel's gap state over 32-position chunks -> (dp_any,
+    many_gaps): runs of uncovered bits, a run at bit 0 continuing the
+    gap open at the end of the chunk before."""
+    g, lg, mg, opened, dp_any = -1, 0, 0, False, False
+    for unc, mm in zip(unc_chunks, mm_chunks):
+        bits = unc
+        while bits:
+            a = _ffs(bits) - 1
+            rest = ~(bits >> a) & M32
+            ln = _ffs(rest) - 1 if rest else 32 - a
+            run = ((M32 if ln >= 32 else (1 << ln) - 1) << a) & M32
+            if not (a == 0 and opened):
+                if 0 <= g < tcd.MAX_GAPS:
+                    dp_any |= _dp_gap(lg, mg)
+                g += 1
+                lg = mg = 0
+            lg += ln
+            mg += _popc(mm & run)
+            bits &= ~run & M32
+        opened = (unc >> 31) != 0
+    if 0 <= g < tcd.MAX_GAPS:
+        dp_any |= _dp_gap(lg, mg)
+    return dp_any, g >= tcd.MAX_GAPS
+
+
+def mirror_classify(ctx, packed, rlens, off, hits, unres, max_len,
+                    planes=None, pair_end=False):
+    """chain_classify_kernel, one thread per read. hits: numpy dict as
+    mirror_hits returns; planes: numpy dict exact/fd/acgt, updated."""
+    Bn = packed.shape[0]
+    H = hits["read"].shape[0]
+    text = ctx.text_words.numpy()
+    keys = [int(k) for k in ctx.bkeys.numpy()]
+    seq_len = ctx.seq_len
+    nwords = max_len >> 4
+    words = packed.view(np.uint32).reshape(Bn, -1) if packed.size else None
+    meta = np.zeros(Bn, dtype=np.int64)
+    pd_o = np.zeros(Bn, dtype=np.int64)
+    mmp = np.full((Bn, tcd.MM_SLOTS), -1, dtype=np.int64)
+    slow = np.zeros(Bn, dtype=np.int64)
+    PD_EMPTY = tcd.INT32_MAX
+    for b in range(Bn):
+        rlen = int(rlens[b])
+        spd, srp, sln = [PD_EMPTY] * 8, [0] * 8, [0] * 8
+        nkept = 0
+        for h in range(int(off[b]), min(int(off[b + 1]), H)):
+            if not hits["keep"][h]:
+                continue
+            if nkept < tcd.K_HITS:
+                e_rp, e_ln = int(hits["rpos"][h]), int(hits["len"][h])
+                e_pd = int(hits["loc"][h]) - e_rp
+                placed = False
+                for i in range(7, -1, -1):
+                    if placed:
+                        continue
+                    if i > 0 and (spd[i - 1] > e_pd or (
+                            spd[i - 1] == e_pd and srp[i - 1] > e_rp)):
+                        spd[i], srp[i], sln[i] = spd[i - 1], srp[i - 1], \
+                            sln[i - 1]
+                    else:
+                        spd[i], srp[i], sln[i] = e_pd, e_rp, e_ln
+                        placed = True
+            nkept += 1
+        has_hits, too_many = nkept > 0, nkept > tcd.K_HITS
+        pd0 = spd[0]
+        one_diag, cscore, seed_end, seed_last = True, 0, 0, -1
+        for i in range(8):
+            valid, same = spd[i] != PD_EMPTY, spd[i] == pd0
+            if valid and not same:
+                one_diag = False
+            if valid:
+                cscore += sln[i]
+            if valid and same:
+                seed_end = max(seed_end, srp[i] + sln[i])
+                seed_last = max(seed_last, srp[i])
+            if not same:
+                sln[i] = 0
+        has_can = cscore > (rlen >> 2)
+        pd_end = pd0 + rlen
+        p1 = min(max(pd0, 0), seq_len - 1)
+        p2 = min(max(pd_end - 1, 0), seq_len - 1)
+        span_ok = (pd_end <= seq_len
+                   and _lower_bound(keys, p1) == _lower_bound(keys, p2))
+        pds = pd0 if span_ok and has_hits else 0
+        sh, wbase = (pds & 15) * 2, pds >> 4
+        lim = min(rlen, max_len)
+        mm_total, found = 0, []
+        uncs, mms = [], []
+        for c in range((max_len + 31) // 32):
+            mm, rw = 0, [0, 0]
+            for q in range(2):
+                wi = 2 * c + q
+                if wi >= nwords:
+                    continue
+                r = _to_bwa(int(words[b, wi]))
+                t0 = int(text[min(max(wbase + wi, 0), len(text) - 1)])
+                t1 = int(text[min(max(wbase + wi + 1, 0), len(text) - 1)])
+                al = ((t0 << sh) | (t1 >> (32 - sh) if sh else 0)) & M32
+                mm |= _mismatch16(al, r) << (16 * q)
+                rw[q] = r
+            inlen = _span_bits(0, lim - 32 * c)
+            mm &= inlen
+            cov = 0
+            for i in range(8):
+                cov |= _span_bits(srp[i] - 32 * c, srp[i] + sln[i] - 32 * c)
+            unc = ~cov & inlen & M32
+            mm_total += _popc(mm & unc)
+            bits = mm
+            while bits and len(found) < tcd.MM_SLOTS:
+                p = _ffs(bits) - 1
+                j = 32 * c + p
+                word = rw[0] if p < 16 else rw[1]
+                found.append((j << 2) | ((word >> ((15 - (j & 15)) * 2)) & 3))
+                bits &= bits - 1
+            uncs.append(unc)
+            mms.append(mm)
+        dp_any, many_gaps = gap_walk(uncs, mms)
+        fast = (has_hits and not too_many and one_diag and has_can
+                and span_ok and not dp_any and not many_gaps
+                and mm_total <= tcd.MM_SLOTS)
+        nocand = not has_hits or (not too_many and one_diag and not has_can)
+        cls = tcd.CLASS_FAST if fast else (tcd.CLASS_NOCAND if nocand
+                                           else tcd.CLASS_SLOW)
+        if unres[b]:
+            cls = tcd.CLASS_SLOW
+        rplast = min(max(seed_end if seed_end < rlen else seed_last, 0), 511)
+        meta[b] = _i32(cls | (mm_total << 2) | (rplast << 8)
+                       | (min(cscore, 511) << 17))
+        pd_o[b] = pd0
+        mmp[b, :len(found)] = found
+        slow[b] = nkept if cls == tcd.CLASS_SLOW else 0
+        if planes is None or cls != tcd.CLASS_FAST:
+            continue
+        L, two_l = seq_len // 2, seq_len
+        ori = pd0 < L
+        gs = min(max(pd0 if ori else two_l - pd0 - rlen, 0), L - 1)
+        end = min(gs + rlen, L)
+        first = not pair_end or (b & 1) == 0
+        fo = (0 if ori else 3) if first else (1 if ori else 2)
+        planes["exact"][gs] += 1
+        planes["exact"][end] -= 1
+        planes["fd"][fo * (L + 2) + gs] += 1
+        planes["fd"][fo * (L + 2) + end] -= 1
+        for e in found:
+            at = pd0 + (e >> 2)
+            p = min(max(at if ori else two_l - 1 - at, 0), L - 1)
+            base = (e & 3) if ori else 3 - (e & 3)
+            planes["exact"][p] -= 1
+            planes["exact"][p + 1] += 1
+            planes["acgt"][base * (L + 1) + p] += 1
+    return meta, pd_o, mmp, slow
+
+
+def mirror_pack(off, off2, hits, slow, overflow, unres, meta, pd_o, H2):
+    """chain_pack_kernel: a thread per read (and per unused slot), the
+    overflow words by warp ballot -> the whole packed vector."""
+    Bn = overflow.shape[0]
+    H = hits["read"].shape[0]
+    hw, hl = np.zeros(H2, dtype=np.int64), np.zeros(H2, dtype=np.int64)
+    counts2 = np.zeros(Bn // 2, dtype=np.int64)
+    ovf = np.zeros(Bn // 32, dtype=np.int64)
+    total_kept = int(off2[Bn])
+    for b in range(Bn):
+        if slow[b] > 0:
+            slot = int(off2[b])
+            for h in range(int(off[b]), min(int(off[b + 1]), H)):
+                if slot >= H2:
+                    break
+                if not hits["keep"][h]:
+                    continue
+                hw[slot] = (int(hits["rpos"][h]) << 9) | int(hits["len"][h])
+                hl[slot] = hits["loc"][h]
+                slot += 1
+        if b % 2 == 0:
+            counts2[b >> 1] = _i32((int(slow[b]) & 0xFFFF)
+                                   | (int(slow[b + 1]) << 16))
+        if b % 32 == 0:
+            w = sum(1 << lane for lane in range(32)
+                    if overflow[b + lane] or unres[b + lane])
+            ovf[b >> 5] = _i32(w)
+    return np.concatenate([meta, pd_o, hw, hl, counts2, ovf,
+                           [total_kept, int(off[Bn] > H or total_kept > H2)]])
+
+
+def mirror_chain(genome, seeds, tfm, H, H2, planes=None, pair_end=False,
+                 max_walk=192):
+    """The whole once-a-batch chain on the mirrors -> (packed, pd, mmp)."""
+    n_seeds, rpos, slen, x0, freq, overflow = (x.numpy() for x in seeds)
+    off = mirror_scan(B, freq.shape[1], freq=freq, n=n_seeds)
+    hits, unres = mirror_hits(tfm, off, n_seeds, rpos, slen, x0, freq, H,
+                              max_walk)
+    meta, pd_o, mmp, slow = mirror_classify(
+        genome["tctx"], genome["packed"], genome["rlens"], off, hits, unres,
+        BUCKET, planes, pair_end)
+    off2 = mirror_scan(B, cnt=slow)
+    packed = mirror_pack(off, off2, hits, slow, overflow, unres, meta, pd_o,
+                         H2)
+    return packed, pd_o, mmp
+
+
+# ---- the mirrors against the plain versions and the reference ---------------
+
+@pytest.mark.parametrize("threads", [32, 64, SCAN_THREADS])
+def test_scan_mirror_equal_plain_and_reference(threads):
+    """Seed freqs with n_seeds below 0, inside and above S, and int32
+    counts, over several tiles when the mirror runs few threads."""
+    rng = np.random.default_rng(threads)
+    S = 9
+    freq = rng.integers(0, 51, size=(B, S)).astype(np.int64)
+    n = rng.integers(-1, S + 3, size=B).astype(np.int64)
+    cnt = rng.integers(0, 40, size=B).astype(np.int32)
+    valid = np.arange(S)[None, :] < n[:, None]
+    jf = jnp.where(jnp.asarray(valid), jnp.asarray(freq), 0).sum(axis=1)
+    for got_m, got_p, counts in (
+            (mirror_scan(B, S, freq=freq, n=n, threads=threads, items=2),
+             ck.chain_scan(torch.from_numpy(freq), torch.from_numpy(n)), jf),
+            (mirror_scan(B, cnt=cnt, threads=threads, items=3),
+             ck.chain_scan(torch.from_numpy(cnt)), jnp.asarray(cnt))):
+        want = np.concatenate([[0], np.asarray(jnp.cumsum(counts))])
+        np.testing.assert_array_equal(got_m, want)
+        np.testing.assert_array_equal(got_p.numpy(), want)
+        assert got_p.dtype == torch.int32
+
+
+def _jax_hits(jfm, seeds, H, max_walk):
+    """The reference's hit expansion (mapcaller_tpu/ops/fm_search.py:704-
+    731) with its sa_resolve."""
+    n_seeds, rpos, slen, x0, freq, _ = (jnp.asarray(x.numpy()) for x in seeds)
+    Bn, S = freq.shape
+    valid_s = jnp.arange(S)[None, :] < n_seeds[:, None]
+    freqs = jnp.where(valid_s, freq, 0).reshape(-1)
+    csum = jnp.cumsum(freqs) - freqs
+    hpos = jnp.arange(H)
+    rep = functools.partial(jnp.repeat, repeats=freqs, total_repeat_length=H)
+    hit_row = rep(x0.reshape(-1)) + hpos - rep(csum)
+    hit_rpos, hit_len = rep(rpos.reshape(-1)), rep(slen.reshape(-1))
+    hit_read = rep(jnp.repeat(jnp.arange(Bn), S))
+    hit_valid = hpos < jnp.minimum(freqs.sum(), H)
+    loc, ok = jfd.sa_resolve(jfm, jnp.where(hit_valid, hit_row, 32).astype(
+        jnp.int32), hit_valid, max_walk)
+    unres = jnp.zeros(Bn, jnp.int32).at[hit_read].max(
+        (hit_valid & ~ok).astype(jnp.int32)) > 0
+    keep = hit_valid & ((loc - hit_rpos) > 0)
+    return {k: np.asarray(v) for k, v in (
+        ("read", hit_read), ("rpos", hit_rpos), ("len", hit_len),
+        ("loc", loc), ("valid", hit_valid), ("keep", keep))}, \
+        np.asarray(unres)
+
+
+@pytest.mark.parametrize("full_sa,max_walk,H", [
+    (True, 192, 4 * B), (True, 192, B // 2), (False, 192, 4 * B),
+    (False, 6, 4 * B)])
+def test_hits_mirror_equal_plain_and_reference(genome, full_sa, max_walk, H):
+    """Full SA and the inverse-Psi walk (at 6 steps, reads left
+    unresolved); H above the raw total (padding) and below it
+    (truncation)."""
+    seeds = _seeds(genome)
+    tfm = genome["tfm"] if full_sa else genome["tfm0"]
+    jfm = genome["jfm"] if full_sa else genome["jfm0"]
+    off = ck.chain_scan(seeds[4], seeds[0])
+    total = int(off[-1])
+    assert (total > H) == (H < B)
+    got_m, unres_m = mirror_hits(tfm, off.numpy(), *(x.numpy() for x in (
+        seeds[0], seeds[1], seeds[2], seeds[3], seeds[4])), H, max_walk)
+    got_p = ck.chain_hits(tfm, off, *seeds[:5], H, max_walk)
+    want, unres_w = _jax_hits(jfm, seeds, H, max_walk)
+    for k in want:
+        np.testing.assert_array_equal(got_m[k], want[k], err_msg=k)
+        np.testing.assert_array_equal(getattr(got_p, k).numpy(), want[k],
+                                      err_msg=k)
+    np.testing.assert_array_equal(unres_m, unres_w)
+    np.testing.assert_array_equal(got_p.unresolved.numpy(), unres_w)
+    assert unres_w.any() == (max_walk < 192)
+
+
+def _true_diagonals(genome):
+    """Each read's first kept hit's diagonal (from its seeds), 0 without
+    one."""
+    seeds = _seeds(genome)
+    off = ck.chain_scan(seeds[4], seeds[0])
+    h = ck.chain_hits(genome["tfm"], off, *seeds[:5], 8 * B)
+    pd = np.zeros(B, dtype=np.int64)
+    for b, loc, rp in zip(*(x.numpy()[h.keep.numpy()][::-1]
+                            for x in (h.read, h.loc, h.rpos))):
+        pd[b] = loc - rp
+    return pd
+
+
+def _synthetic_hits(genome, seed):
+    """Flat hits grouped by read, made up to reach every branch: per read
+    0-12 hits, some on one diagonal with uncovered runs between them (up
+    to the 9 gaps an 8-hit window allows), some off it, some not kept,
+    (pd, rpos) ties of different lengths, diagonals at the text's end,
+    across the chromosome boundary and the read's own; H cuts the last
+    reads' hits."""
+    rng = np.random.default_rng(seed)
+    two_l = genome["tctx"].seq_len
+    rlens = genome["rlens"]
+    true_pd = _true_diagonals(genome)
+    per = {k: [] for k in ("rpos", "len", "loc", "keep")}
+    counts = np.zeros(B, dtype=np.int64)
+    for b in range(B):
+        ln = int(rlens[b])
+        k = int(rng.integers(0, 13))
+        mode = b % 5
+        diag = int(rng.choice([rng.integers(1, two_l - BUCKET),
+                               two_l - max(ln, 1), L1 - ln // 2,
+                               two_l - L1 - ln // 2]))
+        if mode >= 2 and true_pd[b] > 0:
+            diag = int(true_pd[b])
+        for j in range(k):
+            if mode == 0:                    # spread seeds on one diagonal
+                rp = min(j * 14, BUCKET - 1)
+                sl = int(rng.integers(1, 10))
+                d = diag
+            elif mode == 1:                  # ties: same (pd, rpos)
+                rp = int(rng.integers(0, 3)) * 20
+                sl = int(rng.integers(5, 40))
+                d = diag + int(rng.integers(0, 2)) * 7
+            else:
+                rp = int(rng.integers(0, max(ln, 1)))
+                sl = int(rng.integers(1, 60))
+                d = diag if rng.random() < 0.7 else int(
+                    rng.integers(1, two_l - BUCKET))
+            per["rpos"].append(rp)
+            per["len"].append(sl)
+            per["loc"].append(d + rp)
+            per["keep"].append(rng.random() < 0.9)
+        counts[b] = k
+    H = int(counts.sum()) - 7
+    hits = {k: np.asarray(v[:H]) for k, v in per.items()}
+    off = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    read = np.repeat(np.arange(B), counts)[:H]
+    hits.update(read=read, valid=np.ones(H, dtype=bool))
+    unres = rng.random(B) < 0.03
+    return off, hits, unres
+
+
+def _torch_hits(hits, unres):
+    i32 = torch.int32
+    return ck.Hits(*(torch.from_numpy(np.asarray(hits[k])).to(i32)
+                     for k in ("read", "rpos", "len", "loc")),
+                   torch.from_numpy(hits["valid"]),
+                   torch.from_numpy(np.asarray(hits["keep"], dtype=bool)),
+                   torch.from_numpy(unres))
+
+
+def _jax_classify(genome, hits, unres):
+    """The reference's classify_reads, unresolved override and meta1."""
+    words = jnp.asarray(ck.read_words_bwa(torch.from_numpy(genome["packed"]),
+                                          BUCKET).numpy().astype(np.uint32))
+    cls, pd0, mm, rplast, cscore, mmp = jcd.classify_reads(
+        genome["jctx"], words, jnp.asarray(genome["rlens"]),
+        *(jnp.asarray(np.asarray(hits[k]).astype(np.int32))
+          for k in ("read", "rpos", "len", "loc")),
+        jnp.asarray(np.asarray(hits["keep"], dtype=bool)), BUCKET)
+    cls = jnp.where(jnp.asarray(unres), jcd.CLASS_SLOW, cls)
+    meta = cls | (mm << 2) | (rplast << 8) | (cscore << 17)
+    return np.asarray(meta), np.asarray(pd0), np.asarray(mmp), \
+        np.asarray(cls)
+
+
+def _np_planes(L):
+    return {"exact": np.zeros(L + 2, np.int64), "fd": np.zeros(4 * (L + 2),
+                                                                np.int64),
+            "acgt": np.zeros(4 * (L + 1), np.int64)}
+
+
+@pytest.mark.parametrize("source,pair_end", [("synthetic", False),
+                                             ("synthetic", True),
+                                             ("seeds", True)])
+def test_classify_mirror_equal_plain_and_reference(genome, source, pair_end):
+    """Each read's meta1, pd, mmp and SLOW kept count, and the FAST
+    reads' plane adds, against classify_reads and scatter_fast_evidence
+    of the reference."""
+    if source == "seeds":
+        seeds = _seeds(genome)
+        off_t = ck.chain_scan(seeds[4], seeds[0])
+        th = ck.chain_hits(genome["tfm0"], off_t, *seeds[:5], 2 * B, 6)
+        off = off_t.numpy()
+        hits = {k: getattr(th, k).numpy() for k in
+                ("read", "rpos", "len", "loc", "valid", "keep")}
+        unres = th.unresolved.numpy()
+    else:
+        off, hits, unres = _synthetic_hits(genome, 5 + pair_end)
+        th = _torch_hits(hits, unres)
+        off_t = torch.from_numpy(off)
+    L = genome["tctx"].seq_len // 2
+    pl_m = _np_planes(L)
+    meta_m, pd_m, mmp_m, slow_m = mirror_classify(
+        genome["tctx"], genome["packed"], genome["rlens"], off, hits, unres,
+        BUCKET, pl_m, pair_end)
+    out = torch.zeros(2 * B, dtype=torch.int32)
+    pl_p = tdp.DevicePlanes.zeros(L, "cpu")
+    mmp_p, slow_p = ck.chain_classify(
+        genome["tctx"], torch.from_numpy(genome["packed"]),
+        torch.from_numpy(genome["rlens"]), off_t, th, BUCKET, out, pl_p,
+        pair_end)
+    meta_w, pd_w, mmp_w, cls_w = _jax_classify(genome, hits, unres)
+    for got_meta, got_pd, got_mmp in ((meta_m, pd_m, mmp_m),
+                                      (out[:B].numpy(), out[B:].numpy(),
+                                       mmp_p.numpy())):
+        np.testing.assert_array_equal(got_meta, meta_w)
+        np.testing.assert_array_equal(got_pd, pd_w)
+        np.testing.assert_array_equal(got_mmp, mmp_w)
+    kept = np.bincount(np.asarray(hits["read"])[np.asarray(hits["keep"],
+                                                           bool)],
+                       minlength=B)
+    want_slow = np.where(cls_w == jcd.CLASS_SLOW, kept, 0)
+    np.testing.assert_array_equal(slow_m, want_slow)
+    np.testing.assert_array_equal(slow_p.numpy(), want_slow)
+    jpl = jdp.DevicePlanes.zeros(L)
+    first = (np.arange(B) & 1) == 0 if pair_end else np.ones(B, bool)
+    from mapcaller_tpu.ops.evidence import scatter_fast_evidence as jscatter
+    exact, fd, acgt = jscatter(
+        jpl.exact_diff, jpl.f_diff.reshape(-1), jpl.acgt.reshape(-1),
+        jnp.asarray(cls_w == jcd.CLASS_FAST), jnp.asarray(pd_w),
+        jnp.asarray(mmp_w), jnp.asarray(genome["rlens"]), jnp.asarray(first),
+        L, 2 * L, sign=1)
+    for key, want, got in (("exact", exact, pl_p.exact_diff),
+                           ("fd", fd, pl_p.f_diff), ("acgt", acgt,
+                                                     pl_p.acgt)):
+        np.testing.assert_array_equal(pl_m[key], np.asarray(want))
+        np.testing.assert_array_equal(got.numpy().reshape(-1),
+                                      np.asarray(want))
+    cls_m = meta_m & 3
+    # the cases the batch must reach
+    assert {0, 1, 2} <= set(cls_m.tolist())
+    assert (cls_m == tcd.CLASS_FAST).sum() > 0 and np.asarray(exact).any()
+    if source == "synthetic":
+        assert (kept > tcd.K_HITS).any() and unres.any()
+        assert ((mmp_w >= 0).sum(1) == tcd.MM_SLOTS).any()
+
+
+def test_window_ties_equal_reference(genome):
+    """Two kept hits with equal (pd, rpos) and different lengths, after a
+    hit that sorts before them: the window's outputs equal the
+    reference's."""
+    off = np.zeros(B + 1, dtype=np.int32)
+    off[1:] = 3
+    hits = {"read": np.zeros(3, np.int64), "rpos": np.array([20, 20, 0]),
+            "len": np.array([30, 50, 10]), "loc": np.array([520, 520, 500]),
+            "keep": np.ones(3, bool), "valid": np.ones(3, bool)}
+    unres = np.zeros(B, bool)
+    meta_m, pd_m, _, _ = mirror_classify(
+        genome["tctx"], genome["packed"], genome["rlens"], off, hits, unres,
+        BUCKET)
+    meta_w, pd_w, _, _ = _jax_classify(genome, hits, unres)
+    np.testing.assert_array_equal(meta_m, meta_w)
+    np.testing.assert_array_equal(pd_m, pd_w)
+    assert pd_w[0] == 500 and (meta_w[0] >> 17) & 0x1FF == 90
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_gap_walk_equal_plain_gaps(seed):
+    """The kernel's run walk over random coverage and mismatch masks
+    (up to 40 gaps, runs across chunk edges) against the plain
+    definition: gap g = the g-th maximal run of uncovered in-length
+    positions, DP on gaps 0-9, many gaps at a gap index >= 10."""
+    rng = np.random.default_rng(seed)
+    for _ in range(60):
+        n = int(rng.integers(0, 129))
+        unc = rng.random(128) < rng.choice([0.1, 0.5, 0.9])
+        unc[n:] = False
+        mm = (rng.random(128) < 0.4) & (np.arange(128) < n)
+        start = unc & np.concatenate([[True], ~unc[:-1]])
+        gapidx = np.cumsum(start) - 1
+        want_dp = False
+        for g in range(tcd.MAX_GAPS):
+            lg = int((unc & (gapidx == g)).sum())
+            mg = int((unc & (gapidx == g) & mm).sum())
+            want_dp |= lg > 0 and mg > 1 and mg >= lg // 5
+        want_many = bool((unc & (gapidx >= tcd.MAX_GAPS)).any())
+
+        def chunks(bits):
+            return [int(sum(1 << p for p in range(32) if bits[32 * c + p]))
+                    for c in range(4)]
+
+        assert gap_walk(chunks(unc), chunks(mm)) == (want_dp, want_many)
+
+
+# ---- the whole chain dispatch -------------------------------------------
+
+def _jax_chain(genome, jfm, tier, planes_L=None, pair_end=False):
+    fm3 = JaxFM3.from_host(genome["idx"], jfm, pfx_k=0)
+    kern = jfs.build_seed_chain_kernel(fm3, genome["jctx"], BUCKET, B,
+                                       slow_hits_x4=tier,
+                                       with_planes=planes_L is not None,
+                                       pair_end=pair_end)
+    args = (jnp.asarray(genome["packed"]), jnp.asarray(genome["rlens"]))
+    if planes_L is None:
+        return kern(*args) + (None,)
+    return kern(*args, jdp.DevicePlanes.zeros(planes_L))
+
+
+@pytest.mark.parametrize("full_sa,tier,fold,pair_end", [
+    (True, 2, True, True), (True, 18, False, False), (True, 1, True, False),
+    (False, 2, True, False), (False, 2, False, True)])
+def test_chain_dispatch_equal_reference(genome, monkeypatch, full_sa, tier,
+                                        fold, pair_end):
+    """The port's SeedChainKernel (the plain versions) and the mirrors
+    chained as the kernels run against the reference's
+    build_seed_chain_kernel: packed vector, pd, mmp and planes. Tiers 2
+    and 1 overflow both hit buffers (total raw > H, kept slow > H2); the
+    index without a full SA walks 6 inverse-Psi steps in both packages,
+    so reads stay unresolved."""
+    jfm = genome["jfm"] if full_sa else genome["jfm0"]
+    tfm = genome["tfm"] if full_sa else genome["tfm0"]
+    walk = 192 if full_sa else 6
+    if not full_sa:
+        monkeypatch.setattr(jfs, "sa_resolve",
+                            functools.partial(jfd.sa_resolve, max_walk=walk),
+                            raising=False)
+        monkeypatch.setattr(tfs, "chain_hits",
+                            functools.partial(ck.chain_hits, max_walk=walk))
+    L = genome["tctx"].seq_len // 2
+    w_dev, w_pd, w_mmp, w_pl = _jax_chain(genome, jfm, tier,
+                                          L if fold else None, pair_end)
+    fm3 = DeviceFM3.from_host(genome["idx"], tfm, pfx_k=0)
+    kern = tfs.build_seed_chain_kernel(fm3, genome["tctx"], BUCKET, B,
+                                       slow_hits_x4=tier)
+    planes = tdp.DevicePlanes.zeros(L, "cpu") if fold else None
+    g_dev, g_pd, g_mmp = kern(torch.from_numpy(genome["packed"]),
+                              torch.from_numpy(genome["rlens"]),
+                              planes=planes, pair_end=pair_end)
+    pl_m = _np_planes(L) if fold else None
+    m_dev, m_pd, m_mmp = mirror_chain(genome, _seeds(genome), tfm, kern.H,
+                                      kern.H2, pl_m, pair_end, walk)
+    for got in ((g_dev.numpy(), g_pd.numpy(), g_mmp.numpy()),
+                (m_dev, m_pd, m_mmp)):
+        np.testing.assert_array_equal(got[0], np.asarray(w_dev))
+        np.testing.assert_array_equal(got[1], np.asarray(w_pd))
+        np.testing.assert_array_equal(got[2], np.asarray(w_mmp))
+    if fold:
+        for key, pkey in (("exact", "exact_diff"), ("fd", "f_diff"),
+                          ("acgt", "acgt")):
+            want = np.asarray(getattr(w_pl, pkey)).reshape(-1)
+            np.testing.assert_array_equal(
+                getattr(planes, pkey).numpy().reshape(-1), want)
+            np.testing.assert_array_equal(pl_m[key], want)
+    p = np.asarray(w_dev)
+    H2 = kern.H2
+    # tiers 1 and 2 overflow both buffers, tier 18 neither; unresolved
+    # reads set overflow bits
+    assert bool(p[-1]) == (int(p[-2]) > H2) == (tier < 18)
+    ovf = p[2 * B + 2 * H2 + B // 2:2 * B + 2 * H2 + B // 2 + B // 32]
+    assert ovf.any() == (not full_sa)
+
+
+# ---- the wrappers -------------------------------------------------------
+
+def test_constants_equal_cuda_source():
+    for name, value in (("K_HITS", tcd.K_HITS), ("MAX_GAPS", tcd.MAX_GAPS),
+                        ("MM_SLOTS", tcd.MM_SLOTS),
+                        ("PD_EMPTY", tcd.INT32_MAX)):
+        assert _cu_const(name) == value, name
+    with open(CU) as f:
+        src = f.read()
+    assert re.search(r"CLASS_NOCAND = 0, CLASS_FAST = 1, CLASS_SLOW = 2",
+                     src)
+    assert (tcd.CLASS_NOCAND, tcd.CLASS_FAST, tcd.CLASS_SLOW) == (0, 1, 2)
+
+
+def test_cpu_dispatch_runs_plain_versions(genome, monkeypatch):
+    """CPU tensors take the plain versions and count no launch; the
+    kernel library is never loaded."""
+    monkeypatch.setattr(ck, "_load_kernel", lambda: pytest.fail("loaded"))
+    ck.STATS.reset()
+    seeds = _seeds(genome)
+    fm3 = DeviceFM3.from_host(genome["idx"], genome["tfm"], pfx_k=0)
+    kern = tfs.build_seed_chain_kernel(fm3, genome["tctx"], BUCKET, B)
+    kern(torch.from_numpy(genome["packed"]), torch.from_numpy(genome["rlens"]))
+    off = ck.chain_scan(seeds[4], seeds[0])
+    assert torch.equal(off, ck.chain_scan_plain(seeds[4], seeds[0]))
+    assert sum(ck.STATS.launches.values()) == 0
+
+
+def _valid_args(genome):
+    seeds = _seeds(genome)
+    off = ck.chain_scan(seeds[4], seeds[0])
+    hits = ck.chain_hits(genome["tfm"], off, *seeds[:5], 2 * B)
+    packed = torch.from_numpy(genome["packed"])
+    rlens = torch.from_numpy(genome["rlens"])
+    H2 = B
+    out = torch.zeros(2 * B + 2 * H2 + B // 2 + B // 32 + 2,
+                      dtype=torch.int32)
+    return seeds, off, hits, packed, rlens, out, H2
+
+
+@pytest.mark.parametrize("bad", [
+    "scan_dtype", "scan_n_shape", "scan_3d", "hits_dtype", "hits_off",
+    "hits_devices", "classify_rlens", "classify_packed", "classify_hits",
+    "classify_planes", "classify_device", "pack_out", "pack_batch",
+    "pack_overflow"])
+def test_wrapper_refusals(genome, bad):
+    seeds, off, hits, packed, rlens, out, H2 = _valid_args(genome)
+    n_seeds, s_rpos, s_len, s_x0, s_freq, overflow = seeds
+    meta = torch.empty(B, device="meta")
+    ctx, fm = genome["tctx"], genome["tfm"]
+    calls = {
+        "scan_dtype": (TypeError, lambda: ck.chain_scan(
+            s_freq.to(torch.int32), n_seeds)),
+        "scan_n_shape": (ValueError, lambda: ck.chain_scan(
+            s_freq, n_seeds[:-1])),
+        "scan_3d": (ValueError, lambda: ck.chain_scan(s_freq[:, :, None])),
+        "hits_dtype": (TypeError, lambda: ck.chain_hits(
+            fm, off, n_seeds, s_rpos.to(torch.int32), s_len, s_x0, s_freq,
+            B)),
+        "hits_off": (ValueError, lambda: ck.chain_hits(
+            fm, off[:-1], n_seeds, s_rpos, s_len, s_x0, s_freq, B)),
+        "hits_devices": (ValueError, lambda: ck.chain_hits(
+            fm, off, meta.to(torch.int64), s_rpos, s_len, s_x0, s_freq, B)),
+        "classify_rlens": (TypeError, lambda: ck.chain_classify(
+            ctx, packed, rlens.to(torch.int64), off, hits, BUCKET, out)),
+        "classify_packed": (ValueError, lambda: ck.chain_classify(
+            ctx, packed[:, :-4], rlens, off, hits, BUCKET, out)),
+        "classify_hits": (TypeError, lambda: ck.chain_classify(
+            ctx, packed, rlens, off, hits._replace(keep=hits.keep.to(
+                torch.uint8)), BUCKET, out)),
+        "classify_planes": (ValueError, lambda: ck.chain_classify(
+            ctx, packed, rlens, off, hits, BUCKET, out,
+            tdp.DevicePlanes.zeros(100, "cpu"))),
+        "classify_device": (ValueError, lambda: ck.chain_classify(
+            ctx, packed.to("meta"), rlens.to("meta"), off.to("meta"),
+            ck.Hits(*(t.to("meta") for t in hits)), BUCKET, out.to("meta"))),
+        "pack_out": (ValueError, lambda: ck.chain_pack(
+            off, off, hits, torch.zeros(B, dtype=torch.int32), overflow,
+            out[:-1], H2)),
+        "pack_batch": (ValueError, lambda: ck.chain_pack(
+            off[:B - 15], off[:B - 15], hits._replace(
+                unresolved=hits.unresolved[:B - 16]),
+            torch.zeros(B - 16, dtype=torch.int32), overflow[:B - 16], out,
+            H2)),
+        "pack_overflow": (TypeError, lambda: ck.chain_pack(
+            off, off, hits, torch.zeros(B, dtype=torch.int32),
+            overflow.to(torch.int32), out, H2)),
+    }
+    exc, call = calls[bad]
+    with pytest.raises(exc):
+        call()
