@@ -68,7 +68,12 @@ exits non-zero):
              ones), on batch 0 at tier 18 and on an edge batch at tier 1;
              batch 0 timed (device ms, call ms, plain ms, bound, and
              torch.cumsum beside the slow-count scan; the seed-freq scan
-             apart); then the 1-step run's batches
+             apart; the floor: an empty one-thread launch, timed alike);
+             a race: the scan on the seed freqs, the hits kernel and the
+             scan on the slow counts each launched 200 times back to back
+             on batch 0 and on 131,072 reads (four batches end to end, a
+             scan tile cut short), every result equal to the plain
+             version; then the 1-step run's batches
              replayed without the full SA (the inverse-Psi walk), equal
              too, batch 0's walk timed
   evidence   device ms (queued launches) of the evidence apply of one
@@ -500,23 +505,23 @@ def chain_run(ck, kern, packed, rlens, fm=None, tier=None, planes=None,
     """The once-a-batch chain kernels of SeedChainKernel `kern` after its
     scan, on the scan kernel's seeds; fm replaces the kernel's 1-step
     table (a copy without the full SA walks), tier its hit buffers.
-    Returns every stage's output: (seeds, off, hits, out, mmp, slow_kept,
-    off2)."""
+    Returns every stage's output: (seeds, the seed-freq scan, hits, out,
+    mmp, slow_kept, off2)."""
     import torch
     B = kern.batch
     H, H2 = ((kern.H, kern.H2) if tier is None else
              (B * max(9, tier) // 4, B * tier // 4))
     fm = kern.fm1 if fm is None else fm
     seeds = kern._scan_packed(packed, rlens)
-    off = ck.chain_scan(seeds[4], seeds[0])
-    hits = ck.chain_hits(fm, off, *seeds[:5], H)
+    scan = ck.chain_scan_seeds(seeds[4], seeds[0], H)
+    hits = ck.chain_hits(fm, scan, *seeds[:5], H)
     out = torch.empty(2 * B + 2 * H2 + B // 2 + B // 32 + 2,
                       dtype=torch.int32, device=packed.device)
-    mmp, slow = ck.chain_classify(kern.ctx, packed, rlens, off, hits,
+    mmp, slow = ck.chain_classify(kern.ctx, packed, rlens, scan.off, hits,
                                   kern.max_len, out, planes, pair_end)
     off2 = ck.chain_scan(slow)
-    ck.chain_pack(off, off2, hits, slow, seeds[5], out, H2)
-    return seeds, off, hits, out, mmp, slow, off2
+    ck.chain_pack(scan.off, off2, hits, slow, seeds[5], out, H2)
+    return seeds, scan, hits, out, mmp, slow, off2
 
 
 def equal_chain(what, ck, kern, packed, rlens, L, **kw):
@@ -530,12 +535,13 @@ def equal_chain(what, ck, kern, packed, rlens, L, **kw):
     pk = DevicePlanes.zeros(L, packed.device) if L else None
     pp = DevicePlanes.zeros(L, packed.device) if L else None
     got = chain_run(ck, kern, packed, rlens, planes=pk, **kw)
-    seeds, off, hits, out, mmp, slow, off2 = got
+    seeds, scan, hits, out, mmp, slow, off2 = got
+    off = scan.off
     fm = kw.get("fm") or kern.fm1
-    H2 = (out.shape[0] - 2 * B - B // 2 - B // 32 - 2) // 2
-    want = dict(off=ck.chain_scan_plain(seeds[4], seeds[0]))
-    want["hits"] = ck.chain_hits_plain(fm, off, *seeds[:5],
-                                       hits.read.shape[0])
+    H, H2 = hits.read.shape[0], (out.shape[0] - 2 * B - B // 2 - B // 32
+                                 - 2) // 2
+    want = dict(scan=ck.chain_scan_seeds_plain(seeds[4], seeds[0], H))
+    want["hits"] = ck.chain_hits_plain(fm, off, *seeds[:5], H)
     outp = torch.empty_like(out)
     want["mmp"], want["slow"] = ck.chain_classify_plain(
         kern.ctx, packed, rlens, off, hits, kern.max_len, outp, pp,
@@ -545,7 +551,9 @@ def equal_chain(what, ck, kern, packed, rlens, L, **kw):
     outp[:2 * B] = out[:2 * B]            # the pack reads the kernel's classes
     want["out"] = ck.chain_pack_plain(off, off2, hits, slow, seeds[5], outp,
                                       H2)
-    pairs = [("off", off, want["off"]), ("off2", off2, want["off2"]),
+    pairs = [("off", off, want["scan"].off),
+             ("start", scan.start, want["scan"].start),
+             ("off2", off2, want["off2"]),
              ("mmp", mmp, want["mmp"]), ("slow_kept", slow, want["slow"]),
              ("meta_pd", out[:2 * B], want["meta_pd"]),
              ("pack", out[2 * B:], want["out"][2 * B:])]
@@ -565,14 +573,84 @@ def equal_chain(what, ck, kern, packed, rlens, L, **kw):
     return max(errs.values()), got
 
 
+def hit_rows(seeds, H):
+    """The SA row of each valid hit slot (its seed's x0 plus its rank
+    there) and the flat seed slot it expands, as the hits kernel finds
+    them."""
+    import torch
+    n, _, _, x0, freq = seeds[:5]
+    S = freq.shape[1]
+    valid = torch.arange(S, device=freq.device)[None, :] < n[:, None]
+    flat = torch.where(valid, freq, 0).reshape(-1)
+    csum = torch.cumsum(flat, 0)
+    h = torch.arange(min(int(csum[-1]), H), device=freq.device)
+    seed = torch.searchsorted(csum, h, right=True)
+    return x0.reshape(-1)[seed] + h - (csum - flat)[seed], seed
+
+
+def walk_work(fm, rows, max_walk):
+    """The inverse-Psi walks of `rows` replayed as the hits kernel walks
+    them: the steps taken, the distinct occ4 rows they gather and the
+    distinct sa_samp entries they end on."""
+    import torch
+    from mapcaller_tpu_torch.ops.fm_device import inv_psi
+    nrow = fm.occ_rows.shape[0]
+    seen = torch.zeros(nrow + 1, dtype=torch.bool, device=rows.device)
+    steps = torch.zeros((), dtype=torch.int64, device=rows.device)
+    k = rows.clone()
+    for _ in range(max_walk):
+        todo = (k & 31) != 0
+        kadj = k - (k >= fm.primary).to(k.dtype)
+        seen[torch.where(todo, kadj >> 4, nrow)] = True
+        steps += todo.sum()
+        k = torch.where(todo, inv_psi(fm, torch.where(todo, k, 32)), k)
+    return (int(steps), int(seen[:nrow].sum()),
+            int(torch.unique(k >> 5).numel()))
+
+
+def hits_work(fm, seeds, scan, hits):
+    """Bytes and int32 operations of one chain_hits call, and its walk
+    steps (None with the full SA): off[B], the start index, n_seeds, the
+    valid seeds' freqs, x0/rpos/len of the seeds that own a valid hit
+    (rpos/len of the last seed slot when slots are padded), the outputs,
+    a flag byte per unresolved read, and the distinct SA entries of the
+    valid hits, or without the full SA the distinct occ4 rows and
+    sa_samp entries of their walks and L2's four counts."""
+    import torch
+    from mapcaller_tpu_torch.ops.chain_kernels import MAX_WALK
+    B, S = seeds[4].shape
+    H = hits.read.shape[0]
+    rows, seed = hit_rows(seeds, H)
+    nbytes = (4 + 8 * scan.start.shape[0] + 8 * B
+              + 8 * int(seeds[0].clamp(0, S).sum())
+              + 24 * int(torch.unique(seed).numel())
+              + (16 if rows.shape[0] < H else 0)
+              + 18 * H + int(hits.unresolved.sum()))
+    ops = CHAIN_OPS["hit"] * H
+    if fm.has_full_sa:
+        return nbytes + 4 * int(torch.unique(rows).numel()), ops, None
+    steps, nrows, nsamp = walk_work(fm, rows, MAX_WALK)
+    return (nbytes + 32 * nrows + 8 * nsamp + 8 * 4,
+            ops + CHAIN_OPS["walk_step"] * steps, steps)
+
+
+def bound_of(nbytes, ops):
+    """(bound_ms, bound_by): the larger of the bytes over the card's
+    memory rate and the int32 operations over its peak rate."""
+    t_b, t_o = nbytes / H100_BYTES_S, ops / H100_INT32_OPS_S
+    return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+
+
 def chain_bounds(kern, packed, got):
     """Least time of each chain kernel on this batch: the larger of the
     bytes it must move (each input read once, each output written once;
-    of the int64 seed tables only the valid seeds' entries, one SA entry
-    per valid hit) and its int32 operations (CHAIN_OPS), over the card's
-    rates. -> {kernel: (bound_ms, bound_by, bytes)}."""
-    seeds, off, hits, out, mmp, slow, off2 = got
+    of the int64 seed tables only the entries the kernel needs, one SA
+    entry per distinct valid hit row) and its int32 operations
+    (CHAIN_OPS), over the card's rates.
+    -> {kernel: (bound_ms, bound_by, bytes)}."""
+    seeds, scan, hits, out, mmp, slow, off2 = got
     B, S = seeds[4].shape
+    groups = scan.start.shape[0]
     H, H2 = hits.read.shape[0], kern.H2
     nseeds = int(seeds[0].clamp(0, S).sum())
     nvalid = int(hits.valid.sum())
@@ -582,22 +660,17 @@ def chain_bounds(kern, packed, got):
     o = CHAIN_OPS
     work = dict(
         chain_scan=(4 * B + 4 * (B + 1), o["scan_read"] * B),
-        chain_scan_seeds=(8 * B + 8 * nseeds + 4 * (B + 1),
+        chain_scan_seeds=(8 * B + 8 * nseeds + 4 * (B + 1) + 8 * groups + B,
                           o["scan_read"] * B + nseeds),
-        chain_hits=(4 * (B + 1) + 8 * B + 32 * nseeds + 4 * nvalid
-                    + 18 * H + B, o["hit"] * H),
+        chain_hits=hits_work(kern.fm1, seeds, scan, hits)[:2],
         chain_classify=(4 * (B + 1) + B * (4 + 4 * words + 1)
                         + 13 * nvalid + 8 * (words + 1) * B + 28 * B,
                         o["read_word"] * words * B + o["kept_hit"] * nkept),
         chain_pack=(B * (4 + 4 + 4 + 4 + 1 + 1) + 13 * slow_h
                     + 8 * H2 + 4 * (B // 2 + B // 32 + 2),
                     o["pack_read"] * B + o["pack_hit"] * slow_h))
-    res = {}
-    for k, (nbytes, ops) in work.items():
-        t_b, t_o = nbytes / H100_BYTES_S, ops / H100_INT32_OPS_S
-        res[k] = (1e3 * max(t_b, t_o), "bytes" if t_b >= t_o
-                  else "operations", nbytes)
-    return res
+    return {k: (*bound_of(nbytes, ops), nbytes)
+            for k, (nbytes, ops) in work.items()}
 
 
 def measure_chain(ck, kern, packed, rlens, reps=50):
@@ -606,16 +679,18 @@ def measure_chain(ck, kern, packed, rlens, reps=50):
     second scan's counts (the one PyTorch call of the same function)."""
     import torch
     got = chain_run(ck, kern, packed, rlens)
-    seeds, off, hits, out, mmp, slow, off2 = got
+    seeds, scan, hits, out, mmp, slow, off2 = got
+    off = scan.off
     B = kern.batch
     fm, H, H2 = kern.fm1, kern.H, kern.H2
     outk = out.clone()
     calls = dict(
         chain_scan=(lambda: ck.chain_scan(slow),
                     lambda: ck.chain_scan_plain(slow)),
-        chain_scan_seeds=(lambda: ck.chain_scan(seeds[4], seeds[0]),
-                          lambda: ck.chain_scan_plain(seeds[4], seeds[0])),
-        chain_hits=(lambda: ck.chain_hits(fm, off, *seeds[:5], H),
+        chain_scan_seeds=(lambda: ck.chain_scan_seeds(seeds[4], seeds[0], H),
+                          lambda: ck.chain_scan_seeds_plain(seeds[4],
+                                                            seeds[0], H)),
+        chain_hits=(lambda: ck.chain_hits(fm, scan, *seeds[:5], H),
                     lambda: ck.chain_hits_plain(fm, off, *seeds[:5], H)),
         chain_classify=(lambda: ck.chain_classify(
             kern.ctx, packed, rlens, off, hits, kern.max_len, outk),
@@ -637,6 +712,10 @@ def measure_chain(ck, kern, packed, rlens, reps=50):
                              share_of_bound=bound / res[name]["ms"])
     res["chain_scan"]["library_ms"] = cuda_ms(
         lambda: torch.cumsum(slow, 0), reps, queued=True)
+    # the floor under every launch: a one-thread kernel that returns at
+    # once, timed as the kernels are
+    res["floor_ms"] = cuda_ms(lambda: torch.cuda._sleep(0), reps,
+                              queued=True)
     res["batch"] = dict(B=B, H=H, H2=H2, total_raw=int(off[-1]),
                         valid_hits=int(hits.valid.sum()),
                         kept_hits=int(hits.keep.sum()),
@@ -678,13 +757,56 @@ def run_chain(ck, batches, card, reps=50):
     own["max_abs_err"] = max(errs)
     emit("chain", card=card, main_path_batches=len(batches),
          calls_equal=len(errs), max_abs_err=max(errs), main_path_batch0=own)
+    run_chain_race(ck, batches, card)
     return own
+
+
+def run_chain_race(ck, batches, card, launches=200):
+    """The redesigned kernels launched `launches` times back to back each
+    (the scan on the seed freqs, the hits kernel on each of those scans,
+    the scan on the slow counts), on batch 0 and on four batches' seeds
+    end to end (131,072 reads: 341 1/3 scan tiles), every result equal to
+    its plain version in every element: the look-back's tickets, epochs
+    and status words from launch to launch."""
+    import torch
+    kern = batches[0][0]
+    parts = [chain_run(ck, k, p, r) for k, p, r, _ in batches[:4]]
+    big = [torch.cat([pt[0][i] for pt in parts]) for i in range(6)]
+    inputs = (("batch 0", parts[0][0], parts[0][5], kern.H),
+              (f"{big[0].shape[0]} reads", big,
+               torch.cat([pt[5] for pt in parts]),
+               big[0].shape[0] * kern.H // kern.batch))
+    res = {}
+    for what, seeds, slow, H in inputs:
+        freq, n = seeds[4], seeds[0]
+        want_scan = ck.chain_scan_seeds_plain(freq, n, H)
+        want_hits = ck.chain_hits_plain(kern.fm1, want_scan.off, *seeds[:5],
+                                        H)
+        want_off2 = ck.chain_scan_plain(slow)
+        scans = [ck.chain_scan_seeds(freq, n, H) for _ in range(launches)]
+        hits = [ck.chain_hits(kern.fm1, sc, *seeds[:5], H) for sc in scans]
+        offs2 = [ck.chain_scan(slow) for _ in range(launches)]
+        torch.cuda.synchronize()
+        bad = dict(
+            chain_scan_seeds=sum(not all(map(torch.equal, sc, want_scan))
+                                 for sc in scans),
+            chain_hits=sum(not all(map(torch.equal, h, want_hits))
+                           for h in hits),
+            chain_scan=sum(not torch.equal(o, want_off2) for o in offs2))
+        if any(bad.values()):
+            raise AssertionError(f"chain race on {what}: results that "
+                                 f"differ from the plain version {bad}")
+        res[what] = dict(B=int(n.shape[0]), H=H, launches_each=launches,
+                         scan_tiles=-(-int(n.shape[0]) // ck.SCAN_THREADS),
+                         total_raw=int(want_scan.off[-1]), unequal=bad)
+        del scans, hits, offs2
+    emit("chain", card=card, race=res)
 
 
 def run_chain_walk(ck, batches, card, reps=20):
     """The 1-step run's batches replayed with the full SA withheld, so the
     hits kernel walks inverse-Psi: each chain stage equal to its plain
-    version; batch 0's hits kernel timed."""
+    version; batch 0's hits kernel timed beside its bound (hits_work)."""
     import dataclasses
     import torch
     kern = batches[0][0]
@@ -698,12 +820,19 @@ def run_chain_walk(ck, batches, card, reps=20):
         unresolved += int(got[2].unresolved.sum())
     _, p, r, _ = batches[0]
     seeds = kern._scan_packed(p, r)
-    off = ck.chain_scan(seeds[4], seeds[0])
-    walk = dict(ms=cuda_ms(lambda: ck.chain_hits(fm, off, *seeds[:5],
+    scan = ck.chain_scan_seeds(seeds[4], seeds[0], kern.H)
+    hits = ck.chain_hits(fm, scan, *seeds[:5], kern.H)
+    nbytes, ops, steps = hits_work(fm, seeds, scan, hits)
+    bound, by = bound_of(nbytes, ops)
+    walk = dict(ms=cuda_ms(lambda: ck.chain_hits(fm, scan, *seeds[:5],
                                                  kern.H), reps, queued=True),
+                call_ms=cuda_ms(lambda: ck.chain_hits(fm, scan, *seeds[:5],
+                                                      kern.H), reps),
                 plain_ms=cuda_ms(lambda: ck.chain_hits_plain(
-                    fm, off, *seeds[:5], kern.H), 2, warmup=1),
-                valid_hits=int(min(int(off[-1]), kern.H)))
+                    fm, scan.off, *seeds[:5], kern.H), 2, warmup=1),
+                valid_hits=int(min(int(scan.off[-1]), kern.H)),
+                walk_steps=steps, bound_ms=bound, bound_by=by, bytes=nbytes)
+    walk["share_of_bound"] = bound / walk["ms"]
     emit("chain", card=card, one_step_batches_equal_without_full_sa=len(errs),
          max_abs_err=max(errs), unresolved_reads=unresolved,
          walk_batch0=walk)
@@ -1479,7 +1608,7 @@ def main():
             "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "tolerance": 0,
-            "call_ms": r["call_ms"],
+            "call_ms": r["call_ms"], "floor_ms": chain["floor_ms"],
             "shape": f"{b0['B']} reads, H {b0['H']}, H2 {b0['H2']}, the main "
                      f"path's own batch 0"})
     line = {"kernels": kernels}

@@ -13,14 +13,23 @@
 // folded at fm_search.py:777-794) and the pack (fm_search.py:749-771).
 // Four kernels, launched in this order on one stream:
 //
-//   chain_scan_kernel      one block of 1,024 threads: the exclusive prefix
-//     sum of a per-read count and the total, out[B] (twice a batch: each
-//     read's raw hits = the sum of its valid seeds' freq, then each read's
-//     SLOW kept hits).
-//   chain_hits_kernel      a thread per hit slot h < H: the read that owns
-//     h (a binary search of the first scan), its seed (a walk of the read's
-//     <= S seeds) and the SA row x0 + rank; the text position from the full
-//     SA, or by walking inverse-Psi over the occ4 rows until the row is a
+//   chain_scan_kernel      the exclusive prefix sum of a per-read count and
+//     the total, out[B], in one pass over tiles of SCAN_THREADS reads, a
+//     tile a block, with decoupled look-back (Merrill & Garland, "Single-
+//     pass Parallel Prefix Scan with Decoupled Look-back", 2016). Twice a
+//     batch: each read's raw hits (the sum of its valid seeds' freq), then
+//     each read's SLOW kept hits. On the seed freqs it also writes the
+//     hits kernel's start index (for each group of HITS_GROUP hit slots,
+//     the flat seed slot that owns the group's first slot and the hits
+//     before that seed) and zeroes each read's unresolved flag, so the
+//     hits launch needs no memset before it. One kernel for both uses:
+//     they share every step but the tile's loads.
+//   chain_hits_kernel      a block per group of HITS_GROUP hit slots h < H:
+//     from the group's start, the block stages the masked freqs of the
+//     seeds it spans in shared memory, HITS_CHUNK at a time, with their
+//     prefix; each thread finds its slot's seed there by binary search and
+//     takes the SA row x0 + rank; the text position from the full SA, or
+//     by walking inverse-Psi over the occ4 rows until the row is a
 //     multiple of 32 (at most max_walk steps; a hit still unresolved flags
 //     its read). Slots at or past min(total, H) hold the last seed slot's
 //     values with valid 0, as jnp.repeat pads.
@@ -49,8 +58,29 @@
 // masks, the gap indices, the scattered index arrays) in registers: the
 // sort is an unrolled stable insertion, the masks are one 32-bit word of
 // positions at a time, so no thread has an array that needs a stack frame.
-// The scan is one block because a batch's counts are at most a few hundred
-// KB: simple before fast.
+//
+// The scan and the hits kernels are latency-bound: a batch's counts and
+// seed tables are a few MB, well under a microsecond at the card's rate.
+// So the scan spreads its tiles over the card (86 blocks at 32,768 reads)
+// and waits on no second pass: each tile publishes its aggregate, then its
+// inclusive prefix, in a 64-bit status word (epoch << 34 | flag << 32 |
+// sum, release stores and acquire loads); warp 0 of a later tile reads up
+// to 32 predecessors at a time and adds aggregates back to the nearest
+// inclusive prefix. A tile's index is an atomic ticket, not blockIdx, so
+// every tile a block waits on belongs to a block that already runs. The
+// status words and the ticket live in a scratch the wrapper keeps per
+// device: the epoch tag, one a launch from the wrapper, makes the words of
+// earlier launches read as not ready, and the block that draws the last
+// ticket resets the counter (no block draws one after it). Launches that
+// share the scratch run one after another on one stream. Sums are uint32
+// and wrap modulo 2^32, as the plain version's int64 cumsum cast to int32
+// does; the start index assumes totals below 2^31, as off's int32 does.
+// Loads are coalesced: a tile's [reads, S] int64 freqs are staged in
+// shared memory, consecutive threads on consecutive words, then summed a
+// read a thread. The hits kernel's chain of dependent global loads is the
+// start entry, the staged freqs, the seed's x0/rpos/len and the SA entry
+// (or the walk), where a thread used to binary-search off[] in global
+// memory and then walk its read's seeds.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -61,77 +91,184 @@ constexpr int MAX_GAPS = 10;
 constexpr int MM_SLOTS = 4;
 constexpr int CLASS_NOCAND = 0, CLASS_FAST = 1, CLASS_SLOW = 2;
 constexpr int PD_EMPTY = 0x7FFFFFFF;    // INT32_MAX: an empty window slot
-constexpr int SCAN_THREADS = 1024;
-constexpr int SCAN_ITEMS = 8;           // consecutive reads a scan thread sums
+constexpr int SCAN_THREADS = 384;       // reads a scan tile, one a thread
+constexpr int SCAN_MAX_S = 31;          // seed slots a read (max_len <= 496)
+constexpr int LOOKBACK = 32;            // predecessors a look-back step reads
+constexpr int HITS_GROUP = 256;         // hit slots a hits block
+constexpr int HITS_ITEMS = 8;           // seeds a hits thread stages a chunk
+constexpr int HITS_CHUNK = HITS_GROUP * HITS_ITEMS;
 constexpr int THREADS = 256;
 constexpr int CLASSIFY_THREADS = 128;
 
 // ---- chain_scan_kernel ---------------------------------------------------
 
-// Read b's count: with freq, the sum of its first min(n[b], S) entries
-// (n == nullptr: all S); else cnt[b].
-__device__ __forceinline__ int read_count(const long long* __restrict__ freq,
-                                          const long long* __restrict__ n,
-                                          const int* __restrict__ cnt, int S,
-                                          int b) {
-  if (freq == nullptr) return cnt[b];
-  const long long nv = n == nullptr ? S : n[b];
-  const int m = nv < 0 ? 0 : (nv > S ? S : (int)nv);
-  int s = 0;
-  for (int j = 0; j < m; ++j) s += (int)freq[(size_t)b * S + j];
-  return s;
+constexpr unsigned long long FLAG_AGGREGATE = 1, FLAG_PREFIX = 2;
+constexpr unsigned int FULL = 0xFFFFFFFFu;
+
+struct ScanState {
+  unsigned int* ticket;                 // tiles handed out this launch
+  unsigned long long* status;           // [tiles]: epoch<<34 | flag<<32 | sum
+  unsigned int epoch;                   // this launch's tag, 1 .. 2^30 - 1
+};
+
+struct SeedOut {                        // the seed-freq scan's extras
+  int2* start;                          // [ngroups], or nullptr
+  uint8_t* unresolved;                  // [B], zeroed; or nullptr
+  int ngroups;
+};
+
+__device__ __forceinline__ unsigned long long ld_acquire(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];"
+               : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(unsigned long long* p,
+                                           unsigned long long v) {
+  asm volatile("st.release.gpu.global.u64 [%0], %1;"
+               :: "l"(p), "l"(v) : "memory");
+}
+
+// Exclusive scan of one value a thread over a block of NT threads: returns
+// the thread's exclusive prefix and sets *total. warp_sum: NT/32 words of
+// shared memory; ends with the block synchronised.
+template <int NT>
+__device__ __forceinline__ uint32_t block_excl_scan(uint32_t mine,
+                                                    uint32_t* warp_sum,
+                                                    uint32_t* total) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  uint32_t inc = mine;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const uint32_t y = __shfl_up_sync(FULL, inc, d);
+    if (lane >= d) inc += y;
+  }
+  if (lane == 31) warp_sum[w] = inc;
+  __syncthreads();
+  if (w == 0) {
+    uint32_t ws = lane < NT / 32 ? warp_sum[lane] : 0u;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const uint32_t y = __shfl_up_sync(FULL, ws, d);
+      if (lane >= d) ws += y;
+    }
+    if (lane < NT / 32) warp_sum[lane] = ws;  // inclusive over warps
+  }
+  __syncthreads();
+  *total = warp_sum[NT / 32 - 1];
+  const uint32_t before = w > 0 ? warp_sum[w - 1] : 0u;
+  __syncthreads();                      // warp_sum may be written again
+  return before + inc - mine;
+}
+
+// Warp 0 of tile `tile`: publish the tile's aggregate, look back to the
+// nearest inclusive prefix, publish the tile's own; returns the sum of the
+// tiles before it (in every lane).
+__device__ __forceinline__ uint32_t look_back(const ScanState& ss, int tile,
+                                              uint32_t agg) {
+  const int lane = threadIdx.x & 31;
+  const unsigned long long tag = (unsigned long long)ss.epoch << 34;
+  if (tile == 0) {
+    if (lane == 0) st_release(ss.status, tag | FLAG_PREFIX << 32 | agg);
+    return 0u;
+  }
+  if (lane == 0) st_release(ss.status + tile, tag | FLAG_AGGREGATE << 32 | agg);
+  uint32_t excl = 0;
+  for (int top = tile - 1;; top -= LOOKBACK) {
+    const int i = top - (LOOKBACK - 1) + lane;   // lane 31: the nearest
+    unsigned long long st;
+    bool ready;
+    do {                                // slots before tile 0 hold prefix 0
+      st = i >= 0 ? ld_acquire(ss.status + i) : (tag | FLAG_PREFIX << 32);
+      ready = (st >> 34) == ss.epoch;
+    } while (!__all_sync(FULL, ready));
+    const uint32_t pm = __ballot_sync(FULL, ((st >> 32) & 3u) == FLAG_PREFIX);
+    // from the nearest inclusive prefix on: it and the aggregates after it
+    const int from = pm ? 31 - __clz(pm) : 0;
+    uint32_t v = lane >= from ? (uint32_t)st : 0u;
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(FULL, v, d);
+    excl += v;
+    if (pm) break;
+  }
+  if (lane == 0)
+    st_release(ss.status + tile, tag | FLAG_PREFIX << 32 | (excl + agg));
+  return excl;
 }
 
 __global__ void __launch_bounds__(SCAN_THREADS)
 chain_scan_kernel(const long long* __restrict__ freq,
                   const long long* __restrict__ n,
                   const int* __restrict__ cnt, int B, int S,
-                  int* __restrict__ out) {
-  __shared__ int warp_sum[SCAN_THREADS / 32];
-  __shared__ int carry_s;
-  const int t = threadIdx.x, lane = t & 31, w = t >> 5;
-  if (t == 0) carry_s = 0;
-  __syncthreads();
-  for (int base = 0; base < B; base += SCAN_THREADS * SCAN_ITEMS) {
-    const int first = base + t * SCAN_ITEMS;
-    int v[SCAN_ITEMS];
-    int mine = 0;
-#pragma unroll
-    for (int k = 0; k < SCAN_ITEMS; ++k) {
-      v[k] = first + k < B ? read_count(freq, n, cnt, S, first + k) : 0;
-      mine += v[k];
-    }
-    // inclusive scan of the threads' sums: in the warp, then over warps
-    int inc = mine;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int y = __shfl_up_sync(0xFFFFFFFFu, inc, d);
-      if (lane >= d) inc += y;
-    }
-    if (lane == 31) warp_sum[w] = inc;
-    __syncthreads();
-    if (w == 0) {
-      int ws = warp_sum[lane];
-#pragma unroll
-      for (int d = 1; d < 32; d <<= 1) {
-        const int y = __shfl_up_sync(0xFFFFFFFFu, ws, d);
-        if (lane >= d) ws += y;
-      }
-      warp_sum[lane] = ws;                    // inclusive over warps
-    }
-    __syncthreads();
-    const int carry = carry_s;
-    int run = carry + (w > 0 ? warp_sum[w - 1] : 0) + inc - mine;
-#pragma unroll
-    for (int k = 0; k < SCAN_ITEMS; ++k) {
-      if (first + k < B) out[first + k] = run;
-      run += v[k];
-    }
-    __syncthreads();                          // every thread has read carry
-    if (t == SCAN_THREADS - 1) carry_s = run;  // the last thread ends the tile
-    __syncthreads();
+                  int* __restrict__ out, SeedOut so, ScanState ss) {
+  extern __shared__ uint32_t sf[];      // seed freqs: [SCAN_THREADS, S]
+  __shared__ uint32_t warp_sum[SCAN_THREADS / 32];
+  __shared__ int tile_s;
+  __shared__ uint32_t excl_s;
+  const int t = threadIdx.x;
+  const int ntiles = gridDim.x;
+  if (t == 0) {
+    const int k = (int)atomicAdd(ss.ticket, 1u);
+    if (k == ntiles - 1) *ss.ticket = 0u;   // every other ticket is taken
+    tile_s = k;
   }
-  if (t == 0) out[B] = carry_s;
+  __syncthreads();
+  const int tile = tile_s;
+  const int b0 = tile * SCAN_THREADS, b = b0 + t;
+  const int nr = min(SCAN_THREADS, B - b0);  // reads in the tile
+  uint32_t mine = 0;
+  if (freq != nullptr) {
+    // the tile's rows, consecutive threads on consecutive words; a seed
+    // slot counts when its index is below the read's n
+    const long long* f0 = freq + (size_t)b0 * S;
+    for (int e = t; e < nr * S; e += SCAN_THREADS) {
+      const int r = e / S;
+      const long long f = f0[e];
+      const long long nv = n == nullptr ? S : n[b0 + r];
+      sf[e] = e - r * S < nv ? (uint32_t)f : 0u;
+    }
+    __syncthreads();
+    if (t < nr)
+      for (int j = 0; j < S; ++j) mine += sf[t * S + j];
+  } else if (t < nr) {
+    mine = (uint32_t)cnt[b];
+  }
+  uint32_t agg;
+  const uint32_t excl_in = block_excl_scan<SCAN_THREADS>(mine, warp_sum, &agg);
+  if (t < 32) {
+    const uint32_t excl = look_back(ss, tile, agg);
+    if (t == 0) excl_s = excl;
+  }
+  __syncthreads();
+  const uint32_t base = excl_s + excl_in;     // hits before read b
+  if (t < nr) out[b] = (int)base;
+  const bool last_tile = tile == ntiles - 1;
+  if (last_tile && t == 0) out[B] = (int)(excl_s + agg);
+  if (freq == nullptr) return;
+  if (so.unresolved != nullptr && t < nr) so.unresolved[b] = 0;
+  if (so.start == nullptr) return;
+  // the start index: each group whose first slot falls in one of read b's
+  // seeds names that seed and the hits before it
+  if (t < nr) {
+    uint32_t p = base;
+    for (int j = 0; j < S; ++j) {
+      const uint32_t f = sf[t * S + j];
+      for (uint32_t g = (p + HITS_GROUP - 1) / HITS_GROUP;
+           g < (uint32_t)so.ngroups && g * HITS_GROUP < p + f; ++g)
+        so.start[g] = make_int2(b * S + j, (int)p);
+      p += f;
+    }
+  }
+  // groups at or past the total: past the last seed slot, as
+  // torch.searchsorted (side right) finds them
+  if (last_tile) {
+    const uint32_t total = excl_s + agg;
+    for (uint32_t g = (total + HITS_GROUP - 1) / HITS_GROUP + t;
+         g < (uint32_t)so.ngroups; g += SCAN_THREADS)
+      so.start[g] = make_int2(B * S, (int)total);
+  }
 }
 
 // ---- chain_hits_kernel ---------------------------------------------------
@@ -152,7 +289,7 @@ struct Seeds {
 struct Hits {
   int *read, *rpos, *len, *loc;         // int32[H]
   uint8_t *valid, *keep;                // [H] (torch.bool)
-  uint8_t* unresolved;                  // [B], zeroed before the launch
+  uint8_t* unresolved;                  // [B], zeroed by the seed-freq scan
 };
 
 __device__ __forceinline__ int pick4(const int4& v, int c) {
@@ -175,35 +312,79 @@ __device__ __forceinline__ int inv_psi(const Fm& fm, int k) {
   return k == fm.primary ? 0 : (int)__ldg(fm.L2 + c) + occ_kc;
 }
 
-__global__ void __launch_bounds__(THREADS)
-chain_hits_kernel(const int* __restrict__ off, Seeds sd, Fm fm, int H,
-                  Hits o) {
-  const int h = blockIdx.x * THREADS + threadIdx.x;
-  if (h >= H) return;
-  const int B = sd.B, S = sd.S;
-  const int total = off[B];
-  const bool valid = h < min(total, H);
-  int b = B - 1, s = S - 1, row = 32;
-  if (valid) {
-    // the last read with off[b] <= h (off[B] = total > h)
-    int lo = 0, hi = B;
-    while (lo < hi) {
-      const int mid = (lo + hi + 1) >> 1;
-      if (off[mid] <= h) lo = mid; else hi = mid - 1;
+// Staged word e of a chunk: one pad word every 32, so a thread's
+// HITS_ITEMS consecutive words fall in distinct banks across its warp.
+__host__ __device__ constexpr int padded(int e) { return e + (e >> 5); }
+
+__global__ void __launch_bounds__(HITS_GROUP)
+chain_hits_kernel(const int* __restrict__ off, const int2* __restrict__ start,
+                  Seeds sd, Fm fm, int H, Hits o) {
+  __shared__ uint32_t pre[padded(HITS_CHUNK)];
+  __shared__ uint32_t warp_sum[HITS_GROUP / 32];
+  const int t = threadIdx.x;
+  const int B = sd.B, S = sd.S, BS = B * S;
+  const int h0 = blockIdx.x * HITS_GROUP, h = h0 + t;
+  const int nvalid = min(off[B], H);    // slots [0, nvalid) hold hits
+  const int last = min(h0 + HITS_GROUP, nvalid) - 1;  // the block's last
+  int seed = BS - 1, pos = 0;           // padding: the last seed slot
+  bool found = false;
+  if (last >= h0) {                     // the same in the whole block
+    const int2 st = start[blockIdx.x];
+    int lo = st.x;                      // the seed of slot h0
+    uint32_t base = (uint32_t)st.y;     // hits before seed lo
+    for (;;) {
+      // the masked freqs of seeds lo .. lo + HITS_CHUNK - 1, coalesced
+#pragma unroll
+      for (int k = 0; k < HITS_ITEMS; ++k) {
+        const int e = k * HITS_GROUP + t, i = lo + e;
+        uint32_t v = 0;
+        if (i < BS) {
+          const int r = i / S;
+          const long long f = sd.freq[i], nv = sd.n[r];
+          v = i - r * S < nv ? (uint32_t)f : 0u;
+        }
+        pre[padded(e)] = v;
+      }
+      __syncthreads();
+      // their inclusive prefix: HITS_ITEMS consecutive seeds a thread,
+      // then over the threads
+      uint32_t run = 0;
+#pragma unroll
+      for (int k = 0; k < HITS_ITEMS; ++k) {
+        const int e = padded(t * HITS_ITEMS + k);
+        run += pre[e];
+        pre[e] = run;
+      }
+      uint32_t ctot;
+      const uint32_t before =
+          block_excl_scan<HITS_GROUP>(run, warp_sum, &ctot);
+#pragma unroll
+      for (int k = 0; k < HITS_ITEMS; ++k)
+        pre[padded(t * HITS_ITEMS + k)] += before;
+      __syncthreads();
+      const uint32_t r = (uint32_t)(h - (int)base);  // rank past the chunk
+      if (h < nvalid && !found && r < ctot) {
+        // the first staged seed whose inclusive prefix passes r
+        int a = 0, z = HITS_CHUNK - 1;
+        while (a < z) {
+          const int mid = (a + z) >> 1;
+          if (pre[padded(mid)] > r) z = mid; else a = mid + 1;
+        }
+        seed = lo + a;
+        pos = (int)(r - (a > 0 ? pre[padded(a - 1)] : 0u));
+        found = true;
+      }
+      if ((uint32_t)(last - (int)base) < ctot || lo + HITS_CHUNK >= BS) break;
+      base += ctot;
+      lo += HITS_CHUNK;
+      __syncthreads();                  // every search ends before the stores
     }
-    b = lo;
-    int pos = h - off[b];
-    const long long nv = sd.n[b];
-    const int m = nv < 0 ? 0 : (nv > S ? S : (int)nv);
-    for (s = 0; s < m; ++s) {
-      const int f = (int)sd.freq[(size_t)b * S + s];
-      if (pos < f) break;
-      pos -= f;
-    }
-    row = (int)sd.x0[(size_t)b * S + s] + pos;
   }
-  const size_t bs = (size_t)b * S + s;
-  const int rpos = (int)sd.rpos[bs], len = (int)sd.len[bs];
+  if (h >= H) return;
+  const bool valid = h < nvalid;
+  const int b = seed / S;
+  const int rpos = (int)sd.rpos[seed], len = (int)sd.len[seed];
+  const int row = valid ? (int)sd.x0[seed] + pos : 32;
   int loc;
   bool resolved = valid;
   if (fm.sa_full != nullptr) {
@@ -520,36 +701,51 @@ chain_pack_kernel(const int* __restrict__ off, const int* __restrict__ off2,
 
 // Exclusive prefix sum of per-read counts into out int32[B+1] (out[B] =
 // total): with freq int64[B, S] each read's sum of its first min(n[b], S)
-// entries (n int64[B], or nullptr for all S), else cnt int32[B].
+// entries (n int64[B], or nullptr for all S), else cnt int32[B]. With freq,
+// start int32[ngroups, 2] (or nullptr) gets the hits kernel's start index
+// and unresolved uint8[B] (or nullptr) is zeroed. scratch int64[1 + tiles]
+// (the ticket in word 0, the status words after it) holds no word of this
+// epoch: zeroed at first, then used by launches of smaller epochs only.
 extern "C" int mc_chain_scan(const void* freq, const void* n, const void* cnt,
-                             int B, int S, void* out, void* stream) {
-  if (B < 1 || S < 1 || (freq == nullptr) == (cnt == nullptr))
+                             int B, int S, void* out, void* start, int ngroups,
+                             void* unresolved, void* scratch, int tiles,
+                             int epoch, void* stream) {
+  const int ntiles = (B + SCAN_THREADS - 1) / SCAN_THREADS;
+  if (B < 1 || S < 1 || (freq == nullptr) == (cnt == nullptr) ||
+      (freq != nullptr && S > SCAN_MAX_S) ||
+      (freq == nullptr && (start != nullptr || unresolved != nullptr)) ||
+      (start != nullptr && ngroups < 1) || (long long)B * S >= (1LL << 31) ||
+      scratch == nullptr || tiles < ntiles || epoch < 1 || epoch >= (1 << 30))
     return (int)cudaErrorInvalidValue;
-  chain_scan_kernel<<<1, SCAN_THREADS, 0, (cudaStream_t)stream>>>(
+  const SeedOut so{(int2*)start, (uint8_t*)unresolved, ngroups};
+  const ScanState ss{(unsigned int*)scratch,
+                     (unsigned long long*)scratch + 1, (unsigned int)epoch};
+  const size_t smem = freq != nullptr ? sizeof(uint32_t) * SCAN_THREADS * S : 0;
+  chain_scan_kernel<<<ntiles, SCAN_THREADS, smem, (cudaStream_t)stream>>>(
       (const long long*)freq, (const long long*)n, (const int*)cnt, B, S,
-      (int*)out);
+      (int*)out, so, ss);
   return (int)cudaGetLastError();
 }
 
-// Hit expansion and SA resolve. off int32[B+1] (mc_chain_scan of the seed
-// freqs); seed tables n_seeds int64[B], rpos/len/x0/freq int64[B, S]; occ
-// int32[nw+1, 8] (16-byte aligned), L2 int64[5], sa_samp int64[], sa_full
-// int32[n+1] or nullptr (then the inverse-Psi walk of max_walk steps).
-// Outputs: read/rpos/len/loc int32[H], valid/keep uint8[H], unresolved
-// uint8[B] (zeroed here, on the stream, before the launch).
-extern "C" int mc_chain_hits(const void* off, const void* n_seeds,
-                             const void* rpos, const void* len, const void* x0,
+// Hit expansion and SA resolve. off int32[B+1], start int32[ceil(H /
+// HITS_GROUP), 2] and unresolved uint8[B] from mc_chain_scan of the seed
+// freqs (which zeroed unresolved); seed tables n_seeds int64[B],
+// rpos/len/x0/freq int64[B, S]; occ int32[nw+1, 8] (16-byte aligned), L2
+// int64[5], sa_samp int64[], sa_full int32[n+1] or nullptr (then the
+// inverse-Psi walk of max_walk steps). Outputs: read/rpos/len/loc
+// int32[H], valid/keep uint8[H], and the flags of unresolved reads set.
+extern "C" int mc_chain_hits(const void* off, const void* start,
+                             const void* n_seeds, const void* rpos,
+                             const void* len, const void* x0,
                              const void* freq, int B, int S, const void* occ,
                              const void* L2, const void* sa_samp,
                              const void* sa_full, int primary, int max_walk,
                              int H, void* read, void* hrpos, void* hlen,
                              void* loc, void* valid, void* keep,
                              void* unresolved, void* stream) {
-  if (B < 1 || S < 1 || H < 1 || max_walk < 0)
+  if (B < 1 || S < 1 || H < 1 || max_walk < 0 ||
+      (long long)B * S >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaMemsetAsync(unresolved, 0, (size_t)B,
-                                    (cudaStream_t)stream);
-  if (err != cudaSuccess) return (int)err;
   const Seeds sd{(const long long*)n_seeds, (const long long*)rpos,
                  (const long long*)len, (const long long*)x0,
                  (const long long*)freq, B, S};
@@ -558,8 +754,9 @@ extern "C" int mc_chain_hits(const void* off, const void* n_seeds,
               max_walk};
   const Hits o{(int*)read, (int*)hrpos, (int*)hlen, (int*)loc,
                (uint8_t*)valid, (uint8_t*)keep, (uint8_t*)unresolved};
-  chain_hits_kernel<<<(H + THREADS - 1) / THREADS, THREADS, 0,
-                      (cudaStream_t)stream>>>((const int*)off, sd, fm, H, o);
+  chain_hits_kernel<<<(H + HITS_GROUP - 1) / HITS_GROUP, HITS_GROUP, 0,
+                      (cudaStream_t)stream>>>(
+      (const int*)off, (const int2*)start, sd, fm, H, o);
   return (int)cudaGetLastError();
 }
 

@@ -5,9 +5,10 @@ After the seed scan, a batch's seed tables become the chain kernel's
 packed output vector (ops/fm_search.SeedChainKernel) in five launches on
 the current stream, with no host sync:
 
-  chain_scan      the exclusive prefix sum of a per-read count, and the
-                  total: each read's raw hits (the sum of its valid seeds'
-                  freq), later each read's SLOW kept hits;
+  chain_scan_seeds  the exclusive prefix sum of each read's raw hits
+                  (the sum of its valid seeds' freq) and the total, with
+                  the hits kernel's start index, and the unresolved flags
+                  zeroed (SeedScan);
   chain_hits      the seeds expanded by freq into H flat hit slots (as
                   jnp.repeat with total_repeat_length: truncated at H,
                   padded with the last seed slot) and resolved through the
@@ -16,6 +17,8 @@ the current stream, with no host sync:
                   mismatches from its own hit range (the meta1 and pd
                   entries of the packed vector), with the folded
                   speculative evidence apply when planes are given;
+  chain_scan      the same scan (the same kernel) of each read's SLOW
+                  kept hits;
   chain_pack      the SLOW reads' kept hits compacted at their offsets, the
                   count and overflow words and the totals: the rest of the
                   packed vector.
@@ -42,14 +45,30 @@ from .evidence import first_mate_lanes, scatter_fast_evidence
 from .fm_device import DeviceFMIndex, sa_resolve, to_i32
 
 MAX_WALK = 192      # inverse-Psi steps before a hit is left to the host
+# csrc/chain.cu: reads a scan tile, seed slots a read the seed-freq scan
+# takes, hit slots a hits block (one start-index group)
+SCAN_THREADS = 384
+SCAN_MAX_S = 31
+HITS_GROUP = 256
+_EPOCHS = 1 << 30   # the scan's status-word tags: 1 .. 2^30 - 1
 
 # hit arrays of a batch: read, rpos, len, loc int32[H]; valid, keep bool[H]
 # (keep: valid and PosDiff = loc - rpos > 0); unresolved bool[B]
 Hits = collections.namedtuple("Hits", "read rpos len loc valid keep "
                                       "unresolved")
+# the seed-freq scan: off int32[B+1] (each read's first hit, the total
+# last); start int32[ceil(H / HITS_GROUP), 2]: for hit slot g * HITS_GROUP,
+# the flat seed slot that owns it (B*S at or past the total) and the hits
+# before that seed; unresolved bool[B], all False, for chain_hits to set
+SeedScan = collections.namedtuple("SeedScan", "off start unresolved")
 
 STATS = KernelStats()
 _lib = None
+# per device: [scratch int64[1 + tiles], the last epoch] of the scan's
+# look-back (csrc/chain.cu): allocated once, grown when a batch needs more
+# tiles, allocated zeroed anew when the epochs run out. Scans that share
+# it run one after another on one stream, as every caller issues them.
+_scan_scratch = {}
 
 
 def _load_kernel():
@@ -59,8 +78,8 @@ def _load_kernel():
         lib = C.CDLL(ensure_cuda("chain"))
         P, I = C.c_void_p, C.c_int
         for name, args in (
-                ("mc_chain_scan", [P, P, P, I, I, P, P]),
-                ("mc_chain_hits", [P] * 6 + [I, I] + [P] * 4
+                ("mc_chain_scan", [P, P, P, I, I, P, P, I, P, P, I, I, P]),
+                ("mc_chain_hits", [P] * 7 + [I, I] + [P] * 4
                  + [I, I, I] + [P] * 8),
                 ("mc_chain_classify", [P, I] + [P] * 7 + [I, I, P, I, P, I, I]
                  + [P] * 3 + [I, I] + [P] * 5),
@@ -121,49 +140,107 @@ def _check_off(name: str, off, B: int) -> None:
     need(off.shape == (B + 1,), f"{name}: off must be int32[B+1]")
 
 
-# ---- chain_scan ------------------------------------------------------------
+# ---- chain_scan_seeds and chain_scan ---------------------------------------
 
 def chain_scan_plain(counts: torch.Tensor, n_valid=None) -> torch.Tensor:
-    """Plain version of chain_scan on any device."""
+    """Plain version of the scan (chain_scan, and the off of
+    chain_scan_seeds) on any device."""
     if counts.dim() == 2:
-        S = counts.shape[1]
-        if n_valid is not None:
-            valid = (torch.arange(S, dtype=torch.int64, device=counts.device)
-                     [None, :] < n_valid[:, None])
-            counts = torch.where(valid, counts, 0)
-        counts = counts.sum(dim=1)
+        counts = _flat_freqs(counts, n_valid).reshape(counts.shape).sum(dim=1)
     csum = torch.cumsum(counts.to(torch.int64), 0)
     return torch.cat([torch.zeros(1, dtype=torch.int64, device=csum.device),
                       csum]).to(torch.int32)
 
 
-def chain_scan(counts: torch.Tensor, n_valid=None) -> torch.Tensor:
-    """Exclusive prefix sum of per-read counts -> int32[B+1], the total
-    last. counts: int64[B, S] with n_valid int64[B] (each read sums its
-    first min(n_valid, S) entries; all S without n_valid), or int32[B].
-    A launch on [B, S] counts as chain_scan_seeds, on [B] as chain_scan."""
+def _flat_freqs(s_freq: torch.Tensor, n_valid) -> torch.Tensor:
+    """int64[B*S]: each seed slot's freq, 0 at or past the read's n_valid
+    (none masked without n_valid)."""
+    if n_valid is not None:
+        S = s_freq.shape[1]
+        valid = (torch.arange(S, dtype=torch.int64, device=s_freq.device)
+                 [None, :] < n_valid[:, None])
+        s_freq = torch.where(valid, s_freq, 0)
+    return s_freq.reshape(-1)
+
+
+def _n_groups(H: int) -> int:
+    """Start-index groups of H hit slots: the hits kernel's blocks."""
+    return -(-H // HITS_GROUP)
+
+
+def chain_scan_seeds_plain(s_freq: torch.Tensor, n_seeds: torch.Tensor,
+                           H: int) -> SeedScan:
+    """Plain version of chain_scan_seeds on any device: the start index
+    by torch.searchsorted over the flat cumsum, as chain_hits_plain
+    expands."""
+    B, S = s_freq.shape
+    freqs = _flat_freqs(s_freq, n_seeds)
+    csum_incl = torch.cumsum(freqs, 0)
+    gpos = torch.arange(_n_groups(H), dtype=torch.int64,
+                        device=s_freq.device) * HITS_GROUP
+    seed = torch.searchsorted(csum_incl, gpos, right=True)
+    before = torch.where(seed < B * S, (csum_incl - freqs)[
+        torch.clamp(seed, max=B * S - 1)], csum_incl[-1])
+    return SeedScan(chain_scan_plain(s_freq, n_seeds),
+                    torch.stack([seed, before], 1).to(torch.int32),
+                    torch.zeros(B, dtype=torch.bool, device=s_freq.device))
+
+
+def _scan_launch(name: str, dev: torch.device, freq, n, cnt, B: int, S: int,
+                 out, start, ngroups: int, unresolved, count: str) -> None:
+    """One chain_scan_kernel launch (pointer arguments) with the device's
+    look-back scratch and the next epoch."""
+    tiles = -(-B // SCAN_THREADS)
+    sc = _scan_scratch.get(dev)
+    if sc is None or sc[0].shape[0] - 1 < tiles or sc[1] + 1 >= _EPOCHS:
+        # zeroed words hold epoch 0, which no launch uses
+        sc = _scan_scratch[dev] = [torch.zeros(
+            1 + max(tiles, 1024), dtype=torch.int64, device=dev), 0]
+    sc[1] += 1
+    _launch(name, dev, freq, n, cnt, B, S, out, start, ngroups, unresolved,
+            sc[0].data_ptr(), sc[0].shape[0] - 1, sc[1], count=count)
+
+
+def chain_scan_seeds(s_freq: torch.Tensor, n_seeds: torch.Tensor,
+                     H: int) -> SeedScan:
+    """Each read's raw hits, the sum of its first min(n_seeds, S) seed
+    freqs (s_freq int64[B, S], n_seeds int64[B]), scanned for chain_hits
+    into H hit slots -> SeedScan. Counted as chain_scan_seeds."""
+    name = "chain_scan_seeds"
+    need(s_freq.dim() == 2 and s_freq.shape[0] >= 1 and s_freq.shape[1] >= 1
+         and H >= 1, f"{name}: s_freq must be [B, S], B, S >= 1, and H >= 1")
+    B, S = s_freq.shape
+    _dtype(name, s_freq, torch.int64, "s_freq")
+    _dtype(name, n_seeds, torch.int64, "n_seeds")
+    need(n_seeds.shape == (B,), f"{name}: n_seeds must be [B]")
+    if not _on_card(name, [s_freq, n_seeds]):
+        return chain_scan_seeds_plain(s_freq, n_seeds, H)
+    need(S <= SCAN_MAX_S and B * S < 2 ** 31,
+         f"{name}: the kernel takes S <= {SCAN_MAX_S} and B*S < 2^31")
+    dev = s_freq.device
+    scan = SeedScan(torch.empty(B + 1, dtype=torch.int32, device=dev),
+                    torch.empty((_n_groups(H), 2), dtype=torch.int32,
+                                device=dev),
+                    torch.empty(B, dtype=torch.bool, device=dev))
+    _scan_launch("chain_scan", dev, _ptr(s_freq), _ptr(n_seeds), None, B, S,
+                 _ptr(scan.off), _ptr(scan.start), scan.start.shape[0],
+                 _ptr(scan.unresolved), count=name)
+    return scan
+
+
+def chain_scan(counts: torch.Tensor) -> torch.Tensor:
+    """Exclusive prefix sum of per-read counts (int32[B]) -> int32[B+1],
+    the total last."""
     name = "chain_scan"
+    need(counts.dim() == 1 and counts.shape[0] >= 1,
+         f"{name}: counts must be int32[B], B >= 1")
+    _dtype(name, counts, torch.int32, "counts")
+    if not _on_card(name, [counts]):
+        return chain_scan_plain(counts)
     B = counts.shape[0]
-    need(B >= 1, f"{name}: empty batch")
-    if counts.dim() == 2:
-        _dtype(name, counts, torch.int64, "2-D counts")
-        need(counts.shape[1] >= 1, f"{name}: counts must be [B, S], S >= 1")
-        if n_valid is not None:
-            _dtype(name, n_valid, torch.int64, "n_valid")
-            need(n_valid.shape == (B,), f"{name}: n_valid must be [B]")
-    else:
-        need(counts.dim() == 1 and n_valid is None,
-              f"{name}: counts must be int64[B, S] or int32[B]")
-        _dtype(name, counts, torch.int32, "1-D counts")
-    ts = [counts] + ([n_valid] if n_valid is not None else [])
-    if not _on_card(name, ts):
-        return chain_scan_plain(counts, n_valid)
     out = torch.empty(B + 1, dtype=torch.int32, device=counts.device)
-    wide = counts.dim() == 2
-    _launch(name, out.device, _ptr(counts) if wide else None, _ptr(n_valid),
-            None if wide else _ptr(counts), B,
-            counts.shape[1] if wide else 1, _ptr(out),
-            count="chain_scan_seeds" if wide else name)
+    _scan_launch(name, out.device, None, None, _ptr(counts), B, 1, _ptr(out),
+                 None, 0, None, count=name)
     return out
 
 
@@ -185,9 +262,7 @@ def chain_hits_plain(fm: DeviceFMIndex, off, n_seeds, s_rpos, s_len, s_x0,
     B, S = s_freq.shape
     dev = s_freq.device
     i64 = torch.int64
-    seed_valid = (torch.arange(S, dtype=i64, device=dev)[None, :]
-                  < n_seeds[:, None])
-    freqs = torch.where(seed_valid, s_freq, 0).reshape(-1)
+    freqs = _flat_freqs(s_freq, n_seeds)
     csum_incl = torch.cumsum(freqs, 0)
     total_raw = csum_incl[-1]
     hpos = torch.arange(H, dtype=i64, device=dev)
@@ -212,18 +287,27 @@ def chain_hits_plain(fm: DeviceFMIndex, off, n_seeds, s_rpos, s_len, s_x0,
                 hit_loc.to(i32), hit_valid, keep, unresolved)
 
 
-def chain_hits(fm: DeviceFMIndex, off: torch.Tensor, n_seeds, s_rpos, s_len,
+def chain_hits(fm: DeviceFMIndex, scan: SeedScan, n_seeds, s_rpos, s_len,
                s_x0, s_freq, H: int, max_walk: int = MAX_WALK) -> Hits:
     """The seeds (n_seeds int64[B], s_rpos/s_len/s_x0/s_freq int64[B, S])
-    expanded by freq into H hit slots and resolved through fm's SA; off
-    is chain_scan(s_freq, n_seeds). Hits past the total are invalid
-    copies of the last seed slot; a read with a hit still unresolved
-    after max_walk inverse-Psi steps is flagged."""
+    expanded by freq into H hit slots and resolved through fm's SA; scan
+    is chain_scan_seeds(s_freq, n_seeds, H). Hits past the total are
+    invalid copies of the last seed slot; a read with a hit still
+    unresolved after max_walk inverse-Psi steps is flagged. On either
+    device the flags are set in scan.unresolved, which the scan zeroed,
+    and the Hits returned share it: one hits call a scan, or several with
+    the same fm."""
     name = "chain_hits"
     B, S = s_freq.shape
     need(B >= 1 and S >= 1 and H >= 1 and max_walk >= 0,
-          f"{name}: needs B, S, H >= 1 and max_walk >= 0")
-    _check_off(name, off, B)
+         f"{name}: needs B, S, H >= 1 and max_walk >= 0")
+    _check_off(name, scan.off, B)
+    _dtype(name, scan.start, torch.int32, "scan.start")
+    need(scan.start.shape == (_n_groups(H), 2),
+         f"{name}: scan.start must be [ceil(H / {HITS_GROUP}), 2]")
+    _dtype(name, scan.unresolved, torch.bool, "scan.unresolved")
+    need(scan.unresolved.shape == (B,), f"{name}: scan.unresolved must be "
+                                        f"[B]")
     _dtype(name, n_seeds, torch.int64, "n_seeds")
     need(n_seeds.shape == (B,), f"{name}: n_seeds must be [B]")
     for what, t in (("s_rpos", s_rpos), ("s_len", s_len), ("s_x0", s_x0),
@@ -231,26 +315,27 @@ def chain_hits(fm: DeviceFMIndex, off: torch.Tensor, n_seeds, s_rpos, s_len,
         _dtype(name, t, torch.int64, what)
         need(t.shape == (B, S), f"{name}: {what} must be [B, S]")
     tables = [fm.occ_rows, fm.L2, fm.sa_samp, fm.sa_full]
-    if not _on_card(name, [off, n_seeds, s_rpos, s_len, s_x0, s_freq]
+    if not _on_card(name, [*scan, n_seeds, s_rpos, s_len, s_x0, s_freq]
                     + tables):
-        return chain_hits_plain(fm, off, n_seeds, s_rpos, s_len, s_x0,
-                                s_freq, H, max_walk)
+        plain = chain_hits_plain(fm, scan.off, n_seeds, s_rpos, s_len,
+                                 s_x0, s_freq, H, max_walk)
+        scan.unresolved.logical_or_(plain.unresolved)
+        return plain._replace(unresolved=scan.unresolved)
     need(fm.occ_rows.dtype == torch.int32 and fm.occ_rows.shape[1:] == (8,)
-          and fm.occ_rows.data_ptr() % 16 == 0
-          and fm.L2.dtype == torch.int64 and fm.sa_samp.dtype == torch.int64
-          and fm.sa_full.dtype == torch.int32,
-          f"{name}: occ rows int32[n, 8] 16-byte aligned, L2 and sa_samp "
-          f"int64, sa_full int32")
+         and fm.occ_rows.data_ptr() % 16 == 0
+         and fm.L2.dtype == torch.int64 and fm.sa_samp.dtype == torch.int64
+         and fm.sa_full.dtype == torch.int32 and B * S < 2 ** 31,
+         f"{name}: occ rows int32[n, 8] 16-byte aligned, L2 and sa_samp "
+         f"int64, sa_full int32, B*S < 2^31")
     dev = s_freq.device
     hit = [torch.empty(H, dtype=torch.int32, device=dev) for _ in range(4)]
     flags = [torch.empty(H, dtype=torch.bool, device=dev) for _ in range(2)]
-    unresolved = torch.empty(B, dtype=torch.bool, device=dev)
-    _launch(name, dev, _ptr(off), _ptr(n_seeds), _ptr(s_rpos), _ptr(s_len),
-            _ptr(s_x0), _ptr(s_freq), B, S, _ptr(fm.occ_rows), _ptr(fm.L2),
-            _ptr(fm.sa_samp), _ptr(fm.sa_full) if fm.has_full_sa else None,
-            int(fm.primary), max_walk, H, *map(_ptr, hit + flags),
-            _ptr(unresolved))
-    return Hits(*hit, *flags, unresolved)
+    _launch(name, dev, _ptr(scan.off), _ptr(scan.start), _ptr(n_seeds),
+            _ptr(s_rpos), _ptr(s_len), _ptr(s_x0), _ptr(s_freq), B, S,
+            _ptr(fm.occ_rows), _ptr(fm.L2), _ptr(fm.sa_samp),
+            _ptr(fm.sa_full) if fm.has_full_sa else None, int(fm.primary),
+            max_walk, H, *map(_ptr, hit + flags), _ptr(scan.unresolved))
+    return Hits(*hit, *flags, scan.unresolved)
 
 
 # ---- chain_classify --------------------------------------------------------
@@ -402,7 +487,7 @@ def chain_pack(off: torch.Tensor, off2: torch.Tensor, hits: Hits,
     order (slots >= H2 dropped, unused ones 0), counts2[B/2] of
     slow_kept, the overflow words of overflow | hits.unresolved, the
     total kept and buffer_overflow = total raw > H or total kept > H2.
-    off: chain_scan of the seeds, off2: chain_scan(slow_kept). B % 32 ==
+    off: chain_scan_seeds(...).off, off2: chain_scan(slow_kept). B % 32 ==
     0. Returns out."""
     name = "chain_pack"
     B = overflow.shape[0]

@@ -18,7 +18,7 @@ lockstep loop. Three scans give the same seed sets:
                        non-native path).
 
 Hits are then expanded by seed frequency into a flat buffer and resolved
-through the SA (ops/chain_kernels.chain_scan and chain_hits). Three
+through the SA (ops/chain_kernels.chain_scan_seeds and chain_hits). Three
 kernels pack them for the host, each a class whose __call__ runs on the
 tables' device and whose collect decodes on the host:
 
@@ -46,7 +46,7 @@ from torch.profiler import record_function
 
 from .chain_device import ChainCtx
 from .chain_kernels import (chain_classify, chain_hits, chain_pack,
-                            chain_scan, counts2, ovf_words)
+                            chain_scan, chain_scan_seeds, counts2, ovf_words)
 from .fm3_device import DeviceFM3, gather3, step1_update, step3_update
 from .fm_device import M32, DeviceFMIndex, occ4, to_i32
 from .seed_scan_device import seed_scan1, seed_scan3
@@ -482,9 +482,9 @@ class _SeedKernelBase:
         resolve them through the SA: a scan and a hits kernel launch on
         the card (ops/chain_kernels.py). Returns (off int32[B+1], each
         read's first hit and the total last; chain_kernels.Hits)."""
-        off = chain_scan(s_freq, n_seeds)
-        return off, chain_hits(self.fm1, off, n_seeds, s_rpos, s_len, s_x0,
-                               s_freq, self.H)
+        scan = chain_scan_seeds(s_freq, n_seeds, self.H)
+        return scan.off, chain_hits(self.fm1, scan, n_seeds, s_rpos, s_len,
+                                    s_x0, s_freq, self.H)
 
 
 class SeedChainKernel(_SeedKernelBase):

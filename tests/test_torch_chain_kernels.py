@@ -1,20 +1,26 @@
 """The chain kernels of the port (mapcaller_tpu_torch/csrc/chain.cu, wrapped
 by ops/chain_kernels.py) on the CPU, where no kernel runs:
 
-  * a scalar mirror of each kernel's thread, written as the .cu thread
-    runs (the scan's tiles and warp scans, a hit slot's binary search,
-    seed walk and inverse-Psi walk, a read's insertion window, 32-position
-    bitmasks and gap runs, the pack's ballot), is held equal to the plain
-    versions and to the reference package's hit expansion, sa_resolve,
-    classify_reads and build_seed_chain_kernel (with and without
-    with_planes, pair_end both ways, with and without a full SA);
+  * a scalar mirror of each kernel, written as the .cu blocks and threads
+    run (the scan's tiles, block scans, decoupled look-back in several
+    orders of publication and start index; the hits blocks' staged freq
+    chunks, binary searches and inverse-Psi walks; a read's insertion
+    window, 32-position bitmasks and gap runs; the pack's ballot), is held
+    equal to the plain versions and to the reference package's hit
+    expansion, sa_resolve, classify_reads and build_seed_chain_kernel
+    (with and without with_planes, pair_end both ways, with and without a
+    full SA); the start index equals torch.searchsorted over the flat
+    cumsum with the total below, at and above H, zero freqs, reads with
+    n_seeds 0 or above S and a long run of seedless reads;
   * the cases: more than 8 kept hits, (pd, rpos) ties of different
     lengths, a span across a chromosome boundary, reads at the end of the
     text, the most gaps a window allows (and >= 10 gaps in the gap walk),
     more than 4 mismatches, total raw hits > H and kept slow hits > H2,
     unresolved reads, rlen 0;
   * the wrappers refuse what the kernels do not take and run the plain
-    versions for CPU tensors without counting a launch.
+    versions for CPU tensors without counting a launch; the scan's
+    look-back scratch is kept per device and its epoch tags never repeat
+    on one scratch.
 
 All values are integers: the tolerance is exact equality."""
 import functools
@@ -56,7 +62,8 @@ def _cu_const(name):
         return int(re.search(rf"\b{name} = (\w+);", f.read()).group(1), 0)
 
 
-SCAN_THREADS, SCAN_ITEMS = _cu_const("SCAN_THREADS"), _cu_const("SCAN_ITEMS")
+SCAN_THREADS, LOOKBACK = _cu_const("SCAN_THREADS"), _cu_const("LOOKBACK")
+HITS_GROUP, HITS_ITEMS = _cu_const("HITS_GROUP"), _cu_const("HITS_ITEMS")
 
 
 # ---- data ------------------------------------------------------------------
@@ -157,45 +164,117 @@ def _i32(x):
     return x - (1 << 32) if x >= 1 << 31 else x
 
 
-def mirror_scan(B, S=1, freq=None, n=None, cnt=None, threads=SCAN_THREADS,
-                items=SCAN_ITEMS):
-    """chain_scan_kernel: tiles of threads x items reads, each thread's sum
-    scanned in its warp (shfl_up steps) and over the warp sums."""
-    def read_count(b):
-        if freq is None:
-            return int(cnt[b])
-        nv = S if n is None else int(n[b])
-        return sum(int(freq[b, j]) for j in range(min(max(nv, 0), S)))
+def block_excl_scan(vals):
+    """block_excl_scan: each thread's exclusive prefix over the block and
+    the block's total, mod 2^32: shfl_up steps in each warp of 32, then
+    over the warp sums."""
+    nt = -(-len(vals) // 32) * 32
+    inc = list(vals) + [0] * (nt - len(vals))
+    for w in range(nt // 32):
+        lanes = inc[32 * w:32 * w + 32]
+        d = 1
+        while d < 32:
+            lanes = [(x + (lanes[i - d] if i >= d else 0)) & M32
+                     for i, x in enumerate(lanes)]
+            d <<= 1
+        inc[32 * w:32 * w + 32] = lanes
+    warp_sum = [inc[32 * w + 31] for w in range(nt // 32)]
+    for w in range(1, len(warp_sum)):
+        warp_sum[w] = (warp_sum[w] + warp_sum[w - 1]) & M32
+    excl = [((warp_sum[t // 32 - 1] if t >= 32 else 0) + inc[t] - v) & M32
+            for t, v in enumerate(vals)]
+    return excl, warp_sum[-1]
 
+
+def _look_back_schedule(ntiles, order, rng):
+    """Which tile moves next: tiles draw tickets in order, and a started
+    tile moves at any time. in_order: each tile runs to its end before the
+    next starts; aggregates_first: every tile publishes its aggregate
+    before any looks back, the last tile first; random: any started
+    tile."""
+    if order == "in_order":
+        return lambda started, live: min(live) if live else started
+    if order == "aggregates_first":
+        return lambda started, live: (started if started < ntiles
+                                      else max(live))
+    return lambda started, live: int(rng.choice(
+        sorted(live) + ([started] if started < ntiles else [])))
+
+
+def mirror_scan(B, S=1, freq=None, n=None, cnt=None, tile=SCAN_THREADS,
+                H=None, group=HITS_GROUP, order="in_order", seed=0):
+    """chain_scan_kernel: tiles of `tile` reads (a thread a read) take
+    their index from a ticket, stage and sum their counts, scan them in
+    the block, publish the aggregate, look back LOOKBACK predecessors at a
+    time to the nearest inclusive prefix and publish their own; tiles move
+    in the schedule `order`. With H the seed-freq scan's start index of
+    ceil(H / group) groups. -> (out int64[B+1], start int64[groups, 2] or
+    None, {"prefix": look-back windows that found an inclusive prefix,
+    "aggregates": windows of aggregates only})."""
+    ntiles = -(-B // tile)
+    rng = np.random.default_rng(seed)
+    nxt = _look_back_schedule(ntiles, order, rng)
+    status = [None] * ntiles                  # None, ("A", v) or ("P", v)
+    seen = {"prefix": 0, "aggregates": 0}
     out = np.zeros(B + 1, dtype=np.int64)
-    carry = 0
-    for base in range(0, B, threads * items):
-        v = [[read_count(base + t * items + k)
-              if base + t * items + k < B else 0 for k in range(items)]
-             for t in range(threads)]
-        mine = [sum(x) for x in v]
-        inc = list(mine)
-        for w in range(threads // 32):
-            lanes = inc[32 * w:32 * w + 32]
-            d = 1
-            while d < 32:
-                lanes = [x + (lanes[i - d] if i >= d else 0)
-                         for i, x in enumerate(lanes)]
-                d <<= 1
-            inc[32 * w:32 * w + 32] = lanes
-        warp_sum = np.cumsum([inc[32 * w + 31] for w in range(threads // 32)])
-        for t in range(threads):
-            w = t >> 5
-            run = carry + (int(warp_sum[w - 1]) if w else 0) + inc[t] - mine[t]
-            for k in range(items):
-                if base + t * items + k < B:
-                    out[base + t * items + k] = run
-                run += v[t][k]
-            if t == threads - 1:
-                last = run
-        carry = last
-    out[B] = carry
-    return out
+    ngroups = -(-H // group) if H else 0
+    start = np.full((ngroups, 2), -1, dtype=np.int64) if H else None
+
+    def staged(b):                            # a read's masked seed freqs
+        nv = S if n is None else int(n[b])
+        return [int(freq[b, j]) & M32 if j < nv else 0 for j in range(S)]
+
+    state = {}                                # tile -> its progress
+    started = 0
+    while len(state) < ntiles or any(s["top"] is not None
+                                     for s in state.values()):
+        live = [k for k, s in state.items() if s["top"] is not None]
+        k = nxt(started, live)
+        if k == started:                      # draws a ticket, publishes
+            b0 = k * tile
+            rows = [staged(b) if freq is not None else None
+                    for b in range(b0, min(b0 + tile, B))]
+            mine = [sum(r) & M32 if freq is not None else int(cnt[b]) & M32
+                    for b, r in zip(range(b0, b0 + tile), rows)]
+            excl_in, agg = block_excl_scan(mine)
+            state[k] = dict(rows=rows, excl_in=excl_in, agg=agg, excl=0,
+                            top=k - 1 if k else None)
+            status[k] = ("P", agg) if k == 0 else ("A", agg)
+            started += 1
+            continue
+        s = state[k]
+        win = [status[i] if i >= 0 else ("P", 0)
+               for i in range(s["top"] - LOOKBACK + 1, s["top"] + 1)]
+        if any(x is None for x in win):       # spins: not ready yet
+            continue
+        pm = [lane for lane, x in enumerate(win) if x[0] == "P"]
+        frm = pm[-1] if pm else 0
+        s["excl"] = (s["excl"] + sum(x[1] for x in win[frm:])) & M32
+        seen["prefix" if pm else "aggregates"] += 1
+        if pm:
+            status[k] = ("P", (s["excl"] + s["agg"]) & M32)
+            s["top"] = None
+        else:
+            s["top"] -= LOOKBACK
+    for k in range(ntiles):
+        s, b0 = state[k], k * tile
+        for t, e in enumerate(s["excl_in"]):
+            base = (s["excl"] + e) & M32
+            out[b0 + t] = _i32(base)
+            if H:
+                p = base
+                for j, f in enumerate(s["rows"][t]):
+                    g = (p + group - 1) // group
+                    while g < ngroups and g * group < p + f:
+                        start[g] = (b0 * S + t * S + j, _i32(p))
+                        g += 1
+                    p = (p + f) & M32
+    total = (state[ntiles - 1]["excl"] + state[ntiles - 1]["agg"]) & M32
+    out[B] = _i32(total)
+    if H:
+        for g in range((total + group - 1) // group, ngroups):
+            start[g] = (B * S, _i32(total))
+    return out, start, seen
 
 
 def _inv_psi(occ, L2, primary, k):
@@ -210,55 +289,87 @@ def _inv_psi(occ, L2, primary, k):
     return 0 if k == primary else int(L2[c]) + occ_kc
 
 
-def mirror_hits(tfm, off, n_seeds, rpos, slen, x0, freq, H, max_walk=192):
-    """chain_hits_kernel, one thread per slot h."""
+def mirror_hits(tfm, off, start, n_seeds, rpos, slen, x0, freq, H,
+                max_walk=192, group=HITS_GROUP, items=HITS_ITEMS):
+    """chain_hits_kernel, a block per group of `group` slots: from the
+    group's start entry, stage the masked freqs of `group * items` seeds
+    at a time, scan them (items a thread, then block_excl_scan), and let
+    each slot find its seed by binary search; then a thread per slot."""
     Bn, S = freq.shape
+    BS, chunk = Bn * S, group * items
     occ, L2 = tfm.occ_rows.numpy(), tfm.L2.numpy()
     samp, sa = tfm.sa_samp.numpy(), tfm.sa_full.numpy()
     out = {k: np.zeros(H, dtype=np.int64) for k in ("read", "rpos", "len",
                                                     "loc", "valid", "keep")}
     unres = np.zeros(Bn, dtype=bool)
-    total = int(off[Bn])
-    for h in range(H):
-        valid = h < min(total, H)
-        b, s, row = Bn - 1, S - 1, 32
-        if valid:
-            lo, hi = 0, Bn
-            while lo < hi:
-                mid = (lo + hi + 1) >> 1
-                if off[mid] <= h:
-                    lo = mid
-                else:
-                    hi = mid - 1
-            b = lo
-            pos = h - int(off[b])
-            m = min(max(int(n_seeds[b]), 0), S)
-            s = 0
-            while s < m:
-                f = int(freq[b, s])
-                if pos < f:
+    nvalid = min(int(off[Bn]), H)
+    chunks = 0
+    for g in range(-(-H // group)):
+        h0 = g * group
+        last = min(h0 + group, nvalid) - 1
+        seed, pos, found = [BS - 1] * group, [0] * group, [False] * group
+        if last >= h0:
+            lo, base = int(start[g][0]), int(start[g][1]) & M32
+            while True:
+                chunks += 1
+                v = [0] * chunk
+                for e in range(chunk):
+                    i = lo + e
+                    if i < BS and i % S < int(n_seeds[i // S]):
+                        v[e] = int(freq[i // S, i % S]) & M32
+                runs = []
+                for t in range(group):
+                    run = 0
+                    for k in range(items):
+                        run = (run + v[t * items + k]) & M32
+                        v[t * items + k] = run
+                    runs.append(run)
+                before, ctot = block_excl_scan(runs)
+                pre = [(v[e] + before[e // items]) & M32 for e in range(chunk)]
+                for t in range(group):
+                    h = h0 + t
+                    r = (h - base) & M32
+                    if h < nvalid and not found[t] and r < ctot:
+                        a, z = 0, chunk - 1
+                        while a < z:
+                            mid = (a + z) >> 1
+                            if pre[mid] > r:
+                                z = mid
+                            else:
+                                a = mid + 1
+                        seed[t] = lo + a
+                        pos[t] = r - (pre[a - 1] if a else 0)
+                        found[t] = True
+                if (last - base) & M32 < ctot or lo + chunk >= BS:
                     break
-                pos -= f
-                s += 1
-            row = int(x0[b, s]) + pos
-        rp, ln = int(rpos[b, s]), int(slen[b, s])
-        resolved = valid
-        if sa.shape[0]:
-            loc = int(sa[row])
-        else:
-            k, steps = row, 0
-            if valid:
-                while steps < max_walk and k & 31:
-                    k = _inv_psi(occ, L2, tfm.primary, k)
-                    steps += 1
-            resolved = valid and (k & 31) == 0
-            loc = steps + int(samp[k >> 5])
-        for key, v in (("read", b), ("rpos", rp), ("len", ln), ("loc", loc),
-                       ("valid", valid), ("keep", valid and loc - rp > 0)):
-            out[key][h] = v
-        if valid and not resolved:
-            unres[b] = True
-    return out, unres
+                base = (base + ctot) & M32
+                lo += chunk
+        for t in range(group):
+            h = h0 + t
+            if h >= H:
+                continue
+            valid = h < nvalid
+            b, s = divmod(seed[t], S)
+            rp, ln = int(rpos[b, s]), int(slen[b, s])
+            row = int(x0[b, s]) + pos[t] if valid else 32
+            resolved = valid
+            if sa.shape[0]:
+                loc = int(sa[row])
+            else:
+                k, steps = row, 0
+                if valid:
+                    while steps < max_walk and k & 31:
+                        k = _inv_psi(occ, L2, tfm.primary, k)
+                        steps += 1
+                resolved = valid and (k & 31) == 0
+                loc = steps + int(samp[k >> 5])
+            for key, val in (("read", b), ("rpos", rp), ("len", ln),
+                             ("loc", loc), ("valid", valid),
+                             ("keep", valid and loc - rp > 0)):
+                out[key][h] = val
+            if valid and not resolved:
+                unres[b] = True
+    return out, unres, chunks
 
 
 def _span_bits(lo, hi):
@@ -487,13 +598,14 @@ def mirror_chain(genome, seeds, tfm, H, H2, planes=None, pair_end=False,
                  max_walk=192):
     """The whole once-a-batch chain on the mirrors -> (packed, pd, mmp)."""
     n_seeds, rpos, slen, x0, freq, overflow = (x.numpy() for x in seeds)
-    off = mirror_scan(B, freq.shape[1], freq=freq, n=n_seeds)
-    hits, unres = mirror_hits(tfm, off, n_seeds, rpos, slen, x0, freq, H,
-                              max_walk)
+    off, start, _ = mirror_scan(B, freq.shape[1], freq=freq, n=n_seeds, H=H,
+                                order="random")
+    hits, unres, _ = mirror_hits(tfm, off, start, n_seeds, rpos, slen, x0,
+                                 freq, H, max_walk)
     meta, pd_o, mmp, slow = mirror_classify(
         genome["tctx"], genome["packed"], genome["rlens"], off, hits, unres,
         BUCKET, planes, pair_end)
-    off2 = mirror_scan(B, cnt=slow)
+    off2, _, _ = mirror_scan(B, cnt=slow, order="random", seed=1)
     packed = mirror_pack(off, off2, hits, slow, overflow, unres, meta, pd_o,
                          H2)
     return packed, pd_o, mmp
@@ -504,23 +616,127 @@ def mirror_chain(genome, seeds, tfm, H, H2, planes=None, pair_end=False,
 @pytest.mark.parametrize("threads", [32, 64, SCAN_THREADS])
 def test_scan_mirror_equal_plain_and_reference(threads):
     """Seed freqs with n_seeds below 0, inside and above S, and int32
-    counts, over several tiles when the mirror runs few threads."""
+    counts, in tiles of `threads` reads (3,000 reads: a last tile cut
+    short), each in three orders of publication: in ticket order (every
+    look-back finds its neighbour's inclusive prefix), aggregates first
+    (look-backs over windows of aggregates only, when there are more
+    than LOOKBACK tiles) and at random."""
+    Bn, S = 3000, 9
     rng = np.random.default_rng(threads)
-    S = 9
-    freq = rng.integers(0, 51, size=(B, S)).astype(np.int64)
-    n = rng.integers(-1, S + 3, size=B).astype(np.int64)
-    cnt = rng.integers(0, 40, size=B).astype(np.int32)
+    freq = rng.integers(0, 51, size=(Bn, S)).astype(np.int64)
+    n = rng.integers(-1, S + 3, size=Bn).astype(np.int64)
+    cnt = rng.integers(0, 40, size=Bn).astype(np.int32)
     valid = np.arange(S)[None, :] < n[:, None]
     jf = jnp.where(jnp.asarray(valid), jnp.asarray(freq), 0).sum(axis=1)
-    for got_m, got_p, counts in (
-            (mirror_scan(B, S, freq=freq, n=n, threads=threads, items=2),
-             ck.chain_scan(torch.from_numpy(freq), torch.from_numpy(n)), jf),
-            (mirror_scan(B, cnt=cnt, threads=threads, items=3),
-             ck.chain_scan(torch.from_numpy(cnt)), jnp.asarray(cnt))):
-        want = np.concatenate([[0], np.asarray(jnp.cumsum(counts))])
-        np.testing.assert_array_equal(got_m, want)
-        np.testing.assert_array_equal(got_p.numpy(), want)
-        assert got_p.dtype == torch.int32
+    ntiles = -(-Bn // threads)
+    for order in ("in_order", "aggregates_first", "random"):
+        got_f, _, seen_f = mirror_scan(Bn, S, freq=freq, n=n, tile=threads,
+                                       order=order, seed=threads)
+        got_c, _, seen_c = mirror_scan(Bn, cnt=cnt, tile=threads,
+                                       order=order, seed=threads + 1)
+        for got_m, got_p, counts in (
+                (got_f, ck.chain_scan_seeds(torch.from_numpy(freq),
+                                            torch.from_numpy(n), 1).off, jf),
+                (got_c, ck.chain_scan(torch.from_numpy(cnt)),
+                 jnp.asarray(cnt))):
+            want = np.concatenate([[0], np.asarray(jnp.cumsum(counts))])
+            np.testing.assert_array_equal(got_m, want)
+            np.testing.assert_array_equal(got_p.numpy(), want)
+            assert got_p.dtype == torch.int32
+        for seen in (seen_f, seen_c):
+            assert seen["prefix"] == ntiles - 1
+            if order == "in_order" or ntiles <= LOOKBACK:
+                assert seen["aggregates"] == 0
+            elif order == "aggregates_first":
+                assert seen["aggregates"] > 0
+
+
+def test_scan_mirror_wraps_as_plain():
+    """Counts whose sum passes 2^31: the kernel's uint32 sums wrap as the
+    plain version's int64 cumsum cast to int32 does."""
+    cnt = np.full(700, 2 ** 30 - 3, dtype=np.int32)
+    got_m, _, _ = mirror_scan(700, cnt=cnt, tile=32, order="random")
+    want = ck.chain_scan(torch.from_numpy(cnt)).numpy()
+    np.testing.assert_array_equal(got_m, want)
+    assert want.min() < 0
+
+
+def _case_seeds(case, rng, Bn=300, S=9):
+    """Seed tables of one start-index case: n_seeds from -1 to S + 2, a
+    third of the freqs 0, a run of 150 seedless reads (long_gap), or
+    freqs scaled so the total is below, at or above H = 4 * Bn."""
+    H = 4 * Bn
+    freq = rng.integers(0, 12, size=(Bn, S)).astype(np.int64)
+    freq[rng.random((Bn, S)) < 0.33] = 0
+    n = rng.integers(-1, S + 3, size=Bn).astype(np.int64)
+    n[:4] = (0, S, S + 2, -1)
+    if case == "long_gap":
+        n[60:210] = 0
+    valid = np.arange(S)[None, :] < n[:, None]
+    total = int(np.where(valid, freq, 0).sum())
+    if case == "total_lt_H":
+        H = total + 77
+    elif case == "total_eq_H":
+        H = total
+    elif case == "total_gt_H":
+        H = total // 3
+    return freq, n, H
+
+
+@pytest.mark.parametrize("case", ["total_lt_H", "total_eq_H", "total_gt_H",
+                                  "zero_freqs", "n_seeds_edges",
+                                  "long_gap"])
+def test_start_index_equal_searchsorted(genome, case):
+    """The seed-freq scan's start index (the mirror at the kernel's tile
+    and at 32-read tiles, in random orders, and the wrapper's plain
+    version) equals torch.searchsorted over the plain flat cumsum, and
+    the hits mirror expanding from it (at the kernel's group and chunk,
+    and at 32-slot groups staging 64 seeds a chunk, so the seedless run
+    takes several chunks) equals chain_hits_plain and the JAX package's
+    expansion."""
+    rng = np.random.default_rng(len(case))
+    freq, n, H = _case_seeds(case, rng)
+    Bn, S = freq.shape
+    tfm = genome["tfm"]
+    nrows = int(tfm.sa_full.shape[0])
+    x0 = rng.integers(0, nrows - 12, size=(Bn, S)).astype(np.int64)
+    rpos = rng.integers(0, 100, size=(Bn, S)).astype(np.int64)
+    slen = rng.integers(17, 60, size=(Bn, S)).astype(np.int64)
+    t = [torch.from_numpy(x) for x in (n, rpos, slen, x0, freq)]
+    flat = torch.where(torch.arange(S)[None, :] < t[0][:, None], t[4],
+                       0).reshape(-1)
+    csum = torch.cumsum(flat, 0)
+    total = int(csum[-1])
+    assert {"total_lt_H": total < H, "total_eq_H": total == H,
+            "total_gt_H": total > H}.get(case, True)
+    want_plain = ck.chain_hits_plain(tfm, None, *t, H)
+    want_jax, unres_jax = _jax_hits(genome["jfm"], (*t, t[4]), H, 192)
+    assert not unres_jax.any()
+    for group, items in ((HITS_GROUP, HITS_ITEMS), (32, 2)):
+        gpos = torch.arange(-(-H // group)) * group
+        seed = torch.searchsorted(csum, gpos, right=True)
+        before = torch.where(seed < Bn * S, (csum - flat)[
+            torch.clamp(seed, max=Bn * S - 1)], total)
+        want = torch.stack([seed, before], 1).numpy()
+        for tile in (SCAN_THREADS, 32):
+            off, start, _ = mirror_scan(Bn, S, freq=freq, n=n, tile=tile,
+                                        H=H, group=group, order="random",
+                                        seed=tile)
+            np.testing.assert_array_equal(start, want)
+        if group == HITS_GROUP:
+            scan = ck.chain_scan_seeds(t[4], t[0], H)
+            np.testing.assert_array_equal(scan.start.numpy(), want)
+            np.testing.assert_array_equal(scan.off.numpy(), off)
+            assert not scan.unresolved.any()
+        got, unres, chunks = mirror_hits(tfm, off, start, n, rpos, slen, x0,
+                                         freq, H, group=group, items=items)
+        for k in got:
+            np.testing.assert_array_equal(
+                got[k], getattr(want_plain, k).numpy(), err_msg=k)
+            np.testing.assert_array_equal(got[k], want_jax[k], err_msg=k)
+        assert not unres.any()
+        if case == "long_gap" and group == 32:
+            assert chunks > -(-min(total, H) // group)   # some take two
 
 
 def _jax_hits(jfm, seeds, H, max_walk):
@@ -558,12 +774,14 @@ def test_hits_mirror_equal_plain_and_reference(genome, full_sa, max_walk, H):
     seeds = _seeds(genome)
     tfm = genome["tfm"] if full_sa else genome["tfm0"]
     jfm = genome["jfm"] if full_sa else genome["jfm0"]
-    off = ck.chain_scan(seeds[4], seeds[0])
-    total = int(off[-1])
+    scan = ck.chain_scan_seeds(seeds[4], seeds[0], H)
+    total = int(scan.off[-1])
     assert (total > H) == (H < B)
-    got_m, unres_m = mirror_hits(tfm, off.numpy(), *(x.numpy() for x in (
-        seeds[0], seeds[1], seeds[2], seeds[3], seeds[4])), H, max_walk)
-    got_p = ck.chain_hits(tfm, off, *seeds[:5], H, max_walk)
+    got_m, unres_m, _ = mirror_hits(tfm, scan.off.numpy(),
+                                    scan.start.numpy(), *(x.numpy() for x in
+                                                          seeds[:5]),
+                                    H, max_walk)
+    got_p = ck.chain_hits(tfm, scan, *seeds[:5], H, max_walk)
     want, unres_w = _jax_hits(jfm, seeds, H, max_walk)
     for k in want:
         np.testing.assert_array_equal(got_m[k], want[k], err_msg=k)
@@ -571,6 +789,8 @@ def test_hits_mirror_equal_plain_and_reference(genome, full_sa, max_walk, H):
                                       err_msg=k)
     np.testing.assert_array_equal(unres_m, unres_w)
     np.testing.assert_array_equal(got_p.unresolved.numpy(), unres_w)
+    # the flags land in the scan's own tensor, as on the card
+    assert got_p.unresolved is scan.unresolved
     assert unres_w.any() == (max_walk < 192)
 
 
@@ -578,8 +798,8 @@ def _true_diagonals(genome):
     """Each read's first kept hit's diagonal (from its seeds), 0 without
     one."""
     seeds = _seeds(genome)
-    off = ck.chain_scan(seeds[4], seeds[0])
-    h = ck.chain_hits(genome["tfm"], off, *seeds[:5], 8 * B)
+    scan = ck.chain_scan_seeds(seeds[4], seeds[0], 8 * B)
+    h = ck.chain_hits(genome["tfm"], scan, *seeds[:5], 8 * B)
     pd = np.zeros(B, dtype=np.int64)
     for b, loc, rp in zip(*(x.numpy()[h.keep.numpy()][::-1]
                             for x in (h.read, h.loc, h.rpos))):
@@ -676,8 +896,9 @@ def test_classify_mirror_equal_plain_and_reference(genome, source, pair_end):
     of the reference."""
     if source == "seeds":
         seeds = _seeds(genome)
-        off_t = ck.chain_scan(seeds[4], seeds[0])
-        th = ck.chain_hits(genome["tfm0"], off_t, *seeds[:5], 2 * B, 6)
+        scan = ck.chain_scan_seeds(seeds[4], seeds[0], 2 * B)
+        off_t = scan.off
+        th = ck.chain_hits(genome["tfm0"], scan, *seeds[:5], 2 * B, 6)
         off = off_t.numpy()
         hits = {k: getattr(th, k).numpy() for k in
                 ("read", "rpos", "len", "loc", "valid", "keep")}
@@ -853,13 +1074,51 @@ def test_chain_dispatch_equal_reference(genome, monkeypatch, full_sa, tier,
 def test_constants_equal_cuda_source():
     for name, value in (("K_HITS", tcd.K_HITS), ("MAX_GAPS", tcd.MAX_GAPS),
                         ("MM_SLOTS", tcd.MM_SLOTS),
-                        ("PD_EMPTY", tcd.INT32_MAX)):
+                        ("PD_EMPTY", tcd.INT32_MAX),
+                        ("SCAN_THREADS", ck.SCAN_THREADS),
+                        ("SCAN_MAX_S", ck.SCAN_MAX_S),
+                        ("HITS_GROUP", ck.HITS_GROUP)):
         assert _cu_const(name) == value, name
+    # the seed-freq scan takes every S the seed kernels make (max_len a
+    # multiple of 16 below 512), and a whole tile of its rows fits the
+    # 48 KB of shared memory a block gets without opting in
+    assert max(m // (tfs.MIN_SEED_LEN + 1) + 2
+               for m in range(16, 512, 16)) == ck.SCAN_MAX_S
+    assert 4 * ck.SCAN_THREADS * ck.SCAN_MAX_S + 1024 <= 48 * 1024
     with open(CU) as f:
         src = f.read()
     assert re.search(r"CLASS_NOCAND = 0, CLASS_FAST = 1, CLASS_SLOW = 2",
                      src)
     assert (tcd.CLASS_NOCAND, tcd.CLASS_FAST, tcd.CLASS_SLOW) == (0, 1, 2)
+
+
+def test_scan_scratch_epochs(monkeypatch):
+    """The look-back scratch of a device is allocated zeroed once and
+    reused; each launch gets the next epoch (never 0, which zeroed words
+    hold); a batch with more tiles grows it, and when the epochs run out
+    it is allocated zeroed anew and the epochs start again at 1."""
+    calls = []
+    monkeypatch.setattr(ck, "_launch", lambda name, dev, *a, count:
+                        calls.append(a[-3:]))
+    monkeypatch.setattr(ck, "_scan_scratch", {})
+    monkeypatch.setattr(ck, "_EPOCHS", 5)
+    dev = torch.device("cpu")
+
+    def launch(B):
+        ck._scan_launch("chain_scan", dev, None, None, 1, B, 1, 2, None, 0,
+                        None, count="chain_scan")
+        return ck._scan_scratch[dev][0]
+
+    first = launch(1000)                        # a new scratch: epoch 1
+    assert launch(1000) is first                # epoch 2
+    grown = launch(3000 * ck.SCAN_THREADS)      # 3,000 tiles: epoch 1
+    assert grown is not first
+    assert all(launch(10) is grown for _ in range(3))   # epochs 2, 3, 4
+    fresh = launch(10)                          # no epoch 5 (_EPOCHS): anew
+    assert fresh is not grown and not fresh.any()
+    assert [c[2] for c in calls] == [1, 2, 1, 2, 3, 4, 1]
+    assert [c[1] for c in calls] == [1024, 1024] + [3000] * 4 + [1024]
+    assert calls[0][0] == calls[1][0] == first.data_ptr()
 
 
 def test_cpu_dispatch_runs_plain_versions(genome, monkeypatch):
@@ -871,46 +1130,57 @@ def test_cpu_dispatch_runs_plain_versions(genome, monkeypatch):
     fm3 = DeviceFM3.from_host(genome["idx"], genome["tfm"], pfx_k=0)
     kern = tfs.build_seed_chain_kernel(fm3, genome["tctx"], BUCKET, B)
     kern(torch.from_numpy(genome["packed"]), torch.from_numpy(genome["rlens"]))
-    off = ck.chain_scan(seeds[4], seeds[0])
-    assert torch.equal(off, ck.chain_scan_plain(seeds[4], seeds[0]))
+    scan = ck.chain_scan_seeds(seeds[4], seeds[0], B)
+    assert torch.equal(scan.off, ck.chain_scan_plain(seeds[4], seeds[0]))
+    for got, want in zip(scan, ck.chain_scan_seeds_plain(seeds[4], seeds[0],
+                                                         B)):
+        assert torch.equal(got, want)
     assert sum(ck.STATS.launches.values()) == 0
 
 
 def _valid_args(genome):
     seeds = _seeds(genome)
-    off = ck.chain_scan(seeds[4], seeds[0])
-    hits = ck.chain_hits(genome["tfm"], off, *seeds[:5], 2 * B)
+    scan = ck.chain_scan_seeds(seeds[4], seeds[0], 2 * B)
+    hits = ck.chain_hits(genome["tfm"], scan, *seeds[:5], 2 * B)
     packed = torch.from_numpy(genome["packed"])
     rlens = torch.from_numpy(genome["rlens"])
     H2 = B
     out = torch.zeros(2 * B + 2 * H2 + B // 2 + B // 32 + 2,
                       dtype=torch.int32)
-    return seeds, off, hits, packed, rlens, out, H2
+    return seeds, scan, hits, packed, rlens, out, H2
 
 
 @pytest.mark.parametrize("bad", [
-    "scan_dtype", "scan_n_shape", "scan_3d", "hits_dtype", "hits_off",
-    "hits_devices", "classify_rlens", "classify_packed", "classify_hits",
-    "classify_planes", "classify_device", "pack_out", "pack_batch",
-    "pack_overflow"])
+    "scan_dtype", "scan_n_shape", "scan_3d", "scan_counts_2d", "hits_dtype",
+    "hits_off", "hits_start", "hits_devices", "classify_rlens",
+    "classify_packed", "classify_hits", "classify_planes", "classify_device",
+    "pack_out", "pack_batch", "pack_overflow"])
 def test_wrapper_refusals(genome, bad):
-    seeds, off, hits, packed, rlens, out, H2 = _valid_args(genome)
+    seeds, scan, hits, packed, rlens, out, H2 = _valid_args(genome)
+    off = scan.off
     n_seeds, s_rpos, s_len, s_x0, s_freq, overflow = seeds
     meta = torch.empty(B, device="meta")
     ctx, fm = genome["tctx"], genome["tfm"]
     calls = {
-        "scan_dtype": (TypeError, lambda: ck.chain_scan(
-            s_freq.to(torch.int32), n_seeds)),
-        "scan_n_shape": (ValueError, lambda: ck.chain_scan(
-            s_freq, n_seeds[:-1])),
-        "scan_3d": (ValueError, lambda: ck.chain_scan(s_freq[:, :, None])),
+        "scan_dtype": (TypeError, lambda: ck.chain_scan_seeds(
+            s_freq.to(torch.int32), n_seeds, 2 * B)),
+        "scan_n_shape": (ValueError, lambda: ck.chain_scan_seeds(
+            s_freq, n_seeds[:-1], 2 * B)),
+        "scan_3d": (ValueError, lambda: ck.chain_scan_seeds(
+            s_freq[:, :, None], n_seeds, 2 * B)),
+        "scan_counts_2d": (ValueError, lambda: ck.chain_scan(
+            s_freq.to(torch.int32))),
         "hits_dtype": (TypeError, lambda: ck.chain_hits(
-            fm, off, n_seeds, s_rpos.to(torch.int32), s_len, s_x0, s_freq,
-            B)),
+            fm, scan, n_seeds, s_rpos.to(torch.int32), s_len, s_x0, s_freq,
+            2 * B)),
         "hits_off": (ValueError, lambda: ck.chain_hits(
-            fm, off[:-1], n_seeds, s_rpos, s_len, s_x0, s_freq, B)),
+            fm, scan._replace(off=off[:-1]), n_seeds, s_rpos, s_len, s_x0,
+            s_freq, 2 * B)),
+        "hits_start": (ValueError, lambda: ck.chain_hits(
+            fm, scan, n_seeds, s_rpos, s_len, s_x0, s_freq, 4 * B)),
         "hits_devices": (ValueError, lambda: ck.chain_hits(
-            fm, off, meta.to(torch.int64), s_rpos, s_len, s_x0, s_freq, B)),
+            fm, scan, meta.to(torch.int64), s_rpos, s_len, s_x0, s_freq,
+            2 * B)),
         "classify_rlens": (TypeError, lambda: ck.chain_classify(
             ctx, packed, rlens.to(torch.int64), off, hits, BUCKET, out)),
         "classify_packed": (ValueError, lambda: ck.chain_classify(
