@@ -42,9 +42,10 @@ exits non-zero):
              ksw2 warm-up's bytes. Each run counts every kernel's launches
              (one seed-scan launch a batch: the occ3 kernel, or the
              1-step kernel on the 1-step run; the chain kernels once a
-             batch, the chain scan on the seed freqs and on the slow
-             counts counted apart; host chaining only the seed-freq scan
-             and the hits kernel) and the evidence steps;
+             batch: the seed-freq scan, the hits kernel and classify+
+             pack, and no stand-alone scan of the slow counts; host
+             chaining only the seed-freq scan and the hits kernel) and the
+             evidence steps;
              every run but the host-evidence and host-chaining ones
              accumulates evidence on the card and calls from it, with no
              capacity overflow; no run sends a read to the host oracle or
@@ -62,18 +63,22 @@ exits non-zero):
              thread per read); then, after their runs, the compacted
              run's batches (8,192 lanes) and the 1-step run's batches
              (batch 0 timed), each equal to the plain version
-  chain      each chain kernel (csrc/chain.cu: scan, hits, classify,
-             pack) equal to its plain version in every element on every
-             batch of the warm-up at tier 2 (the folded apply on the even
-             ones), on batch 0 at tier 18 and on an edge batch at tier 1;
-             batch 0 timed (device ms, call ms, plain ms, bound, and
-             torch.cumsum beside the slow-count scan; the seed-freq scan
-             apart; the floor: an empty one-thread launch, timed alike);
-             a race: the scan on the seed freqs, the hits kernel and the
-             scan on the slow counts each launched 200 times back to back
-             on batch 0 and on 131,072 reads (four batches end to end, a
-             scan tile cut short), every result equal to the plain
-             version; then the 1-step run's batches
+  chain      each chain kernel (csrc/chain.cu: the scan, hits,
+             classify+pack) equal to its plain version in every element on
+             every batch of the warm-up at tier 2 (the folded apply on the
+             even ones), on batch 0 at tier 18, on an edge batch at tier
+             1, on batch 0's hits repeated 24 times (a tile's hits past
+             the kernel's staging capacity: chunked staging) and on
+             4,096 reads at bucket 496 (31 words a read); batch 0
+             timed (device ms, call ms, plain ms, bound; the stand-alone
+             scan on the slow counts beside torch.cumsum; the floor: an
+             empty one-thread launch, timed alike; the times of the
+             three launches classify+pack replaced, for reference);
+             a race: the scan on the seed freqs, the hits kernel, the
+             scan on the slow counts and classify+pack each launched 200
+             times back to back on batch 0 and on 131,072 reads (four
+             batches end to end, a scan tile cut short), every result
+             equal to the plain version; then the 1-step run's batches
              replayed without the full SA (the inverse-Psi walk), equal
              too, batch 0's walk timed
   evidence   device ms (queued launches) of the evidence apply of one
@@ -506,7 +511,7 @@ def chain_run(ck, kern, packed, rlens, fm=None, tier=None, planes=None,
     scan, on the scan kernel's seeds; fm replaces the kernel's 1-step
     table (a copy without the full SA walks), tier its hit buffers.
     Returns every stage's output: (seeds, the seed-freq scan, hits, out,
-    mmp, slow_kept, off2)."""
+    mmp)."""
     import torch
     B = kern.batch
     H, H2 = ((kern.H, kern.H2) if tier is None else
@@ -517,11 +522,60 @@ def chain_run(ck, kern, packed, rlens, fm=None, tier=None, planes=None,
     hits = ck.chain_hits(fm, scan, *seeds[:5], H)
     out = torch.empty(2 * B + 2 * H2 + B // 2 + B // 32 + 2,
                       dtype=torch.int32, device=packed.device)
-    mmp, slow = ck.chain_classify(kern.ctx, packed, rlens, scan.off, hits,
-                                  kern.max_len, out, planes, pair_end)
-    off2 = ck.chain_scan(slow)
-    ck.chain_pack(scan.off, off2, hits, slow, seeds[5], out, H2)
-    return seeds, scan, hits, out, mmp, slow, off2
+    mmp = ck.chain_classify_pack(kern.ctx, packed, rlens, scan.off, hits,
+                                 seeds[5], kern.max_len, out, H2, planes,
+                                 pair_end)
+    return seeds, scan, hits, out, mmp
+
+
+def h2_of(B, out):
+    """H2 of a packed output vector of B reads."""
+    return (out.shape[0] - 2 * B - B // 2 - B // 32 - 2) // 2
+
+
+def slow_counts(out, B):
+    """Each read's SLOW kept hits (int32[B]) from a packed vector's
+    counts2 words."""
+    import torch
+    o = 2 * B + 2 * h2_of(B, out)
+    c2 = out[o:o + B // 2]
+    return torch.stack([c2 & 0xFFFF, (c2 >> 16) & 0xFFFF], 1).reshape(-1)
+
+
+def classify_pack_pairs(ck, kern, packed, rlens, off, hits, overflow, out,
+                        mmp, pk=None, pair_end=False):
+    """The classify+pack kernel's outputs (out, mmp, and planes pk when
+    given) beside the plain composition's on the same inputs, as (name,
+    kernel, plain) pairs."""
+    import torch
+    from mapcaller_tpu_torch.pipeline.device_profile import DevicePlanes
+    B = kern.batch
+    pp = (DevicePlanes.zeros(kern.ctx.seq_len // 2, packed.device)
+          if pk is not None else None)
+    outp = torch.empty_like(out)
+    mmpp = ck.chain_classify_pack_plain(kern.ctx, packed, rlens, off, hits,
+                                        overflow, kern.max_len, outp,
+                                        h2_of(B, out), pp, pair_end)
+    pairs = [("mmp", mmp, mmpp), ("meta_pd", out[:2 * B], outp[:2 * B]),
+             ("pack", out[2 * B:], outp[2 * B:])]
+    if pk is not None:
+        pairs += [(f"planes.{k}", getattr(pk, k), getattr(pp, k))
+                  for k in ("acgt", "exact_diff", "f_diff")]
+    return pairs
+
+
+def max_err(what, pairs):
+    """Every pair equal in every element, or raise; -> the max abs
+    difference (0)."""
+    import torch
+    torch.cuda.synchronize()
+    errs = {k: int((a.long() - b.long()).abs().max()) if a.numel() else 0
+            for k, a, b in pairs}
+    bad = [k for k, a, b in pairs if errs[k] or not torch.equal(a, b)]
+    if bad:
+        raise AssertionError(f"{what}: chain kernel != plain version in "
+                             f"{bad} ({errs})")
+    return max(errs.values())
 
 
 def equal_chain(what, ck, kern, packed, rlens, L, **kw):
@@ -529,48 +583,63 @@ def equal_chain(what, ck, kern, packed, rlens, L, **kw):
     (each stage's plain version takes the kernels' upstream outputs), on
     planes of their own when L is given: every element of every output
     equal. Returns the max abs difference (0) and the kernels' outputs."""
-    import torch
     from mapcaller_tpu_torch.pipeline.device_profile import DevicePlanes
-    B = kern.batch
     pk = DevicePlanes.zeros(L, packed.device) if L else None
-    pp = DevicePlanes.zeros(L, packed.device) if L else None
     got = chain_run(ck, kern, packed, rlens, planes=pk, **kw)
-    seeds, scan, hits, out, mmp, slow, off2 = got
+    seeds, scan, hits, out, mmp = got
     off = scan.off
     fm = kw.get("fm") or kern.fm1
-    H, H2 = hits.read.shape[0], (out.shape[0] - 2 * B - B // 2 - B // 32
-                                 - 2) // 2
-    want = dict(scan=ck.chain_scan_seeds_plain(seeds[4], seeds[0], H))
-    want["hits"] = ck.chain_hits_plain(fm, off, *seeds[:5], H)
-    outp = torch.empty_like(out)
-    want["mmp"], want["slow"] = ck.chain_classify_plain(
-        kern.ctx, packed, rlens, off, hits, kern.max_len, outp, pp,
-        kw.get("pair_end", False))
-    want["meta_pd"] = outp[:2 * B].clone()
-    want["off2"] = ck.chain_scan_plain(slow)
-    outp[:2 * B] = out[:2 * B]            # the pack reads the kernel's classes
-    want["out"] = ck.chain_pack_plain(off, off2, hits, slow, seeds[5], outp,
-                                      H2)
-    pairs = [("off", off, want["scan"].off),
-             ("start", scan.start, want["scan"].start),
-             ("off2", off2, want["off2"]),
-             ("mmp", mmp, want["mmp"]), ("slow_kept", slow, want["slow"]),
-             ("meta_pd", out[:2 * B], want["meta_pd"]),
-             ("pack", out[2 * B:], want["out"][2 * B:])]
-    pairs += [(f"hits.{k}", getattr(hits, k), getattr(want["hits"], k))
+    H = hits.read.shape[0]
+    want_scan = ck.chain_scan_seeds_plain(seeds[4], seeds[0], H)
+    want_hits = ck.chain_hits_plain(fm, off, *seeds[:5], H)
+    pairs = [("off", off, want_scan.off), ("start", scan.start,
+                                           want_scan.start)]
+    pairs += [(f"hits.{k}", getattr(hits, k), getattr(want_hits, k))
               for k in hits._fields]
-    if L:
-        pairs += [(f"planes.{k}", getattr(pk, k), getattr(pp, k))
-                  for k in ("acgt", "exact_diff", "f_diff")]
-    if packed.is_cuda:
-        torch.cuda.synchronize()
-    errs = {k: int((a.long() - b.long()).abs().max()) if a.numel() else 0
-            for k, a, b in pairs}
-    bad = [k for k, a, b in pairs if errs[k] or not torch.equal(a, b)]
-    if bad:
-        raise AssertionError(f"{what}: chain kernel != plain version in "
-                             f"{bad} ({errs})")
-    return max(errs.values()), got
+    pairs += classify_pack_pairs(ck, kern, packed, rlens, off, hits,
+                                 seeds[5], out, mmp, pk,
+                                 kw.get("pair_end", False))
+    return max_err(what, pairs), got
+
+
+def dense_batch(ck, kern, packed, rlens, rep=24):
+    """A batch's valid hits each repeated `rep` times, every read's hits
+    still grouped (~35 a read on the main path's batch 0): a tile of
+    CP_READS reads spans more hits than the classify+pack kernel stages
+    at a time (CP_HIT_CAP), so it stages them in chunks, and with most
+    reads SLOW (more than 8 kept hits) the pack restages them. H2 is half
+    the hits: some slots are written, the rest dropped. -> (off, hits,
+    overflow, H2, the largest tile hit range)."""
+    import torch
+    seeds, scan, hits, _, _ = chain_run(ck, kern, packed, rlens)
+    n = min(int(scan.off[-1]), hits.read.shape[0])
+    dense = ck.Hits(*(x[:n].repeat_interleave(rep) for x in hits[:6]),
+                    hits.unresolved)
+    off = (torch.clamp(scan.off, max=n) * rep).to(torch.int32)
+    edges = off[::ck.CP_READS].long()         # whole tiles' first hits
+    return off, dense, seeds[5], n * rep // 2, int((edges[1:]
+                                                    - edges[:-1]).max())
+
+
+def equal_dense(ck, kern, packed, rlens):
+    """The classify+pack kernel equal to the plain composition on
+    dense_batch's hits. -> (max abs difference (0), batch facts)."""
+    import torch
+    off, hits, overflow, H2, widest = dense_batch(ck, kern, packed, rlens)
+    if widest <= ck.CP_HIT_CAP:
+        raise AssertionError(f"dense batch: widest tile range {widest} "
+                             f"fits the staging capacity {ck.CP_HIT_CAP}")
+    B = kern.batch
+    out = torch.empty(2 * B + 2 * H2 + B // 2 + B // 32 + 2,
+                      dtype=torch.int32, device=packed.device)
+    mmp = ck.chain_classify_pack(kern.ctx, packed, rlens, off, hits,
+                                 overflow, kern.max_len, out, H2)
+    err = max_err("chain dense batch (chunked staging)", classify_pack_pairs(
+        ck, kern, packed, rlens, off, hits, overflow, out, mmp))
+    return err, dict(H=int(hits.read.shape[0]), H2=H2,
+                     widest_tile_hits=widest, hit_cap=ck.CP_HIT_CAP,
+                     total_kept=int(out[-2]), buffer_overflow=int(out[-1]),
+                     cls=[int(((out[:B] & 3) == c).sum()) for c in range(3)])
 
 
 def hit_rows(seeds, H):
@@ -646,44 +715,62 @@ def chain_bounds(kern, packed, got):
     bytes it must move (each input read once, each output written once;
     of the int64 seed tables only the entries the kernel needs, one SA
     entry per distinct valid hit row) and its int32 operations
-    (CHAIN_OPS), over the card's rates.
-    -> {kernel: (bound_ms, bound_by, bytes)}."""
-    seeds, scan, hits, out, mmp, slow, off2 = got
+    (CHAIN_OPS), over the card's rates. chain_scan is the stand-alone
+    scan of the slow counts. -> {kernel: (bound_ms, bound_by, bytes)}."""
+    seeds, scan, hits, out, mmp = got
     B, S = seeds[4].shape
     groups = scan.start.shape[0]
-    H, H2 = hits.read.shape[0], kern.H2
+    H2 = kern.H2
     nseeds = int(seeds[0].clamp(0, S).sum())
     nvalid = int(hits.valid.sum())
     nkept = int(hits.keep.sum())
-    slow_h = int(slow.sum())
+    slow_h = int(slow_counts(out, B).sum())
     words = kern.max_len // 16
+    nkeys = kern.ctx.bkeys.shape[0]
     o = CHAIN_OPS
     work = dict(
         chain_scan=(4 * B + 4 * (B + 1), o["scan_read"] * B),
         chain_scan_seeds=(8 * B + 8 * nseeds + 4 * (B + 1) + 8 * groups + B,
                           o["scan_read"] * B + nseeds),
         chain_hits=hits_work(kern.fm1, seeds, scan, hits)[:2],
-        chain_classify=(4 * (B + 1) + B * (4 + 4 * words + 1)
-                        + 13 * nvalid + 8 * (words + 1) * B + 28 * B,
-                        o["read_word"] * words * B + o["kept_hit"] * nkept),
-        chain_pack=(B * (4 + 4 + 4 + 4 + 1 + 1) + 13 * slow_h
-                    + 8 * H2 + 4 * (B // 2 + B // 32 + 2),
-                    o["pack_read"] * B + o["pack_hit"] * slow_h))
+        # off, rlens, the read words, unresolved and overflow, the valid
+        # hits' rpos/len/loc/keep, words + 1 text words a read, the
+        # chromosome ends; meta1 and pd, mmp, hit_w and hit_loc, counts2,
+        # the overflow words and the two totals
+        chain_classify_pack=(
+            4 * (B + 1) + B * (4 + 4 * words + 1 + 1) + 13 * nvalid
+            + 8 * (words + 1) * B + 8 * nkeys
+            + 8 * B + 16 * B + 8 * H2 + 4 * (B // 2 + B // 32 + 2),
+            o["read_word"] * words * B + o["kept_hit"] * nkept
+            + o["pack_read"] * B + o["pack_hit"] * slow_h))
     return {k: (*bound_of(nbytes, ops), nbytes)
             for k, (nbytes, ops) in work.items()}
+
+
+# batch 0's device ms of the three launches chain_classify_pack replaced
+# (classify, the scan of the slow counts, pack), as this script measured
+# them on an NVIDIA H100 80GB HBM3 at 700.00 W before they were fused
+# (PERF.md, section 6)
+SPLIT_CLASSIFY_SCAN_PACK_MS = dict(chain_classify=0.01168,
+                                   chain_scan_slow_counts=0.00784,
+                                   chain_pack=0.00666)
 
 
 def measure_chain(ck, kern, packed, rlens, reps=50):
     """Device ms (queued launches), call ms and plain ms of each chain
     kernel on one main-path batch, its bound, and torch.cumsum on the
-    second scan's counts (the one PyTorch call of the same function)."""
+    slow counts beside the stand-alone scan (the one PyTorch call of the
+    same function)."""
     import torch
     got = chain_run(ck, kern, packed, rlens)
-    seeds, scan, hits, out, mmp, slow, off2 = got
+    seeds, scan, hits, out, mmp = got
     off = scan.off
     B = kern.batch
     fm, H, H2 = kern.fm1, kern.H, kern.H2
+    slow = slow_counts(out, B).to(torch.int32).contiguous()
     outk = out.clone()
+    cp_args = (kern.ctx, packed, rlens, off, hits, seeds[5], kern.max_len,
+               outk, H2)
     calls = dict(
         chain_scan=(lambda: ck.chain_scan(slow),
                     lambda: ck.chain_scan_plain(slow)),
@@ -692,26 +779,22 @@ def measure_chain(ck, kern, packed, rlens, reps=50):
                                                             seeds[0], H)),
         chain_hits=(lambda: ck.chain_hits(fm, scan, *seeds[:5], H),
                     lambda: ck.chain_hits_plain(fm, off, *seeds[:5], H)),
-        chain_classify=(lambda: ck.chain_classify(
-            kern.ctx, packed, rlens, off, hits, kern.max_len, outk),
-            lambda: ck.chain_classify_plain(
-                kern.ctx, packed, rlens, off, hits, kern.max_len, outk)),
-        chain_pack=(lambda: ck.chain_pack(off, off2, hits, slow, seeds[5],
-                                          outk, H2),
-                    lambda: ck.chain_pack_plain(off, off2, hits, slow,
-                                                seeds[5], outk, H2)))
+        chain_classify_pack=(lambda: ck.chain_classify_pack(*cp_args),
+                             lambda: ck.chain_classify_pack_plain(*cp_args)))
     bounds = chain_bounds(kern, packed, got)
     res = {}
     for name, (kfn, pfn) in calls.items():
         res[name] = dict(ms=cuda_ms(kfn, reps, queued=True),
                          call_ms=cuda_ms(kfn, reps),
                          plain_ms=cuda_ms(pfn, 3, warmup=1), library_ms=None)
-        if name in bounds:
-            bound, by, nbytes = bounds[name]
-            res[name].update(bound_ms=bound, bound_by=by, bytes=nbytes,
-                             share_of_bound=bound / res[name]["ms"])
+        bound, by, nbytes = bounds[name]
+        res[name].update(bound_ms=bound, bound_by=by, bytes=nbytes,
+                         share_of_bound=bound / res[name]["ms"])
     res["chain_scan"]["library_ms"] = cuda_ms(
         lambda: torch.cumsum(slow, 0), reps, queued=True)
+    res["chain_classify_pack"]["earlier_ms"] = dict(
+        SPLIT_CLASSIFY_SCAN_PACK_MS,
+        sum=sum(SPLIT_CLASSIFY_SCAN_PACK_MS.values()))
     # the floor under every launch: a one-thread kernel that returns at
     # once, timed as the kernels are
     res["floor_ms"] = cuda_ms(lambda: torch.cuda._sleep(0), reps,
@@ -719,7 +802,7 @@ def measure_chain(ck, kern, packed, rlens, reps=50):
     res["batch"] = dict(B=B, H=H, H2=H2, total_raw=int(off[-1]),
                         valid_hits=int(hits.valid.sum()),
                         kept_hits=int(hits.keep.sum()),
-                        slow_kept=int(off2[-1]),
+                        slow_kept=int(out[-2]),
                         cls=[int(((out[:B] & 3) == c).sum())
                              for c in range(3)])
     return res
@@ -727,22 +810,23 @@ def measure_chain(ck, kern, packed, rlens, reps=50):
 
 def chain_launches(batches, chained=True):
     """Each chain kernel's launches in a run of `batches` batches: once a
-    batch each, the scan on the seed freqs (chain_scan_seeds) and on the
-    slow counts (chain_scan) counted apart; with host chaining only the
-    seed-freq scan and the hits kernel."""
+    batch each, the seed-freq scan (chain_scan_seeds), the hits kernel and
+    classify+pack, and no stand-alone scan (chain_scan); with host
+    chaining only the seed-freq scan and the hits kernel."""
     if chained:
-        return dict(chain_scan_seeds=batches, chain_scan=batches,
-                    chain_hits=batches, chain_classify=batches,
-                    chain_pack=batches)
+        return dict(chain_scan_seeds=batches, chain_hits=batches,
+                    chain_classify_pack=batches)
     return dict(chain_scan_seeds=batches, chain_hits=batches)
 
 
 def run_chain(ck, batches, card, reps=50):
     """The chain kernels on the warm-up's own batches, each stage equal to
     its plain version: every batch at tier 2 (the folded apply on the even
-    ones), batch 0 at tier 18 (collect_chain's rerun), and an edge batch
+    ones), batch 0 at tier 18 (collect_chain's rerun), an edge batch
     (lengths 0, 15, 16, 17, bucket - 1 and bucket forced, random tails)
-    at tier 1 with the apply, single-end; then batch 0 timed."""
+    at tier 1 with the apply, single-end, batch 0's hits repeated 24
+    times (dense_batch: chunked staging) and 4,096 reads at bucket 496;
+    then batch 0 timed."""
     kern, packed0, rlens0, pair_end = batches[0]
     L = kern.ctx.seq_len // 2
     errs = [equal_chain(f"chain main-path batch {i}", ck, k, p, r,
@@ -753,10 +837,19 @@ def run_chain(ck, batches, card, reps=50):
     codes, rl = scan_inputs(packed0, kern.max_len, seed=7)
     errs.append(equal_chain("chain edge batch at tier 1", ck, kern, codes,
                             rl, L, tier=1)[0])
+    err, dense = equal_dense(ck, kern, packed0, rlens0)
+    errs.append(err)
+    # 4,096 reads of up to 496 bases (31 words a read; the kernel's shared
+    # memory passes 48 KB), the first 128 from the main path's reads
+    from mapcaller_tpu_torch.ops.fm_search import SeedChainKernel
+    codes, rl = scan_inputs(packed0[:4096], 496, seed=9)
+    errs.append(equal_chain("chain 496-base batch", ck, SeedChainKernel(
+        kern.fm, kern.ctx, 496, 4096), codes, rl, L)[0])
     own = measure_chain(ck, kern, packed0, rlens0, reps)
     own["max_abs_err"] = max(errs)
     emit("chain", card=card, main_path_batches=len(batches),
-         calls_equal=len(errs), max_abs_err=max(errs), main_path_batch0=own)
+         calls_equal=len(errs), max_abs_err=max(errs), dense_batch=dense,
+         main_path_batch0=own)
     run_chain_race(ck, batches, card)
     return own
 
@@ -764,42 +857,62 @@ def run_chain(ck, batches, card, reps=50):
 def run_chain_race(ck, batches, card, launches=200):
     """The redesigned kernels launched `launches` times back to back each
     (the scan on the seed freqs, the hits kernel on each of those scans,
-    the scan on the slow counts), on batch 0 and on four batches' seeds
-    end to end (131,072 reads: 341 1/3 scan tiles), every result equal to
-    its plain version in every element: the look-back's tickets, epochs
-    and status words from launch to launch."""
+    the stand-alone scan on the slow counts, classify+pack), on batch 0
+    and on four batches end to end (131,072 reads: 341 1/3 scan tiles,
+    1,024 classify+pack tiles), every result equal to its plain version
+    in every element: the look-back's tickets, epochs and status words
+    from launch to launch."""
     import torch
     kern = batches[0][0]
     parts = [chain_run(ck, k, p, r) for k, p, r, _ in batches[:4]]
     big = [torch.cat([pt[0][i] for pt in parts]) for i in range(6)]
-    inputs = (("batch 0", parts[0][0], parts[0][5], kern.H),
-              (f"{big[0].shape[0]} reads", big,
-               torch.cat([pt[5] for pt in parts]),
-               big[0].shape[0] * kern.H // kern.batch))
+    nb = big[0].shape[0]
+    inputs = (("batch 0", parts[0][0], batches[0][1], batches[0][2],
+               slow_counts(parts[0][3], kern.batch), kern.H, kern.H2),
+              (f"{nb} reads", big, torch.cat([b[1] for b in batches[:4]]),
+               torch.cat([b[2] for b in batches[:4]]),
+               torch.cat([slow_counts(pt[3], kern.batch) for pt in parts]),
+               nb * kern.H // kern.batch, nb * kern.H2 // kern.batch))
     res = {}
-    for what, seeds, slow, H in inputs:
+    for what, seeds, packed, rlens, slow, H, H2 in inputs:
         freq, n = seeds[4], seeds[0]
+        B = n.shape[0]
+        slow = slow.to(torch.int32).contiguous()
         want_scan = ck.chain_scan_seeds_plain(freq, n, H)
         want_hits = ck.chain_hits_plain(kern.fm1, want_scan.off, *seeds[:5],
                                         H)
         want_off2 = ck.chain_scan_plain(slow)
+        want_out = torch.empty(2 * B + 2 * H2 + B // 2 + B // 32 + 2,
+                               dtype=torch.int32, device=packed.device)
+        cp_args = (kern.ctx, packed, rlens, want_scan.off, want_hits,
+                   seeds[5], kern.max_len)
+        want_mmp = ck.chain_classify_pack_plain(*cp_args, want_out, H2)
         scans = [ck.chain_scan_seeds(freq, n, H) for _ in range(launches)]
         hits = [ck.chain_hits(kern.fm1, sc, *seeds[:5], H) for sc in scans]
         offs2 = [ck.chain_scan(slow) for _ in range(launches)]
+        cps = []
+        for _ in range(launches):
+            out = torch.empty_like(want_out)
+            cps.append((out, ck.chain_classify_pack(*cp_args, out, H2)))
         torch.cuda.synchronize()
         bad = dict(
             chain_scan_seeds=sum(not all(map(torch.equal, sc, want_scan))
                                  for sc in scans),
             chain_hits=sum(not all(map(torch.equal, h, want_hits))
                            for h in hits),
-            chain_scan=sum(not torch.equal(o, want_off2) for o in offs2))
+            chain_scan=sum(not torch.equal(o, want_off2) for o in offs2),
+            chain_classify_pack=sum(not (torch.equal(o, want_out)
+                                         and torch.equal(m, want_mmp))
+                                    for o, m in cps))
         if any(bad.values()):
             raise AssertionError(f"chain race on {what}: results that "
                                  f"differ from the plain version {bad}")
-        res[what] = dict(B=int(n.shape[0]), H=H, launches_each=launches,
-                         scan_tiles=-(-int(n.shape[0]) // ck.SCAN_THREADS),
-                         total_raw=int(want_scan.off[-1]), unequal=bad)
-        del scans, hits, offs2
+        res[what] = dict(B=B, H=H, H2=H2, launches_each=launches,
+                         scan_tiles=-(-B // ck.SCAN_THREADS),
+                         classify_pack_tiles=-(-B // ck.CP_READS),
+                         total_raw=int(want_scan.off[-1]),
+                         total_kept=int(want_out[-2]), unequal=bad)
+        del scans, hits, offs2, cps
     emit("chain", card=card, race=res)
 
 
@@ -1367,7 +1480,7 @@ def run_main_path(work, card):
                   and t["scan1_launches"] == 0
                   for t in everything if t is not one_step)
           and one_step["scan1_launches"] == one_step["stages"]["batches"]
-          # the chain kernels once a batch (the scan twice) on every path
+          # the chain kernels once a batch on every path
           # but host chaining, which runs only the scan and hits kernels
           and all(t["chain_launches"] == chain_launches(
               t["stages"]["batches"], t is not unchained) for t in everything)
@@ -1517,8 +1630,7 @@ def main():
              (("libseed_scan.so", "seed_scan1_kernel"), 1),
              (("libchain.so", "chain_scan_kernel"), 1),
              (("libchain.so", "chain_hits_kernel"), 1),
-             (("libchain.so", "chain_classify_kernel"), 1),
-             (("libchain.so", "chain_pack_kernel"), 1))
+             (("libchain.so", "chain_classify_pack_kernel"), 1))
     reports = {kernel: ptxas_report(outputs.get(lib, ""), kernel)
                for (lib, kernel), _ in gated}
     emit("build", seconds=time.time() - t0,
@@ -1597,8 +1709,8 @@ def main():
             ("chain_scan_seeds", "mapcaller_tpu/ops/fm_search.py:713"),
             ("chain_scan", "mapcaller_tpu/ops/fm_search.py:752"),
             ("chain_hits", "mapcaller_tpu/ops/fm_search.py:704"),
-            ("chain_classify", "mapcaller_tpu/ops/chain_device.py:103"),
-            ("chain_pack", "mapcaller_tpu/ops/fm_search.py:751")):
+            ("chain_classify_pack",
+             "mapcaller_tpu/ops/chain_device.py:103")):
         r = chain[name]
         kernels.append({
             "name": name, "route": "cuda",
@@ -1611,6 +1723,9 @@ def main():
             "call_ms": r["call_ms"], "floor_ms": chain["floor_ms"],
             "shape": f"{b0['B']} reads, H {b0['H']}, H2 {b0['H2']}, the main "
                      f"path's own batch 0"})
+    # classify+pack also replaces the pack and its cumsum
+    kernels[-1]["also_replaces"] = ["mapcaller_tpu/ops/fm_search.py:749",
+                                    "mapcaller_tpu/ops/fm_search.py:752"]
     line = {"kernels": kernels}
     print(json.dumps(line), flush=True)
     print(card, flush=True)

@@ -10,20 +10,20 @@
 // a fori_loop of inverse-Psi steps at :192), classify_reads
 // (mapcaller_tpu/ops/chain_device.py:103-221) with the read words of
 // fm_search.py:733-747, the folded evidence apply (ops/evidence.py:16,
-// folded at fm_search.py:777-794) and the pack (fm_search.py:749-771).
-// Four kernels, launched in this order on one stream:
+// folded at fm_search.py:777-794) and the pack with its cumsum
+// (fm_search.py:749-771, cumsum at :752). Three kernels, launched in this
+// order on one stream:
 //
 //   chain_scan_kernel      the exclusive prefix sum of a per-read count and
 //     the total, out[B], in one pass over tiles of SCAN_THREADS reads, a
 //     tile a block, with decoupled look-back (Merrill & Garland, "Single-
-//     pass Parallel Prefix Scan with Decoupled Look-back", 2016). Twice a
-//     batch: each read's raw hits (the sum of its valid seeds' freq), then
-//     each read's SLOW kept hits. On the seed freqs it also writes the
-//     hits kernel's start index (for each group of HITS_GROUP hit slots,
-//     the flat seed slot that owns the group's first slot and the hits
-//     before that seed) and zeroes each read's unresolved flag, so the
-//     hits launch needs no memset before it. One kernel for both uses:
-//     they share every step but the tile's loads.
+//     pass Parallel Prefix Scan with Decoupled Look-back", 2016). On a
+//     batch, each read's raw hits (the sum of its valid seeds' freq); it
+//     also writes the hits kernel's start index (for each group of
+//     HITS_GROUP hit slots, the flat seed slot that owns the group's first
+//     slot and the hits before that seed) and zeroes each read's
+//     unresolved flag, so the hits launch needs no memset before it. On
+//     int32 counts it is the stand-alone scan (chain_scan).
 //   chain_hits_kernel      a block per group of HITS_GROUP hit slots h < H:
 //     from the group's start, the block stages the masked freqs of the
 //     seeds it spans in shared memory, HITS_CHUNK at a time, with their
@@ -33,21 +33,37 @@
 //     multiple of 32 (at most max_walk steps; a hit still unresolved flags
 //     its read). Slots at or past min(total, H) hold the last seed slot's
 //     values with valid 0, as jnp.repeat pads.
-//   chain_classify_kernel  a thread per read over its own hit range (hits
-//     are grouped by read): the first 8 kept hits in a stably sorted
-//     window, the read's words in bwa crumb order from the packed batch,
-//     the mismatch and coverage masks as 32-position bitmasks walked chunk
-//     by chunk (the gaps as runs of uncovered bits), then the class, pd,
-//     mm, rplast, cscore and the leftmost 4 mismatches; with planes, the
+//   chain_classify_pack_kernel  a tile of CP_READS reads a block, a group
+//     of CP_GROUP lanes a read. The block stages the tile's off, rlens and
+//     flags, its read words (contiguous) and its hit range (contiguous:
+//     hits are grouped by read) in shared memory, CP_HIT_CAP hits at a
+//     time, and the chromosome ends when there are at most CP_KEY_CAP. A
+//     group takes its read's hits CP_GROUP at a time, ballots on keep and
+//     ranks by popcount, so the read's s-th kept hit (s < K_HITS) lands in
+//     window slot s, on lane s % CP_GROUP; the window is sorted stably by
+//     (pd, rpos) by counting ranks over shuffles (ties keep hit order, as
+//     _sort_slots), the shuffles stopping at the warp's most kept hits.
+//     Lane j takes the read's 16-base words j, j + CP_GROUP, ...: its two
+//     text words, the mismatch and coverage bits; mm is a group sum, the
+//     leftmost MM_SLOTS mismatches come from a group prefix of popcounts,
+//     and the group's leader walks the gaps over 32-position chunks (runs
+//     of uncovered bits) from the masks the lanes left in shared memory.
+//     Then the class, pd, mm, rplast, cscore and mmp; with planes, the
 //     FAST reads' evidence as int32 atomicAdds (integer adds commute, so
-//     the planes equal the plain scatter's exactly).
-//   chain_pack_kernel      a thread per read: its SLOW kept hits at its
-//     offset from the second scan (slots >= H2 dropped, the rest of the
-//     H2 slots zeroed), the count words, the overflow words by warp ballot,
-//     the total and the buffer-overflow flag, straight into the int32
-//     output vector.
+//     the planes equal the plain scatter's exactly). Then the pack in the
+//     same block: a block scan of the tile's SLOW kept counts, the
+//     look-back of chain_scan_kernel (the same device code) to the tile's
+//     prefix, each SLOW read's kept hits from shared memory to its slots
+//     (slots >= H2 dropped), the count words and the overflow words by
+//     ballot; the block with the last tile, which holds the total, writes
+//     the total kept and the buffer-overflow flag and zeroes the slots no
+//     read fills. One launch where there were three (classify, the scan
+//     of the slow counts, pack). CP_GROUP 2 and CP_READS 256 measured
+//     fastest on an H100 (2, 4, 8 lanes; 32 to 512 reads): at 64
+//     registers a thread an SM holds 1,024 threads, so at 8 lanes a batch
+//     of 32,768 reads takes two waves of blocks, and at 2 or 4 one.
 //
-// Bound on an H100 SXM (HBM3, 3.35 TB/s): bytes, for all four. The work a
+// Bound on an H100 SXM (HBM3, 3.35 TB/s): bytes, for all three. The work a
 // byte asks for is a few integer operations (a binary search of 15 steps,
 // a popcount step of ~20 operations per 32-byte occ4 row, ~60 per 16 read
 // bases), far below the 16.7 T int32 operations/s that would take longer
@@ -55,32 +71,32 @@
 // own inputs (each input read once, each output written once, one SA entry
 // or occ4 row per gather). The design keeps every per-hit and per-read
 // intermediate of the XLA program (the K-slot windows, the [B, max_len]
-// masks, the gap indices, the scattered index arrays) in registers: the
-// sort is an unrolled stable insertion, the masks are one 32-bit word of
-// positions at a time, so no thread has an array that needs a stack frame.
+// masks, the gap indices, the scattered index arrays, the slow counts and
+// their prefix) on the chip: in registers, shuffles and shared memory.
 //
-// The scan and the hits kernels are latency-bound: a batch's counts and
-// seed tables are a few MB, well under a microsecond at the card's rate.
-// So the scan spreads its tiles over the card (86 blocks at 32,768 reads)
-// and waits on no second pass: each tile publishes its aggregate, then its
-// inclusive prefix, in a 64-bit status word (epoch << 34 | flag << 32 |
-// sum, release stores and acquire loads); warp 0 of a later tile reads up
-// to 32 predecessors at a time and adds aggregates back to the nearest
-// inclusive prefix. A tile's index is an atomic ticket, not blockIdx, so
-// every tile a block waits on belongs to a block that already runs. The
-// status words and the ticket live in a scratch the wrapper keeps per
-// device: the epoch tag, one a launch from the wrapper, makes the words of
-// earlier launches read as not ready, and the block that draws the last
-// ticket resets the counter (no block draws one after it). Launches that
-// share the scratch run one after another on one stream. Sums are uint32
-// and wrap modulo 2^32, as the plain version's int64 cumsum cast to int32
-// does; the start index assumes totals below 2^31, as off's int32 does.
-// Loads are coalesced: a tile's [reads, S] int64 freqs are staged in
-// shared memory, consecutive threads on consecutive words, then summed a
-// read a thread. The hits kernel's chain of dependent global loads is the
-// start entry, the staged freqs, the seed's x0/rpos/len and the SA entry
-// (or the walk), where a thread used to binary-search off[] in global
-// memory and then walk its read's seeds.
+// The kernels are latency-bound: a batch's counts, seed tables and hits
+// are a few MB, well under a microsecond at the card's rate. So they
+// spread their tiles over the card and wait on no second pass: each tile
+// publishes its aggregate, then its inclusive prefix, in a 64-bit status
+// word (epoch << 34 | flag << 32 | sum, relaxed stores and loads);
+// warp 0 of a later tile reads up to LOOKBACK predecessors at a time and adds
+// aggregates back to the nearest inclusive prefix. A tile's index is an
+// atomic ticket, not blockIdx, so every tile a block waits on belongs to a
+// block that already runs. The status words and the ticket live in a
+// scratch the wrapper keeps per device: the epoch tag, one a launch from
+// the wrapper, makes the words of earlier launches read as not ready, and
+// the block that draws the last ticket resets the counter (no block draws
+// one after it). Launches that share the scratch run one after another on
+// one stream. Sums are uint32 and wrap modulo 2^32, as the plain version's
+// int64 cumsum cast to int32 does; the start index assumes totals below
+// 2^31, as off's int32 does. Loads are coalesced: a scan tile's [reads, S]
+// int64 freqs, a hits block's seed freqs and a classify+pack block's hits
+// and read words are staged in shared memory, consecutive threads on
+// consecutive words. Where a thread per read used to walk a chain of
+// dependent global loads (its offsets, each hit's keep flag and then its
+// fields, a binary search of the chromosome ends, two text and two read
+// words a chunk), a read's lanes now load its words side by side from
+// shared memory, and the slow counts and their offsets never leave it.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -97,8 +113,13 @@ constexpr int LOOKBACK = 32;            // predecessors a look-back step reads
 constexpr int HITS_GROUP = 256;         // hit slots a hits block
 constexpr int HITS_ITEMS = 8;           // seeds a hits thread stages a chunk
 constexpr int HITS_CHUNK = HITS_GROUP * HITS_ITEMS;
-constexpr int THREADS = 256;
-constexpr int CLASSIFY_THREADS = 128;
+constexpr int CP_READS = 256;           // reads a classify+pack tile
+constexpr int CP_GROUP = 2;             // lanes a read
+constexpr int CP_THREADS = CP_READS * CP_GROUP;
+constexpr int CP_SLOTS = K_HITS / CP_GROUP;   // window slots a lane
+constexpr int CP_HIT_CAP = 2048;        // hits a block stages at a time
+constexpr int CP_KEY_CAP = 1024;        // chromosome ends staged, at most
+constexpr int CP_MAX_WORDS = 31;        // read words (max_len <= 496)
 
 // ---- chain_scan_kernel ---------------------------------------------------
 
@@ -117,17 +138,21 @@ struct SeedOut {                        // the seed-freq scan's extras
   int ngroups;
 };
 
-__device__ __forceinline__ unsigned long long ld_acquire(
+// A status word is the whole message (epoch, flag and sum in one 64-bit
+// word, written and read whole): no other data is published through it, so
+// relaxed loads and stores at gpu scope suffice (they measured ~1 us faster
+// a launch than acquire / release on an H100).
+__device__ __forceinline__ unsigned long long ld_relaxed(
     const unsigned long long* p) {
   unsigned long long v;
-  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];"
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];"
                : "=l"(v) : "l"(p) : "memory");
   return v;
 }
 
-__device__ __forceinline__ void st_release(unsigned long long* p,
+__device__ __forceinline__ void st_relaxed(unsigned long long* p,
                                            unsigned long long v) {
-  asm volatile("st.release.gpu.global.u64 [%0], %1;"
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;"
                :: "l"(p), "l"(v) : "memory");
 }
 
@@ -163,6 +188,20 @@ __device__ __forceinline__ uint32_t block_excl_scan(uint32_t mine,
   return before + inc - mine;
 }
 
+// The block's tile: an atomic ticket, not blockIdx, so every tile a block
+// waits on in the look-back belongs to a block that already runs. The block
+// that draws the last ticket resets the counter (no block draws one after
+// it). Ends with the block synchronised.
+__device__ __forceinline__ int draw_ticket(const ScanState& ss, int* tile_s) {
+  if (threadIdx.x == 0) {
+    const int k = (int)atomicAdd(ss.ticket, 1u);
+    if (k == (int)gridDim.x - 1) *ss.ticket = 0u;   // every other is taken
+    *tile_s = k;
+  }
+  __syncthreads();
+  return *tile_s;
+}
+
 // Warp 0 of tile `tile`: publish the tile's aggregate, look back to the
 // nearest inclusive prefix, publish the tile's own; returns the sum of the
 // tiles before it (in every lane).
@@ -171,17 +210,17 @@ __device__ __forceinline__ uint32_t look_back(const ScanState& ss, int tile,
   const int lane = threadIdx.x & 31;
   const unsigned long long tag = (unsigned long long)ss.epoch << 34;
   if (tile == 0) {
-    if (lane == 0) st_release(ss.status, tag | FLAG_PREFIX << 32 | agg);
+    if (lane == 0) st_relaxed(ss.status, tag | FLAG_PREFIX << 32 | agg);
     return 0u;
   }
-  if (lane == 0) st_release(ss.status + tile, tag | FLAG_AGGREGATE << 32 | agg);
+  if (lane == 0) st_relaxed(ss.status + tile, tag | FLAG_AGGREGATE << 32 | agg);
   uint32_t excl = 0;
   for (int top = tile - 1;; top -= LOOKBACK) {
     const int i = top - (LOOKBACK - 1) + lane;   // lane 31: the nearest
     unsigned long long st;
     bool ready;
     do {                                // slots before tile 0 hold prefix 0
-      st = i >= 0 ? ld_acquire(ss.status + i) : (tag | FLAG_PREFIX << 32);
+      st = i >= 0 ? ld_relaxed(ss.status + i) : (tag | FLAG_PREFIX << 32);
       ready = (st >> 34) == ss.epoch;
     } while (!__all_sync(FULL, ready));
     const uint32_t pm = __ballot_sync(FULL, ((st >> 32) & 3u) == FLAG_PREFIX);
@@ -194,7 +233,7 @@ __device__ __forceinline__ uint32_t look_back(const ScanState& ss, int tile,
     if (pm) break;
   }
   if (lane == 0)
-    st_release(ss.status + tile, tag | FLAG_PREFIX << 32 | (excl + agg));
+    st_relaxed(ss.status + tile, tag | FLAG_PREFIX << 32 | (excl + agg));
   return excl;
 }
 
@@ -209,13 +248,7 @@ chain_scan_kernel(const long long* __restrict__ freq,
   __shared__ uint32_t excl_s;
   const int t = threadIdx.x;
   const int ntiles = gridDim.x;
-  if (t == 0) {
-    const int k = (int)atomicAdd(ss.ticket, 1u);
-    if (k == ntiles - 1) *ss.ticket = 0u;   // every other ticket is taken
-    tile_s = k;
-  }
-  __syncthreads();
-  const int tile = tile_s;
+  const int tile = draw_ticket(ss, &tile_s);
   const int b0 = tile * SCAN_THREADS, b = b0 + t;
   const int nr = min(SCAN_THREADS, B - b0);  // reads in the tile
   uint32_t mine = 0;
@@ -409,7 +442,7 @@ chain_hits_kernel(const int* __restrict__ off, const int2* __restrict__ start,
   if (valid && !resolved) o.unresolved[b] = 1;
 }
 
-// ---- chain_classify_kernel -----------------------------------------------
+// ---- chain_classify_pack_kernel ------------------------------------------
 
 struct Ctx {
   const long long* text;                // packed 2-bit text, bwa order,
@@ -423,11 +456,14 @@ struct Planes {
   int L, pair_end;                      // exact == nullptr: no apply
 };
 
-struct ClsOut {
-  int* meta;                            // [B]: packed output's meta1
-  int* pd;                              // [B]: packed output's pd
-  int* mmp;                             // [B, MM_SLOTS]
-  int* slow_kept;                       // [B]: kept hits of SLOW reads
+struct CpIn {
+  const int* off;                       // [B+1], the seed-freq scan's
+  const int *rpos, *len, *loc;          // hits, int32[H]
+  const uint8_t* keep;                  // [H]
+  const uint8_t *unresolved, *overflow; // [B]
+  const uint32_t* packed;               // [B, max_len/16] words
+  const int* rlens;                     // [B]
+  int B, H, H2, max_len;
 };
 
 // (a_pd, a_rp) after (b_pd, b_rp): _sort_slots' swap test.
@@ -462,9 +498,10 @@ __device__ __forceinline__ uint32_t mismatch16(uint32_t a, uint32_t b) {
   return __brev(y) >> 16;
 }
 
-// Lower bound of v in the sorted keys (torch.searchsorted, side left).
-__device__ __forceinline__ int lower_bound(const long long* __restrict__ k,
-                                           int n, long long v) {
+// Lower bound of v in the sorted keys (torch.searchsorted, side left);
+// the keys in shared or in global memory.
+__device__ __forceinline__ int lower_bound(const long long* k, int n,
+                                           long long v) {
   int lo = 0, hi = n;
   while (lo < hi) {
     const int mid = (lo + hi) >> 1;
@@ -477,69 +514,196 @@ __device__ __forceinline__ bool dp_gap(int lg, int mg) {
   return lg > 0 && mg > 1 && mg >= lg / 5;
 }
 
-__global__ void __launch_bounds__(CLASSIFY_THREADS)
-chain_classify_kernel(const int* __restrict__ off, int H,
-                      const int* __restrict__ hit_rpos,
-                      const int* __restrict__ hit_len,
-                      const int* __restrict__ hit_loc,
-                      const uint8_t* __restrict__ keep,
-                      const uint8_t* __restrict__ unresolved,
-                      const uint32_t* __restrict__ packed,
-                      const int* __restrict__ rlens, int B, int max_len,
-                      Ctx cx, Planes pl, ClsOut o) {
-  const int b = blockIdx.x * CLASSIFY_THREADS + threadIdx.x;
-  if (b >= B) return;
-  const int rlen = rlens[b];
-  // ---- the first K_HITS kept hits, stably sorted by (pd, rpos) --------
-  int spd[K_HITS], srp[K_HITS], sln[K_HITS];
+// The position of set bit n (from 0, lowest first) of m.
+__device__ __forceinline__ int nth_bit(uint32_t m, int n) {
+  for (; n > 0; --n) m &= m - 1u;
+  return __ffs(m) - 1;
+}
+
+// Sum and max over a read's group of CP_GROUP lanes (every lane of the
+// warp calls them).
+__device__ __forceinline__ int group_sum(int v) {
 #pragma unroll
-  for (int i = 0; i < K_HITS; ++i) {
-    spd[i] = PD_EMPTY;
-    srp[i] = 0;
-    sln[i] = 0;
+  for (int d = CP_GROUP / 2; d > 0; d >>= 1) v += __shfl_xor_sync(FULL, v, d);
+  return v;
+}
+__device__ __forceinline__ int group_max(int v) {
+#pragma unroll
+  for (int d = CP_GROUP / 2; d > 0; d >>= 1)
+    v = max(v, __shfl_xor_sync(FULL, v, d));
+  return v;
+}
+
+// Shared memory of a block (dynamic, bytes): the staged hits and read
+// words, the chromosome ends when they fit, the keep flags.
+__host__ __device__ constexpr size_t cp_smem_bytes(int nwords, int nkeys) {
+  return 4 * (size_t)(3 * CP_HIT_CAP + CP_READS * nwords) +
+         8 * (size_t)(nkeys <= CP_KEY_CAP ? nkeys : 0) + CP_HIT_CAP;
+}
+
+struct CpStage {                        // the block's shared arrays
+  int *rpos, *len, *loc;
+  uint8_t* keep;
+};
+
+// Hits [c0, c1) into shared memory, consecutive threads on consecutive
+// words.
+__device__ __forceinline__ void stage_hits(const CpIn& in, const CpStage& st,
+                                           int c0, int c1) {
+  for (int i = threadIdx.x; i < c1 - c0; i += CP_THREADS) {
+    st.rpos[i] = in.rpos[c0 + i];
+    st.len[i] = in.len[c0 + i];
+    st.loc[i] = in.loc[c0 + i];
+    st.keep[i] = in.keep[c0 + i];
   }
-  int nkept = 0;
-  const int h1 = min(off[b + 1], H);
-  for (int h = off[b]; h < h1; ++h) {
-    if (!keep[h]) continue;
-    if (nkept < K_HITS) {
-      const int e_rp = hit_rpos[h], e_ln = hit_len[h];
-      const int e_pd = hit_loc[h] - e_rp;
-      // insert after every slot that does not come after it (stable);
-      // the window has a free slot, so slot K_HITS-1 holds no hit
-      bool placed = false;
+}
+
+// At most 64 registers a thread: 1,024 threads of blocks share an SM.
+__global__ void __launch_bounds__(CP_THREADS, 1024 / CP_THREADS)
+chain_classify_pack_kernel(CpIn in, Ctx cx, Planes pl, int* __restrict__ out,
+                           int* __restrict__ mmp, ScanState ss) {
+  extern __shared__ __align__(16) unsigned char cp_smem[];
+  __shared__ int s_off[CP_READS + 1];
+  __shared__ int s_rlen[CP_READS];
+  __shared__ uint8_t s_flag[CP_READS];  // unresolved | overflow << 1
+  __shared__ int s_slow[CP_READS];      // kept hits of SLOW reads
+  __shared__ uint32_t s_base[CP_READS]; // their prefix in the tile
+  __shared__ int s_mm[CP_READS * MM_SLOTS];
+  __shared__ uint32_t warp_sum[CP_THREADS / 32];
+  __shared__ int tile_s;
+  __shared__ uint32_t excl_s;
+  static_assert(K_HITS % CP_GROUP == 0 && 32 % CP_GROUP == 0,
+                "window slots and groups split evenly");
+  static_assert(CP_READS % 32 == 0, "an overflow word a warp of reads");
+  const int t = threadIdx.x, lane = t & 31;
+  const int r = t / CP_GROUP, j = t % CP_GROUP;  // a read, a lane of its group
+  const int gbase = lane & ~(CP_GROUP - 1);
+  const int B = in.B, H = in.H, nwords = in.max_len >> 4;
+  const bool keys_staged = cx.nkeys <= CP_KEY_CAP;
+  CpStage st;
+  st.rpos = reinterpret_cast<int*>(cp_smem);
+  st.len = st.rpos + CP_HIT_CAP;
+  st.loc = st.len + CP_HIT_CAP;
+  uint32_t* s_words = reinterpret_cast<uint32_t*>(st.loc + CP_HIT_CAP);
+  long long* s_keys =
+      reinterpret_cast<long long*>(s_words + CP_READS * nwords);
+  st.keep = reinterpret_cast<uint8_t*>(s_keys + (keys_staged ? cx.nkeys : 0));
+  const int tile = draw_ticket(ss, &tile_s);
+  const int b0 = tile * CP_READS, nr = min(CP_READS, B - b0);
+  const int b = b0 + r;
+  const bool live = r < nr;             // whole warps: nr % 32 == 0
+  // ---- the tile's per-read inputs and read words, coalesced ------------
+  for (int i = t; i <= nr; i += CP_THREADS) s_off[i] = in.off[b0 + i];
+  if (t < nr) {
+    s_rlen[t] = in.rlens[b0 + t];
+    s_flag[t] = in.unresolved[b0 + t] | (in.overflow[b0 + t] << 1);
+  }
+  const uint32_t* wsrc = in.packed + (size_t)b0 * nwords;
+  for (int i = t; i < nr * nwords; i += CP_THREADS) s_words[i] = wsrc[i];
+  if (keys_staged)
+    for (int i = t; i < cx.nkeys; i += CP_THREADS) s_keys[i] = cx.bkeys[i];
+  __syncthreads();
+  const long long* keys = keys_staged ? s_keys : cx.bkeys;
+  const int hs = min(s_off[0], H), he = min(s_off[nr], H);
+  const int ob = live ? min(s_off[r], H) : he;
+  const int ob1 = live ? min(s_off[r + 1], H) : he;
+  const int rlen = live ? s_rlen[r] : 0;
+  // ---- the first K_HITS kept hits: slot j + i * CP_GROUP on lane j -----
+  int w_pd[CP_SLOTS], w_rp[CP_SLOTS], w_ln[CP_SLOTS];
 #pragma unroll
-      for (int i = K_HITS - 1; i >= 0; --i) {
-        if (placed) continue;
-        if (i > 0 && after(spd[i - 1], srp[i - 1], e_pd, e_rp)) {
-          spd[i] = spd[i - 1];
-          srp[i] = srp[i - 1];
-          sln[i] = sln[i - 1];
-        } else {
-          spd[i] = e_pd;
-          srp[i] = e_rp;
-          sln[i] = e_ln;
-          placed = true;
+  for (int i = 0; i < CP_SLOTS; ++i) {
+    w_pd[i] = PD_EMPTY;
+    w_rp[i] = w_ln[i] = 0;
+  }
+  int nkept = 0;                        // the same in the whole group
+  for (int c0 = hs; c0 < he; c0 += CP_HIT_CAP) {
+    const int c1 = min(c0 + CP_HIT_CAP, he);
+    stage_hits(in, st, c0, c1);
+    __syncthreads();
+    const int a = max(ob, c0), z = min(ob1, c1);
+    const int iters = __reduce_max_sync(
+        FULL, z > a ? (z - a + CP_GROUP - 1) / CP_GROUP : 0);
+    for (int it = 0; it < iters; ++it) {
+      const int h0 = a + it * CP_GROUP, h = h0 + j;
+      const uint32_t m =
+          (__ballot_sync(FULL, h < z && st.keep[h - c0]) >> gbase) &
+          ((1u << CP_GROUP) - 1u);
+      const int cnt = __popc(m);
+#pragma unroll
+      for (int i = 0; i < CP_SLOTS; ++i) {
+        const int s = j + i * CP_GROUP;
+        if (s >= nkept && s < nkept + cnt) {  // kept hit number s
+          const int e = h0 + nth_bit(m, s - nkept) - c0;
+          w_rp[i] = st.rpos[e];
+          w_ln[i] = st.len[e];
+          w_pd[i] = st.loc[e] - w_rp[i];
         }
       }
+      nkept += cnt;
     }
-    ++nkept;
+    __syncthreads();                    // the chunk is read: stage the next
+  }
+  // ---- the window stably sorted by (pd, rpos): ranks over shuffles ------
+  // (slot e of the group on lane e % CP_GROUP, register e / CP_GROUP).
+  // Slots at or past the warp's most kept hits are empty in every group
+  // and keep their places: the loops stop there.
+  const int nwin = __reduce_max_sync(FULL, min(nkept, K_HITS));
+  int rank[CP_SLOTS];
+#pragma unroll
+  for (int i = 0; i < CP_SLOTS; ++i) rank[i] = 0;
+#pragma unroll
+  for (int e = 0; e < K_HITS; ++e) {
+    if (e >= nwin) break;
+    const int src = gbase + e % CP_GROUP;
+    const int pe = __shfl_sync(FULL, w_pd[e / CP_GROUP], src);
+    const int re = __shfl_sync(FULL, w_rp[e / CP_GROUP], src);
+#pragma unroll
+    for (int i = 0; i < CP_SLOTS; ++i) {
+      const int s = j + i * CP_GROUP;
+      rank[i] += e < s ? !after(pe, re, w_pd[i], w_rp[i])
+                       : after(w_pd[i], w_rp[i], pe, re);
+    }
+  }
+  int spd[CP_SLOTS], srp[CP_SLOTS], sln[CP_SLOTS];
+#pragma unroll
+  for (int i = 0; i < CP_SLOTS; ++i) {
+    spd[i] = PD_EMPTY;
+    srp[i] = sln[i] = 0;
+  }
+#pragma unroll
+  for (int e = 0; e < K_HITS; ++e) {
+    if (e >= nwin) break;
+    const int src = gbase + e % CP_GROUP;
+    const int ke = __shfl_sync(FULL, rank[e / CP_GROUP], src);
+    const int pe = __shfl_sync(FULL, w_pd[e / CP_GROUP], src);
+    const int re = __shfl_sync(FULL, w_rp[e / CP_GROUP], src);
+    const int le = __shfl_sync(FULL, w_ln[e / CP_GROUP], src);
+#pragma unroll
+    for (int i = 0; i < CP_SLOTS; ++i)
+      if (ke == j + i * CP_GROUP) {
+        spd[i] = pe;
+        srp[i] = re;
+        sln[i] = le;
+      }
   }
   const bool has_hits = nkept > 0, too_many = nkept > K_HITS;
-  const int pd0 = spd[0];
-  bool one_diag = true;
-  int cscore = 0, seed_end = 0, seed_last_rp = -1;
+  const int pd0 = __shfl_sync(FULL, spd[0], gbase);
+  int off_diag = 0, cscore = 0, seed_end = 0, seed_last_rp = -1;
 #pragma unroll
-  for (int i = 0; i < K_HITS; ++i) {
+  for (int i = 0; i < CP_SLOTS; ++i) {
     const bool valid = spd[i] != PD_EMPTY, same = spd[i] == pd0;
-    if (valid && !same) one_diag = false;
+    off_diag += valid && !same;
     if (valid) cscore += sln[i];
     if (valid && same) {
       seed_end = max(seed_end, srp[i] + sln[i]);
       seed_last_rp = max(seed_last_rp, srp[i]);
     }
-    if (!same) sln[i] = 0;            // covers nothing: off the diagonal
+    if (!same) sln[i] = 0;              // covers nothing: off the diagonal
   }
+  const bool one_diag = group_sum(off_diag) == 0;
+  cscore = group_sum(cscore);
+  seed_end = group_max(seed_end);
+  seed_last_rp = group_max(seed_last_rp);
   const bool has_can = cscore > (rlen >> 2);
   // ---- the span [pd, pd + rlen) inside one chromosome ------------------
   const long long pd_end = (long long)pd0 + rlen;
@@ -547,154 +711,197 @@ chain_classify_kernel(const int* __restrict__ off, int H,
   const long long p1 = min(max((long long)pd0, 0LL), last);
   const long long p2 = min(max(pd_end - 1, 0LL), last);
   const bool span_ok = pd_end <= cx.seq_len &&
-                       lower_bound(cx.bkeys, cx.nkeys, p1) ==
-                           lower_bound(cx.bkeys, cx.nkeys, p2);
-  // ---- masks along the diagonal, 32 read positions at a time ------------
+                       lower_bound(keys, cx.nkeys, p1) ==
+                           lower_bound(keys, cx.nkeys, p2);
+  // ---- masks along the diagonal: read word k*CP_GROUP + j on lane j ------
   const int pds = span_ok && has_hits ? pd0 : 0;
   const int sh = (pds & 15) * 2, wbase = pds >> 4;
-  const int nwords = max_len >> 4;
-  const int lim = min(rlen, max_len);
-  const uint32_t* rw = packed + (size_t)b * nwords;
-  int mm_total = 0, nmm = 0, m0 = -1, m1 = -1, m2 = -1, m3 = -1;
-  int g = -1, lg = 0, mg = 0;           // open gap: index, length, mismatches
-  bool open = false, dp_any = false;
-  for (int c = 0; 32 * c < max_len; ++c) {
-    uint32_t mm = 0, rw0 = 0, rw1 = 0;
+  const int lim = min(rlen, in.max_len);
+  uint32_t* rw = s_words + r * nwords;
+  int* smm = s_mm + r * MM_SLOTS;
+  for (int q = j; q < MM_SLOTS; q += CP_GROUP) smm[q] = -1;
+  __syncwarp();
+  int mm_total = 0, carry = 0;          // carry: mismatches in earlier words
+  for (int k = 0; k * CP_GROUP < nwords; ++k) {
+    const int wi = k * CP_GROUP + j;
+    const bool act = live && wi < nwords;
+    uint32_t cov = 0;
 #pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      const int wi = 2 * c + q;
-      if (wi >= nwords) continue;
-      const uint32_t r = to_bwa(rw[wi]);
+    for (int e = 0; e < K_HITS; ++e) {
+      if (e >= nwin) break;
+      const int src = gbase + e % CP_GROUP;
+      const int re = __shfl_sync(FULL, srp[e / CP_GROUP], src) - 16 * wi;
+      cov |= span_bits(re, re + __shfl_sync(FULL, sln[e / CP_GROUP], src));
+    }
+    uint32_t mm = 0, unc = 0, rb = 0;
+    if (act) {
+      rb = to_bwa(rw[wi]);
       const uint32_t t0 =
           (uint32_t)cx.text[min(max(wbase + wi, 0), cx.ntext - 1)];
       const uint32_t t1 =
           (uint32_t)cx.text[min(max(wbase + wi + 1, 0), cx.ntext - 1)];
       const uint32_t al = (t0 << sh) | (sh > 0 ? t1 >> (32 - sh) : 0u);
-      mm |= mismatch16(al, r) << (16 * q);
-      if (q == 0) rw0 = r; else rw1 = r;
+      const uint32_t inlen = span_bits(0, lim - 16 * wi) & 0xFFFFu;
+      mm = mismatch16(al, rb) & inlen;
+      unc = ~cov & inlen;
     }
-    const uint32_t inlen = span_bits(0, lim - 32 * c);
-    mm &= inlen;
-    uint32_t cov = 0;
-#pragma unroll
-    for (int i = 0; i < K_HITS; ++i)
-      cov |= span_bits(srp[i] - 32 * c, srp[i] + sln[i] - 32 * c);
-    const uint32_t unc = ~cov & inlen;
     mm_total += __popc(mm & unc);
-    // the leftmost MM_SLOTS mismatches of the whole read
-    for (uint32_t bits = mm; bits != 0u && nmm < MM_SLOTS; bits &= bits - 1u) {
-      const int p = __ffs(bits) - 1, j = 32 * c + p;
-      const uint32_t word = p < 16 ? rw0 : rw1;
-      const int v = (j << 2) | (int)((word >> ((15 - (j & 15)) * 2)) & 3u);
-      if (nmm == 0) m0 = v; else if (nmm == 1) m1 = v;
-      else if (nmm == 2) m2 = v; else m3 = v;
-      ++nmm;
-    }
-    // gaps: runs of uncovered in-length positions; a run at bit 0
-    // continues the gap open at the end of the chunk before
-    for (uint32_t bits = unc; bits != 0u;) {
-      const int a = __ffs(bits) - 1;
-      const uint32_t rest = ~(bits >> a);
-      const int len = rest ? __ffs(rest) - 1 : 32 - a;
-      const uint32_t run = (len >= 32 ? 0xFFFFFFFFu : ((1u << len) - 1u)) << a;
-      if (!(a == 0 && open)) {
-        if (g >= 0 && g < MAX_GAPS) dp_any |= dp_gap(lg, mg);
-        ++g;
-        lg = mg = 0;
-      }
-      lg += len;
-      mg += __popc(mm & run);
-      bits &= ~run;
-    }
-    open = (unc >> 31) != 0u;
-  }
-  if (g >= 0 && g < MAX_GAPS) dp_any |= dp_gap(lg, mg);
-  const bool many_gaps = g >= MAX_GAPS;
-  const bool fast = has_hits && !too_many && one_diag && has_can && span_ok &&
-                    !dp_any && !many_gaps && mm_total <= MM_SLOTS;
-  const bool nocand = !has_hits || (!too_many && one_diag && !has_can);
-  int cls = fast ? CLASS_FAST : (nocand ? CLASS_NOCAND : CLASS_SLOW);
-  if (unresolved[b]) cls = CLASS_SLOW;   // the host oracle seeds this read
-  const int rplast =
-      min(max(seed_end < rlen ? seed_end : seed_last_rp, 0), 511);
-  o.meta[b] = (int)((uint32_t)cls | ((uint32_t)mm_total << 2) |
-                    ((uint32_t)rplast << 8) |
-                    ((uint32_t)min(cscore, 511) << 17));
-  o.pd[b] = pd0;
-  int* mp = o.mmp + (size_t)b * MM_SLOTS;
-  mp[0] = m0;
-  mp[1] = m1;
-  mp[2] = m2;
-  mp[3] = m3;
-  o.slow_kept[b] = cls == CLASS_SLOW ? nkept : 0;
-  if (pl.exact == nullptr || cls != CLASS_FAST) return;
-  // ---- the speculative evidence apply (ops/evidence.py) ----------------
-  const long long L = pl.L, two_l = cx.seq_len, pd = pd0;
-  const bool ori = pd < L;
-  const long long gs = min(max(ori ? pd : two_l - pd - rlen, 0LL), L - 1);
-  const long long end = min(gs + rlen, L);
-  const bool first = !pl.pair_end || (b & 1) == 0;
-  const long long fo = (first ? (ori ? 0 : 3) : (ori ? 1 : 2)) * (L + 2);
-  atomicAdd(pl.exact + gs, 1);
-  atomicAdd(pl.exact + end, -1);
-  atomicAdd(pl.fd + fo + gs, 1);
-  atomicAdd(pl.fd + fo + end, -1);
+    // the leftmost MM_SLOTS mismatches: the group's prefix of popcounts
+    const int c = __popc(mm);
+    int inc = c;
 #pragma unroll
-  for (int k = 0; k < MM_SLOTS; ++k) {
-    const int e = k == 0 ? m0 : (k == 1 ? m1 : (k == 2 ? m2 : m3));
-    if (e < 0) continue;
-    const long long at = pd + (e >> 2);
-    const long long p = min(max(ori ? at : two_l - 1 - at, 0LL), L - 1);
-    const int base = ori ? (e & 3) : 3 - (e & 3);
-    atomicAdd(pl.exact + p, -1);
-    atomicAdd(pl.exact + p + 1, 1);
-    atomicAdd(pl.acgt + base * (L + 1) + p, 1);
+    for (int d = 1; d < CP_GROUP; d <<= 1) {
+      const int y = __shfl_up_sync(FULL, inc, d, CP_GROUP);
+      if (j >= d) inc += y;
+    }
+    int slot = carry + inc - c;
+    for (uint32_t bits = mm; bits != 0u && slot < MM_SLOTS; bits &= bits - 1u) {
+      const int p = __ffs(bits) - 1;
+      smm[slot++] = ((16 * wi + p) << 2) | (int)((rb >> ((15 - p) * 2)) & 3u);
+    }
+    carry += __shfl_sync(FULL, inc, gbase + CP_GROUP - 1);
+    if (act) rw[wi] = (mm & unc) | (unc << 16);  // for the gap walk
   }
-}
-
-// ---- chain_pack_kernel ---------------------------------------------------
-
-__global__ void __launch_bounds__(THREADS)
-chain_pack_kernel(const int* __restrict__ off, const int* __restrict__ off2,
-                  const int* __restrict__ hit_rpos,
-                  const int* __restrict__ hit_len,
-                  const int* __restrict__ hit_loc,
-                  const uint8_t* __restrict__ keep,
-                  const int* __restrict__ slow_kept,
-                  const uint8_t* __restrict__ overflow,
-                  const uint8_t* __restrict__ unresolved, int B, int H,
-                  int H2, int* __restrict__ out) {
-  const int t = blockIdx.x * THREADS + threadIdx.x;
-  int* hit_w = out + 2 * B;
-  int* hit_l = hit_w + H2;
-  int* counts2 = hit_l + H2;
-  int* ovf_bits = counts2 + B / 2;
-  const int total_kept = off2[B];
-  // slots no read fills
-  for (int s = max(total_kept, 0) + t; s < H2; s += gridDim.x * THREADS)
-    hit_w[s] = hit_l[s] = 0;
-  if (t == 0) {
-    ovf_bits[B / 32] = total_kept;
-    ovf_bits[B / 32 + 1] = off[B] > H || total_kept > H2;
+  mm_total = group_sum(mm_total);
+  __syncwarp();
+  // ---- gaps: the group's leader walks the read's 32-position chunks -----
+  int cls = CLASS_NOCAND;
+  if (j == 0 && live) {
+    int g = -1, lg = 0, mg = 0;         // open gap: index, length, mismatches
+    bool open = false, dp_any = false;
+    for (int c = 0; 2 * c < nwords; ++c) {
+      const uint32_t w0 = rw[2 * c];
+      const uint32_t w1 = 2 * c + 1 < nwords ? rw[2 * c + 1] : 0u;
+      const uint32_t unc = (w0 >> 16) | (w1 & 0xFFFF0000u);
+      const uint32_t mm = (w0 & 0xFFFFu) | (w1 << 16);  // uncovered only
+      // runs of uncovered in-length positions; a run at bit 0 continues
+      // the gap open at the end of the chunk before
+      for (uint32_t bits = unc; bits != 0u;) {
+        const int a = __ffs(bits) - 1;
+        const uint32_t rest = ~(bits >> a);
+        const int len = rest ? __ffs(rest) - 1 : 32 - a;
+        const uint32_t run =
+            (len >= 32 ? 0xFFFFFFFFu : ((1u << len) - 1u)) << a;
+        if (!(a == 0 && open)) {
+          if (g >= 0 && g < MAX_GAPS) dp_any |= dp_gap(lg, mg);
+          ++g;
+          lg = mg = 0;
+        }
+        lg += len;
+        mg += __popc(mm & run);
+        bits &= ~run;
+      }
+      open = (unc >> 31) != 0u;
+    }
+    if (g >= 0 && g < MAX_GAPS) dp_any |= dp_gap(lg, mg);
+    const bool many_gaps = g >= MAX_GAPS;
+    const bool fast = has_hits && !too_many && one_diag && has_can &&
+                      span_ok && !dp_any && !many_gaps && mm_total <= MM_SLOTS;
+    const bool nocand = !has_hits || (!too_many && one_diag && !has_can);
+    cls = fast ? CLASS_FAST : (nocand ? CLASS_NOCAND : CLASS_SLOW);
+    if (s_flag[r] & 1) cls = CLASS_SLOW;   // unresolved: the host oracle
+    const int rplast =
+        min(max(seed_end < rlen ? seed_end : seed_last_rp, 0), 511);
+    out[b] = (int)((uint32_t)cls | ((uint32_t)mm_total << 2) |
+                   ((uint32_t)rplast << 8) |
+                   ((uint32_t)min(cscore, 511) << 17));
+    out[B + b] = pd0;
   }
-  if (t >= B) return;                   // whole warps: B % 32 == 0
-  const int b = t;
-  const int n = slow_kept[b];           // 0 unless the read is SLOW
-  if (n > 0) {
-    int slot = off2[b];
-    const int h1 = min(off[b + 1], H);
-    for (int h = off[b]; h < h1 && slot < H2; ++h) {
-      if (!keep[h]) continue;
-      hit_w[slot] = (hit_rpos[h] << 9) | hit_len[h];
-      hit_l[slot] = hit_loc[h];
-      ++slot;
+  cls = __shfl_sync(FULL, cls, gbase);
+  if (j == 0) s_slow[r] = live && cls == CLASS_SLOW ? nkept : 0;
+  // mmp and the speculative evidence apply (ops/evidence.py): lane 0 the
+  // read's span, lane j the mismatches j, j + CP_GROUP, ...
+  for (int q = j; live && q < MM_SLOTS; q += CP_GROUP) {
+    const int e = smm[q];
+    mmp[(size_t)b * MM_SLOTS + q] = e;
+    if (pl.exact != nullptr && cls == CLASS_FAST) {
+      const long long L = pl.L, two_l = cx.seq_len, pd = pd0;
+      const bool ori = pd < L;
+      if (q == 0) {
+        const long long gs =
+            min(max(ori ? pd : two_l - pd - rlen, 0LL), L - 1);
+        const long long end = min(gs + rlen, L);
+        const bool first = !pl.pair_end || (b & 1) == 0;
+        const long long fo = (first ? (ori ? 0 : 3) : (ori ? 1 : 2)) * (L + 2);
+        atomicAdd(pl.exact + gs, 1);
+        atomicAdd(pl.exact + end, -1);
+        atomicAdd(pl.fd + fo + gs, 1);
+        atomicAdd(pl.fd + fo + end, -1);
+      }
+      if (e >= 0) {
+        const long long at = pd + (e >> 2);
+        const long long p = min(max(ori ? at : two_l - 1 - at, 0LL), L - 1);
+        const int base = ori ? (e & 3) : 3 - (e & 3);
+        atomicAdd(pl.exact + p, -1);
+        atomicAdd(pl.exact + p + 1, 1);
+        atomicAdd(pl.acgt + base * (L + 1) + p, 1);
+      }
     }
   }
-  const int n_next = __shfl_down_sync(0xFFFFFFFFu, n, 1);
-  if ((b & 1) == 0)
-    counts2[b >> 1] = (int)(((uint32_t)n & 0xFFFFu) | ((uint32_t)n_next << 16));
-  const uint32_t w = __ballot_sync(0xFFFFFFFFu, overflow[b] || unresolved[b]);
-  if ((b & 31) == 0) ovf_bits[b >> 5] = (int)w;
+  __syncthreads();
+  // ---- the pack: the slow counts' prefix by look-back -------------------
+  uint32_t agg;
+  const uint32_t excl_in = block_excl_scan<CP_THREADS>(
+      t < CP_READS ? (uint32_t)s_slow[t] : 0u, warp_sum, &agg);
+  if (t < CP_READS) s_base[t] = excl_in;
+  if (t < 32) {
+    const uint32_t excl = look_back(ss, tile, agg);
+    if (t == 0) excl_s = excl;
+  }
+  __syncthreads();
+  int* hit_w = out + 2 * B;
+  int* hit_l = hit_w + in.H2;
+  int* counts2 = hit_l + in.H2;
+  int* ovf_bits = counts2 + B / 2;
+  // each SLOW read's kept hits at its slot, slots >= H2 dropped; a tile
+  // whose hits took one chunk still has them staged
+  if (agg != 0u) {
+    const bool restage = he - hs > CP_HIT_CAP;
+    const bool slow = live && s_slow[r] > 0;
+    const int base = (int)(excl_s + s_base[r]);
+    int nk = 0;
+    for (int c0 = hs; c0 < he; c0 += CP_HIT_CAP) {
+      const int c1 = min(c0 + CP_HIT_CAP, he);
+      if (restage) {
+        __syncthreads();
+        stage_hits(in, st, c0, c1);
+        __syncthreads();
+      }
+      const int a = max(ob, c0), z = slow ? min(ob1, c1) : a;
+      const int iters = __reduce_max_sync(
+          FULL, z > a ? (z - a + CP_GROUP - 1) / CP_GROUP : 0);
+      for (int it = 0; it < iters; ++it) {
+        const int h = a + it * CP_GROUP + j;
+        const bool kp = h < z && st.keep[h - c0];
+        const uint32_t m =
+            (__ballot_sync(FULL, kp) >> gbase) & ((1u << CP_GROUP) - 1u);
+        const int s = base + nk + __popc(m & ((1u << j) - 1u));
+        if (kp && s < in.H2) {
+          hit_w[s] = (st.rpos[h - c0] << 9) | st.len[h - c0];
+          hit_l[s] = st.loc[h - c0];
+        }
+        nk += __popc(m);
+      }
+    }
+  }
+  // the count words, two reads a word; the overflow words, a warp a word
+  if (t < nr / 2)
+    counts2[b0 / 2 + t] = (int)(((uint32_t)s_slow[2 * t] & 0xFFFFu) |
+                                ((uint32_t)s_slow[2 * t + 1] << 16));
+  if (t < nr) {
+    const uint32_t w = __ballot_sync(FULL, s_flag[t] != 0);
+    if (lane == 0) ovf_bits[(b0 + t) >> 5] = (int)w;
+  }
+  // the last tile holds the total: the totals, and the slots no read fills
+  if (tile == (int)gridDim.x - 1) {
+    const int total_kept = (int)(excl_s + agg);
+    if (t == 0) {
+      ovf_bits[B / 32] = total_kept;
+      ovf_bits[B / 32 + 1] = s_off[nr] > H || total_kept > in.H2;
+    }
+    for (int s = max(total_kept, 0) + t; s < in.H2; s += CP_THREADS)
+      hit_w[s] = hit_l[s] = 0;
+  }
 }
 
 }  // namespace
@@ -760,56 +967,57 @@ extern "C" int mc_chain_hits(const void* off, const void* start,
   return (int)cudaGetLastError();
 }
 
-// Classification of each read from its hit range. packed uint8[B,
-// max_len/4] (4-byte aligned, read as max_len/16 words a read), rlens
-// int32[B], text int64[ntext] (a 32-bit word in each), bkeys int64[nkeys].
-// Outputs: meta, pd int32[B] (the packed output vector's first 2B
-// entries), mmp int32[B, 4], slow_kept int32[B]. exact/fd/acgt nullptr:
-// no evidence apply; else the
-// int32 planes of genome size L, pair_end picking the orientation plane by
-// batch-index parity.
-extern "C" int mc_chain_classify(const void* off, int H, const void* hrpos,
-                                 const void* hlen, const void* loc,
-                                 const void* keep, const void* unresolved,
-                                 const void* packed, const void* rlens, int B,
-                                 int max_len, const void* text, int ntext,
-                                 const void* bkeys, int nkeys, int seq_len,
-                                 void* exact, void* fd, void* acgt, int L,
-                                 int pair_end, void* meta, void* pd, void* mmp,
-                                 void* slow_kept, void* stream) {
-  if (B < 1 || H < 1 || max_len < 16 || max_len % 16 || max_len > 511 ||
-      ntext < 1 || nkeys < 1 || seq_len < 1 ||
-      (exact != nullptr && (fd == nullptr || acgt == nullptr || L < 1)))
+// Classification and pack of a batch in one launch: the packed output
+// vector out int32[2B + 2H2 + B/2 + B/32 + 2] (meta1, pd, hit_w, hit_loc,
+// counts2, the overflow words, total kept, buffer overflow) and mmp
+// int32[B, 4]. off int32[B+1] from mc_chain_scan of the seed freqs, hits
+// as mc_chain_hits writes them, unresolved and overflow uint8[B], packed
+// uint8[B, max_len/4] (4-byte aligned, read as max_len/16 words a read),
+// rlens int32[B], text int64[ntext] (a 32-bit word in each), bkeys
+// int64[nkeys]; exact/fd/acgt nullptr: no evidence apply, else the int32
+// planes of genome size L, pair_end picking the orientation plane by
+// batch-index parity. B % 32 == 0. scratch as mc_chain_scan's.
+extern "C" int mc_chain_classify_pack(
+    const void* off, const void* hrpos, const void* hlen, const void* loc,
+    const void* keep, const void* unresolved, const void* overflow,
+    const void* packed, const void* rlens, int B, int H, int H2, int max_len,
+    const void* text, int ntext, const void* bkeys, int nkeys, int seq_len,
+    void* exact, void* fd, void* acgt, int L, int pair_end, void* out,
+    void* mmp, void* scratch, int tiles, int epoch, void* stream) {
+  const int ntiles = (B + CP_READS - 1) / CP_READS;
+  if (B < 32 || B % 32 || H < 1 || H2 < 1 || max_len < 16 || max_len % 16 ||
+      max_len > 511 || ntext < 1 || nkeys < 1 || seq_len < 1 ||
+      (exact != nullptr && (fd == nullptr || acgt == nullptr || L < 1)) ||
+      scratch == nullptr || tiles < ntiles || epoch < 1 ||
+      epoch >= (1 << 30))
     return (int)cudaErrorInvalidValue;
+  // static and dynamic shared memory may pass the 48 KB a block gets
+  // without opting in: opt in once a device to the most a launch asks for
+  static bool opted[64];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (!opted[dev]) {
+    e = cudaFuncSetAttribute(chain_classify_pack_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)cp_smem_bytes(CP_MAX_WORDS, CP_KEY_CAP));
+    if (e != cudaSuccess) return (int)e;
+    opted[dev] = true;
+  }
+  const size_t smem = cp_smem_bytes(max_len >> 4, nkeys);
+  const CpIn in{(const int*)off, (const int*)hrpos, (const int*)hlen,
+                (const int*)loc, (const uint8_t*)keep,
+                (const uint8_t*)unresolved, (const uint8_t*)overflow,
+                (const uint32_t*)packed, (const int*)rlens, B, H, H2,
+                max_len};
   const Ctx cx{(const long long*)text, (const long long*)bkeys, ntext, nkeys,
                seq_len};
   const Planes pl{(int*)exact, (int*)fd, (int*)acgt, L, pair_end};
-  const ClsOut o{(int*)meta, (int*)pd, (int*)mmp, (int*)slow_kept};
-  chain_classify_kernel<<<(B + CLASSIFY_THREADS - 1) / CLASSIFY_THREADS,
-                          CLASSIFY_THREADS, 0, (cudaStream_t)stream>>>(
-      (const int*)off, H, (const int*)hrpos, (const int*)hlen,
-      (const int*)loc, (const uint8_t*)keep, (const uint8_t*)unresolved,
-      (const uint32_t*)packed, (const int*)rlens, B, max_len, cx, pl, o);
-  return (int)cudaGetLastError();
-}
-
-// The packed output vector's entries from 2B on: hit_w[H2], hit_loc[H2],
-// counts2[B/2], ovf_bits[B/32], total_kept, buffer_overflow. off, off2
-// int32[B+1] (the two scans), hits as mc_chain_hits writes them,
-// slow_kept int32[B], overflow and unresolved uint8[B]; B % 32 == 0.
-extern "C" int mc_chain_pack(const void* off, const void* off2,
-                             const void* hrpos, const void* hlen,
-                             const void* loc, const void* keep,
-                             const void* slow_kept, const void* overflow,
-                             const void* unresolved, int B, int H, int H2,
-                             void* out, void* stream) {
-  if (B < 32 || B % 32 || H < 1 || H2 < 1) return (int)cudaErrorInvalidValue;
-  const int threads = B > H2 ? B : H2;
-  chain_pack_kernel<<<(threads + THREADS - 1) / THREADS, THREADS, 0,
-                      (cudaStream_t)stream>>>(
-      (const int*)off, (const int*)off2, (const int*)hrpos, (const int*)hlen,
-      (const int*)loc, (const uint8_t*)keep, (const int*)slow_kept,
-      (const uint8_t*)overflow, (const uint8_t*)unresolved, B, H, H2,
-      (int*)out);
+  const ScanState ss{(unsigned int*)scratch,
+                     (unsigned long long*)scratch + 1, (unsigned int)epoch};
+  chain_classify_pack_kernel<<<ntiles, CP_THREADS, smem,
+                               (cudaStream_t)stream>>>(
+      in, cx, pl, (int*)out, (int*)mmp, ss);
   return (int)cudaGetLastError();
 }

@@ -25,9 +25,9 @@ contradicts NOT(mg > 1 && mg >= int(0.2*lg)).
 Words (text and read) are int64 holding uint32 bit patterns (see
 ops/fm_device.py); positions are int64 with int32 values.
 
-classify_reads is the plain PyTorch version of the classify kernel
-(ops/chain_kernels.chain_classify, csrc/chain.cu), which the chain
-dispatch launches on the card.
+classify_reads is the plain PyTorch version of the classify part of the
+classify+pack kernel (ops/chain_kernels.chain_classify_pack,
+csrc/chain.cu), which the chain dispatch launches on the card.
 """
 from __future__ import annotations
 

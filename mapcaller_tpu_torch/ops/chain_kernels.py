@@ -2,34 +2,38 @@
 CUDA kernels `csrc/chain.cu` and their plain PyTorch versions.
 
 After the seed scan, a batch's seed tables become the chain kernel's
-packed output vector (ops/fm_search.SeedChainKernel) in five launches on
+packed output vector (ops/fm_search.SeedChainKernel) in three launches on
 the current stream, with no host sync:
 
-  chain_scan_seeds  the exclusive prefix sum of each read's raw hits
-                  (the sum of its valid seeds' freq) and the total, with
-                  the hits kernel's start index, and the unresolved flags
-                  zeroed (SeedScan);
-  chain_hits      the seeds expanded by freq into H flat hit slots (as
-                  jnp.repeat with total_repeat_length: truncated at H,
-                  padded with the last seed slot) and resolved through the
-                  SA, or by the inverse-Psi walk without a full SA;
-  chain_classify  each read's class, pd, mm, rplast, cscore and leftmost
-                  mismatches from its own hit range (the meta1 and pd
-                  entries of the packed vector), with the folded
-                  speculative evidence apply when planes are given;
-  chain_scan      the same scan (the same kernel) of each read's SLOW
-                  kept hits;
-  chain_pack      the SLOW reads' kept hits compacted at their offsets, the
-                  count and overflow words and the totals: the rest of the
-                  packed vector.
+  chain_scan_seeds     the exclusive prefix sum of each read's raw hits
+                       (the sum of its valid seeds' freq) and the total,
+                       with the hits kernel's start index, and the
+                       unresolved flags zeroed (SeedScan);
+  chain_hits           the seeds expanded by freq into H flat hit slots
+                       (as jnp.repeat with total_repeat_length: truncated
+                       at H, padded with the last seed slot) and resolved
+                       through the SA, or by the inverse-Psi walk without
+                       a full SA;
+  chain_classify_pack  each read's class, pd, mm, rplast, cscore and
+                       leftmost mismatches from its own hit range (the
+                       meta1 and pd entries of the packed vector), with the
+                       folded speculative evidence apply when planes are
+                       given; then the SLOW reads' kept hits compacted at
+                       their offsets (the prefix of their counts found
+                       inside the kernel), the count and overflow words
+                       and the totals: the rest of the packed vector.
+
+chain_scan is the same scan kernel on int32 counts, which the main path
+no longer launches (its scan of the slow counts is inside
+chain_classify_pack).
 
 Each wrapper checks its inputs, then runs the plain version for CPU
 tensors and launches its kernel for CUDA tensors, counting the launch in
 STATS, or raises. There is no fallback between the two. The plain
 versions are the port's PyTorch code of these stages (ops/fm_device.
 sa_resolve, ops/chain_device.classify_reads, ops/evidence.
-scatter_fast_evidence); chip_smoke.py holds each kernel equal to its
-plain version on the card, in every element.
+scatter_fast_evidence, and the pack); chip_smoke.py holds each kernel
+equal to its plain version on the card, in every element.
 """
 from __future__ import annotations
 
@@ -50,6 +54,9 @@ MAX_WALK = 192      # inverse-Psi steps before a hit is left to the host
 SCAN_THREADS = 384
 SCAN_MAX_S = 31
 HITS_GROUP = 256
+# csrc/chain.cu: reads a classify+pack tile, hits a block stages at a time
+CP_READS = 256
+CP_HIT_CAP = 2048
 _EPOCHS = 1 << 30   # the scan's status-word tags: 1 .. 2^30 - 1
 
 # hit arrays of a batch: read, rpos, len, loc int32[H]; valid, keep bool[H]
@@ -64,10 +71,11 @@ SeedScan = collections.namedtuple("SeedScan", "off start unresolved")
 
 STATS = KernelStats()
 _lib = None
-# per device: [scratch int64[1 + tiles], the last epoch] of the scan's
-# look-back (csrc/chain.cu): allocated once, grown when a batch needs more
-# tiles, allocated zeroed anew when the epochs run out. Scans that share
-# it run one after another on one stream, as every caller issues them.
+# per device: [scratch int64[1 + tiles], the last epoch] of the look-back
+# of the scan and of classify+pack (csrc/chain.cu): allocated once, grown
+# when a batch needs more tiles, allocated zeroed anew when the epochs run
+# out. Launches that share it run one after another on one stream, as
+# every caller issues them.
 _scan_scratch = {}
 
 
@@ -81,9 +89,9 @@ def _load_kernel():
                 ("mc_chain_scan", [P, P, P, I, I, P, P, I, P, P, I, I, P]),
                 ("mc_chain_hits", [P] * 7 + [I, I] + [P] * 4
                  + [I, I, I] + [P] * 8),
-                ("mc_chain_classify", [P, I] + [P] * 7 + [I, I, P, I, P, I, I]
-                 + [P] * 3 + [I, I] + [P] * 5),
-                ("mc_chain_pack", [P] * 9 + [I, I, I, P, P])):
+                ("mc_chain_classify_pack", [P] * 9 + [I] * 4
+                 + [P, I, P, I, I] + [P] * 3 + [I, I] + [P] * 3
+                 + [I, I, P])):
             fn = getattr(lib, name)
             fn.restype = C.c_int
             fn.argtypes = args
@@ -186,19 +194,24 @@ def chain_scan_seeds_plain(s_freq: torch.Tensor, n_seeds: torch.Tensor,
                     torch.zeros(B, dtype=torch.bool, device=s_freq.device))
 
 
-def _scan_launch(name: str, dev: torch.device, freq, n, cnt, B: int, S: int,
-                 out, start, ngroups: int, unresolved, count: str) -> None:
-    """One chain_scan_kernel launch (pointer arguments) with the device's
-    look-back scratch and the next epoch."""
-    tiles = -(-B // SCAN_THREADS)
+def _look_back_scratch(dev: torch.device, tiles: int):
+    """(pointer, status words, epoch) of the device's look-back scratch
+    for a launch of `tiles` tiles, with the next epoch."""
     sc = _scan_scratch.get(dev)
     if sc is None or sc[0].shape[0] - 1 < tiles or sc[1] + 1 >= _EPOCHS:
         # zeroed words hold epoch 0, which no launch uses
         sc = _scan_scratch[dev] = [torch.zeros(
             1 + max(tiles, 1024), dtype=torch.int64, device=dev), 0]
     sc[1] += 1
+    return sc[0].data_ptr(), sc[0].shape[0] - 1, sc[1]
+
+
+def _scan_launch(name: str, dev: torch.device, freq, n, cnt, B: int, S: int,
+                 out, start, ngroups: int, unresolved, count: str) -> None:
+    """One chain_scan_kernel launch (pointer arguments) with the device's
+    look-back scratch and the next epoch."""
     _launch(name, dev, freq, n, cnt, B, S, out, start, ngroups, unresolved,
-            sc[0].data_ptr(), sc[0].shape[0] - 1, sc[1], count=count)
+            *_look_back_scratch(dev, -(-B // SCAN_THREADS)), count=count)
 
 
 def chain_scan_seeds(s_freq: torch.Tensor, n_seeds: torch.Tensor,
@@ -338,7 +351,7 @@ def chain_hits(fm: DeviceFMIndex, scan: SeedScan, n_seeds, s_rpos, s_len,
     return Hits(*hit, *flags, scan.unresolved)
 
 
-# ---- chain_classify --------------------------------------------------------
+# ---- chain_classify_pack ---------------------------------------------------
 
 def read_words_bwa(packed: torch.Tensor, max_len: int) -> torch.Tensor:
     """uint8[B, max_len/4] 2-bit codes (base q of a byte at bits 2q) ->
@@ -352,11 +365,13 @@ def read_words_bwa(packed: torch.Tensor, max_len: int) -> torch.Tensor:
     return (crumb << ((15 - (j & 15)) * 2)).reshape(B, -1, 16).sum(dim=2)
 
 
-def chain_classify_plain(ctx: ChainCtx, packed, rlens, off, hits: Hits,
+def chain_classify_plain(ctx: ChainCtx, packed, rlens, hits: Hits,
                          max_len: int, out: torch.Tensor, planes=None,
                          pair_end: bool = False):
-    """Plain version of chain_classify on any device; it takes each
-    hit's read from hits.read and does not read off."""
+    """The classify part of chain_classify_pack_plain: writes meta1 and
+    pd into out[:B] and out[B:2B], applies the FAST reads' evidence to
+    planes, and returns mmp int32[B, MM_SLOTS]. It takes each hit's read
+    from hits.read."""
     B = packed.shape[0]
     i64 = torch.int64
     cls, pd0, mm, rplast, cscore, mmp = classify_reads(
@@ -367,9 +382,6 @@ def chain_classify_plain(ctx: ChainCtx, packed, rlens, off, hits: Hits,
     cls = torch.where(hits.unresolved, CLASS_SLOW, cls)
     out[:B] = to_i32(cls | (mm << 2) | (rplast << 8) | (cscore << 17))
     out[B:2 * B] = pd0.to(torch.int32)
-    kept = torch.zeros(B, dtype=i64, device=packed.device).index_add_(
-        0, hits.read.to(i64), hits.keep.to(i64))
-    slow_kept = torch.where(cls == CLASS_SLOW, kept, 0).to(torch.int32)
     mmp = mmp.to(torch.int32)
     if planes is not None:
         scatter_fast_evidence(
@@ -377,63 +389,8 @@ def chain_classify_plain(ctx: ChainCtx, packed, rlens, off, hits: Hits,
             cls == CLASS_FAST, out[B:2 * B], mmp, rlens,
             first_mate_lanes(torch.arange(B, dtype=i64, device=packed.device),
                              pair_end), ctx.seq_len // 2, ctx.seq_len, sign=1)
-    return mmp, slow_kept
+    return mmp
 
-
-def chain_classify(ctx: ChainCtx, packed: torch.Tensor, rlens: torch.Tensor,
-                   off: torch.Tensor, hits: Hits, max_len: int,
-                   out: torch.Tensor, planes=None, pair_end: bool = False):
-    """Classify a batch of 2-bit reads (packed uint8[B, max_len/4], rlens
-    int32[B]) from their hits (chain_hits; off = the scan it expanded).
-    Writes meta1 (cls | mm<<2 | rplast<<8 | cscore<<17) and pd into
-    out[:B] and out[B:2B] (int32, the packed output vector) and returns
-    (mmp int32[B, MM_SLOTS], slow_kept int32[B]: each SLOW read's kept
-    hits, 0 for the others). With planes (pipeline/device_profile.
-    DevicePlanes) every FAST read's evidence is added to them in place;
-    pair_end picks the orientation plane by batch-index parity."""
-    name = "chain_classify"
-    B = packed.shape[0]
-    need(B >= 1 and max_len >= 16 and max_len % 16 == 0 and max_len <= 511,
-          f"{name}: needs B >= 1 and max_len a multiple of 16 below 512")
-    _dtype(name, packed, torch.uint8, "packed")
-    _dtype(name, rlens, torch.int32, "rlens")
-    need(packed.shape == (B, max_len // 4) and rlens.shape == (B,),
-          f"{name}: packed must be uint8[B, max_len/4] and rlens int32[B]")
-    _check_off(name, off, B)
-    H = _check_hits(name, hits, B)
-    _dtype(name, out, torch.int32, "out")
-    need(out.dim() == 1 and out.shape[0] >= 2 * B,
-          f"{name}: out must be int32[>= 2B]")
-    ts = [packed, rlens, off, out, ctx.text_words, ctx.bkeys, *hits]
-    pl = []
-    if planes is not None:
-        pl = [planes.exact_diff, planes.f_diff, planes.acgt]
-        for what, t in zip(("exact_diff", "f_diff", "acgt"), pl):
-            _dtype(name, t, torch.int32, f"planes.{what}")
-        L = ctx.seq_len // 2
-        need(pl[0].shape == (L + 2,) and pl[1].shape == (4, L + 2)
-              and pl[2].shape == (4, L + 1),
-              f"{name}: planes of genome size {L} expected")
-    if not _on_card(name, ts + pl):
-        return chain_classify_plain(ctx, packed, rlens, off, hits, max_len,
-                                    out, planes, pair_end)
-    need(packed.data_ptr() % 4 == 0, f"{name}: packed must be 4-byte "
-                                      f"aligned")
-    _dtype(name, ctx.bkeys, torch.int64, "ctx.bkeys")
-    _dtype(name, ctx.text_words, torch.int64, "ctx.text_words")
-    mmp = torch.empty((B, MM_SLOTS), dtype=torch.int32, device=packed.device)
-    slow_kept = torch.empty(B, dtype=torch.int32, device=packed.device)
-    _launch(name, out.device, _ptr(off), H, _ptr(hits.rpos), _ptr(hits.len),
-            _ptr(hits.loc), _ptr(hits.keep), _ptr(hits.unresolved),
-            _ptr(packed), _ptr(rlens), B, max_len, _ptr(ctx.text_words),
-            ctx.text_words.shape[0], _ptr(ctx.bkeys), ctx.bkeys.shape[0],
-            ctx.seq_len, *(map(_ptr, pl) if pl else (None,) * 3),
-            ctx.seq_len // 2, int(bool(pair_end)), _ptr(out),
-            _ptr(out) + 4 * B, _ptr(mmp), _ptr(slow_kept))
-    return mmp, slow_kept
-
-
-# ---- chain_pack ------------------------------------------------------------
 
 def ovf_words(flags: torch.Tensor) -> torch.Tensor:
     """bool[B] -> int64[ceil(B/32)] words, read b at bit b % 32 of word
@@ -449,10 +406,11 @@ def counts2(counts: torch.Tensor) -> torch.Tensor:
     return (counts[0::2] & 0xFFFF) | (counts[1::2] << 16)
 
 
-def chain_pack_plain(off, off2, hits: Hits, slow_kept, overflow,
-                     out: torch.Tensor, H2: int) -> torch.Tensor:
-    """Plain version of chain_pack on any device; it compacts by its own
-    cumsum and does not read off2 or slow_kept."""
+def chain_pack_plain(off, hits: Hits, overflow, out: torch.Tensor,
+                     H2: int) -> torch.Tensor:
+    """The pack part of chain_classify_pack_plain: fills out[2B:] from
+    the classes in out[:B], compacting the SLOW reads' kept hits by a
+    cumsum over the hits (the reference's, fm_search.py:752)."""
     B = overflow.shape[0]
     H = hits.read.shape[0]
     dev = out.device
@@ -478,36 +436,80 @@ def chain_pack_plain(off, off2, hits: Hits, slow_kept, overflow,
     return out
 
 
-def chain_pack(off: torch.Tensor, off2: torch.Tensor, hits: Hits,
-               slow_kept: torch.Tensor, overflow: torch.Tensor,
-               out: torch.Tensor, H2: int) -> torch.Tensor:
-    """Fill out[2B:] of the packed output vector (ops/fm_search.
-    SeedChainKernel) whose meta1 entries chain_classify wrote: hit_w[H2]
-    (rpos<<9 | len) and hit_loc[H2] of the SLOW reads' kept hits in hit
-    order (slots >= H2 dropped, unused ones 0), counts2[B/2] of
-    slow_kept, the overflow words of overflow | hits.unresolved, the
-    total kept and buffer_overflow = total raw > H or total kept > H2.
-    off: chain_scan_seeds(...).off, off2: chain_scan(slow_kept). B % 32 ==
-    0. Returns out."""
-    name = "chain_pack"
-    B = overflow.shape[0]
-    need(B >= 32 and B % 32 == 0 and H2 >= 1,
-          f"{name}: B must be a positive multiple of 32 and H2 >= 1")
-    _check_off(name, off, B)
-    _check_off(name, off2, B)
-    H = _check_hits(name, hits, B)
-    _dtype(name, slow_kept, torch.int32, "slow_kept")
-    _dtype(name, overflow, torch.bool, "overflow")
-    _dtype(name, out, torch.int32, "out")
-    need(slow_kept.shape == (B,) and overflow.shape == (B,),
-          f"{name}: slow_kept and overflow must be [B]")
-    need(out.shape == (2 * B + 2 * H2 + B // 2 + B // 32 + 2,),
-          f"{name}: out must be int32[2B + 2H2 + B/2 + B/32 + 2]")
-    if not _on_card(name, [off, off2, slow_kept, overflow, out, *hits]):
-        return chain_pack_plain(off, off2, hits, slow_kept, overflow, out,
-                                H2)
-    _launch(name, out.device, _ptr(off), _ptr(off2), _ptr(hits.rpos),
-            _ptr(hits.len), _ptr(hits.loc), _ptr(hits.keep), _ptr(slow_kept),
-            _ptr(overflow), _ptr(hits.unresolved), B, H, H2, _ptr(out))
-    return out
+def chain_classify_pack_plain(ctx: ChainCtx, packed, rlens, off, hits: Hits,
+                              overflow, max_len: int, out: torch.Tensor,
+                              H2: int, planes=None,
+                              pair_end: bool = False) -> torch.Tensor:
+    """Plain version of chain_classify_pack on any device: classify, then
+    pack. Returns mmp."""
+    mmp = chain_classify_plain(ctx, packed, rlens, hits, max_len, out,
+                               planes, pair_end)
+    chain_pack_plain(off, hits, overflow, out, H2)
+    return mmp
 
+
+def chain_classify_pack(ctx: ChainCtx, packed: torch.Tensor,
+                        rlens: torch.Tensor, off: torch.Tensor, hits: Hits,
+                        overflow: torch.Tensor, max_len: int,
+                        out: torch.Tensor, H2: int, planes=None,
+                        pair_end: bool = False) -> torch.Tensor:
+    """Classify a batch of 2-bit reads (packed uint8[B, max_len/4], rlens
+    int32[B]) from their hits (chain_hits; off = the scan it expanded)
+    and pack the result into the packed output vector out int32[2B + 2H2
+    + B/2 + B/32 + 2] (ops/fm_search.SeedChainKernel): meta1 (cls | mm<<2
+    | rplast<<8 | cscore<<17) and pd; hit_w (rpos<<9 | len) and hit_loc of
+    the SLOW reads' kept hits in hit order (slots >= H2 dropped, unused
+    ones 0); counts2 of each read's SLOW kept hits; the overflow words of
+    overflow | hits.unresolved; the total kept and buffer_overflow =
+    total raw > H or total kept > H2. Returns mmp int32[B, MM_SLOTS]. With
+    planes (pipeline/device_profile.DevicePlanes) every FAST read's
+    evidence is added to them in place; pair_end picks the orientation
+    plane by batch-index parity. B % 32 == 0. Counted as
+    chain_classify_pack."""
+    name = "chain_classify_pack"
+    B = packed.shape[0]
+    need(B >= 32 and B % 32 == 0 and H2 >= 1,
+         f"{name}: B must be a positive multiple of 32 and H2 >= 1")
+    need(max_len >= 16 and max_len % 16 == 0 and max_len <= 511,
+         f"{name}: max_len must be a multiple of 16 below 512")
+    _dtype(name, packed, torch.uint8, "packed")
+    _dtype(name, rlens, torch.int32, "rlens")
+    need(packed.shape == (B, max_len // 4) and rlens.shape == (B,),
+         f"{name}: packed must be uint8[B, max_len/4] and rlens int32[B]")
+    _check_off(name, off, B)
+    H = _check_hits(name, hits, B)
+    _dtype(name, overflow, torch.bool, "overflow")
+    need(overflow.shape == (B,), f"{name}: overflow must be [B]")
+    _dtype(name, out, torch.int32, "out")
+    need(out.shape == (2 * B + 2 * H2 + B // 2 + B // 32 + 2,),
+         f"{name}: out must be int32[2B + 2H2 + B/2 + B/32 + 2]")
+    ts = [packed, rlens, off, overflow, out, ctx.text_words, ctx.bkeys,
+          *hits]
+    pl = []
+    if planes is not None:
+        pl = [planes.exact_diff, planes.f_diff, planes.acgt]
+        for what, t in zip(("exact_diff", "f_diff", "acgt"), pl):
+            _dtype(name, t, torch.int32, f"planes.{what}")
+        L = ctx.seq_len // 2
+        need(pl[0].shape == (L + 2,) and pl[1].shape == (4, L + 2)
+             and pl[2].shape == (4, L + 1),
+             f"{name}: planes of genome size {L} expected")
+    if not _on_card(name, ts + pl):
+        return chain_classify_pack_plain(ctx, packed, rlens, off, hits,
+                                         overflow, max_len, out, H2, planes,
+                                         pair_end)
+    need(packed.data_ptr() % 4 == 0, f"{name}: packed must be 4-byte "
+                                     f"aligned")
+    _dtype(name, ctx.bkeys, torch.int64, "ctx.bkeys")
+    _dtype(name, ctx.text_words, torch.int64, "ctx.text_words")
+    dev = out.device
+    mmp = torch.empty((B, MM_SLOTS), dtype=torch.int32, device=dev)
+    _launch(name, dev, _ptr(off), _ptr(hits.rpos), _ptr(hits.len),
+            _ptr(hits.loc), _ptr(hits.keep), _ptr(hits.unresolved),
+            _ptr(overflow), _ptr(packed), _ptr(rlens), B, H, H2, max_len,
+            _ptr(ctx.text_words), ctx.text_words.shape[0], _ptr(ctx.bkeys),
+            ctx.bkeys.shape[0], ctx.seq_len,
+            *(map(_ptr, pl) if pl else (None,) * 3), ctx.seq_len // 2,
+            int(bool(pair_end)), _ptr(out), _ptr(mmp),
+            *_look_back_scratch(dev, -(-B // CP_READS)))
+    return mmp

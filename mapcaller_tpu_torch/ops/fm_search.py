@@ -23,7 +23,7 @@ kernels pack them for the host, each a class whose __call__ runs on the
 tables' device and whose collect decodes on the host:
 
   SeedChainKernel   classifies the reads on the card (ops/chain_kernels:
-                    chain_classify, chain_pack): the stream's default
+                    chain_classify_pack): the stream's default
   SeedKernelPacked  every kept hit grouped by read, for host chaining
                     (device_chain=False)
   SeedKernel        byte codes in, every hit out (the non-native path)
@@ -32,9 +32,9 @@ These scans are the plain PyTorch versions: Python loops of fixed-size
 blocks with one host sync per block for the early exit. The kernels
 call them through ops/seed_scan_device.py, which runs them for CPU
 tensors and launches the CUDA scan kernels (csrc/seed_scan.cu) for CUDA
-ones. On the card the chain kernel's call is six kernel launches and a
-memset (the scan, then ops/chain_kernels.py's csrc/chain.cu) and never
-waits for the device.
+ones. On the card the chain kernel's call is four kernel launches (the
+seed scan, then ops/chain_kernels.py's csrc/chain.cu: the seed-freq scan,
+the hits, classify+pack) and never waits for the device.
 """
 from __future__ import annotations
 
@@ -45,8 +45,8 @@ import torch
 from torch.profiler import record_function
 
 from .chain_device import ChainCtx
-from .chain_kernels import (chain_classify, chain_hits, chain_pack,
-                            chain_scan, chain_scan_seeds, counts2, ovf_words)
+from .chain_kernels import (chain_classify_pack, chain_hits, chain_scan_seeds,
+                            counts2, ovf_words)
 from .fm3_device import DeviceFM3, gather3, step1_update, step3_update
 from .fm_device import M32, DeviceFMIndex, occ4, to_i32
 from .seed_scan_device import seed_scan1, seed_scan3
@@ -521,7 +521,8 @@ class SeedChainKernel(_SeedKernelBase):
                  planes=None, pair_end: bool = False):
         B, H2 = self.batch, self.H2
         # named ranges for profiler traces (trace_main_path.py); on the
-        # card each range is one or two kernel launches
+        # card each range is one or two kernel launches (classify: the
+        # fused classify+pack)
         with record_function("seed_scan"):
             (n_seeds, s_rpos, s_len, s_x0, s_freq,
              overflow) = self._scan_packed(packed, rlens)
@@ -530,12 +531,9 @@ class SeedChainKernel(_SeedKernelBase):
         packed_out = torch.empty(2 * B + 2 * H2 + B // 2 + B // 32 + 2,
                                  dtype=torch.int32, device=packed.device)
         with record_function("classify"):
-            mmp, slow_kept = chain_classify(self.ctx, packed, rlens, off, hits,
-                                            self.max_len, packed_out, planes,
-                                            pair_end)
-        with record_function("pack"):
-            chain_pack(off, chain_scan(slow_kept), hits, slow_kept, overflow,
-                       packed_out, H2)
+            mmp = chain_classify_pack(self.ctx, packed, rlens, off, hits,
+                                      overflow, self.max_len, packed_out, H2,
+                                      planes, pair_end)
         # pd/mmp stay device-resident for the evidence stage; only
         # packed_out is downloaded
         return packed_out, packed_out[B:2 * B], mmp

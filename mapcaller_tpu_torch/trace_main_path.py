@@ -10,31 +10,46 @@ to warm up, once timed, and once under torch.profiler, then prints one
 JSON line: the card, the timed run's metrics, the device time summed over
 the profiled run's kernels and its busy share of the mapping stage, the
 device span (first kernel start to last kernel end on the card) and calls
-of each named range (seed_scan, hits_sa_resolve, classify, pack in
-ops/fm_search.py; nw_kernel in ops/nw_device.py; ksw2_kernel in
-ops/ksw2_device.py; evidence_apply,
+of each named range (seed_scan, hits_sa_resolve, classify in
+ops/fm_search.py, classify holding the fused classify+pack; nw_kernel in
+ops/nw_device.py; ksw2_kernel in ops/ksw2_device.py; evidence_apply,
 evidence_correct, evidence_finalize, caller_scan, fetch_columns in
 pipeline/device_profile.py; the folded apply runs inside classify), the
-ten kernels with the most device time, the calls of each kind of copy
-and memset (a host-to-device copy from pageable memory waits for the
-stream), and each run's stage seconds (MC_STAGE_PROF: parse, seed+chain
-submit, collect, host leg, evidence).
+device ms and calls of every kernel of the port's own CUDA sources
+(csrc/*.cu, matched by kernel name; 0 calls for one the run did not
+launch), the ten kernels with the most device time, the calls of each
+kind of copy and memset (a host-to-device copy from pageable memory waits
+for the stream), and each run's stage seconds (MC_STAGE_PROF: parse,
+seed+chain submit, collect, host leg, evidence).
 Needs a CUDA card.
 """
 from __future__ import annotations
 
 import contextlib
+import glob
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
 import time
 
-RANGES = ("seed_scan", "hits_sa_resolve", "classify", "pack", "nw_kernel",
+RANGES = ("seed_scan", "hits_sa_resolve", "classify", "nw_kernel",
           "ksw2_kernel", "evidence_apply", "evidence_correct",
           "evidence_finalize", "caller_scan", "fetch_columns")
+
+
+def port_kernels() -> list:
+    """Names of the kernels in the port's CUDA sources (csrc/*.cu)."""
+    names = []
+    for path in sorted(glob.glob(os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), "csrc", "*.cu"))):
+        with open(path) as f:
+            names += re.findall(r"__global__\s+void\s+(?:__launch_bounds__"
+                                r"\([^)]*\)\s+)?(\w+)\s*\(", f.read())
+    return names
 
 
 def _device_us(evt, self_only: bool = False) -> float:
@@ -100,15 +115,23 @@ def main(argv=None) -> int:
             traced = run()
             wall_s = time.perf_counter() - t0
     events = prof.key_averages()
-    # kernels: device-side events other than the named ranges, whose
-    # device entries are spans over the kernels they enclose
+    # kernels: device-side events other than the named ranges (any range,
+    # also one of an older tree this script runs on), whose device entries
+    # are spans over the kernels they enclose
     kernels = [e for e in events if e.key not in RANGES
+               and not getattr(e, "is_user_annotation", False)
                and str(getattr(e, "device_type", "")).endswith("CUDA")]
     busy_us = sum(_device_us(e, self_only=True) for e in kernels)
     top = sorted(kernels, key=lambda e: -_device_us(e, True))[:10]
     ranges = {e.key: {"device_span_ms": _device_us(e) / 1e3,
                       "calls": e.count}
               for e in events if e.key in RANGES}
+    own = {}
+    for name in port_kernels():
+        hit = [e for e in kernels if re.search(rf"\b{name}\b", e.key)]
+        own[name] = {"device_ms": sum(_device_us(e, True)
+                                      for e in hit) / 1e3,
+                     "calls": sum(e.count for e in hit)}
     print(json.dumps({
         "card": card, "n_reads": timed["total_reads"],
         "timed_run": {k: timed[k] for k in (
@@ -121,6 +144,7 @@ def main(argv=None) -> int:
                            busy_us / 1e6 / traced["mapping_seconds"],
                        "kernel_launches": sum(e.count for e in kernels)},
         "ranges": ranges,
+        "port_kernels": own,
         "top_kernels": [{"name": e.key[:80], "device_ms":
                          _device_us(e, True) / 1e3, "calls": e.count}
                         for e in top],

@@ -2,25 +2,33 @@
 by ops/chain_kernels.py) on the CPU, where no kernel runs:
 
   * a scalar mirror of each kernel, written as the .cu blocks and threads
-    run (the scan's tiles, block scans, decoupled look-back in several
-    orders of publication and start index; the hits blocks' staged freq
-    chunks, binary searches and inverse-Psi walks; a read's insertion
-    window, 32-position bitmasks and gap runs; the pack's ballot), is held
-    equal to the plain versions and to the reference package's hit
-    expansion, sa_resolve, classify_reads and build_seed_chain_kernel
-    (with and without with_planes, pair_end both ways, with and without a
-    full SA); the start index equals torch.searchsorted over the flat
-    cumsum with the total below, at and above H, zero freqs, reads with
-    n_seeds 0 or above S and a long run of seedless reads;
+    run, is held equal to the plain versions and to the reference
+    package's hit expansion, sa_resolve, classify_reads and
+    build_seed_chain_kernel (with and without with_planes, pair_end both
+    ways, with and without a full SA): the scan's tiles, block scans and
+    decoupled look-back (run_look_back, shared with classify+pack) in
+    several orders of publication, and its start index; the hits blocks'
+    staged freq chunks, binary searches and inverse-Psi walks; the
+    classify+pack blocks (mirror_classify_pack) with their tiles
+    published in ticket order, aggregates first and at random, groups of
+    the kernel's lanes and of one lane, the hits staged at the kernel's
+    capacity and at small ones that take several chunks, and tiles whole
+    and cut short: a group's ballot and popcount ranks, the window sorted
+    by counting ranks, the 16-base words a lane, the prefix of mismatch
+    popcounts, the leader's gap walk, the pack's slots from the
+    look-back, the count and overflow words and the last tile's totals;
+    the start index equals torch.searchsorted over the flat cumsum with
+    the total below, at and above H, zero freqs, reads with n_seeds 0 or
+    above S and a long run of seedless reads;
   * the cases: more than 8 kept hits, (pd, rpos) ties of different
     lengths, a span across a chromosome boundary, reads at the end of the
     text, the most gaps a window allows (and >= 10 gaps in the gap walk),
     more than 4 mismatches, total raw hits > H and kept slow hits > H2,
-    unresolved reads, rlen 0;
+    unresolved reads, rlen 0, 496-base reads;
   * the wrappers refuse what the kernels do not take and run the plain
-    versions for CPU tensors without counting a launch; the scan's
-    look-back scratch is kept per device and its epoch tags never repeat
-    on one scratch.
+    versions for CPU tensors without counting a launch; the look-back
+    scratch is kept per device and its epoch tags never repeat on one
+    scratch.
 
 All values are integers: the tolerance is exact equality."""
 import functools
@@ -64,6 +72,8 @@ def _cu_const(name):
 
 SCAN_THREADS, LOOKBACK = _cu_const("SCAN_THREADS"), _cu_const("LOOKBACK")
 HITS_GROUP, HITS_ITEMS = _cu_const("HITS_GROUP"), _cu_const("HITS_ITEMS")
+CP_READS, CP_GROUP = _cu_const("CP_READS"), _cu_const("CP_GROUP")
+CP_HIT_CAP, CP_KEY_CAP = _cu_const("CP_HIT_CAP"), _cu_const("CP_KEY_CAP")
 
 
 # ---- data ------------------------------------------------------------------
@@ -201,29 +211,18 @@ def _look_back_schedule(ntiles, order, rng):
         sorted(live) + ([started] if started < ntiles else [])))
 
 
-def mirror_scan(B, S=1, freq=None, n=None, cnt=None, tile=SCAN_THREADS,
-                H=None, group=HITS_GROUP, order="in_order", seed=0):
-    """chain_scan_kernel: tiles of `tile` reads (a thread a read) take
-    their index from a ticket, stage and sum their counts, scan them in
-    the block, publish the aggregate, look back LOOKBACK predecessors at a
-    time to the nearest inclusive prefix and publish their own; tiles move
-    in the schedule `order`. With H the seed-freq scan's start index of
-    ceil(H / group) groups. -> (out int64[B+1], start int64[groups, 2] or
-    None, {"prefix": look-back windows that found an inclusive prefix,
-    "aggregates": windows of aggregates only})."""
-    ntiles = -(-B // tile)
+def run_look_back(ntiles, publish, finish, order="in_order", seed=0):
+    """The decoupled look-back of csrc/chain.cu over `ntiles` tiles: tiles
+    draw tickets in order, and at its ticket a tile runs publish(k) -> its
+    aggregate (mod 2^32) and publishes it; then it looks back LOOKBACK
+    predecessors at a time to the nearest inclusive prefix, publishes its
+    own and runs finish(k, its exclusive prefix). Tiles move in the
+    schedule `order`. -> {"prefix": look-back windows that found an
+    inclusive prefix, "aggregates": windows of aggregates only}."""
     rng = np.random.default_rng(seed)
     nxt = _look_back_schedule(ntiles, order, rng)
     status = [None] * ntiles                  # None, ("A", v) or ("P", v)
     seen = {"prefix": 0, "aggregates": 0}
-    out = np.zeros(B + 1, dtype=np.int64)
-    ngroups = -(-H // group) if H else 0
-    start = np.full((ngroups, 2), -1, dtype=np.int64) if H else None
-
-    def staged(b):                            # a read's masked seed freqs
-        nv = S if n is None else int(n[b])
-        return [int(freq[b, j]) & M32 if j < nv else 0 for j in range(S)]
-
     state = {}                                # tile -> its progress
     started = 0
     while len(state) < ntiles or any(s["top"] is not None
@@ -231,16 +230,12 @@ def mirror_scan(B, S=1, freq=None, n=None, cnt=None, tile=SCAN_THREADS,
         live = [k for k, s in state.items() if s["top"] is not None]
         k = nxt(started, live)
         if k == started:                      # draws a ticket, publishes
-            b0 = k * tile
-            rows = [staged(b) if freq is not None else None
-                    for b in range(b0, min(b0 + tile, B))]
-            mine = [sum(r) & M32 if freq is not None else int(cnt[b]) & M32
-                    for b, r in zip(range(b0, b0 + tile), rows)]
-            excl_in, agg = block_excl_scan(mine)
-            state[k] = dict(rows=rows, excl_in=excl_in, agg=agg, excl=0,
-                            top=k - 1 if k else None)
+            agg = publish(k) & M32
+            state[k] = dict(agg=agg, excl=0, top=k - 1 if k else None)
             status[k] = ("P", agg) if k == 0 else ("A", agg)
             started += 1
+            if k == 0:
+                finish(0, 0)
             continue
         s = state[k]
         win = [status[i] if i >= 0 else ("P", 0)
@@ -254,10 +249,46 @@ def mirror_scan(B, S=1, freq=None, n=None, cnt=None, tile=SCAN_THREADS,
         if pm:
             status[k] = ("P", (s["excl"] + s["agg"]) & M32)
             s["top"] = None
+            finish(k, s["excl"])
         else:
             s["top"] -= LOOKBACK
+    return seen
+
+
+def mirror_scan(B, S=1, freq=None, n=None, cnt=None, tile=SCAN_THREADS,
+                H=None, group=HITS_GROUP, order="in_order", seed=0):
+    """chain_scan_kernel: tiles of `tile` reads (a thread a read) take
+    their index from a ticket, stage and sum their counts, scan them in
+    the block and find their prefix by look-back (run_look_back) in the
+    schedule `order`. With H the seed-freq scan's start index of
+    ceil(H / group) groups. -> (out int64[B+1], start int64[groups, 2] or
+    None, the look-back's windows as run_look_back counts them)."""
+    ntiles = -(-B // tile)
+    out = np.zeros(B + 1, dtype=np.int64)
+    ngroups = -(-H // group) if H else 0
+    start = np.full((ngroups, 2), -1, dtype=np.int64) if H else None
+    tiles = {}
+
+    def staged(b):                            # a read's masked seed freqs
+        nv = S if n is None else int(n[b])
+        return [int(freq[b, j]) & M32 if j < nv else 0 for j in range(S)]
+
+    def publish(k):
+        b0 = k * tile
+        rows = [staged(b) if freq is not None else None
+                for b in range(b0, min(b0 + tile, B))]
+        mine = [sum(r) & M32 if freq is not None else int(cnt[b]) & M32
+                for b, r in zip(range(b0, b0 + tile), rows)]
+        excl_in, agg = block_excl_scan(mine)
+        tiles[k] = dict(rows=rows, excl_in=excl_in, agg=agg)
+        return agg
+
+    def finish(k, excl):
+        tiles[k]["excl"] = excl
+
+    seen = run_look_back(ntiles, publish, finish, order, seed)
     for k in range(ntiles):
-        s, b0 = state[k], k * tile
+        s, b0 = tiles[k], k * tile
         for t, e in enumerate(s["excl_in"]):
             base = (s["excl"] + e) & M32
             out[b0 + t] = _i32(base)
@@ -269,7 +300,7 @@ def mirror_scan(B, S=1, freq=None, n=None, cnt=None, tile=SCAN_THREADS,
                         start[g] = (b0 * S + t * S + j, _i32(p))
                         g += 1
                     p = (p + f) & M32
-    total = (state[ntiles - 1]["excl"] + state[ntiles - 1]["agg"]) & M32
+    total = (tiles[ntiles - 1]["excl"] + tiles[ntiles - 1]["agg"]) & M32
     out[B] = _i32(total)
     if H:
         for g in range((total + group - 1) // group, ngroups):
@@ -435,58 +466,90 @@ def gap_walk(unc_chunks, mm_chunks):
     return dp_any, g >= tcd.MAX_GAPS
 
 
-def mirror_classify(ctx, packed, rlens, off, hits, unres, max_len,
-                    planes=None, pair_end=False):
-    """chain_classify_kernel, one thread per read. hits: numpy dict as
-    mirror_hits returns; planes: numpy dict exact/fd/acgt, updated."""
+def _sort_window(win, nwin):
+    """The window sorted stably by (pd, rpos) by counting ranks, as the
+    group's lanes do over shuffles: slot s < nwin (the warp's most kept
+    hits, at most K_HITS) goes to the number of slots before nwin that
+    sort before it (ties: the earlier slot first); slots from nwin on,
+    empty, keep their places."""
+    def after(a, b):
+        return a[0] > b[0] or (a[0] == b[0] and a[1] > b[1])
+    out = list(win)
+    for s, w in enumerate(win[:nwin]):
+        rank = sum((not after(e, w)) if i < s else after(w, e)
+                   for i, e in enumerate(win[:nwin]))
+        out[rank] = w
+    return out
+
+
+def _group_steps(a, z, keep, group):
+    """A read's group over hits [a, z), `group` lanes a step: per step,
+    the kept hits in lane order (the ballot ranked by popcount)."""
+    for h0 in range(a, z, group):
+        yield [h for h in range(h0, min(h0 + group, z)) if keep[h]]
+
+
+def mirror_classify_pack(ctx, packed, rlens, off, hits, unres, overflow,
+                         max_len, H2, planes=None, pair_end=False,
+                         tile=CP_READS, group=CP_GROUP, cap=CP_HIT_CAP,
+                         order="random", seed=0):
+    """chain_classify_pack_kernel: tiles of `tile` reads take their index
+    from a ticket and stage their hit range `cap` hits at a time; a group
+    of `group` lanes a read takes its hits `group` at a time (the first
+    K_HITS kept ones to the window, sorted by counting ranks) and its
+    16-base words j, j + group, ... (mismatch and coverage bits, the mm
+    sum, the leftmost mismatches by a prefix of popcounts), and its
+    leader walks the gaps; then the tile's SLOW kept counts are scanned,
+    its prefix found by look-back (run_look_back, schedule `order`) and
+    the SLOW reads' kept hits written to their slots (restaged chunk by
+    chunk when the range took several); the last tile writes the totals
+    and zeroes the slots no read fills. hits: numpy dict as mirror_hits
+    returns; planes: numpy dict exact/fd/acgt, updated. -> (the packed
+    vector, mmp, {"chunks": hit chunks staged, "restaged": chunks staged
+    again for the pack, and the look-back's windows})."""
     Bn = packed.shape[0]
-    H = hits["read"].shape[0]
+    H = len(hits["read"])
+    keep = np.asarray(hits["keep"], dtype=bool)
     text = ctx.text_words.numpy()
-    keys = [int(k) for k in ctx.bkeys.numpy()]
+    keys = [int(x) for x in ctx.bkeys.numpy()]
     seq_len = ctx.seq_len
     nwords = max_len >> 4
-    words = packed.view(np.uint32).reshape(Bn, -1) if packed.size else None
-    meta = np.zeros(Bn, dtype=np.int64)
-    pd_o = np.zeros(Bn, dtype=np.int64)
-    mmp = np.full((Bn, tcd.MM_SLOTS), -1, dtype=np.int64)
-    slow = np.zeros(Bn, dtype=np.int64)
+    words = np.ascontiguousarray(packed).view(np.uint32).reshape(Bn, -1)
+    hw0, hl0 = 2 * Bn, 2 * Bn + H2
+    c20, ovf0 = hl0 + H2, hl0 + H2 + Bn // 2
+    out = np.full(ovf0 + Bn // 32 + 2, -7, dtype=np.int64)   # torch.empty
+    mmp = np.full((Bn, tcd.MM_SLOTS), -7, dtype=np.int64)
+    stats = {"chunks": 0, "restaged": 0}
+    tiles = {}
     PD_EMPTY = tcd.INT32_MAX
-    for b in range(Bn):
-        rlen = int(rlens[b])
-        spd, srp, sln = [PD_EMPTY] * 8, [0] * 8, [0] * 8
+
+    def window(ob, ob1, chunks):
+        """A read's first K_HITS kept hits and its kept count."""
+        win = [(PD_EMPTY, 0, 0)] * tcd.K_HITS
         nkept = 0
-        for h in range(int(off[b]), min(int(off[b + 1]), H)):
-            if not hits["keep"][h]:
-                continue
-            if nkept < tcd.K_HITS:
-                e_rp, e_ln = int(hits["rpos"][h]), int(hits["len"][h])
-                e_pd = int(hits["loc"][h]) - e_rp
-                placed = False
-                for i in range(7, -1, -1):
-                    if placed:
-                        continue
-                    if i > 0 and (spd[i - 1] > e_pd or (
-                            spd[i - 1] == e_pd and srp[i - 1] > e_rp)):
-                        spd[i], srp[i], sln[i] = spd[i - 1], srp[i - 1], \
-                            sln[i - 1]
-                    else:
-                        spd[i], srp[i], sln[i] = e_pd, e_rp, e_ln
-                        placed = True
-            nkept += 1
+        for c0, c1 in chunks:
+            for kept in _group_steps(max(ob, c0), min(ob1, c1), keep, group):
+                for s in range(nkept, min(nkept + len(kept), tcd.K_HITS)):
+                    h = kept[s - nkept]
+                    rp, ln = int(hits["rpos"][h]), int(hits["len"][h])
+                    win[s] = (int(hits["loc"][h]) - rp, rp, ln)
+                nkept += len(kept)
+        return win, nkept
+
+    def classify(b, win, nkept, nwin):
+        rlen = int(rlens[b])
+        win = _sort_window(win, nwin)
         has_hits, too_many = nkept > 0, nkept > tcd.K_HITS
-        pd0 = spd[0]
-        one_diag, cscore, seed_end, seed_last = True, 0, 0, -1
-        for i in range(8):
-            valid, same = spd[i] != PD_EMPTY, spd[i] == pd0
-            if valid and not same:
-                one_diag = False
-            if valid:
-                cscore += sln[i]
-            if valid and same:
-                seed_end = max(seed_end, srp[i] + sln[i])
-                seed_last = max(seed_last, srp[i])
-            if not same:
-                sln[i] = 0
+        pd0 = win[0][0]
+        valid = [w[0] != PD_EMPTY for w in win]
+        same = [w[0] == pd0 for w in win]
+        one_diag = not any(v and not m for v, m in zip(valid, same))
+        cscore = sum(w[2] for w, v in zip(win, valid) if v)
+        seed_end = max([w[1] + w[2] for w, v, m in zip(win, valid, same)
+                        if v and m] + [0])
+        seed_last = max([w[1] for w, v, m in zip(win, valid, same)
+                         if v and m] + [-1])
+        spans = [(w[1], w[1] + (w[2] if m else 0)) for w, m in zip(win, same)]
         has_can = cscore > (rlen >> 2)
         pd_end = pd0 + rlen
         p1 = min(max(pd0, 0), seq_len - 1)
@@ -496,36 +559,45 @@ def mirror_classify(ctx, packed, rlens, off, hits, unres, max_len,
         pds = pd0 if span_ok and has_hits else 0
         sh, wbase = (pds & 15) * 2, pds >> 4
         lim = min(rlen, max_len)
-        mm_total, found = 0, []
-        uncs, mms = [], []
-        for c in range((max_len + 31) // 32):
-            mm, rw = 0, [0, 0]
-            for q in range(2):
-                wi = 2 * c + q
+        masks = [0] * nwords
+        mm_total, carry, slots = 0, 0, [-1] * tcd.MM_SLOTS
+        for k in range(-(-nwords // group)):
+            lanes = []                        # (wi, mm, rb) of each lane
+            for j in range(group):
+                wi = k * group + j
                 if wi >= nwords:
+                    lanes.append((wi, 0, 0))
                     continue
-                r = _to_bwa(int(words[b, wi]))
+                rb = _to_bwa(int(words[b, wi]))
                 t0 = int(text[min(max(wbase + wi, 0), len(text) - 1)])
                 t1 = int(text[min(max(wbase + wi + 1, 0), len(text) - 1)])
                 al = ((t0 << sh) | (t1 >> (32 - sh) if sh else 0)) & M32
-                mm |= _mismatch16(al, r) << (16 * q)
-                rw[q] = r
-            inlen = _span_bits(0, lim - 32 * c)
-            mm &= inlen
-            cov = 0
-            for i in range(8):
-                cov |= _span_bits(srp[i] - 32 * c, srp[i] + sln[i] - 32 * c)
-            unc = ~cov & inlen & M32
-            mm_total += _popc(mm & unc)
-            bits = mm
-            while bits and len(found) < tcd.MM_SLOTS:
-                p = _ffs(bits) - 1
-                j = 32 * c + p
-                word = rw[0] if p < 16 else rw[1]
-                found.append((j << 2) | ((word >> ((15 - (j & 15)) * 2)) & 3))
-                bits &= bits - 1
-            uncs.append(unc)
-            mms.append(mm)
+                inlen = _span_bits(0, lim - 16 * wi) & 0xFFFF
+                mm = _mismatch16(al, rb) & inlen
+                cov = 0
+                for lo, hi in spans:
+                    cov |= _span_bits(lo - 16 * wi, hi - 16 * wi)
+                unc = ~cov & inlen & 0xFFFF
+                mm_total += _popc(mm & unc)
+                masks[wi] = (mm & unc) | (unc << 16)
+                lanes.append((wi, mm, rb))
+            for wi, mm, rb in lanes:          # a prefix of popcounts
+                slot = carry
+                carry += _popc(mm)
+                bits = mm
+                while bits and slot < tcd.MM_SLOTS:
+                    p = _ffs(bits) - 1
+                    slots[slot] = ((16 * wi + p) << 2) | (
+                        (rb >> ((15 - p) * 2)) & 3)
+                    slot += 1
+                    bits &= bits - 1
+        # the leader's gap walk over 32-position chunks
+        uncs, mms = [], []
+        for c in range(-(-nwords // 2)):
+            w0 = masks[2 * c]
+            w1 = masks[2 * c + 1] if 2 * c + 1 < nwords else 0
+            uncs.append((w0 >> 16) | (w1 & 0xFFFF0000))
+            mms.append((w0 & 0xFFFF) | ((w1 << 16) & M32))
         dp_any, many_gaps = gap_walk(uncs, mms)
         fast = (has_hits and not too_many and one_diag and has_can
                 and span_ok and not dp_any and not many_gaps
@@ -536,79 +608,104 @@ def mirror_classify(ctx, packed, rlens, off, hits, unres, max_len,
         if unres[b]:
             cls = tcd.CLASS_SLOW
         rplast = min(max(seed_end if seed_end < rlen else seed_last, 0), 511)
-        meta[b] = _i32(cls | (mm_total << 2) | (rplast << 8)
-                       | (min(cscore, 511) << 17))
-        pd_o[b] = pd0
-        mmp[b, :len(found)] = found
-        slow[b] = nkept if cls == tcd.CLASS_SLOW else 0
-        if planes is None or cls != tcd.CLASS_FAST:
-            continue
-        L, two_l = seq_len // 2, seq_len
-        ori = pd0 < L
-        gs = min(max(pd0 if ori else two_l - pd0 - rlen, 0), L - 1)
-        end = min(gs + rlen, L)
-        first = not pair_end or (b & 1) == 0
-        fo = (0 if ori else 3) if first else (1 if ori else 2)
-        planes["exact"][gs] += 1
-        planes["exact"][end] -= 1
-        planes["fd"][fo * (L + 2) + gs] += 1
-        planes["fd"][fo * (L + 2) + end] -= 1
-        for e in found:
-            at = pd0 + (e >> 2)
-            p = min(max(at if ori else two_l - 1 - at, 0), L - 1)
-            base = (e & 3) if ori else 3 - (e & 3)
-            planes["exact"][p] -= 1
-            planes["exact"][p + 1] += 1
-            planes["acgt"][base * (L + 1) + p] += 1
-    return meta, pd_o, mmp, slow
-
-
-def mirror_pack(off, off2, hits, slow, overflow, unres, meta, pd_o, H2):
-    """chain_pack_kernel: a thread per read (and per unused slot), the
-    overflow words by warp ballot -> the whole packed vector."""
-    Bn = overflow.shape[0]
-    H = hits["read"].shape[0]
-    hw, hl = np.zeros(H2, dtype=np.int64), np.zeros(H2, dtype=np.int64)
-    counts2 = np.zeros(Bn // 2, dtype=np.int64)
-    ovf = np.zeros(Bn // 32, dtype=np.int64)
-    total_kept = int(off2[Bn])
-    for b in range(Bn):
-        if slow[b] > 0:
-            slot = int(off2[b])
-            for h in range(int(off[b]), min(int(off[b + 1]), H)):
-                if slot >= H2:
-                    break
-                if not hits["keep"][h]:
+        out[b] = _i32(cls | (mm_total << 2) | (rplast << 8)
+                      | (min(cscore, 511) << 17))
+        out[Bn + b] = pd0
+        mmp[b] = slots
+        if planes is not None and cls == tcd.CLASS_FAST:
+            L, two_l = seq_len // 2, seq_len
+            ori = pd0 < L
+            gs = min(max(pd0 if ori else two_l - pd0 - rlen, 0), L - 1)
+            end = min(gs + rlen, L)
+            first = not pair_end or (b & 1) == 0
+            fo = (0 if ori else 3) if first else (1 if ori else 2)
+            planes["exact"][gs] += 1
+            planes["exact"][end] -= 1
+            planes["fd"][fo * (L + 2) + gs] += 1
+            planes["fd"][fo * (L + 2) + end] -= 1
+            for e in slots:
+                if e < 0:
                     continue
-                hw[slot] = (int(hits["rpos"][h]) << 9) | int(hits["len"][h])
-                hl[slot] = hits["loc"][h]
-                slot += 1
-        if b % 2 == 0:
-            counts2[b >> 1] = _i32((int(slow[b]) & 0xFFFF)
-                                   | (int(slow[b + 1]) << 16))
-        if b % 32 == 0:
-            w = sum(1 << lane for lane in range(32)
-                    if overflow[b + lane] or unres[b + lane])
-            ovf[b >> 5] = _i32(w)
-    return np.concatenate([meta, pd_o, hw, hl, counts2, ovf,
-                           [total_kept, int(off[Bn] > H or total_kept > H2)]])
+                at = pd0 + (e >> 2)
+                p = min(max(at if ori else two_l - 1 - at, 0), L - 1)
+                base = (e & 3) if ori else 3 - (e & 3)
+                planes["exact"][p] -= 1
+                planes["exact"][p + 1] += 1
+                planes["acgt"][base * (L + 1) + p] += 1
+        return nkept if cls == tcd.CLASS_SLOW else 0
+
+    def publish(k):
+        b0 = k * tile
+        nr = min(tile, Bn - b0)
+        o = [int(off[b0 + i]) for i in range(nr + 1)]
+        hs, he = min(o[0], H), min(o[nr], H)
+        chunks = [(c0, min(c0 + cap, he)) for c0 in range(hs, he, cap)]
+        stats["chunks"] += len(chunks)
+        wins = [window(min(o[r], H), min(o[r + 1], H), chunks)
+                for r in range(nr)]
+        per_warp = 32 // group                # reads a warp
+        slow = [classify(b0 + r, *wins[r], max(
+            min(n, tcd.K_HITS) for _, n in
+            wins[r - r % per_warp:r - r % per_warp + per_warp]))
+            for r in range(nr)]
+        excl_in, agg = block_excl_scan(slow)
+        tiles[k] = dict(b0=b0, nr=nr, o=o, chunks=chunks, slow=slow,
+                        excl_in=excl_in, agg=agg)
+        return agg
+
+    def finish(k, excl):
+        t = tiles[k]
+        b0, nr, o, slow = t["b0"], t["nr"], t["o"], t["slow"]
+        if t["agg"]:
+            nk = [0] * nr
+            for c0, c1 in t["chunks"]:
+                stats["restaged"] += len(t["chunks"]) > 1
+                for r in range(nr):
+                    if not slow[r]:
+                        continue
+                    base = _i32(excl + t["excl_in"][r])
+                    for kept in _group_steps(max(min(o[r], H), c0),
+                                             min(o[r + 1], H, c1), keep,
+                                             group):
+                        for rank, h in enumerate(kept):
+                            s = base + nk[r] + rank
+                            if s < H2:
+                                out[hw0 + s] = (int(hits["rpos"][h]) << 9) \
+                                    | int(hits["len"][h])
+                                out[hl0 + s] = hits["loc"][h]
+                        nk[r] += len(kept)
+        for i in range(nr // 2):
+            out[c20 + b0 // 2 + i] = _i32((slow[2 * i] & 0xFFFF)
+                                          | (slow[2 * i + 1] << 16))
+        for w in range(nr // 32):
+            out[ovf0 + b0 // 32 + w] = _i32(sum(
+                1 << lane for lane in range(32)
+                if overflow[b0 + 32 * w + lane] or unres[b0 + 32 * w + lane]))
+        if k == ntiles - 1:
+            total = _i32(excl + t["agg"])
+            out[ovf0 + Bn // 32] = total
+            out[ovf0 + Bn // 32 + 1] = int(o[nr] > H or total > H2)
+            out[hw0 + max(total, 0):hw0 + H2] = 0
+            out[hl0 + max(total, 0):hl0 + H2] = 0
+
+    ntiles = -(-Bn // tile)
+    stats.update(run_look_back(ntiles, publish, finish, order, seed))
+    return out, mmp, stats
 
 
 def mirror_chain(genome, seeds, tfm, H, H2, planes=None, pair_end=False,
-                 max_walk=192):
-    """The whole once-a-batch chain on the mirrors -> (packed, pd, mmp)."""
+                 max_walk=192, **kw):
+    """The whole once-a-batch chain on the mirrors -> (packed, pd, mmp,
+    the classify+pack mirror's stats)."""
     n_seeds, rpos, slen, x0, freq, overflow = (x.numpy() for x in seeds)
     off, start, _ = mirror_scan(B, freq.shape[1], freq=freq, n=n_seeds, H=H,
                                 order="random")
     hits, unres, _ = mirror_hits(tfm, off, start, n_seeds, rpos, slen, x0,
                                  freq, H, max_walk)
-    meta, pd_o, mmp, slow = mirror_classify(
+    packed, mmp, stats = mirror_classify_pack(
         genome["tctx"], genome["packed"], genome["rlens"], off, hits, unres,
-        BUCKET, planes, pair_end)
-    off2, _, _ = mirror_scan(B, cnt=slow, order="random", seed=1)
-    packed = mirror_pack(off, off2, hits, slow, overflow, unres, meta, pd_o,
-                         H2)
-    return packed, pd_o, mmp
+        overflow, BUCKET, H2, planes, pair_end, **kw)
+    return packed, packed[B:2 * B], mmp, stats
 
 
 # ---- the mirrors against the plain versions and the reference ---------------
@@ -831,7 +928,7 @@ def _synthetic_hits(genome, seed):
             diag = int(true_pd[b])
         for j in range(k):
             if mode == 0:                    # spread seeds on one diagonal
-                rp = min(j * 14, BUCKET - 1)
+                rp = min(5 + j * 14, BUCKET - 1)
                 sl = int(rng.integers(1, 10))
                 d = diag
             elif mode == 1:                  # ties: same (pd, rpos)
@@ -866,15 +963,15 @@ def _torch_hits(hits, unres):
                    torch.from_numpy(unres))
 
 
-def _jax_classify(genome, hits, unres):
+def _jax_classify(jctx, packed, rlens, hits, unres, max_len=BUCKET):
     """The reference's classify_reads, unresolved override and meta1."""
-    words = jnp.asarray(ck.read_words_bwa(torch.from_numpy(genome["packed"]),
-                                          BUCKET).numpy().astype(np.uint32))
+    words = jnp.asarray(ck.read_words_bwa(torch.from_numpy(packed),
+                                          max_len).numpy().astype(np.uint32))
     cls, pd0, mm, rplast, cscore, mmp = jcd.classify_reads(
-        genome["jctx"], words, jnp.asarray(genome["rlens"]),
+        jctx, words, jnp.asarray(rlens),
         *(jnp.asarray(np.asarray(hits[k]).astype(np.int32))
           for k in ("read", "rpos", "len", "loc")),
-        jnp.asarray(np.asarray(hits["keep"], dtype=bool)), BUCKET)
+        jnp.asarray(np.asarray(hits["keep"], dtype=bool)), max_len)
     cls = jnp.where(jnp.asarray(unres), jcd.CLASS_SLOW, cls)
     meta = cls | (mm << 2) | (rplast << 8) | (cscore << 17)
     return np.asarray(meta), np.asarray(pd0), np.asarray(mmp), \
@@ -887,90 +984,263 @@ def _np_planes(L):
             "acgt": np.zeros(4 * (L + 1), np.int64)}
 
 
+def _decode_counts(packed, Bn, H2):
+    c2 = packed[2 * Bn + 2 * H2:2 * Bn + 2 * H2 + Bn // 2].astype(np.int64)
+    counts = np.zeros(Bn, dtype=np.int64)
+    counts[0::2], counts[1::2] = c2 & 0xFFFF, (c2 >> 16) & 0xFFFF
+    return counts
+
+
+def check_classify_pack(genome, packed, rlens, off, hits, unres, overflow,
+                        H2, mirrors, planes=False, pair_end=False,
+                        max_len=BUCKET):
+    """The mirror at each of `mirrors` (keyword sets of
+    mirror_classify_pack), the wrapper's plain composition and the
+    reference: the whole packed vector and mmp of each mirror equal the
+    plain composition's; meta1, pd and mmp equal classify_reads', each
+    read's SLOW kept count (counts2) its kept hits when the reference
+    calls it SLOW; with planes, the FAST reads' plane adds equal
+    scatter_fast_evidence's. -> (the packed vector, the reference's
+    classes, kept hits a read, each mirror's stats)."""
+    Bn = packed.shape[0]
+    ctx = genome["tctx"]
+    L = ctx.seq_len // 2
+    out = torch.full((2 * Bn + 2 * H2 + Bn // 2 + Bn // 32 + 2,), -7,
+                     dtype=torch.int32)
+    pl_p = tdp.DevicePlanes.zeros(L, "cpu") if planes else None
+    mmp_p = ck.chain_classify_pack(
+        ctx, torch.from_numpy(packed), torch.from_numpy(rlens),
+        torch.from_numpy(np.asarray(off, dtype=np.int32)),
+        _torch_hits(hits, unres), torch.from_numpy(overflow), max_len, out,
+        H2, pl_p, pair_end)
+    want = out.numpy().astype(np.int64)
+    meta_w, pd_w, mmp_w, cls_w = _jax_classify(genome["jctx"], packed,
+                                               rlens, hits, unres, max_len)
+    np.testing.assert_array_equal(want[:Bn], meta_w)
+    np.testing.assert_array_equal(want[Bn:2 * Bn], pd_w)
+    np.testing.assert_array_equal(mmp_p.numpy(), mmp_w)
+    keep = np.asarray(hits["keep"], bool)
+    kept = np.bincount(np.asarray(hits["read"])[keep], minlength=Bn)
+    np.testing.assert_array_equal(
+        _decode_counts(want, Bn, H2),
+        np.where(cls_w == jcd.CLASS_SLOW, kept, 0))
+    if planes:
+        jpl = jdp.DevicePlanes.zeros(L)
+        first = (np.arange(Bn) & 1) == 0 if pair_end else np.ones(Bn, bool)
+        from mapcaller_tpu.ops.evidence import scatter_fast_evidence as jsc
+        jw = [np.asarray(x).reshape(-1) for x in jsc(
+            jpl.exact_diff, jpl.f_diff.reshape(-1), jpl.acgt.reshape(-1),
+            jnp.asarray(cls_w == jcd.CLASS_FAST), jnp.asarray(pd_w),
+            jnp.asarray(mmp_w), jnp.asarray(rlens), jnp.asarray(first),
+            L, 2 * L, sign=1)]
+        for got, w in zip((pl_p.exact_diff, pl_p.f_diff, pl_p.acgt), jw):
+            np.testing.assert_array_equal(got.numpy().reshape(-1), w)
+    stats = []
+    for kw in mirrors:
+        pl_m = _np_planes(L) if planes else None
+        got, mmp_m, st = mirror_classify_pack(
+            ctx, packed, rlens, off, hits, unres, overflow, max_len, H2,
+            pl_m, pair_end, **kw)
+        np.testing.assert_array_equal(got, want, err_msg=str(kw))
+        np.testing.assert_array_equal(mmp_m, mmp_w, err_msg=str(kw))
+        if planes:
+            for key, w in zip(("exact", "fd", "acgt"), jw):
+                np.testing.assert_array_equal(pl_m[key], w, err_msg=str(kw))
+        stats.append(st)
+    return want, cls_w, kept, stats
+
+
+KERNEL_MIRROR = dict(tile=CP_READS, group=CP_GROUP, cap=CP_HIT_CAP)
+
+
 @pytest.mark.parametrize("source,pair_end", [("synthetic", False),
                                              ("synthetic", True),
                                              ("seeds", True)])
 def test_classify_mirror_equal_plain_and_reference(genome, source, pair_end):
-    """Each read's meta1, pd, mmp and SLOW kept count, and the FAST
-    reads' plane adds, against classify_reads and scatter_fast_evidence
-    of the reference."""
+    """The classify+pack mirror at the kernel's tile, group and staging
+    capacity (tiles at random) and the plain composition: each read's
+    meta1, pd, mmp and SLOW kept count, and the FAST reads' plane adds,
+    against classify_reads and scatter_fast_evidence of the reference;
+    the whole packed vector of the mirror equal the plain one's."""
+    rng = np.random.default_rng(11 + pair_end)
     if source == "seeds":
         seeds = _seeds(genome)
         scan = ck.chain_scan_seeds(seeds[4], seeds[0], 2 * B)
-        off_t = scan.off
         th = ck.chain_hits(genome["tfm0"], scan, *seeds[:5], 2 * B, 6)
-        off = off_t.numpy()
+        off = scan.off.numpy()
         hits = {k: getattr(th, k).numpy() for k in
                 ("read", "rpos", "len", "loc", "valid", "keep")}
-        unres = th.unresolved.numpy()
+        unres, overflow = th.unresolved.numpy(), seeds[5].numpy()
     else:
         off, hits, unres = _synthetic_hits(genome, 5 + pair_end)
-        th = _torch_hits(hits, unres)
-        off_t = torch.from_numpy(off)
-    L = genome["tctx"].seq_len // 2
-    pl_m = _np_planes(L)
-    meta_m, pd_m, mmp_m, slow_m = mirror_classify(
-        genome["tctx"], genome["packed"], genome["rlens"], off, hits, unres,
-        BUCKET, pl_m, pair_end)
-    out = torch.zeros(2 * B, dtype=torch.int32)
-    pl_p = tdp.DevicePlanes.zeros(L, "cpu")
-    mmp_p, slow_p = ck.chain_classify(
-        genome["tctx"], torch.from_numpy(genome["packed"]),
-        torch.from_numpy(genome["rlens"]), off_t, th, BUCKET, out, pl_p,
-        pair_end)
-    meta_w, pd_w, mmp_w, cls_w = _jax_classify(genome, hits, unres)
-    for got_meta, got_pd, got_mmp in ((meta_m, pd_m, mmp_m),
-                                      (out[:B].numpy(), out[B:].numpy(),
-                                       mmp_p.numpy())):
-        np.testing.assert_array_equal(got_meta, meta_w)
-        np.testing.assert_array_equal(got_pd, pd_w)
-        np.testing.assert_array_equal(got_mmp, mmp_w)
-    kept = np.bincount(np.asarray(hits["read"])[np.asarray(hits["keep"],
-                                                           bool)],
-                       minlength=B)
-    want_slow = np.where(cls_w == jcd.CLASS_SLOW, kept, 0)
-    np.testing.assert_array_equal(slow_m, want_slow)
-    np.testing.assert_array_equal(slow_p.numpy(), want_slow)
-    jpl = jdp.DevicePlanes.zeros(L)
-    first = (np.arange(B) & 1) == 0 if pair_end else np.ones(B, bool)
-    from mapcaller_tpu.ops.evidence import scatter_fast_evidence as jscatter
-    exact, fd, acgt = jscatter(
-        jpl.exact_diff, jpl.f_diff.reshape(-1), jpl.acgt.reshape(-1),
-        jnp.asarray(cls_w == jcd.CLASS_FAST), jnp.asarray(pd_w),
-        jnp.asarray(mmp_w), jnp.asarray(genome["rlens"]), jnp.asarray(first),
-        L, 2 * L, sign=1)
-    for key, want, got in (("exact", exact, pl_p.exact_diff),
-                           ("fd", fd, pl_p.f_diff), ("acgt", acgt,
-                                                     pl_p.acgt)):
-        np.testing.assert_array_equal(pl_m[key], np.asarray(want))
-        np.testing.assert_array_equal(got.numpy().reshape(-1),
-                                      np.asarray(want))
-    cls_m = meta_m & 3
+        overflow = rng.random(B) < 0.05
+    _, cls_w, kept, _ = check_classify_pack(
+        genome, genome["packed"], genome["rlens"], off, hits, unres,
+        overflow, B, [KERNEL_MIRROR], planes=True, pair_end=pair_end)
     # the cases the batch must reach
-    assert {0, 1, 2} <= set(cls_m.tolist())
-    assert (cls_m == tcd.CLASS_FAST).sum() > 0 and np.asarray(exact).any()
+    assert {0, 1, 2} <= set(cls_w.tolist())
     if source == "synthetic":
         assert (kept > tcd.K_HITS).any() and unres.any()
-        assert ((mmp_w >= 0).sum(1) == tcd.MM_SLOTS).any()
 
 
 def test_window_ties_equal_reference(genome):
     """Two kept hits with equal (pd, rpos) and different lengths, after a
     hit that sorts before them: the window's outputs equal the
-    reference's."""
+    reference's, at the kernel's group and at a group of 1."""
     off = np.zeros(B + 1, dtype=np.int32)
     off[1:] = 3
     hits = {"read": np.zeros(3, np.int64), "rpos": np.array([20, 20, 0]),
             "len": np.array([30, 50, 10]), "loc": np.array([520, 520, 500]),
             "keep": np.ones(3, bool), "valid": np.ones(3, bool)}
     unres = np.zeros(B, bool)
-    meta_m, pd_m, _, _ = mirror_classify(
-        genome["tctx"], genome["packed"], genome["rlens"], off, hits, unres,
-        BUCKET)
-    meta_w, pd_w, _, _ = _jax_classify(genome, hits, unres)
-    np.testing.assert_array_equal(meta_m, meta_w)
-    np.testing.assert_array_equal(pd_m, pd_w)
-    assert pd_w[0] == 500 and (meta_w[0] >> 17) & 0x1FF == 90
+    got, _, _, _ = check_classify_pack(
+        genome, genome["packed"], genome["rlens"], off, hits, unres, unres,
+        8, [KERNEL_MIRROR, dict(KERNEL_MIRROR, group=1)])
+    assert got[B] == 500 and (got[0] >> 17) & 0x1FF == 90
+
+
+@pytest.mark.parametrize("order,group,cap,tile", [
+    ("in_order", CP_GROUP, CP_HIT_CAP, CP_READS),
+    ("aggregates_first", CP_GROUP, 64, 32),
+    ("random", 1, 48, 96),
+    ("random", CP_GROUP, 48, CP_READS),
+    ("many_tiles", CP_GROUP, 40, 32)])
+def test_classify_pack_mirror_schedules(genome, order, group, cap, tile):
+    """The mirror with tiles published in ticket order, every aggregate
+    first and at random, groups of the kernel's lanes and of 1 lane, the
+    kernel's staging capacity and small ones that take a tile's hits in
+    several chunks (restaged for the pack), whole and ragged last tiles
+    (256 reads in tiles of 96): equal to the plain composition and the
+    reference. many_tiles: five copies of the batch (1,280 reads) in 40
+    tiles, aggregates first, so some look-backs read windows of
+    aggregates only."""
+    off, hits, unres = _synthetic_hits(genome, 7)
+    packed, rlens = genome["packed"], genome["rlens"]
+    overflow = np.random.default_rng(3).random(B) < 0.05
+    if order == "many_tiles":
+        n = 5
+        H = len(hits["read"])
+        counts = np.diff(np.minimum(off, H))
+        hits = {k: np.tile(np.asarray(v), n) for k, v in hits.items()}
+        hits["read"] = np.repeat(np.arange(n * B), np.tile(counts, n))
+        off = np.concatenate([[0], np.cumsum(np.tile(counts, n))])
+        packed, rlens = np.tile(packed, (n, 1)), np.tile(rlens, n)
+        unres, overflow = np.tile(unres, n), np.tile(overflow, n)
+        order = "aggregates_first"
+    _, _, _, stats = check_classify_pack(
+        genome, packed, rlens, off, hits, unres, overflow, 2 * B,
+        [dict(tile=tile, group=group, cap=cap, order=order)])
+    st = stats[0]
+    ntiles = -(-packed.shape[0] // tile)
+    assert st["prefix"] == ntiles - 1
+    if cap < CP_HIT_CAP:
+        assert st["chunks"] > ntiles and st["restaged"] > 0
+    else:
+        assert st["chunks"] == ntiles and st["restaged"] == 0
+    if ntiles > LOOKBACK:
+        assert st["aggregates"] > 0
+
+
+def _long_reads(genome, Bn=64, max_len=496, seed=2):
+    """Bn reads of up to max_len bases from chr1 (a few with 6-12
+    substitutions), their rlens, and hits along each read's own diagonal:
+    8 seeds, spread or overlapping."""
+    rng = np.random.default_rng(seed)
+    codes = genome["idx"].ref.fwd_rc_codes()
+    mat = np.zeros((Bn, max_len), dtype=np.uint8)
+    rlens = rng.integers(max_len - 60, max_len + 1, size=Bn).astype(np.int32)
+    rlens[:2] = (max_len, 0)
+    per = {k: [] for k in ("rpos", "len", "loc", "keep")}
+    counts = np.zeros(Bn, dtype=np.int64)
+    for b in range(Bn):
+        ln = int(rlens[b])
+        p = int(rng.integers(0, L1 - max_len - 1))
+        r = codes[p:p + ln].copy()
+        if b % 4 == 1 and ln:
+            for j in rng.choice(ln, size=int(rng.integers(6, 13))):
+                r[j] = (r[j] + 1) % 4
+        mat[b, :ln] = r
+        k = 8 if ln else 0
+        for j in range(k):
+            rp = min(j * (ln // 8) + int(rng.integers(0, 5)), ln - 1)
+            sl = int(rng.integers(20, 70)) if b % 2 else int(
+                rng.integers(5, ln // 8 - 4))
+            per["rpos"].append(rp)
+            per["len"].append(sl)
+            per["loc"].append(p + rp)
+            per["keep"].append(True)
+        counts[b] = k
+    hits = {k: np.asarray(v) for k, v in per.items()}
+    hits.update(read=np.repeat(np.arange(Bn), counts),
+                valid=np.ones(int(counts.sum()), dtype=bool))
+    off = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    return _pack(mat), rlens, off, hits
+
+
+@pytest.mark.parametrize("case", ["ragged_last_tile", "both_buffers_overflow",
+                                  "rlen_0", "more_than_8_kept",
+                                  "more_than_4_mismatches", "most_gaps",
+                                  "max_len_496"])
+def test_classify_pack_edge_cases(genome, case):
+    """Each edge the kernel must meet, in the mirror at the kernel's
+    sizes and at a group of 1 lane with a 32-hit staging capacity in
+    128-read tiles, the plain composition and the reference: 160 reads
+    (a tile cut short; at 128-read tiles a last tile of 32), the total
+    raw hits above H and the total kept above H2, reads
+    of length 0, more than 8 kept hits, more than 4 mismatches, the 9
+    gaps an 8-hit window allows (the gap walk itself past 10 gaps:
+    test_gap_walk_equal_plain_gaps), and 496-base reads (31 words a read,
+    4 a lane)."""
+    mirrors = [KERNEL_MIRROR, dict(group=1, cap=32, tile=128)]
+    off, hits, unres = _synthetic_hits(genome, 13)
+    packed, rlens, max_len = genome["packed"], genome["rlens"], BUCKET
+    overflow = np.zeros(B, bool)
+    H2 = 2 * B
+    if case == "ragged_last_tile":
+        Bn = 160
+        H = min(int(off[Bn]), len(hits["read"]))
+        hits = {k: np.asarray(v)[:H] for k, v in hits.items()}
+        off, packed, rlens = off[:Bn + 1], packed[:Bn], rlens[:Bn]
+        unres, overflow = unres[:Bn], overflow[:Bn]
+    elif case == "both_buffers_overflow":
+        H2 = 16
+    elif case == "max_len_496":
+        max_len = 496
+        packed, rlens, off, hits = _long_reads(genome)
+        unres = overflow = np.zeros(packed.shape[0], bool)
+    got, cls_w, kept, _ = check_classify_pack(
+        genome, packed, rlens, off, hits, unres, overflow, H2, mirrors,
+        planes=True, max_len=max_len)
+    Bn = packed.shape[0]
+    mm = (got[:Bn] >> 2) & 0x3F
+    reached = {
+        "ragged_last_tile": Bn % CP_READS != 0,
+        "both_buffers_overflow": (got[-1] == 1 and got[-2] > H2
+                                  and off[-1] > len(hits["read"])),
+        "rlen_0": (rlens == 0).any(),
+        "more_than_8_kept": (kept > tcd.K_HITS).any(),
+        "more_than_4_mismatches": (mm > tcd.MM_SLOTS).any(),
+        "most_gaps": max(_gaps(got, Bn, i, genome, packed, rlens, hits,
+                               max_len) for i in range(Bn)) == 9,
+        "max_len_496": ((cls_w == tcd.CLASS_FAST).any()
+                        and (mm > tcd.MM_SLOTS).any()),
+    }
+    assert reached[case]
+
+
+def _gaps(got, Bn, b, genome, packed, rlens, hits, max_len):
+    """The number of uncovered runs along read b's diagonal in [0, rlen)
+    (its window's same-diagonal spans as the kernel sees them)."""
+    keep = np.asarray(hits["keep"], bool)
+    rows = np.flatnonzero((np.asarray(hits["read"]) == b) & keep)[:8]
+    pd0 = int(got[Bn + b])
+    cov = np.zeros(max_len, bool)
+    for h in rows:
+        rp = int(hits["rpos"][h])
+        if int(hits["loc"][h]) - rp == pd0:
+            cov[rp:rp + int(hits["len"][h])] = True
+    unc = ~cov[:int(rlens[b])]
+    return int((unc & np.concatenate([[True], ~unc[:-1]])).sum())
 
 
 @pytest.mark.parametrize("seed", range(4))
@@ -1046,8 +1316,9 @@ def test_chain_dispatch_equal_reference(genome, monkeypatch, full_sa, tier,
                               torch.from_numpy(genome["rlens"]),
                               planes=planes, pair_end=pair_end)
     pl_m = _np_planes(L) if fold else None
-    m_dev, m_pd, m_mmp = mirror_chain(genome, _seeds(genome), tfm, kern.H,
-                                      kern.H2, pl_m, pair_end, walk)
+    m_dev, m_pd, m_mmp, _ = mirror_chain(genome, _seeds(genome), tfm,
+                                         kern.H, kern.H2, pl_m, pair_end,
+                                         walk)
     for got in ((g_dev.numpy(), g_pd.numpy(), g_mmp.numpy()),
                 (m_dev, m_pd, m_mmp)):
         np.testing.assert_array_equal(got[0], np.asarray(w_dev))
@@ -1077,8 +1348,25 @@ def test_constants_equal_cuda_source():
                         ("PD_EMPTY", tcd.INT32_MAX),
                         ("SCAN_THREADS", ck.SCAN_THREADS),
                         ("SCAN_MAX_S", ck.SCAN_MAX_S),
-                        ("HITS_GROUP", ck.HITS_GROUP)):
+                        ("HITS_GROUP", ck.HITS_GROUP),
+                        ("CP_READS", ck.CP_READS),
+                        ("CP_HIT_CAP", ck.CP_HIT_CAP)):
         assert _cu_const(name) == value, name
+    # classify+pack: window slots split evenly over a group's lanes, an
+    # overflow word a warp of reads, blocks of at most 1,024 threads; its
+    # dynamic shared memory (cp_smem_bytes) fits the 48 KB a block gets
+    # without opting in at the main path's max_len 128, and at 496 with
+    # CP_KEY_CAP staged keys (plus ~9 KB static) two blocks fit the 228 KB
+    # of an H100 SM
+    assert tcd.K_HITS % CP_GROUP == 0 and 32 % CP_GROUP == 0
+    assert CP_READS % 32 == 0 and CP_READS * CP_GROUP <= 1024
+
+    def smem(nwords, nkeys):
+        return (4 * (3 * CP_HIT_CAP + CP_READS * nwords)
+                + 8 * (nkeys if nkeys <= CP_KEY_CAP else 0) + CP_HIT_CAP)
+    assert smem(128 // 16, 64) + 9 * 1024 <= 48 * 1024
+    assert 2 * (smem(496 // 16, CP_KEY_CAP) + 9 * 1024) <= 228 * 1024
+    assert _cu_const("CP_MAX_WORDS") == 496 // 16
     # the seed-freq scan takes every S the seed kernels make (max_len a
     # multiple of 16 below 512), and a whole tile of its rows fits the
     # 48 KB of shared memory a block gets without opting in
@@ -1135,6 +1423,16 @@ def test_cpu_dispatch_runs_plain_versions(genome, monkeypatch):
     for got, want in zip(scan, ck.chain_scan_seeds_plain(seeds[4], seeds[0],
                                                          B)):
         assert torch.equal(got, want)
+    hits = ck.chain_hits(genome["tfm"], scan, *seeds[:5], B)
+    args = (genome["tctx"], torch.from_numpy(genome["packed"]),
+            torch.from_numpy(genome["rlens"]), scan.off, hits, seeds[5],
+            BUCKET)
+    H2 = B // 2
+    outs = [torch.full((2 * B + 2 * H2 + B // 2 + B // 32 + 2,), -7,
+                       dtype=torch.int32) for _ in range(2)]
+    mmp = ck.chain_classify_pack(*args, outs[0], H2)
+    assert torch.equal(mmp, ck.chain_classify_pack_plain(*args, outs[1], H2))
+    assert torch.equal(outs[0], outs[1])
     assert sum(ck.STATS.launches.values()) == 0
 
 
@@ -1152,9 +1450,10 @@ def _valid_args(genome):
 
 @pytest.mark.parametrize("bad", [
     "scan_dtype", "scan_n_shape", "scan_3d", "scan_counts_2d", "hits_dtype",
-    "hits_off", "hits_start", "hits_devices", "classify_rlens",
-    "classify_packed", "classify_hits", "classify_planes", "classify_device",
-    "pack_out", "pack_batch", "pack_overflow"])
+    "hits_off", "hits_start", "hits_devices", "classify_pack_rlens",
+    "classify_pack_packed", "classify_pack_hits", "classify_pack_off",
+    "classify_pack_planes", "classify_pack_device", "classify_pack_out",
+    "classify_pack_batch", "classify_pack_overflow"])
 def test_wrapper_refusals(genome, bad):
     seeds, scan, hits, packed, rlens, out, H2 = _valid_args(genome)
     off = scan.off
@@ -1181,30 +1480,33 @@ def test_wrapper_refusals(genome, bad):
         "hits_devices": (ValueError, lambda: ck.chain_hits(
             fm, scan, meta.to(torch.int64), s_rpos, s_len, s_x0, s_freq,
             2 * B)),
-        "classify_rlens": (TypeError, lambda: ck.chain_classify(
-            ctx, packed, rlens.to(torch.int64), off, hits, BUCKET, out)),
-        "classify_packed": (ValueError, lambda: ck.chain_classify(
-            ctx, packed[:, :-4], rlens, off, hits, BUCKET, out)),
-        "classify_hits": (TypeError, lambda: ck.chain_classify(
-            ctx, packed, rlens, off, hits._replace(keep=hits.keep.to(
-                torch.uint8)), BUCKET, out)),
-        "classify_planes": (ValueError, lambda: ck.chain_classify(
-            ctx, packed, rlens, off, hits, BUCKET, out,
-            tdp.DevicePlanes.zeros(100, "cpu"))),
-        "classify_device": (ValueError, lambda: ck.chain_classify(
-            ctx, packed.to("meta"), rlens.to("meta"), off.to("meta"),
-            ck.Hits(*(t.to("meta") for t in hits)), BUCKET, out.to("meta"))),
-        "pack_out": (ValueError, lambda: ck.chain_pack(
-            off, off, hits, torch.zeros(B, dtype=torch.int32), overflow,
-            out[:-1], H2)),
-        "pack_batch": (ValueError, lambda: ck.chain_pack(
-            off[:B - 15], off[:B - 15], hits._replace(
-                unresolved=hits.unresolved[:B - 16]),
-            torch.zeros(B - 16, dtype=torch.int32), overflow[:B - 16], out,
+        "classify_pack_rlens": (TypeError, lambda: ck.chain_classify_pack(
+            ctx, packed, rlens.to(torch.int64), off, hits, overflow, BUCKET,
+            out, H2)),
+        "classify_pack_packed": (ValueError, lambda: ck.chain_classify_pack(
+            ctx, packed[:, :-4], rlens, off, hits, overflow, BUCKET, out,
             H2)),
-        "pack_overflow": (TypeError, lambda: ck.chain_pack(
-            off, off, hits, torch.zeros(B, dtype=torch.int32),
-            overflow.to(torch.int32), out, H2)),
+        "classify_pack_hits": (TypeError, lambda: ck.chain_classify_pack(
+            ctx, packed, rlens, off, hits._replace(keep=hits.keep.to(
+                torch.uint8)), overflow, BUCKET, out, H2)),
+        "classify_pack_off": (ValueError, lambda: ck.chain_classify_pack(
+            ctx, packed, rlens, off[:-1], hits, overflow, BUCKET, out, H2)),
+        "classify_pack_planes": (ValueError, lambda: ck.chain_classify_pack(
+            ctx, packed, rlens, off, hits, overflow, BUCKET, out, H2,
+            tdp.DevicePlanes.zeros(100, "cpu"))),
+        "classify_pack_device": (ValueError, lambda: ck.chain_classify_pack(
+            ctx, packed.to("meta"), rlens.to("meta"), off.to("meta"),
+            ck.Hits(*(t.to("meta") for t in hits)), overflow.to("meta"),
+            BUCKET, out.to("meta"), H2)),
+        "classify_pack_out": (ValueError, lambda: ck.chain_classify_pack(
+            ctx, packed, rlens, off, hits, overflow, BUCKET, out[:-1], H2)),
+        "classify_pack_batch": (ValueError, lambda: ck.chain_classify_pack(
+            ctx, packed[:B - 16], rlens[:B - 16], off[:B - 15],
+            hits._replace(unresolved=hits.unresolved[:B - 16]),
+            overflow[:B - 16], BUCKET, out, H2)),
+        "classify_pack_overflow": (TypeError, lambda: ck.chain_classify_pack(
+            ctx, packed, rlens, off, hits, overflow.to(torch.int32), BUCKET,
+            out, H2)),
     }
     exc, call = calls[bad]
     with pytest.raises(exc):
