@@ -18,7 +18,10 @@ exits non-zero):
              lengths reach the tier's edges (for NW also the kernel's
              column chunks; for ksw2 with ~5% N bases) and on a batch that
              is not a multiple of the pairs per block, with their time,
-             the plain version's time and the bound
+             the plain version's time and the bound (ksw2: also its
+             geometry and the empty-launch floor); then ksw2 on 8,192
+             pairs at tier 192, many waves of blocks at its shared-memory
+             footprint
   small_e2e  a 20 kb planted dataset: the port on cuda and on cpu write
              byte-identical SAM and VCF, both with device evidence, and
              again on the non-native path (use_native=False)
@@ -37,9 +40,11 @@ exits non-zero):
              (compact_factor=4: 8,192 lanes of a 32,768-read batch),
              host chaining (device_chain=False) and the 1-step index (the
              backend told the occ3 table does not fit); then -alg ksw2:
-             a warm-up, which captures the tensors of its largest ksw2
-             launch, and device-DP and scalar-DP turns, each writing the
-             ksw2 warm-up's bytes. Each run counts every kernel's launches
+             a warm-up, which captures the tensors of every ksw2 launch
+             (each then held equal to the plain version; the length
+             histogram of the largest), and device-DP and scalar-DP turns,
+             each writing the ksw2 warm-up's bytes with as many ksw2
+             launches on the device-DP turns as the warm-up. Each run counts every kernel's launches
              (one seed-scan launch a batch: the occ3 kernel, or the
              1-step kernel on the 1-step run; the chain kernels once a
              batch: the seed-freq scan, the hits kernel and classify+
@@ -92,6 +97,9 @@ exits non-zero):
              aligner per pair (a ctypes loop over the pairs less the same
              loop over 1x1 pairs), and the least batch for which the
              device call would beat the scalar aligner
+  ksw2_launches  every -alg ksw2 launch of the main path's warm-up equal
+             to the plain version, and the largest launch's pairs by
+             their longer side in bins of 16
 Then the kernel table line ({"kernels": [...]}, the DP kernels timed on
 their main path's own captured pairs and on random pairs of the same
 shape, the scan and chain kernels on their main path's own batch 0),
@@ -317,7 +325,9 @@ def equal_ksw2(k, args):
     words. Returns the max abs difference (0)."""
     import torch
     kw = k.ksw2_ops(*args)
-    pw = k.ksw2_ops_plain(*args)
+    # the plain version holds B x (M+N-1) x NC flags: 2,048 pairs at a time
+    pw = torch.cat([k.ksw2_ops_plain(*(a[i:i + 2048] for a in args))
+                    for i in range(0, args[0].shape[0], 2048)])
     torch.cuda.synchronize()
     err = int((kw.long() - pw.long()).abs().max())
     if err != 0 or not torch.equal(kw, pw):
@@ -327,17 +337,24 @@ def equal_ksw2(k, args):
     return err
 
 
-def measure_ksw2(k, args, reps):
-    """As measure_nw, for the ksw2 kernel."""
+def measure_ksw2(k, args, reps, plain=True):
+    """As measure_nw, for the ksw2 kernel, with its geometry (chunk, pairs
+    a block, shared memory a block) and the floor: an empty launch timed
+    alike. plain=False skips the plain version's time (its words are
+    still compared)."""
+    import torch
     B, M = args[0].shape
     N = args[1].shape[1] - 16
     err = equal_ksw2(k, args)
     ms = cuda_ms(lambda: k.ksw2_ops(*args), reps, queued=True)
     call_ms = cuda_ms(lambda: k.ksw2_ops(*args), reps)
-    plain_ms = cuda_ms(lambda: k.ksw2_ops_plain(*args), 3, warmup=1)
+    plain_ms = (cuda_ms(lambda: k.ksw2_ops_plain(*args), 3, warmup=1)
+                if plain else None)
+    floor_ms = cuda_ms(lambda: torch.cuda._sleep(0), reps, queued=True)
     bound, by = ksw2_bound_ms(*args)
     return dict(B=B, M=M, N=N, cells=ksw2_cells(args[2], args[3]),
-                max_abs_err=err, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                geometry=k.ksw2_geometry(M, N), max_abs_err=err, ms=ms,
+                call_ms=call_ms, plain_ms=plain_ms, floor_ms=floor_ms,
                 bound_ms=bound, bound_by=by, share_of_bound=bound / ms)
 
 
@@ -1207,6 +1224,8 @@ def run_main_path(work, card):
 
     def tap_ksw2(qbuf, tgt, qlen, tlen):
         keep_largest("ksw2", (qbuf, tgt, qlen, tlen))
+        captured.setdefault("ksw2_all", []).append(
+            tuple(x.clone() for x in (qbuf, tgt, qlen, tlen)))
         return ksw2_ops(qbuf, tgt, qlen, tlen)
 
     def tap_pairs(alg, align):
@@ -1463,6 +1482,9 @@ def run_main_path(work, card):
     ok = (all(t["launches"] > 0 and t["pairs"] > 0 for t in nw_dp)
           and all(t["ksw2_launches"] > 0 and t["ksw2_pairs"] > 0
                   for t in ksw2_dp)
+          and all(t["ksw2_launches"] == kwarm["ksw2_launches"]
+                  and t["ksw2_pairs"] == kwarm["ksw2_pairs"] for t in kdev)
+          and len(captured["ksw2_all"]) == kwarm["ksw2_launches"]
           and all(t["launches"] == 0 for t in everything
                   if all(t is not x for x in [warm, auto] + nw_dp))
           and all(t["ksw2_launches"] == 0 for t in everything
@@ -1606,6 +1628,25 @@ def run_evidence(cap, card, reps=50):
          equal_to_cpu=True, steps=steps)
 
 
+def run_ksw2_launches(k, launches, card):
+    """Every -alg ksw2 launch of the main path's warm-up against the plain
+    version, word for word, and the length histogram of the largest:
+    pairs by max(qlen, tlen) in bins of 16 (the longest pair sets a
+    launch's time)."""
+    import numpy as np
+    errs = [equal_ksw2(k, args) for args in launches]
+    big = max(launches, key=lambda a: a[0].shape[0])
+    longest = np.maximum(big[2].cpu().numpy(), big[3].cpu().numpy())
+    counts = np.bincount((longest - 1) // 16)
+    emit("ksw2_launches", card=card, launches=len(launches),
+         equal=len(errs), max_abs_err=max(errs),
+         shapes=[f"{a[0].shape[0]}x{a[0].shape[1]}x{a[1].shape[1] - 16}"
+                 for a in launches],
+         largest_max_len_histogram={f"{16 * i + 1}-{16 * i + 16}": int(c)
+                                    for i, c in enumerate(counts) if c},
+         largest_longest_pair=int(longest.max()))
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1633,9 +1674,18 @@ def main():
              (("libchain.so", "chain_classify_pack_kernel"), 1))
     reports = {kernel: ptxas_report(outputs.get(lib, ""), kernel)
                for (lib, kernel), _ in gated}
+    # ksw2 takes all its shared memory dynamically (ptxas reports 0):
+    # each tier's geometry and the pairs an SM holds at it
+    ksw2_geo = {}
+    for tier in TIERS:
+        geo = ksw2_device.ksw2_geometry(tier, tier)
+        ksw2_geo[str(tier)] = dict(
+            zip(("chunk", "pairs_a_block", "smem_bytes"), geo),
+            pairs_an_sm=ksw2_device.ksw2_resident_pairs(*geo))
     emit("build", seconds=time.time() - t0,
          nvcc=" ".join(toolchain.NVCC_FLAGS),
-         libs=sorted(os.listdir(toolchain.BUILD_DIR)), **reports)
+         libs=sorted(os.listdir(toolchain.BUILD_DIR)),
+         ksw2_geometry=ksw2_geo, **reports)
     for (lib, kernel), n in gated:
         rep = reports[kernel]
         if len(rep) != n or any(
@@ -1652,6 +1702,15 @@ def main():
         emit("kernels", kernel="nw", card=card, **r)
         r = check_ksw2(ksw2_device, B, tier, seed=tier, reps=50)
         emit("kernels", kernel="ksw2", card=card, **r)
+    # ksw2 past one wave: 8,192 pairs at tier 192
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    wave = sms * ksw2_geo["192"]["pairs_an_sm"]
+    r = measure_ksw2(ksw2_device, ksw2_inputs(8192, 192, seed=8192), 20,
+                     plain=False)
+    if r["B"] <= wave:
+        raise AssertionError(f"ksw2: 8,192 pairs fit one wave ({wave})")
+    emit("kernels", kernel="ksw2", card=card, batch="multi-wave",
+         pairs_a_wave=wave, waves=r["B"] / wave, **r)
 
     os.makedirs(toolchain.BUILD_DIR, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=toolchain.BUILD_DIR) as work:
@@ -1659,6 +1718,7 @@ def main():
         launches, own, cap = run_main_path(work, card)
     run_evidence(cap, card)
     run_dp_rates({alg: cap["pairs_" + alg] for alg in ("nw", "ksw2")}, card)
+    run_ksw2_launches(ksw2_device, cap["ksw2_all"], card)
 
     # the kernel table: each kernel on its main path's largest launch's
     # own pairs, and on random pairs at the same shape
@@ -1682,6 +1742,8 @@ def main():
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None, "tolerance": 0,
+            "call_ms": r["call_ms"], "share_of_bound": r["share_of_bound"],
+            **({k: r[k] for k in ("floor_ms", "geometry") if k in r}),
             "shape": f"{B}x{M}x{r['N']}, the main path's own pairs of its "
                      f"largest launch; 'random' holds random pairs at that "
                      f"shape",

@@ -15,15 +15,17 @@ ops come back as 2-bit codes (0=M, 1=D, 2=I, 3=past the start) packed 16
 per 32-bit word, little end first.
 
 `ksw2_ops` is the one entry point on tensors. On a CUDA tensor it
-launches the hand-written kernel (fill and backtrack in one launch) or
-raises; on a CPU tensor it runs `ksw2_ops_plain`, the same function in
-PyTorch tensor ops: one vectorised step per diagonal, then one per
-backtrack step.
+launches the hand-written kernel (fill and backtrack in one launch, the
+direction flags in shared memory, nothing allocated but the words; its
+launch geometry from `ksw2_geometry`) or raises; on a CPU tensor it runs
+`ksw2_ops_plain`, the same function in PyTorch tensor ops: one vectorised
+step per diagonal, then one per backtrack step.
 """
 from __future__ import annotations
 
 import collections
 import ctypes as C
+import functools
 from typing import List, Tuple
 
 import numpy as np
@@ -37,10 +39,13 @@ _QE = _Q + _E
 _QE2 = 2 * _QE
 _MAX_SC = 1 + _QE2
 _WILD = 4
-# limits of csrc/ksw2.cu: columns per lane (NC <= 32 * KERNEL_MAX_CHUNK)
-# and the query width it stages in shared memory
+# limits of csrc/ksw2.cu: lanes a pair, columns a lane holds (NC <=
+# KERNEL_GROUP * KERNEL_MAX_CHUNK), threads a block and dynamic shared
+# memory a block (the 48 KB a block gets without opting in)
+KERNEL_GROUP = 32
 KERNEL_MAX_CHUNK = 8
-KERNEL_MAX_M = 256
+KERNEL_MAX_THREADS = 128
+KERNEL_MAX_SMEM = 49152
 
 
 class KernelStats:
@@ -68,8 +73,10 @@ def _load_kernel():
         from ..toolchain import ensure_cuda
         lib = C.CDLL(ensure_cuda("ksw2"))
         lib.mc_ksw2_ops.restype = C.c_int
-        lib.mc_ksw2_ops.argtypes = ([C.c_void_p] * 4 + [C.c_int] * 5
-                                    + [C.c_void_p] * 3)
+        lib.mc_ksw2_ops.argtypes = ([C.c_void_p] * 4 + [C.c_int] * 7
+                                    + [C.c_void_p] * 2)
+        lib.mc_ksw2_resident.restype = C.c_int
+        lib.mc_ksw2_resident.argtypes = [C.c_int] * 3 + [C.c_void_p]
         _lib = lib
     return _lib
 
@@ -83,6 +90,49 @@ def _bounds(qlen: int, tlen: int, r: int) -> Tuple[int, int, int, int]:
     en = min(en, r, (r + w) >> 1)
     st0, en0 = st, en
     return st0, en0, st // 16 * 16, (en + 16) // 16 * 16 - 1
+
+
+def ksw2_pair_cells(M: int, N: int) -> int:
+    """Window cells of all the diagonals of the pair (M, N), the most of
+    any pair of the tier: the flag cells of one pair."""
+    return sum(b[3] - b[2] + 1 for b in (_bounds(M, N, r)
+                                         for r in range(M + N - 1)))
+
+
+def ksw2_pair_bytes(M: int, N: int) -> int:
+    """Shared memory of one pair in csrc/ksw2.cu, each part 16-aligned: the
+    staged query, the flag rows (window-relative, back to back, a nibble
+    a cell) and their offset table of a uint16 a diagonal."""
+    up16 = lambda n: (n + 15) // 16 * 16  # noqa: E731
+    return (up16(M) + up16(ksw2_pair_cells(M, N) // 2)
+            + up16(2 * (M + N - 1)))
+
+
+@functools.lru_cache(maxsize=None)
+def ksw2_geometry(M: int, N: int) -> Tuple[int, int, int]:
+    """Launch geometry of csrc/ksw2.cu for an M x N tier: (chunk = columns
+    a lane, pairs a block, dynamic shared memory bytes). Lane l of a pair's
+    KERNEL_GROUP lanes owns the columns k * KERNEL_GROUP + l of the N + 16
+    wide state. A block holds up to KERNEL_MAX_THREADS threads, fewer
+    where the pairs' shared memory would pass KERNEL_MAX_SMEM (at tier
+    192, two pairs). Raises ValueError for what the kernel cannot take."""
+    NC = N + 16
+    if M < 1 or N < 16 or N % 16:
+        raise ValueError(f"ksw2_ops: {M}x{N} is not a tier the kernel "
+                         f"takes")
+    chunk = -(-NC // KERNEL_GROUP)
+    if chunk > KERNEL_MAX_CHUNK:
+        raise ValueError(f"ksw2_ops: N={N} outside the kernel's limits "
+                         f"(N + 16 <= {KERNEL_GROUP * KERNEL_MAX_CHUNK})")
+    per_pair = ksw2_pair_bytes(M, N)
+    pairs = KERNEL_MAX_THREADS // KERNEL_GROUP
+    while pairs > 1 and pairs * per_pair > KERNEL_MAX_SMEM:
+        pairs -= 1
+    smem = pairs * per_pair
+    if smem > KERNEL_MAX_SMEM:
+        raise ValueError(f"ksw2_ops: {M}x{N} needs {smem} B of shared "
+                         f"memory a block (at most {KERNEL_MAX_SMEM})")
+    return chunk, pairs, smem
 
 
 def _backtrack_abs(p: np.ndarray, qlen: int, tlen: int) -> str:
@@ -252,6 +302,18 @@ def ksw2_ops_plain(qbuf: torch.Tensor, target: torch.Tensor,
                                 qlen, tlen, M, N)
 
 
+def ksw2_resident_pairs(chunk: int, pairs: int, smem: int) -> int:
+    """Pairs that one SM of the current card holds at once at a launch
+    geometry (ksw2_geometry's tuple): blocks resident x pairs a block. A
+    launch of more than this times the SM count runs in waves."""
+    blocks = C.c_int(0)
+    err = _load_kernel().mc_ksw2_resident(chunk, pairs, smem,
+                                          C.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"ksw2_resident_pairs: CUDA error {err}")
+    return blocks.value * pairs
+
+
 def _check(qbuf, target, qlen, tlen) -> None:
     if qbuf.dim() != 2 or target.dim() != 2 or qlen.dim() != 1 \
             or tlen.dim() != 1:
@@ -292,11 +354,7 @@ def ksw2_ops(qbuf: torch.Tensor, target: torch.Tensor, qlen: torch.Tensor,
     B, M = qbuf.shape
     NC = target.shape[1]
     N = NC - 16
-    chunk = -(-NC // 32)
-    if chunk > KERNEL_MAX_CHUNK or M > KERNEL_MAX_M:
-        raise ValueError(f"ksw2_ops: {M}x{N} is outside the kernel's "
-                         f"limits (M <= {KERNEL_MAX_M}, "
-                         f"NC <= {32 * KERNEL_MAX_CHUNK})")
+    chunk, pairs, smem = ksw2_geometry(M, N)
     dev = qbuf.device
     qbuf = qbuf.contiguous()
     target = target.contiguous()
@@ -305,16 +363,12 @@ def ksw2_ops(qbuf: torch.Tensor, target: torch.Tensor, qlen: torch.Tensor,
     words = torch.empty((B, (M + N + 15) // 16), dtype=torch.int32, device=dev)
     if B == 0:
         return words
-    # flags of the diagonals each pair needs, at absolute (diagonal,
-    # column) places; never read outside them, so not cleared
-    scratch = torch.empty(B * (M + N - 1) * NC, dtype=torch.uint8, device=dev)
     lib = _load_kernel()
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.profiler.record_function("ksw2_kernel"):
         err = lib.mc_ksw2_ops(qbuf.data_ptr(), target.data_ptr(),
                               qlen.data_ptr(), tlen.data_ptr(), B, M, N, NC,
-                              chunk, scratch.data_ptr(), words.data_ptr(),
-                              stream)
+                              chunk, pairs, smem, words.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"ksw2_ops: CUDA kernel launch failed (error "
                            f"{err})")
