@@ -39,7 +39,9 @@ exits non-zero):
              writing the warm-up's SAM and VCF bytes: lane compaction
              (compact_factor=4: 8,192 lanes of a 32,768-read batch),
              host chaining (device_chain=False) and the 1-step index (the
-             backend told the occ3 table does not fit); then -alg ksw2:
+             backend told the occ3 table does not fit); then the scale
+             axes on this one card (devices and shards below); then
+             -alg ksw2:
              a warm-up, which captures the tensors of every ksw2 launch
              (each then held equal to the plain version; the length
              histogram of the largest), and device-DP and scalar-DP turns,
@@ -86,6 +88,31 @@ exits non-zero):
              equal to the plain version; then the 1-step run's batches
              replayed without the full SA (the inverse-Psi walk), equal
              too, batch 0's walk timed
+  devices    the main path with -devices 2 on [cuda:0] * 2 through the
+             stream (two replicas, each on a stream of its own, planes
+             per replica summed once), writing the warm-up's bytes: each
+             replica's batches, launches, prefix-skip depth K and whether
+             its planes fit, and the peak memory; and a race: batch 0's
+             and batch 1's seed-freq scan and classify+pack launched 200
+             times each on two streams, interleaved, every result equal
+             to the plain version, each stream with its own look-back
+             scratch
+  shards     the main path with -shards 2 and -shards 4 on [cuda:0] * n,
+             writing the warm-up's bytes, every batch through the sharded
+             stage (sharded_invocations) with the routed scan and hits
+             kernels once a shard a batch and their unrouted forms never,
+             and every one of those launches (B / n reads, its own hit
+             capacity) equal in every word to its plain routed version;
+             then the first launch of each run (shard 0 of batch 0)
+             replayed: equal to the stream's launch, to the plain routed
+             versions and to the unrouted kernels' outputs (the hits also
+             by the sharded inverse-Psi walk), timed beside the unrouted
+             kernels on the same work, with the bound; and the whole
+             sharded stage by the walk (no full SA) on batch 0, equal to
+             one card's walk stage, every read that differs from the
+             full-SA stage flagged for the host oracle; the device bytes
+             of placing the occ3 shards, built a shard at a time against
+             the whole table built and then split
   evidence   device ms (queued launches) of the evidence apply of one
              batch, the finalize fold, the caller scan and the column
              fetch on the warm-up's own planes and inputs, each equal to
@@ -102,7 +129,8 @@ exits non-zero):
              their longer side in bins of 16
 Then the kernel table line ({"kernels": [...]}, the DP kernels timed on
 their main path's own captured pairs and on random pairs of the same
-shape, the scan and chain kernels on their main path's own batch 0),
+shape, the scan and chain kernels on their main path's own batch 0, the
+routed ones on shard 0 of it under -shards 2, as the run launched them),
 the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}.
 
@@ -868,6 +896,7 @@ def run_chain(ck, batches, card, reps=50):
          calls_equal=len(errs), max_abs_err=max(errs), dense_batch=dense,
          main_path_batch0=own)
     run_chain_race(ck, batches, card)
+    run_stream_race(ck, batches, card)
     return own
 
 
@@ -933,6 +962,63 @@ def run_chain_race(ck, batches, card, launches=200):
     emit("chain", card=card, race=res)
 
 
+def run_stream_race(ck, batches, card, launches=200):
+    """Two replicas of -devices on one card, each issuing on a stream of
+    its own: the seed-freq scan and classify+pack of batch 0 (replica A)
+    and of batch 1 (replica B) launched `launches` times each, A and B
+    interleaved, every result equal to its plain version. Each stream
+    has its own look-back scratch and epochs (ops/chain_kernels.
+    _scratch_key); with one scratch for the card the two streams' tiles
+    would read each other's status words."""
+    import torch
+    replicas = []
+    for k, p, r, _ in batches[:2]:
+        seeds, scan, hits, out, mmp = chain_run(ck, k, p, r)
+        want_scan = ck.chain_scan_seeds_plain(seeds[4], seeds[0], k.H)
+        want_out = torch.empty_like(out)
+        want_mmp = ck.chain_classify_pack_plain(
+            k.ctx, p, r, want_scan.off, hits, seeds[5], k.max_len, want_out,
+            k.H2)
+        replicas.append((k, p, r, seeds, hits, want_scan, want_out,
+                         want_mmp))
+    dev = batches[0][1].device
+    streams = [torch.cuda.Stream(device=dev) for _ in replicas]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream(dev))
+    got = [[] for _ in replicas]
+    for _ in range(launches):
+        for s, g, (k, p, r, seeds, hits, *_w) in zip(streams, got, replicas):
+            with torch.cuda.stream(s):
+                sc = ck.chain_scan_seeds(seeds[4], seeds[0], k.H)
+                out = torch.empty(2 * k.batch + 2 * k.H2 + k.batch // 2
+                                  + k.batch // 32 + 2, dtype=torch.int32,
+                                  device=dev)
+                mmp = ck.chain_classify_pack(k.ctx, p, r, sc.off, hits,
+                                             seeds[5], k.max_len, out, k.H2)
+                g.append((sc, out, mmp))
+    torch.cuda.synchronize()
+    bad = {}
+    for name, g, (*_i, want_scan, want_out, want_mmp) in zip(
+            "AB", got, replicas):
+        bad[name] = dict(
+            chain_scan_seeds=sum(not all(map(torch.equal, sc, want_scan))
+                                 for sc, _, _ in g),
+            chain_classify_pack=sum(not (torch.equal(o, want_out)
+                                         and torch.equal(m, want_mmp))
+                                    for _, o, m in g))
+    scratches = len({key for key in ck._scan_scratch
+                     if key[0] == dev and key[1] in
+                     {s.cuda_stream for s in streams}})
+    emit("devices", card=card, race=dict(
+        streams=len(streams), launches_each=launches, unequal=bad,
+        scratches_of_the_streams=scratches,
+        reads=[int(x[0].batch) for x in replicas]))
+    if any(v for b in bad.values() for v in b.values()) or scratches != 2:
+        raise AssertionError(f"two-stream race: results that differ from "
+                             f"the plain version {bad}, or the streams "
+                             f"shared a look-back scratch ({scratches})")
+
+
 def run_chain_walk(ck, batches, card, reps=20):
     """The 1-step run's batches replayed with the full SA withheld, so the
     hits kernel walks inverse-Psi: each chain stage equal to its plain
@@ -966,6 +1052,387 @@ def run_chain_walk(ck, batches, card, reps=20):
     emit("chain", card=card, one_step_batches_equal_without_full_sa=len(errs),
          max_abs_err=max(errs), unresolved_reads=unresolved,
          walk_batch0=walk)
+
+
+def backend_facts(be):
+    """What a devices or shards run records of its backend: each
+    replica's device, batches, prefix-skip depth K and whether its planes
+    fit; or the shard devices, the occ3 rows a shard and the sharded
+    dispatches."""
+    if getattr(be, "is_multi_device", False):
+        return dict(replicas=[dict(device=str(d), batches=n, pfx_k=b.pfx_k,
+                                   device_evidence_ok=b.device_evidence_ok)
+                              for d, n, b in zip(be.devs, be.batches,
+                                                 be.bes)])
+    sfm3s = be._sharded[0] if be._sharded else {}
+    occ3 = next(iter(sfm3s.values())).occ3 if sfm3s else None
+    return dict(index_shards=be.index_shards,
+                shard_devices=[str(d) for d in be.shard_devs],
+                occ3_rows_a_shard=occ3.per if occ3 else None,
+                sharded_invocations=be.sharded_invocations,
+                n_tier_reruns=be.n_tier_reruns)
+
+
+def run_scale_axes(run, check, card):
+    """The main path with -devices 2 (two replicas on this card, each on a
+    stream of its own, evidence planes per replica summed once) and with
+    -shards 2 and 4 (the occ3 rows and the SA split over shards on this
+    card, every batch's reads split over the shards and mapped by the
+    routed kernels), each writing the warm-up's bytes. The devices run
+    counts each replica's batches and kernel launches; the shards runs
+    launch the routed scan and hits kernels once a shard a batch and
+    their unrouted forms never, and every one of those launches (its
+    shard's B / n reads, its own hit capacity H) is held equal in every
+    word to its plain routed version. The copies of a run's launches count
+    in that run's peak memory, and the -shards 4 run's peak also holds
+    the first -shards 2 launch's tables. -> (the devices run, the shards
+    runs, {n: the shards run's first launch})."""
+    import collections
+    import torch
+    from mapcaller_tpu_torch.ops import chain_kernels as ck
+    from mapcaller_tpu_torch.ops import seed_scan_device as ssd
+    from mapcaller_tpu_torch.parallel.devices import MultiDeviceBackend
+    from mapcaller_tpu_torch.parallel.sharded_index import ShardChainKernel
+    from mapcaller_tpu_torch.pipeline.device_backend import DeviceBackend
+    cuda0 = torch.device("cuda", 0)
+
+    def total():
+        return (sum(ssd.STATS.launches.values())
+                + sum(ck.STATS.launches.values()))
+
+    per = collections.Counter()
+    submit = MultiDeviceBackend.submit_chain
+
+    def tap(self, *a, **kw):
+        i, before = self._rr, total()
+        tok = submit(self, *a, **kw)
+        per[i] += total() - before
+        return tok
+
+    MultiDeviceBackend.submit_chain = tap
+    try:
+        multi = check(run(backend=lambda idx, cfg: MultiDeviceBackend(
+            idx, cfg, devices=[cuda0] * 2)))
+    finally:
+        MultiDeviceBackend.submit_chain = submit
+    reps = multi["backend"]["replicas"]
+    for i, r in enumerate(reps):
+        r["launches"] = per[i]
+    batches = multi["stages"]["batches"]
+    emit("devices", card=card, replicas=reps, batches=batches,
+         peak_mem_bytes=multi["peak"],
+         reads_per_s=multi["metrics"]["reads_per_sec"],
+         mapping_s=multi["metrics"]["mapping_seconds"],
+         sam_identical=multi["sam_identical"],
+         vcf_identical=multi["vcf_identical"])
+    if not (len(reps) == 2 and all(r["batches"] > 0 for r in reps)
+            and sum(r["batches"] for r in reps) == batches
+            and sum(r["launches"] for r in reps) == 4 * batches):
+        raise AssertionError(f"devices: a replica mapped no batch, or the "
+                             f"batches or launches do not add up {reps}")
+
+    # taps on a shard's routed scan and hits: each launch's kernel, its
+    # inputs and a copy of its outputs, in launch order
+    scan_packed = ShardChainKernel._scan_packed
+    hits_of = ShardChainKernel._hits
+    launches = []
+
+    def tap_scan(self, packed, rlens):
+        seeds = scan_packed(self, packed, rlens)
+        launches.append(dict(kern=self, packed=packed.clone(),
+                             rlens=rlens.clone(),
+                             seeds=tuple(t.clone() for t in seeds)))
+        return seeds
+
+    def tap_hits(self, *seeds):
+        off, hits = hits_of(self, *seeds)
+        launches[-1].update(off=off.clone(),
+                            hits=ck.Hits(*(t.clone() for t in hits)))
+        return off, hits
+
+    sharded, shard_launches = [], {}
+    for n in (2, 4):
+        launches = []
+        ShardChainKernel._scan_packed = tap_scan
+        ShardChainKernel._hits = tap_hits
+        try:
+            t = check(run(index_shards=n, backend=lambda idx, cfg, n=n:
+                          DeviceBackend(idx, cfg,
+                                        shard_devices=[cuda0] * n)))
+        finally:
+            ShardChainKernel._scan_packed = scan_packed
+            ShardChainKernel._hits = hits_of
+        b = t["stages"]["batches"]
+        scan_err, hits_err = check_shard_launches(ck, ssd, n, launches)
+        emit("shards", card=card, shards=n, backend=t["backend"], batches=b,
+             scan_launches=t["scan_launches"],
+             chain_launches=t["chain_launches"], peak_mem_bytes=t["peak"],
+             reads_per_s=t["metrics"]["reads_per_sec"],
+             mapping_s=t["metrics"]["mapping_seconds"],
+             sam_identical=t["sam_identical"],
+             vcf_identical=t["vcf_identical"],
+             launches_held_to_plain=len(launches),
+             reads_a_launch=sorted({int(x["rlens"].shape[0])
+                                    for x in launches}),
+             H_a_launch=sorted({x["kern"].H for x in launches}),
+             routed_scan_max_abs_err=scan_err,
+             routed_hits_max_abs_err=hits_err)
+        if not (t["sam_identical"] and t["vcf_identical"]
+                and t["backend"]["sharded_invocations"] == b > 0
+                and t["scan_launches"] == {"seed_scan3_routed": n * b}
+                and t["chain_launches"] == dict(
+                    chain_scan_seeds=n * b, chain_hits_routed=n * b,
+                    chain_classify_pack=n * b)
+                and len(launches) == n * b
+                and t["metrics"]["n_oracle_reads"] == 0
+                and t["metrics"]["n_tier_reruns"] == 0):
+            raise AssertionError(f"shards {n}: bytes differ from the "
+                                 f"warm-up's, a batch missed the sharded "
+                                 f"stage, an unrouted kernel ran or a routed "
+                                 f"one did not run once a shard a batch")
+        sharded.append(t)
+        shard_launches[n] = launches[:1]      # run_routed replays the first
+    return multi, sharded, shard_launches
+
+
+SEED_KEYS = ("n_seeds", "s_rpos", "s_len", "s_x0", "s_freq", "overflow")
+
+
+def check_shard_launches(ck, ssd, n, launches):
+    """Every routed scan and hits launch of a -shards n run equal in every
+    word to its plain routed version on the launch's own inputs (the
+    shard's reads and tables, its hit capacity). -> the max abs
+    differences (0, 0)."""
+    scan_err = hits_err = 0
+    for j, x in enumerate(launches):
+        k = x["kern"]
+        want = ssd.seed_scan3_routed_plain(k.fm, x["packed"], x["rlens"],
+                                           k.max_len, k.max_seeds)
+        scan_err = max(scan_err, max_err(
+            f"-shards {n} launch {j}: seed_scan3_routed",
+            list(zip(SEED_KEYS, x["seeds"], want))))
+        want_h = ck.chain_hits_plain(k.fm1, x["off"], *x["seeds"][:5], k.H)
+        hits_err = max(hits_err, max_err(
+            f"-shards {n} launch {j}: chain_hits_routed",
+            [(f, getattr(x["hits"], f), getattr(want_h, f))
+             for f in want_h._fields]))
+    return scan_err, hits_err
+
+
+def read_records(out):
+    """SeedChainKernel.collect's tuple -> one record a read: its class,
+    pd, mm, rplast, cscore and its hits (rpos, gpos, slen)."""
+    import numpy as np
+    cls, pd, mm, rplast, cscore, counts, rpos, gpos, slen = out[:9]
+    ends = np.cumsum(counts)
+    recs = []
+    for i in range(len(counts)):
+        s, e = ends[i] - counts[i], ends[i]
+        recs.append((int(cls[i]), int(pd[i]), int(mm[i]), int(rplast[i]),
+                     int(cscore[i]), tuple(rpos[s:e].tolist()),
+                     tuple(gpos[s:e].tolist()), tuple(slen[s:e].tolist())))
+    return recs
+
+
+def sharded_walk_stage(ck, be, flat_walk, packed, rlens, n):
+    """The whole sharded chain stage without the full SA (the inverse-Psi
+    walk over sharded occ4 rows and sampled SA) on the main path's batch
+    0, against one card's stage on the same walk tables (equal in every
+    output) and against one card's stage with the full SA: the reads that
+    differ from the full-SA stage must all be reads whose walk ran out
+    (flagged for the host oracle, as a seed overflow is), which the stream
+    re-seeds on the host. -> facts of the comparison."""
+    import numpy as np
+    import torch
+    from mapcaller_tpu_torch.ops.fm_search import build_seed_chain_kernel
+    from mapcaller_tpu_torch.parallel.sharded_index import (
+        ShardedChainKernel, replicate_ctx, shard_index)
+    max_len, B = packed.shape[1] * 4, packed.shape[0]
+    devs = [packed.device] * n
+    ctx = be.chain_ctx
+    stage = ShardedChainKernel(shard_index(flat_walk, devs),
+                               replicate_ctx(ctx, devs), devs, max_len, B)
+    one_walk = build_seed_chain_kernel(flat_walk, ctx, max_len, B,
+                                       slow_hits_x4=2)
+    one_full = be._chain_kernel_for(max_len, 2, B)
+    before = dict(ck.STATS.launches)
+    got = stage.collect(stage(packed, rlens)[0])
+    routed = {k: v - before.get(k, 0) for k, v in ck.STATS.launches.items()}
+    want = one_walk.collect(one_walk(packed, rlens)[0])
+    full = one_full.collect(one_full(packed, rlens)[0])
+    torch.cuda.synchronize()
+    names = ("cls", "pd", "mm", "rplast", "cscore", "counts", "rpos", "gpos",
+             "slen", "overflow")
+    bad = [k for k, a, b in zip(names, got, want)
+           if not np.array_equal(np.asarray(a), np.asarray(b))]
+    if bad or got[10] != want[10] or routed.get("chain_hits_routed") != n:
+        raise AssertionError(f"sharded walk stage, {n} shards: differs from "
+                             f"one card's walk stage in {bad} (buffer "
+                             f"overflow {got[10]} vs {want[10]}) or the "
+                             f"routed hits ran {routed} times")
+    flagged = set(np.nonzero(got[9])[0].tolist())
+    diff = {i for i, (a, b) in enumerate(zip(read_records(got),
+                                             read_records(full)))
+            if a != b}
+    if not diff <= flagged:
+        raise AssertionError(f"sharded walk stage, {n} shards: "
+                             f"{len(diff - flagged)} reads differ from the "
+                             f"full-SA stage without a flag")
+    return dict(shards=n, reads=B, equal_to_one_card_walk=True,
+                reads_flagged_by_walk=len(flagged),
+                reads_flagged_with_full_sa=int(np.count_nonzero(full[9])),
+                reads_differing_from_full_sa=len(diff),
+                all_differing_reads_flagged=True)
+
+
+def shard_setup_bytes(be, dev):
+    """Device bytes of placing the occ3 shards, above what the backend
+    already holds (its 1-step rows, full SA, text words): the peak and
+    what stays, for the build a shard at a time (build_shard_index, the
+    backend's) and for the whole table built and then split (shard_index
+    of DeviceFM3.from_host), with 2 and 4 shards on this card."""
+    import torch
+    from mapcaller_tpu_torch.ops.fm3_device import DeviceFM3
+    from mapcaller_tpu_torch.parallel.sharded_index import (
+        build_shard_index, shard_index)
+    tw = be.chain_ctx.text_words
+
+    def measure(build):
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = build()
+        torch.cuda.synchronize()
+        got = dict(peak=torch.cuda.max_memory_allocated() - base,
+                   held=torch.cuda.memory_allocated() - base)
+        del out
+        return got
+
+    res = {}
+    for n in (2, 4):
+        devs = [dev] * n
+        res[n] = dict(
+            a_shard_at_a_time=measure(lambda: build_shard_index(
+                be.idx, be.fm, devs, tw)),
+            whole_table_then_split=measure(lambda: shard_index(
+                DeviceFM3.from_host(be.idx, be.fm, pfx_k=0, text_words=tw),
+                devs)))
+    return res
+
+
+def run_routed(prefix, batch, shard_launches, card, reps=20):
+    """The routed scan and hits kernels on the first launch of each
+    -shards n run (shard 0 of the main path's batch 0: B / n reads, that
+    kernel's own tables and hit capacity): each equal in every word to
+    its plain routed version (ops/seed_scan_device.
+    seed_scan3_routed_plain; chain_hits_plain over the routed SA), to
+    what the launch gave in the stream and to the unrouted kernels'
+    outputs on the same reads (the main path's scan with its prefix skip,
+    the hits kernel over the one SA); the hits also by the inverse-Psi
+    walk over sharded occ4 rows and sampled SA. Device ms beside the
+    unrouted kernel's on the same work (the scan without the prefix
+    skip), call ms, plain ms and the bound (the unrouted kernel's bytes:
+    the same rows and SA entries). Then the whole sharded stage by the
+    walk on batch 0 (sharded_walk_stage) and the bytes of placing the
+    shards (shard_setup_bytes)."""
+    import dataclasses
+    import torch
+    from mapcaller_tpu_torch.config import Config
+    from mapcaller_tpu_torch.index.fmindex import load_index
+    from mapcaller_tpu_torch.ops import chain_kernels as ck
+    from mapcaller_tpu_torch.ops import seed_scan_device as ssd
+    from mapcaller_tpu_torch.parallel.sharded_index import shard_index
+    from mapcaller_tpu_torch.pipeline.device_backend import DeviceBackend
+    p0, r0 = batch[:2]
+    cuda0 = p0.device
+    be = DeviceBackend(load_index(prefix), Config(device="cuda"))
+    fm3 = be.fm3
+    # the same rows without the prefix-skip rows: the routed scan's work
+    flat = dataclasses.replace(fm3, occ3_rows=fm3.occ3_rows[
+        :fm3.pfx_base or fm3.occ3_rows.shape[0]], pfx_k=0, pfx_base=0)
+    fm1 = fm3.fm
+    fm_walk = dataclasses.replace(fm1, sa_full=fm1.sa_full[:0])
+    res, walk_stage = {}, []
+    for n in (2, 4):
+        x = shard_launches[n][0]
+        k, packed, rlens = x["kern"], x["packed"], x["rlens"]
+        sfm, S, H, max_len = k.fm, k.max_seeds, k.H, k.max_len
+        B = packed.shape[0]
+        fns = (lambda w=False: ssd.seed_scan3_routed(
+                   sfm, packed, rlens, max_len, S, with_iters=w),
+               lambda w=False: ssd.seed_scan3_routed_plain(
+                   sfm, packed, rlens, max_len, S, with_iters=w))
+        scan_r = measure_scan(f"seed_scan3_routed, {n} shards, shard 0 of "
+                              f"batch 0", "seed_scan3", fns, packed, S, reps)
+        seeds = fns[0]()
+        flat_kernel = scan_fns(ssd, "seed_scan3", flat, packed, rlens,
+                               max_len, S)[0]
+        scan_r["max_abs_err_vs_unrouted"] = max_err(
+            f"routed scan, {n} shards, vs the stream's launch and the "
+            f"unrouted scans", list(zip(SEED_KEYS, seeds, x["seeds"]))
+            + list(zip(SEED_KEYS, seeds, flat_kernel()))
+            + list(zip(SEED_KEYS, seeds, ssd.seed_scan3(
+                fm3, packed, rlens, max_len, S))))
+        scan_r["unrouted_ms"] = cuda_ms(flat_kernel, reps, queued=True)
+        scan_r["unrouted_with_prefix_skip_ms"] = cuda_ms(
+            lambda: ssd.seed_scan3(fm3, packed, rlens, max_len, S), reps,
+            queued=True)
+
+        def hits_pairs(what, fm_r, fm_flat):
+            sc = [ck.chain_scan_seeds(seeds[4], seeds[0], H)
+                  for _ in range(2)]
+            got = ck.chain_hits_routed(fm_r, sc[0], *seeds[:5], H)
+            plain = ck.chain_hits_plain(fm_r, sc[0].off, *seeds[:5], H)
+            flat_h = ck.chain_hits(fm_flat, sc[1], *seeds[:5], H)
+            err = max_err(what, [(f"{f} vs plain", getattr(got, f),
+                                  getattr(plain, f)) for f in got._fields]
+                          + [(f"{f} vs unrouted", getattr(got, f),
+                              getattr(flat_h, f)) for f in got._fields])
+            return err, sc[0], got
+
+        err, sc, hits = hits_pairs(f"routed hits, {n} shards", sfm.fm, fm1)
+        err = max(err, max_err(f"routed hits, {n} shards, vs the stream's "
+                               f"launch", [(f, getattr(hits, f),
+                                            getattr(x["hits"], f))
+                                           for f in hits._fields]))
+        nbytes, ops, _ = hits_work(fm1, seeds, sc, hits)
+        bound, by = bound_of(nbytes, ops)
+        hits_r = dict(
+            B=B, H=H, max_abs_err=err, bytes=nbytes, bound_ms=bound,
+            bound_by=by,
+            ms=cuda_ms(lambda: ck.chain_hits_routed(sfm.fm, sc, *seeds[:5],
+                                                    H), reps, queued=True),
+            call_ms=cuda_ms(lambda: ck.chain_hits_routed(
+                sfm.fm, sc, *seeds[:5], H), reps),
+            plain_ms=cuda_ms(lambda: ck.chain_hits_plain(
+                sfm.fm, sc.off, *seeds[:5], H), 3, warmup=1),
+            unrouted_ms=cuda_ms(lambda: ck.chain_hits(
+                fm1, sc, *seeds[:5], H), reps, queued=True),
+            valid_hits=int(hits.valid.sum()))
+        hits_r["share_of_bound"] = bound / hits_r["ms"]
+        devs = [cuda0] * n
+        sfm_w = shard_index(dataclasses.replace(flat, fm=fm_walk), devs)
+        werr, wsc, whits = hits_pairs(f"routed walk, {n} shards",
+                                      sfm_w[cuda0].fm, fm_walk)
+        hits_r.update(walk_max_abs_err=werr,
+                      walk_unresolved_reads=int(whits.unresolved.sum()),
+                      walk_ms=cuda_ms(lambda: ck.chain_hits_routed(
+                          sfm_w[cuda0].fm, wsc, *seeds[:5], H), reps,
+                          queued=True),
+                      walk_unrouted_ms=cuda_ms(lambda: ck.chain_hits(
+                          fm_walk, wsc, *seeds[:5], H), reps, queued=True))
+        res[n] = dict(seed_scan3_routed=scan_r, chain_hits_routed=hits_r,
+                      reads=B, rows_a_shard=sfm.occ3.per,
+                      sa_entries_a_shard=sfm.fm.sa_full.per)
+        del sfm_w
+        walk_stage.append(sharded_walk_stage(
+            ck, be, dataclasses.replace(flat, fm=fm_walk), p0, r0, n))
+    emit("shards", card=card, routed_kernels_shard0_batch0=res,
+         sharded_walk_stage_batch0=walk_stage,
+         setup_bytes=shard_setup_bytes(be, cuda0))
+    del be, fm3, flat
+    return res
 
 
 def ptxas_report(out, kernel="nw_ops_kernel"):
@@ -1131,6 +1598,8 @@ def run_main_path(work, card):
     first batch apply and its first column fetch to the host, then
     device-DP and scalar-DP runs in turns, then a host-evidence run, a
     folded-evidence run, a compacted, a host-chaining and a 1-step run,
+    the -devices 2 and -shards 2 / 4 runs (run_scale_axes) and the routed
+    kernels on batch 0 (run_routed),
     then the -alg ksw2 warm-up (tapping ksw2_device.ksw2_ops the same way)
     and its device-DP and scalar-DP turns. Returns the first device
     turns' launch counts (nw, ksw2), the captured launches' tensors (nw,
@@ -1156,12 +1625,15 @@ def run_main_path(work, card):
     argv = ["mapcaller", "-i", idx, "-f", r1, "-f2", r2, "-sam", sam,
             "-vcf", vcf, "-log", log]
 
-    def run(device_dp=True, one_step=False, auto_dp=False, **flags):
+    def run(device_dp=True, one_step=False, auto_dp=False, backend=None,
+            **flags):
         """One run of the user's command: with auto_dp through the CLI
         as it is (device_extension "auto"), else the same command with the
         DP forced to the device kernels (device_dp) or to the scalar C++
         aligners, and other flags; one_step: the backend is told the occ3
-        table does not fit."""
+        table does not fit; backend(idx, cfg): the device backend the
+        runner builds (the devices and shards runs: replicas or shards on
+        this one card), whose facts backend_facts(be) records."""
         gc.collect()      # an earlier run's cycles must not hold memory
         torch.cuda.reset_peak_memory_stats()
         nw_device.STATS.reset()
@@ -1174,6 +1646,14 @@ def run_main_path(work, card):
         occ3_fits = DeviceBackend._occ3_fits
         if one_step:
             DeviceBackend._occ3_fits = lambda self, idx: False
+        facts = {}
+        make_engine = runner.make_engine
+        if backend is not None:
+            def make(idx_, cfg_):
+                be = backend(idx_, cfg_)
+                facts["of"] = be
+                return runner.MappingEngine(idx_, cfg_, backend=be)
+            runner.make_engine = make
         err = io.StringIO()       # the stream's stage-prof line
         try:
             with contextlib.redirect_stderr(err):
@@ -1187,6 +1667,7 @@ def run_main_path(work, card):
                     rc = runner.run_pipeline(cfg, " ".join(argv))
         finally:
             DeviceBackend._occ3_fits = occ3_fits
+            runner.make_engine = make_engine
             sys.stderr.write(err.getvalue())
         stages = [json.loads(ln.split("] ", 1)[1])
                   for ln in err.getvalue().splitlines()
@@ -1200,13 +1681,16 @@ def run_main_path(work, card):
                     ksw2_launches=ks.launches, ksw2_pairs=ks.pairs,
                     ksw2_shapes=dict(ks.shapes),
                     scan3_launches=ssd.STATS.launches["seed_scan3"],
+                    scan_launches=dict(ssd.STATS.launches),
                     scan1_launches=ssd.STATS.launches["seed_scan1"],
                     chain_launches=dict(ck.STATS.launches),
                     host_prof=native.prof_fetch(),
                     compact_factor=cfg.compact_factor if cfg else None,
                     stages=stages[-1] if stages else None,
                     evidence=vars(device_profile.STATS).copy(),
-                    peak=torch.cuda.max_memory_allocated())
+                    peak=torch.cuda.max_memory_allocated(),
+                    backend=(backend_facts(facts.pop("of"))
+                             if "of" in facts else None))
 
     captured = {}
     nw_ops = nw_device.nw_ops
@@ -1342,7 +1826,10 @@ def run_main_path(work, card):
                              "did not run")
     scan_table = dict(seed_scan3=run_seed_scan(ssd, captured.pop("scan3"),
                                                card))
+    k0, p0, r0, pe0 = captured["chain_warm"][0]
+    routed_batch = (p0, r0, k0.max_len, k0.batch)
     chain_table = run_chain(ck, captured.pop("chain_warm"), card)
+    del k0
     os.replace(sam, sam + ".warm")
     os.replace(vcf, vcf + ".warm")
 
@@ -1386,6 +1873,11 @@ def run_main_path(work, card):
     emit("seed_scan", card=card, compacted_batches_equal=n_compact,
          one_step_batches_equal=n_one_step,
          one_step_batch0=scan_table["seed_scan1"])
+    # -devices 2 and -shards 2 / 4 through the stream, replicas and shards
+    # on this one card, each writing the warm-up's bytes
+    multi, sharded, shard_launches = run_scale_axes(run, check, card)
+    routed_table = run_routed(idx, routed_batch, shard_launches, card)
+    del shard_launches
     dev = [t for t in turns if t["device_dp"]]
     sca = [t for t in turns if not t["device_dp"]]
 
@@ -1432,7 +1924,7 @@ def run_main_path(work, card):
                     vcf_identical=t.get("vcf_identical"))
 
     m1 = dev[0]["metrics"]
-    paths = [compact, unchained, one_step]
+    paths = [compact, unchained, one_step, multi]
     everything = ([warm] + turns + [auto, host_ev, fold_ev] + paths
                   + [kwarm] + kturns)
     emit("main_path", card=card, setup_s=setup_s,
@@ -1457,6 +1949,10 @@ def run_main_path(work, card):
                                evidence_path="host", device_chain=False),
          one_step=summary(one_step, dp="device", evidence_path="device",
                           index="1-step"),
+         devices=summary(multi, dp="device", evidence_path="device",
+                         backend=multi["backend"]),
+         shards=[summary(t, dp="device", evidence_path="device",
+                         backend=t["backend"]) for t in sharded],
          auto_compact_factor=sca[0]["compact_factor"],
          device_dp_median_reads_per_s=med(dev, "reads_per_sec"),
          device_dp_median_mapping_s=med(dev, "mapping_seconds"),
@@ -1477,7 +1973,7 @@ def run_main_path(work, card):
     hst = host_ev["evidence"]
     ucs = unchained["evidence"]
     # device DP runs of each kernel; host chaining has no DP batch step
-    nw_dp = dev + [host_ev, fold_ev, compact, one_step]
+    nw_dp = dev + [host_ev, fold_ev, compact, one_step, multi] + sharded
     ksw2_dp = [kwarm] + kdev
     ok = (all(t["launches"] > 0 and t["pairs"] > 0 for t in nw_dp)
           and all(t["ksw2_launches"] > 0 and t["ksw2_pairs"] > 0
@@ -1494,8 +1990,8 @@ def run_main_path(work, card):
           and all(t["metrics"]["n_oracle_reads"] == 0
                   and t["metrics"]["n_tier_reruns"] == 0 for t in everything)
           and all(evidence_path_ok(t["evidence"])
-                  for t in [warm] + turns + [auto, compact, one_step, kwarm]
-                  + kturns)
+                  for t in [warm] + turns + [auto, compact, one_step, multi,
+                                             kwarm] + kturns + sharded)
           # one scan launch a batch: the occ3 kernel on every path but the
           # 1-step one, which runs only the 1-step kernel
           and all(t["scan3_launches"] == t["stages"]["batches"]
@@ -1526,6 +2022,8 @@ def run_main_path(work, card):
         "seed_scan3": (scan_table["seed_scan3"], dev[0]["scan3_launches"]),
         "seed_scan1": (scan_table["seed_scan1"], one_step["scan1_launches"])}
     captured["chain_table"] = (chain_table, dev[0]["chain_launches"])
+    captured["routed_table"] = (routed_table, sharded[0]["chain_launches"],
+                                sharded[0]["scan_launches"])
     return ((dev[0]["launches"], kdev[0]["ksw2_launches"]),
             (captured["nw"][1], captured["ksw2"][1]), captured)
 
@@ -1668,9 +2166,11 @@ def main():
     gated = ((("libnw.so", "nw_ops_kernel"), nw_device.KERNEL_MAX_CHUNK),
              (("libksw2.so", "ksw2_ops_kernel"), ksw2_device.KERNEL_MAX_CHUNK),
              (("libseed_scan.so", "seed_scan3_kernel"), 1),
+             (("libseed_scan.so", "seed_scan3_routed_kernel"), 1),
              (("libseed_scan.so", "seed_scan1_kernel"), 1),
              (("libchain.so", "chain_scan_kernel"), 1),
              (("libchain.so", "chain_hits_kernel"), 1),
+             (("libchain.so", "chain_hits_routed_kernel"), 1),
              (("libchain.so", "chain_classify_pack_kernel"), 1))
     reports = {kernel: ptxas_report(outputs.get(lib, ""), kernel)
                for (lib, kernel), _ in gated}
@@ -1788,6 +2288,29 @@ def main():
     # classify+pack also replaces the pack and its cumsum
     kernels[-1]["also_replaces"] = ["mapcaller_tpu/ops/fm_search.py:749",
                                     "mapcaller_tpu/ops/fm_search.py:752"]
+    # the routed instantiations on the first launch of the -shards 2 run
+    # (shard 0 of the main path's batch 0: B / 2 reads), with the -shards 4
+    # run's first launch beside; launches of the -shards 2 run
+    routed, chain_n, scan_n = cap["routed_table"]
+    for name, src, src_line, n in (
+            ("seed_scan3_routed", "mapcaller_tpu_torch/csrc/seed_scan.cu",
+             "mapcaller_tpu/parallel/sharded_index.py:115", scan_n),
+            ("chain_hits_routed", "mapcaller_tpu_torch/csrc/chain.cu",
+             "mapcaller_tpu/parallel/sharded_index.py:176", chain_n)):
+        r = routed[2][name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": src_line, "launches": n.get(name, 0),
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None, "tolerance": 0,
+            "call_ms": r["call_ms"], "unrouted_ms": r["unrouted_ms"],
+            "shards_4": {k: routed[4][name][k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "unrouted_ms")},
+            "shape": f"{routed[2]['reads']} reads, shard 0 of the main "
+                     f"path's batch 0 under -shards 2 on one card, as the "
+                     f"run launched it; shards_4: {routed[4]['reads']} "
+                     f"reads under -shards 4"})
     line = {"kernels": kernels}
     print(json.dumps(line), flush=True)
     print(card, flush=True)

@@ -33,6 +33,11 @@
 //     multiple of 32 (at most max_walk steps; a hit still unresolved flags
 //     its read). Slots at or past min(total, H) hold the last seed slot's
 //     values with valid 0, as jnp.repeat pads.
+//   chain_hits_routed_kernel  the hits kernel over a genome-sharded SA
+//     (-shards N): the full-SA gather, or each inverse-Psi step's occ4 row
+//     and the sampled SA entry, read from its shard through a table of the
+//     shards' base addresses (the reference's routed gathers,
+//     mapcaller_tpu/parallel/sharded_index.py:176-285).
 //   chain_classify_pack_kernel  a tile of CP_READS reads a block, a group
 //     of CP_GROUP lanes a read. The block stages the tile's off, rlens and
 //     flags, its read words (contiguous) and its hit range (contiguous:
@@ -306,12 +311,53 @@ chain_scan_kernel(const long long* __restrict__ freq,
 
 // ---- chain_hits_kernel ---------------------------------------------------
 
+// The SA tables a hits kernel reads: one copy (Fm, the main path), or
+// split over shards (RoutedFm, -shards N, ops/routed.py): entry r of a
+// routed table lives in shard r / per at local entry r % per, whose base
+// address its shard table holds. The kernel body is a template over the
+// two, so chain_hits_kernel compiles as it did.
 struct Fm {
   const int* occ;                       // int32[nw+1, 8] occ4 rows
   const long long* L2;                  // int64[5]
   const long long* sa_samp;             // int64[n/32+1]
   const int* sa_full;                   // int32[n+1], or nullptr
   int primary, max_walk;
+  __device__ __forceinline__ bool full() const { return sa_full != nullptr; }
+  __device__ __forceinline__ const int4* occ_row(int w) const {
+    return reinterpret_cast<const int4*>(occ + (size_t)w * 8);
+  }
+  __device__ __forceinline__ int sa(int r) const { return __ldg(sa_full + r); }
+  __device__ __forceinline__ int samp(int r) const {
+    return (int)__ldg(sa_samp + r);
+  }
+};
+
+struct RoutedFm {
+  const unsigned long long* occ;        // [n] shards of int32[per, 8]
+  const long long* L2;                  // int64[5]
+  const unsigned long long* sa_samp;    // [n] shards of int64[per]
+  const unsigned long long* sa_full;    // [n] shards of int32[per], or
+                                        // nullptr
+  int primary, max_walk;
+  unsigned occ_per, samp_per, full_per;
+  __device__ __forceinline__ bool full() const { return sa_full != nullptr; }
+  __device__ __forceinline__ const int4* occ_row(int w) const {
+    const unsigned s = (unsigned)w / occ_per;
+    const int* p = reinterpret_cast<const int*>(__ldg(occ + s));
+    return reinterpret_cast<const int4*>(
+        p + (size_t)((unsigned)w - s * occ_per) * 8);
+  }
+  __device__ __forceinline__ int sa(int r) const {
+    const unsigned s = (unsigned)r / full_per;
+    const int* p = reinterpret_cast<const int*>(__ldg(sa_full + s));
+    return __ldg(p + ((unsigned)r - s * full_per));
+  }
+  __device__ __forceinline__ int samp(int r) const {
+    const unsigned s = (unsigned)r / samp_per;
+    const long long* p =
+        reinterpret_cast<const long long*>(__ldg(sa_samp + s));
+    return (int)__ldg(p + ((unsigned)r - s * samp_per));
+  }
 };
 
 struct Seeds {
@@ -331,10 +377,10 @@ __device__ __forceinline__ int pick4(const int4& v, int c) {
 
 // One LF step (ref: bwt_search.cpp:101-107; ops/fm_device.py::inv_psi):
 // one 32-byte row gives both the BWT code at k and its occ count.
-__device__ __forceinline__ int inv_psi(const Fm& fm, int k) {
+template <class F>
+__device__ __forceinline__ int inv_psi(const F& fm, int k) {
   const int kadj = k - (k >= fm.primary ? 1 : 0);
-  const int4* row =
-      reinterpret_cast<const int4*>(fm.occ + (size_t)(kadj >> 4) * 8);
+  const int4* row = fm.occ_row(kadj >> 4);
   const int4 cnt = __ldg(row), wv = __ldg(row + 1);
   const uint32_t word = (uint32_t)wv.x;
   const int crumb = (~kadj) & 15;
@@ -349,9 +395,10 @@ __device__ __forceinline__ int inv_psi(const Fm& fm, int k) {
 // HITS_ITEMS consecutive words fall in distinct banks across its warp.
 __host__ __device__ constexpr int padded(int e) { return e + (e >> 5); }
 
-__global__ void __launch_bounds__(HITS_GROUP)
-chain_hits_kernel(const int* __restrict__ off, const int2* __restrict__ start,
-                  Seeds sd, Fm fm, int H, Hits o) {
+template <class F>
+__device__ __forceinline__ void hits_body(const int* __restrict__ off,
+                                          const int2* __restrict__ start,
+                                          Seeds sd, F fm, int H, Hits o) {
   __shared__ uint32_t pre[padded(HITS_CHUNK)];
   __shared__ uint32_t warp_sum[HITS_GROUP / 32];
   const int t = threadIdx.x;
@@ -420,8 +467,8 @@ chain_hits_kernel(const int* __restrict__ off, const int2* __restrict__ start,
   const int row = valid ? (int)sd.x0[seed] + pos : 32;
   int loc;
   bool resolved = valid;
-  if (fm.sa_full != nullptr) {
-    loc = __ldg(fm.sa_full + row);
+  if (fm.full()) {
+    loc = fm.sa(row);
   } else {
     // an inactive slot walks no step: sa_samp[32 >> 5]
     int k = row, steps = 0;
@@ -431,7 +478,7 @@ chain_hits_kernel(const int* __restrict__ off, const int2* __restrict__ start,
         ++steps;
       }
     resolved = valid && (k & 31) == 0;
-    loc = steps + (int)__ldg(fm.sa_samp + (k >> 5));
+    loc = steps + fm.samp(k >> 5);
   }
   o.read[h] = b;
   o.rpos[h] = rpos;
@@ -440,6 +487,20 @@ chain_hits_kernel(const int* __restrict__ off, const int2* __restrict__ start,
   o.valid[h] = valid;
   o.keep[h] = valid && loc - rpos > 0;
   if (valid && !resolved) o.unresolved[b] = 1;
+}
+
+__global__ void __launch_bounds__(HITS_GROUP)
+chain_hits_kernel(const int* __restrict__ off, const int2* __restrict__ start,
+                  Seeds sd, Fm fm, int H, Hits o) {
+  hits_body(off, start, sd, fm, H, o);
+}
+
+// The hits kernel over a genome-sharded SA (-shards N).
+__global__ void __launch_bounds__(HITS_GROUP)
+chain_hits_routed_kernel(const int* __restrict__ off,
+                         const int2* __restrict__ start, Seeds sd,
+                         RoutedFm fm, int H, Hits o) {
+  hits_body(off, start, sd, fm, H, o);
 }
 
 // ---- chain_classify_pack_kernel ------------------------------------------
@@ -963,6 +1024,46 @@ extern "C" int mc_chain_hits(const void* off, const void* start,
                (uint8_t*)valid, (uint8_t*)keep, (uint8_t*)unresolved};
   chain_hits_kernel<<<(H + HITS_GROUP - 1) / HITS_GROUP, HITS_GROUP, 0,
                       (cudaStream_t)stream>>>(
+      (const int*)off, (const int2*)start, sd, fm, H, o);
+  return (int)cudaGetLastError();
+}
+
+// Hit expansion and SA resolve over a genome-sharded SA: as mc_chain_hits,
+// with occ, sa_samp and sa_full each a table of shard base addresses
+// (int64[n], each shard readable from this device) and the rows a shard
+// of each: with full_ptrs the full SA's shards of int32[full_per], else
+// the occ4 rows' of int32[occ_per, 8] (16-byte aligned) and sa_samp's of
+// int64[samp_per] for the inverse-Psi walk.
+extern "C" int mc_chain_hits_routed(const void* off, const void* start,
+                                    const void* n_seeds, const void* rpos,
+                                    const void* len, const void* x0,
+                                    const void* freq, int B, int S,
+                                    const void* occ_ptrs, int occ_per,
+                                    const void* L2, const void* samp_ptrs,
+                                    int samp_per, const void* full_ptrs,
+                                    int full_per, int primary, int max_walk,
+                                    int H, void* read, void* hrpos,
+                                    void* hlen, void* loc, void* valid,
+                                    void* keep, void* unresolved,
+                                    void* stream) {
+  if (B < 1 || S < 1 || H < 1 || max_walk < 0 ||
+      (long long)B * S >= (1LL << 31) ||
+      (full_ptrs != nullptr ? full_per < 1
+                            : (occ_ptrs == nullptr || samp_ptrs == nullptr ||
+                               occ_per < 1 || samp_per < 1)))
+    return (int)cudaErrorInvalidValue;
+  const Seeds sd{(const long long*)n_seeds, (const long long*)rpos,
+                 (const long long*)len, (const long long*)x0,
+                 (const long long*)freq, B, S};
+  const RoutedFm fm{(const unsigned long long*)occ_ptrs, (const long long*)L2,
+                    (const unsigned long long*)samp_ptrs,
+                    (const unsigned long long*)full_ptrs, primary, max_walk,
+                    (unsigned)occ_per, (unsigned)samp_per,
+                    (unsigned)full_per};
+  const Hits o{(int*)read, (int*)hrpos, (int*)hlen, (int*)loc,
+               (uint8_t*)valid, (uint8_t*)keep, (uint8_t*)unresolved};
+  chain_hits_routed_kernel<<<(H + HITS_GROUP - 1) / HITS_GROUP, HITS_GROUP,
+                             0, (cudaStream_t)stream>>>(
       (const int*)off, (const int2*)start, sd, fm, H, o);
   return (int)cudaGetLastError();
 }

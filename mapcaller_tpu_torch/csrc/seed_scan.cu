@@ -24,6 +24,14 @@
 //     x0 and x2 before the step. With lanes < B, `lanes` threads take
 //     reads from an atomic counter (the compacted scan's contract: the
 //     same per-read outputs).
+//   seed_scan3_routed_kernel  the same machine, a thread per read, over an
+//     occ3 table split into shards of `per` rows (-shards N): each row
+//     fetch reads row w from shard w / per through a table of the shards'
+//     base addresses (the reference routes the same rows through an
+//     all-gather and a psum, mapcaller_tpu/parallel/sharded_index.py:
+//     115-132). No prefix skip: the sharded table has no prefix rows. The
+//     row fetch is a template parameter of the scan (FlatRows, ShardRows),
+//     so seed_scan3_kernel compiles as it did.
 //   seed_scan1_kernel  the same machine over the 1-step occ4 rows, one
 //     base a step; with has_n byte codes whose N (> 3) ends an extension
 //     and is skipped as a start, else 2-bit packed codes.
@@ -79,6 +87,31 @@ struct Occ3Consts {
   int pfx_base, pfx_k;
 };
 
+// Where a scan's occ3 rows come from. FlatRows: one table (the main
+// path). ShardRows: the table split over shards of `per` rows (-shards N,
+// ops/routed.py); row w lives in shard w / per at local row w % per, whose
+// base address the shard table holds (on this card, or on a peer card
+// with peer access). kPrefix: whether the fused prefix skip can run (the
+// routed scan has no prefix rows).
+struct FlatRows {
+  static constexpr bool kPrefix = true;
+  const int* rows;
+  __device__ __forceinline__ const int4* row(unsigned w) const {
+    return reinterpret_cast<const int4*>(rows + (size_t)w * ROW3);
+  }
+};
+
+struct ShardRows {
+  static constexpr bool kPrefix = false;
+  const unsigned long long* base;       // [n] shard base addresses
+  unsigned per;                         // rows a shard
+  __device__ __forceinline__ const int4* row(unsigned w) const {
+    const unsigned s = w / per;
+    const int* p = reinterpret_cast<const int*>(__ldg(base + s));
+    return reinterpret_cast<const int4*>(p + (size_t)(w - s * per) * ROW3);
+  }
+};
+
 struct Out {
   long long* n_seeds;                   // [B]
   long long* tab;                       // [4, B, S]: rpos, len, x0, freq
@@ -106,10 +139,10 @@ __device__ __forceinline__ uint32_t sym_at(const int4& s, int q) {
 // occ_d = Occ3(d, i), rev = sum_d' cnt[d'] [rev3(d') < w] + #{q < m:
 // sym_q valid, rev3(sym_q) < w}, rev3(d) = 63 - ((d&3)*16 + (d&12) +
 // (d>>4)) (ops/fm3_device.py occ3_d, rev3_lt_w_sum).
-__device__ __forceinline__ void sums3(const int* __restrict__ rows,
-                                      unsigned i, int d, int w, int& occ_d,
-                                      int& rev) {
-  const int4* R = reinterpret_cast<const int4*>(rows + (size_t)(i >> 4) * ROW3);
+template <class Src>
+__device__ __forceinline__ void sums3(const Src& src, unsigned i, int d,
+                                      int w, int& occ_d, int& rev) {
+  const int4* R = src.row(i >> 4);
   const int m = (int)(i & 15u);
   int base = 0, rs = 0;
 #pragma unroll
@@ -140,10 +173,11 @@ __device__ __forceinline__ void sums3(const int* __restrict__ rows,
 // Derived 1-step counts of all 4 bases at occ3 index i (== bwt_occ4(i-1)):
 // group sums of the 64 counts by last base, the in-row symbols before m,
 // and the corrections for rows p=1, p=2 (ops/fm3_device.py occ1_4).
-__device__ __forceinline__ void occ1_4(const int* __restrict__ rows,
-                                       const Occ3Consts& k, unsigned i,
-                                       int& c0, int& c1, int& c2, int& c3) {
-  const int4* R = reinterpret_cast<const int4*>(rows + (size_t)(i >> 4) * ROW3);
+template <class Src>
+__device__ __forceinline__ void occ1_4(const Src& src, const Occ3Consts& k,
+                                       unsigned i, int& c0, int& c1, int& c2,
+                                       int& c3) {
+  const int4* R = src.row(i >> 4);
   const int m = (int)(i & 15u);
   int g0 = 0, g1 = 0, g2 = 0, g3 = 0;
 #pragma unroll
@@ -254,7 +288,8 @@ __device__ __forceinline__ void store(const Out& o, int r, int ns, bool ovf,
   }
 }
 
-__device__ __forceinline__ void scan3_read(const int* __restrict__ rows,
+template <class Src>
+__device__ __forceinline__ void scan3_read(const Src& src,
                            const int* __restrict__ c3_first,
                            const long long* __restrict__ L2,
                            const uint8_t* __restrict__ packed,
@@ -273,10 +308,9 @@ __device__ __forceinline__ void scan3_read(const int* __restrict__ rows,
       if (pos >= rlen - MIN_SEED_LEN) break;         // done
       const int p = min(pos, last);
       bool jump = false;
-      if (k.pfx_base > 0) {
+      if (Src::kPrefix && k.pfx_base > 0) {
         const int key = word_key(words, nwords, p, k.pfx_k);
-        const int4 e = __ldg(reinterpret_cast<const int4*>(
-                                 rows + (size_t)(k.pfx_base + (key >> 4)) * ROW3) +
+        const int4 e = __ldg(src.row((unsigned)(k.pfx_base + (key >> 4))) +
                              (key & 15));
         if (e.z > 0) {
           x0 = e.x;
@@ -312,8 +346,8 @@ __device__ __forceinline__ void scan3_read(const int* __restrict__ rows,
       const int d = (3 - e2) * 16 + (3 - e1) * 4 + (3 - e0);
       const int w = e0 * 16 + e1 * 4 + e2;
       int tk, rk, tl, rl;
-      sums3(rows, ik, d, w, tk, rk);
-      sums3(rows, il, d, w, tl, rl);
+      sums3(src, ik, d, w, tk, rk);
+      sums3(src, il, d, w, tl, rl);
       g += 2;
       const int n2 = tl - tk;
       if (n2 <= 0) {                                   // exact end within 3
@@ -334,8 +368,8 @@ __device__ __forceinline__ void scan3_read(const int* __restrict__ rows,
     }
     // derived 1-step (tail bases, or the replay after a failed 3-step)
     int k0, k1, k2, k3, l0, l1, l2v, l3;
-    occ1_4(rows, k, ik, k0, k1, k2, k3);
-    occ1_4(rows, k, il, l0, l1, l2v, l3);
+    occ1_4(src, k, ik, k0, k1, k2, k3);
+    occ1_4(src, k, il, l0, l1, l2v, l3);
     g += 2;
     const int ci = 3 - e0;
     const int o1 = l1 - k1, o2 = l2v - k2, o3 = l3 - k3;
@@ -368,7 +402,20 @@ seed_scan3_kernel(const int* __restrict__ rows,
   // lanes mode: each lane takes the next unread read until none is left
   for (int r = queue ? atomicAdd(next, 1) : t; r < o.B;
        r = queue ? atomicAdd(next, 1) : o.B)
-    scan3_read(rows, c3_first, L2, packed, rlens, max_len, cap, k, o, r);
+    scan3_read(FlatRows{rows}, c3_first, L2, packed, rlens, max_len, cap, k,
+               o, r);
+}
+
+// The occ3 scan over a genome-sharded table, a thread per read.
+__global__ void __launch_bounds__(THREADS)
+seed_scan3_routed_kernel(ShardRows src, const int* __restrict__ c3_first,
+                         const long long* __restrict__ L2,
+                         const uint8_t* __restrict__ packed,
+                         const int* __restrict__ rlens, int max_len, int cap,
+                         Occ3Consts k, Out o) {
+  const int r = blockIdx.x * THREADS + threadIdx.x;
+  if (r >= o.B) return;
+  scan3_read(src, c3_first, L2, packed, rlens, max_len, cap, k, o, r);
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -467,6 +514,55 @@ extern "C" int mc_seed_scan3(const void* rows, const void* c3_first,
       (const uint8_t*)packed, (const int*)rlens, threads, max_len, cap, k, o,
       (int*)next);
   return (int)cudaGetLastError();
+}
+
+// occ3 scan over shards: shard_ptrs int64[n] (the shards' base addresses,
+// each int32[per, 72] and 16-byte aligned, readable from this device),
+// per > 0 rows a shard; the other inputs and the outputs as
+// mc_seed_scan3's, with no prefix skip and a thread per read.
+extern "C" int mc_seed_scan3_routed(const void* shard_ptrs, int per,
+                                    const void* c3_first, const void* L2,
+                                    const void* packed, const void* rlens,
+                                    int B, int max_len, int S, int cap,
+                                    int primary, int row_p1, int row_p2,
+                                    int t0, int t1, int tail1, int tail2a,
+                                    int tail2b, void* n_seeds, void* tab,
+                                    void* overflow, void* iters,
+                                    void* rows_out, void* stream) {
+  if (!shape_ok(B, max_len, S, cap) || shard_ptrs == nullptr || per < 1)
+    return (int)cudaErrorInvalidValue;
+  const Occ3Consts k{primary, row_p1, row_p2, t0, t1, tail1, tail2a, tail2b,
+                     0, 0};
+  const Out o{(long long*)n_seeds, (long long*)tab, (uint8_t*)overflow,
+              (int*)iters, (int*)rows_out, B, S};
+  const ShardRows src{(const unsigned long long*)shard_ptrs, (unsigned)per};
+  seed_scan3_routed_kernel<<<(B + THREADS - 1) / THREADS, THREADS, 0,
+                             (cudaStream_t)stream>>>(
+      src, (const int*)c3_first, (const long long*)L2,
+      (const uint8_t*)packed, (const int*)rlens, max_len, cap, k, o);
+  return (int)cudaGetLastError();
+}
+
+// Let device `dev` read device `peer`'s memory (the routed kernels read
+// shards on other cards). Returns cudaSuccess when it already could, and
+// cudaErrorPeerAccessUnsupported where the pair cannot reach each other.
+extern "C" int mc_enable_peer_access(int dev, int peer) {
+  int can = 0;
+  cudaError_t e = cudaDeviceCanAccessPeer(&can, dev, peer);
+  if (e != cudaSuccess) return (int)e;
+  if (!can) return (int)cudaErrorPeerAccessUnsupported;
+  int prev = 0;
+  e = cudaGetDevice(&prev);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaSetDevice(dev);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaDeviceEnablePeerAccess(peer, 0);
+  if (e == cudaErrorPeerAccessAlreadyEnabled) {
+    (void)cudaGetLastError();           // clear the reported error
+    e = cudaSuccess;
+  }
+  const cudaError_t r = cudaSetDevice(prev);
+  return (int)(e != cudaSuccess ? e : r);
 }
 
 // 1-step scan. occ int32[nw+1, 8] (16-byte aligned), L2 int64[5]; codes

@@ -302,7 +302,7 @@ def build_index(fasta_path: str, prefix: Optional[str] = None,
             # the stored .bwt, ref: src/BWT_Index/bwtindex.c:53-75).
             # Off by default: the production path now derives the table
             # ON DEVICE from the resident SA + packed text
-            # (ops/fm3_device._occ3_rows_device), so the artifact only
+            # (ops/fm3_device._occ3_row_chunks), so the artifact only
             # serves hosts without a device-resident full SA.
             from .occ3 import build_occ3
             idx.occ3_table = build_occ3(sa_full, text)

@@ -25,7 +25,9 @@ the current stream, with no host sync:
 
 chain_scan is the same scan kernel on int32 counts, which the main path
 no longer launches (its scan of the slow counts is inside
-chain_classify_pack).
+chain_classify_pack). chain_hits_routed is the hits kernel over a
+genome-sharded SA (`-shards N`, parallel/sharded_index.py): the routed
+instantiation of the same kernel body.
 
 Each wrapper checks its inputs, then runs the plain version for CPU
 tensors and launches its kernel for CUDA tensors, counting the launch in
@@ -71,11 +73,12 @@ SeedScan = collections.namedtuple("SeedScan", "off start unresolved")
 
 STATS = KernelStats()
 _lib = None
-# per device: [scratch int64[1 + tiles], the last epoch] of the look-back
-# of the scan and of classify+pack (csrc/chain.cu): allocated once, grown
-# when a batch needs more tiles, allocated zeroed anew when the epochs run
-# out. Launches that share it run one after another on one stream, as
-# every caller issues them.
+# per (device, stream): [scratch int64[1 + tiles], the last epoch] of the
+# look-back of the scan and of classify+pack (csrc/chain.cu): allocated
+# once, grown when a batch needs more tiles, allocated zeroed anew when the
+# epochs run out. Launches that share it run one after another on its
+# stream; launches on another stream of the same device (a second replica
+# of -devices on one card) get their own scratch and epochs.
 _scan_scratch = {}
 
 
@@ -89,6 +92,8 @@ def _load_kernel():
                 ("mc_chain_scan", [P, P, P, I, I, P, P, I, P, P, I, I, P]),
                 ("mc_chain_hits", [P] * 7 + [I, I] + [P] * 4
                  + [I, I, I] + [P] * 8),
+                ("mc_chain_hits_routed", [P] * 7 + [I, I, P, I, P, P, I, P,
+                                                    I, I, I, I] + [P] * 8),
                 ("mc_chain_classify_pack", [P] * 9 + [I] * 4
                  + [P, I, P, I, I] + [P] * 3 + [I, I] + [P] * 3
                  + [I, I, P])):
@@ -103,7 +108,8 @@ def _launch(name: str, dev: torch.device, *args, count: str = "") -> None:
     """One launch on dev's current stream, counted in STATS under `count`
     (default: name); raises if CUDA refused it."""
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = getattr(_load_kernel(), "mc_" + name)(*args, stream)
+    with torch.cuda.device(dev):
+        err = getattr(_load_kernel(), "mc_" + name)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA kernel launch failed (error {err})")
     STATS.launches[count or name] += 1
@@ -194,13 +200,23 @@ def chain_scan_seeds_plain(s_freq: torch.Tensor, n_seeds: torch.Tensor,
                     torch.zeros(B, dtype=torch.bool, device=s_freq.device))
 
 
+def _scratch_key(dev: torch.device):
+    """The look-back scratch's key: the device and its current stream (0
+    off the card)."""
+    if dev.type != "cuda":
+        return dev, 0
+    return dev, torch.cuda.current_stream(dev).cuda_stream
+
+
 def _look_back_scratch(dev: torch.device, tiles: int):
-    """(pointer, status words, epoch) of the device's look-back scratch
-    for a launch of `tiles` tiles, with the next epoch."""
-    sc = _scan_scratch.get(dev)
+    """(pointer, status words, epoch) of the look-back scratch of the
+    device's current stream for a launch of `tiles` tiles, with the next
+    epoch."""
+    key = _scratch_key(dev)
+    sc = _scan_scratch.get(key)
     if sc is None or sc[0].shape[0] - 1 < tiles or sc[1] + 1 >= _EPOCHS:
         # zeroed words hold epoch 0, which no launch uses
-        sc = _scan_scratch[dev] = [torch.zeros(
+        sc = _scan_scratch[key] = [torch.zeros(
             1 + max(tiles, 1024), dtype=torch.int64, device=dev), 0]
     sc[1] += 1
     return sc[0].data_ptr(), sc[0].shape[0] - 1, sc[1]
@@ -300,17 +316,9 @@ def chain_hits_plain(fm: DeviceFMIndex, off, n_seeds, s_rpos, s_len, s_x0,
                 hit_loc.to(i32), hit_valid, keep, unresolved)
 
 
-def chain_hits(fm: DeviceFMIndex, scan: SeedScan, n_seeds, s_rpos, s_len,
-               s_x0, s_freq, H: int, max_walk: int = MAX_WALK) -> Hits:
-    """The seeds (n_seeds int64[B], s_rpos/s_len/s_x0/s_freq int64[B, S])
-    expanded by freq into H hit slots and resolved through fm's SA; scan
-    is chain_scan_seeds(s_freq, n_seeds, H). Hits past the total are
-    invalid copies of the last seed slot; a read with a hit still
-    unresolved after max_walk inverse-Psi steps is flagged. On either
-    device the flags are set in scan.unresolved, which the scan zeroed,
-    and the Hits returned share it: one hits call a scan, or several with
-    the same fm."""
-    name = "chain_hits"
+def _check_seeds(name: str, scan: SeedScan, n_seeds, s_rpos, s_len, s_x0,
+                 s_freq, H: int, max_walk: int) -> None:
+    """The inputs chain_hits and chain_hits_routed share."""
     B, S = s_freq.shape
     need(B >= 1 and S >= 1 and H >= 1 and max_walk >= 0,
          f"{name}: needs B, S, H >= 1 and max_walk >= 0")
@@ -327,13 +335,42 @@ def chain_hits(fm: DeviceFMIndex, scan: SeedScan, n_seeds, s_rpos, s_len,
                     ("s_freq", s_freq)):
         _dtype(name, t, torch.int64, what)
         need(t.shape == (B, S), f"{name}: {what} must be [B, S]")
+
+
+def _hits_plain(fm, scan: SeedScan, n_seeds, s_rpos, s_len, s_x0, s_freq,
+                H: int, max_walk: int) -> Hits:
+    """chain_hits_plain with its unresolved flags set in scan.unresolved,
+    as the kernels set them."""
+    plain = chain_hits_plain(fm, scan.off, n_seeds, s_rpos, s_len, s_x0,
+                             s_freq, H, max_walk)
+    scan.unresolved.logical_or_(plain.unresolved)
+    return plain._replace(unresolved=scan.unresolved)
+
+
+def _hits_outputs(H: int, dev):
+    return ([torch.empty(H, dtype=torch.int32, device=dev) for _ in range(4)],
+            [torch.empty(H, dtype=torch.bool, device=dev) for _ in range(2)])
+
+
+def chain_hits(fm: DeviceFMIndex, scan: SeedScan, n_seeds, s_rpos, s_len,
+               s_x0, s_freq, H: int, max_walk: int = MAX_WALK) -> Hits:
+    """The seeds (n_seeds int64[B], s_rpos/s_len/s_x0/s_freq int64[B, S])
+    expanded by freq into H hit slots and resolved through fm's SA; scan
+    is chain_scan_seeds(s_freq, n_seeds, H). Hits past the total are
+    invalid copies of the last seed slot; a read with a hit still
+    unresolved after max_walk inverse-Psi steps is flagged. On either
+    device the flags are set in scan.unresolved, which the scan zeroed,
+    and the Hits returned share it: one hits call a scan, or several with
+    the same fm."""
+    name = "chain_hits"
+    _check_seeds(name, scan, n_seeds, s_rpos, s_len, s_x0, s_freq, H,
+                 max_walk)
+    B, S = s_freq.shape
     tables = [fm.occ_rows, fm.L2, fm.sa_samp, fm.sa_full]
     if not _on_card(name, [*scan, n_seeds, s_rpos, s_len, s_x0, s_freq]
                     + tables):
-        plain = chain_hits_plain(fm, scan.off, n_seeds, s_rpos, s_len,
-                                 s_x0, s_freq, H, max_walk)
-        scan.unresolved.logical_or_(plain.unresolved)
-        return plain._replace(unresolved=scan.unresolved)
+        return _hits_plain(fm, scan, n_seeds, s_rpos, s_len, s_x0, s_freq,
+                           H, max_walk)
     need(fm.occ_rows.dtype == torch.int32 and fm.occ_rows.shape[1:] == (8,)
          and fm.occ_rows.data_ptr() % 16 == 0
          and fm.L2.dtype == torch.int64 and fm.sa_samp.dtype == torch.int64
@@ -341,13 +378,60 @@ def chain_hits(fm: DeviceFMIndex, scan: SeedScan, n_seeds, s_rpos, s_len,
          f"{name}: occ rows int32[n, 8] 16-byte aligned, L2 and sa_samp "
          f"int64, sa_full int32, B*S < 2^31")
     dev = s_freq.device
-    hit = [torch.empty(H, dtype=torch.int32, device=dev) for _ in range(4)]
-    flags = [torch.empty(H, dtype=torch.bool, device=dev) for _ in range(2)]
+    hit, flags = _hits_outputs(H, dev)
     _launch(name, dev, _ptr(scan.off), _ptr(scan.start), _ptr(n_seeds),
             _ptr(s_rpos), _ptr(s_len), _ptr(s_x0), _ptr(s_freq), B, S,
             _ptr(fm.occ_rows), _ptr(fm.L2), _ptr(fm.sa_samp),
             _ptr(fm.sa_full) if fm.has_full_sa else None, int(fm.primary),
             max_walk, H, *map(_ptr, hit + flags), _ptr(scan.unresolved))
+    return Hits(*hit, *flags, scan.unresolved)
+
+
+def chain_hits_routed(fm, scan: SeedScan, n_seeds, s_rpos, s_len, s_x0,
+                      s_freq, H: int, max_walk: int = MAX_WALK) -> Hits:
+    """chain_hits over a genome-sharded index (the `fm` of
+    parallel/sharded_index.ShardedFM3): with a full SA, fm.sa_full is an
+    ops/routed.Routed table and each hit reads its entry from its shard;
+    without one, fm.occ_rows and fm.sa_samp are, and every inverse-Psi
+    step reads its occ4 row from its shard. On the card the routed
+    instantiation of the hits kernel; on the CPU chain_hits_plain over
+    the routed tables. Counted as chain_hits_routed."""
+    from .routed import Routed
+    name = "chain_hits_routed"
+    _check_seeds(name, scan, n_seeds, s_rpos, s_len, s_x0, s_freq, H,
+                 max_walk)
+    B, S = s_freq.shape
+    full = fm.has_full_sa
+    routed = [fm.sa_full] if full else [fm.occ_rows, fm.sa_samp]
+    need(all(isinstance(t, Routed) for t in routed),
+         f"{name}: the SA tables must be routed (ops/routed.Routed)",
+         TypeError)
+    if not _on_card(name, [*scan, n_seeds, s_rpos, s_len, s_x0, s_freq,
+                           fm.L2]):
+        need(all(sh.device.type == "cpu" for t in routed for sh in t.shards),
+             f"{name}: CPU seeds and shards on a card")
+        return _hits_plain(fm, scan, n_seeds, s_rpos, s_len, s_x0, s_freq,
+                           H, max_walk)
+    dev = s_freq.device
+    need(fm.L2.dtype == torch.int64 and B * S < 2 ** 31,
+         f"{name}: L2 int64 and B*S < 2^31")
+    if full:
+        fm.sa_full.check_card(name, dev, torch.int32)
+        occ = samp = None
+    else:
+        occ, samp = fm.occ_rows, fm.sa_samp
+        occ.check_card(name, dev, torch.int32, 8, align=16)
+        samp.check_card(name, dev, torch.int64, align=8)
+
+    def tab(t):
+        return (None, 0) if t is None else (_ptr(t.pointers(dev)), t.per)
+
+    hit, flags = _hits_outputs(H, dev)
+    _launch(name, dev, _ptr(scan.off), _ptr(scan.start), _ptr(n_seeds),
+            _ptr(s_rpos), _ptr(s_len), _ptr(s_x0), _ptr(s_freq), B, S,
+            *tab(occ), _ptr(fm.L2), *tab(samp),
+            *tab(fm.sa_full if full else None), int(fm.primary), max_walk,
+            H, *map(_ptr, hit + flags), _ptr(scan.unresolved))
     return Hits(*hit, *flags, scan.unresolved)
 
 

@@ -1,9 +1,11 @@
 """Small helpers shared by the kernel wrappers and the device pipeline:
-input refusals, launch counters and host-to-device uploads. Imports
+input refusals, launch counters, host-to-device uploads and the devices
+of the scale axes. Imports
 nothing of the package, so any module may import it."""
 from __future__ import annotations
 
 import collections
+import contextlib
 
 import numpy as np
 import torch
@@ -35,3 +37,33 @@ def upload(a, device) -> torch.Tensor:
     if torch.device(device).type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t.to(device)
+
+
+def device_list(device, n: int, devices=None, flag: str = "-devices"):
+    """The devices of a scale axis (`-devices N`, `-shards N`): an
+    explicit list when given (repeats allowed: replicas or shards on one
+    card), else on "cuda" the first n visible cards, raising when fewer
+    are visible, and on "cpu" n CPU devices."""
+    if devices is not None:
+        devs = [torch.device(d) for d in devices]
+        need(len(devs) == n, f"{flag} {n} but {len(devs)} devices given")
+        return devs
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        visible = torch.cuda.device_count()
+        need(n <= visible, f"{flag} {n} but only {visible} CUDA device(s) "
+                           f"visible")
+        return [torch.device("cuda", i) for i in range(n)]
+    need(dev.type == "cpu", f"{flag}: unsupported device {dev}")
+    return [dev] * n
+
+
+def issue_on(device, stream=None):
+    """Context for the launches inside: on `stream` when given (its
+    device too), else on `device`'s current stream; a no-op off the
+    card."""
+    if stream is not None:
+        return torch.cuda.stream(stream)
+    device = torch.device(device)
+    return (torch.cuda.device(device) if device.type == "cuda"
+            else contextlib.nullcontext())

@@ -27,74 +27,133 @@ from ..index.occ3 import build_occ3
 from .fm_device import DeviceFMIndex, occ4, to_i32
 
 
-def _occ3_rows_device(sa: torch.Tensor, words: torch.Tensor, n: int,
-                      nw3: int):
-    """Build the occ3 table on the device from the resident full SA and
+def _occ3_row_chunks(sa: torch.Tensor, words: torch.Tensor, n: int,
+                     nw3: int, chunk_rows: int):
+    """Build the occ3 rows on the device from the resident full SA and
     the packed text words (int64 holding uint32, bwa crumb order), so the
-    host never builds or ships an 18 B/text-base table.
+    host never builds or ships an 18 B/text-base table; chunk_rows rows
+    at a time, each chunk's counts continuing the last one's, so a build
+    holds one chunk's transients (`-shards N` builds a shard at a time).
 
-    -> (rows int32[nw3, 72], c3_first int32[64],
-        pp int64[2] = (row_p1, row_p2))."""
+    Yields (first row, rows int32[m, 72]) for consecutive row ranges."""
     dev = sa.device
-    total = nw3 * 16
-    p = torch.cat([sa.to(torch.int64),
-                   torch.full((total - sa.shape[0],), -1, dtype=torch.int64,
-                              device=dev)])
-    # sym[j] = T[p-3]*16 + T[p-2]*4 + T[p-1]; the three crumbs live in
-    # at most two adjacent bwa-order words (T[i] = w[i>>4] >> (15-i&15)*2)
-    q = torch.clamp(p - 3, 0, n)
-    wi = q >> 4
-    off = q & 15
-    w0 = words[wi]
-    w1 = words[wi + 1]
-    sym_a = (w0 >> (torch.clamp(13 - off, min=0) * 2)) & 63
-    sym_b = ((w0 & 15) << 2) | (w1 >> 30)
-    sym_c = ((w0 & 3) << 4) | (w1 >> 28)
-    sym3 = torch.where(off <= 13, sym_a, torch.where(off == 14, sym_b, sym_c))
-    sym = torch.where(p >= 3, sym3, 255)
-    del q, wi, off, w0, w1, sym_a, sym_b, sym_c, sym3
+    carry = torch.zeros(64, dtype=torch.int32, device=dev)
+    for r0 in range(0, nw3, chunk_rows):
+        m = min(chunk_rows, nw3 - r0)
+        part = sa[r0 * 16:(r0 + m) * 16].to(torch.int64)
+        p = torch.cat([part, torch.full((m * 16 - part.shape[0],), -1,
+                                        dtype=torch.int64, device=dev)])
+        del part
+        # sym[j] = T[p-3]*16 + T[p-2]*4 + T[p-1]; the three crumbs live in
+        # at most two adjacent bwa-order words (T[i] = w[i>>4] >> (15-i&15)*2)
+        q = torch.clamp(p - 3, 0, n)
+        wi = q >> 4
+        off = q & 15
+        w0 = words[wi]
+        w1 = words[wi + 1]
+        sym_a = (w0 >> (torch.clamp(13 - off, min=0) * 2)) & 63
+        sym_b = ((w0 & 15) << 2) | (w1 >> 30)
+        sym_c = ((w0 & 3) << 4) | (w1 >> 28)
+        sym3 = torch.where(off <= 13, sym_a,
+                           torch.where(off == 14, sym_b, sym_c))
+        sym = torch.where(p >= 3, sym3, 255)
+        del p, q, wi, off, w0, w1, sym_a, sym_b, sym_c, sym3
 
-    # per-block symbol histogram (sentinel 255 goes to a dropped column),
-    # then the exclusive prefix sum over blocks
-    blocks = sym.reshape(nw3, 16)
-    per = torch.zeros((nw3, 65), dtype=torch.int32, device=dev)
-    per.scatter_add_(1, torch.clamp(blocks, max=64),
-                     torch.ones_like(blocks, dtype=torch.int32))
-    # the prefix sum runs along the inner dimension of the transposed
-    # histogram: a scan over the outer dimension of a 64-wide tensor runs
-    # one thread per column on CUDA
-    cnt = torch.zeros((64, nw3), dtype=torch.int32, device=dev)
-    cnt[:, 1:] = torch.cumsum(per[:-1, :64].t(), dim=1, dtype=torch.int32)
-    cnt = cnt.t()
-    del per
+        # per-block symbol histogram (sentinel 255 goes to a dropped
+        # column), then the exclusive prefix sum over blocks after the
+        # chunks before
+        blocks = sym.reshape(m, 16)
+        per = torch.zeros((m, 65), dtype=torch.int32, device=dev)
+        per.scatter_add_(1, torch.clamp(blocks, max=64),
+                         torch.ones_like(blocks, dtype=torch.int32))
+        # the prefix sum runs along the inner dimension of the transposed
+        # histogram: a scan over the outer dimension of a 64-wide tensor
+        # runs one thread per column on CUDA
+        cnt = torch.zeros((64, m), dtype=torch.int32, device=dev)
+        cnt[:, 1:] = torch.cumsum(per[:-1, :64].t(), dim=1,
+                                  dtype=torch.int32)
+        if r0:
+            cnt += carry[:, None]
+        carry = cnt[:, -1] + per[-1, :64]
+        cnt = cnt.t()
+        del per
 
-    # 4 symbol bytes per little-endian word
-    packed = (sym[0::4] | (sym[1::4] << 8) | (sym[2::4] << 16)
-              | (sym[3::4] << 24))
-    rows = torch.cat([cnt, to_i32(packed).reshape(nw3, 4),
-                      torch.zeros((nw3, 4), dtype=torch.int32, device=dev)],
-                     dim=1)
-    del cnt, packed, sym, blocks
+        # 4 symbol bytes per little-endian word
+        packed = (sym[0::4] | (sym[1::4] << 8) | (sym[2::4] << 16)
+                  | (sym[3::4] << 24))
+        rows = torch.cat([cnt, to_i32(packed).reshape(m, 4),
+                          torch.zeros((m, 4), dtype=torch.int32,
+                                      device=dev)], dim=1)
+        del cnt, packed, sym, blocks
+        yield r0, rows
 
-    # c3_first[d] = #{suffixes whose base-5 start key < dkey(d)}: a
-    # multiset count, so a histogram of the 125 keys and its prefix sum
-    i = torch.arange(n, dtype=torch.int64, device=dev)
-    T = (words[i >> 4] >> ((15 - (i & 15)) * 2)) & 3
-    del i
-    z = torch.zeros(3, dtype=torch.int64, device=dev)
-    keys = ((torch.cat([T + 1, z[:1]]) * 25)
-            + (torch.cat([T[1:] + 1, z[:2]]) * 5)
-            + torch.cat([T[2:] + 1, z[:3]]))
-    del T
-    hist = torch.bincount(keys, minlength=125)
+
+def _c3_first(words: torch.Tensor, n: int, chunk: int) -> torch.Tensor:
+    """c3_first[d] = #{suffixes whose base-5 start key < dkey(d)}: a
+    multiset count, so a histogram of the 125 keys (the n + 1 suffixes,
+    `chunk` at a time) and its prefix sum."""
+    dev = words.device
+    hist = torch.zeros(125, dtype=torch.int64, device=dev)
+    for i0 in range(0, n + 1, chunk):
+        m = min(chunk, n + 1 - i0)
+        i = torch.arange(i0, min(i0 + m + 2, n), dtype=torch.int64,
+                         device=dev)
+        # a base's key digit is its code + 1; past the text, 0
+        T1 = ((words[i >> 4] >> ((15 - (i & 15)) * 2)) & 3) + 1
+        del i
+        T1 = torch.cat([T1, torch.zeros(m + 2 - T1.shape[0],
+                                        dtype=torch.int64, device=dev)])
+        keys = T1[:m] * 25 + T1[1:m + 1] * 5 + T1[2:m + 2]
+        del T1
+        hist += torch.bincount(keys, minlength=125)
+        del keys
     lt = torch.cumsum(hist, 0) - hist                  # #keys < value
     d = np.arange(64)
     dkeys = ((d >> 4) + 1) * 25 + (((d >> 2) & 3) + 1) * 5 + ((d & 3) + 1)
-    c3_first = lt[torch.as_tensor(dkeys, device=dev)].to(torch.int32)
+    return lt[torch.as_tensor(dkeys, device=dev)].to(torch.int32)
 
-    pp = torch.stack([torch.argmax((sa == 1).to(torch.uint8)),
-                      torch.argmax((sa == 2).to(torch.uint8))])
-    return rows, c3_first, pp
+
+def occ3_parts(idx: FMIndex, fm: DeviceFMIndex,
+               text_words: torch.Tensor | None = None,
+               chunk_rows: int | None = None):
+    """The occ3 table of idx (without prefix-skip rows) on fm's device,
+    chunk_rows rows at a time (default: one chunk), and its constants:
+    built on the device from fm's full SA, or without it from the
+    persisted artifact (disk memmap) or a host rebuild, uploaded a chunk
+    at a time. -> (iterator of (first row, int32[m, 72]), number of rows,
+    dict of c3_first, row_p1, row_p2, t0, t1, tail1, tail2a, tail2b)."""
+    dev = fm.device
+    if fm.has_full_sa and idx.sa_full.dtype == np.int32:
+        if text_words is None:
+            text_words = packed_text_words(idx, dev)
+        n = idx.seq_len
+        nw3 = (n + 16) // 16 + 2
+        chunk_rows = chunk_rows or nw3
+        sa = fm.sa_full
+        pp = torch.stack([torch.argmax((sa == 1).to(torch.uint8)),
+                          torch.argmax((sa == 2).to(torch.uint8))])
+        pp = pp.cpu().numpy()
+        c0, c1 = int(idx.ref.codes[0]), int(idx.ref.codes[1])
+        consts = dict(c3_first=_c3_first(text_words, n, 16 * chunk_rows),
+                      row_p1=int(pp[0]), row_p2=int(pp[1]),
+                      t0=c0, t1=c1, tail1=3 - c0, tail2a=3 - c1,
+                      tail2b=3 - c0)
+        return (_occ3_row_chunks(sa, text_words, n, nw3, chunk_rows), nw3,
+                consts)
+    tab = idx.occ3_table
+    if tab is None:
+        tab = build_occ3(idx.sa_full, idx.ref.fwd_rc_codes())
+    nw3 = int(tab.rows.shape[0])
+    chunk_rows = chunk_rows or nw3
+    chunks = ((r0, torch.as_tensor(np.array(tab.rows[r0:r0 + chunk_rows]),
+                                   device=dev))
+              for r0 in range(0, nw3, chunk_rows))
+    consts = dict(c3_first=torch.as_tensor(
+                      np.asarray(tab.c3_first, dtype=np.int32), device=dev),
+                  row_p1=tab.row_p1, row_p2=tab.row_p2, t0=tab.t0,
+                  t1=tab.t1, tail1=tab.tail1, tail2a=tab.tail2a,
+                  tail2b=tab.tail2b)
+    return chunks, nw3, consts
 
 
 @dataclasses.dataclass
@@ -146,37 +205,8 @@ class DeviceFM3:
             raise ValueError(f"pfx_k={pfx_k} outside [0, 15]")
         fm = (dev_fm if dev_fm is not None
               else DeviceFMIndex.from_host(idx, device=device))
-        dev = fm.device
-        if fm.has_full_sa and idx.sa_full.dtype == np.int32:
-            # derive the table on the device from the resident SA +
-            # packed text (see _occ3_rows_device)
-            if text_words is None:
-                text_words = packed_text_words(idx, dev)
-            n = idx.seq_len
-            nw3 = (n + 16) // 16 + 2
-            rows, c3_first, pp = _occ3_rows_device(fm.sa_full, text_words,
-                                                   n, nw3)
-            pp = pp.cpu().numpy()
-            c0, c1 = int(idx.ref.codes[0]), int(idx.ref.codes[1])
-            kw = dict(fm=fm, occ3_rows=rows, c3_first=c3_first,
-                      row_p1=int(pp[0]), row_p2=int(pp[1]),
-                      t0=c0, t1=c1, tail1=3 - c0,
-                      tail2a=3 - c1, tail2b=3 - c0)
-        else:
-            # no device-resident SA: the persisted artifact (disk
-            # memmap) or a host rebuild
-            tab = idx.occ3_table
-            if tab is None:
-                tab = build_occ3(idx.sa_full, idx.ref.fwd_rc_codes())
-            kw = dict(fm=fm,
-                      occ3_rows=torch.as_tensor(np.array(tab.rows),
-                                                device=dev),
-                      c3_first=torch.as_tensor(
-                          np.asarray(tab.c3_first, dtype=np.int32),
-                          device=dev),
-                      row_p1=tab.row_p1, row_p2=tab.row_p2,
-                      t0=tab.t0, t1=tab.t1, tail1=tab.tail1,
-                      tail2a=tab.tail2a, tail2b=tab.tail2b)
+        chunks, _, consts = occ3_parts(idx, fm, text_words)
+        kw = dict(fm=fm, occ3_rows=next(chunks)[1], **consts)
         pfx_base = 0
         nrows = int(kw["occ3_rows"].shape[0])
         # fused skip rows must keep (row << 4) + entry inside int32
@@ -217,7 +247,11 @@ def _embed_pfx(rows: torch.Tensor, pfx_tab: torch.Tensor) -> torch.Tensor:
 def gather3(fm3: DeviceFM3, i: torch.Tensor):
     """One row gather: (cnt64 int64[...,64], syms int64[...,16],
     m = i & 15). Symbol byte q of the row sits in byte q&3 of word q>>2."""
-    row = fm3.occ3_rows[i >> 4]
+    return decode3(fm3.occ3_rows[i >> 4], i)
+
+
+def decode3(row: torch.Tensor, i: torch.Tensor):
+    """gather3's result from the gathered occ3 rows of indices i."""
     cnt64 = row[..., :64].to(torch.int64)
     w = row[..., 64:68].to(torch.int64)
     sh = torch.arange(0, 32, 8, dtype=torch.int64, device=i.device)

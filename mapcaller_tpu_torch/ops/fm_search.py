@@ -127,11 +127,11 @@ def _record_seed(s: dict, finalize, slen, slot_ids) -> dict:
 
 
 def _step3(fm3: DeviceFM3, s: dict, rlens, codes_fn, key_fn, max_len: int,
-           slot_ids) -> dict:
+           slot_ids, gather_fn=gather3) -> dict:
     """One iteration of the occ3 state machine for every lane (see
     _seed_scan3). rlens int64[R] per lane; codes_fn / key_fn map
     positions int64[R] to codes / prefix keys (key_fn None: no fused
-    prefix skip)."""
+    prefix skip); gather_fn(fm3, i) fetches the rows (gather3)."""
     L2 = fm3.L2
     pos, in_ext, replay = s["pos"], s["in_ext"], s["replay"]
     start, ext_pos = s["start"], s["ext_pos"]
@@ -162,8 +162,8 @@ def _step3(fm3: DeviceFM3, s: dict, rlens, codes_fn, key_fn, max_len: int,
         # instead of a dummy row (key >> 4 = row, key & 15 = entry)
         key = key_fn(torch.clamp(pos, max=max_len - 1))
         k = torch.where(start_new, (int(fm3.pfx_base) << 4) + key, k)
-    gk = gather3(fm3, k)
-    gl = gather3(fm3, l)
+    gk = gather_fn(fm3, k)
+    gl = gather_fn(fm3, l)
     if key_fn is not None:
         p_x0, p_x1, p_x2 = _pfx_entry(gk[0], key)
         jump = start_new & (p_x2 > 0)
@@ -201,7 +201,8 @@ def _step3(fm3: DeviceFM3, s: dict, rlens, codes_fn, key_fn, max_len: int,
 
 
 def _seed_scan3(fm3: DeviceFM3, codes_fn, rlens, B: int, max_len: int,
-                max_seeds: int, key_fn=None, with_iters: bool = False):
+                max_seeds: int, key_fn=None, with_iters: bool = False,
+                gather_fn=gather3):
     """Greedy-MEM state machine on the 3-step occ table: extensions
     advance 3 bases per iteration (2 gathers) while >= 3 bases remain; on
     a 3-step failure the lane replays from the saved state with derived
@@ -218,7 +219,11 @@ def _seed_scan3(fm3: DeviceFM3, codes_fn, rlens, B: int, max_len: int,
     Returns (n_seeds, s_rpos, s_len, s_x0, s_freq, overflow):
     int64[B], int64[B, max_seeds] x4, bool[B]; with_iters also each
     lane's step count int64[B] (the reference's with_iters) and the occ3
-    rows it gathered, two a step that extends or tries to (int64[B])."""
+    rows it gathered, two a step that extends or tries to (int64[B]).
+
+    gather_fn(fm3, i) fetches the occ3 rows of indices i: gather3, or
+    parallel/sharded_index.routed_gather3 over a genome-sharded table
+    (the reference's hook, mapcaller_tpu/ops/fm_search.py:125-126)."""
     dev = rlens.device
     rlens = rlens.to(torch.int64)
     slot_ids = torch.arange(max_seeds, dtype=torch.int64, device=dev)[None, :]
@@ -234,7 +239,8 @@ def _seed_scan3(fm3: DeviceFM3, codes_fn, rlens, B: int, max_len: int,
             if with_iters:
                 iters[0] += st["in_ext"] | (st["pos"] < rlens - MIN_SEED_LEN)
                 iters[1] += 2 * (st["in_ext"] & (st["ext_pos"] < rlens))
-            st = _step3(fm3, st, rlens, codes_fn, key_fn, max_len, slot_ids)
+            st = _step3(fm3, st, rlens, codes_fn, key_fn, max_len, slot_ids,
+                        gather_fn)
     return tuple(st[k] for k in _SEED_KEYS) + (tuple(iters) if with_iters
                                                else ())
 

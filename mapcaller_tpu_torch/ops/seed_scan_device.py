@@ -2,12 +2,15 @@
 `csrc/seed_scan.cu` and their plain PyTorch versions.
 
 Device form of the seeding hot loop (ref: src/bwt_search.cpp:121-164,
-BWT_Search). Two entry points on tensors:
+BWT_Search). Three entry points on tensors:
 
   seed_scan3  the occ3 scan (ops/fm3_device.DeviceFM3) with the fused
               prefix skip, one thread per read, or with 0 < lanes < B
               `lanes` threads that take reads from a queue (the compacted
               scan's contract);
+  seed_scan3_routed  the occ3 scan over a genome-sharded table (`-shards
+              N`, parallel/sharded_index.ShardedFM3), each row read from
+              its shard; one thread per read, no prefix skip;
   seed_scan1  the 1-step scan over the occ4 rows (ops/fm_device.
               DeviceFMIndex), on 2-bit packed codes or, with has_n, on
               byte codes whose N ends an extension.
@@ -16,7 +19,8 @@ Each returns the plain scans' tuple (n_seeds, s_rpos, s_len, s_x0,
 s_freq, overflow), int64 and bool as they are, and with_iters also each
 read's step count and the index rows it gathered. On a CUDA tensor a
 call is one launch on the current stream, with no host sync, or it
-raises; on a CPU tensor it runs the plain version (seed_scan3_plain / seed_scan1_plain: `fm_search._seed_scan3`,
+raises; on a CPU tensor it runs the plain version (seed_scan3_plain,
+seed_scan3_routed_plain, seed_scan1_plain: `fm_search._seed_scan3`,
 `_seed_scan3_compact` or `_seed_scan`). There is no fallback between the
 two.
 """
@@ -41,6 +45,13 @@ def _load_kernel():
         lib.mc_seed_scan3.restype = C.c_int
         lib.mc_seed_scan3.argtypes = ([C.c_void_p] * 5 + [C.c_int] * 15
                                       + [C.c_void_p] * 7)
+        lib.mc_seed_scan3_routed.restype = C.c_int
+        lib.mc_seed_scan3_routed.argtypes = ([C.c_void_p, C.c_int]
+                                             + [C.c_void_p] * 4
+                                             + [C.c_int] * 12
+                                             + [C.c_void_p] * 6)
+        lib.mc_enable_peer_access.restype = C.c_int
+        lib.mc_enable_peer_access.argtypes = [C.c_int, C.c_int]
         lib.mc_seed_scan1.restype = C.c_int
         lib.mc_seed_scan1.argtypes = ([C.c_void_p] * 4 + [C.c_int] * 6
                                       + [C.c_void_p] * 6)
@@ -49,26 +60,33 @@ def _load_kernel():
 
 
 def _check(name, table, row_width, codes, width, rlens, max_len, max_seeds):
-    """Device, dtype, shape, contiguity and alignment of a scan's inputs."""
+    """Device, dtype, shape, contiguity and alignment of a scan's inputs;
+    table None (a routed scan, whose shards are checked on the card)
+    checks the reads only."""
     need(max_len >= 16 and max_len % 16 == 0,
           f"{name}: max_len {max_len} must be a multiple of 16")
     need(max_seeds >= 1, f"{name}: max_seeds must be >= 1")
-    need(table.dtype == torch.int32 and codes.dtype == torch.uint8
-          and rlens.dtype == torch.int32,
-          f"{name}: rows int32, codes uint8 and rlens int32 expected",
-          TypeError)
-    need(table.dim() == 2 and table.shape[1] == row_width,
-          f"{name}: table rows must be int32[n, {row_width}]")
+    need(codes.dtype == torch.uint8 and rlens.dtype == torch.int32,
+          f"{name}: codes uint8 and rlens int32 expected", TypeError)
     need(codes.dim() == 2 and codes.shape[1] == width and rlens.dim() == 1
           and rlens.shape[0] == codes.shape[0],
           f"{name}: codes must be uint8[B, {width}] and rlens int32[B]")
-    devs = {table.device, codes.device, rlens.device}
+    ts = (codes, rlens) if table is None else (table, codes, rlens)
+    devs = {t.device for t in ts}
     need(len(devs) == 1, f"{name}: tensors on several devices {devs}")
-    need(all(t.is_contiguous() for t in (table, codes, rlens)),
+    need(all(t.is_contiguous() for t in ts),
           f"{name}: inputs must be contiguous")
-    # the kernel loads rows as 16-byte vectors and reads as 32-bit words
-    need(table.data_ptr() % 16 == 0 and codes.data_ptr() % 4 == 0,
-          f"{name}: rows must be 16-byte and codes 4-byte aligned")
+    # the kernel reads reads as 32-bit words
+    need(codes.data_ptr() % 4 == 0, f"{name}: codes must be 4-byte aligned")
+    if table is None:
+        return
+    need(table.dtype == torch.int32, f"{name}: rows int32 expected",
+          TypeError)
+    need(table.dim() == 2 and table.shape[1] == row_width,
+          f"{name}: table rows must be int32[n, {row_width}]")
+    # the kernel loads rows as 16-byte vectors
+    need(table.data_ptr() % 16 == 0, f"{name}: rows must be 16-byte "
+                                      f"aligned")
 
 
 def _outputs(B: int, S: int, dev):
@@ -103,6 +121,19 @@ def seed_scan3_plain(fm3, packed, rlens, max_len: int, max_seeds: int,
         fm3, lambda p: fs._word_codes(words, p), rlens, B, max_len,
         max_seeds, key_fn=(lambda p: fs._word_key(words, p, fm3.pfx_k))
         if fm3.pfx_k else None, with_iters=with_iters)
+
+
+def seed_scan3_routed_plain(sfm3, packed, rlens, max_len: int,
+                            max_seeds: int, with_iters: bool = False):
+    """Plain version of seed_scan3_routed on any device: the lockstep
+    scan with every row gathered from its shard (parallel/sharded_index.
+    routed_gather3)."""
+    from ..parallel.sharded_index import routed_gather3
+    from . import fm_search as fs
+    words = fs._read_words_le(packed)
+    return fs._seed_scan3(
+        sfm3, lambda p: fs._word_codes(words, p), rlens, packed.shape[0],
+        max_len, max_seeds, with_iters=with_iters, gather_fn=routed_gather3)
 
 
 def seed_scan1_plain(fm, codes, rlens, max_len: int, max_seeds: int,
@@ -153,19 +184,68 @@ def seed_scan3(fm3, packed: torch.Tensor, rlens: torch.Tensor, max_len: int,
     nxt = torch.zeros(1, dtype=torch.int32, device=dev)
     lib = _load_kernel()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.mc_seed_scan3(
-        fm3.occ3_rows.data_ptr(), fm3.c3_first.data_ptr(), fm.L2.data_ptr(),
-        packed.data_ptr(), rlens.data_ptr(), B, lanes if compact else 0,
-        max_len, max_seeds, scan3_cap(max_len, max_seeds),
-        int(fm.primary), int(fm3.row_p1), int(fm3.row_p2), int(fm3.t0),
-        int(fm3.t1), int(fm3.tail1), int(fm3.tail2a), int(fm3.tail2b),
-        int(fm3.pfx_base), int(fm3.pfx_k), nxt.data_ptr(),
-        n_seeds.data_ptr(), tab.data_ptr(), overflow.data_ptr(),
-        counts[0].data_ptr(), counts[1].data_ptr(), stream)
+    with torch.cuda.device(dev):
+        err = lib.mc_seed_scan3(
+            fm3.occ3_rows.data_ptr(), fm3.c3_first.data_ptr(),
+            fm.L2.data_ptr(), packed.data_ptr(), rlens.data_ptr(), B,
+            lanes if compact else 0, max_len, max_seeds,
+            scan3_cap(max_len, max_seeds), int(fm.primary),
+            int(fm3.row_p1), int(fm3.row_p2), int(fm3.t0), int(fm3.t1),
+            int(fm3.tail1), int(fm3.tail2a), int(fm3.tail2b),
+            int(fm3.pfx_base), int(fm3.pfx_k), nxt.data_ptr(),
+            n_seeds.data_ptr(), tab.data_ptr(), overflow.data_ptr(),
+            counts[0].data_ptr(), counts[1].data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"seed_scan3: CUDA kernel launch failed (error "
                            f"{err})")
     STATS.launches["seed_scan3"] += 1
+    return _result(n_seeds, tab, overflow, counts, with_iters)
+
+
+def seed_scan3_routed(sfm3, packed: torch.Tensor, rlens: torch.Tensor,
+                      max_len: int, max_seeds: int, with_iters: bool = False):
+    """The occ3 scan over a genome-sharded table (parallel/sharded_index.
+    ShardedFM3, whose occ3 is an ops/routed.Routed table): a thread per
+    read, each row read from its shard through the shards' base
+    addresses; no fused prefix skip and no lanes mode. Inputs and outputs
+    as seed_scan3. A CPU tensor runs seed_scan3_routed_plain. Counted as
+    seed_scan3_routed."""
+    from .fm_search import scan3_cap
+    name = "seed_scan3_routed"
+    B = packed.shape[0]
+    _check(name, None, 72, packed, max_len // 4, rlens, max_len, max_seeds)
+    need(sfm3.pfx_base == 0, f"{name}: the routed scan has no prefix skip")
+    if packed.device.type == "cpu":
+        need(all(sh.device.type == "cpu" for sh in sfm3.occ3.shards),
+              f"{name}: CPU reads and shards on a card")
+        return seed_scan3_routed_plain(sfm3, packed, rlens, max_len,
+                                       max_seeds, with_iters)
+    need(packed.device.type == "cuda",
+          f"{name}: unsupported device {packed.device}")
+    dev = packed.device
+    sfm3.occ3.check_card(name, dev, torch.int32, 72, align=16)
+    need(sfm3.c3_first.dtype == torch.int32 and sfm3.L2.dtype == torch.int64
+          and sfm3.c3_first.device == dev and sfm3.L2.device == dev,
+          f"{name}: c3_first int32 and L2 int64 on the batch's device")
+    n_seeds, tab, overflow, counts = _outputs(B, max_seeds, dev)
+    if B == 0:
+        return _result(n_seeds, tab, overflow, counts, with_iters)
+    lib = _load_kernel()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = lib.mc_seed_scan3_routed(
+            sfm3.occ3.pointers(dev).data_ptr(), sfm3.occ3.per,
+            sfm3.c3_first.data_ptr(), sfm3.L2.data_ptr(), packed.data_ptr(),
+            rlens.data_ptr(), B, max_len, max_seeds,
+            scan3_cap(max_len, max_seeds), int(sfm3.primary),
+            int(sfm3.row_p1), int(sfm3.row_p2), int(sfm3.t0), int(sfm3.t1),
+            int(sfm3.tail1), int(sfm3.tail2a), int(sfm3.tail2b),
+            n_seeds.data_ptr(), tab.data_ptr(), overflow.data_ptr(),
+            counts[0].data_ptr(), counts[1].data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA kernel launch failed (error "
+                           f"{err})")
+    STATS.launches[name] += 1
     return _result(n_seeds, tab, overflow, counts, with_iters)
 
 
@@ -193,12 +273,13 @@ def seed_scan1(fm, codes: torch.Tensor, rlens: torch.Tensor, max_len: int,
         return _result(n_seeds, tab, overflow, counts, with_iters)
     lib = _load_kernel()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.mc_seed_scan1(
-        fm.occ_rows.data_ptr(), fm.L2.data_ptr(), codes.data_ptr(),
-        rlens.data_ptr(), B, int(has_n), max_len, max_seeds,
-        scan1_cap(max_len, max_seeds), int(fm.primary),
-        n_seeds.data_ptr(), tab.data_ptr(), overflow.data_ptr(),
-        counts[0].data_ptr(), counts[1].data_ptr(), stream)
+    with torch.cuda.device(dev):
+        err = lib.mc_seed_scan1(
+            fm.occ_rows.data_ptr(), fm.L2.data_ptr(), codes.data_ptr(),
+            rlens.data_ptr(), B, int(has_n), max_len, max_seeds,
+            scan1_cap(max_len, max_seeds), int(fm.primary),
+            n_seeds.data_ptr(), tab.data_ptr(), overflow.data_ptr(),
+            counts[0].data_ptr(), counts[1].data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"seed_scan1: CUDA kernel launch failed (error "
                            f"{err})")

@@ -8,7 +8,10 @@ with device_chain=False the packed seed kernel hands back every kept hit
 for host chaining instead (submit_packed / collect_packed), and the
 non-native path seeds lists of reads (submit / collect). The occ3 scans
 run when the occ3 table fits the card beside the working set and the
-index has its full SA, else the 1-step scan over the occ4 rows.
+index has its full SA, else the 1-step scan over the occ4 rows. With
+cfg.index_shards = N > 1 the chain dispatch runs genome-sharded over N
+devices (parallel/sharded_index.py): the occ3 rows and the SA in shards,
+each device mapping its N-th of a batch with the routed kernels.
 Reads the fixed-capacity kernels flag as overflowed (seed table, SA walk,
 hit buffer) are re-seeded with the host oracle and spliced in, as in the
 reference package: that splice is part of its capacity contract.
@@ -25,11 +28,14 @@ import torch
 from ..config import Config
 from ..index.fmindex import FMIndex
 from ..ops.chain_device import CLASS_SLOW, ChainCtx
-from ..ops.device_util import upload
+from ..ops.device_util import device_list, upload
 from ..ops.fm3_device import DeviceFM3
 from ..ops.fm_device import DeviceFMIndex
 from ..ops.fm_search import (build_seed_chain_kernel, build_seed_kernel,
                               build_seed_kernel_packed)
+from ..ops.routed import enable_peer_access
+from ..parallel.sharded_index import (ShardedChainKernel,
+                                      build_shard_index, replicate_ctx)
 from .device_profile import STATS as EVIDENCE_STATS
 from .seeding import identify_simple_pairs
 
@@ -62,7 +68,6 @@ class ChainToken:
 class DeviceBackend:
     BUCKETS = (128, 192, 256)
     n_devices = 1
-    index_shards = 0
 
     # stream buffers and temporaries of the seed/chain kernel
     _WORKSPACE = 1_500_000_000
@@ -73,15 +78,34 @@ class DeviceBackend:
     # memory the prefix-skip depth choice leaves free on the card
     _PFX_RESERVE = 500_000_000
 
-    def __init__(self, idx: FMIndex, cfg: Config):
+    def __init__(self, idx: FMIndex, cfg: Config, device=None,
+                 shard_devices=None):
+        """device: this backend's device (default cfg.device; a replica
+        of parallel/devices.MultiDeviceBackend names its own).
+        shard_devices: under cfg.index_shards = N > 1, the N devices of
+        the shards (repeats allowed, as [cuda:0] * N on one card); by
+        default the first N visible cards, or N CPU devices on the CPU."""
         self.idx = idx
         self.cfg = cfg
-        self.device = torch.device(cfg.device)
+        self.device = torch.device(device if device is not None
+                                   else cfg.device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 "Config.device is cuda but no CUDA device is visible; pass "
                 "device='cpu' to run the plain PyTorch versions")
         _refuse_unported(cfg)
+        # genome-sharded occ3 index over N devices (parallel/
+        # sharded_index.py): the chain stage of each batch runs on the
+        # shards, each mapping B/N of its reads
+        self.index_shards = int(getattr(cfg, "index_shards", 0) or 0)
+        self.shard_devs = (device_list(self.device, self.index_shards,
+                                       shard_devices, "-shards")
+                           if self.index_shards > 1 else [])
+        self._sharded = None
+        # sharded chain dispatches: a routing escape (a sharded batch
+        # sent through the single-card kernels) writes the same bytes, so
+        # parity alone cannot catch it; the tests assert this is > 0
+        self.sharded_invocations = 0
         self.batch = cfg.batch_size
         self.max_len = cfg.max_read_len
         self._kernels = {}
@@ -97,9 +121,16 @@ class DeviceBackend:
         self.fm = DeviceFMIndex.from_host(idx, device=self.device)
         # the occ3 scans need the full SA and the 3-step table beside
         # the working set; else the 1-step scan over the occ4 rows
-        self._fm3_ok = (idx.sa_full is not None
-                        and idx.seq_len < (1 << 31) - 2
-                        and self._occ3_fits(idx))
+        if self.index_shards > 1:
+            # the sharded chain stage is the occ3 path; row indices and
+            # counts stay int32 (texts below 2^31 rows; beyond, ROADMAP
+            # slice 3), each shard at most 2^29 rows' worth of text
+            self._fm3_ok = idx.sa_full is not None and idx.seq_len < min(
+                self.index_shards * (1 << 29), (1 << 31) - 2)
+        else:
+            self._fm3_ok = (idx.sa_full is not None
+                            and idx.seq_len < (1 << 31) - 2
+                            and self._occ3_fits(idx))
         # evidence planes on the card when they fit beside the seeding
         # tables; else the C++ host diff arrays (runner logs the choice)
         self.device_evidence_ok = self._device_evidence_fits(idx)
@@ -212,11 +243,12 @@ class DeviceBackend:
 
     def release_index_tables(self) -> None:
         """Drop the device-resident seeding tables (occ3 rows incl.
-        prefix entries, chain kernels) before the calling phase; they
-        rebuild lazily if mapping runs again."""
+        prefix entries, the shard tables, chain kernels) before the
+        calling phase; they rebuild lazily if mapping runs again."""
         import gc
         self._kernels.clear()
         self._fm3 = None
+        self._sharded = None
         gc.collect()
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
@@ -230,6 +262,30 @@ class DeviceBackend:
             self._kernels[key] = build_seed_chain_kernel(
                 self.seed_fm, self.chain_ctx, bucket, B, slow_hits_x4=tier,
                 compact_lanes=lanes)
+        return self._kernels[key]
+
+    def _sharded_setup(self):
+        """Place the shard tables on their devices, once: the occ3 rows
+        (without prefix rows) built on this device from its resident SA
+        one shard at a time, each moved to its shard's device before the
+        next (parallel/sharded_index.build_shard_index), so no device
+        holds the whole table beside its shard; the SA tables split over
+        the shard devices, the small tables and the chain context
+        replicated on each. No host copy of a table is made."""
+        if self._sharded is None:
+            enable_peer_access(self.shard_devs)
+            tw = self.chain_ctx.text_words if self.chain_enabled else None
+            self._sharded = (
+                build_shard_index(self.idx, self.fm, self.shard_devs, tw),
+                replicate_ctx(self.chain_ctx, self.shard_devs))
+        return self._sharded
+
+    def _sharded_chain_for(self, bucket: int, tier: int, batch_global: int):
+        key = ("schain", bucket, tier, batch_global)
+        if key not in self._kernels:
+            sfm3s, ctxs = self._sharded_setup()
+            self._kernels[key] = ShardedChainKernel(
+                sfm3s, ctxs, self.shard_devs, bucket, batch_global, tier)
         return self._kernels[key]
 
     def _download(self, dev: torch.Tensor):
@@ -260,7 +316,15 @@ class DeviceBackend:
         Returns without waiting for the card: the scan is one kernel
         launch, nothing in the dispatch reads a device value back, and
         the output's copy to the host is queued behind it, so the stream's
-        host leg of the batch before overlaps this batch's device work."""
+        host leg of the batch before overlaps this batch's device work.
+
+        With cfg.index_shards = N > 1 the chain stage runs on the shards
+        (parallel/sharded_index.py), the batch padded to a multiple of
+        32 N reads; the token and collect_chain's contract are the same.
+        The evidence apply is not folded there: the token holds pd and mmp
+        for the stand-alone apply, as the reference's sharded path."""
+        if self.index_shards > 1 and self._fm3_ok:
+            return self._submit_sharded(packed, rlens, bucket, tier)
         packed_dev = upload(packed, self.device)
         rl_dev = upload(np.maximum(rlens, 0).astype(np.int32),
                         self.device)
@@ -276,6 +340,24 @@ class DeviceBackend:
         return ChainToken(kernel, dev, rlens < 0, packed_dev, rl_dev, bucket,
                           rlens, pd, mmp, spec=spec, host=host, ready=ready)
 
+    def _submit_sharded(self, packed: np.ndarray, rlens: np.ndarray,
+                        bucket: int, tier: int) -> ChainToken:
+        n = self.index_shards
+        B0 = packed.shape[0]
+        BG = -(-B0 // (32 * n)) * 32 * n
+        packed_p = np.zeros((BG, packed.shape[1]), dtype=packed.dtype)
+        packed_p[:B0] = packed
+        rl_p = np.zeros(BG, dtype=np.int32)
+        rl_p[:B0] = np.maximum(rlens, 0)
+        packed_dev = upload(packed_p, self.device)
+        rl_dev = upload(rl_p, self.device)
+        kernel = self._sharded_chain_for(bucket, tier, BG)
+        dev, pd, mmp = kernel(packed_dev, rl_dev)
+        self.sharded_invocations += 1
+        host, ready = self._download(dev)
+        return ChainToken(kernel, dev, rlens < 0, packed_dev, rl_dev, bucket,
+                          rlens, pd, mmp, host=host, ready=ready)
+
     def collect_chain(self, token: ChainToken, n: int, read_codes_fn):
         """-> (cls, pd, mm, rplast, cscore, counts, rpos, gpos, slen).
         Overflow / too-long reads are re-seeded with the host oracle and
@@ -288,8 +370,12 @@ class DeviceBackend:
         token.cls0 = cls
         if buf_ovf:
             self.n_tier_reruns += 1
-            kernel2 = self._chain_kernel_for(token.bucket, tier=18,
-                                             batch=len(token.rlens))
+            if isinstance(token.kernel, ShardedChainKernel):
+                kernel2 = self._sharded_chain_for(token.bucket, 18,
+                                                  token.kernel.BG)
+            else:
+                kernel2 = self._chain_kernel_for(token.bucket, tier=18,
+                                                 batch=len(token.rlens))
             dev2, pd2, mmp2 = kernel2(token.packed_dev, token.rl_dev)
             (cls, pd, mm, rplast, cscore, counts, rpos, gpos, slen,
              overflow, buf_ovf) = kernel2.collect(dev2)
@@ -497,14 +583,6 @@ def _drop_reads(counts, rpos, gpos, slen, drop):
 def _refuse_unported(cfg: Config) -> None:
     """Options whose device paths are not in this port yet raise here,
     naming their ROADMAP.md items, instead of running something else."""
-    if int(getattr(cfg, "devices", 1)) > 1:
-        raise NotImplementedError(
-            "-devices N > 1 is not ported yet (ROADMAP.md, next slice "
-            "1)")
-    if int(getattr(cfg, "index_shards", 0) or 0) > 1:
-        raise NotImplementedError(
-            "-shards N > 1 is not ported yet (ROADMAP.md, next slice "
-            "2)")
     if getattr(cfg, "big_x64", False):
         raise NotImplementedError(
             "big_x64 is not ported yet (ROADMAP.md, next slice 3)")

@@ -180,16 +180,18 @@ def build_finalize_kernel(L: int):
 
 
 def make_device_evidence(backend, cfg, host_profile):
-    """DeviceEvidence factory: the single-card planes. The reference's
-    genome-sharded and multi-device planes are not ported yet."""
+    """DeviceEvidence factory: per-replica planes for a multi-device
+    backend (`-devices N`, parallel/devices.MultiDeviceEvidence), else the
+    single-card planes (also under `-shards N`, whose planes stay on the
+    backend's device). The reference's genome-sharded planes of the x64
+    big-genome path are not ported yet."""
     if getattr(backend, "big_x64", False) and backend.index_shards > 1:
         raise NotImplementedError(
             "genome-sharded evidence planes (BigDeviceEvidence) are not "
             "ported yet (ROADMAP.md, next slice 3)")
     if getattr(backend, "is_multi_device", False):
-        raise NotImplementedError(
-            "multi-device evidence planes (MultiDeviceEvidence) are not "
-            "ported yet (ROADMAP.md, next slice 1)")
+        from ..parallel.devices import MultiDeviceEvidence
+        return MultiDeviceEvidence(backend, cfg, host_profile)
     return DeviceEvidence(backend, cfg, host_profile)
 
 

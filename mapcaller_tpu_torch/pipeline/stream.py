@@ -14,7 +14,9 @@ dispatch under fold_evidence; SLOW reads' evidence stays in the C++ host
 diff arrays and merges into the planes at finalize. With device_chain
 off, the card returns every kept hit and the host chains all reads;
 evidence then stays in the host diff arrays. Batches are submitted one at
-a time (the backend has no transfer-grouped submit).
+a time (the backend has no transfer-grouped submit); with `-devices N`
+(parallel/devices.py) they go round-robin to N replicas and the host leg
+still takes them in submission order.
 """
 from __future__ import annotations
 
@@ -132,9 +134,12 @@ def run_stream_mapping(engine, cfg: Config, t_start: float,
         # keep `depth` device batches in flight, within the native
         # parser slot ring (a reused slot would overwrite host read data
         # of a batch still in flight — the native side refuses with an
-        # error, and this cap guarantees we never hit it)
+        # error, and this cap guarantees we never hit it); with N replicas
+        # (-devices N) at least N + 1, so every replica stays busy
         n_slots = native.parser_slots
-        depth = min(n_slots - 2, max(2, cfg.stream_pipeline_depth))
+        n_dev = getattr(be, "n_devices", 1)
+        depth = min(n_slots - 2, max(2, cfg.stream_pipeline_depth,
+                                     n_dev + 1))
         from collections import deque
         slot = 0
         pending = deque()

@@ -109,11 +109,11 @@ def make_engine(idx: FMIndex, cfg: Config):
                 "-devices N (read data parallelism) and -shards N "
                 "(index sharding) are separate scale axes; pick one")
         if ndev > 1:
-            raise NotImplementedError(
-                f"-devices {ndev}: multi-device mapping is not ported yet "
-                f"(ROADMAP.md, next slice 1)")
-        from .pipeline.device_backend import DeviceBackend
-        backend = DeviceBackend(idx, cfg)
+            from .parallel.devices import MultiDeviceBackend
+            backend = MultiDeviceBackend(idx, cfg, ndev)
+        else:
+            from .pipeline.device_backend import DeviceBackend
+            backend = DeviceBackend(idx, cfg)
     return MappingEngine(idx, cfg, backend=backend)
 
 

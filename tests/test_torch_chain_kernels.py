@@ -1395,7 +1395,7 @@ def test_scan_scratch_epochs(monkeypatch):
     def launch(B):
         ck._scan_launch("chain_scan", dev, None, None, 1, B, 1, 2, None, 0,
                         None, count="chain_scan")
-        return ck._scan_scratch[dev][0]
+        return ck._scan_scratch[ck._scratch_key(dev)][0]
 
     first = launch(1000)                        # a new scratch: epoch 1
     assert launch(1000) is first                # epoch 2
@@ -1407,6 +1407,30 @@ def test_scan_scratch_epochs(monkeypatch):
     assert [c[2] for c in calls] == [1, 2, 1, 2, 3, 4, 1]
     assert [c[1] for c in calls] == [1024, 1024] + [3000] * 4 + [1024]
     assert calls[0][0] == calls[1][0] == first.data_ptr()
+
+
+def test_scan_scratch_per_stream(monkeypatch):
+    """Launches on two streams of one device (two replicas of -devices on
+    one card) each get their own look-back scratch and their own epochs,
+    interleaved as they issue; the key is the device and its current
+    stream (0 off the card)."""
+    calls = []
+    monkeypatch.setattr(ck, "_launch", lambda name, dev, *a, count:
+                        calls.append(a[-3:]))
+    monkeypatch.setattr(ck, "_scan_scratch", {})
+    dev = torch.device("cpu")
+    assert ck._scratch_key(dev) == (dev, 0)
+    stream = {"id": 0}
+    monkeypatch.setattr(ck, "_scratch_key",
+                        lambda d: (d, stream["id"]))
+    for k in range(6):
+        stream["id"] = 11 + k % 2
+        ck._scan_launch("chain_scan", dev, None, None, 1, 1000, 1, 2, None,
+                        0, None, count="chain_scan")
+    a, b = ck._scan_scratch[(dev, 11)][0], ck._scan_scratch[(dev, 12)][0]
+    assert a is not b and len(ck._scan_scratch) == 2
+    assert [c[2] for c in calls] == [1, 1, 2, 2, 3, 3]
+    assert [c[0] for c in calls] == [a.data_ptr(), b.data_ptr()] * 3
 
 
 def test_cpu_dispatch_runs_plain_versions(genome, monkeypatch):

@@ -7,7 +7,8 @@ repeat-rich set whose hit-buffer overflow reruns a batch — and on each
 other single-card path (lane compaction, host chaining, the non-native
 path, the 1-step index) the reference's bytes under the same flags;
 import neither JAX nor the reference package; and refuse the options it
-does not port yet."""
+does not port yet (-devices and -shards: test_torch_devices.py,
+test_torch_shards.py)."""
 import json
 import os
 import subprocess
@@ -277,8 +278,11 @@ def test_paths_equal_reference(data, monkeypatch, path):
 
 
 @pytest.mark.parametrize("option", [
-    dict(devices=2), dict(index_shards=2), dict(big_x64=True)])
+    dict(big_x64=True, devices=2), dict(big_x64=True, index_shards=2),
+    dict(big_x64=True)])
 def test_unported_options_raise(data, option):
+    """The x64 big-genome path (ROADMAP slice 3) raises, alone and beside
+    the scale flags that are ported (-devices, -shards)."""
     d, inputs, _ = data
     kw = dict(PINNED, **option)
     cfg = Config(device="cpu", **inputs, **kw, **_files(d, "unported"))
