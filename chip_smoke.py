@@ -12,7 +12,8 @@ exits non-zero):
   build      nvcc for csrc/*.cu and g++ for the C++ host leg, in parallel,
              with the NW, ksw2, seed-scan and chain kernels' registers,
              shared memory, stack frame and spills from -Xptxas -v (any
-             stack frame or spill fails)
+             stack frame or spill fails, and so do registers of the 32-bit
+             seed scans other than SCAN_REGISTERS)
   kernels    the CUDA NW and ksw2 kernels each equal their plain version
              exactly at every DP tier (32, 48, 96, 192), on pairs whose
              lengths reach the tier's edges (for NW also the kernel's
@@ -113,6 +114,22 @@ exits non-zero):
              full-SA stage flagged for the host oracle; the device bytes
              of placing the occ3 shards, built a shard at a time against
              the whole table built and then split
+  big        the main path with big_x64 and -shards 2 and -shards 4 on
+             [cuda:0] * n (the x64 big-genome path forced on this genome),
+             writing the warm-up's bytes with the three 64-bit kernels
+             (seed_scan3_big, chain_hits_big, chain_classify_pack_big)
+             once a shard a batch and no 32-bit scan or chain kernel, every
+             one of their launches equal in every word to its plain
+             version, evidence on the genome-sharded planes; the bytes each
+             shard holds and the check that no single-card table or
+             genome-length plane is on the card; shard 0 of batch 0's
+             launch timed beside the 32-bit routed forms on the same reads,
+             with the bound; the scan and hits with the tables placed past
+             2^31 (pointer tables with zero shards in front) against the
+             same launch unshifted: s_x0 exactly C more, every valid hit
+             equal; and a -gvcf run with big_x64 -shards 2 against a
+             single-card -gvcf run, in bytes. The devices phase also times
+             the plane sum of -devices N (four add_ of two plane sets)
   evidence   device ms (queued launches) of the evidence apply of one
              batch, the finalize fold, the caller scan and the column
              fetch on the warm-up's own planes and inputs, each equal to
@@ -130,7 +147,8 @@ exits non-zero):
 Then the kernel table line ({"kernels": [...]}, the DP kernels timed on
 their main path's own captured pairs and on random pairs of the same
 shape, the scan and chain kernels on their main path's own batch 0, the
-routed ones on shard 0 of it under -shards 2, as the run launched them),
+routed ones on shard 0 of it under -shards 2, the 64-bit ones on shard 0
+of it under big_x64 -shards 2, as the runs launched them),
 the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}.
 
@@ -160,6 +178,10 @@ SCAN3_ROW_BYTES = 288             # an occ3 row; a scan step gathers two
 SCAN1_ROW_BYTES = 32              # an occ4 row
 SCAN3_OPS_PER_STEP = 930          # see csrc/seed_scan.cu
 SCAN1_OPS_PER_STEP = 80
+# ptxas registers of the 32-bit seed scans (csrc/seed_scan.cu) with nvcc
+# for sm_90a, which the 64-bit scan's template must leave as they are
+SCAN_REGISTERS = dict(seed_scan3_kernel=133, seed_scan3_routed_kernel=125,
+                      seed_scan1_kernel=32)
 # int32 operations of the chain kernels (csrc/chain.cu), for their bounds:
 # a scan read; a hit slot (binary search, seed walk, stores); an inverse-
 # Psi step; a classified read's 16 bases and its kept hits; a packed read
@@ -1064,7 +1086,8 @@ def backend_facts(be):
                                    device_evidence_ok=b.device_evidence_ok)
                               for d, n, b in zip(be.devs, be.batches,
                                                  be.bes)])
-    sfm3s = be._sharded[0] if be._sharded else {}
+    tabs = be._big if getattr(be, "big", False) else be._sharded
+    sfm3s = tabs[0] if tabs else {}
     occ3 = next(iter(sfm3s.values())).occ3 if sfm3s else None
     return dict(index_shards=be.index_shards,
                 shard_devices=[str(d) for d in be.shard_devs],
@@ -1073,7 +1096,7 @@ def backend_facts(be):
                 n_tier_reruns=be.n_tier_reruns)
 
 
-def run_scale_axes(run, check, card):
+def run_scale_axes(run, check, card, L):
     """The main path with -devices 2 (two replicas on this card, each on a
     stream of its own, evidence planes per replica summed once) and with
     -shards 2 and 4 (the occ3 rows and the SA split over shards on this
@@ -1120,6 +1143,7 @@ def run_scale_axes(run, check, card):
         r["launches"] = per[i]
     batches = multi["stages"]["batches"]
     emit("devices", card=card, replicas=reps, batches=batches,
+         plane_add=time_plane_add(L),
          peak_mem_bytes=multi["peak"],
          reads_per_s=multi["metrics"]["reads_per_sec"],
          mapping_s=multi["metrics"]["mapping_seconds"],
@@ -1196,6 +1220,23 @@ def run_scale_axes(run, check, card):
 
 
 SEED_KEYS = ("n_seeds", "s_rpos", "s_len", "s_x0", "s_freq", "overflow")
+
+
+def time_plane_add(L, reps=50):
+    """The merge of -devices 2's planes (parallel/devices.py: replica 1's
+    four planes added into replica 0's, four add_ calls) on two plane sets
+    of genome size L on this card: device ms (queued) and the bound, two
+    plane sets read and one written over the memory rate."""
+    import torch
+    from mapcaller_tpu_torch.pipeline.device_profile import DevicePlanes
+    a, b = (DevicePlanes.zeros(L, "cuda") for _ in range(2))
+    names = ("acgt", "exact_diff", "f_diff", "multi_diff")
+    nbytes = sum(getattr(a, k).numel() * 4 for k in names)
+    ms = cuda_ms(lambda: [getattr(a, k).add_(getattr(b, k)) for k in names],
+                 reps, queued=True)
+    bound = 1e3 * 3 * nbytes / H100_BYTES_S
+    return dict(L=L, plane_set_bytes=nbytes, adds=4, ms=ms, bound_ms=bound,
+                bound_by="bytes", share_of_bound=bound / ms)
 
 
 def check_shard_launches(ck, ssd, n, launches):
@@ -1433,6 +1474,410 @@ def run_routed(prefix, batch, shard_launches, card, reps=20):
          setup_bytes=shard_setup_bytes(be, cuda0))
     del be, fm3, flat
     return res
+
+
+BIG_KERNELS = ("seed_scan3_big", "chain_hits_big", "chain_classify_pack_big")
+
+
+def big_launch_equal(ck, ssd, n, x):
+    """One x64 shard launch (its kernel, inputs and the copies of its
+    outputs) equal in every word to the plain versions on the same inputs:
+    the 64-bit scan, the hits over the routed int64 SA, classify+pack
+    with the int64 side output. -> the max abs differences."""
+    import torch
+    k = x["kern"]
+    want = ssd.seed_scan3_big_plain(k.fm, x["packed"], x["rlens"],
+                                    k.max_len, k.max_seeds)
+    scan_err = max_err(f"-shards {n} x64: seed_scan3_big",
+                       list(zip(SEED_KEYS, x["seeds"], want)))
+    want_h = ck.chain_hits_big_plain(k.fm, x["off"], *x["seeds"][:5], k.H)
+    hits_err = max_err(f"-shards {n} x64: chain_hits_big",
+                       [(f, getattr(x["hits"], f), getattr(want_h, f))
+                        for f in want_h._fields])
+    out = torch.zeros_like(x["out"])
+    wide = torch.zeros_like(x["wide"])
+    mmp = ck.chain_classify_pack_big_plain(
+        k.ctx, x["packed"], x["rlens"], x["off"], x["hits"], x["seeds"][5],
+        k.max_len, out, wide, k.H2)
+    cp_err = max_err(f"-shards {n} x64: chain_classify_pack_big",
+                     [("out", x["out"], out), ("wide", x["wide"], wide),
+                      ("mmp", x["mmp"], mmp)])
+    return dict(seed_scan3_big=scan_err, chain_hits_big=hits_err,
+                chain_classify_pack_big=cp_err)
+
+
+def shifted_tables(bfm, lead):
+    """The x64 tables placed as if the text began C = lead * 16 * per rows
+    later: each Routed table reached through a pointer table whose first
+    `lead` entries point at one zero shard (never read by a valid query),
+    base3 and base3x with lead zero rows before them, and L2, c3_first and
+    the correction rows moved by C. -> (the shifted BigShardedFM3, C)."""
+    import dataclasses
+    import torch
+    from mapcaller_tpu_torch.ops.routed import Routed
+    C = lead * 16 * bfm.occ3.per
+
+    def lead_zero(r):
+        z = torch.zeros_like(r.shards[0])
+        return Routed([z] * lead + list(r.shards), r.per)
+
+    def lead_rows(t):
+        return torch.cat([t.new_zeros((lead, t.shape[1])), t])
+
+    return dataclasses.replace(
+        bfm, occ3=lead_zero(bfm.occ3), sa=lead_zero(bfm.sa),
+        base3=lead_rows(bfm.base3), base3x=lead_rows(bfm.base3x),
+        L2=bfm.L2 + C, c3_first=bfm.c3_first + C, primary=bfm.primary + C,
+        row_p1=bfm.row_p1 + C, row_p2=bfm.row_p2 + C), C
+
+
+def run_shifted(ck, ssd, x):
+    """The 64-bit scan and hits on a launch's reads with the tables
+    placed past 2^31 (shifted_tables) against the same kernels unshifted:
+    s_x0 exactly C more in every used slot (0 in the others), every other
+    seed output, step and row count equal; every valid hit equal, its
+    location too (an invalid slot reads the pad row 32, below the shift:
+    the zero shard)."""
+    import torch
+    k = x["kern"]
+    bfm = k.fm
+    lead = -(-(1 << 31) // (16 * bfm.occ3.per))
+    sfm, C = shifted_tables(bfm, lead)
+    args = (x["packed"], x["rlens"], k.max_len, k.max_seeds)
+    base = ssd.seed_scan3_big(bfm, *args, with_iters=True)
+    shift = ssd.seed_scan3_big(sfm, *args, with_iters=True)
+    used = (torch.arange(k.max_seeds, device=base[0].device)[None, :]
+            < base[0][:, None])
+    want = list(base)
+    want[3] = torch.where(used, base[3] + C, 0)
+    err = max_err("shifted seed_scan3_big",
+                  list(zip(SEED_KEYS + ("iters", "rows"), shift, want)))
+    hits = []
+    for fm, seeds in ((bfm, base), (sfm, shift)):
+        scan = ck.chain_scan_seeds(seeds[4], seeds[0], k.H)
+        hits.append(ck.chain_hits_big(fm, scan, *seeds[:5], k.H))
+    valid = hits[0].valid
+    err = max(err, max_err("shifted chain_hits_big", [
+        (f, getattr(hits[1], f), getattr(hits[0], f)) for f in
+        ("read", "rpos", "len", "valid", "keep", "unresolved")] + [
+        ("loc", torch.where(valid, hits[1].loc, 0),
+         torch.where(valid, hits[0].loc, 0))]))
+    torch.cuda.synchronize()
+    return dict(C=C, lead_shards=lead, max_abs_err=err,
+                s_x0_max=int(shift[3].max()),
+                s_x0_above_2_31=int((shift[3] >= 1 << 31).sum()),
+                valid_hits=int(valid.sum()),
+                invalid_hits_reading_zero_shard=int((~valid).sum()),
+                classify_pack="int64 positions above 2^31 not verified: "
+                              "its text and chromosome-end inputs cannot be "
+                              "shifted without a new argument (a read "
+                              "without hits reads text word 0)")
+
+
+def time_big(ck, ssd, x, card, reps=20):
+    """The three 64-bit kernels on one launch's inputs (shard 0 of batch 0,
+    as the run launched it), each beside its 32-bit routed form on the
+    same reads: the routed scan over the same rows made absolute, the
+    routed hits over the same SA in int32, the 32-bit classify+pack on the
+    same hits. Device ms (queued), call ms, plain ms and the bound: bytes
+    (rows x 288 B for the scans; the int64 SA entries and locations and
+    the rest of each kernel's inputs and outputs) or int32 operations."""
+    import types
+    import torch
+    from mapcaller_tpu_torch.ops.routed import Routed
+    from mapcaller_tpu_torch.parallel.sharded_index import ShardedFM3
+    k = x["kern"]
+    bfm, packed, rlens = k.fm, x["packed"], x["rlens"]
+    B, S, H, H2, max_len = packed.shape[0], k.max_seeds, k.H, k.H2, k.max_len
+    per = bfm.occ3.per
+    # the same tables in the 32-bit form: absolute counts, an int32 SA
+    rows32 = []
+    for s, t in enumerate(bfm.occ3.shards):
+        r = t.clone()
+        r[:, :64] += bfm.base3[s].to(torch.int32)
+        rows32.append(r)
+    fm32 = types.SimpleNamespace(
+        L2=bfm.L2, primary=bfm.primary, seq_len=bfm.seq_len,
+        has_full_sa=True,
+        sa_full=Routed([t.to(torch.int32) for t in bfm.sa.shards],
+                       bfm.sa.per))
+    sfm32 = ShardedFM3(fm=fm32, occ3=Routed(rows32, per),
+                       c3_first=bfm.c3_first.to(torch.int32),
+                       **{c: getattr(bfm, c) for c in (
+                           "row_p1", "row_p2", "t0", "t1", "tail1", "tail2a",
+                           "tail2b")})
+    fns = (lambda w=False: ssd.seed_scan3_big(bfm, packed, rlens, max_len, S,
+                                              with_iters=w),
+           lambda w=False: ssd.seed_scan3_big_plain(bfm, packed, rlens,
+                                                    max_len, S,
+                                                    with_iters=w))
+    scan = measure_scan("seed_scan3_big, shard 0 of batch 0", "seed_scan3",
+                        fns, packed, S, reps)
+    seeds = fns[0]()
+    r32 = ssd.seed_scan3_routed(sfm32, packed, rlens, max_len, S)
+    scan["max_abs_err_vs_32bit_routed"] = max_err(
+        "x64 scan vs the 32-bit routed scan", list(zip(SEED_KEYS, seeds,
+                                                       r32)))
+    scan["routed32_ms"] = cuda_ms(lambda: ssd.seed_scan3_routed(
+        sfm32, packed, rlens, max_len, S), reps, queued=True)
+    sc = ck.chain_scan_seeds(seeds[4], seeds[0], H)
+    hits = ck.chain_hits_big(bfm, sc, *seeds[:5], H)
+    sc32 = ck.chain_scan_seeds(seeds[4], seeds[0], H)
+    h32 = ck.chain_hits_routed(fm32, sc32, *seeds[:5], H)
+    herr = max_err("x64 hits vs the 32-bit routed hits", [
+        (f, getattr(hits, f).long(), getattr(h32, f).long())
+        for f in hits._fields])
+    nvalid = int(hits.valid.sum())
+    nseeds = int(seeds[0].clamp(0, S).sum())
+    # off, the start index, n_seeds, the valid seeds' freq/x0/rpos/len,
+    # one int64 SA entry a valid hit; read/rpos/len int32, loc int64,
+    # valid and keep a byte each
+    hbytes = (4 * (B + 1) + 8 * sc.start.shape[0] + 8 * B + 32 * nseeds
+              + 8 * nvalid + 22 * H)
+    hb, hby = bound_of(hbytes, CHAIN_OPS["hit"] * H)
+    hits_r = dict(B=B, H=H, valid_hits=nvalid, max_abs_err=herr,
+                  bytes=hbytes, bound_ms=hb, bound_by=hby,
+                  ms=cuda_ms(lambda: ck.chain_hits_big(bfm, sc, *seeds[:5],
+                                                       H), reps, queued=True),
+                  call_ms=cuda_ms(lambda: ck.chain_hits_big(
+                      bfm, sc, *seeds[:5], H), reps),
+                  plain_ms=cuda_ms(lambda: ck.chain_hits_big_plain(
+                      bfm, sc.off, *seeds[:5], H), 3, warmup=1),
+                  routed32_ms=cuda_ms(lambda: ck.chain_hits_routed(
+                      fm32, sc32, *seeds[:5], H), reps, queued=True))
+    n32, n64 = ck.big_out_sizes(B, H2)
+    out = torch.empty(n32, dtype=torch.int32, device=packed.device)
+    wide = torch.empty(n64, dtype=torch.int64, device=packed.device)
+    cp = (k.ctx, packed, rlens, sc.off, hits, seeds[5], max_len, out, wide,
+          H2)
+    mmp = ck.chain_classify_pack_big(*cp)
+    out_p, wide_p = torch.zeros_like(out), torch.zeros_like(wide)
+    cerr = max_err("x64 classify+pack vs plain", [
+        ("out", out, out_p), ("wide", wide, wide_p),
+        ("mmp", mmp, ck.chain_classify_pack_big_plain(
+            k.ctx, packed, rlens, sc.off, hits, seeds[5], max_len, out_p,
+            wide_p, H2))])
+    # the 32-bit form on the same hits (its locations fit int32 here)
+    h32c = hits._replace(loc=hits.loc.to(torch.int32))
+    out32 = torch.empty(2 * B + 2 * H2 + B // 2 + B // 32 + 2,
+                        dtype=torch.int32, device=packed.device)
+    cp32 = (k.ctx, packed, rlens, sc.off, h32c, seeds[5], max_len, out32, H2)
+    ck.chain_classify_pack(*cp32)
+    # a read without kept hits: pd is INT64_MAX here, INT32_MAX there
+    pd64 = torch.where(wide[:B] == 0x7FFFFFFFFFFFFFFF, 0x7FFFFFFF, wide[:B])
+    cerr = max(cerr, max_err("x64 classify+pack vs the 32-bit form", [
+        ("meta1", out[:B], out32[:B]), ("pd", pd64, out32[B:2 * B]),
+        ("hit_w", out[B:B + H2], out32[2 * B:2 * B + H2]),
+        ("hit_loc", wide[B:], out32[2 * B + H2:2 * B + 2 * H2]),
+        ("tail", out[B + H2:B + H2 + B // 2 + B // 32 + 2],
+         out32[2 * B + 2 * H2:])]))
+    words = max_len // 16
+    nkept = int(hits.keep.sum())
+    slow_h = int(out[B + H2 + B // 2 + B // 32])
+    nkeys = k.ctx.bkeys.shape[0]
+    # chain_bounds' count with int64 locations (read 8 B a valid hit) and
+    # pd and hit_loc written as int64
+    cbytes = (4 * (B + 1) + B * (4 + 4 * words + 1 + 1) + 17 * nvalid
+              + 8 * (words + 1) * B + 8 * nkeys
+              + 12 * B + 16 * B + 12 * H2 + 4 * (B // 2 + B // 32 + 2))
+    o = CHAIN_OPS
+    cb, cby = bound_of(cbytes, o["read_word"] * words * B
+                       + o["kept_hit"] * nkept + o["pack_read"] * B
+                       + o["pack_hit"] * slow_h)
+    cp_r = dict(B=B, H2=H2, max_abs_err=cerr, bytes=cbytes, bound_ms=cb,
+                bound_by=cby, slow_kept=slow_h,
+                ms=cuda_ms(lambda: ck.chain_classify_pack_big(*cp), reps,
+                           queued=True),
+                call_ms=cuda_ms(lambda: ck.chain_classify_pack_big(*cp),
+                                reps),
+                plain_ms=cuda_ms(lambda: ck.chain_classify_pack_big_plain(
+                    *cp), 3, warmup=1),
+                int32_form_ms=cuda_ms(lambda: ck.chain_classify_pack(*cp32),
+                                      reps, queued=True))
+    res = dict(seed_scan3_big=scan, chain_hits_big=hits_r,
+               chain_classify_pack_big=cp_r)
+    for r in res.values():
+        r["share_of_bound"] = r["bound_ms"] / r["ms"]
+    return res
+
+
+def live_cuda_tensors():
+    """The CUDA tensors the Python heap holds: {id: tensor}."""
+    import torch
+    out = {}
+    for o in gc.get_objects():
+        try:
+            if torch.is_tensor(o) and o.is_cuda:
+                out[id(o)] = o
+        except Exception:
+            continue
+    return out
+
+
+def big_memory(be, ev, earlier=()):
+    """What the x64 run holds on the card: each shard's bytes (occ3 rows,
+    SA, plane slices, finalize outputs) and the largest live CUDA tensors.
+    Raises if the backend built a single-card table (1-step rows, int32
+    occ3 table, whole SA) or any live tensor other than an SA shard (of
+    this run, or of the earlier runs' tables in `earlier`) has a
+    dimension of L + 1 or more (a plane of genome length); the SA shards
+    hold 1/n of the SA's 2L + 1 entries each."""
+    bfm = next(iter(be._big[0].values()))
+    n, L = len(be.shard_devs), be.idx.genome_size
+    sa_ids = {id(t) for f in (bfm, *earlier) for t in f.sa.shards}
+    big = sorted(((max(t.shape) if t.dim() else 1, tuple(t.shape),
+                   str(t.dtype)) for i, t in live_cuda_tensors().items()
+                  if i not in sa_ids), reverse=True)[:6]
+    outs, _ = ev.finalize()
+    fin = sum(t.numel() * t.element_size() for t in outs[0])
+    res = dict(
+        shards=n, genome_L=L, single_card_tables=dict(
+            fm=be.fm is not None, fm3=be._fm3 is not None,
+            sharded32=be._sharded is not None),
+        shard_bytes=dict(
+            occ3_rows=bfm.occ3.per * 288, sa_int64=bfm.sa.per * 8,
+            plane_slices=40 * ev.Pl, finalize_outputs=fin,
+            text_words_replicated=be.chain_ctx.text_words.numel() * 8),
+        Pl=ev.Pl, sa_entries_a_shard=bfm.sa.per,
+        largest_other_tensors=big)
+    if (any(res["single_card_tables"].values())
+            or (big and big[0][0] >= L + 1)):
+        raise AssertionError(f"x64 memory: a single-card table or a "
+                             f"genome-length tensor on the card {res}")
+    return res
+
+
+def run_big(run, card, sam, vcf, reps=20):
+    """The big phase: the main path with big_x64 and -shards 2 and 4 on
+    [cuda:0] * n through the stream, each writing the warm-up's bytes with
+    the three 64-bit kernels once a shard a batch and no 32-bit chain or
+    scan kernel, every one of their launches equal in every word to its
+    plain version; the memory each shard holds and that no single-card
+    table or genome-length plane exists; then shard 0 of batch 0 timed
+    (time_big) and the shifted-coordinates check (run_shifted); and one
+    -gvcf run with big_x64 and -shards 2 against a single-card -gvcf run,
+    in bytes (the sharded NOR blocks and their seams). -> (the timings,
+    the -shards 2 run's launches by kernel)."""
+    import torch
+    from mapcaller_tpu_torch.ops import chain_kernels as ck
+    from mapcaller_tpu_torch.ops import seed_scan_device as ssd
+    from mapcaller_tpu_torch.parallel import big_index
+    from mapcaller_tpu_torch.pipeline import device_profile
+    from mapcaller_tpu_torch.pipeline.device_backend import DeviceBackend
+    cuda0 = torch.device("cuda", 0)
+    K = big_index.BigShardChainKernel
+    scan_packed, hits_of = K._scan_packed, K._hits
+    cp_big = big_index.chain_classify_pack_big
+    make_ev = device_profile.make_device_evidence
+    launches, held = [], {}
+
+    def tap_scan(self, packed, rlens):
+        seeds = scan_packed(self, packed, rlens)
+        launches.append(dict(kern=self, packed=packed.clone(),
+                             rlens=rlens.clone(),
+                             seeds=tuple(t.clone() for t in seeds)))
+        return seeds
+
+    def tap_hits(self, *seeds):
+        off, hits = hits_of(self, *seeds)
+        launches[-1].update(off=off.clone(),
+                            hits=ck.Hits(*(t.clone() for t in hits)))
+        return off, hits
+
+    def tap_cp(*a):
+        mmp = cp_big(*a)
+        launches[-1].update(out=a[7].clone(), wide=a[8].clone(),
+                            mmp=mmp.clone())
+        return mmp
+
+    def tap_ev(*a):
+        held["ev"] = make_ev(*a)
+        return held["ev"]
+
+    def backend(n):
+        def make(idx, cfg):
+            held["be"] = DeviceBackend(idx, cfg, shard_devices=[cuda0] * n)
+            return held["be"]
+        return make
+
+    runs, first, memory = {}, {}, {}
+    for n in (2, 4):
+        launches = []
+        K._scan_packed, K._hits = tap_scan, tap_hits
+        big_index.chain_classify_pack_big = tap_cp
+        device_profile.make_device_evidence = tap_ev
+        try:
+            t = run(index_shards=n, big_x64=True, backend=backend(n))
+        finally:
+            K._scan_packed, K._hits = scan_packed, hits_of
+            big_index.chain_classify_pack_big = cp_big
+            device_profile.make_device_evidence = make_ev
+        t.update(sam_identical=same_bytes(sam, sam + ".warm"),
+                 vcf_identical=same_bytes(vcf, vcf + ".warm"))
+        b = t["stages"]["batches"]
+        errs = {}
+        for x in launches:
+            for name, e in big_launch_equal(ck, ssd, n, x).items():
+                errs[name] = max(errs.get(name, 0), e)
+        memory[n] = big_memory(held.pop("be"), held.pop("ev"),
+                               [x["kern"].fm for x in first.values()])
+        emit("big", card=card, shards=n, backend=t["backend"], batches=b,
+             scan_launches=t["scan_launches"],
+             chain_launches=t["chain_launches"], peak_mem_bytes=t["peak"],
+             reads_per_s=t["metrics"]["reads_per_sec"],
+             mapping_s=t["metrics"]["mapping_seconds"], stages=t["stages"],
+             sam_identical=t["sam_identical"],
+             vcf_identical=t["vcf_identical"], evidence=t["evidence"],
+             launches_held_to_plain=len(launches),
+             reads_a_launch=sorted({int(x["rlens"].shape[0])
+                                    for x in launches}),
+             max_abs_err=errs, memory=memory[n])
+        if not (t["sam_identical"] and t["vcf_identical"]
+                and t["backend"]["sharded_invocations"] == b > 0
+                and t["scan_launches"] == {"seed_scan3_big": n * b}
+                and t["chain_launches"] == dict(
+                    chain_scan_seeds=n * b, chain_hits_big=n * b,
+                    chain_classify_pack_big=n * b)
+                and len(launches) == n * b
+                and all(len(x) == 9 for x in launches)
+                and evidence_path_ok(t["evidence"])
+                and t["metrics"]["n_oracle_reads"] == 0
+                and t["metrics"]["n_tier_reruns"] == 0):
+            raise AssertionError(f"big {n}: bytes differ from the warm-up's, "
+                                 f"a batch missed the x64 stage, a 32-bit "
+                                 f"kernel ran, a 64-bit one did not run "
+                                 f"once a shard a batch, or evidence left "
+                                 f"the sharded planes")
+        runs[n] = t
+        first[n] = launches[0]
+        del launches
+    timing = time_big(ck, ssd, first[2], card, reps)
+    shifted = run_shifted(ck, ssd, first[2])
+    emit("big", card=card, x64_kernels_shard0_batch0=timing,
+         shifted_coordinates=shifted)
+    del first
+    # -gvcf: the sharded NOR blocks against one card's
+    gv = {}
+    for tag, kw in (("one", {}), ("big", dict(index_shards=2, big_x64=True,
+                                               backend=backend(2)))):
+        t = run(gvcf=True, **kw)
+        held.clear()
+        with open(sam, "rb") as f, open(vcf, "rb") as g:
+            gv[tag] = (f.read(), g.read(), t)
+    same = gv["one"][:2] == gv["big"][:2]
+    tb = gv["big"][2]
+    emit("big", card=card, gvcf_shards=2, gvcf_identical_to_one_card=same,
+         gvcf_records=sum(not ln.startswith(b"#")
+                          for ln in gv["big"][1].splitlines()),
+         chain_launches=tb["chain_launches"], evidence=tb["evidence"],
+         peak_mem_bytes=tb["peak"])
+    if not (same and evidence_path_ok(tb["evidence"])
+            and set(tb["chain_launches"]) == {
+                "chain_scan_seeds", "chain_hits_big",
+                "chain_classify_pack_big"}):
+        raise AssertionError("big -gvcf: bytes differ from one card's or "
+                             "the run left the x64 path")
+    return timing, runs[2]
 
 
 def ptxas_report(out, kernel="nw_ops_kernel"):
@@ -1875,9 +2320,12 @@ def run_main_path(work, card):
          one_step_batch0=scan_table["seed_scan1"])
     # -devices 2 and -shards 2 / 4 through the stream, replicas and shards
     # on this one card, each writing the warm-up's bytes
-    multi, sharded, shard_launches = run_scale_axes(run, check, card)
+    multi, sharded, shard_launches = run_scale_axes(run, check, card,
+                                                    captured["L"])
     routed_table = run_routed(idx, routed_batch, shard_launches, card)
     del shard_launches
+    # big_x64 under -shards 2 and 4, and -gvcf, through the stream
+    big_table, big_run = run_big(run, card, sam, vcf)
     dev = [t for t in turns if t["device_dp"]]
     sca = [t for t in turns if not t["device_dp"]]
 
@@ -2024,6 +2472,8 @@ def run_main_path(work, card):
     captured["chain_table"] = (chain_table, dev[0]["chain_launches"])
     captured["routed_table"] = (routed_table, sharded[0]["chain_launches"],
                                 sharded[0]["scan_launches"])
+    captured["big_table"] = (big_table, {**big_run["scan_launches"],
+                                         **big_run["chain_launches"]})
     return ((dev[0]["launches"], kdev[0]["ksw2_launches"]),
             (captured["nw"][1], captured["ksw2"][1]), captured)
 
@@ -2167,11 +2617,14 @@ def main():
              (("libksw2.so", "ksw2_ops_kernel"), ksw2_device.KERNEL_MAX_CHUNK),
              (("libseed_scan.so", "seed_scan3_kernel"), 1),
              (("libseed_scan.so", "seed_scan3_routed_kernel"), 1),
+             (("libseed_scan.so", "seed_scan3_big_kernel"), 1),
              (("libseed_scan.so", "seed_scan1_kernel"), 1),
              (("libchain.so", "chain_scan_kernel"), 1),
              (("libchain.so", "chain_hits_kernel"), 1),
              (("libchain.so", "chain_hits_routed_kernel"), 1),
-             (("libchain.so", "chain_classify_pack_kernel"), 1))
+             (("libchain.so", "chain_hits_big_kernel"), 1),
+             (("libchain.so", "chain_classify_pack_kernel"), 1),
+             (("libchain.so", "chain_classify_pack_big_kernel"), 1))
     reports = {kernel: ptxas_report(outputs.get(lib, ""), kernel)
                for (lib, kernel), _ in gated}
     # ksw2 takes all its shared memory dynamically (ptxas reports 0):
@@ -2195,6 +2648,13 @@ def main():
             sys.stderr.write(outputs.get(lib, ""))
             raise AssertionError(f"{kernel}: a stack frame or spills in "
                                  f"ptxas's report, or no report for a chunk")
+    # the 32-bit scans keep the registers they had before the 64-bit
+    # instantiation joined their template (PERF.md)
+    for kernel, regs in SCAN_REGISTERS.items():
+        got = [v.get("registers") for v in reports[kernel].values()]
+        if got != [regs]:
+            raise AssertionError(f"{kernel}: {got} registers, expected "
+                                 f"{regs}")
 
     for tier in TIERS:
         B = 4096 if tier < 192 else 2048
@@ -2311,6 +2771,33 @@ def main():
                      f"path's batch 0 under -shards 2 on one card, as the "
                      f"run launched it; shards_4: {routed[4]['reads']} "
                      f"reads under -shards 4"})
+    # the 64-bit kernels of the x64 path on the first launch of the
+    # big_x64 -shards 2 run (shard 0 of batch 0), as the run launched them,
+    # with their 32-bit routed forms on the same reads; launches of that run
+    big, big_n = cap["big_table"]
+    for name, src, src_line in (
+            ("seed_scan3_big", "mapcaller_tpu_torch/csrc/seed_scan.cu",
+             "mapcaller_tpu/parallel/big_index.py:73"),
+            ("chain_hits_big", "mapcaller_tpu_torch/csrc/chain.cu",
+             "mapcaller_tpu/parallel/big_index.py:97"),
+            ("chain_classify_pack_big", "mapcaller_tpu_torch/csrc/chain.cu",
+             "mapcaller_tpu/parallel/big_index.py:273")):
+        r = big[name]
+        regs = next(iter(reports[name + "_kernel"].values()))
+        kernels.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": src_line, "launches": big_n.get(name, 0),
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None, "tolerance": 0,
+            "call_ms": r["call_ms"], "registers": regs.get("registers"),
+            "spill_bytes": regs.get("spill_store_bytes", 0)
+            + regs.get("spill_load_bytes", 0),
+            "int32_form_ms": r.get("routed32_ms", r.get("int32_form_ms")),
+            "shape": f"{r['B']} reads, shard 0 of the main path's batch 0 "
+                     f"under big_x64 -shards 2 on one card, as the run "
+                     f"launched it; int32_form_ms: the 32-bit routed form "
+                     f"on the same reads"})
     line = {"kernels": kernels}
     print(json.dumps(line), flush=True)
     print(card, flush=True)

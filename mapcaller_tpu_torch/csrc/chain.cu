@@ -38,6 +38,11 @@
 //     and the sampled SA entry, read from its shard through a table of the
 //     shards' base addresses (the reference's routed gathers,
 //     mapcaller_tpu/parallel/sharded_index.py:176-285).
+//   chain_hits_big_kernel  the hits kernel of the x64 big-genome path
+//     (big_x64 under -shards N; mapcaller_tpu/parallel/big_index.py:97-107,
+//     :249-271): the hit rows x0 + rank and the locations int64, each read
+//     from an int64 SA in shards (RoutedSa64); full SA only, as the
+//     reference's big path.
 //   chain_classify_pack_kernel  a tile of CP_READS reads a block, a group
 //     of CP_GROUP lanes a read. The block stages the tile's off, rlens and
 //     flags, its read words (contiguous) and its hit range (contiguous:
@@ -67,6 +72,14 @@
 //     fastest on an H100 (2, 4, 8 lanes; 32 to 512 reads): at 64
 //     registers a thread an SM holds 1,024 threads, so at 8 lanes a batch
 //     of 32,768 reads takes two waves of blocks, and at 2 or 4 one.
+//   chain_classify_pack_big_kernel  the same body over int64 positions (the
+//     x64 big-genome path; classify_reads with int64 locations,
+//     mapcaller_tpu/parallel/big_index.py:273-291): hit locations,
+//     diagonals, the text-word index, seq_len and the chromosome-end
+//     compares in 64 bits, an empty slot INT64_MAX; pd and the packed
+//     hits' locations go to an int64 side output; no evidence apply (the
+//     sharded path applies evidence on its own planes). At least one block
+//     an SM, so up to 128 registers a thread.
 //
 // Bound on an H100 SXM (HBM3, 3.35 TB/s): bytes, for all three. The work a
 // byte asks for is a few integer operations (a binary search of 15 steps,
@@ -112,6 +125,7 @@ constexpr int MAX_GAPS = 10;
 constexpr int MM_SLOTS = 4;
 constexpr int CLASS_NOCAND = 0, CLASS_FAST = 1, CLASS_SLOW = 2;
 constexpr int PD_EMPTY = 0x7FFFFFFF;    // INT32_MAX: an empty window slot
+constexpr long long PD_EMPTY64 = 0x7FFFFFFFFFFFFFFFLL;  // INT64_MAX
 constexpr int SCAN_THREADS = 384;       // reads a scan tile, one a thread
 constexpr int SCAN_MAX_S = 31;          // seed slots a read (max_len <= 496)
 constexpr int LOOKBACK = 32;            // predecessors a look-back step reads
@@ -314,9 +328,13 @@ chain_scan_kernel(const long long* __restrict__ freq,
 // The SA tables a hits kernel reads: one copy (Fm, the main path), or
 // split over shards (RoutedFm, -shards N, ops/routed.py): entry r of a
 // routed table lives in shard r / per at local entry r % per, whose base
-// address its shard table holds. The kernel body is a template over the
-// two, so chain_hits_kernel compiles as it did.
+// address its shard table holds; or the x64 big-genome SA (RoutedSa64,
+// big_x64 under -shards N): int64 entries in shards, rows and positions
+// int64 (Pos), full SA only (no walk: kWalk). The kernel body is a
+// template over them, so chain_hits_kernel compiles as it did.
 struct Fm {
+  static constexpr bool kWalk = true;
+  using Pos = int;
   const int* occ;                       // int32[nw+1, 8] occ4 rows
   const long long* L2;                  // int64[5]
   const long long* sa_samp;             // int64[n/32+1]
@@ -333,6 +351,8 @@ struct Fm {
 };
 
 struct RoutedFm {
+  static constexpr bool kWalk = true;
+  using Pos = int;
   const unsigned long long* occ;        // [n] shards of int32[per, 8]
   const long long* L2;                  // int64[5]
   const unsigned long long* sa_samp;    // [n] shards of int64[per]
@@ -360,16 +380,31 @@ struct RoutedFm {
   }
 };
 
+struct RoutedSa64 {
+  static constexpr bool kWalk = false;
+  using Pos = long long;
+  const unsigned long long* sa_full;    // [n] shards of int64[per]
+  unsigned long long per;
+  __device__ __forceinline__ long long sa(long long r) const {
+    const unsigned long long s = (unsigned long long)r / per;
+    const long long* p = reinterpret_cast<const long long*>(__ldg(sa_full + s));
+    return __ldg(p + ((unsigned long long)r - s * per));
+  }
+};
+
 struct Seeds {
   const long long *n, *rpos, *len, *x0, *freq;   // [B], [B, S] x4
   int B, S;
 };
 
-struct Hits {
-  int *read, *rpos, *len, *loc;         // int32[H]
+template <class P>
+struct HitsT {
+  int *read, *rpos, *len;               // int32[H]
+  P* loc;                               // [H], int32 or int64
   uint8_t *valid, *keep;                // [H] (torch.bool)
   uint8_t* unresolved;                  // [B], zeroed by the seed-freq scan
 };
+using Hits = HitsT<int>;
 
 __device__ __forceinline__ int pick4(const int4& v, int c) {
   return c == 0 ? v.x : (c == 1 ? v.y : (c == 2 ? v.z : v.w));
@@ -398,7 +433,9 @@ __host__ __device__ constexpr int padded(int e) { return e + (e >> 5); }
 template <class F>
 __device__ __forceinline__ void hits_body(const int* __restrict__ off,
                                           const int2* __restrict__ start,
-                                          Seeds sd, F fm, int H, Hits o) {
+                                          Seeds sd, F fm, int H,
+                                          HitsT<typename F::Pos> o) {
+  using P = typename F::Pos;
   __shared__ uint32_t pre[padded(HITS_CHUNK)];
   __shared__ uint32_t warp_sum[HITS_GROUP / 32];
   const int t = threadIdx.x;
@@ -464,10 +501,12 @@ __device__ __forceinline__ void hits_body(const int* __restrict__ off,
   const bool valid = h < nvalid;
   const int b = seed / S;
   const int rpos = (int)sd.rpos[seed], len = (int)sd.len[seed];
-  const int row = valid ? (int)sd.x0[seed] + pos : 32;
-  int loc;
+  const P row = valid ? (P)sd.x0[seed] + pos : (P)32;
+  P loc;
   bool resolved = valid;
-  if (fm.full()) {
+  if constexpr (!F::kWalk) {
+    loc = fm.sa(row);
+  } else if (fm.full()) {
     loc = fm.sa(row);
   } else {
     // an inactive slot walks no step: sa_samp[32 >> 5]
@@ -503,13 +542,40 @@ chain_hits_routed_kernel(const int* __restrict__ off,
   hits_body(off, start, sd, fm, H, o);
 }
 
+// The hits kernel over the x64 big-genome SA: int64 rows and locations.
+__global__ void __launch_bounds__(HITS_GROUP)
+chain_hits_big_kernel(const int* __restrict__ off,
+                      const int2* __restrict__ start, Seeds sd, RoutedSa64 fm,
+                      int H, HitsT<long long> o) {
+  hits_body(off, start, sd, fm, H, o);
+}
+
 // ---- chain_classify_pack_kernel ------------------------------------------
 
-struct Ctx {
+// The classify+pack kernel over positions of type P: int32 (the main
+// path and -shards N), or int64 (the x64 big-genome path, whose text
+// positions, diagonals and hit locations may pass 2^31). An empty window
+// slot holds P's largest value (the plain version's iinfo max of the
+// position dtype).
+template <class P>
+__device__ __forceinline__ P pd_empty() {
+  if constexpr (sizeof(P) == 4) return PD_EMPTY;
+  else return PD_EMPTY64;
+}
+
+// a + b wrapping modulo 2^64, as the plain version's int64 sums do (an
+// empty slot's diagonal plus a read length)
+__device__ __forceinline__ long long wadd(long long a, long long b) {
+  return (long long)((unsigned long long)a + (unsigned long long)b);
+}
+
+template <class P>
+struct CtxT {
   const long long* text;                // packed 2-bit text, bwa order,
                                         // 32 bits a word in int64
   const long long* bkeys;               // sorted chromosome ends
-  int ntext, nkeys, seq_len;
+  int ntext, nkeys;
+  P seq_len;
 };
 
 struct Planes {
@@ -517,9 +583,11 @@ struct Planes {
   int L, pair_end;                      // exact == nullptr: no apply
 };
 
-struct CpIn {
+template <class P>
+struct CpInT {
   const int* off;                       // [B+1], the seed-freq scan's
-  const int *rpos, *len, *loc;          // hits, int32[H]
+  const int *rpos, *len;                // hits, int32[H]
+  const P* loc;                         // [H]
   const uint8_t* keep;                  // [H]
   const uint8_t *unresolved, *overflow; // [B]
   const uint32_t* packed;               // [B, max_len/16] words
@@ -527,8 +595,22 @@ struct CpIn {
   int B, H, H2, max_len;
 };
 
+// Where the packed output goes: the int32 vector's fields, and pd and
+// hit_loc in P (in the int32 vector at P = int; an int64 side output at P
+// = long long).
+template <class P>
+struct CpOut {
+  int* meta;                            // [B]
+  P* pd;                                // [B]
+  int* hit_w;                           // [H2]
+  P* hit_l;                             // [H2]
+  int* counts2;                         // [B/2]
+  int* ovf;                             // [B/32], total kept, overflow
+};
+
 // (a_pd, a_rp) after (b_pd, b_rp): _sort_slots' swap test.
-__device__ __forceinline__ bool after(int a_pd, int a_rp, int b_pd, int b_rp) {
+template <class P>
+__device__ __forceinline__ bool after(P a_pd, int a_rp, P b_pd, int b_rp) {
   return a_pd > b_pd || (a_pd == b_pd && a_rp > b_rp);
 }
 
@@ -597,20 +679,26 @@ __device__ __forceinline__ int group_max(int v) {
 
 // Shared memory of a block (dynamic, bytes): the staged hits and read
 // words, the chromosome ends when they fit, the keep flags.
+template <class P>
 __host__ __device__ constexpr size_t cp_smem_bytes(int nwords, int nkeys) {
-  return 4 * (size_t)(3 * CP_HIT_CAP + CP_READS * nwords) +
+  return 4 * (size_t)(2 * CP_HIT_CAP + CP_READS * nwords) +
+         sizeof(P) * (size_t)CP_HIT_CAP +
          8 * (size_t)(nkeys <= CP_KEY_CAP ? nkeys : 0) + CP_HIT_CAP;
 }
 
+template <class P>
 struct CpStage {                        // the block's shared arrays
-  int *rpos, *len, *loc;
+  int *rpos, *len;
+  P* loc;
   uint8_t* keep;
 };
 
 // Hits [c0, c1) into shared memory, consecutive threads on consecutive
 // words.
-__device__ __forceinline__ void stage_hits(const CpIn& in, const CpStage& st,
-                                           int c0, int c1) {
+template <class P>
+__device__ __forceinline__ void stage_hits(const CpInT<P>& in,
+                                           const CpStage<P>& st, int c0,
+                                           int c1) {
   for (int i = threadIdx.x; i < c1 - c0; i += CP_THREADS) {
     st.rpos[i] = in.rpos[c0 + i];
     st.len[i] = in.len[c0 + i];
@@ -619,10 +707,11 @@ __device__ __forceinline__ void stage_hits(const CpIn& in, const CpStage& st,
   }
 }
 
-// At most 64 registers a thread: 1,024 threads of blocks share an SM.
-__global__ void __launch_bounds__(CP_THREADS, 1024 / CP_THREADS)
-chain_classify_pack_kernel(CpIn in, Ctx cx, Planes pl, int* __restrict__ out,
-                           int* __restrict__ mmp, ScanState ss) {
+// The body of both instantiations of the classify+pack kernel.
+template <class P>
+__device__ __forceinline__ void classify_pack_body(
+    const CpInT<P>& in, const CtxT<P>& cx, const Planes& pl,
+    const CpOut<P>& op, int* __restrict__ mmp, const ScanState& ss) {
   extern __shared__ __align__(16) unsigned char cp_smem[];
   __shared__ int s_off[CP_READS + 1];
   __shared__ int s_rlen[CP_READS];
@@ -641,10 +730,11 @@ chain_classify_pack_kernel(CpIn in, Ctx cx, Planes pl, int* __restrict__ out,
   const int gbase = lane & ~(CP_GROUP - 1);
   const int B = in.B, H = in.H, nwords = in.max_len >> 4;
   const bool keys_staged = cx.nkeys <= CP_KEY_CAP;
-  CpStage st;
+  const P empty = pd_empty<P>();
+  CpStage<P> st;
   st.rpos = reinterpret_cast<int*>(cp_smem);
   st.len = st.rpos + CP_HIT_CAP;
-  st.loc = st.len + CP_HIT_CAP;
+  st.loc = reinterpret_cast<P*>(st.len + CP_HIT_CAP);
   uint32_t* s_words = reinterpret_cast<uint32_t*>(st.loc + CP_HIT_CAP);
   long long* s_keys =
       reinterpret_cast<long long*>(s_words + CP_READS * nwords);
@@ -670,10 +760,11 @@ chain_classify_pack_kernel(CpIn in, Ctx cx, Planes pl, int* __restrict__ out,
   const int ob1 = live ? min(s_off[r + 1], H) : he;
   const int rlen = live ? s_rlen[r] : 0;
   // ---- the first K_HITS kept hits: slot j + i * CP_GROUP on lane j -----
-  int w_pd[CP_SLOTS], w_rp[CP_SLOTS], w_ln[CP_SLOTS];
+  P w_pd[CP_SLOTS];
+  int w_rp[CP_SLOTS], w_ln[CP_SLOTS];
 #pragma unroll
   for (int i = 0; i < CP_SLOTS; ++i) {
-    w_pd[i] = PD_EMPTY;
+    w_pd[i] = empty;
     w_rp[i] = w_ln[i] = 0;
   }
   int nkept = 0;                        // the same in the whole group
@@ -716,7 +807,7 @@ chain_classify_pack_kernel(CpIn in, Ctx cx, Planes pl, int* __restrict__ out,
   for (int e = 0; e < K_HITS; ++e) {
     if (e >= nwin) break;
     const int src = gbase + e % CP_GROUP;
-    const int pe = __shfl_sync(FULL, w_pd[e / CP_GROUP], src);
+    const P pe = __shfl_sync(FULL, w_pd[e / CP_GROUP], src);
     const int re = __shfl_sync(FULL, w_rp[e / CP_GROUP], src);
 #pragma unroll
     for (int i = 0; i < CP_SLOTS; ++i) {
@@ -725,10 +816,11 @@ chain_classify_pack_kernel(CpIn in, Ctx cx, Planes pl, int* __restrict__ out,
                        : after(w_pd[i], w_rp[i], pe, re);
     }
   }
-  int spd[CP_SLOTS], srp[CP_SLOTS], sln[CP_SLOTS];
+  P spd[CP_SLOTS];
+  int srp[CP_SLOTS], sln[CP_SLOTS];
 #pragma unroll
   for (int i = 0; i < CP_SLOTS; ++i) {
-    spd[i] = PD_EMPTY;
+    spd[i] = empty;
     srp[i] = sln[i] = 0;
   }
 #pragma unroll
@@ -736,7 +828,7 @@ chain_classify_pack_kernel(CpIn in, Ctx cx, Planes pl, int* __restrict__ out,
     if (e >= nwin) break;
     const int src = gbase + e % CP_GROUP;
     const int ke = __shfl_sync(FULL, rank[e / CP_GROUP], src);
-    const int pe = __shfl_sync(FULL, w_pd[e / CP_GROUP], src);
+    const P pe = __shfl_sync(FULL, w_pd[e / CP_GROUP], src);
     const int re = __shfl_sync(FULL, w_rp[e / CP_GROUP], src);
     const int le = __shfl_sync(FULL, w_ln[e / CP_GROUP], src);
 #pragma unroll
@@ -748,11 +840,11 @@ chain_classify_pack_kernel(CpIn in, Ctx cx, Planes pl, int* __restrict__ out,
       }
   }
   const bool has_hits = nkept > 0, too_many = nkept > K_HITS;
-  const int pd0 = __shfl_sync(FULL, spd[0], gbase);
+  const P pd0 = __shfl_sync(FULL, spd[0], gbase);
   int off_diag = 0, cscore = 0, seed_end = 0, seed_last_rp = -1;
 #pragma unroll
   for (int i = 0; i < CP_SLOTS; ++i) {
-    const bool valid = spd[i] != PD_EMPTY, same = spd[i] == pd0;
+    const bool valid = spd[i] != empty, same = spd[i] == pd0;
     off_diag += valid && !same;
     if (valid) cscore += sln[i];
     if (valid && same) {
@@ -767,16 +859,17 @@ chain_classify_pack_kernel(CpIn in, Ctx cx, Planes pl, int* __restrict__ out,
   seed_last_rp = group_max(seed_last_rp);
   const bool has_can = cscore > (rlen >> 2);
   // ---- the span [pd, pd + rlen) inside one chromosome ------------------
-  const long long pd_end = (long long)pd0 + rlen;
-  const long long last = cx.seq_len - 1;
+  const long long pd_end = wadd(pd0, rlen);
+  const long long last = (long long)cx.seq_len - 1;
   const long long p1 = min(max((long long)pd0, 0LL), last);
-  const long long p2 = min(max(pd_end - 1, 0LL), last);
+  const long long p2 = min(max(wadd(pd_end, -1), 0LL), last);
   const bool span_ok = pd_end <= cx.seq_len &&
                        lower_bound(keys, cx.nkeys, p1) ==
                            lower_bound(keys, cx.nkeys, p2);
   // ---- masks along the diagonal: read word k*CP_GROUP + j on lane j ------
-  const int pds = span_ok && has_hits ? pd0 : 0;
-  const int sh = (pds & 15) * 2, wbase = pds >> 4;
+  const P pds = span_ok && has_hits ? pd0 : (P)0;
+  const int sh = (int)(pds & 15) * 2;
+  const P wbase = pds >> 4;
   const int lim = min(rlen, in.max_len);
   uint32_t* rw = s_words + r * nwords;
   int* smm = s_mm + r * MM_SLOTS;
@@ -797,10 +890,10 @@ chain_classify_pack_kernel(CpIn in, Ctx cx, Planes pl, int* __restrict__ out,
     uint32_t mm = 0, unc = 0, rb = 0;
     if (act) {
       rb = to_bwa(rw[wi]);
-      const uint32_t t0 =
-          (uint32_t)cx.text[min(max(wbase + wi, 0), cx.ntext - 1)];
-      const uint32_t t1 =
-          (uint32_t)cx.text[min(max(wbase + wi + 1, 0), cx.ntext - 1)];
+      const uint32_t t0 = (uint32_t)cx.text[min(max(wbase + wi, (P)0),
+                                                (P)(cx.ntext - 1))];
+      const uint32_t t1 = (uint32_t)cx.text[min(max(wbase + wi + 1, (P)0),
+                                                (P)(cx.ntext - 1))];
       const uint32_t al = (t0 << sh) | (sh > 0 ? t1 >> (32 - sh) : 0u);
       const uint32_t inlen = span_bits(0, lim - 16 * wi) & 0xFFFFu;
       mm = mismatch16(al, rb) & inlen;
@@ -863,10 +956,10 @@ chain_classify_pack_kernel(CpIn in, Ctx cx, Planes pl, int* __restrict__ out,
     if (s_flag[r] & 1) cls = CLASS_SLOW;   // unresolved: the host oracle
     const int rplast =
         min(max(seed_end < rlen ? seed_end : seed_last_rp, 0), 511);
-    out[b] = (int)((uint32_t)cls | ((uint32_t)mm_total << 2) |
-                   ((uint32_t)rplast << 8) |
-                   ((uint32_t)min(cscore, 511) << 17));
-    out[B + b] = pd0;
+    op.meta[b] = (int)((uint32_t)cls | ((uint32_t)mm_total << 2) |
+                       ((uint32_t)rplast << 8) |
+                       ((uint32_t)min(cscore, 511) << 17));
+    op.pd[b] = pd0;
   }
   cls = __shfl_sync(FULL, cls, gbase);
   if (j == 0) s_slow[r] = live && cls == CLASS_SLOW ? nkept : 0;
@@ -875,6 +968,7 @@ chain_classify_pack_kernel(CpIn in, Ctx cx, Planes pl, int* __restrict__ out,
   for (int q = j; live && q < MM_SLOTS; q += CP_GROUP) {
     const int e = smm[q];
     mmp[(size_t)b * MM_SLOTS + q] = e;
+    if constexpr (sizeof(P) == 4)       // the 64-bit form folds no apply
     if (pl.exact != nullptr && cls == CLASS_FAST) {
       const long long L = pl.L, two_l = cx.seq_len, pd = pd0;
       const bool ori = pd < L;
@@ -910,10 +1004,10 @@ chain_classify_pack_kernel(CpIn in, Ctx cx, Planes pl, int* __restrict__ out,
     if (t == 0) excl_s = excl;
   }
   __syncthreads();
-  int* hit_w = out + 2 * B;
-  int* hit_l = hit_w + in.H2;
-  int* counts2 = hit_l + in.H2;
-  int* ovf_bits = counts2 + B / 2;
+  int* hit_w = op.hit_w;
+  P* hit_l = op.hit_l;
+  int* counts2 = op.counts2;
+  int* ovf_bits = op.ovf;
   // each SLOW read's kept hits at its slot, slots >= H2 dropped; a tile
   // whose hits took one chunk still has them staged
   if (agg != 0u) {
@@ -960,9 +1054,29 @@ chain_classify_pack_kernel(CpIn in, Ctx cx, Planes pl, int* __restrict__ out,
       ovf_bits[B / 32] = total_kept;
       ovf_bits[B / 32 + 1] = s_off[nr] > H || total_kept > in.H2;
     }
-    for (int s = max(total_kept, 0) + t; s < in.H2; s += CP_THREADS)
-      hit_w[s] = hit_l[s] = 0;
+    for (int s = max(total_kept, 0) + t; s < in.H2; s += CP_THREADS) {
+      hit_w[s] = 0;
+      hit_l[s] = 0;
+    }
   }
+}
+
+// At most 64 registers a thread: 1,024 threads of blocks share an SM.
+__global__ void __launch_bounds__(CP_THREADS, 1024 / CP_THREADS)
+chain_classify_pack_kernel(CpInT<int> in, CtxT<int> cx, Planes pl,
+                           CpOut<int> op, int* __restrict__ mmp,
+                           ScanState ss) {
+  classify_pack_body(in, cx, pl, op, mmp, ss);
+}
+
+// The x64 big-genome form: int64 positions, no evidence apply; a block an
+// SM at the least, so up to 128 registers a thread.
+__global__ void __launch_bounds__(CP_THREADS, 1)
+chain_classify_pack_big_kernel(CpInT<long long> in, CtxT<long long> cx,
+                               CpOut<long long> op, int* __restrict__ mmp,
+                               ScanState ss) {
+  classify_pack_body(in, cx, Planes{nullptr, nullptr, nullptr, 0, 0}, op,
+                     mmp, ss);
 }
 
 }  // namespace
@@ -1068,6 +1182,35 @@ extern "C" int mc_chain_hits_routed(const void* off, const void* start,
   return (int)cudaGetLastError();
 }
 
+// Hit expansion and SA resolve over the x64 big-genome SA (big_x64 under
+// -shards N): as mc_chain_hits_routed with a full SA only, sa_ptrs the
+// shards' base addresses (int64[n], each shard int64[per] and readable
+// from this device); the hit rows (x0 + rank) and loc are int64[H].
+extern "C" int mc_chain_hits_big(const void* off, const void* start,
+                                 const void* n_seeds, const void* rpos,
+                                 const void* len, const void* x0,
+                                 const void* freq, int B, int S,
+                                 const void* sa_ptrs, long long per, int H,
+                                 void* read, void* hrpos, void* hlen,
+                                 void* loc, void* valid, void* keep,
+                                 void* unresolved, void* stream) {
+  if (B < 1 || S < 1 || H < 1 || (long long)B * S >= (1LL << 31) ||
+      sa_ptrs == nullptr || per < 1)
+    return (int)cudaErrorInvalidValue;
+  const Seeds sd{(const long long*)n_seeds, (const long long*)rpos,
+                 (const long long*)len, (const long long*)x0,
+                 (const long long*)freq, B, S};
+  const RoutedSa64 fm{(const unsigned long long*)sa_ptrs,
+                      (unsigned long long)per};
+  const HitsT<long long> o{(int*)read, (int*)hrpos, (int*)hlen,
+                           (long long*)loc, (uint8_t*)valid, (uint8_t*)keep,
+                           (uint8_t*)unresolved};
+  chain_hits_big_kernel<<<(H + HITS_GROUP - 1) / HITS_GROUP, HITS_GROUP, 0,
+                          (cudaStream_t)stream>>>(
+      (const int*)off, (const int2*)start, sd, fm, H, o);
+  return (int)cudaGetLastError();
+}
+
 // Classification and pack of a batch in one launch: the packed output
 // vector out int32[2B + 2H2 + B/2 + B/32 + 2] (meta1, pd, hit_w, hit_loc,
 // counts2, the overflow words, total kept, buffer overflow) and mmp
@@ -1102,23 +1245,78 @@ extern "C" int mc_chain_classify_pack(
   if (!opted[dev]) {
     e = cudaFuncSetAttribute(chain_classify_pack_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)cp_smem_bytes(CP_MAX_WORDS, CP_KEY_CAP));
+                             (int)cp_smem_bytes<int>(CP_MAX_WORDS, CP_KEY_CAP));
     if (e != cudaSuccess) return (int)e;
     opted[dev] = true;
   }
-  const size_t smem = cp_smem_bytes(max_len >> 4, nkeys);
-  const CpIn in{(const int*)off, (const int*)hrpos, (const int*)hlen,
-                (const int*)loc, (const uint8_t*)keep,
-                (const uint8_t*)unresolved, (const uint8_t*)overflow,
-                (const uint32_t*)packed, (const int*)rlens, B, H, H2,
-                max_len};
-  const Ctx cx{(const long long*)text, (const long long*)bkeys, ntext, nkeys,
-               seq_len};
+  const size_t smem = cp_smem_bytes<int>(max_len >> 4, nkeys);
+  const CpInT<int> in{(const int*)off, (const int*)hrpos, (const int*)hlen,
+                      (const int*)loc, (const uint8_t*)keep,
+                      (const uint8_t*)unresolved, (const uint8_t*)overflow,
+                      (const uint32_t*)packed, (const int*)rlens, B, H, H2,
+                      max_len};
+  const CtxT<int> cx{(const long long*)text, (const long long*)bkeys, ntext,
+                     nkeys, seq_len};
   const Planes pl{(int*)exact, (int*)fd, (int*)acgt, L, pair_end};
   const ScanState ss{(unsigned int*)scratch,
                      (unsigned long long*)scratch + 1, (unsigned int)epoch};
+  int* o = (int*)out;
+  const CpOut<int> op{o, o + B, o + 2 * B, o + 2 * B + H2, o + 2 * B + 2 * H2,
+                      o + 2 * B + 2 * H2 + B / 2};
   chain_classify_pack_kernel<<<ntiles, CP_THREADS, smem,
-                               (cudaStream_t)stream>>>(
-      in, cx, pl, (int*)out, (int*)mmp, ss);
+                               (cudaStream_t)stream>>>(in, cx, pl, op,
+                                                       (int*)mmp, ss);
+  return (int)cudaGetLastError();
+}
+
+// The x64 big-genome classify+pack (big_x64 under -shards N): as
+// mc_chain_classify_pack with hit locations loc int64[H], seq_len int64,
+// and no evidence apply. pd and the packed hits' locations are int64, so
+// they move out of the int32 vector into an int64 side output: out
+// int32[B + H2 + B/2 + B/32 + 2] holds meta1, hit_w, counts2, the overflow
+// words, the total kept and the buffer-overflow flag, in that order; wide
+// int64[B + H2] (8-byte aligned) holds pd, then hit_loc.
+extern "C" int mc_chain_classify_pack_big(
+    const void* off, const void* hrpos, const void* hlen, const void* loc,
+    const void* keep, const void* unresolved, const void* overflow,
+    const void* packed, const void* rlens, int B, int H, int H2, int max_len,
+    const void* text, int ntext, const void* bkeys, int nkeys,
+    long long seq_len, void* out, void* wide, void* mmp, void* scratch,
+    int tiles, int epoch, void* stream) {
+  const int ntiles = (B + CP_READS - 1) / CP_READS;
+  if (B < 32 || B % 32 || H < 1 || H2 < 1 || max_len < 16 || max_len % 16 ||
+      max_len > 511 || ntext < 1 || nkeys < 1 || seq_len < 1 ||
+      wide == nullptr || ((uintptr_t)wide & 7) || scratch == nullptr ||
+      tiles < ntiles || epoch < 1 || epoch >= (1 << 30))
+    return (int)cudaErrorInvalidValue;
+  static bool opted[64];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (!opted[dev]) {
+    e = cudaFuncSetAttribute(
+        chain_classify_pack_big_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)cp_smem_bytes<long long>(CP_MAX_WORDS, CP_KEY_CAP));
+    if (e != cudaSuccess) return (int)e;
+    opted[dev] = true;
+  }
+  const size_t smem = cp_smem_bytes<long long>(max_len >> 4, nkeys);
+  const CpInT<long long> in{(const int*)off, (const int*)hrpos,
+                            (const int*)hlen, (const long long*)loc,
+                            (const uint8_t*)keep, (const uint8_t*)unresolved,
+                            (const uint8_t*)overflow, (const uint32_t*)packed,
+                            (const int*)rlens, B, H, H2, max_len};
+  const CtxT<long long> cx{(const long long*)text, (const long long*)bkeys,
+                           ntext, nkeys, seq_len};
+  const ScanState ss{(unsigned int*)scratch,
+                     (unsigned long long*)scratch + 1, (unsigned int)epoch};
+  int* o = (int*)out;
+  long long* w = (long long*)wide;
+  const CpOut<long long> op{o, w, o + B, w + B, o + B + H2, o + B + H2 + B / 2};
+  chain_classify_pack_big_kernel<<<ntiles, CP_THREADS, smem,
+                                   (cudaStream_t)stream>>>(in, cx, op,
+                                                           (int*)mmp, ss);
   return (int)cudaGetLastError();
 }

@@ -32,6 +32,13 @@
 //     115-132). No prefix skip: the sharded table has no prefix rows. The
 //     row fetch is a template parameter of the scan (FlatRows, ShardRows),
 //     so seed_scan3_kernel compiles as it did.
+//   seed_scan3_big_kernel  the routed machine of the x64 big-genome path
+//     (big_x64 under -shards N; mapcaller_tpu/parallel/big_index.py:73-94,
+//     _seed_scan3 with idx_dtype int64): the shards' rows hold counts
+//     relative to their shard (int32), each fetch adds its shard's int64
+//     base counts (ShardRows64), and the interval state, the row indices
+//     and the correction rows are int64, so a text may pass 2^31 rows.
+//     No prefix skip, a thread per read.
 //   seed_scan1_kernel  the same machine over the 1-step occ4 rows, one
 //     base a step; with has_n byte codes whose N (> 3) ends an extension
 //     and is skipped as a start, else 2-bit packed codes.
@@ -81,20 +88,38 @@ constexpr int OCC_THR = 50;
 constexpr int THREADS = 128;
 constexpr int ROW3 = 72;                // int32 per occ3 row
 constexpr int ROW1 = 8;                 // int32 per occ4 row
+// int64 per row of a shard's base table (ShardRows64): its 64 base counts,
+// their rev3 prefix (65), a pad (3) and their group sums by last base (4)
+constexpr int B3X = 136, B3X_REV = 64, B3X_GRP = 132;
 
-struct Occ3Consts {
-  int primary, row_p1, row_p2, t0, t1, tail1, tail2a, tail2b;
+// The row-index constants in the scan's index type I (int, or long long
+// for the x64 big-genome scan, whose rows may pass 2^31).
+template <class I>
+struct Occ3ConstsT {
+  I primary, row_p1, row_p2;
+  int t0, t1, tail1, tail2a, tail2b;
   int pfx_base, pfx_k;
 };
+using Occ3Consts = Occ3ConstsT<int>;
 
 // Where a scan's occ3 rows come from. FlatRows: one table (the main
 // path). ShardRows: the table split over shards of `per` rows (-shards N,
 // ops/routed.py); row w lives in shard w / per at local row w % per, whose
 // base address the shard table holds (on this card, or on a peer card
-// with peer access). kPrefix: whether the fused prefix skip can run (the
-// routed scan has no prefix rows).
+// with peer access). ShardRows64: the x64 big-genome table (big_x64 under
+// -shards N, parallel/big_index.py), routed the same way, whose rows hold
+// counts relative to their shard: the absolute count is the shard's int64
+// base count (base3[s][d]) plus the row's. A shard's base table row
+// (base3x, B3X int64) also holds what the sums need of the 64 base counts
+// precomputed: for each order key w their sum over the trinucleotides d
+// with rev3(d) < w, and their sums by last base; so a fetch adds two
+// loads, not 64. The scan's state and row indices are int64 (Index). kPrefix: whether the fused prefix skip can
+// run (the routed scans have no prefix rows); kBase: whether counts add a
+// shard's base.
 struct FlatRows {
-  static constexpr bool kPrefix = true;
+  static constexpr bool kPrefix = true, kBase = false;
+  using Index = int;
+  using UIndex = unsigned;
   const int* rows;
   __device__ __forceinline__ const int4* row(unsigned w) const {
     return reinterpret_cast<const int4*>(rows + (size_t)w * ROW3);
@@ -102,13 +127,32 @@ struct FlatRows {
 };
 
 struct ShardRows {
-  static constexpr bool kPrefix = false;
+  static constexpr bool kPrefix = false, kBase = false;
+  using Index = int;
+  using UIndex = unsigned;
   const unsigned long long* base;       // [n] shard base addresses
   unsigned per;                         // rows a shard
   __device__ __forceinline__ const int4* row(unsigned w) const {
     const unsigned s = w / per;
     const int* p = reinterpret_cast<const int*>(__ldg(base + s));
     return reinterpret_cast<const int4*>(p + (size_t)(w - s * per) * ROW3);
+  }
+};
+
+struct ShardRows64 {
+  static constexpr bool kPrefix = false, kBase = true;
+  using Index = long long;
+  using UIndex = unsigned long long;
+  const unsigned long long* base;       // [n] shard base addresses
+  const long long* base3x;              // [n, B3X] each shard's base table
+  unsigned long long per;               // rows a shard
+  __device__ __forceinline__ const int4* row(unsigned long long w) const {
+    const unsigned long long s = w / per;
+    const int* p = reinterpret_cast<const int*>(__ldg(base + s));
+    return reinterpret_cast<const int4*>(p + (size_t)(w - s * per) * ROW3);
+  }
+  __device__ __forceinline__ const long long* counts(unsigned long long w) const {
+    return base3x + (size_t)(w / per) * B3X;
   }
 };
 
@@ -121,11 +165,13 @@ struct Out {
   int B, S;
 };
 
-__device__ __forceinline__ int l2(const long long* __restrict__ L2, int c) {
-  return (int)__ldg(L2 + c);
+template <class I = int>
+__device__ __forceinline__ I l2(const long long* __restrict__ L2, int c) {
+  return (I)__ldg(L2 + c);
 }
 
-__device__ __forceinline__ int pick4(int a0, int a1, int a2, int a3, int c) {
+template <class I>
+__device__ __forceinline__ I pick4(I a0, I a1, I a2, I a3, int c) {
   return c == 0 ? a0 : (c == 1 ? a1 : (c == 2 ? a2 : a3));
 }
 
@@ -138,10 +184,13 @@ __device__ __forceinline__ uint32_t sym_at(const int4& s, int q) {
 // 3-step sums of one occ3 row for trinucleotide d and order key w:
 // occ_d = Occ3(d, i), rev = sum_d' cnt[d'] [rev3(d') < w] + #{q < m:
 // sym_q valid, rev3(sym_q) < w}, rev3(d) = 63 - ((d&3)*16 + (d&12) +
-// (d>>4)) (ops/fm3_device.py occ3_d, rev3_lt_w_sum).
+// (d>>4)) (ops/fm3_device.py occ3_d, rev3_lt_w_sum). With shard-relative
+// rows (kBase) both add the shard's int64 base counts.
 template <class Src>
-__device__ __forceinline__ void sums3(const Src& src, unsigned i, int d,
-                                      int w, int& occ_d, int& rev) {
+__device__ __forceinline__ void sums3(const Src& src,
+                                      typename Src::UIndex i, int d, int w,
+                                      typename Src::Index& occ_d,
+                                      typename Src::Index& rev) {
   const int4* R = src.row(i >> 4);
   const int m = (int)(i & 15u);
   int base = 0, rs = 0;
@@ -168,15 +217,22 @@ __device__ __forceinline__ void sums3(const Src& src, unsigned i, int d,
   }
   occ_d = base;
   rev = rs;
+  if constexpr (Src::kBase) {           // the shard's base, precomputed
+    const long long* b3 = src.counts(i >> 4);
+    occ_d += __ldg(b3 + d);
+    rev += __ldg(b3 + B3X_REV + w);
+  }
 }
 
 // Derived 1-step counts of all 4 bases at occ3 index i (== bwt_occ4(i-1)):
 // group sums of the 64 counts by last base, the in-row symbols before m,
 // and the corrections for rows p=1, p=2 (ops/fm3_device.py occ1_4).
 template <class Src>
-__device__ __forceinline__ void occ1_4(const Src& src, const Occ3Consts& k,
-                                       unsigned i, int& c0, int& c1, int& c2,
-                                       int& c3) {
+__device__ __forceinline__ void occ1_4(
+    const Src& src, const Occ3ConstsT<typename Src::Index>& k,
+    typename Src::UIndex i, typename Src::Index& c0, typename Src::Index& c1,
+    typename Src::Index& c2, typename Src::Index& c3) {
+  using I = typename Src::Index;
   const int4* R = src.row(i >> 4);
   const int m = (int)(i & 15u);
   int g0 = 0, g1 = 0, g2 = 0, g3 = 0;
@@ -199,12 +255,21 @@ __device__ __forceinline__ void occ1_4(const Src& src, const Occ3Consts& k,
     g2 += (in && c == 2) ? 1 : 0;
     g3 += (in && c == 3) ? 1 : 0;
   }
-  const int a1 = (int)i > k.row_p1 ? 1 : 0;
-  const int a2 = (int)i > k.row_p2 ? 1 : 0;
+  const int a1 = (I)i > k.row_p1 ? 1 : 0;
+  const int a2 = (I)i > k.row_p2 ? 1 : 0;
   c0 = g0 + (k.t0 == 0 ? a1 : 0) + (k.t1 == 0 ? a2 : 0);
   c1 = g1 + (k.t0 == 1 ? a1 : 0) + (k.t1 == 1 ? a2 : 0);
   c2 = g2 + (k.t0 == 2 ? a1 : 0) + (k.t1 == 2 ? a2 : 0);
   c3 = g3 + (k.t0 == 3 ? a1 : 0) + (k.t1 == 3 ? a2 : 0);
+  if constexpr (Src::kBase) {           // the base counts' group sums
+    const longlong2* g = reinterpret_cast<const longlong2*>(
+        src.counts(i >> 4) + B3X_GRP);
+    const longlong2 u = __ldg(g), v = __ldg(g + 1);
+    c0 += u.x;
+    c1 += u.y;
+    c2 += v.x;
+    c3 += v.y;
+  }
 }
 
 // bwt_occ4 over the 1-step rows: counts of each base in BWT rows [0, k];
@@ -254,9 +319,10 @@ __device__ __forceinline__ int word_code(const uint32_t* __restrict__ words,
 
 // Seed bookkeeping of a finalize (fm_search._record_seed): x0 and x2 are
 // the state before the step.
+template <class I>
 __device__ __forceinline__ void finalize(const Out& o, int r, int start,
-                                         int ext_pos, int x0, int x2,
-                                         int& ns, bool& ovf) {
+                                         int ext_pos, I x0, I x2, int& ns,
+                                         bool& ovf) {
   const int slen = ext_pos - start;
   if (slen >= MIN_SEED_LEN && x2 <= OCC_THR) {
     const int slot = min(ns, o.S - 1);
@@ -289,18 +355,20 @@ __device__ __forceinline__ void store(const Out& o, int r, int ns, bool ovf,
 }
 
 template <class Src>
-__device__ __forceinline__ void scan3_read(const Src& src,
-                           const int* __restrict__ c3_first,
-                           const long long* __restrict__ L2,
-                           const uint8_t* __restrict__ packed,
-                           const int* __restrict__ rlens, int max_len,
-                           int cap, const Occ3Consts& k, const Out& o, int r) {
+__device__ __forceinline__ void scan3_read(
+    const Src& src, const typename Src::Index* __restrict__ c3_first,
+    const long long* __restrict__ L2, const uint8_t* __restrict__ packed,
+    const int* __restrict__ rlens, int max_len, int cap,
+    const Occ3ConstsT<typename Src::Index>& k, const Out& o, int r) {
+  using I = typename Src::Index;
+  using U = typename Src::UIndex;
   const int nwords = max_len >> 4;
   const uint32_t* words =
       reinterpret_cast<const uint32_t*>(packed + (size_t)r * (max_len >> 2));
   const int rlen = rlens[r];
   const int last = max_len - 1;
-  int pos = 0, start = 0, ext_pos = 0, x0 = 0, x1 = 0, x2 = 0, ns = 0;
+  int pos = 0, start = 0, ext_pos = 0, ns = 0;
+  I x0 = 0, x1 = 0, x2 = 0;
   bool in_ext = false, replay = false, ovf = false;
   int it = 0, g = 0;
   for (; it < cap; ++it) {
@@ -322,9 +390,9 @@ __device__ __forceinline__ void scan3_read(const Src& src,
       }
       if (!jump) {
         const int c = word_code(words, p);
-        x0 = l2(L2, c) + 1;
-        x1 = l2(L2, 3 - c) + 1;
-        x2 = l2(L2, c + 1) - l2(L2, c);
+        x0 = l2<I>(L2, c) + 1;
+        x1 = l2<I>(L2, 3 - c) + 1;
+        x2 = l2<I>(L2, c + 1) - l2<I>(L2, c);
         ext_pos = pos + 1;
       }
       start = pos;
@@ -339,22 +407,22 @@ __device__ __forceinline__ void scan3_read(const Src& src,
       continue;
     }
     const int e0 = word_code(words, min(ext_pos, last));
-    const unsigned ik = (unsigned)x1, il = (unsigned)(x1 + x2);
+    const U ik = (U)x1, il = (U)(x1 + x2);
     if (!replay && ext_pos + 3 <= rlen) {              // 3-step
       const int e1 = word_code(words, min(ext_pos + 1, last));
       const int e2 = word_code(words, min(ext_pos + 2, last));
       const int d = (3 - e2) * 16 + (3 - e1) * 4 + (3 - e0);
       const int w = e0 * 16 + e1 * 4 + e2;
-      int tk, rk, tl, rl;
+      I tk, rk, tl, rl;
       sums3(src, ik, d, w, tk, rk);
       sums3(src, il, d, w, tl, rl);
       g += 2;
-      const int n2 = tl - tk;
+      const I n2 = tl - tk;
       if (n2 <= 0) {                                   // exact end within 3
         replay = true;
         continue;
       }
-      const int lo = x1, hi = x1 + x2;
+      const I lo = x1, hi = x1 + x2;
       const int cmp1 = k.tail1 <= e0 ? 1 : 0;
       const int cmp2 = (k.tail2a < e0 || (k.tail2a == e0 && k.tail2b <= e1)) ? 1 : 0;
       const int adj = (lo <= k.primary && k.primary < hi ? 1 : 0) +
@@ -367,13 +435,13 @@ __device__ __forceinline__ void scan3_read(const Src& src,
       continue;
     }
     // derived 1-step (tail bases, or the replay after a failed 3-step)
-    int k0, k1, k2, k3, l0, l1, l2v, l3;
+    I k0, k1, k2, k3, l0, l1, l2v, l3;
     occ1_4(src, k, ik, k0, k1, k2, k3);
     occ1_4(src, k, il, l0, l1, l2v, l3);
     g += 2;
     const int ci = 3 - e0;
-    const int o1 = l1 - k1, o2 = l2v - k2, o3 = l3 - k3;
-    const int n2 = pick4(l0 - k0, o1, o2, o3, ci);
+    const I o1 = l1 - k1, o2 = l2v - k2, o3 = l3 - k3;
+    const I n2 = pick4(l0 - k0, o1, o2, o3, ci);
     if (n2 <= 0) {
       finalize(o, r, start, ext_pos, x0, x2, ns, ovf);
       pos = ext_pos + 1;
@@ -382,7 +450,7 @@ __device__ __forceinline__ void scan3_read(const Src& src,
     }
     const int adj = (x1 <= k.primary && x1 + x2 - 1 >= k.primary) ? 1 : 0;
     x0 = x0 + adj + (ci < 3 ? o3 : 0) + (ci < 2 ? o2 : 0) + (ci < 1 ? o1 : 0);
-    x1 = l2(L2, ci) + 1 + pick4(k0, k1, k2, k3, ci);
+    x1 = l2<I>(L2, ci) + 1 + pick4(k0, k1, k2, k3, ci);
     x2 = n2;
     ext_pos += 1;
   }
@@ -413,6 +481,18 @@ seed_scan3_routed_kernel(ShardRows src, const int* __restrict__ c3_first,
                          const uint8_t* __restrict__ packed,
                          const int* __restrict__ rlens, int max_len, int cap,
                          Occ3Consts k, Out o) {
+  const int r = blockIdx.x * THREADS + threadIdx.x;
+  if (r >= o.B) return;
+  scan3_read(src, c3_first, L2, packed, rlens, max_len, cap, k, o, r);
+}
+
+// The x64 big-genome scan: int64 state over shard-relative rows.
+__global__ void __launch_bounds__(THREADS)
+seed_scan3_big_kernel(ShardRows64 src, const long long* __restrict__ c3_first,
+                      const long long* __restrict__ L2,
+                      const uint8_t* __restrict__ packed,
+                      const int* __restrict__ rlens, int max_len, int cap,
+                      Occ3ConstsT<long long> k, Out o) {
   const int r = blockIdx.x * THREADS + threadIdx.x;
   if (r >= o.B) return;
   scan3_read(src, c3_first, L2, packed, rlens, max_len, cap, k, o, r);
@@ -539,6 +619,40 @@ extern "C" int mc_seed_scan3_routed(const void* shard_ptrs, int per,
   seed_scan3_routed_kernel<<<(B + THREADS - 1) / THREADS, THREADS, 0,
                              (cudaStream_t)stream>>>(
       src, (const int*)c3_first, (const long long*)L2,
+      (const uint8_t*)packed, (const int*)rlens, max_len, cap, k, o);
+  return (int)cudaGetLastError();
+}
+
+// The x64 big-genome occ3 scan (big_x64 under -shards N): shard_ptrs
+// int64[n] as mc_seed_scan3_routed's, each shard int32[per, 72] of counts
+// relative to the shard, base3x int64[n, 136] each shard's base table
+// (16-byte aligned): its counts at its first row (0-63), for w in 0..64
+// their sum over the d with rev3(d) < w (64-128), and their sums by last
+// base d & 3 (132-135); c3_first int64[64], L2 int64[5]; primary,
+// row_p1 and row_p2 int64. The interval state and the row indices are
+// int64, so a text may pass 2^31 rows; the seed table is int64 as before.
+// Other inputs and the outputs as mc_seed_scan3_routed's.
+extern "C" int mc_seed_scan3_big(const void* shard_ptrs, long long per,
+                                 const void* base3x, const void* c3_first,
+                                 const void* L2, const void* packed,
+                                 const void* rlens, int B, int max_len, int S,
+                                 int cap, long long primary, long long row_p1,
+                                 long long row_p2, int t0, int t1, int tail1,
+                                 int tail2a, int tail2b, void* n_seeds,
+                                 void* tab, void* overflow, void* iters,
+                                 void* rows_out, void* stream) {
+  if (!shape_ok(B, max_len, S, cap) || shard_ptrs == nullptr ||
+      base3x == nullptr || per < 1)
+    return (int)cudaErrorInvalidValue;
+  const Occ3ConstsT<long long> k{primary, row_p1, row_p2, t0, t1, tail1,
+                                 tail2a, tail2b, 0, 0};
+  const Out o{(long long*)n_seeds, (long long*)tab, (uint8_t*)overflow,
+              (int*)iters, (int*)rows_out, B, S};
+  const ShardRows64 src{(const unsigned long long*)shard_ptrs,
+                        (const long long*)base3x, (unsigned long long)per};
+  seed_scan3_big_kernel<<<(B + THREADS - 1) / THREADS, THREADS, 0,
+                          (cudaStream_t)stream>>>(
+      src, (const long long*)c3_first, (const long long*)L2,
       (const uint8_t*)packed, (const int*)rlens, max_len, cap, k, o);
   return (int)cudaGetLastError();
 }

@@ -23,7 +23,11 @@ fire on a read passing the gap conditions: mg >= 3 && mg >= int(0.3*lg)
 contradicts NOT(mg > 1 && mg >= int(0.2*lg)).
 
 Words (text and read) are int64 holding uint32 bit patterns (see
-ops/fm_device.py); positions are int64 with int32 values.
+ops/fm_device.py); positions are computed in int64. classify_reads is
+dtype-generic as the reference's (chain_device.py:115-117): the hit
+locations' dtype sets the empty-slot diagonal, its largest value (int32
+on the main path, int64 on the x64 big-genome path), and everything else
+is the same.
 
 classify_reads is the plain PyTorch version of the classify part of the
 classify+pack kernel (ops/chain_kernels.chain_classify_pack,
@@ -70,7 +74,7 @@ class ChainCtx:
 
 def _sort_slots(pd, rpos, ln):
     """Odd-even transposition sort over the K_HITS axis by (pd, rpos);
-    empty slots carry pd = INT32_MAX and sink to the end."""
+    empty slots carry the largest pd and sink to the end."""
     pd, rpos, ln = pd.clone(), rpos.clone(), ln.clone()
     K = pd.shape[-1]
     for phase in range(K):
@@ -106,10 +110,13 @@ def classify_reads(ctx: ChainCtx, read_words: torch.Tensor,
     """All inputs are flat hit arrays (grouped by read) + per-read data.
     Returns (cls, pd, mm, rplast, cscore, mmp), int64[B] each and
     mmp int64[B, MM_SLOTS], with pd = the single diagonal of FAST reads
-    (INT32_MAX for reads without kept hits)."""
+    (for reads without kept hits the largest value of hit_loc's dtype:
+    INT32_MAX for int32 locations, INT64_MAX for int64 ones)."""
     B = read_words.shape[0]
     dev = read_words.device
     i64 = torch.int64
+    pd_empty = torch.iinfo(hit_loc.dtype).max
+    hit_loc = hit_loc.to(i64)
     keep_i = keep.to(i64)
 
     # ---- scatter kept hits into per-read K-slot windows ------------------
@@ -129,14 +136,14 @@ def classify_reads(ctx: ChainCtx, read_words: torch.Tensor,
         out.index_copy_(0, flat, val)
         return out.reshape(B + 1, K_HITS)[:B]
 
-    s_pd = slots(INT32_MAX, hit_loc - hit_rpos)
+    s_pd = slots(pd_empty, hit_loc - hit_rpos)
     s_rp = slots(0, hit_rpos)
     s_ln = slots(0, hit_len)
     s_pd, s_rp, s_ln = _sort_slots(s_pd, s_rp, s_ln)
 
     has_hits = nkept > 0
     too_many = nkept > K_HITS
-    valid_slot = s_pd != INT32_MAX
+    valid_slot = s_pd != pd_empty
     pd0 = s_pd[:, 0]
     same_diag = s_pd == pd0[:, None]
     one_diag = (torch.where(valid_slot, s_pd, pd0[:, None])

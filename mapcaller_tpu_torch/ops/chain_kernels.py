@@ -27,7 +27,11 @@ chain_scan is the same scan kernel on int32 counts, which the main path
 no longer launches (its scan of the slow counts is inside
 chain_classify_pack). chain_hits_routed is the hits kernel over a
 genome-sharded SA (`-shards N`, parallel/sharded_index.py): the routed
-instantiation of the same kernel body.
+instantiation of the same kernel body. chain_hits_big and
+chain_classify_pack_big are the 64-bit instantiations of the x64
+big-genome path (big_x64 under `-shards N`, parallel/big_index.py): hit
+rows, hit locations and diagonals int64, the SA int64 in shards, and the
+packed output's pd and hit locations in an int64 side vector.
 
 Each wrapper checks its inputs, then runs the plain version for CPU
 tensors and launches its kernel for CUDA tensors, counting the launch in
@@ -94,9 +98,13 @@ def _load_kernel():
                  + [I, I, I] + [P] * 8),
                 ("mc_chain_hits_routed", [P] * 7 + [I, I, P, I, P, P, I, P,
                                                     I, I, I, I] + [P] * 8),
+                ("mc_chain_hits_big", [P] * 7 + [I, I, P, C.c_longlong, I]
+                 + [P] * 8),
                 ("mc_chain_classify_pack", [P] * 9 + [I] * 4
                  + [P, I, P, I, I] + [P] * 3 + [I, I] + [P] * 3
-                 + [I, I, P])):
+                 + [I, I, P]),
+                ("mc_chain_classify_pack_big", [P] * 9 + [I] * 4
+                 + [P, I, P, I, C.c_longlong] + [P] * 4 + [I, I, P])):
             fn = getattr(lib, name)
             fn.restype = C.c_int
             fn.argtypes = args
@@ -135,10 +143,11 @@ def _dtype(name: str, t, dtype, what: str) -> None:
     need(t.dtype == dtype, f"{name}: {what} must be {dtype}", TypeError)
 
 
-def _check_hits(name: str, hits: Hits, B: int) -> int:
+def _check_hits(name: str, hits: Hits, B: int, loc) -> int:
     H = hits.read.shape[0]
-    for what in ("read", "rpos", "len", "loc"):
+    for what in ("read", "rpos", "len"):
         _dtype(name, getattr(hits, what), torch.int32, f"hits.{what}")
+    _dtype(name, hits.loc, loc, "hits.loc")
     for what in ("valid", "keep", "unresolved"):
         _dtype(name, getattr(hits, what), torch.bool, f"hits.{what}")
     need(H >= 1 and all(getattr(hits, w).shape == (H,) for w in
@@ -284,10 +293,10 @@ def _repeat_to(x: torch.Tensor, csum_incl: torch.Tensor,
     return x[torch.clamp(src, max=x.shape[0] - 1)]
 
 
-def chain_hits_plain(fm: DeviceFMIndex, off, n_seeds, s_rpos, s_len, s_x0,
-                     s_freq, H: int, max_walk: int = MAX_WALK) -> Hits:
-    """Plain version of chain_hits on any device; it expands by its own
-    cumsum of the seeds and does not read off."""
+def _expand_seeds(n_seeds, s_rpos, s_len, s_x0, s_freq, H: int):
+    """The seeds expanded by freq into H hit slots (truncated, or padded
+    with the last seed slot) by their own cumsum -> (read, rpos, len, SA
+    row, valid), int64 and bool[H]."""
     B, S = s_freq.shape
     dev = s_freq.device
     i64 = torch.int64
@@ -306,6 +315,18 @@ def chain_hits_plain(fm: DeviceFMIndex, off, n_seeds, s_rpos, s_len, s_x0,
     hit_read = rep(torch.arange(B, dtype=i64, device=dev)
                    .repeat_interleave(S))
     hit_valid = hpos < torch.clamp(total_raw, max=H)
+    return hit_read, hit_rpos, hit_len, hit_row, hit_valid
+
+
+def chain_hits_plain(fm: DeviceFMIndex, off, n_seeds, s_rpos, s_len, s_x0,
+                     s_freq, H: int, max_walk: int = MAX_WALK) -> Hits:
+    """Plain version of chain_hits on any device; it expands by its own
+    cumsum of the seeds and does not read off."""
+    B = s_freq.shape[0]
+    dev = s_freq.device
+    i64 = torch.int64
+    hit_read, hit_rpos, hit_len, hit_row, hit_valid = _expand_seeds(
+        n_seeds, s_rpos, s_len, s_x0, s_freq, H)
     hit_loc, resolved = sa_resolve(fm, torch.where(hit_valid, hit_row, 32),
                                    hit_valid, max_walk)
     unresolved = torch.zeros(B, dtype=i64, device=dev).scatter_reduce(
@@ -461,7 +482,7 @@ def chain_classify_plain(ctx: ChainCtx, packed, rlens, hits: Hits,
     cls, pd0, mm, rplast, cscore, mmp = classify_reads(
         ctx, read_words_bwa(packed, max_len), rlens.to(i64),
         hits.read.to(i64), hits.rpos.to(i64), hits.len.to(i64),
-        hits.loc.to(i64), hits.keep, max_len)
+        hits.loc, hits.keep, max_len)
     # per-read seed-table overflow forces the host-oracle path
     cls = torch.where(hits.unresolved, CLASS_SLOW, cls)
     out[:B] = to_i32(cls | (mm << 2) | (rplast << 8) | (cscore << 17))
@@ -496,10 +517,20 @@ def chain_pack_plain(off, hits: Hits, overflow, out: torch.Tensor,
     the classes in out[:B], compacting the SLOW reads' kept hits by a
     cumsum over the hits (the reference's, fm_search.py:752)."""
     B = overflow.shape[0]
+    hit_w_c, hit_loc_c, tail = _pack_parts(off, hits, out[:B] & 3, overflow,
+                                           H2)
+    out[2 * B:] = to_i32(torch.cat([hit_w_c, hit_loc_c, tail]))
+    return out
+
+
+def _pack_parts(off, hits: Hits, cls, overflow, H2: int):
+    """The pack's fields from the classes cls[B] -> (hit_w, hit_loc)
+    int64[H2] of the SLOW reads' kept hits in hit order, and int64 counts2,
+    the overflow words, the total kept and buffer_overflow end to end."""
+    B = overflow.shape[0]
     H = hits.read.shape[0]
-    dev = out.device
+    dev = cls.device
     i64 = torch.int64
-    cls = out[:B] & 3
     read = hits.read.to(i64)
     keep_slow = hits.keep & (cls[torch.clamp(read, 0, B - 1)] == CLASS_SLOW)
     dest = torch.cumsum(keep_slow.to(i64), 0) - 1
@@ -513,11 +544,9 @@ def chain_pack_plain(off, hits: Hits, overflow, out: torch.Tensor,
         0, read, keep_slow.to(i64))
     total_kept = keep_slow.sum()
     buffer_overflow = (off[B] > H) | (total_kept > H2)
-    out[2 * B:] = to_i32(torch.cat([
-        hit_w_c, hit_loc_c, counts2(counts),
-        ovf_words(overflow | hits.unresolved),
-        torch.stack([total_kept, buffer_overflow.to(i64)])]))
-    return out
+    return hit_w_c, hit_loc_c, torch.cat([
+        counts2(counts), ovf_words(overflow | hits.unresolved),
+        torch.stack([total_kept, buffer_overflow.to(i64)])])
 
 
 def chain_classify_pack_plain(ctx: ChainCtx, packed, rlens, off, hits: Hits,
@@ -530,6 +559,26 @@ def chain_classify_pack_plain(ctx: ChainCtx, packed, rlens, off, hits: Hits,
                                planes, pair_end)
     chain_pack_plain(off, hits, overflow, out, H2)
     return mmp
+
+
+def _check_cp(name: str, packed, rlens, off, hits: Hits, overflow,
+              max_len: int, H2: int, loc) -> tuple:
+    """The inputs both classify+pack kernels take (hits.loc of dtype
+    loc) -> (B, H)."""
+    B = packed.shape[0]
+    need(B >= 32 and B % 32 == 0 and H2 >= 1,
+         f"{name}: B must be a positive multiple of 32 and H2 >= 1")
+    need(max_len >= 16 and max_len % 16 == 0 and max_len <= 511,
+         f"{name}: max_len must be a multiple of 16 below 512")
+    _dtype(name, packed, torch.uint8, "packed")
+    _dtype(name, rlens, torch.int32, "rlens")
+    need(packed.shape == (B, max_len // 4) and rlens.shape == (B,),
+         f"{name}: packed must be uint8[B, max_len/4] and rlens int32[B]")
+    _check_off(name, off, B)
+    H = _check_hits(name, hits, B, loc)
+    _dtype(name, overflow, torch.bool, "overflow")
+    need(overflow.shape == (B,), f"{name}: overflow must be [B]")
+    return B, H
 
 
 def chain_classify_pack(ctx: ChainCtx, packed: torch.Tensor,
@@ -551,19 +600,8 @@ def chain_classify_pack(ctx: ChainCtx, packed: torch.Tensor,
     plane by batch-index parity. B % 32 == 0. Counted as
     chain_classify_pack."""
     name = "chain_classify_pack"
-    B = packed.shape[0]
-    need(B >= 32 and B % 32 == 0 and H2 >= 1,
-         f"{name}: B must be a positive multiple of 32 and H2 >= 1")
-    need(max_len >= 16 and max_len % 16 == 0 and max_len <= 511,
-         f"{name}: max_len must be a multiple of 16 below 512")
-    _dtype(name, packed, torch.uint8, "packed")
-    _dtype(name, rlens, torch.int32, "rlens")
-    need(packed.shape == (B, max_len // 4) and rlens.shape == (B,),
-         f"{name}: packed must be uint8[B, max_len/4] and rlens int32[B]")
-    _check_off(name, off, B)
-    H = _check_hits(name, hits, B)
-    _dtype(name, overflow, torch.bool, "overflow")
-    need(overflow.shape == (B,), f"{name}: overflow must be [B]")
+    B, H = _check_cp(name, packed, rlens, off, hits, overflow, max_len, H2,
+                     torch.int32)
     _dtype(name, out, torch.int32, "out")
     need(out.shape == (2 * B + 2 * H2 + B // 2 + B // 32 + 2,),
          f"{name}: out must be int32[2B + 2H2 + B/2 + B/32 + 2]")
@@ -596,4 +634,131 @@ def chain_classify_pack(ctx: ChainCtx, packed: torch.Tensor,
             *(map(_ptr, pl) if pl else (None,) * 3), ctx.seq_len // 2,
             int(bool(pair_end)), _ptr(out), _ptr(mmp),
             *_look_back_scratch(dev, -(-B // CP_READS)))
+    return mmp
+
+
+# ---- the x64 big-genome forms ----------------------------------------------
+
+def chain_hits_big_plain(bfm, off, n_seeds, s_rpos, s_len, s_x0, s_freq,
+                         H: int) -> Hits:
+    """Plain version of chain_hits_big on any device: the expansion of
+    chain_hits_plain, every hit's int64 SA entry gathered from its shard
+    (the routed gather of bfm.sa, the reference's _routed_rows64); loc
+    stays int64. It does not read off."""
+    B = s_freq.shape[0]
+    hit_read, hit_rpos, hit_len, hit_row, hit_valid = _expand_seeds(
+        n_seeds, s_rpos, s_len, s_x0, s_freq, H)
+    hit_loc = bfm.sa[torch.where(hit_valid, hit_row, 32)]
+    keep = hit_valid & ((hit_loc - hit_rpos) > 0)
+    i32 = torch.int32
+    return Hits(hit_read.to(i32), hit_rpos.to(i32), hit_len.to(i32),
+                hit_loc, hit_valid, keep,
+                torch.zeros(B, dtype=torch.bool, device=s_freq.device))
+
+
+def chain_hits_big(bfm, scan: SeedScan, n_seeds, s_rpos, s_len, s_x0,
+                   s_freq, H: int) -> Hits:
+    """chain_hits over the x64 big-genome SA (parallel/big_index.
+    BigShardedFM3: bfm.sa an ops/routed.Routed table of int64 shards):
+    the seeds expanded by freq into H hit slots, each hit's row x0 + rank
+    and its text position int64 (Hits.loc int64[H]). Full SA only: no hit
+    is left unresolved, so scan.unresolved stays as the scan zeroed it.
+    On the card the 64-bit instantiation of the hits kernel; on the CPU
+    chain_hits_big_plain. Counted as chain_hits_big."""
+    from .routed import Routed
+    name = "chain_hits_big"
+    _check_seeds(name, scan, n_seeds, s_rpos, s_len, s_x0, s_freq, H, 0)
+    B, S = s_freq.shape
+    need(isinstance(bfm.sa, Routed), f"{name}: the SA must be routed "
+                                     f"(ops/routed.Routed)", TypeError)
+    if not _on_card(name, [*scan, n_seeds, s_rpos, s_len, s_x0, s_freq]):
+        need(all(sh.device.type == "cpu" for sh in bfm.sa.shards),
+             f"{name}: CPU seeds and shards on a card")
+        plain = chain_hits_big_plain(bfm, scan.off, n_seeds, s_rpos, s_len,
+                                     s_x0, s_freq, H)
+        return plain._replace(unresolved=scan.unresolved)
+    dev = s_freq.device
+    need(B * S < 2 ** 31, f"{name}: B*S < 2^31")
+    bfm.sa.check_card(name, dev, torch.int64, align=8)
+    hit = [torch.empty(H, dtype=torch.int32, device=dev) for _ in range(3)]
+    loc = torch.empty(H, dtype=torch.int64, device=dev)
+    flags = [torch.empty(H, dtype=torch.bool, device=dev) for _ in range(2)]
+    _launch(name, dev, _ptr(scan.off), _ptr(scan.start), _ptr(n_seeds),
+            _ptr(s_rpos), _ptr(s_len), _ptr(s_x0), _ptr(s_freq), B, S,
+            _ptr(bfm.sa.pointers(dev)), bfm.sa.per, H,
+            *map(_ptr, hit + [loc] + flags), _ptr(scan.unresolved))
+    return Hits(*hit, loc, *flags, scan.unresolved)
+
+
+def big_out_sizes(B: int, H2: int):
+    """(int32 words, int64 words) of the big packed output: meta1[B],
+    hit_w[H2], counts2[B/2], the overflow words[B/32], the total kept and
+    buffer_overflow, padded to an even count so the int64 part that
+    follows in the same buffer (pd[B], hit_loc[H2]) stays 8-byte
+    aligned."""
+    n32 = B + H2 + B // 2 + B // 32 + 2
+    return n32 + (n32 & 1), B + H2
+
+
+def chain_classify_pack_big_plain(ctx: ChainCtx, packed, rlens, off,
+                                  hits: Hits, overflow, max_len: int,
+                                  out: torch.Tensor, wide: torch.Tensor,
+                                  H2: int) -> torch.Tensor:
+    """Plain version of chain_classify_pack_big on any device: classify
+    with int64 locations, then the pack. Returns mmp."""
+    B = packed.shape[0]
+    i64 = torch.int64
+    cls, pd0, mm, rplast, cscore, mmp = classify_reads(
+        ctx, read_words_bwa(packed, max_len), rlens.to(i64),
+        hits.read.to(i64), hits.rpos.to(i64), hits.len.to(i64), hits.loc,
+        hits.keep, max_len)
+    cls = torch.where(hits.unresolved, CLASS_SLOW, cls)
+    out[:B] = to_i32(cls | (mm << 2) | (rplast << 8) | (cscore << 17))
+    wide[:B] = pd0
+    hit_w_c, hit_loc_c, tail = _pack_parts(off, hits, cls, overflow, H2)
+    out[B:B + H2] = to_i32(hit_w_c)
+    out[B + H2:B + H2 + tail.shape[0]] = to_i32(tail)
+    wide[B:] = hit_loc_c
+    return mmp.to(torch.int32)
+
+
+def chain_classify_pack_big(ctx: ChainCtx, packed: torch.Tensor,
+                            rlens: torch.Tensor, off: torch.Tensor,
+                            hits: Hits, overflow: torch.Tensor, max_len: int,
+                            out: torch.Tensor, wide: torch.Tensor,
+                            H2: int) -> torch.Tensor:
+    """chain_classify_pack for the x64 big-genome path: hits.loc int64
+    (chain_hits_big), ctx.seq_len a Python int that may pass 2^31, no
+    evidence apply. pd and the packed hits' locations are int64 and go to
+    the side output wide int64[B + H2] (pd, then hit_loc); out
+    int32[big_out_sizes(B, H2)[0]] holds meta1, hit_w, counts2, the
+    overflow words, the total kept and buffer_overflow (and a pad word
+    when the count is odd, which nothing writes). Returns mmp int32[B,
+    MM_SLOTS]. B % 32 == 0. Counted as chain_classify_pack_big."""
+    name = "chain_classify_pack_big"
+    B, H = _check_cp(name, packed, rlens, off, hits, overflow, max_len, H2,
+                     torch.int64)
+    n32, n64 = big_out_sizes(B, H2)
+    _dtype(name, out, torch.int32, "out")
+    _dtype(name, wide, torch.int64, "wide")
+    need(out.shape == (n32,) and wide.shape == (n64,),
+         f"{name}: out must be int32[{n32}] and wide int64[B + H2]")
+    ts = [packed, rlens, off, overflow, out, wide, ctx.text_words,
+          ctx.bkeys, *hits]
+    if not _on_card(name, ts):
+        return chain_classify_pack_big_plain(ctx, packed, rlens, off, hits,
+                                             overflow, max_len, out, wide,
+                                             H2)
+    need(packed.data_ptr() % 4 == 0 and wide.data_ptr() % 8 == 0,
+         f"{name}: packed must be 4-byte and wide 8-byte aligned")
+    _dtype(name, ctx.bkeys, torch.int64, "ctx.bkeys")
+    _dtype(name, ctx.text_words, torch.int64, "ctx.text_words")
+    dev = out.device
+    mmp = torch.empty((B, MM_SLOTS), dtype=torch.int32, device=dev)
+    _launch(name, dev, _ptr(off), _ptr(hits.rpos), _ptr(hits.len),
+            _ptr(hits.loc), _ptr(hits.keep), _ptr(hits.unresolved),
+            _ptr(overflow), _ptr(packed), _ptr(rlens), B, H, H2, max_len,
+            _ptr(ctx.text_words), ctx.text_words.shape[0], _ptr(ctx.bkeys),
+            ctx.bkeys.shape[0], int(ctx.seq_len), _ptr(out), _ptr(wide),
+            _ptr(mmp), *_look_back_scratch(dev, -(-B // CP_READS)))
     return mmp

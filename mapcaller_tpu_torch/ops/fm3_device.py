@@ -37,61 +37,72 @@ def _occ3_row_chunks(sa: torch.Tensor, words: torch.Tensor, n: int,
 
     Yields (first row, rows int32[m, 72]) for consecutive row ranges."""
     dev = sa.device
-    carry = torch.zeros(64, dtype=torch.int32, device=dev)
+    carry = None
     for r0 in range(0, nw3, chunk_rows):
         m = min(chunk_rows, nw3 - r0)
-        part = sa[r0 * 16:(r0 + m) * 16].to(torch.int64)
-        p = torch.cat([part, torch.full((m * 16 - part.shape[0],), -1,
-                                        dtype=torch.int64, device=dev)])
-        del part
-        # sym[j] = T[p-3]*16 + T[p-2]*4 + T[p-1]; the three crumbs live in
-        # at most two adjacent bwa-order words (T[i] = w[i>>4] >> (15-i&15)*2)
-        q = torch.clamp(p - 3, 0, n)
-        wi = q >> 4
-        off = q & 15
-        w0 = words[wi]
-        w1 = words[wi + 1]
-        sym_a = (w0 >> (torch.clamp(13 - off, min=0) * 2)) & 63
-        sym_b = ((w0 & 15) << 2) | (w1 >> 30)
-        sym_c = ((w0 & 3) << 4) | (w1 >> 28)
-        sym3 = torch.where(off <= 13, sym_a,
-                           torch.where(off == 14, sym_b, sym_c))
-        sym = torch.where(p >= 3, sym3, 255)
-        del p, q, wi, off, w0, w1, sym_a, sym_b, sym_c, sym3
-
-        # per-block symbol histogram (sentinel 255 goes to a dropped
-        # column), then the exclusive prefix sum over blocks after the
-        # chunks before
-        blocks = sym.reshape(m, 16)
-        per = torch.zeros((m, 65), dtype=torch.int32, device=dev)
-        per.scatter_add_(1, torch.clamp(blocks, max=64),
-                         torch.ones_like(blocks, dtype=torch.int32))
-        # the prefix sum runs along the inner dimension of the transposed
-        # histogram: a scan over the outer dimension of a 64-wide tensor
-        # runs one thread per column on CUDA
-        cnt = torch.zeros((64, m), dtype=torch.int32, device=dev)
-        cnt[:, 1:] = torch.cumsum(per[:-1, :64].t(), dim=1,
-                                  dtype=torch.int32)
-        if r0:
-            cnt += carry[:, None]
-        carry = cnt[:, -1] + per[-1, :64]
-        cnt = cnt.t()
-        del per
-
-        # 4 symbol bytes per little-endian word
-        packed = (sym[0::4] | (sym[1::4] << 8) | (sym[2::4] << 16)
-                  | (sym[3::4] << 24))
-        rows = torch.cat([cnt, to_i32(packed).reshape(m, 4),
-                          torch.zeros((m, 4), dtype=torch.int32,
-                                      device=dev)], dim=1)
-        del cnt, packed, sym, blocks
+        k = max(0, min((r0 + m) * 16, sa.shape[0]) - r0 * 16)  # SA rows
+        rows, carry = occ3_block(
+            torch.cat([sa[r0 * 16:r0 * 16 + k].to(torch.int64),
+                       torch.full((m * 16 - k,), -1, dtype=torch.int64,
+                                  device=dev)]), words, n, carry)
         yield r0, rows
 
 
-def _c3_first(words: torch.Tensor, n: int, chunk: int) -> torch.Tensor:
+def occ3_block(p: torch.Tensor, words: torch.Tensor, n: int, carry=None):
+    """The occ3 rows of SA entries p (int64[16 m]: text positions, -1
+    past the text's n + 1 rows) on p's device, their counts starting at
+    carry (int32[64]; None: at zero) -> (rows int32[m, 72], the counts
+    after them)."""
+    dev = p.device
+    m = p.shape[0] // 16
+    # sym[j] = T[p-3]*16 + T[p-2]*4 + T[p-1]; the three crumbs live in
+    # at most two adjacent bwa-order words (T[i] = w[i>>4] >> (15-i&15)*2)
+    q = torch.clamp(p - 3, 0, n)
+    wi = q >> 4
+    off = q & 15
+    w0 = words[wi]
+    w1 = words[wi + 1]
+    sym_a = (w0 >> (torch.clamp(13 - off, min=0) * 2)) & 63
+    sym_b = ((w0 & 15) << 2) | (w1 >> 30)
+    sym_c = ((w0 & 3) << 4) | (w1 >> 28)
+    sym3 = torch.where(off <= 13, sym_a,
+                       torch.where(off == 14, sym_b, sym_c))
+    sym = torch.where(p >= 3, sym3, 255)
+    del p, q, wi, off, w0, w1, sym_a, sym_b, sym_c, sym3
+
+    # per-block symbol histogram (sentinel 255 goes to a dropped
+    # column), then the exclusive prefix sum over blocks after the
+    # chunks before
+    blocks = sym.reshape(m, 16)
+    per = torch.zeros((m, 65), dtype=torch.int32, device=dev)
+    per.scatter_add_(1, torch.clamp(blocks, max=64),
+                     torch.ones_like(blocks, dtype=torch.int32))
+    # the prefix sum runs along the inner dimension of the transposed
+    # histogram: a scan over the outer dimension of a 64-wide tensor
+    # runs one thread per column on CUDA
+    cnt = torch.zeros((64, m), dtype=torch.int32, device=dev)
+    cnt[:, 1:] = torch.cumsum(per[:-1, :64].t(), dim=1,
+                              dtype=torch.int32)
+    if carry is not None:
+        cnt += carry[:, None]
+    carry = cnt[:, -1] + per[-1, :64]
+    cnt = cnt.t()
+    del per
+
+    # 4 symbol bytes per little-endian word
+    packed = (sym[0::4] | (sym[1::4] << 8) | (sym[2::4] << 16)
+              | (sym[3::4] << 24))
+    rows = torch.cat([cnt, to_i32(packed).reshape(m, 4),
+                      torch.zeros((m, 4), dtype=torch.int32,
+                                  device=dev)], dim=1)
+    del cnt, packed, sym, blocks
+    return rows, carry
+
+
+def c3_first_of(words: torch.Tensor, n: int, chunk: int) -> torch.Tensor:
     """c3_first[d] = #{suffixes whose base-5 start key < dkey(d)}: a
     multiset count, so a histogram of the 125 keys (the n + 1 suffixes,
-    `chunk` at a time) and its prefix sum."""
+    `chunk` at a time) and its prefix sum. int64[64]."""
     dev = words.device
     hist = torch.zeros(125, dtype=torch.int64, device=dev)
     for i0 in range(0, n + 1, chunk):
@@ -110,7 +121,7 @@ def _c3_first(words: torch.Tensor, n: int, chunk: int) -> torch.Tensor:
     lt = torch.cumsum(hist, 0) - hist                  # #keys < value
     d = np.arange(64)
     dkeys = ((d >> 4) + 1) * 25 + (((d >> 2) & 3) + 1) * 5 + ((d & 3) + 1)
-    return lt[torch.as_tensor(dkeys, device=dev)].to(torch.int32)
+    return lt[torch.as_tensor(dkeys, device=dev)]
 
 
 def occ3_parts(idx: FMIndex, fm: DeviceFMIndex,
@@ -134,7 +145,8 @@ def occ3_parts(idx: FMIndex, fm: DeviceFMIndex,
                           torch.argmax((sa == 2).to(torch.uint8))])
         pp = pp.cpu().numpy()
         c0, c1 = int(idx.ref.codes[0]), int(idx.ref.codes[1])
-        consts = dict(c3_first=_c3_first(text_words, n, 16 * chunk_rows),
+        consts = dict(c3_first=c3_first_of(text_words, n, 16 * chunk_rows)
+                      .to(torch.int32),
                       row_p1=int(pp[0]), row_p2=int(pp[1]),
                       t0=c0, t1=c1, tail1=3 - c0, tail2a=3 - c1,
                       tail2b=3 - c0)

@@ -72,9 +72,8 @@ class DeviceFMIndex:
         to the 32-sampled SA."""
         if idx.seq_len >= 2**31:
             raise NotImplementedError(
-                "single-device index is int32 (text < 2^31); the x64 "
-                "big-genome path is not ported yet (ROADMAP.md, next "
-                "slice 3)")
+                "single-device index is int32 (text < 2^31); larger texts "
+                "run the x64 big-genome path under -shards N")
         n = idx.seq_len
         nw = (n + 15) // 16
         rows = np.zeros((nw + 1, 8), dtype=np.int64)

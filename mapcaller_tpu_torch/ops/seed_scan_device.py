@@ -11,6 +11,10 @@ BWT_Search). Three entry points on tensors:
   seed_scan3_routed  the occ3 scan over a genome-sharded table (`-shards
               N`, parallel/sharded_index.ShardedFM3), each row read from
               its shard; one thread per read, no prefix skip;
+  seed_scan3_big  the same over the x64 big-genome table (big_x64 under
+              `-shards N`, parallel/big_index.BigShardedFM3): rows of
+              counts relative to their shard plus its int64 base counts,
+              int64 interval state and row indices;
   seed_scan1  the 1-step scan over the occ4 rows (ops/fm_device.
               DeviceFMIndex), on 2-bit packed codes or, with has_n, on
               byte codes whose N ends an extension.
@@ -20,7 +24,8 @@ s_freq, overflow), int64 and bool as they are, and with_iters also each
 read's step count and the index rows it gathered. On a CUDA tensor a
 call is one launch on the current stream, with no host sync, or it
 raises; on a CPU tensor it runs the plain version (seed_scan3_plain,
-seed_scan3_routed_plain, seed_scan1_plain: `fm_search._seed_scan3`,
+seed_scan3_routed_plain, seed_scan3_big_plain, seed_scan1_plain:
+`fm_search._seed_scan3`,
 `_seed_scan3_compact` or `_seed_scan`). There is no fallback between the
 two.
 """
@@ -50,6 +55,13 @@ def _load_kernel():
                                              + [C.c_void_p] * 4
                                              + [C.c_int] * 12
                                              + [C.c_void_p] * 6)
+        lib.mc_seed_scan3_big.restype = C.c_int
+        lib.mc_seed_scan3_big.argtypes = ([C.c_void_p, C.c_longlong]
+                                          + [C.c_void_p] * 5
+                                          + [C.c_int] * 4
+                                          + [C.c_longlong] * 3
+                                          + [C.c_int] * 5
+                                          + [C.c_void_p] * 6)
         lib.mc_enable_peer_access.restype = C.c_int
         lib.mc_enable_peer_access.argtypes = [C.c_int, C.c_int]
         lib.mc_seed_scan1.restype = C.c_int
@@ -104,6 +116,27 @@ def _result(n_seeds, tab, overflow, counts, with_iters):
     return out + tuple(counts.to(torch.int64)) if with_iters else out
 
 
+def _launch(name: str, entry: str, dev, B: int, S: int, with_iters: bool,
+            *args):
+    """One scan launch on dev's current stream: the outputs allocated, the
+    C entry called with args, then the outputs' pointers and the stream,
+    and counted as name; raises if CUDA refused it. B == 0 launches
+    nothing."""
+    n_seeds, tab, overflow, counts = _outputs(B, S, dev)
+    if B:
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        with torch.cuda.device(dev):
+            err = getattr(_load_kernel(), entry)(
+                *args, n_seeds.data_ptr(), tab.data_ptr(),
+                overflow.data_ptr(), counts[0].data_ptr(),
+                counts[1].data_ptr(), stream)
+        if err != 0:
+            raise RuntimeError(f"{name}: CUDA kernel launch failed (error "
+                               f"{err})")
+        STATS.launches[name] += 1
+    return _result(n_seeds, tab, overflow, counts, with_iters)
+
+
 def seed_scan3_plain(fm3, packed, rlens, max_len: int, max_seeds: int,
                      lanes: int = 0, with_iters: bool = False):
     """Plain PyTorch version of seed_scan3 on any device: the lockstep
@@ -134,6 +167,20 @@ def seed_scan3_routed_plain(sfm3, packed, rlens, max_len: int,
     return fs._seed_scan3(
         sfm3, lambda p: fs._word_codes(words, p), rlens, packed.shape[0],
         max_len, max_seeds, with_iters=with_iters, gather_fn=routed_gather3)
+
+
+def seed_scan3_big_plain(bfm, packed, rlens, max_len: int, max_seeds: int,
+                         with_iters: bool = False):
+    """Plain version of seed_scan3_big on any device: the lockstep scan in
+    int64 with every row gathered from its shard and its shard's base
+    counts added (parallel/big_index.big_routed_gather3)."""
+    from ..parallel.big_index import big_routed_gather3
+    from . import fm_search as fs
+    words = fs._read_words_le(packed)
+    return fs._seed_scan3(
+        bfm, lambda p: fs._word_codes(words, p), rlens, packed.shape[0],
+        max_len, max_seeds, with_iters=with_iters,
+        gather_fn=big_routed_gather3)
 
 
 def seed_scan1_plain(fm, codes, rlens, max_len: int, max_seeds: int,
@@ -178,28 +225,16 @@ def seed_scan3(fm3, packed: torch.Tensor, rlens: torch.Tensor, max_len: int,
           and fm.L2.device == packed.device,
           "seed_scan3: c3_first int32 and L2 int64 on the batch's device")
     dev = packed.device
-    n_seeds, tab, overflow, counts = _outputs(B, max_seeds, dev)
-    if B == 0:
-        return _result(n_seeds, tab, overflow, counts, with_iters)
     nxt = torch.zeros(1, dtype=torch.int32, device=dev)
-    lib = _load_kernel()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = lib.mc_seed_scan3(
-            fm3.occ3_rows.data_ptr(), fm3.c3_first.data_ptr(),
-            fm.L2.data_ptr(), packed.data_ptr(), rlens.data_ptr(), B,
-            lanes if compact else 0, max_len, max_seeds,
-            scan3_cap(max_len, max_seeds), int(fm.primary),
-            int(fm3.row_p1), int(fm3.row_p2), int(fm3.t0), int(fm3.t1),
-            int(fm3.tail1), int(fm3.tail2a), int(fm3.tail2b),
-            int(fm3.pfx_base), int(fm3.pfx_k), nxt.data_ptr(),
-            n_seeds.data_ptr(), tab.data_ptr(), overflow.data_ptr(),
-            counts[0].data_ptr(), counts[1].data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"seed_scan3: CUDA kernel launch failed (error "
-                           f"{err})")
-    STATS.launches["seed_scan3"] += 1
-    return _result(n_seeds, tab, overflow, counts, with_iters)
+    return _launch("seed_scan3", "mc_seed_scan3", dev, B, max_seeds,
+                   with_iters,
+                   fm3.occ3_rows.data_ptr(), fm3.c3_first.data_ptr(),
+                   fm.L2.data_ptr(), packed.data_ptr(), rlens.data_ptr(), B,
+                   lanes if compact else 0, max_len, max_seeds,
+                   scan3_cap(max_len, max_seeds), int(fm.primary),
+                   int(fm3.row_p1), int(fm3.row_p2), int(fm3.t0), int(fm3.t1),
+                   int(fm3.tail1), int(fm3.tail2a), int(fm3.tail2b),
+                   int(fm3.pfx_base), int(fm3.pfx_k), nxt.data_ptr())
 
 
 def seed_scan3_routed(sfm3, packed: torch.Tensor, rlens: torch.Tensor,
@@ -227,26 +262,58 @@ def seed_scan3_routed(sfm3, packed: torch.Tensor, rlens: torch.Tensor,
     need(sfm3.c3_first.dtype == torch.int32 and sfm3.L2.dtype == torch.int64
           and sfm3.c3_first.device == dev and sfm3.L2.device == dev,
           f"{name}: c3_first int32 and L2 int64 on the batch's device")
-    n_seeds, tab, overflow, counts = _outputs(B, max_seeds, dev)
-    if B == 0:
-        return _result(n_seeds, tab, overflow, counts, with_iters)
-    lib = _load_kernel()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = lib.mc_seed_scan3_routed(
-            sfm3.occ3.pointers(dev).data_ptr(), sfm3.occ3.per,
-            sfm3.c3_first.data_ptr(), sfm3.L2.data_ptr(), packed.data_ptr(),
-            rlens.data_ptr(), B, max_len, max_seeds,
-            scan3_cap(max_len, max_seeds), int(sfm3.primary),
-            int(sfm3.row_p1), int(sfm3.row_p2), int(sfm3.t0), int(sfm3.t1),
-            int(sfm3.tail1), int(sfm3.tail2a), int(sfm3.tail2b),
-            n_seeds.data_ptr(), tab.data_ptr(), overflow.data_ptr(),
-            counts[0].data_ptr(), counts[1].data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA kernel launch failed (error "
-                           f"{err})")
-    STATS.launches[name] += 1
-    return _result(n_seeds, tab, overflow, counts, with_iters)
+    return _launch(name, "mc_seed_scan3_routed", dev, B, max_seeds,
+                   with_iters, sfm3.occ3.pointers(dev).data_ptr(),
+                   sfm3.occ3.per, sfm3.c3_first.data_ptr(),
+                   sfm3.L2.data_ptr(), packed.data_ptr(), rlens.data_ptr(),
+                   B, max_len, max_seeds, scan3_cap(max_len, max_seeds),
+                   int(sfm3.primary), int(sfm3.row_p1), int(sfm3.row_p2),
+                   int(sfm3.t0), int(sfm3.t1), int(sfm3.tail1),
+                   int(sfm3.tail2a), int(sfm3.tail2b))
+
+
+def seed_scan3_big(bfm, packed: torch.Tensor, rlens: torch.Tensor,
+                   max_len: int, max_seeds: int, with_iters: bool = False):
+    """The occ3 scan over the x64 big-genome table (parallel/big_index.
+    BigShardedFM3: bfm.occ3 a Routed table of int32 rows relative to their
+    shard; bfm.base3x the shards' base tables (parallel/big_index.
+    base_table of the base counts base3), c3_first and L2, int64 on the
+    batch's device; the row constants Python ints, which may pass 2^31):
+    a thread per read with int64 interval state, each row read from its
+    shard and its shard's base added; no prefix skip. Inputs and outputs
+    as seed_scan3. A CPU tensor runs seed_scan3_big_plain (over base3).
+    Counted as seed_scan3_big."""
+    from ..parallel.big_index import B3X
+    from .fm_search import scan3_cap
+    name = "seed_scan3_big"
+    B = packed.shape[0]
+    _check(name, None, 72, packed, max_len // 4, rlens, max_len, max_seeds)
+    if packed.device.type == "cpu":
+        need(all(sh.device.type == "cpu" for sh in bfm.occ3.shards),
+             f"{name}: CPU reads and shards on a card")
+        return seed_scan3_big_plain(bfm, packed, rlens, max_len, max_seeds,
+                                    with_iters)
+    need(packed.device.type == "cuda",
+         f"{name}: unsupported device {packed.device}")
+    dev = packed.device
+    bfm.occ3.check_card(name, dev, torch.int32, 72, align=16)
+    need(all(t.dtype == torch.int64 and t.device == dev
+             and t.is_contiguous()
+             for t in (bfm.base3x, bfm.c3_first, bfm.L2)),
+         f"{name}: base3x, c3_first and L2 int64 on the batch's device",
+         TypeError)
+    need(bfm.base3x.dim() == 2 and bfm.base3x.shape[1] == B3X
+         and bfm.base3x.shape[0] >= bfm.occ3.n
+         and bfm.base3x.data_ptr() % 16 == 0,
+         f"{name}: base3x must be int64[n, {B3X}], 16-byte aligned")
+    return _launch(name, "mc_seed_scan3_big", dev, B, max_seeds, with_iters,
+                   bfm.occ3.pointers(dev).data_ptr(), bfm.occ3.per,
+                   bfm.base3x.data_ptr(), bfm.c3_first.data_ptr(),
+                   bfm.L2.data_ptr(), packed.data_ptr(), rlens.data_ptr(), B,
+                   max_len, max_seeds, scan3_cap(max_len, max_seeds),
+                   int(bfm.primary), int(bfm.row_p1), int(bfm.row_p2),
+                   int(bfm.t0), int(bfm.t1), int(bfm.tail1), int(bfm.tail2a),
+                   int(bfm.tail2b))
 
 
 def seed_scan1(fm, codes: torch.Tensor, rlens: torch.Tensor, max_len: int,
@@ -268,20 +335,8 @@ def seed_scan1(fm, codes: torch.Tensor, rlens: torch.Tensor, max_len: int,
     need(fm.L2.dtype == torch.int64 and fm.L2.device == codes.device,
           "seed_scan1: L2 int64 on the batch's device")
     dev = codes.device
-    n_seeds, tab, overflow, counts = _outputs(B, max_seeds, dev)
-    if B == 0:
-        return _result(n_seeds, tab, overflow, counts, with_iters)
-    lib = _load_kernel()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = lib.mc_seed_scan1(
-            fm.occ_rows.data_ptr(), fm.L2.data_ptr(), codes.data_ptr(),
-            rlens.data_ptr(), B, int(has_n), max_len, max_seeds,
-            scan1_cap(max_len, max_seeds), int(fm.primary),
-            n_seeds.data_ptr(), tab.data_ptr(), overflow.data_ptr(),
-            counts[0].data_ptr(), counts[1].data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"seed_scan1: CUDA kernel launch failed (error "
-                           f"{err})")
-    STATS.launches["seed_scan1"] += 1
-    return _result(n_seeds, tab, overflow, counts, with_iters)
+    return _launch("seed_scan1", "mc_seed_scan1", dev, B, max_seeds,
+                   with_iters,
+                   fm.occ_rows.data_ptr(), fm.L2.data_ptr(), codes.data_ptr(),
+                   rlens.data_ptr(), B, int(has_n), max_len, max_seeds,
+                   scan1_cap(max_len, max_seeds), int(fm.primary))

@@ -174,6 +174,9 @@ class ShardChainKernel(SeedChainKernel):
         self.use_occ3 = True
         self.fm1 = sfm3.fm
         self.compact_lanes = 0
+        # int32 words of the packed output vector
+        self.out_len = (2 * batch + 2 * self.H2 + batch // 2 + batch // 32
+                        + 2)
 
     def _scan_packed(self, packed: torch.Tensor, rlens: torch.Tensor):
         return seed_scan3_routed(self.fm, packed, rlens, self.max_len,
@@ -195,7 +198,11 @@ class ShardedChainKernel:
     for the BG reads, in read order: the SLOW reads' hits shard after
     shard, each shard's in hit order, which is the order by read that the
     reference's host compaction gives (its stable sort by read,
-    device_backend.py:834-845). BG % (32 N) == 0."""
+    device_backend.py:834-845). BG % (32 N) == 0. kernel_class: the
+    chain stage of one shard (the x64 path's is parallel/big_index.
+    BigShardChainKernel)."""
+
+    kernel_class = ShardChainKernel
 
     def __init__(self, sfm3s: Dict[torch.device, ShardedFM3],
                  ctxs: Dict[torch.device, ChainCtx], devices: Sequence,
@@ -209,10 +216,9 @@ class ShardedChainKernel:
         _check_shape(self.B, max_len)
         self.BG = batch_global
         self.kernels: List[ShardChainKernel] = [
-            ShardChainKernel(sfm3s[d], ctxs[d], max_len, self.B, tier)
+            self.kernel_class(sfm3s[d], ctxs[d], max_len, self.B, tier)
             for d in self.devs]
-        k = self.kernels[0]
-        self.out_len = 2 * self.B + 2 * k.H2 + self.B // 2 + self.B // 32 + 2
+        self.out_len = self.kernels[0].out_len
 
     def __call__(self, packed: torch.Tensor, rlens: torch.Tensor):
         dev0 = packed.device

@@ -11,7 +11,10 @@ run when the occ3 table fits the card beside the working set and the
 index has its full SA, else the 1-step scan over the occ4 rows. With
 cfg.index_shards = N > 1 the chain dispatch runs genome-sharded over N
 devices (parallel/sharded_index.py): the occ3 rows and the SA in shards,
-each device mapping its N-th of a batch with the routed kernels.
+each device mapping its N-th of a batch with the routed kernels. With
+cfg.big_x64 (or a text of 2^31 - 2 rows or more) and N > 1 it runs the
+x64 big-genome path (parallel/big_index.py): shard-relative occ3 rows,
+an int64 SA in shards and the 64-bit kernels, and no single-card table.
 Reads the fixed-capacity kernels flag as overflowed (seed table, SA walk,
 hit buffer) are re-seeded with the host oracle and spliced in, as in the
 reference package: that splice is part of its capacity contract.
@@ -34,6 +37,7 @@ from ..ops.fm_device import DeviceFMIndex
 from ..ops.fm_search import (build_seed_chain_kernel, build_seed_kernel,
                               build_seed_kernel_packed)
 from ..ops.routed import enable_peer_access
+from ..parallel.big_index import BigShardedChainKernel, build_big_index
 from ..parallel.sharded_index import (ShardedChainKernel,
                                       build_shard_index, replicate_ctx)
 from .device_profile import STATS as EVIDENCE_STATS
@@ -93,15 +97,32 @@ class DeviceBackend:
             raise RuntimeError(
                 "Config.device is cuda but no CUDA device is visible; pass "
                 "device='cpu' to run the plain PyTorch versions")
-        _refuse_unported(cfg)
         # genome-sharded occ3 index over N devices (parallel/
         # sharded_index.py): the chain stage of each batch runs on the
         # shards, each mapping B/N of its reads
         self.index_shards = int(getattr(cfg, "index_shards", 0) or 0)
+        # the x64 big-genome path (parallel/big_index.py): forced by
+        # cfg.big_x64, automatic once the fwd+rc text passes the int32 row
+        # format (the reference's index types are uint64, ref:
+        # src/BWT_Index/bwt.h:44); it runs genome-sharded only
+        self.big_x64 = bool(getattr(cfg, "big_x64", False)) or (
+            idx.seq_len >= (1 << 31) - 2)
+        if (self.big_x64 and self.index_shards <= 1
+                and idx.seq_len >= (1 << 31) - 2):
+            raise ValueError(
+                "genome text exceeds 2^31 rows; run with -shards N "
+                "(genome-sharded x64 index) on an N-device mesh")
+        self.big = self.big_x64 and self.index_shards > 1
+        if self.big and (idx.sa_full is None or not cfg.device_chain):
+            raise NotImplementedError(
+                "big_x64 runs the device chain stage over the full SA only "
+                "(an index without its full SA, or device_chain=False, is "
+                "not ported for it)")
         self.shard_devs = (device_list(self.device, self.index_shards,
                                        shard_devices, "-shards")
                            if self.index_shards > 1 else [])
         self._sharded = None
+        self._big = None
         # sharded chain dispatches: a routing escape (a sharded batch
         # sent through the single-card kernels) writes the same bytes, so
         # parity alone cannot catch it; the tests assert this is > 0
@@ -118,6 +139,14 @@ class DeviceBackend:
         self.n_tier_reruns = 0
         self.n_full_fallbacks = 0
         self.n_oracle_reads = 0
+        if self.big:
+            # no single-card table: the shards hold the index
+            # (_big_setup) and the evidence planes (pipeline/big_profile)
+            self.fm = None
+            self._fm3_ok = True
+            self.device_evidence_ok = True
+            self.pfx_k = 0
+            return
         self.fm = DeviceFMIndex.from_host(idx, device=self.device)
         # the occ3 scans need the full SA and the 3-step table beside
         # the working set; else the 1-step scan over the occ4 rows
@@ -249,6 +278,7 @@ class DeviceBackend:
         self._kernels.clear()
         self._fm3 = None
         self._sharded = None
+        self._big = None
         gc.collect()
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
@@ -280,12 +310,26 @@ class DeviceBackend:
                 replicate_ctx(self.chain_ctx, self.shard_devs))
         return self._sharded
 
+    def _big_setup(self):
+        """Place the x64 tables on the shard devices, once: each shard's
+        int64 SA entries and shard-relative occ3 rows built on its own
+        device a shard at a time (parallel/big_index.build_big_index), the
+        chain context replicated on each. No single-card table is built."""
+        if self._big is None:
+            enable_peer_access(self.shard_devs)
+            ctxs = replicate_ctx(self.chain_ctx, self.shard_devs)
+            self._big = (build_big_index(self.idx, ctxs, self.shard_devs),
+                         ctxs)
+        return self._big
+
     def _sharded_chain_for(self, bucket: int, tier: int, batch_global: int):
         key = ("schain", bucket, tier, batch_global)
         if key not in self._kernels:
-            sfm3s, ctxs = self._sharded_setup()
-            self._kernels[key] = ShardedChainKernel(
-                sfm3s, ctxs, self.shard_devs, bucket, batch_global, tier)
+            tables, ctxs = (self._big_setup() if self.big
+                            else self._sharded_setup())
+            stage = BigShardedChainKernel if self.big else ShardedChainKernel
+            self._kernels[key] = stage(tables, ctxs, self.shard_devs, bucket,
+                                       batch_global, tier)
         return self._kernels[key]
 
     def _download(self, dev: torch.Tensor):
@@ -322,7 +366,8 @@ class DeviceBackend:
         (parallel/sharded_index.py), the batch padded to a multiple of
         32 N reads; the token and collect_chain's contract are the same.
         The evidence apply is not folded there: the token holds pd and mmp
-        for the stand-alone apply, as the reference's sharded path."""
+        for the stand-alone apply, as the reference's sharded path. On the
+        x64 big-genome path pd is int64."""
         if self.index_shards > 1 and self._fm3_ok:
             return self._submit_sharded(packed, rlens, bucket, tier)
         packed_dev = upload(packed, self.device)
@@ -490,6 +535,11 @@ class DeviceBackend:
 
     # -- per-read API of the non-native path (1-step kernel, byte codes) --
     def _kernel_for(self, bucket: int):
+        if self.big:
+            raise NotImplementedError(
+                "big_x64: the non-native seeding path is a single-card path; "
+                "the x64 big-genome path runs the native stream's device "
+                "chain stage only")
         key = ("seed", bucket)
         if key not in self._kernels:
             self._kernels[key] = build_seed_kernel(self.fm, bucket,
@@ -579,10 +629,3 @@ def _drop_reads(counts, rpos, gpos, slen, drop):
     counts[drop] = 0
     return counts, rpos[keep], gpos[keep], slen[keep]
 
-
-def _refuse_unported(cfg: Config) -> None:
-    """Options whose device paths are not in this port yet raise here,
-    naming their ROADMAP.md items, instead of running something else."""
-    if getattr(cfg, "big_x64", False):
-        raise NotImplementedError(
-            "big_x64 is not ported yet (ROADMAP.md, next slice 3)")

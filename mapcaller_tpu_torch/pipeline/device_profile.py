@@ -181,14 +181,14 @@ def build_finalize_kernel(L: int):
 
 def make_device_evidence(backend, cfg, host_profile):
     """DeviceEvidence factory: per-replica planes for a multi-device
-    backend (`-devices N`, parallel/devices.MultiDeviceEvidence), else the
+    backend (`-devices N`, parallel/devices.MultiDeviceEvidence), the
+    genome-sharded planes of the x64 big-genome path (big_x64 under
+    `-shards N`, pipeline/big_profile.BigDeviceEvidence), else the
     single-card planes (also under `-shards N`, whose planes stay on the
-    backend's device). The reference's genome-sharded planes of the x64
-    big-genome path are not ported yet."""
-    if getattr(backend, "big_x64", False) and backend.index_shards > 1:
-        raise NotImplementedError(
-            "genome-sharded evidence planes (BigDeviceEvidence) are not "
-            "ported yet (ROADMAP.md, next slice 3)")
+    backend's device)."""
+    if getattr(backend, "big", False):
+        from .big_profile import BigDeviceEvidence
+        return BigDeviceEvidence(backend, cfg, host_profile)
     if getattr(backend, "is_multi_device", False):
         from ..parallel.devices import MultiDeviceEvidence
         return MultiDeviceEvidence(backend, cfg, host_profile)

@@ -492,7 +492,7 @@ def _group_steps(a, z, keep, group):
 def mirror_classify_pack(ctx, packed, rlens, off, hits, unres, overflow,
                          max_len, H2, planes=None, pair_end=False,
                          tile=CP_READS, group=CP_GROUP, cap=CP_HIT_CAP,
-                         order="random", seed=0):
+                         order="random", seed=0, pd_empty=tcd.INT32_MAX):
     """chain_classify_pack_kernel: tiles of `tile` reads take their index
     from a ticket and stage their hit range `cap` hits at a time; a group
     of `group` lanes a read takes its hits `group` at a time (the first
@@ -504,9 +504,10 @@ def mirror_classify_pack(ctx, packed, rlens, off, hits, unres, overflow,
     the SLOW reads' kept hits written to their slots (restaged chunk by
     chunk when the range took several); the last tile writes the totals
     and zeroes the slots no read fills. hits: numpy dict as mirror_hits
-    returns; planes: numpy dict exact/fd/acgt, updated. -> (the packed
-    vector, mmp, {"chunks": hit chunks staged, "restaged": chunks staged
-    again for the pack, and the look-back's windows})."""
+    returns; planes: numpy dict exact/fd/acgt, updated; pd_empty: the
+    empty slot's diagonal (the 64-bit kernel's is INT64_MAX). -> (the
+    packed vector, mmp, {"chunks": hit chunks staged, "restaged": chunks
+    staged again for the pack, and the look-back's windows})."""
     Bn = packed.shape[0]
     H = len(hits["read"])
     keep = np.asarray(hits["keep"], dtype=bool)
@@ -521,7 +522,7 @@ def mirror_classify_pack(ctx, packed, rlens, off, hits, unres, overflow,
     mmp = np.full((Bn, tcd.MM_SLOTS), -7, dtype=np.int64)
     stats = {"chunks": 0, "restaged": 0}
     tiles = {}
-    PD_EMPTY = tcd.INT32_MAX
+    PD_EMPTY = pd_empty
 
     def window(ob, ob1, chunks):
         """A read's first K_HITS kept hits and its kept count."""

@@ -278,13 +278,19 @@ def test_paths_equal_reference(data, monkeypatch, path):
 
 
 @pytest.mark.parametrize("option", [
-    dict(big_x64=True, devices=2), dict(big_x64=True, index_shards=2),
-    dict(big_x64=True)])
+    dict(big_x64=True, index_shards=2, device_chain=False),
+    dict(big_x64=True, index_shards=2, use_native=False),
+    dict(big_x64=True, index_shards=2, devices=2)])
 def test_unported_options_raise(data, option):
-    """The x64 big-genome path (ROADMAP slice 3) raises, alone and beside
-    the scale flags that are ported (-devices, -shards)."""
+    """The x64 big-genome path (big_x64 under -shards N) runs the native
+    stream's device chain stage only: host chaining and the non-native
+    seeding path, single-card paths, raise on it rather than build a
+    single-card table; -devices beside -shards raises as without
+    big_x64 (the scale axes are separate)."""
     d, inputs, _ = data
     kw = dict(PINNED, **option)
     cfg = Config(device="cpu", **inputs, **kw, **_files(d, "unported"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    exc, match = ((ValueError, "separate scale axes") if "devices" in option
+                  else (NotImplementedError, "big_x64"))
+    with pytest.raises(exc, match=match):
         runner.run_pipeline(cfg, "mapcaller")
