@@ -128,8 +128,10 @@ exits non-zero):
              2^31 (pointer tables with zero shards in front) against the
              same launch unshifted: s_x0 exactly C more, every valid hit
              equal; and a -gvcf run with big_x64 -shards 2 against a
-             single-card -gvcf run, in bytes. The devices phase also times
-             the plane sum of -devices N (four add_ of two plane sets)
+             single-card -gvcf run, in bytes; BigDeviceEvidence's apply,
+             host-delta merge, fold and scan a shard, each beside its byte
+             bound. The devices phase also times the plane sum of
+             -devices N (four add_ of two plane sets)
   evidence   device ms (queued launches) of the evidence apply of one
              batch, the finalize fold, the caller scan and the column
              fetch on the warm-up's own planes and inputs, each equal to
@@ -144,11 +146,25 @@ exits non-zero):
   ksw2_launches  every -alg ksw2 launch of the main path's warm-up equal
              to the plain version, and the largest launch's pairs by
              their longer side in bins of 16
+  multihost  run_host (mapcaller_tpu_torch/parallel/multihost.py) on the
+             card: in this process as a world of 1 over gloo, on the
+             paired-end multi-host fixture (every seed+chain dispatch held
+             against the plain versions, the VCF against the same run on
+             the CPU) and on the main path's data (its first 32
+             dispatches held); the four seed+chain kernels' launches
+             counted from 0 around each run. Then 2 ranks on cuda:0 and
+             2 ranks x --devices 2 on [cuda:0] * 2 over both, each rank a
+             process of its own (`chip_smoke.py --multihost-child SPEC`,
+             which writes the rank's device, launches, mapping_s and
+             collective seconds to a file): every rank exits 0 and runs
+             its seed+chain kernels on the card once a batch, and rank
+             0's merged VCF equals the 1-rank VCF
 Then the kernel table line ({"kernels": [...]}, the DP kernels timed on
 their main path's own captured pairs and on random pairs of the same
 shape, the scan and chain kernels on their main path's own batch 0, the
 routed ones on shard 0 of it under -shards 2, the 64-bit ones on shard 0
-of it under big_x64 -shards 2, as the runs launched them),
+of it under big_x64 -shards 2, as the runs launched them; the seed+chain
+kernels also with their launches on the multihost runs),
 the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}.
 
@@ -1747,6 +1763,93 @@ def big_memory(be, ev, earlier=()):
     return res
 
 
+def keep_big_inputs(ev, kept):
+    """Copies of a BigDeviceEvidence's inputs, taken as its big run makes
+    them, for time_big_evidence after the run: its first apply's token,
+    admit bits and mode, and the host profile's slow-read deltas as its
+    merge finds them."""
+    import types
+    apply, merge = ev.apply_batch, ev._merge_host_deltas
+
+    def apply_tap(token, fast_bits, pair_end):
+        kept.setdefault("apply", (types.SimpleNamespace(
+            pd=token.pd.clone(), mmp=token.mmp.clone(),
+            rl_dev=token.rl_dev.clone()), fast_bits.copy(), pair_end))
+        return apply(token, fast_bits, pair_end)
+
+    def merge_tap():
+        p = ev.host_profile
+        if not hasattr(p, "any_host_evidence") or p.any_host_evidence():
+            kept.setdefault("host", {k: getattr(p, k).copy()
+                                     for k in BIG_HOST})
+        return merge()
+
+    ev.apply_batch, ev._merge_host_deltas = apply_tap, merge_tap
+
+
+BIG_HOST = ("acgt", "exact_diff", "F1_diff", "R2_diff", "F2_diff",
+            "R1_diff", "multi_diff")
+
+
+def time_big_evidence(ev, kept, reps=10):
+    """BigDeviceEvidence's programs of one big run, timed after the run on
+    copies of their inputs, per shard (a call's time over the n shards it
+    loops over on this card): the apply (the run's first batch, on the
+    run's final planes), the fold and the scan (on the run's merged
+    planes), each beside its bound, the bytes it must move over the card's
+    memory rate (apply: every shard reads the batch's pd, mmp, read
+    lengths and admit bits, and each plane update is read and written
+    once; fold: 40 B of planes and 4 of codes read, 48 of outputs written
+    a position; scan: 28 B read a position); then the host-delta merge,
+    host work (nonzero scans over the genome-sized host arrays, then an
+    index_add_ a shard), timed on the host between device syncs with no
+    bound on the card."""
+    import types
+    import numpy as np
+    import torch
+    del ev.apply_batch, ev._merge_host_deltas   # the taps: the class's again
+    n, Pl = ev.n, ev.Pl
+    tok, fast_bits, pe = kept["apply"]
+    B, S = tok.mmp.shape
+    fb = np.zeros((B + 31) // 32, dtype=np.int32)
+    fb[:fast_bits.size] = fast_bits.view(np.int32)
+    adm = ((fb[np.arange(B) >> 5].astype(np.int64) >> (np.arange(B) & 31))
+           & 1).astype(bool)
+    n_mm = int((tok.mmp.cpu().numpy()[adm] >= 0).sum())
+    ms = dict(fold=cuda_ms(ev._fold, reps),
+              scan=cuda_ms(lambda: (setattr(ev, "_scan", None), ev.scan()),
+                           reps),
+              apply=cuda_ms(lambda: ev.apply_batch(tok, fast_bits, pe), reps))
+    nbytes = dict(apply=n * (B * (8 + 4 * S + 4) + fb.nbytes)
+                  + 8 * (4 * int(adm.sum()) + 3 * n_mm),
+                  fold=n * 92 * Pl, scan=n * 28 * Pl)
+    res = {k: dict(ms_a_shard=ms[k] / n, bytes_a_shard=nbytes[k] / n,
+                   bound_ms_a_shard=1e3 * nbytes[k] / n / H100_BYTES_S,
+                   bound_by="bytes", call_ms=ms[k]) for k in ms}
+    host, live, times = kept.get("host"), ev.host_profile, []
+    try:
+        for _ in range(reps if host else 0):   # no slow reads: no merge
+            ev.host_profile = types.SimpleNamespace(
+                **{k: v.copy() for k, v in host.items()})
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ev._merge_host_deltas()
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+    finally:
+        ev.host_profile = live
+    if host:
+        res["merge"] = dict(
+            ms_a_shard=statistics.median(times) / n,
+            call_ms=statistics.median(times), bound_ms=None,
+            bound_by="host work",
+            host_bytes_scanned=sum(v.nbytes for v in host.values()),
+            host_nonzero=sum(int(np.count_nonzero(v))
+                             for v in host.values()))
+    return res | dict(shards=n, Pl=Pl, batch=B, admitted=int(adm.sum()),
+                      mismatches=n_mm)
+
+
 def run_big(run, card, sam, vcf, reps=20):
     """The big phase: the main path with big_x64 and -shards 2 and 4 on
     [cuda:0] * n through the stream, each writing the warm-up's bytes with
@@ -1792,6 +1895,7 @@ def run_big(run, card, sam, vcf, reps=20):
 
     def tap_ev(*a):
         held["ev"] = make_ev(*a)
+        keep_big_inputs(held["ev"], held.setdefault("kept", {}))
         return held["ev"]
 
     def backend(n):
@@ -1800,7 +1904,7 @@ def run_big(run, card, sam, vcf, reps=20):
             return held["be"]
         return make
 
-    runs, first, memory = {}, {}, {}
+    runs, first, memory, ev_times = {}, {}, {}, {}
     for n in (2, 4):
         launches = []
         K._scan_packed, K._hits = tap_scan, tap_hits
@@ -1819,8 +1923,11 @@ def run_big(run, card, sam, vcf, reps=20):
         for x in launches:
             for name, e in big_launch_equal(ck, ssd, n, x).items():
                 errs[name] = max(errs.get(name, 0), e)
-        memory[n] = big_memory(held.pop("be"), held.pop("ev"),
+        ev = held.pop("ev")
+        memory[n] = big_memory(held.pop("be"), ev,
                                [x["kern"].fm for x in first.values()])
+        ev_times[n] = time_big_evidence(ev, held.pop("kept"))
+        del ev
         emit("big", card=card, shards=n, backend=t["backend"], batches=b,
              scan_launches=t["scan_launches"],
              chain_launches=t["chain_launches"], peak_mem_bytes=t["peak"],
@@ -1831,7 +1938,8 @@ def run_big(run, card, sam, vcf, reps=20):
              launches_held_to_plain=len(launches),
              reads_a_launch=sorted({int(x["rlens"].shape[0])
                                     for x in launches}),
-             max_abs_err=errs, memory=memory[n])
+             max_abs_err=errs, memory=memory[n],
+             evidence_programs=ev_times[n])
         if not (t["sam_identical"] and t["vcf_identical"]
                 and t["backend"]["sharded_invocations"] == b > 0
                 and t["scan_launches"] == {"seed_scan3_big": n * b}
@@ -2061,6 +2169,7 @@ def run_main_path(work, card):
     os.makedirs(d)
     t0 = time.time()
     fa, r1, r2 = write_ecoli_set(d)
+    captured = {"main_files": (fa, r1, r2)}
     idx = os.path.join(d, "mci")
     if cli.main(["mapcaller", "index", fa, idx]) != 0:
         raise RuntimeError("index build failed")
@@ -2137,7 +2246,6 @@ def run_main_path(work, card):
                     backend=(backend_facts(facts.pop("of"))
                              if "of" in facts else None))
 
-    captured = {}
     nw_ops = nw_device.nw_ops
     ksw2_ops = ksw2_device.ksw2_ops
     make_ev = device_profile.make_device_evidence
@@ -2595,6 +2703,261 @@ def run_ksw2_launches(k, launches, card):
          largest_longest_pair=int(longest.max()))
 
 
+def write_pe_fixture(d):
+    """The reference package's multi-host paired-end fixture
+    (tests/test_multihost.py:_write_pe_fixtures, seed 17): an 8 kb genome,
+    pairs tiling it, SNP pileups on mate 1 and a deletion pileup. ->
+    (fasta, r1, r2). A copy: that helper decodes with the JAX package's
+    dna module, which this script does not import."""
+    import numpy as np
+    from mapcaller_tpu_torch.dna import decode
+    codes = np.random.default_rng(17).integers(0, 4, size=8000).astype(
+        np.uint8)
+    comp = 3 - codes
+    fa = os.path.join(d, "pe.fa")
+    with open(fa, "w") as f:
+        f.write(">chr1\n")
+        s = decode(codes)
+        for i in range(0, len(s), 70):
+            f.write(s[i:i + 70] + "\n")
+    RL, frag = 100, 300
+    pairs = []
+
+    def add(p, r1=None):
+        if r1 is None:
+            r1 = codes[p:p + RL].copy()
+        pairs.append((decode(r1), decode(comp[p + frag - RL:p + frag][::-1])))
+
+    for p in range(0, len(codes) - frag - 10, 22):
+        add(p)
+    for site in (2000, 5500):
+        alt = (int(codes[site]) + 1) % 4
+        for k in range(8):
+            p = site - 12 - 4 * k
+            r1 = codes[p:p + RL].copy()
+            r1[site - p] = alt
+            add(p, r1)
+    for k in range(8):
+        p = 4000 - 20 - 3 * k
+        add(p, np.concatenate([codes[p:4000], codes[4002:4002 + RL]])[:RL])
+    out = []
+    for mate in (0, 1):
+        path = os.path.join(d, f"pe_r{mate + 1}.fq")
+        with open(path, "w") as f:
+            for i, pr in enumerate(pairs):
+                f.write(f"@p{i}/{mate + 1}\n{pr[mate]}\n+\n{'I' * RL}\n")
+        out.append(path)
+    return (fa, *out)
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+SEED_CHAIN = ("seed_scan3", "chain_scan_seeds", "chain_hits",
+              "chain_classify_pack")
+
+
+def seed_chain_launches():
+    """The four seed+chain kernels' launch counts since the last reset."""
+    from mapcaller_tpu_torch.ops import chain_kernels as ck
+    from mapcaller_tpu_torch.ops import seed_scan_device as ssd
+    counts = {**ssd.STATS.launches, **ck.STATS.launches}
+    return {k: counts.get(k, 0) for k in SEED_CHAIN}
+
+
+def multihost_launches(path_launches, name):
+    """A seed+chain kernel's launches on the multihost path's runs: the
+    1-rank runs in this process and each rank of the 2-rank run on the
+    main data."""
+    return {run: ([x[name] for x in v] if isinstance(v, list) else v[name])
+            for run, v in path_launches.items()}
+
+
+def multihost_child(spec_path):
+    """One rank of the multihost phase, in a process of its own: run_host
+    on the card with the spec's arguments, then this rank's facts (its
+    mapping device, mapping_s, the collectives' seconds and the
+    seed+chain launches of its run) into the spec's facts file."""
+    sys.path.insert(0, HERE)
+    from mapcaller_tpu_torch.ops import chain_kernels as ck
+    from mapcaller_tpu_torch.ops import seed_scan_device as ssd
+    from mapcaller_tpu_torch.parallel.multihost import run_host
+    with open(spec_path) as f:
+        spec = json.load(f)
+    ssd.STATS.reset()
+    ck.STATS.reset()
+    facts = run_host(*spec["args"], reads2=spec["reads2"],
+                     devices=spec["devices"])
+    facts["launches"] = seed_chain_launches()
+    with open(spec["facts"], "w") as f:
+        json.dump(facts, f)
+    return 0
+
+
+def launch_ranks(d, tag, n, fasta, r1, r2, out, devices, timeout=300):
+    """n ranks of run_host on cuda:0, each a `chip_smoke.py
+    --multihost-child` process started by the port's own launcher (a rank
+    that exits non-zero gets the others killed, and every rank still
+    running at the deadline is killed). -> (wall seconds, each rank's
+    facts)."""
+    from mapcaller_tpu_torch.parallel import multihost
+    port = free_port()
+    cmds, logs, facts = [], [], []
+    for pid in range(n):
+        spec = os.path.join(d, f"{tag}_{pid}.json")
+        facts.append(os.path.join(d, f"{tag}_{pid}.facts.json"))
+        with open(spec, "w") as f:
+            json.dump(dict(args=[pid, n, f"127.0.0.1:{port}", fasta, r1, out,
+                                 "multihost-test"],
+                           reads2=r2, devices=devices, facts=facts[-1]), f)
+        cmds.append([sys.executable, os.path.join(HERE, "chip_smoke.py"),
+                     "--multihost-child", spec])
+        logs.append(open(os.path.join(d, f"{tag}_{pid}.log"), "wb"))
+    t0 = time.time()
+    try:
+        rcs = multihost.launch_ranks(cmds, logs, timeout, cwd=HERE)
+    finally:
+        for f in logs:
+            f.close()
+    wall = time.time() - t0
+    if rcs != [0] * n:
+        for f in logs:
+            with open(f.name, "rb") as g:
+                sys.stderr.write(g.read()[-4000:].decode(errors="replace"))
+        raise AssertionError(f"multihost {tag}: rank exit codes {rcs}")
+    out_facts = []
+    for path in facts:
+        with open(path) as f:
+            out_facts.append(json.load(f))
+    return wall, out_facts
+
+
+def held_run_host(d, tag, fasta, r1, r2, hold, device="cuda"):
+    """run_host in this process as a world of 1 (gloo), with a tap that
+    copies the inputs of the first `hold` seed+chain dispatches; the four
+    kernels' launch counts set to 0 just before the run and read just
+    after; then each copied dispatch's scan, hits, seed-freq scan and
+    classify+pack held equal in every word to their plain versions (on
+    the card). -> (wall seconds, VCF path, facts, launches, dispatches
+    held, max abs err by kernel)."""
+    from mapcaller_tpu_torch.ops import chain_kernels as ck
+    from mapcaller_tpu_torch.ops import fm_search
+    from mapcaller_tpu_torch.ops import seed_scan_device as ssd
+    from mapcaller_tpu_torch.parallel.multihost import run_host
+    call = fm_search.SeedChainKernel.__call__
+    kept = []
+
+    def tap(self, packed, rlens, planes=None, pair_end=False):
+        if len(kept) < hold:
+            kept.append((self, packed.clone(), rlens.clone(), planes is None,
+                         pair_end))
+        return call(self, packed, rlens, planes=planes, pair_end=pair_end)
+
+    out = os.path.join(d, f"{tag}.vcf")
+    fm_search.SeedChainKernel.__call__ = tap
+    ssd.STATS.reset()
+    ck.STATS.reset()
+    t0 = time.time()
+    try:
+        facts = run_host(0, 1, f"127.0.0.1:{free_port()}", fasta, r1, out,
+                         "multihost-test", reads2=r2, device=device)
+    finally:
+        wall = time.time() - t0
+        fm_search.SeedChainKernel.__call__ = call
+    launches = seed_chain_launches()
+    errs = dict.fromkeys(SEED_CHAIN, 0)
+    for i, (kern, packed, rlens, no_planes, pe) in enumerate(kept):
+        if not no_planes:
+            raise AssertionError("multihost: a dispatch folded the apply")
+        errs["seed_scan3"] = max(errs["seed_scan3"], equal_scan(
+            f"multihost {tag} batch {i}", *scan_fns(
+                ssd, "seed_scan3", kern.fm, packed, rlens, kern.max_len,
+                kern.max_seeds, lanes=kern.compact_lanes)))
+        err = equal_chain(f"multihost {tag} batch {i}", ck, kern, packed,
+                          rlens, None, pair_end=pe)[0]
+        for k in SEED_CHAIN[1:]:
+            errs[k] = max(errs[k], err)
+    return wall, out, facts, launches, len(kept), errs
+
+
+def run_multihost(work, card, main_files, hold=32):
+    """The multihost phase: run_host (parallel/multihost.py) on the card.
+    First in this process as a world of 1 over gloo, on the paired-end
+    multi-host fixture (every dispatch held against the plain versions;
+    the VCF also against the same run on the CPU) and on the main path's
+    data (its first `hold` dispatches held); then 2 ranks on cuda:0 and
+    2 ranks x --devices 2 on [cuda:0] * 2, each rank a process of its
+    own, over both: every rank exits 0, runs its seed+chain kernels on
+    the card, and rank 0's merged VCF equals the 1-rank VCF. -> the four
+    kernels' launches in the 1-rank and 2-rank runs on the main data."""
+    import torch
+    d = os.path.join(work, "multihost")
+    os.makedirs(d)
+    data = {"fixture": write_pe_fixture(d), "main": main_files}
+    held, path_launches = {}, {}
+    for name, (fa, r1, r2) in data.items():
+        wall, vcf, facts, launches, n_held, errs = held_run_host(
+            d, f"held_{name}", fa, r1, r2,
+            hold=1 << 30 if name == "fixture" else hold)
+        cpu_same = None
+        if name == "fixture":
+            cpu_vcf = held_run_host(d, "cpu_fixture", fa, r1, r2, 0,
+                                    device="cpu")[1]
+            cpu_same = same_bytes(vcf, cpu_vcf)
+        with open(vcf, "rb") as f:
+            held[name] = f.read()
+        emit("multihost", card=card, data=name, ranks=1, in_this_process=True,
+             wall_s=wall, mapping_device=facts["device"],
+             mapping_s=facts["mapping_s"], collectives_s={
+                 k: facts[k] for k in ("allreduce_s", "allmax_s",
+                                       "allgather_s")},
+             allreduce_bytes=facts["allreduce_bytes"], launches=launches,
+             dispatches_held_to_plain=n_held,
+             launches_held_to_plain=4 * n_held, max_abs_err=errs,
+             vcf_bytes=len(held[name]), vcf_identical_to_cpu=cpu_same)
+        if not (facts["device"].startswith("cuda") and n_held > 0
+                and min(launches.values()) > 0
+                and len(set(launches.values())) == 1
+                and max(errs.values()) == 0 and cpu_same is not False):
+            raise AssertionError(f"multihost {name}: a seed+chain kernel did "
+                                 f"not run on the card once a batch, "
+                                 f"differs from its plain version, or the "
+                                 f"VCF differs from the CPU run's")
+        path_launches[f"multihost_1_rank_{name}"] = launches
+    gc.collect()
+    torch.cuda.empty_cache()
+    cuda0 = ["cuda:0"] * 2
+    for name, (fa, r1, r2) in data.items():
+        for devices in (1, cuda0):
+            tag = f"{name}_2x{2 if devices != 1 else 1}"
+            out = os.path.join(d, f"{tag}.vcf")
+            wall, facts = launch_ranks(d, tag, 2, fa, r1, r2, out, devices)
+            with open(out, "rb") as f:
+                same = f.read() == held[name]
+            emit("multihost", card=card, data=name, ranks=2,
+                 devices_a_rank=devices, wall_s=wall, ranks_facts=facts,
+                 vcf_identical_to_1_rank=same,
+                 vcf_records=sum(not ln.startswith(b"#")
+                                 for ln in held[name].splitlines()))
+            if not (same and all(
+                    f["device"].startswith("cuda")
+                    and min(f["launches"].values()) > 0
+                    and len(set(f["launches"].values())) == 1
+                    for f in facts)):
+                raise AssertionError(f"multihost {tag}: a rank ran its "
+                                     f"seed+chain kernels off the card or "
+                                     f"not once a batch, or the merged VCF "
+                                     f"differs from the 1-rank VCF")
+            if name == "main" and devices == 1:
+                path_launches["multihost_2_ranks_main"] = [
+                    f["launches"] for f in facts]
+    return path_launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2676,6 +3039,7 @@ def main():
     with tempfile.TemporaryDirectory(dir=toolchain.BUILD_DIR) as work:
         run_small_e2e(work)
         launches, own, cap = run_main_path(work, card)
+        path_launches = run_multihost(work, card, cap.pop("main_files"))
     run_evidence(cap, card)
     run_dp_rates({alg: cap["pairs_" + alg] for alg in ("nw", "ksw2")}, card)
     run_ksw2_launches(ksw2_device, cap["ksw2_all"], card)
@@ -2724,6 +3088,9 @@ def main():
             "call_ms": r["call_ms"], "steps": r["steps"],
             "shape": f"{r['B']} reads x {4 * r['width']} bases (bucket), "
                      f"the main path's own batch 0"})
+        if name == "seed_scan3":
+            kernels[-1]["path_launches"] = multihost_launches(
+                path_launches, name)
     # the chain kernels on the main path's own batch 0 (chain phase)
     chain, n = cap["chain_table"]
     b0 = chain["batch"]
@@ -2745,6 +3112,9 @@ def main():
             "call_ms": r["call_ms"], "floor_ms": chain["floor_ms"],
             "shape": f"{b0['B']} reads, H {b0['H']}, H2 {b0['H2']}, the main "
                      f"path's own batch 0"})
+        if name in SEED_CHAIN:
+            kernels[-1]["path_launches"] = multihost_launches(
+                path_launches, name)
     # classify+pack also replaces the pack and its cumsum
     kernels[-1]["also_replaces"] = ["mapcaller_tpu/ops/fm_search.py:749",
                                     "mapcaller_tpu/ops/fm_search.py:752"]
@@ -2808,4 +3178,5 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(multihost_child(sys.argv[2])
+             if sys.argv[1:2] == ["--multihost-child"] else main())

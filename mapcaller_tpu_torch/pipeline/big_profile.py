@@ -253,30 +253,34 @@ class BigDeviceEvidence(DeviceEvidence):
         if self._final is None:
             with record_function("evidence_finalize"):
                 self._merge_host_deltas()
-                i32 = torch.int32
-                sums = [(torch.cumsum(sp.exact_diff, 0, dtype=i32),
-                         torch.cumsum(sp.f_diff, 1, dtype=i32),
-                         torch.cumsum(sp.multi_diff, 0, dtype=i32))
-                        for sp in self.planes]
-                outs, tots = [], []
-                for s, (d, rc) in enumerate(zip(self.devs, self._codes)):
-                    ce, cf, cm = sums[s]
-                    ce, cf, cm = ce.clone(), cf.clone(), cm.clone()
-                    for t in range(s):        # the earlier shards' totals
-                        ce += sums[t][0][-1].to(d)
-                        cf += sums[t][1][:, -1:].to(d)
-                        cm += sums[t][2][-1].to(d)
-                    base = torch.arange(4, dtype=i32, device=d)[:, None]
-                    acgt = torch.clamp(self.planes[s].acgt + torch.where(
-                        base == rc[None, :], ce[None, :], 0),
-                        max=MAX_ALLELE_COUNT)
-                    multi = torch.clamp(cm, max=MAX_ALLELE_COUNT)
-                    cov = acgt.sum(0, dtype=i32)
-                    ccov = torch.cumsum(cov, 0, dtype=torch.int64)
-                    outs.append((acgt, cf, multi, cov, ccov))
-                    tots.append(int(ccov[-1]))
-                self._final = (outs, np.asarray(tots, dtype=np.int64))
+                self._final = self._fold()
         return self._final
+
+    def _fold(self):
+        """finalize's fold of the shards' planes as they stand (uncached)."""
+        i32 = torch.int32
+        sums = [(torch.cumsum(sp.exact_diff, 0, dtype=i32),
+                 torch.cumsum(sp.f_diff, 1, dtype=i32),
+                 torch.cumsum(sp.multi_diff, 0, dtype=i32))
+                for sp in self.planes]
+        outs, tots = [], []
+        for s, (d, rc) in enumerate(zip(self.devs, self._codes)):
+            ce, cf, cm = sums[s]
+            ce, cf, cm = ce.clone(), cf.clone(), cm.clone()
+            for t in range(s):        # the earlier shards' totals
+                ce += sums[t][0][-1].to(d)
+                cf += sums[t][1][:, -1:].to(d)
+                cm += sums[t][2][-1].to(d)
+            base = torch.arange(4, dtype=i32, device=d)[:, None]
+            acgt = torch.clamp(self.planes[s].acgt + torch.where(
+                base == rc[None, :], ce[None, :], 0),
+                max=MAX_ALLELE_COUNT)
+            multi = torch.clamp(cm, max=MAX_ALLELE_COUNT)
+            cov = acgt.sum(0, dtype=i32)
+            ccov = torch.cumsum(cov, 0, dtype=torch.int64)
+            outs.append((acgt, cf, multi, cov, ccov))
+            tots.append(int(ccov[-1]))
+        return outs, np.asarray(tots, dtype=np.int64)
 
     # ------------------------------------------------------------------
     def start_scan(self) -> None:

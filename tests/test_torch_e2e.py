@@ -215,13 +215,16 @@ def test_sam_vcf_equal_reference(data, monkeypatch, device_extension):
 
 def test_import_isolation(data):
     """A fresh interpreter runs the port end to end on the CPU without
-    importing jax or any module of the reference package."""
+    importing jax or any module of the reference package, nor do the
+    multi-host modules (parallel/multihost.py, parallel/distributed.py)
+    import them."""
     d, inputs, (want_sam, _) = data
     cfg = dict(device="cpu", **inputs, **PINNED, **_files(d, "iso"))
     code = (
         "import sys\n"
         "from mapcaller_tpu_torch import runner\n"
         "from mapcaller_tpu_torch.config import Config\n"
+        "from mapcaller_tpu_torch.parallel import distributed, multihost\n"
         f"assert runner.run_pipeline(Config(**{cfg!r}), 'mapcaller') == 0\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'mapcaller_tpu' or m.startswith('mapcaller_tpu.')]\n"
