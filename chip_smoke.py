@@ -159,12 +159,33 @@ exits non-zero):
              collective seconds to a file): every rank exits 0 and runs
              its seed+chain kernels on the card once a batch, and rank
              0's merged VCF equals the 1-rank VCF
+  mesh       the one-process multichip pipeline
+             (mapcaller_tpu_torch/parallel/mesh.py) on [cuda:0] * n: the
+             reference's single-end and paired-end dry-run fixtures
+             (__graft_entry__.dryrun_multichip / _pe, rebuilt with numpy)
+             at n = 2 and 8, every output equal to the same calls on the
+             CPU and to the port's single-device run, the stitched
+             coverage equal to the cumsum of the summed exact plane; then
+             the main path's data through run_mesh_pe_pipeline at max_len
+             128 and n = 1, 2 and 4: a timed run (the seed+chain kernels,
+             K1 dp_scatter_scan_kernel and K2 evidence_apply_bits_kernel
+             counted from 0, phase A / host / phase B / merge seconds,
+             peak memory, the variant records against the main path's VCF
+             less its RC field) and a held run (every K1 and K2 call and
+             the first 32 seed+chain dispatches against their plain
+             versions, max_abs_err 0; phase A's summed planes and stitched
+             coverage the same at every n); K1 (the psum of phase A's
+             planes and the genome-sharded scan, beside torch.cumsum) and
+             K2 timed at n = 4 beside their byte bounds. The build gate
+             holds chain_classify_pack_kernel at its parent's registers
+             (its folded apply is the device function K2 shares)
 Then the kernel table line ({"kernels": [...]}, the DP kernels timed on
 their main path's own captured pairs and on random pairs of the same
 shape, the scan and chain kernels on their main path's own batch 0, the
 routed ones on shard 0 of it under -shards 2, the 64-bit ones on shard 0
 of it under big_x64 -shards 2, as the runs launched them; the seed+chain
-kernels also with their launches on the multihost runs),
+kernels also with their launches on the multihost and mesh runs; K1 and
+K2 on the mesh's main-data run at n = 4),
 the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}.
 
@@ -2385,6 +2406,8 @@ def run_main_path(work, card):
     del k0
     os.replace(sam, sam + ".warm")
     os.replace(vcf, vcf + ".warm")
+    with open(vcf + ".warm", "rb") as f:
+        captured.update(main_vcf=f.read(), main_index=idx, main_argv=argv)
 
     def check(r):
         r.update(sam_identical=same_bytes(sam, sam + ".warm"),
@@ -2770,9 +2793,9 @@ def seed_chain_launches():
 
 
 def multihost_launches(path_launches, name):
-    """A seed+chain kernel's launches on the multihost path's runs: the
-    1-rank runs in this process and each rank of the 2-rank run on the
-    main data."""
+    """A seed+chain kernel's launches on the multihost and mesh paths'
+    runs: the 1-rank runs in this process, each rank of the 2-rank run on
+    the main data, and the mesh runs."""
     return {run: ([x[name] for x in v] if isinstance(v, list) else v[name])
             for run, v in path_launches.items()}
 
@@ -2958,6 +2981,596 @@ def run_multihost(work, card, main_files, hold=32):
     return path_launches
 
 
+MESH_KERNELS = ("dp_scatter_scan", "evidence_apply_bits")
+MESH_MAX_LEN = 128                # the main data's bucket (100-base reads)
+# ptxas registers of chain_classify_pack_kernel on the parent tree: its
+# folded apply became a device function that K2 shares, and its code must
+# not change (PERF.md)
+CLASSIFY_PACK_REGISTERS = 64
+
+
+def mesh_launches():
+    """The mesh path's launches since the last reset: the four seed+chain
+    kernels and the two collectives (K1, K2)."""
+    from mapcaller_tpu_torch.ops import mesh_kernels as mk
+    return {**seed_chain_launches(),
+            **{k: mk.STATS.launches.get(k, 0) for k in MESH_KERNELS}}
+
+
+def reset_mesh_launches():
+    from mapcaller_tpu_torch.ops import chain_kernels as ck
+    from mapcaller_tpu_torch.ops import mesh_kernels as mk
+    from mapcaller_tpu_torch.ops import seed_scan_device as ssd
+    for st in (ssd.STATS, ck.STATS, mk.STATS):
+        st.reset()
+
+
+def dryrun_reads(g, rng):
+    """The reference package's single-end dry-run reads
+    (__graft_entry__._dryrun_reads): a tiling with an uncovered gap and
+    flanks, SNP pileups, 2-base deletion reads. A copy: that module
+    imports the JAX package, which this script does not import."""
+    import numpy as np
+    L, RL = g.size, 70
+    reads = []
+
+    def rc(c):
+        return (3 - c)[::-1]
+
+    for p in range(0, L - RL, 20):
+        if 700 - RL < p < 800 or 3930 - RL < p < 4120:
+            continue
+        c = g[p:p + RL].copy()
+        reads.append((rc(c), True) if (p // 20) % 3 == 2 else (c, False))
+    for site in (1500, 2500, 5200):
+        alt = (int(g[site]) + 1) % 4
+        for k in range(8):
+            p = site - 10 - 5 * k
+            c = g[p:p + RL].copy()
+            c[site - p] = alt
+            reads.append((c, False))
+    for k in range(8):
+        p = 3200 - 20 - 3 * k
+        c = np.concatenate([g[p:3200], g[3202:3202 + RL - (3200 - p)]])
+        reads.append((c[:RL], False))
+    return reads
+
+
+def mesh_index(codes):
+    from mapcaller_tpu_torch.index.fmindex import build_index
+    from mapcaller_tpu_torch.index.packer import PackedReference
+    return build_index(None, packed=PackedReference(
+        ["chr1"], [codes.size], [0], codes, []))
+
+
+def mesh_key(v):
+    return (v.gPos, v.VarType, v.DP, v.AD_ref, v.AD_alt, v.GenoType,
+            v.qscore, v.ALTstr)
+
+
+def se_fixture():
+    """__graft_entry__.dryrun_multichip's genome (6 kb, seed 7, a 120-base
+    repeat) and reads, rebuilt with numpy."""
+    import numpy as np
+    rng = np.random.default_rng(7)
+    codes = rng.integers(0, 4, size=6000).astype(np.uint8)
+    codes[4000:4120] = codes[1000:1120]
+    return mesh_index(codes), dryrun_reads(codes, rng)
+
+
+def pe_fixture():
+    """__graft_entry__.dryrun_multichip_pe's genome (6 kb, seed 31) and
+    pairs (mate 2 as the parser hands it on), rebuilt with numpy."""
+    import numpy as np
+    rng = np.random.default_rng(31)
+    L, RL = 6000, 70
+    codes = rng.integers(0, 4, size=L).astype(np.uint8)
+    comp = 3 - codes
+    pairs = []
+
+    def add(p, frag=300, r1=None):
+        if r1 is None:
+            r1 = codes[p:p + RL].copy()
+        pairs.append((r1, comp[p + frag - RL:p + frag][::-1].copy()))
+
+    for p in range(0, L - 400, 25):
+        add(p)
+    for site in (1500, 2500, 4200):
+        alt = (int(codes[site]) + 1) % 4
+        for k in range(8):
+            p = site - 10 - 5 * k
+            r1 = codes[p:p + RL].copy()
+            r1[site - p] = alt
+            add(p, r1=r1)
+    for k in range(8):
+        p = 3200 - 20 - 3 * k
+        add(p, r1=np.concatenate([codes[p:3200], codes[3202:3202 + RL]])[:RL])
+    return mesh_index(codes), pairs
+
+
+def mesh_layout(seqs, n, width, multiple):
+    """Codes shard-major in mat uint8[n * B, width], B the reads a share
+    rounded up to `multiple` (the reference's dry runs: 8 single-end, 16
+    paired) -> (mat, rlens, B)."""
+    import numpy as np
+    B = -(-len(seqs) // n)
+    B = -(-B // multiple) * multiple
+    mat = np.zeros((B * n, width), dtype=np.uint8)
+    rlens = np.zeros(B * n, dtype=np.int32)
+    for i, c in enumerate(seqs):
+        mat[i, :c.size] = c
+        rlens[i] = c.size
+    return mat, rlens, B
+
+
+class MeshDispatch:
+    """One mesh entry's seed+chain dispatch as chain_run and equal_chain
+    take a SeedChainKernel: the occ3 scan without prefix skip over the
+    entry's padded share, H = H2 = hits_per_read * B."""
+
+    def __init__(self, fm3, ctx, max_len, max_seeds, batch, H):
+        self.fm, self.fm1, self.ctx = fm3, fm3.fm, ctx
+        self.max_len, self.max_seeds = max_len, max_seeds
+        self.batch, self.H, self.H2 = batch, H, H
+
+    def _scan_packed(self, packed, rlens):
+        from mapcaller_tpu_torch.ops.seed_scan_device import seed_scan3
+        return seed_scan3(self.fm, packed, rlens, self.max_len,
+                          self.max_seeds)
+
+
+class MeshTap:
+    """Taps on parallel/mesh.py's kernel wrappers (in that module's
+    namespace) for one run: the inputs of the first `hold` seed scans
+    (each a dispatch: the chain kernels after it take its outputs), and
+    every K1 and K2 call's inputs and outputs, copied on the card in
+    stream order. check() then holds each against its plain version."""
+
+    NAMES = ("seed_scan3", "dp_reduce", "dp_scatter_scan", "apply_bits")
+
+    def __init__(self, hold):
+        self.hold, self.scans, self.k1, self.k2 = hold, [], [], []
+
+    def __enter__(self):
+        import torch
+        from mapcaller_tpu_torch.parallel import mesh as tm
+        self.real = {k: getattr(tm, k) for k in self.NAMES}
+        real = self.real
+
+        def scan(fm3, packed, rlens, max_len, max_seeds):
+            if len(self.scans) < self.hold:
+                self.scans.append((fm3, packed.clone(), rlens.clone(),
+                                   max_len, max_seeds))
+            return real["seed_scan3"](fm3, packed, rlens, max_len, max_seeds)
+
+        def reduce(parts, streams=None):
+            out = real["dp_reduce"](parts, streams)
+            self.k1.append(("psum", [p.clone() for p in parts], (),
+                            [out.clone()]))
+            return out
+
+        def scatter_scan(parts, n, length=None, devices=None, streams=None):
+            outs = real["dp_scatter_scan"](parts, n, length, devices, streams)
+            for s in streams or ():
+                if s is not None:
+                    torch.cuda.current_stream(s.device).wait_stream(s)
+            self.k1.append(("scatter_scan", [p.clone() for p in parts],
+                            (n, length), [o.clone() for o in outs]))
+            return outs
+
+        def apply(planes, pd, mmp, rlens, fast_bits, pair_end, sign=1):
+            before = [t.clone() for t in (*planes, pd, mmp, rlens, fast_bits)]
+            out = real["apply_bits"](planes, pd, mmp, rlens, fast_bits,
+                                     pair_end, sign)
+            self.k2.append((before, pair_end, sign,
+                            [t.clone() for t in out]))
+            return out
+
+        for k, f in zip(self.NAMES, (scan, reduce, scatter_scan, apply)):
+            setattr(tm, k, f)
+        return self
+
+    def __exit__(self, *exc):
+        from mapcaller_tpu_torch.parallel import mesh as tm
+        for k, f in self.real.items():
+            setattr(tm, k, f)
+
+    def check(self, what, mesh, B, hits_per_read=8):
+        """Every held dispatch's seed scan and chain kernels, and every K1
+        and K2 call, equal to their plain versions on the same inputs on
+        the card. -> (dispatches held, max abs err by kernel)."""
+        from mapcaller_tpu_torch.ops import chain_kernels as ck
+        from mapcaller_tpu_torch.ops import mesh_kernels as mk
+        from mapcaller_tpu_torch.ops import seed_scan_device as ssd
+        errs = dict.fromkeys(SEED_CHAIN + MESH_KERNELS, 0)
+        tabs = mesh.tables("fm3", None)
+        for i, (fm3, pk, rl, ml, S) in enumerate(self.scans):
+            errs["seed_scan3"] = max(errs["seed_scan3"], equal_scan(
+                f"{what} dispatch {i}", *scan_fns(ssd, "seed_scan3", fm3, pk,
+                                                  rl, ml, S)))
+            kern = MeshDispatch(fm3, tabs[pk.device][1], ml, S, pk.shape[0],
+                                hits_per_read * B)
+            err = equal_chain(f"{what} dispatch {i}", ck, kern, pk, rl,
+                              kern.ctx.seq_len // 2)[0]
+            for k in SEED_CHAIN[1:]:
+                errs[k] = max(errs[k], err)
+        for kind, parts, args, outs in self.k1:
+            want = ([mk.dp_reduce_plain(parts)] if kind == "psum" else
+                    mk.dp_scatter_scan_plain(parts, *args))
+            errs["dp_scatter_scan"] = max(errs["dp_scatter_scan"], max_err(
+                f"{what} K1 {kind}", [(f"slice{i}", o, w) for i, (o, w)
+                                      in enumerate(zip(outs, want))]))
+        for before, pe, sign, outs in self.k2:
+            planes = mk.Planes(*before[:3])
+            want = mk.apply_bits_plain(planes, *before[3:], pe, sign)
+            errs["evidence_apply_bits"] = max(
+                errs["evidence_apply_bits"], max_err(
+                    f"{what} K2", list(zip(mk.Planes._fields, outs, want))))
+        return len(self.scans), errs
+
+
+def se_mesh_variants(idx, cfg, reads, n, device):
+    """__graft_entry__.dryrun_multichip's flow on the port: phase A on a
+    mesh of n entries on `device` ([cuda:0] * n, or n CPU devices), the
+    SLOW reads through a per-shard host pipeline, the merge and the
+    caller (no phase B: the single-end dry run's evidence is phase A's).
+    -> (variant keys, merged acgt, multi, the stitched coverage equal to
+    the cumsum of the summed exact plane, phase A, the mesh)."""
+    import numpy as np
+    from mapcaller_tpu_torch.calling.caller import (cal_block_read_depth,
+                                                    identify_variants)
+    from mapcaller_tpu_torch.dna import decode
+    from mapcaller_tpu_torch.ops.chain_device import CLASS_SLOW
+    from mapcaller_tpu_torch.parallel import mesh as tm
+    from mapcaller_tpu_torch.pipeline.engine import MappingEngine
+    from mapcaller_tpu_torch.pipeline.profile import MAX_ALLELE_COUNT
+    from mapcaller_tpu_torch.pipeline.read import ReadState
+    L = idx.genome_size
+    mat, rlens, B = mesh_layout([c for c, _ in reads], n, 80, 8)
+    mesh = tm.make_mesh(n, devices=[device] * n)
+    res = tm.build_multichip_pipeline(idx, 80, B, mesh)(
+        tm.pack_reads(mat, 80), rlens)
+    cls = res.cls.cpu().numpy()
+    exact = res.exact.cpu().numpy()
+    engines = []
+    for d in range(n):
+        eng = MappingEngine(idx, cfg, backend=None, use_native=False)
+        slow = [i for i in range(d * B, min((d + 1) * B, len(reads)))
+                if cls[i] == CLASS_SLOW]
+        if slow:
+            eng.process_chunk_single([ReadState(
+                f"r{i}", decode(mat[i, :rlens[i]]), None) for i in slow])
+        engines.append(eng)
+    ref_codes = idx.ref.ref_sequence_codes()
+    exact_cov = np.cumsum(exact[:L]).astype(np.int64)
+    acgt = res.acgt.cpu().numpy()[:, :L].astype(np.int64)
+    for c in range(4):
+        acgt[c] += np.where(ref_codes[:L] == c, exact_cov, 0)
+    F = np.cumsum(res.fd.cpu().numpy()[:, :L], axis=1).astype(np.int64)
+    multi = np.zeros(L, dtype=np.int64)
+    for eng in engines:
+        acgt += eng.profile.acgt
+        multi += eng.profile.multi_hit
+        for nm, k in (("F1", 0), ("R2", 1), ("F2", 2), ("R1", 3)):
+            F[k] += getattr(eng.profile, nm)
+    np.minimum(acgt, MAX_ALLELE_COUNT, out=acgt)
+    np.minimum(multi, MAX_ALLELE_COUNT, out=multi)
+    stitched = np.array_equal(
+        np.concatenate([c.cpu().numpy() for c in res.cov_shard])[:L],
+        exact_cov)
+    merged = MappingEngine(idx, cfg, backend=None, use_native=False)
+    merged.profile.acgt = acgt.astype(np.int32)
+    merged.profile.multi_hit = multi.astype(np.int32)
+    for nm, k in (("F1", 0), ("R2", 1), ("F2", 2), ("R1", 3)):
+        getattr(merged.profile, nm)[:] = F[k].astype(np.int32)
+    for eng in engines:
+        for src, dst in ((eng.profile.insert_map, merged.profile.insert_map),
+                         (eng.profile.delete_map, merged.profile.delete_map)):
+            for posk, inner in src.items():
+                dd = dst.setdefault(posk, {})
+                for seq, cnt in inner.items():
+                    dd[seq] = dd.get(seq, 0) + cnt
+    v = identify_variants(cfg, merged.genome, merged.profile, ref_codes,
+                          cal_block_read_depth(merged.profile, L))
+    return [mesh_key(x) for x in v], acgt, multi, stitched, res, mesh
+
+
+def single_variants(idx, cfg, reads, paired):
+    """The port's single-device run of a fixture (the pure-Python
+    pipeline, the reference's dry-run oracle) -> (keys, profile)."""
+    from mapcaller_tpu_torch.calling.caller import (cal_block_read_depth,
+                                                    identify_variants)
+    from mapcaller_tpu_torch.dna import decode
+    from mapcaller_tpu_torch.pipeline.engine import MappingEngine
+    from mapcaller_tpu_torch.pipeline.read import ReadState
+    eng = MappingEngine(idx, cfg, backend=None, use_native=False)
+    if paired:
+        rs = []
+        for i, (a, b) in enumerate(reads):
+            rs.append(ReadState(f"p{i}/1", decode(a), None))
+            rs.append(ReadState(f"p{i}/2", decode((3 - b)[::-1]), None))
+        eng.process_chunk_paired(rs)
+    else:
+        eng.process_chunk_single([ReadState(
+            f"r{i}", decode(c if not isrc else (3 - c)[::-1]), None)
+            for i, (c, isrc) in enumerate(reads)])
+    eng.finalize()
+    L = idx.genome_size
+    v = identify_variants(cfg, eng.genome, eng.profile,
+                          idx.ref.ref_sequence_codes(),
+                          cal_block_read_depth(eng.profile, L))
+    return [mesh_key(x) for x in v], eng.profile
+
+
+def run_mesh_fixtures(card):
+    """The reference's single-end and paired-end dry runs on the card at n
+    = 2 and 8 on [cuda:0] * n, each against the same calls on the CPU and
+    the port's single-device run, every K1 / K2 launch and every dispatch
+    held against its plain version. -> the launches of the n = 8 PE run."""
+    import numpy as np
+    from mapcaller_tpu_torch.config import Config
+    from mapcaller_tpu_torch.parallel import mesh as tm
+    from mapcaller_tpu_torch.pipeline.profile import MAX_ALLELE_COUNT
+    cfg_se = Config(vcf_file="dry.vcf", log_file="dry.log")
+    idx, reads = se_fixture()
+    want_se, single = single_variants(idx, cfg_se, reads, paired=False)
+    for n in (2, 8):
+        reset_mesh_launches()
+        with MeshTap(1 << 30) as tap:
+            keys, acgt, multi, stitched, res, mesh = se_mesh_variants(
+                idx, cfg_se, reads, n, "cuda:0")
+        launches = mesh_launches()
+        cpu = se_mesh_variants(idx, cfg_se, reads, n, "cpu")
+        held, errs = tap.check(f"mesh se n={n}", mesh,
+                               res.cls.shape[0] // n)
+        same_cpu = all(
+            [keys == cpu[0], np.array_equal(acgt, cpu[1]),
+             np.array_equal(multi, cpu[2])]
+            + [torch_equal_cpu(getattr(res, f), getattr(cpu[4], f))
+               for f in ("cls", "pd", "mm", "rplast", "cscore", "mmp",
+                         "slow_counts", "exact", "fd", "acgt")])
+        ok = (same_cpu and stitched and keys == want_se
+              and np.array_equal(acgt, np.minimum(single.acgt,
+                                                  MAX_ALLELE_COUNT))
+              and np.array_equal(multi, single.multi_hit)
+              and {0, 2, 6} <= {k[1] for k in keys}
+              and held == n and launches["evidence_apply_bits"] == 0
+              and min(v for k, v in launches.items()
+                      if k != "evidence_apply_bits") > 0)
+        emit("mesh", card=card, data="fixture_se", n=n, devices="cuda:0",
+             variants=len(keys), types=sorted({k[1] for k in keys}),
+             equal_to_cpu=same_cpu, equal_to_single_device=keys == want_se,
+             coverage_stitched=stitched, launches=launches,
+             dispatches_held_to_plain=held, max_abs_err=errs)
+        if not ok:
+            raise AssertionError(f"mesh se n={n}: differs from the CPU or "
+                                 f"the single-device run, or a kernel did "
+                                 f"not run")
+    idx, pairs = pe_fixture()
+    cfg = Config(vcf_file="dry.vcf", log_file="dry.log", min_allele_depth=3)
+    want_pe, single = single_variants(idx, cfg, pairs, paired=True)
+    seqs = [c for pr in pairs for c in pr]
+    for n in (2, 8):
+        mat, rlens, B = mesh_layout(seqs, n, 80, 16)
+        out = {}
+        for dev in ("cuda:0", "cpu"):
+            reset_mesh_launches()
+            mesh = tm.make_mesh(n, devices=[dev] * n)
+            tap = MeshTap(1 << 30) if dev != "cpu" else None
+            with tap or contextlib.nullcontext():
+                v, merged, _ = tm.run_mesh_pe_pipeline(
+                    idx, cfg, mat, rlens, len(seqs), n, max_len=80,
+                    mesh=mesh)
+            out[dev] = ([mesh_key(x) for x in v], merged.profile,
+                        mesh_launches(), tap, mesh)
+        keys, prof, launches, tap, mesh = out["cuda:0"]
+        held, errs = tap.check(f"mesh pe n={n}", mesh, B)
+        planes_cpu = all(np.array_equal(getattr(prof, k),
+                                        getattr(out["cpu"][1], k))
+                         for k in ("acgt", "F1", "R2", "F2", "R1",
+                                   "multi_hit"))
+        ok = (keys == out["cpu"][0] == want_pe and planes_cpu
+              and np.array_equal(prof.acgt, np.minimum(single.acgt,
+                                                       MAX_ALLELE_COUNT))
+              and np.array_equal(prof.F1, single.F1)
+              and np.array_equal(prof.R2, single.R2)
+              and {0, 2} <= {k[1] for k in keys}
+              and min(launches.values()) > 0 and held == n
+              and not any(out["cpu"][2].values()))
+        emit("mesh", card=card, data="fixture_pe", n=n, devices="cuda:0",
+             variants=len(keys), types=sorted({k[1] for k in keys}),
+             equal_to_cpu=keys == out["cpu"][0] and planes_cpu,
+             equal_to_single_device=keys == want_pe, launches=launches,
+             dispatches_held_to_plain=held, max_abs_err=errs)
+        if not ok:
+            raise AssertionError(f"mesh pe n={n}: differs from the CPU or "
+                                 f"the single-device run, or a kernel did "
+                                 f"not run")
+    return launches
+
+
+def torch_equal_cpu(a, b):
+    import torch
+    return bool(torch.equal(a.cpu(), b.cpu()))
+
+
+def main_mesh_reads(r1, r2):
+    """The main data's pairs as the parser hands them on: mate 1, then
+    mate 2 reverse-complemented, interleaved -> the reads' codes."""
+    from mapcaller_tpu_torch.dna import encode, revcomp_codes
+    from mapcaller_tpu_torch.io.fastq import iter_reads
+    seqs = []
+    for a, b in zip(iter_reads(r1), iter_reads(r2)):
+        seqs.append(encode(a.seq))
+        seqs.append(revcomp_codes(encode(b.seq)))
+    return seqs
+
+
+def vcf_records(text):
+    """The record lines of a VCF, each without its RC (the duplicate gate's
+    per-start read count, profile.read_count, which the mesh's merge does
+    not carry: the reference's merge leaves it zero)."""
+    return [re.sub(r"RC=\d+;?", "", ln) for ln in text.splitlines()
+            if not ln.startswith("#")]
+
+
+def mesh_vcf(cfg, merged, variants):
+    """The mesh's variants as the VCF writer writes them (io/vcf.py)."""
+    from mapcaller_tpu_torch.io.vcf import write_variants
+    f = io.StringIO()
+    write_variants(f, cfg, merged.genome, merged.profile, merged.ref_chars,
+                   variants)
+    return f.getvalue()
+
+
+def time_mesh_kernels(tap, card, n, L, reps=20):
+    """K1 and K2 on the held inputs of the n-entry main-data run, on this
+    card, each beside its plain version and its byte bound: K1's psum of
+    phase A's three planes, K1's genome-sharded scan (every slice; the
+    launches on one stream) beside torch.cumsum over the same summed
+    vector, and K2 on entry 0's share of phase B."""
+    import torch
+    from mapcaller_tpu_torch.ops import mesh_kernels as mk
+    dev = torch.device("cuda:0")
+    cur = torch.cuda.current_stream(dev)
+    psums = [p for kind, p, _, _ in tap.k1 if kind == "psum"][:3]
+    scan_parts = next(p for kind, p, _, _ in tap.k1
+                      if kind == "scatter_scan")
+    per = -(-L // n)
+
+    def psum():
+        return [mk.dp_reduce(p) for p in psums]
+
+    def scan():
+        return mk.dp_scatter_scan(scan_parts, n, L, [dev] * n, [cur] * n)
+
+    summed = torch.zeros(per * n, dtype=torch.int32, device=dev)
+    summed[:L] = mk.dp_reduce_plain(scan_parts)[:L]
+    before, pe, sign, _ = tap.k2[0]
+    planes = mk.zero_planes(L, dev)
+    pd, mmp, rlens, bits = before[3:]
+
+    def apply():
+        return mk.apply_bits(planes, pd, mmp, rlens, bits, pe, sign)
+
+    out = {}
+    for name, fn, plain, nbytes, ops in (
+            ("psum", psum, lambda: [mk.dp_reduce_plain(p) for p in psums],
+             sum((len(p) + 1) * p[0].numel() * 4 for p in psums),
+             sum(len(p) * p[0].numel() for p in psums)),
+            ("scatter_scan", scan,
+             lambda: mk.dp_scatter_scan_plain(scan_parts, n, L),
+             4 * (n * L + n * per), 2 * n * L),
+            ("apply_bits", apply,
+             lambda: mk.apply_bits_plain(mk.zero_planes(L, dev), pd, mmp,
+                                         rlens, bits, pe, sign), None, None)):
+        if nbytes is None:
+            B = pd.shape[0]
+            adm = ((bits.long()[torch.arange(B, device=dev) >> 5]
+                    >> (torch.arange(B, device=dev) & 31)) & 1) == 1
+            nmm = int(((mmp >= 0) & adm[:, None]).sum())
+            updates = 4 * int(adm.sum()) + 3 * nmm
+            nbytes = 24 * B + 4 * bits.numel() + 4 * updates
+            ops = 40 * int(adm.sum()) + 10 * nmm + 4 * B
+            out["apply_reads"], out["apply_admitted"] = B, int(adm.sum())
+        bound, by = bound_of(nbytes, ops)
+        ms = cuda_ms(fn, reps, queued=True)
+        out[name] = dict(ms=ms, call_ms=cuda_ms(fn, reps),
+                         plain_ms=cuda_ms(plain, 3), bound_ms=bound,
+                         bound_by=by, bytes=nbytes, share_of_bound=bound / ms)
+    out["scatter_scan"]["torch_cumsum_ms"] = cuda_ms(
+        lambda: torch.cumsum(summed, 0, dtype=torch.int32), reps, queued=True)
+    out["scatter_scan"]["torch_cumsum_slice_ms"] = cuda_ms(
+        lambda: torch.cumsum(summed[:per], 0, dtype=torch.int32), reps,
+        queued=True)
+    out["slice_elements"] = per
+    emit("mesh", card=card, data="main", n=n, kernel_times=out)
+    return out
+
+
+def run_mesh(card, cap, hold=32):
+    """The mesh phase: parallel/mesh.py on the card. The dry-run fixtures
+    at n = 2 and 8 (run_mesh_fixtures), then the main path's data
+    (100,000 pairs on the 4.6 Mb genome) through run_mesh_pe_pipeline at
+    max_len 128 on [cuda:0] * n for n = 1, 2 and 4: a timed run (launches
+    counted from 0, phase seconds, peak memory; the variant records
+    against the main path's VCF) and a held run (every K1 and K2 call and
+    the first `hold` dispatches against their plain versions; phase A's
+    summed planes and stitched coverage the same at every n). -> (the
+    kernel timings at n = 4, the launches of every mesh run by name)."""
+    import torch
+    from mapcaller_tpu_torch import cli
+    from mapcaller_tpu_torch.index.fmindex import load_index
+    from mapcaller_tpu_torch.parallel import mesh as tm
+    path_launches = {"mesh_fixture_pe_8": run_mesh_fixtures(card)}
+    idx = load_index(cap["main_index"])
+    cfg = cli.parse_args(cap["main_argv"])
+    L = idx.genome_size
+    _, r1, r2 = cap["main_files"]
+    seqs = main_mesh_reads(r1, r2)
+    main_records = vcf_records(cap["main_vcf"].decode())
+    first = times = None
+    worst = dict.fromkeys(MESH_KERNELS, 0)
+    for n in (1, 2, 4):
+        mat, rlens, B = mesh_layout(seqs, n, MESH_MAX_LEN, 2)
+        mesh = tm.make_mesh(n, devices=["cuda:0"] * n)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_mesh_launches()
+        phase = {}
+        t0 = time.time()
+        v, merged, _ = tm.run_mesh_pe_pipeline(
+            idx, cfg, mat, rlens, len(seqs), n, max_len=MESH_MAX_LEN,
+            mesh=mesh, times=phase)
+        wall = time.time() - t0
+        launches = mesh_launches()
+        peak = torch.cuda.max_memory_allocated()
+        records = vcf_records(mesh_vcf(cfg, merged, v))
+        differ = sorted(set(records) ^ set(main_records))
+        with MeshTap(hold) as tap:
+            v_held = tm.run_mesh_pe_pipeline(
+                idx, cfg, mat, rlens, len(seqs), n, max_len=MESH_MAX_LEN,
+                mesh=mesh)[0]
+        held_same = [mesh_key(x) for x in v_held] == [mesh_key(x) for x in v]
+        held, errs = tap.check(f"mesh main n={n}", mesh, B)
+        for k in MESH_KERNELS:
+            worst[k] = max(worst[k], errs[k])
+        planes = [o[0] for kind, _, _, o in tap.k1 if kind == "psum"][:3]
+        cov = torch.cat(next(o for kind, _, _, o in tap.k1
+                             if kind == "scatter_scan"))[:L]
+        stitched = torch.equal(cov, torch.cumsum(planes[0][:L], 0,
+                                                 dtype=torch.int32))
+        if first is None:
+            first = (planes, cov)
+        same_as_n1 = (all(torch.equal(a, b) for a, b in zip(planes, first[0]))
+                      and torch.equal(cov, first[1]))
+        path_launches[f"mesh_main_{n}"] = launches
+        emit("mesh", card=card, data="main", n=n, devices="cuda:0",
+             reads=len(seqs), per_device_batch=B, wall_s=wall,
+             phase_seconds=phase, launches=launches, peak_bytes=peak,
+             variants=len(v), vcf_records_main_path=len(main_records),
+             vcf_records_equal_main_path=not differ,
+             vcf_records_differing=differ[:20],
+             vcf_records_differing_count=len(differ),
+             phase_a_planes_and_coverage_equal_n1=same_as_n1,
+             coverage_stitched=stitched, dispatches_held_to_plain=held,
+             held_run_variants_equal=held_same, max_abs_err=errs)
+        if not (same_as_n1 and stitched and held_same
+                and held == min(n, hold)
+                and launches["seed_scan3"] == n
+                and min(launches.values()) > 0):
+            raise AssertionError(f"mesh main n={n}: phase A's planes or "
+                                 f"coverage differ from n=1's or do not "
+                                 f"stitch, the held run's variants differ, "
+                                 f"or a kernel of the path did not run")
+        if n == 4:
+            times = time_mesh_kernels(tap, card, n, L)
+        del tap
+    times["max_abs_err"] = worst
+    return times, path_launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2987,7 +3600,9 @@ def main():
              (("libchain.so", "chain_hits_routed_kernel"), 1),
              (("libchain.so", "chain_hits_big_kernel"), 1),
              (("libchain.so", "chain_classify_pack_kernel"), 1),
-             (("libchain.so", "chain_classify_pack_big_kernel"), 1))
+             (("libchain.so", "chain_classify_pack_big_kernel"), 1),
+             (("libchain.so", "dp_scatter_scan_kernel"), 1),
+             (("libchain.so", "evidence_apply_bits_kernel"), 1))
     reports = {kernel: ptxas_report(outputs.get(lib, ""), kernel)
                for (lib, kernel), _ in gated}
     # ksw2 takes all its shared memory dynamically (ptxas reports 0):
@@ -3018,6 +3633,15 @@ def main():
         if got != [regs]:
             raise AssertionError(f"{kernel}: {got} registers, expected "
                                  f"{regs}")
+    # classify+pack's folded apply is the device function K2 shares: its
+    # registers stay those of the parent tree
+    got = [v.get("registers")
+           for v in reports["chain_classify_pack_kernel"].values()]
+    emit("build", chain_classify_pack_kernel_registers=got,
+         parent_registers=CLASSIFY_PACK_REGISTERS)
+    if got != [CLASSIFY_PACK_REGISTERS]:
+        raise AssertionError(f"chain_classify_pack_kernel: {got} registers, "
+                             f"expected {CLASSIFY_PACK_REGISTERS}")
 
     for tier in TIERS:
         B = 4096 if tier < 192 else 2048
@@ -3039,7 +3663,11 @@ def main():
     with tempfile.TemporaryDirectory(dir=toolchain.BUILD_DIR) as work:
         run_small_e2e(work)
         launches, own, cap = run_main_path(work, card)
-        path_launches = run_multihost(work, card, cap.pop("main_files"))
+        path_launches = run_multihost(work, card, cap["main_files"])
+        mesh_times, mesh_path = run_mesh(card, cap)
+        path_launches.update(mesh_path)
+        for k in ("main_files", "main_vcf"):
+            cap.pop(k)
     run_evidence(cap, card)
     run_dp_rates({alg: cap["pairs_" + alg] for alg in ("nw", "ksw2")}, card)
     run_ksw2_launches(ksw2_device, cap["ksw2_all"], card)
@@ -3168,6 +3796,39 @@ def main():
                      f"under big_x64 -shards 2 on one card, as the run "
                      f"launched it; int32_form_ms: the 32-bit routed form "
                      f"on the same reads"})
+    # the mesh's collectives on the held inputs of the main data's run at
+    # n = 4 on [cuda:0] * 4; launches of that run, and of every mesh run
+    mesh_n = path_launches["mesh_main_4"]
+    scan_t, psum_t, apply_t = (mesh_times[k] for k in (
+        "scatter_scan", "psum", "apply_bits"))
+    for name, r, src_line, extra, shape in (
+            ("dp_scatter_scan", scan_t, "mapcaller_tpu/parallel/mesh.py:165",
+             {"also_replaces": ["mapcaller_tpu/parallel/mesh.py:171",
+                                "mapcaller_tpu/parallel/mesh.py:451"],
+              "psum": psum_t,
+              "torch_cumsum_slice_ms": scan_t["torch_cumsum_slice_ms"]},
+             f"the genome-sharded coverage of phase A at n = 4 on one card: "
+             f"4 partials of {mesh_times['slice_elements'] * 4} elements, 4 "
+             f"slices of {mesh_times['slice_elements']}, two launches a "
+             f"slice on one stream; library_ms: torch.cumsum over the "
+             f"summed vector; psum: phase A's three planes summed (three "
+             f"launches)"),
+            ("evidence_apply_bits", apply_t,
+             "mapcaller_tpu/parallel/mesh.py:211", {},
+             f"entry 0's share of phase B at n = 4: "
+             f"{mesh_times['apply_reads']} reads, "
+             f"{mesh_times['apply_admitted']} admitted")):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "mapcaller_tpu_torch/csrc/chain.cu",
+            "replaces": src_line, "launches": mesh_n[name],
+            "max_abs_err": mesh_times["max_abs_err"][name], "ms": r["ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r.get("torch_cumsum_ms"), "tolerance": 0,
+            "call_ms": r["call_ms"], "shape": shape, **extra,
+            "path_launches": {k: v[name] for k, v in path_launches.items()
+                              if k.startswith("mesh")}})
     line = {"kernels": kernels}
     print(json.dumps(line), flush=True)
     print(card, flush=True)

@@ -81,6 +81,27 @@
 //     sharded path applies evidence on its own planes). At least one block
 //     an SM, so up to 128 registers a thread.
 //
+// Two more kernels are the collectives of the multichip mesh
+// (parallel/mesh.py through ops/mesh_kernels.py), replacing the XLA
+// programs of mapcaller_tpu/parallel/mesh.py's shard-mapped steps:
+//
+//   dp_scatter_scan_kernel (K1)  over n int32 partials read through a
+//     table of their base addresses (peer memory across cards): the psum
+//     (mesh.py:171-173, sum-only mode: the elementwise sum) and the
+//     genome-sharded coverage (mesh.py:165-178 and :451-459: psum_scatter,
+//     all_gather of the slices' totals, cumsum), as two launches a slice:
+//     a pass whose last tile writes the slice's total, then the scan, by
+//     the same tiles and the same look-back as chain_scan_kernel, adding
+//     the totals of the slices before it. Bytes bound it (n partials read,
+//     the sum or the slice written; a few integer adds a byte); a tile of
+//     2,048 elements a block keeps the loads coalesced and the scan's
+//     intermediates in shared memory.
+//   evidence_apply_bits_kernel (K2)  phase B's evidence (mesh.py:211-251):
+//     a thread a read tests its admit bit and, when set, does the folded
+//     apply's atomicAdds with sign +1 or -1 (apply_fast_evidence, the one
+//     body both kernels call). A few MB of inputs a device: latency bound,
+//     one launch.
+//
 // Bound on an H100 SXM (HBM3, 3.35 TB/s): bytes, for all three. The work a
 // byte asks for is a few integer operations (a binary search of 15 steps,
 // a popcount step of ~20 operations per 32-byte occ4 row, ~60 per 16 read
@@ -139,6 +160,11 @@ constexpr int CP_SLOTS = K_HITS / CP_GROUP;   // window slots a lane
 constexpr int CP_HIT_CAP = 2048;        // hits a block stages at a time
 constexpr int CP_KEY_CAP = 1024;        // chromosome ends staged, at most
 constexpr int CP_MAX_WORDS = 31;        // read words (max_len <= 496)
+constexpr int DP_THREADS = 256;         // threads a K1 tile
+constexpr int DP_ITEMS = 8;             // elements a K1 thread scans
+constexpr int DP_TILE = DP_THREADS * DP_ITEMS;
+constexpr int DP_SUM = 0, DP_TOTAL = 1, DP_SCAN = 2;   // K1's modes
+constexpr int APPLY_THREADS = 256;      // reads a K2 block, one a thread
 
 // ---- chain_scan_kernel ---------------------------------------------------
 
@@ -608,6 +634,43 @@ struct CpOut {
   int* ovf;                             // [B/32], total kept, overflow
 };
 
+// Slot q of read b's evidence, for an admitted FAST read
+// (ops/evidence.py::scatter_fast_evidence): slot 0 also adds the read's
+// span, the exact-coverage and orientation range endpoints (the plane by
+// read-index parity when pair_end); a mismatch e >= 0 (r << 2 | base)
+// punches a coverage hole and adds its base. sign +1 applies, -1 retracts.
+// Integer atomics commute, so the planes equal the plain scatter's exactly.
+// Positions in 64 bits: a read with no hit has pd INT32_MAX, and its sums
+// clip to 0 as the plain version's int64 ones do. The one body of
+// classify+pack's folded apply (a lane a slot) and of
+// evidence_apply_bits_kernel (a thread a read).
+__device__ __forceinline__ void apply_fast_evidence(const Planes& pl,
+                                                    long long two_l,
+                                                    long long pd, int rlen,
+                                                    int b, int q, int e,
+                                                    int sign) {
+  const long long L = pl.L;
+  const bool ori = pd < L;
+  if (q == 0) {
+    const long long gs = min(max(ori ? pd : two_l - pd - rlen, 0LL), L - 1);
+    const long long end = min(gs + rlen, L);
+    const bool first = !pl.pair_end || (b & 1) == 0;
+    const long long fo = (first ? (ori ? 0 : 3) : (ori ? 1 : 2)) * (L + 2);
+    atomicAdd(pl.exact + gs, sign);
+    atomicAdd(pl.exact + end, -sign);
+    atomicAdd(pl.fd + fo + gs, sign);
+    atomicAdd(pl.fd + fo + end, -sign);
+  }
+  if (e >= 0) {
+    const long long at = pd + (e >> 2);
+    const long long p = min(max(ori ? at : two_l - 1 - at, 0LL), L - 1);
+    const int base = ori ? (e & 3) : 3 - (e & 3);
+    atomicAdd(pl.exact + p, -sign);
+    atomicAdd(pl.exact + p + 1, sign);
+    atomicAdd(pl.acgt + base * (L + 1) + p, sign);
+  }
+}
+
 // (a_pd, a_rp) after (b_pd, b_rp): _sort_slots' swap test.
 template <class P>
 __device__ __forceinline__ bool after(P a_pd, int a_rp, P b_pd, int b_rp) {
@@ -969,29 +1032,8 @@ __device__ __forceinline__ void classify_pack_body(
     const int e = smm[q];
     mmp[(size_t)b * MM_SLOTS + q] = e;
     if constexpr (sizeof(P) == 4)       // the 64-bit form folds no apply
-    if (pl.exact != nullptr && cls == CLASS_FAST) {
-      const long long L = pl.L, two_l = cx.seq_len, pd = pd0;
-      const bool ori = pd < L;
-      if (q == 0) {
-        const long long gs =
-            min(max(ori ? pd : two_l - pd - rlen, 0LL), L - 1);
-        const long long end = min(gs + rlen, L);
-        const bool first = !pl.pair_end || (b & 1) == 0;
-        const long long fo = (first ? (ori ? 0 : 3) : (ori ? 1 : 2)) * (L + 2);
-        atomicAdd(pl.exact + gs, 1);
-        atomicAdd(pl.exact + end, -1);
-        atomicAdd(pl.fd + fo + gs, 1);
-        atomicAdd(pl.fd + fo + end, -1);
-      }
-      if (e >= 0) {
-        const long long at = pd + (e >> 2);
-        const long long p = min(max(ori ? at : two_l - 1 - at, 0LL), L - 1);
-        const int base = ori ? (e & 3) : 3 - (e & 3);
-        atomicAdd(pl.exact + p, -1);
-        atomicAdd(pl.exact + p + 1, 1);
-        atomicAdd(pl.acgt + base * (L + 1) + p, 1);
-      }
-    }
+    if (pl.exact != nullptr && cls == CLASS_FAST)
+      apply_fast_evidence(pl, cx.seq_len, pd0, rlen, b, q, e, 1);
   }
   __syncthreads();
   // ---- the pack: the slow counts' prefix by look-back -------------------
@@ -1077,6 +1119,103 @@ chain_classify_pack_big_kernel(CpInT<long long> in, CtxT<long long> cx,
                                ScanState ss) {
   classify_pack_body(in, cx, Planes{nullptr, nullptr, nullptr, 0, 0}, op,
                      mmp, ss);
+}
+
+// ---- the mesh's collectives (parallel/mesh.py, ops/mesh_kernels.py) -----
+
+// dp_scatter_scan_kernel: over n int32 partials, each element the sum of
+// the partials at lo + k (zero at or past len, k < count). DP_SUM: that
+// sum is written (the psum), a block a tile in blockIdx order. DP_TOTAL and
+// DP_SCAN: tiles by ticket, the block's inclusive scan of its tile (a
+// thread's DP_ITEMS consecutive elements, then block_excl_scan over the
+// threads), the look-back of chain_scan_kernel to the tiles before it;
+// the totals pass's last tile writes the slice's total into totals[slice];
+// the scan adds the totals of the slices before it and writes the slice's
+// inclusive cumsum (the reference's psum_scatter, all_gather of totals
+// and cumsum). Sums are uint32 and wrap modulo 2^32, as int32 sums do.
+struct DpArgs {
+  const unsigned long long* parts;      // [n] base addresses, int32 each
+  int n;
+  long long lo;                         // the range's first element
+  int len, count;                       // elements read, elements out
+  int* out;                             // [count]; nullptr: totals pass
+  int* totals;                          // [slices] (peer memory across cards)
+  int slice;
+};
+
+__device__ __forceinline__ uint32_t dp_value(const DpArgs& a, long long k) {
+  uint32_t v = 0;
+  if (k < a.len)
+    for (int p = 0; p < a.n; ++p)
+      v += (uint32_t)__ldg(reinterpret_cast<const int*>(__ldg(a.parts + p)) +
+                           a.lo + k);
+  return v;
+}
+
+__global__ void __launch_bounds__(DP_THREADS)
+dp_scatter_scan_kernel(DpArgs a, int mode, ScanState ss) {
+  __shared__ uint32_t buf[padded(DP_TILE)];
+  __shared__ uint32_t warp_sum[DP_THREADS / 32];
+  __shared__ int tile_s;
+  __shared__ uint32_t excl_s;
+  const int t = threadIdx.x;
+  if (mode == DP_SUM) {
+    const long long k0 = (long long)blockIdx.x * DP_TILE;
+    for (int e = t; e < DP_TILE && k0 + e < a.count; e += DP_THREADS)
+      a.out[k0 + e] = (int)dp_value(a, k0 + e);
+    return;
+  }
+  const int tile = draw_ticket(ss, &tile_s);
+  const long long k0 = (long long)tile * DP_TILE;
+  // striped loads: consecutive threads on consecutive elements
+  for (int e = t; e < DP_TILE; e += DP_THREADS)
+    buf[padded(e)] = k0 + e < a.count ? dp_value(a, k0 + e) : 0u;
+  __syncthreads();
+  uint32_t run = 0;
+#pragma unroll
+  for (int i = 0; i < DP_ITEMS; ++i) {
+    const int e = padded(t * DP_ITEMS + i);
+    run += buf[e];
+    buf[e] = run;
+  }
+  uint32_t agg;
+  const uint32_t before = block_excl_scan<DP_THREADS>(run, warp_sum, &agg);
+  if (t < 32) {
+    const uint32_t excl = look_back(ss, tile, agg);
+    if (t == 0) excl_s = excl;
+  }
+  __syncthreads();
+  if (mode == DP_TOTAL) {
+    if (tile == (int)gridDim.x - 1 && t == 0)
+      a.totals[a.slice] = (int)(excl_s + agg);
+    return;
+  }
+  uint32_t base = excl_s + before;
+  for (int j = 0; j < a.slice; ++j) base += (uint32_t)a.totals[j];
+#pragma unroll
+  for (int i = 0; i < DP_ITEMS; ++i) buf[padded(t * DP_ITEMS + i)] += base;
+  __syncthreads();
+  for (int e = t; e < DP_TILE; e += DP_THREADS)
+    if (k0 + e < a.count) a.out[k0 + e] = (int)buf[padded(e)];
+}
+
+// evidence_apply_bits_kernel: a thread a read; read b is admitted when bit
+// b % 32 of word b / 32 is set, and then adds (sign +1) or retracts (-1)
+// its evidence (apply_fast_evidence, every slot) on a text of 2L.
+__global__ void __launch_bounds__(APPLY_THREADS)
+evidence_apply_bits_kernel(const int* __restrict__ pd,
+                           const int* __restrict__ mmp,
+                           const int* __restrict__ rlens,
+                           const uint32_t* __restrict__ bits, int B,
+                           Planes pl, int sign) {
+  const int b = blockIdx.x * APPLY_THREADS + threadIdx.x;
+  if (b >= B || !((bits[b >> 5] >> (b & 31)) & 1u)) return;
+  const long long two_l = 2LL * pl.L;
+  const int p = pd[b], rlen = rlens[b];
+#pragma unroll
+  for (int q = 0; q < MM_SLOTS; ++q)
+    apply_fast_evidence(pl, two_l, p, rlen, b, q,
+                        mmp[(size_t)b * MM_SLOTS + q], sign);
 }
 
 }  // namespace
@@ -1318,5 +1457,55 @@ extern "C" int mc_chain_classify_pack_big(
   chain_classify_pack_big_kernel<<<ntiles, CP_THREADS, smem,
                                    (cudaStream_t)stream>>>(in, cx, op,
                                                            (int*)mmp, ss);
+  return (int)cudaGetLastError();
+}
+
+// The mesh's K1 (dp_scatter_scan_kernel) in one mode over n int32
+// partials whose base addresses parts holds (int64[n] on this device, each
+// partial readable from it): DP_SUM writes out[k] = the sum at k for k <
+// count (len == count, lo 0); DP_TOTAL writes the total of the sums at lo
+// .. lo + count - 1 (zero at or past lo + len) into totals[slice]; DP_SCAN
+// writes their inclusive cumsum plus totals[0 .. slice-1] into out[count].
+// scratch, tiles and epoch as mc_chain_scan's (the scan modes only).
+extern "C" int mc_dp_scatter_scan(const void* parts, int n, long long lo,
+                                  int len, int count, void* out,
+                                  void* totals, int slice, int mode,
+                                  void* scratch, int tiles, int epoch,
+                                  void* stream) {
+  const int ntiles = (int)(((long long)count + DP_TILE - 1) / DP_TILE);
+  if (parts == nullptr || n < 1 || lo < 0 || count < 1 || len < 0 ||
+      len > count || mode < DP_SUM || mode > DP_SCAN ||
+      (mode != DP_TOTAL && out == nullptr) ||
+      (mode != DP_SUM &&
+       (totals == nullptr || slice < 0 || scratch == nullptr ||
+        tiles < ntiles || epoch < 1 || epoch >= (1 << 30))))
+    return (int)cudaErrorInvalidValue;
+  const DpArgs a{(const unsigned long long*)parts, n, lo, len, count,
+                 (int*)out, (int*)totals, slice};
+  const ScanState ss{(unsigned int*)scratch,
+                     (unsigned long long*)scratch + 1, (unsigned int)epoch};
+  dp_scatter_scan_kernel<<<ntiles, DP_THREADS, 0, (cudaStream_t)stream>>>(
+      a, mode, ss);
+  return (int)cudaGetLastError();
+}
+
+// The mesh's K2 (evidence_apply_bits_kernel): pd, rlens int32[B], mmp
+// int32[B, 4], bits uint32[>= ceil(B/32)]; the int32 planes exact [L+2],
+// fd [4(L+2)], acgt [4(L+1)] of a genome of L (a text of 2L); pair_end
+// picks the orientation plane by read-index parity; sign +1 or -1.
+extern "C" int mc_evidence_apply_bits(const void* pd, const void* mmp,
+                                      const void* rlens, const void* bits,
+                                      int B, void* exact, void* fd,
+                                      void* acgt, int L, int pair_end,
+                                      int sign, void* stream) {
+  if (B < 1 || L < 1 || (sign != 1 && sign != -1) || pd == nullptr ||
+      mmp == nullptr || rlens == nullptr || bits == nullptr ||
+      exact == nullptr || fd == nullptr || acgt == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const Planes pl{(int*)exact, (int*)fd, (int*)acgt, L, pair_end};
+  evidence_apply_bits_kernel<<<(B + APPLY_THREADS - 1) / APPLY_THREADS,
+                               APPLY_THREADS, 0, (cudaStream_t)stream>>>(
+      (const int*)pd, (const int*)mmp, (const int*)rlens,
+      (const uint32_t*)bits, B, pl, sign);
   return (int)cudaGetLastError();
 }

@@ -104,7 +104,12 @@ def _load_kernel():
                  + [P, I, P, I, I] + [P] * 3 + [I, I] + [P] * 3
                  + [I, I, P]),
                 ("mc_chain_classify_pack_big", [P] * 9 + [I] * 4
-                 + [P, I, P, I, C.c_longlong] + [P] * 4 + [I, I, P])):
+                 + [P, I, P, I, C.c_longlong] + [P] * 4 + [I, I, P]),
+                # the mesh's collectives (ops/mesh_kernels.py)
+                ("mc_dp_scatter_scan", [P, I, C.c_longlong, I, I, P, P, I, I,
+                                        P, I, I, P]),
+                ("mc_evidence_apply_bits", [P] * 4 + [I] + [P] * 3
+                 + [I] * 3 + [P])):
             fn = getattr(lib, name)
             fn.restype = C.c_int
             fn.argtypes = args
@@ -112,15 +117,16 @@ def _load_kernel():
     return _lib
 
 
-def _launch(name: str, dev: torch.device, *args, count: str = "") -> None:
-    """One launch on dev's current stream, counted in STATS under `count`
-    (default: name); raises if CUDA refused it."""
+def _launch(name: str, dev: torch.device, *args, count: str = "",
+            stats: KernelStats = STATS) -> None:
+    """One launch on dev's current stream, counted in `stats` under
+    `count` (default: name); raises if CUDA refused it."""
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = getattr(_load_kernel(), "mc_" + name)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA kernel launch failed (error {err})")
-    STATS.launches[count or name] += 1
+    stats.launches[count or name] += 1
 
 
 def _ptr(t):

@@ -4,4 +4,8 @@ parallelism over N replicas of the device backend) and `-shards N`
 big_x64 parallel/big_index.py); across hosts `run_host`
 (parallel/multihost.py: a process per host in a torch.distributed gloo
 group, one sum all-reduce of the raw evidence planes) and its
-single-process form `merge_engines` (parallel/distributed.py)."""
+single-process form `merge_engines` (parallel/distributed.py); and the
+one-process multichip pipeline over a device list, `run_mesh_pe_pipeline`
+(parallel/mesh.py: read batches split over the devices, the evidence
+partials and the genome-sharded coverage reduced by the collective
+kernels of ops/mesh_kernels.py)."""

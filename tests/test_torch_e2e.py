@@ -217,7 +217,8 @@ def test_import_isolation(data):
     """A fresh interpreter runs the port end to end on the CPU without
     importing jax or any module of the reference package, nor do the
     multi-host modules (parallel/multihost.py, parallel/distributed.py)
-    import them."""
+    and the mesh modules (parallel/mesh.py, ops/mesh_kernels.py) import
+    them."""
     d, inputs, (want_sam, _) = data
     cfg = dict(device="cpu", **inputs, **PINNED, **_files(d, "iso"))
     code = (
@@ -225,6 +226,8 @@ def test_import_isolation(data):
         "from mapcaller_tpu_torch import runner\n"
         "from mapcaller_tpu_torch.config import Config\n"
         "from mapcaller_tpu_torch.parallel import distributed, multihost\n"
+        "from mapcaller_tpu_torch.parallel import mesh\n"
+        "from mapcaller_tpu_torch.ops import mesh_kernels\n"
         f"assert runner.run_pipeline(Config(**{cfg!r}), 'mapcaller') == 0\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'mapcaller_tpu' or m.startswith('mapcaller_tpu.')]\n"
