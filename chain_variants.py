@@ -79,9 +79,10 @@ def main_path_batch(workdir):
     got = {}
     call = fm_search.SeedChainKernel.__call__
 
-    def tap(self, packed, rlens, planes=None, pair_end=False):
+    def tap(self, packed, rlens, planes=None, pair_end=False, out=None):
         got.setdefault("batch", (self, packed.clone(), rlens.clone()))
-        return call(self, packed, rlens, planes=planes, pair_end=pair_end)
+        return call(self, packed, rlens, planes=planes, pair_end=pair_end,
+                    out=out)
 
     argv = kv.main_path_argv(workdir, 20000)
     fm_search.SeedChainKernel.__call__ = tap

@@ -30,10 +30,14 @@ exits non-zero):
              command (`mapcaller_tpu_torch.cli`, in process): one warm-up
              run, which also captures the tensors of its largest NW
              launch, the evidence planes and inputs of its calling and
-             every seed-scan batch, and runs its third submit_chain with
-             any host sync an error; then runs with the DP forced to the
-             device kernels and to the scalar C++ DP in turns (device,
-             scalar, scalar, device), the command as it is (auto DP), one
+             every seed-scan batch, and runs its second transfer group's
+             submit_chain_group with any host sync an error; then runs
+             with the DP forced to the device kernels and to the scalar
+             C++ DP in turns (device, scalar, scalar, device), with
+             the stream's transfer group (pipeline/stream.TRANSFER_GROUP)
+             set to 1 (a batch a submit) and 4 (the default: groups of 4
+             and 3 batches) in turns (1, 4, 4, 1), the command as it
+             is (auto DP), one
              run with host evidence (device_evidence=False) and one with
              the evidence apply folded into the chain dispatch
              (fold_evidence=True); then the other single-card paths, each
@@ -57,7 +61,10 @@ exits non-zero):
              every run but the host-evidence and host-chaining ones
              accumulates evidence on the card and calls from it, with no
              capacity overflow; no run sends a read to the host oracle or
-             reruns a batch. Each run also reports the stream's stage
+             reruns a batch; the seed+chain dispatch uploads twice and
+             downloads once a transfer group (a batch in the group-1,
+             folded and -shards runs; never with host chaining).
+             Each run also reports the stream's stage
              seconds (MC_STAGE_PROF: parse, seed+chain submit, collect,
              host leg, evidence) and the host leg's own stage counters
              (native.prof_fetch)
@@ -90,9 +97,10 @@ exits non-zero):
              replayed without the full SA (the inverse-Psi walk), equal
              too, batch 0's walk timed
   devices    the main path with -devices 2 on [cuda:0] * 2 through the
-             stream (two replicas, each on a stream of its own, planes
-             per replica summed once), writing the warm-up's bytes: each
-             replica's batches, launches, prefix-skip depth K and whether
+             stream (two replicas, each on a stream of its own, whole
+             transfer groups round-robin, planes per replica summed
+             once), writing the warm-up's bytes: each replica's groups,
+             batches, launches, prefix-skip depth K and whether
              its planes fit, and the peak memory; and a race: batch 0's
              and batch 1's seed-freq scan and classify+pack launched 200
              times each on two streams, interleaved, every result equal
@@ -128,7 +136,13 @@ exits non-zero):
              2^31 (pointer tables with zero shards in front) against the
              same launch unshifted: s_x0 exactly C more, every valid hit
              equal; and a -gvcf run with big_x64 -shards 2 against a
-             single-card -gvcf run, in bytes; BigDeviceEvidence's apply,
+             single-card -gvcf run, in bytes; the single-card routes
+             under big_x64 -shards 2 (the index with its full SA dropped:
+             the 1-step scan, the hits kernel's walk and classify+pack,
+             evidence in the sharded planes; host chaining: the occ3
+             scan and the hits kernel), each writing the warm-up's bytes
+             with its kernels once a batch, every dispatch replayed
+             against the plain versions; BigDeviceEvidence's apply,
              host-delta merge, fold and scan a shard, each beside its byte
              bound. The devices phase also times the plane sum of
              -devices N (four add_ of two plane sets)
@@ -174,9 +188,16 @@ exits non-zero):
              less its RC field) and a held run (every K1 and K2 call and
              the first 32 seed+chain dispatches against their plain
              versions, max_abs_err 0; phase A's summed planes and stitched
-             coverage the same at every n); K1 (the psum of phase A's
-             planes and the genome-sharded scan, beside torch.cumsum) and
-             K2 timed at n = 4 beside their byte bounds. The build gate
+             coverage the same at every n); at n = 2 also the 1-step
+             route, with the full SA (its records equal the occ3 run's)
+             and without it (the hits kernel's walk; its records against
+             the full-SA run's, reported, and equal to the same walk on
+             two CPU devices), each run timed and held (the
+             1-step scan, the chain kernels and the hits kernel's
+             per-slot resolved flags against their plain versions); K1
+             (the psum of phase A's planes and the genome-sharded scan,
+             beside torch.cumsum) and K2 timed at n = 4 beside their byte
+             bounds. The build gate
              holds chain_classify_pack_kernel at its parent's registers
              (its folded apply is the device function K2 shares)
 Then the kernel table line ({"kernels": [...]}, the DP kernels timed on
@@ -1119,10 +1140,11 @@ def backend_facts(be):
     fit; or the shard devices, the occ3 rows a shard and the sharded
     dispatches."""
     if getattr(be, "is_multi_device", False):
-        return dict(replicas=[dict(device=str(d), batches=n, pfx_k=b.pfx_k,
+        return dict(replicas=[dict(device=str(d), batches=n, groups=g,
+                                   pfx_k=b.pfx_k,
                                    device_evidence_ok=b.device_evidence_ok)
-                              for d, n, b in zip(be.devs, be.batches,
-                                                 be.bes)])
+                              for d, n, g, b in zip(be.devs, be.batches,
+                                                    be.groups, be.bes)])
     tabs = be._big if getattr(be, "big", False) else be._sharded
     sfm3s = tabs[0] if tabs else {}
     occ3 = next(iter(sfm3s.values())).occ3 if sfm3s else None
@@ -1161,25 +1183,36 @@ def run_scale_axes(run, check, card, L):
                 + sum(ck.STATS.launches.values()))
 
     per = collections.Counter()
-    submit = MultiDeviceBackend.submit_chain
+    submits = {"submit_chain_group": MultiDeviceBackend.submit_chain_group}
 
-    def tap(self, *a, **kw):
-        i, before = self._rr, total()
-        tok = submit(self, *a, **kw)
-        per[i] += total() - before
-        return tok
+    def tapped(submit):
+        def tap(self, *a, **kw):
+            i, before = self._rr, total()
+            tok = submit(self, *a, **kw)
+            per[i] += total() - before
+            return tok
+        return tap
 
-    MultiDeviceBackend.submit_chain = tap
+    for k, f in submits.items():
+        setattr(MultiDeviceBackend, k, tapped(f))
     try:
         multi = check(run(backend=lambda idx, cfg: MultiDeviceBackend(
             idx, cfg, devices=[cuda0] * 2)))
     finally:
-        MultiDeviceBackend.submit_chain = submit
+        for k, f in submits.items():
+            setattr(MultiDeviceBackend, k, f)
     reps = multi["backend"]["replicas"]
     for i, r in enumerate(reps):
         r["launches"] = per[i]
     batches = multi["stages"]["batches"]
+    # whole transfer groups of 4 go round-robin: a replica's batches are
+    # the members of its groups
+    want_groups = [len(range(i, -(-batches // 4), 2)) for i in range(2)]
+    want_batches = [sum(min(4, batches - 4 * g)
+                        for g in range(i, -(-batches // 4), 2))
+                    for i in range(2)]
     emit("devices", card=card, replicas=reps, batches=batches,
+         transfers=multi["transfers"],
          plane_add=time_plane_add(L),
          peak_mem_bytes=multi["peak"],
          reads_per_s=multi["metrics"]["reads_per_sec"],
@@ -1187,10 +1220,13 @@ def run_scale_axes(run, check, card, L):
          sam_identical=multi["sam_identical"],
          vcf_identical=multi["vcf_identical"])
     if not (len(reps) == 2 and all(r["batches"] > 0 for r in reps)
-            and sum(r["batches"] for r in reps) == batches
+            and [r["batches"] for r in reps] == want_batches
+            and [r["groups"] for r in reps] == want_groups
             and sum(r["launches"] for r in reps) == 4 * batches):
-        raise AssertionError(f"devices: a replica mapped no batch, or the "
-                             f"batches or launches do not add up {reps}")
+        raise AssertionError(f"devices: a replica mapped no batch, the "
+                             f"transfer groups did not go round-robin "
+                             f"whole, or the batches or launches do not "
+                             f"add up {reps}")
 
     # taps on a shard's routed scan and hits: each launch's kernel, its
     # inputs and a copy of its outputs, in launch order
@@ -1880,8 +1916,9 @@ def run_big(run, card, sam, vcf, reps=20):
     table or genome-length plane exists; then shard 0 of batch 0 timed
     (time_big) and the shifted-coordinates check (run_shifted); and one
     -gvcf run with big_x64 and -shards 2 against a single-card -gvcf run,
-    in bytes (the sharded NOR blocks and their seams). -> (the timings,
-    the -shards 2 run's launches by kernel)."""
+    in bytes (the sharded NOR blocks and their seams); between them the
+    single-card routes under -shards 2 (run_big_single). -> (the timings,
+    the -shards 2 run's launches by kernel, the single-card routes)."""
     import torch
     from mapcaller_tpu_torch.ops import chain_kernels as ck
     from mapcaller_tpu_torch.ops import seed_scan_device as ssd
@@ -1985,6 +2022,7 @@ def run_big(run, card, sam, vcf, reps=20):
     emit("big", card=card, x64_kernels_shard0_batch0=timing,
          shifted_coordinates=shifted)
     del first
+    single = run_big_single(run, card, backend, sam, vcf)
     # -gvcf: the sharded NOR blocks against one card's
     gv = {}
     for tag, kw in (("one", {}), ("big", dict(index_shards=2, big_x64=True,
@@ -2006,7 +2044,129 @@ def run_big(run, card, sam, vcf, reps=20):
                 "chain_classify_pack_big"}):
         raise AssertionError("big -gvcf: bytes differ from one card's or "
                              "the run left the x64 path")
-    return timing, runs[2]
+    return timing, runs[2], single
+
+
+def equal_scan_hits(what, ck, ssd, kern, packed, rlens):
+    """A host-chaining dispatch (SeedKernelPacked `kern`) replayed: its
+    seed scan, seed-freq scan and hits kernel against their plain versions
+    on the same inputs, every element equal. -> max abs err (0)."""
+    kind = "seed_scan3" if kern.use_occ3 else "seed_scan1"
+    err = equal_scan(what, *scan_fns(ssd, kind, kern.fm, packed, rlens,
+                                     kern.max_len, kern.max_seeds,
+                                     lanes=kern.compact_lanes))
+    seeds = kern._scan_packed(packed, rlens)
+    scan = ck.chain_scan_seeds(seeds[4], seeds[0], kern.H)
+    hits = ck.chain_hits(kern.fm1, scan, *seeds[:5], kern.H)
+    want_scan = ck.chain_scan_seeds_plain(seeds[4], seeds[0], kern.H)
+    want_hits = ck.chain_hits_plain(kern.fm1, scan.off, *seeds[:5], kern.H)
+    pairs = [("off", scan.off, want_scan.off),
+             ("start", scan.start, want_scan.start)]
+    pairs += [(f"hits.{k}", getattr(hits, k), getattr(want_hits, k))
+              for k in hits._fields]
+    return max(err, max_err(what, pairs))
+
+
+def run_big_single(run, card, make_backend, sam, vcf):
+    """The x64 big-genome path's single-card routes (the reference's rule:
+    mapcaller_tpu/pipeline/device_backend.py:72-75) through the stream
+    under big_x64 -shards 2 on [cuda:0] * 2: the main data's index with
+    its full SA dropped (device chaining: the 1-step scan, the hits
+    kernel's inverse-Psi walk and classify+pack, the evidence applied to
+    the genome-sharded planes) and host chaining (device_chain=False: the
+    occ3 scan and the hits kernel's gather). Each writes the warm-up's
+    bytes with its single-card kernels launched once a batch (counted
+    from 0 around the run), no sharded dispatch and no 64-bit kernel;
+    every dispatch is replayed against the plain versions, max_abs_err 0.
+    -> {route: the run's facts}."""
+    import dataclasses
+    from mapcaller_tpu_torch import runner
+    from mapcaller_tpu_torch.ops import chain_kernels as ck
+    from mapcaller_tpu_torch.ops import fm_search
+    from mapcaller_tpu_torch.ops import seed_scan_device as ssd
+    chained, packed_call = (fm_search.SeedChainKernel.__call__,
+                            fm_search.SeedKernelPacked.__call__)
+    load_index = runner.load_index
+    held = []
+
+    def tap_chained(self, packed, rlens, planes=None, pair_end=False,
+                    out=None):
+        held.append((self, packed.clone(), rlens.clone(), pair_end))
+        return chained(self, packed, rlens, planes=planes,
+                       pair_end=pair_end, out=out)
+
+    def tap_packed(self, packed, rlens):
+        held.append((self, packed.clone(), rlens.clone(), None))
+        return packed_call(self, packed, rlens)
+
+    routes = {}
+    for route, flags in (("no_full_sa", {}),
+                         ("host_chaining", dict(device_chain=False))):
+        held = []
+        fm_search.SeedChainKernel.__call__ = tap_chained
+        fm_search.SeedKernelPacked.__call__ = tap_packed
+        if route == "no_full_sa":
+            runner.load_index = lambda prefix: dataclasses.replace(
+                load_index(prefix), sa_full=None)
+        try:
+            t = run(index_shards=2, big_x64=True, backend=make_backend(2),
+                    **flags)
+        finally:
+            fm_search.SeedChainKernel.__call__ = chained
+            fm_search.SeedKernelPacked.__call__ = packed_call
+            runner.load_index = load_index
+        b = t["stages"]["batches"]
+        errs = []
+        for i, (kern, p, r, pe) in enumerate(held):
+            what = f"big single-card {route} batch {i}"
+            if pe is None:
+                errs.append(equal_scan_hits(what, ck, ssd, kern, p, r))
+                continue
+            errs.append(equal_scan(what, *scan_fns(
+                ssd, "seed_scan1", kern.fm, p, r, kern.max_len,
+                kern.max_seeds)))
+            errs.append(equal_chain(what, ck, kern, p, r, None,
+                                    pair_end=pe)[0])
+        walks = all(not k.fm1.has_full_sa for k, *_ in held)
+        n_held = len(held)
+        del held
+        scan = {"seed_scan1" if route == "no_full_sa" else "seed_scan3": b}
+        chain = dict(chain_scan_seeds=b, chain_hits=b)
+        if route == "no_full_sa":
+            chain["chain_classify_pack"] = b
+        fact = dict(batches=b, scan_launches=t["scan_launches"],
+                    chain_launches=t["chain_launches"],
+                    sharded_invocations=t["backend"]["sharded_invocations"],
+                    hits_walk_inverse_psi=walks,
+                    dispatches_held_to_plain=n_held,
+                    max_abs_err=max(errs) if errs else None,
+                    n_oracle_reads=t["metrics"]["n_oracle_reads"],
+                    n_tier_reruns=t["metrics"]["n_tier_reruns"],
+                    evidence=t["evidence"], transfers=t["transfers"],
+                    reads_per_s=t["metrics"]["reads_per_sec"],
+                    mapping_s=t["metrics"]["mapping_seconds"],
+                    stages=t["stages"], peak_mem_bytes=t["peak"],
+                    sam_identical=same_bytes(sam, sam + ".warm"),
+                    vcf_identical=same_bytes(vcf, vcf + ".warm"))
+        emit("big", card=card, shards=2, single_card_route=route, **fact)
+        ev_ok = (evidence_path_ok(t["evidence"]) if route == "no_full_sa"
+                 else t["evidence"]["applies"] == 0)
+        if not (fact["sam_identical"] and fact["vcf_identical"]
+                and fact["sharded_invocations"] == 0 and b > 0
+                and t["scan_launches"] == scan
+                and t["chain_launches"] == chain
+                and fact["dispatches_held_to_plain"] == b
+                and set(errs) == {0} and ev_ok
+                and walks == (route == "no_full_sa")
+                and t["metrics"]["n_tier_reruns"] == 0):
+            raise AssertionError(f"big single-card {route}: bytes differ "
+                                 f"from the warm-up's, a single-card kernel "
+                                 f"did not run once a batch, a sharded or "
+                                 f"64-bit one ran, a dispatch differs from "
+                                 f"its plain version, or evidence took the "
+                                 f"wrong path")
+        routes[route] = fact
+    return routes
 
 
 def ptxas_report(out, kernel="nw_ops_kernel"):
@@ -2183,7 +2343,7 @@ def run_main_path(work, card):
     from mapcaller_tpu_torch.ops import chain_kernels as ck
     from mapcaller_tpu_torch.ops import fm_search, ksw2_device, nw_device
     from mapcaller_tpu_torch.ops import seed_scan_device as ssd
-    from mapcaller_tpu_torch.pipeline import device_profile
+    from mapcaller_tpu_torch.pipeline import device_profile, stream
     from mapcaller_tpu_torch.pipeline.device_backend import DeviceBackend
     from mapcaller_tpu_torch.simulator import write_ecoli_set
     d = os.path.join(work, "main")
@@ -2201,14 +2361,15 @@ def run_main_path(work, card):
             "-vcf", vcf, "-log", log]
 
     def run(device_dp=True, one_step=False, auto_dp=False, backend=None,
-            **flags):
+            group=None, **flags):
         """One run of the user's command: with auto_dp through the CLI
         as it is (device_extension "auto"), else the same command with the
         DP forced to the device kernels (device_dp) or to the scalar C++
         aligners, and other flags; one_step: the backend is told the occ3
         table does not fit; backend(idx, cfg): the device backend the
         runner builds (the devices and shards runs: replicas or shards on
-        this one card), whose facts backend_facts(be) records."""
+        this one card), whose facts backend_facts(be) records; group: the
+        stream's transfer group for this run (stream.TRANSFER_GROUP)."""
         gc.collect()      # an earlier run's cycles must not hold memory
         torch.cuda.reset_peak_memory_stats()
         nw_device.STATS.reset()
@@ -2221,14 +2382,21 @@ def run_main_path(work, card):
         occ3_fits = DeviceBackend._occ3_fits
         if one_step:
             DeviceBackend._occ3_fits = lambda self, idx: False
+        transfer_group = stream.TRANSFER_GROUP
+        if group is not None:
+            stream.TRANSFER_GROUP = group
         facts = {}
         make_engine = runner.make_engine
-        if backend is not None:
-            def make(idx_, cfg_):
-                be = backend(idx_, cfg_)
-                facts["of"] = be
-                return runner.MappingEngine(idx_, cfg_, backend=be)
-            runner.make_engine = make
+
+        def make(idx_, cfg_):
+            if backend is None:
+                eng = make_engine(idx_, cfg_)
+            else:
+                eng = runner.MappingEngine(idx_, cfg_,
+                                           backend=backend(idx_, cfg_))
+            facts["of"] = eng.backend
+            return eng
+        runner.make_engine = make
         err = io.StringIO()       # the stream's stage-prof line
         try:
             with contextlib.redirect_stderr(err):
@@ -2242,6 +2410,7 @@ def run_main_path(work, card):
                     rc = runner.run_pipeline(cfg, " ".join(argv))
         finally:
             DeviceBackend._occ3_fits = occ3_fits
+            stream.TRANSFER_GROUP = transfer_group
             runner.make_engine = make_engine
             sys.stderr.write(err.getvalue())
         stages = [json.loads(ln.split("] ", 1)[1])
@@ -2251,6 +2420,12 @@ def run_main_path(work, card):
             raise RuntimeError(f"main path run failed (device_dp={device_dp}"
                                f", one_step={one_step}, {flags})")
         st, ks = nw_device.STATS, ksw2_device.STATS
+        be = facts.pop("of")
+        # the seed+chain dispatch's own host-device copies this run, and
+        # its transfer groups (the stream's grouped submit)
+        transfers = dict(uploads=be.n_uploads, downloads=be.n_downloads,
+                         groups=sum(be.groups) if hasattr(be, "groups")
+                         else None)
         return dict(metrics=last_metrics(log), launches=st.launches,
                     pairs=st.pairs, shapes=dict(st.shapes),
                     ksw2_launches=ks.launches, ksw2_pairs=ks.pairs,
@@ -2264,8 +2439,9 @@ def run_main_path(work, card):
                     stages=stages[-1] if stages else None,
                     evidence=vars(device_profile.STATS).copy(),
                     peak=torch.cuda.max_memory_allocated(),
-                    backend=(backend_facts(facts.pop("of"))
-                             if "of" in facts else None))
+                    transfers=transfers,
+                    backend=(backend_facts(be) if backend is not None
+                             else None))
 
     nw_ops = nw_device.nw_ops
     ksw2_ops = ksw2_device.ksw2_ops
@@ -2321,33 +2497,34 @@ def run_main_path(work, card):
     # every call's kernel object and a copy of its batch
     chain_call = fm_search.SeedChainKernel.__call__
 
-    def tap_chain(self, packed, rlens, planes=None, pair_end=False):
+    def tap_chain(self, packed, rlens, planes=None, pair_end=False,
+                  out=None):
         if scan_mode.get("chain"):
             captured.setdefault(scan_mode["chain"], []).append(
                 (self, packed.clone(), rlens.clone(), pair_end))
         return chain_call(self, packed, rlens, planes=planes,
-                          pair_end=pair_end)
+                          pair_end=pair_end, out=out)
 
-    submit_chain = DeviceBackend.submit_chain
+    submit_group = DeviceBackend.submit_chain_group
 
     def submit_tap(self, *a, **kw):
-        """The third batch's submit (tables built) runs with any host
-        sync an error: submit_chain must not wait for the card. The error,
-        if any, is kept for main_path's verdict and the submit made again
-        without the check (it has no side effect without a folded
-        apply)."""
+        """The second transfer group's submit (the first built the
+        tables) runs with any host sync an error: submit_chain_group must
+        not wait for the card. The error, if any, is kept for main_path's
+        verdict and the submit made again without the check (the verdict
+        fails the run then)."""
         n = captured["submits"] = captured.get("submits", 0) + 1
-        if n != 3:
-            return submit_chain(self, *a, **kw)
+        if n != 2:
+            return submit_group(self, *a, **kw)
         torch.cuda.set_sync_debug_mode("error")
         try:
             captured["submit_sync_error"] = None
-            return submit_chain(self, *a, **kw)
+            return submit_group(self, *a, **kw)
         except RuntimeError as e:
             captured["submit_sync_error"] = str(e)[-600:]
         finally:
             torch.cuda.set_sync_debug_mode(0)
-        return submit_chain(self, *a, **kw)
+        return submit_group(self, *a, **kw)
 
     def tap_evidence(be, cfg, host_profile):
         """Keep host copies only: device tensors held past the warm-up
@@ -2383,7 +2560,7 @@ def run_main_path(work, card):
     nw_device.nw_ops = tap
     nw_device.nw_align_batch = tap_pairs("nw", nw_align)
     device_profile.make_device_evidence = tap_evidence
-    DeviceBackend.submit_chain = submit_tap
+    DeviceBackend.submit_chain_group = submit_tap
     fm_search.seed_scan3, fm_search.seed_scan1 = tap_scan3, tap_scan1
     fm_search.SeedChainKernel.__call__ = tap_chain
     scan_mode.update(mode="scan3", chain="chain_warm")
@@ -2393,11 +2570,11 @@ def run_main_path(work, card):
         nw_device.nw_ops = nw_ops
         nw_device.nw_align_batch = nw_align
         device_profile.make_device_evidence = make_ev
-        DeviceBackend.submit_chain = submit_chain
+        DeviceBackend.submit_chain_group = submit_group
         scan_mode.update(mode=None, chain=None)
     if "submit_sync_error" not in captured:
-        raise AssertionError("main_path: the sync check of submit_chain "
-                             "did not run")
+        raise AssertionError("main_path: the sync check of "
+                             "submit_chain_group did not run")
     scan_table = dict(seed_scan3=run_seed_scan(ssd, captured.pop("scan3"),
                                                card))
     k0, p0, r0, pe0 = captured["chain_warm"][0]
@@ -2419,6 +2596,15 @@ def run_main_path(work, card):
         r = check(run(device_dp))
         r.update(device_dp=device_dp)
         turns.append(r)
+    # the stream's transfer groups in turns: a group of 1 (one batch a
+    # submit: 2 uploads and a download each) and 4 (the default: 2 and 1
+    # a group), with the DP where auto sends it on the card (the scalar
+    # aligners), each writing the warm-up's bytes
+    gturns = []
+    for group in (1, 4, 4, 1):
+        r = check(run(False, group=group))
+        r.update(group=group)
+        gturns.append(r)
     # the user's command as it is: the DP goes where the auto policy sends
     # it on the card
     auto = check(run(auto_dp=True))
@@ -2456,7 +2642,7 @@ def run_main_path(work, card):
     routed_table = run_routed(idx, routed_batch, shard_launches, card)
     del shard_launches
     # big_x64 under -shards 2 and 4, and -gvcf, through the stream
-    big_table, big_run = run_big(run, card, sam, vcf)
+    big_table, big_run, _ = run_big(run, card, sam, vcf)
     dev = [t for t in turns if t["device_dp"]]
     sca = [t for t in turns if not t["device_dp"]]
 
@@ -2498,14 +2684,28 @@ def run_main_path(work, card):
                     host_leg_ns=t["host_prof"],
                     evidence={k: v for k, v in ev.items()
                               if k != "batch_seconds"},
+                    transfers=t["transfers"],
                     peak_mem_bytes=t["peak"],
                     sam_identical=t.get("sam_identical"),
                     vcf_identical=t.get("vcf_identical"))
 
     m1 = dev[0]["metrics"]
     paths = [compact, unchained, one_step, multi]
-    everything = ([warm] + turns + [auto, host_ev, fold_ev] + paths
+    everything = ([warm] + turns + gturns + [auto, host_ev, fold_ev] + paths
                   + [kwarm] + kturns)
+    g1 = [t for t in gturns if t["group"] == 1]
+    g4 = [t for t in gturns if t["group"] == 4]
+
+    def transfers_ok(t, grouped):
+        """2 uploads and 1 download a transfer group of 4 batches, or a
+        batch when the run submits one at a time."""
+        b = t["stages"]["batches"]
+        n = -(-b // 4) if grouped else b
+        return (t["transfers"]["uploads"], t["transfers"]["downloads"]) == (
+            2 * n, n)
+    grouped = [warm] + turns + g4 + [auto, host_ev, compact, one_step,
+                                      multi, kwarm] + kturns
+    ungrouped = g1 + [fold_ev] + sharded
     emit("main_path", card=card, setup_s=setup_s,
          reads=m1["total_reads"],
          mapped_pct=100.0 * m1["mapped"] / max(m1["total_reads"], 1),
@@ -2517,6 +2717,13 @@ def run_main_path(work, card):
          warmup_nw_launches=warm["launches"],
          turns=[summary(t, dp="device" if t["device_dp"] else "scalar",
                         evidence_path="device") for t in turns],
+         group_turns=[summary(t, dp="scalar", evidence_path="device",
+                              transfer_group=t["group"])
+                             for t in gturns],
+         group_1_median_mapping_s=med(g1, "mapping_seconds"),
+         group_4_median_mapping_s=med(g4, "mapping_seconds"),
+         group_1_median_reads_per_s=med(g1, "reads_per_sec"),
+         group_4_median_reads_per_s=med(g4, "reads_per_sec"),
          auto_dp=summary(auto, dp="auto", evidence_path="device"),
          submit_chain_sync_error=captured["submit_sync_error"],
          host_evidence=summary(host_ev, dp="device", evidence_path="host"),
@@ -2587,7 +2794,12 @@ def run_main_path(work, card):
           and hst["applies"] == hst["folded"] == hst["scans"] == 0
           and ucs["applies"] == ucs["folded"] == ucs["scans"] == 0
           and sca[0]["compact_factor"] == 1
-          and captured["submit_sync_error"] is None)
+          and captured["submit_sync_error"] is None
+          and all(transfers_ok(t, True) for t in grouped)
+          and all(transfers_ok(t, False) for t in ungrouped)
+          and unchained["transfers"]["uploads"] == 0
+          and multi["transfers"]["groups"] == -(
+              -multi["stages"]["batches"] // 4))
     if not ok:
         raise AssertionError("main_path: a kernel not launched with device "
                              "DP or launched with scalar DP, a scan or chain "
@@ -2595,8 +2807,11 @@ def run_main_path(work, card):
                              "differ from their warm-up's, reads left the "
                              "device "
                              "path, evidence did not take the path its "
-                             "flags ask for, auto compaction was not 1, or "
-                             "submit_chain waited for the card")
+                             "flags ask for, auto compaction was not 1, "
+                             "submit_chain_group waited for the card, or "
+                             "the seed+chain dispatch's uploads and "
+                             "downloads are not 2 and 1 a group (a batch "
+                             "ungrouped)")
     captured["scan_table"] = {
         "seed_scan3": (scan_table["seed_scan3"], dev[0]["scan3_launches"]),
         "seed_scan1": (scan_table["seed_scan1"], one_step["scan1_launches"])}
@@ -2874,11 +3089,12 @@ def held_run_host(d, tag, fasta, r1, r2, hold, device="cuda"):
     call = fm_search.SeedChainKernel.__call__
     kept = []
 
-    def tap(self, packed, rlens, planes=None, pair_end=False):
+    def tap(self, packed, rlens, planes=None, pair_end=False, out=None):
         if len(kept) < hold:
             kept.append((self, packed.clone(), rlens.clone(), planes is None,
                          pair_end))
-        return call(self, packed, rlens, planes=planes, pair_end=pair_end)
+        return call(self, packed, rlens, planes=planes, pair_end=pair_end,
+                    out=out)
 
     out = os.path.join(d, f"{tag}.vcf")
     fm_search.SeedChainKernel.__call__ = tap
@@ -3106,17 +3322,38 @@ def mesh_layout(seqs, n, width, multiple):
 class MeshDispatch:
     """One mesh entry's seed+chain dispatch as chain_run and equal_chain
     take a SeedChainKernel: the occ3 scan without prefix skip over the
-    entry's padded share, H = H2 = hits_per_read * B."""
+    entry's padded share, or on the 1-step route (a DeviceFMIndex `fm`,
+    with or without its full SA) the 1-step scan; H = H2 = hits_per_read
+    * B."""
 
-    def __init__(self, fm3, ctx, max_len, max_seeds, batch, H):
-        self.fm, self.fm1, self.ctx = fm3, fm3.fm, ctx
+    def __init__(self, fm, ctx, max_len, max_seeds, batch, H):
+        from mapcaller_tpu_torch.ops.fm3_device import DeviceFM3
+        self.occ3 = isinstance(fm, DeviceFM3)
+        self.fm, self.fm1, self.ctx = fm, fm.fm if self.occ3 else fm, ctx
         self.max_len, self.max_seeds = max_len, max_seeds
         self.batch, self.H, self.H2 = batch, H, H
 
     def _scan_packed(self, packed, rlens):
-        from mapcaller_tpu_torch.ops.seed_scan_device import seed_scan3
-        return seed_scan3(self.fm, packed, rlens, self.max_len,
-                          self.max_seeds)
+        from mapcaller_tpu_torch.ops import seed_scan_device as ssd
+        if self.occ3:
+            return ssd.seed_scan3(self.fm, packed, rlens, self.max_len,
+                                  self.max_seeds)
+        return ssd.seed_scan1(self.fm, packed, rlens, self.max_len,
+                              self.max_seeds, has_n=False)
+
+
+def equal_resolved(what, ck, fm, packed, rlens, kern):
+    """The hits kernel's per-slot resolved flags (the output the mesh's
+    map step reads) against the plain version's on a dispatch's seeds;
+    -> max abs err (0)."""
+    import torch
+    seeds = kern._scan_packed(packed, rlens)
+    scan = ck.chain_scan_seeds(seeds[4], seeds[0], kern.H)
+    got = torch.empty(kern.H, dtype=torch.bool, device=packed.device)
+    ck.chain_hits(fm, scan, *seeds[:5], kern.H, resolved=got)
+    want = torch.empty_like(got)
+    ck.chain_hits_plain(fm, scan.off, *seeds[:5], kern.H, resolved=want)
+    return max_err(what + " resolved", [("resolved", got, want)])
 
 
 class MeshTap:
@@ -3126,7 +3363,8 @@ class MeshTap:
     every K1 and K2 call's inputs and outputs, copied on the card in
     stream order. check() then holds each against its plain version."""
 
-    NAMES = ("seed_scan3", "dp_reduce", "dp_scatter_scan", "apply_bits")
+    NAMES = ("seed_scan3", "seed_scan1", "dp_reduce", "dp_scatter_scan",
+             "apply_bits")
 
     def __init__(self, hold):
         self.hold, self.scans, self.k1, self.k2 = hold, [], [], []
@@ -3142,6 +3380,13 @@ class MeshTap:
                 self.scans.append((fm3, packed.clone(), rlens.clone(),
                                    max_len, max_seeds))
             return real["seed_scan3"](fm3, packed, rlens, max_len, max_seeds)
+
+        def scan1(fm, packed, rlens, max_len, max_seeds, has_n):
+            if len(self.scans) < self.hold:
+                self.scans.append((fm, packed.clone(), rlens.clone(),
+                                   max_len, max_seeds))
+            return real["seed_scan1"](fm, packed, rlens, max_len, max_seeds,
+                                      has_n=has_n)
 
         def reduce(parts, streams=None):
             out = real["dp_reduce"](parts, streams)
@@ -3166,7 +3411,8 @@ class MeshTap:
                             [t.clone() for t in out]))
             return out
 
-        for k, f in zip(self.NAMES, (scan, reduce, scatter_scan, apply)):
+        for k, f in zip(self.NAMES, (scan, scan1, reduce, scatter_scan,
+                                     apply)):
             setattr(tm, k, f)
         return self
 
@@ -3175,7 +3421,7 @@ class MeshTap:
         for k, f in self.real.items():
             setattr(tm, k, f)
 
-    def check(self, what, mesh, B, hits_per_read=8):
+    def check(self, what, mesh, idx, B, hits_per_read=8):
         """Every held dispatch's seed scan and chain kernels, and every K1
         and K2 call, equal to their plain versions on the same inputs on
         the card. -> (dispatches held, max abs err by kernel)."""
@@ -3183,15 +3429,19 @@ class MeshTap:
         from mapcaller_tpu_torch.ops import mesh_kernels as mk
         from mapcaller_tpu_torch.ops import seed_scan_device as ssd
         errs = dict.fromkeys(SEED_CHAIN + MESH_KERNELS, 0)
-        tabs = mesh.tables("fm3", None)
-        for i, (fm3, pk, rl, ml, S) in enumerate(self.scans):
-            errs["seed_scan3"] = max(errs["seed_scan3"], equal_scan(
-                f"{what} dispatch {i}", *scan_fns(ssd, "seed_scan3", fm3, pk,
-                                                  rl, ml, S)))
-            kern = MeshDispatch(fm3, tabs[pk.device][1], ml, S, pk.shape[0],
-                                hits_per_read * B)
+        for i, (fm, pk, rl, ml, S) in enumerate(self.scans):
+            kern = MeshDispatch(fm, mesh.chain_ctx(idx)[pk.device], ml, S,
+                                pk.shape[0], hits_per_read * B)
+            kind = "seed_scan3" if kern.occ3 else "seed_scan1"
+            errs.setdefault(kind, 0)
+            errs[kind] = max(errs[kind], equal_scan(
+                f"{what} dispatch {i}", *scan_fns(ssd, kind, fm, pk, rl, ml,
+                                                  S)))
             err = equal_chain(f"{what} dispatch {i}", ck, kern, pk, rl,
                               kern.ctx.seq_len // 2)[0]
+            if not kern.occ3:
+                err = max(err, equal_resolved(f"{what} dispatch {i}", ck,
+                                              kern.fm1, pk, rl, kern))
             for k in SEED_CHAIN[1:]:
                 errs[k] = max(errs[k], err)
         for kind, parts, args, outs in self.k1:
@@ -3321,7 +3571,7 @@ def run_mesh_fixtures(card):
                 idx, cfg_se, reads, n, "cuda:0")
         launches = mesh_launches()
         cpu = se_mesh_variants(idx, cfg_se, reads, n, "cpu")
-        held, errs = tap.check(f"mesh se n={n}", mesh,
+        held, errs = tap.check(f"mesh se n={n}", mesh, idx,
                                res.cls.shape[0] // n)
         same_cpu = all(
             [keys == cpu[0], np.array_equal(acgt, cpu[1]),
@@ -3364,7 +3614,7 @@ def run_mesh_fixtures(card):
             out[dev] = ([mesh_key(x) for x in v], merged.profile,
                         mesh_launches(), tap, mesh)
         keys, prof, launches, tap, mesh = out["cuda:0"]
-        held, errs = tap.check(f"mesh pe n={n}", mesh, B)
+        held, errs = tap.check(f"mesh pe n={n}", mesh, idx, B)
         planes_cpu = all(np.array_equal(getattr(prof, k),
                                         getattr(out["cpu"][1], k))
                          for k in ("acgt", "F1", "R2", "F2", "R1",
@@ -3488,6 +3738,85 @@ def time_mesh_kernels(tap, card, n, L, reps=20):
     return out
 
 
+def run_mesh_one_step(card, idx, cfg, mat, rlens, n_total, B, mesh,
+                      full_records, hold=32):
+    """The mesh's 1-step route on the main data at n = mesh.n: asked for
+    with the full SA (one_step=True: seed_scan1_kernel and the hits
+    kernel's gather), whose variant records must equal the occ3 run's
+    (`full_records`), and taken for the index without its full SA (the
+    hits kernel's inverse-Psi walk). Each route: a timed run (launches
+    counted from 0, phase seconds) and a held run, every dispatch's 1-step
+    scan and chain kernels (and the hits kernel's per-slot resolved flags)
+    against their plain versions, max_abs_err 0. The walk's records are
+    compared with the full-SA run's and reported (phase A, as the
+    reference's, ignores the walk's resolved flag), and must equal the
+    same walk's on n CPU devices, where the plain versions run. -> the
+    walk run's launches."""
+    import dataclasses
+    from mapcaller_tpu_torch.ops import seed_scan_device as ssd
+    from mapcaller_tpu_torch.parallel import mesh as tm
+    n = mesh.n
+    launches = None
+    for route, index in (("one_step", idx),
+                         ("walk", dataclasses.replace(idx, sa_full=None))):
+        reset_mesh_launches()
+        phase = {}
+        t0 = time.time()
+        v, merged, _ = tm.run_mesh_pe_pipeline(
+            index, cfg, mat, rlens, n_total, n, max_len=MESH_MAX_LEN,
+            mesh=mesh, times=phase, one_step=True)
+        wall = time.time() - t0
+        launches = {**mesh_launches(),
+                    "seed_scan1": ssd.STATS.launches.get("seed_scan1", 0)}
+        records = vcf_records(mesh_vcf(cfg, merged, v))
+        differ = sorted(set(records) ^ set(full_records))
+        del merged
+        cpu = {}
+        if route == "walk":
+            # the same walk on n CPU devices (the plain versions): the
+            # records the walk changes are the route's, not the kernels'
+            t0 = time.time()
+            vc, mc, _ = tm.run_mesh_pe_pipeline(
+                index, cfg, mat, rlens, n_total, n, max_len=MESH_MAX_LEN,
+                mesh=tm.make_mesh(n, devices=["cpu"] * n), one_step=True)
+            cpu = dict(cpu_walk_s=time.time() - t0,
+                       cpu_walk_records_equal=vcf_records(
+                           mesh_vcf(cfg, mc, vc)) == records)
+            del vc, mc
+        with MeshTap(hold) as tap:
+            v_held = tm.run_mesh_pe_pipeline(
+                index, cfg, mat, rlens, n_total, n, max_len=MESH_MAX_LEN,
+                mesh=mesh, one_step=True)[0]
+        held, errs = tap.check(f"mesh main {route} n={n}", mesh, index,
+                                  B)
+        del tap
+        held_same = ([mesh_key(x) for x in v_held]
+                     == [mesh_key(x) for x in v])
+        emit("mesh", card=card, data="main", route=route, n=n,
+             devices="cuda:0", wall_s=wall, phase_seconds=phase,
+             launches=launches, variants=len(v),
+             vcf_records_equal_full_sa=not differ,
+             vcf_records_differing=differ[:20],
+             vcf_records_differing_count=len(differ),
+             dispatches_held_to_plain=held, held_run_variants_equal=held_same,
+             max_abs_err=errs, **cpu)
+        if not (held == min(n, hold) and held_same
+                and cpu.get("cpu_walk_records_equal", True)
+                and launches["seed_scan1"] == n
+                and launches["seed_scan3"] == 0
+                and min(v_ for k, v_ in launches.items()
+                        if k != "seed_scan3") > 0
+                and set(errs.values()) == {0}
+                and (route == "walk" or not differ)):
+            raise AssertionError(f"mesh main {route} n={n}: a 1-step "
+                                 f"dispatch not held or not run once an "
+                                 f"entry, the occ3 scan ran, the full-SA "
+                                 f"1-step records differ from the occ3 "
+                                 f"run's, or the walk's differ from the "
+                                 f"same walk on the CPU")
+    return launches
+
+
 def run_mesh(card, cap, hold=32):
     """The mesh phase: parallel/mesh.py on the card. The dry-run fixtures
     at n = 2 and 8 (run_mesh_fixtures), then the main path's data
@@ -3533,7 +3862,7 @@ def run_mesh(card, cap, hold=32):
                 idx, cfg, mat, rlens, len(seqs), n, max_len=MESH_MAX_LEN,
                 mesh=mesh)[0]
         held_same = [mesh_key(x) for x in v_held] == [mesh_key(x) for x in v]
-        held, errs = tap.check(f"mesh main n={n}", mesh, B)
+        held, errs = tap.check(f"mesh main n={n}", mesh, idx, B)
         for k in MESH_KERNELS:
             worst[k] = max(worst[k], errs[k])
         planes = [o[0] for kind, _, _, o in tap.k1 if kind == "psum"][:3]
@@ -3546,6 +3875,9 @@ def run_mesh(card, cap, hold=32):
         same_as_n1 = (all(torch.equal(a, b) for a, b in zip(planes, first[0]))
                       and torch.equal(cov, first[1]))
         path_launches[f"mesh_main_{n}"] = launches
+        if n == 2:
+            path_launches["mesh_main_walk_2"] = run_mesh_one_step(
+                card, idx, cfg, mat, rlens, len(seqs), B, mesh, records)
         emit("mesh", card=card, data="main", n=n, devices="cuda:0",
              reads=len(seqs), per_device_batch=B, wall_s=wall,
              phase_seconds=phase, launches=launches, peak_bytes=peak,
@@ -3719,6 +4051,9 @@ def main():
         if name == "seed_scan3":
             kernels[-1]["path_launches"] = multihost_launches(
                 path_launches, name)
+        else:
+            kernels[-1]["path_launches"] = {
+                "mesh_main_walk_2": path_launches["mesh_main_walk_2"][name]}
     # the chain kernels on the main path's own batch 0 (chain phase)
     chain, n = cap["chain_table"]
     b0 = chain["batch"]

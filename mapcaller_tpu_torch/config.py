@@ -88,10 +88,6 @@ class Config:
                                                 # chain dispatch (speculative,
                                                 # sparse host-reject correction)
     stream_pipeline_depth: int = 2              # device batches in flight
-    stream_group: int = 4                       # batches per transfer group
-                                                # (not used by this port's
-                                                # backend, which submits one
-                                                # batch at a time)
     # Device DP for the gapped-extension pairs. False = scalar host
     # aligners; True = always device (the CUDA NW or ksw2 kernel on the
     # card); "auto" = the backend's policy (DeviceBackend.

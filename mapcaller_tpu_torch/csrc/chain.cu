@@ -31,7 +31,8 @@
 //     takes the SA row x0 + rank; the text position from the full SA, or
 //     by walking inverse-Psi over the occ4 rows until the row is a
 //     multiple of 32 (at most max_walk steps; a hit still unresolved flags
-//     its read). Slots at or past min(total, H) hold the last seed slot's
+//     its read, and each slot's own flag is written when the caller asks,
+//     as the mesh's map step does). Slots at or past min(total, H) hold the last seed slot's
 //     values with valid 0, as jnp.repeat pads.
 //   chain_hits_routed_kernel  the hits kernel over a genome-sharded SA
 //     (-shards N): the full-SA gather, or each inverse-Psi step's occ4 row
@@ -429,6 +430,7 @@ struct HitsT {
   P* loc;                               // [H], int32 or int64
   uint8_t *valid, *keep;                // [H] (torch.bool)
   uint8_t* unresolved;                  // [B], zeroed by the seed-freq scan
+  uint8_t* resolved = nullptr;          // [H] each slot's flag, or nullptr
 };
 using Hits = HitsT<int>;
 
@@ -551,6 +553,7 @@ __device__ __forceinline__ void hits_body(const int* __restrict__ off,
   o.loc[h] = loc;
   o.valid[h] = valid;
   o.keep[h] = valid && loc - rpos > 0;
+  if (o.resolved != nullptr) o.resolved[h] = resolved;
   if (valid && !resolved) o.unresolved[b] = 1;
 }
 
@@ -1254,7 +1257,8 @@ extern "C" int mc_chain_scan(const void* freq, const void* n, const void* cnt,
 // rpos/len/x0/freq int64[B, S]; occ int32[nw+1, 8] (16-byte aligned), L2
 // int64[5], sa_samp int64[], sa_full int32[n+1] or nullptr (then the
 // inverse-Psi walk of max_walk steps). Outputs: read/rpos/len/loc
-// int32[H], valid/keep uint8[H], and the flags of unresolved reads set.
+// int32[H], valid/keep uint8[H], the flags of unresolved reads set, and
+// resolved uint8[H] (or nullptr): each slot's valid-and-resolved flag.
 extern "C" int mc_chain_hits(const void* off, const void* start,
                              const void* n_seeds, const void* rpos,
                              const void* len, const void* x0,
@@ -1263,7 +1267,8 @@ extern "C" int mc_chain_hits(const void* off, const void* start,
                              const void* sa_full, int primary, int max_walk,
                              int H, void* read, void* hrpos, void* hlen,
                              void* loc, void* valid, void* keep,
-                             void* unresolved, void* stream) {
+                             void* unresolved, void* resolved,
+                             void* stream) {
   if (B < 1 || S < 1 || H < 1 || max_walk < 0 ||
       (long long)B * S >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
@@ -1273,8 +1278,9 @@ extern "C" int mc_chain_hits(const void* off, const void* start,
   const Fm fm{(const int*)occ, (const long long*)L2,
               (const long long*)sa_samp, (const int*)sa_full, primary,
               max_walk};
-  const Hits o{(int*)read, (int*)hrpos, (int*)hlen, (int*)loc,
-               (uint8_t*)valid, (uint8_t*)keep, (uint8_t*)unresolved};
+  const Hits o{(int*)read,       (int*)hrpos,       (int*)hlen,
+               (int*)loc,        (uint8_t*)valid,   (uint8_t*)keep,
+               (uint8_t*)unresolved, (uint8_t*)resolved};
   chain_hits_kernel<<<(H + HITS_GROUP - 1) / HITS_GROUP, HITS_GROUP, 0,
                       (cudaStream_t)stream>>>(
       (const int*)off, (const int2*)start, sd, fm, H, o);

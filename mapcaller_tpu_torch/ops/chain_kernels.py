@@ -95,7 +95,7 @@ def _load_kernel():
         for name, args in (
                 ("mc_chain_scan", [P, P, P, I, I, P, P, I, P, P, I, I, P]),
                 ("mc_chain_hits", [P] * 7 + [I, I] + [P] * 4
-                 + [I, I, I] + [P] * 8),
+                 + [I, I, I] + [P] * 9),
                 ("mc_chain_hits_routed", [P] * 7 + [I, I, P, I, P, P, I, P,
                                                     I, I, I, I] + [P] * 8),
                 ("mc_chain_hits_big", [P] * 7 + [I, I, P, C.c_longlong, I]
@@ -325,18 +325,22 @@ def _expand_seeds(n_seeds, s_rpos, s_len, s_x0, s_freq, H: int):
 
 
 def chain_hits_plain(fm: DeviceFMIndex, off, n_seeds, s_rpos, s_len, s_x0,
-                     s_freq, H: int, max_walk: int = MAX_WALK) -> Hits:
+                     s_freq, H: int, max_walk: int = MAX_WALK,
+                     resolved=None) -> Hits:
     """Plain version of chain_hits on any device; it expands by its own
-    cumsum of the seeds and does not read off."""
+    cumsum of the seeds and does not read off. resolved (bool[H] or
+    None) gets each slot's resolved flag."""
     B = s_freq.shape[0]
     dev = s_freq.device
     i64 = torch.int64
     hit_read, hit_rpos, hit_len, hit_row, hit_valid = _expand_seeds(
         n_seeds, s_rpos, s_len, s_x0, s_freq, H)
-    hit_loc, resolved = sa_resolve(fm, torch.where(hit_valid, hit_row, 32),
-                                   hit_valid, max_walk)
+    hit_loc, ok = sa_resolve(fm, torch.where(hit_valid, hit_row, 32),
+                             hit_valid, max_walk)
+    if resolved is not None:
+        resolved.copy_(ok)
     unresolved = torch.zeros(B, dtype=i64, device=dev).scatter_reduce(
-        0, hit_read, (hit_valid & ~resolved).to(i64), "amax") > 0
+        0, hit_read, (hit_valid & ~ok).to(i64), "amax") > 0
     keep = hit_valid & ((hit_loc - hit_rpos) > 0)
     i32 = torch.int32
     return Hits(hit_read.to(i32), hit_rpos.to(i32), hit_len.to(i32),
@@ -365,11 +369,11 @@ def _check_seeds(name: str, scan: SeedScan, n_seeds, s_rpos, s_len, s_x0,
 
 
 def _hits_plain(fm, scan: SeedScan, n_seeds, s_rpos, s_len, s_x0, s_freq,
-                H: int, max_walk: int) -> Hits:
+                H: int, max_walk: int, resolved=None) -> Hits:
     """chain_hits_plain with its unresolved flags set in scan.unresolved,
     as the kernels set them."""
     plain = chain_hits_plain(fm, scan.off, n_seeds, s_rpos, s_len, s_x0,
-                             s_freq, H, max_walk)
+                             s_freq, H, max_walk, resolved)
     scan.unresolved.logical_or_(plain.unresolved)
     return plain._replace(unresolved=scan.unresolved)
 
@@ -380,7 +384,8 @@ def _hits_outputs(H: int, dev):
 
 
 def chain_hits(fm: DeviceFMIndex, scan: SeedScan, n_seeds, s_rpos, s_len,
-               s_x0, s_freq, H: int, max_walk: int = MAX_WALK) -> Hits:
+               s_x0, s_freq, H: int, max_walk: int = MAX_WALK,
+               resolved=None) -> Hits:
     """The seeds (n_seeds int64[B], s_rpos/s_len/s_x0/s_freq int64[B, S])
     expanded by freq into H hit slots and resolved through fm's SA; scan
     is chain_scan_seeds(s_freq, n_seeds, H). Hits past the total are
@@ -388,16 +393,21 @@ def chain_hits(fm: DeviceFMIndex, scan: SeedScan, n_seeds, s_rpos, s_len,
     unresolved after max_walk inverse-Psi steps is flagged. On either
     device the flags are set in scan.unresolved, which the scan zeroed,
     and the Hits returned share it: one hits call a scan, or several with
-    the same fm."""
+    the same fm. resolved (bool[H] on the seeds' device, or None): gets
+    each slot's own flag, valid and resolved (with a full SA: valid), the
+    reference's per-hit sa_resolve flag."""
     name = "chain_hits"
     _check_seeds(name, scan, n_seeds, s_rpos, s_len, s_x0, s_freq, H,
                  max_walk)
     B, S = s_freq.shape
+    if resolved is not None:
+        _dtype(name, resolved, torch.bool, "resolved")
+        need(resolved.shape == (H,), f"{name}: resolved must be [H]")
     tables = [fm.occ_rows, fm.L2, fm.sa_samp, fm.sa_full]
     if not _on_card(name, [*scan, n_seeds, s_rpos, s_len, s_x0, s_freq]
-                    + tables):
+                    + tables + ([resolved] if resolved is not None else [])):
         return _hits_plain(fm, scan, n_seeds, s_rpos, s_len, s_x0, s_freq,
-                           H, max_walk)
+                           H, max_walk, resolved)
     need(fm.occ_rows.dtype == torch.int32 and fm.occ_rows.shape[1:] == (8,)
          and fm.occ_rows.data_ptr() % 16 == 0
          and fm.L2.dtype == torch.int64 and fm.sa_samp.dtype == torch.int64
@@ -410,7 +420,8 @@ def chain_hits(fm: DeviceFMIndex, scan: SeedScan, n_seeds, s_rpos, s_len,
             _ptr(s_rpos), _ptr(s_len), _ptr(s_x0), _ptr(s_freq), B, S,
             _ptr(fm.occ_rows), _ptr(fm.L2), _ptr(fm.sa_samp),
             _ptr(fm.sa_full) if fm.has_full_sa else None, int(fm.primary),
-            max_walk, H, *map(_ptr, hit + flags), _ptr(scan.unresolved))
+            max_walk, H, *map(_ptr, hit + flags), _ptr(scan.unresolved),
+            _ptr(resolved))
     return Hits(*hit, *flags, scan.unresolved)
 
 

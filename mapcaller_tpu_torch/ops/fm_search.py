@@ -522,9 +522,12 @@ class SeedChainKernel(_SeedKernelBase):
                          batch * max(9, slow_hits_x4) // 4, compact_lanes)
         self.ctx = ctx
         self.H2 = batch * slow_hits_x4 // 4          # compacted slow hits
+        self.out_size = 2 * batch + 2 * self.H2 + batch // 2 + batch // 32 + 2
 
     def __call__(self, packed: torch.Tensor, rlens: torch.Tensor,
-                 planes=None, pair_end: bool = False):
+                 planes=None, pair_end: bool = False, out=None):
+        """out: the int32[out_size] vector to write the packed output
+        into (a slice of a transfer group's buffer), else a new one."""
         B, H2 = self.batch, self.H2
         # named ranges for profiler traces (trace_main_path.py); on the
         # card each range is one or two kernel launches (classify: the
@@ -534,8 +537,9 @@ class SeedChainKernel(_SeedKernelBase):
              overflow) = self._scan_packed(packed, rlens)
         with record_function("hits_sa_resolve"):
             off, hits = self._hits(n_seeds, s_rpos, s_len, s_x0, s_freq)
-        packed_out = torch.empty(2 * B + 2 * H2 + B // 2 + B // 32 + 2,
-                                 dtype=torch.int32, device=packed.device)
+        packed_out = (out if out is not None else
+                      torch.empty(self.out_size, dtype=torch.int32,
+                                  device=packed.device))
         with record_function("classify"):
             mmp = chain_classify_pack(self.ctx, packed, rlens, off, hits,
                                       overflow, self.max_len, packed_out, H2,

@@ -8,8 +8,10 @@ drives N replicas of pipeline/device_backend.DeviceBackend:
   * the index tables (occ rows, the occ3 table, the SA, the text words)
     are replicated on every replica's device: batches move no data
     between cards until the final plane merge;
-  * stream batches are submitted round-robin over the replicas; a token
-    is (owner, the replica's own token) and is collected on its owner;
+  * stream batches are submitted round-robin over the replicas, whole
+    transfer groups of them under the stream's default grouped submit
+    (one upload and one download a group on its replica); a token is
+    (owner, the replica's own token) and is collected on its owner;
     each replica runs the single-card kernels unchanged (tier reruns and
     oracle splices included);
   * the C++ host leg processes batches strictly in submission order
@@ -69,8 +71,11 @@ class MultiDeviceBackend:
         for i, d in enumerate(self.devs):
             with self.on(i):
                 self.bes.append(DeviceBackend(idx, cfg, device=d))
-        # batches each replica mapped
+        # batches each replica mapped (each member of a transfer group
+        # counts), and its transfer groups (submits: an ungrouped batch is
+        # a group of one)
         self.batches = [0] * len(self.bes)
+        self.groups = [0] * len(self.bes)
         self._rr = 0
 
     def on(self, i: int):
@@ -123,6 +128,14 @@ class MultiDeviceBackend:
         return sum(be.n_oracle_reads for be in self.bes)
 
     @property
+    def n_uploads(self):
+        return sum(be.n_uploads for be in self.bes)
+
+    @property
+    def n_downloads(self):
+        return sum(be.n_downloads for be in self.bes)
+
+    @property
     def chain_ctx(self):
         return self.bes[0].chain_ctx
 
@@ -138,26 +151,34 @@ class MultiDeviceBackend:
         return self.bes[0].dp_device_min_pairs()
 
     # -- round-robin submission, collection on the owner -----------------
-    def _next(self) -> int:
+    def _next(self, batches: int = 1) -> int:
         i = self._rr
         self._rr = (self._rr + 1) % len(self.bes)
-        self.batches[i] += 1
+        self.batches[i] += batches
         return i
-
-    def submit_chain(self, packed: np.ndarray, rlens: np.ndarray,
-                     bucket: int, tier: int = 2, evidence=None,
-                     pair_end: bool = False):
-        i = self._next()
-        ev = evidence.sub(i) if evidence is not None else None
-        with self.on(i):
-            return (i, self.bes[i].submit_chain(
-                packed, rlens, bucket, tier, evidence=ev,
-                pair_end=pair_end))
 
     def collect_chain(self, token, n: int, read_codes_fn):
         i, inner = token
         with self.on(i):
             return self.bes[i].collect_chain(inner, n, read_codes_fn)
+
+    def submit_chain_group(self, parts, bucket: int, tier: int = 2,
+                           evidence=None, pair_end: bool = False):
+        """A whole transfer group (or one batch) to the next replica, on
+        its stream (one upload and one download of the group there), the
+        folded apply on that replica's planes; the member tokens carry the
+        owner."""
+        i = self._next(len(parts))
+        self.groups[i] += 1
+        ev = evidence.sub(i) if evidence is not None else None
+        with self.on(i):
+            tokens, group = self.bes[i].submit_chain_group(
+                parts, bucket, tier, ev, pair_end)
+        return [(i, t) for t in tokens], group
+
+    @staticmethod
+    def resolve_chain_group(group) -> None:
+        DeviceBackend.resolve_chain_group(group)
 
     def submit_packed(self, packed: np.ndarray, rlens: np.ndarray,
                       bucket: int, tier: int = 9):

@@ -12,9 +12,13 @@ axis and reduces over ICI. Here:
   * read batches are split over the entries, and each entry runs the
     main path's seed + chain kernels on its share (phase A): the occ3
     seed scan without prefix skip (ops/seed_scan_device.seed_scan3 on a
-    DeviceFM3 built with pfx_k 0), the hit expansion and SA resolve with
-    H = hits_per_read * B (ops/chain_kernels chain_scan_seeds,
-    chain_hits; hits past H are dropped, with no tier rerun), then
+    DeviceFM3 built with pfx_k 0), or, when the caller asks for the 1-step
+    route or the index keeps no full SA, the 1-step scan over the occ4
+    rows (seed_scan1, has_n False: the reference's DeviceFMIndex branch);
+    the hit expansion and SA resolve (by the inverse-Psi walk without a
+    full SA) with H = hits_per_read * B (ops/chain_kernels
+    chain_scan_seeds, chain_hits; hits past H are dropped, with no tier
+    rerun), then
     chain_classify_pack with H2 = H, whose folded apply adds the FAST
     reads' evidence to freshly zeroed planes in single-end orientation:
     phase A's evidence partials (mesh.py:126-160 is
@@ -79,7 +83,7 @@ class Mesh:
         self.devices = [torch.device(d) for d in devices]
         self.streams = [torch.cuda.Stream(device=d) if d.type == "cuda"
                         else None for d in self.devices]
-        self._tables: Dict[str, dict] = {}
+        self._tables: Dict[tuple, tuple] = {}
         enable_peer_access(self.devices)
 
     @property
@@ -90,16 +94,25 @@ class Mesh:
         """Entry i's stream (and so its device) for the calls inside."""
         return issue_on(self.devices[i], self.streams[i])
 
-    def tables(self, what: str, build) -> dict:
+    def tables(self, what: str, source, build) -> dict:
         """{device: build(device)} over the distinct devices, built once
-        a mesh for each `what`."""
-        if what not in self._tables:
+        a mesh for each `what` of each host object `source` the tables
+        are made from (kept here while its tables are)."""
+        key = (what, id(source))
+        if key not in self._tables:
             tabs = {}
             for d in dict.fromkeys(self.devices):
                 with issue_on(d):
                     tabs[d] = build(d)
-            self._tables[what] = tabs
-        return self._tables[what]
+            self._tables[key] = (source, tabs)
+        return self._tables[key][1]
+
+    def chain_ctx(self, idx) -> dict:
+        """{device: the chain context of idx's genome text}, built once a
+        mesh for every index of that text (whatever SA it keeps: the
+        context does not read it)."""
+        return self.tables("ctx", idx.ref, lambda d: ChainCtx.from_host(
+            idx, device=d))
 
     def begin(self) -> None:
         """Each entry's stream waits for the work queued so far on its
@@ -153,32 +166,48 @@ def _shapes(max_len: int, B: int, hits_per_read: int):
             max_len // (MIN_SEED_LEN + 1) + 2)
 
 
+def _fm1_tables(idx, mesh: Mesh) -> dict:
+    """The 1-step index of `idx` (its full SA when it keeps one) once per
+    distinct device of the mesh."""
+    return mesh.tables("fm1", idx, lambda d: DeviceFMIndex.from_host(
+        idx, device=d))
+
+
 def build_multichip_pipeline(idx, max_len: int, per_device_batch: int,
-                             mesh: Mesh, hits_per_read: int = 8):
+                             mesh: Mesh, hits_per_read: int = 8,
+                             one_step: bool = False):
     """The production device pipeline over the mesh (phase A).
 
     -> step(packed uint8[n * B, max_len / 4], rlens int32[n * B]) ->
     PhaseA, with B = per_device_batch reads an entry (entry i takes reads
-    [i * B, (i + 1) * B)). The tables: the occ3 index without prefix rows
-    and the chain context of `idx`, once per distinct device."""
+    [i * B, (i + 1) * B)). The tables, once per distinct device: the occ3
+    index without prefix rows, or with one_step (forced when `idx` keeps
+    no full SA) the 1-step index, and the chain context of `idx`. The
+    reference picks the route by the type of the index it is given
+    (mapcaller_tpu/parallel/mesh.py:86-92); here the argument says it."""
     n, L, B = mesh.n, idx.genome_size, per_device_batch
     need(B >= 1 and max_len % 16 == 0, "mesh: B >= 1 and max_len a "
                                        "multiple of 16")
     B32, H, max_seeds = _shapes(max_len, B, hits_per_read)
-    tabs = mesh.tables("fm3", lambda d: (
-        DeviceFM3.from_host(idx, pfx_k=0, device=d),
-        ChainCtx.from_host(idx, device=d)))
+    one_step = one_step or idx.sa_full is None
+    fms = (_fm1_tables(idx, mesh) if one_step else
+           mesh.tables("fm3", idx, lambda d: DeviceFM3.from_host(
+               idx, pfx_k=0, device=d)))
+    ctxs = mesh.chain_ctx(idx)
 
     def shard(i: int, packed, rlens):
         d = mesh.devices[i]
-        fm3, ctx = tabs[d]
+        fm, ctx = fms[d], ctxs[d]
         pk = _padded(packed[i * B:(i + 1) * B], B32, d)
         rl = _padded(rlens[i * B:(i + 1) * B], B32, d)
-        n_seeds, s_rpos, s_len, s_x0, s_freq, overflow = seed_scan3(
-            fm3, pk, rl, max_len, max_seeds)
+        if one_step:
+            seeds = seed_scan1(fm, pk, rl, max_len, max_seeds, has_n=False)
+        else:
+            seeds = seed_scan3(fm, pk, rl, max_len, max_seeds)
+            fm = fm.fm
+        n_seeds, s_rpos, s_len, s_x0, s_freq, overflow = seeds
         scan = chain_scan_seeds(s_freq, n_seeds, H)
-        hits = chain_hits(fm3.fm, scan, n_seeds, s_rpos, s_len, s_x0, s_freq,
-                          H)
+        hits = chain_hits(fm, scan, n_seeds, s_rpos, s_len, s_x0, s_freq, H)
         planes = zero_planes(L, d)
         out = torch.empty(2 * B32 + 2 * H + B32 // 2 + B32 // 32 + 2,
                           dtype=torch.int32, device=d)
@@ -276,8 +305,10 @@ def build_multichip_map_step(idx, max_len: int, per_device_batch: int,
     (has_n False) on each entry's share, the hits with H = hits_per_read
     * B, the forward hits' span diff over G_pad = ceil(L / n) * n, the
     genome-sharded coverage (dp_scatter_scan) and the psum'd hit count.
-    Hit positions come from the full SA (a DeviceFMIndex that keeps one;
-    the reference's per-hit resolve flag is then always set).
+    Hit positions come from the full SA when `idx` keeps one, else from
+    the inverse-Psi walk; a hit counts when it is valid, resolved (the
+    hits kernel's per-slot flag, the reference's sa_resolve flag) and
+    inside the genome.
 
     -> step(packed uint8[n * B, max_len / 4], rlens int32[n * B]) ->
     (cov_shard: slice i int32[G_pad / n] on device i, n_hits int32 0-d on
@@ -285,10 +316,7 @@ def build_multichip_map_step(idx, max_len: int, per_device_batch: int,
     n, G, B = mesh.n, idx.genome_size, per_device_batch
     B32, H, max_seeds = _shapes(max_len, B, hits_per_read)
     Gp = -(-G // n) * n
-    tabs = mesh.tables("fm1", lambda d: DeviceFMIndex.from_host(idx,
-                                                                 device=d))
-    need(all(fm.has_full_sa for fm in tabs.values()),
-         "mesh map step: the index keeps no full SA on the device")
+    tabs = _fm1_tables(idx, mesh)
 
     def shard(i: int, packed, rlens):
         d = mesh.devices[i]
@@ -298,8 +326,10 @@ def build_multichip_map_step(idx, max_len: int, per_device_batch: int,
         n_seeds, s_rpos, s_len, s_x0, s_freq, _ = seed_scan1(
             fm, pk, rl, max_len, max_seeds, has_n=False)
         scan = chain_scan_seeds(s_freq, n_seeds, H)
-        hits = chain_hits(fm, scan, n_seeds, s_rpos, s_len, s_x0, s_freq, H)
-        ok = hits.valid & (hits.loc < G)
+        resolved = torch.empty(H, dtype=torch.bool, device=d)
+        hits = chain_hits(fm, scan, n_seeds, s_rpos, s_len, s_x0, s_freq, H,
+                          resolved=resolved)
+        ok = resolved & (hits.loc < G)
         loc = hits.loc.to(torch.int64)
         start = torch.where(ok, loc, Gp)
         end = torch.where(ok, torch.clamp(loc + hits.len, max=G), Gp)
@@ -341,7 +371,8 @@ def pack_reads(mat: np.ndarray, max_len: int) -> np.ndarray:
 def run_mesh_pe_pipeline(idx, cfg, mat: np.ndarray, rlens: np.ndarray,
                          n_total: int, n_devices: int, max_len: int = 80,
                          mesh: Optional[Mesh] = None,
-                         times: Optional[dict] = None):
+                         times: Optional[dict] = None,
+                         one_step: bool = False):
     """Mesh-orchestrated paired-end mapping + calling with the production
     C++ host path per shard (the admit-bitmask round trip):
 
@@ -363,9 +394,11 @@ def run_mesh_pe_pipeline(idx, cfg, mat: np.ndarray, rlens: np.ndarray,
     pairs on one shard). Note the per-shard dup gates and fragment
     estimates: up to n_devices * max_duplicate same-start reads can be
     admitted on duplicate-heavy data, as in the reference. The mesh is
-    make_mesh(n_devices, device=cfg.device) unless one is given. With
-    `times`, the seconds of phase A, the host step, phase B and the merge
-    go into it. Returns (variants, merged_engine, shard_engines)."""
+    make_mesh(n_devices, device=cfg.device) unless one is given. one_step:
+    phase A's 1-step route (build_multichip_pipeline; taken anyway when
+    `idx` keeps no full SA). With `times`, the seconds of phase A, the
+    host step, phase B and the merge go into it. Returns (variants,
+    merged_engine, shard_engines)."""
     from ..calling.caller import cal_block_read_depth, identify_variants
     from ..dna import decode
     from ..pipeline.engine import MappingEngine
@@ -380,7 +413,8 @@ def run_mesh_pe_pipeline(idx, cfg, mat: np.ndarray, rlens: np.ndarray,
     need(BG % n_devices == 0, "mesh: reads not a multiple of the entries")
     B = BG // n_devices
 
-    stepA = build_multichip_pipeline(idx, max_len, B, mesh)
+    stepA = build_multichip_pipeline(idx, max_len, B, mesh,
+                                     one_step=one_step)
     res = stepA(pack_reads(mat, max_len), rlens)
     cls = res.cls.cpu().numpy()
     pd0_h = res.pd.cpu().numpy()

@@ -14,10 +14,21 @@ devices (parallel/sharded_index.py): the occ3 rows and the SA in shards,
 each device mapping its N-th of a batch with the routed kernels. With
 cfg.big_x64 (or a text of 2^31 - 2 rows or more) and N > 1 it runs the
 x64 big-genome path (parallel/big_index.py): shard-relative occ3 rows,
-an int64 SA in shards and the 64-bit kernels, and no single-card table.
+an int64 SA in shards and the 64-bit kernels, and no single-card table;
+as in the reference, host chaining, the non-native path and an index
+without its full SA take the single-card kernels there instead (a text
+below 2^31 rows), with the evidence still in the genome-sharded planes.
 Reads the fixed-capacity kernels flag as overflowed (seed table, SA walk,
 hit buffer) are re-seeded with the host oracle and spliced in, as in the
 reference package: that splice is part of its capacity contract.
+
+A single-card seed+chain submit is a transfer group (submit_chain_group;
+submit_chain is a group of one): g batches' codes and read lengths go up
+in one copy each, each batch's kernels run on its rows of them, and their
+packed outputs, written into one device buffer, come down in one copy;
+resolve_chain_group hands each batch its slice of that copy before the
+batch is collected. The stream groups 4 batches where the reference does
+(pipeline/stream.py).
 """
 from __future__ import annotations
 
@@ -64,9 +75,23 @@ class ChainToken:
     # the classes of the first collected dispatch, host copy
     cls0: Optional[np.ndarray] = None
     # `dev` on its way to the host (pinned) and the event that marks its
-    # arrival; on the CPU `dev` itself and None
+    # arrival; on the CPU `dev` itself and None. A single-card batch gets
+    # both when its transfer group is resolved, a sharded one at submit
     host: Optional[torch.Tensor] = None
     ready: Optional[object] = None
+    group: Optional["ChainGroup"] = None
+
+
+@dataclasses.dataclass
+class ChainGroup:
+    """A transfer group (DeviceBackend.submit_chain_group): the packed
+    outputs of its batches in one device buffer, a slot of `stride` int32
+    words each, on their way to the host in one copy."""
+    tokens: List[ChainToken]
+    stride: int
+    host: torch.Tensor         # the buffer's host copy (pinned on the card)
+    ready: Optional[object]    # the event of that copy; None on the CPU
+    resolved: bool = False
 
 
 class DeviceBackend:
@@ -113,11 +138,6 @@ class DeviceBackend:
                 "genome text exceeds 2^31 rows; run with -shards N "
                 "(genome-sharded x64 index) on an N-device mesh")
         self.big = self.big_x64 and self.index_shards > 1
-        if self.big and (idx.sa_full is None or not cfg.device_chain):
-            raise NotImplementedError(
-                "big_x64 runs the device chain stage over the full SA only "
-                "(an index without its full SA, or device_chain=False, is "
-                "not ported for it)")
         self.shard_devs = (device_list(self.device, self.index_shards,
                                        shard_devices, "-shards")
                            if self.index_shards > 1 else [])
@@ -139,11 +159,32 @@ class DeviceBackend:
         self.n_tier_reruns = 0
         self.n_full_fallbacks = 0
         self.n_oracle_reads = 0
+        # host-device copies the seed+chain dispatch issued: the codes and
+        # read lengths up (2 a batch, or 2 a transfer group), the packed
+        # output down (1 a batch, or 1 a group); tier reruns copy nothing
+        # up and download their output apart. Counted on the CPU too,
+        # where the same calls copy nothing
+        self.n_uploads = 0
+        self.n_downloads = 0
         if self.big:
-            # no single-card table: the shards hold the index
-            # (_big_setup) and the evidence planes (pipeline/big_profile)
-            self.fm = None
-            self._fm3_ok = True
+            # the shards hold the index (_big_setup) and the evidence
+            # planes (pipeline/big_profile). The x64 chain stage needs the
+            # full SA; without it, and for host chaining and the
+            # non-native path, batches take the single-card kernels over
+            # the 1-step rows (the reference's rule, mapcaller_tpu/
+            # pipeline/device_backend.py:72-75): only then is a
+            # single-card table built
+            self._fm3_ok = idx.sa_full is not None
+            single = not (self._fm3_ok and cfg.device_chain
+                          and cfg.use_native)
+            if single and idx.seq_len >= 2 ** 31:
+                raise NotImplementedError(
+                    "big_x64: host chaining, the non-native path and an "
+                    "index without its full SA run on the single-card "
+                    "1-step index, which is int32 (text < 2^31 rows); the "
+                    "reference cannot build it for this text either")
+            self.fm = (DeviceFMIndex.from_host(idx, device=self.device)
+                       if single else None)
             self.device_evidence_ok = True
             self.pfx_k = 0
             return
@@ -333,11 +374,13 @@ class DeviceBackend:
         return self._kernels[key]
 
     def _download(self, dev: torch.Tensor):
-        """Start the copy of a dispatch's packed output vector to the host.
-        On the card into pinned memory, queued behind the dispatch, with
-        an event: collecting this batch then waits for its own work only,
-        not for the batches submitted after it. -> (host tensor, event or
+        """Start the copy of a dispatch's packed output vector (or a
+        transfer group's buffer) to the host. On the card into pinned
+        memory, queued behind the dispatch on the current stream, with an
+        event: collecting this batch then waits for its own work only, not
+        for the batches submitted after it. -> (host tensor, event or
         None)."""
+        self.n_downloads += 1
         if self.device.type != "cuda":
             return dev, None
         host = torch.empty(dev.shape, dtype=dev.dtype, pin_memory=True)
@@ -349,41 +392,116 @@ class DeviceBackend:
     def submit_chain(self, packed: np.ndarray, rlens: np.ndarray,
                      bucket: int, tier: int = 2, evidence=None,
                      pair_end: bool = False) -> ChainToken:
-        """Run the seed/chain kernel on one parsed batch (packed uint8
+        """Run the seed/chain kernels on one parsed batch (packed uint8
         [B, bucket/4] 2-bit codes, rlens int32[B]; negative rlen =
-        host-fallback read). Returns the token collect_chain takes.
+        host-fallback read): a transfer group of one, resolved. Returns
+        the token collect_chain takes; see submit_chain_group."""
+        (token,), group = self.submit_chain_group(
+            [(packed, rlens)], bucket, tier, evidence, pair_end)
+        if group is not None:
+            self.resolve_chain_group(group)
+        return token
 
-        evidence (a DeviceEvidence) folds the speculative fast-read
-        evidence apply into this dispatch; the caller must later run
-        evidence.reconcile_batch(token, fast_bits, pair_end).
+    def _upload_batch(self, packed: np.ndarray, rlens: np.ndarray):
+        """The 2-bit codes and the read lengths (fallback reads 0) of a
+        batch or a transfer group on the device: two copies."""
+        self.n_uploads += 2
+        return (upload(packed, self.device),
+                upload(np.maximum(rlens, 0).astype(np.int32), self.device))
 
-        Returns without waiting for the card: the scan is one kernel
-        launch, nothing in the dispatch reads a device value back, and
-        the output's copy to the host is queued behind it, so the stream's
-        host leg of the batch before overlaps this batch's device work.
-
-        With cfg.index_shards = N > 1 the chain stage runs on the shards
-        (parallel/sharded_index.py), the batch padded to a multiple of
-        32 N reads; the token and collect_chain's contract are the same.
-        The evidence apply is not folded there: the token holds pd and mmp
-        for the stand-alone apply, as the reference's sharded path. On the
-        x64 big-genome path pd is int64."""
-        if self.index_shards > 1 and self._fm3_ok:
-            return self._submit_sharded(packed, rlens, bucket, tier)
-        packed_dev = upload(packed, self.device)
-        rl_dev = upload(np.maximum(rlens, 0).astype(np.int32),
-                        self.device)
-        kernel = self._chain_kernel_for(bucket, tier, batch=packed.shape[0])
+    def _dispatch(self, packed_dev, rl_dev, rlens: np.ndarray, bucket: int,
+                  tier: int, evidence, pair_end: bool, out) -> ChainToken:
+        """The single-card seed/chain kernels on a batch already on the
+        device, its packed output written into `out` (its slot of a group
+        buffer). Nothing is downloaded."""
+        kernel = self._chain_kernel_for(bucket, tier,
+                                        batch=int(packed_dev.shape[0]))
         planes = evidence.planes if evidence is not None else None
         dev, pd, mmp = kernel(packed_dev, rl_dev, planes=planes,
-                              pair_end=pair_end)
-        host, ready = self._download(dev)
+                              pair_end=pair_end, out=out)
         spec = None
         if evidence is not None:
             EVIDENCE_STATS.folded += 1
             spec = (dev, pd, mmp)
         return ChainToken(kernel, dev, rlens < 0, packed_dev, rl_dev, bucket,
-                          rlens, pd, mmp, spec=spec, host=host, ready=ready)
+                          rlens, pd, mmp, spec=spec)
+
+    def submit_chain_group(self, parts, bucket: int, tier: int = 2,
+                           evidence=None, pair_end: bool = False):
+        """Submit g parsed batches as one transfer group (the stream's
+        only device-chain submit; g = 1 when it does not group): the codes
+        and the read lengths of the g batches go up in one copy each; each
+        batch's kernels run on its rows of them, in submission order on
+        the current stream, and classify+pack writes its packed output
+        into the batch's slot of one group buffer (a slot rounded up to 16
+        bytes); the buffer comes down in one copy into pinned memory,
+        marked by one event. Returns without waiting for the card: nothing
+        in the dispatch reads a device value back, so the stream's host
+        leg of the batches before overlaps this group's device work.
+        Collect, tier reruns and the stand-alone evidence apply are each
+        batch's own.
+
+        parts: a list of (packed uint8[B, bucket/4], rlens int32[B]), the
+        same B each. evidence (a DeviceEvidence) folds the speculative
+        fast-read evidence apply into each dispatch, pair_end its mates'
+        rule; the caller must later run evidence.reconcile_batch(token,
+        fast_bits, pair_end) for each batch (the stream folds only when
+        it does not group, as the reference).
+
+        With cfg.index_shards = N > 1 a group holds one batch (more raise:
+        single-card kernels would silently bypass the sharded index),
+        whose chain stage runs on the shards (parallel/sharded_index.py),
+        the batch padded to a multiple of 32 N reads; the token and
+        collect_chain's contract are the same. The evidence apply is not
+        folded there: the token holds pd and mmp for the stand-alone
+        apply, as the reference's sharded path. On the x64 big-genome path
+        pd is int64.
+
+        -> (tokens, group); resolve_chain_group(group) before collecting
+        any of them (group None: the sharded path's token needs none)."""
+        if self.index_shards > 1:
+            if len(parts) > 1:
+                raise RuntimeError(
+                    "submit_chain_group: a transfer group builds single-card "
+                    "kernels and would silently bypass the sharded-index "
+                    "path under -shards")
+            if self._fm3_ok:
+                return [self._submit_sharded(*parts[0], bucket, tier)], None
+        B = parts[0][0].shape[0]
+        if not all(p.shape[0] == B and r.shape[0] == B for p, r in parts):
+            raise ValueError("submit_chain_group: every batch of a group "
+                             "must hold the same number of reads")
+        packed_dev, rl_dev = self._upload_batch(
+            np.concatenate([p for p, _ in parts]),
+            np.concatenate([r for _, r in parts]))
+        size = self._chain_kernel_for(bucket, tier, batch=B).out_size
+        stride = -(-size // 4) * 4
+        buf = torch.empty(len(parts) * stride, dtype=torch.int32,
+                          device=self.device)
+        tokens = []
+        for i, (_, rlens) in enumerate(parts):
+            rows = slice(i * B, (i + 1) * B)
+            tokens.append(self._dispatch(
+                packed_dev[rows], rl_dev[rows], rlens, bucket, tier,
+                evidence, pair_end, buf[i * stride:i * stride + size]))
+        host, ready = self._download(buf)
+        group = ChainGroup(tokens, stride, host, ready)
+        for t in tokens:
+            t.group = group
+        return tokens, group
+
+    @staticmethod
+    def resolve_chain_group(group: ChainGroup) -> None:
+        """Give each batch of the group its slice of the group's host copy
+        and the copy's event (idempotent). Waits for nothing: collecting
+        a batch waits for the event."""
+        if group.resolved:
+            return
+        for i, t in enumerate(group.tokens):
+            lo = i * group.stride
+            t.host = group.host[lo:lo + t.dev.shape[0]]
+            t.ready = group.ready
+        group.resolved = True
 
     def _submit_sharded(self, packed: np.ndarray, rlens: np.ndarray,
                         bucket: int, tier: int) -> ChainToken:
@@ -394,8 +512,7 @@ class DeviceBackend:
         packed_p[:B0] = packed
         rl_p = np.zeros(BG, dtype=np.int32)
         rl_p[:B0] = np.maximum(rlens, 0)
-        packed_dev = upload(packed_p, self.device)
-        rl_dev = upload(rl_p, self.device)
+        packed_dev, rl_dev = self._upload_batch(packed_p, rl_p)
         kernel = self._sharded_chain_for(bucket, tier, BG)
         dev, pd, mmp = kernel(packed_dev, rl_dev)
         self.sharded_invocations += 1
@@ -407,7 +524,11 @@ class DeviceBackend:
         """-> (cls, pd, mm, rplast, cscore, counts, rpos, gpos, slen).
         Overflow / too-long reads are re-seeded with the host oracle and
         forced to the SLOW class; hit-buffer overflow reruns at the
-        larger tier 18."""
+        larger tier 18. A batch raises until its transfer group is resolved
+        (resolve_chain_group)."""
+        if token.group is not None and not token.group.resolved:
+            raise RuntimeError("collect_chain: the batch's transfer group "
+                               "is not resolved (resolve_chain_group)")
         if token.ready is not None:
             token.ready.synchronize()
         (cls, pd, mm, rplast, cscore, counts, rpos, gpos, slen,
@@ -535,11 +656,6 @@ class DeviceBackend:
 
     # -- per-read API of the non-native path (1-step kernel, byte codes) --
     def _kernel_for(self, bucket: int):
-        if self.big:
-            raise NotImplementedError(
-                "big_x64: the non-native seeding path is a single-card path; "
-                "the x64 big-genome path runs the native stream's device "
-                "chain stage only")
         key = ("seed", bucket)
         if key not in self._kernels:
             self._kernels[key] = build_seed_kernel(self.fm, bucket,

@@ -13,10 +13,18 @@ gate (pipeline/device_profile.py), or speculatively inside the chain
 dispatch under fold_evidence; SLOW reads' evidence stays in the C++ host
 diff arrays and merges into the planes at finalize. With device_chain
 off, the card returns every kept hit and the host chains all reads;
-evidence then stays in the host diff arrays. Batches are submitted one at
-a time (the backend has no transfer-grouped submit); with `-devices N`
-(parallel/devices.py) they go round-robin to N replicas and the host leg
-still takes them in submission order.
+evidence then stays in the host diff arrays.
+
+When the device chains, batches are submitted in transfer groups of
+TRANSFER_GROUP (4, the reference package's default stream_group): one
+upload of the group's codes, one of its read lengths and one download of
+its packed outputs (DeviceBackend.submit_chain_group), the group's bucket
+that of its longest read; each group is resolved before its first batch
+is collected. As in the reference, a group holds one batch under the
+folded evidence apply and under -shards, and host chaining submits one
+batch at a time. With `-devices N` (parallel/devices.py) whole groups go
+round-robin to N replicas, and the host leg still takes batches in
+submission order.
 """
 from __future__ import annotations
 
@@ -29,6 +37,10 @@ from typing import Callable, Optional
 import numpy as np
 
 from ..config import Config
+
+# batches a transfer group where the stream groups (see the docstring): the
+# reference package's default stream_group, which no caller there changes
+TRANSFER_GROUP = 4
 
 
 def _load_bytes(path: str) -> bytes:
@@ -131,15 +143,22 @@ def run_stream_mapping(engine, cfg: Config, t_start: float,
 
         # device kernels require batch % 32 == 0 (fm_search assertions)
         sb = -(-max(cfg.stream_batch_size, 256) // 32) * 32
-        # keep `depth` device batches in flight, within the native
-        # parser slot ring (a reused slot would overwrite host read data
-        # of a batch still in flight — the native side refuses with an
-        # error, and this cap guarantees we never hit it); with N replicas
-        # (-devices N) at least N + 1, so every replica stays busy
-        n_slots = native.parser_slots
+        # transfer grouping: one upload and one download a group. Off
+        # under -shards (a group builds single-card kernels, which would
+        # bypass the sharded index) and under the folded apply
+        group_n = (TRANSFER_GROUP if be.chain_enabled and fold_ev is None
+                   and be.index_shards <= 1 else 1)
         n_dev = getattr(be, "n_devices", 1)
-        depth = min(n_slots - 2, max(2, cfg.stream_pipeline_depth,
-                                     n_dev + 1))
+        # keep `depth` device batches in flight, within the native
+        # parser slot ring: a full group pushed at depth - 1 pending must
+        # still fit it (a reused slot would overwrite host read data of a
+        # batch still in flight — the native side refuses with an error,
+        # and this cap guarantees we never hit it); at least N + 1 groups
+        # with N replicas (-devices N), so every replica stays busy (the
+        # reference's formula, mapcaller_tpu/pipeline/stream.py:135-149)
+        n_slots = native.parser_slots
+        depth = min(n_slots - max(2, group_n),
+                    max(cfg.stream_pipeline_depth, group_n * (n_dev + 1)))
         from collections import deque
         slot = 0
         pending = deque()
@@ -153,27 +172,38 @@ def run_stream_mapping(engine, cfg: Config, t_start: float,
         while not eof or pending:
             while not eof and len(pending) < depth:
                 t0 = pc() if prof is not None else 0.0
-                n, maxlen = native.next_batch(slot, sb)
-                if n <= 0:
-                    eof = True
+                metas = []
+                while not eof and len(metas) < group_n:
+                    n, maxlen = native.next_batch(slot, sb)
+                    if n <= 0:
+                        eof = True
+                        break
+                    metas.append((slot, n, maxlen))
+                    slot = (slot + 1) % n_slots
+                if not metas:
                     break
-                bucket = next((b for b in be.BUCKETS
-                               if b >= min(maxlen, be.max_len)), be.BUCKETS[-1])
-                packed, rlens = native.batch_codes_packed(slot, bucket, sb)
+                longest = min(max(m[2] for m in metas), be.max_len)
+                bucket = next((b for b in be.BUCKETS if b >= longest),
+                              be.BUCKETS[-1])
+                parts = [native.batch_codes_packed(sl, bucket, sb)
+                         for sl, _, _ in metas]
                 if prof is not None:
                     t1 = pc()
                     prof["parse"] += t1 - t0
-                token = (be.submit_chain(packed, rlens, bucket,
-                                         evidence=fold_ev, pair_end=pair_end)
-                         if be.chain_enabled
-                         else be.submit_packed(packed, rlens, bucket))
+                if be.chain_enabled:
+                    tokens, group = be.submit_chain_group(
+                        parts, bucket, evidence=fold_ev, pair_end=pair_end)
+                else:
+                    tokens, group = [be.submit_packed(*parts[0], bucket)], None
                 if prof is not None:
                     prof["submit"] += pc() - t1
-                pending.append((slot, n, token))
-                slot = (slot + 1) % n_slots
+                for (sl, n, _), tok in zip(metas, tokens):
+                    pending.append((sl, n, tok, group))
             if not pending:
                 break
-            pslot, pn, ptoken = pending.popleft()
+            pslot, pn, ptoken, pgroup = pending.popleft()
+            if pgroup is not None:
+                be.resolve_chain_group(pgroup)
             if prof is not None and prof["batches"] == 0:
                 _mark("first-submit(s)")
             if be.chain_enabled:

@@ -321,11 +321,14 @@ def _inv_psi(occ, L2, primary, k):
 
 
 def mirror_hits(tfm, off, start, n_seeds, rpos, slen, x0, freq, H,
-                max_walk=192, group=HITS_GROUP, items=HITS_ITEMS):
+                max_walk=192, group=HITS_GROUP, items=HITS_ITEMS,
+                resolved_out=None):
     """chain_hits_kernel, a block per group of `group` slots: from the
     group's start entry, stage the masked freqs of `group * items` seeds
     at a time, scan them (items a thread, then block_excl_scan), and let
-    each slot find its seed by binary search; then a thread per slot."""
+    each slot find its seed by binary search; then a thread per slot.
+    resolved_out (bool[H] or None) gets each slot's resolved flag, as the
+    kernel writes it when given the pointer."""
     Bn, S = freq.shape
     BS, chunk = Bn * S, group * items
     occ, L2 = tfm.occ_rows.numpy(), tfm.L2.numpy()
@@ -398,6 +401,8 @@ def mirror_hits(tfm, off, start, n_seeds, rpos, slen, x0, freq, H,
                              ("loc", loc), ("valid", valid),
                              ("keep", valid and loc - rp > 0)):
                 out[key][h] = val
+            if resolved_out is not None:
+                resolved_out[h] = resolved
             if valid and not resolved:
                 unres[b] = True
     return out, unres, chunks
@@ -858,8 +863,8 @@ def _jax_hits(jfm, seeds, H, max_walk):
     keep = hit_valid & ((loc - hit_rpos) > 0)
     return {k: np.asarray(v) for k, v in (
         ("read", hit_read), ("rpos", hit_rpos), ("len", hit_len),
-        ("loc", loc), ("valid", hit_valid), ("keep", keep))}, \
-        np.asarray(unres)
+        ("loc", loc), ("valid", hit_valid), ("keep", keep),
+        ("resolved", ok))}, np.asarray(unres)
 
 
 @pytest.mark.parametrize("full_sa,max_walk,H", [
@@ -868,23 +873,28 @@ def _jax_hits(jfm, seeds, H, max_walk):
 def test_hits_mirror_equal_plain_and_reference(genome, full_sa, max_walk, H):
     """Full SA and the inverse-Psi walk (at 6 steps, reads left
     unresolved); H above the raw total (padding) and below it
-    (truncation)."""
+    (truncation). Each slot's resolved flag (the optional output the
+    mesh's map step reads) equals the reference's sa_resolve flag."""
     seeds = _seeds(genome)
     tfm = genome["tfm"] if full_sa else genome["tfm0"]
     jfm = genome["jfm"] if full_sa else genome["jfm0"]
     scan = ck.chain_scan_seeds(seeds[4], seeds[0], H)
     total = int(scan.off[-1])
     assert (total > H) == (H < B)
+    res_m = np.zeros(H, dtype=bool)
     got_m, unres_m, _ = mirror_hits(tfm, scan.off.numpy(),
                                     scan.start.numpy(), *(x.numpy() for x in
                                                           seeds[:5]),
-                                    H, max_walk)
-    got_p = ck.chain_hits(tfm, scan, *seeds[:5], H, max_walk)
+                                    H, max_walk, resolved_out=res_m)
+    res_p = torch.ones(H, dtype=torch.bool)
+    got_p = ck.chain_hits(tfm, scan, *seeds[:5], H, max_walk,
+                          resolved=res_p)
     want, unres_w = _jax_hits(jfm, seeds, H, max_walk)
+    got_m["resolved"] = res_m
     for k in want:
         np.testing.assert_array_equal(got_m[k], want[k], err_msg=k)
-        np.testing.assert_array_equal(getattr(got_p, k).numpy(), want[k],
-                                      err_msg=k)
+        got = res_p if k == "resolved" else getattr(got_p, k)
+        np.testing.assert_array_equal(got.numpy(), want[k], err_msg=k)
     np.testing.assert_array_equal(unres_m, unres_w)
     np.testing.assert_array_equal(got_p.unresolved.numpy(), unres_w)
     # the flags land in the scan's own tensor, as on the card

@@ -9,10 +9,12 @@ path, the 1-step index) the reference's bytes under the same flags;
 import neither JAX nor the reference package; and refuse the options it
 does not port yet (-devices and -shards: test_torch_devices.py,
 test_torch_shards.py)."""
+import dataclasses
 import json
 import os
 import subprocess
 import sys
+import types
 
 import numpy as np
 import pytest
@@ -283,20 +285,70 @@ def test_paths_equal_reference(data, monkeypatch, path):
     assert _read(cfg) == want
 
 
+def _without_full_sa(load):
+    """An index loader that drops the full SA of what `load` returns."""
+    return lambda prefix: dataclasses.replace(load(prefix), sa_full=None)
+
+
 @pytest.mark.parametrize("option", [
     dict(big_x64=True, index_shards=2, device_chain=False),
     dict(big_x64=True, index_shards=2, use_native=False),
-    dict(big_x64=True, index_shards=2, devices=2)])
-def test_unported_options_raise(data, option):
-    """The x64 big-genome path (big_x64 under -shards N) runs the native
-    stream's device chain stage only: host chaining and the non-native
-    seeding path, single-card paths, raise on it rather than build a
-    single-card table; -devices beside -shards raises as without
-    big_x64 (the scale axes are separate)."""
+    dict(big_x64=True, index_shards=2, devices=2),
+    dict(big_x64=True, index_shards=2, device_chain=False,
+         text_rows=1 << 31),
+    dict(big_x64=True, index_shards=2, full_sa=False)],
+    ids=["option0", "option1", "option2", "above_2_31", "no_full_sa"])
+def test_unported_options_raise(data, monkeypatch, option):
+    """The x64 big-genome path (big_x64 under -shards N) with host
+    chaining, the non-native seeding path or an index without its full
+    SA takes the single-card kernels over the 1-step index, as the
+    reference does, the evidence (with device chaining) in the
+    genome-sharded planes: SAM and VCF bytes equal the reference's under
+    the same flags. A text of 2^31 rows raises there before any table is
+    built (the reference cannot build its 1-step index either); -devices
+    beside -shards raises as without big_x64 (the scale axes are
+    separate)."""
     d, inputs, _ = data
-    kw = dict(PINNED, **option)
-    cfg = Config(device="cpu", **inputs, **kw, **_files(d, "unported"))
-    exc, match = ((ValueError, "separate scale axes") if "devices" in option
-                  else (NotImplementedError, "big_x64"))
-    with pytest.raises(exc, match=match):
-        runner.run_pipeline(cfg, "mapcaller")
+    option = dict(option)
+    if "text_rows" in option:
+        stub = types.SimpleNamespace(seq_len=option.pop("text_rows"),
+                                     sa_full=None)
+        with pytest.raises(NotImplementedError,
+                           match="int32 \\(text < 2\\^31 rows\\)"):
+            DeviceBackend(stub, Config(device="cpu", **option))
+        return
+    if "devices" in option:
+        cfg = Config(device="cpu", **inputs, **PINNED, **option,
+                     **_files(d, "unported"))
+        with pytest.raises(ValueError, match="separate scale axes"):
+            runner.run_pipeline(cfg, "mapcaller")
+        return
+    tag = "_".join(f"{k}{v}" for k, v in option.items())
+    jflags = {}
+    if not option.pop("full_sa", True):
+        monkeypatch.setattr(jax_runner, "load_index",
+                            _without_full_sa(jax_runner.load_index))
+        monkeypatch.setattr(runner, "load_index",
+                            _without_full_sa(runner.load_index))
+        # the reference's genome-sharded planes stage its x64 tables,
+        # which need the full SA (mapcaller_tpu/pipeline/big_profile.py:
+        # 69): it runs this index with host evidence, whose bytes its
+        # device evidence writes elsewhere
+        jflags = dict(device_evidence=False)
+    device_profile.STATS.reset()
+    jcfg = JaxConfig(device_extension=True, **inputs, **PINNED, **option,
+                     **jflags, **_files(d, f"jax_{tag}"))
+    assert jax_runner.run_pipeline(jcfg, "mapcaller") == 0
+    cfg = Config(device="cpu", **inputs, **PINNED, **option,
+                 **_files(d, f"torch_{tag}"))
+    made = []
+    make_engine = runner.make_engine
+    monkeypatch.setattr(runner, "make_engine", lambda idx, c: made.append(
+        make_engine(idx, c)) or made[-1])
+    assert runner.run_pipeline(cfg, "mapcaller") == 0
+    be = made[0].backend
+    assert be.big and be.fm is not None and be.sharded_invocations == 0
+    # with device chaining the evidence is in the genome-sharded planes
+    assert (device_profile.STATS.applies > 0) == (
+        option.get("device_chain", True) and option.get("use_native", True))
+    assert _read(cfg) == _read(jcfg)

@@ -6,12 +6,18 @@ kernels' arithmetic against JAX's collectives.
 
   * build_multichip_map_step at n = 2 and 8 (the template
     tests/test_mesh.py:24): the genome-sharded coverage and the hit count;
+    and at n = 2 on an index without a full SA (the inverse-Psi walk, a
+    hit counted when the hits kernel's per-slot flag says it resolved);
   * build_multichip_pipeline at n = 1, 2 and 8 on the 6 kb single-end
     dry-run fixture of __graft_entry__.dryrun_multichip (with its repeat),
     and at hits_per_read 1, where the hit buffer truncates: each read's
     class, pd, mm, rplast, cscore and mismatches, each read's SLOW hits,
     the summed exact, F and acgt planes and every coverage slice; the
-    shares (40 to 312 reads) are padded to 32 inside;
+    shares (40 to 312 reads) are padded to 32 inside; and its 1-step
+    route at n = 2 on the single-end and the paired-end fixtures, asked
+    for (full SA) and taken for an index without a full SA (the walk),
+    against the reference's pipeline given a DeviceFMIndex; one chain
+    context a mesh for both indexes;
   * build_multichip_evidence with random admit bitmasks, pair_end both
     ways;
   * run_mesh_pe_pipeline on the paired-end fixture of
@@ -29,6 +35,7 @@ kernels' arithmetic against JAX's collectives.
 
 Each JAX reference runs once per fixture (module-scoped caches). All
 values are integers: the tolerance is exact equality."""
+import dataclasses
 import functools
 
 import numpy as np
@@ -144,11 +151,11 @@ def jax_slow_hits(out, n, B, d):
 
 # ---- build_multichip_map_step ----------------------------------------------
 
-@pytest.mark.parametrize("n", [2, 8])
-def test_map_step_matches_jax(n):
-    """The template's 30 kb genome and 48-base reads (16 an entry): the
-    genome-sharded coverage (every slice) and the psum'd hit count equal
-    the reference's; the coverage stitches across every seam."""
+def _map_step(n, walk):
+    """Both map steps on the template's 30 kb genome and 48-base reads
+    (16 an entry), with the walk: the index without its full SA (the
+    reference's DeviceFMIndex under a zero SA budget) -> (port coverage
+    slices, port hits, reference coverage, reference hits)."""
     rng = np.random.default_rng(100 + n)
     codes = rng.integers(0, 4, size=30000).astype(np.uint8)
     jidx, idx = _indexes(codes)
@@ -160,15 +167,37 @@ def test_map_step_matches_jax(n):
         reads[b, :48] = codes[p:p + 48]
     packed = tm.pack_reads(reads, W)
     mesh = jm.make_mesh(n)
-    jstep = jm.build_multichip_map_step(JaxFM.from_host(jidx), W, PER, n,
-                                        mesh)
+    jfm = (JaxFM.from_host(jidx, sa_budget_bytes=0) if walk
+           else JaxFM.from_host(jidx))
+    assert jfm.has_full_sa != walk
+    jstep = jm.build_multichip_map_step(jfm, W, PER, n, mesh)
     jcov, jhits = jax.device_get(jstep(_sharded(mesh, packed, P("dp", None)),
                                        _sharded(mesh, rlens, P("dp"))))
+    if walk:
+        idx = dataclasses.replace(idx, sa_full=None)
     cov, hits = tm.build_multichip_map_step(
         idx, W, PER, tm.make_mesh(n, device="cpu"))(packed, rlens)
     assert len(cov) == n and all(c.shape == cov[0].shape for c in cov)
+    return cov, hits, jcov, jhits
+
+
+@pytest.mark.parametrize("n", [2, 8])
+def test_map_step_matches_jax(n):
+    """The genome-sharded coverage (every slice) and the psum'd hit count
+    equal the reference's; the coverage stitches across every seam."""
+    cov, hits, jcov, jhits = _map_step(n, walk=False)
     np.testing.assert_array_equal(torch.cat(cov).numpy(), np.asarray(jcov))
-    assert int(hits) == int(jhits) >= PER * n
+    assert int(hits) == int(jhits) >= 16 * n
+
+
+def test_map_step_walk_matches_jax():
+    """Without a full SA the hits resolve by the inverse-Psi walk: the
+    coverage and the resolved-hit total equal the reference's map step on
+    its index without a full SA, and the walk counts no hit the full SA
+    does not."""
+    cov, hits, jcov, jhits = _map_step(2, walk=True)
+    np.testing.assert_array_equal(torch.cat(cov).numpy(), np.asarray(jcov))
+    assert 16 * 2 <= int(hits) == int(jhits) <= int(_map_step(2, False)[1])
 
 
 # ---- build_multichip_pipeline ----------------------------------------------
@@ -187,6 +216,17 @@ def test_pipeline_matches_jax(n, hits_per_read):
     L = se_fixture()[1].genome_size
     want = jax_phase_a(n, hits_per_read)
     got = port_phase_a(n, hits_per_read)
+    check_phase_a(want, got, n, B, L)
+    assert (want[0] == 2).any() and (want[0] == 1).any()
+    if hits_per_read == 1:
+        full = port_phase_a(n, 8)
+        assert (got.cls != full.cls).any()
+        assert (got.slow_counts != full.slow_counts).any()
+
+
+def check_phase_a(want, got, n, B, L):
+    """The port's PhaseA against the reference's outputs, in every
+    element."""
     for name, w, g in zip(("cls", "pd", "mm", "rplast", "cscore", "mmp"),
                           want[:6], got[:6]):
         np.testing.assert_array_equal(g.numpy(), w, err_msg=name)
@@ -200,11 +240,81 @@ def test_pipeline_matches_jax(n, hits_per_read):
     cov = torch.cat(got.cov_shard).numpy()
     np.testing.assert_array_equal(cov, want[14])
     np.testing.assert_array_equal(cov[:L], np.cumsum(want[11][:L]))
+
+
+@functools.lru_cache(maxsize=None)
+def pe_indexes():
+    return _indexes(pe_fixture()[0])
+
+
+def fixture_layout(fixture, n):
+    """(jax index, port index, B, packed, rlens) of the single-end or
+    paired-end dry-run fixture at n entries, in the reference's
+    layouts."""
+    if fixture == "se":
+        jidx, idx = se_fixture()[:2]
+        B, packed, rlens = se_layout(n)
+        return jidx, idx, B, packed, rlens
+    mat, rlens, _ = pe_layout(n)
+    return (*pe_indexes(), mat.shape[0] // n, tm.pack_reads(mat, MAXLEN),
+            rlens)
+
+
+@pytest.mark.parametrize("route", ["one_step", "walk"])
+@pytest.mark.parametrize("fixture", ["se", "pe"])
+def test_pipeline_one_step_matches_jax(monkeypatch, fixture, route):
+    """Phase A's 1-step route at n = 2 against the reference's pipeline
+    given a DeviceFMIndex (its _seed_scan and sa_resolve branch): asked
+    for with the full SA (one_step=True), and taken without asking for an
+    index that keeps no full SA, whose hits walk inverse-Psi (the
+    reference's index under a zero SA budget). The occ3 scan never
+    runs."""
+    n = 2
+    jidx, idx, B, packed, rlens = fixture_layout(fixture, n)
+    walk = route == "walk"
+    mesh = jm.make_mesh(n)
+    jfm = (JaxFM.from_host(jidx, sa_budget_bytes=0) if walk
+           else JaxFM.from_host(jidx))
+    step = jm.build_multichip_pipeline(jfm, JaxCtx.from_host(jidx), MAXLEN,
+                                       B, n, mesh)
+    want = [np.asarray(x) for x in jax.device_get(step(
+        _sharded(mesh, packed, P("dp", None)), _sharded(mesh, rlens,
+                                                        P("dp"))))]
+    calls = []
+    scan1 = tm.seed_scan1
+
+    def spy(*a, **k):
+        calls.append(a[0].has_full_sa)
+        return scan1(*a, **k)
+
+    monkeypatch.setattr(tm, "seed_scan1", spy)
+    monkeypatch.setattr(tm, "seed_scan3", None)
+    if walk:
+        idx = dataclasses.replace(idx, sa_full=None)
+    got = tm.build_multichip_pipeline(idx, MAXLEN, B,
+                                      tm.make_mesh(n, device="cpu"),
+                                      one_step=not walk)(packed, rlens)
+    assert calls == [not walk] * n
+    check_phase_a(want, got, n, B, idx.genome_size)
     assert (want[0] == 2).any() and (want[0] == 1).any()
-    if hits_per_read == 1:
-        full = port_phase_a(n, 8)
-        assert (got.cls != full.cls).any()
-        assert (got.slow_counts != full.slow_counts).any()
+
+
+def test_chain_ctx_shared_by_indexes_of_one_text():
+    """A mesh builds one chain context a device for every index of one
+    genome text: the index with its full SA and the same index without it
+    share it (the context reads no SA), while their 1-step tables are
+    their own."""
+    idx = se_fixture()[1]
+    walk = dataclasses.replace(idx, sa_full=None)
+    mesh = tm.make_mesh(2, device="cpu")
+    B = se_layout(2)[0]
+    for index in (idx, walk):
+        tm.build_multichip_pipeline(index, MAXLEN, B, mesh, one_step=True)
+    ctx = mesh.chain_ctx(idx)
+    assert mesh.chain_ctx(walk) is ctx and list(ctx) == [mesh.devices[0]]
+    fm1, fm1_walk = (tm._fm1_tables(x, mesh)[mesh.devices[0]]
+                     for x in (idx, walk))
+    assert fm1.has_full_sa and not fm1_walk.has_full_sa
 
 
 # ---- build_multichip_evidence ----------------------------------------------
