@@ -212,6 +212,7 @@ the card's name and power limit, and as the last line
 
 Needs one CUDA card, nvcc and g++. Refuses to run without a card.
 """
+import collections
 import contextlib
 import gc
 import io
@@ -2325,6 +2326,69 @@ def last_metrics(log):
         return json.loads([ln for ln in f if ln.startswith("{")][-1])
 
 
+class K2MainTap:
+    """A tap on K2's wrapper as the main path calls it: the attribute
+    mesh_kernels.apply_bits, which pipeline/device_profile calls (the
+    mesh binds its own name, so its calls do not pass here). Each call is
+    counted by source and sign; while `hold` is set, each call on the card
+    is also held against its plain version on copies of the planes taken
+    just before it, on the same stream (the largest difference is kept on
+    the card and read once a run). The plain version's calls on the card
+    outside a hold are counted as `eager`: the eager scatter the main path
+    no longer runs."""
+
+    def __init__(self):
+        self.hold = False
+        self.reset()
+
+    def reset(self):
+        self.calls, self.held, self.eager, self.err = (
+            collections.Counter(), 0, 0, None)
+
+    def install(self):
+        import torch
+        from mapcaller_tpu_torch.ops import mesh_kernels as mk
+        self.mk, self.real, self.plain = mk, mk.apply_bits, mk.apply_bits_plain
+
+        def apply(planes, pd, mmp, rlens, sel, pair_end, sign=1,
+                  source="bits"):
+            self.calls[f"{source}{sign:+d}"] += 1
+            if not (self.hold and pd.is_cuda):
+                return self.real(planes, pd, mmp, rlens, sel, pair_end,
+                                 sign, source)
+            want = mk.Planes(*(getattr(planes, f).clone()
+                               for f in mk.Planes._fields))
+            out = self.real(planes, pd, mmp, rlens, sel, pair_end, sign,
+                            source)
+            self.plain(want, pd, mmp, rlens, sel, pair_end, sign, source)
+            for f, w in zip(mk.Planes._fields, want):
+                e = (getattr(out, f).long() - w.long()).abs().max()
+                self.err = e if self.err is None else torch.maximum(
+                    self.err, e)
+            self.held += 1
+            return out
+
+        def plain(planes, pd, *a, **kw):
+            self.eager += int(pd.is_cuda)
+            return self.plain(planes, pd, *a, **kw)
+
+        mk.apply_bits, mk.apply_bits_plain = apply, plain
+        return self
+
+    def uninstall(self):
+        self.mk.apply_bits, self.mk.apply_bits_plain = self.real, self.plain
+
+    def result(self, launches):
+        """This run's K2 launches and calls, the eager scatter's calls on
+        the card, and the held calls with their largest difference."""
+        return dict(launches=launches.get("evidence_apply_bits", 0),
+                    k1_launches=launches.get("dp_scatter_scan", 0),
+                    calls=dict(self.calls), eager_scatter_calls=self.eager,
+                    held=self.held,
+                    max_abs_err=(int(self.err) if self.err is not None
+                                 else 0))
+
+
 def run_main_path(work, card):
     """One warm-up run through the CLI (device DP), with a tap around
     nw_device.nw_ops that keeps the tensors of its largest NW launch and
@@ -2342,6 +2406,7 @@ def run_main_path(work, card):
     from mapcaller_tpu_torch import cli, native, runner
     from mapcaller_tpu_torch.ops import chain_kernels as ck
     from mapcaller_tpu_torch.ops import fm_search, ksw2_device, nw_device
+    from mapcaller_tpu_torch.ops import mesh_kernels as mk
     from mapcaller_tpu_torch.ops import seed_scan_device as ssd
     from mapcaller_tpu_torch.pipeline import device_profile, stream
     from mapcaller_tpu_torch.pipeline.device_backend import DeviceBackend
@@ -2376,6 +2441,8 @@ def run_main_path(work, card):
         ksw2_device.STATS.reset()
         ssd.STATS.reset()
         ck.STATS.reset()
+        mk.STATS.reset()
+        k2_main.reset()
         device_profile.STATS.reset()
         native.prof_fetch()           # zero the host leg's stage counters
         cfg = None
@@ -2440,6 +2507,7 @@ def run_main_path(work, card):
                     evidence=vars(device_profile.STATS).copy(),
                     peak=torch.cuda.max_memory_allocated(),
                     transfers=transfers,
+                    k2=k2_main.result(mk.STATS.launches),
                     backend=(backend_facts(be) if backend is not None
                              else None))
 
@@ -2536,7 +2604,7 @@ def run_main_path(work, card):
             captured.setdefault("apply", dict(
                 pd=token.pd.cpu(), mmp=token.mmp.cpu(),
                 rl=token.rl_dev.cpu(), fast_bits=fast_bits.copy(),
-                pair_end=pair_end))
+                packed=token.dev.cpu(), pair_end=pair_end))
             return apply_batch(token, fast_bits, pair_end)
 
         def fetch_tap(positions, prefix_pts, bd_blocks=None):
@@ -2557,6 +2625,7 @@ def run_main_path(work, card):
         return ev
 
     os.environ["MC_STAGE_PROF"] = "1"
+    k2_main = K2MainTap().install()
     nw_device.nw_ops = tap
     nw_device.nw_align_batch = tap_pairs("nw", nw_align)
     device_profile.make_device_evidence = tap_evidence
@@ -2564,9 +2633,11 @@ def run_main_path(work, card):
     fm_search.seed_scan3, fm_search.seed_scan1 = tap_scan3, tap_scan1
     fm_search.SeedChainKernel.__call__ = tap_chain
     scan_mode.update(mode="scan3", chain="chain_warm")
+    k2_main.hold = True
     try:
         warm = run()
     finally:
+        k2_main.hold = False
         nw_device.nw_ops = nw_ops
         nw_device.nw_align_batch = nw_align
         device_profile.make_device_evidence = make_ev
@@ -2609,7 +2680,9 @@ def run_main_path(work, card):
     # it on the card
     auto = check(run(auto_dp=True))
     host_ev = check(run(device_evidence=False))
+    k2_main.hold = True
     fold_ev = check(run(fold_evidence=True))
+    k2_main.hold = False
     # the other single-card paths: 8,192 compacted lanes of the default
     # 32,768-read batch, host chaining, the 1-step index; the scan kernel
     # of each held equal to its plain version on the run's own batches
@@ -2637,8 +2710,10 @@ def run_main_path(work, card):
          one_step_batch0=scan_table["seed_scan1"])
     # -devices 2 and -shards 2 / 4 through the stream, replicas and shards
     # on this one card, each writing the warm-up's bytes
+    k2_main.hold = True
     multi, sharded, shard_launches = run_scale_axes(run, check, card,
                                                     captured["L"])
+    k2_main.hold = False
     routed_table = run_routed(idx, routed_batch, shard_launches, card)
     del shard_launches
     # big_x64 under -shards 2 and 4, and -gvcf, through the stream
@@ -2685,6 +2760,7 @@ def run_main_path(work, card):
                     evidence={k: v for k, v in ev.items()
                               if k != "batch_seconds"},
                     transfers=t["transfers"],
+                    k2=t["k2"],
                     peak_mem_bytes=t["peak"],
                     sam_identical=t.get("sam_identical"),
                     vcf_identical=t.get("vcf_identical"))
@@ -2800,6 +2876,46 @@ def run_main_path(work, card):
           and unchained["transfers"]["uploads"] == 0
           and multi["transfers"]["groups"] == -(
               -multi["stages"]["batches"] // 4))
+    # K2 (evidence_apply_bits_kernel) is each run's every stand-alone
+    # evidence step on the card: one launch a batch on the default path, a
+    # correction or undo where the folded run needs one, none with host
+    # evidence; no eager scatter and no K1 launch; every held call equal
+    # to its plain version
+    held_runs = [warm, fold_ev, multi] + sharded
+    unfolded = [warm] + turns + gturns + [auto, compact, one_step, multi,
+                                          kwarm] + kturns + sharded
+    for t in everything + sharded:
+        k, ev = t["k2"], t["evidence"]
+        bad = (k["launches"] != ev["applies"] + ev["corrections"]
+               + ev["undos"] or k["eager_scatter_calls"] or k["k1_launches"]
+               or k["max_abs_err"]
+               or (any(t is x for x in held_runs)
+                   and k["held"] != k["launches"])
+               or (any(t is x for x in unfolded)
+                   and k["calls"] != {"bits+1": t["stages"]["batches"]})
+               or (any(t is x for x in (host_ev, unchained))
+                   and k["launches"]))
+        ok = ok and not bad
+    emit("main_path_k2", card=card,
+         launches_a_run={k: t["k2"]["launches"] for k, t in (
+             ("warmup", warm), ("fold", fold_ev), ("host_evidence", host_ev),
+             ("devices_2", multi), ("shards_2", sharded[0]),
+             ("shards_4", sharded[1]))},
+         turns=[t["k2"]["launches"] for t in turns + gturns],
+         fold_calls=fold_ev["k2"]["calls"],
+         held={k: t["k2"]["held"] for k, t in (
+             ("warmup", warm), ("fold", fold_ev), ("devices_2", multi),
+             ("shards_2", sharded[0]), ("shards_4", sharded[1]))},
+         max_abs_err=max(t["k2"]["max_abs_err"] for t in held_runs),
+         eager_scatter_calls=sum(t["k2"]["eager_scatter_calls"]
+                                 for t in everything + sharded))
+    k2_main.uninstall()
+    captured["k2_main"] = dict(
+        launches=warm["k2"]["launches"],
+        max_abs_err=max(t["k2"]["max_abs_err"] for t in held_runs),
+        held=sum(t["k2"]["held"] for t in held_runs),
+        eager_scatter_calls=sum(t["k2"]["eager_scatter_calls"]
+                                for t in everything + sharded))
     if not ok:
         raise AssertionError("main_path: a kernel not launched with device "
                              "DP or launched with scalar DP, a scan or chain "
@@ -2808,10 +2924,12 @@ def run_main_path(work, card):
                              "device "
                              "path, evidence did not take the path its "
                              "flags ask for, auto compaction was not 1, "
-                             "submit_chain_group waited for the card, or "
+                             "submit_chain_group waited for the card, "
                              "the seed+chain dispatch's uploads and "
                              "downloads are not 2 and 1 a group (a batch "
-                             "ungrouped)")
+                             "ungrouped), or K2 did not take every "
+                             "stand-alone evidence step, once each, equal "
+                             "to its plain version")
     captured["scan_table"] = {
         "seed_scan3": (scan_table["seed_scan3"], dev[0]["scan3_launches"]),
         "seed_scan1": (scan_table["seed_scan1"], one_step["scan1_launches"])}
@@ -2830,10 +2948,14 @@ def run_evidence(cap, card, reps=50):
     CPU, beside its bound: the bytes it must move over the card's memory
     rate (every input read once, every output written once; for the
     apply, the plane entries its admitted reads update, read and
-    written)."""
+    written). -> K2's numbers on the apply (one launch): device ms, call
+    ms, its plain version's ms on the card, the bound and the empty-launch
+    floor; and on its two retractions (a sparse correction, the dense
+    undo from the classes), each held against its plain version."""
     import numpy as np
     import torch
     from mapcaller_tpu_torch.calling import scan_device
+    from mapcaller_tpu_torch.ops import mesh_kernels as mk
     from mapcaller_tpu_torch.pipeline import device_profile as dp
     L, two_l = cap["L"], cap["two_l"]
     a = cap["apply"]
@@ -2916,10 +3038,50 @@ def run_evidence(cap, card, reps=50):
                      bound_by="bytes", bytes=nbytes[k],
                      share_of_bound=1e3 * nbytes[k] / H100_BYTES_S / ms[k])
              for k in ms}
+    # the apply is one K2 launch (mesh_kernels.apply_bits): one call with
+    # its host issue, and its plain version (the eager scatter the main
+    # path ran before) on the card, on the same inputs
+    x = {k: v.to(cuda) for k, v in apply_in.items()}
+    k2_bytes, k2_ops, _ = k2_work(x["pd"], x["mmp"], x["fb"], "bits")
+    bound, by = bound_of(k2_bytes, k2_ops)
+    ppl = planes(cuda)
+    k2 = dict(ms=ms["apply"], call_ms=cuda_ms(gapply, reps),
+              plain_ms=cuda_ms(lambda: mk.apply_bits_plain(
+                  ppl, x["pd"], x["mmp"], x["rl"], x["fb"], a["pair_end"]),
+                  reps),
+              bound_ms=bound, bound_by=by, reads=B, admitted=int(adm.sum()),
+              floor_ms=cuda_ms(lambda: torch.cuda._sleep(0), reps,
+                               queued=True))
+    # the two retractions the main data never takes (no reject, no tier
+    # rerun): K2 on every 97th admitted read's bit with sign -1 (the
+    # sparse correction) and on the batch's packed output (source "meta",
+    # the dense undo), each against its plain version on the same planes
+    rej = np.zeros(fb.size, dtype=np.uint32)
+    for i in np.nonzero(adm)[0][::97]:
+        rej[i >> 5] |= np.uint32(1) << np.uint32(i & 31)
+    for what, sel, src in (
+            ("correct", torch.from_numpy(rej.view(np.int32)).to(cuda),
+             "bits"), ("undo", a["packed"].to(cuda), "meta")):
+        got, want = planes(cuda), planes(cuda)
+        mk.apply_bits(got, x["pd"], x["mmp"], x["rl"], sel, a["pair_end"],
+                      -1, src)
+        mk.apply_bits_plain(want, x["pd"], x["mmp"], x["rl"], sel,
+                            a["pair_end"], -1, src)
+        k2[what + "_max_abs_err"] = max(
+            int((getattr(got, f).long() - getattr(want, f).long()).abs()
+                .max()) for f in mk.Planes._fields)
+        k2[what + "_ms"] = cuda_ms(lambda: mk.apply_bits(
+            got, x["pd"], x["mmp"], x["rl"], sel, a["pair_end"], -1, src),
+            reps, queued=True)
+        del got, want
+    if k2["correct_max_abs_err"] or k2["undo_max_abs_err"]:
+        raise AssertionError("evidence: K2's retractions differ from their "
+                             "plain versions")
     emit("evidence", card=card, L=L, batch=B, admitted=int(adm.sum()),
          mismatches=n_mm, fetch_positions=P, prefix_points=Q,
          n_cand=int(small[0]), n_runs=int(small[1]),
-         equal_to_cpu=True, steps=steps)
+         equal_to_cpu=True, steps=steps, k2_apply=k2)
+    return k2
 
 
 def run_ksw2_launches(k, launches, card):
@@ -3198,6 +3360,9 @@ def run_multihost(work, card, main_files, hold=32):
 
 
 MESH_KERNELS = ("dp_scatter_scan", "evidence_apply_bits")
+# K1 launches of a mesh run on one card, at every n: phase A's psum of
+# three planes, its coverage scan (one launch), phase B's psum of three
+MESH_K1_LAUNCHES = 7
 MESH_MAX_LEN = 128                # the main data's bucket (100-base reads)
 # ptxas registers of chain_classify_pack_kernel on the parent tree: its
 # folded apply became a device function that K2 shares, and its code must
@@ -3403,11 +3568,12 @@ class MeshTap:
                             (n, length), [o.clone() for o in outs]))
             return outs
 
-        def apply(planes, pd, mmp, rlens, fast_bits, pair_end, sign=1):
-            before = [t.clone() for t in (*planes, pd, mmp, rlens, fast_bits)]
-            out = real["apply_bits"](planes, pd, mmp, rlens, fast_bits,
-                                     pair_end, sign)
-            self.k2.append((before, pair_end, sign,
+        def apply(planes, pd, mmp, rlens, sel, pair_end, sign=1,
+                  source="bits"):
+            before = [t.clone() for t in (*planes, pd, mmp, rlens, sel)]
+            out = real["apply_bits"](planes, pd, mmp, rlens, sel, pair_end,
+                                     sign, source)
+            self.k2.append((before, pair_end, sign, source,
                             [t.clone() for t in out]))
             return out
 
@@ -3450,9 +3616,9 @@ class MeshTap:
             errs["dp_scatter_scan"] = max(errs["dp_scatter_scan"], max_err(
                 f"{what} K1 {kind}", [(f"slice{i}", o, w) for i, (o, w)
                                       in enumerate(zip(outs, want))]))
-        for before, pe, sign, outs in self.k2:
+        for before, pe, sign, source, outs in self.k2:
             planes = mk.Planes(*before[:3])
-            want = mk.apply_bits_plain(planes, *before[3:], pe, sign)
+            want = mk.apply_bits_plain(planes, *before[3:], pe, sign, source)
             errs["evidence_apply_bits"] = max(
                 errs["evidence_apply_bits"], max_err(
                     f"{what} K2", list(zip(mk.Planes._fields, outs, want))))
@@ -3675,10 +3841,13 @@ def mesh_vcf(cfg, merged, variants):
 
 def time_mesh_kernels(tap, card, n, L, reps=20):
     """K1 and K2 on the held inputs of the n-entry main-data run, on this
-    card, each beside its plain version and its byte bound: K1's psum of
-    phase A's three planes, K1's genome-sharded scan (every slice; the
-    launches on one stream) beside torch.cumsum over the same summed
-    vector, and K2 on entry 0's share of phase B."""
+    card, each beside its plain version, its byte bound and PyTorch calls
+    of the same function: K1's psum of phase A's three planes (library:
+    torch.stack(parts).sum(0) a plane), K1's genome-sharded scan of every
+    slice (one launch on one card; library: the stacked partials summed,
+    then torch.cumsum, over the partials' length; torch.cumsum of the
+    already-summed vector beside it), and K2 on entry 0's share of phase
+    B."""
     import torch
     from mapcaller_tpu_torch.ops import mesh_kernels as mk
     dev = torch.device("cuda:0")
@@ -3694,40 +3863,45 @@ def time_mesh_kernels(tap, card, n, L, reps=20):
     def scan():
         return mk.dp_scatter_scan(scan_parts, n, L, [dev] * n, [cur] * n)
 
+    mk.STATS.reset()
+    scan()
+    scan_launches = mk.STATS.launches["dp_scatter_scan"]
     summed = torch.zeros(per * n, dtype=torch.int32, device=dev)
     summed[:L] = mk.dp_reduce_plain(scan_parts)[:L]
-    before, pe, sign, _ = tap.k2[0]
+    before, pe, sign, source, _ = tap.k2[0]
     planes = mk.zero_planes(L, dev)
     pd, mmp, rlens, bits = before[3:]
 
     def apply():
-        return mk.apply_bits(planes, pd, mmp, rlens, bits, pe, sign)
+        return mk.apply_bits(planes, pd, mmp, rlens, bits, pe, sign, source)
 
     out = {}
-    for name, fn, plain, nbytes, ops in (
+    for name, fn, plain, library, nbytes, ops in (
             ("psum", psum, lambda: [mk.dp_reduce_plain(p) for p in psums],
+             lambda: [torch.stack(p).sum(0, dtype=torch.int32)
+                      for p in psums],
              sum((len(p) + 1) * p[0].numel() * 4 for p in psums),
              sum(len(p) * p[0].numel() for p in psums)),
             ("scatter_scan", scan,
              lambda: mk.dp_scatter_scan_plain(scan_parts, n, L),
+             lambda: torch.cumsum(torch.stack(scan_parts).sum(
+                 0, dtype=torch.int32), 0, dtype=torch.int32),
              4 * (n * L + n * per), 2 * n * L),
             ("apply_bits", apply,
              lambda: mk.apply_bits_plain(mk.zero_planes(L, dev), pd, mmp,
-                                         rlens, bits, pe, sign), None, None)):
+                                         rlens, bits, pe, sign, source),
+             None, None, None)):
         if nbytes is None:
-            B = pd.shape[0]
-            adm = ((bits.long()[torch.arange(B, device=dev) >> 5]
-                    >> (torch.arange(B, device=dev) & 31)) & 1) == 1
-            nmm = int(((mmp >= 0) & adm[:, None]).sum())
-            updates = 4 * int(adm.sum()) + 3 * nmm
-            nbytes = 24 * B + 4 * bits.numel() + 4 * updates
-            ops = 40 * int(adm.sum()) + 10 * nmm + 4 * B
-            out["apply_reads"], out["apply_admitted"] = B, int(adm.sum())
+            nbytes, ops, adm = k2_work(pd, mmp, bits, source)
+            out["apply_reads"], out["apply_admitted"] = pd.shape[0], adm
         bound, by = bound_of(nbytes, ops)
         ms = cuda_ms(fn, reps, queued=True)
         out[name] = dict(ms=ms, call_ms=cuda_ms(fn, reps),
                          plain_ms=cuda_ms(plain, 3), bound_ms=bound,
-                         bound_by=by, bytes=nbytes, share_of_bound=bound / ms)
+                         bound_by=by, bytes=nbytes, share_of_bound=bound / ms,
+                         library_ms=(cuda_ms(library, reps, queued=True)
+                                     if library else None))
+    out["scatter_scan"]["launches_a_call"] = scan_launches
     out["scatter_scan"]["torch_cumsum_ms"] = cuda_ms(
         lambda: torch.cumsum(summed, 0, dtype=torch.int32), reps, queued=True)
     out["scatter_scan"]["torch_cumsum_slice_ms"] = cuda_ms(
@@ -3735,7 +3909,27 @@ def time_mesh_kernels(tap, card, n, L, reps=20):
         queued=True)
     out["slice_elements"] = per
     emit("mesh", card=card, data="main", n=n, kernel_times=out)
+    if scan_launches != 1:
+        raise AssertionError(f"K1's scan on one card: {scan_launches} "
+                             f"launches, expected 1")
     return out
+
+
+def k2_work(pd, mmp, sel, source):
+    """(bytes, int32 operations, admitted reads) of one K2 call on these
+    inputs: pd, rlens, mmp and the admit words (a word a read for "meta")
+    read once, and each plane word its updates touch read and written (4
+    a read's span, 3 a mismatch), as run_evidence counts the apply."""
+    import torch
+    from mapcaller_tpu_torch.ops import mesh_kernels as mk
+    B = pd.shape[0]
+    adm = mk._admitted(sel, B, source, pd.device)
+    n_adm = int(adm.sum())
+    nmm = int(((mmp >= 0) & adm[:, None]).sum())
+    updates = 4 * n_adm + 3 * nmm
+    sel_bytes = 4 * (B if source == "meta" else -(-B // 32))
+    return (24 * B + sel_bytes + 8 * updates, 40 * n_adm + 10 * nmm + 4 * B,
+            n_adm)
 
 
 def run_mesh_one_step(card, idx, cfg, mat, rlens, n_total, B, mesh,
@@ -3803,6 +3997,7 @@ def run_mesh_one_step(card, idx, cfg, mat, rlens, n_total, B, mesh,
         if not (held == min(n, hold) and held_same
                 and cpu.get("cpu_walk_records_equal", True)
                 and launches["seed_scan1"] == n
+                and launches["dp_scatter_scan"] == MESH_K1_LAUNCHES
                 and launches["seed_scan3"] == 0
                 and min(v_ for k, v_ in launches.items()
                         if k != "seed_scan3") > 0
@@ -3814,6 +4009,33 @@ def run_mesh_one_step(card, idx, cfg, mat, rlens, n_total, B, mesh,
                                  f"1-step records differ from the occ3 "
                                  f"run's, or the walk's differ from the "
                                  f"same walk on the CPU")
+    return launches
+
+
+def run_map_step(card, idx, mat, rlens, B, mesh, worst):
+    """build_multichip_map_step (the reference's round-1 step) on the main
+    data at n = mesh.n on one card, held: its two K1 calls (the coverage
+    scan, one launch, and the psum of the hit counts) against their plain
+    versions, and the coverage against the cumsum of the summed hit spans
+    the plain scan gives. Updates `worst` with K1's largest difference.
+    -> the step's launches."""
+    from mapcaller_tpu_torch.parallel import mesh as tm
+    n = mesh.n
+    reset_mesh_launches()
+    with MeshTap(0) as tap:
+        cov, total = tm.build_multichip_map_step(idx, MESH_MAX_LEN, B, mesh)(
+            tm.pack_reads(mat, MESH_MAX_LEN), rlens)
+    launches = mesh_launches()
+    _, errs = tap.check(f"mesh map step n={n}", mesh, idx, B)
+    worst["dp_scatter_scan"] = max(worst["dp_scatter_scan"],
+                                   errs["dp_scatter_scan"])
+    emit("mesh", card=card, data="main", route="map_step", n=n,
+         launches=launches, k1_calls=len(tap.k1), hits=int(total),
+         coverage_slices=len(cov), max_abs_err=errs)
+    if not (launches["dp_scatter_scan"] == 2 and len(tap.k1) == 2
+            and errs["dp_scatter_scan"] == 0 and int(total) > 0):
+        raise AssertionError(f"mesh map step n={n}: K1 not one scan and "
+                             f"one psum, or not equal to its plain version")
     return launches
 
 
@@ -3891,14 +4113,21 @@ def run_mesh(card, cap, hold=32):
         if not (same_as_n1 and stitched and held_same
                 and held == min(n, hold)
                 and launches["seed_scan3"] == n
+                and launches["dp_scatter_scan"] == MESH_K1_LAUNCHES
                 and min(launches.values()) > 0):
             raise AssertionError(f"mesh main n={n}: phase A's planes or "
                                  f"coverage differ from n=1's or do not "
                                  f"stitch, the held run's variants differ, "
-                                 f"or a kernel of the path did not run")
+                                 f"K1 did not launch {MESH_K1_LAUNCHES} "
+                                 f"times, or a kernel of the path did not "
+                                 f"run")
         if n == 4:
             times = time_mesh_kernels(tap, card, n, L)
-        del tap
+            del tap
+            path_launches["mesh_map_step_4"] = run_map_step(
+                card, idx, mat, rlens, B, mesh, worst)
+        else:
+            del tap
     times["max_abs_err"] = worst
     return times, path_launches
 
@@ -4000,7 +4229,7 @@ def main():
         path_launches.update(mesh_path)
         for k in ("main_files", "main_vcf"):
             cap.pop(k)
-    run_evidence(cap, card)
+    k2_main_t = run_evidence(cap, card)
     run_dp_rates({alg: cap["pairs_" + alg] for alg in ("nw", "ksw2")}, card)
     run_ksw2_launches(ksw2_device, cap["ksw2_all"], card)
 
@@ -4131,36 +4360,58 @@ def main():
                      f"under big_x64 -shards 2 on one card, as the run "
                      f"launched it; int32_form_ms: the 32-bit routed form "
                      f"on the same reads"})
-    # the mesh's collectives on the held inputs of the main data's run at
-    # n = 4 on [cuda:0] * 4; launches of that run, and of every mesh run
+    # K1 and K2 on the held inputs of the main data's mesh run at n = 4 on
+    # [cuda:0] * 4 (launches of that run, and of every mesh run); K2 also
+    # on the main path's batch 0 (run_evidence) with its launches a
+    # main-path run (the warm-up's)
     mesh_n = path_launches["mesh_main_4"]
     scan_t, psum_t, apply_t = (mesh_times[k] for k in (
         "scatter_scan", "psum", "apply_bits"))
+    k2_main = cap["k2_main"]
+    k2_errs = (k2_main["max_abs_err"], k2_main_t["correct_max_abs_err"],
+               k2_main_t["undo_max_abs_err"])
     for name, r, src_line, extra, shape in (
             ("dp_scatter_scan", scan_t, "mapcaller_tpu/parallel/mesh.py:165",
              {"also_replaces": ["mapcaller_tpu/parallel/mesh.py:171",
                                 "mapcaller_tpu/parallel/mesh.py:451"],
+              "launches_a_scan": scan_t["launches_a_call"],
               "psum": psum_t,
+              "torch_cumsum_ms": scan_t["torch_cumsum_ms"],
               "torch_cumsum_slice_ms": scan_t["torch_cumsum_slice_ms"]},
              f"the genome-sharded coverage of phase A at n = 4 on one card: "
              f"4 partials of {mesh_times['slice_elements'] * 4} elements, 4 "
-             f"slices of {mesh_times['slice_elements']}, two launches a "
-             f"slice on one stream; library_ms: torch.cumsum over the "
-             f"summed vector; psum: phase A's three planes summed (three "
-             f"launches)"),
+             f"slices of {mesh_times['slice_elements']}, one launch; "
+             f"library_ms: torch.cumsum of torch.stack(parts).sum(0) (the "
+             f"same function); torch_cumsum_ms: torch.cumsum of the "
+             f"already-summed vector; psum: phase A's three planes summed "
+             f"(three launches), its library_ms torch.stack(parts).sum(0) a "
+             f"plane"),
             ("evidence_apply_bits", apply_t,
-             "mapcaller_tpu/parallel/mesh.py:211", {},
+             "mapcaller_tpu/parallel/mesh.py:211",
+             {"also_replaces": [
+                 "mapcaller_tpu/pipeline/device_profile.py:67",
+                 "mapcaller_tpu/pipeline/device_profile.py:103"],
+              "floor_ms": k2_main_t["floor_ms"],
+              "main_path": {**k2_main_t, **k2_main}},
              f"entry 0's share of phase B at n = 4: "
              f"{mesh_times['apply_reads']} reads, "
-             f"{mesh_times['apply_admitted']} admitted")):
+             f"{mesh_times['apply_admitted']} admitted; main_path: the "
+             f"apply of the main path's batch 0 "
+             f"({k2_main_t['reads']} reads, {k2_main_t['admitted']} "
+             f"admitted), its launches a main-path run, its held calls "
+             f"(warm-up, folded, -devices 2, -shards 2 and 4), the eager "
+             f"scatter's calls on the card, and a sparse correction and "
+             f"the dense undo on batch 0 (correct_*, undo_*); floor_ms: an "
+             f"empty launch")):
         kernels.append({
             "name": name, "route": "cuda",
             "source": "mapcaller_tpu_torch/csrc/chain.cu",
             "replaces": src_line, "launches": mesh_n[name],
-            "max_abs_err": mesh_times["max_abs_err"][name], "ms": r["ms"],
-            "plain_ms": r["plain_ms"],
+            "max_abs_err": max([mesh_times["max_abs_err"][name], *(
+                k2_errs if name == "evidence_apply_bits" else ())]),
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r.get("torch_cumsum_ms"), "tolerance": 0,
+            "library_ms": r["library_ms"], "tolerance": 0,
             "call_ms": r["call_ms"], "shape": shape, **extra,
             "path_launches": {k: v[name] for k, v in path_launches.items()
                               if k.startswith("mesh")}})

@@ -90,18 +90,28 @@
 //     table of their base addresses (peer memory across cards): the psum
 //     (mesh.py:171-173, sum-only mode: the elementwise sum) and the
 //     genome-sharded coverage (mesh.py:165-178 and :451-459: psum_scatter,
-//     all_gather of the slices' totals, cumsum), as two launches a slice:
-//     a pass whose last tile writes the slice's total, then the scan, by
-//     the same tiles and the same look-back as chain_scan_kernel, adding
-//     the totals of the slices before it. Bytes bound it (n partials read,
-//     the sum or the slice written; a few integer adds a byte); a tile of
-//     2,048 elements a block keeps the loads coalesced and the scan's
-//     intermediates in shared memory.
-//   evidence_apply_bits_kernel (K2)  phase B's evidence (mesh.py:211-251):
-//     a thread a read tests its admit bit and, when set, does the folded
-//     apply's atomicAdds with sign +1 or -1 (apply_fast_evidence, the one
-//     body both kernels call). A few MB of inputs a device: latency bound,
-//     one launch.
+//     all_gather of the slices' totals, cumsum) in one pass: one launch a
+//     distinct device, over the tiles of the padded length that start in
+//     its slices, with the look-back of chain_scan_kernel over one status
+//     array of every tile, so the tiles of a slice carry the totals of the
+//     slices before it through the look-back (no totals pass). Bytes
+//     bound it (n partials read once, the sum or the slices written once;
+//     a few integer adds a byte); a tile of 4,096 elements a block of 512
+//     threads keeps the loads coalesced (16 bytes a load where aligned)
+//     and the scan's intermediates in shared memory (512 threads x 8
+//     elements measured faster than 128 x 16, 256 x 8, 256 x 16 and
+//     1,024 x 4, and than 4-byte loads, on an H100: mesh_variants.py).
+//   evidence_apply_bits_kernel (K2)  the stand-alone evidence apply of the
+//     main path (pipeline/device_profile.py: the per-batch apply, the dense
+//     undo of a speculation, the sparse reject correction;
+//     mapcaller_tpu/pipeline/device_profile.py:67-132) and phase B's
+//     evidence (mesh.py:211-251): a warp an admit word of 32 reads (the
+//     host's bitmask, or the chain kernel's classes: FAST admitted), which
+//     it skips whole when no bit is set; 4 lanes a read, a lane a mismatch
+//     slot, doing the folded apply's atomicAdds with sign +1 or -1
+//     (apply_fast_evidence, the one body both kernels call). A few MB of
+//     inputs a device, and its atomics scattered over planes far larger
+//     than L2: bound by latency and by those atomics, one launch.
 //
 // Bound on an H100 SXM (HBM3, 3.35 TB/s): bytes, for all three. The work a
 // byte asks for is a few integer operations (a binary search of 15 steps,
@@ -161,11 +171,14 @@ constexpr int CP_SLOTS = K_HITS / CP_GROUP;   // window slots a lane
 constexpr int CP_HIT_CAP = 2048;        // hits a block stages at a time
 constexpr int CP_KEY_CAP = 1024;        // chromosome ends staged, at most
 constexpr int CP_MAX_WORDS = 31;        // read words (max_len <= 496)
-constexpr int DP_THREADS = 256;         // threads a K1 tile
+constexpr int DP_THREADS = 512;         // threads a K1 tile
 constexpr int DP_ITEMS = 8;             // elements a K1 thread scans
 constexpr int DP_TILE = DP_THREADS * DP_ITEMS;
-constexpr int DP_SUM = 0, DP_TOTAL = 1, DP_SCAN = 2;   // K1's modes
-constexpr int APPLY_THREADS = 256;      // reads a K2 block, one a thread
+static_assert(DP_TILE % (4 * DP_THREADS) == 0,
+              "K1: whole int4 loads a thread");
+constexpr int DP_SUM = 0, DP_SCAN = 1;  // K1's modes
+constexpr int APPLY_THREADS = 128;      // a K2 block: a warp an admit word
+constexpr int APPLY_LANES = MM_SLOTS;   // K2's lanes a read, a lane a slot
 
 // ---- chain_scan_kernel ---------------------------------------------------
 
@@ -187,19 +200,31 @@ struct SeedOut {                        // the seed-freq scan's extras
 // A status word is the whole message (epoch, flag and sum in one 64-bit
 // word, written and read whole): no other data is published through it, so
 // relaxed loads and stores at gpu scope suffice (they measured ~1 us faster
-// a launch than acquire / release on an H100).
+// a launch than acquire / release on an H100). Sys: at system scope, for
+// status words that launches on other cards poll and write (K1 over
+// several cards, whose status array lives on the first card).
+template <bool Sys = false>
 __device__ __forceinline__ unsigned long long ld_relaxed(
     const unsigned long long* p) {
   unsigned long long v;
-  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];"
-               : "=l"(v) : "l"(p) : "memory");
+  if constexpr (Sys)
+    asm volatile("ld.relaxed.sys.global.u64 %0, [%1];"
+                 : "=l"(v) : "l"(p) : "memory");
+  else
+    asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];"
+                 : "=l"(v) : "l"(p) : "memory");
   return v;
 }
 
+template <bool Sys = false>
 __device__ __forceinline__ void st_relaxed(unsigned long long* p,
                                            unsigned long long v) {
-  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;"
-               :: "l"(p), "l"(v) : "memory");
+  if constexpr (Sys)
+    asm volatile("st.relaxed.sys.global.u64 [%0], %1;"
+                 :: "l"(p), "l"(v) : "memory");
+  else
+    asm volatile("st.relaxed.gpu.global.u64 [%0], %1;"
+                 :: "l"(p), "l"(v) : "memory");
 }
 
 // Exclusive scan of one value a thread over a block of NT threads: returns
@@ -250,23 +275,26 @@ __device__ __forceinline__ int draw_ticket(const ScanState& ss, int* tile_s) {
 
 // Warp 0 of tile `tile`: publish the tile's aggregate, look back to the
 // nearest inclusive prefix, publish the tile's own; returns the sum of the
-// tiles before it (in every lane).
+// tiles before it (in every lane). Sys: the status words at system scope.
+template <bool Sys = false>
 __device__ __forceinline__ uint32_t look_back(const ScanState& ss, int tile,
                                               uint32_t agg) {
   const int lane = threadIdx.x & 31;
   const unsigned long long tag = (unsigned long long)ss.epoch << 34;
   if (tile == 0) {
-    if (lane == 0) st_relaxed(ss.status, tag | FLAG_PREFIX << 32 | agg);
+    if (lane == 0) st_relaxed<Sys>(ss.status, tag | FLAG_PREFIX << 32 | agg);
     return 0u;
   }
-  if (lane == 0) st_relaxed(ss.status + tile, tag | FLAG_AGGREGATE << 32 | agg);
+  if (lane == 0)
+    st_relaxed<Sys>(ss.status + tile, tag | FLAG_AGGREGATE << 32 | agg);
   uint32_t excl = 0;
   for (int top = tile - 1;; top -= LOOKBACK) {
     const int i = top - (LOOKBACK - 1) + lane;   // lane 31: the nearest
     unsigned long long st;
     bool ready;
     do {                                // slots before tile 0 hold prefix 0
-      st = i >= 0 ? ld_relaxed(ss.status + i) : (tag | FLAG_PREFIX << 32);
+      st = i >= 0 ? ld_relaxed<Sys>(ss.status + i)
+                  : (tag | FLAG_PREFIX << 32);
       ready = (st >> 34) == ss.epoch;
     } while (!__all_sync(FULL, ready));
     const uint32_t pm = __ballot_sync(FULL, ((st >> 32) & 3u) == FLAG_PREFIX);
@@ -279,7 +307,7 @@ __device__ __forceinline__ uint32_t look_back(const ScanState& ss, int tile,
     if (pm) break;
   }
   if (lane == 0)
-    st_relaxed(ss.status + tile, tag | FLAG_PREFIX << 32 | (excl + agg));
+    st_relaxed<Sys>(ss.status + tile, tag | FLAG_PREFIX << 32 | (excl + agg));
   return excl;
 }
 
@@ -1124,26 +1152,38 @@ chain_classify_pack_big_kernel(CpInT<long long> in, CtxT<long long> cx,
                      mmp, ss);
 }
 
-// ---- the mesh's collectives (parallel/mesh.py, ops/mesh_kernels.py) -----
+// ---- the mesh's collectives and the stand-alone evidence apply ----------
 
 // dp_scatter_scan_kernel: over n int32 partials, each element the sum of
-// the partials at lo + k (zero at or past len, k < count). DP_SUM: that
-// sum is written (the psum), a block a tile in blockIdx order. DP_TOTAL and
-// DP_SCAN: tiles by ticket, the block's inclusive scan of its tile (a
-// thread's DP_ITEMS consecutive elements, then block_excl_scan over the
-// threads), the look-back of chain_scan_kernel to the tiles before it;
-// the totals pass's last tile writes the slice's total into totals[slice];
-// the scan adds the totals of the slices before it and writes the slice's
-// inclusive cumsum (the reference's psum_scatter, all_gather of totals
-// and cumsum). Sums are uint32 and wrap modulo 2^32, as int32 sums do.
+// the partials at k (zero at or past len). DP_SUM: that sum is written for
+// k < per (the psum), a block a tile in blockIdx order. DP_SCAN: [0, len)
+// padded to Gp = nslices * per elements, cut into nslices slices of per;
+// element k goes to outs[k / per] + k % per as the inclusive cumsum of the
+// sums up to it (the reference's psum_scatter, all_gather of totals and
+// cumsum, in one pass). Tiles of DP_TILE elements over [0, Gp), tile T at
+// status word T of one status array; a launch takes, by ticket and in
+// ascending order, the tiles whose first element lies in one of its slices
+// (mine), so the look-back of a slice's first tiles runs into the slices
+// before it, whichever launch or card scans them, and a tile that runs
+// over a slice's end writes the next slice's first elements through its
+// pointer. A tile's block sums its elements (each partial read once, 16
+// bytes a load where the partial is aligned), scans them (a thread's
+// DP_ITEMS consecutive elements, then block_excl_scan over the threads),
+// looks back to its prefix and writes them. A tile waits only on lower
+// ones, each drawn by a block that already runs (on its card or on
+// another, whose launch must not queue behind this one: the wrapper
+// queues every stream wait before any launch). Sums are uint32 and wrap
+// modulo 2^32, as int32 sums do.
 struct DpArgs {
   const unsigned long long* parts;      // [n] base addresses, int32 each
   int n;
-  long long lo;                         // the range's first element
-  int len, count;                       // elements read, elements out
-  int* out;                             // [count]; nullptr: totals pass
-  int* totals;                          // [slices] (peer memory across cards)
-  int slice;
+  int len;                              // elements read: [0, len)
+  int per;                              // a slice's elements (DP_SUM: all)
+  int nslices;
+  const long long* outs;                // DP_SCAN: [nslices] slices' bases
+  const long long* mine;                // DP_SCAN: this launch's slices
+  int nmine;
+  int* out;                             // DP_SUM: [per]
 };
 
 __device__ __forceinline__ uint32_t dp_value(const DpArgs& a, long long k) {
@@ -1151,28 +1191,72 @@ __device__ __forceinline__ uint32_t dp_value(const DpArgs& a, long long k) {
   if (k < a.len)
     for (int p = 0; p < a.n; ++p)
       v += (uint32_t)__ldg(reinterpret_cast<const int*>(__ldg(a.parts + p)) +
-                           a.lo + k);
+                           k);
   return v;
 }
 
-__global__ void __launch_bounds__(DP_THREADS)
-dp_scatter_scan_kernel(DpArgs a, int mode, ScanState ss) {
-  __shared__ uint32_t buf[padded(DP_TILE)];
-  __shared__ uint32_t warp_sum[DP_THREADS / 32];
-  __shared__ int tile_s;
-  __shared__ uint32_t excl_s;
+// The first tile whose first element lies in slice i (or past it).
+__device__ __forceinline__ int dp_first_tile(const DpArgs& a, int i) {
+  return (int)(((long long)i * a.per + DP_TILE - 1) / DP_TILE);
+}
+
+template <bool Sys>
+__device__ __forceinline__ void dp_scan_tile(const DpArgs& a,
+                                             const ScanState& ss,
+                                             uint32_t* buf,
+                                             uint32_t* warp_sum,
+                                             int* tile_s, uint32_t* excl_s) {
+  constexpr int VEC = DP_TILE / 4 / DP_THREADS;        // int4 a thread
   const int t = threadIdx.x;
-  if (mode == DP_SUM) {
-    const long long k0 = (long long)blockIdx.x * DP_TILE;
-    for (int e = t; e < DP_TILE && k0 + e < a.count; e += DP_THREADS)
-      a.out[k0 + e] = (int)dp_value(a, k0 + e);
-    return;
+  // the ticket's tile: the launch's slices' tiles in ascending order
+  int k = draw_ticket(ss, tile_s), T = 0;
+  for (int s = 0; s < a.nmine; ++s) {
+    const int i = (int)a.mine[s];
+    const int lo = dp_first_tile(a, i), cnt = dp_first_tile(a, i + 1) - lo;
+    if (k < cnt) {
+      T = lo + k;
+      break;
+    }
+    k -= cnt;
   }
-  const int tile = draw_ticket(ss, &tile_s);
-  const long long k0 = (long long)tile * DP_TILE;
-  // striped loads: consecutive threads on consecutive elements
-  for (int e = t; e < DP_TILE; e += DP_THREADS)
-    buf[padded(e)] = k0 + e < a.count ? dp_value(a, k0 + e) : 0u;
+  const int gp = a.nslices * a.per;
+  const int g0 = T * DP_TILE;
+  const int cnt = min(DP_TILE, gp - g0);
+  const int nread = max(0, min(cnt, a.len - g0));
+  // loads: chunk c (elements 4c .. 4c+3) on thread c % DP_THREADS, a
+  // partial's VEC chunks a thread in flight at once
+  uint4 v[VEC];
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) v[i] = make_uint4(0u, 0u, 0u, 0u);
+  for (int p = 0; p < a.n; ++p) {
+    const int* src = reinterpret_cast<const int*>(__ldg(a.parts + p)) + g0;
+    const bool aligned = (reinterpret_cast<uintptr_t>(src) & 15) == 0;
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      const int e = 4 * (t + i * DP_THREADS);
+      uint4 x = make_uint4(0u, 0u, 0u, 0u);
+      if (aligned && e + 3 < nread) {
+        x = __ldg(reinterpret_cast<const uint4*>(src + e));
+      } else {
+        if (e < nread) x.x = (uint32_t)__ldg(src + e);
+        if (e + 1 < nread) x.y = (uint32_t)__ldg(src + e + 1);
+        if (e + 2 < nread) x.z = (uint32_t)__ldg(src + e + 2);
+        if (e + 3 < nread) x.w = (uint32_t)__ldg(src + e + 3);
+      }
+      v[i].x += x.x;
+      v[i].y += x.y;
+      v[i].z += x.z;
+      v[i].w += x.w;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) {
+    const int e = 4 * (t + i * DP_THREADS);
+    buf[padded(e)] = v[i].x;
+    buf[padded(e + 1)] = v[i].y;
+    buf[padded(e + 2)] = v[i].z;
+    buf[padded(e + 3)] = v[i].w;
+  }
   __syncthreads();
   uint32_t run = 0;
 #pragma unroll
@@ -1184,41 +1268,104 @@ dp_scatter_scan_kernel(DpArgs a, int mode, ScanState ss) {
   uint32_t agg;
   const uint32_t before = block_excl_scan<DP_THREADS>(run, warp_sum, &agg);
   if (t < 32) {
-    const uint32_t excl = look_back(ss, tile, agg);
-    if (t == 0) excl_s = excl;
+    const uint32_t excl = look_back<Sys>(ss, T, agg);
+    if (t == 0) *excl_s = excl;
   }
   __syncthreads();
-  if (mode == DP_TOTAL) {
-    if (tile == (int)gridDim.x - 1 && t == 0)
-      a.totals[a.slice] = (int)(excl_s + agg);
-    return;
-  }
-  uint32_t base = excl_s + before;
-  for (int j = 0; j < a.slice; ++j) base += (uint32_t)a.totals[j];
+  const uint32_t base = *excl_s + before;
 #pragma unroll
   for (int i = 0; i < DP_ITEMS; ++i) buf[padded(t * DP_ITEMS + i)] += base;
   __syncthreads();
-  for (int e = t; e < DP_TILE; e += DP_THREADS)
-    if (k0 + e < a.count) a.out[k0 + e] = (int)buf[padded(e)];
+  // striped stores to the slices: the tile's first slice, then past its
+  // end (a tile is at most DP_TILE elements) the next ones
+  const int s0 = g0 / a.per, base0 = s0 * a.per;
+  int* const out0 = reinterpret_cast<int*>(a.outs[s0]);
+#pragma unroll
+  for (int i = 0; i < DP_ITEMS; ++i) {
+    const int e = t + i * DP_THREADS, k = g0 + e;
+    if (e >= cnt) continue;
+    if (k < base0 + a.per) {
+      out0[k - base0] = (int)buf[padded(e)];
+    } else {
+      const int s = k / a.per;
+      reinterpret_cast<int*>(a.outs[s])[k - s * a.per] = (int)buf[padded(e)];
+    }
+  }
 }
 
-// evidence_apply_bits_kernel: a thread a read; read b is admitted when bit
-// b % 32 of word b / 32 is set, and then adds (sign +1) or retracts (-1)
-// its evidence (apply_fast_evidence, every slot) on a text of 2L.
+__global__ void __launch_bounds__(DP_THREADS)
+dp_scatter_scan_kernel(DpArgs a, int mode, int sys, ScanState ss) {
+  __shared__ uint32_t buf[padded(DP_TILE)];
+  __shared__ uint32_t warp_sum[DP_THREADS / 32];
+  __shared__ int tile_s;
+  __shared__ uint32_t excl_s;
+  const int t = threadIdx.x;
+  if (mode == DP_SUM) {
+    const long long k0 = (long long)blockIdx.x * DP_TILE;
+    for (int e = t; e < DP_TILE && k0 + e < a.per; e += DP_THREADS)
+      a.out[k0 + e] = (int)dp_value(a, k0 + e);
+    return;
+  }
+  if (sys)
+    dp_scan_tile<true>(a, ss, buf, warp_sum, &tile_s, &excl_s);
+  else
+    dp_scan_tile<false>(a, ss, buf, warp_sum, &tile_s, &excl_s);
+}
+
+// evidence_apply_bits_kernel: a warp an admit word, reads b0 .. b0 + 31:
+// bit b % 32 of bits[b / 32], or, with meta (the chain kernel's packed
+// output vector), the class in meta[b]'s low bits being FAST (the
+// reference's source="meta": the speculative dispatch's FAST reads, read
+// on the card). Group g of APPLY_LANES lanes takes reads b0 + g, b0 + g +
+// 8, ...; lane q of a group loads each read's mmp row in one 16-byte load
+// and keeps slot q. The word and the warp's 32 reads (768 contiguous
+// bytes) are loaded together, so a warp waits on memory once before its
+// atomics; a word with no bit set then ends the warp, whole. Lane q adds
+// (sign +1) or retracts (-1) slot q's evidence of each admitted read of
+// its group, lane 0 also the read's span (apply_fast_evidence) on a text
+// of 2L. Blocks of APPLY_THREADS: a 32,768-read batch is 256 blocks, on
+// every SM.
 __global__ void __launch_bounds__(APPLY_THREADS)
 evidence_apply_bits_kernel(const int* __restrict__ pd,
-                           const int* __restrict__ mmp,
+                           const int4* __restrict__ mmp,
                            const int* __restrict__ rlens,
-                           const uint32_t* __restrict__ bits, int B,
-                           Planes pl, int sign) {
-  const int b = blockIdx.x * APPLY_THREADS + threadIdx.x;
-  if (b >= B || !((bits[b >> 5] >> (b & 31)) & 1u)) return;
-  const long long two_l = 2LL * pl.L;
-  const int p = pd[b], rlen = rlens[b];
+                           const uint32_t* __restrict__ bits,
+                           const int* __restrict__ meta, int B, Planes pl,
+                           int sign) {
+  constexpr int GROUPS = 32 / APPLY_LANES, ITEMS = 32 / GROUPS;
+  const int lane = threadIdx.x & 31;
+  const int w = (blockIdx.x * APPLY_THREADS + threadIdx.x) >> 5;
+  const int b0 = w * 32;
+  if (b0 >= B) return;                  // the whole warp
+  const int g = lane / APPLY_LANES, q = lane % APPLY_LANES;
+  int p[ITEMS], rl[ITEMS], e[ITEMS];
 #pragma unroll
-  for (int q = 0; q < MM_SLOTS; ++q)
-    apply_fast_evidence(pl, two_l, p, rlen, b, q,
-                        mmp[(size_t)b * MM_SLOTS + q], sign);
+  for (int it = 0; it < ITEMS; ++it) {
+    const int b = b0 + g + GROUPS * it;
+    p[it] = rl[it] = 0;
+    e[it] = -1;
+    if (b < B) {
+      p[it] = __ldg(pd + b);
+      rl[it] = __ldg(rlens + b);
+      e[it] = pick4(__ldg(mmp + b), q);
+    }
+  }
+  uint32_t word;
+  if (meta != nullptr) {
+    const int b = b0 + lane;
+    word = __ballot_sync(FULL, b < B && (__ldg(meta + b) & 3) == CLASS_FAST);
+  } else {
+    word = __ldg(bits + w);
+    if (B - b0 < 32) word &= (1u << (B - b0)) - 1u;
+  }
+  if (word == 0u) return;               // the whole warp
+  const long long two_l = 2LL * pl.L;
+#pragma unroll
+  for (int it = 0; it < ITEMS; ++it) {
+    const int r = g + GROUPS * it;
+    if ((word >> r) & 1u)
+      apply_fast_evidence(pl, two_l, p[it], rl[it], b0 + r, q, e[it], sign);
+  }
 }
 
 }  // namespace
@@ -1466,52 +1613,71 @@ extern "C" int mc_chain_classify_pack_big(
   return (int)cudaGetLastError();
 }
 
-// The mesh's K1 (dp_scatter_scan_kernel) in one mode over n int32
-// partials whose base addresses parts holds (int64[n] on this device, each
-// partial readable from it): DP_SUM writes out[k] = the sum at k for k <
-// count (len == count, lo 0); DP_TOTAL writes the total of the sums at lo
-// .. lo + count - 1 (zero at or past lo + len) into totals[slice]; DP_SCAN
-// writes their inclusive cumsum plus totals[0 .. slice-1] into out[count].
-// scratch, tiles and epoch as mc_chain_scan's (the scan modes only).
-extern "C" int mc_dp_scatter_scan(const void* parts, int n, long long lo,
-                                  int len, int count, void* out,
-                                  void* totals, int slice, int mode,
-                                  void* scratch, int tiles, int epoch,
+// K1 (dp_scatter_scan_kernel) over n int32 partials whose base addresses
+// parts holds (int64[n] on this device, each partial readable from it).
+// DP_SUM: out[k] = the sum at k for k < per (len == per). DP_SCAN: the
+// sums at 0 .. len-1, zero-padded to Gp = nslices * per (< 2^31), cut
+// into nslices slices of per, slice i written from its base address
+// (table: int64[nslices + nmine] on this device, the slices' int32[per]
+// base addresses, then the nmine slices this launch scans, ascending) as
+// the inclusive cumsum from element 0. The launch runs `tiles_mine`
+// tiles of DP_TILE (4,096) elements, those whose first element lies in
+// one of its slices. status (int64[tiles]: tiles >= ceil(Gp / DP_TILE))
+// is the look-back's one status array of every tile, holding no word of this
+// epoch (1 .. 2^30 - 1), shared by the launches of one scan on other
+// cards (sys 1: then polled at system scope); ticket (uint32, zero) is
+// this launch's own. The scan's scratch as mc_chain_scan's.
+extern "C" int mc_dp_scatter_scan(const void* parts, int n, int len,
+                                  int per, int nslices, const void* table,
+                                  int nmine, int tiles_mine, void* out,
+                                  int mode, int sys, void* ticket,
+                                  void* status, int tiles, int epoch,
                                   void* stream) {
-  const int ntiles = (int)(((long long)count + DP_TILE - 1) / DP_TILE);
-  if (parts == nullptr || n < 1 || lo < 0 || count < 1 || len < 0 ||
-      len > count || mode < DP_SUM || mode > DP_SCAN ||
-      (mode != DP_TOTAL && out == nullptr) ||
-      (mode != DP_SUM &&
-       (totals == nullptr || slice < 0 || scratch == nullptr ||
+  const long long gp = (long long)nslices * per;
+  const long long ntiles = ((mode == DP_SUM ? per : gp) + DP_TILE - 1) /
+                           DP_TILE;
+  if (parts == nullptr || n < 1 || per < 1 || len < 1 ||
+      (mode != DP_SUM && mode != DP_SCAN) ||
+      (mode == DP_SUM && (out == nullptr || len != per)) ||
+      (mode == DP_SCAN &&
+       (table == nullptr || nmine < 1 || nmine > nslices ||
+        gp >= (1LL << 31) || len > gp || tiles_mine < 1 ||
+        tiles_mine > ntiles || ticket == nullptr || status == nullptr ||
         tiles < ntiles || epoch < 1 || epoch >= (1 << 30))))
     return (int)cudaErrorInvalidValue;
-  const DpArgs a{(const unsigned long long*)parts, n, lo, len, count,
-                 (int*)out, (int*)totals, slice};
-  const ScanState ss{(unsigned int*)scratch,
-                     (unsigned long long*)scratch + 1, (unsigned int)epoch};
-  dp_scatter_scan_kernel<<<ntiles, DP_THREADS, 0, (cudaStream_t)stream>>>(
-      a, mode, ss);
+  const long long* tab = (const long long*)table;
+  const DpArgs a{(const unsigned long long*)parts, n, len, per, nslices,
+                 tab, tab == nullptr ? nullptr : tab + nslices, nmine,
+                 (int*)out};
+  const ScanState ss{(unsigned int*)ticket, (unsigned long long*)status,
+                     (unsigned int)epoch};
+  const int grid = mode == DP_SUM ? (int)ntiles : tiles_mine;
+  dp_scatter_scan_kernel<<<grid, DP_THREADS, 0, (cudaStream_t)stream>>>(
+      a, mode, sys, ss);
   return (int)cudaGetLastError();
 }
 
-// The mesh's K2 (evidence_apply_bits_kernel): pd, rlens int32[B], mmp
-// int32[B, 4], bits uint32[>= ceil(B/32)]; the int32 planes exact [L+2],
-// fd [4(L+2)], acgt [4(L+1)] of a genome of L (a text of 2L); pair_end
-// picks the orientation plane by read-index parity; sign +1 or -1.
+// K2 (evidence_apply_bits_kernel): pd, rlens int32[B], mmp int32[B, 4]
+// (16-byte aligned rows); bits uint32[>= ceil(B/32)] the admit bitmask, or
+// meta int32[>= B] the chain kernel's packed output (its FAST reads
+// admitted), exactly one of the two; the int32 planes exact [L+2], fd
+// [4(L+2)], acgt [4(L+1)] of a genome of L (a text of 2L); pair_end picks
+// the orientation plane by read-index parity; sign +1 or -1.
 extern "C" int mc_evidence_apply_bits(const void* pd, const void* mmp,
                                       const void* rlens, const void* bits,
-                                      int B, void* exact, void* fd,
-                                      void* acgt, int L, int pair_end,
-                                      int sign, void* stream) {
+                                      const void* meta, int B, void* exact,
+                                      void* fd, void* acgt, int L,
+                                      int pair_end, int sign, void* stream) {
   if (B < 1 || L < 1 || (sign != 1 && sign != -1) || pd == nullptr ||
-      mmp == nullptr || rlens == nullptr || bits == nullptr ||
-      exact == nullptr || fd == nullptr || acgt == nullptr)
+      mmp == nullptr || ((uintptr_t)mmp & 15) != 0 || rlens == nullptr ||
+      (bits == nullptr) == (meta == nullptr) || exact == nullptr ||
+      fd == nullptr || acgt == nullptr)
     return (int)cudaErrorInvalidValue;
   const Planes pl{(int*)exact, (int*)fd, (int*)acgt, L, pair_end};
-  evidence_apply_bits_kernel<<<(B + APPLY_THREADS - 1) / APPLY_THREADS,
+  const int warps = (B + 31) / 32, per_block = APPLY_THREADS / 32;
+  evidence_apply_bits_kernel<<<(warps + per_block - 1) / per_block,
                                APPLY_THREADS, 0, (cudaStream_t)stream>>>(
-      (const int*)pd, (const int*)mmp, (const int*)rlens,
-      (const uint32_t*)bits, B, pl, sign);
+      (const int*)pd, (const int4*)mmp, (const int*)rlens,
+      (const uint32_t*)bits, (const int*)meta, B, pl, sign);
   return (int)cudaGetLastError();
 }

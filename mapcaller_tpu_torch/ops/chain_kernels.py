@@ -105,10 +105,10 @@ def _load_kernel():
                  + [I, I, P]),
                 ("mc_chain_classify_pack_big", [P] * 9 + [I] * 4
                  + [P, I, P, I, C.c_longlong] + [P] * 4 + [I, I, P]),
-                # the mesh's collectives (ops/mesh_kernels.py)
-                ("mc_dp_scatter_scan", [P, I, C.c_longlong, I, I, P, P, I, I,
+                # K1 and K2 (ops/mesh_kernels.py)
+                ("mc_dp_scatter_scan", [P, I, I, I, I, P, I, I, P, I, I, P,
                                         P, I, I, P]),
-                ("mc_evidence_apply_bits", [P] * 4 + [I] + [P] * 3
+                ("mc_evidence_apply_bits", [P] * 5 + [I] + [P] * 3
                  + [I] * 3 + [P])):
             fn = getattr(lib, name)
             fn.restype = C.c_int

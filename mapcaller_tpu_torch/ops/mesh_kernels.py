@@ -1,7 +1,8 @@
-"""The device-side collectives of the multichip mesh (parallel/mesh.py) on
-the card: the CUDA kernels `dp_scatter_scan_kernel` and
+"""K1 and K2 on the card: the CUDA kernels `dp_scatter_scan_kernel` and
 `evidence_apply_bits_kernel` of csrc/chain.cu, and their plain PyTorch
-versions.
+versions. K1 is the multichip mesh's collective (parallel/mesh.py); K2
+is the main path's stand-alone evidence apply (pipeline/device_profile.
+py) and the mesh's phase-B evidence.
 
   dp_reduce        the psum of n int32 partials of one shape: their
                    elementwise sum, on the first partial's device
@@ -12,15 +13,20 @@ versions.
                    to Gp = ceil(length / n) * n, cut into n slices of
                    Gp / n; slice i becomes the inclusive cumsum of its
                    elements plus the totals of slices 0 .. i-1, on
-                   devices[i] (K1 twice a slice: a pass that writes the
-                   slice's total, then the scan, which reads the totals of
-                   the slices before it);
-  apply_bits       the phase-B evidence of the reads an admit bitmask
-                   selects (mesh.py:211-251, the bits unpacked as at
-                   :213-214, then ops/evidence.scatter_fast_evidence),
-                   added to int32 planes in place (K2).
+                   devices[i] (K1 in one pass: one launch a distinct
+                   device, whose look-back over one status array of every
+                   tile carries the earlier slices' totals);
+  apply_bits       the evidence of the FAST reads an admit set selects,
+                   added to or retracted from int32 planes in place (K2):
+                   the host's admit bitmask (source "bits": the main
+                   path's apply and reject correction, the mesh's phase B,
+                   mesh.py:211-251, the bits unpacked as at :213-214), or
+                   the chain kernel's classes (source "meta": the dense
+                   undo of a speculation), then ops/evidence.
+                   scatter_fast_evidence (mapcaller_tpu/pipeline/
+                   device_profile.py:67-132).
 
-K1 on device i reads the n partials through a table of their base
+K1 on device d reads the n partials through a table of their base
 addresses, as ops/routed.Routed.pointers hands the routed kernels their
 shards: partials on other cards are read as peer memory
 (routed.enable_peer_access, which raises where refused); on one card with
@@ -42,15 +48,15 @@ import numpy as np
 import torch
 
 from . import chain_kernels as ck
+from .chain_device import CLASS_FAST
 from .device_util import KernelStats, issue_on, need, upload
 from .evidence import first_mate_lanes, scatter_fast_evidence
 
 # csrc/chain.cu: threads of a K1 tile and the elements each thread scans
-DP_THREADS = 256
+DP_THREADS = 512
 DP_ITEMS = 8
 DP_TILE = DP_THREADS * DP_ITEMS
-DP_SUM, DP_TOTAL, DP_SCAN = 0, 1, 2    # K1's modes
-APPLY_THREADS = 256                    # K2: reads a block, one a thread
+DP_SUM, DP_SCAN = 0, 1                 # K1's modes
 
 STATS = KernelStats()
 
@@ -108,18 +114,17 @@ def _pointers(parts, dev) -> torch.Tensor:
                   dev)
 
 
-def _k1(dev, ptrs, n: int, lo: int, length: int, count: int, out, totals,
-        slice_: int, mode: int) -> None:
-    """One K1 launch on dev's current stream; the scan modes take the
-    look-back scratch of that stream (ops/chain_kernels.py)."""
-    scratch = ((None, 0, 0) if mode == DP_SUM else
-               ck._look_back_scratch(dev, -(-count // DP_TILE)))
-    ck._launch("dp_scatter_scan", dev, ptrs.data_ptr(), n, lo, length,
-               count, ck._ptr(out), ck._ptr(totals), slice_, mode,
-               *scratch, stats=STATS)
-
-
 # ---- K1: dp_reduce and dp_scatter_scan -------------------------------------
+
+def _k1(dev, ptrs, n: int, length: int, per: int, out=None, mode=DP_SUM,
+        nslices: int = 0, table=None, nmine: int = 0, tiles_mine: int = 0,
+        sys: bool = False, scratch=(None, None, 0, 0)) -> None:
+    """One K1 launch on dev's current stream; scratch: (ticket pointer,
+    status pointer, status words, epoch) of the scan mode."""
+    ck._launch("dp_scatter_scan", dev, ptrs.data_ptr(), n, length, per,
+               nslices, ck._ptr(table), nmine, tiles_mine, ck._ptr(out),
+               mode, int(sys), *scratch, stats=STATS)
+
 
 def dp_reduce_plain(parts: Sequence[torch.Tensor]) -> torch.Tensor:
     """Plain version of dp_reduce: the elementwise int32 sum of the
@@ -147,17 +152,26 @@ def dp_reduce(parts: Sequence[torch.Tensor],
     out = torch.empty_like(parts[0])
     for p in parts:
         _keep(p, [cur])
-    _k1(dev, _pointers(parts, dev), len(parts), 0, N, N, out, None, 0,
-        DP_SUM)
+    _k1(dev, _pointers(parts, dev), len(parts), N, N, out)
     return out
 
 
-def _slices(length: int, n: int):
-    """(per, [(lo, elements read)] a slice) of [0, length) padded to
-    Gp = ceil(length / n) * n."""
-    per = -(-length // n)
-    return per, [(i * per, max(0, min(per, length - i * per)))
-                 for i in range(n)]
+def scan_groups(devices: Sequence) -> list:
+    """K1's launches of a scan: [(device, the slices on it, ascending)], a
+    launch a distinct device, in the order of their first slice."""
+    groups = {}
+    for i, d in enumerate(devices):
+        groups.setdefault(torch.device(d), []).append(i)
+    return list(groups.items())
+
+
+def scan_tiles(slices: Sequence[int], per: int, tile: int) -> List[int]:
+    """The tiles of `tile` elements, over the slices of `per` laid end to
+    end, that a launch scanning `slices` takes: those whose first element
+    lies in one of them, ascending."""
+    def first(i):
+        return -(-i * per // tile)
+    return [T for i in slices for T in range(first(i), first(i + 1))]
 
 
 def dp_scatter_scan_plain(parts: Sequence[torch.Tensor], n: int,
@@ -168,7 +182,7 @@ def dp_scatter_scan_plain(parts: Sequence[torch.Tensor], n: int,
     summed, zero-padded partials, cut into n slices (slice i moved to
     devices[i])."""
     length = parts[0].numel() if length is None else length
-    per, _ = _slices(length, n)
+    per = -(-length // n)
     total = dp_reduce_plain([p.reshape(-1)[:length] for p in parts])
     pad = torch.zeros(per * n, dtype=torch.int32, device=total.device)
     pad[:length] = total
@@ -187,12 +201,16 @@ def dp_scatter_scan(parts: Sequence[torch.Tensor], n: int,
     default), zero-padded to Gp = ceil(length / n) * n and cut into n
     slices of Gp / n; slice i is the inclusive int32 cumsum of its
     elements plus the totals of slices 0 .. i-1, on devices[i] (default:
-    all on the first partial's device). On the card slice i is two K1
-    launches on streams[i] (default: devices[i]'s current stream): a pass
-    that writes the slice's total into a table on devices[0], then the
-    scan, which adds the totals of the slices before it. Each pass waits
-    for every stream of `streams` (the partials' and the totals' writers),
-    not only its own."""
+    all on the first partial's device), ready on streams[i] (default:
+    devices[i]'s current stream).
+
+    On the card one K1 launch a distinct device (scan_groups), on the
+    stream of that device's first slice (its writer), which allocates the
+    device's slices; on one card, with repeats or not, one launch. The
+    launches share one look-back status array, on the first device, over
+    the tiles of [0, Gp); a launch takes the tiles that start in its
+    slices (scan_tiles). Each writer first waits for every stream of
+    `streams` (the partials' writers)."""
     name = "dp_scatter_scan"
     N = _check_parts(name, parts)
     length = N if length is None else length
@@ -211,78 +229,138 @@ def dp_scatter_scan(parts: Sequence[torch.Tensor], n: int,
     streams = list(streams) if streams else [
         torch.cuda.current_stream(d) for d in devices]
     need(len(streams) == n, f"{name}: {n} slices but {len(streams)} streams")
-    per, ranges = _slices(length, n)
-    # allocated on slice 0's stream, which every pass below waits for: a
-    # block from the caller's stream may still have that stream's pending
-    # writes (a pointer-table upload) land in it
-    with issue_on(devices[0], streams[0]):
-        totals = torch.empty(n, dtype=torch.int32, device=devices[0])
-    outs = [None] * n
-    for mode in (DP_TOTAL, DP_SCAN):
-        for i, (d, s) in enumerate(zip(devices, streams)):
-            with issue_on(d, s):
-                _wait(s, streams)
-                if mode == DP_TOTAL:
-                    outs[i] = torch.empty(per, dtype=torch.int32, device=d)
-                for t in (*parts, totals):
-                    _keep(t, [s])
-                _k1(d, _pointers(parts, d), len(parts), ranges[i][0],
-                    ranges[i][1], per, outs[i] if mode == DP_SCAN else None,
-                    totals, i, mode)
+    per = -(-length // n)
+    need(per * n < 2 ** 31, f"{name}: the padded length must stay below "
+                            f"2^31")
+    groups = scan_groups(devices)
+    writer = {d: streams[sl[0]] for d, sl in groups}
+    # Deadlock across launches: a tile spins on the status words of the
+    # tiles before its own, which another card's launch may scan. So
+    # every stream wait of the call is queued before any K1 launch: a
+    # launch queued behind another launch of this call would never start.
+    for d, _ in groups:
+        _wait(writer[d], streams)
+    # the outputs, the tables and the scratch, each allocated on the stream
+    # that writes it (a block from another stream may still have that
+    # stream's pending writes land in it)
+    outs, plan = [None] * n, []
+    d0 = devices[0]
+    for d, sl in groups:
+        with issue_on(d, writer[d]):
+            for i in sl:
+                outs[i] = torch.empty(per, dtype=torch.int32, device=d)
+            for t in parts:
+                _keep(t, [writer[d]])
+    for d, sl in groups:
+        with issue_on(d, writer[d]):
+            if d == d0:
+                # the status array of every tile: the first device's
+                # scratch, and its epoch for every launch of the call
+                ticket, words, epoch = ck._look_back_scratch(
+                    d, -(-per * n // DP_TILE))
+                status = (ticket + 8, words, epoch)
+            else:                 # another card's launch: its own ticket
+                ticket = ck._look_back_scratch(d, 1)[0]
+            # every slice's base address (a tile that runs over its
+            # slice's end writes the next one's first elements), then this
+            # launch's slices
+            table = upload(np.array([o.data_ptr() for o in outs] + sl,
+                                    dtype=np.int64), d)
+            plan.append((d, sl, _pointers(parts, d), table, ticket,
+                         len(scan_tiles(sl, per, DP_TILE))))
+    for d, sl, ptrs, table, ticket, tiles in plan:
+        if tiles:
+            with issue_on(d, writer[d]):
+                # several cards poll the first card's status words: system
+                # scope; one card keeps the faster gpu scope
+                _k1(d, ptrs, len(parts), length, per, None, DP_SCAN, n,
+                    table, len(sl), tiles, len(groups) > 1,
+                    (ticket, *status))
+    # after every launch: each writer waits for the other cards' launches
+    # (a tile writes the next slice, which may be on another card, and the
+    # first card's scratch, which its next launch may reuse), and each
+    # slice's own stream for every writer
+    if len(groups) > 1:
+        for d, _ in groups:
+            _wait(writer[d], writer.values())
+    for i, (d, s) in enumerate(zip(devices, streams)):
+        if s != writer[d]:
+            s.wait_stream(writer[d])
+            _keep(outs[i], [s])
     return outs
 
 
 # ---- K2: apply_bits --------------------------------------------------------
 
-def apply_bits_plain(planes: Planes, pd, mmp, rlens, fast_bits,
-                     pair_end: bool, sign: int = 1) -> Planes:
-    """Plain version of apply_bits on any device: the bitmask unpacked as
-    the reference's phase B does, then scatter_fast_evidence."""
+SOURCES = ("bits", "meta")
+
+
+def _admitted(sel, B: int, source: str, device) -> torch.Tensor:
+    """bool[B]: read b's bit in the int32 words of sel (source "bits"),
+    or its class in sel's low bits being FAST (source "meta")."""
+    if source == "meta":
+        return (sel[:B] & 3) == CLASS_FAST
+    bidx = torch.arange(B, dtype=torch.int64, device=device)
+    # int32 words: the arithmetic shift keeps bit 31 after the & 1
+    return ((sel.to(torch.int64)[bidx >> 5] >> (bidx & 31)) & 1) == 1
+
+
+def apply_bits_plain(planes, pd, mmp, rlens, sel, pair_end: bool,
+                     sign: int = 1, source: str = "bits"):
+    """Plain version of apply_bits on any device: the admit set unpacked as
+    the reference does, then scatter_fast_evidence."""
     B = pd.shape[0]
     L = planes.exact_diff.shape[0] - 2
+    adm = _admitted(sel, B, source, pd.device)
     bidx = torch.arange(B, dtype=torch.int64, device=pd.device)
-    # int32 words: the arithmetic shift keeps bit 31 after the & 1
-    adm = ((fast_bits.to(torch.int64)[bidx >> 5] >> (bidx & 31)) & 1) == 1
     scatter_fast_evidence(planes.exact_diff, planes.f_diff.view(-1),
                           planes.acgt.view(-1), adm, pd, mmp, rlens,
                           first_mate_lanes(bidx, pair_end), L, 2 * L, sign)
     return planes
 
 
-def apply_bits(planes: Planes, pd: torch.Tensor, mmp: torch.Tensor,
-               rlens: torch.Tensor, fast_bits: torch.Tensor, pair_end: bool,
-               sign: int = 1) -> Planes:
-    """Add (sign +1) or retract (sign -1) the evidence of the FAST reads
-    that the admit bitmask selects: read b (pd, rlens int32[B], mmp
-    int32[B, 4]) when bit b % 32 of fast_bits int32[>= ceil(B/32)] word
-    b // 32 is set, into planes of genome size L (exact_diff int32[L+2],
-    f_diff [4, L+2], acgt [4, L+1], text length 2L) in place; pair_end
-    picks the orientation plane by read-index parity. Returns planes. On
-    the card one K2 launch, a thread a read. Counted as
-    evidence_apply_bits."""
+def apply_bits(planes, pd: torch.Tensor, mmp: torch.Tensor,
+               rlens: torch.Tensor, sel: torch.Tensor, pair_end: bool,
+               sign: int = 1, source: str = "bits"):
+    """Add (sign +1) or retract (sign -1) the evidence of the admitted
+    FAST reads: read b (pd, rlens int32[B], mmp int32[B, 4]) when bit
+    b % 32 of sel int32[>= ceil(B/32)] word b // 32 is set (source
+    "bits"), or when sel int32[>= B] (the chain kernel's packed output
+    vector) holds class FAST in word b's low bits (source "meta"), into
+    planes of genome size L (anything with exact_diff int32[L+2], f_diff
+    [4, L+2] and acgt [4, L+1]: a Planes or a device_profile.DevicePlanes;
+    text length 2L) in place; pair_end picks the orientation plane by
+    read-index parity. Returns planes. On the card one K2 launch on the
+    current stream, a warp an admit word, 4 lanes a read; mmp's rows must
+    be 16-byte aligned there. Counted as evidence_apply_bits."""
     name = "evidence_apply_bits"
     need(sign in (1, -1), f"{name}: sign must be +1 or -1")
+    need(source in SOURCES, f"{name}: source must be one of {SOURCES}")
     B = pd.shape[0]
     need(B >= 1 and pd.shape == (B,) and rlens.shape == (B,)
-         and mmp.shape == (B, 4) and fast_bits.dim() == 1
-         and fast_bits.shape[0] >= -(-B // 32),
-         f"{name}: pd and rlens [B], mmp [B, 4], fast_bits [>= B/32]")
-    for what, t in (("pd", pd), ("mmp", mmp), ("rlens", rlens),
-                    ("fast_bits", fast_bits), *zip(Planes._fields, planes)):
+         and mmp.shape == (B, 4) and sel.dim() == 1
+         and sel.shape[0] >= (B if source == "meta" else -(-B // 32)),
+         f"{name}: pd and rlens [B], mmp [B, 4], sel [>= B/32] (bits) or "
+         f"[>= B] (meta)")
+    fields = [getattr(planes, f) for f in Planes._fields]
+    for what, t in (("pd", pd), ("mmp", mmp), ("rlens", rlens), ("sel", sel),
+                    *zip(Planes._fields, fields)):
         need(t.dtype == torch.int32, f"{name}: {what} must be int32",
              TypeError)
     L = planes.exact_diff.shape[0] - 2
     need(L >= 1 and planes.f_diff.shape == (4, L + 2)
          and planes.acgt.shape == (4, L + 1),
          f"{name}: planes of one genome size expected")
-    ts = [pd, mmp, rlens, fast_bits, *planes]
+    ts = [pd, mmp, rlens, sel, *fields]
     if not _on_card(name, ts):
-        return apply_bits_plain(planes, pd, mmp, rlens, fast_bits, pair_end,
-                                sign)
+        return apply_bits_plain(planes, pd, mmp, rlens, sel, pair_end, sign,
+                                source)
     need(len({t.device for t in ts}) == 1,
          f"{name}: tensors on several cards")
-    dev = pd.device
-    ck._launch(name, dev, *map(ck._ptr, (pd, mmp, rlens, fast_bits)), B,
-               *map(ck._ptr, planes), L, int(bool(pair_end)), sign,
+    need(mmp.data_ptr() % 16 == 0, f"{name}: mmp's rows must be 16-byte "
+                                   f"aligned (one load a row)")
+    bits, meta = (sel, None) if source == "bits" else (None, sel)
+    ck._launch(name, pd.device, *map(ck._ptr, (pd, mmp, rlens, bits, meta)),
+               B, *map(ck._ptr, fields), L, int(bool(pair_end)), sign,
                stats=STATS)
     return planes

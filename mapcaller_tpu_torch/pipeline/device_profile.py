@@ -22,9 +22,16 @@ at finalize.
 
 Extra slots (the +1/+2) are scatter dump targets for masked-out lanes.
 
-Eager PyTorch has nothing to compile, so the `build_*_kernel` functions
-only bind the static arguments of the reference's jitted `build_*`
-functions and return a function that updates the planes in place.
+The per-batch apply, the dense undo of a speculation and the sparse
+reject correction are one kernel each on the card: K2,
+`evidence_apply_bits_kernel` (csrc/chain.cu), through
+ops/mesh_kernels.apply_bits, which this module calls as an attribute of
+that module (a tap on it reaches these calls). Its plain version is the
+eager scatter of ops/evidence.py, which the CPU runs. The
+`build_*_kernel` functions bind the static arguments of the reference's
+jitted `build_*` functions and return a function that updates the planes
+in place: the apply and the correction through K2's wrapper, the host
+merge and the finalize as eager PyTorch.
 """
 from __future__ import annotations
 
@@ -34,9 +41,9 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from ..ops import mesh_kernels
 from ..ops.chain_device import CLASS_FAST
-from ..ops.device_util import upload
-from ..ops.evidence import first_mate_lanes, scatter_fast_evidence
+from ..ops.device_util import need, upload
 
 MAX_ALLELE_COUNT = 4095
 
@@ -83,14 +90,6 @@ class DevicePlanes:
                    multi_diff=z(L + 2), L=L)
 
 
-def _scatter(planes: DevicePlanes, adm, pd, mmp, rlens, b_first, two_l,
-             sign) -> DevicePlanes:
-    scatter_fast_evidence(planes.exact_diff, planes.f_diff.view(-1),
-                          planes.acgt.view(-1), adm, pd, mmp, rlens, b_first,
-                          planes.L, two_l, sign)
-    return planes
-
-
 def build_apply_kernel(L: int, two_l: int, B: int, pair_end: bool,
                        source: str = "bits", sign: int = 1):
     """fn(planes, pd[B], mmp[B,S], rlens[B], sel) -> planes, in place.
@@ -99,34 +98,41 @@ def build_apply_kernel(L: int, two_l: int, B: int, pair_end: bool,
     point adds. source='bits': sel is the host admit bitmask int32[B/32];
     source='meta': sel is the chain kernel's packed output vector and the
     admitted set is every device-classified FAST read (the speculative
-    fold, corrected later by build_correct_kernel)."""
+    fold, corrected later by build_correct_kernel). One K2 call
+    (mesh_kernels.apply_bits); the text is the genome and its reverse
+    complement, two_l = 2L."""
+    need(two_l == 2 * L, "build_apply_kernel: the text must be 2L long")
 
     def kernel(planes: DevicePlanes, pd, mmp, rlens, sel):
-        bidx = torch.arange(B, dtype=torch.int64, device=pd.device)
-        if source == "meta":
-            adm = (sel[:B] & 3) == CLASS_FAST
-        else:
-            # int32 words: the arithmetic shift keeps bit 31 after the & 1
-            adm = ((sel[bidx >> 5] >> (bidx & 31)) & 1) == 1
-        return _scatter(planes, adm, pd, mmp, rlens,
-                        first_mate_lanes(bidx, pair_end), two_l, sign)
+        need(pd.shape[0] == B, f"build_apply_kernel: {B} reads expected")
+        return mesh_kernels.apply_bits(planes, pd, mmp, rlens, sel,
+                                       pair_end, sign, source)
 
     return kernel
+
+
+def reject_words(rej: np.ndarray, B: int) -> np.ndarray:
+    """int32[ceil(B/32)] admit words with the bits of the read indices
+    rej (< B) set."""
+    words = np.zeros((B + 31) // 32, dtype=np.uint32)
+    rej = np.asarray(rej, dtype=np.int64)
+    np.bitwise_or.at(words, rej >> 5,
+                     np.uint32(1) << (rej & 31).astype(np.uint32))
+    return words.view(np.int32)
 
 
 def build_correct_kernel(L: int, two_l: int, B: int, pair_end: bool):
     """fn(planes, pd[B], mmp[B,S], rlens[B], rej_idx[R]) -> planes, in
     place. Sparse retraction for the folded apply: rej_idx holds the read
     indices (< B) whose speculative evidence must be subtracted (host
-    dup-gate rejects, splice-forced slow reads). Gathers the R rejected
-    lanes of the chain outputs: O(R), not O(B). The reference pads
-    rej_idx to a static R with B; here R is the count itself."""
+    dup-gate rejects, splice-forced slow reads), set as admit bits for
+    one K2 call with sign -1. The reference pads rej_idx to a static R
+    with B; here R is the count itself."""
+    retract = build_apply_kernel(L, two_l, B, pair_end, sign=-1)
 
     def kernel(planes: DevicePlanes, pd, mmp, rlens, rej_idx):
-        ix = rej_idx.to(torch.int64)
-        on = torch.ones_like(ix, dtype=torch.bool)
-        return _scatter(planes, on, pd[ix], mmp[ix], rlens[ix],
-                        first_mate_lanes(ix, pair_end), two_l, -1)
+        words = reject_words(rej_idx.cpu().numpy(), B)
+        return retract(planes, pd, mmp, rlens, upload(words, pd.device))
 
     return kernel
 
@@ -217,27 +223,34 @@ class DeviceEvidence:
         self._scan = None
         self._scan_pending = None
 
+    def _words(self, bits: np.ndarray, B: int) -> torch.Tensor:
+        """uint32 admit words, zero-padded to ceil(B/32), on the device as
+        int32."""
+        w = np.zeros((B + 31) // 32, dtype=np.int32)
+        w[:bits.size] = bits.view(np.int32)
+        return upload(w, self.device)
+
     def apply_batch(self, token, fast_bits: np.ndarray,
                     pair_end: bool) -> None:
         """token: the submit_chain token of the batch just processed by
         the host; fast_bits: admitted fast reads (unique-mapped AND
-        passed the host-side duplicate gate), uint32 words."""
+        passed the host-side duplicate gate), uint32 words. One K2
+        call."""
         B = int(token.rl_dev.shape[0])
-        fb = np.zeros((B + 31) // 32, dtype=np.int32)
-        fb[:fast_bits.size] = fast_bits.view(np.int32)
-        kern = build_apply_kernel(self.L, self.two_l, B, bool(pair_end))
         with record_function("evidence_apply"):
-            kern(self.planes, token.pd, token.mmp, token.rl_dev,
-                 upload(fb, self.device))
+            mesh_kernels.apply_bits(self.planes, token.pd, token.mmp,
+                                    token.rl_dev, self._words(fast_bits, B),
+                                    bool(pair_end))
         STATS.applies += 1
 
     def _undo_speculation(self, token, pair_end: bool) -> None:
+        """Retract every FAST read of the speculative dispatch, by the
+        classes in its packed output vector on the card (K2, source
+        "meta", sign -1)."""
         dev0, pd0, mmp0 = token.spec
-        B = int(token.rl_dev.shape[0])
-        undo = build_apply_kernel(self.L, self.two_l, B, bool(pair_end),
-                                  source="meta", sign=-1)
         with record_function("evidence_correct"):
-            undo(self.planes, pd0, mmp0, token.rl_dev, dev0)
+            mesh_kernels.apply_bits(self.planes, pd0, mmp0, token.rl_dev,
+                                    dev0, bool(pair_end), -1, "meta")
         STATS.undos += 1
 
     def reconcile_batch(self, token, fast_bits: np.ndarray,
@@ -246,10 +259,11 @@ class DeviceEvidence:
         stand-alone apply. Folded tokens (submit_chain(evidence=...))
         already hold the speculative apply of every device-FAST read;
         here the host's rejects (dup-gate losers, oracle-spliced reads)
-        are retracted sparsely, and the common no-reject batch costs no
-        device work at all. A tier rerun (collect_chain swapped the
-        token's outputs) densely undoes the stale speculation and falls
-        back to the classic apply with the rerun's outputs."""
+        are retracted sparsely (one K2 call on their bits, sign -1), and
+        the common no-reject batch costs no device work at all. A tier
+        rerun (collect_chain swapped the token's outputs) densely undoes
+        the stale speculation and falls back to the classic apply with
+        the rerun's outputs."""
         if token.spec is None:
             return self.apply_batch(token, fast_bits, pair_end)
         dev0 = token.spec[0]
@@ -269,10 +283,11 @@ class DeviceEvidence:
         if rej.size > self.CORRECT_CAP:   # pathological: redo densely
             self._undo_speculation(token, pair_end)
             return self.apply_batch(token, fast_bits, pair_end)
-        kern = build_correct_kernel(self.L, self.two_l, B, bool(pair_end))
         with record_function("evidence_correct"):
-            kern(self.planes, token.pd, token.mmp, token.rl_dev,
-                 upload(rej, self.device))
+            mesh_kernels.apply_bits(self.planes, token.pd, token.mmp,
+                                    token.rl_dev,
+                                    upload(reject_words(rej, B), self.device),
+                                    bool(pair_end), -1)
         STATS.corrections += 1
 
     # ------------------------------------------------------------------

@@ -9,18 +9,18 @@ build directory, runs the main path (default CLI flags, on the card) once
 to warm up, once timed, and once under torch.profiler, then prints one
 JSON line: the card, the timed run's metrics, the device time summed over
 the profiled run's kernels and its busy share of the mapping stage, the
-device span (first kernel start to last kernel end on the card) and calls
-of each named range (seed_scan, hits_sa_resolve, classify in
-ops/fm_search.py, classify holding the fused classify+pack; nw_kernel in
-ops/nw_device.py; ksw2_kernel in ops/ksw2_device.py; evidence_apply,
-evidence_correct, evidence_finalize, caller_scan, fetch_columns in
-pipeline/device_profile.py; the folded apply runs inside classify), the
-device ms and calls of every kernel of the port's own CUDA sources
-(csrc/*.cu, matched by kernel name; 0 calls for one the run did not
-launch), the ten kernels with the most device time, the calls of each
-kind of copy and memset (a host-to-device copy from pageable memory waits
-for the stream), and each run's stage seconds (MC_STAGE_PROF: parse,
-seed+chain submit, collect, host leg, evidence).
+device span (first kernel start to last kernel end on the card), calls
+and kernel launches of each named range (seed_scan, hits_sa_resolve,
+classify in ops/fm_search.py, classify holding the fused classify+pack;
+nw_kernel in ops/nw_device.py; ksw2_kernel in ops/ksw2_device.py;
+evidence_apply, evidence_correct, evidence_finalize, caller_scan,
+fetch_columns in pipeline/device_profile.py; the folded apply runs
+inside classify), the device ms and calls of every kernel of the port's
+own CUDA sources (csrc/*.cu, matched by kernel name; 0 calls for one
+the run did not launch), the ten kernels with the most device time, the
+calls of each kind of copy and memset (a host-to-device copy from
+pageable memory waits for the stream), and each run's stage seconds
+(MC_STAGE_PROF: parse, seed+chain submit, collect, host leg, evidence).
 Needs a CUDA card.
 """
 from __future__ import annotations
@@ -59,6 +59,22 @@ def _device_us(evt, self_only: bool = False) -> float:
         if hasattr(evt, name):
             return float(getattr(evt, name))
     return 0.0
+
+
+def _range_launches(events) -> dict:
+    """Device kernels launched inside each named range, summed over its
+    calls: the kernels of the range's CPU events and of theirs."""
+    out = {}
+    for e in events:
+        if e.name not in RANGES:
+            continue
+        todo, n = list(e.cpu_children), 0
+        while todo:
+            c = todo.pop()
+            n += len(getattr(c, "kernels", ()))
+            todo.extend(c.cpu_children)
+        out[e.name] = out.get(e.name, 0) + n
+    return out
 
 
 def _metrics(log: str) -> dict:
@@ -124,8 +140,10 @@ def main(argv=None) -> int:
     busy_us = sum(_device_us(e, self_only=True) for e in kernels)
     top = sorted(kernels, key=lambda e: -_device_us(e, True))[:10]
     ranges = {e.key: {"device_span_ms": _device_us(e) / 1e3,
-                      "calls": e.count}
+                      "calls": e.count, "launches": 0}
               for e in events if e.key in RANGES}
+    for name, n in _range_launches(prof.events()).items():
+        ranges[name]["launches"] = n
     own = {}
     for name in port_kernels():
         hit = [e for e in kernels if re.search(rf"\b{name}\b", e.key)]

@@ -196,44 +196,47 @@ def block_excl_scan(vals):
     return excl, warp_sum[-1]
 
 
-def _look_back_schedule(ntiles, order, rng):
-    """Which tile moves next: tiles draw tickets in order, and a started
-    tile moves at any time. in_order: each tile runs to its end before the
-    next starts; aggregates_first: every tile publishes its aggregate
-    before any looks back, the last tile first; random: any started
-    tile."""
+def _look_back_schedule(order, rng):
+    """Which tile moves next: tiles draw tickets in order (each launch its
+    own; `ready`: the tiles whose tickets are next), and a started tile
+    moves at any time. in_order: each tile runs to its end before the next
+    starts; aggregates_first: every tile publishes its aggregate before
+    any looks back, the last tile first; random: any started tile."""
     if order == "in_order":
-        return lambda started, live: min(live) if live else started
+        return lambda ready, live: min(live) if live else min(ready)
     if order == "aggregates_first":
-        return lambda started, live: (started if started < ntiles
-                                      else max(live))
-    return lambda started, live: int(rng.choice(
-        sorted(live) + ([started] if started < ntiles else [])))
+        return lambda ready, live: min(ready) if ready else max(live)
+    return lambda ready, live: int(rng.choice(sorted(live) + sorted(ready)))
 
 
-def run_look_back(ntiles, publish, finish, order="in_order", seed=0):
+def run_look_back(ntiles, publish, finish, order="in_order", seed=0,
+                  launches=None):
     """The decoupled look-back of csrc/chain.cu over `ntiles` tiles: tiles
     draw tickets in order, and at its ticket a tile runs publish(k) -> its
     aggregate (mod 2^32) and publishes it; then it looks back LOOKBACK
     predecessors at a time to the nearest inclusive prefix, publishes its
     own and runs finish(k, its exclusive prefix). Tiles move in the
-    schedule `order`. -> {"prefix": look-back windows that found an
-    inclusive prefix, "aggregates": windows of aggregates only}."""
+    schedule `order`. launches: the tiles of each launch in its ticket
+    order, launches drawing side by side over one status array (K1 on
+    several cards); default one launch of tiles 0 .. ntiles-1. -> {"prefix":
+    look-back windows that found an inclusive prefix, "aggregates":
+    windows of aggregates only}."""
     rng = np.random.default_rng(seed)
-    nxt = _look_back_schedule(ntiles, order, rng)
+    nxt = _look_back_schedule(order, rng)
+    queues = [list(q) for q in (launches or [range(ntiles)])]
     status = [None] * ntiles                  # None, ("A", v) or ("P", v)
     seen = {"prefix": 0, "aggregates": 0}
     state = {}                                # tile -> its progress
-    started = 0
     while len(state) < ntiles or any(s["top"] is not None
                                      for s in state.values()):
         live = [k for k, s in state.items() if s["top"] is not None]
-        k = nxt(started, live)
-        if k == started:                      # draws a ticket, publishes
+        ready = [q[0] for q in queues if q]
+        k = nxt(ready, live)
+        if k in ready:                        # draws a ticket, publishes
+            queues[[q[:1] for q in queues].index([k])].pop(0)
             agg = publish(k) & M32
             state[k] = dict(agg=agg, excl=0, top=k - 1 if k else None)
             status[k] = ("P", agg) if k == 0 else ("A", agg)
-            started += 1
             if k == 0:
                 finish(0, 0)
             continue

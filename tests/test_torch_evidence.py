@@ -22,6 +22,7 @@ from mapcaller_tpu.pipeline.device_backend import DeviceBackend as JaxBackend
 from mapcaller_tpu.pipeline.profile import Profile as JaxProfile
 from mapcaller_tpu_torch.ops.chain_device import (CLASS_FAST, INT32_MAX,
                                                    MM_SLOTS, ChainCtx)
+from mapcaller_tpu_torch.ops import mesh_kernels as mk
 from mapcaller_tpu_torch.ops.evidence import scatter_fast_evidence
 from mapcaller_tpu_torch.pipeline import device_profile as tdp
 from mapcaller_tpu_torch.pipeline.device_backend import (ChainToken,
@@ -128,6 +129,127 @@ def test_apply_kernel(source):
             _torch_planes(arrs), torch.from_numpy(pd), torch.from_numpy(mmp),
             torch.from_numpy(rl), torch.from_numpy(sel))
         _assert_planes_equal(got, want)
+
+
+def _selection(source, rng, meta):
+    """sel of a K2 call: admit bits in int32 words (bit 31 of the first and
+    of the last word set: reads 31 and B - 1), or the chain kernel's
+    packed output (its FAST reads admitted)."""
+    if source == "meta":
+        return meta
+    sel = rng.integers(-(1 << 31), 1 << 31, size=B // 32,
+                       dtype=np.int64).astype(np.int32)
+    sel[[0, -1]] |= np.int32(-(1 << 31))
+    return sel
+
+
+@pytest.mark.parametrize("sign", [1, -1])
+@pytest.mark.parametrize("source", ["bits", "meta"])
+def test_k2_plain_matches_jax(source, sign):
+    """K2's wrapper on the CPU (its plain version, ops/mesh_kernels.
+    apply_bits) in both sources and both signs, on planes with evidence
+    already in them, against the reference's build_apply_kernel(source,
+    sign); no launch is counted."""
+    pd, mmp, rl, meta, rng = _chain_outputs(5 + sign)
+    sel = _selection(source, rng, meta)
+    arrs = _random_planes(rng)
+    for pair_end in (False, True):
+        want = jdp.build_apply_kernel(L, TWO_L, B, pair_end, source=source,
+                                      sign=sign)(
+            _jax_planes(arrs), jnp.asarray(pd), jnp.asarray(mmp),
+            jnp.asarray(rl), jnp.asarray(sel))
+        got = mk.apply_bits(_torch_planes(arrs), torch.from_numpy(pd),
+                            torch.from_numpy(mmp), torch.from_numpy(rl),
+                            torch.from_numpy(sel), pair_end, sign, source)
+        _assert_planes_equal(got, want)
+    assert not mk.STATS.launches
+
+
+@pytest.mark.parametrize("pair_end", [False, True])
+def test_correct_kernel(pair_end):
+    """The sparse retraction (build_correct_kernel: the rejects set as
+    admit bits, bit 31 of a word among them, one K2 call with sign -1)
+    against the reference's gather of the rejected lanes, padded with B."""
+    pd, mmp, rl, meta, rng = _chain_outputs(8 + pair_end)
+    rej = np.unique(np.concatenate([[31, B - 1], rng.choice(B, 20)]))
+    R = 32
+    pad = np.full(R, B, dtype=np.int32)
+    pad[:rej.size] = rej
+    arrs = _random_planes(rng)
+    want = jdp.build_correct_kernel(L, TWO_L, B, pair_end, R)(
+        _jax_planes(arrs), jnp.asarray(pd), jnp.asarray(mmp),
+        jnp.asarray(rl), jnp.asarray(pad))
+    got = tdp.build_correct_kernel(L, TWO_L, B, pair_end)(
+        _torch_planes(arrs), torch.from_numpy(pd), torch.from_numpy(mmp),
+        torch.from_numpy(rl), torch.from_numpy(rej.astype(np.int32)))
+    _assert_planes_equal(got, want)
+
+
+@pytest.mark.parametrize("call", ["apply", "undo", "correct"])
+def test_evidence_calls_reach_k2(monkeypatch, call):
+    """DeviceEvidence's three per-batch device steps each reach K2's
+    wrapper (mesh_kernels.apply_bits, spied on as the module attribute
+    that device_profile calls) exactly once, with the source and sign of
+    the step and the batch's own pd, mmp and read lengths: the apply with
+    the host's admit bits and +1, the dense undo with the speculative
+    dispatch's packed output (source "meta") and -1, the sparse correction
+    with the rejects' bits and -1. The planes still equal the
+    reference's."""
+    monkeypatch.setattr(jdp.DeviceEvidence, "CORRECT_CAP", 8)
+    monkeypatch.setattr(tdp.DeviceEvidence, "CORRECT_CAP", 8)
+    pd, mmp, rl, meta, rng = _chain_outputs(11)
+    fast_ix = np.nonzero((meta[:B] & 3) == CLASS_FAST)[0]
+    rej = rng.choice(fast_ix, size=5, replace=False)
+    adm = np.zeros(B, bool)
+    adm[fast_ix] = True
+    adm[rej] = False
+    fbits = np.zeros(B // 32, dtype=np.uint32)
+    for i in np.nonzero(adm)[0]:
+        fbits[i >> 5] |= np.uint32(1 << (i & 31))
+    calls = []
+    real = mk.apply_bits
+
+    def spy(planes, pd_, mmp_, rl_, sel, pair_end, sign=1, source="bits"):
+        calls.append((pd_, mmp_, rl_, sel.clone(), pair_end, sign, source))
+        return real(planes, pd_, mmp_, rl_, sel, pair_end, sign, source)
+
+    monkeypatch.setattr(mk, "apply_bits", spy)
+    jev, tev = _evidence_pair()
+    t_args = [torch.from_numpy(x) for x in (meta, pd, mmp, rl)]
+    j_args = [jnp.asarray(x) for x in (meta, pd, mmp, rl)]
+    ttok = ChainToken(None, t_args[0], None, None, t_args[3], 128, rl,
+                      t_args[1], t_args[2], cls0=meta & 3,
+                      spec=(t_args[0], t_args[1], t_args[2]))
+    jtok = [None, j_args[0], None, None, 128, rl, j_args[1], j_args[2],
+            j_args[3], (j_args[0], j_args[1], j_args[2])]
+    if call == "apply":
+        jev.apply_batch(jtok, fbits, True)
+        tev.apply_batch(ttok, fbits, True)
+        want_sel, want = fbits.view(np.int32), (1, "bits")
+    elif call == "undo":
+        jev.planes = jdp.build_apply_kernel(L, TWO_L, B, True, source="meta",
+                                            sign=-1)(jev.planes, *j_args[1:],
+                                                     j_args[0])
+        tev._undo_speculation(ttok, True)
+        want_sel, want = meta, (-1, "meta")
+    else:
+        jev.planes = jdp.build_apply_kernel(L, TWO_L, B, True, source="meta")(
+            jev.planes, *j_args[1:], j_args[0])
+        tev.planes = tdp.build_apply_kernel(L, TWO_L, B, True, source="meta")(
+            tev.planes, *t_args[1:], t_args[0])
+        calls.clear()
+        jev.reconcile_batch(jtok, fbits, True)
+        tev.reconcile_batch(ttok, fbits, True)
+        want_sel = np.zeros(B // 32, dtype=np.uint32)
+        for i in rej:
+            want_sel[i >> 5] |= np.uint32(1 << (i & 31))
+        want_sel, want = want_sel.view(np.int32), (-1, "bits")
+    assert len(calls) == 1
+    pd_, mmp_, rl_, sel, pair_end, sign, source = calls[0]
+    assert (sign, source, pair_end) == (*want, True)
+    assert pd_ is t_args[1] and mmp_ is t_args[2] and rl_ is t_args[3]
+    np.testing.assert_array_equal(sel.numpy()[:want_sel.size], want_sel)
+    _assert_planes_equal(tev.planes, jev.planes)
 
 
 def _evidence_pair():

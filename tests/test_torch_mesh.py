@@ -27,9 +27,11 @@ kernels' arithmetic against JAX's collectives.
   * the plain collectives against psum, psum_scatter + all_gather of
     totals + cumsum and scatter_fast_evidence on a shard_map, with seams
     where n does not divide the length; a scalar mirror of K1
-    (csrc/chain.cu dp_scatter_scan_kernel: tiles by ticket, the block
-    scan, the decoupled look-back, the totals pass, then the scan that
-    adds the totals of the slices before it) at tile edges;
+    (csrc/chain.cu dp_scatter_scan_kernel: a launch a device, tiles of
+    the padded length by ticket, the block scan, the decoupled look-back
+    over one status array of every tile, which carries the totals of the
+    slices before each) at tile edges, on one device and on mixed layouts
+    of several;
   * make_mesh raising with fewer cards than asked, and the wrappers'
     refusals.
 
@@ -559,88 +561,105 @@ def test_apply_bits_plain_matches_jax(pair_end, sign):
 
 # ---- a scalar mirror of K1 -------------------------------------------------
 
-def mirror_k1(parts, lo, length, count, mode, totals, slice_, tile_threads,
-              order, seed):
-    """dp_scatter_scan_kernel in one mode (csrc/chain.cu): tiles of
-    tile_threads * DP_ITEMS elements; sum mode a tile per block, the scan
-    modes a tile by ticket: each element the sum of the partials at lo +
-    k (zero at or past length), striped into the block's buffer, a thread's
-    DP_ITEMS consecutive elements summed, the block scan, the look-back
-    (run_look_back in the schedule `order`); the totals pass's last tile
-    writes totals[slice_]; the scan adds the totals of the slices before
-    slice_ and writes the inclusive prefix. -> out (None for the totals
-    pass)."""
+def mirror_k1(parts, n, length, layout, tile_threads, order, seed):
+    """dp_scatter_scan_kernel's scan mode (csrc/chain.cu) as
+    dp_scatter_scan launches it: [0, length) padded to Gp = n * per (per =
+    ceil(length / n)), slice i on device layout[i]; tiles of tile_threads
+    * DP_ITEMS elements over [0, Gp), tile T at status word T; a launch a
+    distinct device (mk.scan_groups) draws by ticket, ascending, the tiles
+    that start in its slices (mk.scan_tiles); a tile sums each element's
+    partials (zero at or past length), sums a thread's DP_ITEMS
+    consecutive elements, runs the block scan and the look-back
+    (run_look_back over every launch, in the schedule `order`) and writes
+    element k to slice k // per at k % per. -> (the n slices, the
+    look-back's windows)."""
     tile = tile_threads * DP_ITEMS
-    ntiles = -(-count // tile)
-    out = np.zeros(count, dtype=np.int64) if mode != mk.DP_TOTAL else None
-
-    def vals(k):
-        return [sum(int(p[lo + e]) for p in parts) & M32
-                if e < length else 0
-                for e in range(k * tile, (k + 1) * tile)]
-
-    if mode == mk.DP_SUM:
-        for k in range(ntiles):
-            for e, v in enumerate(vals(k)):
-                if k * tile + e < count:
-                    out[k * tile + e] = _i32(v)
-        return out
+    per = -(-length // n)
+    gp = n * per
+    outs = [np.zeros(per, dtype=np.int64) for _ in range(n)]
+    launches = [mk.scan_tiles(sl, per, tile)
+                for _, sl in mk.scan_groups(layout)]
+    assert sorted(T for ts in launches for T in ts) == list(
+        range(-(-gp // tile)))
     tiles = {}
 
-    def publish(k):
-        v = vals(k)
+    def publish(T):
+        v = [sum(int(p[k]) for p in parts) & M32 if k < length else 0
+             for k in range(T * tile, (T + 1) * tile)]
         runs = [np.cumsum(v[t * DP_ITEMS:(t + 1) * DP_ITEMS]) & M32
                 for t in range(tile_threads)]
         before, agg = block_excl_scan([int(r[-1]) for r in runs])
-        tiles[k] = (runs, before, agg)
+        tiles[T] = (runs, before)
         return agg
 
-    def finish(k, excl):
-        runs, before, agg = tiles[k]
-        if mode == mk.DP_TOTAL:
-            if k == ntiles - 1:
-                totals[slice_] = _i32(excl + agg)
-            return
-        base = sum(totals[:slice_])
+    def finish(T, excl):
+        runs, before = tiles[T]
         for t, r in enumerate(runs):
-            for i, x in enumerate(r):
-                e = k * tile + t * DP_ITEMS + i
-                if e < count:
-                    out[e] = _i32(int(x) + before[t] + excl + base)
+            for q, x in enumerate(r):
+                k = T * tile + t * DP_ITEMS + q
+                if k < gp:
+                    outs[k // per][k % per] = _i32(int(x) + before[t] + excl)
 
-    run_look_back(ntiles, publish, finish, order, seed)
+    seen = run_look_back(-(-gp // tile), publish, finish, order, seed,
+                         launches)
+    return outs, seen
+
+
+def mirror_k1_sum(parts, count, tile_threads):
+    """dp_scatter_scan_kernel's sum mode: a tile a block, each element the
+    sum of the partials."""
+    tile = tile_threads * DP_ITEMS
+    out = np.zeros(count, dtype=np.int64)
+    for k0 in range(0, count, tile):
+        for k in range(k0, min(k0 + tile, count)):
+            out[k] = _i32(sum(int(p[k]) for p in parts))
     return out
 
 
-@pytest.mark.parametrize("threads,length,n,order", [
-    (DP_THREADS, DP_THREADS * DP_ITEMS - 1, 1, "in_order"),
-    (DP_THREADS, DP_THREADS * DP_ITEMS, 1, "random"),
-    (DP_THREADS, 2 * DP_THREADS * DP_ITEMS + 1, 2, "aggregates_first"),
-    (4, 33 * 4 * DP_ITEMS + 5, 3, "random"),
-    (4, 40 * 4 * DP_ITEMS, 8, "aggregates_first")])
-def test_k1_mirror_at_tile_edges(threads, length, n, order):
-    """The mirror's two passes a slice (totals, then the scan) over
-    partials whose sums wrap, at a tile's edges (one element short, whole,
-    one over), on the kernel's tiles and on small ones that take more than
-    LOOKBACK tiles a slice, equal dp_scatter_scan_plain in every slice; the
-    mirror's sum mode equals dp_reduce_plain."""
+K1_CASES = [
+    (DP_THREADS, DP_THREADS * DP_ITEMS - 1, 1, "in_order", None),
+    (DP_THREADS, DP_THREADS * DP_ITEMS, 1, "random", None),
+    (DP_THREADS, 2 * DP_THREADS * DP_ITEMS + 1, 2, "aggregates_first", None),
+    (4, 33 * 4 * DP_ITEMS + 5, 3, "random", None),
+    (4, 40 * 4 * DP_ITEMS, 8, "aggregates_first", None),
+    (4, 37 * 4 * DP_ITEMS + 3, 4, "random", (0, 1, 0, 1)),
+    (4, 37 * 4 * DP_ITEMS + 3, 4, "in_order", (0, 1, 0, 1)),
+    (4, 70 * 4 * DP_ITEMS + 9, 8, "aggregates_first",
+     (0, 0, 1, 2, 1, 0, 2, 2)),
+    # slices shorter than a tile: tiles run over several slices, and the
+    # launch of device 2 has no tile of its own
+    (4, 8 * 20 - 3, 8, "random", (0, 1, 2, 0, 1, 2, 0, 1))]
+
+
+@pytest.mark.parametrize(
+    "threads,length,n,order,layout", K1_CASES,
+    ids=["-".join(map(str, c[:4])) + ("-" + "".join(map(str, c[4]))
+                                      if c[4] else "") for c in K1_CASES])
+def test_k1_mirror_at_tile_edges(threads, length, n, order, layout):
+    """The mirror's one pass over partials whose sums wrap, at a tile's
+    edges (one element short, whole, one over), on the kernel's tiles and
+    on small ones that take more than LOOKBACK tiles a slice or run over
+    several slices, on one device (one launch) and on mixed layouts of 2
+    and 3 devices (a launch each, drawing side by side), equals
+    dp_scatter_scan_plain in every slice: a slice finds the totals of the
+    slices before it by the look-back alone, and a tile that runs over a
+    slice's end writes the next one's first elements. The mirror's sum
+    mode equals dp_reduce_plain."""
     rng = np.random.default_rng(length + n)
     parts = rng.integers(-2 ** 31, 2 ** 31, size=(3, length + 2),
                          dtype=np.int64).astype(np.int32)
     tparts = [torch.from_numpy(p.copy()) for p in parts]
     want = mk.dp_scatter_scan_plain(tparts, n, length)
-    per, ranges = mk._slices(length, n)
-    totals = [0] * n
-    for i, (lo, ln) in enumerate(ranges):
-        assert mirror_k1(parts, lo, ln, per, mk.DP_TOTAL, totals, i,
-                         threads, order, i) is None
-    for i, (lo, ln) in enumerate(ranges):
-        got = mirror_k1(parts, lo, ln, per, mk.DP_SCAN, totals, i, threads,
-                        order, i)
-        np.testing.assert_array_equal(got, want[i].numpy(), err_msg=str(i))
-    np.testing.assert_array_equal(
-        mirror_k1(parts, 0, length + 2, length + 2, mk.DP_SUM, None, 0,
-                  threads, order, 0), mk.dp_reduce_plain(tparts).numpy())
+    layout = [torch.device("cuda", d) for d in layout or [0] * n]
+    got, seen = mirror_k1(parts, n, length, layout, threads, order, n)
+    assert len(mk.scan_groups(layout)) == len(set(layout))
+    for i in range(n):
+        np.testing.assert_array_equal(got[i], want[i].numpy(), err_msg=str(i))
+    # every tile but the first ends its look-back at an inclusive prefix
+    ntiles = -(-(-(-length // n) * n) // (threads * DP_ITEMS))
+    assert seen["prefix"] == ntiles - 1
+    np.testing.assert_array_equal(mirror_k1_sum(parts, length + 2, threads),
+                                  mk.dp_reduce_plain(tparts).numpy())
 
 
 # ---- refusals --------------------------------------------------------------
@@ -688,6 +707,12 @@ def test_wrappers_refuse():
     with pytest.raises(ValueError):
         mk.apply_bits(p, pd, mmp, pd, torch.zeros(2, dtype=torch.int32),
                       False, sign=2)
+    with pytest.raises(ValueError):
+        mk.apply_bits(p, pd, mmp, pd, torch.zeros(2, dtype=torch.int32),
+                      False, source="classes")
+    with pytest.raises(ValueError):     # meta: a word a read
+        mk.apply_bits(p, pd, mmp, pd, torch.zeros(39, dtype=torch.int32),
+                      False, source="meta")
     mk.apply_bits(p, pd, mmp, torch.full((40,), 10, dtype=torch.int32),
                   torch.full((2,), -1, dtype=torch.int32), True)
     assert int(p.exact_diff.abs().sum()) > 0 and not mk.STATS.launches
