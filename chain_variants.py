@@ -71,9 +71,9 @@ def variant_source(name, src):
     return src
 
 
-def main_path_batch(workdir):
+def main_path_batch(workdir, n_pairs=20000):
     """(kernel, packed, rlens) of the first chain dispatch of a main-path
-    run of 20,000 simulated pairs."""
+    run of n_pairs simulated pairs."""
     from mapcaller_tpu_torch import cli
     from mapcaller_tpu_torch.ops import fm_search
     got = {}
@@ -84,7 +84,7 @@ def main_path_batch(workdir):
         return call(self, packed, rlens, planes=planes, pair_end=pair_end,
                     out=out)
 
-    argv = kv.main_path_argv(workdir, 20000)
+    argv = kv.main_path_argv(workdir, n_pairs)
     fm_search.SeedChainKernel.__call__ = tap
     try:
         rc = cli.main(argv)
@@ -100,7 +100,7 @@ def variants(names, work):
     import chip_smoke as cs
     from mapcaller_tpu_torch.ops import chain_kernels as ck
     libs = kv.build(SRC, names, variant_source,
-                    "chain_classify_pack_kernel", work)
+                    ("chain_classify_pack_kernel",), work)
     kern, packed, rlens = main_path_batch(work)
     seeds = kern._scan_packed(packed, rlens)
     scan = ck.chain_scan_seeds(seeds[4], seeds[0], kern.H)

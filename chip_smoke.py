@@ -12,8 +12,8 @@ exits non-zero):
   build      nvcc for csrc/*.cu and g++ for the C++ host leg, in parallel,
              with the NW, ksw2, seed-scan and chain kernels' registers,
              shared memory, stack frame and spills from -Xptxas -v (any
-             stack frame or spill fails, and so do registers of the 32-bit
-             seed scans other than SCAN_REGISTERS)
+             stack frame or spill fails, and so do registers of the seed
+             scans other than SCAN_REGISTERS)
   kernels    the CUDA NW and ksw2 kernels each equal their plain version
              exactly at every DP tier (32, 48, 96, 192), on pairs whose
              lengths reach the tier's edges (for NW also the kernel's
@@ -116,7 +116,8 @@ exits non-zero):
              replayed: equal to the stream's launch, to the plain routed
              versions and to the unrouted kernels' outputs (the hits also
              by the sharded inverse-Psi walk), timed beside the unrouted
-             kernels on the same work, with the bound; and the whole
+             kernels on the same work, with the bound and the scan's
+             launches x (ms - bound) a run; and the whole
              sharded stage by the walk (no full SA) on batch 0, equal to
              one card's walk stage, every read that differs from the
              full-SA stage flagged for the host oracle; the device bytes
@@ -132,7 +133,9 @@ exits non-zero):
              shard holds and the check that no single-card table or
              genome-length plane is on the card; shard 0 of batch 0's
              launch timed beside the 32-bit routed forms on the same reads,
-             with the bound; the scan and hits with the tables placed past
+             with the bound (the scan also beside the unrouted kernel on
+             the same rows, under -shards 4 too, and its launches x (ms -
+             bound) a run); the scan and hits with the tables placed past
              2^31 (pointer tables with zero shards in front) against the
              same launch unshifted: s_x0 exactly C more, every valid hit
              equal; and a -gvcf run with big_x64 -shards 2 against a
@@ -237,10 +240,12 @@ SCAN3_ROW_BYTES = 288             # an occ3 row; a scan step gathers two
 SCAN1_ROW_BYTES = 32              # an occ4 row
 SCAN3_OPS_PER_STEP = 930          # see csrc/seed_scan.cu
 SCAN1_OPS_PER_STEP = 80
-# ptxas registers of the 32-bit seed scans (csrc/seed_scan.cu) with nvcc
-# for sm_90a, which the 64-bit scan's template must leave as they are
-SCAN_REGISTERS = dict(seed_scan3_kernel=133, seed_scan3_routed_kernel=125,
-                      seed_scan1_kernel=32)
+# ptxas registers of the seed scans (csrc/seed_scan.cu) with nvcc for
+# sm_90a: the main path's thread-a-read scans keep theirs through the
+# routed scans' redesign, and the routed scans' lane-group forms keep the
+# counts they were measured at (PERF.md)
+SCAN_REGISTERS = dict(seed_scan3_kernel=133, seed_scan3_routed_kernel=62,
+                      seed_scan3_big_kernel=93, seed_scan1_kernel=32)
 # int32 operations of the chain kernels (csrc/chain.cu), for their bounds:
 # a scan read; a hit slot (binary search, seed walk, stores); an inverse-
 # Psi step; a classified read's 16 bases and its kept hits; a packed read
@@ -516,6 +521,15 @@ def scan_bound_ms(kind, B, width, S, rows):
     nbytes = row * rows + B * (width + 4) + B * (8 + 32 * S + 1 + 8)
     t_b, t_o = nbytes / H100_BYTES_S, per * rows / 2 / H100_INT32_OPS_S
     return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
+
+
+def launch_gap(r, launches):
+    """A timed launch's dict r with a run's launches of that kernel and
+    launches x (ms - bound): the device time a run spends above the
+    bound in it."""
+    r["launches_a_run"] = launches
+    r["gap_ms_a_run"] = launches * (r["ms"] - r["bound_ms"])
+    return r
 
 
 def measure_scan(what, kind, fns, codes, S, reps, plain_reps=3):
@@ -1169,7 +1183,7 @@ def run_scale_axes(run, check, card, L):
     word to its plain routed version. The copies of a run's launches count
     in that run's peak memory, and the -shards 4 run's peak also holds
     the first -shards 2 launch's tables. -> (the devices run, the shards
-    runs, {n: the shards run's first launch})."""
+    runs, {n: (the shards run's first launch, its scan launches)})."""
     import collections
     import torch
     from mapcaller_tpu_torch.ops import chain_kernels as ck
@@ -1289,7 +1303,8 @@ def run_scale_axes(run, check, card, L):
                                  f"stage, an unrouted kernel ran or a routed "
                                  f"one did not run once a shard a batch")
         sharded.append(t)
-        shard_launches[n] = launches[:1]      # run_routed replays the first
+        # run_routed replays the first, and counts the run's scans
+        shard_launches[n] = (launches[0], len(launches))
     return multi, sharded, shard_launches
 
 
@@ -1470,7 +1485,7 @@ def run_routed(prefix, batch, shard_launches, card, reps=20):
     fm_walk = dataclasses.replace(fm1, sa_full=fm1.sa_full[:0])
     res, walk_stage = {}, []
     for n in (2, 4):
-        x = shard_launches[n][0]
+        x, n_scans = shard_launches[n]
         k, packed, rlens = x["kern"], x["packed"], x["rlens"]
         sfm, S, H, max_len = k.fm, k.max_seeds, k.H, k.max_len
         B = packed.shape[0]
@@ -1493,6 +1508,7 @@ def run_routed(prefix, batch, shard_launches, card, reps=20):
         scan_r["unrouted_with_prefix_skip_ms"] = cuda_ms(
             lambda: ssd.seed_scan3(fm3, packed, rlens, max_len, S), reps,
             queued=True)
+        launch_gap(scan_r, n_scans)
 
         def hits_pairs(what, fm_r, fm_flat):
             sc = [ck.chain_scan_seeds(seeds[4], seeds[0], H)
@@ -1544,6 +1560,8 @@ def run_routed(prefix, batch, shard_launches, card, reps=20):
         walk_stage.append(sharded_walk_stage(
             ck, be, dataclasses.replace(flat, fm=fm_walk), p0, r0, n))
     emit("shards", card=card, routed_kernels_shard0_batch0=res,
+         routed_scan_gap_ms_a_run={
+             n: res[n]["seed_scan3_routed"]["gap_ms_a_run"] for n in res},
          sharded_walk_stage_batch0=walk_stage,
          setup_bytes=shard_setup_bytes(be, cuda0))
     del be, fm3, flat
@@ -1648,23 +1666,15 @@ def run_shifted(ck, ssd, x):
                               "without hits reads text word 0)")
 
 
-def time_big(ck, ssd, x, card, reps=20):
-    """The three 64-bit kernels on one launch's inputs (shard 0 of batch 0,
-    as the run launched it), each beside its 32-bit routed form on the
-    same reads: the routed scan over the same rows made absolute, the
-    routed hits over the same SA in int32, the 32-bit classify+pack on the
-    same hits. Device ms (queued), call ms, plain ms and the bound: bytes
-    (rows x 288 B for the scans; the int64 SA entries and locations and
-    the rest of each kernel's inputs and outputs) or int32 operations."""
+def tables32(bfm):
+    """The 32-bit forms of an x64 launch's tables, on the same rows: the
+    routed tables (occ3 rows made absolute, an int32 SA) and those rows
+    end to end as one unrouted table without the prefix skip. -> (fm32,
+    sfm32, flat32)."""
     import types
     import torch
     from mapcaller_tpu_torch.ops.routed import Routed
     from mapcaller_tpu_torch.parallel.sharded_index import ShardedFM3
-    k = x["kern"]
-    bfm, packed, rlens = k.fm, x["packed"], x["rlens"]
-    B, S, H, H2, max_len = packed.shape[0], k.max_seeds, k.H, k.H2, k.max_len
-    per = bfm.occ3.per
-    # the same tables in the 32-bit form: absolute counts, an int32 SA
     rows32 = []
     for s, t in enumerate(bfm.occ3.shards):
         r = t.clone()
@@ -1675,25 +1685,63 @@ def time_big(ck, ssd, x, card, reps=20):
         has_full_sa=True,
         sa_full=Routed([t.to(torch.int32) for t in bfm.sa.shards],
                        bfm.sa.per))
-    sfm32 = ShardedFM3(fm=fm32, occ3=Routed(rows32, per),
-                       c3_first=bfm.c3_first.to(torch.int32),
-                       **{c: getattr(bfm, c) for c in (
-                           "row_p1", "row_p2", "t0", "t1", "tail1", "tail2a",
-                           "tail2b")})
+    consts = {c: getattr(bfm, c) for c in (
+        "row_p1", "row_p2", "t0", "t1", "tail1", "tail2a", "tail2b")}
+    c3 = bfm.c3_first.to(torch.int32)
+    sfm32 = ShardedFM3(fm=fm32, occ3=Routed(rows32, bfm.occ3.per),
+                       c3_first=c3, **consts)
+    flat32 = types.SimpleNamespace(occ3_rows=torch.cat(rows32), fm=fm32,
+                                   c3_first=c3, pfx_k=0, pfx_base=0,
+                                   **consts)
+    return fm32, sfm32, flat32
+
+
+def time_big_scan(ssd, x, n, reps=20):
+    """The 64-bit scan on one launch's inputs of the -shards n run (shard
+    0 of batch 0, as the run launched it): equal to its plain version
+    (steps and gathers too) and to the 32-bit routed and unrouted scans on
+    the same rows; device ms (queued) beside theirs on the same reads,
+    call ms, plain ms and the bound (rows x 288 B). -> (its dict, its
+    seeds, fm32)."""
+    k = x["kern"]
+    bfm, packed, rlens = k.fm, x["packed"], x["rlens"]
+    S, max_len = k.max_seeds, k.max_len
+    fm32, sfm32, flat32 = tables32(bfm)
     fns = (lambda w=False: ssd.seed_scan3_big(bfm, packed, rlens, max_len, S,
                                               with_iters=w),
            lambda w=False: ssd.seed_scan3_big_plain(bfm, packed, rlens,
                                                     max_len, S,
                                                     with_iters=w))
-    scan = measure_scan("seed_scan3_big, shard 0 of batch 0", "seed_scan3",
-                        fns, packed, S, reps)
+    scan = measure_scan(f"seed_scan3_big, {n} shards, shard 0 of batch 0",
+                        "seed_scan3", fns, packed, S, reps)
     seeds = fns[0]()
-    r32 = ssd.seed_scan3_routed(sfm32, packed, rlens, max_len, S)
     scan["max_abs_err_vs_32bit_routed"] = max_err(
-        "x64 scan vs the 32-bit routed scan", list(zip(SEED_KEYS, seeds,
-                                                       r32)))
+        "x64 scan vs the 32-bit routed and unrouted scans",
+        list(zip(SEED_KEYS, seeds, ssd.seed_scan3_routed(
+            sfm32, packed, rlens, max_len, S)))
+        + list(zip(SEED_KEYS, seeds, ssd.seed_scan3(
+            flat32, packed, rlens, max_len, S))))
     scan["routed32_ms"] = cuda_ms(lambda: ssd.seed_scan3_routed(
         sfm32, packed, rlens, max_len, S), reps, queued=True)
+    scan["unrouted_ms"] = cuda_ms(lambda: ssd.seed_scan3(
+        flat32, packed, rlens, max_len, S), reps, queued=True)
+    scan["share_of_bound"] = scan["bound_ms"] / scan["ms"]
+    return scan, seeds, fm32
+
+
+def time_big(ck, ssd, x, card, reps=20):
+    """The three 64-bit kernels on one launch's inputs (shard 0 of batch 0,
+    as the -shards 2 run launched it), each beside its 32-bit form on the
+    same reads: the scan as time_big_scan, the routed hits over the same
+    SA in int32, the 32-bit classify+pack on the same hits. Device ms
+    (queued), call ms, plain ms and the bound: bytes (rows x 288 B for
+    the scans; the int64 SA entries and locations and the rest of each
+    kernel's inputs and outputs) or int32 operations."""
+    import torch
+    k = x["kern"]
+    bfm, packed, rlens = k.fm, x["packed"], x["rlens"]
+    B, S, H, H2, max_len = packed.shape[0], k.max_seeds, k.H, k.H2, k.max_len
+    scan, seeds, fm32 = time_big_scan(ssd, x, 2, reps)
     sc = ck.chain_scan_seeds(seeds[4], seeds[0], H)
     hits = ck.chain_hits_big(bfm, sc, *seeds[:5], H)
     sc32 = ck.chain_scan_seeds(seeds[4], seeds[0], H)
@@ -1920,8 +1968,10 @@ def run_big(run, card, sam, vcf, reps=20):
     in bytes (the sharded NOR blocks and their seams); between them the
     single-card routes under -shards 2 (run_big_single). -> (the timings,
     the -shards 2 run's launches by kernel, the single-card routes)."""
+    import numpy as np
     import torch
     from mapcaller_tpu_torch.ops import chain_kernels as ck
+    from mapcaller_tpu_torch.calling import scan_device
     from mapcaller_tpu_torch.ops import seed_scan_device as ssd
     from mapcaller_tpu_torch.parallel import big_index
     from mapcaller_tpu_torch.pipeline import device_profile
@@ -2019,22 +2069,52 @@ def run_big(run, card, sam, vcf, reps=20):
         first[n] = launches[0]
         del launches
     timing = time_big(ck, ssd, first[2], card, reps)
+    # the scan also on -shards 4's half as many reads, and each scan's
+    # launches x gap a run
+    timing["seed_scan3_big"]["shards_4"] = time_big_scan(ssd, first[4], 4,
+                                                         reps)[0]
+    for n, r in ((2, timing["seed_scan3_big"]),
+                 (4, timing["seed_scan3_big"]["shards_4"])):
+        launch_gap(r, runs[n]["scan_launches"]["seed_scan3_big"])
     shifted = run_shifted(ck, ssd, first[2])
     emit("big", card=card, x64_kernels_shard0_batch0=timing,
+         scan_gap_ms_a_run={2: timing["seed_scan3_big"]["gap_ms_a_run"],
+                            4: timing["seed_scan3_big"]["shards_4"][
+                                "gap_ms_a_run"]},
          shifted_coordinates=shifted)
     del first
     single = run_big_single(run, card, backend, sam, vcf)
     # -gvcf: the sharded NOR blocks against one card's
     gv = {}
+    build_nor = scan_device.build_nor_kernel
+
+    def tap_nor(L, nseg):
+        # the kernel's own arguments, as DeviceEvidence.nor_blocks makes them
+        kern = build_nor(L, nseg)
+
+        def call(*args):
+            held["nor"] = (L, nseg, args)
+            return kern(*args)
+        return call
+
     for tag, kw in (("one", {}), ("big", dict(index_shards=2, big_x64=True,
                                                backend=backend(2)))):
-        t = run(gvcf=True, **kw)
+        if tag == "one":
+            scan_device.build_nor_kernel = tap_nor
+        try:
+            t = run(gvcf=True, **kw)
+        finally:
+            scan_device.build_nor_kernel = build_nor
+        if tag == "one":
+            # A6's NOR blocks on the single-card run's finalized planes
+            nor = time_nor(*held.pop("nor"))
         held.clear()
         with open(sam, "rb") as f, open(vcf, "rb") as g:
             gv[tag] = (f.read(), g.read(), t)
     same = gv["one"][:2] == gv["big"][:2]
     tb = gv["big"][2]
-    emit("big", card=card, gvcf_shards=2, gvcf_identical_to_one_card=same,
+    emit("big", card=card, gvcf_nor_blocks_one_card=nor, gvcf_shards=2,
+         gvcf_identical_to_one_card=same,
          gvcf_records=sum(not ln.startswith(b"#")
                           for ln in gv["big"][1].splitlines()),
          chain_launches=tb["chain_launches"], evidence=tb["evidence"],
@@ -3077,11 +3157,76 @@ def run_evidence(cap, card, reps=50):
     if k2["correct_max_abs_err"] or k2["undo_max_abs_err"]:
         raise AssertionError("evidence: K2's retractions differ from their "
                              "plain versions")
+    steps["host_merge"] = time_host_merge(planes, reps)
     emit("evidence", card=card, L=L, batch=B, admitted=int(adm.sum()),
          mismatches=n_mm, fetch_positions=P, prefix_points=Q,
          n_cand=int(small[0]), n_runs=int(small[1]),
          equal_to_cpu=True, steps=steps, k2_apply=k2)
     return k2
+
+
+def time_host_merge(planes, reps=50, density=0.01, seed=5):
+    """A5's host merge (pipeline/device_profile.build_host_merge_kernel:
+    four index_add_ of the host profile's sparse nonzero deltas into the
+    planes), which the main data never takes (every read's evidence is
+    applied on the card): deltas at `density` of each plane's entries,
+    values 1-3, made from `seed`, into planes(device) (the main path's
+    own). Equal to the same call on the CPU; device ms (queued) beside
+    the bound: each delta's index and value read, its plane entry read
+    and written."""
+    import numpy as np
+    import torch
+    from mapcaller_tpu_torch.pipeline import device_profile as dp
+    rng = np.random.default_rng(seed)
+    gpl, cpl = planes("cuda"), planes("cpu")
+    names = ("acgt", "exact_diff", "f_diff", "multi_diff")
+    args = []
+    for k in names:
+        n = getattr(cpl, k).numel()
+        idx = np.unique(rng.integers(0, n, int(n * density)))
+        args += [torch.from_numpy(idx),
+                 torch.from_numpy(rng.integers(1, 4, idx.size)
+                                  .astype(np.int32))]
+    merge = dp.build_host_merge_kernel(cpl.L)
+    gargs = [a.cuda() for a in args]
+    merge(gpl, *gargs)
+    merge(cpl, *args)
+    err = max(int((getattr(gpl, k).cpu().long() - getattr(cpl, k).long())
+                  .abs().max()) for k in names)
+    if err:
+        raise AssertionError("evidence: the host merge on the card != cpu")
+    deltas = sum(a.numel() for a in args[::2])
+    nbytes = deltas * (8 + 4 + 8)
+    ms = cuda_ms(lambda: merge(gpl, *gargs), reps, queued=True)
+    bound = 1e3 * nbytes / H100_BYTES_S
+    return dict(deltas=deltas, density=density, max_abs_err=err, ms=ms,
+                bound_ms=bound, bound_by="bytes", bytes=nbytes,
+                share_of_bound=bound / ms)
+
+
+def time_nor(L, nseg, args, reps=20):
+    """A6's NOR-block reduction (calling/scan_device.build_nor_kernel,
+    eager) on a -gvcf run's own call: the kernel's L, segments and
+    arguments (the finalized coverage, the positions the records exclude,
+    the sorted record breaks) as DeviceEvidence.nor_blocks passed them.
+    Equal to the same call on the CPU; device ms (queued) beside the
+    bound: the coverage, the positions and breaks read once, three int32
+    outputs a segment written."""
+    from mapcaller_tpu_torch.calling.scan_device import build_nor_kernel
+    cov, em, bkt = args
+    kern = build_nor_kernel(L, nseg)
+    got = kern(*args)
+    want = kern(*(a.cpu() for a in args))
+    err = max(int((g.cpu().long() - w.long()).abs().max())
+              for g, w in zip(got, want))
+    if err:
+        raise AssertionError("big -gvcf: the NOR blocks on the card != cpu")
+    nbytes = 4 * L + 8 * (em.numel() + bkt.numel()) + 12 * nseg
+    ms = cuda_ms(lambda: kern(*args), reps, queued=True)
+    bound = 1e3 * nbytes / H100_BYTES_S
+    return dict(L=L, emitted=int(em.numel()), breaks=int(bkt.numel()),
+                segments=nseg, max_abs_err=err, ms=ms, bound_ms=bound,
+                bound_by="bytes", bytes=nbytes, share_of_bound=bound / ms)
 
 
 def run_ksw2_launches(k, launches, card):
@@ -4187,8 +4332,7 @@ def main():
             sys.stderr.write(outputs.get(lib, ""))
             raise AssertionError(f"{kernel}: a stack frame or spills in "
                                  f"ptxas's report, or no report for a chunk")
-    # the 32-bit scans keep the registers they had before the 64-bit
-    # instantiation joined their template (PERF.md)
+    # the seed scans keep the registers of their measured forms (PERF.md)
     for kernel, regs in SCAN_REGISTERS.items():
         got = [v.get("registers") for v in reports[kernel].values()]
         if got != [regs]:
@@ -4320,6 +4464,9 @@ def main():
             ("chain_hits_routed", "mapcaller_tpu_torch/csrc/chain.cu",
              "mapcaller_tpu/parallel/sharded_index.py:176", chain_n)):
         r = routed[2][name]
+        gap = (("launches_a_run", "gap_ms_a_run") if "gap_ms_a_run" in r
+               else ())
+        regs = next(iter(reports[name + "_kernel"].values()))
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": src_line, "launches": n.get(name, 0),
@@ -4327,8 +4474,10 @@ def main():
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None, "tolerance": 0,
             "call_ms": r["call_ms"], "unrouted_ms": r["unrouted_ms"],
+            "registers": regs.get("registers"), **{k: r[k] for k in gap},
             "shards_4": {k: routed[4][name][k] for k in (
-                "max_abs_err", "ms", "plain_ms", "bound_ms", "unrouted_ms")},
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "unrouted_ms",
+                *gap)},
             "shape": f"{routed[2]['reads']} reads, shard 0 of the main "
                      f"path's batch 0 under -shards 2 on one card, as the "
                      f"run launched it; shards_4: {routed[4]['reads']} "
@@ -4356,10 +4505,18 @@ def main():
             "spill_bytes": regs.get("spill_store_bytes", 0)
             + regs.get("spill_load_bytes", 0),
             "int32_form_ms": r.get("routed32_ms", r.get("int32_form_ms")),
+            **{k: r[k] for k in ("unrouted_ms", "launches_a_run",
+                                 "gap_ms_a_run") if k in r},
+            **({"shards_4": {k: r["shards_4"][k] for k in (
+                "B", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                "routed32_ms", "unrouted_ms", "launches_a_run",
+                "gap_ms_a_run")}} if "shards_4" in r else {}),
             "shape": f"{r['B']} reads, shard 0 of the main path's batch 0 "
                      f"under big_x64 -shards 2 on one card, as the run "
                      f"launched it; int32_form_ms: the 32-bit routed form "
-                     f"on the same reads"})
+                     f"on the same reads; unrouted_ms: the unrouted scan on "
+                     f"the same rows; shards_4: the scan on shard 0 of "
+                     f"batch 0 under -shards 4"})
     # K1 and K2 on the held inputs of the main data's mesh run at n = 4 on
     # [cuda:0] * 4 (launches of that run, and of every mesh run); K2 also
     # on the main path's batch 0 (run_evidence) with its launches a

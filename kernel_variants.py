@@ -28,10 +28,10 @@ def set_const(s, name, value):
     return edit(s, f"{name} = {cur};", f"{name} = {value};")
 
 
-def build(src_path, names, variant_source, kernel, workdir):
+def build(src_path, names, variant_source, kernels, workdir):
     """Compile every variant (variant_source(name, source) -> its text)
     at once, and the port's own sources meanwhile -> {name: (library,
-    ptxas report of `kernel`)}."""
+    {kernel: its ptxas report} for each name in `kernels`)}."""
     sys.path.insert(0, HERE)
     import chip_smoke
     from mapcaller_tpu_torch import toolchain
@@ -52,7 +52,8 @@ def build(src_path, names, variant_source, kernel, workdir):
         log = p.communicate()[0]
         if p.returncode != 0:
             raise RuntimeError(f"{n}: nvcc failed\n{log[-3000:]}")
-        out[n] = (lib, chip_smoke.ptxas_report(log, kernel))
+        out[n] = (lib, {k: chip_smoke.ptxas_report(log, k)
+                        for k in kernels})
     return out
 
 

@@ -226,7 +226,8 @@ def variants(names, work):
     import torch
     import chip_smoke as cs
     from mapcaller_tpu_torch.ops import ksw2_device as k
-    libs = kv.build(SRC, names, variant_source, "ksw2_ops_kernel", work)
+    libs = kv.build(SRC, names, variant_source, ("ksw2_ops_kernel",),
+                    work)
     own, n_launches = main_path_launch(work)
     longest = int(torch.argmax(torch.maximum(own[2], own[3])))
     inputs = {"own": own,

@@ -24,21 +24,22 @@
 //     x0 and x2 before the step. With lanes < B, `lanes` threads take
 //     reads from an atomic counter (the compacted scan's contract: the
 //     same per-read outputs).
-//   seed_scan3_routed_kernel  the same machine, a thread per read, over an
-//     occ3 table split into shards of `per` rows (-shards N): each row
-//     fetch reads row w from shard w / per through a table of the shards'
-//     base addresses (the reference routes the same rows through an
-//     all-gather and a psum, mapcaller_tpu/parallel/sharded_index.py:
-//     115-132). No prefix skip: the sharded table has no prefix rows. The
-//     row fetch is a template parameter of the scan (FlatRows, ShardRows),
-//     so seed_scan3_kernel compiles as it did.
+//   seed_scan3_routed_kernel  the same machine, a lane group per read
+//     (scan3_group, below), over an occ3 table split into shards of `per`
+//     rows (-shards N): each row fetch reads row w from shard w / per
+//     through a table of the shards' base addresses (the reference routes
+//     the same rows through an all-gather and a psum,
+//     mapcaller_tpu/parallel/sharded_index.py:115-132). No prefix skip:
+//     the sharded table has no prefix rows. The row fetch is a template
+//     parameter of the group form (ShardRows, ShardRows64); the thread
+//     form, scan3_read, reads the main path's one table (FlatRows).
 //   seed_scan3_big_kernel  the routed machine of the x64 big-genome path
 //     (big_x64 under -shards N; mapcaller_tpu/parallel/big_index.py:73-94,
 //     _seed_scan3 with idx_dtype int64): the shards' rows hold counts
 //     relative to their shard (int32), each fetch adds its shard's int64
 //     base counts (ShardRows64), and the interval state, the row indices
 //     and the correction rows are int64, so a text may pass 2^31 rows.
-//     No prefix skip, a thread per read.
+//     No prefix skip, a lane group per read.
 //   seed_scan1_kernel  the same machine over the 1-step occ4 rows, one
 //     base a step; with has_n byte codes whose N (> 3) ends an extension
 //     and is skipped as a start, else 2-bit packed codes.
@@ -78,6 +79,17 @@
 // per step. On an NVIDIA H100 80GB HBM3 at 700 W a 32,768-read batch of
 // the E. coli-scale main path ran at about two thirds of the byte bound
 // (PERF.md).
+//
+// The routed scans run on a shard's part of a batch (B / N reads), where a
+// thread a read sits at a floor: 2,048 to 16,384 reads took 0.20-0.28 ms
+// on that card, set by the loads (the loads alone, without the sums, took
+// nearly as long; the sums alone a ninth of it): each warp-wide 16-byte
+// load of the thread form touches 32 rows, 34 such loads a step. So they
+// take a group of lanes a read (scan3_group): every lane holds the read's
+// state, each lane loads its share of the two rows' count vectors
+// (neighbouring lanes on neighbouring 16-byte vectors, so a load touches
+// a few lines) and sums them, and the group adds its partials by xor
+// shuffles.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -86,6 +98,17 @@ namespace {
 constexpr int MIN_SEED_LEN = 16;
 constexpr int OCC_THR = 50;
 constexpr int THREADS = 128;
+// Lanes a read and least blocks an SM (__launch_bounds__) of the routed
+// scans, chosen on the card on a shard's 16,384 and 8,192 reads (PERF.md,
+// seed_scan_variants.py). The 32-bit kernel: 16 lanes within 64 registers
+// (8 blocks an SM, no spills) hold 8,192 reads in one wave, where 8 lanes
+// take 0.10 ms against 0.085; they tie at 16,384. The 64-bit kernel takes
+// 79 registers at 16 lanes and spills at 64, so 8,192 reads need 1.3
+// waves there; at 8 lanes (93 registers) they fit one, 0.100 ms against
+// 0.113; they tie at 16,384. Fewer reads (-shards 8 and up) would favour
+// 16 lanes for both.
+constexpr int ROUTED_GROUP = 16, ROUTED_MIN_BLOCKS = 8;
+constexpr int BIG_GROUP = 8;
 constexpr int ROW3 = 72;                // int32 per occ3 row
 constexpr int ROW1 = 8;                 // int32 per occ4 row
 // int64 per row of a shard's base table (ShardRows64): its 64 base counts,
@@ -113,13 +136,11 @@ using Occ3Consts = Occ3ConstsT<int>;
 // (base3x, B3X int64) also holds what the sums need of the 64 base counts
 // precomputed: for each order key w their sum over the trinucleotides d
 // with rev3(d) < w, and their sums by last base; so a fetch adds two
-// loads, not 64. The scan's state and row indices are int64 (Index). kPrefix: whether the fused prefix skip can
-// run (the routed scans have no prefix rows); kBase: whether counts add a
-// shard's base.
+// loads, not 64. The scan's state and row indices are int64 (Index).
+// kBase: whether counts add a shard's base. The main path's scan
+// (scan3_read) reads FlatRows; the routed kernels run scan3_group over
+// ShardRows or ShardRows64.
 struct FlatRows {
-  static constexpr bool kPrefix = true, kBase = false;
-  using Index = int;
-  using UIndex = unsigned;
   const int* rows;
   __device__ __forceinline__ const int4* row(unsigned w) const {
     return reinterpret_cast<const int4*>(rows + (size_t)w * ROW3);
@@ -127,7 +148,7 @@ struct FlatRows {
 };
 
 struct ShardRows {
-  static constexpr bool kPrefix = false, kBase = false;
+  static constexpr bool kBase = false;
   using Index = int;
   using UIndex = unsigned;
   const unsigned long long* base;       // [n] shard base addresses
@@ -140,19 +161,32 @@ struct ShardRows {
 };
 
 struct ShardRows64 {
-  static constexpr bool kPrefix = false, kBase = true;
+  static constexpr bool kBase = true;
   using Index = long long;
   using UIndex = unsigned long long;
   const unsigned long long* base;       // [n] shard base addresses
   const long long* base3x;              // [n, B3X] each shard's base table
   unsigned long long per;               // rows a shard
-  __device__ __forceinline__ const int4* row(unsigned long long w) const {
-    const unsigned long long s = w / per;
+  double inv_per;                       // 1.0 / per
+  // w / per without a 64-bit division (a long chain of integer steps):
+  // w and per are exact in a double (< 2^53), so the rounded quotient is
+  // at most one off, and one comparison each way settles it.
+  __device__ __forceinline__ unsigned long long shard(
+      unsigned long long w) const {
+    unsigned long long s = (unsigned long long)((double)w * inv_per);
+    if (s * per > w)
+      --s;
+    else if ((s + 1) * per <= w)
+      ++s;
+    return s;
+  }
+  // row w and its shard's base table row b
+  __device__ __forceinline__ const int4* row(unsigned long long w,
+                                             const long long*& b) const {
+    const unsigned long long s = shard(w);
+    b = base3x + (size_t)s * B3X;
     const int* p = reinterpret_cast<const int*>(__ldg(base + s));
     return reinterpret_cast<const int4*>(p + (size_t)(w - s * per) * ROW3);
-  }
-  __device__ __forceinline__ const long long* counts(unsigned long long w) const {
-    return base3x + (size_t)(w / per) * B3X;
   }
 };
 
@@ -184,13 +218,9 @@ __device__ __forceinline__ uint32_t sym_at(const int4& s, int q) {
 // 3-step sums of one occ3 row for trinucleotide d and order key w:
 // occ_d = Occ3(d, i), rev = sum_d' cnt[d'] [rev3(d') < w] + #{q < m:
 // sym_q valid, rev3(sym_q) < w}, rev3(d) = 63 - ((d&3)*16 + (d&12) +
-// (d>>4)) (ops/fm3_device.py occ3_d, rev3_lt_w_sum). With shard-relative
-// rows (kBase) both add the shard's int64 base counts.
-template <class Src>
-__device__ __forceinline__ void sums3(const Src& src,
-                                      typename Src::UIndex i, int d, int w,
-                                      typename Src::Index& occ_d,
-                                      typename Src::Index& rev) {
+// (d>>4)) (ops/fm3_device.py occ3_d, rev3_lt_w_sum).
+__device__ __forceinline__ void sums3(const FlatRows& src, unsigned i, int d,
+                                      int w, int& occ_d, int& rev) {
   const int4* R = src.row(i >> 4);
   const int m = (int)(i & 15u);
   int base = 0, rs = 0;
@@ -217,22 +247,14 @@ __device__ __forceinline__ void sums3(const Src& src,
   }
   occ_d = base;
   rev = rs;
-  if constexpr (Src::kBase) {           // the shard's base, precomputed
-    const long long* b3 = src.counts(i >> 4);
-    occ_d += __ldg(b3 + d);
-    rev += __ldg(b3 + B3X_REV + w);
-  }
 }
 
 // Derived 1-step counts of all 4 bases at occ3 index i (== bwt_occ4(i-1)):
 // group sums of the 64 counts by last base, the in-row symbols before m,
 // and the corrections for rows p=1, p=2 (ops/fm3_device.py occ1_4).
-template <class Src>
-__device__ __forceinline__ void occ1_4(
-    const Src& src, const Occ3ConstsT<typename Src::Index>& k,
-    typename Src::UIndex i, typename Src::Index& c0, typename Src::Index& c1,
-    typename Src::Index& c2, typename Src::Index& c3) {
-  using I = typename Src::Index;
+__device__ __forceinline__ void occ1_4(const FlatRows& src,
+                                       const Occ3Consts& k, unsigned i,
+                                       int& c0, int& c1, int& c2, int& c3) {
   const int4* R = src.row(i >> 4);
   const int m = (int)(i & 15u);
   int g0 = 0, g1 = 0, g2 = 0, g3 = 0;
@@ -255,21 +277,12 @@ __device__ __forceinline__ void occ1_4(
     g2 += (in && c == 2) ? 1 : 0;
     g3 += (in && c == 3) ? 1 : 0;
   }
-  const int a1 = (I)i > k.row_p1 ? 1 : 0;
-  const int a2 = (I)i > k.row_p2 ? 1 : 0;
+  const int a1 = (int)i > k.row_p1 ? 1 : 0;
+  const int a2 = (int)i > k.row_p2 ? 1 : 0;
   c0 = g0 + (k.t0 == 0 ? a1 : 0) + (k.t1 == 0 ? a2 : 0);
   c1 = g1 + (k.t0 == 1 ? a1 : 0) + (k.t1 == 1 ? a2 : 0);
   c2 = g2 + (k.t0 == 2 ? a1 : 0) + (k.t1 == 2 ? a2 : 0);
   c3 = g3 + (k.t0 == 3 ? a1 : 0) + (k.t1 == 3 ? a2 : 0);
-  if constexpr (Src::kBase) {           // the base counts' group sums
-    const longlong2* g = reinterpret_cast<const longlong2*>(
-        src.counts(i >> 4) + B3X_GRP);
-    const longlong2 u = __ldg(g), v = __ldg(g + 1);
-    c0 += u.x;
-    c1 += u.y;
-    c2 += v.x;
-    c3 += v.y;
-  }
 }
 
 // bwt_occ4 over the 1-step rows: counts of each base in BWT rows [0, k];
@@ -354,14 +367,14 @@ __device__ __forceinline__ void store(const Out& o, int r, int ns, bool ovf,
   }
 }
 
-template <class Src>
+// The occ3 machine for read r on one thread, over the main path's table.
 __device__ __forceinline__ void scan3_read(
-    const Src& src, const typename Src::Index* __restrict__ c3_first,
+    const FlatRows& src, const int* __restrict__ c3_first,
     const long long* __restrict__ L2, const uint8_t* __restrict__ packed,
     const int* __restrict__ rlens, int max_len, int cap,
-    const Occ3ConstsT<typename Src::Index>& k, const Out& o, int r) {
-  using I = typename Src::Index;
-  using U = typename Src::UIndex;
+    const Occ3Consts& k, const Out& o, int r) {
+  using I = int;
+  using U = unsigned;
   const int nwords = max_len >> 4;
   const uint32_t* words =
       reinterpret_cast<const uint32_t*>(packed + (size_t)r * (max_len >> 2));
@@ -376,7 +389,7 @@ __device__ __forceinline__ void scan3_read(
       if (pos >= rlen - MIN_SEED_LEN) break;         // done
       const int p = min(pos, last);
       bool jump = false;
-      if (Src::kPrefix && k.pfx_base > 0) {
+      if (k.pfx_base > 0) {
         const int key = word_key(words, nwords, p, k.pfx_k);
         const int4 e = __ldg(src.row((unsigned)(k.pfx_base + (key >> 4))) +
                              (key & 15));
@@ -457,6 +470,309 @@ __device__ __forceinline__ void scan3_read(
   store(o, r, ns, ovf, it, g);
 }
 
+// ---- the lane-group form of the occ3 machine (the routed scans) ----
+
+// The lanes of this thread's group of G in its warp: a group's shuffles
+// name only its own lanes, so the warp's other groups may be elsewhere
+// (another branch, or done).
+template <int G>
+__device__ __forceinline__ unsigned group_mask() {
+  if constexpr (G == 32)
+    return 0xFFFFFFFFu;
+  else
+    return ((1u << G) - 1u) << (G * ((threadIdx.x & 31) / G));
+}
+
+// The group's sum of v, on every lane: xor partners stay within a group
+// aligned to G lanes. Unsigned, so partials may wrap: the totals fit int32
+// and integer sums in any order give the same words.
+template <int G>
+__device__ __forceinline__ unsigned group_sum(unsigned mask, unsigned v) {
+#pragma unroll
+  for (int off = G / 2; off > 0; off >>= 1)
+    v += __shfl_xor_sync(mask, v, off);
+  return v;
+}
+
+// What a step counts, as selectors on a trinucleotide x = 4 v + q (lane q
+// of count vector v, or a symbol byte): x is selected when (v & vmask) ==
+// vval and q == sel (a 3-step's d: Occ3(d, .); a 1-step's base ci: its
+// group sum by last base), and counts toward the order sum when key(x) =
+// 63 - rev3(x) = 16 q + 4 (v & 3) + (v >> 2) > thr (a 3-step: rev3(x) <
+// w, thr = 63 - w; a 1-step: the bases after ci, thr = 16 ci + 15).
+struct StepSel {
+  int vmask, vval, sel, thr;
+};
+
+// One gathering step's row sums for a lane group, over rows Rk (index ik,
+// in-row offset mk) and Rl (il, ml): A = row ik's selected count, N = row
+// il's minus row ik's, X = the same of the order sums, each over the 64
+// counts and the symbols before the row's m (ops/fm3_device.py occ3_d,
+// rev3_lt_w_sum, occ1_4), without the per-row terms. Lane j takes the
+// count vectors v = j, j + G, ... of the two rows' 32 (row v / 16, vector
+// v % 16: neighbouring lanes load neighbouring 16-byte vectors of a row)
+// and the symbols of the same numbers (a lane loads the symbol word that
+// holds one, neighbouring lanes the same or the next word). The partials
+// are int32 sums of one row's counts (for ShardRows64 relative to the
+// row's shard) and are reduced as such. Shuffles: every lane of the group
+// calls this once a step that gathers, on the group's own state, so all
+// lanes in `mask` reach each shuffle; 3- and 1-steps share this one
+// reduction.
+struct GroupSums {
+  int A, N, X;
+};
+
+template <int G>
+__device__ __forceinline__ GroupSums group_sums(const int4* Rk, const int4* Rl,
+                                                int mk, int ml,
+                                                const StepSel& q, int lane,
+                                                unsigned mask) {
+  unsigned a = 0, n = 0, x = 0;
+#pragma unroll
+  for (int t = 0; t < 32 / G; ++t) {
+    // which row: known at compile time unless a group is the whole warp
+    const bool second = G == 32 ? lane >= 16 : t * G >= 16;
+    const int v = (lane + t * G) & 15;
+    const int4* R = second ? Rl : Rk;
+    const int4 c4 = __ldg(R + v);
+    const uint32_t sw = __ldg(reinterpret_cast<const uint32_t*>(R + 16) +
+                              (v >> 2));
+    const bool vm = (v & q.vmask) == q.vval;
+    const int kv = (v & 3) * 4 + (v >> 2);
+    unsigned ca = 0, cx = 0;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const unsigned c =
+          (unsigned)(e == 0 ? c4.x : e == 1 ? c4.y : e == 2 ? c4.z : c4.w);
+      ca += (vm && e == q.sel) ? c : 0u;
+      cx += 16 * e + kv > q.thr ? c : 0u;
+    }
+    const int sym = (int)((sw >> ((v & 3) * 8)) & 0xFFu);
+    if (v < (second ? ml : mk) && sym < 64) {
+      const int sv = sym >> 2, se = sym & 3;
+      ca += ((sv & q.vmask) == q.vval && se == q.sel) ? 1u : 0u;
+      cx += 16 * se + (sv & 3) * 4 + (sv >> 2) > q.thr ? 1u : 0u;
+    }
+    if (second) {
+      n += ca;
+      x += cx;
+    } else {
+      a += ca;
+      n -= ca;
+      x -= cx;
+    }
+  }
+  return GroupSums{(int)group_sum<G>(mask, a), (int)group_sum<G>(mask, n),
+                   (int)group_sum<G>(mask, x)};
+}
+
+// A row of the scan's table and, for shard-relative rows, its shard's base
+// table row (one shard lookup for both).
+template <class Src>
+__device__ __forceinline__ const int4* fetch_row(const Src& src,
+                                                 typename Src::UIndex w,
+                                                 const long long*& b) {
+  if constexpr (Src::kBase)
+    return src.row(w, b);
+  else
+    return src.row(w);
+}
+
+// finalize() for a lane group: every lane updates the read's state, lane 0
+// writes the seed.
+template <class I>
+__device__ __forceinline__ void finalize_group(const Out& o, int r,
+                                               int start, int ext_pos, I x0,
+                                               I x2, int& ns, bool& ovf,
+                                               int lane) {
+  const int slen = ext_pos - start;
+  if (slen >= MIN_SEED_LEN && x2 <= OCC_THR) {
+    if (lane == 0) {
+      const int slot = min(ns, o.S - 1);
+      const size_t plane = (size_t)o.B * o.S;
+      long long* t = o.tab + (size_t)r * o.S + slot;
+      t[0] = start;
+      t[plane] = slen;
+      t[2 * plane] = x0;
+      t[3 * plane] = x2;
+    }
+    if (ns >= o.S) ovf = true;
+    ns = min(ns + 1, o.S);
+  }
+}
+
+// store() for a lane group: lane 0 writes the per-read words, the lanes
+// share the zero fill of the slots at or past n_seeds.
+__device__ __forceinline__ void store_group(const Out& o, int r, int ns,
+                                            bool ovf, int it, int g,
+                                            int lane, int G) {
+  if (lane == 0) {
+    o.n_seeds[r] = ns;
+    o.overflow[r] = ovf ? 1 : 0;
+    o.iters[r] = it;
+    o.rows[r] = g;
+  }
+  const size_t plane = (size_t)o.B * o.S;
+  long long* t = o.tab + (size_t)r * o.S;
+  for (int s = ns + lane; s < o.S; s += G) {
+    t[s] = 0;
+    t[s + plane] = 0;
+    t[s + 2 * plane] = 0;
+    t[s + 3 * plane] = 0;
+  }
+}
+
+// scan3_read's machine without the prefix skip (the routed tables have no
+// prefix rows) for read r on the G lanes of a group (lane `lane`, the
+// group's lanes `mask`). Every lane holds the whole state, so the
+// group takes each branch together and leaves the loop together; a group
+// that finishes early leaves its warp's other groups, whose shuffles name
+// only their own lanes. Each read still runs at most `cap` steps, and
+// counts its steps and row gathers as the thread does. The row sums come
+// from group_sums; the per-row terms are added once, after the reduction:
+// the 1-step corrections for rows p = 1, 2 and, for ShardRows64, the
+// shards' int64 base counts (loaded by every lane, before the reduction,
+// as broadcasts). The interval state and x1 + x2 stay in Index / UIndex as
+// in the thread form.
+template <class Src, int G>
+__device__ __forceinline__ void scan3_group(
+    const Src& src, const typename Src::Index* __restrict__ c3_first,
+    const long long* __restrict__ L2, const uint8_t* __restrict__ packed,
+    const int* __restrict__ rlens, int max_len, int cap,
+    const Occ3ConstsT<typename Src::Index>& k, const Out& o, int r,
+    int lane, unsigned mask) {
+  using I = typename Src::Index;
+  using U = typename Src::UIndex;
+  const uint32_t* words =
+      reinterpret_cast<const uint32_t*>(packed + (size_t)r * (max_len >> 2));
+  const int rlen = rlens[r];
+  const int last = max_len - 1;
+  int pos = 0, start = 0, ext_pos = 0, ns = 0;
+  I x0 = 0, x1 = 0, x2 = 0;
+  bool in_ext = false, replay = false, ovf = false;
+  int it = 0, g = 0;
+  for (; it < cap; ++it) {
+    if (!in_ext) {                      // no prefix skip: the 1-base init
+      if (pos >= rlen - MIN_SEED_LEN) break;         // done
+      const int c = word_code(words, min(pos, last));
+      x0 = l2<I>(L2, c) + 1;
+      x1 = l2<I>(L2, 3 - c) + 1;
+      x2 = l2<I>(L2, c + 1) - l2<I>(L2, c);
+      ext_pos = pos + 1;
+      start = pos;
+      in_ext = true;
+      replay = false;
+      continue;
+    }
+    if (ext_pos >= rlen) {                             // at the read's end
+      finalize_group(o, r, start, ext_pos, x0, x2, ns, ovf, lane);
+      pos = ext_pos + 1;
+      in_ext = replay = false;
+      continue;
+    }
+    const int e0 = word_code(words, min(ext_pos, last));
+    const U ik = (U)x1, il = (U)(x1 + x2);
+    const bool three = !replay && ext_pos + 3 <= rlen;
+    const int ci = 3 - e0;
+    int e1 = 0, d = 0, w = 0;
+    if (three) {
+      e1 = word_code(words, min(ext_pos + 1, last));
+      const int e2 = word_code(words, min(ext_pos + 2, last));
+      d = (3 - e2) * 16 + (3 - e1) * 4 + (3 - e0);
+      w = e0 * 16 + e1 * 4 + e2;
+    }
+    const long long* bk = nullptr;
+    const long long* bl = nullptr;
+    const int4* Rk = fetch_row(src, ik >> 4, bk);
+    const int4* Rl = fetch_row(src, il >> 4, bl);
+    // the per-row terms: bA (row ik's), bN and bX (row il's minus row ik's)
+    I bA = 0, bN = 0, bX = 0;
+    if (three) {
+      if constexpr (Src::kBase) {
+        const long long dk = __ldg(bk + d);
+        bA = dk;
+        bN = __ldg(bl + d) - dk;
+        bX = __ldg(bl + B3X_REV + w) - __ldg(bk + B3X_REV + w);
+      }
+    } else {                    // the corrections for rows p = 1, 2
+      const int a1k = (I)ik > k.row_p1 ? 1 : 0, a2k = (I)ik > k.row_p2 ? 1 : 0;
+      const int a1 = ((I)il > k.row_p1 ? 1 : 0) - a1k;
+      const int a2 = ((I)il > k.row_p2 ? 1 : 0) - a2k;
+      bA = (k.t0 == ci ? a1k : 0) + (k.t1 == ci ? a2k : 0);
+      bN = (k.t0 == ci ? a1 : 0) + (k.t1 == ci ? a2 : 0);
+      bX = (k.t0 > ci ? a1 : 0) + (k.t1 > ci ? a2 : 0);
+      if constexpr (Src::kBase) {           // the base counts' group sums
+        const longlong2* gk = reinterpret_cast<const longlong2*>(bk + B3X_GRP);
+        const longlong2* gl = reinterpret_cast<const longlong2*>(bl + B3X_GRP);
+        const longlong2 uk = __ldg(gk), vk = __ldg(gk + 1);
+        const longlong2 ul = __ldg(gl), vl = __ldg(gl + 1);
+        const I o1 = ul.y - uk.y, o2 = vl.x - vk.x, o3 = vl.y - vk.y;
+        bA += pick4<I>(uk.x, uk.y, vk.x, vk.y, ci);
+        bN += pick4<I>(ul.x - uk.x, o1, o2, o3, ci);
+        bX += (ci < 3 ? o3 : 0) + (ci < 2 ? o2 : 0) + (ci < 1 ? o1 : 0);
+      }
+    }
+    const StepSel q = three ? StepSel{15, d >> 2, d & 3, 63 - w}
+                            : StepSel{0, 0, ci, 16 * ci + 15};
+    const GroupSums sums = group_sums<G>(Rk, Rl, (int)(ik & 15u),
+                                         (int)(il & 15u), q, lane, mask);
+    const int A = sums.A, N = sums.N, X = sums.X;
+    g += 2;
+    const I n2 = (I)N + bN;
+    if (three) {                                       // 3-step
+      if (n2 <= 0) {                                   // exact end within 3
+        replay = true;
+        continue;
+      }
+      const I lo = x1, hi = x1 + x2;
+      const int cmp1 = k.tail1 <= e0 ? 1 : 0;
+      const int cmp2 = (k.tail2a < e0 || (k.tail2a == e0 && k.tail2b <= e1)) ? 1 : 0;
+      const int adj = (lo <= k.primary && k.primary < hi ? 1 : 0) +
+                      (lo <= k.row_p1 && k.row_p1 < hi ? cmp1 : 0) +
+                      (lo <= k.row_p2 && k.row_p2 < hi ? cmp2 : 0);
+      x0 = x0 + adj + ((I)X + bX);
+      x1 = __ldg(c3_first + d) + ((I)A + bA);
+      x2 = n2;
+      ext_pos += 3;
+      continue;
+    }
+    // derived 1-step (tail bases, or the replay after a failed 3-step)
+    if (n2 <= 0) {
+      finalize_group(o, r, start, ext_pos, x0, x2, ns, ovf, lane);
+      pos = ext_pos + 1;
+      in_ext = replay = false;
+      continue;
+    }
+    const int adj = (x1 <= k.primary && x1 + x2 - 1 >= k.primary) ? 1 : 0;
+    x0 = x0 + adj + ((I)X + bX);
+    x1 = l2<I>(L2, ci) + 1 + ((I)A + bA);
+    x2 = n2;
+    ext_pos += 1;
+  }
+  store_group(o, r, ns, ovf, it, g, lane, G);
+}
+
+// A kernel's reads, G lanes each (groups never straddle a warp or a
+// block).
+template <int G, class Src>
+__device__ __forceinline__ void scan3_groups(
+    const Src& src, const typename Src::Index* __restrict__ c3_first,
+    const long long* __restrict__ L2, const uint8_t* __restrict__ packed,
+    const int* __restrict__ rlens, int max_len, int cap,
+    const Occ3ConstsT<typename Src::Index>& k, const Out& o) {
+  static_assert(32 % G == 0 && THREADS % G == 0, "a group in one warp");
+  const int t = blockIdx.x * THREADS + threadIdx.x;
+  const int r = t / G;
+  if (r >= o.B) return;                 // the whole group: one read
+  scan3_group<Src, G>(src, c3_first, L2, packed, rlens, max_len, cap, k, o,
+                      r, t % G, group_mask<G>());
+}
+
+// Blocks of a launch of G lanes a read over B reads.
+int group_blocks(int B, int G) {
+  return (int)(((long long)B * G + THREADS - 1) / THREADS);
+}
+
 __global__ void __launch_bounds__(THREADS)
 seed_scan3_kernel(const int* __restrict__ rows,
                   const int* __restrict__ c3_first,
@@ -474,28 +790,30 @@ seed_scan3_kernel(const int* __restrict__ rows,
                o, r);
 }
 
-// The occ3 scan over a genome-sharded table, a thread per read.
-__global__ void __launch_bounds__(THREADS)
+// The occ3 scan over a genome-sharded table, a lane group per read.
+__global__ void __launch_bounds__(THREADS, ROUTED_MIN_BLOCKS)
 seed_scan3_routed_kernel(ShardRows src, const int* __restrict__ c3_first,
                          const long long* __restrict__ L2,
                          const uint8_t* __restrict__ packed,
                          const int* __restrict__ rlens, int max_len, int cap,
                          Occ3Consts k, Out o) {
-  const int r = blockIdx.x * THREADS + threadIdx.x;
-  if (r >= o.B) return;
-  scan3_read(src, c3_first, L2, packed, rlens, max_len, cap, k, o, r);
+  scan3_groups<ROUTED_GROUP>(src, c3_first, L2, packed, rlens, max_len, cap,
+                             k, o);
 }
 
-// The x64 big-genome scan: int64 state over shard-relative rows.
-__global__ void __launch_bounds__(THREADS)
+// The x64 big-genome scan: int64 state over shard-relative rows, a lane
+// group per read. The explicit least of 1 block an SM is not the default:
+// ptxas then takes 93 registers, without it 77, and the kernel ran 0.187
+// ms against 0.247 on a shard's 16,384 reads (PERF.md, seed_scan_variants.py
+// Mb0).
+__global__ void __launch_bounds__(THREADS, 1)
 seed_scan3_big_kernel(ShardRows64 src, const long long* __restrict__ c3_first,
                       const long long* __restrict__ L2,
                       const uint8_t* __restrict__ packed,
                       const int* __restrict__ rlens, int max_len, int cap,
                       Occ3ConstsT<long long> k, Out o) {
-  const int r = blockIdx.x * THREADS + threadIdx.x;
-  if (r >= o.B) return;
-  scan3_read(src, c3_first, L2, packed, rlens, max_len, cap, k, o, r);
+  scan3_groups<BIG_GROUP>(src, c3_first, L2, packed, rlens, max_len, cap, k,
+                          o);
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -599,7 +917,7 @@ extern "C" int mc_seed_scan3(const void* rows, const void* c3_first,
 // occ3 scan over shards: shard_ptrs int64[n] (the shards' base addresses,
 // each int32[per, 72] and 16-byte aligned, readable from this device),
 // per > 0 rows a shard; the other inputs and the outputs as
-// mc_seed_scan3's, with no prefix skip and a thread per read.
+// mc_seed_scan3's, with no prefix skip and ROUTED_GROUP lanes a read.
 extern "C" int mc_seed_scan3_routed(const void* shard_ptrs, int per,
                                     const void* c3_first, const void* L2,
                                     const void* packed, const void* rlens,
@@ -616,7 +934,7 @@ extern "C" int mc_seed_scan3_routed(const void* shard_ptrs, int per,
   const Out o{(long long*)n_seeds, (long long*)tab, (uint8_t*)overflow,
               (int*)iters, (int*)rows_out, B, S};
   const ShardRows src{(const unsigned long long*)shard_ptrs, (unsigned)per};
-  seed_scan3_routed_kernel<<<(B + THREADS - 1) / THREADS, THREADS, 0,
+  seed_scan3_routed_kernel<<<group_blocks(B, ROUTED_GROUP), THREADS, 0,
                              (cudaStream_t)stream>>>(
       src, (const int*)c3_first, (const long long*)L2,
       (const uint8_t*)packed, (const int*)rlens, max_len, cap, k, o);
@@ -649,8 +967,9 @@ extern "C" int mc_seed_scan3_big(const void* shard_ptrs, long long per,
   const Out o{(long long*)n_seeds, (long long*)tab, (uint8_t*)overflow,
               (int*)iters, (int*)rows_out, B, S};
   const ShardRows64 src{(const unsigned long long*)shard_ptrs,
-                        (const long long*)base3x, (unsigned long long)per};
-  seed_scan3_big_kernel<<<(B + THREADS - 1) / THREADS, THREADS, 0,
+                        (const long long*)base3x, (unsigned long long)per,
+                        1.0 / (double)per};
+  seed_scan3_big_kernel<<<group_blocks(B, BIG_GROUP), THREADS, 0,
                           (cudaStream_t)stream>>>(
       src, (const long long*)c3_first, (const long long*)L2,
       (const uint8_t*)packed, (const int*)rlens, max_len, cap, k, o);

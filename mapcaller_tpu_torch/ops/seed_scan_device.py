@@ -10,11 +10,13 @@ BWT_Search). Three entry points on tensors:
               scan's contract);
   seed_scan3_routed  the occ3 scan over a genome-sharded table (`-shards
               N`, parallel/sharded_index.ShardedFM3), each row read from
-              its shard; one thread per read, no prefix skip;
+              its shard; a lane group per read (the lanes share each
+              step's row loads and sums), no prefix skip;
   seed_scan3_big  the same over the x64 big-genome table (big_x64 under
               `-shards N`, parallel/big_index.BigShardedFM3): rows of
               counts relative to their shard plus its int64 base counts,
-              int64 interval state and row indices;
+              int64 interval state and row indices, a lane group per
+              read;
   seed_scan1  the 1-step scan over the occ4 rows (ops/fm_device.
               DeviceFMIndex), on 2-bit packed codes or, with has_n, on
               byte codes whose N ends an extension.
@@ -240,8 +242,8 @@ def seed_scan3(fm3, packed: torch.Tensor, rlens: torch.Tensor, max_len: int,
 def seed_scan3_routed(sfm3, packed: torch.Tensor, rlens: torch.Tensor,
                       max_len: int, max_seeds: int, with_iters: bool = False):
     """The occ3 scan over a genome-sharded table (parallel/sharded_index.
-    ShardedFM3, whose occ3 is an ops/routed.Routed table): a thread per
-    read, each row read from its shard through the shards' base
+    ShardedFM3, whose occ3 is an ops/routed.Routed table): a lane group
+    per read, each row read from its shard through the shards' base
     addresses; no fused prefix skip and no lanes mode. Inputs and outputs
     as seed_scan3. A CPU tensor runs seed_scan3_routed_plain. Counted as
     seed_scan3_routed."""
@@ -279,8 +281,8 @@ def seed_scan3_big(bfm, packed: torch.Tensor, rlens: torch.Tensor,
     shard; bfm.base3x the shards' base tables (parallel/big_index.
     base_table of the base counts base3), c3_first and L2, int64 on the
     batch's device; the row constants Python ints, which may pass 2^31):
-    a thread per read with int64 interval state, each row read from its
-    shard and its shard's base added; no prefix skip. Inputs and outputs
+    a lane group per read with int64 interval state, each row read from
+    its shard and its shard's base added; no prefix skip. Inputs and outputs
     as seed_scan3. A CPU tensor runs seed_scan3_big_plain (over base3).
     Counted as seed_scan3_big."""
     from ..parallel.big_index import B3X

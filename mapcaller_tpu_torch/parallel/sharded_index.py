@@ -10,8 +10,9 @@ its row fetches are routed: row w is read from shard w // per.
 The reference runs the scan as one lockstep program over a device mesh
 and routes every step's gathers through an all-gather of the queries and
 a psum of the answers (:115-132), two collectives a step. The port's scan
-kernel is a thread per read that runs to its end, with no lockstep step
-at which a collective could sit; so the routing moves into the row fetch.
+kernel runs each read to its end on a lane group of its own, with no
+lockstep step at which a collective could sit; so the routing moves into
+the row fetch.
 One process addresses the N devices: a kernel takes a table of the
 shards' base addresses and reads each row from its shard, on the same
 card or, with peer access, from another card's memory. Each shard device

@@ -105,8 +105,8 @@ def variants(names, work):
     import chip_smoke as cs
     from mapcaller_tpu_torch.ops import chain_kernels as ck
     from mapcaller_tpu_torch.ops import mesh_kernels as mk
-    libs = kv.build(SRC, names, variant_source, "dp_scatter_scan_kernel",
-                    work)
+    libs = kv.build(SRC, names, variant_source,
+                    ("dp_scatter_scan_kernel",), work)
     planes, (pd, mmp, rl, words, meta), pe = main_path_data(work)
     dev = pd.device
     cur = torch.cuda.current_stream(dev)

@@ -784,34 +784,65 @@ def mirror_case():
                 plain=plain, lead=lead, C=lead * 16 * bfm.occ3.per)
 
 
-@pytest.mark.parametrize("shifted", [False, True])
-def test_scan3_big_mirror_equal_plain(mirror_case, shifted):
+@pytest.mark.parametrize("shifted, G, max_seeds", [
+    (False, 0, None), (True, 0, None), (False, 8, None), (True, 16, 1),
+    (False, 32, None)],
+    ids=["False", "True", "False-G8", "True-G16-overflow", "False-G32"])
+def test_scan3_big_mirror_equal_plain(mirror_case, shifted, G, max_seeds):
     """The scan kernel's thread over the routed shard-relative rows plus
     base3 equals the plain 64-bit scan in every output, its steps and row
     counts too; placed past 2^31 (rows, L2, c3_first and the correction
     rows moved by C), s_x0 is exactly C more, everything else equal, and
-    no row below the shift is read."""
+    no row below the shift is read. With G, on the same reads with some
+    cut to 0-17 bases and some run to full length (and a seed table of 1
+    that overflows), the kernel's lane-group form at G lanes a read
+    (tests/test_torch_seed_scan.py mirror_scan3_group: int32 partials of
+    the shard-relative rows reduced by the xor-shuffle tree, the base
+    counts added after) equals the thread in every output; some of its
+    fetches read a shard's first or last row."""
     m = mirror_case
     bfm = m["bfm"]
     C = m["C"] if shifted else 0
     rows = _Shards64([t.numpy() for t in bfm.occ3.shards], bfm.occ3.per,
                      _base_table(bfm.base3.numpy()),
                      lead=m["lead"] if shifted else 0)
-    got = mirror_scan3_big(rows, _consts(bfm, C), m["packed"], m["rlens"],
-                           MAXLEN, S64)
+    rlens, plain, S = m["rlens"], m["plain"], S64
+    if G:
+        rlens = rlens.copy()
+        rlens[::9] = np.resize([0, 15, 16, 17], len(rlens[::9]))
+        rlens[4::7] = MAXLEN
+        S = max_seeds or S64
+        plain = ssd.seed_scan3_big_plain(bfm, m["pk"], torch.from_numpy(rlens),
+                                         MAXLEN, S, with_iters=True)
+    k = _consts(bfm, C)
+    got = mirror_scan3_big(rows, k, m["packed"], rlens, MAXLEN, S)
     names = tfs._SEED_KEYS + ("iters", "rows")
     assert C == 0 or C >= 1 << 31
-    for name, g, w in zip(names, got, m["plain"]):
+    for name, g, w in zip(names, got, plain):
         w = w.numpy().astype(np.int64)
         if name == "s_x0":
-            n = m["plain"][0].numpy()
-            used = np.arange(S64)[None, :] < n[:, None]
+            n = plain[0].numpy()
+            used = np.arange(S)[None, :] < n[:, None]
             assert np.array_equal(g[used], w[used] + C), name
             assert not g[~used].any()
         else:
             assert np.array_equal(g.astype(np.int64), w), name
     assert rows.lead_reads == 0
-    assert int(m["plain"][0].sum()) > 64
+    assert int(plain[0].sum()) > 64
+    if not G:
+        return
+    edges = []
+
+    def fetch(i):
+        edges.append((i >> 4) % rows.per in (0, rows.per - 1))
+        return rows.row3(i)
+
+    group = tss.mirror_scan3_group(fetch, k, m["packed"], rlens, MAXLEN, S,
+                                   G)
+    tss._equal(group, got)
+    assert any(edges) and rows.lead_reads == 0
+    assert (rlens < tss.MIN).any() and (rlens == MAXLEN).any()
+    assert bool(plain[5].any()) == (max_seeds is not None)
 
 
 @pytest.mark.parametrize("shifted", [False, True])

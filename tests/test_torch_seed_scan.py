@@ -7,7 +7,9 @@ wrapped by ops/seed_scan_device.py) on the CPU, where no kernel runs:
     _seed_scan3(with_iters=True) and _seed_scan, and (row gathers too) to
     the port's plain scans, with and without the
     fused prefix skip, at two read widths, with short reads, full-length
-    reads, N bases and a seed table small enough to overflow;
+    reads, N bases and a seed table small enough to overflow; the lane-group
+    form of the routed scans (mirror_scan3_group) is defined here and held
+    to the thread mirrors in test_torch_shards.py and test_torch_big.py;
   * the wrappers refuse what the kernels do not take, run the plain scans
     for CPU tensors without counting a launch, and the plain scan's
     outputs do not depend on the lanes of the compacted form;
@@ -31,6 +33,7 @@ from mapcaller_tpu_torch.ops import fm_search as tfs
 from mapcaller_tpu_torch.ops import seed_scan_device as ssd
 from mapcaller_tpu_torch.ops.fm3_device import DeviceFM3
 from mapcaller_tpu_torch.ops.fm_device import DeviceFMIndex
+from mapcaller_tpu_torch.parallel import big_index as tbig
 from mapcaller_tpu_torch.pipeline import device_backend
 from mapcaller_tpu_torch.pipeline.device_backend import DeviceBackend
 
@@ -280,6 +283,168 @@ def mirror_scan3(t3, packed, rlens, max_len, S):
                         st.update(x0=x0 + adj + sum(ok2[ci + 1:]),
                                   x1=L2[ci] + 1 + tk[ci], x2=ok2[ci],
                                   ext_pos=ep + 1)
+            it += 1
+        out.store(r, st, it)
+    return out.result()
+
+
+M32 = 0xFFFFFFFF
+
+
+class RoutedFetch:
+    """A routed scan's row fetch (ShardRows / ShardRows64): occ3 index i
+    -> (the row's 64 counts, its 16 symbol bytes, i & 15, its shard's base
+    table row or None), row i >> 4 read from shard (i >> 4) // per; counts
+    the fetches of a shard's first or last row."""
+
+    def __init__(self, shards, per, base3x=None):
+        self.shards, self.per, self.base3x = shards, per, base3x
+        self.edge_rows = 0
+
+    def __call__(self, i):
+        w = i >> 4
+        s = w // self.per
+        self.edge_rows += w % self.per in (0, self.per - 1)
+        row = self.shards[s][w - s * self.per]
+        return (row[:64].astype(np.int64),
+                np.ascontiguousarray(row[64:68]).view(np.uint8).astype(
+                    np.int64), i & 15,
+                None if self.base3x is None else self.base3x[s])
+
+
+def scan3_consts(t):
+    """The routed scans' constants of a ShardedFM3 / BigShardedFM3."""
+    return types.SimpleNamespace(
+        L2=[int(x) for x in t.L2.numpy()],
+        c3_first=[int(x) for x in t.c3_first.numpy()],
+        **{c: int(getattr(t, c)) for c in (
+            "primary", "row_p1", "row_p2", "t0", "t1", "tail1", "tail2a",
+            "tail2b")})
+
+
+def _group_sums(fetch, ik, il, sel, G):
+    """group_sums(): each lane's partials (A, N, X) of a two-row step
+    from its count vectors and symbols (lane j: v = j, j + G, ... of the
+    two rows' 32, row v // 16), wrapped to 32 bits, then the xor-shuffle
+    tree (offsets G/2, ..., 1), after which every lane holds the same
+    totals. sel: (vmask, vval, sel, thr)."""
+    vmask, vval, q, thr = sel
+    rows = (fetch(ik), fetch(il))
+    lanes = []
+    for lane in range(G):
+        a = n = x = 0
+        for t in range(32 // G):
+            second = lane + t * G >= 16
+            v = (lane + t * G) & 15
+            cnt, syms, m, _ = rows[second]
+            vm = (v & vmask) == vval
+            kv = (v & 3) * 4 + (v >> 2)
+            ca = sum(int(cnt[4 * v + e]) for e in range(4)
+                     if vm and e == q)
+            cx = sum(int(cnt[4 * v + e]) for e in range(4)
+                     if 16 * e + kv > thr)
+            sym = int(syms[v])
+            if v < m and sym < 64:
+                sv, se = sym >> 2, sym & 3
+                ca += (sv & vmask) == vval and se == q
+                cx += 16 * se + (sv & 3) * 4 + (sv >> 2) > thr
+            if second:
+                n, x = n + ca, x + cx
+            else:
+                a, n, x = a + ca, n - ca, x - cx
+        lanes.append([a & M32, n & M32, x & M32])
+    off = G // 2
+    while off:
+        lanes = [[(p + o) & M32 for p, o in zip(lanes[j], lanes[j ^ off])]
+                 for j in range(G)]
+        off //= 2
+    assert all(ln == lanes[0] for ln in lanes)
+    return [v - (1 << 32) if v >> 31 else v for v in lanes[0]]
+
+
+def mirror_scan3_group(fetch, k, packed, rlens, max_len, S, G):
+    """scan3_group's G lanes of a read (seed_scan3_routed_kernel and
+    seed_scan3_big_kernel), one read after another: the state is the
+    group's (every lane holds it), a gathering step's row sums come from
+    _group_sums, and the per-row terms are added after the reduction: the
+    1-step corrections for rows p = 1, 2 and, with a base table, the
+    shards' base counts. No prefix skip. fetch: RoutedFetch-like; k: the
+    constants (scan3_consts)."""
+    def base(i):
+        return fetch(i)[3]
+
+    all_words = packed.view("<u4")
+    cap = tfs.scan3_cap(max_len, S)
+    out = _Tables(packed.shape[0], S)
+    last = max_len - 1
+    L2 = k.L2
+    for r in range(packed.shape[0]):
+        words, rlen, st = all_words[r], int(rlens[r]), _state()
+        it = 0
+        while it < cap:
+            if not st["in_ext"]:
+                if st["pos"] >= rlen - MIN:
+                    break
+                c = _word_code(words, min(st["pos"], last))
+                st.update(x0=L2[c] + 1, x1=L2[3 - c] + 1,
+                          x2=L2[c + 1] - L2[c], ext_pos=st["pos"] + 1,
+                          start=st["pos"], in_ext=True, replay=False)
+            elif st["ext_pos"] >= rlen:
+                out.finalize(r, st)
+            else:
+                ep, x0, x1, x2 = st["ext_pos"], st["x0"], st["x1"], st["x2"]
+                ik, il = x1, x1 + x2
+                e0 = _word_code(words, min(ep, last))
+                ci = 3 - e0
+                three = not st["replay"] and ep + 3 <= rlen
+                if three:
+                    e1 = _word_code(words, min(ep + 1, last))
+                    e2 = _word_code(words, min(ep + 2, last))
+                    d = (3 - e2) * 16 + (3 - e1) * 4 + (3 - e0)
+                    w = e0 * 16 + e1 * 4 + e2
+                    sel = (15, d >> 2, d & 3, 63 - w)
+                    bA = bN = bX = 0
+                    if base(ik) is not None:
+                        bk, bl = base(ik), base(il)
+                        bA, bN = int(bk[d]), int(bl[d]) - int(bk[d])
+                        bX = (int(bl[tbig.B3X_REV + w])
+                              - int(bk[tbig.B3X_REV + w]))
+                else:
+                    sel = (0, 0, ci, 16 * ci + 15)
+                    gk = [(k.t0 == c and ik > k.row_p1)
+                          + (k.t1 == c and ik > k.row_p2) for c in range(4)]
+                    gl = [(k.t0 == c and il > k.row_p1)
+                          + (k.t1 == c and il > k.row_p2) for c in range(4)]
+                    if base(ik) is not None:
+                        bk, bl = base(ik), base(il)
+                        gk = [g + int(bk[tbig.B3X_GRP + c])
+                              for c, g in enumerate(gk)]
+                        gl = [g + int(bl[tbig.B3X_GRP + c])
+                              for c, g in enumerate(gl)]
+                    bA, bN = gk[ci], gl[ci] - gk[ci]
+                    bX = sum(gl[c] - gk[c] for c in range(ci + 1, 4))
+                A, N, X = _group_sums(fetch, ik, il, sel, G)
+                st["g"] += 2
+                n2 = N + bN
+                if three and n2 <= 0:
+                    st["replay"] = True
+                elif three:
+                    lo, hi = x1, x1 + x2
+                    cmp1 = k.tail1 <= e0
+                    cmp2 = (k.tail2a < e0
+                            or (k.tail2a == e0 and k.tail2b <= e1))
+                    adj = ((lo <= k.primary < hi)
+                           + ((lo <= k.row_p1 < hi) and cmp1)
+                           + ((lo <= k.row_p2 < hi) and cmp2))
+                    st.update(x0=x0 + adj + X + bX,
+                              x1=k.c3_first[d] + A + bA, x2=n2,
+                              ext_pos=ep + 3)
+                elif n2 <= 0:
+                    out.finalize(r, st)
+                else:
+                    adj = x1 <= k.primary and x1 + x2 - 1 >= k.primary
+                    st.update(x0=x0 + adj + X + bX,
+                              x1=L2[ci] + 1 + A + bA, x2=n2, ext_pos=ep + 1)
             it += 1
         out.store(r, st, it)
     return out.result()

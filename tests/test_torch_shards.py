@@ -50,6 +50,7 @@ from mapcaller_tpu_torch.parallel.sharded_index import (ShardedChainKernel,
                                                         shard_occ3_rows)
 from mapcaller_tpu_torch.pipeline.device_backend import DeviceBackend
 from test_devices import _make_dataset
+import test_torch_seed_scan as tss
 
 torch.set_num_threads(1)
 CPU = torch.device("cpu")
@@ -152,12 +153,20 @@ def test_built_shards_equal_split(n, device_sa):
             assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("n", [2, 8])
-def test_routed_scan_equals_reference(n):
+@pytest.mark.parametrize("n, G, max_seeds", [
+    (2, 0, None), (8, 0, None), (2, 8, None), (8, 16, 1), (8, 32, None)],
+    ids=["2", "8", "2-G8", "8-G16-overflow", "8-G32"])
+def test_routed_scan_equals_reference(n, G, max_seeds):
     """The plain routed scan (seed_scan3_routed on CPU tensors, every row
     gathered from its shard) against the reference's
     build_sharded_seed_scan on n mesh devices, and against the unrouted
-    scan: the same seed tables (template tests/test_mesh.py:70)."""
+    scan: the same seed tables (template tests/test_mesh.py:70). With G,
+    the routed kernel's lane-group form at G lanes a read
+    (tests/test_torch_seed_scan.py mirror_scan3_group, its partials reduced
+    by the xor-shuffle tree) equals its thread mirror and the plain routed
+    scan in every output, steps and row gathers too, on reads of 0-17
+    bases, full-length reads and 60-base ones, with a seed table of 1 that
+    overflows; some of its fetches read a shard's first or last row."""
     rng = np.random.default_rng(17)
     L = 12000
     codes = rng.integers(0, 4, size=L).astype(np.uint8)
@@ -168,13 +177,17 @@ def test_routed_scan_equals_reference(n):
     text = idx.ref.fwd_rc_codes()
     mat = np.zeros((BG, MAXLEN), dtype=np.uint8)
     rlens = np.full(BG, 60, dtype=np.int32)
+    if G:                                    # short and full-length reads
+        rlens[::9] = np.resize([0, 15, 16, 17], len(rlens[::9]))
+        rlens[4::7] = MAXLEN
     for b in range(BG):
+        ln = int(rlens[b])
         p = int(rng.integers(0, idx.genome_size - 60))
-        r = text[p:p + 60].copy()
-        if b % 3 == 0:
-            j = int(rng.integers(0, 60))
+        r = text[p:p + ln].copy()
+        if b % 3 == 0 and ln:
+            j = int(rng.integers(0, ln))
             r[j] = (r[j] + 1 + rng.integers(0, 3)) % 4
-        mat[b, :60] = r
+        mat[b, :ln] = r
     packed = _pack(mat)
     mesh = make_mesh(n)
     slices, _ = jax_shard_occ3_rows(jfm3, n)
@@ -185,19 +198,31 @@ def test_routed_scan_equals_reference(n):
     fm3 = DeviceFM3.from_host(idx, DeviceFMIndex.from_host(idx, device=CPU),
                               pfx_k=0)
     sfm3 = shard_index(fm3, [CPU] * n)[CPU]
-    max_seeds = MAXLEN // (MIN_SEED_LEN + 1) + 2
-    args = (torch.from_numpy(packed), torch.from_numpy(rlens), MAXLEN,
-            max_seeds)
+    S = max_seeds or MAXLEN // (MIN_SEED_LEN + 1) + 2
+    args = (torch.from_numpy(packed), torch.from_numpy(rlens), MAXLEN, S)
     ssd.STATS.reset()
-    got = ssd.seed_scan3_routed(sfm3, *args)
-    flat = ssd.seed_scan3(fm3, *args)
+    got = ssd.seed_scan3_routed(sfm3, *args, with_iters=bool(G))
+    flat = ssd.seed_scan3(fm3, *args, with_iters=bool(G))
     assert not ssd.STATS.launches            # CPU: the plain versions
-    for k, (g, w, f) in enumerate(zip(got, want, flat)):
-        g = g.numpy()
-        assert np.array_equal(g.astype(np.int64),
-                              np.asarray(w).astype(np.int64)), k
-        assert np.array_equal(g, f.numpy()), k
+    if max_seeds is None:                    # the reference's table size
+        for k, (g, w) in enumerate(zip(got, want)):
+            assert np.array_equal(g.numpy().astype(np.int64),
+                                  np.asarray(w).astype(np.int64)), k
+    for k, (g, f) in enumerate(zip(got, flat)):
+        assert np.array_equal(g.numpy(), f.numpy()), k
     assert int(got[0].sum()) > BG // 2       # seeds found
+    if not G:
+        return
+    fetch = tss.RoutedFetch([t.numpy() for t in sfm3.occ3.shards],
+                            sfm3.occ3.per)
+    thread = tss.mirror_scan3(fm3, packed, rlens, MAXLEN, S)
+    group = tss.mirror_scan3_group(fetch, tss.scan3_consts(sfm3), packed,
+                                   rlens, MAXLEN, S, G)
+    tss._equal(group, thread)
+    tss._equal(group, got)
+    assert fetch.edge_rows > 0
+    assert (rlens < MIN_SEED_LEN).any() and (rlens == MAXLEN).any()
+    assert bool(got[5].any()) == (max_seeds is not None)
 
 
 def test_routed_sa_equals_reference():
