@@ -10,7 +10,8 @@ Phases, one JSON line each on stdout (any failure raises and the process
 exits non-zero):
   env        card name and power limit (nvidia-smi), torch and CUDA
   build      nvcc for csrc/*.cu and g++ for the C++ host leg, in parallel,
-             with the NW, ksw2, seed-scan and chain kernels' registers,
+             with the NW, ksw2, seed-scan, chain and calling kernels'
+             registers,
              shared memory, stack frame and spills from -Xptxas -v (any
              stack frame or spill fails, and so do registers of the seed
              scans other than SCAN_REGISTERS)
@@ -57,7 +58,11 @@ exits non-zero):
              batch: the seed-freq scan, the hits kernel and classify+
              pack, and no stand-alone scan of the slow counts; host
              chaining only the seed-freq scan and the hits kernel) and the
-             evidence steps;
+             evidence steps and the calling kernels (csrc/calling.cu:
+             the finalize and the caller scan once, the column fetch at
+             least once in every run that calls from the card planes,
+             none with host evidence, and no plain version of them on the
+             card);
              every run but the host-evidence and host-chaining ones
              accumulates evidence on the card and calls from it, with no
              capacity overflow; no run sends a read to the host oracle or
@@ -147,13 +152,21 @@ exits non-zero):
              with its kernels once a batch, every dispatch replayed
              against the plain versions; BigDeviceEvidence's apply,
              host-delta merge, fold and scan a shard, each beside its byte
-             bound. The devices phase also times the plane sum of
+             bound, the fold and the scan (evidence_finalize and
+             caller_scan once a shard) held against their plain versions
+             on the card at -shards 2 and 4. The devices phase also times the plane sum of
              -devices N (four add_ of two plane sets)
   evidence   device ms (queued launches) of the evidence apply of one
              batch, the finalize fold, the caller scan and the column
              fetch on the warm-up's own planes and inputs, each equal to
              the same call on the CPU, with the bound (bytes over the
              card's memory rate)
+  calling    the calling kernels (csrc/calling.cu) on the warm-up's own
+             planes: the finalize from the text words, the caller scan
+             and the first column fetch (with its block depths), each
+             equal to its plain version on the card in every word, with
+             device ms, call ms, plain ms and the byte bound; the calling
+             phase's peak device memory, plain versions against kernels
   dp_rates   on each algorithm's largest DP batch of the main path (its
              own pairs): one device DP call end to end on 1 pair and on
              all of them (fixed and per-pair cost), and the scalar C++
@@ -209,7 +222,9 @@ shape, the scan and chain kernels on their main path's own batch 0, the
 routed ones on shard 0 of it under -shards 2, the 64-bit ones on shard 0
 of it under big_x64 -shards 2, as the runs launched them; the seed+chain
 kernels also with their launches on the multihost and mesh runs; K1 and
-K2 on the mesh's main-data run at n = 4),
+K2 on the mesh's main-data run at n = 4; the calling kernels on the
+main path's own planes with their launches a run, the NOR blocks on a
+-gvcf run's own call, with B4's fold and scan a shard beside),
 the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}.
 
@@ -1870,12 +1885,20 @@ def big_memory(be, ev, earlier=()):
 
 
 def keep_big_inputs(ev, kept):
+    import numpy as np
     """Copies of a BigDeviceEvidence's inputs, taken as its big run makes
     them, for time_big_evidence after the run: its first apply's token,
-    admit bits and mode, and the host profile's slow-read deltas as its
-    merge finds them."""
+    admit bits and mode, the host profile's slow-read deltas as its
+    merge finds them, and its first column fetch's positions and
+    prefix points."""
     import types
-    apply, merge = ev.apply_batch, ev._merge_host_deltas
+    apply, merge, fetch = (ev.apply_batch, ev._merge_host_deltas,
+                           ev.fetch_columns)
+
+    def fetch_tap(positions, prefix_pts, bd_blocks=None):
+        kept.setdefault("fetch", (np.asarray(positions).copy(),
+                                  np.asarray(prefix_pts).copy()))
+        return fetch(positions, prefix_pts, bd_blocks)
 
     def apply_tap(token, fast_bits, pair_end):
         kept.setdefault("apply", (types.SimpleNamespace(
@@ -1891,6 +1914,7 @@ def keep_big_inputs(ev, kept):
         return merge()
 
     ev.apply_batch, ev._merge_host_deltas = apply_tap, merge_tap
+    ev.fetch_columns = fetch_tap
 
 
 BIG_HOST = ("acgt", "exact_diff", "F1_diff", "R2_diff", "F2_diff",
@@ -1906,14 +1930,20 @@ def time_big_evidence(ev, kept, reps=10):
     memory rate (apply: every shard reads the batch's pd, mmp, read
     lengths and admit bits, and each plane update is read and written
     once; fold: 40 B of planes and 4 of codes read, 48 of outputs written
-    a position; scan: 28 B read a position); then the host-delta merge,
-    host work (nonzero scans over the genome-sized host arrays, then an
-    index_add_ a shard), timed on the host between device syncs with no
-    bound on the card."""
+    a position; scan: 28 B read a position; the column fetch, the run's
+    first: the indices read, 40 B gathered a position and 8 a prefix
+    point, 80 and 8 written), the fold and the scan first held against
+    their plain versions on the card (every word of every shard's
+    outputs, on the run's planes) and timed the same way on them; then
+    the host-delta merge, host work (nonzero scans over the genome-sized
+    host arrays, then an index_add_ a shard), timed on the host between
+    device syncs with no bound on the card."""
     import types
     import numpy as np
     import torch
-    del ev.apply_batch, ev._merge_host_deltas   # the taps: the class's again
+    from mapcaller_tpu_torch.ops import calling_kernels as cal
+    # the taps: the class's again
+    del ev.apply_batch, ev._merge_host_deltas, ev.fetch_columns
     n, Pl = ev.n, ev.Pl
     tok, fast_bits, pe = kept["apply"]
     B, S = tok.mmp.shape
@@ -1922,16 +1952,53 @@ def time_big_evidence(ev, kept, reps=10):
     adm = ((fb[np.arange(B) >> 5].astype(np.int64) >> (np.arange(B) & 31))
            & 1).astype(bool)
     n_mm = int((tok.mmp.cpu().numpy()[adm] >= 0).sum())
-    ms = dict(fold=cuda_ms(ev._fold, reps),
-              scan=cuda_ms(lambda: (setattr(ev, "_scan", None), ev.scan()),
-                           reps),
+    def rescan():
+        ev._scan = None
+        return ev.scan()
+
+    # the fold and the scan a shard on the kernels, as the run took them,
+    # against their plain versions on the card (the kernel entries
+    # swapped for the plain versions, which take the same arguments), on
+    # the run's merged planes and final fold
+    got = ev._fold(), rescan()
+    entries = cal._finalize_kernel, cal._scan_kernel
+    cal._finalize_kernel = cal.evidence_finalize_plain
+    cal._scan_kernel = cal.caller_scan_plain
+    try:
+        want = ev._fold(), rescan()
+        plain_ms = dict(fold=cuda_ms(ev._fold, reps),
+                        scan=cuda_ms(rescan, reps))
+    finally:
+        cal._finalize_kernel, cal._scan_kernel = entries
+    (gouts, gtots), gscan = got
+    (wouts, wtots), wscan = want
+    errs = dict(
+        fold=max([max_err_of(g, w) for g, w in zip(gouts, wouts)]
+                 + [int(np.abs(gtots - wtots).max())]),
+        scan=max([max_err_of(g, w) for g, w in zip(gscan[0]._parts,
+                                                   wscan[0]._parts)]
+                 + [int(np.abs(np.asarray(g, np.int64)
+                               - np.asarray(w, np.int64)).max())
+                    if np.asarray(g).size else 0
+                    for g, w in zip(gscan[1:], wscan[1:])]))
+    if any(errs.values()):
+        raise AssertionError(f"big: B4's fold or scan kernels != plain "
+                             f"{errs}")
+    pos, pref = kept["fetch"]
+    ms = dict(fold=cuda_ms(ev._fold, reps), scan=cuda_ms(rescan, reps),
+              fetch=cuda_ms(lambda: ev.fetch_columns(pos, pref), reps),
               apply=cuda_ms(lambda: ev.apply_batch(tok, fast_bits, pe), reps))
     nbytes = dict(apply=n * (B * (8 + 4 * S + 4) + fb.nbytes)
                   + 8 * (4 * int(adm.sum()) + 3 * n_mm),
-                  fold=n * 92 * Pl, scan=n * 28 * Pl)
+                  fold=n * 92 * Pl, scan=n * 28 * Pl,
+                  fetch=8 * (pos.size + pref.size) + 120 * pos.size
+                  + 16 * pref.size)
     res = {k: dict(ms_a_shard=ms[k] / n, bytes_a_shard=nbytes[k] / n,
                    bound_ms_a_shard=1e3 * nbytes[k] / n / H100_BYTES_S,
                    bound_by="bytes", call_ms=ms[k]) for k in ms}
+    for k in ("fold", "scan"):
+        res[k].update(max_abs_err=errs[k], plain_ms_a_shard=plain_ms[k] / n,
+                      plain_call_ms=plain_ms[k])
     host, live, times = kept.get("host"), ev.host_profile, []
     try:
         for _ in range(reps if host else 0):   # no slow reads: no merge
@@ -1970,11 +2037,12 @@ def run_big(run, card, sam, vcf, reps=20):
     the -shards 2 run's launches by kernel, the single-card routes)."""
     import numpy as np
     import torch
+    from mapcaller_tpu_torch.ops import calling_kernels as cal
     from mapcaller_tpu_torch.ops import chain_kernels as ck
-    from mapcaller_tpu_torch.calling import scan_device
     from mapcaller_tpu_torch.ops import seed_scan_device as ssd
     from mapcaller_tpu_torch.parallel import big_index
     from mapcaller_tpu_torch.pipeline import device_profile
+    from mapcaller_tpu_torch.pipeline.big_profile import BigDeviceEvidence
     from mapcaller_tpu_torch.pipeline.device_backend import DeviceBackend
     cuda0 = torch.device("cuda", 0)
     K = big_index.BigShardChainKernel
@@ -2044,6 +2112,7 @@ def run_big(run, card, sam, vcf, reps=20):
              mapping_s=t["metrics"]["mapping_seconds"], stages=t["stages"],
              sam_identical=t["sam_identical"],
              vcf_identical=t["vcf_identical"], evidence=t["evidence"],
+             calling_launches=t["calling"],
              launches_held_to_plain=len(launches),
              reads_a_launch=sorted({int(x["rlens"].shape[0])
                                     for x in launches}),
@@ -2058,6 +2127,7 @@ def run_big(run, card, sam, vcf, reps=20):
                 and len(launches) == n * b
                 and all(len(x) == 9 for x in launches)
                 and evidence_path_ok(t["evidence"])
+                and calling_ok(t, n)
                 and t["metrics"]["n_oracle_reads"] == 0
                 and t["metrics"]["n_tier_reruns"] == 0):
             raise AssertionError(f"big {n}: bytes differ from the warm-up's, "
@@ -2086,34 +2156,52 @@ def run_big(run, card, sam, vcf, reps=20):
     single = run_big_single(run, card, backend, sam, vcf)
     # -gvcf: the sharded NOR blocks against one card's
     gv = {}
-    build_nor = scan_device.build_nor_kernel
+    nor_blocks = cal.nor_blocks
 
-    def tap_nor(L, nseg):
+    def tap_nor(*args):
         # the kernel's own arguments, as DeviceEvidence.nor_blocks makes them
-        kern = build_nor(L, nseg)
+        held["nor"] = args
+        return nor_blocks(*args)
 
-        def call(*args):
-            held["nor"] = (L, nseg, args)
-            return kern(*args)
-        return call
+    big_nor = BigDeviceEvidence.nor_blocks
+
+    def tap_big_nor(self, emitted, brk):
+        held["big_nor"] = (self, np.asarray(emitted).copy(),
+                           np.asarray(brk).copy())
+        return big_nor(self, emitted, brk)
 
     for tag, kw in (("one", {}), ("big", dict(index_shards=2, big_x64=True,
                                                backend=backend(2)))):
-        if tag == "one":
-            scan_device.build_nor_kernel = tap_nor
+        cal.nor_blocks = tap_nor
+        BigDeviceEvidence.nor_blocks = tap_big_nor
         try:
             t = run(gvcf=True, **kw)
         finally:
-            scan_device.build_nor_kernel = build_nor
+            cal.nor_blocks = nor_blocks
+            BigDeviceEvidence.nor_blocks = big_nor
+        if tag == "big":
+            # B4's NOR blocks (eager a shard) on their own call
+            bev, em, brk = held.pop("big_nor")
+            nseg = brk.size + 2
+            nbytes = 4 * bev.L + 8 * (em.size + brk.size) + 12 * nseg
+            nor_big = dict(
+                call_ms=cuda_ms(lambda: bev.nor_blocks(em, brk), reps),
+                shards=bev.n, emitted=int(em.size), breaks=int(brk.size),
+                bound_ms=1e3 * nbytes / H100_BYTES_S, bound_by="bytes")
+            del bev
         if tag == "one":
             # A6's NOR blocks on the single-card run's finalized planes
-            nor = time_nor(*held.pop("nor"))
+            if t["calling"].get("nor_blocks") != 1:
+                raise AssertionError("-gvcf: the NOR block kernel did not "
+                                     "run once")
+            nor = time_nor(held.pop("nor"), t["calling"]["nor_blocks"])
         held.clear()
         with open(sam, "rb") as f, open(vcf, "rb") as g:
             gv[tag] = (f.read(), g.read(), t)
     same = gv["one"][:2] == gv["big"][:2]
     tb = gv["big"][2]
     emit("big", card=card, gvcf_nor_blocks_one_card=nor, gvcf_shards=2,
+         gvcf_nor_blocks_sharded=nor_big,
          gvcf_identical_to_one_card=same,
          gvcf_records=sum(not ln.startswith(b"#")
                           for ln in gv["big"][1].splitlines()),
@@ -2125,7 +2213,10 @@ def run_big(run, card, sam, vcf, reps=20):
                 "chain_classify_pack_big"}):
         raise AssertionError("big -gvcf: bytes differ from one card's or "
                              "the run left the x64 path")
-    return timing, runs[2], single
+    b4 = {n: dict(fold=ev_times[n]["fold"], scan=ev_times[n]["scan"],
+                  launches=runs[n]["calling"]) for n in ev_times}
+    b4["nor_shards_2"] = nor_big
+    return timing, runs[2], single, nor, b4
 
 
 def equal_scan_hits(what, ck, ssd, kern, packed, rlens):
@@ -2231,7 +2322,7 @@ def run_big_single(run, card, make_backend, sam, vcf):
                     vcf_identical=same_bytes(vcf, vcf + ".warm"))
         emit("big", card=card, shards=2, single_card_route=route, **fact)
         ev_ok = (evidence_path_ok(t["evidence"]) if route == "no_full_sa"
-                 else t["evidence"]["applies"] == 0)
+                 else t["evidence"]["applies"] == 0) and calling_ok(t, 2)
         if not (fact["sam_identical"] and fact["vcf_identical"]
                 and fact["sharded_invocations"] == 0 and b > 0
                 and t["scan_launches"] == scan
@@ -2469,6 +2560,52 @@ class K2MainTap:
                                  else 0))
 
 
+class CallingEagerTap:
+    """Counts the calls of the calling kernels' plain versions
+    (ops/calling_kernels: the finalize, scan, fetch and NOR bodies) on
+    card tensors while installed: the eager programs the main path no
+    longer runs."""
+
+    NAMES = ("evidence_finalize_plain", "caller_scan_plain",
+             "caller_fetch_plain", "nor_blocks_plain")
+
+    def reset(self):
+        self.eager = 0
+
+    def install(self):
+        import torch
+        from mapcaller_tpu_torch.ops import calling_kernels as cal
+        self.cal, self.real = cal, {n: getattr(cal, n) for n in self.NAMES}
+        self.reset()
+        for name, fn in self.real.items():
+            def tapped(*a, _fn=fn, **kw):
+                self.eager += int(any(torch.is_tensor(x) and x.is_cuda
+                                      for x in a))
+                return _fn(*a, **kw)
+            setattr(cal, name, tapped)
+        return self
+
+    def uninstall(self):
+        for name, fn in self.real.items():
+            setattr(self.cal, name, fn)
+
+
+def calling_ok(t, shards=1):
+    """A run's calling kernels: with evidence on the card planes (one
+    caller scan), the finalize and the scan once a shard, the column fetch
+    on one card only (B4 fetches eagerly), no NOR block kernel without
+    -gvcf; with host evidence none; and no plain version on the card."""
+    c = t["calling"]
+    if t["calling_eager"]:
+        return False
+    if t["evidence"]["scans"] != 1:
+        return not c
+    return (c.get("evidence_finalize") == shards
+            and c.get("caller_scan") == shards
+            and (c.get("caller_fetch", 0) >= 1) == (shards == 1)
+            and not c.get("nor_blocks"))
+
+
 def run_main_path(work, card):
     """One warm-up run through the CLI (device DP), with a tap around
     nw_device.nw_ops that keeps the tensors of its largest NW launch and
@@ -2484,6 +2621,7 @@ def run_main_path(work, card):
     ksw2) and the captured evidence."""
     import torch
     from mapcaller_tpu_torch import cli, native, runner
+    from mapcaller_tpu_torch.ops import calling_kernels as cal
     from mapcaller_tpu_torch.ops import chain_kernels as ck
     from mapcaller_tpu_torch.ops import fm_search, ksw2_device, nw_device
     from mapcaller_tpu_torch.ops import mesh_kernels as mk
@@ -2522,7 +2660,9 @@ def run_main_path(work, card):
         ssd.STATS.reset()
         ck.STATS.reset()
         mk.STATS.reset()
+        cal.STATS.reset()
         k2_main.reset()
+        calling_tap.reset()
         device_profile.STATS.reset()
         native.prof_fetch()           # zero the host leg's stage counters
         cfg = None
@@ -2588,6 +2728,8 @@ def run_main_path(work, card):
                     peak=torch.cuda.max_memory_allocated(),
                     transfers=transfers,
                     k2=k2_main.result(mk.STATS.launches),
+                    calling=dict(cal.STATS.launches),
+                    calling_eager=calling_tap.eager,
                     backend=(backend_facts(be) if backend is not None
                              else None))
 
@@ -2696,6 +2838,8 @@ def run_main_path(work, card):
                     planes={k: getattr(pl, k).cpu() for k in (
                         "acgt", "exact_diff", "f_diff", "multi_diff")},
                     ref_codes=ev._ref_codes.cpu(), L=ev.L, two_l=ev.two_l,
+                    text_words=ev.be.chain_ctx.text_words[
+                        :(ev.L + 15) // 16].cpu(),
                     somatic=bool(cfg.somatic),
                     freq=0.01 if cfg.somatic else cfg.frequency_thr,
                     ad=int(cfg.min_allele_depth))
@@ -2706,6 +2850,7 @@ def run_main_path(work, card):
 
     os.environ["MC_STAGE_PROF"] = "1"
     k2_main = K2MainTap().install()
+    calling_tap = CallingEagerTap().install()
     nw_device.nw_ops = tap
     nw_device.nw_align_batch = tap_pairs("nw", nw_align)
     device_profile.make_device_evidence = tap_evidence
@@ -2797,7 +2942,8 @@ def run_main_path(work, card):
     routed_table = run_routed(idx, routed_batch, shard_launches, card)
     del shard_launches
     # big_x64 under -shards 2 and 4, and -gvcf, through the stream
-    big_table, big_run, _ = run_big(run, card, sam, vcf)
+    big_table, big_run, _, nor_row, b4 = run_big(run, card, sam, vcf)
+    captured.update(nor_row=nor_row, b4=b4)
     dev = [t for t in turns if t["device_dp"]]
     sca = [t for t in turns if not t["device_dp"]]
 
@@ -2989,6 +3135,21 @@ def run_main_path(work, card):
          max_abs_err=max(t["k2"]["max_abs_err"] for t in held_runs),
          eager_scatter_calls=sum(t["k2"]["eager_scatter_calls"]
                                  for t in everything + sharded))
+    # the calling kernels (csrc/calling.cu) take the finalize, the caller
+    # scan and the column fetch of every run that calls from the card
+    # planes, and no eager body runs on the card
+    ok = ok and all(calling_ok(t) for t in everything + sharded)
+    w_ops = dict(warm["calling"])
+    emit("main_path_calling", card=card,
+         launches_a_run={k: t["calling"] for k, t in (
+             ("warmup", warm), ("fold", fold_ev), ("host_evidence", host_ev),
+             ("devices_2", multi), ("shards_2", sharded[0]),
+             ("shards_4", sharded[1]), ("ksw2_warmup", kwarm))},
+         # finalize: 1 kernel; scan: 2 memsets + 1 kernel; fetch: 1 kernel
+         warmup_device_operations=w_ops.get("evidence_finalize", 0)
+         + 3 * w_ops.get("caller_scan", 0) + w_ops.get("caller_fetch", 0),
+         eager_calls=sum(t["calling_eager"] for t in everything + sharded))
+    calling_tap.uninstall()
     k2_main.uninstall()
     captured["k2_main"] = dict(
         launches=warm["k2"]["launches"],
@@ -3009,11 +3170,13 @@ def run_main_path(work, card):
                              "downloads are not 2 and 1 a group (a batch "
                              "ungrouped), or K2 did not take every "
                              "stand-alone evidence step, once each, equal "
-                             "to its plain version")
+                             "to its plain version, or the calling kernels "
+                             "did not take the finalize, scan and fetch")
     captured["scan_table"] = {
         "seed_scan3": (scan_table["seed_scan3"], dev[0]["scan3_launches"]),
         "seed_scan1": (scan_table["seed_scan1"], one_step["scan1_launches"])}
     captured["chain_table"] = (chain_table, dev[0]["chain_launches"])
+    captured["calling_launches"] = dev[0]["calling"]
     captured["routed_table"] = (routed_table, sharded[0]["chain_launches"],
                                 sharded[0]["scan_launches"])
     captured["big_table"] = (big_table, {**big_run["scan_launches"],
@@ -3023,11 +3186,12 @@ def run_main_path(work, card):
 
 
 def run_evidence(cap, card, reps=50):
-    """Device ms of the evidence steps on the warm-up's own planes and
-    inputs (queued launches), each held equal to the same call on the
-    CPU, beside its bound: the bytes it must move over the card's memory
-    rate (every input read once, every output written once; for the
-    apply, the plane entries its admitted reads update, read and
+    """The evidence steps on the warm-up's own planes and inputs: the
+    apply, the finalize (from the captured reference codes), the scan and
+    the fetch each held equal to the same call on the CPU; the apply's
+    device ms (queued launches) beside its bound: the bytes it must move
+    over the card's memory rate (every input read once, every output
+    written once; the plane entries its admitted reads update, read and
     written). -> K2's numbers on the apply (one launch): device ms, call
     ms, its plain version's ms on the card, the bound and the empty-launch
     floor; and on its two retractions (a sparse correction, the dense
@@ -3058,33 +3222,24 @@ def run_evidence(cap, card, reps=50):
 
     def pipeline(device):
         """finalize -> scan -> fetch on `device`, as DeviceEvidence runs
-        them; returns the callables and their outputs."""
-        pl = planes(device)
+        them -> their outputs."""
         rc = cap["ref_codes"].to(device)
-        fin_k = dp.build_finalize_kernel(L)
-        scan_k = scan_device.build_scan_kernel(L, cap["somatic"])
-        fetch_k = scan_device.build_fetch_kernel(L)
         pos, pref = (torch.from_numpy(x.astype(np.int64)).to(device)
                      for x in cap["fetch"])
-        fin = fin_k(pl, rc)
+        fin = dp.build_finalize_kernel(L)(planes(device), rc)
         acgt, F, multi, cov, cov_prefix = fin
-
-        def scan():
-            return scan_k(acgt, multi, cov, rc, cap["ad"],
-                          np.float32(cap["freq"]))
-
-        def fetch():
-            return fetch_k(acgt, multi, F, cov, cov_prefix, pos, pref)
-
-        return (lambda: fin_k(pl, rc), scan, fetch), (fin, scan(), fetch())
+        return (fin, scan_device.build_scan_kernel(L, cap["somatic"])(
+            acgt, multi, cov, rc, cap["ad"], np.float32(cap["freq"])),
+            scan_device.build_fetch_kernel(L)(acgt, multi, F, cov,
+                                              cov_prefix, pos, pref))
 
     # equality with the CPU, one call each
     gpl, gapply = apply_on(cuda)
     cpl, capply = apply_on("cpu")
     gapply()
     capply()
-    (gfin, gscan, gfetch), gout = pipeline(cuda)
-    _, cout = pipeline("cpu")
+    gout = pipeline(cuda)
+    cout = pipeline("cpu")
     diffs = [(k, int((getattr(gpl, k).cpu().long()
                       - getattr(cpl, k).long()).abs().max()))
              for k in ("acgt", "exact_diff", "f_diff", "multi_diff")]
@@ -3096,12 +3251,10 @@ def run_evidence(cap, card, reps=50):
     bad = [k for k, e in diffs if e != 0]
     if bad:
         raise AssertionError(f"evidence: cuda != cpu in {bad}")
-    # times: apply on its own copy of the planes (it adds into them)
-    ms = dict(apply=cuda_ms(gapply, reps, queued=True),
-              finalize=cuda_ms(gfin, reps, queued=True),
-              scan=cuda_ms(gscan, reps, queued=True),
-              fetch=cuda_ms(gfetch, reps, queued=True))
-    # bytes each step must move on these inputs
+    # times: apply on its own copy of the planes (it adds into them); the
+    # finalize, scan and fetch kernels are timed in run_calling
+    ms = dict(apply=cuda_ms(gapply, reps, queued=True))
+    # bytes the apply must move on these inputs
     bit = (fb[np.arange(B) >> 5].astype(np.int64) >> (np.arange(B) & 31)) & 1
     adm = bit.astype(bool)
     n_mm = int((a["mmp"].numpy()[adm] >= 0).sum())
@@ -3109,11 +3262,7 @@ def run_evidence(cap, card, reps=50):
     small = gout[1][4].cpu().numpy()
     P, Q = (x.size for x in cap["fetch"])
     nbytes = dict(
-        apply=B * (4 + 4 * a["mmp"].shape[1] + 4) + fb.nbytes + 8 * n_upd,
-        finalize=(40 + 4) * L + (16 + 16 + 4 + 4) * L + 8 * (L + 1),
-        scan=(16 + 4 + 4 + 4) * L + 4 * ((L + 99) // 100)
-        + 4 * int(small[0]) + 8 * int(small[1]) + 32,
-        fetch=8 * (P + Q) + 2 * (40 * P + 8 * Q))
+        apply=B * (4 + 4 * a["mmp"].shape[1] + 4) + fb.nbytes + 8 * n_upd)
     steps = {k: dict(ms=ms[k], bound_ms=1e3 * nbytes[k] / H100_BYTES_S,
                      bound_by="bytes", bytes=nbytes[k],
                      share_of_bound=1e3 * nbytes[k] / H100_BYTES_S / ms[k])
@@ -3165,6 +3314,113 @@ def run_evidence(cap, card, reps=50):
     return k2
 
 
+def max_err_of(got, want):
+    """Largest absolute difference of two tensors or sequences of them (0
+    for empty ones)."""
+    import torch
+    if torch.is_tensor(got):
+        return (int((got.long() - want.long()).abs().max()) if got.numel()
+                else 0)
+    return max(max_err_of(g, w) for g, w in zip(got, want))
+
+
+def run_calling(cap, card, launches, reps=50):
+    """The calling kernels (csrc/calling.cu) on the main path's own planes
+    and calling inputs (the warm-up's): the finalize (from the text words,
+    as the main path runs it), the caller scan and the column fetch (the
+    run's first fetch, with the block depths of its positions), each
+    against its plain version on the card, every word (max_abs_err 0);
+    device ms (queued), call ms, plain ms (queued), the bound (bytes over
+    the card's memory rate: inputs read once, outputs written once; the
+    scan's outputs are its whole tables, fills included); and the calling
+    phase's peak device memory (finalize, scan, fetch from the same
+    planes), the plain versions against the kernels. launches: the main
+    path run's. -> {kernel: row}."""
+    import numpy as np
+    import torch
+    from mapcaller_tpu_torch.ops import calling_kernels as cal
+    from mapcaller_tpu_torch.pipeline import device_profile as dp
+    cuda = torch.device("cuda")
+    L = cap["L"]
+    pl = dp.DevicePlanes(L=L, **{k: v.to(cuda) for k, v in
+                                 cap["planes"].items()})
+    words = cap["text_words"].to(cuda)
+    pos, pref = cap["fetch"]
+    blocks = np.unique(np.asarray(pos, dtype=np.int64) // 100)
+    blocks = blocks[(blocks >= 0) & (blocks < (L + 99) // 100)]
+    idx = torch.from_numpy(np.concatenate([pos, pref, blocks]).astype(
+        np.int64)).to(cuda)
+    P, Q = len(pos), len(pref)
+    fb = np.float32(cap["freq"])
+    fin_args = (pl.acgt, pl.exact_diff, pl.f_diff, pl.multi_diff, L)
+
+    def phase(fin, scan, fetch):
+        f = fin(*fin_args, words=words)
+        sc = scan(f.acgt, f.multi, f.cov, f.codes, cap["ad"], fb,
+                  cap["somatic"])
+        return f, sc, fetch(f.acgt, f.multi, f.F, f.cov, f.cov_prefix, idx,
+                            P, Q, sc.block_depth)
+
+    kern = (cal.evidence_finalize, cal.caller_scan, cal.caller_fetch)
+    plain = (cal.evidence_finalize_plain, cal.caller_scan_plain,
+             cal.caller_fetch_plain)
+    peak = {}
+    for tag, fns in (("plain", plain), ("kernels", kern), ("plain_2", plain),
+                     ("kernels_2", kern)):
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = phase(*fns)
+        torch.cuda.synchronize()
+        peak[tag] = torch.cuda.max_memory_allocated() - base
+        if tag == "kernels":
+            got = out
+        elif tag == "plain":
+            want = out
+        del out
+    errs = [max_err_of(g, w) for g, w in zip(got, want)]
+    codes_err = max_err_of(got[0].codes, cap["ref_codes"].to(cuda))
+    if any(errs) or codes_err:
+        raise AssertionError(f"calling kernels != plain {errs}, codes "
+                             f"{codes_err}")
+    f, sc, _ = got
+    n_cand, n_runs = (int(x) for x in sc.small[:2])
+    nw = (L + 15) // 16
+    nbytes = dict(
+        evidence_finalize=40 * L + 8 * nw + (16 + 16 + 4 + 4 + 4) * L
+        + 8 * (L + 1),
+        caller_scan=(16 + 4 + 4 + 4) * L + 4 * ((L + 99) // 100)
+        + 4 * (cal.CAND_CAP + 2 * cal.RUN_CAP) + 32 + 4,
+        caller_fetch=8 * idx.numel() + 40 * P + 8 * Q + 4 * blocks.size
+        + 8 * (10 * P + Q + blocks.size))
+    calls = dict(
+        evidence_finalize=(lambda: kern[0](*fin_args, words=words),
+                           lambda: plain[0](*fin_args, words=words)),
+        caller_scan=tuple((lambda fn=fn: fn(f.acgt, f.multi, f.cov, f.codes,
+                                             cap["ad"], fb, cap["somatic"]))
+                          for fn in (kern[1], plain[1])),
+        caller_fetch=tuple((lambda fn=fn: fn(f.acgt, f.multi, f.F, f.cov,
+                                              f.cov_prefix, idx, P, Q,
+                                              sc.block_depth))
+                           for fn in (kern[2], plain[2])))
+    rows = {}
+    for name, (k, p) in calls.items():
+        bound = 1e3 * nbytes[name] / H100_BYTES_S
+        ms = cuda_ms(k, reps, queued=True)
+        rows[name] = dict(max_abs_err=0, ms=ms, call_ms=cuda_ms(k, reps),
+                          plain_ms=cuda_ms(p, reps, queued=True),
+                          bound_ms=bound, bound_by="bytes",
+                          bytes=nbytes[name], share_of_bound=bound / ms,
+                          launches=launches.get(name, 0))
+    emit("calling", card=card, L=L, fetch_positions=P, prefix_points=Q,
+         fetch_blocks=int(blocks.size), n_cand=n_cand, n_runs=n_runs,
+         peak_mem_bytes=peak, kernels=rows,
+         device_operations=dict(evidence_finalize=1, caller_scan=3,
+                                caller_fetch=1))
+    return rows
+
+
 def time_host_merge(planes, reps=50, density=0.01, seed=5):
     """A5's host merge (pipeline/device_profile.build_host_merge_kernel:
     four index_add_ of the host profile's sparse nonzero deltas into the
@@ -3204,29 +3460,32 @@ def time_host_merge(planes, reps=50, density=0.01, seed=5):
                 share_of_bound=bound / ms)
 
 
-def time_nor(L, nseg, args, reps=20):
-    """A6's NOR-block reduction (calling/scan_device.build_nor_kernel,
-    eager) on a -gvcf run's own call: the kernel's L, segments and
-    arguments (the finalized coverage, the positions the records exclude,
-    the sorted record breaks) as DeviceEvidence.nor_blocks passed them.
-    Equal to the same call on the CPU; device ms (queued) beside the
-    bound: the coverage, the positions and breaks read once, three int32
-    outputs a segment written."""
-    from mapcaller_tpu_torch.calling.scan_device import build_nor_kernel
-    cov, em, bkt = args
-    kern = build_nor_kernel(L, nseg)
-    got = kern(*args)
-    want = kern(*(a.cpu() for a in args))
-    err = max(int((g.cpu().long() - w.long()).abs().max())
-              for g, w in zip(got, want))
+def time_nor(args, launches, reps=20):
+    """A6's NOR blocks (ops/calling_kernels.nor_blocks: nor_blocks_kernel
+    and nor_finish_kernel) on a -gvcf run's own call: the finalized
+    coverage, the sorted excluded positions and breaks and the segment
+    count as DeviceEvidence.nor_blocks passed them. Equal in every word
+    to its plain version on the card; device ms (queued), call ms, plain
+    ms (queued), beside the bound: the coverage, the positions and breaks
+    read once, three int32 words a segment written. launches: the -gvcf
+    run's."""
+    from mapcaller_tpu_torch.ops import calling_kernels as cal
+    cov, em, bkt, nseg = args
+    err = max_err_of(cal.nor_blocks(*args), cal.nor_blocks_plain(*args))
     if err:
-        raise AssertionError("big -gvcf: the NOR blocks on the card != cpu")
+        raise AssertionError("big -gvcf: the NOR block kernel != its plain "
+                             "version")
+    L = cov.numel()
     nbytes = 4 * L + 8 * (em.numel() + bkt.numel()) + 12 * nseg
-    ms = cuda_ms(lambda: kern(*args), reps, queued=True)
+    ms = cuda_ms(lambda: cal.nor_blocks(*args), reps, queued=True)
     bound = 1e3 * nbytes / H100_BYTES_S
     return dict(L=L, emitted=int(em.numel()), breaks=int(bkt.numel()),
-                segments=nseg, max_abs_err=err, ms=ms, bound_ms=bound,
-                bound_by="bytes", bytes=nbytes, share_of_bound=bound / ms)
+                segments=nseg, max_abs_err=err, ms=ms,
+                call_ms=cuda_ms(lambda: cal.nor_blocks(*args), reps),
+                plain_ms=cuda_ms(lambda: cal.nor_blocks_plain(*args), reps,
+                                 queued=True),
+                bound_ms=bound, bound_by="bytes", bytes=nbytes,
+                share_of_bound=bound / ms, launches=launches)
 
 
 def run_ksw2_launches(k, launches, card):
@@ -4308,7 +4567,12 @@ def main():
              (("libchain.so", "chain_classify_pack_kernel"), 1),
              (("libchain.so", "chain_classify_pack_big_kernel"), 1),
              (("libchain.so", "dp_scatter_scan_kernel"), 1),
-             (("libchain.so", "evidence_apply_bits_kernel"), 1))
+             (("libchain.so", "evidence_apply_bits_kernel"), 1),
+             (("libcalling.so", "evidence_finalize_kernel"), 1),
+             (("libcalling.so", "caller_scan_kernel"), 1),
+             (("libcalling.so", "caller_fetch_kernel"), 1),
+             (("libcalling.so", "nor_blocks_kernel"), 1),
+             (("libcalling.so", "nor_finish_kernel"), 1))
     reports = {kernel: ptxas_report(outputs.get(lib, ""), kernel)
                for (lib, kernel), _ in gated}
     # ksw2 takes all its shared memory dynamically (ptxas reports 0):
@@ -4374,6 +4638,7 @@ def main():
         for k in ("main_files", "main_vcf"):
             cap.pop(k)
     k2_main_t = run_evidence(cap, card)
+    calling_t = run_calling(cap, card, cap["calling_launches"])
     run_dp_rates({alg: cap["pairs_" + alg] for alg in ("nw", "ksw2")}, card)
     run_ksw2_launches(ksw2_device, cap["ksw2_all"], card)
 
@@ -4572,6 +4837,45 @@ def main():
             "call_ms": r["call_ms"], "shape": shape, **extra,
             "path_launches": {k: v[name] for k, v in path_launches.items()
                               if k.startswith("mesh")}})
+    # the calling kernels on the main path's own planes (run_calling),
+    # with their launches a main-path run; the NOR blocks on a -gvcf run's
+    # own call, with that run's launches; B4's fold and scan a shard under
+    # big_x64 -shards 2 and 4 (big phase)
+    calling_t["nor_blocks"] = cap["nor_row"]
+    b4 = cap["b4"]
+    for name, src_line, also, shape in (
+            ("evidence_finalize",
+             "mapcaller_tpu/pipeline/device_profile.py:169",
+             ["mapcaller_tpu/pipeline/device_profile.py:308",
+              "mapcaller_tpu/pipeline/big_profile.py:291"],
+             f"the warm-up's planes, L {cap['L']}, codes from the text "
+             f"words"),
+            ("caller_scan", "mapcaller_tpu/calling/scan_device.py:94",
+             ["mapcaller_tpu/pipeline/big_profile.py:363"],
+             f"the warm-up's finalized planes, L {cap['L']}"),
+            ("caller_fetch", "mapcaller_tpu/calling/scan_device.py:180", [],
+             "the warm-up's first column fetch, its positions' block "
+             "depths in the same buffer"),
+            ("nor_blocks", "mapcaller_tpu/calling/scan_device.py:255", [],
+             "a -gvcf run's own call (nor_blocks_kernel and "
+             "nor_finish_kernel)")):
+        r = calling_t[name]
+        regs = next(iter(reports[name + "_kernel"].values()))
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "mapcaller_tpu_torch/csrc/calling.cu",
+            "replaces": src_line, "launches": r["launches"],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None, "tolerance": 0,
+            "call_ms": r["call_ms"], "registers": regs.get("registers"),
+            "also_replaces": also, "shape": shape,
+            **({"b4_a_shard": {
+                f"shards_{n}": dict(b4[n]["fold" if name == "evidence_finalize"
+                                       else "scan"],
+                                    launches=b4[n]["launches"].get(name, 0))
+                for n in (2, 4)}}
+               if name in ("evidence_finalize", "caller_scan") else {})})
     line = {"kernels": kernels}
     print(json.dumps(line), flush=True)
     print(card, flush=True)

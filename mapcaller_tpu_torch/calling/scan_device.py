@@ -20,13 +20,10 @@ from typing import Dict
 import numpy as np
 import torch
 
-from ..ops.device_util import upload
-
-BLOCK_SIZE = 100
-CAND_CAP = 1 << 17
-RUN_CAP = 1 << 20
-INT32_MAX = 0x7FFFFFFF
-DUMP = 4096          # dump slots past a compacted table
+from ..ops import calling_kernels
+from ..ops.calling_kernels import (BLOCK_SIZE, CAND_CAP,  # noqa: F401
+                                   INT32_MAX, RUN_CAP)
+from ..ops.device_util import need, upload
 
 
 class LazyBlockDepth:
@@ -91,68 +88,16 @@ def build_scan_kernel(L: int, somatic: bool):
     int32[L], min_allele_depth int, freq_base float32 value) ->
     (block_depth int32[nb], cand_idx int32[CAND_CAP], run_start
     int32[RUN_CAP], run_val int32[RUN_CAP], small int64[4] = (n_cand,
-    n_runs, n_aligned, total_cov)). Compaction is a scatter with dump
-    slots, so nothing here waits for the device (and nothing is copied
-    from the host); the tables hold -1 (0 for run_val) past their
+    n_runs, n_aligned, total_cov)): ops/calling_kernels.caller_scan (one
+    kernel launch on the card; nothing here waits for the device or is
+    copied from the host); the tables hold -1 (0 for run_val) past their
     counts."""
-    nb = (L + BLOCK_SIZE - 1) // BLOCK_SIZE
-    i32 = torch.int32
-
-    def compact(mask, dest, vals, cap, fill, spread):
-        # unselected positions store into a dump region past the table,
-        # spread by position: millions of stores to one address
-        # serialize on the card
-        out = torch.full((cap + DUMP,), fill, dtype=i32, device=mask.device)
-        slot = torch.where(mask, torch.clamp(dest, max=cap), cap + spread)
-        return out.scatter_(0, slot, vals)[:cap]
 
     def kernel(acgt, multi, cov, ref_codes, min_allele_depth, freq_base):
-        dev = cov.device
-        pad = nb * BLOCK_SIZE - L
-        covp = torch.cat([cov, torch.zeros(pad, dtype=i32, device=dev)])
-        sums = covp.reshape(nb, BLOCK_SIZE).sum(1, dtype=i32)
-        block_depth = torch.where(sums > 0, sums // BLOCK_SIZE, 0)
-
-        ad = int(min_allele_depth)
-        if somatic:
-            cov_thr = torch.full((L,), ad, dtype=i32, device=dev)
-        else:
-            bd_pos = block_depth[:, None].expand(nb, BLOCK_SIZE).reshape(
-                -1)[:L]
-            cov_thr = torch.clamp(bd_pos >> 1, min=ad)
-        rc = ref_codes[:L]
-        nonref_max = torch.full((L,), -1, dtype=i32, device=dev)
-        for c in range(4):
-            nonref_max = torch.maximum(nonref_max,
-                                       torch.where(rc == c, -1, acgt[c]))
-        # conservative superset of max(ceil_f64(cov*freq_base), ad): the
-        # float32 product minus 1 covers rounding differences. The factor
-        # is a float32 value, and a float32 tensor times a Python scalar
-        # multiplies in float32
-        fb = float(np.float32(freq_base))
-        sup_thr = torch.clamp((cov.to(torch.float32) * fb).to(i32) - 1,
-                              min=ad)
-        cand_mask = (cov >= cov_thr) & (nonref_max >= sup_thr)
-        dest = torch.cumsum(cand_mask, 0, dtype=torch.int64) - 1
-        n_cand = cand_mask.sum()
-        pos = torch.arange(L, dtype=i32, device=dev)
-        spread = pos.to(torch.int64) % DUMP
-        cand_idx = compact(cand_mask, dest, pos, CAND_CAP, -1, spread)
-
-        # gap/CNV run boundaries (ref: cpp:632-651 semantics, on the host)
-        state = torch.where(cov > 0, 2, torch.where(multi > 0, 1, 0)).to(i32)
-        newrun = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
-                            state[1:] != state[:-1]])
-        rdest = torch.cumsum(newrun, 0, dtype=torch.int64) - 1
-        n_runs = newrun.sum()
-        run_start = compact(newrun, rdest, pos, RUN_CAP, -1, spread)
-        run_val = compact(newrun, rdest, state, RUN_CAP, 0, spread)
-
-        aligned = cov > 0
-        n_aligned = aligned.sum()
-        total_cov = torch.where(aligned, cov, 0).sum(dtype=torch.int64)
-        small = torch.stack([n_cand, n_runs, n_aligned, total_cov])
-        return block_depth, cand_idx, run_start, run_val, small
+        need(cov.shape[0] == L, f"build_scan_kernel: {L} positions expected")
+        return calling_kernels.caller_scan(acgt, multi, cov, ref_codes,
+                                           min_allele_depth, freq_base,
+                                           somatic)[:5]
 
     return kernel
 
@@ -160,15 +105,16 @@ def build_scan_kernel(L: int, somatic: bool):
 def build_fetch_kernel(L: int):
     """fn(acgt, multi, F, cov, cov_prefix, positions, prefix_pts) ->
     (cols int32[P, 10] = (A, C, G, T, multi, F1, R2, F2, R1, cov),
-    cov_prefix values int64[Q])."""
+    cov_prefix values int64[Q]): ops/calling_kernels.caller_fetch."""
 
     def kernel(acgt, multi, F, cov, cov_prefix, positions, prefix_pts):
-        p = torch.clamp(positions, 0, L - 1)
-        cols = torch.stack([acgt[0][p], acgt[1][p], acgt[2][p], acgt[3][p],
-                            multi[p], F[0][p], F[1][p], F[2][p], F[3][p],
-                            cov[p]], dim=1)
-        pref = cov_prefix[torch.clamp(prefix_pts, 0, L)]
-        return cols, pref
+        need(cov.shape[0] == L, f"build_fetch_kernel: {L} positions expected")
+        P = positions.shape[0]
+        out = calling_kernels.caller_fetch(
+            acgt, multi, F, cov, cov_prefix,
+            torch.cat([positions, prefix_pts]).to(torch.int64), P,
+            prefix_pts.shape[0])
+        return out[:10 * P].reshape(P, 10).to(torch.int32), out[10 * P:]
 
     return kernel
 
@@ -235,30 +181,16 @@ def build_nor_kernel(L: int, NSEG: int):
     (first normal position, cov at it, min cov over the group).
 
     fn(cov int32[L], emitted int64[E] — positions whose own record
-    excludes them from 'normal', brk_sorted int64[K] — every
-    record-appending position, sorted) -> (first_pos, min_cov,
-    cov_at_first) int32[NSEG] each; an empty segment holds INT32_MAX,
-    the identity of the reference's segment_min. Segment NSEG-1 is the
-    dump for positions that are not normal, so NSEG > K + 1."""
+    excludes them from 'normal', sorted for the kernel, brk_sorted
+    int64[K] — every record-appending position, sorted) -> (first_pos,
+    min_cov, cov_at_first) int32[NSEG] each; an empty segment holds
+    INT32_MAX, the identity of the reference's segment_min. Segment
+    NSEG-1 is the dump for positions that are not normal, so NSEG > K + 1.
+    ops/calling_kernels.nor_blocks."""
 
     def kernel(cov, emitted, brk_sorted):
-        dev = cov.device
-        pos = torch.arange(L, dtype=torch.int64, device=dev)
-        em_mask = torch.zeros(L, dtype=torch.bool, device=dev)
-        em_mask[torch.clamp(emitted, 0, L - 1)] = True
-        normal = (cov > 0) & ~em_mask
-        key = torch.searchsorted(brk_sorted, pos, right=True)
-        seg = torch.where(normal, torch.clamp(key, max=NSEG - 1), NSEG - 1)
-
-        def seg_min(vals):
-            out = torch.full((NSEG,), INT32_MAX, dtype=torch.int32,
-                             device=dev)
-            return out.scatter_reduce_(0, seg, torch.where(
-                normal, vals.to(torch.int32), INT32_MAX), "amin")
-
-        first = seg_min(pos)
-        mincov = seg_min(cov)
-        covf = cov[torch.clamp(first, 0, L - 1).to(torch.int64)]
-        return first, mincov, covf
+        need(cov.shape[0] == L, f"build_nor_kernel: {L} positions expected")
+        out = calling_kernels.nor_blocks(cov, emitted, brk_sorted, NSEG)
+        return out[:NSEG], out[NSEG:2 * NSEG], out[2 * NSEG:]
 
     return kernel

@@ -1,0 +1,857 @@
+// The calling phase's device programs, for Hopper (sm_90a). Built with nvcc
+// into a plain C library and bound with ctypes
+// (mapcaller_tpu_torch/ops/calling_kernels.py, which holds each kernel's
+// plain PyTorch version beside its wrapper).
+//
+// Replaces XLA device programs of the reference package (no Pallas
+// kernel):
+//
+//   evidence_finalize_kernel  A5's finalize fold, build_finalize_kernel
+//     (mapcaller_tpu/pipeline/device_profile.py:169-189) with the reference
+//     codes of _ref_codes_dev (:308-316), and, through its slice form, B4's
+//     per-shard fold (mapcaller_tpu/pipeline/big_profile.py:291-361): in
+//     one pass over tiles of FIN_TILE positions, the inclusive prefixes of
+//     the exact, four orientation and multi diff rows (six int32 sums,
+//     wrapping as the reference's int32 cumsum does), the capped allele
+//     counts with the exact coverage credited to the reference base, the
+//     capped multi counts, the coverage and its int64 prefix;
+//   caller_scan_kernel        A6's caller scan, build_scan_kernel
+//     (mapcaller_tpu/calling/scan_device.py:94-166), and B4's per-shard scan
+//     (big_profile.py:363-530) through its slice form: in one pass over
+//     tiles of SCAN_BLOCKS 100-base blocks, the block depths, the candidate
+//     mask, the gap / CNV run states and their boundaries, the candidates
+//     and run starts compacted in position order, and the counts;
+//   caller_fetch_kernel       A6's column fetch, build_fetch_kernel
+//     (scan_device.py:180-194), with the block depths the host asks for in
+//     the same int64 buffer;
+//   nor_blocks_kernel         A6's gVCF NOR blocks, build_nor_kernel
+//     (scan_device.py:255-285): the per-segment minima of position and
+//     coverage of the normal positions; nor_finish_kernel reads them out
+//     with the coverage at each segment's first position.
+//
+// Every one is bound by bytes: a few int32 reads and writes a genome
+// position and a handful of integer operations on each (chip_smoke.py
+// counts each kernel's bytes from the run's own inputs). The eager
+// versions launch 20-60 kernels each and hold several int64 temporaries of
+// genome length; these kernels keep every intermediate (the prefix sums,
+// the masks, the compaction slots, the segment keys) in registers and
+// shared memory and need O(tiles) scratch.
+//
+// The finalize and the scan carry sums across tiles in one launch with a
+// decoupled look-back (Merrill & Garland, "Single-pass Parallel Prefix
+// Scan with Decoupled Look-back", 2016), as chain_scan_kernel of
+// csrc/chain.cu does. Their carries do not fit its one 64-bit status word
+// (the finalize carries six int32 sums and then an int64 one, the scan
+// three 64-bit sums), so a tile's slot in the scratch holds, for each
+// chain, a flag word (epoch << 2 | flag) and the values: the tile writes
+// its values, fences, then writes the flag; a reader reads the flag, fences,
+// then the values. Stores and loads of the slots are relaxed at gpu scope
+// (never cached in L1, where a line loaded for one tile's values could hold
+// a neighbour's not yet written). The tile index is an atomic ticket, so
+// every tile a block waits on belongs to a block that already runs; the
+// block that draws the last ticket resets the counter. The epoch, one a
+// launch from the wrapper, makes the flags of earlier launches read as not
+// ready. The coverage prefix depends on the exact-coverage prefix, so the
+// finalize resolves its six-value chain first and its int64 chain after.
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int MAX_ALLELE = 4095;        // MAX_ALLELE_COUNT
+constexpr int BLOCK_SIZE = 100;         // the caller's depth block
+constexpr int CAND_CAP = 1 << 17;
+constexpr int RUN_CAP = 1 << 20;
+constexpr int I32_MAX = 0x7FFFFFFF;
+constexpr unsigned int FULL = 0xFFFFFFFFu;
+
+constexpr int FIN_THREADS = 256;        // a finalize tile: 8 positions a
+constexpr int FIN_ITEMS = 8;            // thread, consecutive
+constexpr int FIN_TILE = FIN_THREADS * FIN_ITEMS;
+constexpr int SCAN_BLOCKS = 32;         // 100-base blocks a scan tile
+constexpr int SCAN_ITEMS = 10;          // positions a thread, consecutive
+constexpr int SCAN_THREADS = SCAN_BLOCKS * BLOCK_SIZE / SCAN_ITEMS;
+constexpr int SCAN_TILE = SCAN_THREADS * SCAN_ITEMS;
+constexpr int BLOCK_THREADS = BLOCK_SIZE / SCAN_ITEMS;   // threads a block
+constexpr int FETCH_THREADS = 256;
+constexpr int NOR_THREADS = 256;        // a NOR tile: 16 rounds of 256
+constexpr int NOR_ROUNDS = 16;          // consecutive positions
+constexpr int NOR_TILE = NOR_THREADS * NOR_ROUNDS;
+constexpr int NOR_STAGE = 1024;         // breaks / exclusions staged a tile
+
+// a tile's look-back slot: 16 words; chain A at word 0 (flag, 6 aggregate
+// words, 6 inclusive words), chain B at word 13 (flag, 1 + 1)
+constexpr int SLOT_WORDS = 16;
+constexpr int CHAIN_A = 0, CHAIN_B = 13;
+constexpr int LOOKBACK = 32;            // predecessors a look-back step reads
+constexpr unsigned long long FLAG_AGG = 1, FLAG_PREFIX = 2;
+
+static_assert(BLOCK_SIZE % SCAN_ITEMS == 0, "a thread inside one block");
+static_assert(SCAN_THREADS % 32 == 0 && FIN_THREADS % 32 == 0,
+              "whole warps");
+static_assert(SCAN_BLOCKS <= SCAN_THREADS, "a thread a block sum");
+
+struct LookBack {
+  unsigned int* ticket;                 // tiles handed out this launch
+  unsigned long long* slots;            // [tiles][SLOT_WORDS]
+  unsigned long long epoch;             // this launch's tag, 1 .. 2^30 - 1
+};
+
+__device__ __forceinline__ unsigned long long ld_relaxed(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];"
+               : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_relaxed(unsigned long long* p,
+                                           unsigned long long v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;"
+               :: "l"(p), "l"(v) : "memory");
+}
+
+// The block's tile by an atomic ticket. Ends with the block synchronised.
+__device__ __forceinline__ int draw_ticket(const LookBack& lb, int* tile_s) {
+  if (threadIdx.x == 0) {
+    const int k = (int)atomicAdd(lb.ticket, 1u);
+    if (k == (int)gridDim.x - 1) *lb.ticket = 0u;   // every other is taken
+    *tile_s = k;
+  }
+  __syncthreads();
+  return *tile_s;
+}
+
+// One thread: the K values of chain `at` of tile `tile`, aggregate or
+// inclusive by `flag`, then the flag.
+template <int K>
+__device__ __forceinline__ void publish(const LookBack& lb, int tile, int at,
+                                        unsigned long long flag,
+                                        const unsigned long long (&v)[K]) {
+  unsigned long long* s = lb.slots + (size_t)tile * SLOT_WORDS + at;
+  const int off = flag == FLAG_AGG ? 1 : 1 + K;
+#pragma unroll
+  for (int k = 0; k < K; ++k) st_relaxed(s + off + k, v[k]);
+  __threadfence();
+  st_relaxed(s, lb.epoch << 2 | flag);
+}
+
+// Warp 0 of tile `tile`: publish the tile's aggregate of chain `at`, look
+// back to the nearest inclusive prefix, publish the tile's own; sets excl
+// to the sum of the tiles before it (in every lane). Sums are modulo 2^64.
+template <int K>
+__device__ __forceinline__ void look_back(const LookBack& lb, int tile,
+                                          int at,
+                                          const unsigned long long (&agg)[K],
+                                          unsigned long long (&excl)[K]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int k = 0; k < K; ++k) excl[k] = 0;
+  if (tile == 0) {
+    if (lane == 0) publish<K>(lb, 0, at, FLAG_PREFIX, agg);
+    return;
+  }
+  if (lane == 0) publish<K>(lb, tile, at, FLAG_AGG, agg);
+  for (int top = tile - 1;; top -= LOOKBACK) {
+    const int i = top - (LOOKBACK - 1) + lane;   // lane 31: the nearest
+    const unsigned long long* s =
+        lb.slots + (size_t)(i >= 0 ? i : 0) * SLOT_WORDS + at;
+    unsigned long long st;
+    for (;;) {                          // slots before tile 0 hold prefix 0
+      st = i >= 0 ? ld_relaxed(s) : (lb.epoch << 2 | FLAG_PREFIX);
+      if (__all_sync(FULL, (st >> 2) == lb.epoch)) break;
+    }
+    __threadfence();                    // the values written before the flag
+    const bool prefix = (st & 3) == FLAG_PREFIX;
+    const unsigned int pm = __ballot_sync(FULL, prefix);
+    // from the nearest inclusive prefix on: it and the aggregates after it
+    const int from = pm ? 31 - __clz(pm) : 0;
+    const int off = prefix ? 1 + K : 1;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      unsigned long long v =
+          lane >= from && i >= 0 ? ld_relaxed(s + off + k) : 0ull;
+#pragma unroll
+      for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(FULL, v, d);
+      excl[k] += v;
+    }
+    if (pm) break;
+  }
+  if (lane == 0) {
+    unsigned long long inc[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) inc[k] = excl[k] + agg[k];
+    publish<K>(lb, tile, at, FLAG_PREFIX, inc);
+  }
+}
+
+// Exclusive scan of K values a thread over a block of NT threads: v becomes
+// the thread's exclusive prefixes, tot the block's totals (modulo 2^64).
+// sm: K * NT / 32 words of shared memory; ends with the block synchronised.
+template <int K, int NT>
+__device__ __forceinline__ void block_scan(unsigned long long (&v)[K],
+                                           unsigned long long (&tot)[K],
+                                           unsigned long long* sm) {
+  constexpr int NW = NT / 32;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  unsigned long long inc[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    inc[k] = v[k];
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const unsigned long long y = __shfl_up_sync(FULL, inc[k], d);
+      if (lane >= d) inc[k] += y;
+    }
+    if (lane == 31) sm[k * NW + w] = inc[k];
+  }
+  __syncthreads();
+  if (w == 0) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      unsigned long long ws = lane < NW ? sm[k * NW + lane] : 0ull;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const unsigned long long y = __shfl_up_sync(FULL, ws, d);
+        if (lane >= d) ws += y;
+      }
+      if (lane < NW) sm[k * NW + lane] = ws;   // inclusive over warps
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    tot[k] = sm[k * NW + NW - 1];
+    const unsigned long long before = w > 0 ? sm[k * NW + w - 1] : 0ull;
+    v[k] = before + inc[k] - v[k];
+  }
+  __syncthreads();                      // sm may be written again
+}
+
+// A tile's row staged in shared memory, element j at j + j / 32: a warp's
+// consecutive loads and stores in global memory are coalesced, and a
+// thread's ITEMS consecutive elements read without bank conflicts.
+__device__ __forceinline__ int pad(int j) { return j + (j >> 5); }
+
+// x = row[base + t * ITEMS + i], 0 at or past n. Begins with the block
+// synchronised (tr is free) and ends so.
+template <int NT, int ITEMS, typename T>
+__device__ __forceinline__ void load_row(const T* __restrict__ row, int base,
+                                         int n, T* tr, T (&x)[ITEMS]) {
+  __syncthreads();
+#pragma unroll
+  for (int j = threadIdx.x; j < NT * ITEMS; j += NT)
+    tr[pad(j)] = base + j < n ? row[base + j] : T(0);
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < ITEMS; ++i) x[i] = tr[pad(threadIdx.x * ITEMS + i)];
+}
+
+// row[base + t * ITEMS + i] = x[i] below n.
+template <int NT, int ITEMS, typename T>
+__device__ __forceinline__ void store_row(T* __restrict__ row, int base,
+                                          int n, T* tr,
+                                          const T (&x)[ITEMS]) {
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < ITEMS; ++i) tr[pad(threadIdx.x * ITEMS + i)] = x[i];
+  __syncthreads();
+#pragma unroll
+  for (int j = threadIdx.x; j < NT * ITEMS; j += NT)
+    if (base + j < n) row[base + j] = tr[pad(j)];
+}
+
+// ---- evidence_finalize_kernel --------------------------------------------
+
+struct FinIn {
+  const int* acgt;                      // [4][sa] point adds
+  const int* exact;                     // exact_diff [>= n]
+  const int* fdiff;                     // [4][sf] orientation diffs
+  const int* mdiff;                     // multi_diff [>= n]
+  const int* rc;                        // reference codes [n], or nullptr
+  const long long* words;               // text words (uint32 in int64), or
+                                        // nullptr: codes from their crumbs
+  const long long* carry;               // int64[7] coming in, or nullptr
+  long long cov_in;                     // the coverage prefix coming in
+  int sa, sf, n;
+};
+
+struct FinOut {
+  int* acgt;                            // [4][n]
+  int* F;                               // [4][n]
+  int* multi;                           // [n]
+  int* cov;                             // [n]
+  long long* cpre;                      // [n]: cov_in + sum of cov[0..p]
+  int* rc;                              // codes out [n] (with words), or
+                                        // nullptr
+  long long* carry;                     // int64[7] out
+  int lead;                             // also cpre[-1] = cov_in
+};
+
+// diff row k of the six: exact, the four orientation rows, multi
+__device__ __forceinline__ const int* diff_row(const FinIn& in, int k) {
+  return k == 0 ? in.exact
+                : k < 5 ? in.fdiff + (size_t)(k - 1) * in.sf : in.mdiff;
+}
+
+__global__ void __launch_bounds__(FIN_THREADS)
+evidence_finalize_kernel(FinIn in, FinOut out, LookBack lb) {
+  __shared__ long long tr64[FIN_TILE + FIN_TILE / 32];
+  __shared__ unsigned long long sm[6 * (FIN_THREADS / 32)];
+  __shared__ unsigned long long exa_s[6], exb_s;
+  __shared__ int tile_s;
+  int* const tr = reinterpret_cast<int*>(tr64);
+  const int t = threadIdx.x;
+  const int tile = draw_ticket(lb, &tile_s);
+  const int n = in.n;
+  const int base = tile * FIN_TILE;
+  const int p0 = base + t * FIN_ITEMS;
+  int x[FIN_ITEMS];
+  // pass 1: the thread's sums of the six diff rows
+  unsigned long long v[6];
+#pragma unroll
+  for (int k = 0; k < 6; ++k) {
+    load_row<FIN_THREADS>(diff_row(in, k), base, n, tr, x);
+    uint32_t s = 0;
+#pragma unroll
+    for (int i = 0; i < FIN_ITEMS; ++i) s += (uint32_t)x[i];
+    v[k] = s;
+  }
+  unsigned long long tot[6];
+  block_scan<6, FIN_THREADS>(v, tot, sm);
+  if (t < 32) {
+    unsigned long long ex[6];
+    look_back<6>(lb, tile, CHAIN_A, tot, ex);
+    if (t == 0)
+#pragma unroll
+      for (int k = 0; k < 6; ++k) exa_s[k] = ex[k];
+  }
+  __syncthreads();
+  // pass 2, a row at a time: the thread's running prefix of a diff row
+  // (modulo 2^32) from the carry, the tiles before and the threads before
+#define RUN_FROM(k) (uint32_t)(exa_s[k] + v[k] + \
+    (in.carry ? (unsigned long long)in.carry[k] : 0ull))
+  uint32_t ex[FIN_ITEMS];
+  {
+    load_row<FIN_THREADS>(in.exact, base, n, tr, x);
+    uint32_t r = RUN_FROM(0);
+#pragma unroll
+    for (int i = 0; i < FIN_ITEMS; ++i) ex[i] = r += (uint32_t)x[i];
+  }
+  int cd[FIN_ITEMS];
+  if (in.words != nullptr) {
+    // a thread's positions lie in one text word
+    const uint32_t w = p0 < n ? (uint32_t)in.words[p0 >> 4] : 0u;
+#pragma unroll
+    for (int i = 0; i < FIN_ITEMS; ++i)
+      cd[i] = (int)((w >> ((15 - ((p0 + i) & 15)) * 2)) & 3u);
+    if (out.rc != nullptr) store_row<FIN_THREADS>(out.rc, base, n, tr, cd);
+  } else {
+    load_row<FIN_THREADS>(in.rc, base, n, tr, cd);
+  }
+  int cov[FIN_ITEMS] = {0};
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    load_row<FIN_THREADS>(in.acgt + (size_t)c * in.sa, base, n, tr, x);
+#pragma unroll
+    for (int i = 0; i < FIN_ITEMS; ++i) {
+      x[i] = min((int)((uint32_t)x[i] + (c == cd[i] ? ex[i] : 0u)),
+                 MAX_ALLELE);
+      cov[i] = (int)((uint32_t)cov[i] + (uint32_t)x[i]);
+    }
+    store_row<FIN_THREADS>(out.acgt + (size_t)c * n, base, n, tr, x);
+  }
+#pragma unroll
+  for (int k = 1; k < 6; ++k) {
+    load_row<FIN_THREADS>(diff_row(in, k), base, n, tr, x);
+    uint32_t r = RUN_FROM(k);
+#pragma unroll
+    for (int i = 0; i < FIN_ITEMS; ++i) {
+      r += (uint32_t)x[i];
+      x[i] = k < 5 ? (int)r : min((int)r, MAX_ALLELE);
+    }
+    store_row<FIN_THREADS>(k < 5 ? out.F + (size_t)(k - 1) * n : out.multi,
+                           base, n, tr, x);
+  }
+#undef RUN_FROM
+  store_row<FIN_THREADS>(out.cov, base, n, tr, cov);
+  // the coverage prefix: chain B, once chain A has given the exact prefix
+  long long csum = 0;
+#pragma unroll
+  for (int i = 0; i < FIN_ITEMS; ++i) csum += p0 + i < n ? cov[i] : 0;
+  unsigned long long cs[1] = {(unsigned long long)csum}, ctot[1];
+  block_scan<1, FIN_THREADS>(cs, ctot, sm);
+  if (t < 32) {
+    unsigned long long ex1[1];
+    look_back<1>(lb, tile, CHAIN_B, ctot, ex1);
+    if (t == 0) exb_s = ex1[0];
+  }
+  __syncthreads();
+  long long z[FIN_ITEMS];
+  long long run = in.cov_in + (long long)(exb_s + cs[0]);
+#pragma unroll
+  for (int i = 0; i < FIN_ITEMS; ++i) z[i] = run += cov[i];
+  store_row<FIN_THREADS>(out.cpre, base, n, tr64, z);
+  if (out.lead && tile == 0 && t == 0) out.cpre[-1] = in.cov_in;
+  if (tile == (int)gridDim.x - 1 && t == 0) {
+#pragma unroll
+    for (int k = 0; k < 6; ++k)
+      out.carry[k] = (long long)(int)(uint32_t)(
+          exa_s[k] + tot[k] +
+          (in.carry ? (unsigned long long)in.carry[k] : 0ull));
+    out.carry[6] = in.cov_in + (long long)(exb_s + ctot[0]);
+  }
+}
+
+// ---- caller_scan_kernel --------------------------------------------------
+
+struct ScanIn {
+  const int* acgt;                      // [4][sa] finalized allele counts
+  const int* multi;                     // [n]
+  const int* cov;                       // [n]
+  const int* rc;                        // [n]
+  const int* seam;                      // the state at position -1, or
+                                        // nullptr (position 0 starts a run)
+  int sa, n, valid, nb, ad, somatic;
+  float fb;                             // the frequency base, float32
+};
+
+struct ScanOut {
+  int* bd;                              // [nb]
+  int* cand;                            // [CAND_CAP], -1 filled
+  int* run_start;                       // [RUN_CAP], -1 filled
+  int* run_val;                         // [RUN_CAP], 0 filled
+  long long* small;                     // [4]
+  int* seam;                            // the state at position n - 1, or
+                                        // nullptr
+};
+
+__device__ __forceinline__ int run_state(int cov, int multi) {
+  return cov > 0 ? 2 : (multi > 0 ? 1 : 0);
+}
+
+__global__ void __launch_bounds__(SCAN_THREADS)
+caller_scan_kernel(ScanIn in, ScanOut out, LookBack lb) {
+  __shared__ int tr[SCAN_TILE + SCAN_TILE / 32];
+  __shared__ int part[SCAN_THREADS];
+  __shared__ int bdv[SCAN_BLOCKS];
+  __shared__ unsigned long long sm[3 * (SCAN_THREADS / 32)];
+  __shared__ unsigned long long ex_s[3];
+  __shared__ int tile_s;
+  const int t = threadIdx.x;
+  const int tile = draw_ticket(lb, &tile_s);
+  const int base = tile * SCAN_TILE;
+  const int p0 = base + t * SCAN_ITEMS;
+  const int v = in.valid;
+  // every row read below the valid length only: the coverage past it
+  // (and past n) counts as 0
+  int cv[SCAN_ITEMS], x[SCAN_ITEMS];
+  load_row<SCAN_THREADS>(in.cov, base, v, tr, cv);
+  int s = 0, al = 0;
+  long long tc = 0;
+#pragma unroll
+  for (int i = 0; i < SCAN_ITEMS; ++i) {
+    s += cv[i];
+    if (cv[i] > 0) {
+      ++al;
+      tc += cv[i];
+    }
+  }
+  part[t] = s;
+  __syncthreads();
+  if (t < SCAN_BLOCKS) {
+    int b = 0;
+#pragma unroll
+    for (int j = 0; j < BLOCK_THREADS; ++j) b += part[t * BLOCK_THREADS + j];
+    const int d = b > 0 ? b / BLOCK_SIZE : 0;
+    bdv[t] = d;
+    const int blk = tile * SCAN_BLOCKS + t;
+    if (blk < in.nb) out.bd[blk] = d;
+  }
+  // (load_row synchronises before bdv is read)
+  int cd[SCAN_ITEMS], nrm[SCAN_ITEMS];
+  load_row<SCAN_THREADS>(in.rc, base, v, tr, cd);
+#pragma unroll
+  for (int i = 0; i < SCAN_ITEMS; ++i) nrm[i] = -1;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    load_row<SCAN_THREADS>(in.acgt + (size_t)k * in.sa, base, v, tr, x);
+#pragma unroll
+    for (int i = 0; i < SCAN_ITEMS; ++i)
+      if (k != cd[i]) nrm[i] = max(nrm[i], x[i]);
+  }
+  load_row<SCAN_THREADS>(in.multi, base, v, tr, x);
+  const int cov_thr =
+      in.somatic ? in.ad : max(bdv[t / BLOCK_THREADS] >> 1, in.ad);
+  // the run state before the thread's first position: read from memory
+  int prev = 0;
+  if (p0 == 0)
+    prev = in.seam != nullptr ? *in.seam : -1;
+  else if (p0 - 1 < v)
+    prev = run_state(in.cov[p0 - 1], in.multi[p0 - 1]);
+  uint32_t cbits = 0, rbits = 0, sbits = 0;
+  uint32_t nc = 0, nr = 0;
+#pragma unroll
+  for (int i = 0; i < SCAN_ITEMS; ++i) {
+    if (p0 + i < v) {
+      const int c = cv[i];
+      // the reference's float32 product, truncated toward zero
+      const int sup =
+          max(__float2int_rz(__fmul_rn((float)c, in.fb)) - 1, in.ad);
+      if (c >= cov_thr && nrm[i] >= sup) {
+        cbits |= 1u << i;
+        ++nc;
+      }
+      const int st = run_state(c, x[i]);
+      sbits |= (uint32_t)st << (2 * i);
+      if (st != prev) {
+        rbits |= 1u << i;
+        ++nr;
+      }
+      prev = st;
+    }
+  }
+  if (out.seam != nullptr && p0 <= in.n - 1 && in.n - 1 < p0 + SCAN_ITEMS)
+    out.seam[0] = in.n - 1 < v
+                      ? (int)((sbits >> (2 * (in.n - 1 - p0))) & 3u) : 0;
+  // candidates in the low half, run starts in the high half: neither
+  // count passes 2^32
+  unsigned long long val[3] = {
+      (unsigned long long)nc | (unsigned long long)nr << 32,
+      (unsigned long long)al, (unsigned long long)tc};
+  unsigned long long tot[3];
+  block_scan<3, SCAN_THREADS>(val, tot, sm);
+  if (t < 32) {
+    unsigned long long ex[3];
+    look_back<3>(lb, tile, CHAIN_A, tot, ex);
+    if (t == 0)
+#pragma unroll
+      for (int k = 0; k < 3; ++k) ex_s[k] = ex[k];
+  }
+  __syncthreads();
+  const unsigned long long before = ex_s[0] + val[0];
+  uint32_t dc = (uint32_t)before, dr = (uint32_t)(before >> 32);
+#pragma unroll
+  for (int i = 0; i < SCAN_ITEMS; ++i) {
+    const int p = p0 + i;
+    if ((cbits >> i) & 1u) {
+      if (dc < (uint32_t)CAND_CAP) out.cand[dc] = p;
+      ++dc;
+    }
+    if ((rbits >> i) & 1u) {
+      if (dr < (uint32_t)RUN_CAP) {
+        out.run_start[dr] = p;
+        out.run_val[dr] = (int)((sbits >> (2 * i)) & 3u);
+      }
+      ++dr;
+    }
+  }
+  if (tile == (int)gridDim.x - 1 && t == 0) {
+    const unsigned long long a = ex_s[0] + tot[0];
+    out.small[0] = (long long)(a & 0xFFFFFFFFull);
+    out.small[1] = (long long)(a >> 32);
+    out.small[2] = (long long)(ex_s[1] + tot[1]);
+    out.small[3] = (long long)(ex_s[2] + tot[2]);
+  }
+}
+
+// ---- caller_fetch_kernel -------------------------------------------------
+
+struct FetchIn {
+  const int* acgt;                      // [4][L]
+  const int* multi;                     // [L]
+  const int* F;                         // [4][L]
+  const int* cov;                       // [L]
+  const long long* cpre;                // [L + 1]
+  const int* bd;                        // block depths, or nullptr
+  const long long* idx;                 // [P positions | Q points | nbd]
+  int L, P, Q, nbd;
+};
+
+// One output word a thread: the 10 columns of each clamped position, the
+// coverage prefix at each clamped point, the depth of each block.
+__global__ void __launch_bounds__(FETCH_THREADS)
+caller_fetch_kernel(FetchIn in, long long* __restrict__ out) {
+  const long long i = (long long)blockIdx.x * FETCH_THREADS + threadIdx.x;
+  const long long np = 10LL * in.P;
+  if (i < np) {
+    const int j = (int)(i / 10), c = (int)(i % 10);
+    const int p = (int)min(max(in.idx[j], 0LL), (long long)in.L - 1);
+    int x;
+    if (c < 4)
+      x = in.acgt[(size_t)c * in.L + p];
+    else if (c == 4)
+      x = in.multi[p];
+    else if (c < 9)
+      x = in.F[(size_t)(c - 5) * in.L + p];
+    else
+      x = in.cov[p];
+    out[i] = x;
+  } else if (i < np + in.Q) {
+    const long long q = in.idx[in.P + (i - np)];
+    out[i] = in.cpre[min(max(q, 0LL), (long long)in.L)];
+  } else if (i < np + in.Q + in.nbd) {
+    out[i] = in.bd[in.idx[in.P + in.Q + (i - np - in.Q)]];
+  }
+}
+
+// ---- nor_blocks_kernel, nor_finish_kernel --------------------------------
+
+struct NorIn {
+  const int* cov;                       // [L]
+  const long long* em;                  // [E] excluded positions, sorted
+  const long long* brk;                 // [K] breaks, sorted
+  int L, E, K, nseg;
+};
+
+// Entries of the sorted a[0..n) whose value clamped to [lo, hi] is below x.
+__device__ __forceinline__ int count_below(const long long* a, int n,
+                                           long long x, long long lo,
+                                           long long hi) {
+  int l = 0, r = n;
+  while (l < r) {
+    const int m = (l + r) >> 1;
+    if (min(max(a[m], lo), hi) < x)
+      l = m + 1;
+    else
+      r = m;
+  }
+  return l;
+}
+
+// A tile of NOR_TILE positions: key(p) = the breaks <= p is non-decreasing
+// in p, so a segment is a range of positions. Each round a warp holds 32
+// consecutive positions; a segmented reduction over runs of equal keys
+// leaves each run's minima in its first lane, which adds them to the
+// tile's slot of that key in shared memory; the tile then adds its slots
+// to acc. acc [2][nseg] holds INT32_MAX - the minimum (0: none), so the
+// zeroed buffer is the empty segment and the adds are atomicMax.
+__global__ void __launch_bounds__(NOR_THREADS)
+nor_blocks_kernel(NorIn in, int* __restrict__ acc) {
+  __shared__ int s_brk[NOR_STAGE], s_em[NOR_STAGE];
+  __shared__ int s_first[NOR_STAGE + 1], s_min[NOR_STAGE + 1];
+  __shared__ int s_rng[4];
+  const int t = threadIdx.x, lane = t & 31;
+  const int base = blockIdx.x * NOR_TILE;
+  const int end = min(base + NOR_TILE, in.L);
+  const long long NONE = (long long)1 << 62;
+  if (t == 0) {
+    s_rng[0] = count_below(in.brk, in.K, base, -NONE, NONE);
+    s_rng[1] = count_below(in.brk, in.K, end, -NONE, NONE);
+    s_rng[2] = count_below(in.em, in.E, base, 0, in.L - 1);
+    s_rng[3] = count_below(in.em, in.E, end, 0, in.L - 1);
+  }
+  __syncthreads();
+  const int kb = s_rng[0], nk = s_rng[1] - kb;
+  const int eb = s_rng[2], ne = s_rng[3] - eb;
+  const bool staged_b = nk <= NOR_STAGE, staged_e = ne <= NOR_STAGE;
+  // segments of this tile: min(key, nseg - 1) from sb on, at most nk + 1
+  const int sb = min(kb, in.nseg - 1);
+  if (staged_b) {
+    for (int j = t; j < nk; j += NOR_THREADS)
+      s_brk[j] = (int)(in.brk[kb + j] - base);
+    for (int j = t; j <= nk; j += NOR_THREADS)
+      s_first[j] = s_min[j] = I32_MAX;
+  }
+  if (staged_e)
+    for (int j = t; j < ne; j += NOR_THREADS)
+      s_em[j] = (int)(min(max(in.em[eb + j], 0LL), (long long)in.L - 1) -
+                      base);
+  __syncthreads();
+  // positions relative to the tile; the thread's walks through the breaks
+  // and exclusions move forward only
+  int ki = 0, ei = 0;
+  for (int r = 0; r < NOR_ROUNDS; ++r) {
+    const int q = r * NOR_THREADS + t;  // relative position
+    const int p = base + q;
+    int seg = I32_MAX, a = I32_MAX, c = I32_MAX;
+    if (p < end) {
+      while (ki < nk &&
+             (staged_b ? s_brk[ki] : (int)(in.brk[kb + ki] - base)) <= q)
+        ++ki;
+      while (ei < ne &&
+             (staged_e ? s_em[ei]
+                       : (int)(min(max(in.em[eb + ei], 0LL),
+                                   (long long)in.L - 1) - base)) < q)
+        ++ei;
+      const bool excluded =
+          ei < ne &&
+          (staged_e ? s_em[ei]
+                    : (int)(min(max(in.em[eb + ei], 0LL),
+                                (long long)in.L - 1) - base)) == q;
+      const int cv = in.cov[p];
+      seg = min(kb + ki, in.nseg - 1);
+      if (cv > 0 && !excluded) {
+        a = p;
+        c = cv;
+      }
+    }
+    // segmented minima over runs of equal seg (seg non-decreasing in lane)
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int s2 = __shfl_down_sync(FULL, seg, d);
+      const int a2 = __shfl_down_sync(FULL, a, d);
+      const int c2 = __shfl_down_sync(FULL, c, d);
+      if (lane + d < 32 && s2 == seg) {
+        a = min(a, a2);
+        c = min(c, c2);
+      }
+    }
+    const int sp = __shfl_up_sync(FULL, seg, 1);
+    if ((lane == 0 || sp != seg) && a != I32_MAX) {
+      if (staged_b) {
+        atomicMin(&s_first[seg - sb], a);
+        atomicMin(&s_min[seg - sb], c);
+      } else {
+        atomicMax(&acc[seg], I32_MAX - a);
+        atomicMax(&acc[in.nseg + seg], I32_MAX - c);
+      }
+    }
+  }
+  if (!staged_b) return;
+  __syncthreads();
+  for (int j = t; j <= nk && sb + j < in.nseg; j += NOR_THREADS)
+    if (s_first[j] != I32_MAX) {
+      atomicMax(&acc[sb + j], I32_MAX - s_first[j]);
+      atomicMax(&acc[in.nseg + sb + j], I32_MAX - s_min[j]);
+    }
+}
+
+// acc [2][nseg] -> out [3][nseg]: first position, minimum coverage (both
+// INT32_MAX for an empty segment) and the coverage at the clamped first
+// position. In place: out's first 2 * nseg words are acc.
+__global__ void __launch_bounds__(NOR_THREADS)
+nor_finish_kernel(const int* __restrict__ cov, int L, int nseg,
+                  int* out) {
+  const int s = blockIdx.x * NOR_THREADS + threadIdx.x;
+  if (s >= nseg) return;
+  const int first = I32_MAX - out[s];
+  out[s] = first;
+  out[nseg + s] = I32_MAX - out[nseg + s];
+  out[2 * nseg + s] = cov[min(max(first, 0), L - 1)];
+}
+
+bool epoch_ok(int epoch) { return epoch >= 1 && epoch < (1 << 30); }
+
+LookBack look_back_state(void* scratch, int epoch) {
+  return LookBack{(unsigned int*)scratch,
+                  (unsigned long long*)scratch + SLOT_WORDS,
+                  (unsigned long long)epoch};
+}
+
+}  // namespace
+
+// The finalize fold over positions [0, n): acgt int32[4][sa], exact int32
+// [>= n], fdiff int32[4][sf], mdiff int32[>= n]; the reference codes from rc
+// int32[n] or from the text words (then written to rc_out, when not
+// nullptr); carry int64[7] (the six int32 prefixes coming in, or nullptr
+// for 0) and cov_in. Outputs acgt_out, F_out int32[4][n], multi_out,
+// cov_out int32[n], cpre int64[n] (cpre[-1] too when lead), carry_out
+// int64[7]: the six int32 prefixes at n - 1 and cov_in plus the coverage
+// total. scratch int64[SLOT_WORDS * (1 + tiles)] holds no flag of this
+// epoch: zeroed at first, then used by launches of smaller epochs only.
+extern "C" int mc_evidence_finalize(
+    const void* acgt, int sa, const void* exact, const void* fdiff, int sf,
+    const void* mdiff, const void* rc, const void* words, const void* carry,
+    long long cov_in, int n, void* acgt_out, void* F_out, void* multi_out,
+    void* cov_out, void* cpre, int lead, void* rc_out, void* carry_out,
+    void* scratch, int tiles, int epoch, void* stream) {
+  const int ntiles = (n + FIN_TILE - 1) / FIN_TILE;
+  if (n < 1 || n > (1 << 30) || sa < n || sf < n ||
+      (rc == nullptr) == (words == nullptr) ||
+      (rc_out != nullptr && words == nullptr) || carry_out == nullptr ||
+      scratch == nullptr || tiles < ntiles || !epoch_ok(epoch))
+    return (int)cudaErrorInvalidValue;
+  const FinIn in{(const int*)acgt, (const int*)exact, (const int*)fdiff,
+                 (const int*)mdiff, (const int*)rc, (const long long*)words,
+                 (const long long*)carry, cov_in, sa, sf, n};
+  const FinOut out{(int*)acgt_out, (int*)F_out, (int*)multi_out,
+                   (int*)cov_out, (long long*)cpre, (int*)rc_out,
+                   (long long*)carry_out, lead};
+  evidence_finalize_kernel<<<ntiles, FIN_THREADS, 0, (cudaStream_t)stream>>>(
+      in, out, look_back_state(scratch, epoch));
+  return (int)cudaGetLastError();
+}
+
+// The caller scan over positions [0, n), of which [0, valid) count: acgt
+// int32[4][sa], multi, cov, rc int32[n]; seam int32[1] (the run state at
+// position -1) or nullptr. tables int32[CAND_CAP + 2 * RUN_CAP] (the
+// candidates, the run starts, the run values: filled with -1, -1 and 0
+// here, then written up to their counts), bd int32[ceil(n / 100)], small
+// int64[4] = (n_cand, n_runs, n_aligned, total_cov), seam_out int32[1] (the
+// state at n - 1) or nullptr. Scratch as mc_evidence_finalize's.
+extern "C" int mc_caller_scan(const void* acgt, int sa, const void* multi,
+                              const void* cov, const void* rc, int n,
+                              int valid, int ad, float fb, int somatic,
+                              const void* seam, void* bd, void* tables,
+                              void* small, void* seam_out, void* scratch,
+                              int tiles, int epoch, void* stream) {
+  const int ntiles = (n + SCAN_TILE - 1) / SCAN_TILE;
+  if (n < 1 || n > (1 << 30) || sa < n || valid < 0 || valid > n ||
+      scratch == nullptr || tiles < ntiles || !epoch_ok(epoch))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  int* tab = (int*)tables;
+  cudaError_t err = cudaMemsetAsync(
+      tab, 0xFF, sizeof(int) * ((size_t)CAND_CAP + RUN_CAP), st);
+  if (err == cudaSuccess)
+    err = cudaMemsetAsync(tab + CAND_CAP + RUN_CAP, 0,
+                          sizeof(int) * (size_t)RUN_CAP, st);
+  if (err != cudaSuccess) return (int)err;
+  const int nb = (n + BLOCK_SIZE - 1) / BLOCK_SIZE;
+  const ScanIn in{(const int*)acgt, (const int*)multi, (const int*)cov,
+                  (const int*)rc, (const int*)seam, sa, n, valid, nb, ad,
+                  somatic, fb};
+  const ScanOut out{(int*)bd, tab, tab + CAND_CAP, tab + CAND_CAP + RUN_CAP,
+                    (long long*)small, (int*)seam_out};
+  caller_scan_kernel<<<ntiles, SCAN_THREADS, 0, st>>>(
+      in, out, look_back_state(scratch, epoch));
+  return (int)cudaGetLastError();
+}
+
+// The column fetch: out int64[10 P + Q + nbd] from idx int64[P + Q + nbd]
+// (positions, prefix points, blocks < the length of bd); acgt and F
+// int32[4][L], multi and cov int32[L], cpre int64[L + 1], bd int32 (or
+// nullptr when nbd is 0).
+extern "C" int mc_caller_fetch(const void* acgt, const void* multi,
+                               const void* F, const void* cov,
+                               const void* cpre, const void* bd,
+                               const void* idx, int L, int P, int Q, int nbd,
+                               void* out, void* stream) {
+  const long long total = 10LL * P + Q + nbd;
+  if (L < 1 || P < 0 || Q < 0 || nbd < 0 || total < 1 ||
+      total > (1LL << 40) || (nbd > 0 && bd == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const FetchIn in{(const int*)acgt, (const int*)multi, (const int*)F,
+                   (const int*)cov, (const long long*)cpre, (const int*)bd,
+                   (const long long*)idx, L, P, Q, nbd};
+  const long long blocks = (total + FETCH_THREADS - 1) / FETCH_THREADS;
+  caller_fetch_kernel<<<(unsigned int)blocks, FETCH_THREADS, 0,
+                        (cudaStream_t)stream>>>(in, (long long*)out);
+  return (int)cudaGetLastError();
+}
+
+// The NOR blocks: out int32[3 * nseg] = (first position, minimum coverage,
+// coverage at the first position) a segment, from cov int32[L], em int64[E]
+// and brk int64[K], both sorted (E or K may be 0). Three operations: a
+// memset of out's first 2 * nseg words, the blocks, the finish.
+extern "C" int mc_nor_blocks(const void* cov, int L, const void* em, int E,
+                             const void* brk, int K, int nseg, void* out,
+                             void* stream) {
+  if (L < 1 || E < 0 || K < 0 || nseg < 1 || (E > 0 && em == nullptr) ||
+      (K > 0 && brk == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err =
+      cudaMemsetAsync(out, 0, sizeof(int) * 2 * (size_t)nseg, st);
+  if (err != cudaSuccess) return (int)err;
+  const NorIn in{(const int*)cov, (const long long*)em,
+                 (const long long*)brk, L, E, K, nseg};
+  nor_blocks_kernel<<<(L + NOR_TILE - 1) / NOR_TILE, NOR_THREADS, 0, st>>>(
+      in, (int*)out);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  nor_finish_kernel<<<(nseg + NOR_THREADS - 1) / NOR_THREADS, NOR_THREADS, 0,
+                      st>>>((const int*)cov, L, nseg, (int*)out);
+  return (int)cudaGetLastError();
+}

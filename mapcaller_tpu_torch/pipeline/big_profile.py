@@ -9,16 +9,18 @@ is split along the genome over the shard devices of the index
 400 (lcm of the caller's 100-base blocks and the 16 bases of a text
 word, so neither straddles a seam) and Pg >= L + 2; shard s holds
 positions [s * Pl, (s + 1) * Pl) of every plane on its device, and no
-tensor of genome length sits on one device. Each program of the
-reference runs as eager PyTorch over each shard's slice (as the
-single-card evidence programs do in this port):
+tensor of genome length sits on one device. The fold and the scan run
+the single-card kernels a shard through their slice forms
+(ops/calling_kernels: evidence_finalize with the carries of the shards
+before, caller_scan with a valid length and the seam's run state); the
+other programs run as eager PyTorch over each shard's slice:
 
   apply      a batch's FAST-read evidence: each endpoint and mismatch
              goes to the shard that owns its position (:103-187)
   merge      the host profile's sparse slow-read deltas, routed alike
              (:189-289)
-  finalize   per-shard prefix sums, each shard adding the totals of the
-             shards before it (:291-361)
+  finalize   per-shard prefix sums, each shard carrying in the prefixes
+             at the end of the shard before it (:291-361)
   scan       the caller's scan per shard: the run-length state carried
              across each seam from the shard before, candidates and runs
              joined in shard order, which is position order, so the
@@ -42,9 +44,10 @@ from torch.profiler import record_function
 
 from ..calling.scan_device import (BLOCK_SIZE, CAND_CAP, INT32_MAX, RUN_CAP,
                                    LazyBlockDepth)
+from ..ops import calling_kernels
 from ..ops.device_util import upload
 from ..ops.evidence import first_mate_lanes
-from .device_profile import MAX_ALLELE_COUNT, STATS, DeviceEvidence
+from .device_profile import STATS, DeviceEvidence
 
 _GRAN = 400   # lcm(BLOCK_SIZE, 16)
 
@@ -257,29 +260,21 @@ class BigDeviceEvidence(DeviceEvidence):
         return self._final
 
     def _fold(self):
-        """finalize's fold of the shards' planes as they stand (uncached)."""
-        i32 = torch.int32
-        sums = [(torch.cumsum(sp.exact_diff, 0, dtype=i32),
-                 torch.cumsum(sp.f_diff, 1, dtype=i32),
-                 torch.cumsum(sp.multi_diff, 0, dtype=i32))
-                for sp in self.planes]
-        outs, tots = [], []
-        for s, (d, rc) in enumerate(zip(self.devs, self._codes)):
-            ce, cf, cm = sums[s]
-            ce, cf, cm = ce.clone(), cf.clone(), cm.clone()
-            for t in range(s):        # the earlier shards' totals
-                ce += sums[t][0][-1].to(d)
-                cf += sums[t][1][:, -1:].to(d)
-                cm += sums[t][2][-1].to(d)
-            base = torch.arange(4, dtype=i32, device=d)[:, None]
-            acgt = torch.clamp(self.planes[s].acgt + torch.where(
-                base == rc[None, :], ce[None, :], 0),
-                max=MAX_ALLELE_COUNT)
-            multi = torch.clamp(cm, max=MAX_ALLELE_COUNT)
-            cov = acgt.sum(0, dtype=i32)
-            ccov = torch.cumsum(cov, 0, dtype=torch.int64)
-            outs.append((acgt, cf, multi, cov, ccov))
-            tots.append(int(ccov[-1]))
+        """finalize's fold of the shards' planes as they stand (uncached):
+        evidence_finalize a shard in shard order, each shard's six int32
+        prefixes carried in from the shard before (on the card, no host
+        sync), its coverage prefix local."""
+        outs, carries, carry = [], [], None
+        for sp, rc, d in zip(self.planes, self._codes, self.devs):
+            fin = calling_kernels.evidence_finalize(
+                sp.acgt, sp.exact_diff, sp.f_diff, sp.multi_diff, self.Pl,
+                codes=rc, carry=None if carry is None else carry.to(d),
+                lead=False)
+            outs.append(tuple(fin[:5]))
+            carry = fin.carry
+            carries.append(carry)
+        # each shard's coverage total: its carry's last word
+        tots = [int(c[6]) for c in carries]
         return outs, np.asarray(tots, dtype=np.int64)
 
     # ------------------------------------------------------------------
@@ -296,55 +291,30 @@ class BigDeviceEvidence(DeviceEvidence):
             return self._scan
         outs, _ = self.finalize()
         somatic = bool(self.cfg.somatic)
-        fb = float(np.float32(0.01 if somatic else self.cfg.frequency_thr))
+        fb = np.float32(0.01 if somatic else self.cfg.frequency_thr)
         ad = int(self.cfg.min_allele_depth)
         Pl, L = self.Pl, self.L
-        nbl = Pl // BLOCK_SIZE
-        bds, cands, runs, rvals = [], [], [], []
-        n_cand = n_runs = n_aligned = total_cov = 0
-        prev = None                    # the state at the seam before
+        scans, seam = [], None         # the run state at the seam before
         with record_function("caller_scan"):
+            # every shard's scan queued before the first copy to the host
             for s, ((acgt, _F, multi, cov, _cc), rc, d) in enumerate(
                     zip(outs, self._codes, self.devs)):
-                off = s * Pl
-                pos = torch.arange(Pl, dtype=torch.int64, device=d)
-                valid = off + pos < L
-                covm = torch.where(valid, cov, 0)
-                sums = covm.reshape(nbl, BLOCK_SIZE).sum(1, dtype=torch.int32)
-                bd = torch.where(sums > 0, sums // BLOCK_SIZE, 0)
-                bds.append(bd)
-                if somatic:
-                    cov_thr = torch.full((Pl,), ad, dtype=torch.int32,
-                                         device=d)
-                else:
-                    cov_thr = torch.clamp(
-                        bd.repeat_interleave(BLOCK_SIZE) >> 1, min=ad)
-                nonref_max = torch.full((Pl,), -1, dtype=torch.int32,
-                                        device=d)
-                for c in range(4):
-                    nonref_max = torch.maximum(
-                        nonref_max, torch.where(rc == c, -1, acgt[c]))
-                sup_thr = torch.clamp(
-                    (covm.to(torch.float32) * fb).to(torch.int32) - 1,
-                    min=ad)
-                cand = torch.nonzero(valid & (covm >= cov_thr)
-                                     & (nonref_max >= sup_thr)).flatten()
-                state = torch.where(covm > 0, 2, torch.where(
-                    valid & (multi > 0), 1, 0)).to(torch.int32)
-                first_new = (torch.ones(1, dtype=torch.bool, device=d)
-                             if prev is None else (state[:1] != prev.to(d)))
-                newrun = valid & torch.cat([first_new,
-                                            state[1:] != state[:-1]])
-                prev = state[-1:]
-                run = torch.nonzero(newrun).flatten()
-                aligned = covm > 0
-                n_aligned += int(aligned.sum())
-                total_cov += int(covm.sum(dtype=torch.int64))
-                n_cand += cand.shape[0]
-                n_runs += run.shape[0]
-                cands.append(cand[:CAND_CAP].cpu().numpy() + off)
-                runs.append(run[:RUN_CAP].cpu().numpy() + off)
-                rvals.append(state[run[:RUN_CAP]].cpu().numpy())
+                scans.append(calling_kernels.caller_scan(
+                    acgt, multi, cov, rc, ad, fb, somatic, valid=L - s * Pl,
+                    seam=None if seam is None else seam.to(d)))
+                seam = scans[-1].seam
+            counts = np.array([r.small.tolist() for r in scans],
+                              dtype=np.int64)
+            cands, runs, rvals = [], [], []
+            for s, (r, (nc, nr, _, _)) in enumerate(zip(scans, counts)):
+                kc, kr = min(int(nc), CAND_CAP), min(int(nr), RUN_CAP)
+                packed = torch.cat([r.cand_idx[:kc], r.run_start[:kr],
+                                    r.run_val[:kr]]).cpu().numpy()
+                cands.append(packed[:kc].astype(np.int64) + s * Pl)
+                runs.append(packed[kc:kc + kr].astype(np.int64) + s * Pl)
+                rvals.append(packed[kc + kr:])
+        n_cand, n_runs, n_aligned, total_cov = counts.sum(0).tolist()
+        bds = [r.block_depth for r in scans]
         STATS.scans += 1
         nb = (L + BLOCK_SIZE - 1) // BLOCK_SIZE
         self._scan = (ShardedBlockDepth(bds, nb),

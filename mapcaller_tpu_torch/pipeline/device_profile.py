@@ -31,7 +31,9 @@ eager scatter of ops/evidence.py, which the CPU runs. The
 `build_*_kernel` functions bind the static arguments of the reference's
 jitted `build_*` functions and return a function that updates the planes
 in place: the apply and the correction through K2's wrapper, the host
-merge and the finalize as eager PyTorch.
+merge as eager PyTorch. The finalize fold is `evidence_finalize_kernel`
+(csrc/calling.cu) through ops/calling_kernels.evidence_finalize, whose
+plain version the CPU runs.
 """
 from __future__ import annotations
 
@@ -41,11 +43,10 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from ..ops import mesh_kernels
+from ..ops import calling_kernels, mesh_kernels
+from ..ops.calling_kernels import MAX_ALLELE_COUNT  # noqa: F401
 from ..ops.chain_device import CLASS_FAST
 from ..ops.device_util import need, upload
-
-MAX_ALLELE_COUNT = 4095
 
 
 class EvidenceStats:
@@ -160,27 +161,12 @@ def build_finalize_kernel(L: int):
     capped, cov int32[L], cov_prefix int64[L+1]); mirrors
     Profile.finalize_diffs. cov_prefix is int64: the reference's int32
     prefix wraps once the summed coverage passes 2^31 and equals this one
-    wherever it does not."""
-    i32 = torch.int32
+    wherever it does not. ops/calling_kernels.evidence_finalize."""
 
     def kernel(planes: DevicePlanes, ref_codes):
-        exact = torch.cumsum(planes.exact_diff[:L], 0, dtype=i32)
-        rc = ref_codes[:L]
-        base = torch.arange(4, dtype=rc.dtype, device=rc.device)[:, None]
-        acgt = planes.acgt[:, :L] + torch.where(base == rc[None, :],
-                                                exact[None, :], 0)
-        acgt = torch.clamp(acgt, max=MAX_ALLELE_COUNT)
-        # one 1-D scan per plane: a scan along the rows of a [4, L]
-        # tensor runs one CUDA block per row
-        F = torch.stack([torch.cumsum(planes.f_diff[k, :L], 0, dtype=i32)
-                         for k in range(4)])
-        multi = torch.clamp(torch.cumsum(planes.multi_diff[:L], 0, dtype=i32),
-                            max=MAX_ALLELE_COUNT)
-        cov = acgt.sum(0, dtype=i32)
-        cov_prefix = torch.cat([torch.zeros(1, dtype=torch.int64,
-                                            device=cov.device),
-                                torch.cumsum(cov, 0, dtype=torch.int64)])
-        return acgt, F, multi, cov, cov_prefix
+        return tuple(calling_kernels.evidence_finalize(
+            planes.acgt, planes.exact_diff, planes.f_diff, planes.multi_diff,
+            L, codes=ref_codes)[:5])
 
     return kernel
 
@@ -293,12 +279,10 @@ class DeviceEvidence:
     # ------------------------------------------------------------------
     def _ref_codes_dev(self) -> torch.Tensor:
         """Forward-genome codes int32[L] from the device text words
-        (int64 holding uint32, 16 crumbs per word in bwa order)."""
-        words = self.be.chain_ctx.text_words[:(self.L + 15) // 16]
-        sh = (15 - torch.arange(16, dtype=torch.int64,
-                                device=words.device)) * 2
-        crumbs = (words[:, None] >> sh[None, :]) & 3
-        return crumbs.reshape(-1)[:self.L].to(torch.int32)
+        (int64 holding uint32, 16 crumbs per word in bwa order): the
+        plain version of the codes the finalize kernel reads itself."""
+        return calling_kernels.ref_codes_plain(self.be.chain_ctx.text_words,
+                                               self.L)
 
     def _merge_host_deltas(self) -> None:
         """Add the host profile's slow-read evidence (sparse nonzero diff
@@ -339,13 +323,18 @@ class DeviceEvidence:
 
     def finalize(self):
         """Merge host deltas + fold diffs on the card ->
-        (acgt, F, multi, cov, cov_prefix), all device-resident."""
+        (acgt, F, multi, cov, cov_prefix), all device-resident; one
+        evidence_finalize launch, which also writes the reference codes
+        the scan reads (self._ref_codes) from the text words."""
         if self._final is None:
             with record_function("evidence_finalize"):
                 self._merge_host_deltas()
-                self._ref_codes = self._ref_codes_dev()
-                self._final = build_finalize_kernel(self.L)(self.planes,
-                                                            self._ref_codes)
+                pl = self.planes
+                fin = calling_kernels.evidence_finalize(
+                    pl.acgt, pl.exact_diff, pl.f_diff, pl.multi_diff, self.L,
+                    words=self.be.chain_ctx.text_words)
+                self._ref_codes = fin.codes
+                self._final = tuple(fin[:5])
         return self._final
 
     def start_scan(self) -> None:
@@ -391,53 +380,49 @@ class DeviceEvidence:
 
     def fetch_columns(self, positions: np.ndarray, prefix_pts: np.ndarray,
                       bd_blocks: np.ndarray = None):
-        """Gather evidence columns + cov-prefix values (one packed copy to
-        the host). When bd_blocks is given and scan() has run, the
-        block-depth values at those blocks ride the same copy and seed
-        the LazyBlockDepth cache."""
-        from ..calling.scan_device import build_fetch_kernel
+        """Gather evidence columns + cov-prefix values (one upload of the
+        indices, one caller_fetch, one packed copy to the host). When
+        bd_blocks is given and scan() has run, the block-depth values at
+        those blocks ride the same copy and seed the LazyBlockDepth
+        cache."""
         acgt, F, multi, cov, cov_prefix = self.finalize()
-
-        def up(a):
-            return upload(np.asarray(a, dtype=np.int64), self.device)
-
-        with record_function("fetch_columns"):
-            cols, pref = build_fetch_kernel(self.L)(
-                acgt, multi, F, cov, cov_prefix, up(positions),
-                up(prefix_pts))
-        STATS.fetches += 1
-        parts = [cols.reshape(-1).to(torch.int64), pref]
-        nbd = 0
+        P, Q = len(positions), len(prefix_pts)
+        parts = [np.asarray(positions, dtype=np.int64),
+                 np.asarray(prefix_pts, dtype=np.int64)]
+        bd = None
         if bd_blocks is not None and self._scan is not None:
             lbd = self._scan[0]
             bd_blocks = np.unique(bd_blocks)
             bd_blocks = bd_blocks[(bd_blocks >= 0) & (bd_blocks < lbd.nb)]
-            nbd = bd_blocks.size
-            if nbd:
-                parts.append(lbd._arr[up(bd_blocks)].to(torch.int64))
-        packed = torch.cat(parts).cpu().numpy()
-        nc = cols.shape[0] * cols.shape[1]
-        cols_h = packed[:nc].reshape(tuple(cols.shape))
-        pref_h = packed[nc:nc + pref.shape[0]]
-        if nbd:
-            self._scan[0].insert(bd_blocks, packed[nc + pref.shape[0]:])
-        return cols_h, pref_h
+            if bd_blocks.size:
+                bd = lbd._arr
+                parts.append(bd_blocks.astype(np.int64))
+        with record_function("fetch_columns"):
+            packed = calling_kernels.caller_fetch(
+                acgt, multi, F, cov, cov_prefix,
+                upload(np.concatenate(parts), self.device), P, Q,
+                bd).cpu().numpy()
+        STATS.fetches += 1
+        if bd is not None:
+            self._scan[0].insert(bd_blocks, packed[10 * P + Q:])
+        return packed[:10 * P].reshape(P, 10), packed[10 * P:10 * P + Q]
 
     def nor_blocks(self, emitted: np.ndarray, brk: np.ndarray):
         """gVCF NOR-block reduction on the card: returns (first_pos,
         min_cov, cov_at_first) per block key 0..brk.size. emitted =
         positions whose own record excludes them from 'normal'; brk =
-        every record-appending position."""
-        from ..calling.scan_device import build_nor_kernel
+        every record-appending position. Both are sorted here and go up
+        in one copy."""
         acgt, F, multi, cov, cov_prefix = self.finalize()
         nseg = brk.size + 2       # keys 0..brk.size, then the dump segment
         # an empty break list searches [L]: every position gets key 0
         bk = np.sort(np.asarray(brk, dtype=np.int64)) if brk.size else \
             np.array([self.L], dtype=np.int64)
-        first, mincov, covf = build_nor_kernel(self.L, nseg)(
-            cov, upload(np.asarray(emitted, dtype=np.int64), self.device),
-            upload(bk, self.device))
-        packed = torch.cat([first, mincov, covf]).cpu().numpy()
+        em = np.sort(np.asarray(emitted, dtype=np.int64))
+        args = upload(np.concatenate([em, bk]), self.device)
+        packed = calling_kernels.nor_blocks(cov, args[:em.size],
+                                            args[em.size:], nseg)
+        packed = packed.cpu().numpy()
         return packed[:nseg], packed[nseg:2 * nseg], packed[2 * nseg:]
 
     def download_raw_into(self, profile) -> None:
