@@ -165,8 +165,10 @@ exits non-zero):
              planes: the finalize from the text words, the caller scan
              and the first column fetch (with its block depths), each
              equal to its plain version on the card in every word, with
-             device ms, call ms, plain ms and the byte bound; the calling
-             phase's peak device memory, plain versions against kernels
+             device ms, call ms, plain ms, the byte bound and the bytes/s
+             achieved; the finalize's and the scan's geometry (dynamic
+             shared memory, blocks an SM); the calling phase's peak
+             device memory, plain versions against kernels
   dp_rates   on each algorithm's largest DP batch of the main path (its
              own pairs): one device DP call end to end on 1 pair and on
              all of them (fixed and per-pair cost), and the scalar C++
@@ -3140,14 +3142,17 @@ def run_main_path(work, card):
     # planes, and no eager body runs on the card
     ok = ok and all(calling_ok(t) for t in everything + sharded)
     w_ops = dict(warm["calling"])
+    # finalize: 1 kernel; scan: 2 memsets + 1 kernel; fetch: 1 kernel
+    w_total = (w_ops.get("evidence_finalize", 0)
+               + 3 * w_ops.get("caller_scan", 0)
+               + w_ops.get("caller_fetch", 0))
+    ok = ok and w_total <= 5
     emit("main_path_calling", card=card,
          launches_a_run={k: t["calling"] for k, t in (
              ("warmup", warm), ("fold", fold_ev), ("host_evidence", host_ev),
              ("devices_2", multi), ("shards_2", sharded[0]),
              ("shards_4", sharded[1]), ("ksw2_warmup", kwarm))},
-         # finalize: 1 kernel; scan: 2 memsets + 1 kernel; fetch: 1 kernel
-         warmup_device_operations=w_ops.get("evidence_finalize", 0)
-         + 3 * w_ops.get("caller_scan", 0) + w_ops.get("caller_fetch", 0),
+         warmup_device_operations=w_total,
          eager_calls=sum(t["calling_eager"] for t in everything + sharded))
     calling_tap.uninstall()
     k2_main.uninstall()
@@ -3404,6 +3409,9 @@ def run_calling(cap, card, launches, reps=50):
                                               f.cov_prefix, idx, P, Q,
                                               sc.block_depth))
                            for fn in (kern[2], plain[2])))
+    # the finalize's and the scan's persistent blocks: dynamic shared
+    # memory (ptxas reports only the static) and blocks an SM
+    geo = cal.geometry(cuda)
     rows = {}
     for name, (k, p) in calls.items():
         bound = 1e3 * nbytes[name] / H100_BYTES_S
@@ -3412,7 +3420,9 @@ def run_calling(cap, card, launches, reps=50):
                           plain_ms=cuda_ms(p, reps, queued=True),
                           bound_ms=bound, bound_by="bytes",
                           bytes=nbytes[name], share_of_bound=bound / ms,
-                          launches=launches.get(name, 0))
+                          bytes_per_s=nbytes[name] / (ms * 1e-3),
+                          launches=launches.get(name, 0),
+                          **({"geometry": geo[name]} if name in geo else {}))
     emit("calling", card=card, L=L, fetch_positions=P, prefix_points=Q,
          fetch_blocks=int(blocks.size), n_cand=n_cand, n_runs=n_runs,
          peak_mem_bytes=peak, kernels=rows,
@@ -3481,6 +3491,7 @@ def time_nor(args, launches, reps=20):
     bound = 1e3 * nbytes / H100_BYTES_S
     return dict(L=L, emitted=int(em.numel()), breaks=int(bkt.numel()),
                 segments=nseg, max_abs_err=err, ms=ms,
+                bytes_per_s=nbytes / (ms * 1e-3),
                 call_ms=cuda_ms(lambda: cal.nor_blocks(*args), reps),
                 plain_ms=cuda_ms(lambda: cal.nor_blocks_plain(*args), reps,
                                  queued=True),
@@ -4870,6 +4881,7 @@ def main():
             "bound_by": r["bound_by"], "library_ms": None, "tolerance": 0,
             "call_ms": r["call_ms"], "registers": regs.get("registers"),
             "also_replaces": also, "shape": shape,
+            **{k: r[k] for k in ("bytes_per_s", "geometry") if k in r},
             **({"b4_a_shard": {
                 f"shards_{n}": dict(b4[n]["fold" if name == "evidence_finalize"
                                        else "scan"],

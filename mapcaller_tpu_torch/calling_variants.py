@@ -3,22 +3,46 @@ evidence_finalize_kernel and caller_scan_kernel) timed on main-path
 data, to find where their time goes. Needs one CUDA card and nvcc, and
 the repository's kernel_variants.py and chip_smoke.py beside the package.
 
-    python -m mapcaller_tpu_torch.calling_variants VARIANT [VARIANT ...]
+    python -m mapcaller_tpu_torch.calling_variants [--parent=PATH] \\
+        VARIANT [VARIANT ...]
 
 A variant is tokens joined by "_", each an edit of the source as it is:
   F<n>      the least blocks an SM in the finalize's launch bounds
   S<n>      the same for the scan
+  Ft<n>     n threads a finalize block
+  Fi<n>     n positions a finalize thread (a tile of n x threads)
+  Sb<n>     n 100-base blocks a scan tile
+  Si<n>     n positions a scan thread (100 / n threads a 100-base block)
+  Fs<n>     n tiles staged a finalize block (1: none in flight while a
+            tile is processed; 2: the next tile's copies are)
+  Ss<n>     the same for the scan
   sleep<n>  a __nanosleep(n) between the look-back's polls
-  nolb      timing only: no look-back (every tile's carry taken as 0, so
-            the outputs are wrong and not held)
-"source" is the source unedited. Each variant is compiled with the port's
-nvcc flags, all at once. The data come from a main-path run of 20,000
-simulated pairs (mapcaller_tpu_torch.simulator): the finalize folds the
-run's own planes with the reference codes from its text words, as
-DeviceEvidence.finalize does, and the scan reads the folded planes. Then
-each variant's queued device ms (chip_smoke.cuda_ms), whether its outputs
-equal the plain versions' in every word, and its ptxas report. Prints
-the card's name and power limit, then one JSON line.
+  nolb      timing only: no look-back (tile k's carry taken as 4 k
+            candidates and 5 k runs before it, and the same value for
+            every other sum: the outputs are wrong and not held; the
+            scan's tiles still write their tables in separate places)
+  loads     timing only: each tile staged and nothing else (no sums, no
+            look-back, no stores)
+"source" is the source unedited; "parent" is the source before the
+staged redesign, a row at a time through shared memory (commit f84d1be),
+read from PATH (default mapcaller_tpu_torch/build/calling_parent.cu,
+git-ignored; write it first:
+    git show f84d1be:mapcaller_tpu_torch/csrc/calling.cu \\
+        > mapcaller_tpu_torch/build/calling_parent.cu
+). Both forms take the same C entries, so the port's wrappers drive both.
+A variant named twice is timed twice, in the order given (parent source
+source parent compares the two forms in turns). Each variant is compiled
+with the port's nvcc flags, all at once. The data come from a main-path
+run of 20,000 simulated pairs (mapcaller_tpu_torch.simulator): the
+finalize folds the run's own planes with the reference codes from its
+text words, as DeviceEvidence.finalize does, and the scan reads the
+folded planes. Then each variant's queued device ms (chip_smoke.cuda_ms)
+a turn, whether its outputs equal the plain versions' in every word (the
+whole planes, and two slices through the slice forms: carries, a local
+coverage prefix, codes given, a valid length and the seam), its geometry
+(tile, threads, stages, dynamic shared memory, blocks an SM; not the
+parent's) and its ptxas report. Prints the card's name and power limit,
+then one JSON line.
 """
 import os
 import re
@@ -27,8 +51,18 @@ import sys
 from . import toolchain
 
 SRC = os.path.join(toolchain.CSRC_DIR, "calling.cu")
+PARENT = os.path.join(toolchain.BUILD_DIR, "calling_parent.cu")
 KERNELS = ("evidence_finalize_kernel", "caller_scan_kernel")
 POLL = "      if (__all_sync(FULL, (st >> 2) == lb.epoch)) break;\n"
+TIMING_ONLY = {"nolb", "loads"}        # tokens whose outputs are not held
+# the last lines of fin_tile's and scan_tile's signatures: `loads` returns
+# there (the scan with its next tile drawn and staged, as it would be)
+LOADS_FIN = "unsigned long long* exb_s) {\n"
+LOADS_SCAN = "unsigned long long* ex_s,\n" + " " * 41 + "int* tile_s) {\n"
+# token prefix -> the constant it sets
+KNOBS = (("Ft", "FIN_THREADS"), ("Fi", "FIN_ITEMS"), ("Fs", "FIN_STAGES"),
+         ("Sb", "SCAN_BLOCKS"), ("Si", "SCAN_ITEMS"), ("Ss", "SCAN_STAGES"),
+         ("F", "FIN_MIN_BLOCKS"), ("S", "SCAN_MIN_BLOCKS"))
 
 
 def _harness():
@@ -39,24 +73,41 @@ def _harness():
     return kernel_variants
 
 
-def variant_source(name, src):
-    """The kernel source edited as variant `name` asks."""
+def variant_source(name, src, parent=None):
+    """The kernel source edited as variant `name` asks; "parent" is
+    `parent`, the source before the staged redesign."""
     kv = _harness()
     if name == "source":
         return src
+    if name == "parent":
+        if parent is None:
+            raise ValueError("variant 'parent' needs the parent's source "
+                             "(--parent=PATH)")
+        return parent
     for tok in name.split("_"):
-        if tok[0] in "FS" and tok[1:].isdigit():
-            what = "FIN_THREADS" if tok[0] == "F" else "SCAN_THREADS"
-            src = kv.edit(src, f"__launch_bounds__({what})",
-                          f"__launch_bounds__({what}, {tok[1:]})")
+        knob = next(((p, c) for p, c in KNOBS
+                     if tok.startswith(p) and tok[len(p):].isdigit()), None)
+        if knob is not None:
+            src = kv.set_const(src, knob[1], tok[len(knob[0]):])
         elif tok.startswith("sleep") and tok[5:].isdigit():
             src = kv.edit(src, POLL, POLL + f"      __nanosleep({tok[5:]});\n")
         elif tok == "nolb":
-            src, n = re.subn(r"look_back<(\d)>\(lb, tile, \w+, \w+, (\w+)\);",
-                             r"for (int k_ = 0; k_ < \1; ++k_) \2[k_] = 0;",
-                             src)
+            # the finalize's two chains and the scan's one
+            src, n = re.subn(
+                r"look_back<(\d)(?:, true)?>\(lb, tile, \w+, \w+, (\w+)\);",
+                r"for (int k_ = 0; k_ < \1; ++k_) "
+                r"\2[k_] = tile * 0x500000004ull;", src)
             if n != 3:
                 raise ValueError("the source no longer holds 3 look-backs")
+        elif tok == "loads":
+            src = kv.edit(src, LOADS_FIN, LOADS_FIN + "  return;\n")
+            src = kv.edit(src, LOADS_SCAN, LOADS_SCAN + (
+                "  {\n"
+                "    const int next = draw_ticket(lb, ntiles, tile_s);\n"
+                "    if (next < ntiles) scan_stage(in, next, S);\n"
+                "    cp_commit();\n"
+                "    return next;\n"
+                "  }\n"))
         else:
             raise ValueError(f"unknown token {tok!r}")
     return src
@@ -91,43 +142,94 @@ def main_planes(workdir):
     return kept
 
 
-def body(names, work):
+def sliced(fin, scan, args, n, words, scan_args, cut):
+    """The finalize and the scan in two slices cut at `cut`, as B4 runs
+    them a shard: the second slice's rows from `cut` on (acgt and f_diff
+    at their own strides), its codes given, the first's carry, coverage
+    total and seam; the scan's second slice with a valid length short of
+    its end."""
+    from .ops import calling_kernels as cal
+    codes = cal.ref_codes_plain(words, n)
+    acgt, exact, fdiff, mdiff = args
+    a = fin(acgt, exact, fdiff, mdiff, cut, words=words, lead=False)
+    rest = [t[..., cut:].contiguous() for t in (acgt, exact, fdiff, mdiff)]
+    b = fin(*rest, n - cut, codes=codes[cut:].contiguous(), carry=a.carry,
+            cov_in=int(a.carry[6]), lead=False)
+    fb, ad, somatic = scan_args
+    s1 = scan(a.acgt, a.multi, a.cov, a.codes, ad, fb, somatic)
+    s2 = scan(b.acgt, b.multi, b.cov, b.codes, ad, fb, somatic,
+              valid=n - cut - 777, seam=s1.seam)
+    return tuple(a) + tuple(b) + tuple(s1) + tuple(s2)
+
+
+def body(names, work, parent=None):
     import numpy as np
     import torch
     kv = _harness()
     import chip_smoke
     from .ops import calling_kernels as cal
-    libs = kv.build(SRC, names, variant_source, KERNELS, work)
+    unique = list(dict.fromkeys(names))
+    libs = kv.build(SRC, unique, lambda n, s: variant_source(n, s, parent),
+                    KERNELS, work)
     kept = main_planes(work)
     args, n, words = kept["args"], kept["n"], kept["words"]
+    # look-back scratch for the smallest tile a variant may take
+    cal._look_back(args[0].device, n // 256 + 2)
     fb = np.float32(0.2)
     want = cal.evidence_finalize_plain(*args, n, words=words)
     scan_in = (want.acgt, want.multi, want.cov, want.codes, 2, fb, False)
     swant = cal.caller_scan_plain(*scan_in)
-    out = dict(L=n, variants={})
+    cut = n // 3 + 13
+    slices_want = sliced(cal.evidence_finalize_plain, cal.caller_scan_plain,
+                         args, n, words, (fb, 2, False), cut)
+    out = dict(L=n, turns=names, variants={})
     for name in names:
         lib, ptxas = libs[name]
-        with kv.bound(cal, lib):
+        with kv.bound(cal, lib) as bound_lib:
             got = cal.evidence_finalize(*args, n, words=words)
             sgot = cal.caller_scan(*scan_in)
+            slices = sliced(cal.evidence_finalize, cal.caller_scan, args,
+                            n, words, (fb, 2, False), cut)
             equal = (chip_smoke.max_err_of(tuple(got), tuple(want)) == 0
                      and chip_smoke.max_err_of(tuple(sgot), tuple(swant))
-                     == 0)
-            if not equal and "nolb" not in name:
+                     == 0
+                     and chip_smoke.max_err_of(slices, slices_want) == 0)
+            if not equal and not TIMING_ONLY & set(name.split("_")):
                 raise AssertionError(f"{name}: outputs differ from the "
                                      f"plain versions'")
-            out["variants"][name] = dict(
+            turn = dict(
                 finalize_ms=chip_smoke.cuda_ms(
                     lambda: cal.evidence_finalize(*args, n, words=words), 30,
                     queued=True),
                 scan_ms=chip_smoke.cuda_ms(lambda: cal.caller_scan(*scan_in),
-                                           30, queued=True),
-                equal=equal, ptxas=ptxas)
-        print(name, out["variants"][name], flush=True)
-    del got, sgot
+                                           30, queued=True))
+            row = out["variants"].setdefault(name, dict(
+                turns=[], equal=equal, ptxas=ptxas,
+                geometry=cal.geometry(args[0].device)
+                if hasattr(bound_lib, "mc_calling_geometry") else None))
+            row["turns"].append(turn)
+        print(name, turn, row["geometry"], flush=True)
+    del got, sgot, slices
     torch.cuda.synchronize()
     return out
 
 
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else argv
+    path = PARENT
+    names = []
+    for a in argv:
+        if a.startswith("--parent="):
+            path = a.split("=", 1)[1]
+        else:
+            names.append(a)
+    parent = None
+    if "parent" in names:
+        with open(path) as f:
+            parent = f.read()
+    return _harness().run(__doc__, names,
+                          lambda ns, work: body(ns, work, parent))
+
+
 if __name__ == "__main__":
-    sys.exit(_harness().run(__doc__, None, body))
+    sys.exit(main())

@@ -37,6 +37,44 @@
 // the masks, the compaction slots, the segment keys) in registers and
 // shared memory and need O(tiles) scratch.
 //
+// The finalize reads ten int32 rows (the exact, four orientation and multi
+// diffs, the four point-add rows) and the text words, and writes eleven
+// int32 rows and the int64 coverage prefix: 92.5 bytes a position. The
+// scan reads seven rows (coverage, codes, four allele rows, multi) and
+// writes block depths and the compacted tables: 28 bytes a position. A
+// thread owns ITEMS consecutive positions, so that its running prefixes
+// are sequential, and so a row reaches it through shared memory. What held
+// both back was staging one row at a time, two barriers a row: few loads
+// in flight on an SM, none during a barrier or a look-back, and the
+// finalize read its six diff rows twice. Here a tile's input rows are all
+// copied into dynamic shared memory at once (cp.async), the block waits
+// once, and each row is read from device memory once. A row's segment
+// that lies on 16 bytes is copied 16 bytes a copy, past L1 (cp.async.cg);
+// the planes' other rows start on any 4-byte boundary ([4][L + 1] and
+// [4][L + 2]) and are copied 4 bytes a copy; either way zeros fill past the
+// row's end. A row is staged unpadded: a finalize thread reads and writes
+// its 10 positions as 8-byte words (twice an odd number: a half warp's
+// accesses fall on 32 banks), a scan thread reads its 5 as words (an odd
+// number: a warp's fall on 32 banks). The outputs are computed in place in
+// the staged rows and stored in one pass of coalesced stores, 16 bytes a
+// store where the output row lies on 16 bytes. A block is persistent and
+// draws its tiles by ticket, two blocks an SM, so that one block's copies
+// are in flight while the other computes or waits on a look-back.
+//
+// Without their look-backs the two kernels move their bytes near the
+// card's rate (the scan at the rate of its staging alone), so the
+// look-backs are what is left, and the design shortens them: each chain's
+// aggregate is published as soon as it is known, the block then does work
+// that needs no carry (the finalize its store pass before resolving the
+// coverage chain; the scan the copies of its next tile, its staged rows
+// read), and resolves the chain after; flags are written with release and
+// polled with acquire, with no fence. A ring of STAGES = 2 tiles a block
+// (the next tile's copies started before the current tile is processed)
+// was slower: a block's staged next tile publishes nothing until the block
+// has finished its current one, and every later tile's look-back waits on
+// it. Only a scan tile's first position reads the state before it (staged
+// too), or the seam.
+//
 // The finalize and the scan carry sums across tiles in one launch with a
 // decoupled look-back (Merrill & Garland, "Single-pass Parallel Prefix
 // Scan with Decoupled Look-back", 2016), as chain_scan_kernel of
@@ -44,15 +82,18 @@
 // (the finalize carries six int32 sums and then an int64 one, the scan
 // three 64-bit sums), so a tile's slot in the scratch holds, for each
 // chain, a flag word (epoch << 2 | flag) and the values: the tile writes
-// its values, fences, then writes the flag; a reader reads the flag, fences,
-// then the values. Stores and loads of the slots are relaxed at gpu scope
-// (never cached in L1, where a line loaded for one tile's values could hold
-// a neighbour's not yet written). The tile index is an atomic ticket, so
-// every tile a block waits on belongs to a block that already runs; the
-// block that draws the last ticket resets the counter. The epoch, one a
-// launch from the wrapper, makes the flags of earlier launches read as not
-// ready. The coverage prefix depends on the exact-coverage prefix, so the
-// finalize resolves its six-value chain first and its int64 chain after.
+// its values, then the flag with release; a reader polls the flag with
+// acquire, then reads the values. The values are stored and loaded relaxed
+// at gpu scope (never cached in L1, where a line loaded for one tile's
+// values could hold a neighbour's not yet written). A look-back step reads
+// LOOKBACK predecessors, a lane of warp 0 each. The tile index is an atomic
+// ticket, so every tile a block waits on belongs to a block that already
+// runs (a block's staged next tile comes after its current one); every
+// block draws one ticket past the last tile, and the block that draws the
+// launch's last ticket resets the counter. The epoch, one a launch from
+// the wrapper, makes the flags of earlier launches read as not ready. The
+// coverage prefix depends on the exact-coverage prefix, so the finalize
+// resolves its six-value chain first and its int64 chain after.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -65,13 +106,17 @@ constexpr int RUN_CAP = 1 << 20;
 constexpr int I32_MAX = 0x7FFFFFFF;
 constexpr unsigned int FULL = 0xFFFFFFFFu;
 
-constexpr int FIN_THREADS = 256;        // a finalize tile: 8 positions a
-constexpr int FIN_ITEMS = 8;            // thread, consecutive
+constexpr int FIN_THREADS = 256;        // a finalize tile: 10 positions
+constexpr int FIN_ITEMS = 10;           // a thread, consecutive
 constexpr int FIN_TILE = FIN_THREADS * FIN_ITEMS;
+constexpr int FIN_STAGES = 1;           // tiles a block holds staged
+constexpr int FIN_MIN_BLOCKS = 2;       // blocks an SM, launch bounds
 constexpr int SCAN_BLOCKS = 32;         // 100-base blocks a scan tile
-constexpr int SCAN_ITEMS = 10;          // positions a thread, consecutive
+constexpr int SCAN_ITEMS = 5;           // positions a thread, consecutive
 constexpr int SCAN_THREADS = SCAN_BLOCKS * BLOCK_SIZE / SCAN_ITEMS;
 constexpr int SCAN_TILE = SCAN_THREADS * SCAN_ITEMS;
+constexpr int SCAN_STAGES = 1;
+constexpr int SCAN_MIN_BLOCKS = 2;
 constexpr int BLOCK_THREADS = BLOCK_SIZE / SCAN_ITEMS;   // threads a block
 constexpr int FETCH_THREADS = 256;
 constexpr int NOR_THREADS = 256;        // a NOR tile: 16 rounds of 256
@@ -86,10 +131,38 @@ constexpr int CHAIN_A = 0, CHAIN_B = 13;
 constexpr int LOOKBACK = 32;            // predecessors a look-back step reads
 constexpr unsigned long long FLAG_AGG = 1, FLAG_PREFIX = 2;
 
+// A stage holds a tile's rows, each TILE words, element j of the tile at
+// word j. A finalize stage: eleven rows, each computed in place (exact
+// diff -> coverage, the four orientation diffs -> F, multi diff -> multi,
+// the four point-add rows -> allele counts, then the coverage prefix over
+// the first two of them once stored; the codes, in or out), then the
+// tile's text words
+constexpr int FR_EXACT = 0, FR_F = 1, FR_MULTI = 5, FR_ACGT = 6,
+              FR_CODES = 10, FIN_ROWS = 11;
+constexpr int FIN_WORDS = FIN_TILE / 16;
+constexpr int FIN_STAGE_INTS = FIN_ROWS * FIN_TILE + 2 * FIN_WORDS;
+constexpr int FIN_SMEM = 4 * FIN_STAGES * FIN_STAGE_INTS;
+// a scan stage: seven rows, then the coverage and multi count at the
+// tile's first position - 1 (4 words)
+constexpr int SR_COV = 0, SR_CODES = 1, SR_ACGT = 2, SR_MULTI = 6,
+              SCAN_ROWS = 7;
+constexpr int SCAN_STAGE_INTS = SCAN_ROWS * SCAN_TILE + 4;
+constexpr int SCAN_SMEM = 4 * SCAN_STAGES * SCAN_STAGE_INTS;
+
 static_assert(BLOCK_SIZE % SCAN_ITEMS == 0, "a thread inside one block");
 static_assert(SCAN_THREADS % 32 == 0 && FIN_THREADS % 32 == 0,
               "whole warps");
 static_assert(SCAN_BLOCKS <= SCAN_THREADS, "a thread a block sum");
+static_assert(FIN_TILE % 32 == 0 && SCAN_TILE % 4 == 0,
+              "a tile of whole text words, rows of 16-byte chunks");
+static_assert(FIN_ITEMS % 4 == 2 && (SCAN_ITEMS % 2 == 1 ||
+                                     SCAN_ITEMS % 4 == 2),
+              "a thread's items free of bank conflicts: an odd number, or "
+              "twice one as 8-byte words (the finalize's)");
+static_assert(FIN_STAGES >= 1 && FIN_STAGES <= 2 && SCAN_STAGES >= 1 &&
+              SCAN_STAGES <= 2, "one or two stages");
+static_assert(FIN_SMEM <= 227 * 1024 && SCAN_SMEM <= 227 * 1024,
+              "a block's shared memory");
 
 struct LookBack {
   unsigned int* ticket;                 // tiles handed out this launch
@@ -111,11 +184,136 @@ __device__ __forceinline__ void st_relaxed(unsigned long long* p,
                :: "l"(p), "l"(v) : "memory");
 }
 
-// The block's tile by an atomic ticket. Ends with the block synchronised.
-__device__ __forceinline__ int draw_ticket(const LookBack& lb, int* tile_s) {
+// a slot's flag, polled with acquire (the values after it read in order)
+// and written with release (the values before it visible first): no
+// fence on either side
+__device__ __forceinline__ unsigned long long ld_flag(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];"
+               : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_flag(unsigned long long* p,
+                                        unsigned long long v) {
+  asm volatile("st.release.gpu.global.u64 [%0], %1;"
+               :: "l"(p), "l"(v) : "memory");
+}
+
+// B bytes (4 or 8) from global src into shared dst, asynchronously; zeros
+// without a read when !ok (src is still a valid address).
+template <int B>
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;"
+               :: "r"((unsigned)__cvta_generic_to_shared(dst)), "l"(src),
+                  "n"(B), "r"(ok ? B : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// this thread's copies done, all but the newest `N` groups
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;" :: "n"(N) : "memory");
+}
+
+// 16 bytes into shared dst: the first `bytes` (0, 4, 8, 12 or 16) from
+// global src, asynchronously, not through L1; zeros after them
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+               :: "r"((unsigned)__cvta_generic_to_shared(dst)), "l"(src),
+                  "r"(bytes) : "memory");
+}
+
+// row[base + j] for j < TILE into dst[j] (16-byte aligned), 0 at or past
+// lim: 16-byte copies where row + base lies on 16 bytes, else 4-byte ones
+template <int NT, int TILE>
+__device__ __forceinline__ void stage_row(int* dst, const int* row, int base,
+                                          int lim) {
+  const int* src = row + base;
+  if (((uintptr_t)src & 15) == 0) {
+#pragma unroll 2
+    for (int q = threadIdx.x; q < TILE / 4; q += NT) {
+      const int left = lim - base - 4 * q;      // elements of the chunk
+      const int bytes = left >= 4 ? 16 : left > 0 ? 4 * left : 0;
+      cp_async16(dst + 4 * q, bytes ? src + 4 * q : row, bytes);
+    }
+  } else {
+#pragma unroll 4
+    for (int j = threadIdx.x; j < TILE; j += NT) {
+      const bool ok = base + j < lim;
+      cp_async<4>(dst + j, ok ? src + j : row, ok);
+    }
+  }
+}
+
+// row[base + j] = src[j] (16-byte aligned shared) for j < TILE below n:
+// coalesced, 16-byte stores where row + base lies on 16 bytes
+template <int NT, int TILE>
+__device__ __forceinline__ void store_row(int* row, const int* src, int base,
+                                          int n) {
+  int* dst = row + base;
+  if (((uintptr_t)dst & 15) == 0) {
+#pragma unroll 2
+    for (int q = threadIdx.x; q < TILE / 4; q += NT) {
+      const int left = n - base - 4 * q;
+      const int4 v = reinterpret_cast<const int4*>(src)[q];
+      if (left >= 4) {
+        reinterpret_cast<int4*>(dst)[q] = v;
+      } else {
+        if (left > 0) dst[4 * q] = v.x;
+        if (left > 1) dst[4 * q + 1] = v.y;
+        if (left > 2) dst[4 * q + 2] = v.z;
+      }
+    }
+  } else {
+#pragma unroll 4
+    for (int j = threadIdx.x; j < TILE; j += NT)
+      if (base + j < n) dst[j] = src[j];
+  }
+}
+
+// A thread's N consecutive words of a staged row: N odd, a warp's loads
+// of word i fall on 32 different banks; N twice an odd number, as 8-byte
+// loads and stores (p 8-byte aligned), a half warp's fall on 32 banks.
+template <int N>
+__device__ __forceinline__ void ld_items(const int* p, int (&x)[N]) {
+  if constexpr (N % 2 == 1) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) x[i] = p[i];
+  } else {
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) {
+      const int2 v = reinterpret_cast<const int2*>(p)[i];
+      x[2 * i] = v.x;
+      x[2 * i + 1] = v.y;
+    }
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void st_items(int* p, const int (&x)[N]) {
+  static_assert(N % 2 == 0, "8-byte stores");
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i)
+    reinterpret_cast<int2*>(p)[i] = make_int2(x[2 * i], x[2 * i + 1]);
+}
+
+// The block's next tile by an atomic ticket (ntiles or more: none left).
+// Begins and ends with the block synchronised (every thread has read the
+// draw before). Every block draws tickets until one past the last tile, so
+// a launch draws ntiles + gridDim.x of them.
+__device__ __forceinline__ int draw_ticket(const LookBack& lb, int ntiles,
+                                           int* tile_s) {
+  __syncthreads();
   if (threadIdx.x == 0) {
     const int k = (int)atomicAdd(lb.ticket, 1u);
-    if (k == (int)gridDim.x - 1) *lb.ticket = 0u;   // every other is taken
+    if (k == ntiles + (int)gridDim.x - 1) *lb.ticket = 0u;  // the last
     *tile_s = k;
   }
   __syncthreads();
@@ -132,14 +330,15 @@ __device__ __forceinline__ void publish(const LookBack& lb, int tile, int at,
   const int off = flag == FLAG_AGG ? 1 : 1 + K;
 #pragma unroll
   for (int k = 0; k < K; ++k) st_relaxed(s + off + k, v[k]);
-  __threadfence();
-  st_relaxed(s, lb.epoch << 2 | flag);
+  st_flag(s, lb.epoch << 2 | flag);
 }
 
-// Warp 0 of tile `tile`: publish the tile's aggregate of chain `at`, look
-// back to the nearest inclusive prefix, publish the tile's own; sets excl
-// to the sum of the tiles before it (in every lane). Sums are modulo 2^64.
-template <int K>
+// Warp 0 of tile `tile`: publish the tile's aggregate of chain `at` (unless
+// PUBLISHED: done before, by publish_aggregate), look back to the nearest
+// inclusive prefix, LOOKBACK predecessors a step, publish the tile's own;
+// sets excl to the sum of the tiles before it (in every lane). Sums are
+// modulo 2^64.
+template <int K, bool PUBLISHED = false>
 __device__ __forceinline__ void look_back(const LookBack& lb, int tile,
                                           int at,
                                           const unsigned long long (&agg)[K],
@@ -151,17 +350,16 @@ __device__ __forceinline__ void look_back(const LookBack& lb, int tile,
     if (lane == 0) publish<K>(lb, 0, at, FLAG_PREFIX, agg);
     return;
   }
-  if (lane == 0) publish<K>(lb, tile, at, FLAG_AGG, agg);
+  if (lane == 0 && !PUBLISHED) publish<K>(lb, tile, at, FLAG_AGG, agg);
   for (int top = tile - 1;; top -= LOOKBACK) {
     const int i = top - (LOOKBACK - 1) + lane;   // lane 31: the nearest
     const unsigned long long* s =
         lb.slots + (size_t)(i >= 0 ? i : 0) * SLOT_WORDS + at;
     unsigned long long st;
     for (;;) {                          // slots before tile 0 hold prefix 0
-      st = i >= 0 ? ld_relaxed(s) : (lb.epoch << 2 | FLAG_PREFIX);
+      st = i >= 0 ? ld_flag(s) : (lb.epoch << 2 | FLAG_PREFIX);
       if (__all_sync(FULL, (st >> 2) == lb.epoch)) break;
     }
-    __threadfence();                    // the values written before the flag
     const bool prefix = (st & 3) == FLAG_PREFIX;
     const unsigned int pm = __ballot_sync(FULL, prefix);
     // from the nearest inclusive prefix on: it and the aggregates after it
@@ -183,6 +381,16 @@ __device__ __forceinline__ void look_back(const LookBack& lb, int tile,
     for (int k = 0; k < K; ++k) inc[k] = excl[k] + agg[k];
     publish<K>(lb, tile, at, FLAG_PREFIX, inc);
   }
+}
+
+// Thread 0: publish tile `tile`'s aggregate of chain `at` ahead of its
+// look-back (look_back<K, true>), so that later tiles can read it while the
+// block does work that needs no carry.
+template <int K>
+__device__ __forceinline__ void publish_aggregate(
+    const LookBack& lb, int tile, int at,
+    const unsigned long long (&agg)[K]) {
+  if (threadIdx.x == 0 && tile > 0) publish<K>(lb, tile, at, FLAG_AGG, agg);
 }
 
 // Exclusive scan of K values a thread over a block of NT threads: v becomes
@@ -228,39 +436,6 @@ __device__ __forceinline__ void block_scan(unsigned long long (&v)[K],
   __syncthreads();                      // sm may be written again
 }
 
-// A tile's row staged in shared memory, element j at j + j / 32: a warp's
-// consecutive loads and stores in global memory are coalesced, and a
-// thread's ITEMS consecutive elements read without bank conflicts.
-__device__ __forceinline__ int pad(int j) { return j + (j >> 5); }
-
-// x = row[base + t * ITEMS + i], 0 at or past n. Begins with the block
-// synchronised (tr is free) and ends so.
-template <int NT, int ITEMS, typename T>
-__device__ __forceinline__ void load_row(const T* __restrict__ row, int base,
-                                         int n, T* tr, T (&x)[ITEMS]) {
-  __syncthreads();
-#pragma unroll
-  for (int j = threadIdx.x; j < NT * ITEMS; j += NT)
-    tr[pad(j)] = base + j < n ? row[base + j] : T(0);
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < ITEMS; ++i) x[i] = tr[pad(threadIdx.x * ITEMS + i)];
-}
-
-// row[base + t * ITEMS + i] = x[i] below n.
-template <int NT, int ITEMS, typename T>
-__device__ __forceinline__ void store_row(T* __restrict__ row, int base,
-                                          int n, T* tr,
-                                          const T (&x)[ITEMS]) {
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < ITEMS; ++i) tr[pad(threadIdx.x * ITEMS + i)] = x[i];
-  __syncthreads();
-#pragma unroll
-  for (int j = threadIdx.x; j < NT * ITEMS; j += NT)
-    if (base + j < n) row[base + j] = tr[pad(j)];
-}
-
 // ---- evidence_finalize_kernel --------------------------------------------
 
 struct FinIn {
@@ -288,30 +463,48 @@ struct FinOut {
   int lead;                             // also cpre[-1] = cov_in
 };
 
-// diff row k of the six: exact, the four orientation rows, multi
-__device__ __forceinline__ const int* diff_row(const FinIn& in, int k) {
-  return k == 0 ? in.exact
-                : k < 5 ? in.fdiff + (size_t)(k - 1) * in.sf : in.mdiff;
+// Start the copies of tile `tile`'s input rows into the stage S.
+__device__ __forceinline__ void fin_stage(const FinIn& in, int tile, int* S) {
+  const int base = tile * FIN_TILE, n = in.n;
+  stage_row<FIN_THREADS, FIN_TILE>(S + FR_EXACT * FIN_TILE, in.exact, base, n);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    stage_row<FIN_THREADS, FIN_TILE>(S + (FR_F + k) * FIN_TILE,
+                                     in.fdiff + (size_t)k * in.sf, base, n);
+    stage_row<FIN_THREADS, FIN_TILE>(S + (FR_ACGT + k) * FIN_TILE,
+                                     in.acgt + (size_t)k * in.sa, base, n);
+  }
+  stage_row<FIN_THREADS, FIN_TILE>(S + FR_MULTI * FIN_TILE, in.mdiff, base, n);
+  if (in.words != nullptr) {
+    long long* W = reinterpret_cast<long long*>(S + FIN_ROWS * FIN_TILE);
+    const int w0 = base >> 4, nw = (n + 15) >> 4;
+    for (int j = threadIdx.x; j < FIN_WORDS; j += FIN_THREADS) {
+      const bool ok = w0 + j < nw;
+      cp_async<8>(W + j, ok ? in.words + w0 + j : in.words, ok);
+    }
+  } else {
+    stage_row<FIN_THREADS, FIN_TILE>(S + FR_CODES * FIN_TILE, in.rc, base, n);
+  }
 }
 
-__global__ void __launch_bounds__(FIN_THREADS)
-evidence_finalize_kernel(FinIn in, FinOut out, LookBack lb) {
-  __shared__ long long tr64[FIN_TILE + FIN_TILE / 32];
-  __shared__ unsigned long long sm[6 * (FIN_THREADS / 32)];
-  __shared__ unsigned long long exa_s[6], exb_s;
-  __shared__ int tile_s;
-  int* const tr = reinterpret_cast<int*>(tr64);
-  const int t = threadIdx.x;
-  const int tile = draw_ticket(lb, &tile_s);
-  const int n = in.n;
-  const int base = tile * FIN_TILE;
-  const int p0 = base + t * FIN_ITEMS;
+// The staged tile `tile` of a launch of ntiles: its sums and chain A, the
+// prefixes and counts in place, one pass of stores, chain B, the coverage
+// prefix (over the stored allele rows) and its store.
+__device__ __forceinline__ void fin_tile(const FinIn& in, const FinOut& out,
+                                         const LookBack& lb, int tile,
+                                         int ntiles, int* S,
+                                         unsigned long long* sm,
+                                         unsigned long long* exa_s,
+                                         unsigned long long* exb_s) {
+  const int t = threadIdx.x, n = in.n;
+  const int base = tile * FIN_TILE, j0 = t * FIN_ITEMS, p0 = base + j0;
+  int* const R = S + j0;                // row r's items at R + r * FIN_TILE
   int x[FIN_ITEMS];
-  // pass 1: the thread's sums of the six diff rows
+  // the thread's sums of the six diff rows (rows 0-5)
   unsigned long long v[6];
 #pragma unroll
   for (int k = 0; k < 6; ++k) {
-    load_row<FIN_THREADS>(diff_row(in, k), base, n, tr, x);
+    ld_items(R + k * FIN_TILE, x);
     uint32_t s = 0;
 #pragma unroll
     for (int i = 0; i < FIN_ITEMS; ++i) s += (uint32_t)x[i];
@@ -327,79 +520,135 @@ evidence_finalize_kernel(FinIn in, FinOut out, LookBack lb) {
       for (int k = 0; k < 6; ++k) exa_s[k] = ex[k];
   }
   __syncthreads();
-  // pass 2, a row at a time: the thread's running prefix of a diff row
-  // (modulo 2^32) from the carry, the tiles before and the threads before
+  // the thread's running prefix of a diff row (modulo 2^32) from the
+  // carry, the tiles before and the threads before
 #define RUN_FROM(k) (uint32_t)(exa_s[k] + v[k] + \
     (in.carry ? (unsigned long long)in.carry[k] : 0ull))
   uint32_t ex[FIN_ITEMS];
   {
-    load_row<FIN_THREADS>(in.exact, base, n, tr, x);
+    ld_items(R + FR_EXACT * FIN_TILE, x);
     uint32_t r = RUN_FROM(0);
 #pragma unroll
     for (int i = 0; i < FIN_ITEMS; ++i) ex[i] = r += (uint32_t)x[i];
   }
   int cd[FIN_ITEMS];
   if (in.words != nullptr) {
-    // a thread's positions lie in one text word
-    const uint32_t w = p0 < n ? (uint32_t)in.words[p0 >> 4] : 0u;
+    const long long* W =
+        reinterpret_cast<const long long*>(S + FIN_ROWS * FIN_TILE);
 #pragma unroll
-    for (int i = 0; i < FIN_ITEMS; ++i)
-      cd[i] = (int)((w >> ((15 - ((p0 + i) & 15)) * 2)) & 3u);
-    if (out.rc != nullptr) store_row<FIN_THREADS>(out.rc, base, n, tr, cd);
+    for (int i = 0; i < FIN_ITEMS; ++i) {
+      const int j = j0 + i;             // the tile starts a text word
+      cd[i] = (int)(((uint32_t)W[j >> 4] >> ((15 - (j & 15)) * 2)) & 3u);
+    }
+    st_items(R + FR_CODES * FIN_TILE, cd);
   } else {
-    load_row<FIN_THREADS>(in.rc, base, n, tr, cd);
+    ld_items(R + FR_CODES * FIN_TILE, cd);
   }
   int cov[FIN_ITEMS] = {0};
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
-    load_row<FIN_THREADS>(in.acgt + (size_t)c * in.sa, base, n, tr, x);
+    ld_items(R + (FR_ACGT + c) * FIN_TILE, x);
 #pragma unroll
     for (int i = 0; i < FIN_ITEMS; ++i) {
       x[i] = min((int)((uint32_t)x[i] + (c == cd[i] ? ex[i] : 0u)),
                  MAX_ALLELE);
       cov[i] = (int)((uint32_t)cov[i] + (uint32_t)x[i]);
     }
-    store_row<FIN_THREADS>(out.acgt + (size_t)c * n, base, n, tr, x);
+    st_items(R + (FR_ACGT + c) * FIN_TILE, x);
   }
 #pragma unroll
   for (int k = 1; k < 6; ++k) {
-    load_row<FIN_THREADS>(diff_row(in, k), base, n, tr, x);
+    ld_items(R + k * FIN_TILE, x);
     uint32_t r = RUN_FROM(k);
 #pragma unroll
     for (int i = 0; i < FIN_ITEMS; ++i) {
       r += (uint32_t)x[i];
-      x[i] = k < 5 ? (int)r : min((int)r, MAX_ALLELE);
+      x[i] = k < FR_MULTI ? (int)r : min((int)r, MAX_ALLELE);
     }
-    store_row<FIN_THREADS>(k < 5 ? out.F + (size_t)(k - 1) * n : out.multi,
-                           base, n, tr, x);
+    st_items(R + k * FIN_TILE, x);
   }
 #undef RUN_FROM
-  store_row<FIN_THREADS>(out.cov, base, n, tr, cov);
-  // the coverage prefix: chain B, once chain A has given the exact prefix
+  st_items(R + FR_EXACT * FIN_TILE, cov);
+  // the coverage prefix: chain B, once chain A has given the exact
+  // prefix; its aggregate published before the stores, resolved after
   long long csum = 0;
 #pragma unroll
   for (int i = 0; i < FIN_ITEMS; ++i) csum += p0 + i < n ? cov[i] : 0;
   unsigned long long cs[1] = {(unsigned long long)csum}, ctot[1];
-  block_scan<1, FIN_THREADS>(cs, ctot, sm);
+  block_scan<1, FIN_THREADS>(cs, ctot, sm);   // past the rows' writes
+  publish_aggregate<1>(lb, tile, CHAIN_B, ctot);
+  // every int32 output row, coalesced
+#pragma unroll
+  for (int r = 0; r < FIN_ROWS; ++r) {
+    int* dst = r == FR_EXACT ? out.cov
+               : r < FR_MULTI ? out.F + (size_t)(r - FR_F) * n
+               : r == FR_MULTI ? out.multi
+               : r < FR_CODES ? out.acgt + (size_t)(r - FR_ACGT) * n
+                              : out.rc;
+    if (dst != nullptr)                 // (codes given: not written)
+      store_row<FIN_THREADS, FIN_TILE>(dst, S + r * FIN_TILE, base, n);
+  }
   if (t < 32) {
     unsigned long long ex1[1];
-    look_back<1>(lb, tile, CHAIN_B, ctot, ex1);
-    if (t == 0) exb_s = ex1[0];
+    look_back<1, true>(lb, tile, CHAIN_B, ctot, ex1);
+    if (t == 0) *exb_s = ex1[0];
+  }
+  __syncthreads();                      // past the stores' reads
+  // over the stored allele rows, a pair of positions a 16-byte store
+  long long* const C = reinterpret_cast<long long*>(S + FR_ACGT * FIN_TILE);
+  long long run = in.cov_in + (long long)(*exb_s + cs[0]);
+#pragma unroll
+  for (int i = 0; i < FIN_ITEMS; i += 2) {
+    const long long a = run += cov[i];
+    reinterpret_cast<longlong2*>(C + j0)[i / 2] = make_longlong2(
+        a, run += cov[i + 1]);
   }
   __syncthreads();
-  long long z[FIN_ITEMS];
-  long long run = in.cov_in + (long long)(exb_s + cs[0]);
-#pragma unroll
-  for (int i = 0; i < FIN_ITEMS; ++i) z[i] = run += cov[i];
-  store_row<FIN_THREADS>(out.cpre, base, n, tr64, z);
+#pragma unroll 4
+  for (int j = t; j < FIN_TILE; j += FIN_THREADS)
+    if (base + j < n) out.cpre[base + j] = C[j];
   if (out.lead && tile == 0 && t == 0) out.cpre[-1] = in.cov_in;
-  if (tile == (int)gridDim.x - 1 && t == 0) {
+  if (tile == ntiles - 1 && t == 0) {
 #pragma unroll
     for (int k = 0; k < 6; ++k)
       out.carry[k] = (long long)(int)(uint32_t)(
           exa_s[k] + tot[k] +
           (in.carry ? (unsigned long long)in.carry[k] : 0ull));
-    out.carry[6] = in.cov_in + (long long)(exb_s + ctot[0]);
+    out.carry[6] = in.cov_in + (long long)(*exb_s + ctot[0]);
+  }
+}
+
+// A persistent block: tiles by ticket, each staged after the one before
+// is processed (FIN_STAGES = 2: before it is processed).
+__global__ void __launch_bounds__(FIN_THREADS, FIN_MIN_BLOCKS)
+evidence_finalize_kernel(FinIn in, FinOut out, LookBack lb, int ntiles) {
+  extern __shared__ __align__(16) int fin_smem[];
+  __shared__ unsigned long long sm[6 * (FIN_THREADS / 32)];
+  __shared__ unsigned long long exa_s[6], exb_s;
+  __shared__ int tile_s;
+  int tile = draw_ticket(lb, ntiles, &tile_s);
+  if (tile < ntiles) fin_stage(in, tile, fin_smem);
+  cp_commit();
+  for (int s = 0; tile < ntiles; s ^= FIN_STAGES - 1) {
+    int next = ntiles;
+    if (FIN_STAGES > 1) {
+      next = draw_ticket(lb, ntiles, &tile_s);
+      if (next < ntiles)
+        fin_stage(in, next, fin_smem + (s ^ 1) * FIN_STAGE_INTS);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();                    // every thread's copies landed
+    fin_tile(in, out, lb, tile, ntiles, fin_smem + s * FIN_STAGE_INTS, sm,
+             exa_s, &exb_s);
+    if (FIN_STAGES == 1) {
+      next = draw_ticket(lb, ntiles, &tile_s);   // past the tile's reads
+      if (next < ntiles) fin_stage(in, next, fin_smem);
+      cp_commit();
+    }
+    tile = next;
   }
 }
 
@@ -430,23 +679,46 @@ __device__ __forceinline__ int run_state(int cov, int multi) {
   return cov > 0 ? 2 : (multi > 0 ? 1 : 0);
 }
 
-__global__ void __launch_bounds__(SCAN_THREADS)
-caller_scan_kernel(ScanIn in, ScanOut out, LookBack lb) {
-  __shared__ int tr[SCAN_TILE + SCAN_TILE / 32];
-  __shared__ int part[SCAN_THREADS];
-  __shared__ int bdv[SCAN_BLOCKS];
-  __shared__ unsigned long long sm[3 * (SCAN_THREADS / 32)];
-  __shared__ unsigned long long ex_s[3];
-  __shared__ int tile_s;
+// Start the copies of tile `tile`'s rows into the stage S, every row read
+// below the valid length only (the coverage past it, and past n, counts
+// as 0), and of the coverage and multi count at the tile's first position
+// - 1.
+__device__ __forceinline__ void scan_stage(const ScanIn& in, int tile,
+                                           int* S) {
+  const int base = tile * SCAN_TILE, v = in.valid;
+  stage_row<SCAN_THREADS, SCAN_TILE>(S + SR_COV * SCAN_TILE, in.cov, base, v);
+  stage_row<SCAN_THREADS, SCAN_TILE>(S + SR_CODES * SCAN_TILE, in.rc, base,
+                                     v);
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    stage_row<SCAN_THREADS, SCAN_TILE>(S + (SR_ACGT + k) * SCAN_TILE,
+                                       in.acgt + (size_t)k * in.sa, base, v);
+  stage_row<SCAN_THREADS, SCAN_TILE>(S + SR_MULTI * SCAN_TILE, in.multi, base,
+                                     v);
+  if (threadIdx.x == 0 && tile > 0) {
+    const bool ok = base - 1 < v;
+    int* const prev = S + SCAN_ROWS * SCAN_TILE;
+    cp_async<4>(prev, ok ? in.cov + base - 1 : in.cov, ok);
+    cp_async<4>(prev + 1, ok ? in.multi + base - 1 : in.multi, ok);
+  }
+}
+
+// The staged tile `tile` of a launch of ntiles. With one stage, draws the
+// block's next tile and stages it into S once the tile's rows are read and
+// its aggregate published, so that its copies are in flight during the
+// look-back -> the next tile (ntiles: none, or not drawn here).
+__device__ __forceinline__ int scan_tile(const ScanIn& in, const ScanOut& out,
+                                         const LookBack& lb, int tile,
+                                         int ntiles, int* S, int* part,
+                                         int* bdv, unsigned long long* sm,
+                                         unsigned long long* ex_s,
+                                         int* tile_s) {
   const int t = threadIdx.x;
-  const int tile = draw_ticket(lb, &tile_s);
-  const int base = tile * SCAN_TILE;
-  const int p0 = base + t * SCAN_ITEMS;
+  const int base = tile * SCAN_TILE, j0 = t * SCAN_ITEMS, p0 = base + j0;
   const int v = in.valid;
-  // every row read below the valid length only: the coverage past it
-  // (and past n) counts as 0
-  int cv[SCAN_ITEMS], x[SCAN_ITEMS];
-  load_row<SCAN_THREADS>(in.cov, base, v, tr, cv);
+  const int* const R = S + j0;          // row r's items at R + r * SCAN_TILE
+  int cv[SCAN_ITEMS];
+  ld_items(R + SR_COV * SCAN_TILE, cv);
   int s = 0, al = 0;
   long long tc = 0;
 #pragma unroll
@@ -468,27 +740,32 @@ caller_scan_kernel(ScanIn in, ScanOut out, LookBack lb) {
     const int blk = tile * SCAN_BLOCKS + t;
     if (blk < in.nb) out.bd[blk] = d;
   }
-  // (load_row synchronises before bdv is read)
-  int cd[SCAN_ITEMS], nrm[SCAN_ITEMS];
-  load_row<SCAN_THREADS>(in.rc, base, v, tr, cd);
+  // the largest count of a base other than the reference's, and the run
+  // state of each position
+  int cd[SCAN_ITEMS], nrm[SCAN_ITEMS], x[SCAN_ITEMS];
+  ld_items(R + SR_CODES * SCAN_TILE, cd);
 #pragma unroll
   for (int i = 0; i < SCAN_ITEMS; ++i) nrm[i] = -1;
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
-    load_row<SCAN_THREADS>(in.acgt + (size_t)k * in.sa, base, v, tr, x);
+    ld_items(R + (SR_ACGT + k) * SCAN_TILE, x);
 #pragma unroll
     for (int i = 0; i < SCAN_ITEMS; ++i)
       if (k != cd[i]) nrm[i] = max(nrm[i], x[i]);
   }
-  load_row<SCAN_THREADS>(in.multi, base, v, tr, x);
+  ld_items(R + SR_MULTI * SCAN_TILE, x);
+  // the run state before the thread's first position: staged, the tile's
+  // first thread's too (0 at or past the valid length)
+  int prev;
+  if (t > 0)
+    prev = run_state(R[SR_COV * SCAN_TILE - 1], R[SR_MULTI * SCAN_TILE - 1]);
+  else if (tile > 0)
+    prev = run_state(S[SCAN_ROWS * SCAN_TILE], S[SCAN_ROWS * SCAN_TILE + 1]);
+  else
+    prev = in.seam != nullptr ? *in.seam : -1;
+  __syncthreads();                      // bdv
   const int cov_thr =
       in.somatic ? in.ad : max(bdv[t / BLOCK_THREADS] >> 1, in.ad);
-  // the run state before the thread's first position: read from memory
-  int prev = 0;
-  if (p0 == 0)
-    prev = in.seam != nullptr ? *in.seam : -1;
-  else if (p0 - 1 < v)
-    prev = run_state(in.cov[p0 - 1], in.multi[p0 - 1]);
   uint32_t cbits = 0, rbits = 0, sbits = 0;
   uint32_t nc = 0, nr = 0;
 #pragma unroll
@@ -521,9 +798,16 @@ caller_scan_kernel(ScanIn in, ScanOut out, LookBack lb) {
       (unsigned long long)al, (unsigned long long)tc};
   unsigned long long tot[3];
   block_scan<3, SCAN_THREADS>(val, tot, sm);
+  publish_aggregate<3>(lb, tile, CHAIN_A, tot);
+  int next = ntiles;
+  if (SCAN_STAGES == 1) {
+    next = draw_ticket(lb, ntiles, tile_s);   // past the rows' reads
+    if (next < ntiles) scan_stage(in, next, S);
+    cp_commit();
+  }
   if (t < 32) {
     unsigned long long ex[3];
-    look_back<3>(lb, tile, CHAIN_A, tot, ex);
+    look_back<3, true>(lb, tile, CHAIN_A, tot, ex);
     if (t == 0)
 #pragma unroll
       for (int k = 0; k < 3; ++k) ex_s[k] = ex[k];
@@ -546,12 +830,45 @@ caller_scan_kernel(ScanIn in, ScanOut out, LookBack lb) {
       ++dr;
     }
   }
-  if (tile == (int)gridDim.x - 1 && t == 0) {
+  if (tile == ntiles - 1 && t == 0) {
     const unsigned long long a = ex_s[0] + tot[0];
     out.small[0] = (long long)(a & 0xFFFFFFFFull);
     out.small[1] = (long long)(a >> 32);
     out.small[2] = (long long)(ex_s[1] + tot[1]);
     out.small[3] = (long long)(ex_s[2] + tot[2]);
+  }
+  return next;
+}
+
+// A persistent block, as evidence_finalize_kernel's.
+__global__ void __launch_bounds__(SCAN_THREADS, SCAN_MIN_BLOCKS)
+caller_scan_kernel(ScanIn in, ScanOut out, LookBack lb, int ntiles) {
+  extern __shared__ __align__(16) int scan_smem[];
+  __shared__ int part[SCAN_THREADS];
+  __shared__ int bdv[SCAN_BLOCKS];
+  __shared__ unsigned long long sm[3 * (SCAN_THREADS / 32)];
+  __shared__ unsigned long long ex_s[3];
+  __shared__ int tile_s;
+  int tile = draw_ticket(lb, ntiles, &tile_s);
+  if (tile < ntiles) scan_stage(in, tile, scan_smem);
+  cp_commit();
+  for (int s = 0; tile < ntiles; s ^= SCAN_STAGES - 1) {
+    int next = ntiles;
+    if (SCAN_STAGES > 1) {
+      next = draw_ticket(lb, ntiles, &tile_s);
+      if (next < ntiles)
+        scan_stage(in, next, scan_smem + (s ^ 1) * SCAN_STAGE_INTS);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();                    // every thread's copies landed
+    const int early = scan_tile(in, out, lb, tile, ntiles,
+                                scan_smem + s * SCAN_STAGE_INTS, part, bdv,
+                                sm, ex_s, &tile_s);
+    if (SCAN_STAGES == 1) next = early;
+    tile = next;
   }
 }
 
@@ -739,7 +1056,45 @@ LookBack look_back_state(void* scratch, int epoch) {
                   (unsigned long long)epoch};
 }
 
+// The blocks of `kernel` (threads a block, smem bytes of dynamic shared
+// memory, which it is first allowed) an SM holds, and the current
+// device's SMs.
+template <typename K>
+cudaError_t resident(K* kernel, int threads, int smem, int* per_sm,
+                     int* sms) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel,
+                                                        threads, smem);
+  if (err == cudaSuccess && *per_sm < 1) err = cudaErrorInvalidConfiguration;
+  return err;
+}
+
 }  // namespace
+
+// The finalize's (which 0) or the scan's (1) geometry on the current
+// device: out int32[6] = positions a tile, threads a block, tiles staged a
+// block, bytes of dynamic shared memory a block, blocks an SM, SMs (a
+// launch runs min(tiles, blocks an SM x SMs) persistent blocks).
+extern "C" int mc_calling_geometry(int which, void* out) {
+  int* o = (int*)out;
+  if (o == nullptr || which < 0 || which > 1)
+    return (int)cudaErrorInvalidValue;
+  o[0] = which ? SCAN_TILE : FIN_TILE;
+  o[1] = which ? SCAN_THREADS : FIN_THREADS;
+  o[2] = which ? SCAN_STAGES : FIN_STAGES;
+  o[3] = which ? SCAN_SMEM : FIN_SMEM;
+  return (int)(which ? resident(caller_scan_kernel, SCAN_THREADS, SCAN_SMEM,
+                                o + 4, o + 5)
+                     : resident(evidence_finalize_kernel, FIN_THREADS,
+                                FIN_SMEM, o + 4, o + 5));
+}
 
 // The finalize fold over positions [0, n): acgt int32[4][sa], exact int32
 // [>= n], fdiff int32[4][sf], mdiff int32[>= n]; the reference codes from rc
@@ -762,14 +1117,20 @@ extern "C" int mc_evidence_finalize(
       (rc_out != nullptr && words == nullptr) || carry_out == nullptr ||
       scratch == nullptr || tiles < ntiles || !epoch_ok(epoch))
     return (int)cudaErrorInvalidValue;
+  int per_sm = 0, sms = 0;
+  const cudaError_t err = resident(evidence_finalize_kernel, FIN_THREADS,
+                                   FIN_SMEM, &per_sm, &sms);
+  if (err != cudaSuccess) return (int)err;
   const FinIn in{(const int*)acgt, (const int*)exact, (const int*)fdiff,
                  (const int*)mdiff, (const int*)rc, (const long long*)words,
                  (const long long*)carry, cov_in, sa, sf, n};
   const FinOut out{(int*)acgt_out, (int*)F_out, (int*)multi_out,
                    (int*)cov_out, (long long*)cpre, (int*)rc_out,
                    (long long*)carry_out, lead};
-  evidence_finalize_kernel<<<ntiles, FIN_THREADS, 0, (cudaStream_t)stream>>>(
-      in, out, look_back_state(scratch, epoch));
+  const int grid = ntiles < per_sm * sms ? ntiles : per_sm * sms;
+  evidence_finalize_kernel<<<grid, FIN_THREADS, FIN_SMEM,
+                             (cudaStream_t)stream>>>(
+      in, out, look_back_state(scratch, epoch), ntiles);
   return (int)cudaGetLastError();
 }
 
@@ -790,10 +1151,14 @@ extern "C" int mc_caller_scan(const void* acgt, int sa, const void* multi,
   if (n < 1 || n > (1 << 30) || sa < n || valid < 0 || valid > n ||
       scratch == nullptr || tiles < ntiles || !epoch_ok(epoch))
     return (int)cudaErrorInvalidValue;
+  int per_sm = 0, sms = 0;
+  cudaError_t err = resident(caller_scan_kernel, SCAN_THREADS, SCAN_SMEM,
+                             &per_sm, &sms);
+  if (err != cudaSuccess) return (int)err;
   const cudaStream_t st = (cudaStream_t)stream;
   int* tab = (int*)tables;
-  cudaError_t err = cudaMemsetAsync(
-      tab, 0xFF, sizeof(int) * ((size_t)CAND_CAP + RUN_CAP), st);
+  err = cudaMemsetAsync(tab, 0xFF, sizeof(int) * ((size_t)CAND_CAP + RUN_CAP),
+                        st);
   if (err == cudaSuccess)
     err = cudaMemsetAsync(tab + CAND_CAP + RUN_CAP, 0,
                           sizeof(int) * (size_t)RUN_CAP, st);
@@ -804,8 +1169,9 @@ extern "C" int mc_caller_scan(const void* acgt, int sa, const void* multi,
                   somatic, fb};
   const ScanOut out{(int*)bd, tab, tab + CAND_CAP, tab + CAND_CAP + RUN_CAP,
                     (long long*)small, (int*)seam_out};
-  caller_scan_kernel<<<ntiles, SCAN_THREADS, 0, st>>>(
-      in, out, look_back_state(scratch, epoch));
+  const int grid = ntiles < per_sm * sms ? ntiles : per_sm * sms;
+  caller_scan_kernel<<<grid, SCAN_THREADS, SCAN_SMEM, st>>>(
+      in, out, look_back_state(scratch, epoch), ntiles);
   return (int)cudaGetLastError();
 }
 

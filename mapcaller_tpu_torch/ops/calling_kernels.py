@@ -7,16 +7,18 @@
                      diff rows, the allele counts with the exact coverage
                      credited to the reference base, capped, the capped
                      multi counts, the coverage and its int64 prefix, in
-                     one launch; the reference codes from the text words
-                     when asked. Its slice form (carries of the slices
-                     before, a local coverage prefix) is B4's per-shard
-                     fold (pipeline/big_profile.BigDeviceEvidence._fold);
+                     one launch of persistent blocks, each tile's rows
+                     staged in shared memory at once; the reference codes
+                     from the text words when asked. Its slice form
+                     (carries of the slices before, a local coverage
+                     prefix) is B4's per-shard fold
+                     (pipeline/big_profile.BigDeviceEvidence._fold);
   caller_scan        the caller scan (A6, calling/scan_device.
                      build_scan_kernel): block depths, candidates and gap /
                      CNV run starts compacted in position order, the
-                     counts; two memsets and one launch. Its slice form
-                     (a valid length, the run state at the seam before) is
-                     B4's per-shard scan;
+                     counts; two memsets and one launch, staged as the
+                     finalize's. Its slice form (a valid length, the run
+                     state at the seam before) is B4's per-shard scan;
   caller_fetch       the evidence columns at sparse positions, the
                      coverage prefix at sparse points and block depths,
                      into one int64 buffer for one copy to the host (A6,
@@ -50,7 +52,7 @@ INT32_MAX = 0x7FFFFFFF
 DUMP = 4096          # dump slots past a compacted table (plain version)
 # csrc/calling.cu: positions a finalize tile and a scan tile, int64 words
 # of a tile's look-back slot
-FIN_TILE = 2048
+FIN_TILE = 2560
 SCAN_TILE = 3200
 SLOT_WORDS = 16
 _EPOCHS = 1 << 30    # the look-back's flag tags: 1 .. 2^30 - 1
@@ -88,7 +90,8 @@ def _load_kernel():
                 ("mc_caller_scan", [P, I, P, P, P, I, I, I, C.c_float, I]
                  + [P] * 6 + [I, I, P]),
                 ("mc_caller_fetch", [P] * 7 + [I] * 4 + [P, P]),
-                ("mc_nor_blocks", [P, I, P, I, P, I, I, P, P])):
+                ("mc_nor_blocks", [P, I, P, I, P, I, I, P, P]),
+                ("mc_calling_geometry", [I, P])):
             fn = getattr(lib, name)
             fn.restype = C.c_int
             fn.argtypes = args
@@ -109,6 +112,25 @@ def _launch(name: str, dev: torch.device, *args) -> None:
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
+
+
+def geometry(dev) -> dict:
+    """The finalize's and the scan's launch geometry on CUDA device dev:
+    {kernel: positions a tile, threads a block, tiles staged a block,
+    bytes of dynamic shared memory a block (ptxas does not report it),
+    blocks an SM, SMs}; a launch runs min(tiles, blocks an SM x SMs)
+    persistent blocks."""
+    keys = ("tile", "threads", "stages", "dynamic_smem_bytes",
+            "blocks_an_sm", "sms")
+    out = {}
+    for which, name in enumerate(("evidence_finalize", "caller_scan")):
+        buf = (C.c_int * len(keys))()
+        with torch.cuda.device(dev):
+            err = _load_kernel().mc_calling_geometry(which, buf)
+        if err != 0:
+            raise RuntimeError(f"{name}: no launch geometry (error {err})")
+        out[name] = dict(zip(keys, buf))
+    return out
 
 
 def _on_card(name: str, tensors) -> bool:

@@ -9,6 +9,8 @@ scan against the JAX package's genome-sharded programs
 point each DeviceEvidence and BigDeviceEvidence step reaches for card
 and CPU tensors. Inputs are made from numpy seeds; every comparison is
 exact integer equality."""
+import os
+import re
 import types
 
 import numpy as np
@@ -32,7 +34,7 @@ from mapcaller_tpu_torch.pipeline.big_profile import (BigDeviceEvidence,
 torch.set_num_threads(1)   # small tensor ops: see test_torch_e2e.py
 
 L = 9137              # not a multiple of any tile below
-LOOKBACK = 32         # csrc/calling.cu
+LOOKBACK = 32         # csrc/calling.cu: predecessors a look-back step reads
 MAXC = ck.MAX_ALLELE_COUNT
 I32_MAX = ck.INT32_MAX
 
@@ -43,12 +45,42 @@ def _i32(a):
     return np.where(a >= 1 << 31, a - (1 << 32), a)
 
 
-def look_back_mirror(aggs, rng):
+def calling_constants():
+    """Every namespace-scope `constexpr int NAME = expr;` of
+    csrc/calling.cu, evaluated in order -> {NAME: value}."""
+    path = os.path.join(os.path.dirname(ck.__file__), os.pardir, "csrc",
+                        "calling.cu")
+    with open(path) as f:
+        src = f.read()
+    env = {}
+    for decls in re.findall(r"^constexpr int (\w+ = [^;]+);", src, re.M):
+        for d in decls.split(","):
+            name, expr = (x.strip() for x in d.split("=", 1))
+            env[name] = eval(expr.replace("/", "//"), {}, dict(env))
+    return env
+
+
+def test_constants_match_source():
+    """The tile sizes, slot words and look-back step that the wrappers
+    and these mirrors copy by hand equal csrc/calling.cu's."""
+    c = calling_constants()
+    assert (c["FIN_TILE"], c["SCAN_TILE"], c["SLOT_WORDS"]) == (
+        ck.FIN_TILE, ck.SCAN_TILE, ck.SLOT_WORDS)
+    assert c["LOOKBACK"] == LOOKBACK
+    assert (c["MAX_ALLELE"], c["BLOCK_SIZE"], c["CAND_CAP"], c["RUN_CAP"]) \
+        == (MAXC, ck.BLOCK_SIZE, ck.CAND_CAP, ck.RUN_CAP)
+    # a tile's slot holds chain A (flag, 6 + 6 words) and chain B (flag,
+    # 1 + 1) in SLOT_WORDS words
+    assert c["CHAIN_B"] >= 1 + 2 * 6 and c["CHAIN_B"] + 3 <= c["SLOT_WORDS"]
+
+
+def look_back_mirror(aggs, rng, window=None):
     """The decoupled look-back over tiles in ticket order: tile k reads
-    its predecessors LOOKBACK at a time, each published as an aggregate or
-    (at random; tile 0 always) as its inclusive prefix, and adds the
-    aggregates after the nearest prefix to it. aggs [T, K] -> each tile's
-    exclusive prefix."""
+    its predecessors `window` (default LOOKBACK) at a time, each published
+    as an aggregate or (at random; tile 0 always) as its inclusive prefix,
+    and adds the aggregates after the nearest prefix to it. aggs [T, K] ->
+    each tile's exclusive prefix."""
+    window = window or LOOKBACK
     T = aggs.shape[0]
     incl = np.zeros_like(aggs)
     excl = np.zeros_like(aggs)
@@ -59,13 +91,13 @@ def look_back_mirror(aggs, rng):
         acc = np.zeros(aggs.shape[1], dtype=aggs.dtype)
         top = k - 1
         while True:
-            idx = np.arange(max(top - LOOKBACK + 1, 0), top + 1)
+            idx = np.arange(max(top - window + 1, 0), top + 1)
             pre = idx[prefix[idx]]
             if pre.size:
                 acc += incl[pre[-1]] + aggs[pre[-1] + 1:top + 1].sum(0)
                 break
             acc += aggs[idx].sum(0)
-            top -= LOOKBACK
+            top -= window
         excl[k], incl[k] = acc, acc + aggs[k]
     return excl
 
@@ -73,7 +105,7 @@ def look_back_mirror(aggs, rng):
 # ---- the finalize ----------------------------------------------------------
 
 def finalize_mirror(acgt, exact_diff, f_diff, multi_diff, n, codes, tile,
-                    items, rng, carry=None, cov_in=0, lead=True):
+                    items, rng, carry=None, cov_in=0, lead=True, window=None):
     """evidence_finalize_kernel's arithmetic as its tiles and threads run
     it: each thread's sums of the six diff rows, the block's exclusive
     scan, the look-back; the running prefixes modulo 2^32; then the
@@ -90,7 +122,7 @@ def finalize_mirror(acgt, exact_diff, f_diff, multi_diff, n, codes, tile,
     u = np.stack([row(exact_diff)] + [row(f_diff[k]) for k in range(4)]
                  + [row(multi_diff)]).reshape(6, T, threads, items)
     th = u.sum(-1)
-    ex_tile = look_back_mirror(th.sum(-1).T, rng).T
+    ex_tile = look_back_mirror(th.sum(-1).T, rng, window).T
     c_in = np.zeros(6, np.int64) if carry is None else \
         np.asarray(carry[:6], np.int64) & 0xFFFFFFFF
     start = ex_tile[:, :, None] + np.cumsum(th, -1) - th + c_in[:, None,
@@ -105,7 +137,7 @@ def finalize_mirror(acgt, exact_diff, f_diff, multi_diff, n, codes, tile,
     cz[:n] = cov
     cz = cz.reshape(T, threads, items)
     cth = cz.sum(-1)
-    cex = look_back_mirror(cth.sum(-1)[:, None], rng)[:, 0]
+    cex = look_back_mirror(cth.sum(-1)[:, None], rng, window)[:, 0]
     cpre = (cov_in + cex[:, None, None] + (np.cumsum(cth, -1) - cth)[..., None]
             + np.cumsum(cz, -1)).reshape(N)[:n]
     return (a, F, np.minimum(cm, MAXC), cov,
@@ -140,7 +172,8 @@ def _planes(seed, n, wrap=False):
         np.int32)), rng.integers(0, 4, n).astype(np.int32)
 
 
-@pytest.mark.parametrize("tile,items", [(2048, 8), (256, 8), (96, 3)])
+@pytest.mark.parametrize("tile,items", [(2048, 8), (256, 8), (96, 3),
+                                        (1024, 4), (2560, 10), (1536, 6)])
 @pytest.mark.parametrize("wrap", [False, True])
 def test_finalize_mirror(tile, items, wrap):
     """The finalize's tiling at several tile sizes, L not a multiple of
@@ -201,10 +234,35 @@ def test_finalize_slice_mirror():
         np.testing.assert_array_equal(g, p.numpy())
 
 
+@pytest.mark.parametrize("window", [8, LOOKBACK, 128])
+def test_look_back_step(window):
+    """The look-back at a step of 8, LOOKBACK and 128 predecessors (the
+    variants' lb4), over 96 tiles of the finalize and 305 of the scan:
+    each tile's carry walks back one or many steps to the nearest
+    inclusive prefix, and the outputs equal the JAX package's at every
+    step."""
+    arrs, rc = _planes(4, L)
+    got = finalize_mirror(arrs["acgt"], arrs["exact_diff"], arrs["f_diff"],
+                          arrs["multi_diff"], L, rc, 96, 3,
+                          np.random.default_rng(window), window=window)
+    want = jdp.build_finalize_kernel(L)(
+        jdp.DevicePlanes(L=L, **{k: jnp.asarray(v) for k, v in arrs.items()}),
+        jnp.asarray(rc))
+    for g, w in zip(got[:4], want[:4]):
+        np.testing.assert_array_equal(g, np.asarray(w))
+    np.testing.assert_array_equal(_i32(got[4]), np.asarray(want[4]))
+    acgt, multi, cov, rc = _finalized(5)
+    fb = np.float32(0.2)
+    sgot = scan_mirror(acgt, multi, cov, rc, 3, fb, False,
+                       np.random.default_rng(window + 1), blocks=1,
+                       items=5, window=window)
+    _assert_scan(sgot, _jax_scan(acgt, multi, cov, rc, 3, fb, False))
+
+
 # ---- the scan ----------------------------------------------------------------
 
 def scan_mirror(acgt, multi, cov, rc, ad, fb, somatic, rng, valid=None,
-                seam=None, blocks=32, items=10):
+                seam=None, blocks=32, items=5, window=None):
     """caller_scan_kernel as its tiles of `blocks` 100-base blocks and
     threads of `items` positions run it: block sums from the threads'
     partials, each thread's candidate and run-start counts, the block's
@@ -245,7 +303,7 @@ def scan_mirror(acgt, multi, cov, rc, ad, fb, somatic, rng, valid=None,
     for mask, cap in ((cand, ck.CAND_CAP), (newrun, ck.RUN_CAP)):
         m = mask.reshape(T, threads, items)
         th = m.sum(-1)
-        ex = look_back_mirror(th.sum(-1)[:, None], rng)[:, 0]
+        ex = look_back_mirror(th.sum(-1)[:, None], rng, window)[:, 0]
         rank = (ex[:, None, None] + (np.cumsum(th, -1) - th)[..., None]
                 + np.cumsum(m, -1) - m).reshape(N)
         keep = mask & (rank < cap)
@@ -293,7 +351,7 @@ def _assert_scan(got, want):
     assert [int(x) for x in got[4]] == [int(x) for x in want[4]]
 
 
-@pytest.mark.parametrize("blocks", [32, 3, 1])
+@pytest.mark.parametrize("blocks", [32, 3, 1, 16])
 @pytest.mark.parametrize("somatic", [False, True])
 def test_scan_mirror(blocks, somatic):
     """The scan's tiling with tiles of 32, 3 and 1 100-base blocks (runs
@@ -310,6 +368,20 @@ def test_scan_mirror(blocks, somatic):
         acgt, multi, cov, rc)), 3, fb, somatic)
     _assert_scan(plain, want)
     assert int(plain.seam) == got[5]
+
+
+@pytest.mark.parametrize("blocks,items", [(32, 10), (24, 5), (16, 10),
+                                          (1, 2)])
+def test_scan_mirror_geometry(blocks, items):
+    """The scan's tiling at 5 positions a thread (the kernel's), at 10 (the
+    design before) and at other tiles and threads against the JAX
+    package's build_scan_kernel."""
+    acgt, multi, cov, rc = _finalized(15)
+    fb = np.float32(0.2)
+    got = scan_mirror(acgt, multi, cov, rc, 3, fb, False,
+                      np.random.default_rng(blocks * items), blocks=blocks,
+                      items=items)
+    _assert_scan(got, _jax_scan(acgt, multi, cov, rc, 3, fb, False))
 
 
 @pytest.mark.parametrize("cut", [1200, 1300, 2000])
