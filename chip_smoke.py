@@ -217,7 +217,8 @@ exits non-zero):
              beside torch.cumsum) and K2 timed at n = 4 beside their byte
              bounds. The build gate
              holds chain_classify_pack_kernel at its parent's registers
-             (its folded apply is the device function K2 shares)
+             (its folded apply is the device function K2 shares) and K2
+             at its 40 registers beside its slice form
 Then the kernel table line ({"kernels": [...]}, the DP kernels timed on
 their main path's own captured pairs and on random pairs of the same
 shape, the scan and chain kernels on their main path's own batch 0, the
@@ -226,7 +227,11 @@ of it under big_x64 -shards 2, as the runs launched them; the seed+chain
 kernels also with their launches on the multihost and mesh runs; K1 and
 K2 on the mesh's main-data run at n = 4; the calling kernels on the
 main path's own planes with their launches a run, the NOR blocks on a
--gvcf run's own call, with B4's fold and scan a shard beside),
+-gvcf run's own call, with B4's fold and scan a shard beside; the slice
+forms of B4's apply, host-delta merge and fetch a shard under big_x64
+-shards 2 and 4, its NOR on the -gvcf -shards 2 call, each held equal to
+its plain version in every word, and the merge's single-card form, A5's,
+on seeded deltas beside its four index_add_),
 the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}.
 
@@ -1923,27 +1928,133 @@ BIG_HOST = ("acgt", "exact_diff", "F1_diff", "R2_diff", "F2_diff",
             "R1_diff", "multi_diff")
 
 
+@contextlib.contextmanager
+def plain_entries(*swaps):
+    """Each (module, kernel entry, plain version) swapped while inside:
+    the wrappers then run the plain version where they would launch (the
+    entries take the plain versions' arguments)."""
+    real = [getattr(m, e) for m, e, _ in swaps]
+    for m, e, fn in swaps:
+        setattr(m, e, fn)
+    try:
+        yield
+    finally:
+        for (m, e, _), fn in zip(swaps, real):
+            setattr(m, e, fn)
+
+
+@contextlib.contextmanager
+def entry_calls(mod, entry, calls):
+    """The arguments of each call of a kernel entry while inside, kept
+    in `calls` (the call still runs)."""
+    real = getattr(mod, entry)
+
+    def tap(*a, **kw):
+        calls.append((a, kw))
+        return real(*a, **kw)
+    setattr(mod, entry, tap)
+    try:
+        yield
+    finally:
+        setattr(mod, entry, real)
+
+
+def replay_ms(fn, calls, reps, queued=True):
+    """ms of fn over the kept calls' arguments, one program's launches of
+    one call replayed: queued device ms of the kernels; of the plain
+    versions (some wait for the card: a mask's nonzero) not queued."""
+    return cuda_ms(lambda: [fn(*a, **kw) for a, kw in calls], reps,
+                   queued=queued)
+
+
+def shard_planes(ev):
+    """Copies of every shard's planes."""
+    return [{k: getattr(sp, k).clone() for k in BIG_PLANES}
+            for sp in ev.planes]
+
+
+def set_planes(ev, copies):
+    for sp, c in zip(ev.planes, copies):
+        for k in BIG_PLANES:
+            getattr(sp, k).copy_(c[k])
+
+
+def planes_err(a, b):
+    return max(int((x[k].long() - y[k].long()).abs().max())
+               for x, y in zip(a, b) for k in BIG_PLANES)
+
+
+def owned_deltas(ev, deltas, ends):
+    """The host merge's packed lists (host) split by owner, as the parent
+    tree's merge split them: for each shard and plane a numpy mask of the
+    entries the shard owns -> [(shard planes, device, plane, local flat
+    indices, values)]."""
+    from mapcaller_tpu_torch.ops import mesh_kernels as mk
+    from mapcaller_tpu_torch.pipeline import device_profile as dp
+    N = ends[-1]
+    idx = deltas[:N]
+    val = deltas[N:].view("int32")[:N]
+    parts = []
+    for sp, d in zip(ev.planes, ev.devs):
+        lo = 0
+        for name, hi, gs in zip(mk.MERGE_PLANES, ends,
+                                dp.merge_strides(ev.L)):
+            x, v = idx[lo:hi], val[lo:hi]
+            lo = hi
+            row, g = x // gs, x % gs
+            mine = (g >= sp.off) & (g < sp.off + ev.Pl)
+            if mine.any():
+                parts.append((sp, d, name, g[mine] - sp.off
+                              + row[mine] * ev.Pl, v[mine]))
+    return parts
+
+
+def parent_merge(ev, deltas, ends):
+    """What the parent tree's merge did after its nonzero scans: the
+    masks of owned_deltas, then for each shard and plane their upload
+    and an index_add_ (timed as the merge's device part before its
+    kernel)."""
+    import torch
+    from mapcaller_tpu_torch.ops.device_util import upload
+    for sp, d, name, li, v in owned_deltas(ev, deltas, ends):
+        getattr(sp, name).view(-1).index_add_(0, upload(li, d),
+                                              upload(v, d))
+    torch.cuda.synchronize()
+
+
+BIG_PLANES = ("acgt", "exact_diff", "f_diff", "multi_diff")
+
+
 def time_big_evidence(ev, kept, reps=10):
-    """BigDeviceEvidence's programs of one big run, timed after the run on
-    copies of their inputs, per shard (a call's time over the n shards it
-    loops over on this card): the apply (the run's first batch, on the
-    run's final planes), the fold and the scan (on the run's merged
-    planes), each beside its bound, the bytes it must move over the card's
-    memory rate (apply: every shard reads the batch's pd, mmp, read
-    lengths and admit bits, and each plane update is read and written
-    once; fold: 40 B of planes and 4 of codes read, 48 of outputs written
-    a position; scan: 28 B read a position; the column fetch, the run's
-    first: the indices read, 40 B gathered a position and 8 a prefix
-    point, 80 and 8 written), the fold and the scan first held against
-    their plain versions on the card (every word of every shard's
-    outputs, on the run's planes) and timed the same way on them; then
-    the host-delta merge, host work (nonzero scans over the genome-sized
-    host arrays, then an index_add_ a shard), timed on the host between
-    device syncs with no bound on the card."""
+    """BigDeviceEvidence's programs of one big run, after the run, on
+    copies of their inputs. The fold and the scan (on the run's merged
+    planes and final fold), the apply (the run's first batch), the
+    host-delta merge (the host profile's slow-read deltas as the run's
+    merge found them) and the column fetch (the run's first, with its
+    positions' block depths) are each held against their plain versions
+    on the card, every word of every shard's outputs, by swapping the
+    kernel entries for the plain versions; then timed: each call (host
+    work and syncs inside), its kernels' device ms (queued: the call's
+    launches replayed, per call and per shard) and the plain versions'
+    on the same launches, beside the bound, the bytes they must move
+    over the card's memory rate (apply: every shard reads the batch's pd,
+    mmp, read lengths and admit bits, and each plane update is read and
+    written once; merge: each entry's index and value read and its plane
+    word read and written once, by the shard that owns it; fold: 40 B of planes and 4
+    of codes read, 48 of outputs written a position; scan: 28 B read a
+    position; fetch: the indices read, 40 B gathered a position and 8 a
+    prefix point, 80 and 8 written). The merge's two parts apart: its
+    nonzero scans of the host arrays (host work, as before its kernel),
+    then its upload and launches (BigDeviceEvidence._merge_lists),
+    beside the parent tree's masks, uploads and index_add_ on the same
+    lists; the library call is that index_add_ alone."""
     import types
     import numpy as np
     import torch
     from mapcaller_tpu_torch.ops import calling_kernels as cal
+    from mapcaller_tpu_torch.ops import mesh_kernels as mk
+    from mapcaller_tpu_torch.ops.device_util import upload
+    from mapcaller_tpu_torch.pipeline import device_profile as dp
     # the taps: the class's again
     del ev.apply_batch, ev._merge_host_deltas, ev.fetch_columns
     n, Pl = ev.n, ev.Pl
@@ -1963,15 +2074,11 @@ def time_big_evidence(ev, kept, reps=10):
     # swapped for the plain versions, which take the same arguments), on
     # the run's merged planes and final fold
     got = ev._fold(), rescan()
-    entries = cal._finalize_kernel, cal._scan_kernel
-    cal._finalize_kernel = cal.evidence_finalize_plain
-    cal._scan_kernel = cal.caller_scan_plain
-    try:
+    with plain_entries((cal, "_finalize_kernel", cal.evidence_finalize_plain),
+                       (cal, "_scan_kernel", cal.caller_scan_plain)):
         want = ev._fold(), rescan()
         plain_ms = dict(fold=cuda_ms(ev._fold, reps),
                         scan=cuda_ms(rescan, reps))
-    finally:
-        cal._finalize_kernel, cal._scan_kernel = entries
     (gouts, gtots), gscan = got
     (wouts, wtots), wscan = want
     errs = dict(
@@ -1983,46 +2090,184 @@ def time_big_evidence(ev, kept, reps=10):
                                - np.asarray(w, np.int64)).max())
                     if np.asarray(g).size else 0
                     for g, w in zip(gscan[1:], wscan[1:])]))
-    if any(errs.values()):
-        raise AssertionError(f"big: B4's fold or scan kernels != plain "
-                             f"{errs}")
+    rescan()
+    # the fetch: positions, prefix points and their block depths, routed
+    # and launched as fetch_columns does
     pos, pref = kept["fetch"]
+    p = np.clip(pos.astype(np.int64), 0, ev.L - 1)
+    pp = np.clip(pref.astype(np.int64), 0, ev.L)
+    blocks = np.unique(p // 100)
+    bds = ev._scan[0]._parts
+    fcalls = []
+    with entry_calls(cal, "_fetch_slice_kernel", fcalls):
+        fgot = ev._fetch(p, pp, blocks, bds)
+    with plain_entries((cal, "_fetch_slice_kernel",
+                        cal.caller_fetch_slice_plain)):
+        fwant = ev._fetch(p, pp, blocks, bds)
+    errs["fetch"] = max(int(np.abs(g - w).max()) if g.size else 0
+                        for g, w in zip(fgot, fwant))
+    # the apply, held on the run's final planes, which it leaves as they
+    # were
+    base = shard_planes(ev)
+    acalls = []
+    with entry_calls(mk, "_apply_slice_kernel", acalls):
+        ev.apply_batch(tok, fast_bits, pe)
+    agot = shard_planes(ev)
+    set_planes(ev, base)
+    with plain_entries((mk, "_apply_slice_kernel", mk.apply_slice_plain)):
+        ev.apply_batch(tok, fast_bits, pe)
+    errs["apply"] = planes_err(agot, shard_planes(ev))
+    del agot
+    # the merge, held the same way on copies of the host arrays
+    host, live = kept.get("host"), ev.host_profile
+
+    def host_copy():
+        return types.SimpleNamespace(**{k: v.copy() for k, v in host.items()})
+    mcalls = []
+    if host:
+        set_planes(ev, base)
+        ev.host_profile = host_copy()
+        with entry_calls(mk, "_host_merge_kernel", mcalls):
+            ev._merge_host_deltas()
+        mgot = shard_planes(ev)
+        set_planes(ev, base)
+        ev.host_profile = host_copy()
+        with plain_entries((mk, "_host_merge_kernel", mk.host_merge_plain)):
+            ev._merge_host_deltas()
+        errs["merge"] = planes_err(mgot, shard_planes(ev))
+        del mgot
+    set_planes(ev, base)
+    if any(errs.values()):
+        raise AssertionError(f"big: B4's kernels != their plain versions "
+                             f"{errs}")
+    # times: whole calls, then each call's launches replayed
     ms = dict(fold=cuda_ms(ev._fold, reps), scan=cuda_ms(rescan, reps),
               fetch=cuda_ms(lambda: ev.fetch_columns(pos, pref), reps),
               apply=cuda_ms(lambda: ev.apply_batch(tok, fast_bits, pe), reps))
+    dev = dict(apply=replay_ms(mk._apply_slice_kernel, acalls, reps),
+               fetch=replay_ms(cal._fetch_slice_kernel, fcalls, reps))
+    plain = dict(apply=replay_ms(mk.apply_slice_plain, acalls, reps, False),
+                 fetch=replay_ms(cal.caller_fetch_slice_plain, fcalls, reps,
+                                   False))
+    launches = dict(apply=len(acalls), fetch=len(fcalls), fold=n, scan=n)
     nbytes = dict(apply=n * (B * (8 + 4 * S + 4) + fb.nbytes)
                   + 8 * (4 * int(adm.sum()) + 3 * n_mm),
                   fold=n * 92 * Pl, scan=n * 28 * Pl,
-                  fetch=8 * (pos.size + pref.size) + 120 * pos.size
-                  + 16 * pref.size)
+                  fetch=8 * (p.size + pp.size + blocks.size) + 120 * p.size
+                  + 16 * pp.size + 12 * blocks.size)
     res = {k: dict(ms_a_shard=ms[k] / n, bytes_a_shard=nbytes[k] / n,
                    bound_ms_a_shard=1e3 * nbytes[k] / n / H100_BYTES_S,
-                   bound_by="bytes", call_ms=ms[k]) for k in ms}
+                   bound_ms=1e3 * nbytes[k] / H100_BYTES_S,
+                   bound_by="bytes", call_ms=ms[k], max_abs_err=errs[k],
+                   launches_a_call=launches[k]) for k in ms}
     for k in ("fold", "scan"):
-        res[k].update(max_abs_err=errs[k], plain_ms_a_shard=plain_ms[k] / n,
+        res[k].update(plain_ms_a_shard=plain_ms[k] / n,
                       plain_call_ms=plain_ms[k])
-    host, live, times = kept.get("host"), ev.host_profile, []
-    try:
-        for _ in range(reps if host else 0):   # no slow reads: no merge
-            ev.host_profile = types.SimpleNamespace(
-                **{k: v.copy() for k, v in host.items()})
+    for k in dev:
+        res[k].update(device_ms=dev[k],
+                      device_ms_a_launch=dev[k] / launches[k],
+                      plain_ms=plain[k],
+                      plain_ms_a_launch=plain[k] / launches[k])
+    if host:
+        deltas, ends = dp.host_delta_lists(host_copy(), ev.L)
+        times = dict(scans=[], upload_launches=[], parent_part=[], call=[])
+        for _ in range(reps):
+            h = host_copy()
+            t0 = time.perf_counter()
+            lists = dp.host_delta_lists(h, ev.L)
+            times["scans"].append(1e3 * (time.perf_counter() - t0))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ev._merge_lists(*lists)
+            torch.cuda.synchronize()
+            times["upload_launches"].append(1e3 * (time.perf_counter()
+                                                   - t0))
+            t0 = time.perf_counter()
+            parent_merge(ev, *lists)
+            times["parent_part"].append(1e3 * (time.perf_counter() - t0))
+            ev.host_profile = host_copy()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             ev._merge_host_deltas()
             torch.cuda.synchronize()
-            times.append(1e3 * (time.perf_counter() - t0))
-    finally:
+            times["call"].append(1e3 * (time.perf_counter() - t0))
         ev.host_profile = live
-    if host:
+        # the library call: the index_add_ of the parent's merge on this
+        # run's own lists, their owned entries' indices and values
+        # uploaded before the timing
+        od = owned_deltas(ev, deltas, ends)
+        parts = [(getattr(sp, name).view(-1), upload(li, d), upload(v, d))
+                 for sp, d, name, li, v in od]
+        owned = [sum(int(li.size) for sp2, _, _, li, _ in od if sp2 is sp)
+                 for sp in ev.planes]
+        if sum(owned) != ends[-1]:
+            raise AssertionError(f"big: the merge's entries are not each "
+                                 f"owned by one shard {owned}")
+
+        def index_add():
+            for t, i, v in parts:
+                t.index_add_(0, i, v)
+        library = cuda_ms(index_add, reps, queued=True)
+        set_planes(ev, base)
+        med = {k: statistics.median(v) for k, v in times.items()}
+        N = ends[-1]
+        # what the merge must move: each entry's index (8 B) and value (4)
+        # read once and its plane word read and written (8), by the shard
+        # that owns it
+        nb = 20 * N
         res["merge"] = dict(
-            ms_a_shard=statistics.median(times) / n,
-            call_ms=statistics.median(times), bound_ms=None,
-            bound_by="host work",
-            host_bytes_scanned=sum(v.nbytes for v in host.values()),
-            host_nonzero=sum(int(np.count_nonzero(v))
-                             for v in host.values()))
+            call_ms=med["call"], ms_a_shard=med["call"] / n,
+            host_scans_ms=med["scans"],
+            upload_launches_ms=med["upload_launches"],
+            parent_masks_uploads_index_add_ms=med["parent_part"],
+            device_ms=replay_ms(mk._host_merge_kernel, mcalls, reps),
+            plain_ms=replay_ms(mk.host_merge_plain, mcalls, reps, False),
+            library_ms=library, library="the index_add_ of the parent's "
+            "merge on the run's own lists, one a shard and plane that "
+            "owns entries, indices and values on the card",
+            launches_a_call=len(mcalls), entries=N, entries_a_shard=owned,
+            bound_ms=1e3 * nb / H100_BYTES_S, bound_by="bytes", bytes=nb,
+            bound_ms_by_shard=[1e3 * 20 * k / H100_BYTES_S for k in owned],
+            max_abs_err=errs["merge"],
+            host_bytes_scanned=sum(v.nbytes for v in host.values()))
+        for k in ("device_ms", "plain_ms", "library_ms"):
+            res["merge"][k.replace("ms", "ms_a_launch")] = (
+                res["merge"][k] / len(mcalls))
+        res["merge"]["bound_ms_a_shard"] = res["merge"]["bound_ms"] / n
     return res | dict(shards=n, Pl=Pl, batch=B, admitted=int(adm.sum()),
                       mismatches=n_mm)
+
+
+def time_big_nor(bev, em, brk, reps):
+    """B4's NOR blocks on a -gvcf run's own call (its emitted positions
+    and breaks): held against their plain versions on the card in every
+    word (the kernel entry swapped), the call timed, its launches
+    replayed (device ms, plain ms) beside the bound: the coverage, the
+    positions and breaks read once, three words a segment written, a
+    shard's share of it."""
+    from mapcaller_tpu_torch.ops import calling_kernels as cal
+    calls = []
+    with entry_calls(cal, "_nor_slice_kernel", calls):
+        got = bev.nor_blocks(em, brk)
+    with plain_entries((cal, "_nor_slice_kernel",
+                        cal.nor_blocks_slice_plain)):
+        want = bev.nor_blocks(em, brk)
+    err = max(int(abs(g - w).max()) for g, w in zip(got, want))
+    if err:
+        raise AssertionError("big -gvcf: B4's NOR kernels != their plain "
+                             "versions")
+    nseg = brk.size + 2
+    nbytes = 4 * bev.L + 8 * (em.size + brk.size) + 12 * nseg
+    dev = replay_ms(cal._nor_slice_kernel, calls, reps)
+    plain = replay_ms(cal.nor_blocks_slice_plain, calls, reps, False)
+    return dict(call_ms=cuda_ms(lambda: bev.nor_blocks(em, brk), reps),
+                device_ms=dev, device_ms_a_launch=dev / len(calls),
+                plain_ms=plain, plain_ms_a_launch=plain / len(calls),
+                launches_a_call=len(calls), shards=bev.n,
+                emitted=int(em.size), breaks=int(brk.size), max_abs_err=err,
+                bound_ms=1e3 * nbytes / H100_BYTES_S,
+                bound_ms_a_shard=1e3 * nbytes / H100_BYTES_S / bev.n,
+                bound_by="bytes")
 
 
 def run_big(run, card, sam, vcf, reps=20):
@@ -2105,7 +2350,10 @@ def run_big(run, card, sam, vcf, reps=20):
         ev = held.pop("ev")
         memory[n] = big_memory(held.pop("be"), ev,
                                [x["kern"].fm for x in first.values()])
-        ev_times[n] = time_big_evidence(ev, held.pop("kept"))
+        kept = held.pop("kept")
+        merged = "host" in kept           # the run had slow-read evidence
+        ev_times[n] = time_big_evidence(ev, kept)
+        del kept
         del ev
         emit("big", card=card, shards=n, backend=t["backend"], batches=b,
              scan_launches=t["scan_launches"],
@@ -2114,7 +2362,7 @@ def run_big(run, card, sam, vcf, reps=20):
              mapping_s=t["metrics"]["mapping_seconds"], stages=t["stages"],
              sam_identical=t["sam_identical"],
              vcf_identical=t["vcf_identical"], evidence=t["evidence"],
-             calling_launches=t["calling"],
+             calling_launches=t["calling"], evidence_launches=t["mesh"],
              launches_held_to_plain=len(launches),
              reads_a_launch=sorted({int(x["rlens"].shape[0])
                                     for x in launches}),
@@ -2130,13 +2378,20 @@ def run_big(run, card, sam, vcf, reps=20):
                 and all(len(x) == 9 for x in launches)
                 and evidence_path_ok(t["evidence"])
                 and calling_ok(t, n)
+                # B4's apply a launch a shard a batch, its merge a launch
+                # a shard with slow-read evidence, no K2 launch
+                and t["mesh"].get("evidence_apply_slice") == n * b
+                and t["mesh"].get("host_merge", 0) == (n if merged else 0)
+                and not t["mesh"].get("evidence_apply_bits")
                 and t["metrics"]["n_oracle_reads"] == 0
                 and t["metrics"]["n_tier_reruns"] == 0):
             raise AssertionError(f"big {n}: bytes differ from the warm-up's, "
                                  f"a batch missed the x64 stage, a 32-bit "
                                  f"kernel ran, a 64-bit one did not run "
-                                 f"once a shard a batch, or evidence left "
-                                 f"the sharded planes")
+                                 f"once a shard a batch, B4's apply or "
+                                 f"merge kernels not once a shard, or "
+                                 f"evidence left the sharded planes "
+                                 f"{t['mesh']} {t['calling']}")
         runs[n] = t
         first[n] = launches[0]
         del launches
@@ -2182,15 +2437,19 @@ def run_big(run, card, sam, vcf, reps=20):
             cal.nor_blocks = nor_blocks
             BigDeviceEvidence.nor_blocks = big_nor
         if tag == "big":
-            # B4's NOR blocks (eager a shard) on their own call
+            # B4's NOR blocks (a slice-form launch a shard) on their own
+            # call, with the run's launches
             bev, em, brk = held.pop("big_nor")
-            nseg = brk.size + 2
-            nbytes = 4 * bev.L + 8 * (em.size + brk.size) + 12 * nseg
-            nor_big = dict(
-                call_ms=cuda_ms(lambda: bev.nor_blocks(em, brk), reps),
-                shards=bev.n, emitted=int(em.size), breaks=int(brk.size),
-                bound_ms=1e3 * nbytes / H100_BYTES_S, bound_by="bytes")
+            nor_big = time_big_nor(bev, em, brk, reps)
+            nor_big["launches"] = t["calling"].get("nor_blocks_slice", 0)
+            nor_big["fetch_launches"] = t["calling"].get(
+                "caller_fetch_slice", 0)
             del bev
+            if not (nor_big["launches"] >= 1
+                    and nor_big["fetch_launches"] >= 1
+                    and not t["calling"].get("nor_blocks")):
+                raise AssertionError("big -gvcf: B4's NOR or fetch slice "
+                                     "kernels did not run")
         if tag == "one":
             # A6's NOR blocks on the single-card run's finalized planes
             if t["calling"].get("nor_blocks") != 1:
@@ -2215,8 +2474,8 @@ def run_big(run, card, sam, vcf, reps=20):
                 "chain_classify_pack_big"}):
         raise AssertionError("big -gvcf: bytes differ from one card's or "
                              "the run left the x64 path")
-    b4 = {n: dict(fold=ev_times[n]["fold"], scan=ev_times[n]["scan"],
-                  launches=runs[n]["calling"]) for n in ev_times}
+    b4 = {n: dict(ev_times[n], launches=runs[n]["calling"],
+                  evidence_launches=runs[n]["mesh"]) for n in ev_times}
     b4["nor_shards_2"] = nor_big
     return timing, runs[2], single, nor, b4
 
@@ -2564,12 +2823,15 @@ class K2MainTap:
 
 class CallingEagerTap:
     """Counts the calls of the calling kernels' plain versions
-    (ops/calling_kernels: the finalize, scan, fetch and NOR bodies) on
-    card tensors while installed: the eager programs the main path no
-    longer runs."""
+    (ops/calling_kernels: the finalize, scan, fetch and NOR bodies and the
+    fetch's and NOR's slice forms) and of B4's apply and the host merge
+    (ops/mesh_kernels) on card tensors while installed: the eager
+    programs the port no longer runs."""
 
     NAMES = ("evidence_finalize_plain", "caller_scan_plain",
-             "caller_fetch_plain", "nor_blocks_plain")
+             "caller_fetch_plain", "nor_blocks_plain",
+             "caller_fetch_slice_plain", "nor_blocks_slice_plain")
+    MESH_NAMES = ("apply_slice_plain", "host_merge_plain")
 
     def reset(self):
         self.eager = 0
@@ -2577,26 +2839,29 @@ class CallingEagerTap:
     def install(self):
         import torch
         from mapcaller_tpu_torch.ops import calling_kernels as cal
-        self.cal, self.real = cal, {n: getattr(cal, n) for n in self.NAMES}
+        from mapcaller_tpu_torch.ops import mesh_kernels as mk
+        self.real = {(m, n): getattr(m, n) for m, names in (
+            (cal, self.NAMES), (mk, self.MESH_NAMES)) for n in names}
         self.reset()
-        for name, fn in self.real.items():
+        for (mod, name), fn in self.real.items():
             def tapped(*a, _fn=fn, **kw):
                 self.eager += int(any(torch.is_tensor(x) and x.is_cuda
                                       for x in a))
                 return _fn(*a, **kw)
-            setattr(cal, name, tapped)
+            setattr(mod, name, tapped)
         return self
 
     def uninstall(self):
-        for name, fn in self.real.items():
-            setattr(self.cal, name, fn)
+        for (mod, name), fn in self.real.items():
+            setattr(mod, name, fn)
 
 
 def calling_ok(t, shards=1):
     """A run's calling kernels: with evidence on the card planes (one
     caller scan), the finalize and the scan once a shard, the column fetch
-    on one card only (B4 fetches eagerly), no NOR block kernel without
-    -gvcf; with host evidence none; and no plain version on the card."""
+    on one card, its slice form on the genome-sharded planes (shards > 1:
+    B4), no NOR block kernel of either form without -gvcf; with host
+    evidence none; and no plain version on the card."""
     c = t["calling"]
     if t["calling_eager"]:
         return False
@@ -2605,7 +2870,8 @@ def calling_ok(t, shards=1):
     return (c.get("evidence_finalize") == shards
             and c.get("caller_scan") == shards
             and (c.get("caller_fetch", 0) >= 1) == (shards == 1)
-            and not c.get("nor_blocks"))
+            and (c.get("caller_fetch_slice", 0) >= 1) == (shards > 1)
+            and not c.get("nor_blocks") and not c.get("nor_blocks_slice"))
 
 
 def run_main_path(work, card):
@@ -2730,6 +2996,7 @@ def run_main_path(work, card):
                     peak=torch.cuda.max_memory_allocated(),
                     transfers=transfers,
                     k2=k2_main.result(mk.STATS.launches),
+                    mesh=dict(mk.STATS.launches),
                     calling=dict(cal.STATS.launches),
                     calling_eager=calling_tap.eager,
                     backend=(backend_facts(be) if backend is not None
@@ -3200,7 +3467,8 @@ def run_evidence(cap, card, reps=50):
     written). -> K2's numbers on the apply (one launch): device ms, call
     ms, its plain version's ms on the card, the bound and the empty-launch
     floor; and on its two retractions (a sparse correction, the dense
-    undo from the classes), each held against its plain version."""
+    undo from the classes), each held against its plain version; and
+    A5's host merge on seeded deltas (time_host_merge)."""
     import numpy as np
     import torch
     from mapcaller_tpu_torch.calling import scan_device
@@ -3316,7 +3584,7 @@ def run_evidence(cap, card, reps=50):
          mismatches=n_mm, fetch_positions=P, prefix_points=Q,
          n_cand=int(small[0]), n_runs=int(small[1]),
          equal_to_cpu=True, steps=steps, k2_apply=k2)
-    return k2
+    return k2, steps["host_merge"]
 
 
 def max_err_of(got, want):
@@ -3433,39 +3701,62 @@ def run_calling(cap, card, launches, reps=50):
 
 def time_host_merge(planes, reps=50, density=0.01, seed=5):
     """A5's host merge (pipeline/device_profile.build_host_merge_kernel:
-    four index_add_ of the host profile's sparse nonzero deltas into the
-    planes), which the main data never takes (every read's evidence is
-    applied on the card): deltas at `density` of each plane's entries,
-    values 1-3, made from `seed`, into planes(device) (the main path's
-    own). Equal to the same call on the CPU; device ms (queued) beside
-    the bound: each delta's index and value read, its plane entry read
-    and written."""
+    host_merge_kernel, the four lists of the host profile's sparse nonzero
+    deltas in one launch), which the main data never takes (every read's
+    evidence is applied on the card): deltas at `density` of each plane's
+    entries, values 1-3, made from `seed`, into planes(device) (the main
+    path's own), as device_profile.host_delta_lists lays them out (one
+    buffer, the planes' flat indices). Equal to the same call on the CPU
+    and to its plain version on the card (every word); device ms
+    (queued) beside the bound: each delta's index and value read, its
+    plane entry read and written; the plain version's ms (four masked
+    index_add_) and, as the library call, the four index_add_ at the
+    flat indices (the eager merge before the kernel)."""
     import numpy as np
     import torch
+    from mapcaller_tpu_torch.ops import mesh_kernels as mk
     from mapcaller_tpu_torch.pipeline import device_profile as dp
     rng = np.random.default_rng(seed)
-    gpl, cpl = planes("cuda"), planes("cpu")
-    names = ("acgt", "exact_diff", "f_diff", "multi_diff")
-    args = []
+    gpl, cpl, ppl = planes("cuda"), planes("cpu"), planes("cuda")
+    names = mk.MERGE_PLANES
+    lists = []
     for k in names:
         n = getattr(cpl, k).numel()
         idx = np.unique(rng.integers(0, n, int(n * density)))
-        args += [torch.from_numpy(idx),
-                 torch.from_numpy(rng.integers(1, 4, idx.size)
-                                  .astype(np.int32))]
+        lists.append((idx, rng.integers(1, 4, idx.size).astype(np.int32)))
+    buf = torch.from_numpy(mk.pack_deltas(lists))
+    ends = np.cumsum([i.size for i, _ in lists]).tolist()
+    gbuf = buf.cuda()
     merge = dp.build_host_merge_kernel(cpl.L)
-    gargs = [a.cuda() for a in args]
-    merge(gpl, *gargs)
-    merge(cpl, *args)
-    err = max(int((getattr(gpl, k).cpu().long() - getattr(cpl, k).long())
-                  .abs().max()) for k in names)
+    merge(gpl, gbuf, ends)
+    merge(cpl, buf, ends)
+
+    def plain():
+        with plain_entries((mk, "_host_merge_kernel", mk.host_merge_plain)):
+            merge(ppl, gbuf, ends)
+    plain()
+    err = max(max(int((getattr(gpl, k).cpu().long() - getattr(x, k).cpu()
+                       .long()).abs().max()) for k in names)
+              for x in (cpl, ppl))
     if err:
-        raise AssertionError("evidence: the host merge on the card != cpu")
-    deltas = sum(a.numel() for a in args[::2])
+        raise AssertionError("evidence: the host merge on the card != cpu "
+                             "or != its plain version")
+    deltas = ends[-1]
     nbytes = deltas * (8 + 4 + 8)
-    ms = cuda_ms(lambda: merge(gpl, *gargs), reps, queued=True)
+    ms = cuda_ms(lambda: merge(gpl, gbuf, ends), reps, queued=True)
+    gi, gv = mk.unpack_deltas(gbuf, ends[-1])
+    parts = [(getattr(gpl, k).view(-1), gi[lo:hi], gv[lo:hi])
+             for k, lo, hi in zip(names, [0] + ends[:3], ends)]
+
+    def index_add():
+        for t, i, v in parts:
+            t.index_add_(0, i, v)
     bound = 1e3 * nbytes / H100_BYTES_S
     return dict(deltas=deltas, density=density, max_abs_err=err, ms=ms,
+                call_ms=cuda_ms(lambda: merge(gpl, gbuf, ends), reps),
+                plain_ms=cuda_ms(plain, reps),
+                library_ms=cuda_ms(index_add, reps, queued=True),
+                library="four index_add_ at the flat indices, one a plane",
                 bound_ms=bound, bound_by="bytes", bytes=nbytes,
                 share_of_bound=bound / ms)
 
@@ -3783,6 +4074,9 @@ MESH_MAX_LEN = 128                # the main data's bucket (100-base reads)
 # folded apply became a device function that K2 shares, and its code must
 # not change (PERF.md)
 CLASSIFY_PACK_REGISTERS = 64
+# K2's main instantiation (evidence_apply_bits_kernel), measured before
+# its body took the slice form beside it
+K2_REGISTERS = 40
 
 
 def mesh_launches():
@@ -4579,11 +4873,15 @@ def main():
              (("libchain.so", "chain_classify_pack_big_kernel"), 1),
              (("libchain.so", "dp_scatter_scan_kernel"), 1),
              (("libchain.so", "evidence_apply_bits_kernel"), 1),
+             (("libchain.so", "evidence_apply_slice_kernel"), 1),
+             (("libchain.so", "host_merge_kernel"), 1),
              (("libcalling.so", "evidence_finalize_kernel"), 1),
              (("libcalling.so", "caller_scan_kernel"), 1),
              (("libcalling.so", "caller_fetch_kernel"), 1),
              (("libcalling.so", "nor_blocks_kernel"), 1),
-             (("libcalling.so", "nor_finish_kernel"), 1))
+             (("libcalling.so", "nor_finish_kernel"), 1),
+             (("libcalling.so", "caller_fetch_slice_kernel"), 1),
+             (("libcalling.so", "nor_blocks_slice_kernel"), 1))
     reports = {kernel: ptxas_report(outputs.get(lib, ""), kernel)
                for (lib, kernel), _ in gated}
     # ksw2 takes all its shared memory dynamically (ptxas reports 0):
@@ -4622,6 +4920,12 @@ def main():
     if got != [CLASSIFY_PACK_REGISTERS]:
         raise AssertionError(f"chain_classify_pack_kernel: {got} registers, "
                              f"expected {CLASSIFY_PACK_REGISTERS}")
+    # K2's main instantiation keeps its registers beside its slice form
+    got = [v.get("registers")
+           for v in reports["evidence_apply_bits_kernel"].values()]
+    if got != [K2_REGISTERS]:
+        raise AssertionError(f"evidence_apply_bits_kernel: {got} registers, "
+                             f"expected {K2_REGISTERS}")
 
     for tier in TIERS:
         B = 4096 if tier < 192 else 2048
@@ -4648,7 +4952,7 @@ def main():
         path_launches.update(mesh_path)
         for k in ("main_files", "main_vcf"):
             cap.pop(k)
-    k2_main_t = run_evidence(cap, card)
+    k2_main_t, a5_merge = run_evidence(cap, card)
     calling_t = run_calling(cap, card, cap["calling_launches"])
     run_dp_rates({alg: cap["pairs_" + alg] for alg in ("nw", "ksw2")}, card)
     run_ksw2_launches(ksw2_device, cap["ksw2_all"], card)
@@ -4888,6 +5192,60 @@ def main():
                                     launches=b4[n]["launches"].get(name, 0))
                 for n in (2, 4)}}
                if name in ("evidence_finalize", "caller_scan") else {})})
+    # the slice forms of the x64 path's evidence programs (big phase): B4's
+    # apply, merge and fetch a shard under big_x64 -shards 2 (shards_4
+    # beside), the NOR on the -gvcf -shards 2 call; launches of those runs;
+    # the merge also as A5's single-card form on seeded deltas (evidence
+    # phase), beside its own four index_add_; the B4 row's library call
+    # is the parent merge's index_add_ on the run's own lists
+    for name, key, src, src_line, also, shape in (
+            ("evidence_apply_slice", "apply",
+             "mapcaller_tpu_torch/csrc/chain.cu",
+             "mapcaller_tpu/pipeline/big_profile.py:103", [],
+             "K2's slice form: the big_x64 -shards 2 run's first batch, a "
+             "launch a shard; ms and plain_ms a launch"),
+            ("host_merge", "merge", "mapcaller_tpu_torch/csrc/chain.cu",
+             "mapcaller_tpu/pipeline/big_profile.py:189",
+             ["mapcaller_tpu/pipeline/device_profile.py:136"],
+             "B4: the big_x64 -shards 2 run's slow-read deltas, a launch a "
+             "shard; ms, plain_ms, bound_ms and library_ms (the run's own "
+             "lists' index_add_, four a shard) a launch; a5: the "
+             "single-card form on deltas at 1% of the main path's planes, "
+             "seeded, with its own library_ms"),
+            ("caller_fetch_slice", "fetch",
+             "mapcaller_tpu_torch/csrc/calling.cu",
+             "mapcaller_tpu/pipeline/big_profile.py:532", [],
+             "the big_x64 -shards 2 run's first fetch with its positions' "
+             "block depths, a launch a shard that owns any; ms and "
+             "plain_ms a launch"),
+            ("nor_blocks_slice", "nor", "mapcaller_tpu_torch/csrc/calling.cu",
+             "mapcaller_tpu/pipeline/big_profile.py:603", [],
+             "the -gvcf big_x64 -shards 2 run's own call, a launch a shard "
+             "(nor_blocks_slice_kernel, nor_finish_kernel); ms and plain_ms "
+             "a launch")):
+        rs = {n: (b4["nor_shards_2"] if key == "nor" else b4[n].get(key))
+              for n in (2, 4)}
+        r = rs[2]
+        launches = (r["launches"] if key == "nor" else
+                    b4[2]["evidence_launches" if key in ("apply", "merge")
+                          else "launches"].get(name, 0))
+        if r is None or not launches:
+            raise AssertionError(f"{name}: not launched on its path")
+        per = r["launches_a_call"]
+        regs = next(iter(reports[name + "_kernel"].values()))
+        kernels.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": src_line, "launches": launches,
+            "max_abs_err": max(x["max_abs_err"] for x in rs.values()
+                               if x is not None),
+            "ms": r["device_ms"] / per, "plain_ms": r["plain_ms"] / per,
+            "bound_ms": r["bound_ms"] / per, "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"] / per if key == "merge" else None,
+            "tolerance": 0, "call_ms": r["call_ms"],
+            "registers": regs.get("registers"), "also_replaces": also,
+            "shape": shape, "shards_2": r,
+            **({"shards_4": rs[4]} if key != "nor" else {}),
+            **({"a5": a5_merge} if key == "merge" else {})})
     line = {"kernels": kernels}
     print(json.dumps(line), flush=True)
     print(card, flush=True)

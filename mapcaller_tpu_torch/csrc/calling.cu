@@ -28,6 +28,14 @@
 //     (scan_device.py:255-285): the per-segment minima of position and
 //     coverage of the normal positions; nor_finish_kernel reads them out
 //     with the coverage at each segment's first position.
+//   caller_fetch_slice_kernel, nor_blocks_slice_kernel  the slice forms of
+//     the fetch and the NOR blocks, B4's fetch and NOR (mapcaller_tpu/
+//     pipeline/big_profile.py:532-601, :603-667) a shard of the genome-
+//     sharded planes: the fetch at a shard's local positions, its coverage
+//     prefix the shard's inclusive prefix after the earlier shards' totals;
+//     the NOR blocks over a shard's valid positions, keyed by the global
+//     breaks at off + p, its minima local positions (< 2^31) that the host
+//     turns into global int64 ones and combines over the shards.
 //
 // Every one is bound by bytes: a few int32 reads and writes a genome
 // position and a handful of integer operations on each (chip_smoke.py
@@ -879,16 +887,22 @@ struct FetchIn {
   const int* multi;                     // [L]
   const int* F;                         // [4][L]
   const int* cov;                       // [L]
-  const long long* cpre;                // [L + 1]
+  const long long* cpre;                // [L + 1]; slice form: [L]
   const int* bd;                        // block depths, or nullptr
   const long long* idx;                 // [P positions | Q points | nbd]
   int L, P, Q, nbd;
+  long long base;                       // slice form: the prefix before
 };
 
 // One output word a thread: the 10 columns of each clamped position, the
-// coverage prefix at each clamped point, the depth of each block.
-__global__ void __launch_bounds__(FETCH_THREADS)
-caller_fetch_kernel(FetchIn in, long long* __restrict__ out) {
+// coverage prefix at each clamped point, the depth of each block. The
+// single-card form reads the exclusive prefix cpre[L + 1]; the slice form
+// (B4's fetch, a shard's local positions) its shard's inclusive prefix
+// cpre[L] after `base`, the earlier shards' totals: base at point 0, else
+// base + cpre[q - 1].
+template <bool SLICE>
+__device__ __forceinline__ void fetch_body(const FetchIn& in,
+                                           long long* __restrict__ out) {
   const long long i = (long long)blockIdx.x * FETCH_THREADS + threadIdx.x;
   const long long np = 10LL * in.P;
   if (i < np) {
@@ -905,11 +919,25 @@ caller_fetch_kernel(FetchIn in, long long* __restrict__ out) {
       x = in.cov[p];
     out[i] = x;
   } else if (i < np + in.Q) {
-    const long long q = in.idx[in.P + (i - np)];
-    out[i] = in.cpre[min(max(q, 0LL), (long long)in.L)];
+    const long long q =
+        min(max(in.idx[in.P + (i - np)], 0LL), (long long)in.L);
+    if (SLICE)
+      out[i] = in.base + (q == 0 ? 0LL : in.cpre[q - 1]);
+    else
+      out[i] = in.cpre[q];
   } else if (i < np + in.Q + in.nbd) {
     out[i] = in.bd[in.idx[in.P + in.Q + (i - np - in.Q)]];
   }
+}
+
+__global__ void __launch_bounds__(FETCH_THREADS)
+caller_fetch_kernel(FetchIn in, long long* __restrict__ out) {
+  fetch_body<false>(in, out);
+}
+
+__global__ void __launch_bounds__(FETCH_THREADS)
+caller_fetch_slice_kernel(FetchIn in, long long* __restrict__ out) {
+  fetch_body<true>(in, out);
 }
 
 // ---- nor_blocks_kernel, nor_finish_kernel --------------------------------
@@ -919,6 +947,7 @@ struct NorIn {
   const long long* em;                  // [E] excluded positions, sorted
   const long long* brk;                 // [K] breaks, sorted
   int L, E, K, nseg;
+  long long off;                        // slice form: position 0's global
 };
 
 // Entries of the sorted a[0..n) whose value clamped to [lo, hi] is below x.
@@ -942,9 +971,14 @@ __device__ __forceinline__ int count_below(const long long* a, int n,
 // leaves each run's minima in its first lane, which adds them to the
 // tile's slot of that key in shared memory; the tile then adds its slots
 // to acc. acc [2][nseg] holds INT32_MAX - the minimum (0: none), so the
-// zeroed buffer is the empty segment and the adds are atomicMax.
-__global__ void __launch_bounds__(NOR_THREADS)
-nor_blocks_kernel(NorIn in, int* __restrict__ acc) {
+// zeroed buffer is the empty segment and the adds are atomicMax. The slice
+// form (B4's NOR, a shard's positions 0 .. L - 1 of a genome's positions
+// off ..): keys count the global breaks at or before off + p, and the
+// excluded positions are global (the shard's own, sorted); its minima are
+// local positions.
+template <bool SLICE>
+__device__ __forceinline__ void nor_blocks_body(const NorIn& in,
+                                                int* __restrict__ acc) {
   __shared__ int s_brk[NOR_STAGE], s_em[NOR_STAGE];
   __shared__ int s_first[NOR_STAGE + 1], s_min[NOR_STAGE + 1];
   __shared__ int s_rng[4];
@@ -952,11 +986,13 @@ nor_blocks_kernel(NorIn in, int* __restrict__ acc) {
   const int base = blockIdx.x * NOR_TILE;
   const int end = min(base + NOR_TILE, in.L);
   const long long NONE = (long long)1 << 62;
+  // the global value of a break or an excluded position at local 0
+  const long long gb = SLICE ? in.off : 0LL;
   if (t == 0) {
-    s_rng[0] = count_below(in.brk, in.K, base, -NONE, NONE);
-    s_rng[1] = count_below(in.brk, in.K, end, -NONE, NONE);
-    s_rng[2] = count_below(in.em, in.E, base, 0, in.L - 1);
-    s_rng[3] = count_below(in.em, in.E, end, 0, in.L - 1);
+    s_rng[0] = count_below(in.brk, in.K, gb + base, -NONE, NONE);
+    s_rng[1] = count_below(in.brk, in.K, gb + end, -NONE, NONE);
+    s_rng[2] = count_below(in.em, in.E, gb + base, gb, gb + in.L - 1);
+    s_rng[3] = count_below(in.em, in.E, gb + end, gb, gb + in.L - 1);
   }
   __syncthreads();
   const int kb = s_rng[0], nk = s_rng[1] - kb;
@@ -966,14 +1002,14 @@ nor_blocks_kernel(NorIn in, int* __restrict__ acc) {
   const int sb = min(kb, in.nseg - 1);
   if (staged_b) {
     for (int j = t; j < nk; j += NOR_THREADS)
-      s_brk[j] = (int)(in.brk[kb + j] - base);
+      s_brk[j] = (int)(in.brk[kb + j] - gb - base);
     for (int j = t; j <= nk; j += NOR_THREADS)
       s_first[j] = s_min[j] = I32_MAX;
   }
   if (staged_e)
     for (int j = t; j < ne; j += NOR_THREADS)
-      s_em[j] = (int)(min(max(in.em[eb + j], 0LL), (long long)in.L - 1) -
-                      base);
+      s_em[j] = (int)(min(max(in.em[eb + j] - gb, 0LL),
+                          (long long)in.L - 1) - base);
   __syncthreads();
   // positions relative to the tile; the thread's walks through the breaks
   // and exclusions move forward only
@@ -984,17 +1020,18 @@ nor_blocks_kernel(NorIn in, int* __restrict__ acc) {
     int seg = I32_MAX, a = I32_MAX, c = I32_MAX;
     if (p < end) {
       while (ki < nk &&
-             (staged_b ? s_brk[ki] : (int)(in.brk[kb + ki] - base)) <= q)
+             (staged_b ? s_brk[ki] : (int)(in.brk[kb + ki] - gb - base)) <=
+                 q)
         ++ki;
       while (ei < ne &&
              (staged_e ? s_em[ei]
-                       : (int)(min(max(in.em[eb + ei], 0LL),
+                       : (int)(min(max(in.em[eb + ei] - gb, 0LL),
                                    (long long)in.L - 1) - base)) < q)
         ++ei;
       const bool excluded =
           ei < ne &&
           (staged_e ? s_em[ei]
-                    : (int)(min(max(in.em[eb + ei], 0LL),
+                    : (int)(min(max(in.em[eb + ei] - gb, 0LL),
                                 (long long)in.L - 1) - base)) == q;
       const int cv = in.cov[p];
       seg = min(kb + ki, in.nseg - 1);
@@ -1032,6 +1069,16 @@ nor_blocks_kernel(NorIn in, int* __restrict__ acc) {
       atomicMax(&acc[sb + j], I32_MAX - s_first[j]);
       atomicMax(&acc[in.nseg + sb + j], I32_MAX - s_min[j]);
     }
+}
+
+__global__ void __launch_bounds__(NOR_THREADS)
+nor_blocks_kernel(NorIn in, int* __restrict__ acc) {
+  nor_blocks_body<false>(in, acc);
+}
+
+__global__ void __launch_bounds__(NOR_THREADS)
+nor_blocks_slice_kernel(NorIn in, int* __restrict__ acc) {
+  nor_blocks_body<true>(in, acc);
 }
 
 // acc [2][nseg] -> out [3][nseg]: first position, minimum coverage (both
@@ -1190,10 +1237,38 @@ extern "C" int mc_caller_fetch(const void* acgt, const void* multi,
     return (int)cudaErrorInvalidValue;
   const FetchIn in{(const int*)acgt, (const int*)multi, (const int*)F,
                    (const int*)cov, (const long long*)cpre, (const int*)bd,
-                   (const long long*)idx, L, P, Q, nbd};
+                   (const long long*)idx, L, P, Q, nbd, 0};
   const long long blocks = (total + FETCH_THREADS - 1) / FETCH_THREADS;
   caller_fetch_kernel<<<(unsigned int)blocks, FETCH_THREADS, 0,
                         (cudaStream_t)stream>>>(in, (long long*)out);
+  return (int)cudaGetLastError();
+}
+
+// The fetch's slice form (B4, a shard): as mc_caller_fetch over a shard's
+// finalized slice of L positions, with idx local (positions < L, points <=
+// L, blocks < the length of bd), cpre int64[L] the shard's inclusive
+// coverage prefix and base the coverage of the shards before it: a point
+// q reads base + cpre[q - 1], or base at q = 0.
+extern "C" int mc_caller_fetch_slice(const void* acgt, const void* multi,
+                                     const void* F, const void* cov,
+                                     const void* cpre, long long base,
+                                     const void* bd, const void* idx, int L,
+                                     int P, int Q, int nbd, void* out,
+                                     void* stream) {
+  const long long total = 10LL * P + Q + nbd;
+  if (L < 1 || P < 0 || Q < 0 || nbd < 0 || total < 1 ||
+      total > (1LL << 40) || (nbd > 0 && bd == nullptr) || idx == nullptr ||
+      out == nullptr ||
+      (P > 0 && (acgt == nullptr || multi == nullptr || F == nullptr ||
+                 cov == nullptr)) ||
+      (Q > 0 && cpre == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const FetchIn in{(const int*)acgt, (const int*)multi, (const int*)F,
+                   (const int*)cov, (const long long*)cpre, (const int*)bd,
+                   (const long long*)idx, L, P, Q, nbd, base};
+  const long long blocks = (total + FETCH_THREADS - 1) / FETCH_THREADS;
+  caller_fetch_slice_kernel<<<(unsigned int)blocks, FETCH_THREADS, 0,
+                              (cudaStream_t)stream>>>(in, (long long*)out);
   return (int)cudaGetLastError();
 }
 
@@ -1212,9 +1287,38 @@ extern "C" int mc_nor_blocks(const void* cov, int L, const void* em, int E,
       cudaMemsetAsync(out, 0, sizeof(int) * 2 * (size_t)nseg, st);
   if (err != cudaSuccess) return (int)err;
   const NorIn in{(const int*)cov, (const long long*)em,
-                 (const long long*)brk, L, E, K, nseg};
+                 (const long long*)brk, L, E, K, nseg, 0};
   nor_blocks_kernel<<<(L + NOR_TILE - 1) / NOR_TILE, NOR_THREADS, 0, st>>>(
       in, (int*)out);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  nor_finish_kernel<<<(nseg + NOR_THREADS - 1) / NOR_THREADS, NOR_THREADS, 0,
+                      st>>>((const int*)cov, L, nseg, (int*)out);
+  return (int)cudaGetLastError();
+}
+
+// The NOR blocks' slice form (B4, a shard): out int32[3 * nseg] = (first
+// local position, minimum coverage, coverage at the clamped first local
+// position) a segment over the shard's valid positions 0 .. L - 1, whose
+// global positions are off .. off + L - 1: cov int32[>= L], em int64[E]
+// the shard's own excluded positions (global, sorted, each in [off, off +
+// L)), brk int64[K] every break (global, sorted). A memset and two
+// kernels, as mc_nor_blocks.
+extern "C" int mc_nor_blocks_slice(const void* cov, int L, const void* em,
+                                   int E, const void* brk, int K, int nseg,
+                                   long long off, void* out, void* stream) {
+  if (L < 1 || E < 0 || K < 0 || nseg < 1 || off < 0 || cov == nullptr ||
+      out == nullptr || (E > 0 && em == nullptr) ||
+      (K > 0 && brk == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err =
+      cudaMemsetAsync(out, 0, sizeof(int) * 2 * (size_t)nseg, st);
+  if (err != cudaSuccess) return (int)err;
+  const NorIn in{(const int*)cov, (const long long*)em,
+                 (const long long*)brk, L, E, K, nseg, off};
+  nor_blocks_slice_kernel<<<(L + NOR_TILE - 1) / NOR_TILE, NOR_THREADS, 0,
+                            st>>>(in, (int*)out);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   nor_finish_kernel<<<(nseg + NOR_THREADS - 1) / NOR_THREADS, NOR_THREADS, 0,

@@ -113,6 +113,26 @@
 //     inputs a device, and its atomics scattered over planes far larger
 //     than L2: bound by latency and by those atomics, one launch.
 //
+// Two more serve the x64 big-genome path's genome-sharded planes
+// (pipeline/big_profile.py, B4) and the single-card planes' host merge:
+//
+//   evidence_apply_slice_kernel  K2's slice form, B4's apply
+//     (mapcaller_tpu/pipeline/big_profile.py:103-187): the same body over
+//     int64 pd into one shard's slice of the planes (positions [off, off +
+//     Pl), rows of Pl, 64-bit row offsets); every endpoint and mismatch
+//     position is clipped over the whole genome, as the reference does, and
+//     only those the shard holds are added (a read whose span straddles a
+//     seam adds its start in one shard and its end in the next). A launch a
+//     shard a batch, each over all B reads.
+//   host_merge_kernel  the host leg's sparse slow-read deltas, added once
+//     at finalize (A5's build_host_merge_kernel, mapcaller_tpu/pipeline/
+//     device_profile.py:136-165; B4's _merge_kernel, big_profile.py:
+//     189-289): the (int64 index, int32 value) lists of the four planes,
+//     concatenated, in one launch, a thread an entry; the single-card form
+//     adds at the flat index, the slice form maps a list's row and global
+//     position to the shard's row of Pl and keeps what the shard holds.
+//     Bound by bytes: 12 B an entry read, its plane word read and written.
+//
 // Bound on an H100 SXM (HBM3, 3.35 TB/s): bytes, for all three. The work a
 // byte asks for is a few integer operations (a binary search of 15 steps,
 // a popcount step of ~20 operations per 32-byte occ4 row, ~60 per 16 read
@@ -179,6 +199,8 @@ static_assert(DP_TILE % (4 * DP_THREADS) == 0,
 constexpr int DP_SUM = 0, DP_SCAN = 1;  // K1's modes
 constexpr int APPLY_THREADS = 128;      // a K2 block: a warp an admit word
 constexpr int APPLY_LANES = MM_SLOTS;   // K2's lanes a read, a lane a slot
+constexpr int MERGE_THREADS = 256;      // a host-merge block, an entry a
+                                        // thread
 
 // ---- chain_scan_kernel ---------------------------------------------------
 
@@ -635,9 +657,49 @@ struct CtxT {
   P seq_len;
 };
 
+// The planes an evidence apply adds to: the adds of one read
+// (apply_fast_evidence) at global positions p of a genome of L, a row of
+// the orientation or allele plane picked by `row`.
 struct Planes {
   int *exact, *fd, *acgt;               // int32[L+2], [4(L+2)], [4(L+1)]
   int L, pair_end;                      // exact == nullptr: no apply
+
+  __device__ __forceinline__ void add_exact(long long p, int v) const {
+    atomicAdd(exact + p, v);
+  }
+  __device__ __forceinline__ void add_fd(int row, long long p, int v) const {
+    atomicAdd(fd + row * (L + 2LL) + p, v);
+  }
+  __device__ __forceinline__ void add_acgt(int row, long long p,
+                                           int v) const {
+    atomicAdd(acgt + row * (L + 1LL) + p, v);
+  }
+};
+
+// A shard's slice of the planes of the x64 big-genome path (B4): positions
+// [off, off + Pl) of every plane, each row Pl long; an add at a position
+// the shard does not hold is dropped. Row offsets in 64 bits: row * Pl
+// passes 2^31 at human scale.
+struct SlicePlanes {
+  int *exact, *fd, *acgt;               // int32[Pl], [4][Pl], [4][Pl]
+  long long L, off, Pl;
+  int pair_end;
+
+  __device__ __forceinline__ void add_at(int* plane, int row, long long p,
+                                         int v) const {
+    const long long li = p - off;
+    if (li >= 0 && li < Pl) atomicAdd(plane + row * Pl + li, v);
+  }
+  __device__ __forceinline__ void add_exact(long long p, int v) const {
+    add_at(exact, 0, p, v);
+  }
+  __device__ __forceinline__ void add_fd(int row, long long p, int v) const {
+    add_at(fd, row, p, v);
+  }
+  __device__ __forceinline__ void add_acgt(int row, long long p,
+                                           int v) const {
+    add_at(acgt, row, p, v);
+  }
 };
 
 template <class P>
@@ -674,8 +736,12 @@ struct CpOut {
 // Positions in 64 bits: a read with no hit has pd INT32_MAX, and its sums
 // clip to 0 as the plain version's int64 ones do. The one body of
 // classify+pack's folded apply (a lane a slot) and of
-// evidence_apply_bits_kernel (a thread a read).
-__device__ __forceinline__ void apply_fast_evidence(const Planes& pl,
+// evidence_apply_bits_kernel (a thread a read) over the whole planes
+// (Planes), and of evidence_apply_slice_kernel over a shard's slice
+// (SlicePlanes: the same positions, each add kept by the shard that holds
+// it).
+template <class PL>
+__device__ __forceinline__ void apply_fast_evidence(const PL& pl,
                                                     long long two_l,
                                                     long long pd, int rlen,
                                                     int b, int q, int e,
@@ -686,19 +752,19 @@ __device__ __forceinline__ void apply_fast_evidence(const Planes& pl,
     const long long gs = min(max(ori ? pd : two_l - pd - rlen, 0LL), L - 1);
     const long long end = min(gs + rlen, L);
     const bool first = !pl.pair_end || (b & 1) == 0;
-    const long long fo = (first ? (ori ? 0 : 3) : (ori ? 1 : 2)) * (L + 2);
-    atomicAdd(pl.exact + gs, sign);
-    atomicAdd(pl.exact + end, -sign);
-    atomicAdd(pl.fd + fo + gs, sign);
-    atomicAdd(pl.fd + fo + end, -sign);
+    const int row = first ? (ori ? 0 : 3) : (ori ? 1 : 2);
+    pl.add_exact(gs, sign);
+    pl.add_exact(end, -sign);
+    pl.add_fd(row, gs, sign);
+    pl.add_fd(row, end, -sign);
   }
   if (e >= 0) {
     const long long at = pd + (e >> 2);
     const long long p = min(max(ori ? at : two_l - 1 - at, 0LL), L - 1);
     const int base = ori ? (e & 3) : 3 - (e & 3);
-    atomicAdd(pl.exact + p, -sign);
-    atomicAdd(pl.exact + p + 1, sign);
-    atomicAdd(pl.acgt + base * (L + 1) + p, sign);
+    pl.add_exact(p, -sign);
+    pl.add_exact(p + 1, sign);
+    pl.add_acgt(base, p, sign);
   }
 }
 
@@ -1324,25 +1390,27 @@ dp_scatter_scan_kernel(DpArgs a, int mode, int sys, ScanState ss) {
 // (sign +1) or retracts (-1) slot q's evidence of each admitted read of
 // its group, lane 0 also the read's span (apply_fast_evidence) on a text
 // of 2L. Blocks of APPLY_THREADS: a 32,768-read batch is 256 blocks, on
-// every SM.
-__global__ void __launch_bounds__(APPLY_THREADS)
-evidence_apply_bits_kernel(const int* __restrict__ pd,
-                           const int4* __restrict__ mmp,
-                           const int* __restrict__ rlens,
-                           const uint32_t* __restrict__ bits,
-                           const int* __restrict__ meta, int B, Planes pl,
-                           int sign) {
+// every SM. The body over positions of type Pos into planes PL: int32 pd
+// into the whole planes (K2), or int64 pd into a shard's slice (its slice
+// form, B4's apply).
+template <class PL, class Pos>
+__device__ __forceinline__ void apply_bits_body(
+    const Pos* __restrict__ pd, const int4* __restrict__ mmp,
+    const int* __restrict__ rlens, const uint32_t* __restrict__ bits,
+    const int* __restrict__ meta, int B, const PL& pl, int sign) {
   constexpr int GROUPS = 32 / APPLY_LANES, ITEMS = 32 / GROUPS;
   const int lane = threadIdx.x & 31;
   const int w = (blockIdx.x * APPLY_THREADS + threadIdx.x) >> 5;
   const int b0 = w * 32;
   if (b0 >= B) return;                  // the whole warp
   const int g = lane / APPLY_LANES, q = lane % APPLY_LANES;
-  int p[ITEMS], rl[ITEMS], e[ITEMS];
+  Pos p[ITEMS];
+  int rl[ITEMS], e[ITEMS];
 #pragma unroll
   for (int it = 0; it < ITEMS; ++it) {
     const int b = b0 + g + GROUPS * it;
-    p[it] = rl[it] = 0;
+    p[it] = 0;
+    rl[it] = 0;
     e[it] = -1;
     if (b < B) {
       p[it] = __ldg(pd + b);
@@ -1366,6 +1434,69 @@ evidence_apply_bits_kernel(const int* __restrict__ pd,
     if ((word >> r) & 1u)
       apply_fast_evidence(pl, two_l, p[it], rl[it], b0 + r, q, e[it], sign);
   }
+}
+
+__global__ void __launch_bounds__(APPLY_THREADS)
+evidence_apply_bits_kernel(const int* __restrict__ pd,
+                           const int4* __restrict__ mmp,
+                           const int* __restrict__ rlens,
+                           const uint32_t* __restrict__ bits,
+                           const int* __restrict__ meta, int B, Planes pl,
+                           int sign) {
+  apply_bits_body(pd, mmp, rlens, bits, meta, B, pl, sign);
+}
+
+// K2's slice form: a batch's admitted reads (admit bits only) added into
+// one shard's slice of the planes, int64 pd; each shard of a batch is one
+// launch over all B reads, and adds the positions it holds.
+__global__ void __launch_bounds__(APPLY_THREADS)
+evidence_apply_slice_kernel(const long long* __restrict__ pd,
+                            const int4* __restrict__ mmp,
+                            const int* __restrict__ rlens,
+                            const uint32_t* __restrict__ bits, int B,
+                            SlicePlanes pl) {
+  apply_bits_body(pd, mmp, rlens, bits, (const int*)nullptr, B, pl, 1);
+}
+
+// ---- host_merge_kernel -----------------------------------------------------
+
+// One plane of a host-delta merge: its list's indices are row * gstride +
+// position, with the position global; this launch holds positions [off,
+// off + lstride) of each row, at row * lstride + (position - off). The
+// single-card planes: off 0 and gstride = lstride, the plane's own flat
+// index; a shard of B4: gstride the single-card row stride, lstride Pl.
+struct MergePlane {
+  int* plane;
+  long long gstride, lstride, off;
+};
+
+struct MergeIn {
+  const long long* idx;                 // [N]: the four lists in order
+  const int* val;                       // [N]
+  long long end[4];                     // list k ends at end[k]
+  MergePlane pl[4];                     // acgt, exact, f, multi
+};
+
+// host_merge_kernel: the host leg's sparse slow-read deltas (A5's
+// build_host_merge_kernel, B4's _merge_kernel) added into the four planes
+// in one launch, a thread an entry; an entry at a position this launch
+// does not hold adds nothing. Integer adds commute: the planes equal the
+// plain index_add_'s in every word.
+__global__ void __launch_bounds__(MERGE_THREADS)
+host_merge_kernel(MergeIn in) {
+  const long long i = (long long)blockIdx.x * MERGE_THREADS + threadIdx.x;
+  if (i >= in.end[3]) return;
+  // the list's plane, picked without indexing the parameters at run time
+  // (which would copy them to local memory)
+  MergePlane m = in.pl[0];
+  if (i >= in.end[0]) m = in.pl[1];
+  if (i >= in.end[1]) m = in.pl[2];
+  if (i >= in.end[2]) m = in.pl[3];
+  const long long x = __ldg(in.idx + i);
+  const long long row = x / m.gstride;
+  const long long li = x - row * m.gstride - m.off;
+  if (li >= 0 && li < m.lstride)
+    atomicAdd(m.plane + row * m.lstride + li, __ldg(in.val + i));
 }
 
 }  // namespace
@@ -1679,5 +1810,64 @@ extern "C" int mc_evidence_apply_bits(const void* pd, const void* mmp,
                                APPLY_THREADS, 0, (cudaStream_t)stream>>>(
       (const int*)pd, (const int4*)mmp, (const int*)rlens,
       (const uint32_t*)bits, (const int*)meta, B, pl, sign);
+  return (int)cudaGetLastError();
+}
+
+// K2's slice form (evidence_apply_slice_kernel), B4's apply: pd int64[B],
+// rlens int32[B], mmp int32[B, 4] (16-byte aligned rows), bits uint32[>=
+// ceil(B/32)] the admit bitmask; one shard's planes exact int32[Pl], fd and
+// acgt int32[4][Pl], holding positions [off, off + Pl) of a genome of L (a
+// text of 2L); pair_end picks the orientation plane by read-index parity.
+extern "C" int mc_evidence_apply_slice(const void* pd, const void* mmp,
+                                       const void* rlens, const void* bits,
+                                       int B, void* exact, void* fd,
+                                       void* acgt, long long L, long long off,
+                                       long long Pl, int pair_end,
+                                       void* stream) {
+  if (B < 1 || L < 1 || off < 0 || Pl < 1 ||
+      pd == nullptr || mmp == nullptr || ((uintptr_t)mmp & 15) != 0 ||
+      rlens == nullptr || bits == nullptr || exact == nullptr ||
+      fd == nullptr || acgt == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const SlicePlanes pl{(int*)exact, (int*)fd, (int*)acgt, L, off, Pl,
+                       pair_end};
+  const int warps = (B + 31) / 32, per_block = APPLY_THREADS / 32;
+  evidence_apply_slice_kernel<<<(warps + per_block - 1) / per_block,
+                                APPLY_THREADS, 0, (cudaStream_t)stream>>>(
+      (const long long*)pd, (const int4*)mmp, (const int*)rlens,
+      (const uint32_t*)bits, B, pl);
+  return (int)cudaGetLastError();
+}
+
+// The host-delta merge (host_merge_kernel): idx int64[N] and val int32[N]
+// hold the four lists (acgt, exact, f, multi) in order, list k ending at
+// ends[k] (int64[4], ends[3] = N); planes[k] its plane, gstride[k] the row
+// stride of its indices, lstride[k] the plane's row stride, each row
+// holding positions [off, off + lstride[k]). N may be 0: no launch.
+extern "C" int mc_host_merge(const void* idx, const void* val,
+                             const void* ends, const void* planes,
+                             const void* gstride, const void* lstride,
+                             long long off, void* stream) {
+  if (ends == nullptr || planes == nullptr || gstride == nullptr ||
+      lstride == nullptr || off < 0)
+    return (int)cudaErrorInvalidValue;
+  const long long* e = (const long long*)ends;
+  const long long* gs = (const long long*)gstride;
+  const long long* ls = (const long long*)lstride;
+  void* const* pl = (void* const*)planes;
+  MergeIn in{(const long long*)idx, (const int*)val, {}, {}};
+  for (int k = 0; k < 4; ++k) {
+    if (e[k] < (k ? e[k - 1] : 0) || gs[k] < 1 || ls[k] < 1 ||
+        pl[k] == nullptr)
+      return (int)cudaErrorInvalidValue;
+    in.end[k] = e[k];
+    in.pl[k] = MergePlane{(int*)pl[k], gs[k], ls[k], off};
+  }
+  const long long n = e[3];
+  if (n == 0) return (int)cudaSuccess;
+  if (idx == nullptr || val == nullptr || n > (1LL << 40))
+    return (int)cudaErrorInvalidValue;
+  host_merge_kernel<<<(unsigned int)((n + MERGE_THREADS - 1) / MERGE_THREADS),
+                      MERGE_THREADS, 0, (cudaStream_t)stream>>>(in);
   return (int)cudaGetLastError();
 }

@@ -24,12 +24,21 @@
                      into one int64 buffer for one copy to the host (A6,
                      build_fetch_kernel); one launch;
   nor_blocks         the gVCF NOR blocks (A6, build_nor_kernel): a memset
-                     and two launches.
+                     and two launches;
+  caller_fetch_slice, nor_blocks_slice  the fetch's and the NOR blocks'
+                     slice forms, B4's fetch and NOR a shard
+                     (pipeline/big_profile.BigDeviceEvidence.fetch_columns,
+                     ShardedBlockDepth.gather, nor_blocks): the fetch at a
+                     shard's local positions, its prefix the shard's
+                     inclusive coverage prefix after the earlier shards'
+                     totals; the NOR minima of a shard's valid positions
+                     keyed by the global breaks, as local positions.
 
 Each wrapper checks its inputs, then runs the plain version for CPU
 tensors and the kernel entry (`_finalize_kernel`, `_scan_kernel`,
-`_fetch_kernel`, `_nor_kernel`, which take the plain version's
-arguments) for CUDA tensors, counting the launch in STATS, or raises.
+`_fetch_kernel`, `_nor_kernel`, `_fetch_slice_kernel`,
+`_nor_slice_kernel`, which take the plain version's arguments) for CUDA
+tensors, counting the launch in STATS, or raises.
 There is no fallback between the two. The plain versions are the port's
 eager PyTorch of these programs; chip_smoke.py holds each kernel equal to
 its plain version on the card, in every word.
@@ -91,6 +100,9 @@ def _load_kernel():
                  + [P] * 6 + [I, I, P]),
                 ("mc_caller_fetch", [P] * 7 + [I] * 4 + [P, P]),
                 ("mc_nor_blocks", [P, I, P, I, P, I, I, P, P]),
+                ("mc_caller_fetch_slice", [P] * 5 + [LL] + [P, P]
+                 + [I] * 4 + [P, P]),
+                ("mc_nor_blocks_slice", [P, I, P, I, P, I, I, LL, P, P]),
                 ("mc_calling_geometry", [I, P])):
             fn = getattr(lib, name)
             fn.restype = C.c_int
@@ -519,3 +531,136 @@ def nor_blocks(cov, emitted, brk_sorted, nseg: int) -> torch.Tensor:
         return nor_blocks_plain(cov, emitted, brk_sorted, nseg)
     need(cov.shape[0] < 1 << 31, f"{name}: the kernel takes L < 2^31")
     return _nor_kernel(cov, emitted, brk_sorted, nseg)
+
+
+
+# ---- the slice forms of the fetch and the NOR blocks (B4) -------------------
+
+def caller_fetch_slice_plain(acgt, multi, F, cov, ccov, base: int, idx,
+                             P: int, Q: int,
+                             block_depth=None) -> torch.Tensor:
+    """Plain version of caller_fetch_slice on any device."""
+    Pl = cov.shape[0]
+    parts = []
+    if P:
+        p = torch.clamp(idx[:P], 0, Pl - 1)
+        parts.append(torch.stack(
+            [acgt[0][p], acgt[1][p], acgt[2][p], acgt[3][p], multi[p],
+             F[0][p], F[1][p], F[2][p], F[3][p], cov[p]],
+            dim=1).reshape(-1).to(torch.int64))
+    if Q:
+        q = torch.clamp(idx[P:P + Q], 0, Pl)
+        loc = ccov[torch.clamp(q - 1, min=0)]
+        parts.append(int(base) + torch.where(q == 0, 0, loc))
+    if idx.shape[0] > P + Q:
+        parts.append(block_depth[idx[P + Q:]].to(torch.int64))
+    return torch.cat(parts) if parts else torch.zeros(
+        0, dtype=torch.int64, device=idx.device)
+
+
+def _fetch_slice_kernel(acgt, multi, F, cov, ccov, base: int, idx, P: int,
+                        Q: int, block_depth=None) -> torch.Tensor:
+    """caller_fetch_slice_kernel: one launch, a thread an output word."""
+    nbd = idx.shape[0] - P - Q
+    out = torch.empty(10 * P + Q + nbd, dtype=torch.int64, device=idx.device)
+    if out.numel():
+        _launch("caller_fetch_slice", idx.device, acgt.data_ptr(),
+                multi.data_ptr(), F.data_ptr(), cov.data_ptr(),
+                ccov.data_ptr(), int(base),
+                _ptr(block_depth) if nbd else None, idx.data_ptr(),
+                cov.shape[0], P, Q, nbd, out.data_ptr())
+    return out
+
+
+def caller_fetch_slice(acgt, multi, F, cov, ccov, base: int, idx, P: int,
+                       Q: int, block_depth=None) -> torch.Tensor:
+    """A shard's finalized slice (acgt, F int32[4, Pl], multi, cov
+    int32[Pl], ccov int64[Pl] its inclusive coverage prefix, base the
+    coverage of the shards before it) read at local idx int64[P + Q +
+    nbd]: P positions (clamped to [0, Pl)), Q prefix points (clamped to
+    [0, Pl]; point q reads base + ccov[q - 1], or base at 0) and nbd
+    blocks of block_depth int32 -> int64[10 P + Q + nbd], laid out as
+    caller_fetch's. Counted as caller_fetch_slice."""
+    name = "caller_fetch_slice"
+    need(cov.dim() == 1 and cov.shape[0] >= 1, f"{name}: cov must be [Pl]")
+    Pl = cov.shape[0]
+    for what, t, shape in (("acgt", acgt, (4, Pl)), ("F", F, (4, Pl)),
+                           ("multi", multi, (Pl,)), ("cov", cov, (Pl,))):
+        _dtype(name, t, torch.int32, what)
+        need(t.shape == shape, f"{name}: {what} must be int32{list(shape)}")
+    _dtype(name, ccov, torch.int64, "ccov")
+    need(ccov.shape == (Pl,), f"{name}: ccov must be int64[Pl]")
+    _dtype(name, idx, torch.int64, "idx")
+    need(idx.dim() == 1 and 0 <= P and 0 <= Q and P + Q <= idx.shape[0],
+         f"{name}: idx must be int64[P + Q + nbd]")
+    nbd = idx.shape[0] - P - Q
+    if nbd:
+        need(block_depth is not None, f"{name}: blocks without block_depth")
+        _dtype(name, block_depth, torch.int32, "block_depth")
+    args = (acgt, multi, F, cov, ccov, base, idx, P, Q, block_depth)
+    if not _on_card(name, [acgt, multi, F, cov, ccov, idx,
+                           block_depth if nbd else None]):
+        return caller_fetch_slice_plain(*args)
+    need(Pl < 1 << 31, f"{name}: the kernel takes Pl < 2^31")
+    return _fetch_slice_kernel(*args)
+
+
+def nor_blocks_slice_plain(cov, valid: int, emitted, brk_sorted, nseg: int,
+                           off: int) -> torch.Tensor:
+    """Plain version of nor_blocks_slice on any device."""
+    dev = cov.device
+    pos = torch.arange(cov.shape[0], dtype=torch.int64, device=dev)
+    em_mask = torch.zeros(cov.shape[0], dtype=torch.bool, device=dev)
+    em_mask[torch.clamp(emitted - off, 0, valid - 1)] = True
+    normal = (pos < valid) & (cov > 0) & ~em_mask
+    key = torch.searchsorted(brk_sorted, pos + off, right=True)
+    seg = torch.where(normal, torch.clamp(key, max=nseg - 1), nseg - 1)
+
+    def seg_min(vals):
+        out = torch.full((nseg,), INT32_MAX, dtype=torch.int32, device=dev)
+        return out.scatter_reduce_(0, seg, torch.where(
+            normal, vals.to(torch.int32), INT32_MAX), "amin")
+
+    first = seg_min(pos)
+    mincov = seg_min(cov)
+    covf = cov[torch.clamp(first, 0, valid - 1).to(torch.int64)]
+    return torch.cat([first, mincov, covf])
+
+
+def _nor_slice_kernel(cov, valid: int, emitted, brk_sorted, nseg: int,
+                      off: int) -> torch.Tensor:
+    """nor_blocks_slice_kernel and nor_finish_kernel: a memset of the
+    minima and two launches."""
+    out = torch.empty(3 * nseg, dtype=torch.int32, device=cov.device)
+    _launch("nor_blocks_slice", cov.device, cov.data_ptr(), int(valid),
+            emitted.data_ptr(), emitted.shape[0], brk_sorted.data_ptr(),
+            brk_sorted.shape[0], nseg, int(off), out.data_ptr())
+    return out
+
+
+def nor_blocks_slice(cov, valid: int, emitted, brk_sorted, nseg: int,
+                     off: int) -> torch.Tensor:
+    """The gVCF NOR blocks over one shard of the genome-sharded planes:
+    cov int32[Pl] the shard's coverage, whose local position p is the
+    genome's off + p and is normal when p < valid (1 <= valid <= Pl: the
+    shard's positions below L), covered and not among emitted (int64, the
+    shard's own excluded positions, global, sorted, each in [off, off +
+    valid)); its key is the number of breaks (brk_sorted int64, global,
+    sorted) at or before off + p, its segment min(key, nseg - 1). ->
+    int32[3 * nseg]: each segment's first normal local position and least
+    coverage (INT32_MAX for a segment with none here) and the coverage at
+    its first local position clamped to [0, valid). Counted as
+    nor_blocks_slice."""
+    name = "nor_blocks_slice"
+    need(cov.dim() == 1 and 1 <= valid <= cov.shape[0] and nseg >= 1
+         and off >= 0, f"{name}: cov must be [Pl], 1 <= valid <= Pl, "
+                       f"nseg >= 1 and off >= 0")
+    _dtype(name, cov, torch.int32, "cov")
+    for what, t in (("emitted", emitted), ("brk_sorted", brk_sorted)):
+        _dtype(name, t, torch.int64, what)
+        need(t.dim() == 1, f"{name}: {what} must be 1-D")
+    if not _on_card(name, [cov, emitted, brk_sorted]):
+        return nor_blocks_slice_plain(cov, valid, emitted, brk_sorted, nseg,
+                                      off)
+    need(cov.shape[0] < INT32_MAX, f"{name}: the kernel takes Pl < 2^31 - 1")
+    return _nor_slice_kernel(cov, valid, emitted, brk_sorted, nseg, off)

@@ -109,7 +109,11 @@ def _load_kernel():
                 ("mc_dp_scatter_scan", [P, I, I, I, I, P, I, I, P, I, I, P,
                                         P, I, I, P]),
                 ("mc_evidence_apply_bits", [P] * 5 + [I] + [P] * 3
-                 + [I] * 3 + [P])):
+                 + [I] * 3 + [P]),
+                # K2's slice form and the host merge (ops/mesh_kernels.py)
+                ("mc_evidence_apply_slice", [P] * 4 + [I] + [P] * 3
+                 + [C.c_longlong] * 3 + [I, P]),
+                ("mc_host_merge", [P] * 6 + [C.c_longlong, P])):
             fn = getattr(lib, name)
             fn.restype = C.c_int
             fn.argtypes = args

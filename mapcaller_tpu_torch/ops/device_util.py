@@ -1,6 +1,6 @@
 """Small helpers shared by the kernel wrappers and the device pipeline:
-input refusals, launch counters, host-to-device uploads and the devices
-of the scale axes. Imports
+input refusals, launch counters, copies between the host and the card
+and the devices of the scale axes. Imports
 nothing of the package, so any module may import it."""
 from __future__ import annotations
 
@@ -37,6 +37,24 @@ def upload(a, device) -> torch.Tensor:
     if torch.device(device).type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t.to(device)
+
+
+def download(tensors) -> list:
+    """Host numpy copies of tensors: a card tensor through a pinned buffer
+    (a copy from the card to pageable memory runs at a fraction of the
+    link's rate), every copy queued on its device's current stream before
+    one wait a device."""
+    outs, devs = [], set()
+    for t in tensors:
+        if t.device.type == "cuda":
+            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            h.copy_(t, non_blocking=True)
+            devs.add(t.device)
+            t = h
+        outs.append(t)
+    for d in devs:
+        torch.cuda.current_stream(d).synchronize()
+    return [t.numpy() for t in outs]
 
 
 def device_list(device, n: int, devices=None, flag: str = "-devices"):

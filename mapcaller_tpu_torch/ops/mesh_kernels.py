@@ -26,6 +26,24 @@ py) and the mesh's phase-B evidence.
                    scatter_fast_evidence (mapcaller_tpu/pipeline/
                    device_profile.py:67-132).
 
+Two more kernels of csrc/chain.cu serve the evidence planes outside the
+mesh:
+
+  apply_slice      K2's slice form (`evidence_apply_slice_kernel`): the
+                   admitted FAST reads of a batch, pd int64, into one
+                   shard's slice of the genome-sharded planes of the x64
+                   big-genome path (pipeline/big_profile.BigDeviceEvidence,
+                   mapcaller_tpu/pipeline/big_profile.py:103-187): every
+                   endpoint and mismatch position clipped over the genome,
+                   then added where the shard holds it;
+  host_merge       the host leg's sparse slow-read deltas, the four
+                   planes' (index, value) lists in one launch
+                   (`host_merge_kernel`): into the single-card planes at
+                   their flat indices (A5, pipeline/device_profile.
+                   build_host_merge_kernel, mapcaller_tpu/pipeline/
+                   device_profile.py:136-165), or into a shard's slice
+                   (B4's merge, big_profile.py:189-289).
+
 K1 on device d reads the n partials through a table of their base
 addresses, as ops/routed.Routed.pointers hands the routed kernels their
 shards: partials on other cards are read as peer memory
@@ -34,14 +52,18 @@ repeats every address is on that card. Integer adds commute, so every
 result equals the plain version's in every word.
 
 Each wrapper checks its inputs, then runs the plain version for CPU
-tensors and launches its kernel for CUDA tensors, counting the launch in
+tensors and launches its kernel for CUDA tensors (apply_slice and
+host_merge through their kernel entries `_apply_slice_kernel` and
+`_host_merge_kernel`, which take the plain version's arguments),
+counting the launch in
 STATS ("dp_scatter_scan" for each K1 launch, whatever its mode;
-"evidence_apply_bits" for K2), or raises. There is no fallback between
-the two.
+"evidence_apply_bits" for K2, "evidence_apply_slice" for its slice form,
+"host_merge"), or raises. There is no fallback between the two.
 """
 from __future__ import annotations
 
 import collections
+import ctypes as C
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -363,4 +385,204 @@ def apply_bits(planes, pd: torch.Tensor, mmp: torch.Tensor,
     ck._launch(name, pd.device, *map(ck._ptr, (pd, mmp, rlens, bits, meta)),
                B, *map(ck._ptr, fields), L, int(bool(pair_end)), sign,
                stats=STATS)
+    return planes
+
+
+# ---- K2's slice form: apply_slice -------------------------------------------
+
+def _evidence_terms(adm, pd, mmp, rlens, b_first, L: int, two_l: int):
+    """The plane adds of a batch's admitted FAST reads (the contributions
+    of ops/evidence.scatter_fast_evidence): a list of (plane, row, global
+    position, on, value), row None for a 1-D plane. int64 positions."""
+    i64 = torch.int64
+    pd, rlens, mmp = pd.to(i64), rlens.to(i64), mmp.to(i64)
+    ori = pd < L
+    g_start = torch.clamp(torch.where(ori, pd, two_l - pd - rlens), 0, L - 1)
+    end = torch.clamp(g_start + rlens, max=L)
+    fpl = torch.where(b_first, torch.where(ori, 0, 3), torch.where(ori, 1, 2))
+    terms = [("exact_diff", None, g_start, adm, 1),
+             ("exact_diff", None, end, adm, -1),
+             ("f_diff", fpl, g_start, adm, 1),
+             ("f_diff", fpl, end, adm, -1)]
+    for k in range(mmp.shape[1]):
+        e = mmp[:, k]
+        on = adm & (e >= 0)
+        r = e >> 2
+        p = torch.clamp(torch.where(ori, pd + r, two_l - 1 - (pd + r)), 0,
+                        L - 1)
+        terms += [("exact_diff", None, p, on, -1),
+                  ("exact_diff", None, p + 1, on, 1),
+                  ("acgt", torch.where(ori, e & 3, 3 - (e & 3)), p, on, 1)]
+    return terms
+
+
+def _scatter_local(planes, off: int, plane: str, row, g, on, val) -> None:
+    """Add val at the global positions g that the slice [off, off + Pl)
+    holds (row: the plane row of a 2-D plane)."""
+    target = getattr(planes, plane)
+    Pl = target.shape[-1]
+    li = g - off
+    ok = on & (li >= 0) & (li < Pl)
+    # the other lanes add 0 at a spread of slots: many atomic adds to one
+    # address serialize on the card
+    lane = torch.arange(li.shape[0], dtype=li.dtype, device=li.device)
+    li = torch.where(ok, li, lane % Pl)
+    if row is not None:
+        li = li + torch.where(ok, row, 0) * Pl
+    vals = torch.where(ok, val, 0).to(torch.int32)
+    target.view(-1).index_add_(0, li, vals)
+
+
+def apply_slice_plain(planes, off: int, pd, mmp, rlens, bits, L: int,
+                      pair_end: bool):
+    """Plain version of apply_slice on any device: the reads' terms over
+    the genome (_evidence_terms), each added where the slice holds it
+    (_scatter_local)."""
+    B = pd.shape[0]
+    adm = _admitted(bits, B, "bits", pd.device)
+    bidx = torch.arange(B, dtype=torch.int64, device=pd.device)
+    for plane, row, g, on, val in _evidence_terms(
+            adm, pd, mmp, rlens, first_mate_lanes(bidx, pair_end), L, 2 * L):
+        _scatter_local(planes, off, plane, row, g, on, val)
+    return planes
+
+
+def apply_slice(planes, off: int, pd: torch.Tensor, mmp: torch.Tensor,
+                rlens: torch.Tensor, bits: torch.Tensor, L: int,
+                pair_end: bool):
+    """Add the evidence of the FAST reads the admit bits select (bit b % 32 of bits int32[>= ceil(B/32)] word b //
+    32), pd int64[B], mmp int32[B, 4], rlens int32[B], over a genome of L
+    (a text of 2L), into one shard's slice of the planes (anything with
+    exact_diff int32[Pl], f_diff and acgt int32[4, Pl]: a
+    pipeline/big_profile.ShardPlanes), which holds positions [off, off +
+    Pl), in place: each position is clipped over the whole genome, then
+    added where the slice holds it. Returns planes. On the card one launch
+    of K2's slice form on the current stream (a warp an admit word, 4
+    lanes a read, over all B reads); mmp's rows must be 16-byte aligned
+    there. Counted as evidence_apply_slice."""
+    name = "evidence_apply_slice"
+    B = pd.shape[0] if pd.dim() == 1 else 0
+    need(B >= 1 and rlens.shape == (B,) and mmp.shape == (B, 4)
+         and bits.dim() == 1 and bits.shape[0] >= -(-B // 32),
+         f"{name}: pd and rlens [B], mmp [B, 4], bits [>= B/32]")
+    _dt = (("pd", pd, torch.int64), ("mmp", mmp, torch.int32),
+           ("rlens", rlens, torch.int32), ("bits", bits, torch.int32))
+    fields = [getattr(planes, f) for f in Planes._fields]
+    for what, t, dtype in _dt + tuple(
+            (f, t, torch.int32) for f, t in zip(Planes._fields, fields)):
+        need(t.dtype == dtype, f"{name}: {what} must be {dtype}", TypeError)
+    Pl = planes.exact_diff.shape[-1]
+    need(planes.exact_diff.shape == (Pl,) and Pl >= 1
+         and planes.f_diff.shape == (4, Pl) and planes.acgt.shape == (4, Pl),
+         f"{name}: a slice's planes [Pl], [4, Pl], [4, Pl] expected")
+    need(L >= 1 and off >= 0, f"{name}: L >= 1 and off >= 0")
+    ts = [pd, mmp, rlens, bits, *fields]
+    need(len({t.device for t in ts}) == 1,
+         f"{name}: tensors on several devices")
+    if not _on_card(name, ts):
+        return apply_slice_plain(planes, off, pd, mmp, rlens, bits, L,
+                                 pair_end)
+    need(mmp.data_ptr() % 16 == 0, f"{name}: mmp's rows must be 16-byte "
+                                   f"aligned (one load a row)")
+    return _apply_slice_kernel(planes, off, pd, mmp, rlens, bits, L,
+                               pair_end)
+
+
+def _apply_slice_kernel(planes, off: int, pd, mmp, rlens, bits, L: int,
+                        pair_end: bool):
+    """evidence_apply_slice_kernel: one launch over the B reads."""
+    fields = [getattr(planes, f) for f in Planes._fields]
+    ck._launch("evidence_apply_slice", pd.device,
+               *map(ck._ptr, (pd, mmp, rlens, bits)), pd.shape[0],
+               *map(ck._ptr, fields), int(L), int(off),
+               planes.exact_diff.shape[-1], int(bool(pair_end)),
+               stats=STATS)
+    return planes
+
+
+# ---- the host-delta merge ---------------------------------------------------
+
+MERGE_PLANES = ("acgt", "exact_diff", "f_diff", "multi_diff")
+
+
+def pack_deltas(lists) -> np.ndarray:
+    """The four (int64 index, int32 value) lists as one int64 buffer for
+    one upload: the N indices, then the N values as int32 pairs."""
+    idx = np.concatenate([i for i, _ in lists]).astype(np.int64)
+    val = np.concatenate([v for _, v in lists]).astype(np.int32)
+    N = idx.size
+    buf = np.zeros(N + (N + 1) // 2, dtype=np.int64)
+    buf[:N] = idx
+    buf[N:].view(np.int32)[:N] = val
+    return buf
+
+
+def unpack_deltas(buf: torch.Tensor, N: int):
+    """(idx int64[N], val int32[N]) views of a pack_deltas buffer."""
+    return buf[:N], buf[N:].view(torch.int32)[:N]
+
+
+def host_merge_plain(planes, idx, val, ends, gstrides, off: int = 0):
+    """Plain version of host_merge on any device: an index_add_ a list."""
+    start = 0
+    for name, end, gs in zip(MERGE_PLANES, ends, gstrides):
+        plane = getattr(planes, name)
+        x, v = idx[start:end], val[start:end]
+        start = end
+        ls = plane.shape[-1]
+        row = torch.div(x, gs, rounding_mode="floor")
+        li = x - row * gs - off
+        ok = (li >= 0) & (li < ls)
+        plane.view(-1).index_add_(0, (row * ls + li)[ok], v[ok])
+    return planes
+
+
+def host_merge(planes, deltas: torch.Tensor, ends, gstrides, off: int = 0):
+    """Add the host leg's sparse deltas into the four planes of `planes`
+    (acgt, exact_diff, f_diff, multi_diff: int32, 2-D [rows, ls] or 1-D
+    [ls]) in place: deltas the four lists packed as pack_deltas packs
+    them (int64[N + ceil(N / 2)]: the N indices, then the N int32
+    values), list k ending at ends[k] (ends[3] = N); an index is row *
+    gstrides[k] + position, and a row of the plane holds positions [off,
+    off + ls), at row * ls + (position - off); the others are dropped.
+    The single-card planes take their flat indices (gstrides their row
+    strides, device_profile.merge_strides, off 0); a shard of B4 the
+    single-card indices with its off. Returns planes. On the card one
+    launch on the current stream, none for N = 0. Counted as
+    host_merge."""
+    name = "host_merge"
+    fields = [getattr(planes, f) for f in MERGE_PLANES]
+    ends, gstrides = [int(e) for e in ends], [int(g) for g in gstrides]
+    need(deltas.dtype == torch.int64
+         and all(t.dtype == torch.int32 for t in fields),
+         f"{name}: deltas int64 (pack_deltas), the planes int32", TypeError)
+    need(len(ends) == 4 and len(gstrides) == 4
+         and all(0 <= a <= b for a, b in zip([0] + ends[:3], ends))
+         and min(gstrides) >= 1 and off >= 0
+         and all(t.dim() in (1, 2) and t.shape[-1] >= 1 for t in fields),
+         f"{name}: four lists ending at ends, gstrides >= 1, off >= 0")
+    N = ends[-1]
+    need(deltas.dim() == 1 and deltas.shape[0] == N + (N + 1) // 2,
+         f"{name}: deltas must be pack_deltas' buffer of the N = {N} "
+         f"entries")
+    idx, val = unpack_deltas(deltas, N)
+    ts = [deltas, *fields]
+    need(len({t.device for t in ts}) == 1,
+         f"{name}: tensors on several devices")
+    if not _on_card(name, ts):
+        return host_merge_plain(planes, idx, val, ends, gstrides, off)
+    return _host_merge_kernel(planes, idx, val, ends, gstrides, off)
+
+
+def _host_merge_kernel(planes, idx, val, ends, gstrides, off: int = 0):
+    """host_merge_kernel: one launch, a thread an entry; none for N =
+    0."""
+    if ends[-1]:
+        fields = [getattr(planes, f) for f in MERGE_PLANES]
+        L4 = C.c_longlong * 4
+        ck._launch("host_merge", idx.device, idx.data_ptr(), val.data_ptr(),
+                   L4(*ends), (C.c_void_p * 4)(*(t.data_ptr()
+                                                 for t in fields)),
+                   L4(*gstrides), L4(*(t.shape[-1] for t in fields)),
+                   int(off), stats=STATS)
     return planes

@@ -9,29 +9,37 @@ is split along the genome over the shard devices of the index
 400 (lcm of the caller's 100-base blocks and the 16 bases of a text
 word, so neither straddles a seam) and Pg >= L + 2; shard s holds
 positions [s * Pl, (s + 1) * Pl) of every plane on its device, and no
-tensor of genome length sits on one device. The fold and the scan run
-the single-card kernels a shard through their slice forms
-(ops/calling_kernels: evidence_finalize with the carries of the shards
-before, caller_scan with a valid length and the seam's run state); the
-other programs run as eager PyTorch over each shard's slice:
+tensor of genome length sits on one device. Every program runs the
+port's kernels a shard, through their slice forms:
 
-  apply      a batch's FAST-read evidence: each endpoint and mismatch
-             goes to the shard that owns its position (:103-187)
-  merge      the host profile's sparse slow-read deltas, routed alike
-             (:189-289)
+  apply      a batch's FAST-read evidence: K2's slice form
+             (ops/mesh_kernels.apply_slice), a launch a shard a batch, each
+             endpoint and mismatch added by the shard that owns its
+             position (:103-187)
+  merge      the host profile's sparse slow-read deltas: the four lists
+             uploaded once a device, one host_merge launch a shard
+             (ops/mesh_kernels.host_merge) (:189-289)
   finalize   per-shard prefix sums, each shard carrying in the prefixes
-             at the end of the shard before it (:291-361)
-  scan       the caller's scan per shard: the run-length state carried
-             across each seam from the shard before, candidates and runs
-             joined in shard order, which is position order, so the
-             CAND_CAP / RUN_CAP truncation equals the single-card scan's
-             (:363-530)
-  fetch, NOR and download_raw_into: each shard answers the positions it
-             owns (:532-682)
+             at the end of the shard before it: evidence_finalize with the
+             carry of the shard before (:291-361)
+  scan       the caller's scan per shard: caller_scan with the run-length
+             state carried across each seam from the shard before,
+             candidates and runs joined in shard order, which is position
+             order, so the CAND_CAP / RUN_CAP truncation equals the
+             single-card scan's (:363-530)
+  fetch      each shard answers the positions, prefix points and blocks
+             it owns: caller_fetch_slice, a launch a shard that owns any
+             (:532-601)
+  NOR        each shard's segment minima of its normal positions
+             (nor_blocks_slice, keyed by the global breaks), combined on
+             the host (:603-667); download_raw_into reads the shards'
+             planes (:669-682)
 
-One process addresses every shard, so the reference's all-gathers and
-psums are plain reads of the other shards' tensors: no torch.distributed.
-Positions are int64; a shard's local offsets are below Pl.
+ops/calling_kernels and ops/mesh_kernels hold each kernel's plain
+version, which CPU tensors take. One process addresses every shard, so
+the reference's all-gathers and psums are plain reads of the other
+shards' tensors: no torch.distributed. Positions are int64; a shard's
+local offsets are below Pl.
 """
 from __future__ import annotations
 
@@ -44,12 +52,13 @@ from torch.profiler import record_function
 
 from ..calling.scan_device import (BLOCK_SIZE, CAND_CAP, INT32_MAX, RUN_CAP,
                                    LazyBlockDepth)
-from ..ops import calling_kernels
-from ..ops.device_util import upload
-from ..ops.evidence import first_mate_lanes
-from .device_profile import STATS, DeviceEvidence
+from ..ops import calling_kernels, mesh_kernels
+from ..ops.device_util import download, upload
+from .device_profile import (STATS, DeviceEvidence, host_delta_lists,
+                             merge_strides, zero_host_deltas)
 
 _GRAN = 400   # lcm(BLOCK_SIZE, 16)
+_NONE = np.zeros(0, dtype=np.int64)
 
 
 @dataclasses.dataclass
@@ -70,23 +79,18 @@ class ShardPlanes:
 
 class ShardedBlockDepth(LazyBlockDepth):
     """LazyBlockDepth over the shards' block depths (Pl / 100 blocks a
-    shard): block b lives in shard b // nbl at local block b % nbl."""
+    shard): block b lives in shard b // nbl at local block b % nbl;
+    `fetch(blocks)` reads the depths of global blocks off the shards
+    (BigDeviceEvidence's fetch)."""
 
-    def __init__(self, parts: List[torch.Tensor], nb: int):
+    def __init__(self, parts: List[torch.Tensor], nb: int, fetch):
         super().__init__(parts[0], nb)
         self._parts = parts
-        self._nbl = parts[0].shape[0]
+        self._fetch = fetch
 
     def gather(self, blocks: np.ndarray) -> np.ndarray:
         """The depths of blocks (int64, each < nb), in their order."""
-        out = np.zeros(blocks.size, dtype=np.int64)
-        sh = blocks // self._nbl
-        for s, part in enumerate(self._parts):
-            sel = np.nonzero(sh == s)[0]
-            if sel.size:
-                idx = upload(blocks[sel] - s * self._nbl, part.device)
-                out[sel] = part[idx].cpu().numpy()
-        return out
+        return self._fetch(np.asarray(blocks, dtype=np.int64))
 
     def prefetch(self, blocks) -> None:
         if self._dense is not None:
@@ -105,48 +109,6 @@ class ShardedBlockDepth(LazyBlockDepth):
                 [p.cpu().numpy() for p in self._parts])[:self.nb].astype(
                     np.int64)
         return self._dense
-
-
-def _evidence_terms(adm, pd, mmp, rlens, b_first, L: int, two_l: int):
-    """The plane adds of a batch's admitted FAST reads (the contributions
-    of ops/evidence.scatter_fast_evidence): a list of (plane, row, global
-    position, on, value), row None for a 1-D plane. int64 positions."""
-    i64 = torch.int64
-    pd, rlens, mmp = pd.to(i64), rlens.to(i64), mmp.to(i64)
-    ori = pd < L
-    g_start = torch.clamp(torch.where(ori, pd, two_l - pd - rlens), 0, L - 1)
-    end = torch.clamp(g_start + rlens, max=L)
-    fpl = torch.where(b_first, torch.where(ori, 0, 3), torch.where(ori, 1, 2))
-    terms = [("exact_diff", None, g_start, adm, 1),
-             ("exact_diff", None, end, adm, -1),
-             ("f_diff", fpl, g_start, adm, 1),
-             ("f_diff", fpl, end, adm, -1)]
-    for k in range(mmp.shape[1]):
-        e = mmp[:, k]
-        on = adm & (e >= 0)
-        r = e >> 2
-        p = torch.clamp(torch.where(ori, pd + r, two_l - 1 - (pd + r)), 0,
-                        L - 1)
-        terms += [("exact_diff", None, p, on, -1),
-                  ("exact_diff", None, p + 1, on, 1),
-                  ("acgt", torch.where(ori, e & 3, 3 - (e & 3)), p, on, 1)]
-    return terms
-
-
-def _scatter_local(sp: ShardPlanes, Pl: int, plane: str, row, g, on,
-                   val) -> None:
-    """Add val at the positions g that this shard owns (row: the plane
-    row of a 2-D plane)."""
-    li = g - sp.off
-    ok = on & (li >= 0) & (li < Pl)
-    # the other lanes add 0 at a spread of slots: many atomic adds to one
-    # address serialize on the card
-    lane = torch.arange(li.shape[0], dtype=li.dtype, device=li.device)
-    li = torch.where(ok, li, lane % Pl)
-    if row is not None:
-        li = li + torch.where(ok, row, 0) * Pl
-    vals = torch.where(ok, val, 0).to(torch.int32)
-    getattr(sp, plane).view(-1).index_add_(0, li, vals)
 
 
 class BigDeviceEvidence(DeviceEvidence):
@@ -191,59 +153,44 @@ class BigDeviceEvidence(DeviceEvidence):
                     pair_end: bool) -> None:
         """Add the batch's admitted FAST reads (fast_bits, uint32 words)
         to the shards that own their positions; token: the submit_chain
-        token (pd int64, mmp and read lengths of the BG reads)."""
+        token (pd int64, mmp and read lengths of the BG reads). One K2
+        slice-form launch a shard; the admit bits go up once a device."""
         B = int(token.rl_dev.shape[0])
         fb = np.zeros((B + 31) // 32, dtype=np.int32)
         fb[:fast_bits.size] = fast_bits.view(np.int32)
+        ins = {}
         with record_function("evidence_apply"):
             for sp, d in zip(self.planes, self.devs):
-                bidx = torch.arange(B, dtype=torch.int64, device=d)
-                sel = upload(fb, d)
-                adm = ((sel[bidx >> 5] >> (bidx & 31)) & 1) == 1
-                for plane, row, g, on, val in _evidence_terms(
-                        adm, token.pd.to(d), token.mmp.to(d),
-                        token.rl_dev.to(d), first_mate_lanes(bidx, pair_end),
-                        self.L, self.two_l):
-                    _scatter_local(sp, self.Pl, plane, row, g, on, val)
+                if d not in ins:
+                    # pd int64 (the x64 chain stage's), or int32 from the
+                    # single-card kernels' routes under big_x64
+                    ins[d] = (token.pd.to(d, torch.int64), token.mmp.to(d),
+                              token.rl_dev.to(d), upload(fb, d))
+                mesh_kernels.apply_slice(sp, sp.off, *ins[d], self.L,
+                                         pair_end)
         STATS.applies += 1
 
     def _merge_host_deltas(self) -> None:
         """Add the host profile's slow-read evidence (its sparse nonzero
         entries) to the shards that own their positions, once, then zero
-        the host copies."""
+        the host copies: the lists at the single-card flat indices
+        (device_profile.host_delta_lists) through _merge_lists."""
         p = self.host_profile
-        L = self.L
         if hasattr(p, "any_host_evidence") and not p.any_host_evidence():
             return
+        self._merge_lists(*host_delta_lists(p, self.L))
+        zero_host_deltas(p)
 
-        def nz(arr):
-            a = np.asarray(arr).reshape(-1)
-            i = np.nonzero(a)[0]
-            return i.astype(np.int64), a[i].astype(np.int32)
-
-        ia, va = nz(p.acgt)                       # host acgt is [4, L]
-        parts = [("acgt", ia // L, ia % L, va),
-                 ("exact_diff", None, *nz(p.exact_diff))]
-        for k, name in enumerate(("F1_diff", "R2_diff", "F2_diff",
-                                  "R1_diff")):
-            i, v = nz(getattr(p, name))
-            parts.append(("f_diff", np.full(i.size, k, np.int64), i, v))
-        parts.append(("multi_diff", None, *nz(p.multi_diff)))
+    def _merge_lists(self, deltas, ends) -> None:
+        """host_merge of the packed lists (host, host_delta_lists) into
+        every shard: uploaded once a device, one launch a shard (its
+        slice of each row)."""
+        gstrides = merge_strides(self.L)
+        ups = {}
         for sp, d in zip(self.planes, self.devs):
-            for plane, row, g, v in parts:
-                mine = (g >= sp.off) & (g < sp.off + self.Pl)
-                if not mine.any():
-                    continue
-                li = g[mine] - sp.off
-                if row is not None:
-                    li = li + row[mine] * self.Pl
-                getattr(sp, plane).view(-1).index_add_(
-                    0, upload(li, d), upload(v[mine], d))
-        p.acgt[:] = 0
-        p.exact_diff[:] = 0
-        for name in ("F1_diff", "R2_diff", "F2_diff", "R1_diff",
-                     "multi_diff"):
-            getattr(p, name)[:] = 0
+            if d not in ups:
+                ups[d] = upload(deltas, d)
+            mesh_kernels.host_merge(sp, ups[d], ends, gstrides, sp.off)
 
     def finalize(self):
         """Merge the host deltas, then fold each shard's planes -> a list
@@ -317,7 +264,8 @@ class BigDeviceEvidence(DeviceEvidence):
         bds = [r.block_depth for r in scans]
         STATS.scans += 1
         nb = (L + BLOCK_SIZE - 1) // BLOCK_SIZE
-        self._scan = (ShardedBlockDepth(bds, nb),
+        self._scan = (ShardedBlockDepth(
+            bds, nb, lambda b: self._fetch(_NONE, _NONE, b, bds)[2]),
                       np.concatenate(cands)[:CAND_CAP],
                       np.concatenate(runs)[:RUN_CAP],
                       np.concatenate(rvals)[:RUN_CAP],
@@ -326,92 +274,119 @@ class BigDeviceEvidence(DeviceEvidence):
         return self._scan
 
     # ------------------------------------------------------------------
+    def _fetch(self, p: np.ndarray, pp: np.ndarray, blocks: np.ndarray,
+               bds=None):
+        """The columns at positions p (each in [0, L)), the global
+        coverage prefix at points pp (each in [0, L]) and the depths of
+        blocks (each < the block count; bds the shards' block depths) ->
+        (cols int64[P, 10], pref int64[Q], depths int64[nbd]): a
+        caller_fetch_slice launch a shard that owns any of them, the
+        indices up in one copy a device, every launch queued before the
+        copies to the host."""
+        outs, tots = self.finalize()
+        Pl = self.Pl
+        nbl = Pl // BLOCK_SIZE
+        before = np.concatenate([[0], np.cumsum(tots)])
+        cols = np.zeros((p.size, 10), dtype=np.int64)
+        pref = np.zeros(pp.size, dtype=np.int64)
+        depths = np.zeros(blocks.size, dtype=np.int64)
+        jobs = []
+        for s in range(self.n):
+            sel = np.nonzero(p // Pl == s)[0]
+            selp = np.nonzero(pp // Pl == s)[0]
+            selb = np.nonzero(blocks // nbl == s)[0]
+            if sel.size or selp.size or selb.size:
+                jobs.append((s, sel, selp, selb, np.concatenate(
+                    [p[sel] - s * Pl, pp[selp] - s * Pl,
+                     blocks[selb] - s * nbl])))
+        # the shards' local indices go up in one copy a device
+        ups, at = {}, {}
+        for d in dict.fromkeys(self.devs[j[0]] for j in jobs):
+            mine = [j[4] for j in jobs if self.devs[j[0]] == d]
+            ups[d] = upload(np.concatenate(mine), d)
+        outs_k = []
+        for s, sel, selp, selb, idx in jobs:
+            d = self.devs[s]
+            lo = at.get(d, 0)
+            at[d] = lo + idx.size
+            acgt, F, multi, cov, ccov = outs[s]
+            outs_k.append(calling_kernels.caller_fetch_slice(
+                acgt, multi, F, cov, ccov, int(before[s]),
+                ups[d][lo:lo + idx.size], sel.size, selp.size,
+                bds[s] if selb.size else None))
+        for (s, sel, selp, selb, _), o in zip(jobs, download(outs_k)):
+            P, Q = sel.size, selp.size
+            cols[sel] = o[:10 * P].reshape(P, 10)
+            pref[selp] = o[10 * P:10 * P + Q]
+            depths[selb] = o[10 * P + Q:]
+        return cols, pref, depths
+
     def fetch_columns(self, positions: np.ndarray, prefix_pts: np.ndarray,
                       bd_blocks: np.ndarray = None):
         """Evidence columns (A, C, G, T, multi, F1, R2, F2, R1, cov) at
         positions, each from the shard that owns it, and the global
         exclusive coverage prefix at prefix_pts (the totals of the shards
         before the owner plus its local prefix). With bd_blocks and after
-        scan(), the block depths there seed the ShardedBlockDepth cache."""
-        outs, tots = self.finalize()
-        Pl, L = self.Pl, self.L
+        scan(), the block depths there ride the same launches and seed the
+        ShardedBlockDepth cache."""
+        L = self.L
         p = np.clip(np.asarray(positions, dtype=np.int64), 0, L - 1)
         pp = np.clip(np.asarray(prefix_pts, dtype=np.int64), 0, L)
-        cols = np.zeros((p.size, 10), dtype=np.int64)
-        pref = np.zeros(pp.size, dtype=np.int64)
-        before = np.concatenate([[0], np.cumsum(tots)])
-        with record_function("fetch_columns"):
-            for s, ((acgt, F, multi, cov, ccov), d) in enumerate(
-                    zip(outs, self.devs)):
-                sel = np.nonzero(p // Pl == s)[0]
-                if sel.size:
-                    li = upload(p[sel] - s * Pl, d)
-                    cols[sel] = torch.stack(
-                        [acgt[0][li], acgt[1][li], acgt[2][li], acgt[3][li],
-                         multi[li], F[0][li], F[1][li], F[2][li], F[3][li],
-                         cov[li]], dim=1).cpu().numpy()
-                selp = np.nonzero(pp // Pl == s)[0]
-                if selp.size:
-                    lip = pp[selp] - s * Pl
-                    loc = np.zeros(selp.size, dtype=np.int64)
-                    nz = np.nonzero(lip > 0)[0]
-                    if nz.size:
-                        loc[nz] = ccov[upload(lip[nz] - 1, d)].cpu().numpy()
-                    pref[selp] = before[s] + loc
-        STATS.fetches += 1
+        b, bds = _NONE, None
         if bd_blocks is not None and self._scan is not None:
             lbd = self._scan[0]
             b = np.unique(np.asarray(bd_blocks, dtype=np.int64))
             b = b[(b >= 0) & (b < lbd.nb)]
-            if b.size:
-                lbd.insert(b, lbd.gather(b))
+            bds = lbd._parts
+        with record_function("fetch_columns"):
+            cols, pref, depths = self._fetch(p, pp, b, bds)
+        STATS.fetches += 1
+        if b.size:
+            self._scan[0].insert(b, depths)
         return cols, pref
 
     def nor_blocks(self, emitted: np.ndarray, brk: np.ndarray):
         """gVCF NOR blocks over the shards: each shard's segment minima of
-        its normal positions (covered, no record emitted there), combined
-        by a minimum over the shards, and the coverage at each segment's
-        first position from the shard that owns it -> (first_pos,
-        min_cov, cov_at_first) per key 0..brk.size, INT32_MAX for an
-        empty segment (the single-card contract)."""
+        its normal positions (covered, below L, no record emitted there;
+        nor_blocks_slice, keyed by the global breaks), one copy a shard,
+        combined on the host: a segment's first position and the coverage
+        there from the first shard that has one, its least coverage the
+        minimum over the shards -> (first_pos, min_cov, cov_at_first) int64
+        per key 0..brk.size, INT32_MAX for an empty segment (the
+        single-card contract), whose coverage is the one at L - 1, as the
+        single-card kernel's clamped read gives below 2^31."""
         outs, _ = self.finalize()
         Pl, L = self.Pl, self.L
         nseg = brk.size + 2
         bk = np.sort(np.asarray(brk, dtype=np.int64)) if brk.size else \
             np.array([L], dtype=np.int64)
-        em = np.asarray(emitted, dtype=np.int64)
+        em = np.sort(np.clip(np.asarray(emitted, dtype=np.int64), 0, L - 1))
+        ups, jobs = {}, []
+        for s, (fin, d) in enumerate(zip(outs, self.devs)):
+            off = s * Pl
+            valid = min(L - off, Pl)
+            if valid <= 0:            # a padded tail shard holds no position
+                continue
+            if d not in ups:          # one upload a device
+                ups[d] = upload(np.concatenate([em, bk]), d)
+            lo, hi = np.searchsorted(em, [off, off + valid])
+            jobs.append((s, calling_kernels.nor_blocks_slice(
+                fin[3], valid, ups[d][lo:hi], ups[d][em.size:], nseg, off)))
         first = np.full(nseg, INT32_MAX, dtype=np.int64)
         mincov = np.full(nseg, INT32_MAX, dtype=np.int64)
-        for s, ((_a, _F, _m, cov, _c), d) in enumerate(zip(outs, self.devs)):
-            off = s * Pl
-            gpos = off + torch.arange(Pl, dtype=torch.int64, device=d)
-            covm = torch.where(gpos < L, cov, 0)
-            em_s = np.clip(em, 0, L - 1) - off
-            em_s = em_s[(em_s >= 0) & (em_s < Pl)]
-            em_mask = torch.zeros(Pl, dtype=torch.bool, device=d)
-            if em_s.size:
-                em_mask[upload(em_s, d)] = True
-            normal = (covm > 0) & ~em_mask
-            key = torch.searchsorted(upload(bk, d), gpos, right=True)
-            seg = torch.where(normal, torch.clamp(key, max=nseg - 1),
-                              nseg - 1)
-
-            def seg_min(vals):
-                out = torch.full((nseg,), INT32_MAX, dtype=torch.int64,
-                                 device=d)
-                return out.scatter_reduce_(0, seg, torch.where(
-                    normal, vals.to(torch.int64), INT32_MAX), "amin")
-
-            first = np.minimum(first, seg_min(gpos).cpu().numpy())
-            mincov = np.minimum(mincov, seg_min(covm).cpu().numpy())
-        # an empty segment reads the coverage at L - 1, as the single-card
-        # kernel's clamped gather does
-        fc = np.clip(first, 0, L - 1)
         covf = np.zeros(nseg, dtype=np.int64)
-        for s, ((_a, _F, _m, cov, _c), d) in enumerate(zip(outs, self.devs)):
-            sel = np.nonzero(fc // Pl == s)[0]
-            if sel.size:
-                covf[sel] = cov[upload(fc[sel] - s * Pl, d)].cpu().numpy()
+        found = np.zeros(nseg, dtype=bool)
+        last = (L - 1) // Pl
+        for (s, _), r in zip(jobs, download([out for _, out in jobs])):
+            r = r.astype(np.int64)
+            f, m, c = r[:nseg], r[nseg:2 * nseg], r[2 * nseg:]
+            take = ~found & (f != INT32_MAX)
+            first[take] = s * Pl + f[take]
+            covf[take] = c[take]
+            found |= take
+            mincov = np.minimum(mincov, m)
+            if s == last:
+                covf[~found] = c[~found]
         return first, mincov, covf
 
     def download_raw_into(self, profile) -> None:

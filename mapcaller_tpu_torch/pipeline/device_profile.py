@@ -31,7 +31,8 @@ eager scatter of ops/evidence.py, which the CPU runs. The
 `build_*_kernel` functions bind the static arguments of the reference's
 jitted `build_*` functions and return a function that updates the planes
 in place: the apply and the correction through K2's wrapper, the host
-merge as eager PyTorch. The finalize fold is `evidence_finalize_kernel`
+merge through `host_merge_kernel` (csrc/chain.cu, ops/mesh_kernels.
+host_merge: the four lists, uploaded as one buffer, in one launch). The finalize fold is `evidence_finalize_kernel`
 (csrc/calling.cu) through ops/calling_kernels.evidence_finalize, whose
 plain version the CPU runs.
 """
@@ -138,19 +139,54 @@ def build_correct_kernel(L: int, two_l: int, B: int, pair_end: bool):
     return kernel
 
 
-def build_host_merge_kernel(L: int):
-    """fn(planes, idx_a, val_a, idx_e, val_e, idx_f, val_f, idx_m, val_m)
-    -> planes, in place: add the host profile's sparse nonzero deltas
-    (slow-read evidence) into the planes. idx arrays address the
-    flattened planes."""
+def merge_strides(L: int):
+    """The row strides of the host merge's four lists' indices (acgt,
+    exact_diff, f_diff, multi_diff): the single-card planes' rows."""
+    return (L + 1, L + 2, L + 2, L + 2)
 
-    def kernel(planes: DevicePlanes, idx_a, val_a, idx_e, val_e, idx_f,
-               val_f, idx_m, val_m):
-        planes.acgt.view(-1).index_add_(0, idx_a, val_a)
-        planes.exact_diff.index_add_(0, idx_e, val_e)
-        planes.f_diff.view(-1).index_add_(0, idx_f, val_f)
-        planes.multi_diff.index_add_(0, idx_m, val_m)
-        return planes
+
+def host_delta_lists(p, L: int):
+    """The host profile's slow-read evidence (its sparse nonzero diff
+    entries + point adds, found by eight scans of its arrays) as the host
+    merge's four lists at the single-card planes' flat indices (row *
+    merge_strides(L)[k] + position) -> (the lists packed for one upload,
+    mesh_kernels.pack_deltas; their ends)."""
+    sa, _, sf, _ = merge_strides(L)
+
+    def nz(arr, offset=0):
+        a = np.asarray(arr).reshape(-1)
+        i = np.nonzero(a)[0]
+        return i + offset, a[i].astype(np.int32)
+
+    ia, va = nz(p.acgt)
+    ia = (ia // L) * sa + (ia % L)   # host [4, L]; device stride L+1
+    fparts = [nz(getattr(p, name), k * sf) for k, name in enumerate(
+        ("F1_diff", "R2_diff", "F2_diff", "R1_diff"))]
+    lists = [(ia, va), nz(p.exact_diff),
+             (np.concatenate([x[0] for x in fparts]),
+              np.concatenate([x[1] for x in fparts])), nz(p.multi_diff)]
+    ends = np.cumsum([i.size for i, _ in lists]).tolist()
+    return mesh_kernels.pack_deltas(lists), ends
+
+
+def zero_host_deltas(p) -> None:
+    """Zero the host profile's slow-read arrays once they are merged, so a
+    later download does not add them twice."""
+    for name in ("acgt", "exact_diff", "F1_diff", "R2_diff", "F2_diff",
+                 "R1_diff", "multi_diff"):
+        getattr(p, name)[:] = 0
+
+
+def build_host_merge_kernel(L: int):
+    """fn(planes, deltas, ends) -> planes, in place: add the host
+    profile's sparse nonzero deltas (slow-read evidence) into the planes:
+    deltas the four lists at the planes' flat indices, packed
+    (host_delta_lists, on the planes' device), ends their ends. One
+    host_merge_kernel launch (mesh_kernels.host_merge)."""
+    gstrides = merge_strides(L)
+
+    def kernel(planes: DevicePlanes, deltas, ends):
+        return mesh_kernels.host_merge(planes, deltas, ends, gstrides)
 
     return kernel
 
@@ -286,40 +322,17 @@ class DeviceEvidence:
 
     def _merge_host_deltas(self) -> None:
         """Add the host profile's slow-read evidence (sparse nonzero diff
-        entries + point adds) into the device planes, once, then zero the
-        host copies so a later download does not add them twice."""
+        entries + point adds) into the device planes, once (one upload of
+        the lists, one host_merge launch), then zero the host copies so a
+        later download does not add them twice."""
         p = self.host_profile
-        L = self.L
         if hasattr(p, "any_host_evidence") and not p.any_host_evidence():
             # every read applied on the card: skip eight O(L) scans
             return
-
-        def nz(arr, offset=0):
-            a = np.asarray(arr).reshape(-1)
-            i = np.nonzero(a)[0]
-            return i + offset, a[i].astype(np.int32)
-
-        ia, va = nz(p.acgt)
-        ia = (ia // L) * (L + 1) + (ia % L)   # host [4, L]; device stride L+1
-        ie, ve = nz(p.exact_diff)
-        fparts = [nz(getattr(p, name), k * (L + 2)) for k, name in enumerate(
-            ("F1_diff", "R2_diff", "F2_diff", "R1_diff"))]
-        if_ = np.concatenate([x[0] for x in fparts])
-        vf = np.concatenate([x[1] for x in fparts])
-        im, vm = nz(p.multi_diff)
-
-        def up(a, dtype):
-            return upload(np.asarray(a, dtype=dtype), self.device)
-
-        build_host_merge_kernel(L)(
-            self.planes, up(ia, np.int64), up(va, np.int32),
-            up(ie, np.int64), up(ve, np.int32), up(if_, np.int64),
-            up(vf, np.int32), up(im, np.int64), up(vm, np.int32))
-        p.acgt[:] = 0
-        p.exact_diff[:] = 0
-        for name in ("F1_diff", "R2_diff", "F2_diff", "R1_diff",
-                     "multi_diff"):
-            getattr(p, name)[:] = 0
+        deltas, ends = host_delta_lists(p, self.L)
+        build_host_merge_kernel(self.L)(self.planes,
+                                        upload(deltas, self.device), ends)
+        zero_host_deltas(p)
 
     def finalize(self):
         """Merge host deltas + fold diffs on the card ->
