@@ -14,7 +14,8 @@ exits non-zero):
              registers,
              shared memory, stack frame and spills from -Xptxas -v (any
              stack frame or spill fails, and so do registers of the seed
-             scans other than SCAN_REGISTERS)
+             scans other than SCAN_REGISTERS and of the NOR blocks other
+             than NOR_REGISTERS)
   kernels    the CUDA NW and ksw2 kernels each equal their plain version
              exactly at every DP tier (32, 48, 96, 192), on pairs whose
              lengths reach the tier's edges (for NW also the kernel's
@@ -154,8 +155,13 @@ exits non-zero):
              host-delta merge, fold and scan a shard, each beside its byte
              bound, the fold and the scan (evidence_finalize and
              caller_scan once a shard) held against their plain versions
-             on the card at -shards 2 and 4. The devices phase also times the plane sum of
-             -devices N (four add_ of two plane sets)
+             on the card at -shards 2 and 4; the -gvcf calls' NOR blocks,
+             both forms, held against their plain versions in every word,
+             each call or launch one device operation (a torch.profiler
+             trace of it alone), and B4's NOR call cut into its host parts
+             (sorts, uploads, launches, download, combine). The devices
+             phase also times the plane sum of -devices N (four add_ of
+             two plane sets)
   evidence   device ms (queued launches) of the evidence apply of one
              batch, the finalize fold, the caller scan and the column
              fetch on the warm-up's own planes and inputs, each equal to
@@ -2238,13 +2244,64 @@ def time_big_evidence(ev, kept, reps=10):
                       mismatches=n_mm)
 
 
+def split_big_nor(bev, em, brk, reps):
+    """B4's NOR call (BigDeviceEvidence.nor_blocks) cut into its host
+    parts by timers around the functions it calls: the sorts before the
+    first upload (with the finalize's kept outputs), the uploads (one a
+    device), the launches (nor_blocks_slice a shard: the wrapper's checks
+    and the launch), the download (the copies and the wait for the card),
+    the combine after it, and the rest (the searches a shard between the
+    launches); ms, medians over reps calls, measured only."""
+    import torch
+    from mapcaller_tpu_torch.ops import calling_kernels as cal
+    from mapcaller_tpu_torch.pipeline import big_profile as bp
+    marks = []
+
+    def timed(fn, part):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                marks.append((part, t0, time.perf_counter()))
+        return run
+    real = bp.upload, bp.download, cal.nor_blocks_slice
+    bp.upload, bp.download = timed(real[0], "upload"), timed(real[1],
+                                                             "download")
+    cal.nor_blocks_slice = timed(real[2], "launches")
+    parts = collections.defaultdict(list)
+    try:
+        for _ in range(reps + 3):
+            marks.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            bev.nor_blocks(em, brk)
+            t1 = time.perf_counter()
+            ms = collections.Counter()
+            for part, a, b in marks:
+                ms[part] += 1e3 * (b - a)
+            ms["sort"] = 1e3 * (min(a for p, a, _ in marks if p == "upload")
+                                - t0)
+            ms["combine"] = 1e3 * (t1 - max(b for p, _, b in marks
+                                            if p == "download"))
+            ms["call"] = 1e3 * (t1 - t0)
+            ms["rest"] = ms["call"] - sum(ms[k] for k in (
+                "sort", "upload", "launches", "download", "combine"))
+            for k, v in ms.items():
+                parts[k].append(v)
+    finally:
+        bp.upload, bp.download, cal.nor_blocks_slice = real
+    return {k + "_ms": statistics.median(v[3:]) for k, v in parts.items()}
+
+
 def time_big_nor(bev, em, brk, reps):
     """B4's NOR blocks on a -gvcf run's own call (its emitted positions
     and breaks): held against their plain versions on the card in every
-    word (the kernel entry swapped), the call timed, its launches
-    replayed (device ms, plain ms) beside the bound: the coverage, the
-    positions and breaks read once, three words a segment written, a
-    shard's share of it."""
+    word (the kernel entry swapped), the call timed and split into its
+    host parts (split_big_nor), its launches replayed (device ms, plain
+    ms) beside the bound: the coverage, the positions and breaks read
+    once, three words a segment written, a shard's share of it. -> (the
+    row, the first launch's arguments)."""
     from mapcaller_tpu_torch.ops import calling_kernels as cal
     calls = []
     with entry_calls(cal, "_nor_slice_kernel", calls):
@@ -2261,13 +2318,14 @@ def time_big_nor(bev, em, brk, reps):
     dev = replay_ms(cal._nor_slice_kernel, calls, reps)
     plain = replay_ms(cal.nor_blocks_slice_plain, calls, reps, False)
     return dict(call_ms=cuda_ms(lambda: bev.nor_blocks(em, brk), reps),
+                call_parts=split_big_nor(bev, em, brk, reps),
                 device_ms=dev, device_ms_a_launch=dev / len(calls),
                 plain_ms=plain, plain_ms_a_launch=plain / len(calls),
                 launches_a_call=len(calls), shards=bev.n,
                 emitted=int(em.size), breaks=int(brk.size), max_abs_err=err,
                 bound_ms=1e3 * nbytes / H100_BYTES_S,
                 bound_ms_a_shard=1e3 * nbytes / H100_BYTES_S / bev.n,
-                bound_by="bytes")
+                bound_by="bytes"), calls[0]
 
 
 def run_big(run, card, sam, vcf, reps=20):
@@ -2440,7 +2498,7 @@ def run_big(run, card, sam, vcf, reps=20):
             # B4's NOR blocks (a slice-form launch a shard) on their own
             # call, with the run's launches
             bev, em, brk = held.pop("big_nor")
-            nor_big = time_big_nor(bev, em, brk, reps)
+            nor_big, slice_call = time_big_nor(bev, em, brk, reps)
             nor_big["launches"] = t["calling"].get("nor_blocks_slice", 0)
             nor_big["fetch_launches"] = t["calling"].get(
                 "caller_fetch_slice", 0)
@@ -2455,10 +2513,26 @@ def run_big(run, card, sam, vcf, reps=20):
             if t["calling"].get("nor_blocks") != 1:
                 raise AssertionError("-gvcf: the NOR block kernel did not "
                                      "run once")
-            nor = time_nor(held.pop("nor"), t["calling"]["nor_blocks"])
+            nor_args = held.pop("nor")
+            nor = time_nor(nor_args, t["calling"]["nor_blocks"])
         held.clear()
         with open(sam, "rb") as f, open(vcf, "rb") as g:
             gv[tag] = (f.read(), g.read(), t)
+    # a NOR call of each form is one device operation: no memset, no
+    # second kernel
+    a, kw = slice_call
+    ops = device_operations([lambda: cal.nor_blocks(*nor_args),
+                             lambda: cal._nor_slice_kernel(*a, **kw)])
+    n_one = sum("nor_blocks_kernel" in o for o in ops)
+    n_big = sum("nor_blocks_slice_kernel" in o for o in ops)
+    if (n_one, n_big, len(ops)) != (1, 1, 2):
+        raise AssertionError(f"-gvcf: a NOR call and a NOR slice launch "
+                             f"queued {ops}, not one kernel each")
+    nor["device_operations_a_call"] = n_one
+    nor_big["device_operations_a_launch"] = n_big
+    nor["device_operations_traced"] = nor_big[
+        "device_operations_traced"] = ops
+    del a, kw, slice_call, nor_args
     same = gv["one"][:2] == gv["big"][:2]
     tb = gv["big"][2]
     emit("big", card=card, gvcf_nor_blocks_one_card=nor, gvcf_shards=2,
@@ -3761,15 +3835,35 @@ def time_host_merge(planes, reps=50, density=0.01, seed=5):
                 share_of_bound=bound / ms)
 
 
+def device_operations(fns):
+    """The device operations (kernels, memsets, copies) that calls of the
+    functions fns queue, from one torch.profiler trace of one call of
+    each, after a call of each outside it -> their names. One trace a
+    process: a second one has reported no device event."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for fn in fns:
+            fn()
+            torch.cuda.synchronize()
+    return sorted(e.name for e in prof.events()
+                  if str(getattr(e, "device_type", "")).endswith("CUDA")
+                  and not getattr(e, "is_user_annotation", False))
+
+
 def time_nor(args, launches, reps=20):
-    """A6's NOR blocks (ops/calling_kernels.nor_blocks: nor_blocks_kernel
-    and nor_finish_kernel) on a -gvcf run's own call: the finalized
-    coverage, the sorted excluded positions and breaks and the segment
-    count as DeviceEvidence.nor_blocks passed them. Equal in every word
-    to its plain version on the card; device ms (queued), call ms, plain
-    ms (queued), beside the bound: the coverage, the positions and breaks
-    read once, three int32 words a segment written. launches: the -gvcf
-    run's."""
+    """A6's NOR blocks (ops/calling_kernels.nor_blocks: nor_blocks_kernel,
+    one launch) on a -gvcf run's own call: the finalized coverage, the
+    sorted excluded positions and breaks and the segment count as
+    DeviceEvidence.nor_blocks passed them. Equal in every word to its
+    plain version on the card; device ms (queued), call ms, plain ms
+    (queued), beside the bound: the coverage, the positions and breaks
+    read once, three int32 words a segment written; the launch geometry.
+    launches: the -gvcf run's."""
     from mapcaller_tpu_torch.ops import calling_kernels as cal
     cov, em, bkt, nseg = args
     err = max_err_of(cal.nor_blocks(*args), cal.nor_blocks_plain(*args))
@@ -3787,7 +3881,8 @@ def time_nor(args, launches, reps=20):
                 plain_ms=cuda_ms(lambda: cal.nor_blocks_plain(*args), reps,
                                  queued=True),
                 bound_ms=bound, bound_by="bytes", bytes=nbytes,
-                share_of_bound=bound / ms, launches=launches)
+                share_of_bound=bound / ms, launches=launches,
+                geometry=cal.geometry(cov.device)["nor_blocks"])
 
 
 def run_ksw2_launches(k, launches, card):
@@ -4077,6 +4172,10 @@ CLASSIFY_PACK_REGISTERS = 64
 # K2's main instantiation (evidence_apply_bits_kernel), measured before
 # its body took the slice form beside it
 K2_REGISTERS = 40
+# ptxas registers of the NOR blocks' two instantiations (csrc/calling.cu):
+# NOR_MIN_BLOCKS blocks of NOR_THREADS an SM hold at most 65,536 / (6 x
+# 256) of them, and the slice form shares the body
+NOR_REGISTERS = dict(nor_blocks_kernel=40, nor_blocks_slice_kernel=40)
 
 
 def mesh_launches():
@@ -4879,7 +4978,6 @@ def main():
              (("libcalling.so", "caller_scan_kernel"), 1),
              (("libcalling.so", "caller_fetch_kernel"), 1),
              (("libcalling.so", "nor_blocks_kernel"), 1),
-             (("libcalling.so", "nor_finish_kernel"), 1),
              (("libcalling.so", "caller_fetch_slice_kernel"), 1),
              (("libcalling.so", "nor_blocks_slice_kernel"), 1))
     reports = {kernel: ptxas_report(outputs.get(lib, ""), kernel)
@@ -4926,6 +5024,13 @@ def main():
     if got != [K2_REGISTERS]:
         raise AssertionError(f"evidence_apply_bits_kernel: {got} registers, "
                              f"expected {K2_REGISTERS}")
+    # the NOR blocks keep the registers they were measured at (PERF.md)
+    got = {k: [v.get("registers") for v in reports[k].values()]
+           for k in NOR_REGISTERS}
+    emit("build", nor_registers=got, pinned=NOR_REGISTERS)
+    if got != {k: [v] for k, v in NOR_REGISTERS.items()}:
+        raise AssertionError(f"the NOR blocks: {got} registers, expected "
+                             f"{NOR_REGISTERS}")
 
     for tier in TIERS:
         B = 4096 if tier < 192 else 2048
@@ -5172,8 +5277,7 @@ def main():
              "the warm-up's first column fetch, its positions' block "
              "depths in the same buffer"),
             ("nor_blocks", "mapcaller_tpu/calling/scan_device.py:255", [],
-             "a -gvcf run's own call (nor_blocks_kernel and "
-             "nor_finish_kernel)")):
+             "a -gvcf run's own call (nor_blocks_kernel, one launch)")):
         r = calling_t[name]
         regs = next(iter(reports[name + "_kernel"].values()))
         kernels.append({
@@ -5221,8 +5325,7 @@ def main():
             ("nor_blocks_slice", "nor", "mapcaller_tpu_torch/csrc/calling.cu",
              "mapcaller_tpu/pipeline/big_profile.py:603", [],
              "the -gvcf big_x64 -shards 2 run's own call, a launch a shard "
-             "(nor_blocks_slice_kernel, nor_finish_kernel); ms and plain_ms "
-             "a launch")):
+             "(nor_blocks_slice_kernel); ms and plain_ms a launch")):
         rs = {n: (b4["nor_shards_2"] if key == "nor" else b4[n].get(key))
               for n in (2, 4)}
         r = rs[2]

@@ -1,7 +1,8 @@
-"""Variants of the calling kernels' finalize and scan (csrc/calling.cu,
-evidence_finalize_kernel and caller_scan_kernel) timed on main-path
-data, to find where their time goes. Needs one CUDA card and nvcc, and
-the repository's kernel_variants.py and chip_smoke.py beside the package.
+"""Variants of the calling kernels' finalize, scan and NOR blocks
+(csrc/calling.cu: evidence_finalize_kernel, caller_scan_kernel,
+nor_blocks_kernel and its slice form) timed on main-path data, to find
+where their time goes. Needs one CUDA card and nvcc, and the repository's
+kernel_variants.py and chip_smoke.py beside the package.
 
     python -m mapcaller_tpu_torch.calling_variants [--parent=PATH] \\
         VARIANT [VARIANT ...]
@@ -16,6 +17,21 @@ A variant is tokens joined by "_", each an edit of the source as it is:
   Fs<n>     n tiles staged a finalize block (1: none in flight while a
             tile is processed; 2: the next tile's copies are)
   Ss<n>     the same for the scan
+  Nt<n>     n threads a NOR block (a multiple of 32, at least 128)
+  Ni<n>     n positions a NOR thread (a tile of n x threads)
+  Ns<n>     n breaks and excluded positions staged a NOR tile
+  Nm<n>     the least NOR blocks an SM in its launch bounds
+  Nb<n>     the NOR tile's coverage by one bulk copy with an mbarrier
+            (Nb1) or by 16-byte cp.async (Nb0)
+  Nfloor    timing only: the NOR kernels return at once (the launch's
+            floor in this harness; their outputs are not held)
+  Nland     timing only: a NOR tile ends once its coverage and breaks
+            have landed (searches, stage and copies)
+  Nred      timing only: a NOR tile ends after its fold and its warps'
+            reductions, before it writes any segment
+  Nfold     timing only: a NOR tile ends before its edges (all but the
+            edges' adds, arrivals and writes)
+  Nnozero   timing only: the excluded positions are not zeroed (nor read)
   sleep<n>  a __nanosleep(n) between the look-back's polls
   nolb      timing only: no look-back (tile k's carry taken as 4 k
             candidates and 5 k runs before it, and the same value for
@@ -23,26 +39,30 @@ A variant is tokens joined by "_", each an edit of the source as it is:
             scan's tiles still write their tables in separate places)
   loads     timing only: each tile staged and nothing else (no sums, no
             look-back, no stores)
-"source" is the source unedited; "parent" is the source before the
-staged redesign, a row at a time through shared memory (commit f84d1be),
+"source" is the source unedited; "parent" is an earlier tree's source,
 read from PATH (default mapcaller_tpu_torch/build/calling_parent.cu,
-git-ignored; write it first:
-    git show f84d1be:mapcaller_tpu_torch/csrc/calling.cu \\
+git-ignored; write it first, e.g. the NOR blocks before their redesign
+as one launch, a memset and two kernels:
+    git show ea2f567:mapcaller_tpu_torch/csrc/calling.cu \\
         > mapcaller_tpu_torch/build/calling_parent.cu
-). Both forms take the same C entries, so the port's wrappers drive both.
-A variant named twice is timed twice, in the order given (parent source
-source parent compares the two forms in turns). Each variant is compiled
-with the port's nvcc flags, all at once. The data come from a main-path
-run of 20,000 simulated pairs (mapcaller_tpu_torch.simulator): the
-finalize folds the run's own planes with the reference codes from its
-text words, as DeviceEvidence.finalize does, and the scan reads the
-folded planes. Then each variant's queued device ms (chip_smoke.cuda_ms)
-a turn, whether its outputs equal the plain versions' in every word (the
-whole planes, and two slices through the slice forms: carries, a local
-coverage prefix, codes given, a valid length and the seam), its geometry
-(tile, threads, stages, dynamic shared memory, blocks an SM; not the
-parent's) and its ptxas report. Prints the card's name and power limit,
-then one JSON line.
+). The parent's finalize and scan take the same C entries, so the port's
+wrappers drive both; its NOR entries, which take no scratch, are called
+as they are. A variant named twice is timed twice, in the order given
+(parent source source parent compares the two forms in turns). Each
+variant is compiled with the port's nvcc flags, all at once. The data
+come from a main-path -gvcf run of 20,000 simulated pairs
+(mapcaller_tpu_torch.simulator): the finalize folds the run's own planes
+with the reference codes from its text words, as DeviceEvidence.finalize
+does, the scan reads the folded planes, and the NOR blocks take the run's
+own call (coverage, excluded positions, breaks). Then each variant's
+queued device ms (chip_smoke.cuda_ms) a turn, whether its outputs equal
+the plain versions' in every word (the whole planes, and two slices
+through the slice forms: carries, a local coverage prefix, codes given, a
+valid length and the seam; the NOR blocks' slice form on the same two
+slices, keyed by the global breaks), its geometry (tile, threads,
+stages, dynamic shared memory, blocks an SM; not the parent's) and its
+ptxas report. Prints the card's name and power limit, then one JSON
+line.
 """
 import os
 import re
@@ -52,9 +72,19 @@ from . import toolchain
 
 SRC = os.path.join(toolchain.CSRC_DIR, "calling.cu")
 PARENT = os.path.join(toolchain.BUILD_DIR, "calling_parent.cu")
-KERNELS = ("evidence_finalize_kernel", "caller_scan_kernel")
+KERNELS = ("evidence_finalize_kernel", "caller_scan_kernel",
+           "nor_blocks_kernel", "nor_blocks_slice_kernel")
 POLL = "      if (__all_sync(FULL, (st >> 2) == lb.epoch)) break;\n"
 TIMING_ONLY = {"nolb", "loads"}        # tokens whose outputs are not held
+NOR_TIMING_ONLY = {"Nfloor", "Nland", "Nred", "Nfold", "Nnozero"}
+NOR_FLOOR = "  unsigned phase = 0;\n"   # nor_body's first line after the setup
+# nor_tile's lines where Nland, Nred and Nfold end a tile; the zeroing
+# that Nnozero drops
+NOR_LAND = ("  __syncthreads();" + " " * 22
+            + "// coverage and stages landed\n")
+NOR_FOLD = "  // an edge: its minima here added to the words"
+NOR_RED = "  if (!staged_b) __threadfence();"
+NOR_ZERO = "  if (ex >= 0) s_cov[ex] = 0;\n"
 # the last lines of fin_tile's and scan_tile's signatures: `loads` returns
 # there (the scan with its next tile drawn and staged, as it would be)
 LOADS_FIN = "unsigned long long* exb_s) {\n"
@@ -62,7 +92,9 @@ LOADS_SCAN = "unsigned long long* ex_s,\n" + " " * 41 + "int* tile_s) {\n"
 # token prefix -> the constant it sets
 KNOBS = (("Ft", "FIN_THREADS"), ("Fi", "FIN_ITEMS"), ("Fs", "FIN_STAGES"),
          ("Sb", "SCAN_BLOCKS"), ("Si", "SCAN_ITEMS"), ("Ss", "SCAN_STAGES"),
-         ("F", "FIN_MIN_BLOCKS"), ("S", "SCAN_MIN_BLOCKS"))
+         ("F", "FIN_MIN_BLOCKS"), ("S", "SCAN_MIN_BLOCKS"),
+         ("Nt", "NOR_THREADS"), ("Ni", "NOR_ITEMS"), ("Ns", "NOR_STAGE"),
+         ("Nm", "NOR_MIN_BLOCKS"), ("Nb", "NOR_BULK"))
 
 
 def _harness():
@@ -75,7 +107,7 @@ def _harness():
 
 def variant_source(name, src, parent=None):
     """The kernel source edited as variant `name` asks; "parent" is
-    `parent`, the source before the staged redesign."""
+    `parent`, an earlier tree's source."""
     kv = _harness()
     if name == "source":
         return src
@@ -99,6 +131,16 @@ def variant_source(name, src, parent=None):
                 r"\2[k_] = tile * 0x500000004ull;", src)
             if n != 3:
                 raise ValueError("the source no longer holds 3 look-backs")
+        elif tok == "Nfloor":
+            src = kv.edit(src, NOR_FLOOR, "  return;\n" + NOR_FLOOR)
+        elif tok == "Nland":
+            src = kv.edit(src, NOR_LAND, NOR_LAND + "  return;\n")
+        elif tok == "Nfold":
+            src = kv.edit(src, NOR_FOLD, "  return;\n" + NOR_FOLD)
+        elif tok == "Nred":
+            src = kv.edit(src, NOR_RED, "  return;\n" + NOR_RED)
+        elif tok == "Nnozero":
+            src = kv.edit(src, NOR_ZERO, "")
         elif tok == "loads":
             src = kv.edit(src, LOADS_FIN, LOADS_FIN + "  return;\n")
             src = kv.edit(src, LOADS_SCAN, LOADS_SCAN + (
@@ -114,15 +156,15 @@ def variant_source(name, src, parent=None):
 
 
 def main_planes(workdir):
-    """The finalize's arguments of a main-path run of 20,000 pairs: a tap
-    on calling_kernels.evidence_finalize keeps copies of what
-    DeviceEvidence.finalize passed it."""
+    """The finalize's and the NOR blocks' arguments of a main-path -gvcf
+    run of 20,000 pairs: taps on calling_kernels.evidence_finalize and
+    nor_blocks keep copies of what DeviceEvidence passed them."""
     import torch
     from . import cli, runner
     from .ops import calling_kernels as cal
-    argv = _harness().main_path_argv(workdir, 20_000)
+    argv = _harness().main_path_argv(workdir, 20_000) + ["-gvcf"]
     kept = {}
-    real = cal.evidence_finalize
+    real, real_nor = cal.evidence_finalize, cal.nor_blocks
 
     def tap(acgt, exact_diff, f_diff, multi_diff, n, codes=None,
             words=None, **kw):
@@ -132,14 +174,60 @@ def main_planes(workdir):
         return real(acgt, exact_diff, f_diff, multi_diff, n, codes=codes,
                     words=words, **kw)
 
-    cal.evidence_finalize = tap
+    def tap_nor(cov, emitted, brk_sorted, nseg):
+        kept.update(nor=(cov.clone(), emitted.clone(), brk_sorted.clone(),
+                         nseg))
+        return real_nor(cov, emitted, brk_sorted, nseg)
+
+    cal.evidence_finalize, cal.nor_blocks = tap, tap_nor
     try:
         if runner.run_pipeline(cli.parse_args(argv), " ".join(argv)) != 0:
             raise RuntimeError("the main-path run failed")
     finally:
-        cal.evidence_finalize = real
+        cal.evidence_finalize, cal.nor_blocks = real, real_nor
     torch.cuda.synchronize()
+    if "nor" not in kept:
+        raise RuntimeError("the -gvcf run made no NOR call")
     return kept
+
+
+def parent_nor(lib):
+    """The parent source's NOR entries (no scratch: a memset and two
+    kernels) as (nor, nor_slice), taking the wrappers' arguments."""
+    import ctypes as C
+    import torch
+    P, I, LL = C.c_void_p, C.c_int, C.c_longlong
+    lib.mc_nor_blocks.argtypes = [P, I, P, I, P, I, I, P, P]
+    lib.mc_nor_blocks_slice.argtypes = [P, I, P, I, P, I, I, LL, P, P]
+
+    def run(fn, cov, L, em, brk, nseg, *off):
+        out = torch.empty(3 * nseg, dtype=torch.int32, device=cov.device)
+        err = fn(cov.data_ptr(), L, em.data_ptr(), em.numel(),
+                 brk.data_ptr(), brk.numel(), nseg, *off, out.data_ptr(),
+                 torch.cuda.current_stream(cov.device).cuda_stream)
+        if err:
+            raise RuntimeError(f"parent NOR: CUDA error {err}")
+        return out
+    return (lambda cov, em, brk, nseg: run(lib.mc_nor_blocks, cov,
+                                           cov.numel(), em, brk, nseg),
+            lambda cov, valid, em, brk, nseg, off: run(
+                lib.mc_nor_blocks_slice, cov, valid, em, brk, nseg, off))
+
+
+def nor_slices(nor_args, cut):
+    """The NOR call's arguments as two slice-form calls cut at `cut`, as
+    B4 makes them a shard: the first slice whole, the second with a valid
+    length 777 short of its end, each with its own excluded positions
+    and every break."""
+    cov, em, brk, nseg = nor_args
+    n = cov.numel()
+    e = em.cpu()
+    out = []
+    for off, valid, pl in ((0, cut, cut), (cut, n - cut - 777, n - cut)):
+        mine = e[(e >= off) & (e < off + valid)].to(em.device)
+        out.append((cov[off:off + pl].contiguous(), valid, mine, brk, nseg,
+                    off))
+    return out
 
 
 def sliced(fin, scan, args, n, words, scan_args, cut):
@@ -182,19 +270,32 @@ def body(names, work, parent=None):
     cut = n // 3 + 13
     slices_want = sliced(cal.evidence_finalize_plain, cal.caller_scan_plain,
                          args, n, words, (fb, 2, False), cut)
-    out = dict(L=n, turns=names, variants={})
+    nor_args = kept["nor"]
+    nor_sl = nor_slices(nor_args, cut)
+    nor_want = (cal.nor_blocks_plain(*nor_args),
+                *(cal.nor_blocks_slice_plain(*a) for a in nor_sl))
+    out = dict(L=n, turns=names, nor=dict(
+        L=nor_args[0].numel(), emitted=nor_args[1].numel(),
+        breaks=nor_args[2].numel(), segments=nor_args[3],
+        slices=[a[1] for a in nor_sl]), variants={})
     for name in names:
         lib, ptxas = libs[name]
         with kv.bound(cal, lib) as bound_lib:
+            nor, nor_slice = (parent_nor(bound_lib) if name == "parent"
+                              else (cal.nor_blocks, cal.nor_blocks_slice))
             got = cal.evidence_finalize(*args, n, words=words)
             sgot = cal.caller_scan(*scan_in)
             slices = sliced(cal.evidence_finalize, cal.caller_scan, args,
                             n, words, (fb, 2, False), cut)
+            nor_got = (nor(*nor_args), *(nor_slice(*a) for a in nor_sl))
             equal = (chip_smoke.max_err_of(tuple(got), tuple(want)) == 0
                      and chip_smoke.max_err_of(tuple(sgot), tuple(swant))
                      == 0
                      and chip_smoke.max_err_of(slices, slices_want) == 0)
-            if not equal and not TIMING_ONLY & set(name.split("_")):
+            nor_equal = chip_smoke.max_err_of(nor_got, nor_want) == 0
+            toks = set(name.split("_"))
+            if (not nor_equal and not NOR_TIMING_ONLY & toks) or (
+                    not equal and not TIMING_ONLY & toks):
                 raise AssertionError(f"{name}: outputs differ from the "
                                      f"plain versions'")
             turn = dict(
@@ -202,14 +303,19 @@ def body(names, work, parent=None):
                     lambda: cal.evidence_finalize(*args, n, words=words), 30,
                     queued=True),
                 scan_ms=chip_smoke.cuda_ms(lambda: cal.caller_scan(*scan_in),
-                                           30, queued=True))
+                                           30, queued=True),
+                nor_ms=chip_smoke.cuda_ms(lambda: nor(*nor_args), 30,
+                                          queued=True),
+                nor_slice_ms=[chip_smoke.cuda_ms(
+                    lambda a=a: nor_slice(*a), 30, queued=True)
+                    for a in nor_sl])
             row = out["variants"].setdefault(name, dict(
-                turns=[], equal=equal, ptxas=ptxas,
-                geometry=cal.geometry(args[0].device)
-                if hasattr(bound_lib, "mc_calling_geometry") else None))
+                turns=[], equal=equal, nor_equal=nor_equal, ptxas=ptxas,
+                geometry=None if name == "parent"
+                else cal.geometry(args[0].device)))
             row["turns"].append(turn)
         print(name, turn, row["geometry"], flush=True)
-    del got, sgot, slices
+    del got, sgot, slices, nor_got
     torch.cuda.synchronize()
     return out
 

@@ -26,8 +26,8 @@
 //     the same int64 buffer;
 //   nor_blocks_kernel         A6's gVCF NOR blocks, build_nor_kernel
 //     (scan_device.py:255-285): the per-segment minima of position and
-//     coverage of the normal positions; nor_finish_kernel reads them out
-//     with the coverage at each segment's first position.
+//     coverage of the normal positions, read out with the coverage at each
+//     segment's first position by the launch's last block.
 //   caller_fetch_slice_kernel, nor_blocks_slice_kernel  the slice forms of
 //     the fetch and the NOR blocks, B4's fetch and NOR (mapcaller_tpu/
 //     pipeline/big_profile.py:532-601, :603-667) a shard of the genome-
@@ -127,10 +127,13 @@ constexpr int SCAN_STAGES = 1;
 constexpr int SCAN_MIN_BLOCKS = 2;
 constexpr int BLOCK_THREADS = BLOCK_SIZE / SCAN_ITEMS;   // threads a block
 constexpr int FETCH_THREADS = 256;
-constexpr int NOR_THREADS = 256;        // a NOR tile: 16 rounds of 256
-constexpr int NOR_ROUNDS = 16;          // consecutive positions
-constexpr int NOR_TILE = NOR_THREADS * NOR_ROUNDS;
-constexpr int NOR_STAGE = 1024;         // breaks / exclusions staged a tile
+constexpr int NOR_THREADS = 256;        // a NOR tile: NOR_ITEMS
+constexpr int NOR_ITEMS = 28;           // consecutive positions a thread
+constexpr int NOR_TILE = NOR_THREADS * NOR_ITEMS;
+constexpr int NOR_STAGE = 256;          // breaks staged a tile
+constexpr int NOR_MIN_BLOCKS = 6;       // blocks an SM, launch bounds
+constexpr int NOR_BULK = 0;             // the coverage by one bulk copy (1)
+                                        // or by 16-byte cp.async (0)
 
 // a tile's look-back slot: 16 words; chain A at word 0 (flag, 6 aggregate
 // words, 6 inclusive words), chain B at word 13 (flag, 1 + 1)
@@ -171,6 +174,11 @@ static_assert(FIN_STAGES >= 1 && FIN_STAGES <= 2 && SCAN_STAGES >= 1 &&
               SCAN_STAGES <= 2, "one or two stages");
 static_assert(FIN_SMEM <= 227 * 1024 && SCAN_SMEM <= 227 * 1024,
               "a block's shared memory");
+static_assert(NOR_THREADS % 32 == 0 && NOR_THREADS >= 128,
+              "whole warps, four of them for a tile's searches");
+static_assert(NOR_ITEMS % 8 == 4,
+              "a thread's positions as 16-byte words, a quarter warp's on "
+              "32 banks");
 
 struct LookBack {
   unsigned int* ticket;                 // tiles handed out this launch
@@ -940,7 +948,29 @@ caller_fetch_slice_kernel(FetchIn in, long long* __restrict__ out) {
   fetch_body<true>(in, out);
 }
 
-// ---- nor_blocks_kernel, nor_finish_kernel --------------------------------
+// ---- nor_blocks_kernel, nor_blocks_slice_kernel ---------------------------
+//
+// key(p), the breaks at or before p, is non-decreasing in p, so a segment
+// (key clamped to nseg - 1) is a range of positions, and a tile of
+// NOR_TILE positions holds a range of segments sb .. se. Those strictly
+// between lie inside the tile, and the tile writes their output itself.
+// Its edges, sb (when it holds a position here) and se, may reach into
+// other tiles: each tile adds its minima of an edge to the launch's words
+// and counts its arrival; the arrival that completes the edge's tiles
+// writes its output. Tile 0 writes the segments before its first, the
+// last tile those after its last (empty: no position of [0, L) has their
+// keys). So one launch writes every output word with no pass after it,
+// and nothing is cleared between launches: each word carries the launch's
+// epoch, and one of an earlier launch reads as empty.
+//
+// What bounds it is latency and the fold's instructions, not its bytes
+// (4 a position; PERF.md has the cut-off timings): a tile's coverage
+// copies are issued first, all at once, and its four searches (32-ary, a
+// warp each: 3 dependent loads for 6,484 breaks) run under them; the
+// fold takes a thread's 28 positions with no branch; an edge costs its
+// last tile three round trips (its adds, its count, the words). Blocks
+// are persistent, NOR_MIN_BLOCKS an SM, so that on a bacterial genome
+// every tile is in flight in one wave.
 
 struct NorIn {
   const int* cov;                       // [L]
@@ -950,14 +980,44 @@ struct NorIn {
   long long off;                        // slice form: position 0's global
 };
 
-// Entries of the sorted a[0..n) whose value clamped to [lo, hi] is below x.
-__device__ __forceinline__ int count_below(const long long* a, int n,
-                                           long long x, long long lo,
-                                           long long hi) {
+// A launch's words and output: acc [3][nseg] = first position, minimum
+// coverage (each epoch << 32 | INT32_MAX - minimum, combined by atomicMax,
+// so that a word of an earlier launch, of a smaller epoch, loses to any
+// of this one) and an edge's arrivals (epoch << 32 | count).
+struct NorAcc {
+  unsigned long long* acc;
+  unsigned long long tag;               // epoch << 32
+  int* out;                             // [3][nseg]
+};
+
+// In every lane: the entries of the sorted a[0..n) whose value clamped to
+// [lo, hi] is below x. A 32-ary search: each step a lane reads one entry,
+// the last of its 1/32 of the range, and the ballot of those below keeps
+// one part: ceil(log32(n + 1)) dependent loads.
+__device__ __forceinline__ int warp_count_below(const long long* a, int n,
+                                                long long x, long long lo,
+                                                long long hi) {
+  const int lane = threadIdx.x & 31;
+  long long l = 0, r = n;               // the count lies in [l, r]
+  while (l < r) {
+    const long long step = (r - l + 31) >> 5;
+    const long long i = l + (lane + 1) * step - 1;
+    const bool below = i < r && min(max(a[i], lo), hi) < x;
+    const int c = __popc(__ballot_sync(FULL, below));
+    r = min(l + (c + 1) * step - 1, r);
+    l += c * step;
+  }
+  return (int)l;
+}
+
+// Entries j < n of a sorted sequence v(j) that are at most x: a binary
+// search.
+template <typename V>
+__device__ __forceinline__ int count_to(V v, int n, int x) {
   int l = 0, r = n;
   while (l < r) {
     const int m = (l + r) >> 1;
-    if (min(max(a[m], lo), hi) < x)
+    if (v(m) <= x)
       l = m + 1;
     else
       r = m;
@@ -965,134 +1025,376 @@ __device__ __forceinline__ int count_below(const long long* a, int n,
   return l;
 }
 
-// A tile of NOR_TILE positions: key(p) = the breaks <= p is non-decreasing
-// in p, so a segment is a range of positions. Each round a warp holds 32
-// consecutive positions; a segmented reduction over runs of equal keys
-// leaves each run's minima in its first lane, which adds them to the
-// tile's slot of that key in shared memory; the tile then adds its slots
-// to acc. acc [2][nseg] holds INT32_MAX - the minimum (0: none), so the
-// zeroed buffer is the empty segment and the adds are atomicMax. The slice
-// form (B4's NOR, a shard's positions 0 .. L - 1 of a genome's positions
-// off ..): keys count the global breaks at or before off + p, and the
-// excluded positions are global (the shard's own, sorted); its minima are
-// local positions.
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// Segment s's output: first position, minimum coverage, coverage at the
+// first position clamped to [0, L).
+__device__ __forceinline__ void nor_put(const NorIn& in, const NorAcc& acc,
+                                        int s, int first, int mn, int cf) {
+  acc.out[s] = first;
+  acc.out[in.nseg + s] = mn;
+  acc.out[2 * in.nseg + s] = cf;
+}
+
+// Segment s's output from the launch's words (read at L2, past L1); its
+// first position and the coverage there only when they lie outside tile
+// `head`, whose tile wrote them.
+__device__ __forceinline__ void nor_put_words(const NorIn& in,
+                                              const NorAcc& acc, int s,
+                                              int head) {
+  const unsigned long long epoch = acc.tag >> 32;
+  const unsigned long long w0 = __ldcg(acc.acc + s);
+  const unsigned long long w1 = __ldcg(acc.acc + in.nseg + s);
+  const int first = w0 >> 32 == epoch ? I32_MAX - (int)(unsigned)w0
+                                      : I32_MAX;
+  acc.out[in.nseg + s] = w1 >> 32 == epoch ? I32_MAX - (int)(unsigned)w1
+                                           : I32_MAX;
+  if (first == I32_MAX || first / NOR_TILE != head) {
+    acc.out[s] = first;
+    acc.out[2 * in.nseg + s] = __ldg(in.cov + min(max(first, 0), in.L - 1));
+  }
+}
+
+// The first and the last tile that segment s's positions span: [st, en)
+// of the local positions, from lo = brk[s - 1] (s >= 1) and hi = brk[s]
+// (s below K and nseg - 1; else the segment runs to L).
+__device__ __forceinline__ int2 nor_tiles(const NorIn& in, int s,
+                                          long long lo, long long hi,
+                                          long long gb) {
+  const long long st = s == 0 ? 0 : min(max(lo - gb, 0LL), (long long)in.L);
+  const long long en = s >= in.K || s == in.nseg - 1
+                           ? in.L
+                           : min(max(hi - gb, 0LL), (long long)in.L);
+  return make_int2((int)(st / NOR_TILE), (int)((en - 1) / NOR_TILE));
+}
+
+// One tile. The coverage copies go out first; meanwhile warps 0-3 find the
+// tile's breaks and excluded positions (a search each). The breaks are
+// staged relative to the tile when at most NOR_STAGE; the excluded
+// positions are zeroed in the staged coverage (an excluded position is
+// not normal, as an uncovered one). A thread folds its NOR_ITEMS
+// consecutive positions into runs of equal segment (with at most one
+// break position among them, nearly always, two runs read as 16-byte
+// words with no branch): a run wholly
+// inside the thread is done; its first run may continue the thread before
+// it and its last the thread after. Lane i - 1's last run joins lane i's
+// first of the same segment, else it is done; a segmented reduction over
+// the lanes' first runs leaves each run of equal segment's minima in its
+// first lane. A done run goes to the tile's slot of its segment in shared
+// memory; past NOR_STAGE breaks, straight to the launch's words. Then the
+// segments inside the tile are written, and threads 0 and 32 take the
+// edges.
 template <bool SLICE>
-__device__ __forceinline__ void nor_blocks_body(const NorIn& in,
-                                                int* __restrict__ acc) {
-  __shared__ int s_brk[NOR_STAGE], s_em[NOR_STAGE];
-  __shared__ int s_first[NOR_STAGE + 1], s_min[NOR_STAGE + 1];
-  __shared__ int s_rng[4];
+__device__ __forceinline__ void nor_tile(const NorIn& in, const NorAcc& acc,
+                                         int tile, int ntiles,
+                                         unsigned phase, int* s_cov,
+                                         int* s_brk, int* s_first, int* s_min,
+                                         int* s_rng,
+                                         unsigned long long* s_bar) {
   const int t = threadIdx.x, lane = t & 31;
-  const int base = blockIdx.x * NOR_TILE;
-  const int end = min(base + NOR_TILE, in.L);
+  const int base = tile * NOR_TILE;
+  const int n = min(NOR_TILE, in.L - base);   // the tile's positions
   const long long NONE = (long long)1 << 62;
   // the global value of a break or an excluded position at local 0
   const long long gb = SLICE ? in.off : 0LL;
-  if (t == 0) {
-    s_rng[0] = count_below(in.brk, in.K, gb + base, -NONE, NONE);
-    s_rng[1] = count_below(in.brk, in.K, gb + end, -NONE, NONE);
-    s_rng[2] = count_below(in.em, in.E, gb + base, gb, gb + in.L - 1);
-    s_rng[3] = count_below(in.em, in.E, gb + end, gb, gb + in.L - 1);
+  const bool bulk = NOR_BULK && ((uintptr_t)in.cov & 15) == 0;
+  __syncthreads();                      // the tile before is read
+  if (bulk) {
+    if (t == 0) {
+      const int nb = 16 * (n >> 2);
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      if (nb) {
+        asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                     :: "r"(smem_addr(s_bar)), "r"(nb) : "memory");
+        asm volatile(
+            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+            " [%0], [%1], %2, [%3];"
+            :: "r"(smem_addr(s_cov)), "l"(in.cov + base), "r"(nb),
+               "r"(smem_addr(s_bar)) : "memory");
+      } else {
+        asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
+                     :: "r"(smem_addr(s_bar)) : "memory");
+      }
+    }
+    for (int j = 4 * (n >> 2) + t; j < n; j += NOR_THREADS)
+      s_cov[j] = in.cov[base + j];
+  } else {
+    stage_row<NOR_THREADS, NOR_TILE>(s_cov, in.cov, base, in.L);
+    cp_commit();
+  }
+  const int w = t >> 5;
+  if (w < 4) {                          // breaks below base, below the end;
+    const long long x = gb + base + (w & 1 ? n : 0);   // exclusions alike
+    const int c = w < 2 ? warp_count_below(in.brk, in.K, x, -NONE, NONE)
+                        : warp_count_below(in.em, in.E, x, gb,
+                                           gb + in.L - 1);
+    if (lane == 0) s_rng[w] = c;
   }
   __syncthreads();
   const int kb = s_rng[0], nk = s_rng[1] - kb;
   const int eb = s_rng[2], ne = s_rng[3] - eb;
-  const bool staged_b = nk <= NOR_STAGE, staged_e = ne <= NOR_STAGE;
-  // segments of this tile: min(key, nseg - 1) from sb on, at most nk + 1
-  const int sb = min(kb, in.nseg - 1);
+  const bool staged_b = nk <= NOR_STAGE;
+  // the tile's segments sb .. se; thread 0 takes sb, thread 32 se
+  const int sb = min(kb, in.nseg - 1), se = min(kb + nk, in.nseg - 1);
+  const int es = t == 0 ? sb : se;
+  long long lo = 0, hi = 0;             // brk[es - 1], brk[es]
+  if (t == 0 || t == 32) {
+    if (es >= 1) lo = in.brk[es - 1];
+    if (es < in.K && es < in.nseg - 1) hi = in.brk[es];
+  }
+  // a break relative to the tile
+  auto brel = [&](int j) {
+    return staged_b ? s_brk[j] : (int)(in.brk[kb + j] - gb - base);
+  };
+  // an excluded position relative to the tile: it reads as uncovered
+  auto erel = [&](int j) {
+    return (int)(min(max(in.em[eb + j] - gb, 0LL), (long long)in.L - 1) -
+                 base);
+  };
+  const int ex = t < ne ? erel(t) : -1;
   if (staged_b) {
     for (int j = t; j < nk; j += NOR_THREADS)
       s_brk[j] = (int)(in.brk[kb + j] - gb - base);
     for (int j = t; j <= nk; j += NOR_THREADS)
       s_first[j] = s_min[j] = I32_MAX;
   }
-  if (staged_e)
-    for (int j = t; j < ne; j += NOR_THREADS)
-      s_em[j] = (int)(min(max(in.em[eb + j] - gb, 0LL),
-                          (long long)in.L - 1) - base);
+  if (bulk) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "WAIT:\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+        "@!p bra WAIT;\n"
+        "}\n" :: "r"(smem_addr(s_bar)), "r"(phase) : "memory");
+  } else {
+    cp_wait<0>();
+  }
+  __syncthreads();                      // coverage and stages landed
+  if (ex >= 0) s_cov[ex] = 0;
+  for (int j = t + NOR_THREADS; j < ne; j += NOR_THREADS) s_cov[erel(j)] = 0;
   __syncthreads();
-  // positions relative to the tile; the thread's walks through the breaks
-  // and exclusions move forward only
-  int ki = 0, ei = 0;
-  for (int r = 0; r < NOR_ROUNDS; ++r) {
-    const int q = r * NOR_THREADS + t;  // relative position
-    const int p = base + q;
-    int seg = I32_MAX, a = I32_MAX, c = I32_MAX;
-    if (p < end) {
-      while (ki < nk &&
-             (staged_b ? s_brk[ki] : (int)(in.brk[kb + ki] - gb - base)) <=
-                 q)
-        ++ki;
-      while (ei < ne &&
-             (staged_e ? s_em[ei]
-                       : (int)(min(max(in.em[eb + ei] - gb, 0LL),
-                                   (long long)in.L - 1) - base)) < q)
-        ++ei;
-      const bool excluded =
-          ei < ne &&
-          (staged_e ? s_em[ei]
-                    : (int)(min(max(in.em[eb + ei] - gb, 0LL),
-                                (long long)in.L - 1) - base)) == q;
-      const int cv = in.cov[p];
-      seg = min(kb + ki, in.nseg - 1);
-      if (cv > 0 && !excluded) {
-        a = p;
-        c = cv;
-      }
+  auto emit = [&](int seg, int a, int c) {
+    if (staged_b) {
+      atomicMin(&s_first[seg - sb], a);
+      atomicMin(&s_min[seg - sb], c);
+    } else {
+      atomicMax(&acc.acc[seg], acc.tag | (unsigned)(I32_MAX - a));
+      atomicMax(&acc.acc[in.nseg + seg], acc.tag | (unsigned)(I32_MAX - c));
     }
-    // segmented minima over runs of equal seg (seg non-decreasing in lane)
+  };
+  // the thread's first run (fs, fa, fc) and, with two or more, its last
+  // (ls >= 0): segment, first normal position, least coverage
+  int fs = I32_MAX, fa = I32_MAX, fc = I32_MAX;
+  int ls = -1, la = I32_MAX, lc = I32_MAX;
+  const int q0 = t * NOR_ITEMS;
+  if (q0 < n) {
+    int ki = count_to(brel, nk, q0);            // breaks at or before q0
+    int nb = ki < nk ? brel(ki) : I32_MAX;      // the next break
+    int s = min(kb + ki, in.nseg - 1), a = I32_MAX, c = I32_MAX;
+    if (t == 0) s_rng[4] = s;                   // the tile's first segment
+    bool first = true;
+    const int m = min(NOR_ITEMS, n - q0);
+    // the break position after nb (past nb's duplicates), when nb is the
+    // thread's
+    int k2 = ki, n2 = nb;
+    if (nb < q0 + NOR_ITEMS) {
+      do {
+        ++k2;
+        n2 = k2 < nk ? brel(k2) : I32_MAX;
+      } while (n2 <= nb);
+    }
+    if (m == NOR_ITEMS && n2 >= q0 + NOR_ITEMS) {
+      // at most one break position among the thread's positions, nb: two
+      // runs, [q0, nb) of s and [nb, ..) of s2, folded with no branch
+      // from 16-byte shared-memory words, from the last to the first (a
+      // run's first normal position is the last one seen)
+      const int s2 = min(kb + k2, in.nseg - 1);
+      int a2 = I32_MAX, c2 = I32_MAX;
 #pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int s2 = __shfl_down_sync(FULL, seg, d);
-      const int a2 = __shfl_down_sync(FULL, a, d);
-      const int c2 = __shfl_down_sync(FULL, c, d);
-      if (lane + d < 32 && s2 == seg) {
+      for (int i = NOR_ITEMS - 4; i >= 0; i -= 4) {
+        const int4 v = *reinterpret_cast<const int4*>(s_cov + q0 + i);
+        const int x[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int j = 3; j >= 0; --j) {
+          const int q = q0 + i + j, cv = x[j];
+          const bool late = q >= nb;
+          if (cv > 0 && late) a2 = base + q;
+          if (cv > 0 && !late) a = base + q;
+          c2 = min(c2, cv > 0 && late ? cv : I32_MAX);
+          c = min(c, cv > 0 && !late ? cv : I32_MAX);
+        }
+      }
+      if (s2 == s) {
         a = min(a, a2);
         c = min(c, c2);
+      } else {
+        fs = s, fa = a, fc = c;
+        first = false;
+        s = s2, a = a2, c = c2;
+      }
+    } else {
+#pragma unroll 1
+      for (int i = 0; i < m; ++i) {
+        const int q = q0 + i;
+        if (q >= nb) {                  // a break at q
+          do {
+            ++ki;
+            nb = ki < nk ? brel(ki) : I32_MAX;
+          } while (nb <= q);
+          const int s2 = min(kb + ki, in.nseg - 1);
+          if (s2 != s) {
+            if (first) {
+              fs = s, fa = a, fc = c;
+              first = false;
+            } else if (a != I32_MAX) {
+              emit(s, a, c);            // a run inside the thread
+            }
+            s = s2, a = I32_MAX, c = I32_MAX;
+          }
+        }
+        const int cv = s_cov[q];
+        if (cv > 0) {
+          a = min(a, base + q);
+          c = min(c, cv);
+        }
       }
     }
-    const int sp = __shfl_up_sync(FULL, seg, 1);
-    if ((lane == 0 || sp != seg) && a != I32_MAX) {
-      if (staged_b) {
-        atomicMin(&s_first[seg - sb], a);
-        atomicMin(&s_min[seg - sb], c);
-      } else {
-        atomicMax(&acc[seg], I32_MAX - a);
-        atomicMax(&acc[in.nseg + seg], I32_MAX - c);
-      }
+    if (first)
+      fs = s, fa = a, fc = c;
+    else
+      ls = s, la = a, lc = c;
+  }
+  // lane - 1's last run: the head of this lane's first, or done
+  const int pls = __shfl_up_sync(FULL, ls, 1);
+  const int pla = __shfl_up_sync(FULL, la, 1);
+  const int plc = __shfl_up_sync(FULL, lc, 1);
+  if (lane > 0 && pls >= 0) {
+    if (pls == fs) {
+      fa = min(fa, pla);
+      fc = min(fc, plc);
+    } else if (pla != I32_MAX) {
+      emit(pls, pla, plc);
     }
   }
-  if (!staged_b) return;
-  __syncthreads();
-  for (int j = t; j <= nk && sb + j < in.nseg; j += NOR_THREADS)
-    if (s_first[j] != I32_MAX) {
-      atomicMax(&acc[sb + j], I32_MAX - s_first[j]);
-      atomicMax(&acc[in.nseg + sb + j], I32_MAX - s_min[j]);
+  if (lane == 31 && ls >= 0 && la != I32_MAX) emit(ls, la, lc);
+  // segmented minima over the lanes' first runs (fs non-decreasing)
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int s2 = __shfl_down_sync(FULL, fs, d);
+    const int a2 = __shfl_down_sync(FULL, fa, d);
+    const int c2 = __shfl_down_sync(FULL, fc, d);
+    if (lane + d < 32 && s2 == fs) {
+      fa = min(fa, a2);
+      fc = min(fc, c2);
     }
+  }
+  const int sp = __shfl_up_sync(FULL, fs, 1);
+  if ((lane == 0 || sp != fs) && fa != I32_MAX) emit(fs, fa, fc);
+  if (!staged_b) __threadfence();       // the words, before the edges
+  __syncthreads();
+  const int sf = s_rng[4];              // sb, or above it: a break at base
+  // the segments inside the tile
+  for (int s = sb + 1 + t; s < se; s += NOR_THREADS) {
+    if (staged_b) {
+      const int f = s_first[s - sb];
+      nor_put(in, acc, s, f, s_min[s - sb],
+              f != I32_MAX ? s_cov[f - base] : __ldg(in.cov + in.L - 1));
+    } else {
+      nor_put_words(in, acc, s, -1);
+    }
+  }
+  // before tile 0's first segment and after the last tile's, none
+  const int cl = __ldg(in.cov + in.L - 1);
+  if (tile == 0)
+    for (int s = t; s < sf; s += NOR_THREADS)
+      nor_put(in, acc, s, I32_MAX, I32_MAX, cl);
+  if (tile == ntiles - 1)
+    for (int s = se + 1 + t; s < in.nseg; s += NOR_THREADS)
+      nor_put(in, acc, s, I32_MAX, I32_MAX, cl);
+  // an edge: its minima here added to the words, then this tile's arrival;
+  // the one that completes the edge's tiles writes it. The first of its
+  // tiles that holds a normal position of it holds its first one: it
+  // writes that position and the coverage there itself, before arriving.
+  if ((t == 0 && sf == sb) || (t == 32 && se != sb)) {
+    const int2 tt = nor_tiles(in, es, lo, hi, gb);
+    const int j = es - sb;
+    if (tt.x == tt.y && staged_b) {
+      const int f = s_first[j];
+      nor_put(in, acc, es, f, s_min[j],
+              f != I32_MAX ? s_cov[f - base] : cl);
+      return;
+    }
+    if (staged_b && s_first[j] != I32_MAX) {
+      const int f = s_first[j];
+      atomicMax(&acc.acc[es], acc.tag | (unsigned)(I32_MAX - f));
+      atomicMax(&acc.acc[in.nseg + es],
+                acc.tag | (unsigned)(I32_MAX - s_min[j]));
+      if (tile == tt.x) {
+        acc.out[es] = f;
+        acc.out[2 * in.nseg + es] = s_cov[f - base];
+      }
+    } else if (!staged_b && tile == tt.x) {
+      // this tile's adds are in the words, and any other tile's first
+      // position of the segment lies past it
+      const unsigned long long w = __ldcg(acc.acc + es);
+      const int f = w >> 32 == acc.tag >> 32 ? I32_MAX - (int)(unsigned)w
+                                             : I32_MAX;
+      if (f != I32_MAX && f / NOR_TILE == tile) {
+        acc.out[es] = f;
+        acc.out[2 * in.nseg + es] = __ldg(in.cov + f);
+      }
+    }
+    if (tt.x != tt.y) {
+      // the count after the minima (release), the words after it (acquire)
+      unsigned long long* cnt = acc.acc + 2 * in.nseg + es;
+      unsigned long long k;
+      atomicMax(cnt, acc.tag);          // an earlier launch's count: 0
+      asm volatile("atom.acq_rel.gpu.global.add.u64 %0, [%1], %2;"
+                   : "=l"(k) : "l"(cnt), "l"(1ull) : "memory");
+      if ((unsigned)k + 1 != (unsigned)(tt.y - tt.x + 1)) return;
+    }
+    nor_put_words(in, acc, es, tt.x != tt.y ? tt.x : -1);
+  }
 }
 
-__global__ void __launch_bounds__(NOR_THREADS)
-nor_blocks_kernel(NorIn in, int* __restrict__ acc) {
-  nor_blocks_body<false>(in, acc);
+// Persistent blocks, tiles blockIdx.x + k * gridDim.x. The slice form
+// (B4's NOR, a shard's positions 0 .. L - 1 of a genome's positions off
+// ..): keys count the global breaks at or before off + p, and the
+// excluded positions are global (the shard's own, sorted); its minima are
+// local positions. out [3][nseg]: first position, minimum coverage
+// (INT32_MAX for a segment with no normal position) and the coverage at
+// the clamped first position.
+template <bool SLICE>
+__device__ __forceinline__ void nor_body(const NorIn& in, const NorAcc& acc,
+                                         int ntiles) {
+  __shared__ __align__(16) int s_cov[NOR_TILE];
+  __shared__ int s_brk[NOR_STAGE];
+  __shared__ int s_first[NOR_STAGE + 1], s_min[NOR_STAGE + 1];
+  __shared__ int s_rng[5];
+  __shared__ __align__(8) unsigned long long s_bar;
+  if (NOR_BULK && threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
+                 :: "r"(smem_addr(&s_bar)) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  unsigned phase = 0;
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    nor_tile<SLICE>(in, acc, tile, ntiles, phase, s_cov, s_brk, s_first,
+                    s_min, s_rng, &s_bar);
+    phase ^= 1;
+  }
 }
 
-__global__ void __launch_bounds__(NOR_THREADS)
-nor_blocks_slice_kernel(NorIn in, int* __restrict__ acc) {
-  nor_blocks_body<true>(in, acc);
+__global__ void __launch_bounds__(NOR_THREADS, NOR_MIN_BLOCKS)
+nor_blocks_kernel(NorIn in, NorAcc acc, int ntiles) {
+  nor_body<false>(in, acc, ntiles);
 }
 
-// acc [2][nseg] -> out [3][nseg]: first position, minimum coverage (both
-// INT32_MAX for an empty segment) and the coverage at the clamped first
-// position. In place: out's first 2 * nseg words are acc.
-__global__ void __launch_bounds__(NOR_THREADS)
-nor_finish_kernel(const int* __restrict__ cov, int L, int nseg,
-                  int* out) {
-  const int s = blockIdx.x * NOR_THREADS + threadIdx.x;
-  if (s >= nseg) return;
-  const int first = I32_MAX - out[s];
-  out[s] = first;
-  out[nseg + s] = I32_MAX - out[nseg + s];
-  out[2 * nseg + s] = cov[min(max(first, 0), L - 1)];
+__global__ void __launch_bounds__(NOR_THREADS, NOR_MIN_BLOCKS)
+nor_blocks_slice_kernel(NorIn in, NorAcc acc, int ntiles) {
+  nor_body<true>(in, acc, ntiles);
 }
 
 bool epoch_ok(int epoch) { return epoch >= 1 && epoch < (1 << 30); }
@@ -1123,16 +1425,49 @@ cudaError_t resident(K* kernel, int threads, int smem, int* per_sm,
   return err;
 }
 
+// One launch of the NOR blocks (SLICE: the slice form) over
+// min(tiles, blocks an SM x SMs) persistent blocks.
+template <bool SLICE>
+int nor_launch(const void* cov, int L, const void* em, int E,
+               const void* brk, int K, int nseg, long long off, void* out,
+               void* scratch, int cap, int epoch, void* stream) {
+  if (L < 1 || E < 0 || K < 0 || nseg < 1 || nseg > cap ||
+      cap > (1 << 29) || off < 0 || cov == nullptr || out == nullptr ||
+      scratch == nullptr || !epoch_ok(epoch) || (E > 0 && em == nullptr) ||
+      (K > 0 && brk == nullptr) || (!SLICE && off != 0))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = SLICE ? nor_blocks_slice_kernel : nor_blocks_kernel;
+  int per_sm = 0, sms = 0;
+  const cudaError_t err = resident(kernel, NOR_THREADS, 0, &per_sm, &sms);
+  if (err != cudaSuccess) return (int)err;
+  const int ntiles = (int)(((long long)L + NOR_TILE - 1) / NOR_TILE);
+  const int grid = ntiles < per_sm * sms ? ntiles : per_sm * sms;
+  const NorIn in{(const int*)cov, (const long long*)em,
+                 (const long long*)brk, L, E, K, nseg, off};
+  const NorAcc acc{(unsigned long long*)scratch,
+                   (unsigned long long)epoch << 32, (int*)out};
+  kernel<<<grid, NOR_THREADS, 0, (cudaStream_t)stream>>>(in, acc, ntiles);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// The finalize's (which 0) or the scan's (1) geometry on the current
-// device: out int32[6] = positions a tile, threads a block, tiles staged a
-// block, bytes of dynamic shared memory a block, blocks an SM, SMs (a
-// launch runs min(tiles, blocks an SM x SMs) persistent blocks).
+// The finalize's (which 0), the scan's (1) or the NOR blocks' (2)
+// geometry on the current device: out int32[6] = positions a tile, threads
+// a block, tiles staged a block, bytes of dynamic shared memory a block,
+// blocks an SM, SMs (a launch runs min(tiles, blocks an SM x SMs)
+// persistent blocks).
 extern "C" int mc_calling_geometry(int which, void* out) {
   int* o = (int*)out;
-  if (o == nullptr || which < 0 || which > 1)
+  if (o == nullptr || which < 0 || which > 2)
     return (int)cudaErrorInvalidValue;
+  if (which == 2) {
+    o[0] = NOR_TILE;
+    o[1] = NOR_THREADS;
+    o[2] = 1;
+    o[3] = 0;
+    return (int)resident(nor_blocks_kernel, NOR_THREADS, 0, o + 4, o + 5);
+  }
   o[0] = which ? SCAN_TILE : FIN_TILE;
   o[1] = which ? SCAN_THREADS : FIN_THREADS;
   o[2] = which ? SCAN_STAGES : FIN_STAGES;
@@ -1274,27 +1609,16 @@ extern "C" int mc_caller_fetch_slice(const void* acgt, const void* multi,
 
 // The NOR blocks: out int32[3 * nseg] = (first position, minimum coverage,
 // coverage at the first position) a segment, from cov int32[L], em int64[E]
-// and brk int64[K], both sorted (E or K may be 0). Three operations: a
-// memset of out's first 2 * nseg words, the blocks, the finish.
+// and brk int64[K], both sorted (E or K may be 0). One launch of
+// persistent blocks. scratch int64[3 * cap] (the launch's words),
+// nseg <= cap, holds no word of this epoch or a later one: zeroed at
+// first, then used by launches of smaller epochs only.
 extern "C" int mc_nor_blocks(const void* cov, int L, const void* em, int E,
                              const void* brk, int K, int nseg, void* out,
+                             void* scratch, int cap, int epoch,
                              void* stream) {
-  if (L < 1 || E < 0 || K < 0 || nseg < 1 || (E > 0 && em == nullptr) ||
-      (K > 0 && brk == nullptr))
-    return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err =
-      cudaMemsetAsync(out, 0, sizeof(int) * 2 * (size_t)nseg, st);
-  if (err != cudaSuccess) return (int)err;
-  const NorIn in{(const int*)cov, (const long long*)em,
-                 (const long long*)brk, L, E, K, nseg, 0};
-  nor_blocks_kernel<<<(L + NOR_TILE - 1) / NOR_TILE, NOR_THREADS, 0, st>>>(
-      in, (int*)out);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  nor_finish_kernel<<<(nseg + NOR_THREADS - 1) / NOR_THREADS, NOR_THREADS, 0,
-                      st>>>((const int*)cov, L, nseg, (int*)out);
-  return (int)cudaGetLastError();
+  return nor_launch<false>(cov, L, em, E, brk, K, nseg, 0, out, scratch,
+                           cap, epoch, stream);
 }
 
 // The NOR blocks' slice form (B4, a shard): out int32[3 * nseg] = (first
@@ -1302,26 +1626,12 @@ extern "C" int mc_nor_blocks(const void* cov, int L, const void* em, int E,
 // position) a segment over the shard's valid positions 0 .. L - 1, whose
 // global positions are off .. off + L - 1: cov int32[>= L], em int64[E]
 // the shard's own excluded positions (global, sorted, each in [off, off +
-// L)), brk int64[K] every break (global, sorted). A memset and two
-// kernels, as mc_nor_blocks.
+// L)), brk int64[K] every break (global, sorted). One launch, scratch as
+// mc_nor_blocks's.
 extern "C" int mc_nor_blocks_slice(const void* cov, int L, const void* em,
                                    int E, const void* brk, int K, int nseg,
-                                   long long off, void* out, void* stream) {
-  if (L < 1 || E < 0 || K < 0 || nseg < 1 || off < 0 || cov == nullptr ||
-      out == nullptr || (E > 0 && em == nullptr) ||
-      (K > 0 && brk == nullptr))
-    return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err =
-      cudaMemsetAsync(out, 0, sizeof(int) * 2 * (size_t)nseg, st);
-  if (err != cudaSuccess) return (int)err;
-  const NorIn in{(const int*)cov, (const long long*)em,
-                 (const long long*)brk, L, E, K, nseg, off};
-  nor_blocks_slice_kernel<<<(L + NOR_TILE - 1) / NOR_TILE, NOR_THREADS, 0,
-                            st>>>(in, (int*)out);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  nor_finish_kernel<<<(nseg + NOR_THREADS - 1) / NOR_THREADS, NOR_THREADS, 0,
-                      st>>>((const int*)cov, L, nseg, (int*)out);
-  return (int)cudaGetLastError();
+                                   long long off, void* out, void* scratch,
+                                   int cap, int epoch, void* stream) {
+  return nor_launch<true>(cov, L, em, E, brk, K, nseg, off, out, scratch,
+                          cap, epoch, stream);
 }

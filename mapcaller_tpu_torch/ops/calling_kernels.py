@@ -23,8 +23,11 @@
                      coverage prefix at sparse points and block depths,
                      into one int64 buffer for one copy to the host (A6,
                      build_fetch_kernel); one launch;
-  nor_blocks         the gVCF NOR blocks (A6, build_nor_kernel): a memset
-                     and two launches;
+  nor_blocks         the gVCF NOR blocks (A6, build_nor_kernel): one
+                     launch of persistent blocks; a tile writes the
+                     segments inside it, and a segment across tiles is
+                     combined in a per-stream scratch of epoch-tagged
+                     words and written by the last of its tiles;
   caller_fetch_slice, nor_blocks_slice  the fetch's and the NOR blocks'
                      slice forms, B4's fetch and NOR a shard
                      (pipeline/big_profile.BigDeviceEvidence.fetch_columns,
@@ -85,6 +88,9 @@ _lib = None
 # epoch] of the finalize's and the scan's look-back, as chain_kernels keeps
 # its own
 _scratch = {}
+# per (device, stream): [scratch int64[3 * cap], the last epoch] of the NOR
+# blocks: the minima and the edges' arrivals of up to cap segments
+_nor_scratch = {}
 
 
 def _load_kernel():
@@ -99,10 +105,11 @@ def _load_kernel():
                 ("mc_caller_scan", [P, I, P, P, P, I, I, I, C.c_float, I]
                  + [P] * 6 + [I, I, P]),
                 ("mc_caller_fetch", [P] * 7 + [I] * 4 + [P, P]),
-                ("mc_nor_blocks", [P, I, P, I, P, I, I, P, P]),
+                ("mc_nor_blocks", [P, I, P, I, P, I, I, P, P, I, I, P]),
                 ("mc_caller_fetch_slice", [P] * 5 + [LL] + [P, P]
                  + [I] * 4 + [P, P]),
-                ("mc_nor_blocks_slice", [P, I, P, I, P, I, I, LL, P, P]),
+                ("mc_nor_blocks_slice", [P, I, P, I, P, I, I, LL, P, P, I,
+                                         I, P]),
                 ("mc_calling_geometry", [I, P])):
             fn = getattr(lib, name)
             fn.restype = C.c_int
@@ -127,15 +134,16 @@ def _ptr(t):
 
 
 def geometry(dev) -> dict:
-    """The finalize's and the scan's launch geometry on CUDA device dev:
-    {kernel: positions a tile, threads a block, tiles staged a block,
-    bytes of dynamic shared memory a block (ptxas does not report it),
-    blocks an SM, SMs}; a launch runs min(tiles, blocks an SM x SMs)
-    persistent blocks."""
+    """The finalize's, the scan's and the NOR blocks' launch geometry on
+    CUDA device dev: {kernel: positions a tile, threads a block, tiles
+    staged a block, bytes of dynamic shared memory a block (ptxas does not
+    report it), blocks an SM, SMs}; a launch runs min(tiles, blocks an SM
+    x SMs) persistent blocks."""
     keys = ("tile", "threads", "stages", "dynamic_smem_bytes",
             "blocks_an_sm", "sms")
     out = {}
-    for which, name in enumerate(("evidence_finalize", "caller_scan")):
+    for which, name in enumerate(("evidence_finalize", "caller_scan",
+                                  "nor_blocks")):
         buf = (C.c_int * len(keys))()
         with torch.cuda.device(dev):
             err = _load_kernel().mc_calling_geometry(which, buf)
@@ -175,6 +183,22 @@ def _look_back(dev: torch.device, tiles: int):
             device=dev), 0]
     sc[1] += 1
     return sc[0].data_ptr(), sc[0].shape[0] // SLOT_WORDS - 1, sc[1]
+
+
+def _nor_words(dev: torch.device, nseg: int):
+    """(pointer, cap, epoch) of the NOR scratch of dev's current stream for
+    a launch of nseg segments, with the next epoch: its words of earlier
+    epochs read as empty segments, so no launch clears it. A new zeroed
+    scratch when it is too small or the epochs run out."""
+    key = dev, (torch.cuda.current_stream(dev).cuda_stream
+                if dev.type == "cuda" else 0)
+    sc = _nor_scratch.get(key)
+    if sc is None or sc[0].shape[0] // 3 < nseg or sc[1] + 1 >= _EPOCHS:
+        # zeroed words hold epoch 0, which no launch uses
+        sc = _nor_scratch[key] = [torch.zeros(
+            3 * max(nseg, 1 << 14), dtype=torch.int64, device=dev), 0]
+    sc[1] += 1
+    return sc[0].data_ptr(), sc[0].shape[0] // 3, sc[1]
 
 
 # ---- evidence_finalize ----------------------------------------------------
@@ -502,12 +526,12 @@ def nor_blocks_plain(cov, emitted, brk_sorted, nseg: int) -> torch.Tensor:
 
 
 def _nor_kernel(cov, emitted, brk_sorted, nseg: int) -> torch.Tensor:
-    """nor_blocks_kernel and nor_finish_kernel: a memset of the minima and
-    two launches."""
+    """nor_blocks_kernel: one launch."""
     out = torch.empty(3 * nseg, dtype=torch.int32, device=cov.device)
     _launch("nor_blocks", cov.device, cov.data_ptr(), cov.shape[0],
             emitted.data_ptr(), emitted.shape[0], brk_sorted.data_ptr(),
-            brk_sorted.shape[0], nseg, out.data_ptr())
+            brk_sorted.shape[0], nseg, out.data_ptr(),
+            *_nor_words(cov.device, nseg))
     return out
 
 
@@ -529,7 +553,8 @@ def nor_blocks(cov, emitted, brk_sorted, nseg: int) -> torch.Tensor:
         need(t.dim() == 1, f"{name}: {what} must be 1-D")
     if not _on_card(name, [cov, emitted, brk_sorted]):
         return nor_blocks_plain(cov, emitted, brk_sorted, nseg)
-    need(cov.shape[0] < 1 << 31, f"{name}: the kernel takes L < 2^31")
+    need(cov.shape[0] < 1 << 31 and nseg <= 1 << 29,
+         f"{name}: the kernel takes L < 2^31 and nseg <= 2^29")
     return _nor_kernel(cov, emitted, brk_sorted, nseg)
 
 
@@ -629,12 +654,12 @@ def nor_blocks_slice_plain(cov, valid: int, emitted, brk_sorted, nseg: int,
 
 def _nor_slice_kernel(cov, valid: int, emitted, brk_sorted, nseg: int,
                       off: int) -> torch.Tensor:
-    """nor_blocks_slice_kernel and nor_finish_kernel: a memset of the
-    minima and two launches."""
+    """nor_blocks_slice_kernel: one launch."""
     out = torch.empty(3 * nseg, dtype=torch.int32, device=cov.device)
     _launch("nor_blocks_slice", cov.device, cov.data_ptr(), int(valid),
             emitted.data_ptr(), emitted.shape[0], brk_sorted.data_ptr(),
-            brk_sorted.shape[0], nseg, int(off), out.data_ptr())
+            brk_sorted.shape[0], nseg, int(off), out.data_ptr(),
+            *_nor_words(cov.device, nseg))
     return out
 
 
@@ -662,5 +687,6 @@ def nor_blocks_slice(cov, valid: int, emitted, brk_sorted, nseg: int,
     if not _on_card(name, [cov, emitted, brk_sorted]):
         return nor_blocks_slice_plain(cov, valid, emitted, brk_sorted, nseg,
                                       off)
-    need(cov.shape[0] < INT32_MAX, f"{name}: the kernel takes Pl < 2^31 - 1")
+    need(cov.shape[0] < INT32_MAX and nseg <= 1 << 29,
+         f"{name}: the kernel takes Pl < 2^31 - 1 and nseg <= 2^29")
     return _nor_slice_kernel(cov, valid, emitted, brk_sorted, nseg, off)

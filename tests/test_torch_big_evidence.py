@@ -14,7 +14,8 @@ versions run:
   * which wrapper each step reaches (one apply and one merge a shard);
   * a scalar mirror of each new kernel form's thread (csrc/chain.cu
     evidence_apply_slice_kernel and host_merge_kernel, csrc/calling.cu
-    caller_fetch_slice_kernel and nor_blocks_slice_kernel) against its
+    caller_fetch_slice_kernel) and the NOR tiling's mirror of
+    nor_blocks_slice_kernel (shards sharing the scratch too) against its
     plain version, in coordinates shifted past 2^31;
   * the wrappers' refusals.
 
@@ -40,6 +41,7 @@ from mapcaller_tpu_torch.pipeline import device_profile as tdp
 from mapcaller_tpu_torch.pipeline.big_profile import (BigDeviceEvidence,
                                                       ShardPlanes)
 from mapcaller_tpu_torch.pipeline.profile import Profile
+from test_torch_calling_kernels import NOR_GEOMETRY, nor_mirror
 
 torch.set_num_threads(1)   # small tensor ops: see test_torch_e2e.py
 
@@ -600,69 +602,15 @@ def test_fetch_slice_mirror(base):
     assert got[10 * P] == base and got[10 * P + 2] == base + ccov[-1]
 
 
-def nor_slice_mirror(cov, valid, em, brk, nseg, off, threads=256,
-                     rounds=16, stage=1024):
-    """nor_blocks_slice_kernel and nor_finish_kernel: the single-card NOR
-    tiling (test_torch_calling_kernels.nor_mirror) over the shard's valid
-    positions, each tile's breaks found by the global value off + its
-    bounds and staged relative to them, the excluded positions (global)
-    clamped to [off, off + valid - 1]; minima as local positions, the
-    coverage at the first one clamped to [0, valid)."""
-    emc = np.clip(np.sort(em) - off, 0, valid - 1)
-    brk = np.sort(brk)
-    tile = threads * rounds
-    acc = np.zeros(2 * nseg, dtype=np.int64)
-    for base in range(0, valid, tile):
-        end = min(base + tile, valid)
-        kb, ke = np.searchsorted(brk, [off + base, off + end], "left")
-        eb, ee = np.searchsorted(emc, [base, end], "left")
-        staged = ke - kb <= stage
-        sb = min(kb, nseg - 1)
-        slots = np.full((2, ke - kb + 1), I32_MAX, dtype=np.int64)
-        rel = brk[kb:ke] - off          # (int)(brk - gb - base) + base
-        for r in range(rounds):
-            p = base + r * threads + np.arange(threads)
-            inside = p < end
-            pc = np.minimum(p, valid - 1)
-            key = kb + np.searchsorted(rel, p, "right")
-            excl = np.isin(p, emc[eb:ee])
-            normal = inside & (cov[pc] > 0) & ~excl
-            seg = np.where(inside, np.minimum(key, nseg - 1), I32_MAX)
-            a = np.where(normal, p, I32_MAX)
-            c = np.where(normal, cov[pc], I32_MAX)
-            for w in range(0, threads, 32):
-                s, aw, cw = seg[w:w + 32], a[w:w + 32], c[w:w + 32]
-                heads = np.concatenate([[0], np.nonzero(s[1:] != s[:-1])[0]
-                                        + 1])
-                for h, x, y in zip(heads, np.minimum.reduceat(aw, heads),
-                                   np.minimum.reduceat(cw, heads)):
-                    if x == I32_MAX:
-                        continue
-                    if staged:
-                        slots[0, s[h] - sb] = min(slots[0, s[h] - sb], x)
-                        slots[1, s[h] - sb] = min(slots[1, s[h] - sb], y)
-                    else:
-                        acc[s[h]] = max(acc[s[h]], I32_MAX - x)
-                        acc[nseg + s[h]] = max(acc[nseg + s[h]], I32_MAX - y)
-        if staged:
-            for j in range(ke - kb + 1):
-                if sb + j < nseg and slots[0, j] != I32_MAX:
-                    acc[sb + j] = max(acc[sb + j], I32_MAX - slots[0, j])
-                    acc[nseg + sb + j] = max(acc[nseg + sb + j],
-                                             I32_MAX - slots[1, j])
-    first = I32_MAX - acc[:nseg]
-    return np.concatenate([first, I32_MAX - acc[nseg:],
-                           cov[np.clip(first, 0, valid - 1)]])
-
-
 @pytest.mark.parametrize("off", [0, (1 << 31) + 1600, SHIFT - 2000])
-@pytest.mark.parametrize("geometry", [(256, 16, 1024), (32, 4, 16)])
+@pytest.mark.parametrize("geometry", [NOR_GEOMETRY, (128, 4, 8)])
 def test_nor_slice_mirror(off, geometry):
-    """The NOR slice kernel's tiles (its geometry, then small tiles whose
-    breaks overflow the stage) equal nor_blocks_slice_plain on a shard of
-    5,000 positions, 4,700 of them valid, at offsets past 2^31: keys from
-    global breaks before, inside and after the shard, the shard's own
-    excluded positions at its edges, empty segments."""
+    """The NOR slice kernel's tiles (test_torch_calling_kernels.nor_mirror
+    with off and valid: its geometry, then small tiles whose breaks
+    overflow the stage; tiles in any order) equal nor_blocks_slice_plain
+    on a shard of 5,000 positions, 4,700 of them valid, at offsets past
+    2^31: keys from global breaks before, inside and after the shard, the
+    shard's own excluded positions at its edges, empty segments."""
     rng = np.random.default_rng(off % 113)
     Pl, valid = 5000, 4700
     cov = rng.integers(0, 30, Pl).astype(np.int32)
@@ -679,10 +627,96 @@ def test_nor_slice_mirror(off, geometry):
     t = torch.from_numpy
     want = cal.nor_blocks_slice_plain(t(cov), valid, t(np.sort(em)), t(brk),
                                       nseg, off).numpy()
-    got = nor_slice_mirror(cov, valid, em, brk, nseg, off, *geometry)
+    got = nor_mirror(cov, em, brk, nseg, *geometry, off=off, valid=valid,
+                     rng=rng)
     np.testing.assert_array_equal(got, want)
     first = want[:nseg]
     assert (first == I32_MAX).sum() >= 2 and (first < valid).sum() > 40
+
+
+@pytest.mark.parametrize("case", ["no_breaks_no_excluded", "edge_positions",
+                                  "duplicate_breaks", "nseg_below_keys"])
+def test_nor_slice_mirror_edges(case):
+    """The slice form at SHIFT (a shard past 2^31, 3,000 valid of 3,200
+    positions): K = 0 and E = 0, breaks and excluded positions at the
+    shard's first and last valid positions and just outside them,
+    duplicate breaks, fewer segments than keys; each against
+    nor_blocks_slice_plain, at the kernel's geometry and at small
+    tiles."""
+    rng = np.random.default_rng(17)
+    off, Pl, valid = SHIFT, 3200, 3000
+    cov = rng.integers(0, 20, Pl).astype(np.int32)
+    cov[rng.random(Pl) < 0.15] = 0
+    em = np.concatenate([[off, off + 1, off + valid - 1],
+                         off + rng.integers(0, valid, 30)])
+    nseg = None
+    if case == "no_breaks_no_excluded":
+        em = brk = np.zeros(0, np.int64)
+    elif case == "edge_positions":
+        brk = off + np.array([-1, 0, 1, 700, valid - 2, valid - 1, valid])
+    elif case == "duplicate_breaks":
+        brk = off + np.array([-5, -5, 40, 40, 40, 41, 2000, 2000])
+    else:
+        brk = np.sort(off + rng.integers(-100, valid + 100, 90))
+        nseg = 25
+    em, brk = np.sort(em).astype(np.int64), np.sort(brk).astype(np.int64)
+    nseg = nseg or brk.size + 2
+    t = torch.from_numpy
+    want = cal.nor_blocks_slice_plain(t(cov), valid, t(em), t(brk), nseg,
+                                      off).numpy()
+    for geometry in (NOR_GEOMETRY, (128, 4, 8)):
+        got = nor_mirror(cov, em, brk, nseg, *geometry, off=off,
+                         valid=valid, rng=rng)
+        np.testing.assert_array_equal(got, want)
+    if case == "duplicate_breaks":
+        assert (want[:nseg] == I32_MAX).sum() >= 4
+
+
+def test_nor_slice_mirror_shards_share_scratch():
+    """B4's shards launch one after another on one device's stream and
+    share its scratch, an epoch each: the per-shard mirrors on one words
+    array (at the kernel's tiles, then at small tiles that span several a
+    shard), combined as BigDeviceEvidence.nor_blocks combines them, equal
+    the single-card NOR of the joined coverage, here placed past 2^31
+    (every position, break and exclusion shifted by SHIFT)."""
+    rng = np.random.default_rng(19)
+    n, Pl = 3, 2048
+    g = 5500
+    cov = rng.integers(0, 25, n * Pl).astype(np.int32)
+    cov[rng.random(n * Pl) < 0.2] = 0
+    cov[2000:2900] = 0
+    em = np.sort(rng.integers(0, g, 70)).astype(np.int64)
+    brk = np.sort(rng.integers(0, g, 60)).astype(np.int64)
+    brk = brk[(brk < 1900) | (brk > 3000)]
+    nseg = brk.size + 2
+    one = cal.nor_blocks_plain(torch.from_numpy(cov[:g]),
+                               torch.from_numpy(em), torch.from_numpy(brk),
+                               nseg).numpy()
+    words = np.zeros(3 * nseg, np.int64)
+    epoch = 0
+    for geometry in (NOR_GEOMETRY, (128, 4, 8)):
+        first = np.full(nseg, I32_MAX, np.int64)
+        mincov = np.full(nseg, I32_MAX, np.int64)
+        covf = np.zeros(nseg, np.int64)
+        found = np.zeros(nseg, bool)
+        for s in range(n):
+            off = s * Pl
+            valid = min(g - off, Pl)
+            mine = em[(em >= off) & (em < off + valid)]
+            epoch += 1
+            r = nor_mirror(cov[off:off + Pl], SHIFT + mine, SHIFT + brk,
+                           nseg, *geometry, off=SHIFT + off, valid=valid,
+                           words=words, epoch=epoch, rng=rng)
+            f, m, c = r[:nseg], r[nseg:2 * nseg], r[2 * nseg:]
+            take = ~found & (f != I32_MAX)
+            first[take] = off + f[take]
+            covf[take] = c[take]
+            found |= take
+            mincov = np.minimum(mincov, m)
+            if s == (g - 1) // Pl:
+                covf[~found] = c[~found]
+        np.testing.assert_array_equal(
+            np.concatenate([first, mincov, covf]), one)
 
 
 # ---- refusals ----------------------------------------------------------------

@@ -1,8 +1,11 @@
 """The calling kernels of csrc/calling.cu (ops/calling_kernels.py) on the
 CPU: numpy mirrors of each kernel's tiling (tiles and threads, the
 look-back over tiles published in any state, the compaction by counts,
-the NOR tile's staged breaks, warp segments and slot minima) against the
-JAX package's programs and the port's plain versions; the scan's
+the NOR's 32-ary searches, staged breaks, zeroed exclusions, two-run
+fold, warp segments, slots and edges through epoch-tagged words in any
+tile order, launches sharing one scratch) against the JAX package's
+programs and the port's plain versions; the NOR scratch's epochs and
+growth; calling_variants' NOR tokens; the scan's
 truncation order past CAND_CAP; the slice forms of the plain finalize and
 scan against the JAX package's genome-sharded programs
 (mapcaller_tpu/pipeline/big_profile.py) on its CPU mesh; and which entry
@@ -72,6 +75,9 @@ def test_constants_match_source():
     # a tile's slot holds chain A (flag, 6 + 6 words) and chain B (flag,
     # 1 + 1) in SLOT_WORDS words
     assert c["CHAIN_B"] >= 1 + 2 * 6 and c["CHAIN_B"] + 3 <= c["SLOT_WORDS"]
+    # the NOR mirror's geometry is the kernel's
+    assert (c["NOR_THREADS"], c["NOR_ITEMS"], c["NOR_STAGE"]) == NOR_GEOMETRY
+    assert c["NOR_TILE"] == c["NOR_THREADS"] * c["NOR_ITEMS"]
 
 
 def look_back_mirror(aggs, rng, window=None):
@@ -448,59 +454,234 @@ def test_scan_overflow_order(somatic):
 
 # ---- the NOR blocks ------------------------------------------------------
 
-def nor_mirror(cov, em, brk, nseg, threads=256, rounds=16, stage=1024):
-    """nor_blocks_kernel and nor_finish_kernel: tiles of rounds x threads
-    positions, the tile's breaks and exclusions found by search (staged
-    when at most `stage`), a warp's 32 consecutive positions reduced over
-    runs of equal segment to its first lane, which takes the minima into
-    the tile's slot of the segment (or straight into acc when not
-    staged); acc holds INT32_MAX - minimum, 0 for none."""
-    n = cov.size
-    em = np.clip(np.sort(em), 0, n - 1)
-    brk = np.sort(brk)
-    tile = threads * rounds
-    acc = np.zeros(2 * nseg, dtype=np.int64)
-    for base in range(0, n, tile):
-        end = min(base + tile, n)
-        kb, ke = np.searchsorted(brk, [base, end], "left")
-        eb, ee = np.searchsorted(em, [base, end], "left")
-        staged = ke - kb <= stage
-        sb = min(kb, nseg - 1)
-        slots = np.full((2, ke - kb + 1), I32_MAX, dtype=np.int64)
-        for r in range(rounds):
-            p = base + r * threads + np.arange(threads)
-            inside = p < end
-            pc = np.minimum(p, n - 1)
-            key = kb + np.searchsorted(brk[kb:ke], p, "right")
-            excl = np.isin(p, em[eb:ee])
-            normal = inside & (cov[pc] > 0) & ~excl
-            seg = np.where(inside, np.minimum(key, nseg - 1), I32_MAX)
-            a = np.where(normal, p, I32_MAX)
-            c = np.where(normal, cov[pc], I32_MAX)
-            for w in range(0, threads, 32):
-                s, aw, cw = seg[w:w + 32], a[w:w + 32], c[w:w + 32]
-                heads = np.concatenate([[0], np.nonzero(s[1:] != s[:-1])[0]
-                                        + 1])
-                am = np.minimum.reduceat(aw, heads)
-                cm = np.minimum.reduceat(cw, heads)
-                for h, x, y in zip(heads, am, cm):
-                    if x == I32_MAX:
-                        continue
-                    if staged:
-                        slots[0, s[h] - sb] = min(slots[0, s[h] - sb], x)
-                        slots[1, s[h] - sb] = min(slots[1, s[h] - sb], y)
-                    else:
-                        acc[s[h]] = max(acc[s[h]], I32_MAX - x)
-                        acc[nseg + s[h]] = max(acc[nseg + s[h]], I32_MAX - y)
-        if staged:
-            for j in range(ke - kb + 1):
-                if sb + j < nseg and slots[0, j] != I32_MAX:
-                    acc[sb + j] = max(acc[sb + j], I32_MAX - slots[0, j])
-                    acc[nseg + sb + j] = max(acc[nseg + sb + j],
-                                             I32_MAX - slots[1, j])
-    first = I32_MAX - acc[:nseg]
-    return np.concatenate([first, I32_MAX - acc[nseg:],
-                           cov[np.clip(first, 0, n - 1)]])
+NONE = 1 << 62        # csrc/calling.cu nor_tile: the breaks' clamp
+NOR_GEOMETRY = (256, 28, 256)   # NOR_THREADS, NOR_ITEMS, NOR_STAGE
+
+
+def warp_count_below(a, x, lo, hi):
+    """csrc/calling.cu warp_count_below: the entries of the sorted a whose
+    value clamped to [lo, hi] is below x, by a 32-ary search (each step
+    32 lanes read the last entry of their 1/32 of the range, the ballot
+    of those below keeps one part) -> (count, dependent steps)."""
+    l, r, steps = 0, len(a), 0
+    while l < r:
+        step = (r - l + 31) >> 5
+        i = l + (np.arange(32) + 1) * step - 1
+        below = np.zeros(32, bool)
+        ok = i < r
+        below[ok] = np.clip(a[i[ok]], lo, hi) < x
+        c = int(below.sum())
+        assert below[:c].all()          # a prefix of the lanes
+        r = min(l + (c + 1) * step - 1, r)
+        l += c * step
+        steps += 1
+    return l, steps
+
+
+def _seg_min_lanes(f):
+    """The shuffle-down segmented minima of nor_tile over one warp's
+    first runs f [32, 3] (segment, position, coverage), in place."""
+    for d in (1, 2, 4, 8, 16):
+        g = f.copy()
+        for lane in range(32 - d):
+            if g[lane + d, 0] == g[lane, 0]:
+                f[lane, 1] = min(f[lane, 1], g[lane + d, 1])
+                f[lane, 2] = min(f[lane, 2], g[lane + d, 2])
+
+
+def nor_mirror(cov, em, brk, nseg, threads=NOR_GEOMETRY[0],
+               items=NOR_GEOMETRY[1], stage=NOR_GEOMETRY[2], off=0,
+               valid=None, words=None, epoch=1, rng=None, stats=None):
+    """nor_blocks_kernel, and with off / valid its slice form
+    nor_blocks_slice_kernel, as its blocks run: tiles of threads x items
+    positions taken in any order (rng's, else in order); a tile's breaks
+    and excluded positions found by the 32-ary searches, the breaks
+    staged when at most `stage`, the excluded positions zeroed in the
+    tile's staged coverage; a thread's consecutive positions folded into
+    runs (the first, runs inside the thread emitted, the last; with at
+    most one break position among them, two runs read from the last to
+    the first); lane - 1's last run joined to lane's first or emitted;
+    the segmented minima of
+    the lanes' first runs emitted by each run's first lane; emitted runs
+    into the tile's slots, or straight into the launch's words past
+    `stage` breaks. Then the tile writes the segments strictly inside
+    its range sb .. se; tile 0 those before its first, the last tile
+    those after se; an edge (sb when it has a position in the tile, and
+    se) adds its slot to the words and counts the tile's arrival, and the
+    arrival that completes the tiles its positions span writes it from
+    the words, but for its first position and the coverage there, which
+    the first of its tiles writes when it holds a normal position of it.
+    words: the scratch (int64 [>= 3 * nseg], updated in place; zeros for
+    a new one): first, minimum (epoch << 32 | INT32_MAX - minimum,
+    combined by max) and arrivals (epoch << 32 | count); a word of
+    another epoch reads as empty. Every output word is written, and
+    words written twice agree. stats["stale"] counts the reads of a word
+    of an earlier launch. -> int64[3 * nseg]."""
+    L = cov.size if valid is None else valid
+    em = np.sort(np.asarray(em, np.int64))
+    brk = np.sort(np.asarray(brk, np.int64))
+    K = brk.size
+    if words is None:
+        words = np.zeros(3 * nseg, np.int64)
+    tag = epoch << 32
+    tile = threads * items
+    ntiles = -(-L // tile)
+    order = rng.permutation(ntiles) if rng is not None else range(ntiles)
+    out = np.full(3 * nseg, -1, np.int64)
+    cl = int(cov[L - 1])
+
+    def add(i, v):
+        words[i] = max(int(words[i]), tag | (I32_MAX - int(v)))
+
+    def put(s, f=None, m=None, c=None):
+        for i, v in enumerate((f, m, c)):
+            if v is not None:
+                assert out[i * nseg + s] in (-1, v)
+                out[i * nseg + s] = v
+
+    def word(i):
+        w = int(words[i])
+        if stats is not None and 0 < w >> 32 < epoch:
+            stats["stale"] = stats.get("stale", 0) + 1
+        return I32_MAX - (w & 0xFFFFFFFF) if w >> 32 == epoch else I32_MAX
+
+    def put_words(s, head):
+        f = word(s)
+        put(s, m=word(nseg + s))
+        if f == I32_MAX or f // tile != head:
+            put(s, f=f, c=int(cov[min(max(f, 0), L - 1)]))
+
+    def tiles(s):
+        st = 0 if s == 0 else min(max(brk[s - 1] - off, 0), L)
+        en = L if s >= K or s == nseg - 1 else min(max(brk[s] - off, 0), L)
+        return st // tile, (en - 1) // tile
+
+    for tl in order:
+        base = int(tl) * tile
+        n = min(tile, L - base)
+        kb = warp_count_below(brk, off + base, -NONE, NONE)[0]
+        ke = warp_count_below(brk, off + base + n, -NONE, NONE)[0]
+        eb = warp_count_below(em, off + base, off, off + L - 1)[0]
+        ee = warp_count_below(em, off + base + n, off, off + L - 1)[0]
+        nk = ke - kb
+        staged = nk <= stage
+        sb, se = min(kb, nseg - 1), min(kb + nk, nseg - 1)
+        brel = brk[kb:ke] - off - base
+        tcov = cov[base:base + n].astype(np.int64)
+        tcov[np.clip(em[eb:ee] - off, 0, L - 1) - base] = 0
+        slots = np.full((2, nk + 1), I32_MAX, np.int64)
+
+        def emit(seg, a, c):
+            if staged:
+                slots[0, seg - sb] = min(slots[0, seg - sb], a)
+                slots[1, seg - sb] = min(slots[1, seg - sb], c)
+            else:
+                add(seg, a)
+                add(nseg + seg, c)
+
+        first = np.full((threads, 3), I32_MAX, np.int64)
+        last = np.full((threads, 3), I32_MAX, np.int64)
+        last[:, 0] = -1
+        for t in range(threads):
+            q0 = t * items
+            if q0 >= n:
+                continue
+            ki = int(np.searchsorted(brel, q0, "right"))
+            nb = brel[ki] if ki < nk else I32_MAX
+            s, a, c, one = min(kb + ki, nseg - 1), I32_MAX, I32_MAX, True
+            if t == 0:
+                sf = s
+            k2, n2 = ki, nb
+            if nb < q0 + items:           # the break position after nb
+                while n2 <= nb:
+                    k2 += 1
+                    n2 = brel[k2] if k2 < nk else I32_MAX
+            if q0 + items <= n and n2 >= q0 + items:
+                # at most one break position, nb: two runs, [q0, nb) of s
+                # and [nb, ..) of s2, from the last position to the first
+                s2, a2, c2 = min(kb + k2, nseg - 1), I32_MAX, I32_MAX
+                for q in range(q0 + items - 1, q0 - 1, -1):
+                    if tcov[q] > 0 and q >= nb:
+                        a2, c2 = base + q, min(c2, int(tcov[q]))
+                    elif tcov[q] > 0:
+                        a, c = base + q, min(c, int(tcov[q]))
+                if s2 == s:
+                    first[t] = (s, min(a, a2), min(c, c2))
+                else:
+                    first[t], last[t] = (s, a, c), (s2, a2, c2)
+                continue
+            for q in range(q0, min(q0 + items, n)):
+                if q >= nb:
+                    while nb <= q:
+                        ki += 1
+                        nb = brel[ki] if ki < nk else I32_MAX
+                    s2 = min(kb + ki, nseg - 1)
+                    if s2 != s:
+                        if one:
+                            first[t], one = (s, a, c), False
+                        elif a != I32_MAX:
+                            emit(s, a, c)
+                        s, a, c = s2, I32_MAX, I32_MAX
+                cv = int(tcov[q])
+                if cv > 0:
+                    a, c = min(a, base + q), min(c, cv)
+            if one:
+                first[t] = (s, a, c)
+            else:
+                last[t] = (s, a, c)
+        for w in range(0, threads, 32):
+            f, lr = first[w:w + 32], last[w:w + 32]
+            for lane in range(1, 32):
+                ps, pa, pc = lr[lane - 1]
+                if ps >= 0 and ps == f[lane, 0]:
+                    f[lane, 1] = min(f[lane, 1], pa)
+                    f[lane, 2] = min(f[lane, 2], pc)
+                elif ps >= 0 and pa != I32_MAX:
+                    emit(ps, pa, pc)
+            if lr[31, 0] >= 0 and lr[31, 1] != I32_MAX:
+                emit(*lr[31])
+            _seg_min_lanes(f)
+            for lane in range(32):
+                if (lane == 0 or f[lane - 1, 0] != f[lane, 0]) \
+                        and f[lane, 1] != I32_MAX:
+                    emit(*f[lane])
+        for s in range(sb + 1, se):           # inside the tile
+            if staged:
+                fs = slots[0, s - sb]
+                put(s, fs, slots[1, s - sb],
+                    int(cov[fs]) if fs != I32_MAX else cl)
+            else:
+                put_words(s, -1)
+        if tl == 0:
+            for s in range(sf):
+                put(s, I32_MAX, I32_MAX, cl)
+        if tl == ntiles - 1:
+            for s in range(se + 1, nseg):
+                put(s, I32_MAX, I32_MAX, cl)
+        for es in ([sb] if sf == sb else []) + ([se] if se != sb else []):
+            j, (ta, tb) = es - sb, tiles(es)
+            if ta == tb and staged:
+                fs = slots[0, j]
+                put(es, fs, slots[1, j], int(cov[fs]) if fs != I32_MAX
+                    else cl)
+                continue
+            if staged and slots[0, j] != I32_MAX:
+                add(es, slots[0, j])
+                add(nseg + es, slots[1, j])
+                if tl == ta:            # the edge's first position is here
+                    put(es, f=slots[0, j], c=int(cov[slots[0, j]]))
+            elif not staged and tl == ta:
+                fs = word(es)
+                if fs != I32_MAX and fs // tile == tl:
+                    put(es, f=fs, c=int(cov[fs]))
+            if ta != tb:
+                cnt = max(int(words[2 * nseg + es]), tag) + 1
+                words[2 * nseg + es] = cnt
+                if cnt & 0xFFFFFFFF != tb - ta + 1:
+                    continue
+            put_words(es, ta if ta != tb else -1)
+    assert (out >= 0).all(), "an output word no tile wrote"
+    return out
 
 
 def _nor_inputs(case, cov, rng):
@@ -512,40 +693,81 @@ def _nor_inputs(case, cov, rng):
     elif case == "dense":         # a tile with more breaks than staged
         em = np.arange(2000, 2600, 3)
         brk = np.concatenate([np.arange(2100, 2500, 2), [5000, 5000]])
+    elif case == "edge_positions":   # breaks and exclusions at 0, L - 1
+        em = np.array([0, 1, L - 1, L - 2, 4000])
+        brk = np.array([0, 1, 2, 600, L - 2, L - 1])
+    elif case == "duplicate_breaks":  # empty keys between equal breaks
+        em = rng.integers(0, L, 40)
+        brk = np.array([30, 30, 30, 31, 2000, 2000, 7000, 7000, 7000, 7000])
     else:                         # no breaks: DeviceEvidence's [L]
         em, brk = np.zeros(0, np.int64), np.array([L])
     return em.astype(np.int64), brk.astype(np.int64)
 
 
+def _jax_nor(cov, em, brk, K):
+    """The JAX package's build_nor_kernel over the first K sorted breaks
+    (padded with L), at its smallest segment tier above K + 1."""
+    jseg = next(t for t in jsd.NOR_SEG_TIERS if t > K + 1)
+    jbk = np.full(max(K, 1), L, np.int32)
+    jbk[:K] = np.sort(brk[:K])
+    return [np.asarray(w) for w in jsd.build_nor_kernel(L, jseg)(
+        jnp.asarray(cov), jnp.asarray(em.astype(np.int32)),
+        jnp.int32(em.size), jnp.asarray(jbk), jnp.int32(K))]
+
+
+def _assert_nor(got, cov, em, brk, nseg, K):
+    """got against the JAX kernel (keys 0..K) and the plain version."""
+    for i, w in enumerate(_jax_nor(cov, em, brk, K)):
+        np.testing.assert_array_equal(got[i * nseg:i * nseg + K + 1],
+                                      w[:K + 1])
+    plain = ck.nor_blocks_plain(torch.from_numpy(cov), torch.from_numpy(em),
+                                torch.from_numpy(np.sort(brk)), nseg)
+    np.testing.assert_array_equal(got, plain.numpy())
+
+
 @pytest.mark.parametrize("case", ["breaks", "dense", "no_breaks"])
-@pytest.mark.parametrize("geometry", [(256, 16, 1024), (32, 4, 16)])
+@pytest.mark.parametrize("geometry", [NOR_GEOMETRY, (128, 4, 8)])
 def test_nor_mirror(case, geometry):
     """The NOR tiling (the kernel's geometry, then small tiles whose
-    breaks overflow the stage) against the JAX package's
-    build_nor_kernel and the port's plain version: empty segments hold
-    INT32_MAX and the coverage at L - 1."""
+    breaks overflow the stage), its tiles in any order, against the JAX
+    package's build_nor_kernel and the port's plain version: empty
+    segments hold INT32_MAX and the coverage at L - 1."""
     rng = np.random.default_rng(8)
     _, _, cov, _ = _finalized(7)
     em, brk = _nor_inputs(case, cov, rng)
     K = brk.size if case != "no_breaks" else 0
     nseg = K + 2
-    got = nor_mirror(cov, em, brk, nseg, *geometry)
-    jseg = next(t for t in jsd.NOR_SEG_TIERS if t > K + 1)
-    jbk = np.full(max(K, 1), L, np.int32)
-    jbk[:K] = np.sort(brk[:K])
-    want = jsd.build_nor_kernel(L, jseg)(
-        jnp.asarray(cov), jnp.asarray(em.astype(np.int32)),
-        jnp.int32(em.size), jnp.asarray(jbk), jnp.int32(K))
-    k = K + 1
-    for i, w in enumerate(want):
-        np.testing.assert_array_equal(got[i * nseg:i * nseg + k],
-                                      np.asarray(w)[:k])
-    plain = ck.nor_blocks_plain(torch.from_numpy(cov), torch.from_numpy(em),
-                                torch.from_numpy(np.sort(brk)), nseg)
-    np.testing.assert_array_equal(got, plain.numpy())
+    got = nor_mirror(cov, em, brk, nseg, *geometry,
+                     rng=np.random.default_rng(K))
+    _assert_nor(got, cov, em, brk, nseg, K)
     if case == "breaks":
         first = got[:nseg]
         assert (first == I32_MAX).sum() >= 1 and (first < L).sum() > 40
+
+
+@pytest.mark.parametrize("case", ["no_breaks_no_excluded",
+                                  "edge_positions", "duplicate_breaks"])
+@pytest.mark.parametrize("geometry", [NOR_GEOMETRY, (128, 4, 8)])
+def test_nor_mirror_edges(case, geometry):
+    """K = 0 and E = 0 (empty break and exclusion lists, one segment
+    holding every covered position), breaks and excluded positions at 0
+    and L - 1, and duplicate breaks (empty keys between them): the mirror
+    against the JAX kernel and the plain version."""
+    rng = np.random.default_rng(10)
+    _, _, cov, _ = _finalized(7)
+    if case == "no_breaks_no_excluded":
+        em = brk = np.zeros(0, np.int64)
+    else:
+        em, brk = _nor_inputs(case, cov, rng)
+    K = brk.size
+    nseg = K + 2
+    got = nor_mirror(cov, em, brk, nseg, *geometry,
+                     rng=np.random.default_rng(3))
+    _assert_nor(got, cov, em, brk, nseg, K)
+    if case == "no_breaks_no_excluded":
+        assert got[0] == np.nonzero(cov > 0)[0][0] and got[1] == I32_MAX
+    elif case == "duplicate_breaks":
+        assert (got[:nseg] == I32_MAX).sum() >= 5
 
 
 def test_nor_mirror_clamped_segments():
@@ -559,8 +781,88 @@ def test_nor_mirror_clamped_segments():
         plain = ck.nor_blocks_plain(torch.from_numpy(cov),
                                     torch.from_numpy(em),
                                     torch.from_numpy(brk), nseg)
-        np.testing.assert_array_equal(nor_mirror(cov, em, brk, nseg, 64, 4,
+        np.testing.assert_array_equal(nor_mirror(cov, em, brk, nseg, 128, 4,
                                                  8), plain.numpy())
+
+
+def test_nor_mirror_shared_scratch():
+    """Launches in a row on one scratch, each with the next epoch and no
+    clearing: nseg shrinks, grows, shrinks. Launch 2's segment 30 spans
+    tiles 0 and 1 with no normal position, over launch 1's word of its
+    own segment 30 (an edge across the same tiles, covered): it reads as
+    empty. Then launches of random breaks."""
+    rng = np.random.default_rng(11)
+    _, _, cov, _ = _finalized(7)
+    cov = cov.copy()
+    cov[4000:9000] = np.maximum(cov[4000:9000], 1)
+    cov2 = cov.copy()
+    cov2[4000:9000] = 0
+    tile = NOR_GEOMETRY[0] * NOR_GEOMETRY[1]
+    assert 4000 < tile < 9000
+    low = np.sort(rng.choice(3990, 30, replace=False))
+    words = np.zeros(3 * 400, np.int64)
+    launches = [(cov, np.append(low, 9000)),
+                (cov2, np.concatenate([low[:29], [4000, 9000]]))]
+    for nb in (300, 120):
+        launches.append((cov, np.sort(rng.integers(0, L, nb))))
+    for epoch, (c, brk) in enumerate(launches, start=1):
+        em = rng.integers(0, L, 30).astype(np.int64)
+        brk = brk.astype(np.int64)
+        nseg = brk.size + 2
+        stats = {}
+        got = nor_mirror(c, em, brk, nseg, *NOR_GEOMETRY, words=words,
+                         epoch=epoch, rng=rng, stats=stats)
+        _assert_nor(got, c, em, brk, nseg, brk.size)
+        assert (words[:3 * nseg] >> 32 <= epoch).all()
+        if epoch == 1:
+            assert words[30] >> 32 == 1
+        if epoch == 2:
+            assert stats["stale"] >= 1 and got[30] == got[nseg + 30] \
+                == I32_MAX and words[30] >> 32 == 1
+
+
+def test_nor_words_scratch():
+    """_nor_words: one scratch a device and stream, the next epoch each
+    launch; a new zeroed scratch when nseg outgrows it or the epochs
+    (1 .. 2^30 - 1) run out."""
+    ck._nor_scratch.clear()
+    cpu = torch.device("cpu")
+    p1, cap, e1 = ck._nor_words(cpu, 10)
+    assert ck._nor_scratch[cpu, 0][0].shape == (3 * cap,)
+    p2, cap2, e2 = ck._nor_words(cpu, cap)
+    assert (p2, cap2, e1, e2) == (p1, cap, 1, 2) and cap >= 10
+    _, cap3, e3 = ck._nor_words(cpu, cap + 1)
+    assert cap3 >= cap + 1 and e3 == 1
+    sc = ck._nor_scratch[cpu, 0]
+    sc[0][5] = 7
+    sc[1] = (1 << 30) - 2
+    assert ck._nor_words(cpu, 1)[2] == (1 << 30) - 1
+    _, _, e = ck._nor_words(cpu, 1)
+    assert e == 1 and int(ck._nor_scratch[cpu, 0][0].abs().sum()) == 0
+    ck._nor_scratch.clear()
+
+
+@pytest.mark.parametrize("n", [0, 1, 31, 32, 33, 1024, 6484, 40000])
+def test_warp_search_mirror(n):
+    """The 32-ary search counts as np.searchsorted over the clamped
+    values (duplicates, values outside the clamp, x at and beside every
+    kind of entry) in ceil(log32(n + 1)) steps or fewer: 3 for the main
+    data's 6,484 breaks."""
+    rng = np.random.default_rng(n)
+    a = np.sort(rng.integers(-50, 3 * n + 50, n)).astype(np.int64)
+    lo, hi = 0, 3 * n
+    c = np.clip(a, lo, hi)
+    xs = np.concatenate([[-NONE, -1, 0, 1, hi, hi + 1, NONE],
+                         rng.integers(-60, 3 * n + 60, 40), a[:50],
+                         a[:50] + 1])
+    most = 0
+    while 32 ** most < n + 1:
+        most += 1
+    for x in xs:
+        got, steps = warp_count_below(a, int(x), lo, hi)
+        assert got == np.searchsorted(c, x, "left") and steps <= most
+    if n == 6484:
+        assert warp_count_below(a, int(a[3000]), -NONE, NONE)[1] == 3
 
 
 # ---- the slice forms against the JAX package's sharded programs ----------
@@ -781,3 +1083,26 @@ def test_big_fold_scan_reach_calling_kernels(monkeypatch, on_card, n):
     np.testing.assert_array_equal(rvals, s.run_val[:k2].numpy())
     assert scal.tolist() == s.small.tolist()
     np.testing.assert_array_equal(bd.dense(), s.block_depth.numpy())
+
+
+@pytest.mark.parametrize("variant,consts", [
+    ("Nt128_Ni12", dict(NOR_THREADS=128, NOR_ITEMS=12)),
+    ("Ns64_Nm4", dict(NOR_STAGE=64, NOR_MIN_BLOCKS=4)),
+    ("Nb1", dict(NOR_BULK=1)),
+    ("Nb0_Ni20_Nm8", dict(NOR_BULK=0, NOR_ITEMS=20, NOR_MIN_BLOCKS=8))])
+def test_calling_variants_nor_tokens(variant, consts):
+    """calling_variants' NOR tokens set their constants of csrc/calling.cu
+    and nothing else (the tile follows the threads and items)."""
+    from mapcaller_tpu_torch import calling_variants as cv
+    with open(cv.SRC) as f:
+        src = f.read()
+    before = calling_constants()
+    edited = cv.variant_source(variant, src)
+    env = {}
+    for decls in re.findall(r"^constexpr int (\w+ = [^;]+);", edited, re.M):
+        for d in decls.split(","):
+            name, expr = (x.strip() for x in d.split("=", 1))
+            env[name] = eval(expr.replace("/", "//"), {}, dict(env))
+    want = dict(before, **consts)
+    want["NOR_TILE"] = want["NOR_THREADS"] * want["NOR_ITEMS"]
+    assert env == want
