@@ -151,15 +151,20 @@ exits non-zero):
              evidence in the sharded planes; host chaining: the occ3
              scan and the hits kernel), each writing the warm-up's bytes
              with its kernels once a batch, every dispatch replayed
-             against the plain versions; BigDeviceEvidence's apply,
-             host-delta merge, fold and scan a shard, each beside its byte
-             bound, the fold and the scan (evidence_finalize and
-             caller_scan once a shard) held against their plain versions
-             on the card at -shards 2 and 4; the -gvcf calls' NOR blocks,
-             both forms, held against their plain versions in every word,
-             each call or launch one device operation (a torch.profiler
-             trace of it alone), and B4's NOR call cut into its host parts
-             (sorts, uploads, launches, download, combine). The devices
+             against the plain versions; BigDeviceEvidence's apply a
+             shard, host-delta merge and column fetch (one launch a call
+             each, the fetch also shuffled and in the parent tree's
+             per-shard form, its call cut into host parts beside that
+             form's), fold and scan a shard, each beside its byte bound
+             (the merge also its sector bound), the fold and the scan
+             (evidence_finalize and caller_scan once a shard) held against
+             their plain versions on the card at -shards 2 and 4; the
+             -gvcf calls' NOR blocks, both forms, held against their plain
+             versions in every word, and B4's NOR call cut into its host
+             parts (sorts, uploads, launches, download, combine); one
+             torch.profiler trace of a call of each NOR form, of B4's
+             merge and fetch and of the single-card fetch: one kernel
+             each, no memset. The devices
              phase also times the plane sum of -devices N (four add_ of
              two plane sets)
   evidence   device ms (queued launches) of the evidence apply of one
@@ -1997,9 +2002,7 @@ def owned_deltas(ev, deltas, ends):
     indices, values)]."""
     from mapcaller_tpu_torch.ops import mesh_kernels as mk
     from mapcaller_tpu_torch.pipeline import device_profile as dp
-    N = ends[-1]
-    idx = deltas[:N]
-    val = deltas[N:].view("int32")[:N]
+    idx, val = mk.unpack_deltas(deltas, ends[-1])
     parts = []
     for sp, d in zip(ev.planes, ev.devs):
         lo = 0
@@ -2037,23 +2040,29 @@ def time_big_evidence(ev, kept, reps=10):
     planes and final fold), the apply (the run's first batch), the
     host-delta merge (the host profile's slow-read deltas as the run's
     merge found them) and the column fetch (the run's first, with its
-    positions' block depths) are each held against their plain versions
-    on the card, every word of every shard's outputs, by swapping the
-    kernel entries for the plain versions; then timed: each call (host
-    work and syncs inside), its kernels' device ms (queued: the call's
-    launches replayed, per call and per shard) and the plain versions'
-    on the same launches, beside the bound, the bytes they must move
-    over the card's memory rate (apply: every shard reads the batch's pd,
-    mmp, read lengths and admit bits, and each plane update is read and
-    written once; merge: each entry's index and value read and its plane
-    word read and written once, by the shard that owns it; fold: 40 B of planes and 4
-    of codes read, 48 of outputs written a position; scan: 28 B read a
+    positions' block depths; also in shuffled order, and as the parent
+    tree ran it, parent_fetch) are each held against their plain
+    versions on the card, every word of every shard's outputs, by
+    swapping the kernel entries for the plain versions; then timed: each
+    call (host work and syncs inside), its kernels' device ms (queued:
+    the call's launches replayed, per call and per shard) and the plain
+    versions' on the same launches, beside the bound, the bytes they must
+    move over the card's memory rate (apply: every shard reads the
+    batch's pd, mmp, read lengths and admit bits, and each plane update
+    is read and written once; merge: each entry's index and value read
+    and its plane word read and written once, by the shard that owns it,
+    and beside it the sectors: 12 B an entry and each distinct 32-byte
+    sector of the words read and written; fold: 40 B of planes and 4 of
+    codes read, 48 of outputs written a position; scan: 28 B read a
     position; fetch: the indices read, 40 B gathered a position and 8 a
-    prefix point, 80 and 8 written). The merge's two parts apart: its
-    nonzero scans of the host arrays (host work, as before its kernel),
-    then its upload and launches (BigDeviceEvidence._merge_lists),
-    beside the parent tree's masks, uploads and index_add_ on the same
-    lists; the library call is that index_add_ alone."""
+    prefix point, 80 and 8 written). The merge and the fetch are one
+    launch a call (one device). The merge's two parts apart: its nonzero
+    scans of the host arrays (host work, as before its kernel), then its
+    upload and launch (BigDeviceEvidence._merge_lists), beside the parent
+    tree's masks, uploads and index_add_ on the same lists; the library
+    call is that index_add_ alone. The fetch call cut into its host parts
+    (split_b4_call), the parent tree's (parent_fetch: a launch a shard)
+    and this one's."""
     import types
     import numpy as np
     import torch
@@ -2110,8 +2119,21 @@ def time_big_evidence(ev, kept, reps=10):
     with plain_entries((cal, "_fetch_slice_kernel",
                         cal.caller_fetch_slice_plain)):
         fwant = ev._fetch(p, pp, blocks, bds)
+    # the same elements shuffled, and the parent's form (a launch a
+    # shard, the outputs scattered back)
+    rng = np.random.default_rng(n)
+    perm = [rng.permutation(x.size) for x in (p, pp, blocks)]
+    shuffled = [x[o] for x, o in zip((p, pp, blocks), perm)]
+    sgot = ev._fetch(*shuffled, bds)
+    with plain_entries((cal, "_fetch_slice_kernel",
+                        cal.caller_fetch_slice_plain)):
+        swant = ev._fetch(*shuffled, bds)
+    pgot = parent_fetch(ev, p, pp, blocks, bds)
     errs["fetch"] = max(int(np.abs(g - w).max()) if g.size else 0
-                        for g, w in zip(fgot, fwant))
+                        for g, w in zip(
+                            (*fgot, *sgot, *sgot, *pgot),
+                            (*fwant, *swant,
+                             *(x[o] for x, o in zip(fgot, perm)), *fwant)))
     # the apply, held on the run's final planes, which it leaves as they
     # were
     base = shard_planes(ev)
@@ -2129,11 +2151,12 @@ def time_big_evidence(ev, kept, reps=10):
 
     def host_copy():
         return types.SimpleNamespace(**{k: v.copy() for k, v in host.items()})
-    mcalls = []
+    mcalls, lcalls = [], []
     if host:
         set_planes(ev, base)
         ev.host_profile = host_copy()
-        with entry_calls(mk, "_host_merge_kernel", mcalls):
+        with entry_calls(mk, "_host_merge_kernel", mcalls), \
+                entry_calls(mk, "_merge_launch", lcalls):
             ev._merge_host_deltas()
         mgot = shard_planes(ev)
         set_planes(ev, base)
@@ -2156,6 +2179,14 @@ def time_big_evidence(ev, kept, reps=10):
                  fetch=replay_ms(cal.caller_fetch_slice_plain, fcalls, reps,
                                    False))
     launches = dict(apply=len(acalls), fetch=len(fcalls), fold=n, scan=n)
+    fetch_args = (p, pp, blocks, bds)
+    fetch_parts = dict(
+        change=split_b4_call(lambda: ev._fetch(*fetch_args),
+                             "caller_fetch_slice", reps, "select",
+                             "scatter"),
+        parent=split_b4_call(lambda: parent_fetch(ev, *fetch_args),
+                             "caller_fetch_slice", reps, "select",
+                             "scatter"))
     nbytes = dict(apply=n * (B * (8 + 4 * S + 4) + fb.nbytes)
                   + 8 * (4 * int(adm.sum()) + 3 * n_mm),
                   fold=n * 92 * Pl, scan=n * 28 * Pl,
@@ -2174,6 +2205,9 @@ def time_big_evidence(ev, kept, reps=10):
                       device_ms_a_launch=dev[k] / launches[k],
                       plain_ms=plain[k],
                       plain_ms_a_launch=plain[k] / launches[k])
+    res["fetch"].update(call_parts=fetch_parts,
+                        positions=int(p.size), points=int(pp.size),
+                        blocks=int(blocks.size))
     if host:
         deltas, ends = dp.host_delta_lists(host_copy(), ev.L)
         times = dict(scans=[], upload_launches=[], parent_part=[], call=[])
@@ -2219,39 +2253,42 @@ def time_big_evidence(ev, kept, reps=10):
         N = ends[-1]
         # what the merge must move: each entry's index (8 B) and value (4)
         # read once and its plane word read and written (8), by the shard
-        # that owns it
+        # that owns it; at the card's granularity, each distinct 32-byte
+        # sector of those words read and written
         nb = 20 * N
+        sb = 12 * N + sector_bytes([li for _, _, _, li, _ in od])
         res["merge"] = dict(
             call_ms=med["call"], ms_a_shard=med["call"] / n,
             host_scans_ms=med["scans"],
             upload_launches_ms=med["upload_launches"],
             parent_masks_uploads_index_add_ms=med["parent_part"],
-            device_ms=replay_ms(mk._host_merge_kernel, mcalls, reps),
+            device_ms=replay_ms(mk._merge_launch, lcalls, reps),
             plain_ms=replay_ms(mk.host_merge_plain, mcalls, reps, False),
             library_ms=library, library="the index_add_ of the parent's "
             "merge on the run's own lists, one a shard and plane that "
             "owns entries, indices and values on the card",
-            launches_a_call=len(mcalls), entries=N, entries_a_shard=owned,
+            launches_a_call=len(lcalls), entries=N, entries_a_shard=owned,
             bound_ms=1e3 * nb / H100_BYTES_S, bound_by="bytes", bytes=nb,
+            sector_bytes=sb, sector_bound_ms=1e3 * sb / H100_BYTES_S,
             bound_ms_by_shard=[1e3 * 20 * k / H100_BYTES_S for k in owned],
             max_abs_err=errs["merge"],
             host_bytes_scanned=sum(v.nbytes for v in host.values()))
         for k in ("device_ms", "plain_ms", "library_ms"):
             res["merge"][k.replace("ms", "ms_a_launch")] = (
-                res["merge"][k] / len(mcalls))
+                res["merge"][k] / len(lcalls))
         res["merge"]["bound_ms_a_shard"] = res["merge"]["bound_ms"] / n
     return res | dict(shards=n, Pl=Pl, batch=B, admitted=int(adm.sum()),
                       mismatches=n_mm)
 
 
-def split_big_nor(bev, em, brk, reps):
-    """B4's NOR call (BigDeviceEvidence.nor_blocks) cut into its host
-    parts by timers around the functions it calls: the sorts before the
-    first upload (with the finalize's kept outputs), the uploads (one a
-    device), the launches (nor_blocks_slice a shard: the wrapper's checks
-    and the launch), the download (the copies and the wait for the card),
-    the combine after it, and the rest (the searches a shard between the
-    launches); ms, medians over reps calls, measured only."""
+def split_b4_call(call, launch, reps, first="sort", last="combine"):
+    """One of B4's calls (a BigDeviceEvidence method: call()) cut into
+    its host parts by timers around the functions it calls: `first`, the
+    work before the first upload; the uploads (big_profile.upload); the
+    launches (calling_kernels.<launch>: the wrapper's checks and the
+    launch); the download (the copies and the wait for the card); `last`,
+    the work after it; and the rest; ms, medians over reps calls,
+    measured only."""
     import torch
     from mapcaller_tpu_torch.ops import calling_kernels as cal
     from mapcaller_tpu_torch.pipeline import big_profile as bp
@@ -2265,40 +2302,97 @@ def split_big_nor(bev, em, brk, reps):
             finally:
                 marks.append((part, t0, time.perf_counter()))
         return run
-    real = bp.upload, bp.download, cal.nor_blocks_slice
+    real = bp.upload, bp.download, getattr(cal, launch)
     bp.upload, bp.download = timed(real[0], "upload"), timed(real[1],
                                                              "download")
-    cal.nor_blocks_slice = timed(real[2], "launches")
+    setattr(cal, launch, timed(real[2], "launches"))
     parts = collections.defaultdict(list)
     try:
         for _ in range(reps + 3):
             marks.clear()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            bev.nor_blocks(em, brk)
+            call()
             t1 = time.perf_counter()
             ms = collections.Counter()
             for part, a, b in marks:
                 ms[part] += 1e3 * (b - a)
-            ms["sort"] = 1e3 * (min(a for p, a, _ in marks if p == "upload")
-                                - t0)
-            ms["combine"] = 1e3 * (t1 - max(b for p, _, b in marks
-                                            if p == "download"))
+            ms[first] = 1e3 * (min(a for p, a, _ in marks if p == "upload")
+                               - t0)
+            ms[last] = 1e3 * (t1 - max(b for p, _, b in marks
+                                       if p == "download"))
             ms["call"] = 1e3 * (t1 - t0)
             ms["rest"] = ms["call"] - sum(ms[k] for k in (
-                "sort", "upload", "launches", "download", "combine"))
+                first, "upload", "launches", "download", last))
             for k, v in ms.items():
                 parts[k].append(v)
     finally:
-        bp.upload, bp.download, cal.nor_blocks_slice = real
+        bp.upload, bp.download = real[:2]
+        setattr(cal, launch, real[2])
     return {k + "_ms": statistics.median(v[3:]) for k, v in parts.items()}
+
+
+def fetch_by_shard(Pl, n, p, pp, blocks, answer):
+    """B4's fetch as the parent tree (02300f2) ran it: three np.nonzero a
+    shard choose the elements it owns (p // Pl, pp // Pl, blocks //
+    (Pl / 100)), answer([(s, P_s, Q_s, local idx int64)]) gives each
+    shard's output (numpy, laid out as caller_fetch's) from its elements
+    at local coordinates, and each output is scattered back by fancy
+    indexing -> (cols, pref, depths). Shared by parent_fetch and
+    merge_fetch_variants.py."""
+    import numpy as np
+    nbl = Pl // 100
+    sels, jobs = [], []
+    for s in range(n):
+        sel = [np.nonzero(x // g == s)[0] for x, g in ((p, Pl), (pp, Pl),
+                                                        (blocks, nbl))]
+        if any(x.size for x in sel):
+            sels.append(sel)
+            jobs.append((s, sel[0].size, sel[1].size, np.concatenate(
+                [p[sel[0]] - s * Pl, pp[sel[1]] - s * Pl,
+                 blocks[sel[2]] - s * nbl]).astype(np.int64)))
+    cols = np.zeros((p.size, 10), dtype=np.int64)
+    pref = np.zeros(pp.size, dtype=np.int64)
+    depths = np.zeros(blocks.size, dtype=np.int64)
+    for (sel, selp, selb), (_, P, Q, _), o in zip(sels, jobs, answer(jobs)):
+        cols[sel] = o[:10 * P].reshape(P, 10)
+        pref[selp] = o[10 * P:10 * P + Q]
+        depths[selb] = o[10 * P + Q:]
+    return cols, pref, depths
+
+
+def parent_fetch(ev, p, pp, blocks, bds):
+    """B4's fetch as the parent tree ran it (fetch_by_shard): the shards'
+    local indices up in one copy a device, one launch a shard that owns
+    any element (here the slice form over that shard alone), one
+    download -> (cols, pref, depths)."""
+    import numpy as np
+    from mapcaller_tpu_torch.ops import calling_kernels as cal
+    from mapcaller_tpu_torch.pipeline import big_profile as bp
+    outs, tots = ev.finalize()
+    before = np.concatenate([[0], np.cumsum(tots)])
+
+    def answer(jobs):
+        ups, at, got = {}, {}, []
+        for d in dict.fromkeys(ev.devs[j[0]] for j in jobs):
+            ups[d] = bp.upload(np.concatenate(
+                [j[3] for j in jobs if ev.devs[j[0]] == d]), d)
+        for s, P, Q, idx in jobs:
+            d = ev.devs[s]
+            lo = at.get(d, 0)
+            at[d] = lo + idx.size
+            got.append(cal.caller_fetch_slice(
+                [outs[s]], [0], [int(before[s])], ups[d][lo:lo + idx.size],
+                P, Q, ev.Pl, [bds[s]] if idx.size > P + Q else None))
+        return bp.download(got)
+    return fetch_by_shard(ev.Pl, ev.n, p, pp, blocks, answer)
 
 
 def time_big_nor(bev, em, brk, reps):
     """B4's NOR blocks on a -gvcf run's own call (its emitted positions
     and breaks): held against their plain versions on the card in every
     word (the kernel entry swapped), the call timed and split into its
-    host parts (split_big_nor), its launches replayed (device ms, plain
+    host parts (split_b4_call), its launches replayed (device ms, plain
     ms) beside the bound: the coverage, the positions and breaks read
     once, three words a segment written, a shard's share of it. -> (the
     row, the first launch's arguments)."""
@@ -2318,7 +2412,8 @@ def time_big_nor(bev, em, brk, reps):
     dev = replay_ms(cal._nor_slice_kernel, calls, reps)
     plain = replay_ms(cal.nor_blocks_slice_plain, calls, reps, False)
     return dict(call_ms=cuda_ms(lambda: bev.nor_blocks(em, brk), reps),
-                call_parts=split_big_nor(bev, em, brk, reps),
+                call_parts=split_b4_call(lambda: bev.nor_blocks(em, brk),
+                                         "nor_blocks_slice", reps),
                 device_ms=dev, device_ms_a_launch=dev / len(calls),
                 plain_ms=plain, plain_ms_a_launch=plain / len(calls),
                 launches_a_call=len(calls), shards=bev.n,
@@ -2436,18 +2531,22 @@ def run_big(run, card, sam, vcf, reps=20):
                 and all(len(x) == 9 for x in launches)
                 and evidence_path_ok(t["evidence"])
                 and calling_ok(t, n)
-                # B4's apply a launch a shard a batch, its merge a launch
-                # a shard with slow-read evidence, no K2 launch
+                # B4's apply a launch a shard a batch, its merge one
+                # launch (one card) with slow-read evidence, no K2 launch
                 and t["mesh"].get("evidence_apply_slice") == n * b
-                and t["mesh"].get("host_merge", 0) == (n if merged else 0)
+                and t["mesh"].get("host_merge", 0) == (1 if merged else 0)
+                and ev_times[n]["fetch"]["launches_a_call"] == 1
+                and ev_times[n].get("merge", {}).get(
+                    "launches_a_call", 1) == 1
                 and not t["mesh"].get("evidence_apply_bits")
                 and t["metrics"]["n_oracle_reads"] == 0
                 and t["metrics"]["n_tier_reruns"] == 0):
             raise AssertionError(f"big {n}: bytes differ from the warm-up's, "
                                  f"a batch missed the x64 stage, a 32-bit "
                                  f"kernel ran, a 64-bit one did not run "
-                                 f"once a shard a batch, B4's apply or "
-                                 f"merge kernels not once a shard, or "
+                                 f"once a shard a batch, B4's apply not "
+                                 f"once a shard, its merge or fetch not "
+                                 f"one launch a call, or "
                                  f"evidence left the sharded planes "
                                  f"{t['mesh']} {t['calling']}")
         runs[n] = t
@@ -2502,7 +2601,6 @@ def run_big(run, card, sam, vcf, reps=20):
             nor_big["launches"] = t["calling"].get("nor_blocks_slice", 0)
             nor_big["fetch_launches"] = t["calling"].get(
                 "caller_fetch_slice", 0)
-            del bev
             if not (nor_big["launches"] >= 1
                     and nor_big["fetch_launches"] >= 1
                     and not t["calling"].get("nor_blocks")):
@@ -2518,21 +2616,31 @@ def run_big(run, card, sam, vcf, reps=20):
         held.clear()
         with open(sam, "rb") as f, open(vcf, "rb") as g:
             gv[tag] = (f.read(), g.read(), t)
-    # a NOR call of each form is one device operation: no memset, no
-    # second kernel
+    # a NOR call of each form, B4's merge and fetch calls (on the -gvcf
+    # -shards 2 run's evidence) and the single-card fetch are one kernel
+    # each, no memset; the merge's and the fetch's copies beside them
     a, kw = slice_call
+    traced = merge_fetch_calls(bev, em, brk)
     ops = device_operations([lambda: cal.nor_blocks(*nor_args),
-                             lambda: cal._nor_slice_kernel(*a, **kw)])
-    n_one = sum("nor_blocks_kernel" in o for o in ops)
-    n_big = sum("nor_blocks_slice_kernel" in o for o in ops)
-    if (n_one, n_big, len(ops)) != (1, 1, 2):
-        raise AssertionError(f"-gvcf: a NOR call and a NOR slice launch "
-                             f"queued {ops}, not one kernel each")
-    nor["device_operations_a_call"] = n_one
-    nor_big["device_operations_a_launch"] = n_big
+                             lambda: cal._nor_slice_kernel(*a, **kw)]
+                            + list(traced.values()))
+    kernels = {k: sum(k + "_kernel" in o for o in ops) for k in (
+        "nor_blocks", "nor_blocks_slice", "host_merge", "caller_fetch_slice",
+        "caller_fetch")}
+    copies = [o for o in ops if "memcpy" in o.lower()]
+    others = [o for o in ops if "_kernel" not in o and o not in copies]
+    if set(kernels.values()) != {1} or others or len(ops) - len(
+            copies) != len(kernels):
+        raise AssertionError(f"-gvcf: a NOR call, a NOR slice launch, B4's "
+                             f"merge and fetch calls and a single-card "
+                             f"fetch queued {ops}, not one kernel each")
+    nor["device_operations_a_call"] = kernels["nor_blocks"]
+    nor_big["device_operations_a_launch"] = kernels["nor_blocks_slice"]
     nor["device_operations_traced"] = nor_big[
         "device_operations_traced"] = ops
-    del a, kw, slice_call, nor_args
+    one_op = dict(kernels_a_call=kernels, copies=copies,
+                  calls=list(traced), traced=ops)
+    del a, kw, slice_call, nor_args, bev, traced
     same = gv["one"][:2] == gv["big"][:2]
     tb = gv["big"][2]
     emit("big", card=card, gvcf_nor_blocks_one_card=nor, gvcf_shards=2,
@@ -2551,6 +2659,7 @@ def run_big(run, card, sam, vcf, reps=20):
     b4 = {n: dict(ev_times[n], launches=runs[n]["calling"],
                   evidence_launches=runs[n]["mesh"]) for n in ev_times}
     b4["nor_shards_2"] = nor_big
+    b4["one_kernel_a_call"] = one_op
     return timing, runs[2], single, nor, b4
 
 
@@ -2899,8 +3008,8 @@ class CallingEagerTap:
     """Counts the calls of the calling kernels' plain versions
     (ops/calling_kernels: the finalize, scan, fetch and NOR bodies and the
     fetch's and NOR's slice forms) and of B4's apply and the host merge
-    (ops/mesh_kernels) on card tensors while installed: the eager
-    programs the port no longer runs."""
+    (ops/mesh_kernels) on card tensors (on_card: their shards and planes
+    too) while installed: the eager programs the port no longer runs."""
 
     NAMES = ("evidence_finalize_plain", "caller_scan_plain",
              "caller_fetch_plain", "nor_blocks_plain",
@@ -2919,8 +3028,7 @@ class CallingEagerTap:
         self.reset()
         for (mod, name), fn in self.real.items():
             def tapped(*a, _fn=fn, **kw):
-                self.eager += int(any(torch.is_tensor(x) and x.is_cuda
-                                      for x in a))
+                self.eager += int(on_card(a))
                 return _fn(*a, **kw)
             setattr(mod, name, tapped)
         return self
@@ -2928,6 +3036,17 @@ class CallingEagerTap:
     def uninstall(self):
         for (mod, name), fn in self.real.items():
             setattr(mod, name, fn)
+
+
+def on_card(x) -> bool:
+    """Whether x holds a card tensor: a tensor, a sequence of them
+    (shards), or planes (their acgt)."""
+    import torch
+    if torch.is_tensor(x):
+        return x.is_cuda
+    if isinstance(x, (list, tuple)):
+        return any(on_card(y) for y in x)
+    return torch.is_tensor(getattr(x, "acgt", None)) and x.acgt.is_cuda
 
 
 def calling_ok(t, shards=1):
@@ -3765,6 +3884,9 @@ def run_calling(cap, card, launches, reps=50):
                           bytes_per_s=nbytes[name] / (ms * 1e-3),
                           launches=launches.get(name, 0),
                           **({"geometry": geo[name]} if name in geo else {}))
+    # the fetch beside an empty launch (its floor in this harness)
+    rows["caller_fetch"]["floor_ms"] = cuda_ms(
+        lambda: torch.cuda._sleep(0), reps, queued=True)
     emit("calling", card=card, L=L, fetch_positions=P, prefix_points=Q,
          fetch_blocks=int(blocks.size), n_cand=n_cand, n_runs=n_runs,
          peak_mem_bytes=peak, kernels=rows,
@@ -3773,52 +3895,80 @@ def run_calling(cap, card, launches, reps=50):
     return rows
 
 
+def seeded_lists(L, density=0.01, seed=5):
+    """Host-delta lists as device_profile.host_delta_lists lays them out
+    (the single-card planes' flat indices, each list strictly
+    increasing), at `density` of each plane's entries, values 1-3, made
+    from `seed` -> (pack_deltas' buffer, ends, the lists)."""
+    import numpy as np
+    from mapcaller_tpu_torch.ops import mesh_kernels as mk
+    rng = np.random.default_rng(seed)
+    lists = []
+    for k, n in zip(mk.MERGE_PLANES, (4 * (L + 1), L + 2, 4 * (L + 2),
+                                      L + 2)):
+        idx = np.unique(rng.integers(0, n, int(n * density)))
+        lists.append((idx, rng.integers(1, 4, idx.size).astype(np.int32)))
+    ends = np.cumsum([i.size for i, _ in lists]).tolist()
+    return mk.pack_deltas(lists), ends, lists
+
+
+def sector_bytes(words):
+    """What a scatter of read-add-writes must move at the card's
+    granularity: each distinct 32-byte sector its int32 words fall in
+    (word indices into arrays that start on 32 bytes, one array of
+    indices an entry of `words`), read and written once."""
+    import numpy as np
+    return 64 * sum(int(np.unique(np.asarray(w) >> 3).size) for w in words)
+
+
 def time_host_merge(planes, reps=50, density=0.01, seed=5):
     """A5's host merge (pipeline/device_profile.build_host_merge_kernel:
     host_merge_kernel, the four lists of the host profile's sparse nonzero
-    deltas in one launch), which the main data never takes (every read's
-    evidence is applied on the card): deltas at `density` of each plane's
-    entries, values 1-3, made from `seed`, into planes(device) (the main
-    path's own), as device_profile.host_delta_lists lays them out (one
-    buffer, the planes' flat indices). Equal to the same call on the CPU
-    and to its plain version on the card (every word); device ms
-    (queued) beside the bound: each delta's index and value read, its
-    plane entry read and written; the plain version's ms (four masked
-    index_add_) and, as the library call, the four index_add_ at the
-    flat indices (the eager merge before the kernel)."""
+    deltas and their row segments in one upload and one launch), which
+    the main data never takes (every read's evidence is applied on the
+    card): seeded_lists at `density` into planes(device) (the main path's
+    own). Equal to the same call on the CPU and to its plain version on
+    the card (every word); the launch's device ms (queued) beside two
+    bounds: bytes (each delta's index and value read, its plane word read
+    and written: 20 B an entry) and sectors (the lists' 12 B an entry and
+    each distinct 32-byte sector of the words read and written); the
+    call's ms (the host's split, packing and copy too), beside the
+    upload of the packed lists alone (upload_ms: the host part of the
+    parent tree's call, which took them as they are); the plain
+    version's ms (four masked index_add_) and, as the library call, the
+    four index_add_ at the flat indices (the eager merge before the
+    kernel), indices and values already on the card."""
     import numpy as np
     import torch
     from mapcaller_tpu_torch.ops import mesh_kernels as mk
+    from mapcaller_tpu_torch.ops.device_util import upload
     from mapcaller_tpu_torch.pipeline import device_profile as dp
-    rng = np.random.default_rng(seed)
     gpl, cpl, ppl = planes("cuda"), planes("cpu"), planes("cuda")
     names = mk.MERGE_PLANES
-    lists = []
-    for k in names:
-        n = getattr(cpl, k).numel()
-        idx = np.unique(rng.integers(0, n, int(n * density)))
-        lists.append((idx, rng.integers(1, 4, idx.size).astype(np.int32)))
-    buf = torch.from_numpy(mk.pack_deltas(lists))
-    ends = np.cumsum([i.size for i, _ in lists]).tolist()
-    gbuf = buf.cuda()
+    buf, ends, lists = seeded_lists(cpl.L, density, seed)
     merge = dp.build_host_merge_kernel(cpl.L)
-    merge(gpl, gbuf, ends)
+    launches = []
+    with entry_calls(mk, "_merge_launch", launches):
+        merge(gpl, buf, ends)
     merge(cpl, buf, ends)
 
     def plain():
         with plain_entries((mk, "_host_merge_kernel", mk.host_merge_plain)):
-            merge(ppl, gbuf, ends)
+            merge(ppl, buf, ends)
     plain()
     err = max(max(int((getattr(gpl, k).cpu().long() - getattr(x, k).cpu()
                        .long()).abs().max()) for k in names)
               for x in (cpl, ppl))
-    if err:
+    if err or len(launches) != 1:
         raise AssertionError("evidence: the host merge on the card != cpu "
-                             "or != its plain version")
-    deltas = ends[-1]
-    nbytes = deltas * (8 + 4 + 8)
-    ms = cuda_ms(lambda: merge(gpl, gbuf, ends), reps, queued=True)
-    gi, gv = mk.unpack_deltas(gbuf, ends[-1])
+                             "or != its plain version, or not one launch")
+    N = ends[-1]
+    nbytes = N * (8 + 4 + 8)
+    sbytes = 12 * N + sector_bytes([i for i, _ in lists])
+    (a, kw), = launches
+    ms = cuda_ms(lambda: mk._merge_launch(*a, **kw), reps, queued=True)
+    gi, gv = (torch.from_numpy(np.ascontiguousarray(x)).cuda()
+              for x in mk.unpack_deltas(buf, N))
     parts = [(getattr(gpl, k).view(-1), gi[lo:hi], gv[lo:hi])
              for k, lo, hi in zip(names, [0] + ends[:3], ends)]
 
@@ -3826,13 +3976,51 @@ def time_host_merge(planes, reps=50, density=0.01, seed=5):
         for t, i, v in parts:
             t.index_add_(0, i, v)
     bound = 1e3 * nbytes / H100_BYTES_S
-    return dict(deltas=deltas, density=density, max_abs_err=err, ms=ms,
-                call_ms=cuda_ms(lambda: merge(gpl, gbuf, ends), reps),
+    sbound = 1e3 * sbytes / H100_BYTES_S
+    return dict(deltas=N, density=density, max_abs_err=err, ms=ms,
+                launches_a_call=len(launches), segments=int(a[3]),
+                runs=int(a[4]), units=int(a[8]),
+                call_ms=cuda_ms(lambda: merge(gpl, buf, ends), reps),
+                upload_ms=cuda_ms(lambda: upload(buf, "cuda"), reps),
                 plain_ms=cuda_ms(plain, reps),
                 library_ms=cuda_ms(index_add, reps, queued=True),
                 library="four index_add_ at the flat indices, one a plane",
                 bound_ms=bound, bound_by="bytes", bytes=nbytes,
-                share_of_bound=bound / ms)
+                share_of_bound=bound / ms, sector_bytes=sbytes,
+                sector_bound_ms=sbound, share_of_sector_bound=sbound / ms,
+                floor_ms=cuda_ms(lambda: torch.cuda._sleep(0), reps,
+                                 queued=True))
+
+
+def merge_fetch_calls(bev, em, brk):
+    """Calls for one trace, on a -gvcf big run's evidence bev: B4's merge
+    of seeded lists over bev's shards (_merge_lists: one copy, one
+    launch), B4's fetch at the run's excluded positions, breaks as
+    prefix points and the positions' blocks (_fetch: a copy each way, one
+    launch), and the single-card fetch (caller_fetch) on shard 0's
+    finalized slice, its coverage prefix made exclusive, the indices on
+    the card before -> {name: call}."""
+    import numpy as np
+    import torch
+    from mapcaller_tpu_torch.ops import calling_kernels as cal
+    outs, _ = bev.finalize()
+    L = bev.L
+    buf, ends, _ = seeded_lists(L, 0.001, 11)
+    p = np.clip(em, 0, L - 1).astype(np.int64)
+    pp = np.clip(brk, 0, L).astype(np.int64)
+    blocks = np.unique(p // 100)
+    bds = bev.scan()[0]._parts
+    acgt, F, multi, cov, ccov = outs[0]
+    Pl = cov.shape[0]
+    cpre = torch.cat([torch.zeros(1, dtype=torch.int64,
+                                  device=ccov.device), ccov])
+    one = [p[p < Pl], pp[pp <= Pl], blocks[blocks < Pl // 100]]
+    idx = torch.from_numpy(np.concatenate(one)).to(ccov.device)
+    return {"b4_merge": lambda: bev._merge_lists(buf, ends),
+            "b4_fetch": lambda: bev._fetch(p, pp, blocks, bds),
+            "fetch": lambda: cal.caller_fetch(
+                acgt, multi, F, cov, cpre, idx, one[0].size, one[1].size,
+                bds[0])}
 
 
 def device_operations(fns):
@@ -5289,7 +5477,8 @@ def main():
             "bound_by": r["bound_by"], "library_ms": None, "tolerance": 0,
             "call_ms": r["call_ms"], "registers": regs.get("registers"),
             "also_replaces": also, "shape": shape,
-            **{k: r[k] for k in ("bytes_per_s", "geometry") if k in r},
+            **{k: r[k] for k in ("bytes_per_s", "geometry", "floor_ms")
+               if k in r},
             **({"b4_a_shard": {
                 f"shards_{n}": dict(b4[n]["fold" if name == "evidence_finalize"
                                        else "scan"],
@@ -5311,17 +5500,19 @@ def main():
             ("host_merge", "merge", "mapcaller_tpu_torch/csrc/chain.cu",
              "mapcaller_tpu/pipeline/big_profile.py:189",
              ["mapcaller_tpu/pipeline/device_profile.py:136"],
-             "B4: the big_x64 -shards 2 run's slow-read deltas, a launch a "
-             "shard; ms, plain_ms, bound_ms and library_ms (the run's own "
-             "lists' index_add_, four a shard) a launch; a5: the "
-             "single-card form on deltas at 1% of the main path's planes, "
-             "seeded, with its own library_ms"),
+             "B4: the big_x64 -shards 2 run's slow-read deltas, one launch "
+             "over both shards (a segment a shard, list and row); ms, "
+             "plain_ms, bound_ms and library_ms (the run's own lists' "
+             "index_add_, four a shard) a call, sector_bound_ms beside; "
+             "a5: the single-card form on deltas at 1% of the main path's "
+             "planes, seeded, with its own library_ms"),
             ("caller_fetch_slice", "fetch",
              "mapcaller_tpu_torch/csrc/calling.cu",
              "mapcaller_tpu/pipeline/big_profile.py:532", [],
              "the big_x64 -shards 2 run's first fetch with its positions' "
-             "block depths, a launch a shard that owns any; ms and "
-             "plain_ms a launch"),
+             "block depths, one launch over both shards, elements in the "
+             "caller's order; ms and plain_ms a call; call_parts: the "
+             "call's host parts, parent (a launch a shard) and change"),
             ("nor_blocks_slice", "nor", "mapcaller_tpu_torch/csrc/calling.cu",
              "mapcaller_tpu/pipeline/big_profile.py:603", [],
              "the -gvcf big_x64 -shards 2 run's own call, a launch a shard "
@@ -5348,7 +5539,11 @@ def main():
             "registers": regs.get("registers"), "also_replaces": also,
             "shape": shape, "shards_2": r,
             **({"shards_4": rs[4]} if key != "nor" else {}),
-            **({"a5": a5_merge} if key == "merge" else {})})
+            **({"a5": a5_merge} if key == "merge" else {}),
+            **({k: r[k] for k in ("sector_bound_ms", "sector_bytes")
+                if k in r}),
+            **({"one_kernel_a_call": b4["one_kernel_a_call"]}
+               if key in ("merge", "fetch") else {})})
     line = {"kernels": kernels}
     print(json.dumps(line), flush=True)
     print(card, flush=True)

@@ -28,14 +28,16 @@
 //     (scan_device.py:255-285): the per-segment minima of position and
 //     coverage of the normal positions, read out with the coverage at each
 //     segment's first position by the launch's last block.
-//   caller_fetch_slice_kernel, nor_blocks_slice_kernel  the slice forms of
-//     the fetch and the NOR blocks, B4's fetch and NOR (mapcaller_tpu/
-//     pipeline/big_profile.py:532-601, :603-667) a shard of the genome-
-//     sharded planes: the fetch at a shard's local positions, its coverage
-//     prefix the shard's inclusive prefix after the earlier shards' totals;
-//     the NOR blocks over a shard's valid positions, keyed by the global
-//     breaks at off + p, its minima local positions (< 2^31) that the host
-//     turns into global int64 ones and combines over the shards.
+//   caller_fetch_slice_kernel  the fetch's slice form, B4's fetch
+//     (mapcaller_tpu/pipeline/big_profile.py:532-601): one launch a device
+//     over every shard it holds, the elements in the caller's order, each
+//     finding its shard by a search over the shards' first positions (the
+//     fetch body is shared with the single-card form, one shard);
+//   nor_blocks_slice_kernel   the NOR blocks' slice form, B4's NOR
+//     (big_profile.py:603-667) a shard of the genome-sharded planes: over
+//     a shard's valid positions, keyed by the global breaks at off + p,
+//     its minima local positions (< 2^31) that the host turns into global
+//     int64 ones and combines over the shards.
 //
 // Every one is bound by bytes: a few int32 reads and writes a genome
 // position and a handful of integer operations on each (chip_smoke.py
@@ -126,7 +128,12 @@ constexpr int SCAN_TILE = SCAN_THREADS * SCAN_ITEMS;
 constexpr int SCAN_STAGES = 1;
 constexpr int SCAN_MIN_BLOCKS = 2;
 constexpr int BLOCK_THREADS = BLOCK_SIZE / SCAN_ITEMS;   // threads a block
-constexpr int FETCH_THREADS = 256;
+constexpr int FETCH_THREADS = 256;      // a fetch block: FETCH_TILE
+constexpr int FETCH_TILE = FETCH_THREADS / 2;  // positions x 10 columns
+constexpr int FETCH_PITCH = 11;         // (two warps a group of 32), or a
+constexpr int FETCH_MAX_SHARDS = 16;    // point or block a thread; shards
+                                        // a slice-form launch's table
+static_assert(FETCH_THREADS % 64 == 0, "fetch: two warps a group of 32");
 constexpr int NOR_THREADS = 256;        // a NOR tile: NOR_ITEMS
 constexpr int NOR_ITEMS = 28;           // consecutive positions a thread
 constexpr int NOR_TILE = NOR_THREADS * NOR_ITEMS;
@@ -888,63 +895,150 @@ caller_scan_kernel(ScanIn in, ScanOut out, LookBack lb, int ntiles) {
   }
 }
 
-// ---- caller_fetch_kernel -------------------------------------------------
+// ---- caller_fetch_kernel, caller_fetch_slice_kernel ------------------------
 
-struct FetchIn {
-  const int* acgt;                      // [4][L]
-  const int* multi;                     // [L]
-  const int* F;                         // [4][L]
-  const int* cov;                       // [L]
-  const long long* cpre;                // [L + 1]; slice form: [L]
+// One shard of a fetch's table: its finalized rows of `len` positions,
+// genome positions off .. off + len - 1 (off a multiple of BLOCK_SIZE:
+// its first block is off / BLOCK_SIZE). The single-card form is one
+// shard at off 0, whose cpre is the exclusive prefix [len + 1]; a slice
+// form shard's cpre is its inclusive prefix [len], after `before`, the
+// coverage of the shards before it.
+struct FetchShard {
+  const int* acgt;                      // [4][len]
+  const int* multi;                     // [len]
+  const int* F;                         // [4][len]
+  const int* cov;                       // [len]
+  const long long* cpre;
   const int* bd;                        // block depths, or nullptr
-  const long long* idx;                 // [P positions | Q points | nbd]
-  int L, P, Q, nbd;
-  long long base;                       // slice form: the prefix before
+  long long off, before;
+  int len;
 };
 
-// One output word a thread: the 10 columns of each clamped position, the
-// coverage prefix at each clamped point, the depth of each block. The
-// single-card form reads the exclusive prefix cpre[L + 1]; the slice form
-// (B4's fetch, a shard's local positions) its shard's inclusive prefix
-// cpre[L] after `base`, the earlier shards' totals: base at point 0, else
-// base + cpre[q - 1].
-template <bool SLICE>
-__device__ __forceinline__ void fetch_body(const FetchIn& in,
-                                           long long* __restrict__ out) {
-  const long long i = (long long)blockIdx.x * FETCH_THREADS + threadIdx.x;
-  const long long np = 10LL * in.P;
-  if (i < np) {
-    const int j = (int)(i / 10), c = (int)(i % 10);
-    const int p = (int)min(max(in.idx[j], 0LL), (long long)in.L - 1);
-    int x;
-    if (c < 4)
-      x = in.acgt[(size_t)c * in.L + p];
-    else if (c == 4)
-      x = in.multi[p];
-    else if (c < 9)
-      x = in.F[(size_t)(c - 5) * in.L + p];
-    else
-      x = in.cov[p];
-    out[i] = x;
-  } else if (i < np + in.Q) {
-    const long long q =
-        min(max(in.idx[in.P + (i - np)], 0LL), (long long)in.L);
-    if (SLICE)
-      out[i] = in.base + (q == 0 ? 0LL : in.cpre[q - 1]);
-    else
-      out[i] = in.cpre[q];
-  } else if (i < np + in.Q + in.nbd) {
-    out[i] = in.bd[in.idx[in.P + in.Q + (i - np - in.Q)]];
-  }
+template <int NS>
+struct FetchIn {
+  FetchShard sh[NS];                    // in order of off (n of NS)
+  const long long* idx;                 // [P positions | Q points | nbd]
+  long long L;                          // positions clamp to [0, L - 1],
+  int n, P, Q, nbd;                     // points to [0, L]
+};
+
+// The shard of x: the last whose first position (or block) is at or
+// before x, shard 0 for an x before every shard; firsts sorted, n <= NS.
+template <int NS>
+__device__ __forceinline__ int fetch_shard(const long long* firsts, int n,
+                                           long long x) {
+  int s = 0;
+#pragma unroll
+  for (int step = NS / 2; step; step >>= 1)
+    if (s + step < n && firsts[s + step] <= x) s += step;
+  return s;
 }
 
+// The fetch (out int64[10 P + Q + nbd]) in one launch over every shard of
+// the table. Blocks 0 .. ceil(P / FETCH_TILE) - 1 take FETCH_TILE
+// positions each: two warps a group of 32 positions, each lane one
+// position (clamped, its shard found by a search over the shards' first
+// positions, the index local to the shard in 32 bits), each warp five of
+// the ten columns, so a warp reads one column at 32 consecutive
+// positions. The tile's columns meet in shared memory (a position's row
+// of FETCH_PITCH words: an odd pitch, so a warp's writes of one column
+// fall on 32 banks), and go out in the [P, 10] layout as 16-byte stores.
+// The blocks after them take a point or a block a thread: a point's
+// shard's prefix (single-card: cpre[q]; a slice: before + cpre[q - 1], or
+// before at its local 0), a block's depth in the shard holding it. The
+// shards' row addresses are staged in shared memory once a block.
+template <bool SLICE, int NS>
+__device__ __forceinline__ void fetch_body(const FetchIn<NS>& in,
+                                           long long* __restrict__ out) {
+  __shared__ const int* s_row[NS][10];
+  __shared__ const long long* s_cpre[NS];
+  __shared__ const int* s_bd[NS];
+  __shared__ long long s_off[NS], s_boff[NS], s_before[NS];
+  __shared__ int s_len[NS];
+  __shared__ int s_tile[FETCH_TILE * FETCH_PITCH];
+  const int t = threadIdx.x;
+  const int ntile = (in.P + FETCH_TILE - 1) / FETCH_TILE;
+  const bool tile = (int)blockIdx.x < ntile;
+  const int t0 = blockIdx.x * FETCH_TILE;
+  const int np = tile ? min(FETCH_TILE, in.P - t0) : 0;
+  const int warp = t >> 5;
+  const int j = (warp >> 1) * 32 + (t & 31);     // the tile's position
+  const int c0 = (warp & 1) * 5;                 // the warp's columns
+  const int i = (blockIdx.x - ntile) * FETCH_THREADS + t;
+  // the element's index, read while the table is staged
+  const bool have = tile ? j < np : i < in.Q + in.nbd;
+  const long long x = have ? in.idx[tile ? t0 + j : in.P + i] : 0;
+  // the table's fields at compile-time indices (a run-time index into the
+  // parameters would copy them to local memory)
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    if (t == s && s < in.n) {
+      const FetchShard& h = in.sh[s];
+      for (int c = 0; c < 4; ++c) {
+        s_row[s][c] = h.acgt + (size_t)c * h.len;
+        s_row[s][5 + c] = h.F + (size_t)c * h.len;
+      }
+      s_row[s][4] = h.multi;
+      s_row[s][9] = h.cov;
+      s_cpre[s] = h.cpre;
+      s_bd[s] = h.bd;
+      s_off[s] = h.off;
+      s_boff[s] = h.off / BLOCK_SIZE;
+      s_before[s] = h.before;
+      s_len[s] = h.len;
+    }
+  }
+  __syncthreads();
+  if (tile) {
+    if (have) {
+      const long long p = min(max(x, 0LL), in.L - 1);
+      const int s = fetch_shard<NS>(s_off, in.n, p);
+      const int lp = (int)min(max(p - s_off[s], 0LL),
+                              (long long)s_len[s] - 1);
+      int v[5];
+#pragma unroll
+      for (int c = 0; c < 5; ++c) v[c] = __ldg(s_row[s][c0 + c] + lp);
+#pragma unroll
+      for (int c = 0; c < 5; ++c) s_tile[j * FETCH_PITCH + c0 + c] = v[c];
+    }
+    __syncthreads();
+    // 16 bytes a store: out + 10 t0 lies on 16 bytes (t0 even), and each
+    // pair of words (2i, 2i + 1) is one position's (10 is even)
+    longlong2* o = reinterpret_cast<longlong2*>(out + 10LL * t0);
+    for (int i = t; i < 5 * np; i += FETCH_THREADS) {
+      const int a = i / 5, b = 2 * (i - a * 5);
+      o[i] = make_longlong2(s_tile[a * FETCH_PITCH + b],
+                            s_tile[a * FETCH_PITCH + b + 1]);
+    }
+    return;
+  }
+  if (!have) return;
+  long long r;
+  if (i < in.Q) {
+    const long long q = min(max(x, 0LL), in.L);
+    const int s = fetch_shard<NS>(s_off, in.n, q);
+    const int lq = (int)min(max(q - s_off[s], 0LL), (long long)s_len[s]);
+    if (SLICE)
+      r = s_before[s] + (lq == 0 ? 0LL : s_cpre[s][lq - 1]);
+    else
+      r = s_cpre[s][lq];
+  } else {
+    const int s = fetch_shard<NS>(s_boff, in.n, x);
+    r = s_bd[s][(int)(x - s_boff[s])];
+  }
+  out[10LL * in.P + i] = r;
+}
+
+// The single-card form's table holds its one shard (a small parameter
+// block); the slice form's up to FETCH_MAX_SHARDS.
 __global__ void __launch_bounds__(FETCH_THREADS)
-caller_fetch_kernel(FetchIn in, long long* __restrict__ out) {
+caller_fetch_kernel(FetchIn<1> in, long long* __restrict__ out) {
   fetch_body<false>(in, out);
 }
 
 __global__ void __launch_bounds__(FETCH_THREADS)
-caller_fetch_slice_kernel(FetchIn in, long long* __restrict__ out) {
+caller_fetch_slice_kernel(FetchIn<FETCH_MAX_SHARDS> in,
+                          long long* __restrict__ out) {
   fetch_body<true>(in, out);
 }
 
@@ -1557,54 +1651,85 @@ extern "C" int mc_caller_scan(const void* acgt, int sa, const void* multi,
   return (int)cudaGetLastError();
 }
 
-// The column fetch: out int64[10 P + Q + nbd] from idx int64[P + Q + nbd]
-// (positions, prefix points, blocks < the length of bd); acgt and F
-// int32[4][L], multi and cov int32[L], cpre int64[L + 1], bd int32 (or
-// nullptr when nbd is 0).
+// The launch of either fetch form: ntile position tiles, then a thread a
+// point or block.
+template <bool SLICE, int NS>
+static int fetch_launch(const FetchIn<NS>& in, void* out, void* stream) {
+  const long long tiles = (in.P + FETCH_TILE - 1) / FETCH_TILE;
+  const long long blocks =
+      tiles + ((long long)in.Q + in.nbd + FETCH_THREADS - 1) / FETCH_THREADS;
+  if (blocks == 0) return (int)cudaSuccess;
+  if (in.idx == nullptr || out == nullptr || (uintptr_t)out % 16 ||
+      blocks > 0x7FFFFFFFLL)
+    return (int)cudaErrorInvalidValue;
+  if constexpr (SLICE)
+    caller_fetch_slice_kernel<<<(unsigned int)blocks, FETCH_THREADS, 0,
+                                (cudaStream_t)stream>>>(in,
+                                                        (long long*)out);
+  else
+    caller_fetch_kernel<<<(unsigned int)blocks, FETCH_THREADS, 0,
+                          (cudaStream_t)stream>>>(in, (long long*)out);
+  return (int)cudaGetLastError();
+}
+
+// The column fetch: out int64[10 P + Q + nbd] (on 16 bytes) from idx
+// int64[P + Q + nbd] (positions, prefix points, blocks < the length of
+// bd); acgt and F int32[4][L], multi and cov int32[L], cpre int64[L + 1],
+// bd int32 (or nullptr when nbd is 0). One launch.
 extern "C" int mc_caller_fetch(const void* acgt, const void* multi,
                                const void* F, const void* cov,
                                const void* cpre, const void* bd,
                                const void* idx, int L, int P, int Q, int nbd,
                                void* out, void* stream) {
-  const long long total = 10LL * P + Q + nbd;
-  if (L < 1 || P < 0 || Q < 0 || nbd < 0 || total < 1 ||
-      total > (1LL << 40) || (nbd > 0 && bd == nullptr))
+  if (L < 1 || P < 0 || Q < 0 || nbd < 0 || (nbd > 0 && bd == nullptr))
     return (int)cudaErrorInvalidValue;
-  const FetchIn in{(const int*)acgt, (const int*)multi, (const int*)F,
-                   (const int*)cov, (const long long*)cpre, (const int*)bd,
-                   (const long long*)idx, L, P, Q, nbd, 0};
-  const long long blocks = (total + FETCH_THREADS - 1) / FETCH_THREADS;
-  caller_fetch_kernel<<<(unsigned int)blocks, FETCH_THREADS, 0,
-                        (cudaStream_t)stream>>>(in, (long long*)out);
-  return (int)cudaGetLastError();
+  FetchIn<1> in{};
+  in.sh[0] = FetchShard{(const int*)acgt, (const int*)multi, (const int*)F,
+                        (const int*)cov, (const long long*)cpre,
+                        (const int*)bd, 0, 0, L};
+  in.idx = (const long long*)idx;
+  in.L = L;
+  in.n = 1;
+  in.P = P;
+  in.Q = Q;
+  in.nbd = nbd;
+  return fetch_launch<false>(in, out, stream);
 }
 
-// The fetch's slice form (B4, a shard): as mc_caller_fetch over a shard's
-// finalized slice of L positions, with idx local (positions < L, points <=
-// L, blocks < the length of bd), cpre int64[L] the shard's inclusive
-// coverage prefix and base the coverage of the shards before it: a point
-// q reads base + cpre[q - 1], or base at q = 0.
-extern "C" int mc_caller_fetch_slice(const void* acgt, const void* multi,
-                                     const void* F, const void* cov,
-                                     const void* cpre, long long base,
-                                     const void* bd, const void* idx, int L,
-                                     int P, int Q, int nbd, void* out,
-                                     void* stream) {
-  const long long total = 10LL * P + Q + nbd;
-  if (L < 1 || P < 0 || Q < 0 || nbd < 0 || total < 1 ||
-      total > (1LL << 40) || (nbd > 0 && bd == nullptr) || idx == nullptr ||
-      out == nullptr ||
-      (P > 0 && (acgt == nullptr || multi == nullptr || F == nullptr ||
-                 cov == nullptr)) ||
-      (Q > 0 && cpre == nullptr))
+// The fetch's slice form (B4): out int64[10 P + Q + nbd] (on 16 bytes)
+// over the n shards of table (n records of 9 int64 words: acgt, multi, F,
+// cov, cpre, bd addresses, off, before, len; offs in order, each shard's
+// positions [off, off + len) apart from the next's, off a multiple of
+// BLOCK_SIZE), from idx int64[P + Q + nbd] in the caller's order: genome
+// positions (clamped to [0, L - 1]), prefix points (clamped to [0, L];
+// point q reads its shard's before + cpre[q - off - 1], or before at q =
+// off) and genome blocks (each held by a shard with a bd). One launch.
+extern "C" int mc_caller_fetch_slice(const void* table, int n, long long L,
+                                     const void* idx, int P, int Q, int nbd,
+                                     void* out, void* stream) {
+  if (table == nullptr || n < 1 || n > FETCH_MAX_SHARDS || L < 1 || P < 0 ||
+      Q < 0 || nbd < 0)
     return (int)cudaErrorInvalidValue;
-  const FetchIn in{(const int*)acgt, (const int*)multi, (const int*)F,
-                   (const int*)cov, (const long long*)cpre, (const int*)bd,
-                   (const long long*)idx, L, P, Q, nbd, base};
-  const long long blocks = (total + FETCH_THREADS - 1) / FETCH_THREADS;
-  caller_fetch_slice_kernel<<<(unsigned int)blocks, FETCH_THREADS, 0,
-                              (cudaStream_t)stream>>>(in, (long long*)out);
-  return (int)cudaGetLastError();
+  const long long* w = (const long long*)table;
+  FetchIn<FETCH_MAX_SHARDS> in{};
+  for (int s = 0; s < n; ++s, w += 9) {
+    const long long off = w[6], len = w[8];
+    if (off < 0 || off % BLOCK_SIZE || len < 1 || len > 0x7FFFFFFFLL ||
+        (s && off < in.sh[s - 1].off + in.sh[s - 1].len) ||
+        (P > 0 && (!w[0] || !w[1] || !w[2] || !w[3])) || (Q > 0 && !w[4]))
+      return (int)cudaErrorInvalidValue;
+    in.sh[s] = FetchShard{(const int*)w[0], (const int*)w[1],
+                          (const int*)w[2], (const int*)w[3],
+                          (const long long*)w[4], (const int*)w[5], off, w[7],
+                          (int)len};
+  }
+  in.idx = (const long long*)idx;
+  in.L = L;
+  in.n = n;
+  in.P = P;
+  in.Q = Q;
+  in.nbd = nbd;
+  return fetch_launch<true>(in, out, stream);
 }
 
 // The NOR blocks: out int32[3 * nseg] = (first position, minimum coverage,

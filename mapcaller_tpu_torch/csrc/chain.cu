@@ -128,10 +128,11 @@
 //     at finalize (A5's build_host_merge_kernel, mapcaller_tpu/pipeline/
 //     device_profile.py:136-165; B4's _merge_kernel, big_profile.py:
 //     189-289): the (int64 index, int32 value) lists of the four planes,
-//     concatenated, in one launch, a thread an entry; the single-card form
-//     adds at the flat index, the slice form maps a list's row and global
-//     position to the shard's row of Pl and keeps what the shard holds.
-//     Bound by bytes: 12 B an entry read, its plane word read and written.
+//     each strictly increasing, cut on the host into segments, one a
+//     (shard, list, row) of the shards a device holds; one launch a
+//     device over every segment (see the kernel).
+//     Bound by bytes: 12 B an entry read, its plane word read and written
+//     (a 32-byte sector each way, the entries lying ~400 B apart).
 //
 // Bound on an H100 SXM (HBM3, 3.35 TB/s): bytes, for all three. The work a
 // byte asks for is a few integer operations (a binary search of 15 steps,
@@ -199,8 +200,9 @@ static_assert(DP_TILE % (4 * DP_THREADS) == 0,
 constexpr int DP_SUM = 0, DP_SCAN = 1;  // K1's modes
 constexpr int APPLY_THREADS = 128;      // a K2 block: a warp an admit word
 constexpr int APPLY_LANES = MM_SLOTS;   // K2's lanes a read, a lane a slot
-constexpr int MERGE_THREADS = 256;      // a host-merge block, an entry a
-                                        // thread
+constexpr int MERGE_THREADS = 256;      // a host-merge block: a unit a
+constexpr int MERGE_ITEMS = 8;          // thread, of 8 consecutive entries
+constexpr int MERGE_MAX_SEGS = 512;     // segments a launch stages
 
 // ---- chain_scan_kernel ---------------------------------------------------
 
@@ -1460,43 +1462,122 @@ evidence_apply_slice_kernel(const long long* __restrict__ pd,
 
 // ---- host_merge_kernel -----------------------------------------------------
 
-// One plane of a host-delta merge: its list's indices are row * gstride +
-// position, with the position global; this launch holds positions [off,
-// off + lstride) of each row, at row * lstride + (position - off). The
-// single-card planes: off 0 and gstride = lstride, the plane's own flat
-// index; a shard of B4: gstride the single-card row stride, lstride Pl.
-struct MergePlane {
-  int* plane;
-  long long gstride, lstride, off;
+// One segment of a host-delta merge: the entries [g0, g1) of the lists,
+// all of one (shard, list, row), so each entry x adds at base[x - sub]
+// (sub the index of the row's first position the shard holds, base that
+// word's address in the shard's plane). A launch's segments are sorted
+// and disjoint; the consecutive ones make its runs of entries [a, b),
+// cut into units of MERGE_ITEMS entries aligned in the lists: a run's
+// units are the launch's w0, w0 + 1, ..., unit w being the lists' unit
+// w + ubase. One launch on a device that holds every shard has one run.
+// The host computes all of it (ops/mesh_kernels.py, merge_table).
+struct MergeSeg {
+  long long g0, g1, sub, base;
 };
 
-struct MergeIn {
-  const long long* idx;                 // [N]: the four lists in order
-  const int* val;                       // [N]
-  long long end[4];                     // list k ends at end[k]
-  MergePlane pl[4];                     // acgt, exact, f, multi
+struct MergeRun {
+  long long w0, ubase, a, b;
 };
 
-// host_merge_kernel: the host leg's sparse slow-read deltas (A5's
-// build_host_merge_kernel, B4's _merge_kernel) added into the four planes
-// in one launch, a thread an entry; an entry at a position this launch
-// does not hold adds nothing. Integer adds commute: the planes equal the
-// plain index_add_'s in every word.
+// The last of n sorted keys at or before x (0 if none), keys[k].g0 or
+// .w0 by `at`.
+template <typename T, typename F>
+__device__ __forceinline__ int merge_find(const T* keys, int n, long long x,
+                                          F at) {
+  int lo = 0, hi = n - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (at(keys[mid]) <= x) lo = mid; else hi = mid - 1;
+  }
+  return lo;
+}
+
+// The entries of unit u: four 16-byte index loads, two 16-byte value
+// loads, streamed past L1 (each is read once).
+__device__ __forceinline__ void merge_load(const long long* __restrict__ idx,
+                                           const int* __restrict__ val,
+                                           long long u,
+                                           long long (&x)[MERGE_ITEMS],
+                                           int (&v)[MERGE_ITEMS]) {
+  const longlong2* ip =
+      reinterpret_cast<const longlong2*>(idx + u * MERGE_ITEMS);
+  const int4* vp = reinterpret_cast<const int4*>(val + u * MERGE_ITEMS);
+#pragma unroll
+  for (int k = 0; k < MERGE_ITEMS / 2; ++k) {
+    const longlong2 t = __ldcs(ip + k);
+    x[2 * k] = t.x;
+    x[2 * k + 1] = t.y;
+  }
+#pragma unroll
+  for (int k = 0; k < MERGE_ITEMS / 4; ++k) {
+    const int4 t = __ldcs(vp + k);
+    v[4 * k] = t.x;
+    v[4 * k + 1] = t.y;
+    v[4 * k + 2] = t.z;
+    v[4 * k + 3] = t.w;
+  }
+}
+
+// host_merge_kernel: a thread a unit of 8 consecutive entries of one run,
+// read as four 16-byte index loads and two 16-byte value loads. With one
+// run (its fields in the parameters) the loads are issued first, while
+// the block stages the segments in shared memory. A block's first
+// segment is found once, by a binary search over the staged segment
+// starts; each thread walks on from it, entry by entry (a block spans
+// few segments). The word's offset is a subtraction: no 64-bit division,
+// and no entry outside the launch's segments is added (a unit at a run's
+// edge may carry a neighbour's entries in its loads; the thread skips
+// them). Every list is strictly increasing and each goes to its own
+// plane rows, so no two entries of a launch touch the same word. Each
+// add is a red.global.add, which nothing waits for: a plain
+// read-add-write, exact too, measured slower (the scattered words miss
+// L2, and a read-add-write waits for each one before its store).
 __global__ void __launch_bounds__(MERGE_THREADS)
-host_merge_kernel(MergeIn in) {
-  const long long i = (long long)blockIdx.x * MERGE_THREADS + threadIdx.x;
-  if (i >= in.end[3]) return;
-  // the list's plane, picked without indexing the parameters at run time
-  // (which would copy them to local memory)
-  MergePlane m = in.pl[0];
-  if (i >= in.end[0]) m = in.pl[1];
-  if (i >= in.end[1]) m = in.pl[2];
-  if (i >= in.end[2]) m = in.pl[3];
-  const long long x = __ldg(in.idx + i);
-  const long long row = x / m.gstride;
-  const long long li = x - row * m.gstride - m.off;
-  if (li >= 0 && li < m.lstride)
-    atomicAdd(m.plane + row * m.lstride + li, __ldg(in.val + i));
+host_merge_kernel(const long long* __restrict__ idx,
+                  const int* __restrict__ val,
+                  const MergeSeg* __restrict__ seg, int nseg,
+                  const MergeRun* __restrict__ run, int nrun, MergeRun run0,
+                  long long W) {
+  __shared__ MergeSeg s_seg[MERGE_MAX_SEGS];
+  __shared__ MergeRun s_run[MERGE_MAX_SEGS];
+  __shared__ int s_first;
+  for (int i = threadIdx.x; i < nseg; i += MERGE_THREADS) s_seg[i] = seg[i];
+  if (nrun > 1)
+    for (int i = threadIdx.x; i < nrun; i += MERGE_THREADS)
+      s_run[i] = run[i];
+  const long long w = (long long)blockIdx.x * MERGE_THREADS + threadIdx.x;
+  long long x[MERGE_ITEMS];
+  int v[MERGE_ITEMS];
+  MergeRun r = run0;
+  const bool in = w < W;
+  if (nrun == 1 && in) merge_load(idx, val, w + r.ubase, x, v);
+  __syncthreads();
+  if (nrun > 1 && in)
+    r = s_run[merge_find(s_run, nrun, w,
+                         [](const MergeRun& q) { return q.w0; })];
+  if (threadIdx.x == 0) {
+    // the block's first entry, in its first unit's run
+    const long long g = (w + r.ubase) * MERGE_ITEMS;
+    s_first = merge_find(s_seg, nseg, g > r.a ? g : r.a,
+                         [](const MergeSeg& q) { return q.g0; });
+  }
+  __syncthreads();
+  if (!in) return;
+  if (nrun > 1) merge_load(idx, val, w + r.ubase, x, v);
+  const long long g = (w + r.ubase) * MERGE_ITEMS;
+  int s = s_first;
+  int* at[MERGE_ITEMS];
+  bool mine[MERGE_ITEMS];
+#pragma unroll
+  for (int j = 0; j < MERGE_ITEMS; ++j) {
+    const long long e = g + j;
+    while (s + 1 < nseg && s_seg[s + 1].g0 <= e) ++s;
+    mine[j] = e >= r.a && e < r.b && e >= s_seg[s].g0 && e < s_seg[s].g1;
+    at[j] = reinterpret_cast<int*>(s_seg[s].base) + (x[j] - s_seg[s].sub);
+  }
+#pragma unroll
+  for (int j = 0; j < MERGE_ITEMS; ++j)
+    if (mine[j]) atomicAdd(at[j], v[j]);   // no return: red.global.add
 }
 
 }  // namespace
@@ -1839,35 +1920,28 @@ extern "C" int mc_evidence_apply_slice(const void* pd, const void* mmp,
   return (int)cudaGetLastError();
 }
 
-// The host-delta merge (host_merge_kernel): idx int64[N] and val int32[N]
-// hold the four lists (acgt, exact, f, multi) in order, list k ending at
-// ends[k] (int64[4], ends[3] = N); planes[k] its plane, gstride[k] the row
-// stride of its indices, lstride[k] the plane's row stride, each row
-// holding positions [off, off + lstride[k]). N may be 0: no launch.
+// The host-delta merge (host_merge_kernel): idx int64[Np] and val
+// int32[Np], Np a multiple of MERGE_ITEMS past the last entry, both on 16
+// bytes; seg the launch's nseg segments (MergeSeg, sorted, disjoint, 1 <=
+// nseg <= MERGE_MAX_SEGS) and run its nrun runs (MergeRun, 1 <= nrun <=
+// nseg), both on the card, units 0 .. W - 1 in order; run0 = (ubase, a,
+// b) of run 0 from the host. W may be 0: no launch.
 extern "C" int mc_host_merge(const void* idx, const void* val,
-                             const void* ends, const void* planes,
-                             const void* gstride, const void* lstride,
-                             long long off, void* stream) {
-  if (ends == nullptr || planes == nullptr || gstride == nullptr ||
-      lstride == nullptr || off < 0)
+                             const void* seg, int nseg, const void* run,
+                             int nrun, long long ubase0, long long a0,
+                             long long b0, long long W, void* stream) {
+  if (nseg < 1 || nseg > MERGE_MAX_SEGS || nrun < 1 || nrun > nseg ||
+      W < 0 || W > (1LL << 37))
     return (int)cudaErrorInvalidValue;
-  const long long* e = (const long long*)ends;
-  const long long* gs = (const long long*)gstride;
-  const long long* ls = (const long long*)lstride;
-  void* const* pl = (void* const*)planes;
-  MergeIn in{(const long long*)idx, (const int*)val, {}, {}};
-  for (int k = 0; k < 4; ++k) {
-    if (e[k] < (k ? e[k - 1] : 0) || gs[k] < 1 || ls[k] < 1 ||
-        pl[k] == nullptr)
-      return (int)cudaErrorInvalidValue;
-    in.end[k] = e[k];
-    in.pl[k] = MergePlane{(int*)pl[k], gs[k], ls[k], off};
-  }
-  const long long n = e[3];
-  if (n == 0) return (int)cudaSuccess;
-  if (idx == nullptr || val == nullptr || n > (1LL << 40))
+  if (W == 0) return (int)cudaSuccess;
+  if (idx == nullptr || val == nullptr || seg == nullptr || run == nullptr ||
+      (uintptr_t)idx % 16 || (uintptr_t)val % 16 || (uintptr_t)seg % 16 ||
+      (uintptr_t)run % 16)
     return (int)cudaErrorInvalidValue;
-  host_merge_kernel<<<(unsigned int)((n + MERGE_THREADS - 1) / MERGE_THREADS),
-                      MERGE_THREADS, 0, (cudaStream_t)stream>>>(in);
+  host_merge_kernel<<<(unsigned int)((W + MERGE_THREADS - 1) /
+                                     MERGE_THREADS),
+                      MERGE_THREADS, 0, (cudaStream_t)stream>>>(
+      (const long long*)idx, (const int*)val, (const MergeSeg*)seg, nseg,
+      (const MergeRun*)run, nrun, MergeRun{0, ubase0, a0, b0}, W);
   return (int)cudaGetLastError();
 }

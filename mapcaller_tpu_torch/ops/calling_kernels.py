@@ -28,14 +28,20 @@
                      segments inside it, and a segment across tiles is
                      combined in a per-stream scratch of epoch-tagged
                      words and written by the last of its tiles;
-  caller_fetch_slice, nor_blocks_slice  the fetch's and the NOR blocks'
-                     slice forms, B4's fetch and NOR a shard
-                     (pipeline/big_profile.BigDeviceEvidence.fetch_columns,
-                     ShardedBlockDepth.gather, nor_blocks): the fetch at a
-                     shard's local positions, its prefix the shard's
-                     inclusive coverage prefix after the earlier shards'
-                     totals; the NOR minima of a shard's valid positions
-                     keyed by the global breaks, as local positions.
+  caller_fetch_slice the fetch's slice form, B4's fetch (pipeline/
+                     big_profile.BigDeviceEvidence.fetch_columns,
+                     ShardedBlockDepth.gather): one launch over every
+                     shard a device holds, the elements in the caller's
+                     order, each answered by the shard a search over the
+                     shards' first positions finds, a point's prefix the
+                     shard's inclusive coverage prefix after the earlier
+                     shards' totals; the same body as caller_fetch (a
+                     warp a column at 32 positions, the tile's columns
+                     staged and stored 16 bytes at a time);
+  nor_blocks_slice   the NOR blocks' slice form, B4's NOR a shard
+                     (BigDeviceEvidence.nor_blocks): the minima of a
+                     shard's valid positions keyed by the global breaks,
+                     as local positions.
 
 Each wrapper checks its inputs, then runs the plain version for CPU
 tensors and the kernel entry (`_finalize_kernel`, `_scan_kernel`,
@@ -67,6 +73,8 @@ DUMP = 4096          # dump slots past a compacted table (plain version)
 FIN_TILE = 2560
 SCAN_TILE = 3200
 SLOT_WORDS = 16
+FETCH_TILE = 128     # positions a fetch block
+FETCH_MAX_SHARDS = 16   # shards a slice-form fetch launch takes
 _EPOCHS = 1 << 30    # the look-back's flag tags: 1 .. 2^30 - 1
 
 # the finalize: acgt, F int32[4, n], multi, cov int32[n], cov_prefix int64
@@ -106,8 +114,7 @@ def _load_kernel():
                  + [P] * 6 + [I, I, P]),
                 ("mc_caller_fetch", [P] * 7 + [I] * 4 + [P, P]),
                 ("mc_nor_blocks", [P, I, P, I, P, I, I, P, P, I, I, P]),
-                ("mc_caller_fetch_slice", [P] * 5 + [LL] + [P, P]
-                 + [I] * 4 + [P, P]),
+                ("mc_caller_fetch_slice", [P, I, LL, P, I, I, I, P, P]),
                 ("mc_nor_blocks_slice", [P, I, P, I, P, I, I, LL, P, P, I,
                                          I, P]),
                 ("mc_calling_geometry", [I, P])):
@@ -457,7 +464,7 @@ def caller_fetch_plain(acgt, multi, F, cov, cov_prefix, idx, P: int, Q: int,
 
 def _fetch_kernel(acgt, multi, F, cov, cov_prefix, idx, P: int, Q: int,
                   block_depth=None) -> torch.Tensor:
-    """caller_fetch_kernel: one launch, a thread an output word."""
+    """caller_fetch_kernel: one launch (the fetch body over one shard)."""
     nbd = idx.shape[0] - P - Q
     out = torch.empty(10 * P + Q + nbd, dtype=torch.int64, device=idx.device)
     if out.numel():
@@ -561,72 +568,119 @@ def nor_blocks(cov, emitted, brk_sorted, nseg: int) -> torch.Tensor:
 
 # ---- the slice forms of the fetch and the NOR blocks (B4) -------------------
 
-def caller_fetch_slice_plain(acgt, multi, F, cov, ccov, base: int, idx,
-                             P: int, Q: int,
-                             block_depth=None) -> torch.Tensor:
+def _fetch_owner(firsts, x):
+    """The shard of each x: the last whose first position (or block) is
+    at or before it, shard 0 before every shard (the kernel's search)."""
+    return torch.clamp(torch.searchsorted(firsts, x, right=True) - 1, min=0)
+
+
+def caller_fetch_slice_plain(shards, offs, before, idx, P: int, Q: int,
+                             L: int, block_depths=None) -> torch.Tensor:
     """Plain version of caller_fetch_slice on any device."""
-    Pl = cov.shape[0]
-    parts = []
-    if P:
-        p = torch.clamp(idx[:P], 0, Pl - 1)
-        parts.append(torch.stack(
-            [acgt[0][p], acgt[1][p], acgt[2][p], acgt[3][p], multi[p],
-             F[0][p], F[1][p], F[2][p], F[3][p], cov[p]],
-            dim=1).reshape(-1).to(torch.int64))
-    if Q:
-        q = torch.clamp(idx[P:P + Q], 0, Pl)
-        loc = ccov[torch.clamp(q - 1, min=0)]
-        parts.append(int(base) + torch.where(q == 0, 0, loc))
-    if idx.shape[0] > P + Q:
-        parts.append(block_depth[idx[P + Q:]].to(torch.int64))
-    return torch.cat(parts) if parts else torch.zeros(
-        0, dtype=torch.int64, device=idx.device)
-
-
-def _fetch_slice_kernel(acgt, multi, F, cov, ccov, base: int, idx, P: int,
-                        Q: int, block_depth=None) -> torch.Tensor:
-    """caller_fetch_slice_kernel: one launch, a thread an output word."""
-    nbd = idx.shape[0] - P - Q
-    out = torch.empty(10 * P + Q + nbd, dtype=torch.int64, device=idx.device)
-    if out.numel():
-        _launch("caller_fetch_slice", idx.device, acgt.data_ptr(),
-                multi.data_ptr(), F.data_ptr(), cov.data_ptr(),
-                ccov.data_ptr(), int(base),
-                _ptr(block_depth) if nbd else None, idx.data_ptr(),
-                cov.shape[0], P, Q, nbd, out.data_ptr())
+    dev = idx.device
+    offs_t = torch.tensor([int(o) for o in offs], dtype=torch.int64,
+                          device=dev)
+    lens = [sh[3].shape[0] for sh in shards]
+    out = torch.zeros(idx.shape[0] + 9 * P, dtype=torch.int64, device=dev)
+    p = torch.clamp(idx[:P], 0, L - 1)
+    q = torch.clamp(idx[P:P + Q], 0, L)
+    b = idx[P + Q:]
+    po, qo = _fetch_owner(offs_t, p), _fetch_owner(offs_t, q)
+    bo = _fetch_owner(torch.div(offs_t, BLOCK_SIZE, rounding_mode="floor"),
+                      b)
+    cols = out[:10 * P].view(P, 10)
+    pref = out[10 * P:10 * P + Q]
+    depths = out[10 * P + Q:]
+    for s, ((acgt, F, multi, cov, ccov), off, n) in enumerate(
+            zip(shards, offs, lens)):
+        m = po == s
+        lp = torch.clamp(p[m] - int(off), 0, n - 1)
+        cols[m] = torch.stack(
+            [acgt[0][lp], acgt[1][lp], acgt[2][lp], acgt[3][lp], multi[lp],
+             F[0][lp], F[1][lp], F[2][lp], F[3][lp], cov[lp]],
+            dim=1).to(torch.int64)
+        m = qo == s
+        lq = torch.clamp(q[m] - int(off), 0, n)
+        pref[m] = int(before[s]) + torch.where(
+            lq == 0, 0, ccov[torch.clamp(lq - 1, min=0)])
+        m = bo == s
+        if m.any():
+            depths[m] = block_depths[s][b[m] - int(off) // BLOCK_SIZE].to(
+                torch.int64)
     return out
 
 
-def caller_fetch_slice(acgt, multi, F, cov, ccov, base: int, idx, P: int,
-                       Q: int, block_depth=None) -> torch.Tensor:
-    """A shard's finalized slice (acgt, F int32[4, Pl], multi, cov
-    int32[Pl], ccov int64[Pl] its inclusive coverage prefix, base the
-    coverage of the shards before it) read at local idx int64[P + Q +
-    nbd]: P positions (clamped to [0, Pl)), Q prefix points (clamped to
-    [0, Pl]; point q reads base + ccov[q - 1], or base at 0) and nbd
-    blocks of block_depth int32 -> int64[10 P + Q + nbd], laid out as
-    caller_fetch's. Counted as caller_fetch_slice."""
+def _fetch_slice_kernel(shards, offs, before, idx, P: int, Q: int, L: int,
+                        block_depths=None) -> torch.Tensor:
+    """caller_fetch_slice_kernel: one launch over every shard."""
+    nbd = idx.shape[0] - P - Q
+    out = torch.empty(10 * P + Q + nbd, dtype=torch.int64, device=idx.device)
+    if out.numel():
+        table = (C.c_longlong * (9 * len(shards)))(*(
+            v for s, (acgt, F, multi, cov, ccov) in enumerate(shards)
+            for v in (acgt.data_ptr(), multi.data_ptr(), F.data_ptr(),
+                      cov.data_ptr(), ccov.data_ptr(),
+                      block_depths[s].data_ptr() if nbd else 0,
+                      int(offs[s]), int(before[s]), cov.shape[0])))
+        _launch("caller_fetch_slice", idx.device, table, len(shards), int(L),
+                idx.data_ptr(), P, Q, nbd, out.data_ptr())
+    return out
+
+
+def caller_fetch_slice(shards, offs, before, idx, P: int, Q: int, L: int,
+                       block_depths=None) -> torch.Tensor:
+    """The finalized slices of a device's shards, in order of their first
+    positions: shards[s] = (acgt, F int32[4, Pl_s], multi, cov int32[Pl_s],
+    ccov int64[Pl_s] its inclusive coverage prefix), holding genome
+    positions [offs[s], offs[s] + Pl_s) (offs in order, apart, multiples
+    of 100), before[s] the coverage of the genome's shards before it, read
+    at idx int64[P + Q + nbd] in the caller's order: P genome positions
+    (clamped to [0, L - 1]), Q prefix points (clamped to [0, L]) and nbd
+    genome blocks (block_depths[s] int32, needed when nbd > 0). Each
+    element's shard is the last whose first position (block) is at or
+    before it; its index in the shard is clamped to the shard (a
+    position to [0, Pl_s), a point to [0, Pl_s]): a point q reads
+    before[s] + ccov[q - offs[s] - 1], or before[s] at offs[s]. ->
+    int64[10 P + Q + nbd], laid out as caller_fetch's. On the card one
+    launch; counted as caller_fetch_slice."""
     name = "caller_fetch_slice"
-    need(cov.dim() == 1 and cov.shape[0] >= 1, f"{name}: cov must be [Pl]")
-    Pl = cov.shape[0]
-    for what, t, shape in (("acgt", acgt, (4, Pl)), ("F", F, (4, Pl)),
-                           ("multi", multi, (Pl,)), ("cov", cov, (Pl,))):
-        _dtype(name, t, torch.int32, what)
-        need(t.shape == shape, f"{name}: {what} must be int32{list(shape)}")
-    _dtype(name, ccov, torch.int64, "ccov")
-    need(ccov.shape == (Pl,), f"{name}: ccov must be int64[Pl]")
+    n = len(shards)
+    need(n >= 1 and len(offs) == n and len(before) == n,
+         f"{name}: a shard's offs and before for each shard")
+    ts = [idx]
+    for acgt, F, multi, cov, ccov in shards:
+        need(cov.dim() == 1 and cov.shape[0] >= 1,
+             f"{name}: cov must be [Pl]")
+        Pl = cov.shape[0]
+        for what, t, shape in (("acgt", acgt, (4, Pl)), ("F", F, (4, Pl)),
+                               ("multi", multi, (Pl,)), ("cov", cov, (Pl,))):
+            _dtype(name, t, torch.int32, what)
+            need(t.shape == shape,
+                 f"{name}: {what} must be int32{list(shape)}")
+        _dtype(name, ccov, torch.int64, "ccov")
+        need(ccov.shape == (Pl,), f"{name}: ccov must be int64[Pl]")
+        ts += [acgt, F, multi, cov, ccov]
+    offs = [int(o) for o in offs]
+    ends = [o + sh[3].shape[0] for o, sh in zip(offs, shards)]
+    need(offs[0] >= 0 and all(o % BLOCK_SIZE == 0 for o in offs)
+         and all(a <= b for a, b in zip(ends[:-1], offs[1:])) and L >= 1,
+         f"{name}: shards in order, apart, on whole blocks; L >= 1")
     _dtype(name, idx, torch.int64, "idx")
     need(idx.dim() == 1 and 0 <= P and 0 <= Q and P + Q <= idx.shape[0],
          f"{name}: idx must be int64[P + Q + nbd]")
     nbd = idx.shape[0] - P - Q
     if nbd:
-        need(block_depth is not None, f"{name}: blocks without block_depth")
-        _dtype(name, block_depth, torch.int32, "block_depth")
-    args = (acgt, multi, F, cov, ccov, base, idx, P, Q, block_depth)
-    if not _on_card(name, [acgt, multi, F, cov, ccov, idx,
-                           block_depth if nbd else None]):
+        need(block_depths is not None and len(block_depths) == n,
+             f"{name}: blocks without each shard's block depths")
+        for t in block_depths:
+            _dtype(name, t, torch.int32, "block_depths")
+        ts += list(block_depths)
+    args = (shards, offs, before, idx, P, Q, L, block_depths)
+    if not _on_card(name, ts):
         return caller_fetch_slice_plain(*args)
-    need(Pl < 1 << 31, f"{name}: the kernel takes Pl < 2^31")
+    need(n <= FETCH_MAX_SHARDS and max(ends[s] - offs[s] for s in range(n))
+         < 1 << 31, f"{name}: the kernel takes at most {FETCH_MAX_SHARDS} "
+                    f"shards of Pl < 2^31")
     return _fetch_slice_kernel(*args)
 
 

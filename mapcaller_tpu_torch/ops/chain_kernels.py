@@ -113,7 +113,7 @@ def _load_kernel():
                 # K2's slice form and the host merge (ops/mesh_kernels.py)
                 ("mc_evidence_apply_slice", [P] * 4 + [I] + [P] * 3
                  + [C.c_longlong] * 3 + [I, P]),
-                ("mc_host_merge", [P] * 6 + [C.c_longlong, P])):
+                ("mc_host_merge", [P, P, P, I, P, I] + [C.c_longlong] * 4 + [P])):
             fn = getattr(lib, name)
             fn.restype = C.c_int
             fn.argtypes = args

@@ -37,12 +37,17 @@ mesh:
                    endpoint and mismatch position clipped over the genome,
                    then added where the shard holds it;
   host_merge       the host leg's sparse slow-read deltas, the four
-                   planes' (index, value) lists in one launch
-                   (`host_merge_kernel`): into the single-card planes at
+                   planes' (index, value) lists, each strictly
+                   increasing, cut on the host into segments, one a
+                   (shard, list, row), by one np.searchsorted a list
+                   (merge_segments, merge_table), and added by one launch
+                   a device over every segment of its shards (a launch a
+                   512 segments past 51 shards; `host_merge_kernel`): into the single-card planes at
                    their flat indices (A5, pipeline/device_profile.
                    build_host_merge_kernel, mapcaller_tpu/pipeline/
-                   device_profile.py:136-165), or into a shard's slice
-                   (B4's merge, big_profile.py:189-289).
+                   device_profile.py:136-165), or into the slices of the
+                   shards a device holds (B4's merge, big_profile.py:
+                   189-289).
 
 K1 on device d reads the n partials through a table of their base
 addresses, as ops/routed.Routed.pointers hands the routed kernels their
@@ -503,86 +508,239 @@ def _apply_slice_kernel(planes, off: int, pd, mmp, rlens, bits, L: int,
 # ---- the host-delta merge ---------------------------------------------------
 
 MERGE_PLANES = ("acgt", "exact_diff", "f_diff", "multi_diff")
+# csrc/chain.cu: entries a thread's unit (the lists are padded to whole
+# units), segments a launch stages, int64 words of a segment's (and a
+# run's) record
+MERGE_ITEMS = 8
+MERGE_MAX_SEGS = 512
+SEG_WORDS = 4
+
+
+def _padded(N: int) -> int:
+    return -(-N // MERGE_ITEMS) * MERGE_ITEMS
 
 
 def pack_deltas(lists) -> np.ndarray:
     """The four (int64 index, int32 value) lists as one int64 buffer for
-    one upload: the N indices, then the N values as int32 pairs."""
+    one upload: the N indices, then the N values as int32 pairs, each part
+    padded with zeros to a whole number of the kernel's units (Np =
+    ceil(N / 8) * 8 entries), so both lie on 16 bytes."""
     idx = np.concatenate([i for i, _ in lists]).astype(np.int64)
     val = np.concatenate([v for _, v in lists]).astype(np.int32)
     N = idx.size
-    buf = np.zeros(N + (N + 1) // 2, dtype=np.int64)
+    Np = _padded(N)
+    buf = np.zeros(Np + Np // 2, dtype=np.int64)
     buf[:N] = idx
-    buf[N:].view(np.int32)[:N] = val
+    buf[Np:].view(np.int32)[:N] = val
     return buf
 
 
-def unpack_deltas(buf: torch.Tensor, N: int):
-    """(idx int64[N], val int32[N]) views of a pack_deltas buffer."""
-    return buf[:N], buf[N:].view(torch.int32)[:N]
+def unpack_deltas(buf, N: int):
+    """(idx int64[N], val int32[N]) views of a pack_deltas buffer (numpy
+    or torch)."""
+    Np = _padded(N)
+    vals = buf[Np:Np + Np // 2]
+    vals = (vals.view(np.int32) if isinstance(vals, np.ndarray)
+            else vals.view(torch.int32))
+    return buf[:N], vals[:N]
 
 
-def host_merge_plain(planes, idx, val, ends, gstrides, off: int = 0):
-    """Plain version of host_merge on any device: an index_add_ a list."""
-    start = 0
-    for name, end, gs in zip(MERGE_PLANES, ends, gstrides):
-        plane = getattr(planes, name)
-        x, v = idx[start:end], val[start:end]
-        start = end
-        ls = plane.shape[-1]
-        row = torch.div(x, gs, rounding_mode="floor")
-        li = x - row * gs - off
-        ok = (li >= 0) & (li < ls)
-        plane.view(-1).index_add_(0, (row * ls + li)[ok], v[ok])
-    return planes
+def _rows(plane) -> int:
+    return plane.shape[0] if plane.dim() == 2 else 1
 
 
-def host_merge(planes, deltas: torch.Tensor, ends, gstrides, off: int = 0):
-    """Add the host leg's sparse deltas into the four planes of `planes`
-    (acgt, exact_diff, f_diff, multi_diff: int32, 2-D [rows, ls] or 1-D
-    [ls]) in place: deltas the four lists packed as pack_deltas packs
-    them (int64[N + ceil(N / 2)]: the N indices, then the N int32
-    values), list k ending at ends[k] (ends[3] = N); an index is row *
-    gstrides[k] + position, and a row of the plane holds positions [off,
-    off + ls), at row * ls + (position - off); the others are dropped.
-    The single-card planes take their flat indices (gstrides their row
-    strides, device_profile.merge_strides, off 0); a shard of B4 the
-    single-card indices with its off. Returns planes. On the card one
-    launch on the current stream, none for N = 0. Counted as
-    host_merge."""
+def merge_segments(idx: np.ndarray, ends, gstrides, shards) -> np.ndarray:
+    """The host-delta merge's segments: idx int64[N] the four lists in
+    order (list k ends at ends[k], each strictly increasing), an index
+    row * gstrides[k] + position; shards [(off, rows, lstrides)], rows[k]
+    and lstrides[k] list k's plane's rows and row stride in the shard,
+    each row holding positions [off, off + lstrides[k]) -> int64[S, 4],
+    S = len(shards) * sum(rows), a row a (shard, list, row) in that order:
+    (g0, g1, sub, word): the entries [g0, g1) of the list lie in that
+    row's positions the shard holds, entry x adds at word x - sub of
+    the row, the row starting at word `word` of the shard's plane. One
+    np.searchsorted a list over every boundary row * gstride + off (and
+    the end of the held positions, at most the row's end)."""
+    starts = [0] + list(ends[:3])
+    per = {}
+    for k in range(4):
+        gs = gstrides[k]
+        parts = []
+        for off, rows, ls in shards:
+            r = np.arange(rows[k], dtype=np.int64)
+            a = r * gs + off
+            parts.append((a, np.maximum(a, r * gs + min(off + ls[k], gs)),
+                          r * ls[k]))
+        bounds = np.concatenate([x for a, b, _ in parts for x in (a, b)])
+        cut = starts[k] + np.searchsorted(idx[starts[k]:ends[k]], bounds)
+        at = 0
+        for j, (a, b, word) in enumerate(parts):
+            n = a.size
+            per[j, k] = np.stack([cut[at:at + n], cut[at + n:at + 2 * n], a,
+                                  word], axis=1)
+            at += 2 * n
+    return np.concatenate([per[j, k] for j in range(len(shards))
+                           for k in range(4)]).astype(np.int64)
+
+
+def merge_table(segs: np.ndarray, bases: np.ndarray):
+    """The kernel's records (csrc/chain.cu MergeSeg, MergeRun) from
+    merge_segments' rows and each row's plane base address (bytes) ->
+    (segments int64[S, 4]: g0, g1, sub, the address of the row's first
+    word, the nonempty ones in order of g0; runs int64[R, 4]: w0, ubase,
+    a, b, each a run [a, b) of consecutive segments' entries, its units
+    of MERGE_ITEMS entries w0, w0 + 1, ... of the launch, unit w the
+    lists' unit w + ubase; W, the launch's units)."""
+    g0, g1, sub, word = segs.T
+    keep = np.nonzero(g1 > g0)[0]
+    keep = keep[np.argsort(g0[keep], kind="stable")]
+    seg = np.stack([g0[keep], g1[keep], sub[keep],
+                    (bases + 4 * word)[keep]], axis=1).astype(np.int64)
+    if not keep.size:
+        return seg, np.zeros((0, 4), np.int64), 0
+    # a run starts where a segment does not begin at the last one's end
+    new = np.concatenate([[True], seg[1:, 0] != seg[:-1, 1]])
+    a = seg[new, 0]
+    b = seg[np.concatenate([new[1:], [True]]), 1]
+    u0 = a // MERGE_ITEMS
+    cnt = -(-b // MERGE_ITEMS) - u0
+    w0 = np.concatenate([[0], np.cumsum(cnt)[:-1]])
+    runs = np.stack([w0, u0 - w0, a, b], axis=1).astype(np.int64)
+    return seg, runs, int(cnt.sum())
+
+
+def merge_launches(segs: np.ndarray, bases: np.ndarray,
+                   cap: int = MERGE_MAX_SEGS):
+    """merge_table's records cut into launches of at most `cap` segments
+    (what a launch stages in shared memory): the nonempty segments in
+    order of g0, `cap` at a time, each launch with its own runs -> [(seg,
+    runs, W)], no launch without units. One launch up to cap segments
+    (on one card, 51 shards of 10 rows)."""
+    keep = np.nonzero(segs[:, 1] > segs[:, 0])[0]
+    keep = keep[np.argsort(segs[keep, 0], kind="stable")]
+    out = [merge_table(segs[c], bases[c])
+           for c in np.split(keep, range(cap, keep.size, cap))]
+    return [t for t in out if t[2]]
+
+
+def host_merge_plain(shards, idx, val, ends, gstrides):
+    """Plain version of host_merge on any device: for each shard an
+    index_add_ a list (idx, val host tensors, moved to the planes'
+    device)."""
+    for planes, off in shards:
+        start = 0
+        for name, end, gs in zip(MERGE_PLANES, ends, gstrides):
+            plane = getattr(planes, name)
+            x = idx[start:end].to(plane.device)
+            v = val[start:end].to(plane.device)
+            start = end
+            ls = plane.shape[-1]
+            row = torch.div(x, gs, rounding_mode="floor")
+            li = x - row * gs - off
+            ok = (li >= 0) & (li < ls)
+            plane.view(-1).index_add_(0, (row * ls + li)[ok], v[ok])
+    return shards
+
+
+def host_merge(shards, deltas, ends, gstrides):
+    """Add the host leg's sparse deltas into the four planes (acgt,
+    exact_diff, f_diff, multi_diff: int32, 2-D [rows, ls] or 1-D [ls]) of
+    every shard of `shards` [(planes, off)], all on one device, in place:
+    deltas the four lists packed as pack_deltas packs them, on the host
+    (numpy, or a CPU tensor), list k ending at ends[k] (ends[3] = N),
+    each strictly increasing; an index is row * gstrides[k] + position,
+    and a shard's plane row holds positions [off, off + ls), at
+    row * ls + (position - off); the others are dropped. The single-card
+    planes take their flat indices (gstrides their row strides,
+    device_profile.merge_strides, one shard at off 0); B4 the single-card
+    indices and the shards a device holds. Returns shards. On the card
+    the lists and the segments (merge_segments, merge_table) go up in
+    one copy and one launch adds every entry of every shard (past
+    MERGE_MAX_SEGS segments, 51 shards on one card, a launch a
+    MERGE_MAX_SEGS of them); nothing for N = 0. Counted as host_merge."""
     name = "host_merge"
-    fields = [getattr(planes, f) for f in MERGE_PLANES]
+    shards = [(p, int(off)) for p, off in shards]
+    fields = [getattr(p, f) for p, _ in shards for f in MERGE_PLANES]
     ends, gstrides = [int(e) for e in ends], [int(g) for g in gstrides]
-    need(deltas.dtype == torch.int64
+    if torch.is_tensor(deltas):
+        need(deltas.device.type == "cpu",
+             f"{name}: deltas must be on the host (pack_deltas' buffer)")
+        deltas = deltas.numpy()
+    need(deltas.dtype == np.int64
          and all(t.dtype == torch.int32 for t in fields),
          f"{name}: deltas int64 (pack_deltas), the planes int32", TypeError)
-    need(len(ends) == 4 and len(gstrides) == 4
+    need(len(shards) >= 1 and len(ends) == 4 and len(gstrides) == 4
          and all(0 <= a <= b for a, b in zip([0] + ends[:3], ends))
-         and min(gstrides) >= 1 and off >= 0
+         and min(gstrides) >= 1 and min(off for _, off in shards) >= 0
          and all(t.dim() in (1, 2) and t.shape[-1] >= 1 for t in fields),
-         f"{name}: four lists ending at ends, gstrides >= 1, off >= 0")
+         f"{name}: four lists ending at ends, gstrides >= 1, offs >= 0")
     N = ends[-1]
-    need(deltas.dim() == 1 and deltas.shape[0] == N + (N + 1) // 2,
+    Np = _padded(N)
+    need(deltas.ndim == 1 and deltas.shape[0] == Np + Np // 2,
          f"{name}: deltas must be pack_deltas' buffer of the N = {N} "
          f"entries")
     idx, val = unpack_deltas(deltas, N)
-    ts = [deltas, *fields]
-    need(len({t.device for t in ts}) == 1,
-         f"{name}: tensors on several devices")
-    if not _on_card(name, ts):
-        return host_merge_plain(planes, idx, val, ends, gstrides, off)
-    return _host_merge_kernel(planes, idx, val, ends, gstrides, off)
+    need(all((x[1:] > x[:-1]).all()
+             for x in (idx[a:b] for a, b in zip([0] + ends[:3], ends))),
+         f"{name}: each list must be strictly increasing")
+    need(len({t.device for t in fields}) == 1,
+         f"{name}: planes on several devices")
+    if not _on_card(name, fields):
+        return host_merge_plain(shards, torch.from_numpy(idx),
+                                torch.from_numpy(val), ends, gstrides)
+    return _host_merge_kernel(shards, torch.from_numpy(idx),
+                              torch.from_numpy(val), ends, gstrides)
 
 
-def _host_merge_kernel(planes, idx, val, ends, gstrides, off: int = 0):
-    """host_merge_kernel: one launch, a thread an entry; none for N =
-    0."""
-    if ends[-1]:
-        fields = [getattr(planes, f) for f in MERGE_PLANES]
-        L4 = C.c_longlong * 4
-        ck._launch("host_merge", idx.device, idx.data_ptr(), val.data_ptr(),
-                   L4(*ends), (C.c_void_p * 4)(*(t.data_ptr()
-                                                 for t in fields)),
-                   L4(*gstrides), L4(*(t.shape[-1] for t in fields)),
-                   int(off), stats=STATS)
-    return planes
+def _host_merge_kernel(shards, idx, val, ends, gstrides):
+    """host_merge_kernel: the lists and the segment records in one
+    buffer, one copy to the planes' device, one launch over every
+    segment of the shards (merge_launches: one a MERGE_MAX_SEGS
+    segments); none for N = 0."""
+    N = ends[-1]
+    if not N:
+        return shards
+    dev = getattr(shards[0][0], MERGE_PLANES[0]).device
+    segs = merge_segments(idx.numpy(), ends, gstrides, [
+        (off, [_rows(getattr(p, f)) for f in MERGE_PLANES],
+         [getattr(p, f).shape[-1] for f in MERGE_PLANES])
+        for p, off in shards])
+    bases = np.array([getattr(p, f).data_ptr()
+                      for p, _ in shards for f in MERGE_PLANES
+                      for _ in range(_rows(getattr(p, f)))], dtype=np.int64)
+    launches = merge_launches(segs, bases)
+    if not launches:
+        return shards
+    Np = _padded(N)
+    tables = np.concatenate([np.concatenate([seg.reshape(-1),
+                                             runs.reshape(-1)])
+                             for seg, runs, _ in launches])
+    host = torch.empty(Np + Np // 2 + tables.size, dtype=torch.int64,
+                       pin_memory=dev.type == "cuda")
+    h = host.numpy()
+    h[:N] = idx.numpy()
+    h[N:Np] = 0
+    vals = h[Np:Np + Np // 2].view(np.int32)
+    vals[:N] = val.numpy()
+    vals[N:] = 0
+    h[Np + Np // 2:] = tables
+    buf = host.to(dev, non_blocking=True)
+    at = Np + Np // 2
+    for seg, runs, W in launches:
+        _merge_launch(buf, Np, at, seg.shape[0], runs.shape[0],
+                      *runs[0, 1:], W)
+        at += seg.size + runs.size
+    return shards
+
+
+def _merge_launch(buf, Np: int, at: int, nseg: int, nrun: int, ubase0: int,
+                  a0: int, b0: int, W: int) -> None:
+    """A launch of host_merge_kernel on buf (the lists padded to Np
+    entries, then the launches' tables): its nseg segment records at
+    word `at` of buf, its nrun run records after them, run 0's ubase and
+    entries [a0, b0), W units."""
+    base = buf.data_ptr()
+    seg = base + 8 * at
+    ck._launch("host_merge", buf.device, base, base + 8 * Np, seg,
+               int(nseg), seg + 8 * SEG_WORDS * nseg, int(nrun), int(ubase0),
+               int(a0), int(b0), int(W), stats=STATS)

@@ -17,7 +17,8 @@ port's kernels a shard, through their slice forms:
              endpoint and mismatch added by the shard that owns its
              position (:103-187)
   merge      the host profile's sparse slow-read deltas: the four lists
-             uploaded once a device, one host_merge launch a shard
+             and their segments (a (shard, list, row) each) uploaded once
+             a device, one host_merge launch a device over its shards
              (ops/mesh_kernels.host_merge) (:189-289)
   finalize   per-shard prefix sums, each shard carrying in the prefixes
              at the end of the shard before it: evidence_finalize with the
@@ -27,8 +28,10 @@ port's kernels a shard, through their slice forms:
              candidates and runs joined in shard order, which is position
              order, so the CAND_CAP / RUN_CAP truncation equals the
              single-card scan's (:363-530)
-  fetch      each shard answers the positions, prefix points and blocks
-             it owns: caller_fetch_slice, a launch a shard that owns any
+  fetch      the positions, prefix points and blocks in the caller's
+             order, each answered by the shard that owns it:
+             caller_fetch_slice, one upload, one launch and one download
+             a device (a launch a 16 shards past 16 on one device)
              (:532-601)
   NOR        each shard's segment minima of its normal positions
              (nor_blocks_slice, keyed by the global breaks), combined on
@@ -183,14 +186,14 @@ class BigDeviceEvidence(DeviceEvidence):
 
     def _merge_lists(self, deltas, ends) -> None:
         """host_merge of the packed lists (host, host_delta_lists) into
-        every shard: uploaded once a device, one launch a shard (its
-        slice of each row)."""
+        every shard: one call a device over the shards it holds (the lists
+        and their segments, a (shard, list, row) each, up in one copy;
+        one launch)."""
         gstrides = merge_strides(self.L)
-        ups = {}
-        for sp, d in zip(self.planes, self.devs):
-            if d not in ups:
-                ups[d] = upload(deltas, d)
-            mesh_kernels.host_merge(sp, ups[d], ends, gstrides, sp.off)
+        for mine in self._device_shards().values():
+            mesh_kernels.host_merge(
+                [(self.planes[s], self.planes[s].off) for s in mine], deltas,
+                ends, gstrides)
 
     def finalize(self):
         """Merge the host deltas, then fold each shard's planes -> a list
@@ -274,51 +277,74 @@ class BigDeviceEvidence(DeviceEvidence):
         return self._scan
 
     # ------------------------------------------------------------------
+    def _device_shards(self):
+        """{device: the shards it holds, in order}."""
+        out = {}
+        for s, d in enumerate(self.devs):
+            out.setdefault(d, []).append(s)
+        return out
+
     def _fetch(self, p: np.ndarray, pp: np.ndarray, blocks: np.ndarray,
                bds=None):
         """The columns at positions p (each in [0, L)), the global
         coverage prefix at points pp (each in [0, L]) and the depths of
         blocks (each < the block count; bds the shards' block depths) ->
-        (cols int64[P, 10], pref int64[Q], depths int64[nbd]): a
-        caller_fetch_slice launch a shard that owns any of them, the
-        indices up in one copy a device, every launch queued before the
-        copies to the host."""
+        (cols int64[P, 10], pref int64[Q], depths int64[nbd]): one
+        caller_fetch_slice launch a device over the shards it holds (up
+        to FETCH_MAX_SHARDS; past that a launch a FETCH_MAX_SHARDS of
+        them), the indices up in one copy a launch in the caller's order
+        and the output down in it, every launch queued before the copies
+        to the host. With more than one launch (shards on several
+        devices, or too many on one), each launch takes its shards'
+        elements (one selection a launch on the host), and its output
+        goes back to their places."""
         outs, tots = self.finalize()
         Pl = self.Pl
-        nbl = Pl // BLOCK_SIZE
+        P, Q = p.size, pp.size
+        if not (P or Q or blocks.size):
+            return (np.zeros((0, 10), np.int64), np.zeros(0, np.int64),
+                    np.zeros(0, np.int64))
         before = np.concatenate([[0], np.cumsum(tots)])
-        cols = np.zeros((p.size, 10), dtype=np.int64)
-        pref = np.zeros(pp.size, dtype=np.int64)
-        depths = np.zeros(blocks.size, dtype=np.int64)
+        cap = calling_kernels.FETCH_MAX_SHARDS
+        groups = [(d, mine[i:i + cap])
+                  for d, mine in self._device_shards().items()
+                  for i in range(0, len(mine), cap)]
+        one = len(groups) == 1
+        if one:
+            sels = [None]
+        else:
+            # the launch of each element, by the shard that holds it
+            group_of = np.zeros(self.n, dtype=np.int64)
+            for i, (_, mine) in enumerate(groups):
+                group_of[mine] = i
+            own = [group_of[x // g] for x, g in ((p, Pl), (pp, Pl),
+                                                 (blocks, Pl // BLOCK_SIZE))]
+            sels = [[np.nonzero(o == i)[0] for o in own]
+                    for i in range(len(groups))]
         jobs = []
-        for s in range(self.n):
-            sel = np.nonzero(p // Pl == s)[0]
-            selp = np.nonzero(pp // Pl == s)[0]
-            selb = np.nonzero(blocks // nbl == s)[0]
-            if sel.size or selp.size or selb.size:
-                jobs.append((s, sel, selp, selb, np.concatenate(
-                    [p[sel] - s * Pl, pp[selp] - s * Pl,
-                     blocks[selb] - s * nbl])))
-        # the shards' local indices go up in one copy a device
-        ups, at = {}, {}
-        for d in dict.fromkeys(self.devs[j[0]] for j in jobs):
-            mine = [j[4] for j in jobs if self.devs[j[0]] == d]
-            ups[d] = upload(np.concatenate(mine), d)
-        outs_k = []
-        for s, sel, selp, selb, idx in jobs:
-            d = self.devs[s]
-            lo = at.get(d, 0)
-            at[d] = lo + idx.size
-            acgt, F, multi, cov, ccov = outs[s]
-            outs_k.append(calling_kernels.caller_fetch_slice(
-                acgt, multi, F, cov, ccov, int(before[s]),
-                ups[d][lo:lo + idx.size], sel.size, selp.size,
-                bds[s] if selb.size else None))
-        for (s, sel, selp, selb, _), o in zip(jobs, download(outs_k)):
-            P, Q = sel.size, selp.size
-            cols[sel] = o[:10 * P].reshape(P, 10)
-            pref[selp] = o[10 * P:10 * P + Q]
-            depths[selb] = o[10 * P + Q:]
+        for (d, mine), sel in zip(groups, sels):
+            x = (p, pp, blocks) if sel is None else (
+                p[sel[0]], pp[sel[1]], blocks[sel[2]])
+            if not any(a.size for a in x):
+                continue
+            jobs.append((sel, x, calling_kernels.caller_fetch_slice(
+                [outs[s] for s in mine], [s * Pl for s in mine],
+                [int(before[s]) for s in mine],
+                upload(np.concatenate(x), d), x[0].size, x[1].size, self.L,
+                [bds[s] for s in mine] if x[2].size else None)))
+        got = download([o for _, _, o in jobs])
+        if one:
+            o = got[0]
+            return (o[:10 * P].reshape(P, 10), o[10 * P:10 * P + Q],
+                    o[10 * P + Q:])
+        cols = np.zeros((P, 10), dtype=np.int64)
+        pref = np.zeros(Q, dtype=np.int64)
+        depths = np.zeros(blocks.size, dtype=np.int64)
+        for (sel, x, _), o in zip(jobs, got):
+            k, q = x[0].size, x[1].size
+            cols[sel[0]] = o[:10 * k].reshape(k, 10)
+            pref[sel[1]] = o[10 * k:10 * k + q]
+            depths[sel[2]] = o[10 * k + q:]
         return cols, pref, depths
 
     def fetch_columns(self, positions: np.ndarray, prefix_pts: np.ndarray,

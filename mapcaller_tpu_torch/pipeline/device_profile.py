@@ -32,7 +32,8 @@ eager scatter of ops/evidence.py, which the CPU runs. The
 jitted `build_*` functions and return a function that updates the planes
 in place: the apply and the correction through K2's wrapper, the host
 merge through `host_merge_kernel` (csrc/chain.cu, ops/mesh_kernels.
-host_merge: the four lists, uploaded as one buffer, in one launch). The finalize fold is `evidence_finalize_kernel`
+host_merge: the four lists and their row segments, uploaded as one
+buffer, in one launch). The finalize fold is `evidence_finalize_kernel`
 (csrc/calling.cu) through ops/calling_kernels.evidence_finalize, whose
 plain version the CPU runs.
 """
@@ -181,12 +182,14 @@ def build_host_merge_kernel(L: int):
     """fn(planes, deltas, ends) -> planes, in place: add the host
     profile's sparse nonzero deltas (slow-read evidence) into the planes:
     deltas the four lists at the planes' flat indices, packed
-    (host_delta_lists, on the planes' device), ends their ends. One
-    host_merge_kernel launch (mesh_kernels.host_merge)."""
+    (host_delta_lists, on the host), ends their ends. One copy and one
+    host_merge_kernel launch (mesh_kernels.host_merge, one shard at off
+    0: a segment a plane row)."""
     gstrides = merge_strides(L)
 
     def kernel(planes: DevicePlanes, deltas, ends):
-        return mesh_kernels.host_merge(planes, deltas, ends, gstrides)
+        mesh_kernels.host_merge([(planes, 0)], deltas, ends, gstrides)
+        return planes
 
     return kernel
 
@@ -323,15 +326,15 @@ class DeviceEvidence:
     def _merge_host_deltas(self) -> None:
         """Add the host profile's slow-read evidence (sparse nonzero diff
         entries + point adds) into the device planes, once (one upload of
-        the lists, one host_merge launch), then zero the host copies so a
+        the lists and their segments, one host_merge launch), then zero
+        the host copies so a
         later download does not add them twice."""
         p = self.host_profile
         if hasattr(p, "any_host_evidence") and not p.any_host_evidence():
             # every read applied on the card: skip eight O(L) scans
             return
-        deltas, ends = host_delta_lists(p, self.L)
         build_host_merge_kernel(self.L)(self.planes,
-                                        upload(deltas, self.device), ends)
+                                        *host_delta_lists(p, self.L))
         zero_host_deltas(p)
 
     def finalize(self):

@@ -11,16 +11,21 @@ versions run:
     the NOR blocks also against the single-card NOR of the joined
     coverage, and with shards wholly in the padded tail;
   * A5's merge against the reference's build_host_merge_kernel;
-  * which wrapper each step reaches (one apply and one merge a shard);
-  * a scalar mirror of each new kernel form's thread (csrc/chain.cu
-    evidence_apply_slice_kernel and host_merge_kernel, csrc/calling.cu
-    caller_fetch_slice_kernel) and the NOR tiling's mirror of
+  * which wrapper each step reaches (one apply a shard; one merge and
+    one fetch a device, also with the shards on two devices);
+  * a scalar mirror of each kernel form's threads (csrc/chain.cu
+    evidence_apply_slice_kernel; host_merge_kernel's segment split,
+    blocks, walks and units of 8 entries at 1, 2, 4 and 8 shards;
+    csrc/calling.cu caller_fetch_slice_kernel's tiles, warps and shard
+    search over shuffled elements) and the NOR tiling's mirror of
     nor_blocks_slice_kernel (shards sharing the scratch too) against its
     plain version, in coordinates shifted past 2^31;
   * the wrappers' refusals.
 
 Inputs are made from numpy seeds; every comparison is exact integer
 equality."""
+import os
+import re
 import types
 
 import jax
@@ -41,7 +46,7 @@ from mapcaller_tpu_torch.pipeline import device_profile as tdp
 from mapcaller_tpu_torch.pipeline.big_profile import (BigDeviceEvidence,
                                                       ShardPlanes)
 from mapcaller_tpu_torch.pipeline.profile import Profile
-from test_torch_calling_kernels import NOR_GEOMETRY, nor_mirror
+from test_torch_calling_kernels import NOR_GEOMETRY, fetch_mirror, nor_mirror
 
 torch.set_num_threads(1)   # small tensor ops: see test_torch_e2e.py
 
@@ -229,10 +234,10 @@ def _host_profiles(seed, g=L):
 
 @pytest.mark.parametrize("n", NS)
 def test_merge_equals_reference(monkeypatch, n):
-    """_merge_host_deltas: the lists uploaded once a device, one
-    host_merge a shard (its plain version here); the planes equal the
-    reference's _merge_kernel's in every word and the host copies are
-    zeroed."""
+    """_merge_host_deltas: one host_merge a device over its shards (the
+    CPU shards share one device; its plain version here); the planes
+    equal the reference's _merge_kernel's in every word and the host
+    copies are zeroed."""
     (jprof, tprof), rng = _host_profiles(n)
     planes = _random_planes(rng, n)
     jev, ev = _jax_ev(n, planes=planes), _port_ev(n, planes=planes)
@@ -241,7 +246,7 @@ def test_merge_equals_reference(monkeypatch, n):
     jev._merge_host_deltas()
     ev._merge_host_deltas()
     _assert_planes(ev, jev)
-    assert calls == ["host_merge", "host_merge_plain"] * n
+    assert calls == ["host_merge", "host_merge_plain"]
     for name in ("acgt", "exact_diff", "F1_diff", "R2_diff", "F2_diff",
                  "R1_diff", "multi_diff"):
         assert not getattr(tprof, name).any()
@@ -291,11 +296,10 @@ def test_a5_merge_equals_reference(monkeypatch):
 
 # ---- the fetch and the NOR blocks on finalized shards ------------------------
 
-def _finalized(n, seed, g=L):
-    """The port's and the reference's evidence holding the same
-    finalized shards: the port's plain fold of random planes (held
-    against the reference's fold in test_torch_calling_kernels.py), set as
-    the reference's finalize outputs."""
+def _port_finalized(n, seed, g=L):
+    """The port's evidence of n shards over a genome of g, finalized: the
+    plain fold of random planes -> (evidence, its outputs and totals,
+    the rng)."""
     rng = np.random.default_rng(seed)
     planes = _random_planes(rng, n, g, 0, 30)
     # the exact coverage of a run: >= 0, its diff back to 0 at L, with
@@ -314,7 +318,15 @@ def _finalized(n, seed, g=L):
         np.int32)) for _ in range(n)]
     ev.cfg = types.SimpleNamespace(somatic=False, frequency_thr=0.2,
                                    min_allele_depth=3)
-    outs, tots = ev.finalize()
+    return ev, ev.finalize(), rng
+
+
+def _finalized(n, seed, g=L):
+    """The port's and the reference's evidence holding the same
+    finalized shards: the port's plain fold of random planes (held
+    against the reference's fold in test_torch_calling_kernels.py), set as
+    the reference's finalize outputs."""
+    ev, (outs, tots), rng = _port_finalized(n, seed, g)
     jev = _jax_ev(n, g)
     cat = [np.concatenate([o[i].numpy() for o in outs], axis=-1)
            for i in range(5)]
@@ -330,8 +342,8 @@ def _finalized(n, seed, g=L):
 
 @pytest.mark.parametrize("n", NS)
 def test_fetch_equals_reference(monkeypatch, n):
-    """fetch_columns: a caller_fetch_slice a shard that owns any asked
-    position (its plain version here); the columns and the global
+    """fetch_columns: one caller_fetch_slice a device (the CPU shards
+    share one; its plain version here); the columns and the global
     coverage prefix equal the reference's _fetch_kernel's at positions
     at 0, at L - 1, in the padded tail, on each side of every seam and at
     random; with bd_blocks after the scan the block depths ride the same
@@ -350,16 +362,14 @@ def test_fetch_equals_reference(monkeypatch, n):
     cols, got_pref = ev.fetch_columns(pos, pref)
     np.testing.assert_array_equal(cols, np.asarray(jcols))
     np.testing.assert_array_equal(got_pref, np.asarray(jpref))
-    owners = {int(s) for s in np.clip(pos, 0, L - 1) // Pl} | {
-        int(s) for s in np.clip(pref, 0, L) // Pl}
-    assert len(calls) == len(owners) and got_pref[2] == int(cov[:L].sum())
+    assert len(calls) == 1 and got_pref[2] == int(cov[:L].sum())
     # block depths: the scan's, through the same launches and gather
     bd = ev.scan()[0]
     calls.clear()
     blocks = np.clip(pos, 0, L - 1) // 100
     cols2, _ = ev.fetch_columns(pos, pref, bd_blocks=blocks)
     np.testing.assert_array_equal(cols2, cols)
-    assert len(calls) == len(owners)
+    assert len(calls) == 1
     dense = np.concatenate([p.numpy() for p in bd._parts]).astype(np.int64)
     for b in np.unique(blocks):
         assert bd._cache[int(b)] == dense[b]
@@ -504,102 +514,449 @@ def test_apply_slice_mirror(g, off):
         assert got["f_diff"].any() and got["acgt"].any()
 
 
-def mirror_host_merge(planes, idx, val, ends, gstrides, off):
-    """host_merge_kernel: a thread an entry, its list by its index
-    against the ends, row = x // gstride, position x - row * gstride,
-    added at row * ls + position - off when the slice holds it."""
-    names = PLANES
-    for i in range(idx.size):
-        k = sum(i >= e for e in ends[:3])
-        plane = planes[names[k]]
-        ls = plane.shape[-1]
-        x = int(idx[i])
-        row = x // gstrides[k]
-        li = x - row * gstrides[k] - off
-        if 0 <= li < ls:
-            plane.reshape(-1)[row * ls + li] += int(val[i])
-    return planes
+MERGE_BLOCK = 256      # csrc/chain.cu MERGE_THREADS
+
+
+def _merge_layout(shards):
+    """The (off, rows, lstrides) of each numpy shard, as host_merge gives
+    them to merge_segments."""
+    return [(off, [pl[k].shape[0] if pl[k].ndim == 2 else 1 for k in PLANES],
+             [pl[k].shape[-1] for k in PLANES]) for pl, off in shards]
+
+
+def _last_at_or_before(keys, x):
+    """The kernel's merge_find: the last of the sorted keys at or before
+    x, 0 if none."""
+    lo, hi = 0, len(keys) - 1
+    while lo < hi:
+        mid = (lo + hi + 1) >> 1
+        if keys[mid] <= x:
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
+
+
+def mirror_host_merge(shards, deltas, ends, gstrides, block=MERGE_BLOCK,
+                      cap=mk.MERGE_MAX_SEGS):
+    """host_merge_kernel as its blocks and threads run over the shards of
+    one call [(planes, numpy int64, off)]: the segments, launches (of at
+    most `cap` segments) and runs as the wrapper builds them
+    (mk.merge_segments, mk.merge_launches, a plane's base address plane
+    id << 40, so an address names its plane and word); in each launch a
+    thread's run (run 0 from the parameters, else a search over the runs'
+    first units), its unit's 8 entries read from the padded lists; the
+    block's first segment by a binary search over the segment starts for
+    its first thread's first entry; each thread's walk from it, entry by
+    entry, each added at base + 4 (x - sub) when it lies in its run and
+    segment. -> the entries added."""
+    N = ends[-1]
+    Np = mk._padded(N)
+    idx, _ = mk.unpack_deltas(deltas, N)
+    pidx, pval = deltas[:Np], deltas[Np:Np + Np // 2].view(np.int32)
+    layout = _merge_layout(shards)
+    segs = mk.merge_segments(idx, ends, gstrides, layout)
+    flat, bases = [], []
+    for (pl, _), (_, rows, _) in zip(shards, layout):
+        for k, r in zip(PLANES, rows):
+            bases += [len(flat) << 40] * r
+            flat.append(pl[k].reshape(-1))
+    added = 0
+    for seg, runs, W in mk.merge_launches(segs, np.array(bases, np.int64),
+                                          cap):
+        assert 1 <= len(seg) <= cap and W > 0
+        added += _mirror_launch(flat, pidx, pval, seg, runs, W, block)
+    return added
+
+
+def _mirror_launch(flat, pidx, pval, seg, runs, W, block):
+    """One launch of mirror_host_merge -> the entries it added."""
+    added = 0
+    for b in range(-(-W // block)):
+        first = None
+        for t in range(block):
+            w = b * block + t
+            if w >= W:
+                break
+            r = runs[0] if len(runs) == 1 else runs[_last_at_or_before(
+                runs[:, 0], w)]
+            _, ubase, ra, rb = (int(q) for q in r)
+            g = (w + ubase) * mk.MERGE_ITEMS
+            if first is None:      # thread 0: the block's first segment
+                first = _last_at_or_before(seg[:, 0], max(g, ra))
+            s = first
+            for e in range(g, g + mk.MERGE_ITEMS):
+                while s + 1 < len(seg) and seg[s + 1, 0] <= e:
+                    s += 1
+                g0, g1, sub, base = (int(q) for q in seg[s])
+                if ra <= e < rb and g0 <= e < g1:
+                    addr = base + 4 * (int(pidx[e]) - sub)
+                    flat[addr >> 40][(addr & ((1 << 40) - 1)) // 4] += \
+                        int(pval[e])
+                    added += 1
+    return added
+
+
+def _plain_merge(shards, deltas, ends, gstrides):
+    """host_merge_plain on torch copies of numpy shards -> numpy."""
+    N = ends[-1]
+    idx, val = mk.unpack_deltas(torch.from_numpy(deltas), N)
+    ts = [(types.SimpleNamespace(**{k: torch.from_numpy(pl[k].astype(
+        np.int32)) for k in PLANES}), off) for pl, off in shards]
+    mk.host_merge_plain(ts, idx, val, ends, gstrides)
+    return [{k: getattr(t, k).numpy().astype(np.int64) for k in PLANES}
+            for t, _ in ts]
+
+
+def test_merge_constants_match_source():
+    """The merge's unit, segment cap, block and record width that the
+    wrapper and the mirror copy by hand equal csrc/chain.cu's."""
+    path = os.path.join(os.path.dirname(mk.__file__), os.pardir, "csrc",
+                        "chain.cu")
+    with open(path) as f:
+        src = f.read()
+    c = {k: int(v) for k, v in re.findall(
+        r"^constexpr int (MERGE_\w+) = (\d+);", src, re.M)}
+    assert (c["MERGE_THREADS"], c["MERGE_ITEMS"], c["MERGE_MAX_SEGS"]) == (
+        MERGE_BLOCK, mk.MERGE_ITEMS, mk.MERGE_MAX_SEGS)
+    seg = re.search(r"struct MergeSeg \{\s*long long ([^;]+);", src)
+    assert len(seg.group(1).split(",")) == mk.SEG_WORDS
 
 
 @pytest.mark.parametrize("g,off", [(L, 0), (L, 4800), (SHIFT, SHIFT - 1600),
                                    (SHIFT, (1 << 31) + 400)])
 def test_host_merge_mirror(g, off):
-    """The host-merge kernel's threads equal host_merge_plain on a slice
-    of 1,600 positions (off 0 with rows of L + 1 / L + 2: the single-card
-    planes' form), with the four lists' indices at the single-card
-    strides of a genome past 2^31, some outside the slice, some at its
-    edges, empty lists too."""
+    """The host-merge kernel's blocks and threads equal host_merge_plain
+    on a slice of 1,600 positions (off 0 with rows of L + 1 / L + 2: the
+    single-card planes' form), with the four lists' indices at the
+    single-card strides of a genome past 2^31, strictly increasing as the
+    host profile's nonzero scans give them, some outside the slice, some
+    at its edges, empty lists too; every entry the slice holds added
+    once."""
     rng = np.random.default_rng(off % 101)
     single = off == 0
     ls = [g + 1, g + 2, g + 2, g + 2] if single else [1600] * 4
     gstr = (g + 1, g + 2, g + 2, g + 2)
     lists = []
+    held = 0
     for k, (rows, n) in enumerate(zip((4, 1, 4, 1), (300, 0, 250, 80))):
         pos = rng.integers(max(off - 100, 0), min(off + ls[k] + 100,
                                                   gstr[k]), n)
         pos[:2] = [off, off + ls[k] - 1][:n] if n else pos[:0]
         r = rng.integers(0, rows, n)
-        lists.append(((r * gstr[k] + pos).astype(np.int64),
-                      rng.integers(-3, 4, n).astype(np.int32)))
+        x, first = np.unique((r * gstr[k] + pos).astype(np.int64),
+                             return_index=True)
+        lists.append((x, rng.integers(-3, 4, n).astype(np.int32)[first]))
+        p = x % gstr[k]
+        held += int(((p >= off) & (p < off + ls[k])).sum())
     buf = mk.pack_deltas(lists)
     ends = np.cumsum([i.size for i, _ in lists]).tolist()
-    idx, val = mk.unpack_deltas(torch.from_numpy(buf), ends[-1])
     shapes = [(4, ls[0]), (ls[1],), (4, ls[2]), (ls[3],)]
-    want = types.SimpleNamespace(**{k: torch.zeros(s, dtype=torch.int32)
-                                    for k, s in zip(PLANES, shapes)})
-    mk.host_merge_plain(want, idx, val, ends, gstr, off)
-    got = mirror_host_merge({k: np.zeros(s, np.int64)
-                             for k, s in zip(PLANES, shapes)},
-                            idx.numpy(), val.numpy(), ends, gstr, off)
+    zero = {k: np.zeros(s, np.int64) for k, s in zip(PLANES, shapes)}
+    want = _plain_merge([(zero, off)], buf, ends, gstr)[0]
+    got = {k: v.copy() for k, v in zero.items()}
+    assert mirror_host_merge([(got, off)], buf, ends, gstr) == held
     for k in PLANES:
-        np.testing.assert_array_equal(got[k], getattr(want, k).numpy())
+        np.testing.assert_array_equal(got[k], want[k])
     assert np.abs(got["acgt"]).sum() > 50
 
 
-def mirror_fetch_slice(acgt, multi, F, cov, ccov, base, idx, P, Q, bd):
-    """caller_fetch_slice_kernel: output word i a thread: a position's
-    column (i / 10, i % 10), a point's base + ccov[q - 1] (base at 0),
-    a block's depth."""
-    Pl = cov.size
-    out = np.zeros(10 * P + Q + idx.size - P - Q, np.int64)
-    rows = [acgt[0], acgt[1], acgt[2], acgt[3], multi, F[0], F[1], F[2],
-            F[3], cov]
-    for i in range(out.size):
-        if i < 10 * P:
-            p = min(max(int(idx[i // 10]), 0), Pl - 1)
-            out[i] = rows[i % 10][p]
-        elif i < 10 * P + Q:
-            q = min(max(int(idx[P + i - 10 * P]), 0), Pl)
-            out[i] = base + (0 if q == 0 else int(ccov[q - 1]))
-        else:
-            out[i] = bd[int(idx[P + Q + i - 10 * P - Q])]
-    return out
+def _merge_case(case, n, seed, g=L):
+    """A host profile's deltas (device_profile.host_delta_lists) over a
+    genome of g and the shards of one call: n B4 shards of Pl
+    positions, or ("a5") the single-card planes at off 0. Entries at
+    every shard's first and last positions in every row; "empty": the
+    first (acgt) and exact lists and R2's row empty; "tiny": three
+    entries in all; "half": every other shard, as one device of two holds
+    them (runs with gaps between them)."""
+    rng = np.random.default_rng(seed)
+    p = Profile(g)
+    p.alloc_diffs()
+    names = ("acgt", "exact_diff", "F1_diff", "R2_diff", "F2_diff",
+             "R1_diff", "multi_diff")
+    for name in names:
+        a = getattr(p, name)
+        a[...] = rng.integers(-3, 4, a.shape) * (rng.random(a.shape) < 0.04)
+    Pl = _pl(n, g) if case != "a5" else g + 2
+    for s in range(n):
+        for e in (s * Pl - 1, s * Pl, s * Pl + Pl - 1):
+            for name in names:
+                a = getattr(p, name)
+                if 0 <= e < a.shape[-1]:
+                    a[..., e] = 2
+    if case == "empty":
+        p.acgt[:] = 0
+        p.exact_diff[:] = 0
+        p.R2_diff[:] = 0
+    if case == "tiny":
+        for name in names:
+            getattr(p, name)[...] = 0
+        p.acgt[1, 5] = p.F2_diff[g] = p.multi_diff[0] = 1
+    deltas, ends = tdp.host_delta_lists(p, g)
+    if case == "a5":
+        shapes = [(4, g + 1), (g + 2,), (4, g + 2), (g + 2,)]
+        shards = [({k: np.asarray(rng.integers(-9, 9, s), np.int64)
+                    for k, s in zip(PLANES, shapes)}, 0)]
+    else:
+        shards = [({k: np.asarray(rng.integers(-9, 9, (4, Pl) if k in (
+            "acgt", "f_diff") else (Pl,)), np.int64) for k in PLANES},
+            s * Pl) for s in range(n)]
+    if case == "half":          # one device's shards of two: 0, 2, ...
+        shards = shards[::2]
+    return deltas, ends, shards
+
+
+@pytest.mark.parametrize("case,n", [("a5", 1), ("b4", 1), ("b4", 2),
+                                    ("b4", 4), ("b4", 8), ("empty", 4),
+                                    ("tiny", 2), ("half", 4)])
+def test_host_merge_segments_mirror(case, n):
+    """The merge's segment split (one np.searchsorted a list over every
+    (shard, row) boundary) and the kernel's blocks, walks and units of 8
+    entries, applied entry by entry over one launch's n shards, equal
+    host_merge_plain over the same shards and the wrapper on the CPU, in
+    every word: A5's single-card planes, B4's shards at n = 1, 2, 4 and 8
+    with entries on every shard boundary, empty lists (the first one too)
+    and an empty row, fewer entries than a unit, one device's half of
+    the shards; every entry a launch's shards hold is added once, by the
+    shard that holds it."""
+    deltas, ends, shards = _merge_case(case, n, 40 + n)
+    gstr = tdp.merge_strides(L)
+    want = _plain_merge(shards, deltas, ends, gstr)
+    segs = mk.merge_segments(mk.unpack_deltas(deltas, ends[-1])[0], ends,
+                             gstr, _merge_layout(shards))
+    owned = int((segs[:, 1] - segs[:, 0]).sum())
+    assert segs.shape == (10 * len(shards), 4)
+    assert (owned == ends[-1]) == (case != "half") and owned > 0
+    got = [({k: v.copy() for k, v in pl.items()}, off) for pl, off in shards]
+    assert mirror_host_merge(got, deltas, ends, gstr) == owned
+    # blocks of 16 units: many blocks start inside a segment
+    small = [({k: v.copy() for k, v in pl.items()}, off)
+             for pl, off in shards]
+    assert mirror_host_merge(small, deltas, ends, gstr, block=16) == owned
+    ts = [(types.SimpleNamespace(**{k: torch.from_numpy(pl[k].astype(
+        np.int32)) for k in PLANES}), off) for pl, off in shards]
+    mk.host_merge(ts, torch.from_numpy(deltas), ends, gstr)
+    for (g, _), (sm, _), w, (t, _) in zip(got, small, want, ts):
+        for k in PLANES:
+            np.testing.assert_array_equal(g[k], w[k], err_msg=k)
+            np.testing.assert_array_equal(sm[k], w[k], err_msg=k)
+            np.testing.assert_array_equal(getattr(t, k).numpy(), w[k])
+    if case == "empty":
+        assert ends[1] == ends[0] == 0 and (segs[:, 1] == segs[:, 0]).any()
+
+
+@pytest.mark.parametrize("n,g,cap", [(60, 60 * 400 - 450, None),
+                                     (4, L, 7), (8, L, 1)])
+def test_host_merge_many_launches(n, g, cap):
+    """Past MERGE_MAX_SEGS nonempty segments (60 shards of 400 positions
+    on one device, 590 of them) the merge is more than one launch, each of
+    at most MERGE_MAX_SEGS segments with its own runs, and every launch's
+    blocks and threads together (the mirror) equal host_merge_plain in
+    every word, every entry added once; so with launches of 7 segments
+    and of one (the cap only cuts the work)."""
+    deltas, ends, shards = _merge_case("b4", n, 60 + n, g)
+    gstr = tdp.merge_strides(g)
+    cap = cap or mk.MERGE_MAX_SEGS
+    want = _plain_merge(shards, deltas, ends, gstr)
+    segs = mk.merge_segments(mk.unpack_deltas(deltas, ends[-1])[0], ends,
+                             gstr, _merge_layout(shards))
+    nonempty = int((segs[:, 1] > segs[:, 0]).sum())
+    launches = mk.merge_launches(segs, np.arange(len(segs)) << 40, cap)
+    assert nonempty > cap and len(launches) == -(-nonempty // cap)
+    assert sum(len(t[0]) for t in launches) == nonempty
+    got = [({k: v.copy() for k, v in pl.items()}, off) for pl, off in shards]
+    assert mirror_host_merge(got, deltas, ends, gstr, cap=cap) == ends[-1]
+    for (gp, _), w in zip(got, want):
+        for k in PLANES:
+            np.testing.assert_array_equal(gp[k], w[k], err_msg=k)
+
+
+def _fetch_shards(rng, n, Pl=1200):
+    """n finalized shards of Pl positions (numpy): acgt, F, multi, cov,
+    the inclusive coverage prefix; their block depths."""
+    shards, bds = [], []
+    for _ in range(n):
+        acgt, F = (rng.integers(0, 4096, (4, Pl)).astype(np.int32)
+                   for _ in range(2))
+        multi, cov = (rng.integers(0, 4096, Pl).astype(np.int32)
+                      for _ in range(2))
+        shards.append((acgt, F, multi, cov, np.cumsum(cov.astype(np.int64))))
+        bds.append(rng.integers(0, 99, Pl // 100).astype(np.int32))
+    return shards, bds
+
+
+def _t(shards):
+    return [tuple(torch.from_numpy(a) for a in sh) for sh in shards]
 
 
 @pytest.mark.parametrize("base", [0, 7_777_777_777_777])
 def test_fetch_slice_mirror(base):
-    """The fetch slice kernel's threads equal caller_fetch_slice_plain on
-    a shard's finalized slice: positions at 0, at Pl - 1 and clamped,
-    points at 0, 1 and Pl, block depths; a coverage prefix past 2^31
-    before the shard."""
+    """The fetch slice kernel's tiles equal caller_fetch_slice_plain on
+    one shard's finalized slice at off 0: positions at 0, at Pl - 1 and
+    clamped, points at 0, 1 and Pl, block depths; a coverage prefix past
+    2^31 before the shard; more positions than a tile."""
     rng = np.random.default_rng(5)
     Pl = 1200
-    acgt, F = (rng.integers(0, 4096, (4, Pl)).astype(np.int32)
-               for _ in range(2))
-    multi, cov = (rng.integers(0, 4096, Pl).astype(np.int32)
-                  for _ in range(2))
-    ccov = np.cumsum(cov.astype(np.int64))
-    bd = rng.integers(0, 99, Pl // 100).astype(np.int32)
-    idx = np.concatenate([[0, Pl - 1, Pl + 5, -1], rng.integers(0, Pl, 20),
+    shards, bds = _fetch_shards(rng, 1, Pl)
+    ccov = shards[0][4]
+    idx = np.concatenate([[0, Pl - 1, Pl + 5, -1], rng.integers(0, Pl, 150),
                           [0, 1, Pl, Pl + 3], rng.integers(0, Pl + 1, 10),
                           [0, Pl // 100 - 1, 3]]).astype(np.int64)
-    P, Q = 24, 14
-    t = torch.from_numpy
-    want = cal.caller_fetch_slice_plain(t(acgt), t(multi), t(F), t(cov),
-                                        t(ccov), base, t(idx), P, Q, t(bd))
-    got = mirror_fetch_slice(acgt, multi, F, cov, ccov, base, idx, P, Q, bd)
+    P, Q = 154, 14
+    want = cal.caller_fetch_slice_plain(_t(shards), [0], [base],
+                                        torch.from_numpy(idx), P, Q, Pl,
+                                        [torch.from_numpy(bds[0])])
+    got = fetch_mirror(shards, [0], [base], idx, P, Q, Pl, bds)
     np.testing.assert_array_equal(got, want.numpy())
     assert got[10 * P] == base and got[10 * P + 2] == base + ccov[-1]
+
+
+def _per_shard_fetch(shards, bds, before, p, q, b, Pl, L):
+    """The fetch as the parent ran it: each shard answers its own
+    elements (p // Pl, q // Pl, b // (Pl / 100)) through a one-shard
+    caller_fetch_slice_plain at local coordinates (positions clamped
+    to [0, Pl), points to [0, Pl]) -> (cols, pref, depths)."""
+    p, q = np.clip(p, 0, L - 1), np.clip(q, 0, L)
+    cols = np.zeros((p.size, 10), np.int64)
+    pref = np.zeros(q.size, np.int64)
+    depths = np.zeros(b.size, np.int64)
+    for s, sh in enumerate(_t(shards)):
+        sp, sq = np.nonzero(p // Pl == s)[0], np.nonzero(q // Pl == s)[0]
+        sb = np.nonzero(b // (Pl // 100) == s)[0]
+        loc = np.concatenate([p[sp] - s * Pl, q[sq] - s * Pl,
+                              b[sb] - s * (Pl // 100)]).astype(np.int64)
+        o = cal.caller_fetch_slice_plain(
+            [sh], [0], [before[s]], torch.from_numpy(loc), sp.size, sq.size,
+            Pl, [torch.from_numpy(bds[s])]).numpy()
+        cols[sp] = o[:10 * sp.size].reshape(-1, 10)
+        pref[sq] = o[10 * sp.size:10 * sp.size + sq.size]
+        depths[sb] = o[10 * sp.size + sq.size:]
+    return cols, pref, depths
+
+
+@pytest.mark.parametrize("n", [2, 3, 4])
+def test_fetch_slice_search_mirror(n):
+    """The one-launch fetch over n shards (its tiles, warps and shard
+    search, elements in shuffled order, global positions and blocks)
+    equals each shard answering its own elements through the per-shard
+    caller_fetch_slice_plain, and so do the multi-shard plain version
+    and the wrapper on the CPU: positions at 0, Pl - 1, Pl, each seam,
+    L - 1 and clamped below 0 and past L; points at 0, each seam, L and
+    clamped; blocks of every shard."""
+    rng = np.random.default_rng(70 + n)
+    Pl = 1200
+    L = n * Pl - 150
+    shards, bds = _fetch_shards(rng, n, Pl)
+    before = np.concatenate([[0], np.cumsum([int(sh[4][-1]) for sh in
+                                             shards])])[:n] + 10 ** 12
+    seams = [s * Pl + d for s in range(1, n) for d in (-1, 0, 1)]
+    p = rng.permutation(np.concatenate([
+        [0, Pl - 1, Pl, L - 1, -4, L + 9], seams,
+        rng.integers(0, L, 300)])).astype(np.int64)
+    q = rng.permutation(np.concatenate([
+        [0, L, L + 3, -1], seams, rng.integers(0, L + 1, 60)])).astype(
+            np.int64)
+    b = rng.permutation(np.concatenate([
+        [0, L // 100, Pl // 100 - 1, Pl // 100],
+        rng.integers(0, n * Pl // 100, 40)])).astype(np.int64)
+    want = _per_shard_fetch(shards, bds, before, p, q, b, Pl, L)
+    idx = np.concatenate([p, q, b])
+    offs = [s * Pl for s in range(n)]
+    P, Q = p.size, q.size
+    got = fetch_mirror(shards, offs, before, idx, P, Q, L, bds)
+    tb = [torch.from_numpy(x) for x in bds]
+    for out in (got, cal.caller_fetch_slice_plain(
+            _t(shards), offs, before, torch.from_numpy(idx), P, Q, L,
+            tb).numpy(),
+                cal.caller_fetch_slice(_t(shards), offs, before,
+                                       torch.from_numpy(idx), P, Q, L,
+                                       tb).numpy()):
+        np.testing.assert_array_equal(out[:10 * P].reshape(P, 10), want[0])
+        np.testing.assert_array_equal(out[10 * P:10 * P + Q], want[1])
+        np.testing.assert_array_equal(out[10 * P + Q:], want[2])
+    assert want[1][list(q).index(L)] == before[-1] + int(shards[-1][4][
+        L - (n - 1) * Pl - 1])
+
+
+def test_two_devices_one_call_each(monkeypatch):
+    """B4 with its shards on two devices (the CPU as two devices: shards
+    0 and 2 on one, 1 and 3 on the other): fetch_columns and the block
+    depths make one caller_fetch_slice a device over its own elements
+    and _merge_lists one host_merge a device, each over its own shards;
+    every word equals the one-device run's."""
+    n = 4
+    ev, _, _, rng = _finalized(n, 88)
+    Pl = ev.Pl
+    pos = rng.permutation(np.concatenate([[0, L - 1, Pl, 2 * Pl - 1],
+                                          rng.integers(0, L, 50)]))
+    pref = rng.permutation(np.concatenate([[0, L, 3 * Pl],
+                                           rng.integers(0, L + 1, 20)]))
+    blocks = rng.integers(0, L // 100, 30).astype(np.int64)
+    bds = ev.scan()[0]._parts
+    want = ev._fetch(pos, pref, blocks, bds)
+    one = ev.devs
+    ev.devs = [torch.device("cpu"), torch.device("cpu", 0)] * 2
+    calls = _spy(monkeypatch, ["caller_fetch_slice"], cal)
+    got = ev._fetch(pos, pref, blocks, bds)
+    assert len(calls) == 2
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    (_, tprof), rng = _host_profiles(9)
+    lists = tdp.host_delta_lists(tprof, L)
+    planes = _random_planes(rng, n)
+    a, b = _port_ev(n, planes=planes), _port_ev(n, planes=planes)
+    b.devs = ev.devs
+    a._merge_lists(*lists)
+    calls = _spy(monkeypatch, ["host_merge"], mk)
+    b._merge_lists(*lists)
+    assert len(calls) == 2 and one == [torch.device("cpu")] * n
+    for k in PLANES:
+        np.testing.assert_array_equal(_joined(a)[k], _joined(b)[k])
+
+
+def test_fetch_many_shards_one_device(monkeypatch):
+    """17 shards on one device, more than a fetch launch's table holds
+    (FETCH_MAX_SHARDS = 16): _fetch makes one caller_fetch_slice of the
+    first 16 shards and one of the last, each over its own elements, and
+    every word equals one call over all 17 (the table's cap raised) and
+    each shard answering its own elements: shuffled positions at 0, each
+    seam, L - 1; points at 0, each seam and L; blocks of every shard."""
+    n = 17
+    g = n * 400 - 52              # Pl 400: shard 16 holds L - 1
+    ev, (outs, tots), rng = _port_finalized(n, 17, g)
+    Pl = ev.Pl
+    assert Pl == 400 and cal.FETCH_MAX_SHARDS == 16
+    seams = [s * Pl + d for s in range(1, n) for d in (-1, 0)]
+    pos = rng.permutation(np.concatenate([[0, g - 1], seams,
+                                          rng.integers(0, g, 200)]))
+    pref = rng.permutation(np.concatenate([[0, g], seams,
+                                           rng.integers(0, g + 1, 50)]))
+    blocks = rng.permutation(np.concatenate([
+        np.arange(0, g // 100, 4), [g // 100 - 1]])).astype(np.int64)
+    bds = ev.scan()[0]._parts
+    shards = []
+    calls = []
+    real = cal.caller_fetch_slice
+
+    def rec(sh, *a, **kw):
+        calls.append(len(sh))
+        return real(sh, *a, **kw)
+    monkeypatch.setattr(cal, "caller_fetch_slice", rec)
+    got = ev._fetch(pos, pref, blocks, bds)
+    assert calls == [16, 1]
+    monkeypatch.setattr(cal, "FETCH_MAX_SHARDS", n)
+    calls.clear()
+    want = ev._fetch(pos, pref, blocks, bds)
+    assert calls == [n]
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    for acgt, F, multi, cov, ccov in outs:
+        shards.append(tuple(t.numpy() for t in (acgt, F, multi, cov, ccov)))
+    before = np.concatenate([[0], np.cumsum(tots)])[:n]
+    each = _per_shard_fetch(shards, [b.numpy() for b in bds], before, pos,
+                            pref, blocks, Pl, g)
+    for a, b in zip(got, each):
+        np.testing.assert_array_equal(a, b)
 
 
 @pytest.mark.parametrize("off", [0, (1 << 31) + 1600, SHIFT - 2000])
@@ -778,12 +1135,14 @@ def test_apply_slice_refuses(monkeypatch, bad, exc):
 
 @pytest.mark.parametrize("bad,exc", [
     ("idx_int32", TypeError), ("val_len", ValueError), ("ends", ValueError),
-    ("gstride", ValueError), ("devices", ValueError), (None, None)])
+    ("gstride", ValueError), ("devices", ValueError),
+    ("unsorted", ValueError), ("duplicate", ValueError), (None, None)])
 def test_host_merge_refuses(monkeypatch, bad, exc):
     """host_merge refuses a buffer of another dtype than pack_deltas',
     one short of the values, ends that do not end at N or go down, a row
-    stride below 1 and tensors on several devices, before any launch; a
-    valid call launches once."""
+    stride below 1, planes on several devices and a list that is not
+    strictly increasing (out of order, or an index twice), before any
+    launch; a valid call launches once."""
     planes = ShardPlanes.zeros(400, 0, "cpu")
     lists = [(np.arange(a, b, dtype=np.int64), np.ones(b - a, np.int32))
              for a, b in ((0, 3), (3, 5), (5, 8), (8, 10))]
@@ -800,47 +1159,68 @@ def test_host_merge_refuses(monkeypatch, bad, exc):
         gs = [0, 402, 402, 402]
     elif bad == "devices":
         planes.multi_diff = planes.multi_diff.to("meta")
+    elif bad in ("unsorted", "duplicate"):
+        lists[2] = (np.array([5, 7 if bad == "unsorted" else 6, 6]),
+                    lists[2][1])
+        deltas = torch.from_numpy(mk.pack_deltas(lists))
     if exc is None:
-        mk.host_merge(planes, deltas, ends, gs)
+        mk.host_merge([(planes, 0)], deltas, ends, gs)
         assert launched == ["host_merge"]
         return
     with pytest.raises(exc):
-        mk.host_merge(planes, deltas, ends, gs)
+        mk.host_merge([(planes, 0)], deltas, ends, gs)
     assert not launched
 
 
 def _fetch_args(Pl=400):
     z = torch.zeros
-    return [z(4, Pl, dtype=torch.int32), z(Pl, dtype=torch.int32),
-            z(4, Pl, dtype=torch.int32), z(Pl, dtype=torch.int32),
-            z(Pl, dtype=torch.int64), 5, torch.arange(6, dtype=torch.int64),
-            2, 2, z(4, dtype=torch.int32)]
+
+    def shard():
+        return [z(4, Pl, dtype=torch.int32), z(4, Pl, dtype=torch.int32),
+                z(Pl, dtype=torch.int32), z(Pl, dtype=torch.int32),
+                z(Pl, dtype=torch.int64)]
+    return [[shard(), shard()], [0, Pl], [5, 9],
+            torch.arange(6, dtype=torch.int64), 2, 2, 2 * Pl - 7,
+            [z(4, dtype=torch.int32), z(4, dtype=torch.int32)]]
 
 
 @pytest.mark.parametrize("bad,exc", [
     ("ccov_int32", TypeError), ("F_shape", ValueError),
     ("ccov_lead", ValueError), ("blocks_without_depths", ValueError),
-    ("devices", ValueError), (None, None)])
+    ("devices", ValueError), ("overlap", ValueError),
+    ("off_block", ValueError), ("shards", ValueError), (None, None)])
 def test_fetch_slice_refuses(bad, exc, monkeypatch):
     """caller_fetch_slice refuses a wrong dtype, a plane of another
     length, a coverage prefix with its lead (the single-card form's
-    [Pl + 1]), blocks without block depths and tensors on several
-    devices, before any launch; a valid call launches once."""
+    [Pl + 1]), blocks without block depths, tensors on several devices,
+    shards that overlap or start off a block, and (on the card) more
+    shards than a launch's table holds, before any launch; a valid call
+    launches once."""
     a = _fetch_args()
     if bad == "devices":
-        a[6] = a[6].to("meta")
+        a[3] = a[3].to("meta")
         with pytest.raises(exc):
             cal.caller_fetch_slice(*a)
         return
     launched = _card(monkeypatch)
     if bad == "ccov_int32":
-        a[4] = a[4].to(torch.int32)
+        a[0][1][4] = a[0][1][4].to(torch.int32)
     elif bad == "F_shape":
-        a[2] = a[2][:3]
+        a[0][0][1] = a[0][0][1][:3]
     elif bad == "ccov_lead":
-        a[4] = torch.zeros(401, dtype=torch.int64)
+        a[0][1][4] = torch.zeros(401, dtype=torch.int64)
     elif bad == "blocks_without_depths":
-        a[9] = None
+        a[7] = None
+    elif bad == "overlap":
+        a[1] = [0, 300]
+    elif bad == "off_block":
+        a[1] = [0, 450]
+    elif bad == "shards":
+        n = cal.FETCH_MAX_SHARDS + 1
+        a[0] = [a[0][0]] * n
+        a[1] = [400 * s for s in range(n)]
+        a[2] = [0] * n
+        a[7] = [a[7][0]] * n
     if exc is None:
         cal.caller_fetch_slice(*a)
         assert launched == ["caller_fetch_slice"]

@@ -78,6 +78,12 @@ def test_constants_match_source():
     # the NOR mirror's geometry is the kernel's
     assert (c["NOR_THREADS"], c["NOR_ITEMS"], c["NOR_STAGE"]) == NOR_GEOMETRY
     assert c["NOR_TILE"] == c["NOR_THREADS"] * c["NOR_ITEMS"]
+    # the fetch's tile and table, and the mirror's warps: 8 warps, two a
+    # group of 32 positions, FETCH_PITCH odd
+    assert (c["FETCH_TILE"], c["FETCH_MAX_SHARDS"]) == (
+        ck.FETCH_TILE, ck.FETCH_MAX_SHARDS)
+    assert c["FETCH_THREADS"] == 256 and c["FETCH_TILE"] == 4 * 32
+    assert c["FETCH_PITCH"] == 11
 
 
 def look_back_mirror(aggs, rng, window=None):
@@ -953,6 +959,101 @@ def test_slice_forms_equal_sharded_reference(n, somatic):
                                     int(nal[s]), (int(hs.sum()) << 8)
                                     + int(ls.sum())]
     assert int(ncand.sum()) > 20 and int(nruns.sum()) > 10
+
+
+def fetch_mirror(shards, offs, before, idx, P, Q, L, bds,
+                       single=False, tile=128):
+    """caller_fetch_slice_kernel (with `single`: caller_fetch_kernel, one
+    shard whose prefix is exclusive) as its blocks run: a tile of `tile`
+    positions a block, two warps a group of 32 positions, a lane one
+    position (clamped, its shard by the kernel's search over the shards'
+    first positions, its index local to the shard), each warp five
+    columns, staged at an odd pitch and written out two words a store
+    in the [P, 10] layout; then a point or block a thread."""
+    n = len(shards)
+    nbd = idx.size - P - Q
+    out = np.full(10 * P + Q + nbd, -7, np.int64)
+    offs = np.asarray(offs, np.int64)
+    boffs = offs // 100
+    lens = [sh[3].size for sh in shards]
+
+    def shard(firsts, x):
+        s, step = 0, ck.FETCH_MAX_SHARDS // 2
+        while step:
+            if s + step < n and firsts[s + step] <= x:
+                s += step
+            step >>= 1
+        return s
+
+    rows = [[a[0], a[1], a[2], a[3], m, F[0], F[1], F[2], F[3], c]
+            for a, F, m, c, _ in shards]
+    pitch = 11
+    for blk in range(-(-P // tile)):
+        t0 = blk * tile
+        npos = min(tile, P - t0)
+        stage = np.zeros(tile * pitch, np.int64)
+        for warp in range(8):
+            for lane in range(32):
+                j, c0 = (warp >> 1) * 32 + lane, (warp & 1) * 5
+                if j < npos:
+                    p = min(max(int(idx[t0 + j]), 0), L - 1)
+                    s = shard(offs, p)
+                    lp = min(max(p - int(offs[s]), 0), lens[s] - 1)
+                    for c in range(5):
+                        stage[j * pitch + c0 + c] = rows[s][c0 + c][lp]
+        for i in range(5 * npos):
+            a, b = divmod(i, 5)
+            out[10 * t0 + 2 * i] = stage[a * pitch + 2 * b]
+            out[10 * t0 + 2 * i + 1] = stage[a * pitch + 2 * b + 1]
+    for i in range(Q + nbd):
+        x = int(idx[P + i])
+        if i < Q:
+            q = min(max(x, 0), L)
+            s = shard(offs, q)
+            lq = min(max(q - int(offs[s]), 0), lens[s])
+            cpre = shards[s][4]
+            r = int(cpre[lq]) if single else int(before[s]) + (
+                0 if lq == 0 else int(cpre[lq - 1]))
+        else:
+            s = shard(boffs, x)
+            r = int(bds[s][x - int(boffs[s])])
+        out[10 * P + i] = r
+    return out
+
+def test_fetch_mirror():
+    """The single-card fetch (caller_fetch_kernel: the fetch body over one
+    shard at 0, its exclusive coverage prefix) as its tiles run equals
+    caller_fetch_plain and the JAX package's build_fetch_kernel on
+    finalized planes: positions in any order, more than two tiles, at 0,
+    L - 1 and clamped on both sides; points at 0, L and clamped; block
+    depths in the same buffer."""
+    rng = np.random.default_rng(31)
+    arrs, _ = _planes(31, L)
+    fin = ck.evidence_finalize_plain(*(torch.from_numpy(arrs[k]) for k in (
+        "acgt", "exact_diff", "f_diff", "multi_diff")), L,
+        codes=torch.from_numpy(rng.integers(0, 4, L).astype(np.int32)))
+    acgt, F, multi, cov, cpre = (x.numpy() for x in tuple(fin)[:5])
+    p = rng.permutation(np.concatenate([[0, L - 1, -3, L + 8],
+                                        rng.integers(0, L, 290)]))
+    q = rng.permutation(np.concatenate([[0, L, L + 2, -1],
+                                        rng.integers(0, L + 1, 40)]))
+    bd = rng.integers(0, 500, (L + 99) // 100).astype(np.int32)
+    b = rng.integers(0, bd.size, 25)
+    idx = np.concatenate([p, q, b]).astype(np.int64)
+    P, Q = p.size, q.size
+    want = ck.caller_fetch_plain(fin.acgt, fin.multi, fin.F, fin.cov,
+                                 fin.cov_prefix, torch.from_numpy(idx), P, Q,
+                                 torch.from_numpy(bd)).numpy()
+    got = fetch_mirror([(acgt, F, multi, cov, cpre)], [0], [0], idx, P, Q, L,
+                       [bd], single=True)
+    np.testing.assert_array_equal(got, want)
+    jcols, jpref = jsd.build_fetch_kernel(L)(
+        jnp.asarray(acgt), jnp.asarray(multi), jnp.asarray(F),
+        jnp.asarray(cov), jnp.asarray(cpre), jnp.asarray(p), jnp.asarray(q))
+    np.testing.assert_array_equal(got[:10 * P].reshape(P, 10),
+                                  np.asarray(jcols))
+    np.testing.assert_array_equal(got[10 * P:10 * P + Q], np.asarray(jpref))
+    np.testing.assert_array_equal(got[10 * P + Q:], bd[b])
 
 
 # ---- which entry point each step reaches -------------------------------
