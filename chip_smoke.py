@@ -73,7 +73,7 @@ exits non-zero):
              Each run also reports the stream's stage
              seconds (MC_STAGE_PROF: parse, seed+chain submit, collect,
              host leg, evidence) and the host leg's own stage counters
-             (native.prof_fetch)
+             (stage_prof.host_leg_ns)
   seed_scan  the occ3 scan kernel equal to its plain version on every
              batch of the warm-up (batch 0 timed: device ms, call ms,
              plain ms, bound from its own step counts), on reads at each
@@ -3081,7 +3081,7 @@ def run_main_path(work, card):
     turns' launch counts (nw, ksw2), the captured launches' tensors (nw,
     ksw2) and the captured evidence."""
     import torch
-    from mapcaller_tpu_torch import cli, native, runner
+    from mapcaller_tpu_torch import cli, runner, stage_prof
     from mapcaller_tpu_torch.ops import calling_kernels as cal
     from mapcaller_tpu_torch.ops import chain_kernels as ck
     from mapcaller_tpu_torch.ops import fm_search, ksw2_device, nw_device
@@ -3125,7 +3125,6 @@ def run_main_path(work, card):
         k2_main.reset()
         calling_tap.reset()
         device_profile.STATS.reset()
-        native.prof_fetch()           # zero the host leg's stage counters
         cfg = None
         occ3_fits = DeviceBackend._occ3_fits
         if one_step:
@@ -3182,7 +3181,7 @@ def run_main_path(work, card):
                     scan_launches=dict(ssd.STATS.launches),
                     scan1_launches=ssd.STATS.launches["seed_scan1"],
                     chain_launches=dict(ck.STATS.launches),
-                    host_prof=native.prof_fetch(),
+                    host_prof=dict(stage_prof.host_leg_ns),
                     compact_factor=cfg.compact_factor if cfg else None,
                     stages=stages[-1] if stages else None,
                     evidence=vars(device_profile.STATS).copy(),
@@ -3440,13 +3439,11 @@ def run_main_path(work, card):
                     nw_launches=t["launches"], nw_pairs=t["pairs"],
                     ksw2_launches=t["ksw2_launches"],
                     ksw2_pairs=t["ksw2_pairs"], stages=t["stages"],
-                    evidence_batch_s=ev["batch_seconds"],
                     seed_scan3_launches=t["scan3_launches"],
                     seed_scan1_launches=t["scan1_launches"],
                     chain_launches=t["chain_launches"],
                     host_leg_ns=t["host_prof"],
-                    evidence={k: v for k, v in ev.items()
-                              if k != "batch_seconds"},
+                    evidence=ev,
                     transfers=t["transfers"],
                     k2=t["k2"],
                     peak_mem_bytes=t["peak"],

@@ -82,6 +82,7 @@ def load_lib():
         lib.mc_nw.argtypes = [C.c_char_p, C.c_char_p, C.c_char_p, C.c_char_p]
         lib.mc_ksw2.argtypes = [C.c_char_p, C.c_char_p, C.c_char_p, C.c_char_p]
         lib.mc_prof_fetch.argtypes = [C.c_void_p]
+        lib.mc_prof_enable.argtypes = [C.c_int32]
         _lib = lib
     return _lib
 
@@ -113,10 +114,19 @@ def prof_fetch() -> dict:
     them (mc_prof_fetch): nanoseconds of building reads (the two-phase
     leg's DP pair collection included), pairing, alignment, evidence,
     SAM and the whole span loop, and the reads built. Counters are
-    process-wide, shared by every engine."""
+    process-wide, shared by every engine, and count only while
+    prof_enable has them on."""
     out = np.zeros(8, dtype=np.int64)
     load_lib().mc_prof_fetch(out.ctypes.data_as(C.c_void_p))
     return dict(zip(PROF_STAGES, out.tolist()))
+
+
+def prof_enable(on: bool) -> None:
+    """Switch the host leg's stage counters on or off and zero them
+    (mc_prof_enable); off, no pair reads the clock. A library not yet
+    loaded is left alone: it loads with them off."""
+    if _lib is not None:
+        _lib.mc_prof_enable(int(on))
 
 
 def _ptr(a: np.ndarray):

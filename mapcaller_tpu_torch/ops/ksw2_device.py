@@ -365,10 +365,9 @@ def ksw2_ops(qbuf: torch.Tensor, target: torch.Tensor, qlen: torch.Tensor,
         return words
     lib = _load_kernel()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.profiler.record_function("ksw2_kernel"):
-        err = lib.mc_ksw2_ops(qbuf.data_ptr(), target.data_ptr(),
-                              qlen.data_ptr(), tlen.data_ptr(), B, M, N, NC,
-                              chunk, pairs, smem, words.data_ptr(), stream)
+    err = lib.mc_ksw2_ops(qbuf.data_ptr(), target.data_ptr(),
+                          qlen.data_ptr(), tlen.data_ptr(), B, M, N, NC,
+                          chunk, pairs, smem, words.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"ksw2_ops: CUDA kernel launch failed (error "
                            f"{err})")

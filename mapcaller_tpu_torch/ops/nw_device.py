@@ -218,10 +218,9 @@ def nw_ops(c1: torch.Tensor, c2: torch.Tensor, m: torch.Tensor,
         return words, score
     lib = _load_kernel()
     stream = torch.cuda.current_stream(c1.device).cuda_stream
-    with torch.profiler.record_function("nw_kernel"):
-        err = lib.mc_nw_ops(c1.data_ptr(), c2.data_ptr(), m.data_ptr(),
-                            n.data_ptr(), B, M, N, lanes, chunk, pairs, smem,
-                            words.data_ptr(), score.data_ptr(), stream)
+    err = lib.mc_nw_ops(c1.data_ptr(), c2.data_ptr(), m.data_ptr(),
+                        n.data_ptr(), B, M, N, lanes, chunk, pairs, smem,
+                        words.data_ptr(), score.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"nw_ops: CUDA kernel launch failed (error {err})")
     STATS.launches += 1

@@ -51,7 +51,6 @@ from typing import List
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..calling.scan_device import (BLOCK_SIZE, CAND_CAP, INT32_MAX, RUN_CAP,
                                    LazyBlockDepth)
@@ -162,15 +161,14 @@ class BigDeviceEvidence(DeviceEvidence):
         fb = np.zeros((B + 31) // 32, dtype=np.int32)
         fb[:fast_bits.size] = fast_bits.view(np.int32)
         ins = {}
-        with record_function("evidence_apply"):
-            for sp, d in zip(self.planes, self.devs):
-                if d not in ins:
-                    # pd int64 (the x64 chain stage's), or int32 from the
-                    # single-card kernels' routes under big_x64
-                    ins[d] = (token.pd.to(d, torch.int64), token.mmp.to(d),
-                              token.rl_dev.to(d), upload(fb, d))
-                mesh_kernels.apply_slice(sp, sp.off, *ins[d], self.L,
-                                         pair_end)
+        for sp, d in zip(self.planes, self.devs):
+            if d not in ins:
+                # pd int64 (the x64 chain stage's), or int32 from the
+                # single-card kernels' routes under big_x64
+                ins[d] = (token.pd.to(d, torch.int64), token.mmp.to(d),
+                          token.rl_dev.to(d), upload(fb, d))
+            mesh_kernels.apply_slice(sp, sp.off, *ins[d], self.L,
+                                     pair_end)
         STATS.applies += 1
 
     def _merge_host_deltas(self) -> None:
@@ -204,9 +202,8 @@ class BigDeviceEvidence(DeviceEvidence):
         coverage total (host). The prefix sums of shard s start from the
         totals of the shards before it."""
         if self._final is None:
-            with record_function("evidence_finalize"):
-                self._merge_host_deltas()
-                self._final = self._fold()
+            self._merge_host_deltas()
+            self._final = self._fold()
         return self._final
 
     def _fold(self):
@@ -245,24 +242,23 @@ class BigDeviceEvidence(DeviceEvidence):
         ad = int(self.cfg.min_allele_depth)
         Pl, L = self.Pl, self.L
         scans, seam = [], None         # the run state at the seam before
-        with record_function("caller_scan"):
-            # every shard's scan queued before the first copy to the host
-            for s, ((acgt, _F, multi, cov, _cc), rc, d) in enumerate(
-                    zip(outs, self._codes, self.devs)):
-                scans.append(calling_kernels.caller_scan(
-                    acgt, multi, cov, rc, ad, fb, somatic, valid=L - s * Pl,
-                    seam=None if seam is None else seam.to(d)))
-                seam = scans[-1].seam
-            counts = np.array([r.small.tolist() for r in scans],
-                              dtype=np.int64)
-            cands, runs, rvals = [], [], []
-            for s, (r, (nc, nr, _, _)) in enumerate(zip(scans, counts)):
-                kc, kr = min(int(nc), CAND_CAP), min(int(nr), RUN_CAP)
-                packed = torch.cat([r.cand_idx[:kc], r.run_start[:kr],
-                                    r.run_val[:kr]]).cpu().numpy()
-                cands.append(packed[:kc].astype(np.int64) + s * Pl)
-                runs.append(packed[kc:kc + kr].astype(np.int64) + s * Pl)
-                rvals.append(packed[kc + kr:])
+        # every shard's scan queued before the first copy to the host
+        for s, ((acgt, _F, multi, cov, _cc), rc, d) in enumerate(
+                zip(outs, self._codes, self.devs)):
+            scans.append(calling_kernels.caller_scan(
+                acgt, multi, cov, rc, ad, fb, somatic, valid=L - s * Pl,
+                seam=None if seam is None else seam.to(d)))
+            seam = scans[-1].seam
+        counts = np.array([r.small.tolist() for r in scans],
+                          dtype=np.int64)
+        cands, runs, rvals = [], [], []
+        for s, (r, (nc, nr, _, _)) in enumerate(zip(scans, counts)):
+            kc, kr = min(int(nc), CAND_CAP), min(int(nr), RUN_CAP)
+            packed = torch.cat([r.cand_idx[:kc], r.run_start[:kr],
+                                r.run_val[:kr]]).cpu().numpy()
+            cands.append(packed[:kc].astype(np.int64) + s * Pl)
+            runs.append(packed[kc:kc + kr].astype(np.int64) + s * Pl)
+            rvals.append(packed[kc + kr:])
         n_cand, n_runs, n_aligned, total_cov = counts.sum(0).tolist()
         bds = [r.block_depth for r in scans]
         STATS.scans += 1
@@ -364,8 +360,7 @@ class BigDeviceEvidence(DeviceEvidence):
             b = np.unique(np.asarray(bd_blocks, dtype=np.int64))
             b = b[(b >= 0) & (b < lbd.nb)]
             bds = lbd._parts
-        with record_function("fetch_columns"):
-            cols, pref, depths = self._fetch(p, pp, b, bds)
+        cols, pref, depths = self._fetch(p, pp, b, bds)
         STATS.fetches += 1
         if b.size:
             self._scan[0].insert(b, depths)

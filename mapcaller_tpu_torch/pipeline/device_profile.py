@@ -43,7 +43,6 @@ import dataclasses
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..ops import calling_kernels, mesh_kernels
 from ..ops.calling_kernels import MAX_ALLELE_COUNT  # noqa: F401
@@ -59,9 +58,8 @@ class EvidenceStats:
     `fetches` column fetches, `downloads` full plane downloads to the
     host profile,
     `overflow_fallbacks` calling runs whose CAND_CAP/RUN_CAP tables
-    overflowed (and so downloaded the planes), `batch_seconds` host wall
-    seconds in the per-batch evidence step (`reconcile_batch`). Counted
-    on every device."""
+    overflowed (and so downloaded the planes). Counted on every
+    device."""
 
     def __init__(self):
         self.reset()
@@ -70,7 +68,6 @@ class EvidenceStats:
         self.applies = self.folded = self.corrections = self.undos = 0
         self.scans = self.fetches = self.downloads = 0
         self.overflow_fallbacks = 0
-        self.batch_seconds = 0.0
 
 
 STATS = EvidenceStats()
@@ -262,10 +259,9 @@ class DeviceEvidence:
         passed the host-side duplicate gate), uint32 words. One K2
         call."""
         B = int(token.rl_dev.shape[0])
-        with record_function("evidence_apply"):
-            mesh_kernels.apply_bits(self.planes, token.pd, token.mmp,
-                                    token.rl_dev, self._words(fast_bits, B),
-                                    bool(pair_end))
+        mesh_kernels.apply_bits(self.planes, token.pd, token.mmp,
+                                token.rl_dev, self._words(fast_bits, B),
+                                bool(pair_end))
         STATS.applies += 1
 
     def _undo_speculation(self, token, pair_end: bool) -> None:
@@ -273,9 +269,8 @@ class DeviceEvidence:
         classes in its packed output vector on the card (K2, source
         "meta", sign -1)."""
         dev0, pd0, mmp0 = token.spec
-        with record_function("evidence_correct"):
-            mesh_kernels.apply_bits(self.planes, pd0, mmp0, token.rl_dev,
-                                    dev0, bool(pair_end), -1, "meta")
+        mesh_kernels.apply_bits(self.planes, pd0, mmp0, token.rl_dev,
+                                dev0, bool(pair_end), -1, "meta")
         STATS.undos += 1
 
     def reconcile_batch(self, token, fast_bits: np.ndarray,
@@ -308,11 +303,10 @@ class DeviceEvidence:
         if rej.size > self.CORRECT_CAP:   # pathological: redo densely
             self._undo_speculation(token, pair_end)
             return self.apply_batch(token, fast_bits, pair_end)
-        with record_function("evidence_correct"):
-            mesh_kernels.apply_bits(self.planes, token.pd, token.mmp,
-                                    token.rl_dev,
-                                    upload(reject_words(rej, B), self.device),
-                                    bool(pair_end), -1)
+        mesh_kernels.apply_bits(self.planes, token.pd, token.mmp,
+                                token.rl_dev,
+                                upload(reject_words(rej, B), self.device),
+                                bool(pair_end), -1)
         STATS.corrections += 1
 
     # ------------------------------------------------------------------
@@ -343,14 +337,13 @@ class DeviceEvidence:
         evidence_finalize launch, which also writes the reference codes
         the scan reads (self._ref_codes) from the text words."""
         if self._final is None:
-            with record_function("evidence_finalize"):
-                self._merge_host_deltas()
-                pl = self.planes
-                fin = calling_kernels.evidence_finalize(
-                    pl.acgt, pl.exact_diff, pl.f_diff, pl.multi_diff, self.L,
-                    words=self.be.chain_ctx.text_words)
-                self._ref_codes = fin.codes
-                self._final = tuple(fin[:5])
+            self._merge_host_deltas()
+            pl = self.planes
+            fin = calling_kernels.evidence_finalize(
+                pl.acgt, pl.exact_diff, pl.f_diff, pl.multi_diff, self.L,
+                words=self.be.chain_ctx.text_words)
+            self._ref_codes = fin.codes
+            self._final = tuple(fin[:5])
         return self._final
 
     def start_scan(self) -> None:
@@ -364,10 +357,9 @@ class DeviceEvidence:
         acgt, F, multi, cov, cov_prefix = self.finalize()
         freq_base = 0.01 if self.cfg.somatic else self.cfg.frequency_thr
         kern = build_scan_kernel(self.L, bool(self.cfg.somatic))
-        with record_function("caller_scan"):
-            self._scan_pending = kern(acgt, multi, cov, self._ref_codes,
-                                      int(self.cfg.min_allele_depth),
-                                      np.float32(freq_base))
+        self._scan_pending = kern(acgt, multi, cov, self._ref_codes,
+                                  int(self.cfg.min_allele_depth),
+                                  np.float32(freq_base))
         STATS.scans += 1
 
     def scan(self):
@@ -413,11 +405,10 @@ class DeviceEvidence:
             if bd_blocks.size:
                 bd = lbd._arr
                 parts.append(bd_blocks.astype(np.int64))
-        with record_function("fetch_columns"):
-            packed = calling_kernels.caller_fetch(
-                acgt, multi, F, cov, cov_prefix,
-                upload(np.concatenate(parts), self.device), P, Q,
-                bd).cpu().numpy()
+        packed = calling_kernels.caller_fetch(
+            acgt, multi, F, cov, cov_prefix,
+            upload(np.concatenate(parts), self.device), P, Q,
+            bd).cpu().numpy()
         STATS.fetches += 1
         if bd is not None:
             self._scan[0].insert(bd_blocks, packed[10 * P + Q:])

@@ -13,6 +13,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from .. import stage_prof
 from ..config import Config
 from ..dna import CODE2CHAR
 from ..genome import Genome
@@ -72,6 +73,7 @@ class MappingEngine:
             from ..native import NativeEngine
             prof = self.profile if self.profile is not None else Profile(1)
             self.native = NativeEngine(self.genome, prof, self.ref_chars, cfg)
+        stage_prof.reset()
 
     def reset_run(self) -> None:
         """In-place reset for engine reuse (long-running / multi-run
@@ -79,7 +81,13 @@ class MappingEngine:
         — on this VM class re-faulting multi-GB fresh allocations costs
         tens of seconds per run, while memset of resident pages runs at
         RAM speed. The C++ ctx keeps its borrowed plane pointers (they
-        don't move) and clears its own per-run accumulators."""
+        don't move) and clears its own per-run accumulators. The stage
+        registry restarts here too (stage_prof)."""
+        stage_prof.reset()
+        with stage_prof.span("reset"):
+            self._reset_run()
+
+    def _reset_run(self) -> None:
         p = self.profile
         if p is not None:
             for a in (p.acgt, p.multi_hit, p.read_count,

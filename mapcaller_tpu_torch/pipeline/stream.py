@@ -29,14 +29,16 @@ submission order.
 from __future__ import annotations
 
 import gzip
-import os
 import sys
 import time
+from collections import deque
 from typing import Callable, Optional
 
 import numpy as np
 
+from .. import stage_prof
 from ..config import Config
+from ..ops.chain_device import CLASS_FAST, CLASS_NOCAND, CLASS_SLOW
 
 # batches a transfer group where the stream groups (see the docstring): the
 # reference package's default stream_group, which no caller there changes
@@ -99,31 +101,21 @@ def run_stream_mapping(engine, cfg: Config, t_start: float,
     engine.profile (in place via C++), engine.inv_sites/tnl_sites."""
     native = engine.native
     be = engine.backend
-    _sp = os.environ.get("MC_STAGE_PROF")
-    _pt = time.perf_counter() if _sp else 0.0
-
-    def _mark(label):
-        nonlocal _pt
-        if _sp:
-            now = time.perf_counter()
-            sys.stderr.write(f"[stage-prof] pre {label}: {now - _pt:.2f}s\n")
-            _pt = now
     use_device_evidence = (cfg.vcf_output and be.chain_enabled
                            and cfg.device_evidence and be.device_evidence_ok)
-    if cfg.vcf_output:
-        # slow-read evidence always accumulates in the host diff arrays
-        engine.enable_diff_profile()
-    _mark("enable_diff_profile")
-    if use_device_evidence:
-        from .device_profile import STATS, make_device_evidence
-        engine.device_evidence = make_device_evidence(be, cfg,
-                                                      engine.profile)
-        _mark("make_device_evidence")
-        native.set_ops_mode(True)
-        # the C++ slow path writes host planes invisibly to Python:
-        # register its dirtiness probe so the device merge can skip its
-        # O(L) nonzero scans when every read stayed on the card
-        engine.profile.dirty_probes.append(native.host_planes_dirty)
+    with stage_prof.span("evidence_setup"):
+        if cfg.vcf_output:
+            # slow-read evidence always accumulates in the host diff arrays
+            engine.enable_diff_profile()
+        if use_device_evidence:
+            from .device_profile import make_device_evidence
+            engine.device_evidence = make_device_evidence(be, cfg,
+                                                          engine.profile)
+            native.set_ops_mode(True)
+            # the C++ slow path writes host planes invisibly to Python:
+            # register its dirtiness probe so the device merge can skip
+            # its O(L) nonzero scans when every read stayed on the card
+            engine.profile.dirty_probes.append(native.host_planes_dirty)
     fold_ev = (engine.device_evidence
                if use_device_evidence and cfg.fold_evidence else None)
     stats_io = np.zeros(6, dtype=np.int64)
@@ -133,13 +125,13 @@ def run_stream_mapping(engine, cfg: Config, t_start: float,
         f1 = cfg.read_files1[lib]
         f2 = cfg.read_files2[lib] if lib < len(cfg.read_files2) else None
         pair_end = f2 is not None or cfg.pair_interleaved
-        buf1 = _load_bytes(f1)
-        buf2 = _load_bytes(f2) if f2 is not None else None
-        if cfg.compact_factor == 0:
-            _resolve_auto_compaction(cfg, be, buf1, buf2)
-        fastq = buf1[:1] == b"@"
-        native.set_input(buf1, buf2, cfg.pair_interleaved)
-        _mark("load+set_input")
+        with stage_prof.span("load"):
+            buf1 = _load_bytes(f1)
+            buf2 = _load_bytes(f2) if f2 is not None else None
+            if cfg.compact_factor == 0:
+                _resolve_auto_compaction(cfg, be, buf1, buf2)
+            fastq = buf1[:1] == b"@"
+            native.set_input(buf1, buf2, cfg.pair_interleaved)
 
         # device kernels require batch % 32 == 0 (fm_search assertions)
         sb = -(-max(cfg.stream_batch_size, 256) // 32) * 32
@@ -159,44 +151,35 @@ def run_stream_mapping(engine, cfg: Config, t_start: float,
         n_slots = native.parser_slots
         depth = min(n_slots - max(2, group_n),
                     max(cfg.stream_pipeline_depth, group_n * (n_dev + 1)))
-        from collections import deque
         slot = 0
         pending = deque()
         eof = False
-        # MC_STAGE_PROF=1: per-stage wall-time accumulation (parse /
-        # submit / collect [includes device wait] / host C++ / evidence)
-        prof = ({"parse": 0.0, "submit": 0.0, "collect": 0.0,
-                 "host_cpp": 0.0, "evidence": 0.0, "batches": 0}
-                if os.environ.get("MC_STAGE_PROF") else None)
-        pc = time.perf_counter
         while not eof or pending:
             while not eof and len(pending) < depth:
-                t0 = pc() if prof is not None else 0.0
-                metas = []
-                while not eof and len(metas) < group_n:
-                    n, maxlen = native.next_batch(slot, sb)
-                    if n <= 0:
-                        eof = True
+                with stage_prof.span("parse"):
+                    metas = []
+                    while not eof and len(metas) < group_n:
+                        n, maxlen = native.next_batch(slot, sb)
+                        if n <= 0:
+                            eof = True
+                            break
+                        metas.append((slot, n, maxlen))
+                        slot = (slot + 1) % n_slots
+                    if not metas:
                         break
-                    metas.append((slot, n, maxlen))
-                    slot = (slot + 1) % n_slots
-                if not metas:
-                    break
-                longest = min(max(m[2] for m in metas), be.max_len)
-                bucket = next((b for b in be.BUCKETS if b >= longest),
-                              be.BUCKETS[-1])
-                parts = [native.batch_codes_packed(sl, bucket, sb)
-                         for sl, _, _ in metas]
-                if prof is not None:
-                    t1 = pc()
-                    prof["parse"] += t1 - t0
-                if be.chain_enabled:
-                    tokens, group = be.submit_chain_group(
-                        parts, bucket, evidence=fold_ev, pair_end=pair_end)
-                else:
-                    tokens, group = [be.submit_packed(*parts[0], bucket)], None
-                if prof is not None:
-                    prof["submit"] += pc() - t1
+                    longest = min(max(m[2] for m in metas), be.max_len)
+                    bucket = next((b for b in be.BUCKETS if b >= longest),
+                                  be.BUCKETS[-1])
+                    parts = [native.batch_codes_packed(sl, bucket, sb)
+                             for sl, _, _ in metas]
+                with stage_prof.span("submit"):
+                    if be.chain_enabled:
+                        tokens, group = be.submit_chain_group(
+                            parts, bucket, evidence=fold_ev,
+                            pair_end=pair_end)
+                    else:
+                        tokens, group = [be.submit_packed(*parts[0],
+                                                          bucket)], None
                 for (sl, n, _), tok in zip(metas, tokens):
                     pending.append((sl, n, tok, group))
             if not pending:
@@ -204,53 +187,42 @@ def run_stream_mapping(engine, cfg: Config, t_start: float,
             pslot, pn, ptoken, pgroup = pending.popleft()
             if pgroup is not None:
                 be.resolve_chain_group(pgroup)
-            if prof is not None and prof["batches"] == 0:
-                _mark("first-submit(s)")
             if be.chain_enabled:
-                t0 = pc() if prof is not None else 0.0
-                (cls, pd, mm, rplast, cscore, counts, rp, gp,
-                 ln) = be.collect_chain(
-                    ptoken, pn, lambda i, s=pslot: native.read_codes(s, i))
-                if prof is not None:
-                    t1 = pc()
-                    prof["collect"] += t1 - t0
-                    if prof["batches"] == 0:
-                        _mark("first-collect")
-                dx = cfg.device_extension
-                if dx == "auto":
-                    # the backend's policy; inf keeps the scalar aligners
-                    dx = be.dp_device_min_pairs() != float("inf")
-                if dx:
-                    sam_text, st = native.process_batch_cls_devdp(
-                        pslot, pair_end, fastq, cls, pd, mm, rplast, cscore,
-                        counts, rp, gp, ln, stats_io, cfg.use_nw)
-                else:
-                    sam_text, st = native.process_batch_cls(
-                        pslot, pair_end, fastq, cls, pd, mm, rplast, cscore,
-                        counts, rp, gp, ln, stats_io)
-                t2 = pc()
-                if prof is not None:
-                    prof["host_cpp"] += t2 - t1
+                with stage_prof.span("collect"):
+                    (cls, pd, mm, rplast, cscore, counts, rp, gp,
+                     ln) = be.collect_chain(
+                        ptoken, pn, lambda i, s=pslot: native.read_codes(s, i))
+                if stage_prof.ON:
+                    by_cls = np.bincount(cls, minlength=3)
+                    stage_prof.count("reads_fast", by_cls[CLASS_FAST])
+                    stage_prof.count("reads_slow", by_cls[CLASS_SLOW])
+                    stage_prof.count("reads_nocand", by_cls[CLASS_NOCAND])
+                with stage_prof.span("host_cpp"):
+                    dx = cfg.device_extension
+                    if dx == "auto":
+                        # the backend's policy; inf keeps the scalar aligners
+                        dx = be.dp_device_min_pairs() != float("inf")
+                    if dx:
+                        sam_text, st = native.process_batch_cls_devdp(
+                            pslot, pair_end, fastq, cls, pd, mm, rplast,
+                            cscore, counts, rp, gp, ln, stats_io, cfg.use_nw)
+                    else:
+                        sam_text, st = native.process_batch_cls(
+                            pslot, pair_end, fastq, cls, pd, mm, rplast,
+                            cscore, counts, rp, gp, ln, stats_io)
                 if engine.device_evidence is not None:
-                    fbits = native.fetch_fast_bits()
-                    engine.device_evidence.reconcile_batch(ptoken, fbits,
-                                                           pair_end)
-                    dt = pc() - t2
-                    STATS.batch_seconds += dt
-                    if prof is not None:
-                        prof["evidence"] += dt
+                    with stage_prof.span("evidence"):
+                        fbits = native.fetch_fast_bits()
+                        engine.device_evidence.reconcile_batch(ptoken, fbits,
+                                                               pair_end)
             else:
-                t0 = pc()
-                counts, rp, gp, ln = be.collect_packed(
-                    ptoken, pn, lambda i, s=pslot: native.read_codes(s, i))
-                t1 = pc()
-                sam_text, st = native.process_batch(
-                    pslot, pair_end, fastq, counts, rp, gp, ln, stats_io)
-                if prof is not None:
-                    prof["collect"] += t1 - t0
-                    prof["host_cpp"] += pc() - t1
-            if prof is not None:
-                prof["batches"] += 1
+                with stage_prof.span("collect"):
+                    counts, rp, gp, ln = be.collect_packed(
+                        ptoken, pn, lambda i, s=pslot: native.read_codes(s, i))
+                with stage_prof.span("host_cpp"):
+                    sam_text, st = native.process_batch(
+                        pslot, pair_end, fastq, counts, rp, gp, ln, stats_io)
+            stage_prof.count("batches")
             native.slot_release(pslot)
             engine.inv_sites.extend(st["inv"])
             engine.tnl_sites.extend(st["tnl"])
@@ -260,12 +232,6 @@ def run_stream_mapping(engine, cfg: Config, t_start: float,
                 f"\r{int(stats_io[0])} "
                 f"{'paired-end' if pair_end else 'singled-end'} reads "
                 f"processed in {int(time.time() - t_start)} seconds...")
-
-        if prof is not None and prof["batches"]:
-            import json
-            sys.stderr.write("\n[stage-prof] " + json.dumps(
-                {k: (round(v, 3) if isinstance(v, float) else v)
-                 for k, v in prof.items()}) + "\n")
 
     s = engine.stats
     s.total_reads = int(stats_io[0])

@@ -8,6 +8,7 @@ import string
 import sys
 import time
 
+from . import stage_prof
 from .cli import VERSION_STR
 from .config import Config
 from .index.fmindex import FMIndex, build_index, index_exists, load_index
@@ -118,6 +119,14 @@ def make_engine(idx: FMIndex, cfg: Config):
 
 
 def run_mapping(engine: MappingEngine, cfg: Config, t_start: float) -> None:
+    with stage_prof.span("map"):
+        _map(engine, cfg, t_start)
+    if engine.native is not None:
+        stage_prof.take_host_leg()
+    stage_prof.emit()
+
+
+def _map(engine: MappingEngine, cfg: Config, t_start: float) -> None:
     sam_fh = None
     bam_writer = None
     headers = sam_headers(engine.genome, VERSION_STR)
@@ -139,7 +148,8 @@ def run_mapping(engine: MappingEngine, cfg: Config, t_start: float) -> None:
             sam_fh.close()
         if bam_writer:
             bam_writer.close()
-    _finish_mapping(engine, cfg, sam_fh, bam_writer, t_start)
+    with stage_prof.span("finalize"):
+        _finish_mapping(engine, cfg, t_start)
 
 
 def _run_mapping_body(engine: MappingEngine, cfg: Config, t_start: float,
@@ -215,7 +225,7 @@ def _run_mapping_body(engine: MappingEngine, cfg: Config, t_start: float,
     sys.stderr.write("\n")
 
 
-def _finish_mapping(engine: MappingEngine, cfg: Config, sam_fh, bam_writer,
+def _finish_mapping(engine: MappingEngine, cfg: Config,
                     t_start: float) -> None:
     engine.finalize()
     st = engine.stats
@@ -238,6 +248,13 @@ def _finish_mapping(engine: MappingEngine, cfg: Config, sam_fh, bam_writer,
 
 
 def run_calling(engine: MappingEngine, cfg: Config, cmd_line: str) -> dict:
+    with stage_prof.span("call"):
+        counts = _call(engine, cfg, cmd_line)
+    stage_prof.emit()
+    return counts
+
+
+def _call(engine: MappingEngine, cfg: Config, cmd_line: str) -> dict:
     from .calling.caller import (VAR_DEL, VAR_INS, VAR_INV, VAR_SUB, VAR_TNL,
                                  cal_block_read_depth, identify_break_point_candidates,
                                  identify_sv, identify_variants,
@@ -253,34 +270,37 @@ def run_calling(engine: MappingEngine, cfg: Config, cmd_line: str) -> dict:
         if res is None:   # capacity overflow: host caller on host planes
             from .pipeline.device_profile import STATS
             STATS.overflow_fallbacks += 1
-            engine.device_evidence.download_into(profile)
-            engine.device_evidence = None
-            if profile.F1_diff is not None:
-                profile.finalize_diffs(engine.idx.ref.ref_sequence_codes())
+            with stage_prof.span("call_device"):
+                engine.device_evidence.download_into(profile)
+                engine.device_evidence = None
+                if profile.F1_diff is not None:
+                    profile.finalize_diffs(engine.idx.ref.ref_sequence_codes())
         else:
             block_depth, profile, variants = res
-    if engine.device_evidence is None:
-        block_depth = cal_block_read_depth(profile, genome.genome_size)
-        variants = identify_variants(cfg, genome, profile,
-                                     engine.idx.ref.ref_sequence_codes(),
-                                     block_depth)
-    if cfg.gvcf:
-        variants = remove_consecutive_genomic_variant(variants)
+    with stage_prof.span("call_records"):
+        if engine.device_evidence is None:
+            block_depth = cal_block_read_depth(profile, genome.genome_size)
+            variants = identify_variants(cfg, genome, profile,
+                                         engine.idx.ref.ref_sequence_codes(),
+                                         block_depth)
+        if cfg.gvcf:
+            variants = remove_consecutive_genomic_variant(variants)
 
-    bp_cans = identify_break_point_candidates(profile, genome.two_genome_size,
-                                              engine.stats.avg_read_length)
-    st = engine.stats
-    if bp_cans and engine.inv_sites:
-        invs = identify_sv(profile, genome, bp_cans, engine.inv_sites, 3,
-                           block_depth, st.fragment_size, st.avg_read_length)
-        variants = sorted(variants + invs, key=lambda v: (v.gPos, v.VarType))
-    if bp_cans and engine.tnl_sites:
-        tnls = identify_sv(profile, genome, bp_cans, engine.tnl_sites, 4,
-                           block_depth, st.fragment_size, st.avg_read_length)
-        variants = sorted(variants + tnls, key=lambda v: (v.gPos, v.VarType))
+    with stage_prof.span("call_sv"):
+        bp_cans = identify_break_point_candidates(profile, genome.two_genome_size,
+                                                  engine.stats.avg_read_length)
+        st = engine.stats
+        if bp_cans and engine.inv_sites:
+            invs = identify_sv(profile, genome, bp_cans, engine.inv_sites, 3,
+                               block_depth, st.fragment_size, st.avg_read_length)
+            variants = sorted(variants + invs, key=lambda v: (v.gPos, v.VarType))
+        if bp_cans and engine.tnl_sites:
+            tnls = identify_sv(profile, genome, bp_cans, engine.tnl_sites, 4,
+                               block_depth, st.fragment_size, st.avg_read_length)
+            variants = sorted(variants + tnls, key=lambda v: (v.gPos, v.VarType))
 
     _log(cfg, f"\tWrite all the predicted sample variations to file [{cfg.vcf_file}]...")
-    with open(cfg.vcf_file, "w") as f:
+    with stage_prof.span("call_write"), open(cfg.vcf_file, "w") as f:
         write_meta(f, cfg, genome, VERSION_STR, cmd_line)
         counts = write_variants(f, cfg, genome, profile, engine.ref_chars, variants)
     _log(cfg, f"\t{counts[VAR_SUB]}(snp); {counts[VAR_INS]}(ins); {counts[VAR_DEL]}(del); "

@@ -35,15 +35,26 @@ struct Chrom {
   i64 fwd_loc;
 };
 
-// optional stage timing (MC_NATIVE_PROF=1): accumulated ns per stage
+// optional stage timing, switched with mc_prof_enable (the port turns it
+// on under MC_STAGE_PROF=1): accumulated ns per stage; off, no clock is
+// read and no counter written
+static bool g_prof_on = false;
 static i64 g_prof_ns[8] = {0};  // build_read, pair, align, profile, sam, span, spare, reads
 static inline i64 now_ns() {
+  if (!g_prof_on) return 0;
   struct timespec ts;
   clock_gettime(CLOCK_MONOTONIC, &ts);
   return (i64)ts.tv_sec * 1000000000 + ts.tv_nsec;
 }
+static inline void prof_add(int k, i64 v) {
+  if (g_prof_on) g_prof_ns[k] += v;
+}
 extern "C" void mc_prof_fetch(i64* out8) {
   for (int i = 0; i < 8; i++) { out8[i] = g_prof_ns[i]; g_prof_ns[i] = 0; }
+}
+extern "C" void mc_prof_enable(i32 on) {
+  g_prof_on = on != 0;
+  for (int i = 0; i < 8; i++) g_prof_ns[i] = 0;
 }
 
 struct Ctx {
@@ -1551,10 +1562,10 @@ static void process_span(Ctx& c, vector<Read>& reads, i32 lo, i32 hi,
       if (n == 0) { remove_redundant(r1.cans); remove_redundant(r2.cans); }
       else mask_unpaired(r1.cans, r2.cans);
       i64 tp1 = now_ns();
-      g_prof_ns[1] += tp1 - tp0;
+      prof_add(1, tp1 - tp0);
       if (produce_read_alignment(c, r1)) o.mapped_num++;
       if (produce_read_alignment(c, r2)) o.mapped_num++;
-      g_prof_ns[2] += now_ns() - tp1;
+      prof_add(2, now_ns() - tp1);
       CoorPair cp = gen_coordinate_pair(r1.cans, r2.cans);
       if (cp.dist != 0 && cp.g1 != -1 && cp.g2 != -1) {
         if (cp.g1 < c.L && cp.g2 >= c.L) {
@@ -1603,7 +1614,7 @@ static void process_span(Ctx& c, vector<Read>& reads, i32 lo, i32 hi,
           update_profile(c, i % 2 == 0, rd, o.events, i);
         else update_multi_hit(c, rd);
       }
-      g_prof_ns[3] += now_ns() - tv0;
+      prof_add(3, now_ns() - tv0);
     }
   } else {
     for (i32 i = lo; i < n_reads; i++) {
@@ -1894,8 +1905,8 @@ void mc_process_batch(void* ctx, i32 slot_idx, i32 pair_end, i32 fastq,
     soff += seed_counts[i];
   }
   i64 t1 = now_ns();
-  g_prof_ns[0] += t1 - t0;
-  g_prof_ns[7] += n;
+  prof_add(0, t1 - t0);
+  prof_add(7, n);
   bool paired = pair_end != 0;
   const i32 CHUNK = 200;
   for (i32 lo = 0; lo < n; lo += CHUNK) {
@@ -1912,7 +1923,7 @@ void mc_process_batch(void* ctx, i32 slot_idx, i32 pair_end, i32 fastq,
     if (stats_io[2] > 1000)
       stats_io[5] = (i64)((double)stats_io[3] / stats_io[2] + 0.5);
   }
-  g_prof_ns[5] += now_ns() - t1;
+  prof_add(5, now_ns() - t1);
   out_sizes[0] = o.mapped_num;
   out_sizes[1] = o.paired_num;
   out_sizes[2] = o.dist_sum;
@@ -1971,8 +1982,8 @@ void mc_process_batch_cls(void* ctx, i32 slot_idx, i32 pair_end, i32 fastq,
     soff += seed_counts[i];
   }
   i64 t1 = now_ns();
-  g_prof_ns[0] += t1 - t0;
-  g_prof_ns[7] += n;
+  prof_add(0, t1 - t0);
+  prof_add(7, n);
   bool paired = pair_end != 0;
   const i32 CHUNK = 200;
   for (i32 lo = 0; lo < n; lo += CHUNK) {
@@ -1989,7 +2000,7 @@ void mc_process_batch_cls(void* ctx, i32 slot_idx, i32 pair_end, i32 fastq,
     if (stats_io[2] > 1000)
       stats_io[5] = (i64)((double)stats_io[3] / stats_io[2] + 0.5);
   }
-  g_prof_ns[5] += now_ns() - t1;
+  prof_add(5, now_ns() - t1);
   out_sizes[0] = o.mapped_num;
   out_sizes[1] = o.paired_num;
   out_sizes[2] = o.dist_sum;
@@ -2045,8 +2056,8 @@ i64 mc_prepare_batch_cls(void* ctx, i32 slot_idx, i32 pair_end, i32 fastq,
     }
     soff += seed_counts[i];
   }
-  g_prof_ns[0] += now_ns() - t0;
-  g_prof_ns[7] += n;
+  prof_add(0, now_ns() - t0);
+  prof_add(7, n);
   return (i64)c.dp_pending.size();
 }
 
@@ -2150,7 +2161,7 @@ void mc_finish_batch_cls(void* ctx, i64* stats_io, i64* out_sizes /*[8]*/) {
     if (stats_io[2] > 1000)
       stats_io[5] = (i64)((double)stats_io[3] / stats_io[2] + 0.5);
   }
-  g_prof_ns[5] += now_ns() - t1;
+  prof_add(5, now_ns() - t1);
   c.dp_cache.clear();
   c.dp_pending.clear();
   out_sizes[0] = o.mapped_num;
