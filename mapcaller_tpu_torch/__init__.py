@@ -13,7 +13,7 @@ Layer map:
               chaining/classification (PyTorch tensor code) and the
               batched NW extension kernel (hand-written CUDA, csrc/nw.cu)
   pipeline/ — mapping engine + stream driver; the C++ host leg
-              (native/mc_native.cpp, built by native.py) runs
+              (csrc/mc_native.cpp, built by native.py) runs
               pairing, slow-path alignment, SAM and the evidence arrays
   calling/  — variant caller + SV detection (host)
 

@@ -1,4 +1,4 @@
-"""ctypes bindings for the native C++ chunk processor (native/mc_native.cpp).
+"""ctypes bindings for the native C++ chunk processor (csrc/mc_native.cpp).
 
 The native runtime owns the post-seeding per-read pipeline (chaining ->
 pairing -> rescue -> gapped alignment -> SAM -> PFM update); the device
@@ -6,11 +6,12 @@ code (PyTorch, plus the CUDA NW and ksw2 kernels) provides the seeds and
 the DP batches; Python orchestrates chunks and owns the variant caller.
 
 The library is compiled at first use into the port's git-ignored build
-directory (toolchain.py); `native/` is only read.
+directory (toolchain.py).
 """
 from __future__ import annotations
 
 import ctypes as C
+import os
 from typing import Optional, Tuple
 
 import numpy as np
@@ -83,6 +84,7 @@ def load_lib():
         lib.mc_ksw2.argtypes = [C.c_char_p, C.c_char_p, C.c_char_p, C.c_char_p]
         lib.mc_prof_fetch.argtypes = [C.c_void_p]
         lib.mc_prof_enable.argtypes = [C.c_int32]
+        lib.mc_set_threads.argtypes = [C.c_void_p, C.c_int32]
         _lib = lib
     return _lib
 
@@ -106,19 +108,27 @@ def ksw2_align_native(s1: str, s2: str) -> Tuple[str, str]:
 
 
 PROF_STAGES = ("build_read", "pair", "align", "profile", "sam", "span",
-               "spare", "reads")
+               "chunks", "reads", "chunks_redone")
 
 
 def prof_fetch() -> dict:
     """The host leg's stage counters since the last fetch, then zeroes
     them (mc_prof_fetch): nanoseconds of building reads (the two-phase
-    leg's DP pair collection included), pairing, alignment, evidence,
-    SAM and the whole span loop, and the reads built. Counters are
-    process-wide, shared by every engine, and count only while
-    prof_enable has them on."""
-    out = np.zeros(8, dtype=np.int64)
+    leg's DP pair collection included), pairing, alignment, evidence and
+    SAM, summed over the threads that ran them, and of the whole chunk
+    loop on the calling thread (`span`); the batches' chunks, the reads
+    built and the chunks mapped again after a missed speculation.
+    Counters are process-wide, shared by every engine, and count only
+    while prof_enable has them on."""
+    out = np.zeros(len(PROF_STAGES), dtype=np.int64)
     load_lib().mc_prof_fetch(out.ctypes.data_as(C.c_void_p))
     return dict(zip(PROF_STAGES, out.tolist()))
+
+
+def host_threads(n_threads: int) -> int:
+    """Threads the host leg runs a batch's chunks on: -t, cut to the
+    cores this process may use."""
+    return max(1, min(n_threads, len(os.sched_getaffinity(0))))
 
 
 def prof_enable(on: bool) -> None:
@@ -158,6 +168,8 @@ class NativeEngine:
                                 _ptr(p.multi_hit), _ptr(p.read_count),
                                 _ptr(p.F1), _ptr(p.R2), _ptr(p.F2), _ptr(p.R1))
         self.configure(cfg, fastq=True)
+        self.threads = host_threads(cfg.n_threads)
+        self.lib.mc_set_threads(self.ctx, self.threads)
 
     def configure(self, cfg, fastq: bool) -> None:
         self.lib.mc_configure(self.ctx, cfg.max_pos_diff,

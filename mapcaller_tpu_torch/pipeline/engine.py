@@ -112,7 +112,7 @@ class MappingEngine:
     def enable_diff_profile(self) -> None:
         """Stream fast path: O(1)/read evidence accumulation — exact-match
         coverage and range counters as +1/-1 diff endpoints, materialized
-        once at finalize (see native/mc_native.cpp mc_set_diff_mode)."""
+        once at finalize (see csrc/mc_native.cpp mc_set_diff_mode)."""
         if self.profile is None or self.profile.F1_diff is not None:
             return
         self.native.enable_diff_mode(self.profile)

@@ -122,7 +122,7 @@ def run_mapping(engine: MappingEngine, cfg: Config, t_start: float) -> None:
     with stage_prof.span("map"):
         _map(engine, cfg, t_start)
     if engine.native is not None:
-        stage_prof.take_host_leg()
+        stage_prof.take_host_leg(engine.native.threads)
     stage_prof.emit()
 
 

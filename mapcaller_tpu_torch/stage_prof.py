@@ -45,8 +45,12 @@ explains:
       call_write          the VCF written
 
 Counters: `batches`; `reads_fast`, `reads_slow`, `reads_nocand` (the
-device's read classes, the oracle's forced SLOW reads included);
-`host_align` (seconds of the C++ leg's alignment).
+device's read classes, the oracle's forced SLOW reads included); from
+the C++ leg at mapping's end, `host_align` (seconds of its alignment,
+summed over the threads that ran it: thread-seconds, not wall time),
+`host_threads` (the threads it runs a batch on), `host_chunks` (the
+batches' 200-read chunks) and `host_chunks_redone` (chunks mapped again
+because the running mean fragment distance moved under them).
 """
 from __future__ import annotations
 
@@ -63,7 +67,8 @@ from . import native
 SPANS = ("parse", "submit", "collect", "host_cpp", "evidence", "reset",
          "map", "load", "evidence_setup", "finalize", "call", "call_prep",
          "call_device", "call_records", "call_sv", "call_write")
-COUNTS = ("batches", "reads_fast", "reads_slow", "reads_nocand")
+COUNTS = ("batches", "reads_fast", "reads_slow", "reads_nocand",
+          "host_chunks", "host_chunks_redone")
 
 ON = False
 _NULL = contextlib.nullcontext()
@@ -79,6 +84,7 @@ def reset() -> None:
     _sums.update(dict.fromkeys(SPANS, 0.0))
     _sums.update(dict.fromkeys(COUNTS, 0))
     _sums["host_align"] = 0.0
+    _sums["host_threads"] = 0
     host_leg_ns.clear()
     native.prof_enable(ON)
 
@@ -112,14 +118,18 @@ def count(key: str, n: int = 1) -> None:
         _sums[key] += int(n)
 
 
-def take_host_leg() -> None:
-    """Add the C++ leg's counters since the last take (mapping's end)."""
+def take_host_leg(threads: int) -> None:
+    """Add the C++ leg's counters since the last take (mapping's end);
+    `threads`: the leg's threads (NativeEngine.threads)."""
     if not ON:
         return
     ns = native.prof_fetch()
+    _sums["host_threads"] = threads
     for k, v in ns.items():
         host_leg_ns[k] = host_leg_ns.get(k, 0) + v
     _sums["host_align"] += ns["align"] * 1e-9
+    _sums["host_chunks"] += ns["chunks"]
+    _sums["host_chunks_redone"] += ns["chunks_redone"]
 
 
 def emit() -> None:

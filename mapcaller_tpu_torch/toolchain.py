@@ -3,9 +3,9 @@
 Two shared libraries, both compiled from sources in the checkout into the
 git-ignored `mapcaller_tpu_torch/build/` directory:
 
-  * libmc_native.so — the C++ host leg `native/mc_native.cpp` (shared
-    with the reference package, which is never written: the reference
-    loader may rebuild into `native/`, this one builds only here);
+  * libmc_native.so — the C++ host leg `csrc/mc_native.cpp` (the port's
+    own copy of the reference package's `native/mc_native.cpp`, grown
+    since: a batch's chunks on a pool of threads);
   * lib<name>.so    — each CUDA source `csrc/<name>.cu`, compiled with
     nvcc for sm_90a into a plain C interface loaded with ctypes.
 
@@ -27,13 +27,13 @@ PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 REPO_DIR = os.path.dirname(PKG_DIR)
 BUILD_DIR = os.path.join(PKG_DIR, "build")
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
-NATIVE_SRC = os.path.join(REPO_DIR, "native", "mc_native.cpp")
+NATIVE_SRC = os.path.join(CSRC_DIR, "mc_native.cpp")
 
 # -Xptxas -v: each kernel's registers, shared memory, stack frame and
 # spills, which build_all hands back
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-GXX_FLAGS = ["-O3", "-fPIC", "-shared", "-std=c++17"]
+GXX_FLAGS = ["-O3", "-fPIC", "-shared", "-std=c++17", "-pthread"]
 
 
 def native_lib_path() -> str:

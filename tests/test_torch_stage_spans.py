@@ -33,7 +33,8 @@ CHILDREN = {"map": ("load", "evidence_setup", "parse", "submit", "collect",
                     "host_cpp", "evidence", "finalize"),
             "call": ("call_prep", "call_device", "call_records", "call_sv",
                      "call_write")}
-KEYS = set(stage_prof.SPANS) | set(stage_prof.COUNTS) | {"host_align"}
+KEYS = (set(stage_prof.SPANS) | set(stage_prof.COUNTS)
+        | {"host_align", "host_threads"})
 
 
 @pytest.fixture(scope="module")
@@ -64,6 +65,9 @@ def _sample(planted, monkeypatch, capsys, flag, libs=1, gvcf=False,
     with (torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]) if trace
           else contextlib.nullcontext()) as prof:
+        if trace:   # a session's first range pays a one-off cost: not mc.*
+            with torch.profiler.record_function("warm-up"):
+                pass
         engine.reset_run()
         runner.run_mapping(engine, cfg, 0.0)
         runner.run_calling(engine, cfg, "mapcaller")
@@ -168,7 +172,8 @@ CANNED = dict(FIVE, reset=0.2, map=3.0, load=0.4, evidence_setup=0.05,
               finalize=0.25, call=1.0, call_prep=0.1, call_device=0.05,
               call_records=0.6, call_sv=0.02, call_write=0.2,
               reads_fast=300_000, reads_slow=150_000, reads_nocand=50_000,
-              host_align=0.75)
+              host_align=0.75, host_threads=8, host_chunks=2_500,
+              host_chunks_redone=50)
 
 
 @pytest.mark.parametrize("name,want", [
@@ -178,7 +183,7 @@ CANNED = dict(FIVE, reset=0.2, map=3.0, load=0.4, evidence_setup=0.05,
     ("evidence.sample_s", 0.6), ("host_leg.align_s", 3.0),
     ("seed_chain.slow_share", 30.0), ("calling.device_s", 0.1),
     ("calling.records_s", 1.4), ("calling.sv_s", 0.04),
-    ("calling.write_s", 0.4),
+    ("calling.write_s", 0.4), ("host_leg.redo_share", 2.0),
 ])
 def test_reader_of_the_line(name, want):
     from mcbench import harness
